@@ -21,10 +21,27 @@ Phases, in order; any failure raises and exits non-zero:
    print each window and the median of the three;
 7. with --profile only: a torch.profiler trace of serve and of detect,
    printing wall time, device busy time, the device's idle share and
-   the largest device entries.
+   the largest device entries;
+8. build the four fused kernels (csrc/fused_conv.cu and
+   csrc/fused_boundary.cu, one nvcc each, in parallel);
+9. hold each fused kernel against its plain version at every shape the
+   train step gives it (the 15 1x1 and 4 3x3 convs of the fused units,
+   the boundary of each block): forward y and s, backward dx, dab and
+   dw; print kernel and plain ms;
+10. the train step at full width: pixellink_resnet50, bottleneck_impl
+   "fused", 512x512, batch 32, bf16, labels made on the card from the
+   polygons of numpy scenes; 3 steps through Trainer.run with finite
+   losses and every fused kernel's launch count risen; one step each of
+   the fused and the "xla" arm (plain Bottleneck, cuDNN convs) from one
+   state (residual BN scales tempered, see ARM_RESIDUAL_SCALE) and
+   batch: loss, gradient and the worst parameter's direction within the
+   stated tolerances; one freeze_bn step;
+11. train img/s for the fused, xla and freeze_bn-fused arms, each over
+   3 windows of at least 10 s (median and range);
+12. with --profile only: a torch.profiler trace of 3 fused train steps.
 
-The line before the last is a JSON object describing the kernels; the
-last line is {"ok": true, "device": {...}}. Weights are random (seeded):
+The line before the last is a JSON object describing the five kernels;
+the last line is {"ok": true, "device": {...}}. Weights are random (seeded):
 the check is that the port runs and agrees with itself and its plain
 versions, not detection quality.
 """
@@ -49,6 +66,33 @@ FWD_REL_TOL = 1e-4
 # phase 6: each metric is read over WINDOWS windows of at least WINDOW_S
 WINDOW_S = 10.0
 WINDOWS = 3
+# the train phases: bench.py's train shape, steps of the main path, and
+# train img/s read over TRAIN_WINDOWS windows of at least TRAIN_WINDOW_S
+TRAIN_SIZE = 512
+TRAIN_BATCH = 32
+TRAIN_STEPS = 3
+TRAIN_WINDOW_S = 10.0
+TRAIN_WINDOWS = 3
+# fused vs xla arm, one step each from one state and batch, in bf16. At
+# the seeded init (every BN scale 1) the bf16 step is chaotic: two runs
+# of the fused arm alone differ by a gradient relative error of ~1, as
+# rounding noise grows through the batch-statistics backward of ~55 BN
+# layers, so no tolerance could tell a fault from noise there. The check
+# runs from the same state with the scale of each residual branch's last
+# BN (conv3.bn.weight) times ARM_RESIDUAL_SCALE, as zero-init-residual
+# schemes start: the step is then near-linear and the two arms agree to
+# ~1.7e-2. The gradient bounds lie between the sound runs' largest
+# reading and the smallest reading of a planted backward fault (PERF.md,
+# Findings; readings on an H100 80GB HBM3 at 700 W). The loss bound only
+# catches coarse forward faults: a
+# 1% error in the statistics moves the loss by ~3e-4 (phase 9 holds the
+# statistics to 1e-4).
+ARM_RESIDUAL_SCALE = 0.05
+ARM_LOSS_REL = 5e-4    # relative loss gap; sound <= 1.5e-4
+ARM_GRAD_REL = 2.5e-2  # |g_fused - g_xla| / |g_xla|; sound <= 1.71e-2,
+#                        planted faults >= 4.43e-2
+ARM_COS_MIN = 0.98     # cosine of the two at the worst parameter; sound
+#                        >= 0.9933, faults that turn it <= 0.335
 
 
 def check(cond: bool, msg: str) -> None:
@@ -374,6 +418,465 @@ def phase_profile(pred, images):
                                         max_name_column_width=60))
 
 
+# ---------------------------------------------------------------- training
+
+FUSED_KERNELS = {
+    # name: (wrapper attribute in ops/fused.py, source, the sites replaced)
+    "fused_conv_fwd": (
+        "conv_fwd", "tensorflow_ocr_tpu_torch/csrc/fused_conv.cu",
+        "tensorflow_ocr_tpu/ops/pallas_fused.py:112 (_f1x1), "
+        "tensorflow_ocr_tpu/ops/pallas_fused.py:153 (_f3x3)"),
+    "fused_conv_bwd": (
+        "conv_bwd", "tensorflow_ocr_tpu_torch/csrc/fused_conv.cu",
+        "tensorflow_ocr_tpu/ops/pallas_fused.py:267 (_fused_conv1x1_bwd), "
+        "tensorflow_ocr_tpu/ops/pallas_fused.py:318 (_fused_conv3x3_bwd)"),
+    "fused_boundary_fwd": (
+        "boundary_fwd", "tensorflow_ocr_tpu_torch/csrc/fused_boundary.cu",
+        "tensorflow_ocr_tpu/ops/pallas_fused.py:420 (fused_boundary)"),
+    "fused_boundary_bwd": (
+        "boundary_bwd", "tensorflow_ocr_tpu_torch/csrc/fused_boundary.cu",
+        "tensorflow_ocr_tpu/ops/pallas_fused.py:456 (_fused_boundary_bwd)"),
+}
+# (N, H, W, Ci, Co, k) of every fused conv at 512^2, batch 32, block by
+# block (M = 524,288 / 131,072 / 32,768 / 8,192 rows): the first unit's
+# conv1 and projection shortcut, the later units' conv1, conv3, the 3x3
+CONV_SHAPES = (
+    (32, 128, 128, 64, 64, 1), (32, 128, 128, 64, 256, 1),
+    (32, 128, 128, 256, 64, 1), (32, 128, 128, 64, 64, 3),
+    (32, 64, 64, 256, 128, 1), (32, 64, 64, 256, 512, 1),
+    (32, 64, 64, 512, 128, 1), (32, 64, 64, 128, 512, 1),
+    (32, 64, 64, 128, 128, 3),
+    (32, 32, 32, 512, 256, 1), (32, 32, 32, 512, 1024, 1),
+    (32, 32, 32, 1024, 256, 1), (32, 32, 32, 256, 1024, 1),
+    (32, 32, 32, 256, 256, 3),
+    (32, 16, 16, 1024, 512, 1), (32, 16, 16, 1024, 2048, 1),
+    (32, 16, 16, 2048, 512, 1), (32, 16, 16, 512, 2048, 1),
+    (32, 16, 16, 512, 512, 3))
+# (N, H, W, C) of the boundary of each block
+BOUNDARY_SHAPES = ((32, 128, 128, 256), (32, 64, 64, 512),
+                   (32, 32, 32, 1024), (32, 16, 16, 2048))
+# bf16 outputs (y, dx, dw, dz, dzs): kernel and plain version round the
+# same f32 value, summed in another order, so they may differ by one bf16
+# ulp (2^-8 relative, 2^-7 at the rounding edge) plus f32 order noise,
+# bounded here by 1e-3 of the tensor's largest value
+BF16_ULP, BF16_NOISE = 2.0 ** -7, 1e-3
+# f32 sums over up to 524,288 rows (s, dab, dabs), in another order and
+# with atomics: within 1e-4 of the sum of the magnitudes
+SUM_REL = 1e-4
+
+
+def bf16_close(name, got, want):
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bound = (BF16_ULP * torch.maximum(got.abs(), want.abs())
+             + BF16_NOISE * float(want.abs().max()))
+    check(bool((err <= bound).all()), f"{name}: max err {float(err.max()):.3e}"
+          f" beyond one bf16 ulp (worst excess "
+          f"{float((err - bound).max()):.3e})")
+    return float(err.max())
+
+
+def sum_close(name, got, want, scale):
+    """f32 per-channel sums against the plain version; ``scale`` is the
+    sum of the magnitudes of the summed terms, per channel."""
+    err = (got - want).abs()
+    check(bool((err <= SUM_REL * scale + 1e-30).all()),
+          f"{name}: max err {float(err.max()):.3e}, beyond "
+          f"{SUM_REL:g} x the sum of magnitudes")
+    return float(err.max())
+
+
+def build_fused():
+    """Build both new CUDA sources in parallel (one nvcc each)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tensorflow_ocr_tpu_torch.ops import fused as FU
+    from tensorflow_ocr_tpu_torch.ops import kernels as K
+
+    def one(name):
+        t0 = time.perf_counter()
+        lib = K.build_library(name)
+        FU._lib(name)
+        return name, lib.name, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        for name, lib, dt in pool.map(one, ("fused_conv", "fused_boundary")):
+            print(f"build: {lib} in {dt:.2f} s")
+
+
+def phase_fused_kernels(device, reports):
+    """Each fused kernel against its plain version at the slice's shapes:
+    forward y and s, backward dx, dab and dw, boundary out, dz, dzs, dab,
+    dabs. Prints kernel and plain ms per shape (CUDA events)."""
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import fused as FU
+
+    gen = torch.Generator().manual_seed(5)
+    bf = torch.bfloat16
+    cl = torch.channels_last
+
+    def act(n, c, h, w, scale=1.0):
+        return (torch.randn(n, c, h, w, generator=gen) * scale).to(
+            device=device, dtype=bf).contiguous(memory_format=cl)
+
+    def table(c, lo, hi, shift):
+        a = torch.empty(c).uniform_(lo, hi, generator=gen)
+        b = torch.randn(c, generator=gen) * shift
+        return torch.stack([a, b]).to(device)
+
+    for r in reports.values():
+        r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+
+    def timed(name, kernel, plain, iters):
+        ms = cuda_ms(kernel, iters)
+        pms = cuda_ms(plain, max(1, iters // 4))
+        reports[name]["ms"] += ms
+        reports[name]["plain_ms"] += pms
+        return ms, pms
+
+    for n, h, w, ci, co, k in CONV_SHAPES:
+        x = act(n, ci, h, w)
+        ab = table(ci, 0.5, 1.5, 0.5)
+        wt = (torch.randn(co, ci, k, k, generator=gen)
+              / (k * k * ci) ** 0.5).to(device=device, dtype=bf)
+        y, s = FU.conv_fwd(x, ab, wt)
+        py, ps = FU.conv_fwd_reference(x, ab, wt)
+        e = bf16_close("fwd y", y, py)
+        mag = py.float().abs().sum((0, 2, 3))
+        es = max(sum_close("fwd s0", s[0], ps[0], mag),
+                 sum_close("fwd s1", s[1], ps[1], ps[1]))
+        dy = act(n, co, h, w, 1e-2)
+        ds = torch.stack([torch.randn(co, generator=gen) * 1e-3,
+                          torch.randn(co, generator=gen) * 1e-4]).to(device)
+        dx, dab, dw = FU.conv_bwd(x, ab, wt, y, dy, ds)
+        pdx, pdab, pdw = FU.conv_bwd_reference(x, ab, wt, y, dy, ds)
+        eb = max(bf16_close("bwd dx", dx, pdx), bf16_close("bwd dw", dw, pdw))
+        # dab's terms: |gm*x| and |gm|, bounded via the plain dx = gm*a
+        gm = (pdx.float() / ab[0][:, None, None]).abs()
+        es = max(es, sum_close("bwd dab0", dab[0], pdab[0],
+                               (gm * x.float().abs()).sum((0, 2, 3))),
+                 sum_close("bwd dab1", dab[1], pdab[1], gm.sum((0, 2, 3))))
+        torch.cuda.synchronize()
+        reports["fused_conv_fwd"]["max_abs_err"] = max(
+            reports["fused_conv_fwd"]["max_abs_err"], e)
+        reports["fused_conv_bwd"]["max_abs_err"] = max(
+            reports["fused_conv_bwd"]["max_abs_err"], eb)
+        fms = timed("fused_conv_fwd", lambda: FU.conv_fwd(x, ab, wt),
+                    lambda: FU.conv_fwd_reference(x, ab, wt), 20)
+        bms = timed("fused_conv_bwd",
+                    lambda: FU.conv_bwd(x, ab, wt, y, dy, ds),
+                    lambda: FU.conv_bwd_reference(x, ab, wt, y, dy, ds), 20)
+        print(f"fused conv {k}x{k} {ci}->{co} at {n}x{h}x{w}: fwd "
+              f"{fms[0]:.4f} ms (plain {fms[1]:.4f}), bwd {bms[0]:.4f} ms "
+              f"(plain {bms[1]:.4f}); max abs err y {e:.3e}, dx/dw "
+              f"{eb:.3e}, f32 sums s/dab {es:.3e}")
+        del x, y, dy, dx, py, pdx
+
+    for n, h, w, c in BOUNDARY_SHAPES:
+        z, zs = act(n, c, h, w), act(n, c, h, w)
+        ab, abs_ = table(c, 0.5, 1.5, 0.5), table(c, 0.5, 1.5, 0.5)
+        out = FU.boundary_fwd(z, ab, zs, abs_)
+        e = bf16_close("boundary out", out,
+                       FU.boundary_fwd_reference(z, ab, zs, abs_))
+        g = act(n, c, h, w, 1e-2)
+        got = FU.boundary_bwd(g, z, ab, zs, abs_)
+        want = FU.boundary_bwd_reference(g, z, ab, zs, abs_)
+        gm = (want[0].float() / ab[0][:, None, None]).abs()
+        eb = max(bf16_close("boundary dz", got[0], want[0]),
+                 bf16_close("boundary dzs", got[2], want[2]))
+        es = 0.0
+        for name, i, terms in (("dab0", 1, z), ("dabs0", 3, zs)):
+            es = max(es, sum_close(name, got[i][0], want[i][0],
+                                   (gm * terms.float().abs()).sum((0, 2, 3))))
+            es = max(es, sum_close(name[:-1] + "1", got[i][1], want[i][1],
+                                   gm.sum((0, 2, 3))))
+        torch.cuda.synchronize()
+        reports["fused_boundary_fwd"]["max_abs_err"] = max(
+            reports["fused_boundary_fwd"]["max_abs_err"], e)
+        reports["fused_boundary_bwd"]["max_abs_err"] = max(
+            reports["fused_boundary_bwd"]["max_abs_err"], eb)
+        fms = timed("fused_boundary_fwd",
+                    lambda: FU.boundary_fwd(z, ab, zs, abs_),
+                    lambda: FU.boundary_fwd_reference(z, ab, zs, abs_), 20)
+        bms = timed("fused_boundary_bwd",
+                    lambda: FU.boundary_bwd(g, z, ab, zs, abs_),
+                    lambda: FU.boundary_bwd_reference(g, z, ab, zs, abs_), 20)
+        print(f"fused boundary C={c} at {n}x{h}x{w}: fwd {fms[0]:.4f} ms "
+              f"(plain {fms[1]:.4f}), bwd {bms[0]:.4f} ms (plain "
+              f"{bms[1]:.4f}); max abs err out {e:.3e}, dz/dzs {eb:.3e}, "
+              f"f32 sums dab/dabs {es:.3e}")
+    print("fused kernels: ms and plain_ms in the kernels line are sums over "
+          f"the {len(CONV_SHAPES)} conv / {len(BOUNDARY_SHAPES)} boundary "
+          "shapes above; max_abs_err is over the bf16 outputs (the f32 "
+          "sums are checked against SUM_REL and printed above)")
+
+
+def train_config(impl: str, freeze_bn: bool = False):
+    """bench.py's train configuration: pixellink_resnet50, OHEM, 512^2,
+    bf16 activations (its batch of 32 with 16 polygon slots an image is
+    train_batch's)."""
+    from tensorflow_ocr_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.model.name = MODEL
+    cfg.model.bottleneck_impl = impl
+    cfg.model.freeze_bn = freeze_bn
+    cfg.loss.name = "ohem"
+    cfg.data.input_size = TRAIN_SIZE
+    cfg.train.log_every_steps = 1
+    return cfg
+
+
+def train_batch(rng, device, n, size, max_polys=16):
+    """A device batch of numpy scenes: flat colour patches with 4-16
+    rotated text-like quads an image (about 1 in 10 tagged ignored),
+    painted on the card by the port's rasterizer."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.ops.rasterize import rasterize_instances
+
+    polys = np.zeros((n, max_polys, 4, 2), np.float32)
+    valid = np.zeros((n, max_polys), bool)
+    tags = np.zeros((n, max_polys), bool)
+    for i in range(n):
+        k = rng.randint(4, max_polys + 1)
+        for j in range(k):
+            cx, cy = rng.uniform(0.1 * size, 0.9 * size, 2)
+            w, h = rng.uniform(0.08, 0.3) * size, rng.uniform(0.03, 0.1) * size
+            th = rng.uniform(-0.6, 0.6)
+            c, s = np.cos(th), np.sin(th)
+            rot = np.array([[c, -s], [s, c]])
+            box = np.array([[-w, -h], [w, -h], [w, h], [-w, h]]) / 2
+            polys[i, j] = np.clip(box @ rot.T + (cx, cy), 0, size - 1)
+        valid[i, :k] = True
+        tags[i, :k] = rng.rand(k) < 0.1
+    coarse = rng.randint(0, 256, (n, size // 64 + 1, size // 64 + 1, 3))
+    images = coarse.repeat(64, 1).repeat(64, 2)[:, :size, :size]
+    batch = {"images": torch.from_numpy(images.astype(np.uint8)).to(device),
+             "polys": torch.from_numpy(polys).to(device),
+             "tags": torch.from_numpy(tags).to(device),
+             "valid": torch.from_numpy(valid).to(device)}
+    ink = torch.from_numpy(rng.randint(0, 60, (n, 3)).astype(np.uint8))
+    for i in range(n):
+        inst = rasterize_instances(batch["polys"][i:i + 1],
+                                   batch["valid"][i:i + 1], size, size)[0]
+        batch["images"][i][inst > 0] = ink[i].to(device)
+    return batch
+
+
+def reset_fused_counts():
+    from tensorflow_ocr_tpu_torch.ops import fused as FU
+
+    for attr, _, _ in FUSED_KERNELS.values():
+        getattr(FU, attr).launches = 0
+
+
+def fused_counts():
+    from tensorflow_ocr_tpu_torch.ops import fused as FU
+
+    return {name: getattr(FU, attr).launches
+            for name, (attr, _, _) in FUSED_KERNELS.items()}
+
+
+def grads_of(model, batch, cfg):
+    """(model loss, {parameter name: flat float32 gradient}) of one
+    forward and backward."""
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    loss, _ = T.loss_and_grads(model, batch, cfg, T.make_loss_fn(cfg))
+    return float(loss), {n: p.grad.float().flatten()
+                         for n, p in model.named_parameters()}
+
+
+def tempered(weights):
+    """``weights`` with each residual branch's last BN scale times
+    ARM_RESIDUAL_SCALE (the state of the fused/xla comparison)."""
+    out = dict(weights)
+    for k, v in weights.items():
+        if k.endswith("conv3.bn.weight"):
+            out[k] = v * ARM_RESIDUAL_SCALE
+    return out
+
+
+def arm_grads(device, weights, batch, impl):
+    """(loss, gradients) of one bf16 step of ``impl`` from a state_dict."""
+    import torch
+    from tensorflow_ocr_tpu_torch.models import build_model
+
+    model = build_model(MODEL, dtype=torch.bfloat16, bottleneck_impl=impl)
+    model.load_state_dict(weights, strict=True)
+    out = grads_of(model.to(device), batch, train_config(impl))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def cosine(a, b) -> float:
+    """Cosine of two vectors, in float64."""
+    import torch
+
+    a, b = a.double(), b.double()
+    return float(torch.dot(a, b)) / max(float(a.norm() * b.norm()), 1e-300)
+
+
+def arm_readings(fused, xla):
+    """The fused arm's (loss, gradients) against the xla arm's: relative
+    loss gap, gradient norms, the relative error of the whole gradient
+    and the worst parameter's cosine."""
+    import torch
+
+    (lf, gf), (lx, gx) = fused, xla
+    vf, vx = torch.cat(list(gf.values())), torch.cat(list(gx.values()))
+    leaf_cos = {n: cosine(gf[n], gx[n]) for n in gf}
+    worst = min(leaf_cos, key=leaf_cos.get)
+    return {"loss": (lf, lx), "rel_loss": abs(lf - lx) / abs(lx),
+            "norm": (float(vf.norm()), float(vx.norm())),
+            "grad_rel": float((vf - vx).norm() / vx.norm()),
+            "worst": (worst, leaf_cos[worst])}
+
+
+def check_arms(r) -> None:
+    check(r["rel_loss"] <= ARM_LOSS_REL, "fused and xla losses disagree")
+    check(r["grad_rel"] <= ARM_GRAD_REL, "fused and xla gradients disagree")
+    check(r["worst"][1] >= ARM_COS_MIN, f"the fused gradient of "
+          f"{r['worst'][0]} points elsewhere than the xla one")
+
+
+def phase_train(device, reports):
+    """The train step at full width: 3 fused steps through Trainer.run,
+    each of the four fused kernels launched; one step each of the fused
+    and the xla arm from one tempered state and batch, compared
+    (check_arms); one freeze_bn step."""
+    import copy
+
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.models.resnet import FusedBottleneck
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    cfg = train_config("fused")
+    batch = train_batch(np.random.RandomState(7), device, TRAIN_BATCH,
+                        TRAIN_SIZE)
+    trainer = T.Trainer(cfg, device)
+    state = trainer.setup(generator=torch.Generator().manual_seed(11))
+    fused_units = [n for n, m in state.model.backbone.named_children()
+                   if isinstance(m, FusedBottleneck)]
+    print(f"fused units at {TRAIN_SIZE}^2: {len(fused_units)} of 16 "
+          f"({', '.join(fused_units)})")
+    snap = copy.deepcopy(state.model.state_dict())
+
+    reset_fused_counts()
+    last = trainer.run([batch] * TRAIN_STEPS, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    counts = fused_counts()
+    print(f"train {TRAIN_STEPS} steps fused: last metrics "
+          f"{json.dumps({k: round(v, 5) for k, v in last.items()})}; "
+          f"kernel launches {counts}")
+    check(state.step == TRAIN_STEPS and last and all(
+        np.isfinite(v) for v in last.values()), "fused train: non-finite "
+          "or missing metrics")
+    check(last["n_pos"] > 0, "fused train: the labels have no positives")
+    for name, n in counts.items():
+        check(n > 0, f"train_step did not launch {name}")
+        reports[name]["launches"] = n
+
+    # one step of the fused and the xla arm from the same tempered state
+    start = tempered(snap)
+    r = arm_readings(arm_grads(device, start, batch, "fused"),
+                     arm_grads(device, start, batch, "xla"))
+    print(f"fused vs xla, one step from one state (residual BN scales x "
+          f"{ARM_RESIDUAL_SCALE:g}): loss {r['loss'][0]:.6f} / "
+          f"{r['loss'][1]:.6f} (rel {r['rel_loss']:.3e}, tol "
+          f"{ARM_LOSS_REL:g}); gradient norm {r['norm'][0]:.6f} / "
+          f"{r['norm'][1]:.6f}, rel err {r['grad_rel']:.4e} (tol "
+          f"{ARM_GRAD_REL:g}); worst parameter cosine {r['worst'][1]:.6f} "
+          f"at {r['worst'][0]} (min {ARM_COS_MIN:g})")
+    check_arms(r)
+
+    # freeze_bn: running statistics, the fused kernels with ds = None
+    fcfg = train_config("fused", freeze_bn=True)
+    reset_fused_counts()
+    m = T.train_step(state, batch, fcfg, T.make_loss_fn(fcfg))
+    loss = float(m["total_loss"])
+    counts = fused_counts()
+    print(f"freeze_bn step fused: total loss {loss:.6f}, kernel launches "
+          f"{counts}")
+    check(np.isfinite(loss), "freeze_bn step: non-finite loss")
+    check(all(counts.values()), "freeze_bn step skipped a fused kernel")
+    return trainer, batch
+
+
+def phase_train_timing(trainer, batch):
+    """Train img/s at 512^2, batch 32, for the fused, xla and
+    freeze_bn-fused arms: host clock around TRAIN_WINDOWS windows of at
+    least TRAIN_WINDOW_S of train_step calls on one device-resident batch
+    (labels made on the card inside each step), each window ending in a
+    sync; reported as the median with the range."""
+    import torch
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    weights = trainer.state.model.state_dict()
+    for arm, impl, freeze in (("fused", "fused", False),
+                              ("xla", "xla", False),
+                              ("freeze_bn fused", "fused", True)):
+        cfg = train_config(impl, freeze)
+        state = T.create_train_state(cfg, batch["images"].device,
+                                     weights=weights)
+        loss_fn = T.make_loss_fn(cfg)
+        for _ in range(2):
+            T.train_step(state, batch, cfg, loss_fn)
+        torch.cuda.synchronize()
+        rates = []
+        for i in range(TRAIN_WINDOWS):
+            steps, t0 = 0, time.perf_counter()
+            while time.perf_counter() - t0 < TRAIN_WINDOW_S:
+                T.train_step(state, batch, cfg, loss_fn)
+                steps += 1
+                if steps % 4 == 0:
+                    torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rates.append(steps * TRAIN_BATCH / dt)
+            print(f"train {arm} window {i}: {rates[-1]:.2f} img/s ({steps} "
+                  f"steps in {dt:.3f} s)")
+        print(f"train {arm} {TRAIN_SIZE}^2 batch {TRAIN_BATCH}: "
+              f"{statistics.median(rates):.2f} img/s (median of "
+              f"{TRAIN_WINDOWS} windows of >= {TRAIN_WINDOW_S:g} s; windows "
+              f"{min(rates):.2f}..{max(rates):.2f}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def phase_profile_train(trainer, batch):
+    """torch.profiler over 3 fused train steps: wall, device busy, idle
+    share and the largest device entries."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    cfg = train_config("fused")
+    loss_fn = T.make_loss_fn(cfg)
+    T.train_step(trainer.state, batch, cfg, loss_fn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            T.train_step(trainer.state, batch, cfg, loss_fn)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000
+    busy = device_busy_ms(prof)
+    check(busy > 0, "train profile: no device events in the trace")
+    print(f"profile train fused 3 steps: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}")
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=40, max_name_column_width=60))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -410,12 +913,24 @@ def main() -> int:
     phase_timing(pred, images)
     if args.profile:
         phase_profile(pred, images)
+    del pred
+    torch.cuda.empty_cache()
 
-    kernel = {k: report[k] for k in ("name", "route", "source", "replaces",
-                                     "launches", "max_abs_err", "ms",
-                                     "plain_ms")}
+    build_fused()
+    fused = {name: {"name": name, "route": "cuda", "source": src,
+                    "replaces": sites}
+             for name, (_, src, sites) in FUSED_KERNELS.items()}
+    phase_fused_kernels(device, fused)
+    trainer, batch = phase_train(device, fused)
+    phase_train_timing(trainer, batch)
+    if args.profile:
+        phase_profile_train(trainer, batch)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms")
+    kernels = [{k: r[k] for k in keys} for r in [report, *fused.values()]]
     print(card)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

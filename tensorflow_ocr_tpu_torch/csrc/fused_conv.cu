@@ -1,0 +1,590 @@
+// Fused conv+BN+relu, forward and backward, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of tensorflow_ocr_tpu/ops/pallas_fused.py:
+//   fused_conv_fwd <- _f1x1 (:112) and _f3x3 (:153);
+//   fused_conv_bwd <- _fused_conv1x1_bwd (:267) and _fused_conv3x3_bwd (:318).
+// One source, templated on the kernel size KS (1 or 3, stride 1, SAME).
+//
+// Contract (NHWC rows, M = N*H*W; bf16 activations, f32 tables):
+//   forward:  xn = bf16(relu(x*a + b)), zero at the pad taps (the pad
+//             applies to the ACTIVATED tensor, so it comes after the
+//             prologue); y = bf16(acc), acc = im2col(xn) . W in f32;
+//             s = [sum acc, sum acc^2] per output channel, from the f32
+//             accumulator.
+//   backward: dye = bf16(dy + ds0 + 2*y*ds1), zero at the pad taps;
+//             dW = im2col(xn)^T . dye (f32);
+//             g = im2col(dye) . Wflip (the flipped, transposed kernel);
+//             gm = g*[x*a + b > 0]; dx = bf16(gm*a);
+//             dab = [sum gm*x, sum gm] per input channel.
+//
+// What bounds it on the H100: at the slice's shapes (M = 524,288 rows at
+// 128x128, channels 64-256) a 1x1 conv does 2*M*Ci*Co flops on 2*M*(Ci+Co)
+// bytes, 16-64 flops a byte: memory-bound against the card's ~295 flops a
+// byte at bf16. The 3x3 convs do 9x the work on the same bytes and sit
+// near the ridge. So the design keeps the activated operand and dy_eff
+// out of device memory: the affine+relu prologue and the dy_eff fold are
+// applied as tiles are staged into shared memory, and the statistics are
+// reduced from the accumulator in registers (one f32 atomicAdd per block
+// and channel). That is the TPU kernel's idea; its tiling is not.
+//
+// Design: an implicit GEMM, one CTA of 256 threads (8 warps) per
+// 128 x BN output tile, BK = 32. Tiles go global -> registers -> shared
+// memory, with the next tile's global loads in flight while the tensor
+// cores (mma.sync m16n8k16 bf16, f32 accumulate) work on the current
+// one. Since every channel count is a multiple of 64, a K-tile of 32 lies
+// inside one tap of the 3x3 window, so each staged row is one pixel's 32
+// channels, read as four 16-byte vectors. Three kernels:
+//   conv_fwd:  rows = pixels, cols = Co, K = KS*KS*Ci;
+//   conv_dx:   rows = pixels, cols = Ci, K = KS*KS*Co (dye in, dx out);
+//   conv_dw:   rows = KS*KS*Ci, cols = Co, K = pixels, split over the
+//              pixels across CTAs and summed with f32 atomics into dW.
+// wgmma, TMA and a deeper pipeline are later work: this version is the
+// simple one that is right first.
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BM = 128;
+constexpr int BK = 32;
+constexpr int LDS = BK + 8;  // padded shared row: conflict-free fragments
+constexpr int THREADS = 256;
+
+struct Geo {
+  int n, h, w, m;  // m = n*h*w pixels
+};
+
+__device__ __forceinline__ void unpack8(const uint4& v, float f[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float f[8]) {
+  uint4 v;
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return v;
+}
+
+__device__ __forceinline__ void load8f(const float* p, float f[8]) {
+  float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// Pixel index of output pixel m shifted by tap t of a KSxKS window,
+// or -1 where the tap falls outside the image (the SAME pad).
+template <int KS>
+__device__ __forceinline__ int tap_pixel(const Geo& g, int m, int t) {
+  if (m >= g.m) return -1;
+  if (KS == 1) return m;
+  int ow = m % g.w;
+  int r = m / g.w;
+  int oh = r % g.h;
+  int ky = t / KS, kx = t % KS;
+  int hh = oh + ky - KS / 2, ww = ow + kx - KS / 2;
+  if (hh < 0 || hh >= g.h || ww < 0 || ww >= g.w) return -1;
+  return m + (ky - KS / 2) * g.w + (kx - KS / 2);
+}
+
+// x*a + b rounded after each operation, as the plain version's separate
+// elementwise ops round it (no FMA contraction): the relu masks of the
+// kernel and of the plain version then agree exactly.
+__device__ __forceinline__ float affine(float x, float a, float b) {
+  return __fadd_rn(__fmul_rn(x, a), b);
+}
+
+// The operand transforms, applied as a tile is staged.
+enum Xform { kAffineRelu, kDyEff };
+
+// 8 channels of one pixel: raw loads now, transform at staging time.
+template <Xform X>
+struct Vec8 {
+  uint4 r0, r1;
+  int c;      // first channel
+  bool live;  // false: zero (pad tap or out of range)
+
+  __device__ __forceinline__ void fetch(const bf16* s0, const bf16* s1,
+                                        int pix, int ch, int c0) {
+    c = c0;
+    live = pix >= 0;
+    if (live) {
+      size_t off = (size_t)pix * ch + c0;
+      r0 = __ldg(reinterpret_cast<const uint4*>(s0 + off));
+      if (X == kDyEff) r1 = __ldg(reinterpret_cast<const uint4*>(s1 + off));
+    }
+  }
+
+  // t0/t1: the per-channel tables (a, b) or (ds0, ds1), each of length ch
+  __device__ __forceinline__ uint4 value(const float* t0,
+                                         const float* t1) const {
+    if (!live) return make_uint4(0, 0, 0, 0);
+    float x[8], p[8], q[8], o[8];
+    unpack8(r0, x);
+    load8f(t0 + c, p);
+    load8f(t1 + c, q);
+    if (X == kAffineRelu) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[i] = fmaxf(affine(x[i], p[i], q[i]), 0.f);
+    } else {
+      float y[8];
+      unpack8(r1, y);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        o[i] = __fadd_rn(__fadd_rn(x[i], p[i]), __fmul_rn(2.f * y[i], q[i]));
+    }
+    return pack8(o);
+  }
+};
+
+// ---------------------------------------------------------------- mma core
+
+template <int BN>
+struct Warps {
+  static constexpr int WN = BN / 32;       // warps along N (32 cols each)
+  static constexpr int WM = 8 / WN;        // warps along M
+  static constexpr int MT = BM / WM / 16;  // m16 tiles per warp
+  static constexpr int NT = 4;             // n8 tiles per warp
+};
+
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// acc += sA (BM x BK, K contiguous) . sB (BN x BK, K contiguous)^T
+template <int BN>
+__device__ __forceinline__ void mma_tile(bf16 (*sA)[LDS], bf16 (*sB)[LDS],
+                                         float acc[][Warps<BN>::NT][4]) {
+  using W = Warps<BN>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / W::WN, wn = warp % W::WN;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) {
+    uint32_t a[W::MT][4], b[W::NT][2];
+#pragma unroll
+    for (int i = 0; i < W::MT; ++i) {
+      int r = wm * (BM / W::WM) + i * 16 + g;
+      a[i][0] = lds32(&sA[r][kk + 2 * t]);
+      a[i][1] = lds32(&sA[r + 8][kk + 2 * t]);
+      a[i][2] = lds32(&sA[r][kk + 2 * t + 8]);
+      a[i][3] = lds32(&sA[r + 8][kk + 2 * t + 8]);
+    }
+#pragma unroll
+    for (int j = 0; j < W::NT; ++j) {
+      int nrow = wn * 32 + j * 8 + g;
+      b[j][0] = lds32(&sB[nrow][kk + 2 * t]);
+      b[j][1] = lds32(&sB[nrow][kk + 2 * t + 8]);
+    }
+#pragma unroll
+    for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+      for (int j = 0; j < W::NT; ++j) mma16816(acc[i][j], a[i], b[j]);
+  }
+}
+
+// Row and column of accumulator element e (0..3) of tile (i, j), within
+// the CTA's tile.
+template <int BN>
+__device__ __forceinline__ void acc_pos(int i, int j, int e, int& r, int& c) {
+  using W = Warps<BN>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / W::WN, wn = warp % W::WN;
+  r = wm * (BM / W::WM) + i * 16 + lane / 4 + (e >= 2 ? 8 : 0);
+  c = wn * 32 + j * 8 + 2 * (lane % 4) + (e & 1);
+}
+
+// Add per-column partial sums p0, p1 (per (j, e&1) pair of this thread)
+// across the warp's rows, then into the CTA's shared table red[2][BN].
+template <int BN>
+__device__ __forceinline__ void reduce_cols(float p0[][2], float p1[][2],
+                                            float (*red)[128]) {
+  using W = Warps<BN>;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        p0[j][e] += __shfl_xor_sync(0xffffffffu, p0[j][e], off);
+        p1[j][e] += __shfl_xor_sync(0xffffffffu, p1[j][e], off);
+      }
+      if (lane < 4) {
+        int r, c;
+        acc_pos<BN>(0, j, e, r, c);
+        atomicAdd(&red[0][c], p0[j][e]);
+        atomicAdd(&red[1][c], p1[j][e]);
+      }
+    }
+}
+
+// ---------------------------------------------------------------- loaders
+// Each stages one BK-wide K slice of a (rows x K) operand into a
+// (rows x LDS) shared tile, K contiguous.
+
+// Natural activation rows: row r = pixel m0 + r, K index = (tap, channel).
+template <int KS, Xform X>
+struct PixelRows {
+  static constexpr int V = BM * BK / 8 / THREADS;  // vectors per thread: 2
+  const bf16 *s0, *s1;
+  const float *t0, *t1;
+  Geo g;
+  int ch, m0;
+  Vec8<X> v[V];
+
+  __device__ __forceinline__ void fetch(int kt) {
+    int k0 = kt * BK, tap = k0 / ch, c0 = k0 % ch;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      int idx = threadIdx.x + i * THREADS;
+      int r = idx / (BK / 8), kv = (idx % (BK / 8)) * 8;
+      v[i].fetch(s0, s1, tap_pixel<KS>(g, m0 + r, tap), ch, c0 + kv);
+    }
+  }
+  __device__ __forceinline__ void store(bf16 (*s)[LDS]) const {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      int idx = threadIdx.x + i * THREADS;
+      int r = idx / (BK / 8), kv = (idx % (BK / 8)) * 8;
+      *reinterpret_cast<uint4*>(&s[r][kv]) = v[i].value(t0, t1);
+    }
+  }
+};
+
+// A plain row-major (rows x K) bf16 matrix, rows n0.. (weights).
+template <int BN>
+struct MatRows {
+  static constexpr int V = BN * BK / 8 / THREADS;
+  const bf16* p;
+  int k, n0;
+  uint4 v[V];
+
+  __device__ __forceinline__ void fetch(int kt) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      int idx = threadIdx.x + i * THREADS;
+      int r = idx / (BK / 8), kv = (idx % (BK / 8)) * 8;
+      v[i] = __ldg(reinterpret_cast<const uint4*>(
+          p + (size_t)(n0 + r) * k + kt * BK + kv));
+    }
+  }
+  __device__ __forceinline__ void store(bf16 (*s)[LDS]) const {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      int idx = threadIdx.x + i * THREADS;
+      int r = idx / (BK / 8), kv = (idx % (BK / 8)) * 8;
+      *reinterpret_cast<uint4*>(&s[r][kv]) = v[i];
+    }
+  }
+};
+
+// Transposed staging for dW: shared row = a column of an activation
+// operand (the K index of the conv: (tap, channel)), shared K = pixels.
+// ROWS shared rows starting at column q0 of a (pixels x KS*KS*ch) im2col
+// matrix (KS = 1: the activation itself); pixels p0 + [0, BK).
+template <int KS, Xform X, int ROWS>
+struct PixelCols {
+  static constexpr int V = ROWS * BK / 8 / THREADS;
+  static constexpr int VPR = ROWS / 8;  // vectors per pixel
+  const bf16 *s0, *s1;
+  const float *t0, *t1;
+  Geo g;
+  int ch, q0, qmax, p0, pend;
+  Vec8<X> v[V];
+
+  __device__ __forceinline__ void fetch(int kt) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      int idx = threadIdx.x + i * THREADS;
+      int pl = idx / VPR, q = q0 + (idx % VPR) * 8;
+      int pix = kt * BK + p0 + pl;
+      int src = -1;
+      if (pix < pend && q < qmax) src = tap_pixel<KS>(g, pix, q / ch);
+      v[i].fetch(s0, s1, src, ch, q % ch);
+    }
+  }
+  __device__ __forceinline__ void store(bf16 (*s)[LDS]) const {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      int idx = threadIdx.x + i * THREADS;
+      int pl = idx / VPR, ql = (idx % VPR) * 8;
+      uint4 u = v[i].value(t0, t1);
+      const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[ql + j][pl] = e[j];
+    }
+  }
+};
+
+template <int BN, class LA, class LB>
+__device__ __forceinline__ void mainloop(LA& la, LB& lb, int nk,
+                                         bf16 (*sA)[LDS], bf16 (*sB)[LDS],
+                                         float acc[][4][4]) {
+  if (nk <= 0) return;
+  la.fetch(0);
+  lb.fetch(0);
+  for (int kt = 0; kt < nk; ++kt) {
+    la.store(sA);
+    lb.store(sB);
+    __syncthreads();
+    if (kt + 1 < nk) {
+      la.fetch(kt + 1);
+      lb.fetch(kt + 1);
+    }
+    mma_tile<BN>(sA, sB, acc);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------- kernels
+
+template <int KS, int BN>
+__global__ void __launch_bounds__(THREADS)
+conv_fwd(const bf16* __restrict__ x, const float* __restrict__ ab,
+         const bf16* __restrict__ wt, bf16* __restrict__ y,
+         float* __restrict__ stats, Geo g, int ci, int co) {
+  using W = Warps<BN>;
+  __shared__ __align__(16) bf16 sA[BM][LDS];
+  __shared__ __align__(16) bf16 sB[BN][LDS];
+  __shared__ float red[2][128];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  for (int i = threadIdx.x; i < 2 * 128; i += THREADS) red[i / 128][i % 128] = 0.f;
+
+  PixelRows<KS, kAffineRelu> la{x, nullptr, ab, ab + ci, g, ci, m0};
+  MatRows<BN> lb{wt, KS * KS * ci, n0};
+  float acc[W::MT][W::NT][4] = {};
+  mainloop<BN>(la, lb, KS * KS * ci / BK, sA, sB, acc);
+
+  float p0[W::NT][2] = {}, p1[W::NT][2] = {};
+#pragma unroll
+  for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        int r, c;
+        acc_pos<BN>(i, j, e, r, c);
+        if (m0 + r >= g.m) continue;
+        float u = acc[i][j][e], v = acc[i][j][e + 1];
+        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)(m0 + r) * co + n0 + c) =
+            __floats2bfloat162_rn(u, v);
+        p0[j][0] += u;
+        p0[j][1] += v;
+        p1[j][0] += u * u;
+        p1[j][1] += v * v;
+      }
+  reduce_cols<BN>(p0, p1, red);
+  __syncthreads();
+  for (int c = threadIdx.x; c < BN; c += THREADS) {
+    atomicAdd(&stats[n0 + c], red[0][c]);
+    atomicAdd(&stats[co + n0 + c], red[1][c]);
+  }
+}
+
+template <int KS, int BN>
+__global__ void __launch_bounds__(THREADS)
+conv_dx(const bf16* __restrict__ x, const float* __restrict__ ab,
+        const bf16* __restrict__ wflip, const bf16* __restrict__ y,
+        const bf16* __restrict__ dy, const float* __restrict__ ds,
+        bf16* __restrict__ dx, float* __restrict__ dab, Geo g, int ci,
+        int co) {
+  using W = Warps<BN>;
+  __shared__ __align__(16) bf16 sA[BM][LDS];
+  __shared__ __align__(16) bf16 sB[BN][LDS];
+  __shared__ float red[2][128];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  for (int i = threadIdx.x; i < 2 * 128; i += THREADS) red[i / 128][i % 128] = 0.f;
+
+  PixelRows<KS, kDyEff> la{dy, y, ds, ds + co, g, co, m0};
+  MatRows<BN> lb{wflip, KS * KS * co, n0};
+  float acc[W::MT][W::NT][4] = {};
+  mainloop<BN>(la, lb, KS * KS * co / BK, sA, sB, acc);
+
+  float p0[W::NT][2] = {}, p1[W::NT][2] = {};
+#pragma unroll
+  for (int j = 0; j < W::NT; ++j) {
+    int r, c;
+    acc_pos<BN>(0, j, 0, r, c);
+    const float a0 = __ldg(ab + n0 + c), a1 = __ldg(ab + n0 + c + 1);
+    const float b0 = __ldg(ab + ci + n0 + c), b1 = __ldg(ab + ci + n0 + c + 1);
+#pragma unroll
+    for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        acc_pos<BN>(i, j, e, r, c);
+        if (m0 + r >= g.m) continue;
+        size_t off = (size_t)(m0 + r) * ci + n0 + c;
+        float2 xv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(x + off));
+        float gu = affine(xv.x, a0, b0) > 0.f ? acc[i][j][e] : 0.f;
+        float gv = affine(xv.y, a1, b1) > 0.f ? acc[i][j][e + 1] : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(dx + off) =
+            __floats2bfloat162_rn(gu * a0, gv * a1);
+        p0[j][0] += gu * xv.x;
+        p0[j][1] += gv * xv.y;
+        p1[j][0] += gu;
+        p1[j][1] += gv;
+      }
+  }
+  reduce_cols<BN>(p0, p1, red);
+  __syncthreads();
+  for (int c = threadIdx.x; c < BN; c += THREADS) {
+    atomicAdd(&dab[n0 + c], red[0][c]);
+    atomicAdd(&dab[ci + n0 + c], red[1][c]);
+  }
+}
+
+template <int KS, int BN>
+__global__ void __launch_bounds__(THREADS)
+conv_dw(const bf16* __restrict__ x, const float* __restrict__ ab,
+        const bf16* __restrict__ y, const bf16* __restrict__ dy,
+        const float* __restrict__ ds, float* __restrict__ dw, Geo g, int ci,
+        int co, int chunk) {
+  using W = Warps<BN>;
+  __shared__ __align__(16) bf16 sA[BM][LDS];
+  __shared__ __align__(16) bf16 sB[BN][LDS];
+  const int kdim = KS * KS * ci;
+  const int q0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int p0 = blockIdx.z * chunk;
+  const int pend = min(g.m, p0 + chunk);
+  if (p0 >= pend) return;
+
+  PixelCols<KS, kAffineRelu, BM> la{x, nullptr, ab, ab + ci, g, ci,
+                                    q0, kdim, p0, pend};
+  PixelCols<1, kDyEff, BN> lb{dy, y, ds, ds + co, g, co, n0, co, p0, pend};
+  float acc[W::MT][W::NT][4] = {};
+  mainloop<BN>(la, lb, (pend - p0 + BK - 1) / BK, sA, sB, acc);
+
+#pragma unroll
+  for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int r, c;
+        acc_pos<BN>(i, j, e, r, c);
+        if (q0 + r < kdim) atomicAdd(&dw[(size_t)(q0 + r) * co + n0 + c], acc[i][j][e]);
+      }
+}
+
+int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+template <int KS>
+int launch_fwd(const bf16* x, const float* ab, const bf16* wt, bf16* y,
+               float* stats, Geo g, int ci, int co, cudaStream_t s) {
+  dim3 grid((g.m + BM - 1) / BM, 1);
+  if (co % 128 == 0) {
+    grid.y = co / 128;
+    conv_fwd<KS, 128><<<grid, THREADS, 0, s>>>(x, ab, wt, y, stats, g, ci, co);
+  } else {
+    grid.y = co / 64;
+    conv_fwd<KS, 64><<<grid, THREADS, 0, s>>>(x, ab, wt, y, stats, g, ci, co);
+  }
+  return cudaGetLastError();
+}
+
+template <int KS>
+int launch_bwd(const bf16* x, const float* ab, const bf16* wflip,
+               const bf16* y, const bf16* dy, const float* ds, bf16* dx,
+               float* dab, float* dw, Geo g, int ci, int co, cudaStream_t s) {
+  // dW: (KS*KS*ci) x co tiles, the pixels split to fill ~4 waves
+  const int kdim = KS * KS * ci;
+  const int bn = co % 128 == 0 ? 128 : 64;
+  const int tiles = ((kdim + BM - 1) / BM) * (co / bn);
+  int splits = (4 * num_sms() + tiles - 1) / tiles;
+  int chunk = (g.m + splits - 1) / splits;
+  chunk = (chunk + BK - 1) / BK * BK;
+  splits = (g.m + chunk - 1) / chunk;
+  dim3 gw((kdim + BM - 1) / BM, co / bn, splits);
+  if (bn == 128)
+    conv_dw<KS, 128><<<gw, THREADS, 0, s>>>(x, ab, y, dy, ds, dw, g, ci, co, chunk);
+  else
+    conv_dw<KS, 64><<<gw, THREADS, 0, s>>>(x, ab, y, dy, ds, dw, g, ci, co, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  dim3 gx((g.m + BM - 1) / BM, 1);
+  if (ci % 128 == 0) {
+    gx.y = ci / 128;
+    conv_dx<KS, 128><<<gx, THREADS, 0, s>>>(x, ab, wflip, y, dy, ds, dx, dab, g, ci, co);
+  } else {
+    gx.y = ci / 64;
+    conv_dx<KS, 64><<<gx, THREADS, 0, s>>>(x, ab, wflip, y, dy, ds, dx, dab, g, ci, co);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x (n,h,w,ci) bf16; ab (2,ci) f32; wt (co, ks*ks*ci) bf16 with K in
+// (ky, kx, ci) order; y (n,h,w,co) bf16 out; stats (2,co) f32, zeroed by
+// the caller. ci, co multiples of 64; ks 1 or 3. Returns the launch error.
+extern "C" int fused_conv_fwd(const void* x, const void* ab, const void* wt,
+                              void* y, void* stats, int n, int h, int w,
+                              int ci, int co, int ks, void* stream) {
+  if (ci % 64 || co % 64 || (ks != 1 && ks != 3)) return cudaErrorInvalidValue;
+  Geo g{n, h, w, n * h * w};
+  if (g.m == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto xb = static_cast<const bf16*>(x);
+  auto abf = static_cast<const float*>(ab);
+  auto wb = static_cast<const bf16*>(wt);
+  auto yb = static_cast<bf16*>(y);
+  auto st = static_cast<float*>(stats);
+  return ks == 1 ? launch_fwd<1>(xb, abf, wb, yb, st, g, ci, co, s)
+                 : launch_fwd<3>(xb, abf, wb, yb, st, g, ci, co, s);
+}
+
+// x, ab as above; wflip (ci, ks*ks*co) bf16, the flipped kernel with K
+// in (ky, kx, co) order; y, dy (n,h,w,co) bf16; ds (2,co) f32; outputs
+// dx (n,h,w,ci) bf16, dab (2,ci) f32 and dw (ks*ks*ci, co) f32, the last
+// two zeroed by the caller. Returns the first launch error.
+extern "C" int fused_conv_bwd(const void* x, const void* ab,
+                              const void* wflip, const void* y,
+                              const void* dy, const void* ds, void* dx,
+                              void* dab, void* dw, int n, int h, int w,
+                              int ci, int co, int ks, void* stream) {
+  if (ci % 64 || co % 64 || (ks != 1 && ks != 3)) return cudaErrorInvalidValue;
+  Geo g{n, h, w, n * h * w};
+  if (g.m == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto args = [&](auto launch) {
+    return launch(static_cast<const bf16*>(x), static_cast<const float*>(ab),
+                  static_cast<const bf16*>(wflip), static_cast<const bf16*>(y),
+                  static_cast<const bf16*>(dy), static_cast<const float*>(ds),
+                  static_cast<bf16*>(dx), static_cast<float*>(dab),
+                  static_cast<float*>(dw), g, ci, co, s);
+  };
+  return ks == 1 ? args(launch_bwd<1>) : args(launch_bwd<3>);
+}

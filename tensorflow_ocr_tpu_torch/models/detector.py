@@ -28,13 +28,15 @@ class Detector(nn.Module):
     (uint8 on the wire); output NHWC float32 logits."""
 
     def __init__(self, backbone_name: str = "resnet50",
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 bottleneck_impl: str = "xla"):
         super().__init__()
         if backbone_name == "tiny":
             self.backbone = TinyConvNet()
         else:
             self.backbone = ResNetV1(
-                RESNET_UNITS[int(backbone_name[len("resnet"):])])
+                RESNET_UNITS[int(backbone_name[len("resnet"):])],
+                bottleneck_impl=bottleneck_impl)
         self.head = PixelLinkHead(self.backbone.channels)
         self.dtype = dtype
         self.output_stride = 4
@@ -66,16 +68,21 @@ NOT_PORTED = (
 
 
 def build_model(name: str, dtype: torch.dtype = torch.bfloat16,
-                generator: Optional[torch.Generator] = None) -> Detector:
+                generator: Optional[torch.Generator] = None,
+                bottleneck_impl: str = "xla") -> Detector:
     """Build a registry model with float32 parameters initialised from
-    ``generator`` (seed 0 when None); ``dtype`` is the activation type."""
+    ``generator`` (seed 0 when None); ``dtype`` is the activation type.
+    ``bottleneck_impl`` "fused" puts the ResNet's stride-1 units on the
+    fused kernels (the tiny backbone has no bottleneck and ignores it);
+    the state_dict is the same either way."""
     if name not in MODEL_REGISTRY:
         if name in NOT_PORTED:
             raise NotImplementedError(
                 f"model {name} is not ported yet (ROADMAP.md Queue 1: "
                 "other families)")
         raise ValueError(f"unknown model {name}; have {sorted(MODEL_REGISTRY)}")
-    model = Detector(dtype=dtype, **MODEL_REGISTRY[name])
+    model = Detector(dtype=dtype, bottleneck_impl=bottleneck_impl,
+                     **MODEL_REGISTRY[name])
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)

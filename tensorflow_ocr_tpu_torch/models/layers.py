@@ -1,10 +1,10 @@
-"""Shared layers: conv+BN (eval-mode fold), TF-SAME padding, stem pool, unpool.
+"""Shared layers: conv+BN, TF-SAME padding, stem pool, unpool.
 
-Port of ``tensorflow_ocr_tpu/models/layers.py`` as far as the serving
-path needs it. Modules take NCHW tensors (the model keeps them in the
-channels-last memory format, so the data is laid out as JAX's NHWC);
-parameters stay float32 and are cast to the activation dtype per call,
-like the Flax modules' ``dtype``/``param_dtype`` split.
+Port of ``tensorflow_ocr_tpu/models/layers.py`` as far as the detect
+path and the train step need it. Modules take NCHW tensors (the model
+keeps them in the channels-last memory format, so the data is laid out
+as JAX's NHWC); parameters stay float32 and are cast to the activation
+dtype per call, like the Flax modules' ``dtype``/``param_dtype`` split.
 
 Deliberately not ported (TPU/XLA rewrites that compute nothing new):
 the space-to-depth stem, the equality-mask max-pool VJP and the
@@ -22,6 +22,9 @@ from torch import nn
 
 # ImageNet channel means, RGB order (models/layers.py:17).
 IMAGENET_MEANS = (123.68, 116.78, 103.94)
+# BN decay (models/layers.py:353): Flax's momentum multiplies the OLD
+# running value, torch's the new one.
+BN_MOMENTUM = 0.997
 
 
 def mean_image_subtraction(images: torch.Tensor,
@@ -78,11 +81,13 @@ class BatchNorm(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """slim conv2d + BatchNorm + optional relu (models/layers.py:329-383).
+    """slim conv2d + BatchNorm + optional relu (models/layers.py:329-425).
 
-    The parameters stay unfolded; in eval mode each forward folds the
+    The parameters stay unfolded. In eval mode each forward folds the
     running-stats affine into the conv: ``w' = w·γ/√(σ²+ε)`` and
-    ``shift = β − μ·γ/√(σ²+ε)``. ``explicit_pad`` is slim's
+    ``shift = β − μ·γ/√(σ²+ε)`` (gradients flow through the fold, as in
+    the freeze_bn step). In train mode BN uses the batch statistics with
+    Flax's conventions (:meth:`_batch_norm`). ``explicit_pad`` is slim's
     ``conv2d_same`` for stride > 1: fixed ``(k-1)//2`` before and ``k//2``
     after. Every other conv pads TF-SAME.
     """
@@ -106,23 +111,49 @@ class ConvBN(nn.Module):
             left, right = same_pads(w, k, s)
         return left, right, top, bottom
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(
-                "training-mode BatchNorm is not ported yet "
-                "(ROADMAP.md Queue 1: training-mode BN and the train step)")
-        bn = self.bn
-        mul = bn.weight * torch.rsqrt(bn.running_var + self.eps)
-        shift = bn.bias - bn.running_mean * mul
-        wgt = (self.conv.weight * mul[:, None, None, None]).to(x.dtype)
+    def _conv(self, x: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
         left, right, top, bottom = self._pads(*x.shape[-2:])
         if left == right and top == bottom:
-            y = F.conv2d(x, wgt, stride=self.stride, padding=(top, left))
+            return F.conv2d(x, wgt, stride=self.stride, padding=(top, left))
+        return F.conv2d(F.pad(x, (left, right, top, bottom)), wgt,
+                        stride=self.stride)
+
+    def _batch_norm(self, y: torch.Tensor) -> torch.Tensor:
+        """Flax ``nn.BatchNorm(use_running_average=False)``: statistics in
+        float32 over (N, H, W) with the fast variance max(E[y²]−E[y]², 0),
+        which is biased and also feeds the running update; the running
+        values update as ``m·old + (1−m)·new`` (m = ``BN_MOMENTUM``). ``F.batch_norm(training=True)`` would update them with
+        the unbiased variance and torch's momentum, so the buffers are
+        updated here by hand."""
+        bn, yf = self.bn, y.float()
+        mu = yf.mean((0, 2, 3))
+        var = torch.clamp((yf * yf).mean((0, 2, 3)) - mu * mu, min=0.0)
+        update_running_stats(bn, mu, var)
+        mul = torch.rsqrt(var + self.eps) * bn.weight
+        out = (yf - mu[:, None, None]) * mul[:, None, None] \
+            + bn.bias[:, None, None]
+        return out.to(y.dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        bn = self.bn
+        if train:
+            y = self._batch_norm(self._conv(x, self.conv.weight.to(x.dtype)))
         else:
-            y = F.conv2d(F.pad(x, (left, right, top, bottom)), wgt,
-                         stride=self.stride)
-        y = y + shift.to(x.dtype)[:, None, None]
+            mul = bn.weight * torch.rsqrt(bn.running_var + self.eps)
+            shift = bn.bias - bn.running_mean * mul
+            wgt = (self.conv.weight * mul[:, None, None, None]).to(x.dtype)
+            y = self._conv(x, wgt) + shift.to(x.dtype)[:, None, None]
         return F.relu(y) if self.relu else y
+
+
+def update_running_stats(bn: BatchNorm, mean: torch.Tensor,
+                         var: torch.Tensor) -> None:
+    """Flax's running update of BN statistics, in place, outside autograd:
+    ``running = m·running + (1 − m)·batch``, m = ``BN_MOMENTUM``."""
+    m = BN_MOMENTUM
+    with torch.no_grad():
+        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

@@ -1,14 +1,17 @@
 """ResNet-v1 backbone exporting the pool2..pool5 pyramid.
 
-Port of ``tensorflow_ocr_tpu/models/resnet.py:314-457`` in eval mode:
+Port of ``tensorflow_ocr_tpu/models/resnet.py:98-181, 314-457``:
 slim-v1 bottlenecks with the stride on the last unit of blocks 1-3, the
 identity subsample ``x[..., ::s, ::s]``, the projection shortcut on a
-depth change, and the stem that pools before the relu. Submodule names
-follow the Flax tree (``conv1``, ``block1_unit1``, ...), so the weight
-bridge (``models/convert.py``) is a rename.
+depth change, and a stem that pools before the relu in eval mode and
+after it in train mode. ``bottleneck_impl="fused"`` runs every stride-1
+unit that the fused kernels take as a :class:`FusedBottleneck`
+(``ops/fused.py``). Submodule names follow the Flax tree (``conv1``,
+``block1_unit1``, ...), so the weight bridge (``models/convert.py``) is a
+rename, for either bottleneck.
 
-Not ported: ``output_stride`` (atrous) and the fused and ghost
-bottleneck variants (ROADMAP.md, Queue 2).
+Not ported: ``output_stride`` (atrous) and the ghost bottleneck
+(ROADMAP.md, Queues 1 and 2).
 """
 
 from __future__ import annotations
@@ -19,7 +22,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tensorflow_ocr_tpu_torch.models.layers import ConvBN, stem_max_pool
+from tensorflow_ocr_tpu_torch.models.layers import (
+    ConvBN,
+    stem_max_pool,
+    update_running_stats,
+)
+from tensorflow_ocr_tpu_torch.ops import fused as FU
 
 # (num_units,) per block for each variant (models/resnet.py:314-319).
 RESNET_UNITS = {
@@ -54,6 +62,67 @@ class Bottleneck(nn.Module):
         return F.relu(shortcut + y)
 
 
+class FusedBottleneck(Bottleneck):
+    """Stride-1 bottleneck on the fused kernels (models/resnet.py:98-181).
+
+    The unit keeps RAW conv outputs; each conv applies the previous BN and
+    relu as a prologue and returns its own output's statistics, which
+    :meth:`_affine` turns into the next prologue's (a, b); the boundary
+    kernel applies BN3, the shortcut's affine, the residual add and the
+    relu. Children and state_dict keys are :class:`Bottleneck`'s.
+    """
+
+    def __init__(self, depth_in: int, depth: int, depth_bottleneck: int):
+        super().__init__(depth_in, depth, depth_bottleneck, 1)
+
+    @staticmethod
+    def supported(depth_in: int, depth: int, depth_bottleneck: int) -> bool:
+        """Whether the fused kernels take every conv of the unit."""
+        db = depth_bottleneck
+        return (FU.kernel_takes(depth_in, db, 1) and FU.kernel_takes(db, db, 3)
+                and FU.kernel_takes(db, depth, 1)
+                and FU.kernel_takes(depth_in, depth, 1))
+
+    @staticmethod
+    def _affine(cbn: ConvBN, stats: torch.Tensor, count: float,
+                train: bool) -> torch.Tensor:
+        """(2, C) table [a, b] from the batch statistics (train, updating
+        the running ones) or the running statistics (eval)."""
+        bn = cbn.bn
+        if train:
+            mu = stats[0] / count
+            var = torch.clamp(stats[1] / count - mu * mu, min=0.0)
+            update_running_stats(bn, mu, var)
+        else:
+            mu, var = bn.running_mean, bn.running_var
+        a = bn.weight * torch.rsqrt(var + cbn.eps)
+        return torch.stack([a, bn.bias - mu * a])
+
+    def forward(self, o: torch.Tensor, train: bool = False) -> torch.Tensor:
+        o = o.contiguous(memory_format=torch.channels_last)
+        n, cin, h, w = o.shape
+        count = float(n * h * w)
+        dt = o.dtype
+
+        def ident(c):
+            return torch.stack([torch.ones(c, device=o.device),
+                                torch.zeros(c, device=o.device)])
+
+        z1, s1 = FU.fused_conv1x1(o, ident(cin), self.conv1.conv.weight.to(dt))
+        ab1 = self._affine(self.conv1, s1, count, train)
+        z2, s2 = FU.fused_conv3x3(z1, ab1, self.conv2.conv.weight.to(dt))
+        ab2 = self._affine(self.conv2, s2, count, train)
+        z3, s3 = FU.fused_conv1x1(z2, ab2, self.conv3.conv.weight.to(dt))
+        ab3 = self._affine(self.conv3, s3, count, train)
+        if self.shortcut is not None:
+            zs, ss = FU.fused_conv1x1(o, ident(cin),
+                                      self.shortcut.conv.weight.to(dt))
+            abs_ = self._affine(self.shortcut, ss, count, train)
+        else:
+            zs, abs_ = o, ident(cin)
+        return FU.fused_boundary(z3, ab3, zs, abs_)
+
+
 class ResNetV1(nn.Module):
     """Backbone returning ``{"pool2": ..., "pool5": ...}`` (NCHW)."""
 
@@ -61,12 +130,19 @@ class ResNetV1(nn.Module):
     bottlenecks = (64, 128, 256, 512)
 
     def __init__(self, units: Sequence[int] = RESNET_UNITS[50],
-                 output_stride: int | None = None):
+                 output_stride: int | None = None,
+                 bottleneck_impl: str = "xla"):
         super().__init__()
         if output_stride is not None:
             raise NotImplementedError(
                 "ResNetV1 output_stride (atrous) is not ported yet "
                 "(ROADMAP.md Queue 1: other families)")
+        if bottleneck_impl == "ghost":
+            raise NotImplementedError(
+                "bottleneck_impl='ghost' is not ported yet (ROADMAP.md "
+                "Queue 2: pallas_unit)")
+        if bottleneck_impl not in ("xla", "fused"):
+            raise ValueError(f"unknown bottleneck_impl {bottleneck_impl!r}")
         self.conv1 = ConvBN(3, 64, 7, 2, relu=False, explicit_pad=True)
         self.blocks = []  # unit names per block
         depth_in = 64
@@ -77,8 +153,13 @@ class ResNetV1(nn.Module):
                 # stride 2 on the last unit of blocks 1-3
                 stride = 2 if (u == n_units - 1 and b < 3) else 1
                 names.append(f"block{b + 1}_unit{u + 1}")
-                self.add_module(names[-1], Bottleneck(depth_in, depth,
-                                                      depth_b, stride))
+                if (bottleneck_impl == "fused" and stride == 1
+                        and FusedBottleneck.supported(depth_in, depth,
+                                                      depth_b)):
+                    unit = FusedBottleneck(depth_in, depth, depth_b)
+                else:
+                    unit = Bottleneck(depth_in, depth, depth_b, stride)
+                self.add_module(names[-1], unit)
                 depth_in = depth
             self.blocks.append(names)
         self.channels = {"pool2": 64, "pool3": 256, "pool4": 512,
@@ -86,9 +167,12 @@ class ResNetV1(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False
                 ) -> Dict[str, torch.Tensor]:
-        # eval order (models/resnet.py:398-408): conv, pool, then relu —
-        # exact, since relu and max commute
-        x = F.relu(stem_max_pool(self.conv1(x, train)))
+        # models/resnet.py:398-408: conv, pool, then relu in eval (exact,
+        # since relu and max commute); conv, BN, relu, then pool in train
+        if train:
+            x = stem_max_pool(F.relu(self.conv1(x, train)))
+        else:
+            x = F.relu(stem_max_pool(self.conv1(x, train)))
         ep = {"pool2": x}
         for b, names in enumerate(self.blocks):
             for name in names:

@@ -1,0 +1,286 @@
+"""Port parity: the fused conv and boundary ops (ops/fused.py, plain path).
+
+The same seeded numpy inputs go through the JAX references and their
+VJPs (``pallas_fused.reference_conv_bn_act`` and ``fused_boundary`` at an
+M that takes its jnp branches) and through the port's autograd functions
+on the CPU, in float32, with both cotangents of a conv (dy and ds).
+Tolerance: rtol = 1e-4 and atol = 1e-4 of the largest value, for float32
+sums in another order (up to 9*64 products a conv output, up to ~200
+rows a statistic). A float64 gradcheck holds each autograd function to
+finite differences.
+
+The kernels' tiling is emulated here, in the kernels' own index
+arithmetic (128-row pixel tiles, 32-wide K slices within one tap, the
+tap-to-pixel map with its SAME pad, the dW split over pixel chunks), and
+must equal the plain whole-map result.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tensorflow_ocr_tpu.ops import pallas_fused as PF
+from tensorflow_ocr_tpu_torch.ops import fused as FU
+
+torch.set_num_threads(1)
+RTOL = 1e-4
+
+
+def close(got, want, name=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, name
+    np.testing.assert_allclose(got, want, rtol=RTOL,
+                               atol=RTOL * np.abs(want).max(), err_msg=name)
+
+
+def nchw(x):
+    """NHWC numpy -> NCHW channels-last torch (JAX's layout in memory)."""
+    return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2)
+
+
+def nhwc(t):
+    return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+def conv_case(rng, n, h, w, ci, co, k):
+    x = rng.randn(n, h, w, ci).astype(np.float32)
+    # nonzero b: relu(b) != 0 at a pad, so the pad-after-prologue matters
+    ab = np.stack([rng.uniform(0.5, 1.5, ci),
+                   rng.randn(ci) * 0.5 + 0.3]).astype(np.float32)
+    wk = (rng.randn(k, k, ci, co) / np.sqrt(k * k * ci)).astype(np.float32)
+    dy = rng.randn(n, h, w, co).astype(np.float32)
+    ds = np.stack([rng.randn(co) * 0.3, rng.randn(co) * 0.1]).astype(
+        np.float32)
+    return x, ab, wk, dy, ds
+
+
+def torch_weight(wk):
+    return torch.from_numpy(np.ascontiguousarray(wk.transpose(3, 2, 0, 1)))
+
+
+@pytest.mark.parametrize("k,ci,co,hw", [
+    (1, 8, 16, (5, 7)),
+    (1, 16, 8, (4, 6)),
+    (3, 8, 8, (5, 7)),
+    (3, 6, 10, (7, 5)),
+    (3, 16, 12, (1, 9)),
+])
+def test_fused_conv_matches_jax_reference_and_vjp(k, ci, co, hw):
+    rng = np.random.RandomState(k * 100 + ci + co)
+    x, ab, wk, dy, ds = conv_case(rng, 2, *hw, ci, co, k)
+
+    def ref(x, ab, wk):
+        return PF.reference_conv_bn_act(x, ab, wk, (k, k))
+
+    (jy, js), vjp = jax.vjp(ref, jnp.asarray(x), jnp.asarray(ab),
+                            jnp.asarray(wk))
+    jdx, jdab, jdw = vjp((jnp.asarray(dy), jnp.asarray(ds)))
+
+    tx = nchw(x).requires_grad_()
+    tab = torch.from_numpy(ab).requires_grad_()
+    tw = torch_weight(wk).requires_grad_()
+    op = FU.fused_conv1x1 if k == 1 else FU.fused_conv3x3
+    y, s = op(tx, tab, tw)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    close(nhwc(y), jy, "y")
+    close(s.detach(), js, "s")
+    ((y * nchw(dy)).sum() + (s * torch.from_numpy(ds)).sum()).backward()
+    close(nhwc(tx.grad), jdx, "dx")
+    close(tab.grad, jdab, "dab")
+    close(tw.grad.permute(2, 3, 1, 0), jdw, "dw")
+
+
+def test_fused_conv_backward_takes_no_ds():
+    """ds is None where the statistics are unused (eval, freeze_bn): it
+    reads as zero, as a zero cotangent gives in JAX."""
+    rng = np.random.RandomState(3)
+    x, ab, wk, dy, _ = conv_case(rng, 1, 4, 5, 4, 6, 3)
+    args = (nchw(x), torch.from_numpy(ab), torch_weight(wk))
+    y, _ = FU.conv_fwd(*args)
+    got = FU.conv_bwd(*args, y, nchw(dy), None)
+    want = FU.conv_bwd(*args, y, nchw(dy), torch.zeros(2, 6))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m_hw", [(3, 7), (5, 11)])
+def test_fused_boundary_matches_jax_and_vjp(m_hw):
+    rng = np.random.RandomState(sum(m_hw))
+    n, c = 2, 24
+    assert (n * m_hw[0] * m_hw[1]) % 256  # JAX takes its jnp branches
+    z, zs, g = (rng.randn(n, *m_hw, c).astype(np.float32) for _ in range(3))
+    ab, abs_ = (np.stack([rng.uniform(0.5, 1.5, c), rng.randn(c)]).astype(
+        np.float32) for _ in range(2))
+    jout, vjp = jax.vjp(PF.fused_boundary, *map(jnp.asarray,
+                                                (z, ab, zs, abs_)))
+    jdz, jdab, jdzs, jdabs = vjp(jnp.asarray(g))
+
+    tz, tzs = nchw(z).requires_grad_(), nchw(zs).requires_grad_()
+    tab = torch.from_numpy(ab).requires_grad_()
+    tabs = torch.from_numpy(abs_).requires_grad_()
+    out = FU.fused_boundary(tz, tab, tzs, tabs)
+    close(nhwc(out), jout, "out")
+    (out * nchw(g)).sum().backward()
+    close(nhwc(tz.grad), jdz, "dz")
+    close(nhwc(tzs.grad), jdzs, "dzs")
+    close(tab.grad, jdab, "dab")
+    close(tabs.grad, jdabs, "dabs")
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_fused_conv_gradcheck_float64(k):
+    gen = torch.Generator().manual_seed(k)
+    x = torch.randn(1, 3, 4, 5, generator=gen, dtype=torch.float64)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    ab = torch.stack([torch.rand(3, generator=gen, dtype=torch.float64) + .5,
+                      torch.randn(3, generator=gen, dtype=torch.float64)])
+    w = torch.randn(2, 3, k, k, generator=gen, dtype=torch.float64)
+    op = FU.fused_conv1x1 if k == 1 else FU.fused_conv3x3
+    assert torch.autograd.gradcheck(
+        op, (x, ab.requires_grad_(), w.requires_grad_()))
+
+
+def test_fused_boundary_gradcheck_float64():
+    gen = torch.Generator().manual_seed(9)
+
+    def t(*shape):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64)
+
+    z = t(1, 4, 3, 5).contiguous(memory_format=torch.channels_last)
+    zs = t(1, 4, 3, 5).contiguous(memory_format=torch.channels_last)
+    args = (z, t(2, 4), zs, t(2, 4))
+    assert torch.autograd.gradcheck(
+        FU.fused_boundary, tuple(a.requires_grad_() for a in args))
+
+
+# --------------------------------------------------------------------------
+# CPU emulation of the kernels' split (csrc/fused_conv.cu)
+# --------------------------------------------------------------------------
+
+BM, BK = 128, 32
+
+
+def tap_pixel(m, t, n, h, w, ks):
+    """csrc/fused_conv.cu tap_pixel: pixel of output row m under tap t, or
+    -1 at the SAME pad / past the last row."""
+    big = n * h * w
+    ow, oh = m % w, (m // w) % h
+    ky, kx = t // ks, t % ks
+    hh, ww = oh + ky - ks // 2, ow + kx - ks // 2
+    ok = (m < big) & (hh >= 0) & (hh < h) & (ww >= 0) & (ww < w)
+    return torch.where(ok, m + (ky - ks // 2) * w + (kx - ks // 2), -1)
+
+
+def staged(rows, pix, c0):
+    """A (len(pix), BK) operand tile: zero where pix < 0."""
+    tile = rows[pix.clamp(min=0), c0:c0 + BK]
+    return torch.where(pix[:, None] >= 0, tile, torch.zeros_like(tile))
+
+
+def emulate_conv_fwd(x, ab, w):
+    n, ci, h, wd = x.shape
+    co, ks = w.shape[0], w.shape[-1]
+    m = n * h * wd
+    xn = FU._prologue(x, ab).permute(0, 2, 3, 1).reshape(m, ci)
+    wt = w.permute(0, 2, 3, 1).reshape(co, ks * ks * ci)
+    y, s = torch.zeros(m, co), torch.zeros(2, co)
+    for m0 in range(0, m, BM):
+        rows = torch.arange(m0, m0 + BM)
+        acc = torch.zeros(BM, co)
+        for k0 in range(0, ks * ks * ci, BK):
+            tap, c0 = divmod(k0, ci)
+            a = staged(xn, tap_pixel(rows, tap, n, h, wd, ks), c0)
+            acc += a @ wt[:, k0:k0 + BK].T
+        live = rows < m
+        y[rows[live]] = acc[live]
+        s += torch.stack([acc[live].sum(0), (acc[live] ** 2).sum(0)])
+    return y, s
+
+
+def emulate_conv_bwd(x, ab, w, y, dy, ds, sms=132):
+    n, ci, h, wd = x.shape
+    co, ks = w.shape[0], w.shape[-1]
+    m, kdim = n * h * wd, ks * ks * ci
+    rows_of = lambda t: t.permute(0, 2, 3, 1).reshape(m, -1)  # noqa: E731
+    xn, xr = rows_of(FU._prologue(x, ab)), rows_of(x)
+    dye = rows_of(FU._dy_eff(dy, y, ds))
+    # dW: 128-row tiles of (tap, channel), the pixels split in chunks
+    bn = 128 if co % 128 == 0 else 64
+    tiles = -(-kdim // BM) * -(-co // bn)
+    splits = -(-4 * sms // tiles)
+    chunk = -(-(-(-m // splits)) // BK) * BK
+    dw = torch.zeros(kdim, co)
+    for p0 in range(0, m, chunk):
+        pix = torch.arange(p0, min(m, p0 + chunk))
+        cols = torch.stack([
+            staged(xn, tap_pixel(pix, q // ci, n, h, wd, ks), q % ci)
+            for q in range(0, kdim, BK)], 1).reshape(len(pix), kdim)
+        dw += cols.T @ dye[pix]
+    # dx and dab: 128-row tiles, K = (tap, co) slices of dy_eff
+    wflip = w.flip(2, 3).permute(1, 2, 3, 0).reshape(ci, ks * ks * co)
+    dx, dab = torch.zeros(m, ci), torch.zeros(2, ci)
+    a, b = ab
+    for m0 in range(0, m, BM):
+        rows = torch.arange(m0, m0 + BM)
+        acc = torch.zeros(BM, ci)
+        for k0 in range(0, ks * ks * co, BK):
+            tap, c0 = divmod(k0, co)
+            acc += staged(dye, tap_pixel(rows, tap, n, h, wd, ks), c0) \
+                @ wflip[:, k0:k0 + BK].T
+        live = rows[rows < m]
+        gm = acc[:len(live)] * (xr[live] * a + b > 0)
+        dx[live] = gm * a
+        dab += torch.stack([(gm * xr[live]).sum(0), gm.sum(0)])
+    return dx, dab, dw
+
+
+@pytest.mark.parametrize("k,ci,co,nhw", [
+    (3, 64, 64, (2, 9, 11)),     # M = 198: a full tile and a ragged one
+    (3, 32, 64, (1, 12, 13)),    # K slices within one tap of 32 channels
+    (1, 64, 128, (3, 5, 9)),
+])
+def test_kernel_split_emulation_equals_whole_map(k, ci, co, nhw):
+    rng = np.random.RandomState(k + ci + co)
+    x, ab, wk, dy, ds = conv_case(rng, nhw[0], nhw[1], nhw[2], ci, co, k)
+    args = (nchw(x), torch.from_numpy(ab), torch_weight(wk))
+    y, s = FU.conv_fwd_reference(*args)
+    ey, es = emulate_conv_fwd(*args)
+    close(ey, y.permute(0, 2, 3, 1).reshape(-1, co), "y")
+    close(es, s, "s")
+    dx, dab, dw = FU.conv_bwd_reference(*args, y, nchw(dy),
+                                        torch.from_numpy(ds))
+    # a small SM count forces a dW split into several pixel chunks
+    edx, edab, edw = emulate_conv_bwd(*args, y, nchw(dy),
+                                      torch.from_numpy(ds), sms=1)
+    close(edx, dx.permute(0, 2, 3, 1).reshape(-1, ci), "dx")
+    close(edab, dab, "dab")
+    close(edw, dw.reshape(co, ci, k, k).permute(2, 3, 1, 0).reshape(-1, co),
+          "dw")
+
+
+def test_kernel_takes_the_units_of_resnet50():
+    """The model's fuse decision: every stride-1 unit of ResNet-50 has
+    channels the conv kernel takes (multiples of 64), at any H and W."""
+    for db, depth in ((64, 256), (128, 512), (256, 1024), (512, 2048)):
+        for cin in (db, depth):
+            assert FU.kernel_takes(cin, db, 1)
+        assert FU.kernel_takes(db, db, 3) and FU.kernel_takes(db, depth, 1)
+    assert not FU.kernel_takes(16, 64, 1)
+    assert not FU.kernel_takes(64, 64, 5)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    x = torch.zeros(1, 64, 4, 4)
+    ab = torch.zeros(2, 64)
+    w = torch.zeros(64, 64, 1, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        FU._check(x, x=x)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        FU._conv_shapes(torch.zeros(1, 16, 4, 4), torch.zeros(2, 16),
+                        torch.zeros(64, 16, 1, 1))
+    with pytest.raises(ValueError, match="do not fit"):
+        FU._conv_shapes(x, torch.zeros(2, 32), w)
+    with pytest.raises(ValueError, match="1x1"):
+        FU.fused_conv1x1(x, ab, torch.zeros(64, 64, 3, 3))

@@ -1,5 +1,8 @@
 """The port imports without JAX, the JAX package, cv2, triton, nvcc or a GPU.
 
+Every module, the train step's included: ``triton`` stays out of
+``sys.modules`` and no kernel is built at import time.
+
 Runs in a subprocess: tests/conftest.py imports jax into every pytest
 process, so only a fresh interpreter can show what the port pulls in.
 """
@@ -35,6 +38,8 @@ def test_port_imports_without_jax_or_cv2():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
-    for mod in ("config", "infer", "models.convert", "models.detector", "ops.decode",
-                "ops.kernels", "utils.image"):
+    for mod in ("config", "infer", "models.convert", "models.detector",
+                "models.resnet", "ops.decode", "ops.fused", "ops.kernels",
+                "ops.labels", "ops.losses", "ops.rasterize", "train.optim",
+                "train.trainer", "utils.image"):
         assert f"tensorflow_ocr_tpu_torch.{mod}" in out["modules"]

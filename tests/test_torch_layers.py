@@ -74,9 +74,24 @@ def test_convbn_eval_matches_flax(k, stride, explicit_pad, relu, hw):
 
 
 def test_convbn_train_mode_not_ported():
-    port = TL.ConvBN(3, 4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port(torch.zeros(1, 3, 8, 8), train=True)
+    """Train mode is ported with Flax's BN conventions; torch's own
+    (unbiased running variance, momentum on the new value) is what is
+    not ported: after one step the port's running statistics are Flax's
+    and differ from ``nn.BatchNorm2d``'s."""
+    gen = torch.Generator().manual_seed(0)
+    port = TL.ConvBN(3, 4, 3, relu=False)
+    TL.init_weights(port, gen)
+    x = torch.randn(2, 3, 5, 6, generator=gen)
+    port(x, train=True)
+    with torch.no_grad():
+        y = port._conv(x, port.conv.weight)
+    mu, var = y.mean((0, 2, 3)), y.var((0, 2, 3), unbiased=False)
+    torch.testing.assert_close(port.bn.running_mean, 0.003 * mu)
+    torch.testing.assert_close(port.bn.running_var, 0.997 + 0.003 * var)
+    ref = torch.nn.BatchNorm2d(4, momentum=0.003)
+    ref(y)
+    assert not torch.allclose(ref.running_var, port.bn.running_var,
+                              rtol=0, atol=1e-7)
 
 
 @pytest.mark.parametrize("hw", [(8, 10), (9, 11), (8, 11)])
