@@ -6,10 +6,11 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the connected-components kernel from csrc/ (nvcc, sm_90a);
-3. hold the kernel against its plain PyTorch version on the card:
-   (8, 192, 320) text-like blob maps plus hand cases; int32 labels must
-   be equal; print both times;
+2. build the four CUDA sources of csrc/ (nvcc, sm_90a), one nvcc each,
+   all started together;
+3. hold the connected-components kernel against its plain PyTorch
+   version on the card: (8, 192, 320) text-like blob maps plus hand
+   cases; int32 labels must be equal; print both times;
 4. full-width pixellink_resnet50 forward, float32, TF32 off, 256x256 on
    the card against the same seeded weights on the CPU;
 5. the main path: Predictor.detect_batch at full width, bfloat16, on
@@ -22,13 +23,20 @@ Phases, in order; any failure raises and exits non-zero:
 7. with --profile only: a torch.profiler trace of serve and of detect,
    printing wall time, device busy time, the device's idle share and
    the largest device entries;
-8. build the four fused kernels (csrc/fused_conv.cu and
-   csrc/fused_boundary.cu, one nvcc each, in parallel);
-9. hold each fused kernel against its plain version at every shape the
+8. hold each of the four conv kernels of the PALLAS_CONVS route
+   (csrc/conv.cu) against its plain version at every distinct shape the
+   route gives it in the 512^2 batch-32 train step (recorded from the
+   model), plus one stride-2 1x1: forward y, dX and dW; then the forward
+   y at every distinct shape of detect's forward (8 x 1280x768); print
+   kernel, plain and library-call ms, the FLOPs, bytes and bound;
+9. detect_batch with PALLAS_CONVS on: 44 + 13 conv launches a forward,
+   logits within CONV_DETECT_REL of the cuDNN forward's, the CC kernel
+   still launched;
+10. hold each fused kernel against its plain version at every shape the
    train step gives it (the 15 1x1 and 4 3x3 convs of the fused units,
    the boundary of each block): forward y and s, backward dx, dab and
    dw; print kernel and plain ms;
-10. the train step at full width: pixellink_resnet50, bottleneck_impl
+11. the train step at full width: pixellink_resnet50, bottleneck_impl
    "fused", 512x512, batch 32, bf16, labels made on the card from the
    polygons of numpy scenes; 3 steps through Trainer.run with finite
    losses and every fused kernel's launch count risen; one step each of
@@ -36,12 +44,24 @@ Phases, in order; any failure raises and exits non-zero:
    state (residual BN scales tempered, see ARM_RESIDUAL_SCALE) and
    batch: loss, gradient and the worst parameter's direction within the
    stated tolerances; one freeze_bn step;
-11. train img/s for the fused, xla and freeze_bn-fused arms, each over
-   3 windows of at least 10 s (median and range);
-12. with --profile only: a torch.profiler trace of 3 fused train steps.
+12. with --faults only: the readings of the pallas-conv arm check
+   (phase 13) in 3 sound runs and under planted backward faults, which
+   set the CONV_ARM_* bounds;
+13. the PALLAS_CONVS arm ("xla" bottlenecks, the supported convs on the
+   conv kernels): 3 steps through Trainer.run with the four kernels'
+   launch counts at their expected values; one step against the same
+   arm on cuDNN from the tempered state (CONV_ARM_* bounds); one
+   freeze_bn step with the route on (the BN fold path);
+14. train img/s for the fused, xla, freeze_bn-fused and xla pallas-conv
+   arms, each over 3 windows of at least 10 s (median and range);
+15. with --profile only: a torch.profiler trace of 3 train steps of the
+   fused arm and of the xla pallas-conv arm.
 
-The line before the last is a JSON object describing the five kernels;
-the last line is {"ok": true, "device": {...}}. Weights are random (seeded):
+The line before the last is a JSON object describing the nine kernels
+(launches from the main path of each: detect for the CC kernel, the
+fused steps for the fused kernels, the pallas-conv steps for the conv
+kernels; times summed over the shapes of each kernel's check); the last
+line is {"ok": true, "device": {...}}. Weights are random (seeded):
 the check is that the port runs and agrees with itself and its plain
 versions, not detection quality.
 """
@@ -49,6 +69,7 @@ versions, not detection quality.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -83,16 +104,33 @@ TRAIN_WINDOWS = 3
 # schemes start: the step is then near-linear and the two arms agree to
 # ~1.7e-2. The gradient bounds lie between the sound runs' largest
 # reading and the smallest reading of a planted backward fault (PERF.md,
-# Findings; readings on an H100 80GB HBM3 at 700 W). The loss bound only
-# catches coarse forward faults: a
-# 1% error in the statistics moves the loss by ~3e-4 (phase 9 holds the
-# statistics to 1e-4).
+# Findings, which names the commit that holds the table; readings on an
+# H100 80GB HBM3 at 700 W). The loss bound only catches coarse forward
+# faults: a 1% error in the statistics moves the loss by ~3e-4 (phase 10
+# holds the statistics to 1e-4).
 ARM_RESIDUAL_SCALE = 0.05
 ARM_LOSS_REL = 5e-4    # relative loss gap; sound <= 1.5e-4
 ARM_GRAD_REL = 2.5e-2  # |g_fused - g_xla| / |g_xla|; sound <= 1.71e-2,
 #                        planted faults >= 4.43e-2
 ARM_COS_MIN = 0.98     # cosine of the two at the worst parameter; sound
 #                        >= 0.9933, faults that turn it <= 0.335
+# the PALLAS_CONVS arm against the same arm on cuDNN, one step each from
+# the tempered state: the gradient bounds lie between the sound runs'
+# largest reading and the planted backward faults' smallest (--faults;
+# PERF.md, Findings; readings on an H100 80GB HBM3 at 700 W). The loss
+# bound has no fault reading above it (the backward faults leave the
+# loss as it is): it only catches coarse forward faults, and the kernel
+# phase holds y to one bf16 ulp.
+CONV_ARM_LOSS_REL = 5e-4  # sound 4.56e-5
+CONV_ARM_GRAD_REL = 2.5e-2  # sound <= 1.118e-2; faults >= 4.623e-2
+CONV_ARM_COS_MIN = 0.98   # sound >= 0.99618; the unflipped 3x3 dX 0.4608
+# detect with the route on against cuDNN: bf16 logits after 57 routed
+# convs rounded in another order, relative to the largest logit (sound
+# 1.128e-2 on the H100)
+CONV_DETECT_REL = 3e-2
+# the H100 SXM's dense bf16 tensor-core rate, float32 rate outside the
+# tensor cores, and HBM rate (NVIDIA's data sheet): the bounds
+PEAK_BF16, PEAK_F32, PEAK_HBM = 989e12, 67e12, 3.35e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -200,9 +238,15 @@ def phase_cc(device, report):
     ms = cuda_ms(lambda: K.connected_components(edges, mask), 50)
     plain_ms = cuda_ms(
         lambda: K.connected_components_reference(edges, mask), 5)
+    # bytes: the (B,h,w,8) bool links and (B,h,w) bool mask read, the
+    # int32 labels written; no tensor-core work, and no library call
+    # computes connected components
+    bound = add_bound(report, 0, mask.numel() * (8 + 1 + 4))
     print(f"cc: {len(cases)} cases equal, labels (8,192,320): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-    report.update(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+          f"(bytes)")
+    report.update(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                  library_ms=None)
 
 
 def perturb_bn(model, gen):
@@ -418,6 +462,246 @@ def phase_profile(pred, images):
                                         max_name_column_width=60))
 
 
+# ------------------------------------------------- the PALLAS_CONVS route
+
+CONV_KERNELS = {
+    # name (= the wrapper in ops/conv.py): (source, the site replaced)
+    "matmul_rows": ("tensorflow_ocr_tpu_torch/csrc/conv.cu",
+                    "tensorflow_ocr_tpu/ops/pallas_conv.py:81 (_matmul_rows)"),
+    "dw_rows": ("tensorflow_ocr_tpu_torch/csrc/conv.cu",
+                "tensorflow_ocr_tpu/ops/pallas_conv.py:108 (_dw_rows)"),
+    "conv3": ("tensorflow_ocr_tpu_torch/csrc/conv.cu",
+              "tensorflow_ocr_tpu/ops/pallas_conv.py:148 (_conv3)"),
+    "dw3": ("tensorflow_ocr_tpu_torch/csrc/conv.cu",
+            "tensorflow_ocr_tpu/ops/pallas_conv.py:190 (_dw3)"),
+}
+# launches of each conv kernel in one pixellink_resnet50 train step with
+# the route on: 44 routed 1x1 convs (36 in the backbone, 8 in the head)
+# and 13 stride-1 3x3s, each a forward, a dX and a dW product
+CONV_STEP_LAUNCHES = {"matmul_rows": 88, "dw_rows": 44, "conv3": 26,
+                      "dw3": 13}
+
+
+@contextlib.contextmanager
+def pallas_convs(on: bool):
+    """models.layers.PALLAS_CONVS set to ``on`` inside the block."""
+    from tensorflow_ocr_tpu_torch.models import layers as TL
+
+    old, TL.PALLAS_CONVS = TL.PALLAS_CONVS, on
+    try:
+        yield
+    finally:
+        TL.PALLAS_CONVS = old
+
+
+def reset_conv_counts():
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+
+    for name in CONV_KERNELS:
+        getattr(CV, name).launches = 0
+
+
+def conv_counts():
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+
+    return {name: getattr(CV, name).launches for name in CONV_KERNELS}
+
+
+def route_shapes(batch, hw):
+    """(N, H, W, Ci, Co, k, stride) of every distinct conv the route
+    takes in a forward of the model at ``batch`` images of ``hw``
+    (recorded from a batch-1 float32 forward on the CPU; the dX and dW
+    products of each conv have its shapes)."""
+    import torch
+    from tensorflow_ocr_tpu_torch.models import build_model
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+
+    seen, orig = {}, CV.conv2d
+
+    def record(x, w, stride=(1, 1)):
+        _, ci, h, wd = x.shape
+        seen[(batch, h, wd, ci, w.shape[0], w.shape[-1], stride[0])] = None
+        return orig(x, w, stride)
+
+    model = build_model(MODEL, dtype=torch.float32)
+    CV.conv2d = record
+    try:
+        with pallas_convs(True), torch.inference_mode():
+            model(torch.zeros(1, *hw, 3, dtype=torch.uint8))
+    finally:
+        CV.conv2d = orig
+    return tuple(seen)
+
+
+def phase_conv_kernels(device, reports):
+    """Each conv kernel against its plain version at every distinct shape
+    of the route in the train step (route_shapes at TRAIN_SIZE, batch
+    TRAIN_BATCH, plus one stride-2 1x1, which the route takes and
+    ResNet-v1-50 does not have): the forward y and dX (bf16, one ulp) and
+    dW (float32 sums, SUM_REL of the sum of magnitudes); then the forward
+    y at every distinct shape of detect's forward (IMAGE_HW, batch 8).
+    Prints kernel, plain and library-call ms (CUDA events), the FLOPs,
+    bytes and bound of each call. The reports sum the train shapes'
+    times and bounds; max_abs_err covers both."""
+    import torch
+    import torch.nn.functional as F
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+
+    gen = torch.Generator().manual_seed(6)
+    bf, cl = torch.bfloat16, torch.channels_last
+    for r in reports.values():
+        r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+
+    def act(n, c, h, w):
+        return torch.randn(n, c, h, w, generator=gen).to(
+            device=device, dtype=bf).contiguous(memory_format=cl)
+
+    def run(name, what, kernel, plain, library, terms, flops, nbytes,
+            sums=reports):
+        got, want = kernel(), plain()
+        library()
+        torch.cuda.synchronize()
+        err = (bf16_close(f"{name} {what}", got, want) if terms is None
+               else sum_close(f"{name} {what}", got, want, terms))
+        ms, pms, lms = (cuda_ms(kernel, 10), cuda_ms(plain, 3),
+                        cuda_ms(library, 10))
+        reports[name]["max_abs_err"] = max(reports[name]["max_abs_err"], err)
+        r = sums[name]
+        bound = add_bound(r, flops, nbytes)
+        r["ms"] += ms
+        r["plain_ms"] += pms
+        r["library_ms"] += lms
+        print(f"{name} {what}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s), plain {pms:.4f}, library {lms:.4f}; "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB, bound "
+              f"{bound:.4f} ms; max abs err {err:.3e}")
+
+    q = TRAIN_SIZE // 4
+    shapes = route_shapes(TRAIN_BATCH, (TRAIN_SIZE, TRAIN_SIZE)) + (
+        (TRAIN_BATCH, q, q, 256, 512, 1, 2),)
+    print(f"conv route at {TRAIN_SIZE}^2, batch {TRAIN_BATCH}: "
+          f"{len(shapes)} distinct convs (N, H, W, Ci, Co, k, stride): "
+          f"{shapes}")
+    for n, h, w, ci, co, k, s in shapes:
+        x = act(n, ci, h, w)
+        xs = x[:, :, ::s, ::s].contiguous(memory_format=cl)
+        m = n * xs.shape[2] * xs.shape[3]
+        wt = (torch.randn(co, ci, k, k, generator=gen)
+              / (k * k * ci) ** 0.5).to(device=device, dtype=bf)
+        dy = act(n, co, xs.shape[2], xs.shape[3])
+        tag = f"{k}x{k}/{s} {ci}->{co} at {n}x{h}x{w}"
+        flops = 2 * m * k * k * ci * co
+        io = 2 * (m * ci + k * k * ci * co + m * co)
+        dw_io = 2 * m * (ci + co) + 4 * k * k * ci * co
+        if k == 1:
+            x2, dy2 = CV.rows(xs), CV.rows(dy)
+            w2, w2t = wt[:, :, 0, 0].t(), wt[:, :, 0, 0]
+            run("matmul_rows", f"fwd {tag}", lambda: CV.matmul_rows(x2, w2),
+                lambda: CV.matmul_rows_reference(x2, w2),
+                lambda: torch.matmul(x2, w2), None, flops, io)
+            run("matmul_rows", f"dx {tag}",
+                lambda: CV.matmul_rows(dy2, w2t),
+                lambda: CV.matmul_rows_reference(dy2, w2t),
+                lambda: torch.matmul(dy2, w2t), None, flops, io)
+            run("dw_rows", f"dw {tag}", lambda: CV.dw_rows(x2, dy2),
+                lambda: CV.dw_rows_reference(x2, dy2),
+                lambda: torch.matmul(x2.t(), dy2),
+                CV.dw_rows_reference(x2.abs(), dy2.abs()), flops, dw_io)
+        else:
+            wflip = wt.flip(2, 3).transpose(0, 1).contiguous()
+            wcl = wt.contiguous(memory_format=cl)
+            run("conv3", f"fwd {tag}", lambda: CV.conv3(x, wt),
+                lambda: CV.conv3_reference(x, wt),
+                lambda: F.conv2d(x, wcl, padding=1), None, flops, io)
+            run("conv3", f"dx {tag}", lambda: CV.conv3(dy, wflip),
+                lambda: CV.conv3_reference(dy, wflip),
+                lambda: torch.nn.grad.conv2d_input(x.shape, wcl, dy,
+                                                   padding=1),
+                None, flops, io)
+            run("dw3", f"dw {tag}", lambda: CV.dw3(x, dy),
+                lambda: CV.dw3_reference(x, dy),
+                lambda: torch.nn.grad.conv2d_weight(x, wt.shape, dy,
+                                                    padding=1),
+                CV.dw3_reference(x.abs(), dy.abs()), flops, dw_io)
+        del x, xs, dy
+
+    # detect's forward (the eval fold: the same convs on w*mul)
+    detect = route_shapes(8, IMAGE_HW)
+    print(f"conv route in detect at {IMAGE_HW[1]}x{IMAGE_HW[0]}, batch 8: "
+          f"{len(detect)} distinct convs: {detect}")
+    sub = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0) for n in reports}
+    for n, h, w, ci, co, k, _ in detect:
+        x = act(n, ci, h, w)
+        wt = (torch.randn(co, ci, k, k, generator=gen)
+              / (k * k * ci) ** 0.5).to(device=device, dtype=bf)
+        m, tag = n * h * w, f"{k}x{k} {ci}->{co} at {n}x{h}x{w}"
+        flops = 2 * m * k * k * ci * co
+        io = 2 * (m * ci + k * k * ci * co + m * co)
+        if k == 1:
+            x2, w2 = CV.rows(x), wt[:, :, 0, 0].t()
+            run("matmul_rows", f"detect fwd {tag}",
+                lambda: CV.matmul_rows(x2, w2),
+                lambda: CV.matmul_rows_reference(x2, w2),
+                lambda: torch.matmul(x2, w2), None, flops, io, sub)
+        else:
+            wcl = wt.contiguous(memory_format=cl)
+            run("conv3", f"detect fwd {tag}", lambda: CV.conv3(x, wt),
+                lambda: CV.conv3_reference(x, wt),
+                lambda: F.conv2d(x, wcl, padding=1), None, flops, io, sub)
+        del x
+    for name in ("matmul_rows", "conv3"):
+        r = sub[name]
+        print(f"{name} over detect's shapes: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print("conv kernels: ms, plain_ms, library_ms and bound_ms in the "
+          f"kernels line are sums over the {len(shapes)} train-step shapes "
+          "(forward and dX for matmul_rows and conv3); max_abs_err also "
+          "covers detect's shapes; library: torch.matmul (cuBLAS, bf16 "
+          "out) for the 1x1s, F.conv2d and torch.nn.grad.conv2d_input/"
+          "conv2d_weight (cuDNN, channels-last bf16) for the 3x3s")
+
+
+def phase_conv_detect(pred, images):
+    """detect_batch with PALLAS_CONVS on: every routed conv of the
+    forward on the conv kernels, the CC kernel still launched, logits
+    within CONV_DETECT_REL of the cuDNN forward's."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import kernels as K
+
+    x = torch.from_numpy(images).to(pred.device)
+    with torch.inference_mode():
+        want = pred.model(x)
+    with pallas_convs(True):
+        reset_conv_counts()
+        K.connected_components.launches = 0
+        boxes = pred.detect_batch(images)
+        torch.cuda.synchronize()
+        counts, cc = conv_counts(), K.connected_components.launches
+        with torch.inference_mode():
+            got = pred.model(x)
+    print(f"detect_batch 8x1280x768 with PALLAS_CONVS: conv kernel launches "
+          f"{counts}, cc launches {cc}, boxes per image "
+          f"{[len(b) for b in boxes]}")
+    check(counts == {"matmul_rows": 44, "dw_rows": 0, "conv3": 13,
+                     "dw3": 0}, "detect with the route: conv launches")
+    check(cc > 0, "detect with the route did not launch the CC kernel")
+    check(len(boxes) == len(images) and all(
+        np.isfinite(b).all() and b.shape == (4, 2)
+                                  for bs in boxes for b in bs),
+          "detect with the route: malformed boxes")
+    for key in ("pixel_logits", "link_logits"):
+        g, w = got[key], want[key]
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"{key}: shape {tuple(g.shape)} or non-finite")
+        rel = float((g - w).abs().max() / w.abs().max())
+        print(f"detect with PALLAS_CONVS {key}: max|routed-cudnn|/max|cudnn|"
+              f" = {rel:.3e} (tol {CONV_DETECT_REL:g})")
+        check(rel <= CONV_DETECT_REL, f"{key}: routed and cuDNN logits "
+              "disagree")
+
+
 # ---------------------------------------------------------------- training
 
 FUSED_KERNELS = {
@@ -488,21 +772,41 @@ def sum_close(name, got, want, scale):
     return float(err.max())
 
 
-def build_fused():
-    """Build both new CUDA sources in parallel (one nvcc each)."""
+def add_bound(report, flops, nbytes, peak=PEAK_BF16):
+    """Add one call's least time on the card (the larger of its
+    operations over ``peak`` and its bytes over the HBM rate, in ms) to
+    a kernel's report; returns it. The report's ``bound_by`` says which
+    of the two sums is the larger."""
+    t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes / PEAK_HBM
+    report["bound_ms"] = report.get("bound_ms", 0.0) + max(t_ops, t_bytes)
+    report["_ops_ms"] = report.get("_ops_ms", 0.0) + t_ops
+    report["_bytes_ms"] = report.get("_bytes_ms", 0.0) + t_bytes
+    report["bound_by"] = ("operations" if report["_ops_ms"]
+                          >= report["_bytes_ms"] else "bytes")
+    return max(t_ops, t_bytes)
+
+
+def build_all():
+    """Build the four CUDA sources, one nvcc each, all started together,
+    and load each library."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
     from tensorflow_ocr_tpu_torch.ops import fused as FU
     from tensorflow_ocr_tpu_torch.ops import kernels as K
+
+    loaders = {"cc": K._cc_label, "fused_conv": lambda: FU._lib("fused_conv"),
+               "fused_boundary": lambda: FU._lib("fused_boundary"),
+               "conv": CV._lib}
 
     def one(name):
         t0 = time.perf_counter()
         lib = K.build_library(name)
-        FU._lib(name)
-        return name, lib.name, time.perf_counter() - t0
+        loaders[name]()
+        return lib.name, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
-        for name, lib, dt in pool.map(one, ("fused_conv", "fused_boundary")):
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        for lib, dt in pool.map(one, loaders):
             print(f"build: {lib} in {dt:.2f} s")
 
 
@@ -526,8 +830,10 @@ def phase_fused_kernels(device, reports):
         b = torch.randn(c, generator=gen) * shift
         return torch.stack([a, b]).to(device)
 
+    # no one PyTorch call computes a conv with an affine+relu prologue and
+    # a statistics epilogue, or the boundary's two affines, add and relu
     for r in reports.values():
-        r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+        r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None)
 
     def timed(name, kernel, plain, iters):
         ms = cuda_ms(kernel, iters)
@@ -537,6 +843,11 @@ def phase_fused_kernels(device, reports):
         return ms, pms
 
     for n, h, w, ci, co, k in CONV_SHAPES:
+        m, kk = n * h * w, k * k * ci * co
+        add_bound(reports["fused_conv_fwd"], 2 * m * kk,
+                  2 * m * (ci + co) + 2 * kk + 8 * (ci + co))
+        add_bound(reports["fused_conv_bwd"], 4 * m * kk,
+                  2 * m * (2 * ci + 2 * co) + 6 * kk + 16 * (ci + co))
         x = act(n, ci, h, w)
         ab = table(ci, 0.5, 1.5, 0.5)
         wt = (torch.randn(co, ci, k, k, generator=gen)
@@ -575,6 +886,11 @@ def phase_fused_kernels(device, reports):
         del x, y, dy, dx, py, pdx
 
     for n, h, w, c in BOUNDARY_SHAPES:
+        mc = n * h * w * c  # ~5 float32 operations an element forward, ~10
+        add_bound(reports["fused_boundary_fwd"], 5 * mc, 6 * mc + 16 * c,
+                  PEAK_F32)
+        add_bound(reports["fused_boundary_bwd"], 10 * mc, 10 * mc + 32 * c,
+                  PEAK_F32)
         z, zs = act(n, c, h, w), act(n, c, h, w)
         ab, abs_ = table(c, 0.5, 1.5, 0.5), table(c, 0.5, 1.5, 0.5)
         out = FU.boundary_fwd(z, ab, zs, abs_)
@@ -805,12 +1121,133 @@ def phase_train(device, reports):
           f"{counts}")
     check(np.isfinite(loss), "freeze_bn step: non-finite loss")
     check(all(counts.values()), "freeze_bn step skipped a fused kernel")
-    return trainer, batch
+    return trainer, batch, snap
+
+
+def conv_arm_readings(device, start, batch):
+    """One xla-arm step with PALLAS_CONVS on against one with it off
+    (cuDNN), from the state ``start`` and one batch (arm_readings)."""
+    with pallas_convs(True):
+        routed = arm_grads(device, start, batch, "xla")
+    return arm_readings(routed, arm_grads(device, start, batch, "xla"))
+
+
+def print_conv_arms(label, r):
+    print(f"{label}: loss {r['loss'][0]:.6f} / {r['loss'][1]:.6f} (rel "
+          f"{r['rel_loss']:.3e}, tol {CONV_ARM_LOSS_REL:g}); gradient norm "
+          f"{r['norm'][0]:.6f} / {r['norm'][1]:.6f}, rel err "
+          f"{r['grad_rel']:.4e} (tol {CONV_ARM_GRAD_REL:g}); worst parameter "
+          f"cosine {r['worst'][1]:.6f} at {r['worst'][0]} (min "
+          f"{CONV_ARM_COS_MIN:g})")
+
+
+def phase_conv_train(device, reports, snap, batch):
+    """The PALLAS_CONVS arm at full width: 3 xla-arm steps through
+    Trainer.run with the route on, each conv kernel launched
+    CONV_STEP_LAUNCHES times a step; one step against the cuDNN arm from
+    the tempered state (CONV_ARM_* bounds); one freeze_bn step with the
+    route on (the BN fold path)."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    want = {k: TRAIN_STEPS * v for k, v in CONV_STEP_LAUNCHES.items()}
+    with pallas_convs(True):
+        trainer = T.Trainer(train_config("xla"), device)
+        trainer.setup(weights=snap)
+        reset_conv_counts()
+        last = trainer.run([batch] * TRAIN_STEPS, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        counts = conv_counts()
+    print(f"train {TRAIN_STEPS} steps xla with PALLAS_CONVS: last metrics "
+          f"{json.dumps({k: round(v, 5) for k, v in last.items()})}; "
+          f"kernel launches {counts} (expected {want})")
+    check(trainer.state.step == TRAIN_STEPS and last and all(
+        np.isfinite(v) for v in last.values()), "pallas-conv train: "
+          "non-finite or missing metrics")
+    check(counts == want, "pallas-conv train: conv kernel launches")
+    for name, n in counts.items():
+        reports[name]["launches"] = n
+    del trainer
+    torch.cuda.empty_cache()
+
+    r = conv_arm_readings(device, tempered(snap), batch)
+    print_conv_arms(f"xla with PALLAS_CONVS vs cuDNN, one step from one state "
+                    f"(residual BN scales x {ARM_RESIDUAL_SCALE:g})", r)
+    check(r["rel_loss"] <= CONV_ARM_LOSS_REL, "pallas-conv and cuDNN "
+          "losses disagree")
+    check(r["grad_rel"] <= CONV_ARM_GRAD_REL, "pallas-conv and cuDNN "
+          "gradients disagree")
+    check(r["worst"][1] >= CONV_ARM_COS_MIN, f"the pallas-conv gradient of "
+          f"{r['worst'][0]} points elsewhere than the cuDNN one")
+
+    fcfg = train_config("xla", freeze_bn=True)
+    with pallas_convs(True):
+        state = T.create_train_state(fcfg, device, weights=snap)
+        reset_conv_counts()
+        loss = float(T.train_step(state, batch, fcfg,
+                                  T.make_loss_fn(fcfg))["total_loss"])
+        counts = conv_counts()
+    print(f"freeze_bn step xla with PALLAS_CONVS: total loss {loss:.6f}, "
+          f"kernel launches {counts}")
+    check(np.isfinite(loss), "pallas-conv freeze_bn step: non-finite loss")
+    check(counts == CONV_STEP_LAUNCHES, "pallas-conv freeze_bn step: conv "
+          "kernel launches")
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_conv_faults(device, snap, batch):
+    """The readings that set the CONV_ARM_* bounds: the pallas-conv arm
+    against cuDNN from the tempered state, 3 sound runs, then one run
+    under each planted backward fault of ops/conv.py's autograd: dW x 0.9,
+    dX x 0.9, and the 3x3 dX with the kernel channel-swapped but not
+    flipped."""
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+
+    c1, c3 = CV._Conv1x1.backward, CV._Conv3x3.backward
+
+    def scaled(dx_by, dw_by):
+        def patch():
+            def b1(ctx, dy):
+                dx, dw, s = c1(ctx, dy)
+                return dx * dx_by, dw * dw_by, s
+
+            def b3(ctx, dy):
+                dx, dw = c3(ctx, dy)
+                return dx * dx_by, dw * dw_by
+            return b1, b3
+        return patch
+
+    def unflipped():
+        def b3(ctx, dy):
+            _, w = ctx.saved_tensors
+            _, dw = c3(ctx, dy)
+            dy = dy.contiguous(memory_format=torch.channels_last)
+            return CV.conv3(dy, w.transpose(0, 1).to(dy.dtype)), dw
+        return c1, b3
+
+    start = tempered(snap)
+    for i in range(3):
+        print_conv_arms(f"faults: sound run {i}",
+                        conv_arm_readings(device, start, batch))
+    for label, patch in (("dW x 0.9", scaled(1.0, 0.9)),
+                         ("dX x 0.9", scaled(0.9, 1.0)),
+                         ("3x3 dX kernel not flipped", unflipped)):
+        CV._Conv1x1.backward, CV._Conv3x3.backward = map(
+            staticmethod, patch())
+        try:
+            print_conv_arms(f"faults: {label}",
+                            conv_arm_readings(device, start, batch))
+        finally:
+            CV._Conv1x1.backward = staticmethod(c1)
+            CV._Conv3x3.backward = staticmethod(c3)
 
 
 def phase_train_timing(trainer, batch):
-    """Train img/s at 512^2, batch 32, for the fused, xla and
-    freeze_bn-fused arms: host clock around TRAIN_WINDOWS windows of at
+    """Train img/s at 512^2, batch 32, for the fused, xla, freeze_bn-fused
+    and xla pallas-conv arms: host clock around TRAIN_WINDOWS windows of at
     least TRAIN_WINDOW_S of train_step calls on one device-resident batch
     (labels made on the card inside each step), each window ending in a
     sync; reported as the median with the range."""
@@ -818,29 +1255,31 @@ def phase_train_timing(trainer, batch):
     from tensorflow_ocr_tpu_torch.train import trainer as T
 
     weights = trainer.state.model.state_dict()
-    for arm, impl, freeze in (("fused", "fused", False),
-                              ("xla", "xla", False),
-                              ("freeze_bn fused", "fused", True)):
+    for arm, impl, freeze, route in (
+            ("fused", "fused", False, False), ("xla", "xla", False, False),
+            ("freeze_bn fused", "fused", True, False),
+            ("xla pallas-conv", "xla", False, True)):
         cfg = train_config(impl, freeze)
         state = T.create_train_state(cfg, batch["images"].device,
                                      weights=weights)
         loss_fn = T.make_loss_fn(cfg)
-        for _ in range(2):
-            T.train_step(state, batch, cfg, loss_fn)
-        torch.cuda.synchronize()
         rates = []
-        for i in range(TRAIN_WINDOWS):
-            steps, t0 = 0, time.perf_counter()
-            while time.perf_counter() - t0 < TRAIN_WINDOW_S:
+        with pallas_convs(route):
+            for _ in range(2):
                 T.train_step(state, batch, cfg, loss_fn)
-                steps += 1
-                if steps % 4 == 0:
-                    torch.cuda.synchronize()
             torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            rates.append(steps * TRAIN_BATCH / dt)
-            print(f"train {arm} window {i}: {rates[-1]:.2f} img/s ({steps} "
-                  f"steps in {dt:.3f} s)")
+            for i in range(TRAIN_WINDOWS):
+                steps, t0 = 0, time.perf_counter()
+                while time.perf_counter() - t0 < TRAIN_WINDOW_S:
+                    T.train_step(state, batch, cfg, loss_fn)
+                    steps += 1
+                    if steps % 4 == 0:
+                        torch.cuda.synchronize()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                rates.append(steps * TRAIN_BATCH / dt)
+                print(f"train {arm} window {i}: {rates[-1]:.2f} img/s "
+                      f"({steps} steps in {dt:.3f} s)")
         print(f"train {arm} {TRAIN_SIZE}^2 batch {TRAIN_BATCH}: "
               f"{statistics.median(rates):.2f} img/s (median of "
               f"{TRAIN_WINDOWS} windows of >= {TRAIN_WINDOW_S:g} s; windows "
@@ -852,35 +1291,49 @@ def phase_train_timing(trainer, batch):
 
 
 def phase_profile_train(trainer, batch):
-    """torch.profiler over 3 fused train steps: wall, device busy, idle
-    share and the largest device entries."""
+    """torch.profiler over 3 train steps of the fused arm and of the xla
+    pallas-conv arm: wall, device busy, idle share and the largest device
+    entries."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from tensorflow_ocr_tpu_torch.train import trainer as T
 
-    cfg = train_config("fused")
-    loss_fn = T.make_loss_fn(cfg)
-    T.train_step(trainer.state, batch, cfg, loss_fn)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            T.train_step(trainer.state, batch, cfg, loss_fn)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1000
-    busy = device_busy_ms(prof)
-    check(busy > 0, "train profile: no device events in the trace")
-    print(f"profile train fused 3 steps: wall {wall:.3f} ms, device busy "
-          f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}")
-    print(prof.key_averages().table(sort_by="self_device_time_total",
-                                    row_limit=40, max_name_column_width=60))
+    weights = trainer.state.model.state_dict()
+    for arm, impl, route in (("fused", "fused", False),
+                             ("xla pallas-conv", "xla", True)):
+        cfg = train_config(impl)
+        state = T.create_train_state(cfg, batch["images"].device,
+                                     weights=weights)
+        loss_fn = T.make_loss_fn(cfg)
+        with pallas_convs(route):
+            T.train_step(state, batch, cfg, loss_fn)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    T.train_step(state, batch, cfg, loss_fn)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1000
+        busy = device_busy_ms(prof)
+        check(busy > 0, "train profile: no device events in the trace")
+        print(f"profile train {arm} 3 steps: wall {wall:.3f} ms, device "
+              f"busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}")
+        print(prof.key_averages().table(sort_by="self_device_time_total",
+                                        row_limit=40,
+                                        max_name_column_width=60))
+        del state
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace serve and detect with torch.profiler")
+                    help="also trace serve, detect and train steps with "
+                    "torch.profiler")
+    ap.add_argument("--faults", action="store_true",
+                    help="also read the pallas-conv arm check under "
+                    "planted backward faults")
     args = ap.parse_args()
     import torch
 
@@ -896,39 +1349,41 @@ def main() -> int:
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"card: {card}")
-
-    from tensorflow_ocr_tpu_torch.ops import kernels as K
-
-    t0 = time.perf_counter()
-    lib = K.build_library("cc")
-    K._cc_label()
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
+    build_all()
 
     report = {"name": "connected_components", "route": "cuda",
               "source": "tensorflow_ocr_tpu_torch/csrc/cc.cu",
               "replaces": "tensorflow_ocr_tpu/ops/pallas_kernels.py:91"}
+    fused = {name: {"name": name, "route": "cuda", "source": src,
+                    "replaces": sites}
+             for name, (_, src, sites) in FUSED_KERNELS.items()}
+    conv = {name: {"name": name, "route": "cuda", "source": src,
+                   "replaces": site}
+            for name, (src, site) in CONV_KERNELS.items()}
     phase_cc(device, report)
     phase_forward(device)
     pred, images = phase_main_path(device, report)
     phase_timing(pred, images)
     if args.profile:
         phase_profile(pred, images)
+    phase_conv_kernels(device, conv)
+    phase_conv_detect(pred, images)
     del pred
     torch.cuda.empty_cache()
 
-    build_fused()
-    fused = {name: {"name": name, "route": "cuda", "source": src,
-                    "replaces": sites}
-             for name, (_, src, sites) in FUSED_KERNELS.items()}
     phase_fused_kernels(device, fused)
-    trainer, batch = phase_train(device, fused)
+    trainer, batch, snap = phase_train(device, fused)
+    if args.faults:
+        phase_conv_faults(device, snap, batch)
+    phase_conv_train(device, conv, snap, batch)
     phase_train_timing(trainer, batch)
     if args.profile:
         phase_profile_train(trainer, batch)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
-    kernels = [{k: r[k] for k in keys} for r in [report, *fused.values()]]
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [{k: r[k] for k in keys}
+               for r in [report, *fused.values(), *conv.values()]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

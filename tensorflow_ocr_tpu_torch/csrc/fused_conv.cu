@@ -31,9 +31,10 @@
 // 128 x BN output tile, BK = 32. Tiles go global -> registers -> shared
 // memory, with the next tile's global loads in flight while the tensor
 // cores (mma.sync m16n8k16 bf16, f32 accumulate) work on the current
-// one. Since every channel count is a multiple of 64, a K-tile of 32 lies
-// inside one tap of the 3x3 window, so each staged row is one pixel's 32
-// channels, read as four 16-byte vectors. Three kernels:
+// one: the shared core and loaders of igemm.cuh, with the two transforms
+// below (AffineRelu, DyEff) applied as a tile is stored. Every channel
+// count is a multiple of 64, so each 8-wide K vector lies inside one tap
+// and loads as one 16-byte vector. Three kernels:
 //   conv_fwd:  rows = pixels, cols = Co, K = KS*KS*Ci;
 //   conv_dx:   rows = pixels, cols = Ci, K = KS*KS*Co (dye in, dx out);
 //   conv_dw:   rows = KS*KS*Ci, cols = Co, K = pixels, split over the
@@ -45,18 +46,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "igemm.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace igemm;
 
 constexpr int BM = 128;
-constexpr int BK = 32;
-constexpr int LDS = BK + 8;  // padded shared row: conflict-free fragments
-constexpr int THREADS = 256;
-
-struct Geo {
-  int n, h, w, m;  // m = n*h*w pixels
-};
 
 __device__ __forceinline__ void unpack8(const uint4& v, float f[8]) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -83,21 +79,6 @@ __device__ __forceinline__ void load8f(const float* p, float f[8]) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-// Pixel index of output pixel m shifted by tap t of a KSxKS window,
-// or -1 where the tap falls outside the image (the SAME pad).
-template <int KS>
-__device__ __forceinline__ int tap_pixel(const Geo& g, int m, int t) {
-  if (m >= g.m) return -1;
-  if (KS == 1) return m;
-  int ow = m % g.w;
-  int r = m / g.w;
-  int oh = r % g.h;
-  int ky = t / KS, kx = t % KS;
-  int hh = oh + ky - KS / 2, ww = ow + kx - KS / 2;
-  if (hh < 0 || hh >= g.h || ww < 0 || ww >= g.w) return -1;
-  return m + (ky - KS / 2) * g.w + (kx - KS / 2);
-}
-
 // x*a + b rounded after each operation, as the plain version's separate
 // elementwise ops round it (no FMA contraction): the relu masks of the
 // kernel and of the plain version then agree exactly.
@@ -105,121 +86,81 @@ __device__ __forceinline__ float affine(float x, float a, float b) {
   return __fadd_rn(__fmul_rn(x, a), b);
 }
 
-// The operand transforms, applied as a tile is staged.
-enum Xform { kAffineRelu, kDyEff };
+// The operand transforms of the fused kernels, for igemm.cuh's loaders
+// (channel counts multiples of 8): raw loads at fetch time, the transform
+// when the tile is stored.
 
-// 8 channels of one pixel: raw loads now, transform at staging time.
-template <Xform X>
-struct Vec8 {
-  uint4 r0, r1;
-  int c;      // first channel
-  bool live;  // false: zero (pad tap or out of range)
+// xn = relu(x*a + b), a and b per channel.
+struct AffineRelu {
+  static constexpr bool kEach = false;
+  struct Reg {
+    uint4 r;
+    int c;      // first channel
+    bool live;  // false: zero (pad tap or out of range)
+  };
+  const bf16* x;
+  const float *a, *b;
 
-  __device__ __forceinline__ void fetch(const bf16* s0, const bf16* s1,
-                                        int pix, int ch, int c0) {
-    c = c0;
-    live = pix >= 0;
-    if (live) {
-      size_t off = (size_t)pix * ch + c0;
-      r0 = __ldg(reinterpret_cast<const uint4*>(s0 + off));
-      if (X == kDyEff) r1 = __ldg(reinterpret_cast<const uint4*>(s1 + off));
-    }
+  __device__ __forceinline__ void fetch(Reg& v, int pix, int ch,
+                                        int c) const {
+    v.c = c;
+    v.live = pix >= 0;
+    if (v.live)
+      v.r = __ldg(reinterpret_cast<const uint4*>(x + (size_t)pix * ch + c));
   }
-
-  // t0/t1: the per-channel tables (a, b) or (ds0, ds1), each of length ch
-  __device__ __forceinline__ uint4 value(const float* t0,
-                                         const float* t1) const {
-    if (!live) return make_uint4(0, 0, 0, 0);
-    float x[8], p[8], q[8], o[8];
-    unpack8(r0, x);
-    load8f(t0 + c, p);
-    load8f(t1 + c, q);
-    if (X == kAffineRelu) {
+  __device__ __forceinline__ uint4 value(const Reg& v) const {
+    if (!v.live) return make_uint4(0, 0, 0, 0);
+    float xf[8], p[8], q[8], o[8];
+    unpack8(v.r, xf);
+    load8f(a + v.c, p);
+    load8f(b + v.c, q);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) o[i] = fmaxf(affine(x[i], p[i], q[i]), 0.f);
-    } else {
-      float y[8];
-      unpack8(r1, y);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        o[i] = __fadd_rn(__fadd_rn(x[i], p[i]), __fmul_rn(2.f * y[i], q[i]));
-    }
+    for (int i = 0; i < 8; ++i) o[i] = fmaxf(affine(xf[i], p[i], q[i]), 0.f);
     return pack8(o);
   }
 };
 
-// ---------------------------------------------------------------- mma core
+// dye = dy + ds0 + 2*y*ds1, ds0 and ds1 per channel.
+struct DyEff {
+  static constexpr bool kEach = false;
+  struct Reg {
+    uint4 dy, y;
+    int c;
+    bool live;
+  };
+  const bf16 *dy, *y;
+  const float *ds0, *ds1;
 
-template <int BN>
-struct Warps {
-  static constexpr int WN = BN / 32;       // warps along N (32 cols each)
-  static constexpr int WM = 8 / WN;        // warps along M
-  static constexpr int MT = BM / WM / 16;  // m16 tiles per warp
-  static constexpr int NT = 4;             // n8 tiles per warp
-};
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// acc += sA (BM x BK, K contiguous) . sB (BN x BK, K contiguous)^T
-template <int BN>
-__device__ __forceinline__ void mma_tile(bf16 (*sA)[LDS], bf16 (*sB)[LDS],
-                                         float acc[][Warps<BN>::NT][4]) {
-  using W = Warps<BN>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / W::WN, wn = warp % W::WN;
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t a[W::MT][4], b[W::NT][2];
-#pragma unroll
-    for (int i = 0; i < W::MT; ++i) {
-      int r = wm * (BM / W::WM) + i * 16 + g;
-      a[i][0] = lds32(&sA[r][kk + 2 * t]);
-      a[i][1] = lds32(&sA[r + 8][kk + 2 * t]);
-      a[i][2] = lds32(&sA[r][kk + 2 * t + 8]);
-      a[i][3] = lds32(&sA[r + 8][kk + 2 * t + 8]);
+  __device__ __forceinline__ void fetch(Reg& v, int pix, int ch,
+                                        int c) const {
+    v.c = c;
+    v.live = pix >= 0;
+    if (v.live) {
+      size_t off = (size_t)pix * ch + c;
+      v.dy = __ldg(reinterpret_cast<const uint4*>(dy + off));
+      v.y = __ldg(reinterpret_cast<const uint4*>(y + off));
     }
-#pragma unroll
-    for (int j = 0; j < W::NT; ++j) {
-      int nrow = wn * 32 + j * 8 + g;
-      b[j][0] = lds32(&sB[nrow][kk + 2 * t]);
-      b[j][1] = lds32(&sB[nrow][kk + 2 * t + 8]);
-    }
-#pragma unroll
-    for (int i = 0; i < W::MT; ++i)
-#pragma unroll
-      for (int j = 0; j < W::NT; ++j) mma16816(acc[i][j], a[i], b[j]);
   }
-}
-
-// Row and column of accumulator element e (0..3) of tile (i, j), within
-// the CTA's tile.
-template <int BN>
-__device__ __forceinline__ void acc_pos(int i, int j, int e, int& r, int& c) {
-  using W = Warps<BN>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / W::WN, wn = warp % W::WN;
-  r = wm * (BM / W::WM) + i * 16 + lane / 4 + (e >= 2 ? 8 : 0);
-  c = wn * 32 + j * 8 + 2 * (lane % 4) + (e & 1);
-}
+  __device__ __forceinline__ uint4 value(const Reg& v) const {
+    if (!v.live) return make_uint4(0, 0, 0, 0);
+    float d[8], yf[8], p[8], q[8], o[8];
+    unpack8(v.dy, d);
+    unpack8(v.y, yf);
+    load8f(ds0 + v.c, p);
+    load8f(ds1 + v.c, q);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      o[i] = __fadd_rn(__fadd_rn(d[i], p[i]), __fmul_rn(2.f * yf[i], q[i]));
+    return pack8(o);
+  }
+};
 
 // Add per-column partial sums p0, p1 (per (j, e&1) pair of this thread)
 // across the warp's rows, then into the CTA's shared table red[2][BN].
 template <int BN>
 __device__ __forceinline__ void reduce_cols(float p0[][2], float p1[][2],
                                             float (*red)[128]) {
-  using W = Warps<BN>;
+  using W = Warps<BM, BN>;
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int j = 0; j < W::NT; ++j)
@@ -232,129 +173,11 @@ __device__ __forceinline__ void reduce_cols(float p0[][2], float p1[][2],
       }
       if (lane < 4) {
         int r, c;
-        acc_pos<BN>(0, j, e, r, c);
+        acc_pos<BM, BN>(0, j, e, r, c);
         atomicAdd(&red[0][c], p0[j][e]);
         atomicAdd(&red[1][c], p1[j][e]);
       }
     }
-}
-
-// ---------------------------------------------------------------- loaders
-// Each stages one BK-wide K slice of a (rows x K) operand into a
-// (rows x LDS) shared tile, K contiguous.
-
-// Natural activation rows: row r = pixel m0 + r, K index = (tap, channel).
-template <int KS, Xform X>
-struct PixelRows {
-  static constexpr int V = BM * BK / 8 / THREADS;  // vectors per thread: 2
-  const bf16 *s0, *s1;
-  const float *t0, *t1;
-  Geo g;
-  int ch, m0;
-  Vec8<X> v[V];
-
-  __device__ __forceinline__ void fetch(int kt) {
-    int k0 = kt * BK, tap = k0 / ch, c0 = k0 % ch;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      int idx = threadIdx.x + i * THREADS;
-      int r = idx / (BK / 8), kv = (idx % (BK / 8)) * 8;
-      v[i].fetch(s0, s1, tap_pixel<KS>(g, m0 + r, tap), ch, c0 + kv);
-    }
-  }
-  __device__ __forceinline__ void store(bf16 (*s)[LDS]) const {
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      int idx = threadIdx.x + i * THREADS;
-      int r = idx / (BK / 8), kv = (idx % (BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(&s[r][kv]) = v[i].value(t0, t1);
-    }
-  }
-};
-
-// A plain row-major (rows x K) bf16 matrix, rows n0.. (weights).
-template <int BN>
-struct MatRows {
-  static constexpr int V = BN * BK / 8 / THREADS;
-  const bf16* p;
-  int k, n0;
-  uint4 v[V];
-
-  __device__ __forceinline__ void fetch(int kt) {
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      int idx = threadIdx.x + i * THREADS;
-      int r = idx / (BK / 8), kv = (idx % (BK / 8)) * 8;
-      v[i] = __ldg(reinterpret_cast<const uint4*>(
-          p + (size_t)(n0 + r) * k + kt * BK + kv));
-    }
-  }
-  __device__ __forceinline__ void store(bf16 (*s)[LDS]) const {
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      int idx = threadIdx.x + i * THREADS;
-      int r = idx / (BK / 8), kv = (idx % (BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(&s[r][kv]) = v[i];
-    }
-  }
-};
-
-// Transposed staging for dW: shared row = a column of an activation
-// operand (the K index of the conv: (tap, channel)), shared K = pixels.
-// ROWS shared rows starting at column q0 of a (pixels x KS*KS*ch) im2col
-// matrix (KS = 1: the activation itself); pixels p0 + [0, BK).
-template <int KS, Xform X, int ROWS>
-struct PixelCols {
-  static constexpr int V = ROWS * BK / 8 / THREADS;
-  static constexpr int VPR = ROWS / 8;  // vectors per pixel
-  const bf16 *s0, *s1;
-  const float *t0, *t1;
-  Geo g;
-  int ch, q0, qmax, p0, pend;
-  Vec8<X> v[V];
-
-  __device__ __forceinline__ void fetch(int kt) {
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      int idx = threadIdx.x + i * THREADS;
-      int pl = idx / VPR, q = q0 + (idx % VPR) * 8;
-      int pix = kt * BK + p0 + pl;
-      int src = -1;
-      if (pix < pend && q < qmax) src = tap_pixel<KS>(g, pix, q / ch);
-      v[i].fetch(s0, s1, src, ch, q % ch);
-    }
-  }
-  __device__ __forceinline__ void store(bf16 (*s)[LDS]) const {
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      int idx = threadIdx.x + i * THREADS;
-      int pl = idx / VPR, ql = (idx % VPR) * 8;
-      uint4 u = v[i].value(t0, t1);
-      const bf16* e = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[ql + j][pl] = e[j];
-    }
-  }
-};
-
-template <int BN, class LA, class LB>
-__device__ __forceinline__ void mainloop(LA& la, LB& lb, int nk,
-                                         bf16 (*sA)[LDS], bf16 (*sB)[LDS],
-                                         float acc[][4][4]) {
-  if (nk <= 0) return;
-  la.fetch(0);
-  lb.fetch(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    la.store(sA);
-    lb.store(sB);
-    __syncthreads();
-    if (kt + 1 < nk) {
-      la.fetch(kt + 1);
-      lb.fetch(kt + 1);
-    }
-    mma_tile<BN>(sA, sB, acc);
-    __syncthreads();
-  }
 }
 
 // ---------------------------------------------------------------- kernels
@@ -364,17 +187,18 @@ __global__ void __launch_bounds__(THREADS)
 conv_fwd(const bf16* __restrict__ x, const float* __restrict__ ab,
          const bf16* __restrict__ wt, bf16* __restrict__ y,
          float* __restrict__ stats, Geo g, int ci, int co) {
-  using W = Warps<BN>;
+  using W = Warps<BM, BN>;
   __shared__ __align__(16) bf16 sA[BM][LDS];
   __shared__ __align__(16) bf16 sB[BN][LDS];
   __shared__ float red[2][128];
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   for (int i = threadIdx.x; i < 2 * 128; i += THREADS) red[i / 128][i % 128] = 0.f;
 
-  PixelRows<KS, kAffineRelu> la{x, nullptr, ab, ab + ci, g, ci, m0};
-  MatRows<BN> lb{wt, KS * KS * ci, n0};
+  const int kdim = KS * KS * ci;
+  PixelRows<KS, AffineRelu, BM> la{{x, ab, ab + ci}, g, ci, m0, true};
+  PixelRows<1, Ident, BN> lb{{wt}, Geo{1, 1, co, co}, kdim, n0, true};
   float acc[W::MT][W::NT][4] = {};
-  mainloop<BN>(la, lb, KS * KS * ci / BK, sA, sB, acc);
+  mainloop<BM, BN>(la, lb, kdim / BK, sA, sB, acc);
 
   float p0[W::NT][2] = {}, p1[W::NT][2] = {};
 #pragma unroll
@@ -384,7 +208,7 @@ conv_fwd(const bf16* __restrict__ x, const float* __restrict__ ab,
 #pragma unroll
       for (int e = 0; e < 4; e += 2) {
         int r, c;
-        acc_pos<BN>(i, j, e, r, c);
+        acc_pos<BM, BN>(i, j, e, r, c);
         if (m0 + r >= g.m) continue;
         float u = acc[i][j][e], v = acc[i][j][e + 1];
         *reinterpret_cast<__nv_bfloat162*>(y + (size_t)(m0 + r) * co + n0 + c) =
@@ -409,30 +233,31 @@ conv_dx(const bf16* __restrict__ x, const float* __restrict__ ab,
         const bf16* __restrict__ dy, const float* __restrict__ ds,
         bf16* __restrict__ dx, float* __restrict__ dab, Geo g, int ci,
         int co) {
-  using W = Warps<BN>;
+  using W = Warps<BM, BN>;
   __shared__ __align__(16) bf16 sA[BM][LDS];
   __shared__ __align__(16) bf16 sB[BN][LDS];
   __shared__ float red[2][128];
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   for (int i = threadIdx.x; i < 2 * 128; i += THREADS) red[i / 128][i % 128] = 0.f;
 
-  PixelRows<KS, kDyEff> la{dy, y, ds, ds + co, g, co, m0};
-  MatRows<BN> lb{wflip, KS * KS * co, n0};
+  const int kdim = KS * KS * co;
+  PixelRows<KS, DyEff, BM> la{{dy, y, ds, ds + co}, g, co, m0, true};
+  PixelRows<1, Ident, BN> lb{{wflip}, Geo{1, 1, ci, ci}, kdim, n0, true};
   float acc[W::MT][W::NT][4] = {};
-  mainloop<BN>(la, lb, KS * KS * co / BK, sA, sB, acc);
+  mainloop<BM, BN>(la, lb, kdim / BK, sA, sB, acc);
 
   float p0[W::NT][2] = {}, p1[W::NT][2] = {};
 #pragma unroll
   for (int j = 0; j < W::NT; ++j) {
     int r, c;
-    acc_pos<BN>(0, j, 0, r, c);
+    acc_pos<BM, BN>(0, j, 0, r, c);
     const float a0 = __ldg(ab + n0 + c), a1 = __ldg(ab + n0 + c + 1);
     const float b0 = __ldg(ab + ci + n0 + c), b1 = __ldg(ab + ci + n0 + c + 1);
 #pragma unroll
     for (int i = 0; i < W::MT; ++i)
 #pragma unroll
       for (int e = 0; e < 4; e += 2) {
-        acc_pos<BN>(i, j, e, r, c);
+        acc_pos<BM, BN>(i, j, e, r, c);
         if (m0 + r >= g.m) continue;
         size_t off = (size_t)(m0 + r) * ci + n0 + c;
         float2 xv = __bfloat1622float2(
@@ -461,7 +286,7 @@ conv_dw(const bf16* __restrict__ x, const float* __restrict__ ab,
         const bf16* __restrict__ y, const bf16* __restrict__ dy,
         const float* __restrict__ ds, float* __restrict__ dw, Geo g, int ci,
         int co, int chunk) {
-  using W = Warps<BN>;
+  using W = Warps<BM, BN>;
   __shared__ __align__(16) bf16 sA[BM][LDS];
   __shared__ __align__(16) bf16 sB[BN][LDS];
   const int kdim = KS * KS * ci;
@@ -470,11 +295,12 @@ conv_dw(const bf16* __restrict__ x, const float* __restrict__ ab,
   const int pend = min(g.m, p0 + chunk);
   if (p0 >= pend) return;
 
-  PixelCols<KS, kAffineRelu, BM> la{x, nullptr, ab, ab + ci, g, ci,
-                                    q0, kdim, p0, pend};
-  PixelCols<1, kDyEff, BN> lb{dy, y, ds, ds + co, g, co, n0, co, p0, pend};
+  PixelCols<KS, AffineRelu, BM> la{{x, ab, ab + ci}, g, ci, q0, p0, pend,
+                                   true};
+  PixelCols<1, DyEff, BN> lb{{dy, y, ds, ds + co}, g, co, n0, p0, pend,
+                             true};
   float acc[W::MT][W::NT][4] = {};
-  mainloop<BN>(la, lb, (pend - p0 + BK - 1) / BK, sA, sB, acc);
+  mainloop<BM, BN>(la, lb, (pend - p0 + BK - 1) / BK, sA, sB, acc);
 
 #pragma unroll
   for (int i = 0; i < W::MT; ++i)
@@ -483,7 +309,7 @@ conv_dw(const bf16* __restrict__ x, const float* __restrict__ ab,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         int r, c;
-        acc_pos<BN>(i, j, e, r, c);
+        acc_pos<BM, BN>(i, j, e, r, c);
         if (q0 + r < kdim) atomicAdd(&dw[(size_t)(q0 + r) * co + n0 + c], acc[i][j][e]);
       }
 }

@@ -9,22 +9,41 @@ dtype per call, like the Flax modules' ``dtype``/``param_dtype`` split.
 Deliberately not ported (TPU/XLA rewrites that compute nothing new):
 the space-to-depth stem, the equality-mask max-pool VJP and the
 ``POINTWISE_DOT`` 1x1 route.
+
+``PALLAS_CONVS`` routes the stride-1 1x1 and 3x3 convs (and 1x1 convs at
+a stride that divides H and W) of :class:`ConvBN` through the
+hand-written conv kernels of ``ops/conv.py``, as models/layers.py:26-42
+and :131-135 route them to the Pallas kernels: False (the default:
+cuDNN on the card), True, or None for on with CUDA tensors. The kernels
+take bfloat16 only, so with the route on a float32 model on the card
+raises; the JAX route takes float32 convs too.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tensorflow_ocr_tpu_torch.ops import conv as CV
 
 # ImageNet channel means, RGB order (models/layers.py:17).
 IMAGENET_MEANS = (123.68, 116.78, 103.94)
 # BN decay (models/layers.py:353): Flax's momentum multiplies the OLD
 # running value, torch's the new one.
 BN_MOMENTUM = 0.997
+# Route supported convs through ops/conv.py (see the module docstring).
+PALLAS_CONVS: Optional[bool] = False
+
+
+def _pallas_convs_enabled(x: torch.Tensor) -> bool:
+    """``PALLAS_CONVS``, with None read as "on for CUDA tensors"."""
+    if PALLAS_CONVS is not None:
+        return PALLAS_CONVS
+    return x.device.type == "cuda"
 
 
 def mean_image_subtraction(images: torch.Tensor,
@@ -111,7 +130,20 @@ class ConvBN(nn.Module):
             left, right = same_pads(w, k, s)
         return left, right, top, bottom
 
+    def _routed(self, x: torch.Tensor) -> bool:
+        """Whether this conv takes the ``PALLAS_CONVS`` route: SAME
+        padding (not slim's explicit pad at stride > 1), and a shape that
+        ``ops.conv.supported`` takes (models/layers.py:131-135)."""
+        k, s = self.kernel, self.stride
+        n, ci, h, w = x.shape
+        return (_pallas_convs_enabled(x)
+                and not (self.explicit_pad and s > 1)
+                and CV.supported((n, h, w, ci), (k, k), (s, s), (1, 1),
+                                 self.conv.out_channels))
+
     def _conv(self, x: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
+        if self._routed(x):
+            return CV.conv2d(x, wgt, (self.stride, self.stride))
         left, right, top, bottom = self._pads(*x.shape[-2:])
         if left == right and top == bottom:
             return F.conv2d(x, wgt, stride=self.stride, padding=(top, left))

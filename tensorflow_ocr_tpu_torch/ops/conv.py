@@ -1,0 +1,379 @@
+"""Stride-1 1x1 and 3x3 convolutions on hand-written kernels.
+
+Port of ``tensorflow_ocr_tpu/ops/pallas_conv.py``, the route that
+``models/layers.py`` takes under ``PALLAS_CONVS``. Four wrappers carry
+the work, each with a hand-written CUDA kernel (``csrc/conv.cu``) and a
+plain PyTorch version beside it:
+
+- :func:`matmul_rows` <- ``_matmul_rows`` (:81): y = x·W over pixel rows,
+  the 1x1 forward and (with Wᵀ) its dX;
+- :func:`dw_rows`     <- ``_dw_rows`` (:108): Xᵀ·dY over all rows, the
+  1x1 dW;
+- :func:`conv3`       <- ``_conv3`` (:148): the 3x3 stride-1 SAME conv,
+  the 3x3 forward and (with the flipped, channel-swapped kernel) its dX;
+- :func:`dw3`         <- ``_dw3`` (:190): the nine tap contractions of
+  the 3x3 dW.
+
+CPU tensors take the plain version; CUDA tensors launch the kernel
+(counted in each wrapper's ``launches``) or raise. Products accumulate in
+float32; y and dX are rounded once to the activation dtype, dW is
+returned in float32 and rounded to the weight's dtype by the autograd
+functions (``dw.astype(w.dtype)``, pallas_conv.py:238, 267).
+
+Tensors are NCHW in the channels-last memory format, so an (N, C, H, W)
+tensor is JAX's (N, H, W, C) array in memory and its rows are the
+kernels' (M, C) matrices. Weights are (Co, Ci, k, k) in the activation
+dtype, as the Flax module casts its kernel before the call.
+
+The kernels take any channel counts (the PixelLink head's projections
+to 2 and 16 channels included) and any N, H, W within int32 indices.
+:func:`supported` says exactly that, and replaces the TPU tile pickers
+``_pick_bm``/``_pick_th``, which encode VMEM budgets that Hopper does
+not have. The kernels take bfloat16 only: where the JAX route sends
+float32 convs to its Pallas kernels, :func:`conv2d` raises on float32
+CUDA tensors (CPU tensors of any float type take the plain versions).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from tensorflow_ocr_tpu_torch.ops.fused import (
+    cuda_stream,
+    full_f32,
+    on_cpu,
+    raise_on,
+    up_f32,
+)
+from tensorflow_ocr_tpu_torch.ops.kernels import build_library
+
+_CL = torch.channels_last
+# the kernels' tiles (csrc/conv.cu, csrc/igemm.cuh): pixel rows of the
+# forward, the K slice, and the dW split's target of CTAs an SM
+FWD_ROWS, BK, DW_WAVES = 128, 32, 4
+
+
+def rows(t: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) channels-last -> its (N*H*W, C) row matrix (a view)."""
+    return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1])
+
+
+def unrows(t2: torch.Tensor, n: int, h: int, w: int) -> torch.Tensor:
+    """(N*H*W, C) rows -> (N, C, H, W) channels-last (a view)."""
+    return t2.reshape(n, h, w, t2.shape[1]).permute(0, 3, 1, 2)
+
+
+# --------------------------------------------------------------------------
+# the plain versions
+# --------------------------------------------------------------------------
+
+
+def matmul_rows_reference(x2: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`matmul_rows`."""
+    with full_f32():
+        return (up_f32(x2) @ up_f32(w2)).to(x2.dtype)
+
+
+def dw_rows_reference(x2: torch.Tensor, dy2: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`dw_rows`."""
+    with full_f32():
+        return up_f32(x2).t() @ up_f32(dy2)
+
+
+def conv3_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`conv3`."""
+    with full_f32():
+        y = F.conv2d(up_f32(x), up_f32(w), padding=1)
+    return y.to(x.dtype).contiguous(memory_format=_CL)
+
+
+def dw3_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`dw3`."""
+    co, ci = dy.shape[1], x.shape[1]
+    with full_f32():
+        dw = torch.nn.grad.conv2d_weight(up_f32(x), (co, ci, 3, 3),
+                                         up_f32(dy), padding=1)
+    return dw.permute(2, 3, 1, 0).reshape(9 * ci, co)
+
+
+# --------------------------------------------------------------------------
+# the kernels' wrappers
+# --------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.cache
+def _lib():
+    lib = ctypes.CDLL(str(build_library("conv")))
+    for fn, args in (("conv_fwd", [_P] * 3 + [_I] * 7 + [_P]),
+                     ("conv_dw", [_P] * 4 + [_I] * 10 + [_P])):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def fwd_tile(co: int) -> int:
+    """The forward's column tile (csrc/conv.cu ``igemm_fwd``'s BN)."""
+    return 128 if co > 64 else 64 if co > 32 else 32
+
+
+def dw_plan(m: int, kdim: int, co: int, sms: int
+            ) -> Tuple[int, int, int, int]:
+    """(bm, bn, chunk, splits) of a dW product over m pixels into a
+    (kdim, co) table: 64-row tiles where kdim <= 64 (no half-empty
+    tiles), the pixels split into chunks of a multiple of BK so that
+    ~DW_WAVES CTAs an SM run, every chunk non-empty."""
+    bm = 64 if kdim <= 64 else 128
+    bn = 128 if co > 64 else 64 if co > 32 or bm == 64 else 32
+    tiles = -(-kdim // bm) * -(-co // bn)
+    splits = max(1, -(-DW_WAVES * sms // tiles))
+    chunk = -(-(-(-m // splits)) // BK) * BK
+    return bm, bn, chunk, max(1, -(-m // chunk))
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check(ref: torch.Tensor, **tensors) -> None:
+    """Every tensor bfloat16 on ref's CUDA device. Raises otherwise."""
+    if ref.device.type != "cuda":
+        raise ValueError(f"tensors on {ref.device}: the kernels need a "
+                         "CUDA device (or every tensor on the CPU)")
+    for name, t in tensors.items():
+        if t.device != ref.device:
+            raise ValueError(f"{name} on {t.device}, expected {ref.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the kernels take bfloat16, got "
+                            f"{t.dtype}")
+
+
+def _indices_fit(m: int, c: int, k: int) -> bool:
+    return m * max(c, 1) * k * k < 2 ** 31
+
+
+def _fwd(x, wt, n, h, w, ci, co, k, name):
+    """conv_fwd of csrc/conv.cu: rows of x (n*h*w, ci) contiguous, wt
+    (co, k*k*ci) contiguous -> (n*h*w, co) in x's dtype."""
+    if not _indices_fit(n * h * w, max(ci, co), k):
+        raise ValueError("shape overflows the kernel's int32 indices")
+    y = torch.empty((n * h * w, co), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().conv_fwd(x.data_ptr(), wt.data_ptr(), y.data_ptr(), n, h,
+                              w, ci, co, k, fwd_tile(co), cuda_stream())
+    raise_on(err, name)
+    return y
+
+
+def _dw(x, dy, n, h, w, ci, co, k, name):
+    """conv_dw of csrc/conv.cu: rows of x (m, ci) and dy (m, co),
+    contiguous -> (k*k*ci, co) float32."""
+    m, kdim = n * h * w, k * k * ci
+    if not _indices_fit(m, max(ci, co), k):
+        raise ValueError("shape overflows the kernel's int32 indices")
+    bm, bn, chunk, splits = dw_plan(m, kdim, co, _sms(x.device.index or 0))
+    dw = torch.empty((kdim, co), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((splits, kdim, co), dtype=torch.float32,
+                      device=x.device) if splits > 1 else dw)
+    with torch.cuda.device(x.device):
+        err = _lib().conv_dw(x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+                             ws.data_ptr(), n, h, w, ci, co, k, bm, bn, chunk,
+                             splits, cuda_stream())
+    raise_on(err, name)
+    return dw
+
+
+def matmul_rows(x2: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """y = x2·w2 with float32 accumulation, rounded to x2's dtype.
+
+    x2 (M, Ci), w2 (Ci, Co). The 1x1 forward (w2 = W) and its dX (x2 =
+    dY, w2 = Wᵀ)."""
+    if on_cpu(x2, w2):
+        return matmul_rows_reference(x2, w2)
+    _check(x2, x2=x2, w2=w2)
+    m, ci = x2.shape
+    if w2.shape[0] != ci:
+        raise ValueError(f"x2 {tuple(x2.shape)}, w2 {tuple(w2.shape)}")
+    co = w2.shape[1]
+    y = _fwd(x2.contiguous(), w2.t().contiguous(), 1, 1, m, ci, co, 1,
+             "matmul_rows")
+    matmul_rows.launches += 1
+    return y
+
+
+def dw_rows(x2: torch.Tensor, dy2: torch.Tensor) -> torch.Tensor:
+    """x2ᵀ·dy2 summed in float32 over all M rows: (Ci, Co) float32.
+    x2 (M, Ci), dy2 (M, Co). The 1x1 dW."""
+    if on_cpu(x2, dy2):
+        return dw_rows_reference(x2, dy2)
+    _check(x2, x2=x2, dy2=dy2)
+    m, ci = x2.shape
+    if dy2.shape[0] != m:
+        raise ValueError(f"x2 {tuple(x2.shape)}, dy2 {tuple(dy2.shape)}")
+    dw = _dw(x2.contiguous(), dy2.contiguous(), 1, 1, m, ci, dy2.shape[1],
+             1, "dw_rows")
+    dw_rows.launches += 1
+    return dw
+
+
+def conv3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The 3x3 stride-1 SAME conv of x (N, Ci, H, W) with w (Co, Ci, 3, 3),
+    float32 accumulation, rounded to x's dtype; channels-last out."""
+    if on_cpu(x, w):
+        return conv3_reference(x, w)
+    _check(x, x=x, w=w)
+    n, ci, h, wd = x.shape
+    if w.shape[1:] != (ci, 3, 3):
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}")
+    co = w.shape[0]
+    wt = w.permute(0, 2, 3, 1).reshape(co, 9 * ci).contiguous()
+    y = _fwd(rows(x.contiguous(memory_format=_CL)), wt, n, h, wd, ci, co, 3,
+             "conv3")
+    conv3.launches += 1
+    return unrows(y, n, h, wd)
+
+
+def dw3(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The 3x3 dW: for each tap (ky, kx), Σ over pixels of the shifted x
+    (zero past the border) times dy, into a (9·Ci, Co) float32 table with
+    rows in (ky, kx, ci) order. x (N, Ci, H, W), dy (N, Co, H, W)."""
+    if on_cpu(x, dy):
+        return dw3_reference(x, dy)
+    _check(x, x=x, dy=dy)
+    n, ci, h, wd = x.shape
+    if dy.shape[0] != n or dy.shape[2:] != (h, wd):
+        raise ValueError(f"x {tuple(x.shape)}, dy {tuple(dy.shape)}")
+    dw = _dw(rows(x.contiguous(memory_format=_CL)),
+             rows(dy.contiguous(memory_format=_CL)), n, h, wd, ci,
+             dy.shape[1], 3, "dw3")
+    dw3.launches += 1
+    return dw
+
+
+for _fn in (matmul_rows, dw_rows, conv3, dw3):
+    _fn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# autograd: the custom-VJP convs
+# --------------------------------------------------------------------------
+
+
+class _Conv1x1(torch.autograd.Function):
+    """``_conv1x1_p`` (pallas_conv.py:217-248), stride 1 or 2."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        xs = x[:, :, ::stride, ::stride] if stride > 1 else x
+        xs = xs.contiguous(memory_format=_CL)
+        n, _, h, wd = xs.shape
+        ctx.save_for_backward(xs, w)
+        ctx.stride, ctx.x_shape = stride, x.shape
+        return unrows(matmul_rows(rows(xs), w[:, :, 0, 0].t()), n, h, wd)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xs, w = ctx.saved_tensors
+        n, ci, h, wd = xs.shape
+        dy2 = rows(dy.contiguous(memory_format=_CL))
+        dx = dw = None
+        if ctx.needs_input_grad[1]:
+            dw = dw_rows(rows(xs), dy2).t()[:, :, None, None].to(w.dtype)
+        if ctx.needs_input_grad[0]:
+            dxs = unrows(matmul_rows(dy2, w[:, :, 0, 0].to(dy.dtype)),
+                         n, h, wd).to(xs.dtype)
+            if ctx.stride > 1:
+                s = ctx.stride
+                dx = torch.empty(ctx.x_shape, dtype=xs.dtype,
+                                 device=xs.device, memory_format=_CL)
+                dx.zero_()[:, :, ::s, ::s] = dxs
+            else:
+                dx = dxs
+        return dx, dw, None
+
+
+class _Conv3x3(torch.autograd.Function):
+    """``_conv3x3_p`` (pallas_conv.py:251-276)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        x = x.contiguous(memory_format=_CL)
+        ctx.save_for_backward(x, w)
+        return conv3(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        ci, co = x.shape[1], w.shape[0]
+        dy = dy.contiguous(memory_format=_CL)
+        dx = dw = None
+        if ctx.needs_input_grad[1]:
+            dw = dw3(x, dy).reshape(3, 3, ci, co).permute(3, 2, 0, 1)
+            dw = dw.to(w.dtype)
+        if ctx.needs_input_grad[0]:
+            # dX: the SAME conv of dy with the kernel flipped in (ky, kx)
+            # and Ci, Co swapped, a (Ci, Co, 3, 3) weight
+            wflip = w.flip(2, 3).transpose(0, 1).to(dy.dtype)
+            dx = conv3(dy, wflip).to(x.dtype)
+        return dx, dw
+
+
+# --------------------------------------------------------------------------
+# public dispatch
+# --------------------------------------------------------------------------
+
+
+def supported(x_shape: Tuple[int, ...], kernel: Tuple[int, int],
+              stride: Tuple[int, int], dilation: Tuple[int, int],
+              co: int) -> bool:
+    """Whether :func:`conv2d` takes this conv's shape (pallas_conv.py:
+    284-301).
+
+    x_shape is JAX's (N, H, W, Ci). Taken: 1x1 convs at stride s in both
+    dims with H and W multiples of s (SAME then reads x[::s, ::s]), and
+    3x3 convs at stride 1; dilation 1; indices within int32.
+    """
+    if len(x_shape) != 4 or tuple(dilation) != (1, 1):
+        return False
+    n, h, wd, ci = x_shape
+    if min(n, h, wd, ci, co) < 1:
+        return False
+    kernel, stride = tuple(kernel), tuple(stride)
+    if kernel == (1, 1):
+        sh, sw = stride
+        if sh != sw or sh < 1 or h % sh or wd % sw:
+            return False
+        return _indices_fit(n * (h // sh) * (wd // sw), max(ci, co), 1)
+    if kernel == (3, 3) and stride == (1, 1):
+        return _indices_fit(n * h * wd, max(ci, co), 3)
+    return False
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor,
+           stride: Tuple[int, int] = (1, 1)) -> torch.Tensor:
+    """The conv of x (N, Ci, H, W) with w (Co, Ci, k, k), SAME padding,
+    differentiable in both (pallas_conv.py:304-321). Raises on a conv that
+    :func:`supported` refuses, and on activations off the CPU that are not
+    bfloat16 (the kernels' only type)."""
+    k = w.shape[-1]
+    n, ci, h, wd = x.shape
+    if not supported((n, h, wd, ci), tuple(w.shape[-2:]), stride, (1, 1),
+                     w.shape[0]):
+        raise ValueError(f"conv2d does not take x {tuple(x.shape)} "
+                         f"on {x.device}, w {tuple(w.shape)}, "
+                         f"stride {tuple(stride)}")
+    if x.device.type != "cpu" and x.dtype != torch.bfloat16:
+        raise TypeError(f"conv2d: the conv kernels take bfloat16, got "
+                        f"{x.dtype} on {x.device}; run the model in "
+                        "bfloat16 or turn PALLAS_CONVS off")
+    if k == 1:
+        return _Conv1x1.apply(x, w, stride[0])
+    return _Conv3x3.apply(x, w)
+

@@ -56,17 +56,21 @@ def kernel_takes(ci: int, co: int, k: int) -> bool:
 
 
 @contextlib.contextmanager
-def _no_tf32():
-    """Full float32 convolutions: the plain versions' products are f32."""
-    old = torch.backends.cudnn.allow_tf32
+def full_f32():
+    """Float32 products without TF32, in cuDNN and in matmuls: the plain
+    versions' products are f32."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = old
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
 
 
-def _up(t: torch.Tensor) -> torch.Tensor:
+def up_f32(t: torch.Tensor) -> torch.Tensor:
     """t in float32, or in float64 where it is float64 (gradcheck)."""
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
@@ -78,7 +82,7 @@ def _vec(ab: torch.Tensor, i: int) -> torch.Tensor:
 
 def _prologue(x: torch.Tensor, ab: torch.Tensor) -> torch.Tensor:
     """relu(x*a + b) in float32, rounded to x's dtype (``_prologue``)."""
-    return torch.relu(_up(x) * _vec(ab, 0) + _vec(ab, 1)).to(x.dtype)
+    return torch.relu(up_f32(x) * _vec(ab, 0) + _vec(ab, 1)).to(x.dtype)
 
 
 def _dy_eff(dy: torch.Tensor, y: torch.Tensor,
@@ -87,8 +91,8 @@ def _dy_eff(dy: torch.Tensor, y: torch.Tensor,
     of the statistics s = [Σy, Σy²] folded into dy (``_dy_eff``)."""
     if ds is None:
         return dy
-    return (_up(dy) + _vec(ds, 0)
-            + 2.0 * _up(y) * _vec(ds, 1)).to(dy.dtype)
+    return (up_f32(dy) + _vec(ds, 0)
+            + 2.0 * up_f32(y) * _vec(ds, 1)).to(dy.dtype)
 
 
 def conv_fwd_reference(x: torch.Tensor, ab: torch.Tensor, w: torch.Tensor
@@ -96,8 +100,8 @@ def conv_fwd_reference(x: torch.Tensor, ab: torch.Tensor, w: torch.Tensor
     """Plain version of :func:`conv_fwd`."""
     k = w.shape[-1]
     xn = _prologue(x, ab)  # zero padding comes after the prologue
-    with _no_tf32():
-        y = F.conv2d(_up(xn), _up(w), padding=k // 2)
+    with full_f32():
+        y = F.conv2d(up_f32(xn), up_f32(w), padding=k // 2)
     s = torch.stack([y.sum((0, 2, 3)), (y * y).sum((0, 2, 3))])
     return y.to(x.dtype).contiguous(memory_format=_CL), s
 
@@ -105,13 +109,13 @@ def conv_fwd_reference(x: torch.Tensor, ab: torch.Tensor, w: torch.Tensor
 def conv_bwd_reference(x, ab, w, y, dy, ds):
     """Plain version of :func:`conv_bwd`."""
     k = w.shape[-1]
-    xn = _up(_prologue(x, ab))
-    dye = _up(_dy_eff(dy, y, ds))
-    with _no_tf32():
+    xn = up_f32(_prologue(x, ab))
+    dye = up_f32(_dy_eff(dy, y, ds))
+    with full_f32():
         dw = torch.nn.grad.conv2d_weight(xn, w.shape, dye, padding=k // 2)
-        g = torch.nn.grad.conv2d_input(x.shape, _up(w), dye,
+        g = torch.nn.grad.conv2d_input(x.shape, up_f32(w), dye,
                                        padding=k // 2)
-    xf = _up(x)
+    xf = up_f32(x)
     gm = g * (xf * _vec(ab, 0) + _vec(ab, 1) > 0)
     dx = (gm * _vec(ab, 0)).to(x.dtype).contiguous(memory_format=_CL)
     dab = torch.stack([(gm * xf).sum((0, 2, 3)), gm.sum((0, 2, 3))])
@@ -120,16 +124,16 @@ def conv_bwd_reference(x, ab, w, y, dy, ds):
 
 def boundary_fwd_reference(z, ab, zs, abs_):
     """Plain version of :func:`boundary_fwd`."""
-    pre = (_up(z) * _vec(ab, 0) + _vec(ab, 1)
-           + _up(zs) * _vec(abs_, 0) + _vec(abs_, 1))
+    pre = (up_f32(z) * _vec(ab, 0) + _vec(ab, 1)
+           + up_f32(zs) * _vec(abs_, 0) + _vec(abs_, 1))
     return torch.relu(pre).to(z.dtype).contiguous(memory_format=_CL)
 
 
 def boundary_bwd_reference(g, z, ab, zs, abs_):
     """Plain version of :func:`boundary_bwd`."""
-    zf, zsf = _up(z), _up(zs)
+    zf, zsf = up_f32(z), up_f32(zs)
     pre = zf * _vec(ab, 0) + _vec(ab, 1) + zsf * _vec(abs_, 0) + _vec(abs_, 1)
-    gm = _up(g) * (pre > 0)
+    gm = up_f32(g) * (pre > 0)
     gsum = gm.sum((0, 2, 3))
     dab = torch.stack([(gm * zf).sum((0, 2, 3)), gsum])
     dabs = torch.stack([(gm * zsf).sum((0, 2, 3)), gsum])
@@ -164,7 +168,7 @@ def _lib(name: str):
     return lib
 
 
-def _on_cpu(*ts) -> bool:
+def on_cpu(*ts) -> bool:
     return all(t is None or t.device.type == "cpu" for t in ts)
 
 
@@ -188,11 +192,11 @@ def _check(ref: torch.Tensor, **tensors) -> None:
                             f"{t.dtype}")
 
 
-def _stream() -> int:
+def cuda_stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _raise_on(err: int, name: str) -> None:
+def raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
@@ -220,7 +224,7 @@ def conv_fwd(x: torch.Tensor, ab: torch.Tensor, w: torch.Tensor
     with k in (1, 3), in x's dtype. Returns y (N, Co, H, W) channels-last
     in x's dtype and s (2, Co) float32 taken from the float32 products.
     """
-    if _on_cpu(x, ab, w):
+    if on_cpu(x, ab, w):
         return conv_fwd_reference(x, ab, w)
     _check(x, x=x, ab=ab)
     n, ci, h, wd, co, k = _conv_shapes(x, ab, w)
@@ -233,8 +237,8 @@ def conv_fwd(x: torch.Tensor, ab: torch.Tensor, w: torch.Tensor
     with torch.cuda.device(x.device):
         err = _lib("fused_conv").fused_conv_fwd(
             x.data_ptr(), ab.data_ptr(), wt.data_ptr(), y.data_ptr(),
-            s.data_ptr(), n, h, wd, ci, co, k, _stream())
-    _raise_on(err, "fused_conv_fwd")
+            s.data_ptr(), n, h, wd, ci, co, k, cuda_stream())
+    raise_on(err, "fused_conv_fwd")
     conv_fwd.launches += 1
     return y, s
 
@@ -247,7 +251,7 @@ def conv_bwd(x, ab, w, y, dy, ds):
     Two launches: dW = im2col(relu(x*a+b))ᵀ·dy_eff, split over the rows
     with float32 atomics, then dx and dab.
     """
-    if _on_cpu(x, ab, w, y, dy, ds):
+    if on_cpu(x, ab, w, y, dy, ds):
         return conv_bwd_reference(x, ab, w, y, dy, ds)
     dy = dy.contiguous(memory_format=_CL)
     n, ci, h, wd, co, k = _conv_shapes(x, ab, w)
@@ -269,8 +273,8 @@ def conv_bwd(x, ab, w, y, dy, ds):
         err = _lib("fused_conv").fused_conv_bwd(
             x.data_ptr(), ab.data_ptr(), wflip.data_ptr(), y.data_ptr(),
             dy.data_ptr(), ds.data_ptr(), dx.data_ptr(), dab.data_ptr(),
-            dw.data_ptr(), n, h, wd, ci, co, k, _stream())
-    _raise_on(err, "fused_conv_bwd")
+            dw.data_ptr(), n, h, wd, ci, co, k, cuda_stream())
+    raise_on(err, "fused_conv_bwd")
     conv_bwd.launches += 1
     dw = dw.reshape(k, k, ci, co).permute(3, 2, 0, 1).to(w.dtype)
     return dx, dab, dw.contiguous()
@@ -295,7 +299,7 @@ def boundary_fwd(z, ab, zs, abs_):
     """relu(z*a + b + zs*as + bs): BN3's affine, the shortcut's affine,
     the residual add and the relu in one pass. z, zs (N, C, H, W)
     channels-last; ab, abs_ (2, C) float32."""
-    if _on_cpu(z, ab, zs, abs_):
+    if on_cpu(z, ab, zs, abs_):
         return boundary_fwd_reference(z, ab, zs, abs_)
     _check(z, z=z, ab=ab, zs=zs, abs_=abs_)
     m, c = _boundary_shapes(z, ab, zs, abs_)
@@ -303,8 +307,8 @@ def boundary_fwd(z, ab, zs, abs_):
     with torch.cuda.device(z.device):
         err = _lib("fused_boundary").fused_boundary_fwd(
             z.data_ptr(), ab.data_ptr(), zs.data_ptr(), abs_.data_ptr(),
-            out.data_ptr(), m, c, _stream())
-    _raise_on(err, "fused_boundary_fwd")
+            out.data_ptr(), m, c, cuda_stream())
+    raise_on(err, "fused_boundary_fwd")
     boundary_fwd.launches += 1
     return out
 
@@ -313,7 +317,7 @@ def boundary_bwd(g, z, ab, zs, abs_):
     """Backward of :func:`boundary_fwd`: dz, dab, dzs, dabs with
     gm = g·[pre > 0]: dz = gm*a, dzs = gm*as, dab = [Σ gm*z, Σ gm],
     dabs = [Σ gm*zs, Σ gm]."""
-    if _on_cpu(g, z, ab, zs, abs_):
+    if on_cpu(g, z, ab, zs, abs_):
         return boundary_bwd_reference(g, z, ab, zs, abs_)
     g = g.contiguous(memory_format=_CL)
     _check(z, g=g, z=z, ab=ab, zs=zs, abs_=abs_)
@@ -328,8 +332,8 @@ def boundary_bwd(g, z, ab, zs, abs_):
         err = _lib("fused_boundary").fused_boundary_bwd(
             g.data_ptr(), z.data_ptr(), ab.data_ptr(), zs.data_ptr(),
             abs_.data_ptr(), dz.data_ptr(), dzs.data_ptr(), dab.data_ptr(),
-            dabs.data_ptr(), m, c, _stream())
-    _raise_on(err, "fused_boundary_bwd")
+            dabs.data_ptr(), m, c, cuda_stream())
+    raise_on(err, "fused_boundary_bwd")
     boundary_bwd.launches += 1
     return dz, dab, dzs, dabs
 

@@ -45,11 +45,14 @@ def _nvcc() -> str:
 
 def build_library(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into a shared library, once per content
-    hash, and return its path. Raises if ``nvcc`` is missing or fails."""
+    hash (of the source, the ``csrc/*.cuh`` headers it may include, the
+    flags and the compiler), and return its path. Raises if ``nvcc`` is
+    missing or fails."""
     src = CSRC_DIR / f"{name}.cu"
     nvcc = _nvcc()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS + (nvcc,)).encode()
+        src.read_bytes() + headers + "\0".join(NVCC_FLAGS + (nvcc,)).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     if not out.exists():

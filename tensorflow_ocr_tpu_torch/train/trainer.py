@@ -51,13 +51,25 @@ class TrainState:
     ema: Dict[str, torch.Tensor]  # parameter name -> EMA value
 
 
-def create_train_state(cfg: Config, device="cpu",
+def require_device(device, who: str) -> torch.device:
+    """``device`` as a torch.device; raises when it is a CUDA device and
+    torch sees none: training never carries on on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}(device='cuda'): torch sees no CUDA "
+                           "device")
+    return device
+
+
+def create_train_state(cfg: Config, device="cuda",
                        generator: Optional[torch.Generator] = None,
                        weights: Optional[Mapping[str, torch.Tensor]] = None
                        ) -> TrainState:
     """Model of ``cfg.model`` (seeded from ``cfg.train.seed`` unless a
     generator or a state_dict is given), a fresh optimizer and
-    ``ema = copy(params)``, on ``device``."""
+    ``ema = copy(params)``, on ``device`` (the card unless the caller asks
+    for the CPU; raises when there is no card)."""
+    device = require_device(device, "create_train_state")
     check_loss_ported(cfg.loss.name)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.train.seed)
@@ -137,12 +149,13 @@ def to_device(batch: Mapping[str, np.ndarray], device
 
 
 class Trainer:
-    """The train loop (trainer.py:674-866) on one device: NaN abort and
-    an examples/s meter every ``cfg.train.log_every_steps`` steps."""
+    """The train loop (trainer.py:674-866) on one device (the card unless
+    the caller asks for the CPU; raises when there is no card): NaN abort
+    and an examples/s meter every ``cfg.train.log_every_steps`` steps."""
 
-    def __init__(self, cfg: Config, device="cpu"):
+    def __init__(self, cfg: Config, device="cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = require_device(device, "Trainer")
         self.state: Optional[TrainState] = None
         self.loss_fn = make_loss_fn(cfg)
 

@@ -163,7 +163,7 @@ BM, BK = 128, 32
 
 
 def tap_pixel(m, t, n, h, w, ks):
-    """csrc/fused_conv.cu tap_pixel: pixel of output row m under tap t, or
+    """csrc/igemm.cuh tap_pixel: pixel of output row m under tap t, or
     -1 at the SAME pad / past the last row."""
     big = n * h * w
     ow, oh = m % w, (m // w) % h

@@ -39,7 +39,7 @@ def test_port_imports_without_jax_or_cv2():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
     for mod in ("config", "infer", "models.convert", "models.detector",
-                "models.resnet", "ops.decode", "ops.fused", "ops.kernels",
-                "ops.labels", "ops.losses", "ops.rasterize", "train.optim",
-                "train.trainer", "utils.image"):
+                "models.resnet", "ops.conv", "ops.decode", "ops.fused",
+                "ops.kernels", "ops.labels", "ops.losses", "ops.rasterize",
+                "train.optim", "train.trainer", "utils.image"):
         assert f"tensorflow_ocr_tpu_torch.{mod}" in out["modules"]

@@ -74,7 +74,9 @@ def numpy_init(model, size, rng):
     return perturb_bn(jax.tree_util.tree_map_with_path(fill, shapes), rng)
 
 
-def run_parity(freeze_bn: bool):
+def run_parity(freeze_bn: bool, steps: int = STEPS, impl: str = "fused"):
+    """``steps`` steps of JAX's make_train_step against the port's
+    train_step with ``bottleneck_impl=impl``, from one converted init."""
     rng = np.random.RandomState(int(freeze_bn))
     batch = scene_batch(rng, 2, SIZE)
 
@@ -99,13 +101,14 @@ def run_parity(freeze_bn: bool):
     cfg = Config()
     cfg.data.input_size = SIZE
     cfg.model.compute_dtype = "float32"
-    cfg.model.bottleneck_impl = "fused"
+    cfg.model.bottleneck_impl = impl
     cfg.model.freeze_bn = freeze_bn
-    state = TT.create_train_state(cfg, weights=convert_variables(variables))
+    state = TT.create_train_state(cfg, device="cpu",
+                                  weights=convert_variables(variables))
     loss_fn = TT.make_loss_fn(cfg)
     tbatch = TT.to_device(batch, "cpu")
 
-    for step in range(STEPS):
+    for step in range(steps):
         jstate, jm = step_fn(jstate, dbatch)
         m = TT.train_step(state, tbatch, cfg, loss_fn)
         for key in ("total_loss", "model_loss", "pixel_loss", "link_loss"):
@@ -113,10 +116,10 @@ def run_parity(freeze_bn: bool):
                                        rtol=1e-4 if step == 0 else 1e-2,
                                        err_msg=f"step {step} {key}")
         assert float(m["n_pos"]) == float(jm["n_pos"]) > 0
-    assert state.step == int(jstate.step) == STEPS
+    assert state.step == int(jstate.step) == steps
 
     got = state.model.state_dict()
-    atol = 2 * LR * STEPS
+    atol = 2 * LR * steps
     for key, value in convert_variables({"params": jstate.params}).items():
         np.testing.assert_allclose(got[key].numpy(), value.numpy(),
                                    rtol=1e-3, atol=atol, err_msg=key)

@@ -129,7 +129,7 @@ def test_trainer_run_logs_and_stops_on_nan(capsys):
     cfg.model.compute_dtype = "float32"
     cfg.data.input_size = 32
     cfg.train.log_every_steps = 2
-    trainer = TT.Trainer(cfg)
+    trainer = TT.Trainer(cfg, device="cpu")
     trainer.setup()
     batch = scene_batch(np.random.RandomState(3), 2, 32)
     last = trainer.run([batch] * 3, 3)
@@ -144,11 +144,21 @@ def test_trainer_run_logs_and_stops_on_nan(capsys):
     assert "Loss diverged" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("entry", ["create_train_state", "Trainer"])
+def test_train_entry_points_default_to_the_card(entry):
+    """Training runs on the card unless the caller asks for the CPU: the
+    default device raises where torch sees no CUDA device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(TT, entry)(Config())
+
+
 def test_train_state_refuses_unported_settings():
     cfg = Config()
     cfg.model.bottleneck_impl = "ghost"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.create_train_state(cfg)
+        TT.create_train_state(cfg, device="cpu")
     cfg = Config()
     cfg.loss.name = "dice"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
