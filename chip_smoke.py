@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (tensorflow_ocr_tpu_torch) on one CUDA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--faults]
 
 Phases, in order; any failure raises and exits non-zero:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the four CUDA sources of csrc/ (nvcc, sm_90a), one nvcc each,
+2. build the five CUDA sources of csrc/ (nvcc, sm_90a), one nvcc each,
    all started together;
 3. hold the connected-components kernel against its plain PyTorch
    version on the card: (8, 192, 320) text-like blob maps plus hand
@@ -52,15 +52,27 @@ Phases, in order; any failure raises and exits non-zero:
    launch counts at their expected values; one step against the same
    arm on cuDNN from the tempered state (CONV_ARM_* bounds); one
    freeze_bn step with the route on (the BN fold path);
-14. train img/s for the fused, xla, freeze_bn-fused and xla pallas-conv
-   arms, each over 3 windows of at least 10 s (median and range);
-15. with --profile only: a torch.profiler trace of 3 train steps of the
-   fused arm and of the xla pallas-conv arm.
+14. hold each of the five ghost-BN kernels (csrc/ghost_unit.cu) against
+   its plain version along one unit's forward and backward chain at
+   each of the 4 ghost unit shapes of the 512^2 batch-32 step; print
+   kernel and plain ms, the FLOPs, bytes and bound of each call;
+15. with --faults only: the readings of the ghost arm check (phase 16)
+   in 3 sound runs and under planted faults, which set GHOST_ARM_*;
+16. the ghost arm (bottleneck_impl "ghost": 5 ghost units, the other 8
+   stride-1 units plain): 3 steps through Trainer.run with the five
+   kernels' launch counts at their expected values; one step on the
+   kernels against one on the plain versions from the tempered state
+   (GHOST_ARM_* bounds); one freeze_bn step (no ghost kernel);
+17. train img/s for the fused, xla, freeze_bn-fused, xla pallas-conv and
+   ghost arms, each over 3 windows of at least 10 s (median and range);
+18. with --profile only: a torch.profiler trace of 3 train steps of the
+   fused, the xla pallas-conv and the ghost arm.
 
-The line before the last is a JSON object describing the nine kernels
-(launches from the main path of each: detect for the CC kernel, the
-fused steps for the fused kernels, the pallas-conv steps for the conv
-kernels; times summed over the shapes of each kernel's check); the last
+The line before the last is a JSON object describing the fourteen
+kernels (launches from the main path of each: detect for the CC kernel,
+the fused steps for the fused kernels, the pallas-conv steps for the
+conv kernels, the ghost steps for the ghost kernels; times summed over
+the shapes of each kernel's check); the last
 line is {"ok": true, "device": {...}}. Weights are random (seeded):
 the check is that the port runs and agrees with itself and its plain
 versions, not detection quality.
@@ -787,17 +799,18 @@ def add_bound(report, flops, nbytes, peak=PEAK_BF16):
 
 
 def build_all():
-    """Build the four CUDA sources, one nvcc each, all started together,
+    """Build the five CUDA sources, one nvcc each, all started together,
     and load each library."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tensorflow_ocr_tpu_torch.ops import conv as CV
     from tensorflow_ocr_tpu_torch.ops import fused as FU
+    from tensorflow_ocr_tpu_torch.ops import ghost as G
     from tensorflow_ocr_tpu_torch.ops import kernels as K
 
     loaders = {"cc": K._cc_label, "fused_conv": lambda: FU._lib("fused_conv"),
                "fused_boundary": lambda: FU._lib("fused_boundary"),
-               "conv": CV._lib}
+               "conv": CV._lib, "ghost_unit": G._lib}
 
     def one(name):
         t0 = time.perf_counter()
@@ -1246,8 +1259,8 @@ def phase_conv_faults(device, snap, batch):
 
 
 def phase_train_timing(trainer, batch):
-    """Train img/s at 512^2, batch 32, for the fused, xla, freeze_bn-fused
-    and xla pallas-conv arms: host clock around TRAIN_WINDOWS windows of at
+    """Train img/s at 512^2, batch 32, for the fused, xla, freeze_bn-fused,
+    xla pallas-conv and ghost arms: host clock around TRAIN_WINDOWS windows of at
     least TRAIN_WINDOW_S of train_step calls on one device-resident batch
     (labels made on the card inside each step), each window ending in a
     sync; reported as the median with the range."""
@@ -1258,7 +1271,8 @@ def phase_train_timing(trainer, batch):
     for arm, impl, freeze, route in (
             ("fused", "fused", False, False), ("xla", "xla", False, False),
             ("freeze_bn fused", "fused", True, False),
-            ("xla pallas-conv", "xla", False, True)):
+            ("xla pallas-conv", "xla", False, True),
+            ("ghost", "ghost", False, False)):
         cfg = train_config(impl, freeze)
         state = T.create_train_state(cfg, batch["images"].device,
                                      weights=weights)
@@ -1291,16 +1305,17 @@ def phase_train_timing(trainer, batch):
 
 
 def phase_profile_train(trainer, batch):
-    """torch.profiler over 3 train steps of the fused arm and of the xla
-    pallas-conv arm: wall, device busy, idle share and the largest device
-    entries."""
+    """torch.profiler over 3 train steps of the fused, the xla pallas-conv
+    and the ghost arm: wall, device busy, idle share and the largest
+    device entries."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from tensorflow_ocr_tpu_torch.train import trainer as T
 
     weights = trainer.state.model.state_dict()
     for arm, impl, route in (("fused", "fused", False),
-                             ("xla pallas-conv", "xla", True)):
+                             ("xla pallas-conv", "xla", True),
+                             ("ghost", "ghost", False)):
         cfg = train_config(impl)
         state = T.create_train_state(cfg, batch["images"].device,
                                      weights=weights)
@@ -1326,14 +1341,439 @@ def phase_profile_train(trainer, batch):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- the ghost-BN train step
+
+GHOST_SRC = "tensorflow_ocr_tpu_torch/csrc/ghost_unit.cu"
+GHOST_KERNELS = {
+    # name: (wrapper attribute in ops/ghost.py, the sites replaced)
+    "ghost_conv_fwd": (
+        "conv_fwd", "tensorflow_ocr_tpu/ops/pallas_unit.py:270 (_unit_fwd, "
+        "pallas_call :303): the unit's convs"),
+    "ghost_boundary_fwd": (
+        "boundary_fwd", "tensorflow_ocr_tpu/ops/pallas_unit.py:270 "
+        "(_unit_fwd, pallas_call :303): BN3, shortcut, add, relu"),
+    "ghost_boundary_bwd": (
+        "boundary_bwd", "tensorflow_ocr_tpu/ops/pallas_unit.py:627 "
+        "(_unit_bwd sweep 1, pallas_call :677): gm3 and its band sums"),
+    "ghost_conv_bwd": (
+        "conv_bwd", "tensorflow_ocr_tpu/ops/pallas_unit.py:627 (_unit_bwd "
+        "sweeps 1 and 2, pallas_calls :677, :700): dW1-3, dWs, do and the "
+        "interior chain"),
+    "ghost_seam_bwd": (
+        "seam_bwd", "tensorflow_ocr_tpu/ops/pallas_unit.py:627 (_unit_bwd "
+        "sweep 2, pallas_call :700): the seam rows"),
+}
+# the ghost units of the 512^2 batch-32 step (pick_gh; block3 and block4
+# are plain Bottlenecks): (N, H, W, Ci, db, Co, gh), block1_unit1 and
+# block2_unit1 with a projection shortcut; block2_unit2-3 share a shape
+GHOST_SHAPES = ((32, 128, 128, 64, 64, 256, 8), (32, 128, 128, 256, 64, 256, 8),
+                (32, 64, 64, 256, 128, 512, 8), (32, 64, 64, 512, 128, 512, 8))
+# launches a step: 2 projection units (4 convs, 4 conv backwards) and 3
+# identity units (3 and 3), one boundary and one seam pass each way a unit
+GHOST_STEP_LAUNCHES = {"ghost_conv_fwd": 17, "ghost_boundary_fwd": 5,
+                       "ghost_boundary_bwd": 5, "ghost_conv_bwd": 17,
+                       "ghost_seam_bwd": 5}
+# float32 tensor outputs (gm, the seam terms, the shortcut's dX): kernel
+# and plain version sum the same bf16 products in another order, within
+# this much of the tensor's largest value
+F32_REL = 1e-4
+# the ghost arm with its kernels against the same arm on the plain
+# versions, one step each from the tempered state: the bounds lie between
+# the sound runs' largest reading and the planted faults' smallest
+# (--faults; PERF.md, Findings; readings on an H100 80GB HBM3 at 700 W).
+# Each fault passes one reading and fails another: the dropped seam terms
+# fail the cosine and the ghost-unit reading, the halo rows under their
+# own band's affine all three, dW2 x 0.9 the ghost-unit reading only. The
+# loss bound only catches coarse forward faults (the halo fault read
+# 1.2e-4 to 2.3e-4, under the bound).
+GHOST_ARM_LOSS_REL = 5e-4  # sound <= 1.64e-4
+GHOST_ARM_GRAD_REL = 2.5e-2  # sound <= 1.60e-2; the halo fault >= 3.23e-2
+GHOST_ARM_COS_MIN = 0.98   # sound >= 0.9930; seam 0.931, halo 0.978
+# the worst relative error over the ghost units' parameters: sound <=
+# 4.92e-2 (block2_unit2.conv1), faults >= 0.106 (dW2 x 0.9)
+GHOST_ARM_UNIT_REL = 7.5e-2
+# the ghost units of the step (the worst-parameter reading above)
+GHOST_UNIT_NAMES = ("block1_unit1", "block1_unit2", "block2_unit1",
+                    "block2_unit2", "block2_unit3")
+
+
+def reset_ghost_counts():
+    from tensorflow_ocr_tpu_torch.ops import ghost as G
+
+    for attr, _ in GHOST_KERNELS.values():
+        getattr(G, attr).launches = 0
+
+
+def ghost_counts():
+    from tensorflow_ocr_tpu_torch.ops import ghost as G
+
+    return {name: getattr(G, attr).launches
+            for name, (attr, _) in GHOST_KERNELS.items()}
+
+
+def f32_close(name, got, want):
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= F32_REL * float(want.float().abs().max()) + 1e-30,
+          f"{name}: max err {err:.3e} beyond {F32_REL:g} of the largest value")
+    return err
+
+
+def phase_ghost_kernels(device, reports):
+    """Each ghost kernel against its plain version at each unit shape of
+    the step (GHOST_SHAPES), on one unit's chain: the forward's four
+    convs and boundary, then the backward from a random dout, each
+    kernel fed the plain version's outputs of the stage before. bf16
+    outputs within one bf16 ulp, float32 tensors within F32_REL of their
+    largest value, float32 sums within SUM_REL of the sum of their terms'
+    magnitudes. Prints each call's kernel and plain ms, FLOPs, bytes and
+    bound; the reports sum every call over the shapes."""
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import ghost as G
+
+    gen = torch.Generator().manual_seed(8)
+    bf, cl = torch.bfloat16, torch.channels_last
+    eps = 1e-5
+    # no one PyTorch call computes a ghost-BN unit or a part of it
+    for r in reports.values():
+        r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None)
+
+    def act(n, c, h, w, scale=1.0, relu=False):
+        t = torch.randn(n, c, h, w, generator=gen) * scale
+        t = torch.relu(t) if relu else t
+        return t.to(device=device, dtype=bf).contiguous(memory_format=cl)
+
+    def weight(co, ci, k):
+        return (torch.randn(co, ci, k, k, generator=gen)
+                / (k * k * ci) ** 0.5).to(device=device, dtype=bf)
+
+    def gbt(c):
+        return torch.stack([torch.empty(c).uniform_(0.5, 1.5, generator=gen),
+                            torch.randn(c, generator=gen) * 0.1]).to(device)
+
+    def timed(name, what, kernel, plain, errs, flops, nbytes, peak=PEAK_BF16):
+        r = reports[name]
+        r["max_abs_err"] = max(r["max_abs_err"], *errs)
+        ms, pms = cuda_ms(kernel, 10), cuda_ms(plain, 2)
+        bound = add_bound(r, flops, nbytes, peak)
+        r["ms"] += ms
+        r["plain_ms"] += pms
+        print(f"{name} {what}: kernel {ms:.4f} ms, plain {pms:.4f}; "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB, bound "
+              f"{bound:.4f} ms; max abs err {max(errs):.3e}")
+
+    def conv_fwd(what, x, tab, w, gh):
+        got, want = G.conv_fwd(x, tab, w, gh), G.conv_fwd_reference(x, tab,
+                                                                  w, gh)
+        torch.cuda.synchronize()
+        # the statistics are of each side's own rounded y, and the two y
+        # may round apart by an ulp: the kernel's sums are held against
+        # the plain sums of its own y
+        y = got[0].float()
+        errs = [bf16_close(f"{what} y", got[0], want[0]),
+                sum_close(f"{what} s", got[1], G.band_stats(got[0], gh),
+                          G.band_sums(y.abs(), y * y, gh))]
+        n, ci, h, wd = x.shape
+        co, k = w.shape[0], w.shape[-1]
+        m, nbt = n * h * wd, n * (h // gh)
+        timed("ghost_conv_fwd", what, lambda: G.conv_fwd(x, tab, w, gh),
+              lambda: G.conv_fwd_reference(x, tab, w, gh), errs,
+              2 * m * k * k * ci * co,
+              2 * m * (ci + co) + 2 * k * k * ci * co + 8 * nbt * (ci + co))
+        return want
+
+    def conv_bwd(what, x, tx, g, z, td, w, gh, edge=None, addend=None,
+                 out="gm"):
+        args = (x, tx, g, z, td, w, gh, edge, addend, out)
+        got, want = G.conv_bwd(*args), G.conv_bwd_reference(*args)
+        torch.cuda.synchronize()
+        n, ci, h, wd = x.shape
+        co, k = w.shape[0], w.shape[-1]
+        dz = G._dz(g, z, td, gh, edge).float().abs()
+        with G.full_f32():
+            if k == 1:
+                scale = torch.nn.grad.conv2d_weight(
+                    G._act(x, tx, gh).float().abs(), w.shape, dz)
+            else:
+                scale = torch.nn.grad.conv2d_weight(
+                    G._act_halo(x, tx, gh).float().abs(), w.shape,
+                    G._bands(dz, gh), padding=(0, 1))
+        errs = [sum_close(f"{what} dw", got[2], want[2], scale)]
+        if out == "gm":
+            gm, xf = want[0], x.float()
+            errs += [f32_close(f"{what} gm", got[0], gm),
+                     sum_close(f"{what} sums", got[1], want[1],
+                               G.band_sums((gm * xf).abs(), gm.abs(), gh))]
+        elif out == "f32":
+            errs.append(f32_close(f"{what} dx", got[0], want[0]))
+        else:
+            errs.append(bf16_close(f"{what} dx", got[0], want[0]))
+        m, nbt = n * h * wd, n * (h // gh)
+        gb, ob = g.element_size(), (2 if out == "act" else 4)
+        nbytes = (m * ci * (2 + ob) + m * co * (gb + 2) + 6 * k * k * ci * co
+                  + (0 if addend is None else m * ci * addend.element_size())
+                  + (0 if edge is None else edge.numel() * 4)
+                  + 4 * nbt * (5 * co + 4 * ci))
+        timed("ghost_conv_bwd", what, lambda: G.conv_bwd(*args),
+              lambda: G.conv_bwd_reference(*args), errs,
+              4 * m * k * k * ci * co, nbytes)
+        return want
+
+    for n, h, wd, ci, db, co, gh in GHOST_SHAPES:
+        proj, cnt = ci != co, float(gh * wd)
+        tag = f"{'proj' if proj else 'identity'} {ci}/{db}/{co} at {n}x{h}x{wd} gh {gh}"
+        m, nbt = n * h * wd, n * (h // gh)
+        o = act(n, ci, h, wd, relu=True)
+        w1, w2, w3 = weight(db, ci, 1), weight(db, db, 3), weight(co, db, 1)
+        gb1, gb2, gb3 = gbt(db), gbt(db), gbt(co)
+        z1, s1 = conv_fwd(f"z1 {tag}", o, None, w1, gh)
+        t1 = G.affine_of(s1, gb1, cnt, eps)
+        z2, s2 = conv_fwd(f"z2 {tag}", z1, t1, w2, gh)
+        t2 = G.affine_of(s2, gb2, cnt, eps)
+        z3, s3 = conv_fwd(f"z3 {tag}", z2, t2, w3, gh)
+        t3 = G.affine_of(s3, gb3, cnt, eps)
+        if proj:
+            ws, gbs = weight(co, ci, 1), gbt(co)
+            zs, ss = conv_fwd(f"zs {tag}", o, None, ws, gh)
+            ts = G.affine_of(ss, gbs, cnt, eps)
+        else:
+            zs, ts = o, None
+        out = G.boundary_fwd(z3, t3, zs, ts, gh)
+        want = G.boundary_fwd_reference(z3, t3, zs, ts, gh)
+        torch.cuda.synchronize()
+        timed("ghost_boundary_fwd", tag,
+              lambda: G.boundary_fwd(z3, t3, zs, ts, gh),
+              lambda: G.boundary_fwd_reference(z3, t3, zs, ts, gh),
+              [bf16_close(f"out {tag}", out, want)], 5 * m * co,
+              6 * m * co + 16 * nbt * co, PEAK_F32)
+        del out, want
+
+        dout = act(n, co, h, wd, 1e-2)
+        got = G.boundary_bwd(dout, z3, t3, zs, ts, gh)
+        gm3, sb = G.boundary_bwd_reference(dout, z3, t3, zs, ts, gh)
+        torch.cuda.synchronize()
+        gf = gm3.float().abs()
+        scale = torch.cat([G.band_sums(gf * z3.float().abs(), gf, gh),
+                           G.band_sums(gf * zs.float().abs(), gf, gh)[:, :, :1]],
+                          2)
+        timed("ghost_boundary_bwd", tag,
+              lambda: G.boundary_bwd(dout, z3, t3, zs, ts, gh),
+              lambda: G.boundary_bwd_reference(dout, z3, t3, zs, ts, gh),
+              [bf16_close(f"gm3 {tag}", got[0], gm3),
+               sum_close(f"gm3 sums {tag}", got[1], sb, scale)],
+              8 * m * co, 8 * m * co + 28 * nbt * co, PEAK_F32)
+        del got
+
+        def corr(dab, stats, gb, t):
+            c, _ = G.stat_corr(dab, stats, gb, cnt, eps)
+            return torch.cat([t[:, :, :1], c], 2).contiguous()
+
+        td3 = corr(sb[:, :, :2], s3, gb3, t3)
+        gm2, sb2, _ = conv_bwd(f"conv3 {tag}", z2, t2, gm3, z3, td3, w3, gh)
+        td2 = corr(sb2, s2, gb2, t2)
+        gm1, sb1, _ = conv_bwd(f"conv2 {tag}", z1, t1, gm2, z2, td2, w2, gh)
+        args = (gm2, z2, td2, z1, t1, w2, gh)
+        got = G.seam_bwd(*args)
+        edge, sh = G.seam_bwd_reference(*args)
+        torch.cuda.synchronize()
+        rows = 2 * nbt * wd
+        timed("ghost_seam_bwd", tag, lambda: G.seam_bwd(*args),
+              lambda: G.seam_bwd_reference(*args),
+              [f32_close(f"seam edge {tag}", got[0], edge),
+               f32_close(f"seam sums {tag}", got[1], sh)],
+              2 * rows * 3 * db * db,
+              rows * db * (4 + 2 + 2 + 4) + 18 * db * db + 8 * nbt * db)
+        del got
+        td1 = corr(sb1 + sh, s1, gb1, t1)
+        if proj:
+            tds = corr(sb[:, :, [2, 1]], ss, gbs, ts)
+            addend = conv_bwd(f"shortcut {tag}", o, None, gm3, zs, tds, ws,
+                              gh, out="f32")[0]
+        else:
+            addend = gm3
+        conv_bwd(f"conv1 {tag}", o, None, gm1, z1, td1, w1, gh, edge=edge,
+                 addend=addend, out="act")
+        del o, z1, z2, z3, zs, dout, gm3, gm2, gm1, edge, addend
+        torch.cuda.empty_cache()
+    print("ghost kernels: ms, plain_ms and bound_ms in the kernels line are "
+          "sums over every call of one unit's chain at each of the "
+          f"{len(GHOST_SHAPES)} unit shapes; max_abs_err over its "
+          "tensor outputs (the f32 sums are checked against SUM_REL above)")
+
+
+@contextlib.contextmanager
+def plain_ghost():
+    """The ghost unit's wrappers replaced by their plain versions inside
+    the block, so that its autograd Functions compose the plain versions
+    (the plain arm of the ghost check)."""
+    from tensorflow_ocr_tpu_torch.ops import ghost as G
+
+    saved = {attr: getattr(G, attr) for attr, _ in GHOST_KERNELS.values()}
+    for attr in saved:
+        setattr(G, attr, getattr(G, f"{attr}_reference"))
+    try:
+        yield
+    finally:
+        for attr, fn in saved.items():
+            setattr(G, attr, fn)
+
+
+def ghost_readings(kernel, plain):
+    """arm_readings of the kernel arm against the plain arm, plus the
+    worst relative gradient error over the ghost units' parameters (a
+    fault in one of their gradients hardly moves the whole gradient)."""
+    r = arm_readings(kernel, plain)
+    gk, gp = kernel[1], plain[1]
+    unit = {n: float((gk[n] - gp[n]).norm() / gp[n].norm()) for n in gp
+            if n.split(".")[1] in GHOST_UNIT_NAMES}
+    worst = max(unit, key=unit.get)
+    r["unit"] = (worst, unit[worst])
+    return r
+
+
+def ghost_arm_readings(device, start, batch):
+    """One ghost-arm step on the kernels against one on the plain
+    versions, from the state ``start`` and one batch (ghost_readings)."""
+    kernel = arm_grads(device, start, batch, "ghost")
+    with plain_ghost():
+        plain = arm_grads(device, start, batch, "ghost")
+    return ghost_readings(kernel, plain)
+
+
+def print_ghost_arms(label, r):
+    print(f"{label}: loss {r['loss'][0]:.6f} / {r['loss'][1]:.6f} (rel "
+          f"{r['rel_loss']:.3e}, tol {GHOST_ARM_LOSS_REL:g}); gradient norm "
+          f"{r['norm'][0]:.6f} / {r['norm'][1]:.6f}, rel err "
+          f"{r['grad_rel']:.4e} (tol {GHOST_ARM_GRAD_REL:g}); worst "
+          f"parameter cosine {r['worst'][1]:.6f} at {r['worst'][0]} (min "
+          f"{GHOST_ARM_COS_MIN:g}); worst ghost-unit parameter rel err "
+          f"{r['unit'][1]:.4e} at {r['unit'][0]} (tol "
+          f"{GHOST_ARM_UNIT_REL:g})")
+
+
+def phase_ghost_train(device, reports, snap, batch):
+    """The ghost arm at full width: 3 steps through Trainer.run, each
+    ghost kernel launched GHOST_STEP_LAUNCHES times a step; one step on
+    the kernels against one on the plain versions from the tempered
+    state (GHOST_ARM_* bounds); one freeze_bn step (eval-mode ghost
+    units: no kernel)."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.models.resnet import GhostBottleneck
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    want = {k: TRAIN_STEPS * v for k, v in GHOST_STEP_LAUNCHES.items()}
+    trainer = T.Trainer(train_config("ghost"), device)
+    state = trainer.setup(weights=snap)
+    ghost = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a, name=name: ghost.append(name)
+        if m.band_height(a[0].shape) else None)
+        for name, m in state.model.backbone.named_children()
+        if isinstance(m, GhostBottleneck)]
+    reset_ghost_counts()
+    last = trainer.run([batch] * TRAIN_STEPS, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    counts = ghost_counts()
+    for h in hooks:
+        h.remove()
+    units = sorted(set(ghost))
+    print(f"ghost units at {TRAIN_SIZE}^2: {len(units)} ({', '.join(units)})")
+    print(f"train {TRAIN_STEPS} steps ghost: last metrics "
+          f"{json.dumps({k: round(v, 5) for k, v in last.items()})}; "
+          f"kernel launches {counts} (expected {want})")
+    check(units == sorted(GHOST_UNIT_NAMES), "ghost train: the ghost units "
+          f"are not {GHOST_UNIT_NAMES}")
+    check(state.step == TRAIN_STEPS and last and all(
+        np.isfinite(v) for v in last.values()), "ghost train: non-finite "
+          "or missing metrics")
+    check(counts == want, "ghost train: ghost kernel launches")
+    for name, n in counts.items():
+        reports[name]["launches"] = n
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    r = ghost_arm_readings(device, tempered(snap), batch)
+    print_ghost_arms(f"ghost kernels vs plain versions, one step from one "
+                     f"state (residual BN scales x {ARM_RESIDUAL_SCALE:g})", r)
+    check(r["rel_loss"] <= GHOST_ARM_LOSS_REL, "ghost kernel and plain "
+          "losses disagree")
+    check(r["grad_rel"] <= GHOST_ARM_GRAD_REL, "ghost kernel and plain "
+          "gradients disagree")
+    check(r["worst"][1] >= GHOST_ARM_COS_MIN, f"the ghost kernels' "
+          f"gradient of {r['worst'][0]} points elsewhere than the plain one")
+    check(r["unit"][1] <= GHOST_ARM_UNIT_REL, f"the ghost kernels' "
+          f"gradient of {r['unit'][0]} differs from the plain one")
+
+    fcfg = train_config("ghost", freeze_bn=True)
+    state = T.create_train_state(fcfg, device, weights=snap)
+    reset_ghost_counts()
+    loss = float(T.train_step(state, batch, fcfg,
+                              T.make_loss_fn(fcfg))["total_loss"])
+    counts = ghost_counts()
+    print(f"freeze_bn step ghost: total loss {loss:.6f}, ghost kernel "
+          f"launches {counts}")
+    check(np.isfinite(loss), "ghost freeze_bn step: non-finite loss")
+    check(not any(counts.values()), "ghost freeze_bn step launched a ghost "
+          "kernel (eval-mode units have none)")
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_ghost_faults(device, snap, batch):
+    """The readings that set the GHOST_ARM_* bounds: the ghost arm on the
+    kernels against the plain versions from the tempered state, 3 sound
+    runs, then one run under each fault planted in the kernel arm: the
+    seam terms dropped, the 3x3's halo rows under their own band's affine
+    (one SAME conv over one act1 tensor), dW2 x 0.9."""
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import ghost as G
+
+    fwd, bwd, seam = G.conv_fwd, G.conv_bwd, G.seam_bwd
+
+    def no_seam(*a):
+        edge, sums = seam(*a)
+        return edge.zero_(), sums.zero_()
+
+    def own_band_halo(x, tab, w, gh):
+        if w.shape[-1] == 1:
+            return fwd(x, tab, w, gh)
+        act = G._act(x, tab, gh).contiguous(memory_format=torch.channels_last)
+        return fwd(act, None, w, gh)
+
+    def dw2_scaled(*a, **k):
+        dx, sums, dw = bwd(*a, **k)
+        return dx, sums, dw * 0.9 if dw.shape[-1] == 3 else dw
+
+    for fn in (no_seam, own_band_halo, dw2_scaled):
+        fn.launches = 0  # the wrappers count on the names they replace
+    start = tempered(snap)
+    for i in range(3):
+        print_ghost_arms(f"ghost faults: sound run {i}",
+                         ghost_arm_readings(device, start, batch))
+    for label, attr, fn in (("seam terms dropped", "seam_bwd", no_seam),
+                            ("halo rows under their own band's affine",
+                             "conv_fwd", own_band_halo),
+                            ("dW2 x 0.9", "conv_bwd", dw2_scaled)):
+        orig = getattr(G, attr)
+        setattr(G, attr, fn)
+        try:
+            kernel = arm_grads(device, start, batch, "ghost")
+        finally:
+            setattr(G, attr, orig)
+        with plain_ghost():
+            plain = arm_grads(device, start, batch, "ghost")
+        print_ghost_arms(f"ghost faults: {label}",
+                         ghost_readings(kernel, plain))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace serve, detect and train steps with "
                     "torch.profiler")
     ap.add_argument("--faults", action="store_true",
-                    help="also read the pallas-conv arm check under "
-                    "planted backward faults")
+                    help="also read the pallas-conv and ghost arm checks "
+                    "under planted faults")
     args = ap.parse_args()
     import torch
 
@@ -1360,6 +1800,9 @@ def main() -> int:
     conv = {name: {"name": name, "route": "cuda", "source": src,
                    "replaces": site}
             for name, (src, site) in CONV_KERNELS.items()}
+    ghost = {name: {"name": name, "route": "cuda", "source": GHOST_SRC,
+                    "replaces": sites}
+             for name, (_, sites) in GHOST_KERNELS.items()}
     phase_cc(device, report)
     phase_forward(device)
     pred, images = phase_main_path(device, report)
@@ -1376,6 +1819,10 @@ def main() -> int:
     if args.faults:
         phase_conv_faults(device, snap, batch)
     phase_conv_train(device, conv, snap, batch)
+    phase_ghost_kernels(device, ghost)
+    if args.faults:
+        phase_ghost_faults(device, snap, batch)
+    phase_ghost_train(device, ghost, snap, batch)
     phase_train_timing(trainer, batch)
     if args.profile:
         phase_profile_train(trainer, batch)
@@ -1383,7 +1830,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys}
-               for r in [report, *fused.values(), *conv.values()]]
+               for r in [report, *fused.values(), *conv.values(),
+                         *ghost.values()]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,8 @@ class ModelConfig:
     # running statistics in BN during training (no batch reductions)
     freeze_bn: bool = False
     # "xla": plain Bottleneck (cuDNN convs); "fused": FusedBottleneck on
-    # the hand-written kernels of ops/fused.py; "ghost" is not ported
+    # the hand-written kernels of ops/fused.py; "ghost": GhostBottleneck,
+    # ghost-BN units on the kernels of ops/ghost.py where pick_gh admits
     bottleneck_impl: str = "xla"
 
 

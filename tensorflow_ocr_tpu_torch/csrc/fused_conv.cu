@@ -54,38 +54,6 @@ using namespace igemm;
 
 constexpr int BM = 128;
 
-__device__ __forceinline__ void unpack8(const uint4& v, float f[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 t = __bfloat1622float2(p[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float f[8]) {
-  uint4 v;
-  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return v;
-}
-
-__device__ __forceinline__ void load8f(const float* p, float f[8]) {
-  float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
-// x*a + b rounded after each operation, as the plain version's separate
-// elementwise ops round it (no FMA contraction): the relu masks of the
-// kernel and of the plain version then agree exactly.
-__device__ __forceinline__ float affine(float x, float a, float b) {
-  return __fadd_rn(__fmul_rn(x, a), b);
-}
-
 // The operand transforms of the fused kernels, for igemm.cuh's loaders
 // (channel counts multiples of 8): raw loads at fetch time, the transform
 // when the tile is stored.
@@ -155,31 +123,6 @@ struct DyEff {
   }
 };
 
-// Add per-column partial sums p0, p1 (per (j, e&1) pair of this thread)
-// across the warp's rows, then into the CTA's shared table red[2][BN].
-template <int BN>
-__device__ __forceinline__ void reduce_cols(float p0[][2], float p1[][2],
-                                            float (*red)[128]) {
-  using W = Warps<BM, BN>;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int j = 0; j < W::NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        p0[j][e] += __shfl_xor_sync(0xffffffffu, p0[j][e], off);
-        p1[j][e] += __shfl_xor_sync(0xffffffffu, p1[j][e], off);
-      }
-      if (lane < 4) {
-        int r, c;
-        acc_pos<BM, BN>(0, j, e, r, c);
-        atomicAdd(&red[0][c], p0[j][e]);
-        atomicAdd(&red[1][c], p1[j][e]);
-      }
-    }
-}
-
 // ---------------------------------------------------------------- kernels
 
 template <int KS, int BN>
@@ -218,7 +161,7 @@ conv_fwd(const bf16* __restrict__ x, const float* __restrict__ ab,
         p1[j][0] += u * u;
         p1[j][1] += v * v;
       }
-  reduce_cols<BN>(p0, p1, red);
+  reduce_cols<BM, BN>(p0, p1, red);
   __syncthreads();
   for (int c = threadIdx.x; c < BN; c += THREADS) {
     atomicAdd(&stats[n0 + c], red[0][c]);
@@ -272,7 +215,7 @@ conv_dx(const bf16* __restrict__ x, const float* __restrict__ ab,
         p1[j][1] += gv;
       }
   }
-  reduce_cols<BN>(p0, p1, red);
+  reduce_cols<BM, BN>(p0, p1, red);
   __syncthreads();
   for (int c = threadIdx.x; c < BN; c += THREADS) {
     atomicAdd(&dab[n0 + c], red[0][c]);

@@ -1,0 +1,648 @@
+// The unit-fused ghost-BN bottleneck unit, forward and exact backward, for
+// Hopper (sm_90a).
+//
+// Replaces the TPU kernels of tensorflow_ocr_tpu/ops/pallas_unit.py:
+//   _unit_fwd (:270, pallas_call :303), _unit_bwd sweep 1 (:627, :677)
+//   and sweep 2 (:627, :700),
+// which run a whole bottleneck unit per (image, band of gh rows) in VMEM.
+// Four entry points compute the same function between them, over full
+// NHWC tensors with per-(image, band) tables (ops/ghost.py chains them):
+//   ghost_conv_fwd  y = conv_k(act(x)) with act = relu(x*a + b) under the
+//                   (a, b) of the OUTPUT pixel's band (the 3x3's halo rows
+//                   under the reading band's affine, zero outside the
+//                   image); per-band [sum y, sum y^2] of the ROUNDED y;
+//   ghost_boundary  forward: out = relu(z3*a3 + b3 + sc) (sc = zs*as + bs
+//                   or o); backward: gm3 = dout*[pre > 0] (exact in bf16)
+//                   and its band sums [sum gm*z3, sum gm, sum gm*zs];
+//   ghost_conv_bwd  one conv's backward from dz = bf16(g*a + c1 + 2z*c2
+//                   (+ the seam term on a band's edge rows)), staged into
+//                   dW = act(x)^T . dz (split over pixels, f32 atomics)
+//                   and dX = dz * Wflip (the 3x3 dX reads only the dz rows
+//                   of its output row's band), which ends as gm =
+//                   dX*[x*a + b > 0] (f32) with its band sums, or as do =
+//                   dX + addend;
+//   ghost_seam_bwd  the two halo rows of each band's 3x3 backward: gm =
+//                   (dz of the band's edge row . Wflip's ky row) *[z1*a1 +
+//                   b1 > 0] under the READING band's (a1, b1), added to
+//                   that band's sums, and gm*a1 stored as the seam term of
+//                   the row's own band.
+// Tables (float32) are (bands, rows, ch) with band = pixel / (gh*W).
+//
+// What bounds it on the H100: the unit's convs at 512^2, batch 32 (M =
+// 524,288 or 131,072 pixel rows, 64-512 channels) do 16-64 flops a byte
+// in a 1x1 and ~9x that in the 3x3, against the card's ~295 flops a byte
+// at bf16: memory-bound but for the 3x3. The TPU kernel keeps the whole
+// band in VMEM and so moves each activation once; a band's halo tile
+// (10 x 128 x 256 bf16 = 655 KB at block1) does not fit in one SM's
+// 227 KB, so here z1, z2, z3 and zs go through device memory once each,
+// and the design keeps the rest out of it: act1 and act2 are never
+// stored (the banded affine+relu is applied as a tile is staged), nor
+// is dz (staged from g, z and the band tables), and every statistic is
+// summed from the accumulator in registers.
+//
+// Design: the implicit-GEMM core and loaders of igemm.cuh (CTA of 8
+// warps, 128 x BN tiles, BK = 32, mma.sync m16n8k16 bf16, f32
+// accumulate, the next slice's loads in flight), with its banded
+// transforms BandAct and BandDz; channel counts multiples of 64. Band
+// sums: where a CTA's 128 rows lie in one band (gh*W a multiple of 128:
+// every band at the slice's shapes), warp shuffles, a shared table and
+// one f32 atomic per column and CTA; where only a warp's rows do, one per
+// column and warp; otherwise one per element. wgmma, TMA and one pass per
+// band (a cluster with distributed shared memory) are later work.
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "igemm.cuh"
+
+namespace {
+
+using namespace igemm;
+
+constexpr int BM = 128;
+
+// Per-band column sums [sum v0, sum v1] of a product's rows, added to
+// tab (bands, 2, cols) with band = row / px (see the header).
+template <int BN>
+struct BandSums {
+  using W = Warps<BM, BN>;
+  float p0[W::NT][2], p1[W::NT][2];
+  float* tab;
+  int cols, px, level, band;  // level 0: the CTA's rows in one band;
+                              // 1: the warp's; 2: neither; 3: no rows
+
+  __device__ BandSums(float* tab_, int cols_, int px_, int m0, int rows)
+      : tab(tab_), cols(cols_), px(px_) {
+#pragma unroll
+    for (int j = 0; j < W::NT; ++j)
+      p0[j][0] = p0[j][1] = p1[j][0] = p1[j][1] = 0.f;
+    const int wm = threadIdx.x / 32 / W::WN;
+    const int lo = m0 + wm * (BM / W::WM);
+    const int hi = min(lo + BM / W::WM, rows) - 1;
+    const int last = min(m0 + BM, rows) - 1;
+    if (m0 / px == last / px) {
+      level = 0;
+      band = m0 / px;
+    } else if (lo > hi) {
+      level = 3;
+    } else if (lo / px == hi / px) {
+      level = 1;
+      band = lo / px;
+    } else {
+      level = 2;
+    }
+  }
+
+  // entry (j, column parity e) at row m, global column col
+  __device__ __forceinline__ void add(int j, int e, int m, int col, float v0,
+                                      float v1) {
+    if (level == 2) {
+      float* t = tab + (size_t)(m / px) * 2 * cols + col;
+      atomicAdd(t, v0);
+      atomicAdd(t + cols, v1);
+    } else {
+      p0[j][e] += v0;
+      p1[j][e] += v1;
+    }
+  }
+
+  // red: the CTA's shared [2][128] table, zeroed before the main loop.
+  __device__ __forceinline__ void flush(float (*red)[128], int n0) {
+    if (level == 0) {
+      reduce_cols<BM, BN>(p0, p1, red);
+      __syncthreads();
+      float* t = tab + (size_t)band * 2 * cols + n0;
+      for (int c = threadIdx.x; c < BN; c += THREADS) {
+        atomicAdd(t + c, red[0][c]);
+        atomicAdd(t + cols + c, red[1][c]);
+      }
+      return;
+    }
+    if (level != 1) return;
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          p0[j][e] += __shfl_xor_sync(0xffffffffu, p0[j][e], off);
+          p1[j][e] += __shfl_xor_sync(0xffffffffu, p1[j][e], off);
+        }
+        if (lane < 4) {
+          int r, c;
+          acc_pos<BM, BN>(0, j, e, r, c);
+          float* t = tab + (size_t)band * 2 * cols + n0 + c;
+          atomicAdd(t, p0[j][e]);
+          atomicAdd(t + cols, p1[j][e]);
+        }
+      }
+  }
+};
+
+__device__ __forceinline__ void zero_red(float (*red)[128]) {
+  for (int i = threadIdx.x; i < 2 * 128; i += THREADS) red[i / 128][i % 128] = 0.f;
+}
+
+// ---------------------------------------------------------------- forward
+
+template <int KS, int BN>
+__global__ void __launch_bounds__(THREADS)
+gconv_fwd(const bf16* __restrict__ x, const float* __restrict__ tab,
+          const bf16* __restrict__ wt, bf16* __restrict__ y,
+          float* __restrict__ stats, Geo g, int ci, int co, int band_px) {
+  using W = Warps<BM, BN>;
+  __shared__ __align__(16) bf16 sA[BM][LDS];
+  __shared__ __align__(16) bf16 sB[BN][LDS];
+  __shared__ float red[2][128];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  zero_red(red);
+
+  const int kdim = KS * KS * ci;
+  PixelRows<KS, BandAct, BM> la{{x, tab, ci, band_px}, g, ci, m0, true};
+  PixelRows<1, Ident, BN> lb{{wt}, Geo{1, 1, co, co}, kdim, n0, true};
+  float acc[W::MT][W::NT][4] = {};
+  mainloop<BM, BN>(la, lb, kdim / BK, sA, sB, acc);
+
+  BandSums<BN> bs(stats, co, band_px, m0, g.m);
+#pragma unroll
+  for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        int r, c;
+        acc_pos<BM, BN>(i, j, e, r, c);
+        const int m = m0 + r;
+        if (m >= g.m) continue;
+        const __nv_bfloat162 yb =
+            __floats2bfloat162_rn(acc[i][j][e], acc[i][j][e + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)m * co + n0 + c) = yb;
+        const float2 f = __bfloat1622float2(yb);  // stats of the rounded y
+        bs.add(j, 0, m, n0 + c, f.x, f.x * f.x);
+        bs.add(j, 1, m, n0 + c + 1, f.y, f.y * f.y);
+      }
+  bs.flush(red, n0);
+}
+
+// out = bf16(relu(z*a + b + (sc*as + bs, or sc))); with dout: gm =
+// dout*[pre > 0] into out, and sums (bands, 3, c) [sum gm*z, sum gm,
+// sum gm*sc]. Grid (bands, c / (8*cvb)): a block owns a band's rows for
+// 8*cvb channels, so its sums are written, not added.
+__global__ void __launch_bounds__(256)
+gboundary(const bf16* __restrict__ dout, const bf16* __restrict__ z,
+          const float* __restrict__ t, const bf16* __restrict__ sc,
+          const float* __restrict__ ts, bf16* __restrict__ out,
+          float* __restrict__ sums, int band_px, int c, int cvb) {
+  __shared__ float red[3][256];
+  const int band = blockIdx.x, rows = blockDim.x / cvb;
+  const int rsub = threadIdx.x / cvb;
+  const int cb = blockIdx.y * cvb * 8, ch0 = cb + (threadIdx.x % cvb) * 8;
+  for (int i = threadIdx.x; i < 3 * 256; i += blockDim.x) red[i / 256][i % 256] = 0.f;
+  __syncthreads();
+  float a[8], b[8], as[8], bs[8];
+  load8f(t + (size_t)band * 2 * c + ch0, a);
+  load8f(t + (size_t)band * 2 * c + c + ch0, b);
+  if (ts) {
+    load8f(ts + (size_t)band * 2 * c + ch0, as);
+    load8f(ts + (size_t)band * 2 * c + c + ch0, bs);
+  }
+  float sz[8] = {}, sg[8] = {}, ss[8] = {};
+  for (int r = rsub; r < band_px; r += rows) {
+    const size_t off = ((size_t)band * band_px + r) * c + ch0;
+    float zf[8], sf[8], o[8];
+    unpack8(__ldg(reinterpret_cast<const uint4*>(z + off)), zf);
+    unpack8(__ldg(reinterpret_cast<const uint4*>(sc + off)), sf);
+    float pre[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      pre[i] = __fadd_rn(affine(zf[i], a[i], b[i]),
+                         ts ? affine(sf[i], as[i], bs[i]) : sf[i]);
+    if (!dout) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[i] = fmaxf(pre[i], 0.f);
+    } else {
+      float d[8];
+      unpack8(__ldg(reinterpret_cast<const uint4*>(dout + off)), d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        o[i] = pre[i] > 0.f ? d[i] : 0.f;
+        sz[i] += o[i] * zf[i];
+        sg[i] += o[i];
+        ss[i] += o[i] * sf[i];
+      }
+    }
+    *reinterpret_cast<uint4*>(out + off) = pack8(o);
+  }
+  if (!dout) return;
+  const int lc = ch0 - cb;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    atomicAdd(&red[0][lc + i], sz[i]);
+    atomicAdd(&red[1][lc + i], sg[i]);
+    atomicAdd(&red[2][lc + i], ss[i]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 3 * cvb * 8; i += blockDim.x) {
+    const int k = i / (cvb * 8), cc = i % (cvb * 8);
+    sums[((size_t)band * 3 + k) * c + cb + cc] = red[k][cc];
+  }
+}
+
+// --------------------------------------------------------------- backward
+
+// dW (KS*KS*ci, co) += act(x)^T . dz over the pixels [p0, p0 + chunk).
+template <int KS, int BN, class G>
+__global__ void __launch_bounds__(THREADS)
+gconv_dw(const bf16* __restrict__ x, const float* __restrict__ tx,
+         const G* __restrict__ gg, const bf16* __restrict__ z,
+         const float* __restrict__ td, const float* __restrict__ edge,
+         float* __restrict__ dw, Geo g, int ci, int co, int band_px,
+         int chunk) {
+  using W = Warps<BM, BN>;
+  __shared__ __align__(16) bf16 sA[BM][LDS];
+  __shared__ __align__(16) bf16 sB[BN][LDS];
+  const int kdim = KS * KS * ci;
+  const int q0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int p0 = blockIdx.z * chunk;
+  const int pend = min(g.m, p0 + chunk);
+  if (p0 >= pend) return;
+
+  PixelCols<KS, BandAct, BM> la{{x, tx, ci, band_px}, g, ci, q0, p0, pend,
+                                true};
+  PixelCols<1, BandDz<G>, BN> lb{{gg, z, td, edge, co, band_px, g.w}, g, co,
+                                 n0, p0, pend, true};
+  float acc[W::MT][W::NT][4] = {};
+  mainloop<BM, BN>(la, lb, (pend - p0 + BK - 1) / BK, sA, sB, acc);
+
+#pragma unroll
+  for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int r, c;
+        acc_pos<BM, BN>(i, j, e, r, c);
+        if (q0 + r < kdim) atomicAdd(&dw[(size_t)(q0 + r) * co + n0 + c], acc[i][j][e]);
+      }
+}
+
+// dX = dz * Wflip, then out_kind 0: gm = dX*[x*a + b > 0] (float32) and
+// its band sums [sum gm*x, sum gm]; 1: bf16(dX + addend); 2: float32
+// dX + addend. add_kind: 0 none, 1 bf16, 2 float32.
+template <int KS, int BN, class G>
+__global__ void __launch_bounds__(THREADS)
+gconv_dx(const bf16* __restrict__ x, const float* __restrict__ tx,
+         const G* __restrict__ gg, const bf16* __restrict__ z,
+         const float* __restrict__ td, const float* __restrict__ edge,
+         const bf16* __restrict__ wflip, void* __restrict__ dx,
+         float* __restrict__ sums, const void* __restrict__ addend,
+         int add_kind, int out_kind, Geo g, int ci, int co, int band_px) {
+  using W = Warps<BM, BN>;
+  __shared__ __align__(16) bf16 sA[BM][LDS];
+  __shared__ __align__(16) bf16 sB[BN][LDS];
+  __shared__ float red[2][128];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  zero_red(red);
+
+  const int kdim = KS * KS * co;
+  PixelRows<KS, BandDz<G>, BM> la{{gg, z, td, edge, co, band_px, g.w}, g, co,
+                                  m0, true};
+  PixelRows<1, Ident, BN> lb{{wflip}, Geo{1, 1, ci, ci}, kdim, n0, true};
+  float acc[W::MT][W::NT][4] = {};
+  mainloop<BM, BN>(la, lb, kdim / BK, sA, sB, acc);
+
+  if (out_kind == 0) {
+    BandSums<BN> bs(sums, ci, band_px, m0, g.m);
+    float* out = static_cast<float*>(dx);
+#pragma unroll
+    for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+      for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          int r, c;
+          acc_pos<BM, BN>(i, j, e, r, c);
+          const int m = m0 + r, col = n0 + c;
+          if (m >= g.m) continue;
+          const float* t = tx + (size_t)(m / band_px) * 2 * ci + col;
+          const size_t off = (size_t)m * ci + col;
+          const float2 xv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(x + off));
+          const float gu = affine(xv.x, t[0], t[ci]) > 0.f ? acc[i][j][e] : 0.f;
+          const float gv =
+              affine(xv.y, t[1], t[ci + 1]) > 0.f ? acc[i][j][e + 1] : 0.f;
+          *reinterpret_cast<float2*>(out + off) = make_float2(gu, gv);
+          bs.add(j, 0, m, col, gu * xv.x, gu);
+          bs.add(j, 1, m, col + 1, gv * xv.y, gv);
+        }
+    bs.flush(red, n0);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        int r, c;
+        acc_pos<BM, BN>(i, j, e, r, c);
+        const int m = m0 + r;
+        if (m >= g.m) continue;
+        const size_t off = (size_t)m * ci + n0 + c;
+        float u = acc[i][j][e], v = acc[i][j][e + 1];
+        if (add_kind == 1) {
+          const float2 a = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  static_cast<const bf16*>(addend) + off));
+          u += a.x;
+          v += a.y;
+        } else if (add_kind == 2) {
+          const float2 a = *reinterpret_cast<const float2*>(
+              static_cast<const float*>(addend) + off);
+          u += a.x;
+          v += a.y;
+        }
+        if (out_kind == 1)
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(dx) + off) =
+              __floats2bfloat162_rn(u, v);
+        else
+          *reinterpret_cast<float2*>(static_cast<float*>(dx) + off) =
+              make_float2(u, v);
+      }
+}
+
+// The A operand of the seam product: row s = (band, w) of one side (0:
+// the halo row above the band, read by the band's first row; 1: below,
+// read by its last row); K = (kx, channel) over 3*ch: dz of the band's
+// edge row at column w + kx - 1. Zero past the image's edges.
+template <class X, int ROWS>
+struct SeamRows {
+  static constexpr int VECS = ROWS * BK / 8;
+  static constexpr int V = (VECS + THREADS - 1) / THREADS;
+  X x;
+  Geo g;
+  int ch, m0, side, gh, nb;
+  typename X::Reg v[V];
+
+  __device__ __forceinline__ void fetch(int kt) {
+    const int k = kt * BK + (threadIdx.x % (BK / 8)) * 8;
+    const int kx = k / ch, c = k - kx * ch;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      int idx = threadIdx.x + i * THREADS;
+      if (idx >= VECS) break;
+      const int s = m0 + idx / (BK / 8);
+      int pix = -1;
+      if (s < g.n * nb * g.w) {
+        const int band = s / g.w, j = band % nb, ww = s % g.w + kx - 1;
+        if ((side == 0 ? j > 0 : j < nb - 1) && ww >= 0 && ww < g.w)
+          pix = ((band / nb) * g.h + j * gh + (side == 0 ? 0 : gh - 1)) * g.w + ww;
+      }
+      fetch_one(x, v[i], pix, ch, c, pix);
+    }
+  }
+  __device__ __forceinline__ void store(bf16 (*s)[LDS]) const {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      int idx = threadIdx.x + i * THREADS;
+      if (idx >= VECS) break;
+      *reinterpret_cast<uint4*>(&s[idx / (BK / 8)][(idx % (BK / 8)) * 8]) =
+          x.value(v[i]);
+    }
+  }
+};
+
+// Halo rows of each band's 3x3 backward (grid z = side): gm = (dz row .
+// Wflip[ky]) * [x*a1 + b1 > 0] with the reading band's (a1, b1), added to
+// its sums (bands, 2, c); gm*a1 to edge (bands, 2, W, c) of the row's own
+// band (slot 1: its last row, above the reading band; slot 0: its first).
+template <int BN>
+__global__ void __launch_bounds__(THREADS)
+gseam(const float* __restrict__ gg, const bf16* __restrict__ z,
+      const float* __restrict__ td, const bf16* __restrict__ x,
+      const float* __restrict__ tx, const bf16* __restrict__ wflip,
+      float* __restrict__ edge, float* __restrict__ sums, Geo g, int c,
+      int gh) {
+  using W = Warps<BM, BN>;
+  __shared__ __align__(16) bf16 sA[BM][LDS];
+  __shared__ __align__(16) bf16 sB[BN][LDS];
+  __shared__ float red[2][128];
+  const int side = blockIdx.z, nb = g.h / gh, band_px = gh * g.w;
+  const int rows = g.n * nb * g.w;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  zero_red(red);
+
+  SeamRows<BandDz<float>, BM> la{{gg, z, td, nullptr, c, band_px, g.w}, g, c,
+                                 m0, side, gh, nb};
+  // the flipped kernel's ky row: 2 for the row above, 0 for the row below
+  PixelRows<1, Ident, BN> lb{{wflip + (side == 0 ? 2 : 0) * 3 * c},
+                             Geo{1, 1, c, c}, 9 * c, n0, true};
+  float acc[W::MT][W::NT][4] = {};
+  mainloop<BM, BN>(la, lb, 3 * c / BK, sA, sB, acc);
+
+  BandSums<BN> bs(sums, c, g.w, m0, rows);
+#pragma unroll
+  for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        int r, cc;
+        acc_pos<BM, BN>(i, j, e, r, cc);
+        const int s = m0 + r, col = n0 + cc;
+        if (s >= rows) continue;
+        const int band = s / g.w, jb = band % nb, w = s % g.w;
+        if (side == 0 ? jb == 0 : jb == nb - 1) continue;
+        const int q = (band / nb) * g.h + (side == 0 ? jb * gh - 1 : jb * gh + gh);
+        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            x + ((size_t)q * g.w + w) * c + col));
+        const float* t = tx + (size_t)band * 2 * c + col;
+        const float gu = affine(xv.x, t[0], t[c]) > 0.f ? acc[i][j][e] : 0.f;
+        const float gv = affine(xv.y, t[1], t[c + 1]) > 0.f ? acc[i][j][e + 1] : 0.f;
+        bs.add(j, 0, s, col, gu * xv.x, gu);
+        bs.add(j, 1, s, col + 1, gv * xv.y, gv);
+        const int own = side == 0 ? band - 1 : band + 1, slot = side == 0 ? 1 : 0;
+        *reinterpret_cast<float2*>(edge + (((size_t)own * 2 + slot) * g.w + w) * c + col) =
+            make_float2(gu * t[0], gv * t[1]);
+      }
+  bs.flush(red, n0);
+}
+
+int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+template <int KS, class G>
+int launch_bwd(const bf16* x, const float* tx, const G* gg, const bf16* z,
+               const float* td, const float* edge, const bf16* wflip,
+               void* dx, float* sums, float* dw, const void* addend,
+               int add_kind, int out_kind, Geo g, int ci, int co, int band_px,
+               cudaStream_t s) {
+  // dW: (KS*KS*ci) x co tiles, the pixels split to fill ~4 waves
+  const int kdim = KS * KS * ci;
+  const int bn = co % 128 == 0 ? 128 : 64;
+  const int tiles = ((kdim + BM - 1) / BM) * (co / bn);
+  int splits = (4 * num_sms() + tiles - 1) / tiles;
+  int chunk = (g.m + splits - 1) / splits;
+  chunk = (chunk + BK - 1) / BK * BK;
+  splits = (g.m + chunk - 1) / chunk;
+  dim3 gw((kdim + BM - 1) / BM, co / bn, splits);
+  if (bn == 128)
+    gconv_dw<KS, 128, G><<<gw, THREADS, 0, s>>>(x, tx, gg, z, td, edge, dw, g,
+                                                ci, co, band_px, chunk);
+  else
+    gconv_dw<KS, 64, G><<<gw, THREADS, 0, s>>>(x, tx, gg, z, td, edge, dw, g,
+                                               ci, co, band_px, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  dim3 gx((g.m + BM - 1) / BM, 1);
+  if (ci % 128 == 0) {
+    gx.y = ci / 128;
+    gconv_dx<KS, 128, G><<<gx, THREADS, 0, s>>>(x, tx, gg, z, td, edge, wflip,
+                                                dx, sums, addend, add_kind,
+                                                out_kind, g, ci, co, band_px);
+  } else {
+    gx.y = ci / 64;
+    gconv_dx<KS, 64, G><<<gx, THREADS, 0, s>>>(x, tx, gg, z, td, edge, wflip,
+                                               dx, sums, addend, add_kind,
+                                               out_kind, g, ci, co, band_px);
+  }
+  return cudaGetLastError();
+}
+
+bool bad_geometry(int n, int h, int w, int gh, int c1, int c2) {
+  return n < 1 || h < 1 || w < 1 || gh < 2 || h % gh || c1 % 64 || c2 % 64;
+}
+
+}  // namespace
+
+// x (n,h,w,ci) bf16; tab (bands,2,ci) f32 or null; wt (co, ks*ks*ci) bf16
+// with K in (ky, kx, ci) order; y (n,h,w,co) bf16 out; stats (bands,2,co)
+// f32, zeroed by the caller. ci, co multiples of 64; ks 1 or 3; h a
+// multiple of gh. Returns the launch error.
+extern "C" int ghost_conv_fwd(const void* x, const void* tab, const void* wt,
+                              void* y, void* stats, int n, int h, int w,
+                              int ci, int co, int ks, int gh, void* stream) {
+  if (bad_geometry(n, h, w, gh, ci, co) || (ks != 1 && ks != 3))
+    return cudaErrorInvalidValue;
+  Geo g{n, h, w, n * h * w};
+  auto s = static_cast<cudaStream_t>(stream);
+  dim3 grid((g.m + BM - 1) / BM, co % 128 == 0 ? co / 128 : co / 64);
+  auto xb = static_cast<const bf16*>(x);
+  auto tb = static_cast<const float*>(tab);
+  auto wb = static_cast<const bf16*>(wt);
+  auto yb = static_cast<bf16*>(y);
+  auto st = static_cast<float*>(stats);
+  const int px = gh * w;
+#define GHOST_FWD(KS_, BN_) \
+  gconv_fwd<KS_, BN_><<<grid, THREADS, 0, s>>>(xb, tb, wb, yb, st, g, ci, co, px)
+  if (ks == 1 && co % 128 == 0) GHOST_FWD(1, 128);
+  else if (ks == 1) GHOST_FWD(1, 64);
+  else if (co % 128 == 0) GHOST_FWD(3, 128);
+  else GHOST_FWD(3, 64);
+#undef GHOST_FWD
+  return cudaGetLastError();
+}
+
+// x (n,h,w,ci) bf16 and tx (bands,2,ci) f32 or null: the conv's operand
+// before its banded affine+relu; g (n,h,w,co) bf16 or f32 (g_f32), z
+// (n,h,w,co) bf16, td (bands,3,co) f32 [a, c1, c2], edge (bands,2,w,co)
+// f32 or null; wflip (ci, ks*ks*co) bf16, the flipped kernel with K in
+// (ky, kx, co) order. Out: dx (n,h,w,ci), f32 gm (out_kind 0, with sums
+// (bands,2,ci) and tx required), bf16 (1) or f32 (2) dX + addend (bf16
+// add_kind 1, f32 add_kind 2, none 0); dw (ks*ks*ci, co) f32. sums and dw
+// zeroed by the caller. Taken: ks 1 with g bf16 or f32, ks 3 with g f32.
+// Returns the first launch error.
+extern "C" int ghost_conv_bwd(const void* x, const void* tx, const void* g,
+                              const void* z, const void* td, const void* edge,
+                              const void* wflip, void* dx, void* sums,
+                              void* dw, const void* addend, int g_f32,
+                              int add_kind, int out_kind, int n, int h,
+                              int w, int ci, int co, int ks, int gh,
+                              void* stream) {
+  if (bad_geometry(n, h, w, gh, ci, co) || (ks != 1 && ks != 3) ||
+      (ks == 3 && !g_f32) || out_kind < 0 || out_kind > 2 ||
+      (out_kind == 0 && (!tx || !sums)) || add_kind < 0 || add_kind > 2 ||
+      (add_kind != 0 && !addend))
+    return cudaErrorInvalidValue;
+  Geo geo{n, h, w, n * h * w};
+  auto s = static_cast<cudaStream_t>(stream);
+  auto xb = static_cast<const bf16*>(x);
+  auto txf = static_cast<const float*>(tx);
+  auto zb = static_cast<const bf16*>(z);
+  auto tdf = static_cast<const float*>(td);
+  auto ef = static_cast<const float*>(edge);
+  auto wf = static_cast<const bf16*>(wflip);
+  auto sf = static_cast<float*>(sums);
+  auto dwf = static_cast<float*>(dw);
+  const int px = gh * w;
+  if (ks == 3)
+    return launch_bwd<3, float>(xb, txf, static_cast<const float*>(g), zb, tdf,
+                                ef, wf, dx, sf, dwf, addend, add_kind,
+                                out_kind, geo, ci, co, px, s);
+  if (g_f32)
+    return launch_bwd<1, float>(xb, txf, static_cast<const float*>(g), zb, tdf,
+                                ef, wf, dx, sf, dwf, addend, add_kind,
+                                out_kind, geo, ci, co, px, s);
+  return launch_bwd<1, bf16>(xb, txf, static_cast<const bf16*>(g), zb, tdf, ef,
+                             wf, dx, sf, dwf, addend, add_kind, out_kind, geo,
+                             ci, co, px, s);
+}
+
+// Forward (dout null): out = relu(z*a + b + (sc*as + bs, or sc where ts is
+// null)); backward: out = gm = dout*[pre > 0], sums (bands,3,c) f32 [sum
+// gm*z, sum gm, sum gm*sc]. z, sc, dout, out (n,h,w,c) bf16; t, ts
+// (bands,2,c) f32. Returns the launch error.
+extern "C" int ghost_boundary(const void* dout, const void* z, const void* t,
+                              const void* sc, const void* ts, void* out,
+                              void* sums, int n, int h, int w, int c, int gh,
+                              void* stream) {
+  if (bad_geometry(n, h, w, gh, c, c) || (dout && !sums))
+    return cudaErrorInvalidValue;
+  const int cvb = c / 8 < 32 ? c / 8 : 32;  // 8-channel vectors a block row
+  dim3 grid(n * (h / gh), c / (8 * cvb));
+  gboundary<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(z),
+      static_cast<const float*>(t), static_cast<const bf16*>(sc),
+      static_cast<const float*>(ts), static_cast<bf16*>(out),
+      static_cast<float*>(sums), gh * w, c, cvb);
+  return cudaGetLastError();
+}
+
+// g (n,h,w,c) f32 and z (n,h,w,c) bf16 with td (bands,3,c): dz of the 3x3
+// conv's output; x (n,h,w,c) bf16 with tx (bands,2,c): its input z1 and
+// (a1, b1); wflip (c, 9c) bf16. Out: edge (bands,2,w,c) and sums
+// (bands,2,c) f32, zeroed by the caller. Returns the launch error.
+extern "C" int ghost_seam_bwd(const void* g, const void* z, const void* td,
+                              const void* x, const void* tx, const void* wflip,
+                              void* edge, void* sums, int n, int h, int w,
+                              int c, int gh, void* stream) {
+  if (bad_geometry(n, h, w, gh, c, c)) return cudaErrorInvalidValue;
+  Geo geo{n, h, w, n * h * w};
+  const int rows = n * (h / gh) * w;
+  dim3 grid((rows + BM - 1) / BM, c % 128 == 0 ? c / 128 : c / 64, 2);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto args = [&](auto kernel) {
+    kernel<<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(g), static_cast<const bf16*>(z),
+        static_cast<const float*>(td), static_cast<const bf16*>(x),
+        static_cast<const float*>(tx), static_cast<const bf16*>(wflip),
+        static_cast<float*>(edge), static_cast<float*>(sums), geo, c, gh);
+  };
+  if (c % 128 == 0)
+    args(gseam<128>);
+  else
+    args(gseam<64>);
+  return cudaGetLastError();
+}

@@ -73,8 +73,8 @@ def build_model(name: str, dtype: torch.dtype = torch.bfloat16,
     """Build a registry model with float32 parameters initialised from
     ``generator`` (seed 0 when None); ``dtype`` is the activation type.
     ``bottleneck_impl`` "fused" puts the ResNet's stride-1 units on the
-    fused kernels (the tiny backbone has no bottleneck and ignores it);
-    the state_dict is the same either way."""
+    fused kernels, "ghost" on the ghost-BN units (the tiny backbone has no
+    bottleneck and ignores it); the state_dict is the same every way."""
     if name not in MODEL_REGISTRY:
         if name in NOT_PORTED:
             raise NotImplementedError(

@@ -6,17 +6,19 @@ identity subsample ``x[..., ::s, ::s]``, the projection shortcut on a
 depth change, and a stem that pools before the relu in eval mode and
 after it in train mode. ``bottleneck_impl="fused"`` runs every stride-1
 unit that the fused kernels take as a :class:`FusedBottleneck`
-(``ops/fused.py``). Submodule names follow the Flax tree (``conv1``,
-``block1_unit1``, ...), so the weight bridge (``models/convert.py``) is a
-rename, for either bottleneck.
+(``ops/fused.py``); ``bottleneck_impl="ghost"`` runs every stride-1 unit
+as a :class:`GhostBottleneck` (``ops/ghost.py``), which takes the ghost
+path where ``pick_gh`` admits the shape it is called with.
+Submodule names follow the Flax tree (``conv1``, ``block1_unit1``, ...),
+so the weight bridge (``models/convert.py``) is a rename, for every
+bottleneck.
 
-Not ported: ``output_stride`` (atrous) and the ghost bottleneck
-(ROADMAP.md, Queues 1 and 2).
+Not ported: ``output_stride`` (atrous; ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +30,7 @@ from tensorflow_ocr_tpu_torch.models.layers import (
     update_running_stats,
 )
 from tensorflow_ocr_tpu_torch.ops import fused as FU
+from tensorflow_ocr_tpu_torch.ops import ghost as GH
 
 # (num_units,) per block for each variant (models/resnet.py:314-319).
 RESNET_UNITS = {
@@ -123,6 +126,87 @@ class FusedBottleneck(Bottleneck):
         return FU.fused_boundary(z3, ab3, zs, abs_)
 
 
+class GhostBottleneck(Bottleneck):
+    """Stride-1 bottleneck on the ghost-BN unit (models/resnet.py:206-310).
+
+    JAX picks the unit's class when it is called, from the input's shape:
+    a ghost unit where ``pick_gh`` gives a band height, a plain
+    Bottleneck elsewhere (resnet.py:436-451). This module is built before
+    any shape is seen, so it makes the same choice in :meth:`forward`:
+    :meth:`Bottleneck.forward` where ``pick_gh`` returns None. Otherwise
+    training runs ``ops.ghost``'s unit (statistics per (image, band of gh
+    rows); the running statistics take the global sums) and eval applies
+    the running-statistics affine after bf16 products, in float32
+    (resnet.py:275-302), with plain torch ops. Children and state_dict
+    keys are :class:`Bottleneck`'s.
+    """
+
+    def __init__(self, depth_in: int, depth: int, depth_bottleneck: int):
+        super().__init__(depth_in, depth, depth_bottleneck, 1)
+
+    def band_height(self, shape: Tuple[int, ...]) -> Optional[int]:
+        """``pick_gh`` for an (N, C, H, W) input: the band height, or None
+        where the unit runs as a plain Bottleneck."""
+        _, cin, h, w = shape
+        return GH.pick_gh(h, w, cin, self.conv1.conv.out_channels,
+                          self.conv3.conv.out_channels,
+                          proj=self.shortcut is not None)
+
+    def forward(self, o: torch.Tensor, train: bool = False) -> torch.Tensor:
+        gh = self.band_height(o.shape)
+        if gh is None:
+            return super().forward(o, train)
+        dt = o.dtype
+        convs = [self.conv1, self.conv2, self.conv3]
+        if self.shortcut is not None:
+            convs.append(self.shortcut)
+        if not train:
+            return self._eval(o)
+        args = []
+        for cbn in convs:
+            args += [cbn.conv.weight.to(dt),
+                     torch.stack([cbn.bn.weight, cbn.bn.bias])]
+        eps = self.conv1.eps
+        if self.shortcut is not None:
+            out, *stats = GH.ghost_unit_proj(o, *args, gh, eps)
+        else:
+            out, *stats = GH.ghost_unit_id(o, *args, gh, eps)
+        n, _, h, w = o.shape
+        cnt = float(n * h * w)
+        for cbn, s in zip(convs, stats):
+            mu = s[0] / cnt
+            update_running_stats(cbn.bn, mu,
+                                 torch.clamp(s[1] / cnt - mu * mu, min=0.0))
+        return out
+
+    def _eval(self, o: torch.Tensor) -> torch.Tensor:
+        dt = o.dtype
+
+        def aff(cbn):
+            a = cbn.bn.weight * torch.rsqrt(cbn.bn.running_var + cbn.eps)
+            return (a[:, None, None],
+                    (cbn.bn.bias - cbn.bn.running_mean * a)[:, None, None])
+
+        def bn_relu(z, cbn):
+            a, b = aff(cbn)
+            return torch.relu(z.float() * a + b).to(dt)
+
+        def conv(x, cbn):
+            k = cbn.kernel
+            return F.conv2d(x, cbn.conv.weight.to(dt), padding=k // 2)
+
+        act2 = bn_relu(conv(bn_relu(conv(o, self.conv1), self.conv1),
+                            self.conv2), self.conv2)
+        z3 = conv(act2, self.conv3)
+        if self.shortcut is not None:
+            a, b = aff(self.shortcut)
+            sc = conv(o, self.shortcut).float() * a + b
+        else:
+            sc = o.float()
+        a, b = aff(self.conv3)
+        return torch.relu(z3.float() * a + b + sc).to(dt)
+
+
 class ResNetV1(nn.Module):
     """Backbone returning ``{"pool2": ..., "pool5": ...}`` (NCHW)."""
 
@@ -137,11 +221,7 @@ class ResNetV1(nn.Module):
             raise NotImplementedError(
                 "ResNetV1 output_stride (atrous) is not ported yet "
                 "(ROADMAP.md Queue 1: other families)")
-        if bottleneck_impl == "ghost":
-            raise NotImplementedError(
-                "bottleneck_impl='ghost' is not ported yet (ROADMAP.md "
-                "Queue 2: pallas_unit)")
-        if bottleneck_impl not in ("xla", "fused"):
+        if bottleneck_impl not in ("xla", "fused", "ghost"):
             raise ValueError(f"unknown bottleneck_impl {bottleneck_impl!r}")
         self.conv1 = ConvBN(3, 64, 7, 2, relu=False, explicit_pad=True)
         self.blocks = []  # unit names per block
@@ -153,7 +233,9 @@ class ResNetV1(nn.Module):
                 # stride 2 on the last unit of blocks 1-3
                 stride = 2 if (u == n_units - 1 and b < 3) else 1
                 names.append(f"block{b + 1}_unit{u + 1}")
-                if (bottleneck_impl == "fused" and stride == 1
+                if bottleneck_impl == "ghost" and stride == 1:
+                    unit = GhostBottleneck(depth_in, depth, depth_b)
+                elif (bottleneck_impl == "fused" and stride == 1
                         and FusedBottleneck.supported(depth_in, depth,
                                                       depth_b)):
                     unit = FusedBottleneck(depth_in, depth, depth_b)

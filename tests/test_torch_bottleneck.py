@@ -192,14 +192,19 @@ def test_fused_bottleneck_has_bottleneck_keys():
 
 def test_resnet50_fuses_every_stride1_unit():
     """The port's own constraint (channels a multiple of 64) takes every
-    stride-1 unit of ResNet-50, block4 included: 13 of 16."""
+    stride-1 unit of ResNet-50, block4 included: 13 of 16. "ghost" builds
+    a GhostBottleneck at each of the same 13 units (which of them take
+    the ghost path is decided per call: test_torch_ghost_module.py)."""
     bb = build_model("pixellink_resnet50", bottleneck_impl="fused").backbone
     fused = {n for n, m in bb.named_children()
              if isinstance(m, TR.FusedBottleneck)}
     assert len(fused) == 13
     assert not fused & {"block1_unit3", "block2_unit4", "block3_unit6"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.ResNetV1(bottleneck_impl="ghost")
+    ghost = TR.ResNetV1(bottleneck_impl="ghost")
+    assert {n for n, m in ghost.named_children()
+            if isinstance(m, TR.GhostBottleneck)} == fused
+    with pytest.raises(ValueError, match="bottleneck_impl"):
+        TR.ResNetV1(bottleneck_impl="dice")
 
 
 def test_resnet_train_stem_pools_after_relu(f32_batchnorm):

@@ -155,10 +155,23 @@ def test_train_entry_points_default_to_the_card(entry):
 
 
 def test_train_state_refuses_unported_settings():
+    """"ghost" builds and trains (one CPU step at 96x96, where block1's
+    units take the ghost path); an unported loss still raises."""
+    from tensorflow_ocr_tpu_torch.models.resnet import GhostBottleneck
+
     cfg = Config()
     cfg.model.bottleneck_impl = "ghost"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.create_train_state(cfg, device="cpu")
+    cfg.model.compute_dtype = "float32"
+    cfg.data.input_size = 96
+    state = TT.create_train_state(cfg, device="cpu")
+    bb = state.model.backbone
+    assert sum(isinstance(m, GhostBottleneck) for m in bb.children()) == 13
+    before = bb.block1_unit1.conv2.conv.weight.detach().clone()
+    m = TT.train_step(state, TT.to_device(
+        scene_batch(np.random.RandomState(0), 1, 96), "cpu"), cfg,
+        TT.make_loss_fn(cfg))
+    assert np.isfinite(float(m["total_loss"])) and state.step == 1
+    assert not torch.equal(before, bb.block1_unit1.conv2.conv.weight)
     cfg = Config()
     cfg.loss.name = "dice"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
