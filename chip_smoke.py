@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the five CUDA sources of csrc/ (nvcc, sm_90a), one nvcc each,
+2. build the six CUDA sources of csrc/ (nvcc, sm_90a), one nvcc each,
    all started together;
 3. hold the connected-components kernel against its plain PyTorch
    version on the card: (8, 192, 320) text-like blob maps plus hand
@@ -24,11 +24,13 @@ Phases, in order; any failure raises and exits non-zero:
    printing wall time, device busy time, the device's idle share and
    the largest device entries;
 8. hold each of the four conv kernels of the PALLAS_CONVS route
-   (csrc/conv.cu) against its plain version at every distinct shape the
-   route gives it in the 512^2 batch-32 train step (recorded from the
-   model), plus one stride-2 1x1: forward y, dX and dW; then the forward
-   y at every distinct shape of detect's forward (8 x 1280x768); print
-   kernel, plain and library-call ms, the FLOPs, bytes and bound;
+   (csrc/conv.cu, csrc/conv_dw.cu) against its plain version at every
+   distinct shape the route gives it in the 512^2 batch-32 train step
+   (recorded from the model), plus one stride-2 1x1: forward y, dX and
+   dW (each dW launched twice, bit-equal), plus the dW tail shapes; then
+   the forward y at every distinct shape of detect's forward (8 x
+   1280x768); print kernel, plain and library-call ms, the FLOPs, bytes
+   and bound, and the dW products' ms a train step;
 9. detect_batch with PALLAS_CONVS on: 44 + 13 conv launches a forward,
    logits within CONV_DETECT_REL of the cuDNN forward's, the CC kernel
    still launched;
@@ -49,7 +51,8 @@ Phases, in order; any failure raises and exits non-zero:
    set the CONV_ARM_* bounds;
 13. the PALLAS_CONVS arm ("xla" bottlenecks, the supported convs on the
    conv kernels): 3 steps through Trainer.run with the four kernels'
-   launch counts at their expected values; one step against the same
+   launch counts at their expected values, and the dW launches of each
+   of the two dW kernels; one step against the same
    arm on cuDNN from the tempered state (CONV_ARM_* bounds); one
    freeze_bn step with the route on (the BN fold path);
 14. hold each of the five ghost-BN kernels (csrc/ghost_unit.cu) against
@@ -480,11 +483,11 @@ CONV_KERNELS = {
     # name (= the wrapper in ops/conv.py): (source, the site replaced)
     "matmul_rows": ("tensorflow_ocr_tpu_torch/csrc/conv.cu",
                     "tensorflow_ocr_tpu/ops/pallas_conv.py:81 (_matmul_rows)"),
-    "dw_rows": ("tensorflow_ocr_tpu_torch/csrc/conv.cu",
+    "dw_rows": ("tensorflow_ocr_tpu_torch/csrc/conv_dw.cu",
                 "tensorflow_ocr_tpu/ops/pallas_conv.py:108 (_dw_rows)"),
     "conv3": ("tensorflow_ocr_tpu_torch/csrc/conv.cu",
               "tensorflow_ocr_tpu/ops/pallas_conv.py:148 (_conv3)"),
-    "dw3": ("tensorflow_ocr_tpu_torch/csrc/conv.cu",
+    "dw3": ("tensorflow_ocr_tpu_torch/csrc/conv_dw.cu",
             "tensorflow_ocr_tpu/ops/pallas_conv.py:190 (_dw3)"),
 }
 # launches of each conv kernel in one pixellink_resnet50 train step with
@@ -492,6 +495,16 @@ CONV_KERNELS = {
 # and 13 stride-1 3x3s, each a forward, a dX and a dW product
 CONV_STEP_LAUNCHES = {"matmul_rows": 88, "dw_rows": 44, "conv3": 26,
                       "dw3": 13}
+# the dW products of a step by kernel (ops/conv.py tma_takes): conv_dw.cu
+# takes the 40 dw_rows with channel counts that are multiples of 8 and the
+# 13 dw3; conv.cu's igemm_dw the head's 4 projections to 2 channels
+DW_STEP_KERNELS = {"tma_dw": 53, "narrow_dw": 4}
+# dW shapes (N, H, W, Ci, Co, k) that the train step never reaches, each
+# held against its plain version: a ragged 3x3 (W % 16, H % 4, Ci = 24),
+# the narrowest TMA channels, a row wider than one pixel box, and a
+# head-like projection to 2 channels at another size
+DW_TAIL_SHAPES = ((1, 7, 13, 24, 40, 3), (2, 5, 9, 8, 16, 1),
+                  (2, 9, 130, 64, 64, 3), (2, 16, 16, 2048, 2, 1))
 
 
 @contextlib.contextmanager
@@ -509,7 +522,7 @@ def pallas_convs(on: bool):
 def reset_conv_counts():
     from tensorflow_ocr_tpu_torch.ops import conv as CV
 
-    for name in CONV_KERNELS:
+    for name in (*CONV_KERNELS, *DW_STEP_KERNELS):
         getattr(CV, name).launches = 0
 
 
@@ -519,11 +532,17 @@ def conv_counts():
     return {name: getattr(CV, name).launches for name in CONV_KERNELS}
 
 
-def route_shapes(batch, hw):
-    """(N, H, W, Ci, Co, k, stride) of every distinct conv the route
-    takes in a forward of the model at ``batch`` images of ``hw``
-    (recorded from a batch-1 float32 forward on the CPU; the dX and dW
-    products of each conv have its shapes)."""
+def dw_kernel_counts():
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+
+    return {name: getattr(CV, name).launches for name in DW_STEP_KERNELS}
+
+
+def route_shape_counts(batch, hw):
+    """{(N, H, W, Ci, Co, k, stride): convs of that shape} over every conv
+    the route takes in a forward of the model at ``batch`` images of
+    ``hw`` (recorded from a batch-1 float32 forward on the CPU; in a train
+    step each conv is also one dX and one dW product of its shape)."""
     import torch
     from tensorflow_ocr_tpu_torch.models import build_model
     from tensorflow_ocr_tpu_torch.ops import conv as CV
@@ -532,7 +551,8 @@ def route_shapes(batch, hw):
 
     def record(x, w, stride=(1, 1)):
         _, ci, h, wd = x.shape
-        seen[(batch, h, wd, ci, w.shape[0], w.shape[-1], stride[0])] = None
+        key = (batch, h, wd, ci, w.shape[0], w.shape[-1], stride[0])
+        seen[key] = seen.get(key, 0) + 1
         return orig(x, w, stride)
 
     model = build_model(MODEL, dtype=torch.float32)
@@ -542,7 +562,12 @@ def route_shapes(batch, hw):
             model(torch.zeros(1, *hw, 3, dtype=torch.uint8))
     finally:
         CV.conv2d = orig
-    return tuple(seen)
+    return seen
+
+
+def route_shapes(batch, hw):
+    """The distinct shapes of route_shape_counts, in order."""
+    return tuple(route_shape_counts(batch, hw))
 
 
 def phase_conv_kernels(device, reports):
@@ -552,9 +577,12 @@ def phase_conv_kernels(device, reports):
     ResNet-v1-50 does not have): the forward y and dX (bf16, one ulp) and
     dW (float32 sums, SUM_REL of the sum of magnitudes); then the forward
     y at every distinct shape of detect's forward (IMAGE_HW, batch 8).
-    Prints kernel, plain and library-call ms (CUDA events), the FLOPs,
-    bytes and bound of each call. The reports sum the train shapes'
-    times and bounds; max_abs_err covers both."""
+    Each dW call is launched twice and the two results must be bit-equal;
+    the dW tail shapes (DW_TAIL_SHAPES) are held too. Prints kernel,
+    plain and library-call ms (CUDA events), the FLOPs, bytes and bound
+    of each call, and the dW products' ms a train step (each shape's time
+    times its launches in a step). The reports sum the train shapes'
+    times and bounds; max_abs_err covers every shape."""
     import torch
     import torch.nn.functional as F
     from tensorflow_ocr_tpu_torch.ops import conv as CV
@@ -575,6 +603,9 @@ def phase_conv_kernels(device, reports):
         torch.cuda.synchronize()
         err = (bf16_close(f"{name} {what}", got, want) if terms is None
                else sum_close(f"{name} {what}", got, want, terms))
+        if terms is not None:  # a dW: two launches, bit-equal
+            check(torch.equal(got, kernel()), f"{name} {what}: two "
+                  "launches on the same inputs differ")
         ms, pms, lms = (cuda_ms(kernel, 10), cuda_ms(plain, 3),
                         cuda_ms(library, 10))
         reports[name]["max_abs_err"] = max(reports[name]["max_abs_err"], err)
@@ -584,13 +615,51 @@ def phase_conv_kernels(device, reports):
         r["plain_ms"] += pms
         r["library_ms"] += lms
         print(f"{name} {what}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-              f"TFLOP/s), plain {pms:.4f}, library {lms:.4f}; "
-              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB, bound "
-              f"{bound:.4f} ms; max abs err {err:.3e}")
+              f"TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s), plain {pms:.4f}, "
+              f"library {lms:.4f}; {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB, bound {bound:.4f} ms; max abs err "
+              f"{err:.3e}")
+        return ms, lms
+
+    def partial_mb(n, h, w, ci, co, k):
+        """MB of partial tables a dW call writes and reads back (beyond
+        the bytes of its bound): one f32 table a cluster of conv_dw.cu
+        (a split of igemm_dw) where there is more than one."""
+        table, sms = 4 * k * k * ci * co, CV._sms(0)
+        if CV.tma_takes(ci, co):
+            geo = (1, 1, n * h * w) if k == 1 else (n, h, w)
+            p = CV.tma_dw_plan(*geo, ci, co, k, sms)
+            tables = p.splits // p.cluster
+        else:
+            tables = CV.dw_plan(n * h * w, k * k * ci, co, sms)[3]
+        return 2 * tables * table / 1e6 if tables > 1 else 0.0
+
+    def run_dw(x, dy, k, what, sums=reports):
+        """One dW product (dw_rows for k = 1, dw3 for k = 3) against its
+        plain version and its library call; returns (ms, library ms)."""
+        n, ci, h, w = x.shape
+        co, m = dy.shape[1], n * h * w
+        flops, nbytes = 2 * m * k * k * ci * co, \
+            2 * m * (ci + co) + 4 * k * k * ci * co
+        tag = (f"dw {what} (partial tables "
+               f"{partial_mb(n, h, w, ci, co, k):.2f} MB)")
+        if k == 1:
+            x2, dy2 = CV.rows(x), CV.rows(dy)
+            return run("dw_rows", tag, lambda: CV.dw_rows(x2, dy2),
+                       lambda: CV.dw_rows_reference(x2, dy2),
+                       lambda: torch.matmul(x2.t(), dy2),
+                       CV.dw_rows_reference(x2.abs(), dy2.abs()), flops,
+                       nbytes, sums)
+        return run("dw3", tag, lambda: CV.dw3(x, dy),
+                   lambda: CV.dw3_reference(x, dy),
+                   lambda: torch.nn.grad.conv2d_weight(x, (co, ci, 3, 3), dy,
+                                                       padding=1),
+                   CV.dw3_reference(x.abs(), dy.abs()), flops, nbytes, sums)
 
     q = TRAIN_SIZE // 4
-    shapes = route_shapes(TRAIN_BATCH, (TRAIN_SIZE, TRAIN_SIZE)) + (
-        (TRAIN_BATCH, q, q, 256, 512, 1, 2),)
+    counts = route_shape_counts(TRAIN_BATCH, (TRAIN_SIZE, TRAIN_SIZE))
+    shapes = tuple(counts) + ((TRAIN_BATCH, q, q, 256, 512, 1, 2),)
+    step = {n: [0.0, 0.0] for n in ("dw_rows", "dw3")}
     print(f"conv route at {TRAIN_SIZE}^2, batch {TRAIN_BATCH}: "
           f"{len(shapes)} distinct convs (N, H, W, Ci, Co, k, stride): "
           f"{shapes}")
@@ -604,7 +673,6 @@ def phase_conv_kernels(device, reports):
         tag = f"{k}x{k}/{s} {ci}->{co} at {n}x{h}x{w}"
         flops = 2 * m * k * k * ci * co
         io = 2 * (m * ci + k * k * ci * co + m * co)
-        dw_io = 2 * m * (ci + co) + 4 * k * k * ci * co
         if k == 1:
             x2, dy2 = CV.rows(xs), CV.rows(dy)
             w2, w2t = wt[:, :, 0, 0].t(), wt[:, :, 0, 0]
@@ -615,10 +683,6 @@ def phase_conv_kernels(device, reports):
                 lambda: CV.matmul_rows(dy2, w2t),
                 lambda: CV.matmul_rows_reference(dy2, w2t),
                 lambda: torch.matmul(dy2, w2t), None, flops, io)
-            run("dw_rows", f"dw {tag}", lambda: CV.dw_rows(x2, dy2),
-                lambda: CV.dw_rows_reference(x2, dy2),
-                lambda: torch.matmul(x2.t(), dy2),
-                CV.dw_rows_reference(x2.abs(), dy2.abs()), flops, dw_io)
         else:
             wflip = wt.flip(2, 3).transpose(0, 1).contiguous()
             wcl = wt.contiguous(memory_format=cl)
@@ -630,12 +694,24 @@ def phase_conv_kernels(device, reports):
                 lambda: torch.nn.grad.conv2d_input(x.shape, wcl, dy,
                                                    padding=1),
                 None, flops, io)
-            run("dw3", f"dw {tag}", lambda: CV.dw3(x, dy),
-                lambda: CV.dw3_reference(x, dy),
-                lambda: torch.nn.grad.conv2d_weight(x, wt.shape, dy,
-                                                    padding=1),
-                CV.dw3_reference(x.abs(), dy.abs()), flops, dw_io)
+        ms, lms = run_dw(xs, dy, k, tag)
+        launches = counts.get((n, h, w, ci, co, k, s), 0)
+        name = "dw_rows" if k == 1 else "dw3"
+        step[name][0] += launches * ms
+        step[name][1] += launches * lms
         del x, xs, dy
+    for name, (ms, lms) in step.items():
+        r = reports[name]
+        print(f"{name} a train step (each shape's ms times its launches in "
+              f"a step, {CONV_STEP_LAUNCHES[name]} in all): kernel {ms:.4f} "
+              f"ms, library {lms:.4f}; over the distinct shapes: kernel "
+              f"{r['ms']:.4f}, library {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+
+    tail = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0) for n in reports}
+    for n, h, w, ci, co, k in DW_TAIL_SHAPES:
+        run_dw(act(n, ci, h, w), act(n, co, h, w), k,
+               f"tail {k}x{k} {ci}->{co} at {n}x{h}x{w}", tail)
 
     # detect's forward (the eval fold: the same convs on w*mul)
     detect = route_shapes(8, IMAGE_HW)
@@ -669,7 +745,8 @@ def phase_conv_kernels(device, reports):
     print("conv kernels: ms, plain_ms, library_ms and bound_ms in the "
           f"kernels line are sums over the {len(shapes)} train-step shapes "
           "(forward and dX for matmul_rows and conv3); max_abs_err also "
-          "covers detect's shapes; library: torch.matmul (cuBLAS, bf16 "
+          "covers detect's and the dW tail shapes; library: torch.matmul "
+          "(cuBLAS, bf16 "
           "out) for the 1x1s, F.conv2d and torch.nn.grad.conv2d_input/"
           "conv2d_weight (cuDNN, channels-last bf16) for the 3x3s")
 
@@ -799,7 +876,7 @@ def add_bound(report, flops, nbytes, peak=PEAK_BF16):
 
 
 def build_all():
-    """Build the five CUDA sources, one nvcc each, all started together,
+    """Build the six CUDA sources, one nvcc each, all started together,
     and load each library."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -810,7 +887,7 @@ def build_all():
 
     loaders = {"cc": K._cc_label, "fused_conv": lambda: FU._lib("fused_conv"),
                "fused_boundary": lambda: FU._lib("fused_boundary"),
-               "conv": CV._lib, "ghost_unit": G._lib}
+               "conv": CV._lib, "conv_dw": CV._dw_lib, "ghost_unit": G._lib}
 
     def one(name):
         t0 = time.perf_counter()
@@ -1171,14 +1248,23 @@ def phase_conv_train(device, reports, snap, batch):
         reset_conv_counts()
         last = trainer.run([batch] * TRAIN_STEPS, TRAIN_STEPS)
         torch.cuda.synchronize()
-        counts = conv_counts()
+        counts, dw_kernels = conv_counts(), dw_kernel_counts()
     print(f"train {TRAIN_STEPS} steps xla with PALLAS_CONVS: last metrics "
           f"{json.dumps({k: round(v, 5) for k, v in last.items()})}; "
           f"kernel launches {counts} (expected {want})")
+    narrow = dw_kernels["narrow_dw"] // TRAIN_STEPS
+    print(f"dw_rows launches a step by kernel: "
+          f"{counts['dw_rows'] // TRAIN_STEPS - narrow} on conv_dw.cu "
+          f"(tma_dw, with dw3's {counts['dw3'] // TRAIN_STEPS}: "
+          f"{dw_kernels['tma_dw'] // TRAIN_STEPS}), {narrow} on conv.cu's "
+          f"igemm_dw (narrow_dw); expected {DW_STEP_KERNELS}")
     check(trainer.state.step == TRAIN_STEPS and last and all(
         np.isfinite(v) for v in last.values()), "pallas-conv train: "
           "non-finite or missing metrics")
     check(counts == want, "pallas-conv train: conv kernel launches")
+    check(dw_kernels == {k: TRAIN_STEPS * v
+                         for k, v in DW_STEP_KERNELS.items()},
+          "pallas-conv train: dW launches by kernel")
     for name, n in counts.items():
         reports[name]["launches"] = n
     del trainer

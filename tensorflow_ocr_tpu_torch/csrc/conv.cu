@@ -7,6 +7,10 @@
 //   conv_fwd, KS = 3 <- _conv3 (:148):      the 3x3 forward and its dX
 //                                           (the flipped kernel);
 //   conv_dw,  KS = 3 <- _dw3 (:190):        the 3x3 dW.
+// conv_dw here takes the dW products whose channel counts are not
+// multiples of 8 (the PixelLink head's projections to 2 channels);
+// conv_dw.cu's TMA and wgmma kernel takes the rest (ops/conv.py
+// tma_takes).
 //
 // Contract (NHWC pixel rows, M = N*H*W; bf16 operands, f32 accumulate):
 //   conv_fwd: y (M, Co) = bf16(im2col(x) . wt^T), wt (Co, KS*KS*Ci) with

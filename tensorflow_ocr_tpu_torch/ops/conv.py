@@ -2,8 +2,9 @@
 
 Port of ``tensorflow_ocr_tpu/ops/pallas_conv.py``, the route that
 ``models/layers.py`` takes under ``PALLAS_CONVS``. Four wrappers carry
-the work, each with a hand-written CUDA kernel (``csrc/conv.cu``) and a
-plain PyTorch version beside it:
+the work, each with a hand-written CUDA kernel and a plain PyTorch
+version beside it (the forwards in ``csrc/conv.cu``, the dW products in
+``csrc/conv_dw.cu``):
 
 - :func:`matmul_rows` <- ``_matmul_rows`` (:81): y = x·W over pixel rows,
   the 1x1 forward and (with Wᵀ) its dX;
@@ -27,6 +28,10 @@ dtype, as the Flax module casts its kernel before the call.
 
 The kernels take any channel counts (the PixelLink head's projections
 to 2 and 16 channels included) and any N, H, W within int32 indices.
+The dW products dispatch by shape between two kernels (:func:`tma_takes`):
+``csrc/conv_dw.cu`` (TMA and wgmma) where Ci and Co are multiples of 8,
+``csrc/conv.cu``'s ``igemm_dw`` for the rest (the head's 2 channels);
+each counts its own launches (:func:`tma_dw`, :func:`narrow_dw`).
 :func:`supported` says exactly that, and replaces the TPU tile pickers
 ``_pick_bm``/``_pick_th``, which encode VMEM budgets that Hopper does
 not have. The kernels take bfloat16 only: where the JAX route sends
@@ -36,9 +41,10 @@ CUDA tensors (CPU tensors of any float type take the plain versions).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,8 +60,14 @@ from tensorflow_ocr_tpu_torch.ops.kernels import build_library
 
 _CL = torch.channels_last
 # the kernels' tiles (csrc/conv.cu, csrc/igemm.cuh): pixel rows of the
-# forward, the K slice, and the dW split's target of CTAs an SM
+# forward, the K slice, and the narrow dW split's target of CTAs an SM
 FWD_ROWS, BK, DW_WAVES = 128, 32, 4
+# csrc/conv_dw.cu: pixels a tile (the box wb x hb), bytes of one box of 64
+# bf16 channels, the shared memory a CTA may use, the ring's most slots
+# and the largest cluster (at this shared memory an H100 holds 66
+# clusters of 2 at once, 132 CTAs, but only 30 of 4:
+# scripts/conv_dw_probe.py)
+KP, BOX, MAX_SMEM, MAX_STAGES, MAX_CLUSTER = 64, 64 * 128, 232448, 8, 2
 
 
 def rows(t: torch.Tensor) -> torch.Tensor:
@@ -118,6 +130,14 @@ def _lib():
     return lib
 
 
+@functools.cache
+def _dw_lib():
+    lib = ctypes.CDLL(str(build_library("conv_dw")))
+    lib.conv_dw_tma.argtypes = [_P] * 4 + [_I] * 13 + [_P]
+    lib.conv_dw_tma.restype = ctypes.c_int
+    return lib
+
+
 def fwd_tile(co: int) -> int:
     """The forward's column tile (csrc/conv.cu ``igemm_fwd``'s BN)."""
     return 128 if co > 64 else 64 if co > 32 else 32
@@ -135,6 +155,54 @@ def dw_plan(m: int, kdim: int, co: int, sms: int
     splits = max(1, -(-DW_WAVES * sms // tiles))
     chunk = -(-(-(-m // splits)) // BK) * BK
     return bm, bn, chunk, max(1, -(-m // chunk))
+
+
+class TmaDwPlan(NamedTuple):
+    """The work split of csrc/conv_dw.cu's dW kernel."""
+    wb: int        # the pixel box: wb x hb pixels of one image, KP in all
+    hb: int
+    bn: int        # columns (of Co) a CTA: 64, 128 or 256
+    two: bool      # the CTA's two warpgroups own two 64-row chunks
+    stages: int    # slots of the TMA ring
+    splits: int    # pixel-tile ranges, one a CTA along the grid's z
+    cluster: int   # CTAs a cluster along the splits (splits a multiple)
+
+
+def tma_takes(ci: int, co: int) -> bool:
+    """Whether csrc/conv_dw.cu takes a dW of these channel counts: TMA
+    reads rows of a multiple of 16 bytes. The rest (the PixelLink head's
+    2-channel projections) take conv.cu's igemm_dw."""
+    return ci % 8 == 0 and co % 8 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def tma_dw_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
+                sms: int) -> TmaDwPlan:
+    """The split of a (ks*ks*ci, co) dW over n images of h x w (a 1x1 dW
+    over M rows: n = h = 1, w = M). The box is the narrowest power of two
+    that covers a row, up to KP pixels (KP x 1 for the 1x1's rows), the
+    rest of KP in rows. The table's rows come in 64-row chunks (64
+    channels of one tap), two a CTA where there are two or more; BN as
+    wide as Co allows, up to 256. The pixel tiles are split so that one
+    wave of CTAs (one an SM) fills the card, every split non-empty, a
+    multiple of MAX_CLUSTER from 16 splits on; clusters of up to
+    MAX_CLUSTER splits, the largest that divides them. As many ring slots
+    as fit, up to MAX_STAGES."""
+    wb = min(KP, 1 << max(w - 1, 0).bit_length())
+    hb = KP // wb
+    bn = 256 if co >= 256 else 128 if co >= 128 else 64
+    rchunks = ks * ks * -(-ci // 64)
+    two = rchunks > 1
+    tiles = (-(-rchunks // 2) if two else 1) * -(-co // bn)
+    stage = ((2 if two else 1) + bn // 64) * BOX
+    stages = min(MAX_STAGES, (MAX_SMEM - 1024) // (stage + 16))
+    ntiles = n * -(-h // hb) * -(-w // wb)
+    splits = max(1, min(ntiles, sms // tiles))
+    if splits >= 16:
+        splits -= splits % MAX_CLUSTER
+    cluster = next(c for c in (8, 4, 2, 1)
+                   if c <= MAX_CLUSTER and splits % c == 0)
+    return TmaDwPlan(wb, hb, bn, two, stages, splits, cluster)
 
 
 @functools.cache
@@ -173,11 +241,46 @@ def _fwd(x, wt, n, h, w, ci, co, k, name):
 
 
 def _dw(x, dy, n, h, w, ci, co, k, name):
-    """conv_dw of csrc/conv.cu: rows of x (m, ci) and dy (m, co),
-    contiguous -> (k*k*ci, co) float32."""
-    m, kdim = n * h * w, k * k * ci
-    if not _indices_fit(m, max(ci, co), k):
+    """The dW of rows of x (m, ci) and dy (m, co), contiguous -> (k*k*ci,
+    co) float32, on the kernel that :func:`tma_takes` picks by shape."""
+    if not _indices_fit(n * h * w, max(ci, co), k):
         raise ValueError("shape overflows the kernel's int32 indices")
+    kernel = tma_dw if tma_takes(ci, co) else narrow_dw
+    return kernel(x, dy, n, h, w, ci, co, k, name)
+
+
+def tma_dw(x, dy, n, h, w, ci, co, k, name="tma_dw"):
+    """conv_dw_tma of csrc/conv_dw.cu (:func:`tma_dw_plan`'s split). Raises
+    on channel counts that are not multiples of 8 and on bases that are
+    not 16-byte aligned: TMA takes neither."""
+    if not tma_takes(ci, co):
+        raise ValueError(f"{name}: TMA needs Ci and Co multiples of 8, got "
+                         f"{ci}, {co}")
+    if x.data_ptr() % 16 or dy.data_ptr() % 16:
+        raise ValueError(f"{name}: TMA needs 16-byte aligned operands")
+    index = x.device.index
+    p = tma_dw_plan(n, h, w, ci, co, k, _sms(index))
+    # the table and the clusters' partial tables in one allocation: the
+    # wrapper's host time is of the order of a small shape's device time
+    tables = p.splits // p.cluster
+    buf = torch.empty((1 + tables if tables > 1 else 1, k * k * ci, co),
+                      dtype=torch.float32, device=x.device)
+    dw, ws = buf[0], buf[1:] if tables > 1 else buf
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
+        err = _dw_lib().conv_dw_tma(
+            x.data_ptr(), dy.data_ptr(), dw.data_ptr(), ws.data_ptr(), n, h,
+            w, ci, co, k, p.wb, p.hb, p.bn, int(p.two), p.stages, p.splits,
+            p.cluster, torch._C._cuda_getCurrentRawStream(index))
+    raise_on(err, name)
+    tma_dw.launches += 1
+    return dw
+
+
+def narrow_dw(x, dy, n, h, w, ci, co, k, name="narrow_dw"):
+    """conv_dw of csrc/conv.cu (igemm_dw, :func:`dw_plan`'s split): any
+    channel counts, predicated loads."""
+    m, kdim = n * h * w, k * k * ci
     bm, bn, chunk, splits = dw_plan(m, kdim, co, _sms(x.device.index or 0))
     dw = torch.empty((kdim, co), dtype=torch.float32, device=x.device)
     ws = (torch.empty((splits, kdim, co), dtype=torch.float32,
@@ -187,6 +290,7 @@ def _dw(x, dy, n, h, w, ci, co, k, name):
                              ws.data_ptr(), n, h, w, ci, co, k, bm, bn, chunk,
                              splits, cuda_stream())
     raise_on(err, name)
+    narrow_dw.launches += 1
     return dw
 
 
@@ -257,7 +361,7 @@ def dw3(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return dw
 
 
-for _fn in (matmul_rows, dw_rows, conv3, dw3):
+for _fn in (matmul_rows, dw_rows, conv3, dw3, tma_dw, narrow_dw):
     _fn.launches = 0
 
 

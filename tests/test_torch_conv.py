@@ -152,7 +152,8 @@ def test_rounding_points_in_bfloat16():
 
 
 # --------------------------------------------------------------------------
-# CPU emulation of the kernels' split (csrc/conv.cu, csrc/igemm.cuh)
+# CPU emulation of the kernels' split (csrc/conv.cu, csrc/igemm.cuh; the
+# dW of csrc/conv_dw.cu)
 # --------------------------------------------------------------------------
 
 
@@ -224,10 +225,105 @@ def emulate_dw(x2, dy2, geo, ks, ci, co, sms):
     return part.sum(0), splits
 
 
+def tma_box(t, img, h0, w0, c0, hb, wb):
+    """A TMA box of t (N, H, W, C): the (hb*wb, 64) elements of channels
+    c0..c0+63 at pixels (h0.., w0..) of image img, rows in (h, w) order,
+    zero outside t (the coordinates may be negative)."""
+    _, h, w, c = t.shape
+    hh = torch.arange(h0, h0 + hb)[:, None].expand(hb, wb).reshape(-1, 1)
+    ww = torch.arange(w0, w0 + wb)[None, :].expand(hb, wb).reshape(-1, 1)
+    cc = torch.arange(c0, c0 + 64)[None, :]
+    live = (hh >= 0) & (hh < h) & (ww >= 0) & (ww < w) & (cc < c)
+    vals = t[img, hh.clamp(0, h - 1), ww.clamp(0, w - 1), cc.clamp(max=c - 1)]
+    return torch.where(live, vals, torch.zeros_like(vals))
+
+
+def emulate_tma_dw(x4, dy4, ks, sms):
+    """conv_dw.cu's tma_dw + sum_tables on the CPU: x4 (N, H, W, Ci), dy4
+    (N, H, W, Co) (a 1x1 dW's rows as (1, 1, M, C)). For each CTA of
+    tma_dw_plan's grid: the pixel tiles of its split, each a wb x hb box
+    of one image, X shifted by the tap with zeros outside the image; each
+    warpgroup's 64-row chunk (or, with one chunk, its half of every
+    tile's k16 steps) accumulated from the boxes; then each cluster's
+    table summed in rank order (warpgroup order within a rank) and the
+    tables in cluster order."""
+    n, h, w, ci = x4.shape
+    co = dy4.shape[-1]
+    p = CV.tma_dw_plan(n, h, w, ci, co, ks, sms)
+    tiles_w, tiles_h = -(-w // p.wb), -(-h // p.hb)
+    ntiles, cch = n * tiles_w * tiles_h, -(-ci // 64)
+    rchunks, kp = ks * ks * cch, p.wb * p.hb
+    assert p.splits % p.cluster == 0 and p.splits <= ntiles
+    tables = torch.zeros(p.splits // p.cluster, ks * ks * ci, co)
+    for bx in range(-(-rchunks // 2) if p.two else 1):
+        chunks = [min(2 * bx + j, rchunks - 1) for j in (0, 1)] \
+            if p.two else [0, 0]
+        for co0 in range(0, co, p.bn):
+            parked = []
+            for s in range(p.splits):
+                t0, t1 = s * ntiles // p.splits, (s + 1) * ntiles // p.splits
+                assert t0 < t1  # every split non-empty
+                slots = [torch.zeros(64, p.bn), torch.zeros(64, p.bn)]
+                for t in range(t0, t1):
+                    w0 = t % tiles_w * p.wb
+                    h0 = t // tiles_w % tiles_h * p.hb
+                    img = t // (tiles_w * tiles_h)
+                    b = torch.cat([tma_box(dy4, img, h0, w0, co0 + 64 * j,
+                                           p.hb, p.wb)
+                                   for j in range(p.bn // 64)], 1)
+                    for j in (0, 1):
+                        ky, kx = divmod(chunks[j] // cch, ks)
+                        a = tma_box(x4, img, h0 + ky - ks // 2,
+                                    w0 + kx - ks // 2,
+                                    chunks[j] % cch * 64, p.hb, p.wb)
+                        rows = (slice(0, kp) if p.two
+                                else slice(j * kp // 2, (j + 1) * kp // 2))
+                        slots[j] += a[rows].T @ b[rows]
+                parked.append(slots)
+            for cl in range(len(tables)):
+                acc = torch.zeros(128 if p.two else 64, p.bn)
+                for q in range(p.cluster):
+                    slots = parked[cl * p.cluster + q]
+                    if p.two:
+                        acc[:64] += slots[0]
+                        acc[64:] += slots[1]
+                    else:
+                        acc += slots[0]
+                        acc += slots[1]
+                for j in (0, 1) if p.two else (0,):
+                    if 2 * bx + j >= rchunks:
+                        continue  # an odd last chunk's duplicate
+                    tap, c0 = divmod(chunks[j], cch)
+                    r0, nr = tap * ci + c0 * 64, min(64, ci - c0 * 64)
+                    nc = min(p.bn, co - co0)
+                    tables[cl, r0:r0 + nr, co0:co0 + nc] = \
+                        acc[64 * j:64 * j + nr, :nc]
+    dw = tables[0]
+    for t in tables[1:]:
+        dw = dw + t
+    return dw, p
+
+
+def emulated_dw(x, dy, ks, sms):
+    """The dW of x (N, Ci, H, W) and dy on the kernel tma_takes picks,
+    emulated: (table, splits)."""
+    n, ci, h, w = x.shape
+    co = dy.shape[1]
+    x2, dy2 = CV.rows(x), CV.rows(dy)
+    if CV.tma_takes(ci, co):
+        if ks == 1:
+            x4, dy4 = x2.reshape(1, 1, -1, ci), dy2.reshape(1, 1, -1, co)
+        else:
+            x4, dy4 = x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1)
+        dw, p = emulate_tma_dw(x4, dy4, ks, sms)
+        return dw, p.splits
+    return emulate_dw(x2, dy2, (n, h, w), ks, ci, co, sms)
+
+
 @pytest.mark.parametrize("ks,ci,co,nhw,sms", [
     (3, 24, 2, (2, 9, 11), 1),    # K slices across taps, Co = 2, M = 198
-    (3, 64, 64, (1, 12, 13), 4),  # whole 32-channel slices, vector loads
-    (1, 64, 16, (3, 5, 9), 2),    # the head's 16 channels, 64-row dW tiles
+    (3, 64, 64, (1, 12, 13), 16),  # two taps a CTA, 3 splits
+    (1, 64, 16, (3, 5, 9), 2),    # the head's 16 channels, one 64-row chunk
     (1, 5, 3, (2, 7, 10), 4),     # odd channel counts: K and Co tails
 ])
 def test_kernel_split_emulation_equals_whole_map(ks, ci, co, nhw, sms):
@@ -247,15 +343,69 @@ def test_kernel_split_emulation_equals_whole_map(ks, ci, co, nhw, sms):
     geo = (n, h, w)
     got_y = emulate_fwd(x2, wt, geo, ks, ci, co)
     torch.testing.assert_close(got_y, want_y, rtol=1e-5, atol=1e-4)
-    got_dw, splits = emulate_dw(x2, dy2, geo, ks, ci, co, sms)
+    got_dw, splits = emulated_dw(x, dy, ks, sms)
     assert splits > 1
     torch.testing.assert_close(got_dw, want_dw, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("ks,ci,co,nhw,sms,tables", [
+    (3, 24, 40, (1, 7, 13), 132, 1),   # W % wb, H % hb, N = 1, Ci = 24
+    (1, 8, 16, (2, 5, 9), 132, 1),     # Ci = 8, Co = 16: one 64-row chunk
+    (3, 64, 64, (2, 9, 70), 40, 4),    # Ci = 64: two taps a CTA, W > wb
+    (3, 128, 96, (1, 6, 10), 132, 1),  # chunk pairs of one tap, 9 % 2
+    (1, 64, 64, (4, 16, 16), 16, 8),   # 16 splits: 8 clusters of 2
+    (1, 16, 8, (2, 8, 32), 8, 4),      # 8 splits: 4 clusters of 2
+    (3, 16, 8, (3, 4, 5), 40, 3),      # H < hb: 3 clusters of 1
+    (1, 256, 256, (1, 4, 32), 132, 1),  # BN = 256, two wgmmas a k16 step
+])
+def test_tma_dw_split_emulation_equals_the_plain_dw(ks, ci, co, nhw, sms,
+                                                    tables):
+    gen = torch.Generator().manual_seed(ks * 1000 + ci + co)
+    n, h, w = nhw
+    x = torch.randn(n, ci, h, w, generator=gen).contiguous(memory_format=CL)
+    dy = torch.randn(n, co, h, w, generator=gen).contiguous(memory_format=CL)
+    assert CV.tma_takes(ci, co)
+    p = CV.tma_dw_plan(*((1, 1, n * h * w) if ks == 1 else (n, h, w)), ci,
+                       co, ks, sms)
+    assert p.splits // p.cluster == tables
+    want = (CV.dw_rows_reference(CV.rows(x), CV.rows(dy)) if ks == 1
+            else CV.dw3_reference(x, dy))
+    got, _ = emulated_dw(x, dy, ks, sms)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
 def test_dw_plan_tiles_and_chunks():
-    # Ci = 64 1x1: 64-row tiles, none half empty; chunks cover M exactly
-    for m, kdim, co in ((524288, 64, 64), (524288, 64, 2), (8192, 4608, 512),
-                        (198, 216, 2), (1, 9, 1)):
+    # conv_dw.cu: boxes of <= 256 a dimension and KP pixels (a multiple of
+    # 16: whole k16 steps), the ring and the parked accumulators within
+    # the shared memory, clusters of <= 8 that divide the splits, every
+    # split non-empty, one wave at most
+    shapes = [(1, 1, 524288, 64, 64, 1), (1, 1, 524288, 256, 16, 1),
+              (1, 1, 8192, 1024, 2048, 1), (32, 128, 128, 64, 64, 3),
+              (32, 16, 16, 512, 512, 3), (1, 7, 13, 24, 40, 3),
+              (2, 9, 130, 64, 64, 3), (1, 1, 90, 8, 16, 1), (1, 1, 1, 8, 8, 1),
+              (3, 1, 5, 8, 8, 3)]
+    for n, h, w, ci, co, ks in shapes:
+        p = CV.tma_dw_plan(n, h, w, ci, co, ks, 132)
+        assert max(p.wb, p.hb) <= 256 and p.wb * p.hb == CV.KP
+        assert CV.KP % 16 == 0 and p.bn in (64, 128, 256)
+        two = p.two + 1
+        stage = (two + p.bn // 64) * CV.BOX
+        assert p.stages >= 2
+        assert p.stages * (stage + 16) + 1024 <= 227 * 1024
+        assert 2 * 64 * (p.bn + 8) * 4 <= p.stages * stage
+        assert p.two == (ks * ks * -(-ci // 64) > 1)
+        ntiles = n * -(-h // p.hb) * -(-w // p.wb)
+        assert 1 <= p.splits <= ntiles and p.cluster in (1, 2, 4, 8)
+        assert p.splits % p.cluster == 0
+        tiles = -(-ks * ks * -(-ci // 64) // two) * -(-co // p.bn)
+        assert tiles * p.splits <= max(132, tiles)
+    # the narrow shapes (a channel count that is not a multiple of 8, the
+    # head's Co = 2) take igemm_dw: 64-row tiles where kdim <= 64; its
+    # chunks cover M exactly
+    assert not CV.tma_takes(256, 2) and not CV.tma_takes(5, 8)
+    assert CV.tma_takes(8, 16) and CV.tma_takes(24, 40)
+    for m, kdim, co in ((524288, 64, 2), (8192, 2048, 2), (198, 216, 2),
+                        (1, 9, 1), (140, 5, 3)):
         bm, bn, chunk, splits = CV.dw_plan(m, kdim, co, 132)
         assert bm == (64 if kdim <= 64 else 128)
         assert (bm, bn) in ((128, 128), (128, 64), (128, 32), (64, 128),
