@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the six CUDA sources of csrc/ (nvcc, sm_90a), one nvcc each,
+2. build the seven CUDA sources of csrc/ (nvcc, sm_90a), one nvcc each,
    all started together;
 3. hold the connected-components kernel against its plain PyTorch
    version on the card: (8, 192, 320) text-like blob maps plus hand
@@ -24,16 +24,17 @@ Phases, in order; any failure raises and exits non-zero:
    printing wall time, device busy time, the device's idle share and
    the largest device entries;
 8. hold each of the four conv kernels of the PALLAS_CONVS route
-   (csrc/conv.cu, csrc/conv_dw.cu) against its plain version at every
-   distinct shape the route gives it in the 512^2 batch-32 train step
-   (recorded from the model), plus one stride-2 1x1: forward y, dX and
-   dW (each dW launched twice, bit-equal), plus the dW tail shapes; then
-   the forward y at every distinct shape of detect's forward (8 x
-   1280x768); print kernel, plain and library-call ms, the FLOPs, bytes
-   and bound, and the dW products' ms a train step;
+   (csrc/conv_fwd.cu, csrc/conv_dw.cu, and csrc/conv.cu for the narrow
+   shapes) against its plain version at every distinct shape the route
+   gives it in the 512^2 batch-32 train step (recorded from the model),
+   plus one stride-2 1x1: forward y, dX and dW (each launched twice,
+   bit-equal), plus the forward and dW tail shapes; then the forward y
+   at every distinct shape of detect's forward (8 x 1280x768); print
+   kernel, plain and library-call ms, the FLOPs, bytes and bound, and
+   each kernel's ms a train step;
 9. detect_batch with PALLAS_CONVS on: 44 + 13 conv launches a forward,
-   logits within CONV_DETECT_REL of the cuDNN forward's, the CC kernel
-   still launched;
+   all on conv_fwd.cu, logits within CONV_DETECT_REL of the cuDNN
+   forward's, the CC kernel still launched;
 10. hold each fused kernel against its plain version at every shape the
    train step gives it (the 15 1x1 and 4 3x3 convs of the fused units,
    the boundary of each block): forward y and s, backward dx, dab and
@@ -481,11 +482,11 @@ def phase_profile(pred, images):
 
 CONV_KERNELS = {
     # name (= the wrapper in ops/conv.py): (source, the site replaced)
-    "matmul_rows": ("tensorflow_ocr_tpu_torch/csrc/conv.cu",
+    "matmul_rows": ("tensorflow_ocr_tpu_torch/csrc/conv_fwd.cu",
                     "tensorflow_ocr_tpu/ops/pallas_conv.py:81 (_matmul_rows)"),
     "dw_rows": ("tensorflow_ocr_tpu_torch/csrc/conv_dw.cu",
                 "tensorflow_ocr_tpu/ops/pallas_conv.py:108 (_dw_rows)"),
-    "conv3": ("tensorflow_ocr_tpu_torch/csrc/conv.cu",
+    "conv3": ("tensorflow_ocr_tpu_torch/csrc/conv_fwd.cu",
               "tensorflow_ocr_tpu/ops/pallas_conv.py:148 (_conv3)"),
     "dw3": ("tensorflow_ocr_tpu_torch/csrc/conv_dw.cu",
             "tensorflow_ocr_tpu/ops/pallas_conv.py:190 (_dw3)"),
@@ -499,6 +500,21 @@ CONV_STEP_LAUNCHES = {"matmul_rows": 88, "dw_rows": 44, "conv3": 26,
 # takes the 40 dw_rows with channel counts that are multiples of 8 and the
 # 13 dw3; conv.cu's igemm_dw the head's 4 projections to 2 channels
 DW_STEP_KERNELS = {"tma_dw": 53, "narrow_dw": 4}
+# the forward products of a step by kernel (ops/conv.py tma_fwd_takes):
+# conv_fwd.cu takes the 44 1x1 and 13 3x3 forwards and every dX whose
+# contracted count (the conv's Co) is a multiple of 8, 40 + 13; conv.cu's
+# igemm_fwd the dX of the head's 4 projections to 2 channels
+FWD_STEP_KERNELS = {"tma_fwd": 110, "narrow_fwd": 4}
+# detect's forward: every routed conv contracts a multiple of 8 channels
+DETECT_FWD_KERNELS = {"tma_fwd": 57, "narrow_fwd": 0}
+# forward shapes (N, H, W, Ci, Co, k) that the train step never reaches,
+# each held against its plain version and launched twice: a ragged 3x3
+# (W % 16, H % 8, Ci = 24), K = 8, a row wider than one pixel box, the
+# head's Co = 2 and 16 at another size, and a dX from 2 channels (K = 2,
+# on igemm_fwd)
+FWD_TAIL_SHAPES = ((1, 7, 13, 24, 40, 3), (2, 5, 9, 8, 16, 1),
+                   (2, 9, 130, 64, 64, 3), (2, 16, 16, 2048, 2, 1),
+                   (2, 24, 40, 512, 16, 1), (2, 16, 16, 2, 2048, 1))
 # dW shapes (N, H, W, Ci, Co, k) that the train step never reaches, each
 # held against its plain version: a ragged 3x3 (W % 16, H % 4, Ci = 24),
 # the narrowest TMA channels, a row wider than one pixel box, and a
@@ -522,20 +538,15 @@ def pallas_convs(on: bool):
 def reset_conv_counts():
     from tensorflow_ocr_tpu_torch.ops import conv as CV
 
-    for name in (*CONV_KERNELS, *DW_STEP_KERNELS):
+    for name in (*CONV_KERNELS, *DW_STEP_KERNELS, *FWD_STEP_KERNELS):
         getattr(CV, name).launches = 0
 
 
-def conv_counts():
+def conv_counts(names=CONV_KERNELS):
+    """{name: launches} of the wrappers of ops/conv.py in ``names``."""
     from tensorflow_ocr_tpu_torch.ops import conv as CV
 
-    return {name: getattr(CV, name).launches for name in CONV_KERNELS}
-
-
-def dw_kernel_counts():
-    from tensorflow_ocr_tpu_torch.ops import conv as CV
-
-    return {name: getattr(CV, name).launches for name in DW_STEP_KERNELS}
+    return {name: getattr(CV, name).launches for name in names}
 
 
 def route_shape_counts(batch, hw):
@@ -577,12 +588,14 @@ def phase_conv_kernels(device, reports):
     ResNet-v1-50 does not have): the forward y and dX (bf16, one ulp) and
     dW (float32 sums, SUM_REL of the sum of magnitudes); then the forward
     y at every distinct shape of detect's forward (IMAGE_HW, batch 8).
-    Each dW call is launched twice and the two results must be bit-equal;
-    the dW tail shapes (DW_TAIL_SHAPES) are held too. Prints kernel,
-    plain and library-call ms (CUDA events), the FLOPs, bytes and bound
-    of each call, and the dW products' ms a train step (each shape's time
-    times its launches in a step). The reports sum the train shapes'
-    times and bounds; max_abs_err covers every shape."""
+    Each call is launched twice and the two results must be bit-equal;
+    the forward and dW tail shapes (FWD_TAIL_SHAPES, DW_TAIL_SHAPES) are
+    held too. Prints kernel, plain and library-call ms (CUDA events; the
+    3x3 dX beside two library calls, conv2d_input and the conv of dY with
+    the flipped weight, the faster of which is the yardstick), the FLOPs,
+    bytes and bound of each call, and each kernel's ms a train step (each
+    shape's time times its launches in a step). The reports sum the train
+    shapes' times and bounds; max_abs_err covers every shape."""
     import torch
     import torch.nn.functional as F
     from tensorflow_ocr_tpu_torch.ops import conv as CV
@@ -598,27 +611,33 @@ def phase_conv_kernels(device, reports):
 
     def run(name, what, kernel, plain, library, terms, flops, nbytes,
             sums=reports):
+        """``library``: one call, or {label: call} of which the faster
+        is the yardstick."""
+        calls = library if isinstance(library, dict) else {"": library}
         got, want = kernel(), plain()
-        library()
+        for fn in calls.values():
+            fn()
         torch.cuda.synchronize()
         err = (bf16_close(f"{name} {what}", got, want) if terms is None
                else sum_close(f"{name} {what}", got, want, terms))
-        if terms is not None:  # a dW: two launches, bit-equal
-            check(torch.equal(got, kernel()), f"{name} {what}: two "
-                  "launches on the same inputs differ")
-        ms, pms, lms = (cuda_ms(kernel, 10), cuda_ms(plain, 3),
-                        cuda_ms(library, 10))
+        check(torch.equal(got, kernel()), f"{name} {what}: two launches "
+              "on the same inputs differ")
+        ms, pms = cuda_ms(kernel, 10), cuda_ms(plain, 3)
+        times = {label: cuda_ms(fn, 10) for label, fn in calls.items()}
+        lms = min(times.values())
         reports[name]["max_abs_err"] = max(reports[name]["max_abs_err"], err)
         r = sums[name]
         bound = add_bound(r, flops, nbytes)
         r["ms"] += ms
         r["plain_ms"] += pms
         r["library_ms"] += lms
+        lib = ", ".join(f"{label} {t:.4f}" for label, t in times.items()
+                        if label)
         print(f"{name} {what}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
               f"TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s), plain {pms:.4f}, "
-              f"library {lms:.4f}; {flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB, bound {bound:.4f} ms; max abs err "
-              f"{err:.3e}")
+              f"library {lms:.4f}{f' ({lib})' if lib else ''}; "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB, bound "
+              f"{bound:.4f} ms; max abs err {err:.3e}")
         return ms, lms
 
     def partial_mb(n, h, w, ci, co, k):
@@ -659,7 +678,7 @@ def phase_conv_kernels(device, reports):
     q = TRAIN_SIZE // 4
     counts = route_shape_counts(TRAIN_BATCH, (TRAIN_SIZE, TRAIN_SIZE))
     shapes = tuple(counts) + ((TRAIN_BATCH, q, q, 256, 512, 1, 2),)
-    step = {n: [0.0, 0.0] for n in ("dw_rows", "dw3")}
+    step = {n: [0.0, 0.0] for n in CONV_KERNELS}
     print(f"conv route at {TRAIN_SIZE}^2, batch {TRAIN_BATCH}: "
           f"{len(shapes)} distinct convs (N, H, W, Ci, Co, k, stride): "
           f"{shapes}")
@@ -673,29 +692,37 @@ def phase_conv_kernels(device, reports):
         tag = f"{k}x{k}/{s} {ci}->{co} at {n}x{h}x{w}"
         flops = 2 * m * k * k * ci * co
         io = 2 * (m * ci + k * k * ci * co + m * co)
+        launches = counts.get((n, h, w, ci, co, k, s), 0)
         if k == 1:
             x2, dy2 = CV.rows(xs), CV.rows(dy)
             w2, w2t = wt[:, :, 0, 0].t(), wt[:, :, 0, 0]
-            run("matmul_rows", f"fwd {tag}", lambda: CV.matmul_rows(x2, w2),
-                lambda: CV.matmul_rows_reference(x2, w2),
-                lambda: torch.matmul(x2, w2), None, flops, io)
-            run("matmul_rows", f"dx {tag}",
-                lambda: CV.matmul_rows(dy2, w2t),
-                lambda: CV.matmul_rows_reference(dy2, w2t),
-                lambda: torch.matmul(dy2, w2t), None, flops, io)
+            fwd = run("matmul_rows", f"fwd {tag}",
+                      lambda: CV.matmul_rows(x2, w2),
+                      lambda: CV.matmul_rows_reference(x2, w2),
+                      lambda: torch.matmul(x2, w2), None, flops, io)
+            dx = run("matmul_rows", f"dx {tag}",
+                     lambda: CV.matmul_rows(dy2, w2t),
+                     lambda: CV.matmul_rows_reference(dy2, w2t),
+                     lambda: torch.matmul(dy2, w2t), None, flops, io)
         else:
             wflip = wt.flip(2, 3).transpose(0, 1).contiguous()
             wcl = wt.contiguous(memory_format=cl)
-            run("conv3", f"fwd {tag}", lambda: CV.conv3(x, wt),
-                lambda: CV.conv3_reference(x, wt),
-                lambda: F.conv2d(x, wcl, padding=1), None, flops, io)
-            run("conv3", f"dx {tag}", lambda: CV.conv3(dy, wflip),
-                lambda: CV.conv3_reference(dy, wflip),
-                lambda: torch.nn.grad.conv2d_input(x.shape, wcl, dy,
-                                                   padding=1),
-                None, flops, io)
+            wflip_cl = wflip.contiguous(memory_format=cl)
+            fwd = run("conv3", f"fwd {tag}", lambda: CV.conv3(x, wt),
+                      lambda: CV.conv3_reference(x, wt),
+                      lambda: F.conv2d(x, wcl, padding=1), None, flops, io)
+            dx = run("conv3", f"dx {tag}", lambda: CV.conv3(dy, wflip),
+                     lambda: CV.conv3_reference(dy, wflip),
+                     {"conv2d_input": lambda: torch.nn.grad.conv2d_input(
+                         x.shape, wcl, dy, padding=1),
+                      "conv2d(dy, wflip)": lambda: F.conv2d(
+                          dy, wflip_cl, padding=1)},
+                     None, flops, io)
+        name = "matmul_rows" if k == 1 else "conv3"
+        for ms, lms in (fwd, dx):
+            step[name][0] += launches * ms
+            step[name][1] += launches * lms
         ms, lms = run_dw(xs, dy, k, tag)
-        launches = counts.get((n, h, w, ci, co, k, s), 0)
         name = "dw_rows" if k == 1 else "dw3"
         step[name][0] += launches * ms
         step[name][1] += launches * lms
@@ -709,6 +736,23 @@ def phase_conv_kernels(device, reports):
               f"{r['bound_ms']:.4f} ({r['bound_by']})")
 
     tail = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0) for n in reports}
+    for n, h, w, ci, co, k in FWD_TAIL_SHAPES:
+        x = act(n, ci, h, w)
+        wt = (torch.randn(co, ci, k, k, generator=gen)
+              / (k * k * ci) ** 0.5).to(device=device, dtype=bf)
+        m, tag = n * h * w, f"tail {k}x{k} {ci}->{co} at {n}x{h}x{w}"
+        flops = 2 * m * k * k * ci * co
+        io = 2 * (m * ci + k * k * ci * co + m * co)
+        if k == 1:
+            x2, w2 = CV.rows(x), wt[:, :, 0, 0].t()
+            run("matmul_rows", f"fwd {tag}", lambda: CV.matmul_rows(x2, w2),
+                lambda: CV.matmul_rows_reference(x2, w2),
+                lambda: torch.matmul(x2, w2), None, flops, io, tail)
+        else:
+            wcl = wt.contiguous(memory_format=cl)
+            run("conv3", f"fwd {tag}", lambda: CV.conv3(x, wt),
+                lambda: CV.conv3_reference(x, wt),
+                lambda: F.conv2d(x, wcl, padding=1), None, flops, io, tail)
     for n, h, w, ci, co, k in DW_TAIL_SHAPES:
         run_dw(act(n, ci, h, w), act(n, co, h, w), k,
                f"tail {k}x{k} {ci}->{co} at {n}x{h}x{w}", tail)
@@ -745,10 +789,10 @@ def phase_conv_kernels(device, reports):
     print("conv kernels: ms, plain_ms, library_ms and bound_ms in the "
           f"kernels line are sums over the {len(shapes)} train-step shapes "
           "(forward and dX for matmul_rows and conv3); max_abs_err also "
-          "covers detect's and the dW tail shapes; library: torch.matmul "
-          "(cuBLAS, bf16 "
-          "out) for the 1x1s, F.conv2d and torch.nn.grad.conv2d_input/"
-          "conv2d_weight (cuDNN, channels-last bf16) for the 3x3s")
+          "covers detect's and the tail shapes; library: torch.matmul "
+          "(cuBLAS, bf16 out) for the 1x1s, F.conv2d, the faster of "
+          "torch.nn.grad.conv2d_input and F.conv2d(dy, wflip) for the dX, "
+          "and conv2d_weight (cuDNN, channels-last bf16) for the 3x3s")
 
 
 def phase_conv_detect(pred, images):
@@ -768,13 +812,16 @@ def phase_conv_detect(pred, images):
         boxes = pred.detect_batch(images)
         torch.cuda.synchronize()
         counts, cc = conv_counts(), K.connected_components.launches
+        fwd_kernels = conv_counts(FWD_STEP_KERNELS)
         with torch.inference_mode():
             got = pred.model(x)
     print(f"detect_batch 8x1280x768 with PALLAS_CONVS: conv kernel launches "
-          f"{counts}, cc launches {cc}, boxes per image "
-          f"{[len(b) for b in boxes]}")
+          f"{counts} (by kernel {fwd_kernels}), cc launches {cc}, boxes per "
+          f"image {[len(b) for b in boxes]}")
     check(counts == {"matmul_rows": 44, "dw_rows": 0, "conv3": 13,
                      "dw3": 0}, "detect with the route: conv launches")
+    check(fwd_kernels == DETECT_FWD_KERNELS, "detect with the route: "
+          "forward launches by kernel")
     check(cc > 0, "detect with the route did not launch the CC kernel")
     check(len(boxes) == len(images) and all(
         np.isfinite(b).all() and b.shape == (4, 2)
@@ -876,7 +923,7 @@ def add_bound(report, flops, nbytes, peak=PEAK_BF16):
 
 
 def build_all():
-    """Build the six CUDA sources, one nvcc each, all started together,
+    """Build the seven CUDA sources, one nvcc each, all started together,
     and load each library."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -887,7 +934,8 @@ def build_all():
 
     loaders = {"cc": K._cc_label, "fused_conv": lambda: FU._lib("fused_conv"),
                "fused_boundary": lambda: FU._lib("fused_boundary"),
-               "conv": CV._lib, "conv_dw": CV._dw_lib, "ghost_unit": G._lib}
+               "conv": CV._lib, "conv_fwd": CV._fwd_lib,
+               "conv_dw": CV._dw_lib, "ghost_unit": G._lib}
 
     def one(name):
         t0 = time.perf_counter()
@@ -1248,7 +1296,8 @@ def phase_conv_train(device, reports, snap, batch):
         reset_conv_counts()
         last = trainer.run([batch] * TRAIN_STEPS, TRAIN_STEPS)
         torch.cuda.synchronize()
-        counts, dw_kernels = conv_counts(), dw_kernel_counts()
+        counts, dw_kernels = conv_counts(), conv_counts(DW_STEP_KERNELS)
+        fwd_kernels = conv_counts(FWD_STEP_KERNELS)
     print(f"train {TRAIN_STEPS} steps xla with PALLAS_CONVS: last metrics "
           f"{json.dumps({k: round(v, 5) for k, v in last.items()})}; "
           f"kernel launches {counts} (expected {want})")
@@ -1258,6 +1307,10 @@ def phase_conv_train(device, reports, snap, batch):
           f"(tma_dw, with dw3's {counts['dw3'] // TRAIN_STEPS}: "
           f"{dw_kernels['tma_dw'] // TRAIN_STEPS}), {narrow} on conv.cu's "
           f"igemm_dw (narrow_dw); expected {DW_STEP_KERNELS}")
+    print(f"forward products a step by kernel: "
+          f"{ {k: v // TRAIN_STEPS for k, v in fwd_kernels.items()} } "
+          f"(conv_fwd.cu: tma_fwd; conv.cu's igemm_fwd: narrow_fwd); "
+          f"expected {FWD_STEP_KERNELS}")
     check(trainer.state.step == TRAIN_STEPS and last and all(
         np.isfinite(v) for v in last.values()), "pallas-conv train: "
           "non-finite or missing metrics")
@@ -1265,6 +1318,9 @@ def phase_conv_train(device, reports, snap, batch):
     check(dw_kernels == {k: TRAIN_STEPS * v
                          for k, v in DW_STEP_KERNELS.items()},
           "pallas-conv train: dW launches by kernel")
+    check(fwd_kernels == {k: TRAIN_STEPS * v
+                          for k, v in FWD_STEP_KERNELS.items()},
+          "pallas-conv train: forward launches by kernel")
     for name, n in counts.items():
         reports[name]["launches"] = n
     del trainer
@@ -1287,11 +1343,14 @@ def phase_conv_train(device, reports, snap, batch):
         loss = float(T.train_step(state, batch, fcfg,
                                   T.make_loss_fn(fcfg))["total_loss"])
         counts = conv_counts()
+        by_kernel = conv_counts((*FWD_STEP_KERNELS, *DW_STEP_KERNELS))
     print(f"freeze_bn step xla with PALLAS_CONVS: total loss {loss:.6f}, "
-          f"kernel launches {counts}")
+          f"kernel launches {counts} (by kernel {by_kernel})")
     check(np.isfinite(loss), "pallas-conv freeze_bn step: non-finite loss")
     check(counts == CONV_STEP_LAUNCHES, "pallas-conv freeze_bn step: conv "
           "kernel launches")
+    check(by_kernel == {**FWD_STEP_KERNELS, **DW_STEP_KERNELS},
+          "pallas-conv freeze_bn step: launches by kernel")
     del state
     torch.cuda.empty_cache()
 

@@ -3,8 +3,8 @@
 Port of ``tensorflow_ocr_tpu/ops/pallas_conv.py``, the route that
 ``models/layers.py`` takes under ``PALLAS_CONVS``. Four wrappers carry
 the work, each with a hand-written CUDA kernel and a plain PyTorch
-version beside it (the forwards in ``csrc/conv.cu``, the dW products in
-``csrc/conv_dw.cu``):
+version beside it (the forwards in ``csrc/conv_fwd.cu``, the dW products
+in ``csrc/conv_dw.cu``, the narrow shapes of both in ``csrc/conv.cu``):
 
 - :func:`matmul_rows` <- ``_matmul_rows`` (:81): y = x·W over pixel rows,
   the 1x1 forward and (with Wᵀ) its dX;
@@ -28,10 +28,15 @@ dtype, as the Flax module casts its kernel before the call.
 
 The kernels take any channel counts (the PixelLink head's projections
 to 2 and 16 channels included) and any N, H, W within int32 indices.
-The dW products dispatch by shape between two kernels (:func:`tma_takes`):
-``csrc/conv_dw.cu`` (TMA and wgmma) where Ci and Co are multiples of 8,
-``csrc/conv.cu``'s ``igemm_dw`` for the rest (the head's 2 channels);
-each counts its own launches (:func:`tma_dw`, :func:`narrow_dw`).
+Both kinds of product dispatch by shape between two kernels, each of
+which counts its own launches. The forwards (:func:`tma_fwd_takes`):
+``csrc/conv_fwd.cu`` (TMA, K-major wgmma, a persistent tile loop) where
+the contracted channel count is a multiple of 8, ``csrc/conv.cu``'s
+``igemm_fwd`` for the rest (the dX of the head's projections to 2
+channels) (:func:`tma_fwd`, :func:`narrow_fwd`). The dW products
+(:func:`tma_takes`): ``csrc/conv_dw.cu`` (TMA and wgmma) where Ci and Co
+are multiples of 8, ``csrc/conv.cu``'s ``igemm_dw`` for the rest (the
+head's 2 channels) (:func:`tma_dw`, :func:`narrow_dw`).
 :func:`supported` says exactly that, and replaces the TPU tile pickers
 ``_pick_bm``/``_pick_th``, which encode VMEM budgets that Hopper does
 not have. The kernels take bfloat16 only: where the JAX route sends
@@ -68,6 +73,10 @@ FWD_ROWS, BK, DW_WAVES = 128, 32, 4
 # clusters of 2 at once, 132 CTAs, but only 30 of 4:
 # scripts/conv_dw_probe.py)
 KP, BOX, MAX_SMEM, MAX_STAGES, MAX_CLUSTER = 64, 64 * 128, 232448, 8, 2
+# csrc/conv_fwd.cu: pixels a tile (the box wb x hb), its column tiles (the
+# narrowest that covers Co, 128 above), the fewest A slots beside a
+# resident weight, the ring's most slots
+TM, FWD_BN, MIN_A_SLOTS, MAX_FWD_STAGES = 128, (16, 64, 128), 3, 8
 
 
 def rows(t: torch.Tensor) -> torch.Tensor:
@@ -131,6 +140,14 @@ def _lib():
 
 
 @functools.cache
+def _fwd_lib():
+    lib = ctypes.CDLL(str(build_library("conv_fwd")))
+    lib.conv_fwd_tma.argtypes = [_P] * 3 + [_I] * 12 + [_P]
+    lib.conv_fwd_tma.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
 def _dw_lib():
     lib = ctypes.CDLL(str(build_library("conv_dw")))
     lib.conv_dw_tma.argtypes = [_P] * 4 + [_I] * 13 + [_P]
@@ -139,7 +156,8 @@ def _dw_lib():
 
 
 def fwd_tile(co: int) -> int:
-    """The forward's column tile (csrc/conv.cu ``igemm_fwd``'s BN)."""
+    """The narrow forward's column tile (csrc/conv.cu ``igemm_fwd``'s
+    BN)."""
     return 128 if co > 64 else 64 if co > 32 else 32
 
 
@@ -166,6 +184,68 @@ class TmaDwPlan(NamedTuple):
     stages: int    # slots of the TMA ring
     splits: int    # pixel-tile ranges, one a CTA along the grid's z
     cluster: int   # CTAs a cluster along the splits (splits a multiple)
+
+
+class TmaFwdPlan(NamedTuple):
+    """The tiling of csrc/conv_fwd.cu's forward kernel."""
+    wb: int         # the pixel box: wb x hb pixels of one image, TM in all
+    hb: int
+    bn: int         # columns (of Co) a tile: one of FWD_BN
+    resident: bool  # the CTA loads its K x bn weight once (1x1 only)
+    stages: int     # slots of the TMA ring
+    grid: int       # persistent CTAs (a multiple of col_tiles if resident)
+    row_tiles: int  # pixel tiles: n * ceil(h / hb) * ceil(w / wb)
+    col_tiles: int  # ceil(Co / bn)
+
+    def tiles_of(self, cta: int) -> range:
+        """The tiles CTA ``cta`` computes, in its order: tile t is pixel
+        tile t // col_tiles, column tile t % col_tiles."""
+        return range(cta, self.row_tiles * self.col_tiles, self.grid)
+
+
+def tma_fwd_takes(k: int) -> bool:
+    """Whether csrc/conv_fwd.cu takes a forward product that contracts k
+    channels (Ci of a conv, Co of its dX): TMA reads rows of a multiple of
+    16 bytes. The rest (the dX of the PixelLink head's 2-channel
+    projections) take conv.cu's igemm_fwd."""
+    return k % 8 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def tma_fwd_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
+                 sms: int) -> TmaFwdPlan:
+    """The tiling of a forward product of n images of h x w, ci channels in
+    and co out, ks x ks taps (a 1x1 over M rows: n = h = 1, w = M). The
+    box is wb x hb pixels, wb a power of two up to TM and hb = TM / wb,
+    the one whose tiles cover the fewest pixels outside the image (the
+    widest among equals: TM x 1 for a 1x1 of M >= TM rows; 64 x 2 rather
+    than 128 x 1 at detect's W = 320, where 128 x 1 covers 384); bn the
+    narrowest of FWD_BN that covers Co (capped at 128). The output tile's
+    staging for the TMA store takes 128 x bn bf16. A 1x1's weight is
+    resident where its ceil(ci/64) boxes of bn rows fit beside
+    MIN_A_SLOTS A slots. As many ring slots as fit, up to MAX_FWD_STAGES;
+    one CTA an SM (a multiple of the column tiles where the weight is
+    resident), at most one a tile."""
+    wb = min((1 << i for i in range(TM.bit_length())),
+             key=lambda b: (-(-w // b) * b * -(-h // (TM // b)) * (TM // b),
+                            -b))
+    hb = TM // wb
+    bn = next((b for b in FWD_BN if b >= co), FWD_BN[-1])
+    ksteps = ks * ks * -(-ci // 64)
+    abox, bbox, fixed = TM * 128, bn * 128, TM * bn * 2 + 8 + 1024
+    wbytes = ksteps * bbox
+    resident = (ks == 1 and
+                wbytes + MIN_A_SLOTS * (abox + 16) + fixed <= MAX_SMEM)
+    stage = abox + (0 if resident else bbox)
+    stages = min(MAX_FWD_STAGES, (MAX_SMEM - fixed - resident * wbytes)
+                 // (stage + 16))
+    row_tiles = n * -(-h // hb) * -(-w // wb)
+    col_tiles = -(-co // bn)
+    grid = min(row_tiles * col_tiles, sms)
+    if resident:
+        grid = max(col_tiles, grid - grid % col_tiles)
+    return TmaFwdPlan(wb, hb, bn, resident, stages, grid, row_tiles,
+                      col_tiles)
 
 
 def tma_takes(ci: int, co: int) -> bool:
@@ -228,15 +308,54 @@ def _indices_fit(m: int, c: int, k: int) -> bool:
 
 
 def _fwd(x, wt, n, h, w, ci, co, k, name):
-    """conv_fwd of csrc/conv.cu: rows of x (n*h*w, ci) contiguous, wt
-    (co, k*k*ci) contiguous -> (n*h*w, co) in x's dtype."""
+    """The forward of rows of x (n*h*w, ci) contiguous and wt (co, k*k*ci)
+    contiguous -> (n*h*w, co) in x's dtype, on the kernel that
+    :func:`tma_fwd_takes` picks by shape."""
     if not _indices_fit(n * h * w, max(ci, co), k):
         raise ValueError("shape overflows the kernel's int32 indices")
+    kernel = tma_fwd if tma_fwd_takes(ci) else narrow_fwd
+    return kernel(x, wt, n, h, w, ci, co, k, name)
+
+
+def _on_device(index: int):
+    """The device guard, only where ``index`` is not the current device:
+    the wrappers' host time is of the order of a small shape's device
+    time."""
+    return (contextlib.nullcontext() if index == torch.cuda.current_device()
+            else torch.cuda.device(index))
+
+
+def tma_fwd(x, wt, n, h, w, ci, co, k, name="tma_fwd"):
+    """conv_fwd_tma of csrc/conv_fwd.cu (:func:`tma_fwd_plan`'s tiling).
+    Raises on a contracted channel count that is not a multiple of 8 and
+    on bases that are not 16-byte aligned: TMA takes neither."""
+    if not tma_fwd_takes(ci):
+        raise ValueError(f"{name}: TMA needs the contracted channel count "
+                         f"to be a multiple of 8, got {ci}")
+    if x.data_ptr() % 16 or wt.data_ptr() % 16:
+        raise ValueError(f"{name}: TMA needs 16-byte aligned operands")
+    index = x.device.index
+    p = tma_fwd_plan(n, h, w, ci, co, k, _sms(index))
+    y = torch.empty((n * h * w, co), dtype=x.dtype, device=x.device)
+    with _on_device(index):
+        err = _fwd_lib().conv_fwd_tma(
+            x.data_ptr(), wt.data_ptr(), y.data_ptr(), n, h, w, ci, co, k,
+            p.wb, p.hb, p.bn, int(p.resident), p.stages, p.grid,
+            torch._C._cuda_getCurrentRawStream(index))
+    raise_on(err, name)
+    tma_fwd.launches += 1
+    return y
+
+
+def narrow_fwd(x, wt, n, h, w, ci, co, k, name="narrow_fwd"):
+    """conv_fwd of csrc/conv.cu (igemm_fwd, 128-row tiles by
+    :func:`fwd_tile`): any channel counts, predicated loads."""
     y = torch.empty((n * h * w, co), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _lib().conv_fwd(x.data_ptr(), wt.data_ptr(), y.data_ptr(), n, h,
                               w, ci, co, k, fwd_tile(co), cuda_stream())
     raise_on(err, name)
+    narrow_fwd.launches += 1
     return y
 
 
@@ -266,8 +385,7 @@ def tma_dw(x, dy, n, h, w, ci, co, k, name="tma_dw"):
     buf = torch.empty((1 + tables if tables > 1 else 1, k * k * ci, co),
                       dtype=torch.float32, device=x.device)
     dw, ws = buf[0], buf[1:] if tables > 1 else buf
-    with (contextlib.nullcontext() if index == torch.cuda.current_device()
-          else torch.cuda.device(index)):
+    with _on_device(index):
         err = _dw_lib().conv_dw_tma(
             x.data_ptr(), dy.data_ptr(), dw.data_ptr(), ws.data_ptr(), n, h,
             w, ci, co, k, p.wb, p.hb, p.bn, int(p.two), p.stages, p.splits,
@@ -361,7 +479,8 @@ def dw3(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return dw
 
 
-for _fn in (matmul_rows, dw_rows, conv3, dw3, tma_dw, narrow_dw):
+for _fn in (matmul_rows, dw_rows, conv3, dw3, tma_fwd, narrow_fwd, tma_dw,
+            narrow_dw):
     _fn.launches = 0
 
 
