@@ -38,12 +38,15 @@ Phases, in order; any failure raises and exits non-zero:
 10. hold each fused kernel against its plain version at every shape the
    train step gives it (the 15 1x1 and 4 3x3 convs of the fused units,
    the boundary of each block): forward y and s, backward dx, dab and
-   dw; print kernel and plain ms;
+   dw (each backward launched twice and held bit-equal); print kernel
+   and plain ms, the backward's dW and dX device ms (torch.profiler) and
+   its ms a train step;
 11. the train step at full width: pixellink_resnet50, bottleneck_impl
    "fused", 512x512, batch 32, bf16, labels made on the card from the
    polygons of numpy scenes; 3 steps through Trainer.run with finite
-   losses and every fused kernel's launch count risen; one step each of
-   the fused and the "xla" arm (plain Bottleneck, cuDNN convs) from one
+   losses and every fused kernel's launch count risen, the backward's
+   launches by kernel (conv_bwd.cuh tdw and tdx) at 43 a step; one step
+   each of the fused and the "xla" arm (plain Bottleneck, cuDNN convs) from one
    state (residual BN scales tempered, see ARM_RESIDUAL_SCALE) and
    batch: loss, gradient and the worst parameter's direction within the
    stated tolerances; one freeze_bn step;
@@ -58,13 +61,16 @@ Phases, in order; any failure raises and exits non-zero:
    freeze_bn step with the route on (the BN fold path);
 14. hold each of the five ghost-BN kernels (csrc/ghost_unit.cu) against
    its plain version along one unit's forward and backward chain at
-   each of the 4 ghost unit shapes of the 512^2 batch-32 step; print
-   kernel and plain ms, the FLOPs, bytes and bound of each call;
+   each of the 4 ghost unit shapes of the 512^2 batch-32 step (each conv
+   backward launched twice and held bit-equal); print kernel and plain
+   ms, the FLOPs, bytes and bound of each call, the conv backward's dW
+   and dX device ms and its ms a train step;
 15. with --faults only: the readings of the ghost arm check (phase 16)
    in 3 sound runs and under planted faults, which set GHOST_ARM_*;
 16. the ghost arm (bottleneck_impl "ghost": 5 ghost units, the other 8
    stride-1 units plain): 3 steps through Trainer.run with the five
-   kernels' launch counts at their expected values; one step on the
+   kernels' launch counts at their expected values (the conv backward's
+   by kernel too); one step on the
    kernels against one on the plain versions from the tempered state
    (GHOST_ARM_* bounds); one freeze_bn step (no ghost kernel);
 17. train img/s for the fused, xla, freeze_bn-fused, xla pallas-conv and
@@ -173,6 +179,34 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, groups, iters=5):
+    """{group: device ms a call of ``fn``} from torch.profiler: the device
+    entries whose kernel name contains one of the group's substrings, over
+    ``iters`` calls (the wrapper's host time left out). Zero where the
+    profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(groups, 0.0)
+    for e in prof.key_averages():
+        for group, keys in groups.items():
+            if any(k in e.key for k in keys):
+                out[group] += e.self_device_time_total / 1e3 / iters
+    return out
+
+
+# the two launches of the staged conv backward (csrc/conv_bwd.cuh) by
+# kernel name: dW (tdw, and sum_tables where the pixels are split over
+# more than one cluster) and dX (tdx, and reduce_parts of its sums)
+BWD_PARTS = {"dW": ("tdw<", "sum_tables"), "dX": ("tdx<", "reduce_parts")}
 
 
 def blob_maps(gen, shape, device):
@@ -875,13 +909,42 @@ CONV_SHAPES = (
 # (N, H, W, C) of the boundary of each block
 BOUNDARY_SHAPES = ((32, 128, 128, 256), (32, 64, 64, 512),
                    (32, 32, 32, 1024), (32, 16, 16, 2048))
+# fused conv launches a step: 13 fused units of 3 convs, 4 with a
+# projection shortcut
+FUSED_CONV_STEP_LAUNCHES = 43
+
+
+def fused_shape_counts():
+    """{(N, H, W, Ci, Co, k): fused convs of that shape in one train step}
+    (each one forward and one backward), from the fused units of the model
+    (block b at TRAIN_SIZE / 4 / 2^(b-1))."""
+    from tensorflow_ocr_tpu_torch.models import build_model
+    from tensorflow_ocr_tpu_torch.models.resnet import FusedBottleneck
+
+    model = build_model(MODEL, bottleneck_impl="fused")
+    counts = {}
+    for name, m in model.backbone.named_children():
+        if isinstance(m, FusedBottleneck):
+            hw = TRAIN_SIZE // 4 >> (int(name[len("block")]) - 1)
+            for conv in (m.conv1, m.conv2, m.conv3, m.shortcut):
+                if conv is not None:
+                    co, ci, k, _ = conv.conv.weight.shape
+                    key = (TRAIN_BATCH, hw, hw, ci, co, k)
+                    counts[key] = counts.get(key, 0) + 1
+    check(set(counts) == set(CONV_SHAPES)
+          and sum(counts.values()) == FUSED_CONV_STEP_LAUNCHES,
+          f"the fused units' convs {counts} are not CONV_SHAPES")
+    return counts
+
+
 # bf16 outputs (y, dx, dw, dz, dzs): kernel and plain version round the
 # same f32 value, summed in another order, so they may differ by one bf16
 # ulp (2^-8 relative, 2^-7 at the rounding edge) plus f32 order noise,
 # bounded here by 1e-3 of the tensor's largest value
 BF16_ULP, BF16_NOISE = 2.0 ** -7, 1e-3
-# f32 sums over up to 524,288 rows (s, dab, dabs), in another order and
-# with atomics: within 1e-4 of the sum of the magnitudes
+# f32 sums over up to 524,288 rows (s, dab, dabs), in another order (and,
+# for s and the boundary's sums, with atomics): within 1e-4 of the sum of
+# the magnitudes
 SUM_REL = 1e-4
 
 
@@ -980,12 +1043,16 @@ def phase_fused_kernels(device, reports):
         reports[name]["plain_ms"] += pms
         return ms, pms
 
+    counts = fused_shape_counts()
+    # the backward a train step: each shape's times its launches
+    step = dict(ms=0.0, dW=0.0, dX=0.0, bound=0.0)
     for n, h, w, ci, co, k in CONV_SHAPES:
         m, kk = n * h * w, k * k * ci * co
+        launches = counts[(n, h, w, ci, co, k)]
         add_bound(reports["fused_conv_fwd"], 2 * m * kk,
                   2 * m * (ci + co) + 2 * kk + 8 * (ci + co))
-        add_bound(reports["fused_conv_bwd"], 4 * m * kk,
-                  2 * m * (2 * ci + 2 * co) + 6 * kk + 16 * (ci + co))
+        bound = add_bound(reports["fused_conv_bwd"], 4 * m * kk,
+                          2 * m * (2 * ci + 2 * co) + 6 * kk + 16 * (ci + co))
         x = act(n, ci, h, w)
         ab = table(ci, 0.5, 1.5, 0.5)
         wt = (torch.randn(co, ci, k, k, generator=gen)
@@ -1000,7 +1067,13 @@ def phase_fused_kernels(device, reports):
         ds = torch.stack([torch.randn(co, generator=gen) * 1e-3,
                           torch.randn(co, generator=gen) * 1e-4]).to(device)
         dx, dab, dw = FU.conv_bwd(x, ab, wt, y, dy, ds)
+        again = FU.conv_bwd(x, ab, wt, y, dy, ds)
         pdx, pdab, pdw = FU.conv_bwd_reference(x, ab, wt, y, dy, ds)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((dx, dab, dw), again)),
+              f"fused conv_bwd {k}x{k} {ci}->{co}: two launches on the same "
+              "inputs differ")
+        del again
         eb = max(bf16_close("bwd dx", dx, pdx), bf16_close("bwd dw", dw, pdw))
         # dab's terms: |gm*x| and |gm|, bounded via the plain dx = gm*a
         gm = (pdx.float() / ab[0][:, None, None]).abs()
@@ -1017,10 +1090,16 @@ def phase_fused_kernels(device, reports):
         bms = timed("fused_conv_bwd",
                     lambda: FU.conv_bwd(x, ab, wt, y, dy, ds),
                     lambda: FU.conv_bwd_reference(x, ab, wt, y, dy, ds), 20)
-        print(f"fused conv {k}x{k} {ci}->{co} at {n}x{h}x{w}: fwd "
-              f"{fms[0]:.4f} ms (plain {fms[1]:.4f}), bwd {bms[0]:.4f} ms "
-              f"(plain {bms[1]:.4f}); max abs err y {e:.3e}, dx/dw "
-              f"{eb:.3e}, f32 sums s/dab {es:.3e}")
+        parts = kernel_device_ms(lambda: FU.conv_bwd(x, ab, wt, y, dy, ds),
+                                 BWD_PARTS)
+        for key, v in (("ms", bms[0]), ("bound", bound), *parts.items()):
+            step[key] += launches * v
+        print(f"fused conv {k}x{k} {ci}->{co} at {n}x{h}x{w} ({launches} a "
+              f"step): fwd {fms[0]:.4f} ms (plain {fms[1]:.4f}), bwd "
+              f"{bms[0]:.4f} ms (plain {bms[1]:.4f}; device dW "
+              f"{parts['dW']:.4f}, dX {parts['dX']:.4f}; bound "
+              f"{bound:.4f}); max abs err y {e:.3e}, dx/dw {eb:.3e}, f32 "
+              f"sums s/dab {es:.3e}; bwd bit-equal twice")
         del x, y, dy, dx, py, pdx
 
     for n, h, w, c in BOUNDARY_SHAPES:
@@ -1061,6 +1140,12 @@ def phase_fused_kernels(device, reports):
               f"(plain {fms[1]:.4f}), bwd {bms[0]:.4f} ms (plain "
               f"{bms[1]:.4f}); max abs err out {e:.3e}, dz/dzs {eb:.3e}, "
               f"f32 sums dab/dabs {es:.3e}")
+    print(f"fused_conv_bwd a train step (each shape's ms times its "
+          f"launches, {FUSED_CONV_STEP_LAUNCHES} in all): {step['ms']:.4f} ms "
+          f"by events (device: dW {step['dW']:.4f}, dX {step['dX']:.4f}), "
+          f"bound {step['bound']:.4f}; over the {len(CONV_SHAPES)} shapes: "
+          f"{reports['fused_conv_bwd']['ms']:.4f}, bound "
+          f"{reports['fused_conv_bwd']['bound_ms']:.4f}")
     print("fused kernels: ms and plain_ms in the kernels line are sums over "
           f"the {len(CONV_SHAPES)} conv / {len(BOUNDARY_SHAPES)} boundary "
           "shapes above; max_abs_err is over the bf16 outputs (the f32 "
@@ -1125,6 +1210,7 @@ def reset_fused_counts():
 
     for attr, _, _ in FUSED_KERNELS.values():
         getattr(FU, attr).launches = 0
+    FU.conv_bwd.by_kernel = dict.fromkeys(FU.conv_bwd.by_kernel, 0)
 
 
 def fused_counts():
@@ -1208,6 +1294,7 @@ def phase_train(device, reports):
     import numpy as np
     import torch
     from tensorflow_ocr_tpu_torch.models.resnet import FusedBottleneck
+    from tensorflow_ocr_tpu_torch.ops import fused as FU
     from tensorflow_ocr_tpu_torch.train import trainer as T
 
     cfg = train_config("fused")
@@ -1225,9 +1312,17 @@ def phase_train(device, reports):
     last = trainer.run([batch] * TRAIN_STEPS, TRAIN_STEPS)
     torch.cuda.synchronize()
     counts = fused_counts()
+    by_kernel = dict(FU.conv_bwd.by_kernel)
     print(f"train {TRAIN_STEPS} steps fused: last metrics "
           f"{json.dumps({k: round(v, 5) for k, v in last.items()})}; "
-          f"kernel launches {counts}")
+          f"kernel launches {counts}; fused_conv_bwd by kernel {by_kernel} "
+          f"(conv_bwd.cuh tdw, tdx; expected "
+          f"{FUSED_CONV_STEP_LAUNCHES} a step each)")
+    check(by_kernel == dict.fromkeys(
+        by_kernel, TRAIN_STEPS * FUSED_CONV_STEP_LAUNCHES)
+          and counts["fused_conv_bwd"] == TRAIN_STEPS
+          * FUSED_CONV_STEP_LAUNCHES, "fused train: backward launches by "
+          "kernel")
     check(state.step == TRAIN_STEPS and last and all(
         np.isfinite(v) for v in last.values()), "fused train: non-finite "
           "or missing metrics")
@@ -1513,6 +1608,8 @@ GHOST_KERNELS = {
 # block2_unit1 with a projection shortcut; block2_unit2-3 share a shape
 GHOST_SHAPES = ((32, 128, 128, 64, 64, 256, 8), (32, 128, 128, 256, 64, 256, 8),
                 (32, 64, 64, 256, 128, 512, 8), (32, 64, 64, 512, 128, 512, 8))
+# ghost units of each of those shapes in a step
+GHOST_SHAPE_UNITS = (1, 1, 1, 2)
 # launches a step: 2 projection units (4 convs, 4 conv backwards) and 3
 # identity units (3 and 3), one boundary and one seam pass each way a unit
 GHOST_STEP_LAUNCHES = {"ghost_conv_fwd": 17, "ghost_boundary_fwd": 5,
@@ -1547,6 +1644,7 @@ def reset_ghost_counts():
 
     for attr, _ in GHOST_KERNELS.values():
         getattr(G, attr).launches = 0
+    G.conv_bwd.by_kernel = dict.fromkeys(G.conv_bwd.by_kernel, 0)
 
 
 def ghost_counts():
@@ -1605,6 +1703,7 @@ def phase_ghost_kernels(device, reports):
         print(f"{name} {what}: kernel {ms:.4f} ms, plain {pms:.4f}; "
               f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB, bound "
               f"{bound:.4f} ms; max abs err {max(errs):.3e}")
+        return ms, bound
 
     def conv_fwd(what, x, tab, w, gh):
         got, want = G.conv_fwd(x, tab, w, gh), G.conv_fwd_reference(x, tab,
@@ -1626,11 +1725,19 @@ def phase_ghost_kernels(device, reports):
               2 * m * (ci + co) + 2 * k * k * ci * co + 8 * nbt * (ci + co))
         return want
 
+    step = dict(ms=0.0, dW=0.0, dX=0.0, bound=0.0)
+
     def conv_bwd(what, x, tx, g, z, td, w, gh, edge=None, addend=None,
                  out="gm"):
         args = (x, tx, g, z, td, w, gh, edge, addend, out)
         got, want = G.conv_bwd(*args), G.conv_bwd_reference(*args)
+        again = G.conv_bwd(*args)
         torch.cuda.synchronize()
+        check(all((a is None and b is None) or torch.equal(a, b)
+                  for a, b in zip(got, again)),
+              f"ghost conv_bwd {what}: two launches on the same inputs "
+              "differ")
+        del again
         n, ci, h, wd = x.shape
         co, k = w.shape[0], w.shape[-1]
         dz = G._dz(g, z, td, gh, edge).float().abs()
@@ -1658,12 +1765,18 @@ def phase_ghost_kernels(device, reports):
                   + (0 if addend is None else m * ci * addend.element_size())
                   + (0 if edge is None else edge.numel() * 4)
                   + 4 * nbt * (5 * co + 4 * ci))
-        timed("ghost_conv_bwd", what, lambda: G.conv_bwd(*args),
-              lambda: G.conv_bwd_reference(*args), errs,
-              4 * m * k * k * ci * co, nbytes)
+        ms, bound = timed("ghost_conv_bwd", what, lambda: G.conv_bwd(*args),
+                          lambda: G.conv_bwd_reference(*args), errs,
+                          4 * m * k * k * ci * co, nbytes)
+        parts = kernel_device_ms(lambda: G.conv_bwd(*args), BWD_PARTS)
+        for key, v in (("ms", ms), ("bound", bound), *parts.items()):
+            step[key] += units * v
+        print(f"ghost_conv_bwd {what}: device dW {parts['dW']:.4f} ms, dX "
+              f"{parts['dX']:.4f}; {units} a step; bit-equal twice")
         return want
 
-    for n, h, wd, ci, db, co, gh in GHOST_SHAPES:
+    for (n, h, wd, ci, db, co, gh), units in zip(GHOST_SHAPES,
+                                                 GHOST_SHAPE_UNITS):
         proj, cnt = ci != co, float(gh * wd)
         tag = f"{'proj' if proj else 'identity'} {ci}/{db}/{co} at {n}x{h}x{wd} gh {gh}"
         m, nbt = n * h * wd, n * (h // gh)
@@ -1739,6 +1852,10 @@ def phase_ghost_kernels(device, reports):
                  addend=addend, out="act")
         del o, z1, z2, z3, zs, dout, gm3, gm2, gm1, edge, addend
         torch.cuda.empty_cache()
+    print(f"ghost_conv_bwd a train step (each call's ms times its units in "
+          f"a step, {GHOST_STEP_LAUNCHES['ghost_conv_bwd']} in all): "
+          f"{step['ms']:.4f} ms by events (device: dW {step['dW']:.4f}, dX "
+          f"{step['dX']:.4f}), bound {step['bound']:.4f}")
     print("ghost kernels: ms, plain_ms and bound_ms in the kernels line are "
           "sums over every call of one unit's chain at each of the "
           f"{len(GHOST_SHAPES)} unit shapes; max_abs_err over its "
@@ -1804,6 +1921,7 @@ def phase_ghost_train(device, reports, snap, batch):
     import numpy as np
     import torch
     from tensorflow_ocr_tpu_torch.models.resnet import GhostBottleneck
+    from tensorflow_ocr_tpu_torch.ops import ghost as G
     from tensorflow_ocr_tpu_torch.train import trainer as T
 
     want = {k: TRAIN_STEPS * v for k, v in GHOST_STEP_LAUNCHES.items()}
@@ -1819,6 +1937,7 @@ def phase_ghost_train(device, reports, snap, batch):
     last = trainer.run([batch] * TRAIN_STEPS, TRAIN_STEPS)
     torch.cuda.synchronize()
     counts = ghost_counts()
+    by_kernel = dict(G.conv_bwd.by_kernel)
     for h in hooks:
         h.remove()
     units = sorted(set(ghost))
@@ -1831,7 +1950,11 @@ def phase_ghost_train(device, reports, snap, batch):
     check(state.step == TRAIN_STEPS and last and all(
         np.isfinite(v) for v in last.values()), "ghost train: non-finite "
           "or missing metrics")
+    print(f"ghost_conv_bwd by kernel: {by_kernel} (conv_bwd.cuh tdw, tdx; "
+          f"expected {want['ghost_conv_bwd']} each)")
     check(counts == want, "ghost train: ghost kernel launches")
+    check(by_kernel == dict.fromkeys(by_kernel, want["ghost_conv_bwd"]),
+          "ghost train: conv backward launches by kernel")
     for name, n in counts.items():
         reports[name]["launches"] = n
     del trainer, state
@@ -1890,7 +2013,8 @@ def phase_ghost_faults(device, snap, batch):
         return dx, sums, dw * 0.9 if dw.shape[-1] == 3 else dw
 
     for fn in (no_seam, own_band_halo, dw2_scaled):
-        fn.launches = 0  # the wrappers count on the names they replace
+        # the wrappers count on the names they replace
+        fn.launches, fn.by_kernel = 0, {}
     start = tempered(snap)
     for i in range(3):
         print_ghost_arms(f"ghost faults: sound run {i}",

@@ -23,14 +23,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIM = r"""
 #include "conv_dw.cu"
 
-// Clusters of cs CTAs of tma_dw<BN, TWO> that fit on the card at once.
+// Clusters of cs CTAs of the dW kernel (conv_bwd.cuh's tdw with conv_dw.cu's
+// identity transform) that fit on the card at once.
 template <int BN, bool TWO>
 int fit(int smem, int cs) {
-  cudaFuncSetAttribute(tma_dw<BN, TWO>,
+  cudaFuncSetAttribute(bwd::tdw<BN, TWO, IdentTr>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(1, 1, 128);
-  cfg.blockDim = dim3(THREADS);
+  cfg.blockDim = dim3(bwd::THREADS);
   cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -41,13 +42,13 @@ int fit(int smem, int cs) {
   cfg.numAttrs = 1;
   int n = 0;
   const cudaError_t e =
-      cudaOccupancyMaxActiveClusters(&n, tma_dw<BN, TWO>, &cfg);
+      cudaOccupancyMaxActiveClusters(&n, bwd::tdw<BN, TWO, IdentTr>, &cfg);
   return e == cudaSuccess ? n : -(int)e;
 }
 
 extern "C" int clusters(int bn, int two, int stages, int cs) {
-  const int smem = stages * ((two ? 2 : 1) + bn / 64) * BOX + 16 * stages +
-                   1024;
+  const int smem = stages * ((two ? 2 : 1) + bn / 64) * bwd::BOX +
+                   16 * stages + 1024;
   if (bn == 256) return two ? fit<256, true>(smem, cs)
                             : fit<256, false>(smem, cs);
   if (bn == 128) return two ? fit<128, true>(smem, cs)

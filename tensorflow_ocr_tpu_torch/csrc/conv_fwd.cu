@@ -76,8 +76,9 @@
 //   column tiles of a row block run side by side, so X stays in L2 where
 //   co > BN. No split of K: two launches on the same inputs are bit-equal.
 // The plan (box, BN, resident weight, stages, grid) comes from
-// ops/conv.py tma_fwd_plan. The tensor maps are encoded here, through
-// the driver entry point that the runtime hands out (no -lcuda).
+// ops/conv.py tma_fwd_plan. The tensor maps are encoded by wgmma.cuh's
+// host helpers, through the driver entry point that the runtime hands
+// out (no -lcuda).
 
 #include <cstdint>
 #include <cuda.h>
@@ -294,64 +295,12 @@ conv_fwd_tma(const __grid_constant__ CUtensorMap mx,
   }
 }
 
-using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                            void*, const cuuint64_t*, const cuuint64_t*,
-                            const cuuint32_t*, const cuuint32_t*,
-                            CUtensorMapInterleave, CUtensorMapSwizzle,
-                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-Encode encoder() {
-  static const Encode fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<Encode>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 map of `rank` dimensions (dims innermost first, each dimension's
-// elements contiguous in the next), read or written in boxes of `box`
-// under the swizzle `sw`, zero fill outside the tensor.
-bool encode(CUtensorMap* map, const void* p, int rank, const cuuint64_t* dims,
-            const cuuint32_t* box,
-            CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B) {
-  const Encode fn = encoder();
-  if (fn == nullptr) return false;
-  cuuint64_t strides[3];
-  cuuint64_t s = 2;
-  for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int BN>
 int launch(const CUtensorMap& mx, const CUtensorMap& mw, const CUtensorMap& my,
            const FwdArgs& a, int grid, int smem, cudaStream_t s) {
-  // the shared memory the launches may take, set once a device
   static bool set[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = allow_smem(conv_fwd_tma<BN>, set, MAX_SMEM);
   if (e != cudaSuccess) return e;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (!set[dev]) {
-    e = cudaFuncSetAttribute(conv_fwd_tma<BN>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             MAX_SMEM);
-    if (e != cudaSuccess) return e;
-    set[dev] = true;
-  }
   conv_fwd_tma<BN><<<grid, THREADS, smem, s>>>(mx, mw, my, a);
   return cudaGetLastError();
 }
@@ -414,9 +363,10 @@ extern "C" int conv_fwd_tma(const void* x, const void* wt, void* y, int n,
   const int sw = wb < 64 ? wb : 64;
   const cuuint32_t ybox[4] = {(cuuint32_t)(bn < 64 ? bn : 64), (cuuint32_t)sw,
                               (cuuint32_t)(64 / sw), 1};
-  if (!encode(&mx, x, 4, xdims, xbox) || !encode(&mw, wt, 3, wdims, wbox) ||
+  if (!encode(&mx, x, false, 4, xdims, xbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode(&mw, wt, false, 3, wdims, wbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
       (a.tma_store &&
-       !encode(&my, y, 4, ydims, ybox,
+       !encode(&my, y, false, 4, ydims, ybox,
                bn < 64 ? CU_TENSOR_MAP_SWIZZLE_NONE
                        : CU_TENSOR_MAP_SWIZZLE_128B)))
     return cudaErrorInvalidValue;

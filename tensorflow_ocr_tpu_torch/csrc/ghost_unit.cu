@@ -16,11 +16,10 @@
 //                   and its band sums [sum gm*z3, sum gm, sum gm*zs];
 //   ghost_conv_bwd  one conv's backward from dz = bf16(g*a + c1 + 2z*c2
 //                   (+ the seam term on a band's edge rows)), staged into
-//                   dW = act(x)^T . dz (split over pixels, f32 atomics)
-//                   and dX = dz * Wflip (the 3x3 dX reads only the dz rows
-//                   of its output row's band), which ends as gm =
-//                   dX*[x*a + b > 0] (f32) with its band sums, or as do =
-//                   dX + addend;
+//                   dW = act(x)^T . dz and dX = dz * Wflip (the 3x3 dX
+//                   reads only the dz rows of its output row's band),
+//                   which ends as gm = dX*[x*a + b > 0] (f32) with its
+//                   band sums, or as do = dX + addend;
 //   ghost_seam_bwd  the two halo rows of each band's 3x3 backward: gm =
 //                   (dz of the band's edge row . Wflip's ky row) *[z1*a1 +
 //                   b1 > 0] under the READING band's (a1, b1), added to
@@ -40,20 +39,30 @@
 // is dz (staged from g, z and the band tables), and every statistic is
 // summed from the accumulator in registers.
 //
-// Design: the implicit-GEMM core and loaders of igemm.cuh (CTA of 8
-// warps, 128 x BN tiles, BK = 32, mma.sync m16n8k16 bf16, f32
-// accumulate, the next slice's loads in flight), with its banded
-// transforms BandAct and BandDz; channel counts multiples of 64. Band
-// sums: where a CTA's 128 rows lie in one band (gh*W a multiple of 128:
-// every band at the slice's shapes), warp shuffles, a shared table and
-// one f32 atomic per column and CTA; where only a warp's rows do, one per
-// column and warp; otherwise one per element. wgmma, TMA and one pass per
-// band (a cluster with distributed shared memory) are later work.
+// Design. The forward convs and the seam pass: the implicit-GEMM core and
+// loaders of igemm.cuh (CTA of 8 warps, 128 x BN tiles, BK = 32,
+// mma.sync m16n8k16 bf16, f32 accumulate, the next slice's loads in
+// flight), with its banded transforms BandAct and BandDz; channel counts
+// multiples of 64. Their band sums: where a CTA's 128 rows lie in one
+// band (gh*W a multiple of 128: every band at the slice's shapes), warp
+// shuffles, a shared table and one f32 atomic per column and CTA; where
+// only a warp's rows do, one per column and warp; otherwise one per
+// element.
+// The conv backward (ghost_conv_bwd): two launches on conv_bwd.cuh's
+// TMA/wgmma cores with GhostTr as the staging transform (x -> relu(x*a +
+// b) under the band of the output pixel, z and g -> dz under the band of
+// the pixel read, plus the seam term): dW (tdw) split over clusters
+// reduced in rank order, dX (tdx) with a masked epilogue whose band sums
+// take one entry a 128-pixel tile (a tile lies in one band: its box height
+// divides gh) added in tile order by reduce_parts. No atomics: two
+// launches are bit-equal. One pass per band (a cluster with distributed
+// shared memory) is later work.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "conv_bwd.cuh"
 #include "igemm.cuh"
 
 namespace {
@@ -252,127 +261,6 @@ gboundary(const bf16* __restrict__ dout, const bf16* __restrict__ z,
 
 // --------------------------------------------------------------- backward
 
-// dW (KS*KS*ci, co) += act(x)^T . dz over the pixels [p0, p0 + chunk).
-template <int KS, int BN, class G>
-__global__ void __launch_bounds__(THREADS)
-gconv_dw(const bf16* __restrict__ x, const float* __restrict__ tx,
-         const G* __restrict__ gg, const bf16* __restrict__ z,
-         const float* __restrict__ td, const float* __restrict__ edge,
-         float* __restrict__ dw, Geo g, int ci, int co, int band_px,
-         int chunk) {
-  using W = Warps<BM, BN>;
-  __shared__ __align__(16) bf16 sA[BM][LDS];
-  __shared__ __align__(16) bf16 sB[BN][LDS];
-  const int kdim = KS * KS * ci;
-  const int q0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int p0 = blockIdx.z * chunk;
-  const int pend = min(g.m, p0 + chunk);
-  if (p0 >= pend) return;
-
-  PixelCols<KS, BandAct, BM> la{{x, tx, ci, band_px}, g, ci, q0, p0, pend,
-                                true};
-  PixelCols<1, BandDz<G>, BN> lb{{gg, z, td, edge, co, band_px, g.w}, g, co,
-                                 n0, p0, pend, true};
-  float acc[W::MT][W::NT][4] = {};
-  mainloop<BM, BN>(la, lb, (pend - p0 + BK - 1) / BK, sA, sB, acc);
-
-#pragma unroll
-  for (int i = 0; i < W::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < W::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int r, c;
-        acc_pos<BM, BN>(i, j, e, r, c);
-        if (q0 + r < kdim) atomicAdd(&dw[(size_t)(q0 + r) * co + n0 + c], acc[i][j][e]);
-      }
-}
-
-// dX = dz * Wflip, then out_kind 0: gm = dX*[x*a + b > 0] (float32) and
-// its band sums [sum gm*x, sum gm]; 1: bf16(dX + addend); 2: float32
-// dX + addend. add_kind: 0 none, 1 bf16, 2 float32.
-template <int KS, int BN, class G>
-__global__ void __launch_bounds__(THREADS)
-gconv_dx(const bf16* __restrict__ x, const float* __restrict__ tx,
-         const G* __restrict__ gg, const bf16* __restrict__ z,
-         const float* __restrict__ td, const float* __restrict__ edge,
-         const bf16* __restrict__ wflip, void* __restrict__ dx,
-         float* __restrict__ sums, const void* __restrict__ addend,
-         int add_kind, int out_kind, Geo g, int ci, int co, int band_px) {
-  using W = Warps<BM, BN>;
-  __shared__ __align__(16) bf16 sA[BM][LDS];
-  __shared__ __align__(16) bf16 sB[BN][LDS];
-  __shared__ float red[2][128];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  zero_red(red);
-
-  const int kdim = KS * KS * co;
-  PixelRows<KS, BandDz<G>, BM> la{{gg, z, td, edge, co, band_px, g.w}, g, co,
-                                  m0, true};
-  PixelRows<1, Ident, BN> lb{{wflip}, Geo{1, 1, ci, ci}, kdim, n0, true};
-  float acc[W::MT][W::NT][4] = {};
-  mainloop<BM, BN>(la, lb, kdim / BK, sA, sB, acc);
-
-  if (out_kind == 0) {
-    BandSums<BN> bs(sums, ci, band_px, m0, g.m);
-    float* out = static_cast<float*>(dx);
-#pragma unroll
-    for (int i = 0; i < W::MT; ++i)
-#pragma unroll
-      for (int j = 0; j < W::NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; e += 2) {
-          int r, c;
-          acc_pos<BM, BN>(i, j, e, r, c);
-          const int m = m0 + r, col = n0 + c;
-          if (m >= g.m) continue;
-          const float* t = tx + (size_t)(m / band_px) * 2 * ci + col;
-          const size_t off = (size_t)m * ci + col;
-          const float2 xv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(x + off));
-          const float gu = affine(xv.x, t[0], t[ci]) > 0.f ? acc[i][j][e] : 0.f;
-          const float gv =
-              affine(xv.y, t[1], t[ci + 1]) > 0.f ? acc[i][j][e + 1] : 0.f;
-          *reinterpret_cast<float2*>(out + off) = make_float2(gu, gv);
-          bs.add(j, 0, m, col, gu * xv.x, gu);
-          bs.add(j, 1, m, col + 1, gv * xv.y, gv);
-        }
-    bs.flush(red, n0);
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < W::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < W::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        int r, c;
-        acc_pos<BM, BN>(i, j, e, r, c);
-        const int m = m0 + r;
-        if (m >= g.m) continue;
-        const size_t off = (size_t)m * ci + n0 + c;
-        float u = acc[i][j][e], v = acc[i][j][e + 1];
-        if (add_kind == 1) {
-          const float2 a = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(
-                  static_cast<const bf16*>(addend) + off));
-          u += a.x;
-          v += a.y;
-        } else if (add_kind == 2) {
-          const float2 a = *reinterpret_cast<const float2*>(
-              static_cast<const float*>(addend) + off);
-          u += a.x;
-          v += a.y;
-        }
-        if (out_kind == 1)
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(dx) + off) =
-              __floats2bfloat162_rn(u, v);
-        else
-          *reinterpret_cast<float2*>(static_cast<float*>(dx) + off) =
-              make_float2(u, v);
-      }
-}
-
 // The A operand of the seam product: row s = (band, w) of one side (0:
 // the halo row above the band, read by the band's first row; 1: below,
 // read by its last row); K = (kx, channel) over 3*ch: dz of the band's
@@ -470,59 +358,90 @@ gseam(const float* __restrict__ gg, const bf16* __restrict__ z,
   bs.flush(red, n0);
 }
 
-int num_sms() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      n = 132;
-  }
-  return n;
-}
-
-template <int KS, class G>
-int launch_bwd(const bf16* x, const float* tx, const G* gg, const bf16* z,
-               const float* td, const float* edge, const bf16* wflip,
-               void* dx, float* sums, float* dw, const void* addend,
-               int add_kind, int out_kind, Geo g, int ci, int co, int band_px,
-               cudaStream_t s) {
-  // dW: (KS*KS*ci) x co tiles, the pixels split to fill ~4 waves
-  const int kdim = KS * KS * ci;
-  const int bn = co % 128 == 0 ? 128 : 64;
-  const int tiles = ((kdim + BM - 1) / BM) * (co / bn);
-  int splits = (4 * num_sms() + tiles - 1) / tiles;
-  int chunk = (g.m + splits - 1) / splits;
-  chunk = (chunk + BK - 1) / BK * BK;
-  splits = (g.m + chunk - 1) / chunk;
-  dim3 gw((kdim + BM - 1) / BM, co / bn, splits);
-  if (bn == 128)
-    gconv_dw<KS, 128, G><<<gw, THREADS, 0, s>>>(x, tx, gg, z, td, edge, dw, g,
-                                                ci, co, band_px, chunk);
-  else
-    gconv_dw<KS, 64, G><<<gw, THREADS, 0, s>>>(x, tx, gg, z, td, edge, dw, g,
-                                               ci, co, band_px, chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  dim3 gx((g.m + BM - 1) / BM, 1);
-  if (ci % 128 == 0) {
-    gx.y = ci / 128;
-    gconv_dx<KS, 128, G><<<gx, THREADS, 0, s>>>(x, tx, gg, z, td, edge, wflip,
-                                                dx, sums, addend, add_kind,
-                                                out_kind, g, ci, co, band_px);
-  } else {
-    gx.y = ci / 64;
-    gconv_dx<KS, 64, G><<<gx, THREADS, 0, s>>>(x, tx, gg, z, td, edge, wflip,
-                                               dx, sums, addend, add_kind,
-                                               out_kind, g, ci, co, band_px);
-  }
-  return cudaGetLastError();
-}
-
 bool bad_geometry(int n, int h, int w, int gh, int c1, int c2) {
   return n < 1 || h < 1 || w < 1 || gh < 2 || h % gh || c1 % 64 || c2 % 64;
+}
+
+// The backward's staging transform (conv_bwd.cuh): x -> relu(x*a + b)
+// under the table of the band of the output pixel (x as it is where tx is
+// null), z and g -> dz = g*a + c1 + 2z*c2 (+ the seam term on the band's
+// first and last rows) under the table of the band of the pixel read.
+template <class G>
+struct GhostTr {
+  using Aux = G;       // g
+  static constexpr int kAux = (int)sizeof(G);
+  static constexpr bool kPerCta = false;
+  struct XT {
+    float a[8], b[8];
+  };
+  struct DT {
+    float a[8], c1[8], c2[8];
+  };
+  const float* tx;     // (bands, 2, ci) or null
+  const float* td;     // (bands, 3, co)
+  const float* edge;   // (bands, 2, w, co) or null
+  int ci, co, band_px, w;
+
+  __device__ __forceinline__ bool x_on() const { return tx != nullptr; }
+  __device__ __forceinline__ int key(int pix) const { return pix / band_px; }
+  __device__ __forceinline__ void x_tab(XT& t, int band, int c) const {
+    const float* p = tx + (size_t)band * 2 * ci + c;
+    load8f(p, t.a);
+    load8f(p + ci, t.b);
+  }
+  __device__ __forceinline__ void x(float v[8], const XT& t) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = fmaxf(affine(v[i], t.a[i], t.b[i]), 0.f);
+  }
+  __device__ __forceinline__ void d_tab(DT& t, int band, int c) const {
+    const float* p = td + (size_t)band * 3 * co + c;
+    load8f(p, t.a);
+    load8f(p + co, t.c1);
+    load8f(p + 2 * co, t.c2);
+  }
+  // d: z in, dz out; g: the aux
+  __device__ __forceinline__ void dy(float d[8], const float g[8],
+                                     const DT& t, int pix, int c) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      d[i] = __fadd_rn(__fadd_rn(__fmul_rn(g[i], t.a[i]), t.c1[i]),
+                       __fmul_rn(2.f * d[i], t.c2[i]));
+    if (edge) {
+      const int band = pix / band_px, off = pix - band * band_px;
+      const int row = off / w;
+      if (row == 0 || row == band_px / w - 1) {
+        float e[8];
+        load8f(edge + (((size_t)band * 2 + (row != 0)) * w + off % w) * co + c,
+               e);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) d[i] = __fadd_rn(d[i], e[i]);
+      }
+    }
+  }
+  __device__ __forceinline__ const float* ab_row(int band) const {
+    return tx + (size_t)band * 2 * ci;
+  }
+};
+
+template <class G>
+int conv_bwd(const void* x, const float* tx, const void* g, const void* z,
+             const float* td, const float* edge, const void* wflip, void* dx,
+             float* sums, float* dw, const void* addend, float* ws_dw,
+             float* ws_sums, int add_kind, int out_kind, int n, int h, int w,
+             int ci, int co, int ks, int gh, const bwd::DwPlan& pw,
+             const bwd::DxPlan& px, cudaStream_t s) {
+  const GhostTr<G> tr{tx, td, edge, ci, co, gh * w, w};
+  int err = bwd::run_dw(x, z, g, dw, ws_dw, n, h, w, ci, co, ks, pw, tr, s);
+  if (err != cudaSuccess) return err;
+  bwd::DxArgs a{};
+  a.out = dx;
+  a.addend = addend;
+  a.add_kind = add_kind;
+  a.out_kind = out_kind;
+  a.band_px = ks == 3 ? gh * w : 0;
+  // the epilogue's bf16 input: x for gm, the bf16 addend for do
+  return bwd::run_dx(z, g, wflip, out_kind == 0 ? x : addend, a, ws_sums,
+                     sums, n, h, w, ci, co, ks, gh, px, tr, s);
 }
 
 }  // namespace
@@ -561,43 +480,47 @@ extern "C" int ghost_conv_fwd(const void* x, const void* tab, const void* wt,
 // f32 or null; wflip (ci, ks*ks*co) bf16, the flipped kernel with K in
 // (ky, kx, co) order. Out: dx (n,h,w,ci), f32 gm (out_kind 0, with sums
 // (bands,2,ci) and tx required), bf16 (1) or f32 (2) dX + addend (bf16
-// add_kind 1, f32 add_kind 2, none 0); dw (ks*ks*ci, co) f32. sums and dw
-// zeroed by the caller. Taken: ks 1 with g bf16 or f32, ks 3 with g f32.
-// Returns the first launch error.
+// add_kind 1, f32 add_kind 2, none 0); dw (ks*ks*ci, co) f32; all written
+// whole. The plans (ops/conv.py), both over the image geometry: dW
+// tma_dw_plan with g's aux boxes (wb, hb, bn, two, stages, splits, cs;
+// with splits / cs > 1, ws_dw holds that many tables), dX tma_bwd_dx_plan
+// (xwb, xhb, xbn, resident, xstages, grid, eslots; xhb divides gh; ws_sums
+// holds one (2, ci) entry a row tile with out_kind 0). Taken: ks 1 with g
+// bf16 or f32, ks 3 with g f32. Returns the first launch error.
 extern "C" int ghost_conv_bwd(const void* x, const void* tx, const void* g,
                               const void* z, const void* td, const void* edge,
                               const void* wflip, void* dx, void* sums,
-                              void* dw, const void* addend, int g_f32,
-                              int add_kind, int out_kind, int n, int h,
-                              int w, int ci, int co, int ks, int gh,
+                              void* dw, const void* addend, void* ws_dw,
+                              void* ws_sums, int g_f32, int add_kind,
+                              int out_kind, int n, int h, int w, int ci,
+                              int co, int ks, int gh, int wb, int hb, int bn,
+                              int two, int stages, int splits, int cs,
+                              int xwb, int xhb, int xbn, int resident,
+                              int xstages, int grid, int eslots,
                               void* stream) {
   if (bad_geometry(n, h, w, gh, ci, co) || (ks != 1 && ks != 3) ||
       (ks == 3 && !g_f32) || out_kind < 0 || out_kind > 2 ||
-      (out_kind == 0 && (!tx || !sums)) || add_kind < 0 || add_kind > 2 ||
-      (add_kind != 0 && !addend))
+      (out_kind == 0 && (!tx || !sums || !ws_sums)) || add_kind < 0 ||
+      add_kind > 2 || (add_kind != 0 && !addend) || !td ||
+      (long long)n * h * w * (ci > co ? ci : co) >= (1ll << 31))
     return cudaErrorInvalidValue;
-  Geo geo{n, h, w, n * h * w};
-  auto s = static_cast<cudaStream_t>(stream);
-  auto xb = static_cast<const bf16*>(x);
+  const bwd::DwPlan pw{wb, hb, bn, two, stages, splits, cs};
+  const bwd::DxPlan px{xwb, xhb, xbn, resident, xstages, grid, eslots};
   auto txf = static_cast<const float*>(tx);
-  auto zb = static_cast<const bf16*>(z);
   auto tdf = static_cast<const float*>(td);
   auto ef = static_cast<const float*>(edge);
-  auto wf = static_cast<const bf16*>(wflip);
   auto sf = static_cast<float*>(sums);
   auto dwf = static_cast<float*>(dw);
-  const int px = gh * w;
-  if (ks == 3)
-    return launch_bwd<3, float>(xb, txf, static_cast<const float*>(g), zb, tdf,
-                                ef, wf, dx, sf, dwf, addend, add_kind,
-                                out_kind, geo, ci, co, px, s);
+  auto wsd = static_cast<float*>(ws_dw);
+  auto wss = static_cast<float*>(ws_sums);
+  auto s = static_cast<cudaStream_t>(stream);
   if (g_f32)
-    return launch_bwd<1, float>(xb, txf, static_cast<const float*>(g), zb, tdf,
-                                ef, wf, dx, sf, dwf, addend, add_kind,
-                                out_kind, geo, ci, co, px, s);
-  return launch_bwd<1, bf16>(xb, txf, static_cast<const bf16*>(g), zb, tdf, ef,
-                             wf, dx, sf, dwf, addend, add_kind, out_kind, geo,
-                             ci, co, px, s);
+    return conv_bwd<float>(x, txf, g, z, tdf, ef, wflip, dx, sf, dwf, addend,
+                           wsd, wss, add_kind, out_kind, n, h, w, ci, co, ks,
+                           gh, pw, px, s);
+  return conv_bwd<bf16>(x, txf, g, z, tdf, ef, wflip, dx, sf, dwf, addend,
+                        wsd, wss, add_kind, out_kind, n, h, w, ci, co, ks, gh,
+                        pw, px, s);
 }
 
 // Forward (dout null): out = relu(z*a + b + (sc*as + bs, or sc where ts is

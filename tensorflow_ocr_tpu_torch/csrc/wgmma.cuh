@@ -34,6 +34,9 @@
 // d[4j + e] = D(row 16*(t/32) + (t%32)/4 + 8*(e/2), column 8j + 2*(t%4) +
 // e%2), j < N/8.
 //
+// The host helpers at the end encode the tensor maps through the driver
+// entry point that the runtime hands out, so the libraries need no -lcuda.
+//
 // A kernel that transforms its operands between their arrival and their
 // product (an affine + relu of a fused prologue, a staged gradient) reads
 // and rewrites the swizzled tile in shared memory after the full barrier's
@@ -44,7 +47,8 @@
 #pragma once
 
 #include <cstdint>
-#include <cuda.h>  // CUtensorMap (the type only: no driver call here)
+#include <cuda.h>  // CUtensorMap and the encoder's type (no -lcuda)
+#include <cuda_runtime.h>
 
 namespace hop {
 
@@ -457,6 +461,84 @@ __device__ __forceinline__ void regs_shrink() {
 // __syncthreads'.
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// -------------------------------------------------------------------- host
+
+using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                            void*, const cuuint64_t*, const cuuint64_t*,
+                            const cuuint32_t*, const cuuint32_t*,
+                            CUtensorMapInterleave, CUtensorMapSwizzle,
+                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline Encode encoder() {
+  static const Encode fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<Encode>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A map of `rank` dimensions (dims innermost first, each dimension's
+// elements contiguous in the next) of bf16 or f32 elements, read or
+// written in boxes of `box` under the swizzle `sw`, zero fill.
+inline bool encode(CUtensorMap* map, const void* p, bool f32, int rank,
+                   const cuuint64_t* dims, const cuuint32_t* box,
+                   CUtensorMapSwizzle sw) {
+  const Encode fn = encoder();
+  if (fn == nullptr) return false;
+  cuuint64_t strides[3];
+  cuuint64_t s = f32 ? 4 : 2;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            rank, const_cast<void*>(p), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The (c, w, h, n) map of an NHWC tensor in boxes of 64 channels by wb x
+// hb pixels: bf16 128-byte swizzled, or f32 unswizzled (256-byte rows).
+inline bool encode_act(CUtensorMap* map, const void* p, bool f32, int c,
+                       int w, int h, int n, int wb, int hb) {
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h,
+                              (cuuint64_t)n};
+  const cuuint32_t box[4] = {64, (cuuint32_t)wb, (cuuint32_t)hb, 1};
+  return encode(map, p, f32, 4, dims, box,
+                f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The dynamic shared memory (bytes) a kernel may take, set once a device.
+template <class K>
+cudaError_t allow_smem(K kernel, bool (&set)[64], int bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!set[dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return e;
+    set[dev] = true;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace hop

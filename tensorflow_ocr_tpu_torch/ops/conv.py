@@ -257,7 +257,7 @@ def tma_takes(ci: int, co: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def tma_dw_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
-                sms: int) -> TmaDwPlan:
+                sms: int, aux: int = 0) -> TmaDwPlan:
     """The split of a (ks*ks*ci, co) dW over n images of h x w (a 1x1 dW
     over M rows: n = h = 1, w = M). The box is the narrowest power of two
     that covers a row, up to KP pixels (KP x 1 for the 1x1's rows), the
@@ -267,22 +267,138 @@ def tma_dw_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     wave of CTAs (one an SM) fills the card, every split non-empty, a
     multiple of MAX_CLUSTER from 16 splits on; clusters of up to
     MAX_CLUSTER splits, the largest that divides them. As many ring slots
-    as fit, up to MAX_STAGES."""
+    as fit, up to MAX_STAGES.
+
+    ``aux`` > 0 plans the staged backward's dW (csrc/conv_bwd.cuh ``tdw``):
+    each 64 columns of dY come with an aux box of the same pixels in
+    elements of ``aux`` bytes (y or g: 2 for bf16, 4 for f32), and BN is
+    128 where it divides Co, else 64 (the rewrite of the larger stage
+    keeps more slots in flight)."""
     wb = min(KP, 1 << max(w - 1, 0).bit_length())
     hb = KP // wb
-    bn = 256 if co >= 256 else 128 if co >= 128 else 64
+    if aux:
+        bn = 128 if co % 128 == 0 else 64
+    else:
+        bn = 256 if co >= 256 else 128 if co >= 128 else 64
     rchunks = ks * ks * -(-ci // 64)
     two = rchunks > 1
     tiles = (-(-rchunks // 2) if two else 1) * -(-co // bn)
-    stage = ((2 if two else 1) + bn // 64) * BOX
+    stage = ((2 if two else 1) + bn // 64) * BOX + bn // 64 * KP * 64 * aux
     stages = min(MAX_STAGES, (MAX_SMEM - 1024) // (stage + 16))
     ntiles = n * -(-h // hb) * -(-w // wb)
-    splits = max(1, min(ntiles, sms // tiles))
+    if aux:
+        splits = staged_dw_splits(tiles, ntiles, sms)
+    else:
+        splits = max(1, min(ntiles, sms // tiles))
     if splits >= 16:
         splits -= splits % MAX_CLUSTER
     cluster = next(c for c in (8, 4, 2, 1)
                    if c <= MAX_CLUSTER and splits % c == 0)
     return TmaDwPlan(wb, hb, bn, two, stages, splits, cluster)
+
+
+# the staged dW's fixed cost of a CTA (the ring's fill, the parking and
+# the cluster's reduction), in pixel tiles
+DW_CTA_TILES = 8
+
+
+def staged_dw_splits(tiles: int, ntiles: int, sms: int) -> int:
+    """The pixel split of the staged dW: the one whose waves of CTAs (one
+    an SM) take the fewest pixel tiles, each CTA counting DW_CTA_TILES
+    more for its fixed cost; the fewest splits among equals. Where the
+    table's tiles alone exceed the SMs (a 512-channel 3x3 at bn 128: 144
+    tiles), one split would leave a second wave of 12 CTAs as long as the
+    first."""
+    def cost(s):
+        return -(-tiles * s // sms) * (-(-ntiles // s) + DW_CTA_TILES)
+    return min(range(1, min(ntiles, 2 * sms) + 1), key=lambda s: (cost(s), s))
+
+
+class TmaBwdDxPlan(NamedTuple):
+    """The tiling of the staged backward's dX (csrc/conv_bwd.cuh tdx)."""
+    wb: int         # the pixel box: wb x hb pixels of one image, TM in all
+    hb: int
+    bn: int         # columns (of Ci) a tile: 64 or 128
+    resident: bool  # the CTA loads its K x bn weight once (1x1 only)
+    stages: int     # slots of the TMA ring
+    grid: int       # persistent CTAs, a multiple of col_tiles
+    row_tiles: int  # pixel tiles: n * ceil(h / hb) * ceil(w / wb)
+    col_tiles: int  # Ci / bn
+    halo: bool      # a 3x3 whose K steps are (ky, channel box) halo boxes
+    eslots: int     # epilogue slots (input and staged output of a tile)
+
+    def tiles_of(self, cta: int) -> range:
+        """The tiles CTA ``cta`` computes, in its order: tile t is pixel
+        tile t // col_tiles, column tile t % col_tiles."""
+        return range(cta, self.row_tiles * self.col_tiles, self.grid)
+
+
+def round1k(nbytes: int) -> int:
+    return -(-nbytes // 1024) * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def tma_bwd_dx_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
+                    sms: int, aux: int, slot: bool,
+                    gh: int = 0) -> TmaBwdDxPlan:
+    """The tiling of the staged backward's dX (csrc/conv_bwd.cuh ``tdx``):
+    dX (n, h, w, ci) of dY (n, h, w, co) through ks x ks taps, ci and co
+    multiples of 64 (a 1x1 over M rows: n = h = 1, w = M). As
+    tma_fwd_plan, with: the box's height a divisor of ``gh`` where gh > 0
+    (a ghost conv: each tile lies in one band); bn 128 where it divides ci
+    and the ring keeps two slots, else 64; each ring slot holds the A box and its aux box (elements of
+    ``aux`` bytes) beside the weight box unless the weight is resident; a
+    3x3 whose box is a 64- or 128-pixel row segment in halo mode (a slot:
+    the (wb + 2) x hb halo box of one ky and channel box, its aux box and
+    the three kx weight boxes); ``slot``: the epilogue takes an input tile
+    or stages a bf16 output (the fused dx, the ghost gm and do), in up to
+    three epilogue slots of TM x bn bf16, as many as leave the ring 3 slots
+    (2 in halo mode), at least one; the shared memory also holds the 8 warps'
+    column sums and the tile's mask (a, b); the grid is always a multiple
+    of the column tiles (a CTA's tiles share one column, so the fused
+    epilogue sums them into one entry)."""
+    boxes = [1 << i for i in range(TM.bit_length())
+             if not gh or gh % (TM >> i) == 0]
+    wb = min(boxes, key=lambda b: (
+        -(-w // b) * b * -(-h // (TM // b)) * (TM // b), -b))
+    hb = TM // wb
+    halo = ks == 3 and wb >= 64
+    ksteps = (3 if halo else ks * ks) * (co // 64)
+    fixed = 8 * 7 + 1024
+    for bn in (128, 64) if ci % 128 == 0 else (64,):
+        # a halo slot with three 128-row weight boxes beside an f32 aux
+        # box leaves the ring one slot: then two column tiles of 64
+        bbox, sbytes = bn * 128, TM * bn * 2
+        room = MAX_SMEM - fixed - 9 * 2 * bn * 4
+        if halo:
+            rows = (wb + 2) * hb
+            stage = (round1k(rows * 128) + round1k(rows * 64 * aux)
+                     + 3 * bbox)
+        else:
+            stage = TM * 128 + TM * 64 * aux
+        wbytes = ksteps * bbox
+        resident = (ks == 1 and wbytes + MIN_A_SLOTS * (stage + 16)
+                    + slot * sbytes <= room)
+        if not halo and not resident:
+            stage += bbox
+        room -= resident * wbytes
+        # epilogue slots: as many as leave the ring its fewest slots (2 in
+        # halo mode, else MIN_A_SLOTS), up to 3, at least one
+        eslots = 0
+        if slot:
+            keep = 2 if halo else MIN_A_SLOTS
+            eslots = max([1] + [e for e in (2, 3) if (room - e * sbytes)
+                                // (stage + 16) >= keep])
+        stages = min(MAX_FWD_STAGES,
+                     (room - eslots * sbytes) // (stage + 16))
+        if stages >= 2:
+            break
+    row_tiles = n * -(-h // hb) * -(-w // wb)
+    col_tiles = ci // bn
+    grid = min(row_tiles * col_tiles, sms)
+    grid = max(col_tiles, grid - grid % col_tiles)
+    return TmaBwdDxPlan(wb, hb, bn, resident, stages, grid, row_tiles,
+                        col_tiles, halo, eslots)
 
 
 @functools.cache

@@ -149,20 +149,23 @@ def boundary_bwd_reference(g, z, ab, zs, abs_):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+# the extern "C" entry points of csrc/<library>.cu: argument types
+SIGNATURES = {
+    "fused_conv": {
+        "fused_conv_fwd": [_P] * 5 + [_I] * 6 + [_P],
+        "fused_conv_bwd": [_P] * 11 + [_I] * 20 + [_P],
+    },
+    "fused_boundary": {
+        "fused_boundary_fwd": [_P] * 5 + [_I] * 2 + [_P],
+        "fused_boundary_bwd": [_P] * 9 + [_I] * 2 + [_P],
+    },
+}
+
+
 @functools.cache
 def _lib(name: str):
     lib = ctypes.CDLL(str(build_library(name)))
-    sigs = {
-        "fused_conv": {
-            "fused_conv_fwd": [_P] * 5 + [_I] * 6 + [_P],
-            "fused_conv_bwd": [_P] * 9 + [_I] * 6 + [_P],
-        },
-        "fused_boundary": {
-            "fused_boundary_fwd": [_P] * 5 + [_I] * 2 + [_P],
-            "fused_boundary_bwd": [_P] * 9 + [_I] * 2 + [_P],
-        },
-    }[name]
-    for fn, args in sigs.items():
+    for fn, args in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -248,11 +251,17 @@ def conv_bwd(x, ab, w, y, dy, ds):
     s (``None`` reads as zero). Returns dx (x's dtype), dab (2, Ci)
     float32 and dw (w's shape and dtype), with dy_eff = dy + ds0 + 2y·ds1
     and gm = (dy_eff ⋆ wᵀ)·[x*a + b > 0]: dx = gm*a, dab = [Σ gm*x, Σ gm].
-    Two launches: dW = im2col(relu(x*a+b))ᵀ·dy_eff, split over the rows
-    with float32 atomics, then dx and dab.
+    Two launches on csrc/conv_bwd.cuh: dW = im2col(relu(x*a+b))ᵀ·dy_eff
+    (``tdw``, split over the pixels by ops/conv.py tma_dw_plan and summed
+    in a fixed order), then dx and dab (``tdx``, tiled by
+    tma_bwd_dx_plan); no atomics, so two calls on the same inputs are
+    bit-equal. Each kernel's launches are counted in
+    ``conv_bwd.by_kernel``.
     """
     if on_cpu(x, ab, w, y, dy, ds):
         return conv_bwd_reference(x, ab, w, y, dy, ds)
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+
     dy = dy.contiguous(memory_format=_CL)
     n, ci, h, wd, co, k = _conv_shapes(x, ab, w)
     if ds is None:
@@ -266,18 +275,44 @@ def conv_bwd(x, ab, w, y, dy, ds):
                          f"{tuple(ds.shape)} do not fit w {tuple(w.shape)}")
     wflip = w.flip(2, 3).permute(1, 2, 3, 0).reshape(ci, k * k * co)
     wflip = wflip.contiguous()
+    aligned16(x=x, ab=ab, y=y, dy=dy, ds=ds)
+    index = x.device.index
+    sms = CV._sms(index)
+    geo = (1, 1, n * h * wd) if k == 1 else (n, h, wd)  # a 1x1's rows
+    pw = CV.tma_dw_plan(*geo, ci, co, k, sms, aux=2)
+    px = CV.tma_bwd_dx_plan(*geo, ci, co, k, sms, 2, True)
+    # dW, the clusters' tables, dab and its partial entries in one buffer:
+    # the wrapper's host time is of the order of a small shape's device time
+    kdim, tables = k * k * ci * co, pw.splits // pw.cluster
+    parts = px.grid // px.col_tiles * 2 * ci
+    buf = torch.empty(kdim * (1 + (tables if tables > 1 else 0)) + 2 * ci
+                      + parts, dtype=torch.float32, device=x.device)
+    dw, dab = buf[:kdim], buf[kdim:kdim + 2 * ci].view(2, ci)
+    ws_dw, ws_dab = buf[kdim + 2 * ci:-parts], buf[-parts:]
     dx = torch.empty_like(x, memory_format=_CL)
-    dab = torch.zeros((2, ci), dtype=torch.float32, device=x.device)
-    dw = torch.zeros((k * k * ci, co), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _lib("fused_conv").fused_conv_bwd(
             x.data_ptr(), ab.data_ptr(), wflip.data_ptr(), y.data_ptr(),
             dy.data_ptr(), ds.data_ptr(), dx.data_ptr(), dab.data_ptr(),
-            dw.data_ptr(), n, h, wd, ci, co, k, cuda_stream())
+            dw.data_ptr(), ws_dw.data_ptr(), ws_dab.data_ptr(), *geo, ci,
+            co, k, pw.wb, pw.hb, pw.bn, int(pw.two), pw.stages, pw.splits,
+            pw.cluster, px.wb, px.hb, px.bn, int(px.resident), px.stages,
+            px.grid, px.eslots, torch._C._cuda_getCurrentRawStream(index))
     raise_on(err, "fused_conv_bwd")
     conv_bwd.launches += 1
-    dw = dw.reshape(k, k, ci, co).permute(3, 2, 0, 1).to(w.dtype)
+    for kernel in conv_bwd.by_kernel:
+        conv_bwd.by_kernel[kernel] += 1
+    dw = dw.view(k, k, ci, co).permute(3, 2, 0, 1).to(w.dtype)
     return dx, dab, dw.contiguous()
+
+
+def aligned16(**tensors) -> None:
+    """Raise unless every tensor's base is 16-byte aligned: TMA boxes and
+    the kernels' 16-byte table loads need it."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernels need a 16-byte aligned "
+                             "base")
 
 
 def _boundary_shapes(z, ab, zs, abs_):
@@ -340,6 +375,8 @@ def boundary_bwd(g, z, ab, zs, abs_):
 
 for _fn in (conv_fwd, conv_bwd, boundary_fwd, boundary_bwd):
     _fn.launches = 0
+# the backward's two kernels (csrc/conv_bwd.cuh): dW and dX
+conv_bwd.by_kernel = {"tdw": 0, "tdx": 0}
 
 
 # --------------------------------------------------------------------------

@@ -60,8 +60,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from tensorflow_ocr_tpu_torch.ops import conv as CV
 from tensorflow_ocr_tpu_torch.ops.fused import (
     KERNEL_CHANNELS,
+    aligned16,
     cuda_stream,
     full_f32,
     on_cpu,
@@ -387,14 +389,18 @@ def seam_bwd_reference(g, z, td, x, tx, w, gh):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+# the extern "C" entry points of csrc/ghost_unit.cu: argument types
+SIGNATURES = {
+    "ghost_conv_fwd": [_P] * 5 + [_I] * 7 + [_P],
+    "ghost_conv_bwd": [_P] * 13 + [_I] * 24 + [_P],
+    "ghost_boundary": [_P] * 7 + [_I] * 5 + [_P],
+    "ghost_seam_bwd": [_P] * 8 + [_I] * 5 + [_P]}
+
+
 @functools.cache
 def _lib():
     lib = ctypes.CDLL(str(build_library("ghost_unit")))
-    for fn, args in {
-            "ghost_conv_fwd": [_P] * 5 + [_I] * 7 + [_P],
-            "ghost_conv_bwd": [_P] * 11 + [_I] * 10 + [_P],
-            "ghost_boundary": [_P] * 7 + [_I] * 5 + [_P],
-            "ghost_seam_bwd": [_P] * 8 + [_I] * 5 + [_P]}.items():
+    for fn, args in SIGNATURES.items():
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -537,7 +543,12 @@ def conv_bwd(x, tx, g, z, td, w, gh, edge=None, addend=None,
     3x3's dX takes only the dz rows of its output row's band. ``out``:
     "gm": dx = dX·[x·a + b > 0] in float32 (tx's (a, b)) and sums
     (N, nb, 2, Ci) [Σ dx·x, Σ dx]; "act": dx = dX + addend in x's dtype,
-    "f32": in float32 (sums None).
+    "f32": in float32 (sums None). Two launches on csrc/conv_bwd.cuh: dW
+    (``tdw``, split over the pixels by ops/conv.py tma_dw_plan and summed
+    in a fixed order), then dX (``tdx``, tiled by tma_bwd_dx_plan, its band
+    sums one entry a tile, added in tile order); no atomics, so two calls
+    on the same inputs are bit-equal. Each kernel's launches are counted
+    in ``conv_bwd.by_kernel``.
     """
     if on_cpu(x, tx, g, z, td, w, edge, addend):
         return conv_bwd_reference(x, tx, g, z, td, w, gh, edge, addend, out)
@@ -554,13 +565,28 @@ def conv_bwd(x, tx, g, z, td, w, gh, edge=None, addend=None,
     if w.dtype != torch.bfloat16 or w.device != x.device or k not in (1, 3) \
             or w.shape[1] != ci or g.shape[1] != co or z.shape[1] != co:
         raise ValueError(f"w {tuple(w.shape)} {w.dtype} does not fit x, g, z")
+    if k == 3 and g.dtype != torch.float32:
+        raise TypeError("the 3x3's backward takes a float32 g")
     wflip = w.flip(2, 3).permute(1, 2, 3, 0).reshape(ci, k * k * co)
     wflip = wflip.contiguous()
+    aligned16(x=x, tx=tx, g=g, z=z, td=td, edge=edge, addend=addend)
+    index = x.device.index
+    sms, aux = CV._sms(index), g.element_size()
+    pw = CV.tma_dw_plan(n, h, wd, ci, co, k, sms, aux=aux)
+    px = CV.tma_bwd_dx_plan(n, h, wd, ci, co, k, sms, aux, out != "f32", gh)
+    # dW, the clusters' tables and the band sums' entries (one a row tile)
+    # in one buffer: the wrapper's host time is of the order of a small
+    # shape's device time
+    kdim, tables = k * k * ci * co, pw.splits // pw.cluster
+    parts = px.row_tiles * 2 * ci if out == "gm" else 0
+    ws_dw = kdim * tables if tables > 1 else 0
+    buf = torch.empty(kdim + ws_dw + parts, dtype=torch.float32,
+                      device=x.device)
+    dw = buf[:kdim]
     dx = torch.empty((n, ci, h, wd), device=x.device, memory_format=_CL,
                      dtype=x.dtype if out == "act" else torch.float32)
-    sums = (torch.zeros((n, nb, 2, ci), dtype=torch.float32, device=x.device)
+    sums = (torch.empty((n, nb, 2, ci), dtype=torch.float32, device=x.device)
             if out == "gm" else None)
-    dw = torch.zeros((k * k * ci, co), dtype=torch.float32, device=x.device)
     add_kind = 0 if addend is None else (
         2 if addend.dtype == torch.float32 else 1)
     with torch.cuda.device(x.device):
@@ -568,11 +594,18 @@ def conv_bwd(x, tx, g, z, td, w, gh, edge=None, addend=None,
             x.data_ptr(), _ptr(tx), g.data_ptr(), z.data_ptr(),
             td.data_ptr(), _ptr(edge), wflip.data_ptr(), dx.data_ptr(),
             _ptr(sums), dw.data_ptr(), _ptr(addend),
+            buf[kdim:].data_ptr() if ws_dw else None,
+            buf[kdim + ws_dw:].data_ptr() if parts else None,
             int(g.dtype == torch.float32), add_kind, _OUT[out], n, h, wd,
-            ci, co, k, gh, cuda_stream())
+            ci, co, k, gh, pw.wb, pw.hb, pw.bn, int(pw.two), pw.stages,
+            pw.splits, pw.cluster, px.wb, px.hb, px.bn, int(px.resident),
+            px.stages, px.grid, px.eslots,
+            torch._C._cuda_getCurrentRawStream(index))
     raise_on(err, "ghost_conv_bwd")
     conv_bwd.launches += 1
-    dw = dw.reshape(k, k, ci, co).permute(3, 2, 0, 1).contiguous()
+    for kernel in conv_bwd.by_kernel:
+        conv_bwd.by_kernel[kernel] += 1
+    dw = dw.view(k, k, ci, co).permute(3, 2, 0, 1).contiguous()
     return dx, sums, dw
 
 
@@ -610,6 +643,8 @@ def seam_bwd(g, z, td, x, tx, w, gh):
 
 for _fn in (conv_fwd, conv_bwd, boundary_fwd, boundary_bwd, seam_bwd):
     _fn.launches = 0
+# the conv backward's two kernels (csrc/conv_bwd.cuh): dW and dX
+conv_bwd.by_kernel = {"tdw": 0, "tdx": 0}
 
 
 # --------------------------------------------------------------------------

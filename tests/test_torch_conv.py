@@ -238,7 +238,7 @@ def tma_box(t, img, h0, w0, c0, hb, wb):
     return torch.where(live, vals, torch.zeros_like(vals))
 
 
-def emulate_tma_dw(x4, dy4, ks, sms):
+def emulate_tma_dw(x4, dy4, ks, sms, aux=0, xbox=None, dybox=None):
     """conv_dw.cu's tma_dw + sum_tables on the CPU: x4 (N, H, W, Ci), dy4
     (N, H, W, Co) (a 1x1 dW's rows as (1, 1, M, C)). For each CTA of
     tma_dw_plan's grid: the pixel tiles of its split, each a wb x hb box
@@ -246,10 +246,21 @@ def emulate_tma_dw(x4, dy4, ks, sms):
     warpgroup's 64-row chunk (or, with one chunk, its half of every
     tile's k16 steps) accumulated from the boxes; then each cluster's
     table summed in rank order (warpgroup order within a rank) and the
-    tables in cluster order."""
+    tables in cluster order. The staged backward's tdw (csrc/conv_bwd.cuh)
+    is the same split under tma_dw_plan(..., aux) with its boxes rewritten
+    after they arrive: ``xbox(img, h0, w0, ky, kx, c0, hb, wb)`` and
+    ``dybox(img, h0, w0, c0, hb, wb)`` give the staged boxes (default: the
+    raw TMA boxes of x4 and dy4)."""
     n, h, w, ci = x4.shape
     co = dy4.shape[-1]
-    p = CV.tma_dw_plan(n, h, w, ci, co, ks, sms)
+    p = CV.tma_dw_plan(n, h, w, ci, co, ks, sms, aux)
+    if xbox is None:
+        def xbox(img, h0, w0, ky, kx, c0, hb, wb):
+            return tma_box(x4, img, h0 + ky - ks // 2, w0 + kx - ks // 2, c0,
+                           hb, wb)
+    if dybox is None:
+        def dybox(img, h0, w0, c0, hb, wb):
+            return tma_box(dy4, img, h0, w0, c0, hb, wb)
     tiles_w, tiles_h = -(-w // p.wb), -(-h // p.hb)
     ntiles, cch = n * tiles_w * tiles_h, -(-ci // 64)
     rchunks, kp = ks * ks * cch, p.wb * p.hb
@@ -268,14 +279,13 @@ def emulate_tma_dw(x4, dy4, ks, sms):
                     w0 = t % tiles_w * p.wb
                     h0 = t // tiles_w % tiles_h * p.hb
                     img = t // (tiles_w * tiles_h)
-                    b = torch.cat([tma_box(dy4, img, h0, w0, co0 + 64 * j,
-                                           p.hb, p.wb)
+                    b = torch.cat([dybox(img, h0, w0, co0 + 64 * j, p.hb,
+                                         p.wb)
                                    for j in range(p.bn // 64)], 1)
                     for j in (0, 1):
                         ky, kx = divmod(chunks[j] // cch, ks)
-                        a = tma_box(x4, img, h0 + ky - ks // 2,
-                                    w0 + kx - ks // 2,
-                                    chunks[j] % cch * 64, p.hb, p.wb)
+                        a = xbox(img, h0, w0, ky, kx,
+                                 chunks[j] % cch * 64, p.hb, p.wb)
                         rows = (slice(0, kp) if p.two
                                 else slice(j * kp // 2, (j + 1) * kp // 2))
                         slots[j] += a[rows].T @ b[rows]

@@ -9,10 +9,12 @@ sums in another order (up to 9*64 products a conv output, up to ~200
 rows a statistic). A float64 gradcheck holds each autograd function to
 finite differences.
 
-The kernels' tiling is emulated here, in the kernels' own index
+The forward kernel's tiling is emulated here, in its own index
 arithmetic (128-row pixel tiles, 32-wide K slices within one tap, the
-tap-to-pixel map with its SAME pad, the dW split over pixel chunks), and
-must equal the plain whole-map result.
+tap-to-pixel map with its SAME pad); the backward's (csrc/conv_bwd.cuh:
+the dW split over pixel tiles and clusters, the dX tiles with their
+staged dy_eff) by tests/test_torch_conv_bwd.py. Both must equal the plain
+whole-map result.
 """
 
 import jax
@@ -23,6 +25,7 @@ import torch
 
 from tensorflow_ocr_tpu.ops import pallas_fused as PF
 from tensorflow_ocr_tpu_torch.ops import fused as FU
+from test_torch_conv_bwd import emulate_fused_bwd
 
 torch.set_num_threads(1)
 RTOL = 1e-4
@@ -199,43 +202,6 @@ def emulate_conv_fwd(x, ab, w):
     return y, s
 
 
-def emulate_conv_bwd(x, ab, w, y, dy, ds, sms=132):
-    n, ci, h, wd = x.shape
-    co, ks = w.shape[0], w.shape[-1]
-    m, kdim = n * h * wd, ks * ks * ci
-    rows_of = lambda t: t.permute(0, 2, 3, 1).reshape(m, -1)  # noqa: E731
-    xn, xr = rows_of(FU._prologue(x, ab)), rows_of(x)
-    dye = rows_of(FU._dy_eff(dy, y, ds))
-    # dW: 128-row tiles of (tap, channel), the pixels split in chunks
-    bn = 128 if co % 128 == 0 else 64
-    tiles = -(-kdim // BM) * -(-co // bn)
-    splits = -(-4 * sms // tiles)
-    chunk = -(-(-(-m // splits)) // BK) * BK
-    dw = torch.zeros(kdim, co)
-    for p0 in range(0, m, chunk):
-        pix = torch.arange(p0, min(m, p0 + chunk))
-        cols = torch.stack([
-            staged(xn, tap_pixel(pix, q // ci, n, h, wd, ks), q % ci)
-            for q in range(0, kdim, BK)], 1).reshape(len(pix), kdim)
-        dw += cols.T @ dye[pix]
-    # dx and dab: 128-row tiles, K = (tap, co) slices of dy_eff
-    wflip = w.flip(2, 3).permute(1, 2, 3, 0).reshape(ci, ks * ks * co)
-    dx, dab = torch.zeros(m, ci), torch.zeros(2, ci)
-    a, b = ab
-    for m0 in range(0, m, BM):
-        rows = torch.arange(m0, m0 + BM)
-        acc = torch.zeros(BM, ci)
-        for k0 in range(0, ks * ks * co, BK):
-            tap, c0 = divmod(k0, co)
-            acc += staged(dye, tap_pixel(rows, tap, n, h, wd, ks), c0) \
-                @ wflip[:, k0:k0 + BK].T
-        live = rows[rows < m]
-        gm = acc[:len(live)] * (xr[live] * a + b > 0)
-        dx[live] = gm * a
-        dab += torch.stack([(gm * xr[live]).sum(0), gm.sum(0)])
-    return dx, dab, dw
-
-
 @pytest.mark.parametrize("k,ci,co,nhw", [
     (3, 64, 64, (2, 9, 11)),     # M = 198: a full tile and a ragged one
     (3, 32, 64, (1, 12, 13)),    # K slices within one tap of 32 channels
@@ -249,11 +215,18 @@ def test_kernel_split_emulation_equals_whole_map(k, ci, co, nhw):
     ey, es = emulate_conv_fwd(*args)
     close(ey, y.permute(0, 2, 3, 1).reshape(-1, co), "y")
     close(es, s, "s")
+    if not FU.kernel_takes(ci, co, k):
+        # the backward's TMA boxes take 64-channel multiples only: the
+        # wrapper refuses the rest before it reaches the card
+        with pytest.raises(ValueError, match="multiple of 64"):
+            FU._conv_shapes(*args)
+        return
     dx, dab, dw = FU.conv_bwd_reference(*args, y, nchw(dy),
                                         torch.from_numpy(ds))
-    # a small SM count forces a dW split into several pixel chunks
-    edx, edab, edw = emulate_conv_bwd(*args, y, nchw(dy),
-                                      torch.from_numpy(ds), sms=1)
+    # a small SM count: several CTAs walk several tiles each, and the dW
+    # split has several pixel ranges
+    edx, edab, edw, _, _ = emulate_fused_bwd(*args, y, nchw(dy),
+                                             torch.from_numpy(ds), 4)
     close(edx, dx.permute(0, 2, 3, 1).reshape(-1, ci), "dx")
     close(edab, dab, "dab")
     close(edw, dw.reshape(co, ci, k, k).permute(2, 3, 1, 0).reshape(-1, co),
