@@ -38,9 +38,10 @@ Phases, in order; any failure raises and exits non-zero:
 10. hold each fused kernel against its plain version at every shape the
    train step gives it (the 15 1x1 and 4 3x3 convs of the fused units,
    the boundary of each block): forward y and s, backward dx, dab and
-   dw (each backward launched twice and held bit-equal); print kernel
-   and plain ms, the backward's dW and dX device ms (torch.profiler) and
-   its ms a train step;
+   dw (each forward and backward launched twice and held bit-equal);
+   print kernel and plain ms, the forward's device ms and its conv-alone
+   yardstick, the backward's dW and dX device ms (torch.profiler) and
+   each conv kernel's ms a train step;
 11. the train step at full width: pixellink_resnet50, bottleneck_impl
    "fused", 512x512, batch 32, bf16, labels made on the card from the
    polygons of numpy scenes; 3 steps through Trainer.run with finite
@@ -62,9 +63,10 @@ Phases, in order; any failure raises and exits non-zero:
 14. hold each of the five ghost-BN kernels (csrc/ghost_unit.cu) against
    its plain version along one unit's forward and backward chain at
    each of the 4 ghost unit shapes of the 512^2 batch-32 step (each conv
-   backward launched twice and held bit-equal); print kernel and plain
-   ms, the FLOPs, bytes and bound of each call, the conv backward's dW
-   and dX device ms and its ms a train step;
+   forward and backward launched twice and held bit-equal); print kernel
+   and plain ms, the FLOPs, bytes and bound of each call, the conv
+   forward's device ms and conv-alone yardstick, the conv backward's dW
+   and dX device ms and each conv kernel's ms a train step;
 15. with --faults only: the readings of the ghost arm check (phase 16)
    in 3 sound runs and under planted faults, which set GHOST_ARM_*;
 16. the ghost arm (bottleneck_impl "ghost": 5 ghost units, the other 8
@@ -207,6 +209,28 @@ def kernel_device_ms(fn, groups, iters=5):
 # kernel name: dW (tdw, and sum_tables where the pixels are split over
 # more than one cluster) and dX (tdx, and reduce_parts of its sums)
 BWD_PARTS = {"dW": ("tdw<", "sum_tables"), "dX": ("tdx<", "reduce_parts")}
+# the staged forward: tdx in its forward mode and reduce_parts of its sums
+FWD_PARTS = {"fwd": ("tdx<", "reduce_parts")}
+
+
+def conv_alone_ms(xn, w, iters):
+    """The ms of one library call of the conv product alone on the
+    pre-activated xn (N, Ci, H, W) bf16 channels-last, after a warm-up
+    call: torch.matmul over its pixel rows for a 1x1, F.conv2d (cuDNN) for
+    a 3x3. A yardstick for the product of the staged forwards, not the
+    same function (no prologue, no sums)."""
+    import torch
+    import torch.nn.functional as F
+
+    k = w.shape[-1]
+    if k == 1:
+        x2 = xn.permute(0, 2, 3, 1).reshape(-1, xn.shape[1])
+        w2 = w[:, :, 0, 0].t()
+        fn = lambda: torch.matmul(x2, w2)  # noqa: E731
+    else:
+        fn = lambda: F.conv2d(xn, w, padding=k // 2)  # noqa: E731
+    fn()
+    return cuda_ms(fn, iters)
 
 
 def blob_maps(gen, shape, device):
@@ -1014,7 +1038,10 @@ def build_all():
 def phase_fused_kernels(device, reports):
     """Each fused kernel against its plain version at the slice's shapes:
     forward y and s, backward dx, dab and dw, boundary out, dz, dzs, dab,
-    dabs. Prints kernel and plain ms per shape (CUDA events)."""
+    dabs; each conv kernel launched twice and held bit-equal. Prints
+    kernel and plain ms per shape (CUDA events), each conv kernel's device
+    ms (torch.profiler) and the forward's conv-alone yardstick, and each
+    conv kernel's ms a train step."""
     import torch
     from tensorflow_ocr_tpu_torch.ops import fused as FU
 
@@ -1044,13 +1071,16 @@ def phase_fused_kernels(device, reports):
         return ms, pms
 
     counts = fused_shape_counts()
-    # the backward a train step: each shape's times its launches
+    # the forward and the backward a train step: each shape's times its
+    # launches
     step = dict(ms=0.0, dW=0.0, dX=0.0, bound=0.0)
+    fstep = dict(ms=0.0, fwd=0.0, bound=0.0, alone=0.0)
+    alone_sum = 0.0
     for n, h, w, ci, co, k in CONV_SHAPES:
         m, kk = n * h * w, k * k * ci * co
         launches = counts[(n, h, w, ci, co, k)]
-        add_bound(reports["fused_conv_fwd"], 2 * m * kk,
-                  2 * m * (ci + co) + 2 * kk + 8 * (ci + co))
+        fbound = add_bound(reports["fused_conv_fwd"], 2 * m * kk,
+                           2 * m * (ci + co) + 2 * kk + 8 * (ci + co))
         bound = add_bound(reports["fused_conv_bwd"], 4 * m * kk,
                           2 * m * (2 * ci + 2 * co) + 6 * kk + 16 * (ci + co))
         x = act(n, ci, h, w)
@@ -1058,7 +1088,13 @@ def phase_fused_kernels(device, reports):
         wt = (torch.randn(co, ci, k, k, generator=gen)
               / (k * k * ci) ** 0.5).to(device=device, dtype=bf)
         y, s = FU.conv_fwd(x, ab, wt)
+        again = FU.conv_fwd(x, ab, wt)
         py, ps = FU.conv_fwd_reference(x, ab, wt)
+        torch.cuda.synchronize()
+        check(torch.equal(y, again[0]) and torch.equal(s, again[1]),
+              f"fused conv_fwd {k}x{k} {ci}->{co}: two launches on the same "
+              "inputs differ")
+        del again
         e = bf16_close("fwd y", y, py)
         mag = py.float().abs().sum((0, 2, 3))
         es = max(sum_close("fwd s0", s[0], ps[0], mag),
@@ -1087,6 +1123,13 @@ def phase_fused_kernels(device, reports):
             reports["fused_conv_bwd"]["max_abs_err"], eb)
         fms = timed("fused_conv_fwd", lambda: FU.conv_fwd(x, ab, wt),
                     lambda: FU.conv_fwd_reference(x, ab, wt), 20)
+        fdev = kernel_device_ms(lambda: FU.conv_fwd(x, ab, wt),
+                                FWD_PARTS)["fwd"]
+        ams = conv_alone_ms(FU._prologue(x, ab), wt, 20)
+        alone_sum += ams
+        for key, v in (("ms", fms[0]), ("fwd", fdev), ("bound", fbound),
+                       ("alone", ams)):
+            fstep[key] += launches * v
         bms = timed("fused_conv_bwd",
                     lambda: FU.conv_bwd(x, ab, wt, y, dy, ds),
                     lambda: FU.conv_bwd_reference(x, ab, wt, y, dy, ds), 20)
@@ -1095,11 +1138,12 @@ def phase_fused_kernels(device, reports):
         for key, v in (("ms", bms[0]), ("bound", bound), *parts.items()):
             step[key] += launches * v
         print(f"fused conv {k}x{k} {ci}->{co} at {n}x{h}x{w} ({launches} a "
-              f"step): fwd {fms[0]:.4f} ms (plain {fms[1]:.4f}), bwd "
+              f"step): fwd {fms[0]:.4f} ms (plain {fms[1]:.4f}; device "
+              f"{fdev:.4f}; bound {fbound:.4f}; conv alone {ams:.4f}), bwd "
               f"{bms[0]:.4f} ms (plain {bms[1]:.4f}; device dW "
               f"{parts['dW']:.4f}, dX {parts['dX']:.4f}; bound "
               f"{bound:.4f}); max abs err y {e:.3e}, dx/dw {eb:.3e}, f32 "
-              f"sums s/dab {es:.3e}; bwd bit-equal twice")
+              f"sums s/dab {es:.3e}; fwd and bwd bit-equal twice")
         del x, y, dy, dx, py, pdx
 
     for n, h, w, c in BOUNDARY_SHAPES:
@@ -1140,6 +1184,13 @@ def phase_fused_kernels(device, reports):
               f"(plain {fms[1]:.4f}), bwd {bms[0]:.4f} ms (plain "
               f"{bms[1]:.4f}); max abs err out {e:.3e}, dz/dzs {eb:.3e}, "
               f"f32 sums dab/dabs {es:.3e}")
+    print(f"fused_conv_fwd a train step (each shape's ms times its "
+          f"launches, {FUSED_CONV_STEP_LAUNCHES} in all): {fstep['ms']:.4f} "
+          f"ms by events (device {fstep['fwd']:.4f}), bound "
+          f"{fstep['bound']:.4f}, conv alone {fstep['alone']:.4f}; over the "
+          f"{len(CONV_SHAPES)} shapes: {reports['fused_conv_fwd']['ms']:.4f}"
+          f", bound {reports['fused_conv_fwd']['bound_ms']:.4f}, conv alone "
+          f"{alone_sum:.4f}")
     print(f"fused_conv_bwd a train step (each shape's ms times its "
           f"launches, {FUSED_CONV_STEP_LAUNCHES} in all): {step['ms']:.4f} ms "
           f"by events (device: dW {step['dW']:.4f}, dX {step['dX']:.4f}), "
@@ -1149,7 +1200,10 @@ def phase_fused_kernels(device, reports):
     print("fused kernels: ms and plain_ms in the kernels line are sums over "
           f"the {len(CONV_SHAPES)} conv / {len(BOUNDARY_SHAPES)} boundary "
           "shapes above; max_abs_err is over the bf16 outputs (the f32 "
-          "sums are checked against SUM_REL and printed above)")
+          "sums are checked against SUM_REL and printed above); conv alone "
+          "is torch.matmul / F.conv2d of the pre-activated input, a "
+          "yardstick for the forward's product, not the same function "
+          "(library_ms stays null: no one call computes the whole function)")
 
 
 def train_config(impl: str, freeze_bn: bool = False):
@@ -1705,10 +1759,17 @@ def phase_ghost_kernels(device, reports):
               f"{bound:.4f} ms; max abs err {max(errs):.3e}")
         return ms, bound
 
+    fstep = dict(ms=0.0, fwd=0.0, bound=0.0, alone=0.0)
+
     def conv_fwd(what, x, tab, w, gh):
         got, want = G.conv_fwd(x, tab, w, gh), G.conv_fwd_reference(x, tab,
                                                                   w, gh)
+        again = G.conv_fwd(x, tab, w, gh)
         torch.cuda.synchronize()
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              f"ghost conv_fwd {what}: two launches on the same inputs "
+              "differ")
+        del again
         # the statistics are of each side's own rounded y, and the two y
         # may round apart by an ulp: the kernel's sums are held against
         # the plain sums of its own y
@@ -1719,10 +1780,19 @@ def phase_ghost_kernels(device, reports):
         n, ci, h, wd = x.shape
         co, k = w.shape[0], w.shape[-1]
         m, nbt = n * h * wd, n * (h // gh)
-        timed("ghost_conv_fwd", what, lambda: G.conv_fwd(x, tab, w, gh),
-              lambda: G.conv_fwd_reference(x, tab, w, gh), errs,
-              2 * m * k * k * ci * co,
-              2 * m * (ci + co) + 2 * k * k * ci * co + 8 * nbt * (ci + co))
+        ms, bound = timed(
+            "ghost_conv_fwd", what, lambda: G.conv_fwd(x, tab, w, gh),
+            lambda: G.conv_fwd_reference(x, tab, w, gh), errs,
+            2 * m * k * k * ci * co,
+            2 * m * (ci + co) + 2 * k * k * ci * co + 8 * nbt * (ci + co))
+        dev = kernel_device_ms(lambda: G.conv_fwd(x, tab, w, gh),
+                               FWD_PARTS)["fwd"]
+        ams = conv_alone_ms(G._act(x, tab, gh), w, 10)
+        for key, v in (("ms", ms), ("fwd", dev), ("bound", bound),
+                       ("alone", ams)):
+            fstep[key] += units * v
+        print(f"ghost_conv_fwd {what}: device {dev:.4f} ms, conv alone "
+              f"{ams:.4f}; {units} a step; bit-equal twice")
         return want
 
     step = dict(ms=0.0, dW=0.0, dX=0.0, bound=0.0)
@@ -1852,6 +1922,10 @@ def phase_ghost_kernels(device, reports):
                  addend=addend, out="act")
         del o, z1, z2, z3, zs, dout, gm3, gm2, gm1, edge, addend
         torch.cuda.empty_cache()
+    print(f"ghost_conv_fwd a train step (each call's ms times its units in "
+          f"a step, {GHOST_STEP_LAUNCHES['ghost_conv_fwd']} in all): "
+          f"{fstep['ms']:.4f} ms by events (device {fstep['fwd']:.4f}), "
+          f"bound {fstep['bound']:.4f}, conv alone {fstep['alone']:.4f}")
     print(f"ghost_conv_bwd a train step (each call's ms times its units in "
           f"a step, {GHOST_STEP_LAUNCHES['ghost_conv_bwd']} in all): "
           f"{step['ms']:.4f} ms by events (device: dW {step['dW']:.4f}, dX "
@@ -1859,7 +1933,10 @@ def phase_ghost_kernels(device, reports):
     print("ghost kernels: ms, plain_ms and bound_ms in the kernels line are "
           "sums over every call of one unit's chain at each of the "
           f"{len(GHOST_SHAPES)} unit shapes; max_abs_err over its "
-          "tensor outputs (the f32 sums are checked against SUM_REL above)")
+          "tensor outputs (the f32 sums are checked against SUM_REL above); "
+          "conv alone is torch.matmul / F.conv2d of the input activated "
+          "under its own band (the 3x3's halo rows aside), a yardstick for "
+          "the forward's product, not the same function")
 
 
 @contextlib.contextmanager

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Probe of the staged conv backward (csrc/conv_bwd.cuh, through
-fused_conv.cu's fused_conv_bwd and ghost_unit.cu's ghost_conv_bwd) on one
-CUDA GPU.
+"""Probe of the staged conv kernels (csrc/conv_bwd.cuh, through
+fused_conv.cu's fused_conv_fwd and fused_conv_bwd and ghost_unit.cu's
+ghost_conv_fwd and ghost_conv_bwd) on one CUDA GPU.
 
     python3 scripts/fused_bwd_probe.py
 
 1. builds fused_conv.cu and ghost_unit.cu once more with -Xptxas -v (both
    nvcc at once) and prints the registers, shared memory and spills of
-   each tdw and tdx instance;
+   each tdw and tdx instance: the backward's dW and dX, and the forward
+   (tdx with ActTr);
 2. runs chip_smoke.py's fused and ghost kernel phases: every kernel of
    the two sources against its plain version at every shape of the 512^2
-   batch-32 step, each backward launched twice and held bit-equal, with
-   its time by CUDA events, its dW and dX device time from torch.profiler
-   and its ms a step (each shape times its launches).
+   batch-32 step, each conv forward and backward launched twice and held
+   bit-equal, with its time by CUDA events, its device time (forward;
+   the backward's dW and dX) from torch.profiler and its ms a step (each
+   shape times its launches).
 
 Exits 2 without CUDA.
 """
@@ -69,7 +71,9 @@ def main() -> int:
     C.phase_fused_kernels(device, fused)
     ghost = {name: {} for name in C.GHOST_KERNELS}
     C.phase_ghost_kernels(device, ghost)
-    for name, r in (("fused_conv_bwd", fused["fused_conv_bwd"]),
+    for name, r in (("fused_conv_fwd", fused["fused_conv_fwd"]),
+                    ("fused_conv_bwd", fused["fused_conv_bwd"]),
+                    ("ghost_conv_fwd", ghost["ghost_conv_fwd"]),
                     ("ghost_conv_bwd", ghost["ghost_conv_bwd"])):
         print(f"{name}: {r['ms']:.4f} ms over its shapes (events), bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']}), plain "

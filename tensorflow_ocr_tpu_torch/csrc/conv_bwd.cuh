@@ -1,13 +1,18 @@
-// The backward of a conv whose operands are staged through a transform,
-// on Hopper (sm_90a): TMA loads, an elementwise rewrite of each tile in
-// shared memory, wgmma, and reductions in a fixed order. fused_conv.cu
-// (the fused conv+BN+relu backward) and ghost_unit.cu (the ghost-BN
-// unit's conv backward) instantiate it with their transforms.
+// The staged conv products on Hopper (sm_90a): TMA loads, an elementwise
+// rewrite of each tile in shared memory, wgmma, and reductions in a fixed
+// order. fused_conv.cu (the fused conv+BN+relu, forward and backward) and
+// ghost_unit.cu (the ghost-BN unit's convs, forward and backward)
+// instantiate it with their transforms; conv_dw.cu runs tdw with none.
 //
-// Contract of one conv's backward (NHWC, n images of h x w; a 1x1 may
-// pass its rows as n = h = 1, w = M; ci, co multiples of 64):
+// Contract of one conv (NHWC, n images of h x w; a 1x1 may pass its rows
+// as n = h = 1, w = M; ci, co multiples of 64):
 //   T_x(x)    the conv's activated input: relu(x*a + b) (per channel, or
 //             per band of the OUTPUT pixel), or x as it is;
+//   forward   y = bf16(im2col(T_x(x)) . W^T) (tdx in its forward mode,
+//             out_kind 4, with ActTr: A = T_x(x), B = W) and the column
+//             sums [sum v, sum v^2] with v the f32 accumulator (fused:
+//             pallas_fused.py:100-110) or the rounded y, per band (ghost:
+//             pallas_unit.py:60-64 _band_stats);
 //   T_dy      the output gradient, staged from two tensors: dy_eff = dy
 //             + ds0 + 2*y*ds1 (fused) or dz = g*a + c1 + 2*z*c2 (+ the
 //             seam term on a band's edge rows) under the table of the
@@ -26,7 +31,9 @@
 // output row (the 3x3 dX reads only its own band's dz; the seam rows are
 // ghost_seam_bwd's), and a ghost T_x takes the (a, b) of the band of the
 // output pixel, which for a halo row is the reading band, not the row's
-// own.
+// own. The ghost FORWARD's 3x3 reads its halo rows from the neighbouring
+// band, under the output band's affine, and zeroes none of them: only
+// taps outside the image are zero.
 //
 // dW (tdw), also conv_dw.cu's plain dW (an identity transform compiles
 // the rewrite out). A CTA of three warpgroups owns one or two 64-row
@@ -47,22 +54,29 @@
 // distributed shared memory in rank order, the clusters' tables summed
 // by sum_tables in cluster order: no atomics, two launches are bit-equal.
 //
-// dX (tdx), on conv_fwd.cu's pattern. Persistent CTAs walk 128-pixel x BN
-// tiles in a fixed order (a grid that is a multiple of the column tiles,
-// so a CTA's tiles share one column); a K step is a tap x 64 channels of
-// co, its slot the A box shifted by the tap (dy or z), its aux box and
-// the weight box unless the weight is resident, and each warpgroup
-// rewrites its own 64 rows of the A box through T_dy; a 3x3 whose box is
-// a 64- or 128-pixel row segment takes halo mode (dx_halo: one box a ky
-// rewritten once, three taps). Then wgmma m64nBNk16, K-major operands. The
-// epilogue's bf16 input (x, or the addend) arrives by TMA in an epilogue
-// slot that the bf16 output then overwrites and a second producer thread
-// stores by TMA, so neither waits on the ring; f32 outputs go from the
-// fragment. The column sums are reduced in a fixed order (shuffles, then
-// the 8 warps in order) into one partial entry a tile (ghost: band sums,
-// a tile lies in one band) or a CTA (fused: kept in registers over its
-// tiles), and reduce_parts adds the entries in order. No atomics:
-// bit-equal twice.
+// dX and the forward (tdx), on conv_fwd.cu's pattern. Persistent CTAs
+// walk 128-pixel x BN tiles, each CTA a contiguous range of pixel tiles in
+// one column (the grid is a multiple of the column tiles); a K step is a
+// tap x 64 contracted channels, its slot the A box shifted by the tap (dy
+// or z; x in the forward), its aux box (none in the forward) and the
+// weight box unless the weight is resident. The backward's warpgroups
+// rewrite their 64 rows of the A box in shared memory through T_dy
+// (d_tab/dy); the forward's load theirs by ldmatrix into wgmma's register
+// A fragment and apply T_x there (ActTr::ab2/act2: no store, no proxy
+// fence and no barrier a step; an identity T_x reads the box as it is). A
+// 3x3 whose box is a 64- or 128-pixel row segment takes halo mode
+// (dx_halo: one box a ky rewritten once in shared memory, by either
+// direction's transform, for three taps). Then wgmma m64nBNk16, K-major
+// operands. The epilogue's bf16 input (x, or the addend) arrives by TMA in
+// an epilogue slot that the bf16 output (dx, do, or the forward's y) then
+// overwrites and a second producer thread stores by TMA, so neither waits
+// on the ring; f32 outputs go from the fragment. The column sums are
+// reduced in a fixed order (shuffles, then the 8 warps in order) into one
+// partial entry a tile (the ghost dX: band sums, a tile lies in one band),
+// a run of a CTA's tiles in one band (the ghost forward: kept in registers
+// over the run, zero entries at its other tiles) or a CTA (fused: kept in
+// registers over its tiles), and reduce_parts adds the entries in order.
+// No atomics: bit-equal twice.
 
 #pragma once
 
@@ -127,7 +141,15 @@ __device__ __forceinline__ uint32_t chunk_offset(int r, int jc) {
 //   x_on()              false: x enters as it is;
 //   kPerCta             the dX sums are the whole tensor's (one entry a
 //                       CTA, kept in registers over its tiles), else a
-//                       band's (one entry a tile).
+//                       band's (one entry a tile);
+//   kBandRuns           (with !kPerCta) a band's sums kept in registers
+//                       over a run of the CTA's tiles in that band, the
+//                       run's entry at its last tile, zero at the others;
+//   kFwd                false: a backward transform. A forward one
+//                       (ActTr) is tdx's alone: kAux = 0, d_tab/dy stage
+//                       a halo box of x through T_x, ab2/act2 the register
+//                       fragment of the other K steps, x_on() false skips
+//                       both, kRoundedSums picks the value summed.
 // The kernels keep a thread's tables in registers while the key holds.
 
 // ------------------------------------------------------------------- dW
@@ -398,7 +420,61 @@ __global__ void sum_tables(const float* __restrict__ part,
   }
 }
 
-// ------------------------------------------------------------------- dX
+// ------------------------------------------------------- dX, forward
+
+// The forward's transform (tdx, out_kind 4): the A operand x -> relu(x*a
+// + b), (a, b) from tab (keys, 2, c) at the tile's key: the one
+// (2, c) table where band_px = 0 (fused_conv.cu), else the table of the
+// band of the output pixel (ghost_unit.cu; a tile lies in one band, and
+// a 3x3's halo rows take it too). tab null: x as it is, no rewrite.
+// kPerCta: the sums of the whole tensor, of the f32 accumulator (fused);
+// else per band, of the rounded y, kept over each run of a CTA's tiles in
+// one band (ghost, kBandRuns).
+template <bool PER_CTA>
+struct ActTr {
+  using Aux = bf16;                   // unread: no aux box
+  static constexpr int kAux = 0;
+  static constexpr bool kPerCta = PER_CTA;
+  static constexpr bool kBandRuns = !PER_CTA;
+  static constexpr bool kFwd = true;
+  static constexpr bool kRoundedSums = !PER_CTA;
+  struct DT {
+    float a[8], b[8];
+  };
+  const float* tab;
+  int c, band_px;
+
+  __device__ __forceinline__ bool x_on() const { return tab != nullptr; }
+  __device__ __forceinline__ int key(int pix) const {
+    return band_px > 0 ? pix / band_px : 0;
+  }
+  __device__ __forceinline__ void d_tab(DT& t, int key, int ch) const {
+    const float* p = tab + (size_t)key * 2 * c + ch;
+    load8f(p, t.a);
+    load8f(p + c, t.b);
+  }
+  __device__ __forceinline__ void dy(float v[8], const float*, const DT& t,
+                                     int, int) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = fmaxf(affine(v[i], t.a[i], t.b[i]), 0.f);
+  }
+  // the register path (a K step's A fragment): (a, b) of channels ch and
+  // ch + 1 as {a0, a1, b0, b1}, and T_x of one bf16 pair, zero where !live
+  __device__ __forceinline__ float4 ab2(int key, int ch) const {
+    const float* p = tab + (size_t)key * 2 * c + ch;
+    const float2 u = __ldg(reinterpret_cast<const float2*>(p));
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p + c));
+    return make_float4(u.x, u.y, v.x, v.y);
+  }
+  __device__ __forceinline__ uint32_t act2(uint32_t x, const float4& t,
+                                           bool live) const {
+    __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&x);
+    const float2 f = __bfloat1622float2(h);
+    h = __floats2bfloat162_rn(fmaxf(affine(f.x, t.x, t.z), 0.f),
+                              fmaxf(affine(f.y, t.y, t.w), 0.f));
+    return live ? *reinterpret_cast<const uint32_t*>(&h) : 0u;
+  }
+};
 
 // out_kind: what the epilogue makes of the product acc at output pixel
 // p, column c (x, and the mask's (a, b) from the row tr.ab_row of the
@@ -406,15 +482,19 @@ __global__ void sum_tables(const float* __restrict__ part,
 //   0  gm = acc*[x*a + b > 0] stored f32; sums [sum gm*x, sum gm];
 //   1  bf16(acc + addend) (TMA store);
 //   2  acc + addend stored f32;
-//   3  gm as 0, dx = bf16(gm*a) (TMA store); sums as 0.
+//   3  gm as 0, dx = bf16(gm*a) (TMA store); sums as 0;
+//   4  the forward (Tr::kFwd): y = bf16(acc) (TMA store); sums [sum v,
+//      sum v^2], v = acc or, with Tr::kRoundedSums, the rounded y.
 // addend (add_kind 0 none, 1 bf16, 2 f32) is (n, h, w, ci).
 struct DxArgs {
-  void* out;         // (n*h*w, ci), bf16 (out_kind 1, 3) or f32 (0, 2)
-  float* part;       // partial sums (entries, 2, ci) (out_kind 0, 3)
+  void* out;         // (n*h*w, ci), bf16 (out_kind 1, 3, 4) or f32 (0, 2)
+  float* part;       // partial sums (entries, 2, ci) (out_kind 0, 3, 4)
   const void* addend;
   int add_kind, out_kind;
   int h, w, ci, co, ks;  // ci = columns of dX, co = the contracted dim
   int wb, hb, tiles_w, tiles_h;
+  int lwb;               // log2(wb): row r of a tile is pixel (r & (wb -
+                         // 1), r >> lwb) of its box
   int col_tiles, tiles;  // tiles = row tiles * col_tiles
   int cb, ksteps;        // 64-channel boxes of co; K steps a tile
   int stages, resident;
@@ -425,7 +505,11 @@ struct DxArgs {
 
 // bf16 output stored by TMA from the epilogue slot
 __host__ __device__ constexpr bool dx_staged(int out_kind) {
-  return out_kind == 1 || out_kind == 3;
+  return out_kind == 1 || out_kind == 3 || out_kind == 4;
+}
+// column sums, one entry a tile or a CTA
+__host__ __device__ constexpr bool dx_sums(int out_kind) {
+  return out_kind == 0 || out_kind == 3 || out_kind == 4;
 }
 // the epilogue's bf16 input (x, or a bf16 addend) loaded by TMA into the
 // epilogue slot, where the output then overwrites it
@@ -468,6 +552,7 @@ tdx(const __grid_constant__ CUtensorMap mdy,
     const __grid_constant__ CUtensorMap me,
     const __grid_constant__ CUtensorMap my, const DxArgs a, const Tr tr) {
   using Aux = typename Tr::Aux;
+  constexpr bool FWD = Tr::kFwd;        // out_kind 4
   constexpr int BBOX = BN * 128;        // bytes of one weight box
   constexpr int AUXBOX = TM * 64 * Tr::kAux;
   constexpr int HALF = 64 * BN * 2;     // bytes of a warpgroup's half slot
@@ -476,7 +561,11 @@ tdx(const __grid_constant__ CUtensorMap mdy,
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
   const bool staged = dx_staged(a.out_kind);
   const bool ein = dx_ein(a.out_kind, a.add_kind);
-  const bool sums = a.out_kind == 0 || a.out_kind == 3;
+  const bool sums = dx_sums(a.out_kind);
+  const bool mask = !FWD && sums;       // the epilogue's relu mask
+  // the A box's rewrite: every backward's, a forward's unless T_x is the
+  // identity (TMA's zero fill is then the pad)
+  const bool rewrite = !FWD || tr.x_on();
   const int hrows = (a.wb + 2) * a.hb;  // rows of a halo box
   const int hbox = round1k(hrows * 128);
   const int stage_bytes = dx_stage_bytes(BN, a.resident, a.halo, a.wb,
@@ -521,6 +610,17 @@ tdx(const __grid_constant__ CUtensorMap mdy,
     y0 = (t % a.tiles_h) * a.hb;
     img = t / a.tiles_h;
   };
+  // this CTA's tiles, in order: a contiguous range of row tiles in the
+  // column blockIdx.x % col_tiles (the grid is a multiple of the column
+  // tiles; each of its grid / col_tiles groups takes an equal share)
+  const int groups = gridDim.x / a.col_tiles;
+  const int row_tiles = a.tiles / a.col_tiles;
+  const int grp = blockIdx.x / a.col_tiles;
+  const int r_lo = (int)((long long)grp * row_tiles / groups);
+  const int ntiles = (int)((long long)(grp + 1) * row_tiles / groups) - r_lo;
+  auto tile_at = [&](int i) {
+    return (r_lo + i) * a.col_tiles + (int)blockIdx.x % a.col_tiles;
+  };
   // the epilogue slot's TMA boxes of tile t (load or store): each
   // warpgroup's 64 rows, the right half of a 128-pixel row or the lower
   // hb / 2 rows of the box, 64 columns a box
@@ -545,7 +645,7 @@ tdx(const __grid_constant__ CUtensorMap mdy,
     regs_shrink<40>();
     if (tid == 0) {
       prefetch_map(&mdy);
-      prefetch_map(&maux);
+      if (Tr::kAux) prefetch_map(&maux);
       prefetch_map(&mw);
       if (a.resident) {
         // the grid is a multiple of the column tiles: every tile of this
@@ -559,32 +659,39 @@ tdx(const __grid_constant__ CUtensorMap mdy,
       const int tx_bytes =
           a.halo ? hrows * 128 + hrows * 64 * Tr::kAux + 3 * BBOX
                  : stage_bytes;
-      int it = 0;
-      for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+      // the ring slot and its phase, and the K step's channel box and tap
+      // (halo mode: ky), kept as running counters: no division a step
+      int st = 0, ph = 0;
+      for (int i = 0; i < ntiles; ++i) {
         int img, x0, y0, col;
-        tile_of(t, img, x0, y0, col);
-        for (int k = 0; k < a.ksteps; ++k, ++it) {
-          const int st = it % a.stages;
-          mbar_wait(&empty[st], ((it / a.stages) & 1) ^ 1);
+        tile_of(tile_at(i), img, x0, y0, col);
+        int c0 = 0, tap = 0, kx = -half, ky = -half;
+        for (int k = 0; k < a.ksteps; ++k) {
+          mbar_wait(&empty[st], ph ^ 1);
           uint8_t* buf = smem + st * stage_bytes;
           mbar_expect_tx(&full[st], tx_bytes);
-          const int c0 = (k % a.cb) * 64;
           if (a.halo) {
-            const int ky = k / a.cb;
-            tma_load_4d(buf, &mdy, &full[st], c0, x0 - 1, y0 + ky - 1, img);
-            tma_load_4d(buf + aux_at, &maux, &full[st], c0, x0 - 1,
-                        y0 + ky - 1, img);
-            for (int kx = 0; kx < 3; ++kx)
-              tma_load_3d(buf + w_at + kx * BBOX, &mw, &full[st], c0,
-                          3 * ky + kx, col * BN);
+            tma_load_4d(buf, &mdy, &full[st], c0, x0 - 1, y0 + tap - 1, img);
+            if (Tr::kAux)
+              tma_load_4d(buf + aux_at, &maux, &full[st], c0, x0 - 1,
+                          y0 + tap - 1, img);
+            for (int j = 0; j < 3; ++j)
+              tma_load_3d(buf + w_at + j * BBOX, &mw, &full[st], c0,
+                          3 * tap + j, col * BN);
           } else {
-            const int tap = k / a.cb;
-            const int sx = x0 + tap % a.ks - half, sy = y0 + tap / a.ks - half;
-            tma_load_4d(buf, &mdy, &full[st], c0, sx, sy, img);
-            tma_load_4d(buf + aux_at, &maux, &full[st], c0, sx, sy, img);
+            tma_load_4d(buf, &mdy, &full[st], c0, x0 + kx, y0 + ky, img);
+            if (Tr::kAux)
+              tma_load_4d(buf + aux_at, &maux, &full[st], c0, x0 + kx,
+                          y0 + ky, img);
             if (!a.resident)
               tma_load_3d(buf + w_at, &mw, &full[st], c0, tap, col * BN);
           }
+          if ((c0 += 64) == 64 * a.cb) {
+            c0 = 0;
+            ++tap;
+            if (++kx > half) kx = -half, ++ky;
+          }
+          if (++st == a.stages) st = 0, ph ^= 1;
         }
       }
     } else if (tid == 32 && a.eslots) {
@@ -595,12 +702,12 @@ tdx(const __grid_constant__ CUtensorMap mdy,
       if (ein) prefetch_map(&me);
       if (staged) prefetch_map(&my);
       int i = 0;
-      for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++i) {
-        const int e = i % a.eslots;
+      for (; i < ntiles; ++i) {
+        const int t = tile_at(i), e = i % a.eslots;
         mbar_wait(&edone[e], ((i / a.eslots) & 1) ^ 1);
         uint8_t* slot = eslot + e * 2 * HALF;
         if (staged && i >= a.eslots) {
-          slot_boxes(t - a.eslots * (int)gridDim.x, slot, false, nullptr);
+          slot_boxes(tile_at(i - a.eslots), slot, false, nullptr);
           bulk_commit();
           bulk_wait_read<0>();
         }
@@ -615,8 +722,8 @@ tdx(const __grid_constant__ CUtensorMap mdy,
         // the last tiles' stores
         for (int j = i < a.eslots ? 0 : i - a.eslots; j < i; ++j) {
           mbar_wait(&edone[j % a.eslots], (j / a.eslots) & 1);
-          slot_boxes(blockIdx.x + j * gridDim.x,
-                     eslot + (j % a.eslots) * 2 * HALF, false, nullptr);
+          slot_boxes(tile_at(j), eslot + (j % a.eslots) * 2 * HALF, false,
+                     nullptr);
         }
         bulk_commit();
         bulk_wait<0>();
@@ -627,75 +734,125 @@ tdx(const __grid_constant__ CUtensorMap mdy,
     regs_grow<232>();
     float acc[BN / 2] = {};  // each tile's first product overwrites it
     if (a.resident) mbar_wait(wbar, 0);
-    const int warp = tid / 32, lane = tid % 32;
     const int ct = threadIdx.x, jc = ct % 8;
     // kPerCta: the thread's column sums over its rows of every tile, in
-    // tile order, reduced across the CTA once at its end
-    constexpr int PC = Tr::kPerCta ? BN / 8 : 1;
+    // tile order, reduced across the CTA once at its end; kBandRuns: the
+    // same over each run of the CTA's tiles that lie in one band, reduced
+    // at the run's end into the entry of its last row tile (the others'
+    // entries zero)
+    constexpr bool RUNS = Tr::kPerCta || Tr::kBandRuns;
+    constexpr int PC = RUNS ? BN / 8 : 1;
     float cs0[PC][2] = {}, cs1[PC][2] = {};
+    const int warp = tid / 32, lane = tid % 32;
+    // the run's sums into entry `entry` of part, in a fixed order: the
+    // warp's 16 row slots by shuffles, then the 8 warps
+    auto flush = [&](size_t entry) {
+      float* wred = red + (wg * 4 + warp) * 2 * BN;
+#pragma unroll
+      for (int j = 0; j < PC; ++j)
+#pragma unroll
+        for (int e3 = 0; e3 < 2; ++e3) {
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) {
+            cs0[j][e3] += __shfl_xor_sync(0xffffffffu, cs0[j][e3], o);
+            cs1[j][e3] += __shfl_xor_sync(0xffffffffu, cs1[j][e3], o);
+          }
+          if (lane < 4) {
+            wred[8 * j + 2 * lane + e3] = cs0[j][e3];
+            wred[BN + 8 * j + 2 * lane + e3] = cs1[j][e3];
+          }
+          cs0[j][e3] = cs1[j][e3] = 0.f;
+        }
+      bar_sync(1, CONSUMERS);
+      if (ct < 2 * BN) {
+        float sum = 0.f;
+#pragma unroll
+        for (int w8 = 0; w8 < 8; ++w8) sum += red[w8 * 2 * BN + ct];
+        const int cc = (blockIdx.x % a.col_tiles) * BN + ct % BN;
+        if (cc < a.ci) a.part[(entry * 2 + ct / BN) * a.ci + cc] = sum;
+      }
+      bar_sync(1, CONSUMERS);  // red is read before it is written again
+    };
+    // the key of the CTA's i-th tile
+    auto key_at = [&](int i) {
+      int img, x0, y0, col;
+      tile_of(tile_at(i), img, x0, y0, col);
+      return tr.key((img * a.h + y0) * a.w + x0);
+    };
     // the mask's (a, b) of value ct, loaded one tile ahead
     float abnext = 0.f;
-    auto prefetch_ab = [&](int t) {
-      if (!sums || ct >= 2 * BN || t >= a.tiles) return;
-      int img, x0, y0, col;
-      tile_of(t, img, x0, y0, col);
-      abnext = __ldg(tr.ab_row(tr.key((img * a.h + y0) * a.w + x0)) +
-                     (ct / BN) * a.ci + col * BN + ct % BN);
+    auto prefetch_ab = [&](int i) {
+      if constexpr (!FWD) {
+        if (!mask || ct >= 2 * BN || i >= ntiles) return;
+        int img, x0, y0, col;
+        tile_of(tile_at(i), img, x0, y0, col);
+        abnext = __ldg(tr.ab_row(tr.key((img * a.h + y0) * a.w + x0)) +
+                       (ct / BN) * a.ci + col * BN + ct % BN);
+      }
     };
-    prefetch_ab(blockIdx.x);
+    prefetch_ab(0);
     // a halo box's rows a warpgroup's 64 output pixels start at
     const int hrow0 = (64 * wg / a.wb) * (a.wb + 2) + (64 * wg) % a.wb;
-    int it = 0, i = 0;
-    for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++i) {
+    // the ring slot and its phase, as the producer keeps them
+    int st = 0, ph = 0;
+    for (int i = 0; i < ntiles; ++i) {
+      const int t = tile_at(i);
       int img, x0, y0, col;
       tile_of(t, img, x0, y0, col);
       const int n0 = col * BN;
-      // a tile lies in one band (the box height divides gh): its key
+      // a tile lies in one band (the box height divides gh): its key, and
+      // its band's first row where a 3x3's reads stay in the band
       const int key = tr.key((img * a.h + y0) * a.w + x0);
+      const int gh = a.band_px / a.w;
+      const int band_y0 = a.band_px > 0 ? y0 - y0 % gh : 0;
       const float abv = abnext;
-      prefetch_ab(t + gridDim.x);
+      prefetch_ab(i + 1);
       int prev = 0;
-      for (int k = 0; k < a.ksteps; ++k, ++it) {
-        const int st = it % a.stages;
-        const int c = (k % a.cb) * 64 + 8 * jc;
+      // the K step's channel box and tap (halo mode: ky), running
+      int cbox = 0, tap = 0, tkx = -half, tky = -half;
+      for (int k = 0; k < a.ksteps; ++k) {
+        const int c = 64 * cbox + 8 * jc;
         // the live rows read the tile's band: its tables, loaded before
         // the slot's wait
         typename Tr::DT dt;
-        tr.d_tab(dt, key, c);
-        mbar_wait(&full[st], (it / a.stages) & 1);
+        if (rewrite && (!FWD || a.halo)) tr.d_tab(dt, key, c);
+        mbar_wait(&full[st], ph);
         uint8_t* buf = smem + st * stage_bytes;
         if (a.halo) {
-          // T_dy of the whole halo box, shared by both warpgroups: row hr
-          // is pixel (x0 - 1 + hr % (wb + 2), y0 + ky - 1 + hr / (wb + 2)),
-          // read by output row y0 + hr / (wb + 2)
-          const int ky = k / a.cb;
+          // T_dy (T_x) of the whole halo box, shared by both warpgroups:
+          // row hr is pixel (x0 - 1 + hr % (wb + 2), y0 + ky - 1 + hr /
+          // (wb + 2)), read by output row y0 + hr / (wb + 2)
+          const int ky = tap;
+          if (rewrite) {
 #pragma unroll
-          for (int q = 0; q < 5; ++q) {
-            const int hr = ct / 8 + 32 * q;
-            if (hr >= hrows) break;
-            const int oy = y0 + hr / (a.wb + 2);
-            const int sx = x0 - 1 + hr % (a.wb + 2), sy = oy + ky - 1;
-            const int src = (img * a.h + sy) * a.w + sx;
-            bool live = sx >= 0 && sx < a.w && sy >= 0 && sy < a.h;
-            if (a.band_px > 0)
-              live = live && src / a.band_px ==
-                                 (img * a.h + oy) * a.w / a.band_px;
-            const uint32_t off = chunk_offset(hr, jc);
-            uint4 v = make_uint4(0, 0, 0, 0);
-            if (live) {
-              float d[8], x2[8];
-              unpack8(*reinterpret_cast<const uint4*>(buf + off), d);
-              if constexpr (Tr::kAux == 2)
-                aux8<Aux>(buf + aux_at, off, hr, jc, x2);
-              else
-                aux8<Aux>(buf + aux_at, 0, hr, jc, x2);
-              tr.dy(d, x2, dt, src, c);
-              v = pack8(d);
+            for (int q = 0; q < 5; ++q) {
+              const int hr = ct / 8 + 32 * q;
+              if (hr >= hrows) break;
+              // hr < 160 < 3 (wb + 2): its row of the box by comparison
+              const int hy = (hr >= a.wb + 2) + (hr >= 2 * (a.wb + 2));
+              const int oy = y0 + hy;
+              const int sx = x0 - 1 + hr - hy * (a.wb + 2), sy = oy + ky - 1;
+              const int src = (img * a.h + sy) * a.w + sx;
+              bool live = sx >= 0 && sx < a.w && sy >= 0 && sy < a.h;
+              if (a.band_px > 0)
+                live = live && sy >= band_y0 && sy < band_y0 + gh;
+              const uint32_t off = chunk_offset(hr, jc);
+              uint4 v = make_uint4(0, 0, 0, 0);
+              if (live) {
+                float d[8], x2[8];
+                unpack8(*reinterpret_cast<const uint4*>(buf + off), d);
+                if constexpr (Tr::kAux == 2)
+                  aux8<Aux>(buf + aux_at, off, hr, jc, x2);
+                else if constexpr (Tr::kAux == 4)
+                  aux8<Aux>(buf + aux_at, 0, hr, jc, x2);
+                tr.dy(d, x2, dt, src, c);
+                v = pack8(d);
+              }
+              *reinterpret_cast<uint4*>(buf + off) = v;
             }
-            *reinterpret_cast<uint4*>(buf + off) = v;
+            fence_async_smem();
+            bar_sync(1, CONSUMERS);
           }
-          fence_async_smem();
-          bar_sync(1, CONSUMERS);
           wgmma_fence();
           fence_operands(acc);
 #pragma unroll
@@ -710,59 +867,115 @@ tdx(const __grid_constant__ CUtensorMap mdy,
                               k > 0 || kx > 0 || kk > 0);
           }
         } else {
-          // T_dy of this warpgroup's 64 rows of the A box: row r is output
-          // pixel (x0 + r % wb, y0 + r / wb), read at that pixel shifted
-          // by the tap
-          const int tap = k / a.cb;
-          const int kx = tap % a.ks - half, ky = tap / a.ks - half;
-          uint4 dr[4];
-          float ax[4][8];
-          int src[4];
-          bool live[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int r = 64 * wg + tid / 8 + 16 * q;
-            const int ox = x0 + r % a.wb, oy = y0 + r / a.wb;
-            const int sx = ox + kx, sy = oy + ky;
-            src[q] = (img * a.h + sy) * a.w + sx;
-            live[q] = ox < a.w && oy < a.h && sx >= 0 && sx < a.w &&
-                      sy >= 0 && sy < a.h;
-            if (a.band_px > 0)
-              live[q] = live[q] &&
-                        src[q] / a.band_px ==
-                            ((img * a.h + oy) * a.w + ox) / a.band_px;
-            const uint32_t off = chunk_offset(r, jc);
-            dr[q] = *reinterpret_cast<const uint4*>(buf + off);
-            aux8<Aux>(buf + aux_at, off, r, jc, ax[q]);
-          }
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int r = 64 * wg + tid / 8 + 16 * q;
-            uint4 v = make_uint4(0, 0, 0, 0);
-            if (live[q]) {
-              float d[8];
-              unpack8(dr[q], d);
-              tr.dy(d, ax[q], dt, src[q], c);
-              v = pack8(d);
-            }
-            *reinterpret_cast<uint4*>(buf + chunk_offset(r, jc)) = v;
-          }
-          fence_async_smem();
-          bar_sync(2 + wg, 128);
-          const uint64_t da = sw128_desc(buf + wg * 64 * 128, 16, 1024);
+          // T_dy (T_x) of this warpgroup's 64 rows of the A box: row r is
+          // output pixel (x0 + r % wb, y0 + r / wb), read at that pixel
+          // shifted by the tap
+          const int kx = tkx, ky = tky;
           const uint64_t db = sw128_desc(
               a.resident ? wres + k * BBOX : buf + w_at, 16, 1024);
-          wgmma_fence();
-          fence_operands(acc);
+          if constexpr (FWD) {
+            if (rewrite) {
+              // A from registers, no round trip through shared memory:
+              // each warp's 16 rows by ldmatrix (lane l gives row l % 8 +
+              // 8 (l / 8 % 2) of them, 16-byte chunk 2 kk + l / 16 of the
+              // row), through T_x, zero where the pixel read lies outside
+              // the image; the thread's rows g and g + 8 of the warp's
+              const int g = lane / 4, t4 = lane % 4;
+              bool live[2];
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)  // 32 bytes a k16 step, >> 4
-            WgmmaK<BN>::mma(acc, da + 2 * kk, db + 2 * kk, k > 0 || kk > 0);
+              for (int h2 = 0; h2 < 2; ++h2) {
+                const int r = 64 * wg + 16 * warp + g + 8 * h2;
+                const int ox = x0 + (r & (a.wb - 1)), oy = y0 + (r >> a.lwb);
+                const int sx = ox + kx, sy = oy + ky;
+                live[h2] = ox < a.w && oy < a.h && sx >= 0 && sx < a.w &&
+                           sy >= 0 && sy < a.h;
+              }
+              const int lr = 64 * wg + 16 * warp + (lane & 7) +
+                             8 * ((lane >> 3) & 1);
+              const uint32_t rowaddr = smem_u32(buf) + lr * 128;
+              uint32_t af[4][4];
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                ldsm_x4(rowaddr + ((((2 * kk + (lane >> 4)) ^ lr) & 7) << 4),
+                        af[kk]);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                const int ch = 64 * cbox + 16 * kk + 2 * t4;
+                const float4 lo = tr.ab2(key, ch), hi = tr.ab2(key, ch + 8);
+                af[kk][0] = tr.act2(af[kk][0], lo, live[0]);
+                af[kk][1] = tr.act2(af[kk][1], lo, live[1]);
+                af[kk][2] = tr.act2(af[kk][2], hi, live[0]);
+                af[kk][3] = tr.act2(af[kk][3], hi, live[1]);
+              }
+              wgmma_fence();
+              fence_operands(acc);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)  // 32 bytes a k16 step, >> 4
+                WgmmaKR<BN>::mma(acc, af[kk], db + 2 * kk, k > 0 || kk > 0);
+            } else {
+              // x as it is: TMA's zero fill is the pad
+              const uint64_t da = sw128_desc(buf + wg * 64 * 128, 16, 1024);
+              wgmma_fence();
+              fence_operands(acc);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                WgmmaK<BN>::mma(acc, da + 2 * kk, db + 2 * kk, k > 0 || kk > 0);
+            }
+          } else {
+            if (rewrite) {
+              uint4 dr[4];
+              float ax[4][8];
+              int src[4];
+              bool live[4];
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int r = 64 * wg + tid / 8 + 16 * q;
+                const int ox = x0 + (r & (a.wb - 1)), oy = y0 + (r >> a.lwb);
+                const int sx = ox + kx, sy = oy + ky;
+                src[q] = (img * a.h + sy) * a.w + sx;
+                live[q] = ox < a.w && oy < a.h && sx >= 0 && sx < a.w &&
+                          sy >= 0 && sy < a.h;
+                if (a.band_px > 0)
+                  live[q] = live[q] && sy >= band_y0 && sy < band_y0 + gh;
+                const uint32_t off = chunk_offset(r, jc);
+                dr[q] = *reinterpret_cast<const uint4*>(buf + off);
+                if constexpr (Tr::kAux > 0)
+                  aux8<Aux>(buf + aux_at, off, r, jc, ax[q]);
+              }
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int r = 64 * wg + tid / 8 + 16 * q;
+                uint4 v = make_uint4(0, 0, 0, 0);
+                if (live[q]) {
+                  float d[8];
+                  unpack8(dr[q], d);
+                  tr.dy(d, ax[q], dt, src[q], c);
+                  v = pack8(d);
+                }
+                *reinterpret_cast<uint4*>(buf + chunk_offset(r, jc)) = v;
+              }
+              fence_async_smem();
+              bar_sync(2 + wg, 128);
+            }
+            const uint64_t da = sw128_desc(buf + wg * 64 * 128, 16, 1024);
+            wgmma_fence();
+            fence_operands(acc);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)  // 32 bytes a k16 step, >> 4
+              WgmmaK<BN>::mma(acc, da + 2 * kk, db + 2 * kk, k > 0 || kk > 0);
+          }
         }
         wgmma_commit();
         fence_operands(acc);
         wgmma_wait<1>();
         if (k > 0 && tid == 0) mbar_arrive(&empty[prev]);
         prev = st;
+        if (++cbox == a.cb) {
+          cbox = 0;
+          ++tap;
+          if (++tkx > half) tkx = -half, ++tky;
+        }
+        if (++st == a.stages) st = 0, ph ^= 1;
       }
       wgmma_wait<0>();
       fence_operands(acc);
@@ -772,7 +985,7 @@ tdx(const __grid_constant__ CUtensorMap mdy,
       const int e = a.eslots ? i % a.eslots : 0;
       uint8_t* slot = eslot + e * 2 * HALF + wg * HALF;
       if (a.eslots) mbar_wait(&efull[e], (i / a.eslots) & 1);
-      if (sums && (!Tr::kPerCta || i == 0)) {
+      if (mask && (!Tr::kPerCta || i == 0)) {
         // the mask's (a, b) of the tile's columns (a CTA's, where its tiles
         // share the table); the last tile's readers are past the barrier
         // that ends its sums
@@ -788,7 +1001,7 @@ tdx(const __grid_constant__ CUtensorMap mdy,
 #pragma unroll
         for (int e2 = 0; e2 < 2; ++e2) {
           const int row = 16 * warp + lane / 4 + 8 * e2, r = 64 * wg + row;
-          const int ox = x0 + r % a.wb, oy = y0 + r / a.wb;
+          const int ox = x0 + (r & (a.wb - 1)), oy = y0 + (r >> a.lwb);
           const bool in = ox < a.w && oy < a.h;
           const size_t off =
               (((size_t)img * a.h + oy) * a.w + ox) * a.ci + n0 + cl;
@@ -796,8 +1009,24 @@ tdx(const __grid_constant__ CUtensorMap mdy,
               reinterpret_cast<__nv_bfloat162*>(slot + staged_offset(row, cl));
           float u = acc[4 * j + 2 * e2], v = acc[4 * j + 2 * e2 + 1];
           float2 ev = make_float2(0.f, 0.f);
-          if (ein) ev = __bfloat1622float2(*sp);
-          if (a.out_kind == 0 || a.out_kind == 3) {
+          if (!FWD && ein) ev = __bfloat1622float2(*sp);
+          if constexpr (FWD) {
+            // y; the sums of the pixels in the image (a halo box reads
+            // live pixels for rows past it)
+            const __nv_bfloat162 yb = __floats2bfloat162_rn(u, v);
+            *sp = yb;
+            if constexpr (Tr::kRoundedSums) {
+              const float2 f = __bfloat1622float2(yb);
+              u = f.x;
+              v = f.y;
+            }
+            u = in ? u : 0.f;
+            v = in ? v : 0.f;
+            s0[0] += u;
+            s0[1] += v;
+            s1[0] += u * u;
+            s1[1] += v * v;
+          } else if (a.out_kind == 0 || a.out_kind == 3) {
             const float ta0 = sab[cl], ta1 = sab[cl + 1];
             u = in && affine(ev.x, ta0, sab[BN + cl]) > 0.f ? u : 0.f;
             v = in && affine(ev.y, ta1, sab[BN + cl + 1]) > 0.f ? v : 0.f;
@@ -827,7 +1056,7 @@ tdx(const __grid_constant__ CUtensorMap mdy,
                   make_float2(u, v);
           }
         }
-        if constexpr (Tr::kPerCta) {
+        if constexpr (RUNS) {
 #pragma unroll
           for (int e3 = 0; e3 < 2; ++e3) {
             cs0[j][e3] += s0[e3];
@@ -855,7 +1084,15 @@ tdx(const __grid_constant__ CUtensorMap mdy,
         bar_sync(2 + wg, 128);
         if (tid == 0) mbar_arrive(&edone[e]);
       }
-      if (sums && !Tr::kPerCta) {
+      if constexpr (Tr::kBandRuns) {
+        // the run's sums at its last tile, else a zero entry
+        const size_t rt = t / a.col_tiles;
+        if (i + 1 == ntiles || key_at(i + 1) != key) {
+          flush(rt);
+        } else if (ct < 2 * BN && n0 + ct % BN < a.ci) {
+          a.part[(rt * 2 + ct / BN) * a.ci + n0 + ct % BN] = 0.f;
+        }
+      } else if (sums && !Tr::kPerCta) {
         // the tile's column sums: the 8 warps in order
         bar_sync(1, CONSUMERS);
         if (ct < 2 * BN) {
@@ -871,35 +1108,8 @@ tdx(const __grid_constant__ CUtensorMap mdy,
         bar_sync(1, CONSUMERS);  // red is read before the next tile's
       }
     }
-    if (sums && Tr::kPerCta) {
-      // the CTA's column sums: each thread's over its rows, the warp's 16
-      // row slots by shuffles, then the 8 warps, in a fixed order
-      float* wred = red + (wg * 4 + warp) * 2 * BN;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e3 = 0; e3 < 2; ++e3) {
-#pragma unroll
-          for (int o = 4; o < 32; o <<= 1) {
-            cs0[j][e3] += __shfl_xor_sync(0xffffffffu, cs0[j][e3], o);
-            cs1[j][e3] += __shfl_xor_sync(0xffffffffu, cs1[j][e3], o);
-          }
-          if (lane < 4) {
-            wred[8 * j + 2 * lane + e3] = cs0[j][e3];
-            wred[BN + 8 * j + 2 * lane + e3] = cs1[j][e3];
-          }
-        }
-      bar_sync(1, CONSUMERS);
-      if (ct < 2 * BN) {
-        float sum = 0.f;
-#pragma unroll
-        for (int w8 = 0; w8 < 8; ++w8) sum += red[w8 * 2 * BN + ct];
-        const int cc = (blockIdx.x % a.col_tiles) * BN + ct % BN;
-        if (cc < a.ci)
-          a.part[((size_t)(blockIdx.x / a.col_tiles) * 2 + ct / BN) * a.ci +
-                 cc] = sum;
-      }
-    }
+    // the CTA's column sums, one entry a CTA of its column
+    if (sums && Tr::kPerCta) flush(grp);
   }
 }
 
@@ -1026,11 +1236,12 @@ int launch_dx(const CUtensorMap& mdy, const CUtensorMap& maux,
   return cudaGetLastError();
 }
 
-// The dX plan (ops/conv.py tma_bwd_dx_plan): a pixel box of wb x hb (wb*hb
-// = 128; hb divides the band height of a ghost conv), bn (64 or 128)
-// columns a tile, the weight resident (1) or streamed, `stages` ring
-// slots, `grid` persistent CTAs (a multiple of the column tiles),
-// `eslots` epilogue slots (0 to 3).
+// The dX plan (ops/conv.py tma_bwd_dx_plan; the forward's is
+// tma_staged_fwd_plan, the same with the channel counts swapped and no
+// aux box): a pixel box of wb x hb (wb*hb = 128; hb divides the band
+// height of a ghost conv), bn (64 or 128) columns a tile, the weight
+// resident (1) or streamed, `stages` ring slots, `grid` persistent CTAs
+// (a multiple of the column tiles), `eslots` epilogue slots (0 to 3).
 struct DxPlan {
   int wb, hb, bn, resident, stages, grid, eslots;
 };
@@ -1040,23 +1251,34 @@ struct DxPlan {
 // by the caller; ein: x, or the bf16 addend, where dx_ein); with sums,
 // part holds the entries (Tr::kPerCta: grid / col_tiles; else the
 // row tiles, gh / hb * tiles_w a band) and sums (groups, 2, ci) receives
-// their sums.
+// their sums, written whole. The forward (out_kind 4, Tr::kFwd) is the
+// same call with dy = x (n, h, w, co), no aux, wflip = W (ci, ks*ks*co):
+// here ci is the conv's output channels and co its input channels.
 template <class Tr>
 int run_dx(const void* dy, const void* aux, const void* wflip,
            const void* ein, DxArgs a, float* part, float* sums, int n, int h,
            int w, int ci, int co, int ks, int gh, const DxPlan& p,
            const Tr& tr, cudaStream_t s) {
   constexpr int AUX = Tr::kAux;
-  const bool with_sums = a.out_kind == 0 || a.out_kind == 3;
+  const bool with_sums = dx_sums(a.out_kind);
   const bool staged = dx_staged(a.out_kind);
   const bool in_slot = dx_ein(a.out_kind, a.add_kind);
+  // the sums' groups: everything (kPerCta), or each band of gh rows
+  const long long groups =
+      Tr::kPerCta ? 1 : (gh > 0 ? n * (long long)(h / gh) : 0);
   if (ci % 64 || co % 64 || (ks != 1 && ks != 3) || !aligned16(dy) ||
-      !aligned16(aux) || !aligned16(wflip) || !aligned16(a.out) ||
-      (in_slot && !aligned16(ein)) || (with_sums && (!part || !sums)))
+      (AUX && !aligned16(aux)) || !aligned16(wflip) || !aligned16(a.out) ||
+      (in_slot && !aligned16(ein)) || (with_sums && (!part || !sums)) ||
+      Tr::kFwd != (a.out_kind == 4) || (Tr::kFwd && a.band_px) ||
+      ((a.band_px > 0 || (with_sums && !Tr::kPerCta)) && (gh < 1 || h % gh)))
     return cudaErrorInvalidValue;
-  if ((long long)n * h * w == 0) return cudaSuccess;
+  if ((long long)n * h * w == 0)
+    return with_sums ? cudaMemsetAsync(sums, 0,
+                                       sizeof(float) * groups * 2 * ci, s)
+                     : cudaSuccess;
   a.part = part;
   a.h = h, a.w = w, a.ci = ci, a.co = co, a.ks = ks, a.wb = p.wb, a.hb = p.hb;
+  while (a.lwb < 8 && (1 << a.lwb) < p.wb) ++a.lwb;
   a.tiles_w = (w + p.wb - 1) / p.wb;
   a.tiles_h = (h + p.hb - 1) / p.hb;
   a.col_tiles = ci / p.bn;
@@ -1072,13 +1294,13 @@ int run_dx(const void* dy, const void* aux, const void* wflip,
       p.stages * dx_stage_bytes(p.bn, p.resident, a.halo, p.wb, p.hb, AUX) +
       (p.resident ? a.ksteps * bbox : 0) + p.eslots * TM * p.bn * 2 +
       9 * 2 * p.bn * 4 + 8 * (2 * p.stages + 7) + 1024;
-  if (p.wb < 1 || p.hb < 1 || p.wb * p.hb != TM || p.wb > 254 ||
+  if (p.wb < 1 || p.hb < 1 || p.wb * p.hb != TM || p.wb != 1 << a.lwb ||
       p.hb > 256 || (p.bn != 64 && p.bn != 128) || ci % p.bn ||
       p.stages < 2 || smem > MAX_SMEM || p.grid < 1 || p.grid > tiles ||
       tiles >= (1ll << 31) || p.grid % a.col_tiles ||
       (a.halo && p.resident) || p.eslots < 0 || p.eslots > 3 ||
       ((staged || in_slot) && p.eslots < 1) ||
-      (a.band_px > 0 && (gh % p.hb || h % gh)))
+      ((a.band_px > 0 || (with_sums && !Tr::kPerCta)) && gh % p.hb))
     return cudaErrorInvalidValue;
   CUtensorMap mdy, maux, mw, me, my;
   const cuuint64_t wdims[3] = {(cuuint64_t)co, (cuuint64_t)(ks * ks),
@@ -1094,10 +1316,11 @@ int run_dx(const void* dy, const void* aux, const void* wflip,
   // pixel on either side
   const int awb = a.halo ? p.wb + 2 : p.wb;
   if (!encode_act(&mdy, dy, false, co, w, h, n, awb, p.hb) ||
-      !encode_act(&maux, aux, AUX == 4, co, w, h, n, awb, p.hb) ||
+      (AUX && !encode_act(&maux, aux, AUX == 4, co, w, h, n, awb, p.hb)) ||
       !encode(&mw, wflip, false, 3, wdims, wbox, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   me = my = mdy;  // unread unless set below
+  if (!AUX) maux = mdy;
   if ((in_slot && !encode(&me, ein, false, 4, ydims, ybox,
                           CU_TENSOR_MAP_SWIZZLE_128B)) ||
       (staged && !encode(&my, a.out, false, 4, ydims, ybox,
@@ -1111,10 +1334,9 @@ int run_dx(const void* dy, const void* aux, const void* wflip,
   if (err != cudaSuccess || !with_sums) return err;
   // the entries of a group: a CTA's (kPerCta: one group), or a band's row
   // tiles, which are consecutive: gh / hb rows of tiles_w tiles
-  const int groups = Tr::kPerCta ? 1 : (int)(n * (long long)(h / gh));
   const int entries =
       Tr::kPerCta ? p.grid / a.col_tiles : gh / p.hb * a.tiles_w;
-  reduce_parts<<<dim3((2 * ci + 127) / 128, groups), 128, 0, s>>>(
+  reduce_parts<<<dim3((2 * ci + 127) / 128, (unsigned)groups), 128, 0, s>>>(
       part, sums, 2 * ci, entries);
   return cudaGetLastError();
 }

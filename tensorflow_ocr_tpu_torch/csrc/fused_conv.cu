@@ -27,10 +27,22 @@
 // reduced from the accumulator in registers. That is the TPU kernel's
 // idea; its tiling is not.
 //
-// Forward (conv_fwd): an implicit GEMM on igemm.cuh's mma.sync core, one
-// CTA of 8 warps per 128 x BN output tile, BK = 32, the prologue
-// (AffineRelu) applied as a tile is stored to shared memory, the
-// statistics summed with one f32 atomicAdd per block and channel.
+// Forward (fused_conv_fwd): conv_bwd.cuh's tdx in its forward mode, one
+// launch and a small one for the sums. Persistent CTAs walk 128-pixel x
+// BN tiles (BN 128 where it divides co, else 64), each a contiguous range
+// of pixel tiles in one column; each K step's slot holds x's box at the
+// tile shifted by the tap, by TMA. Each warp loads its 16 rows of it by
+// ldmatrix into wgmma's register A fragment and applies ActTr there
+// (relu(x*a + b), zero where the pixel read lies outside the image: TMA's
+// zero fill would give relu(b) there), then wgmma with the weight K-major
+// in shared memory; a 3x3 over 64- or 128-pixel rows instead rewrites one
+// halo box a ky in shared memory for its three taps; a 1x1's weight stays
+// resident where it fits. The epilogue stages y = bf16(acc) in an epilogue
+// slot that a producer thread stores by TMA, and sums [acc, acc^2] of the
+// f32 accumulator per column in registers over the CTA's tiles; the CTAs'
+// entries are added in order (reduce_parts). No atomics: two launches are
+// bit-equal (the TPU kernel sums in grid order, pallas_fused.py:104-110).
+// Its tiling is ops/conv.py tma_staged_fwd_plan.
 //
 // Backward (fused_conv_bwd): conv_bwd.cuh's TMA/wgmma kernels with FusedTr
 // as the staging transform (x -> relu(x*a + b), dy and y -> dy_eff, both
@@ -52,131 +64,36 @@
 #include <cuda_runtime.h>
 
 #include "conv_bwd.cuh"
-#include "igemm.cuh"
 
-namespace {
-
-using namespace igemm;
-
-constexpr int BM = 128;
-
-// The operand transforms of the fused kernels, for igemm.cuh's loaders
-// (channel counts multiples of 8): raw loads at fetch time, the transform
-// when the tile is stored.
-
-// xn = relu(x*a + b), a and b per channel.
-struct AffineRelu {
-  static constexpr bool kEach = false;
-  struct Reg {
-    uint4 r;
-    int c;      // first channel
-    bool live;  // false: zero (pad tap or out of range)
-  };
-  const bf16* x;
-  const float *a, *b;
-
-  __device__ __forceinline__ void fetch(Reg& v, int pix, int ch,
-                                        int c) const {
-    v.c = c;
-    v.live = pix >= 0;
-    if (v.live)
-      v.r = __ldg(reinterpret_cast<const uint4*>(x + (size_t)pix * ch + c));
-  }
-  __device__ __forceinline__ uint4 value(const Reg& v) const {
-    if (!v.live) return make_uint4(0, 0, 0, 0);
-    float xf[8], p[8], q[8], o[8];
-    unpack8(v.r, xf);
-    load8f(a + v.c, p);
-    load8f(b + v.c, q);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) o[i] = fmaxf(affine(xf[i], p[i], q[i]), 0.f);
-    return pack8(o);
-  }
-};
-
-// ---------------------------------------------------------------- kernels
-
-template <int KS, int BN>
-__global__ void __launch_bounds__(THREADS)
-conv_fwd(const bf16* __restrict__ x, const float* __restrict__ ab,
-         const bf16* __restrict__ wt, bf16* __restrict__ y,
-         float* __restrict__ stats, Geo g, int ci, int co) {
-  using W = Warps<BM, BN>;
-  __shared__ __align__(16) bf16 sA[BM][LDS];
-  __shared__ __align__(16) bf16 sB[BN][LDS];
-  __shared__ float red[2][128];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  for (int i = threadIdx.x; i < 2 * 128; i += THREADS) red[i / 128][i % 128] = 0.f;
-
-  const int kdim = KS * KS * ci;
-  PixelRows<KS, AffineRelu, BM> la{{x, ab, ab + ci}, g, ci, m0, true};
-  PixelRows<1, Ident, BN> lb{{wt}, Geo{1, 1, co, co}, kdim, n0, true};
-  float acc[W::MT][W::NT][4] = {};
-  mainloop<BM, BN>(la, lb, kdim / BK, sA, sB, acc);
-
-  float p0[W::NT][2] = {}, p1[W::NT][2] = {};
-#pragma unroll
-  for (int i = 0; i < W::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < W::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        int r, c;
-        acc_pos<BM, BN>(i, j, e, r, c);
-        if (m0 + r >= g.m) continue;
-        float u = acc[i][j][e], v = acc[i][j][e + 1];
-        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)(m0 + r) * co + n0 + c) =
-            __floats2bfloat162_rn(u, v);
-        p0[j][0] += u;
-        p0[j][1] += v;
-        p1[j][0] += u * u;
-        p1[j][1] += v * v;
-      }
-  reduce_cols<BM, BN>(p0, p1, red);
-  __syncthreads();
-  for (int c = threadIdx.x; c < BN; c += THREADS) {
-    atomicAdd(&stats[n0 + c], red[0][c]);
-    atomicAdd(&stats[co + n0 + c], red[1][c]);
-  }
-}
-
-template <int KS>
-int launch_fwd(const bf16* x, const float* ab, const bf16* wt, bf16* y,
-               float* stats, Geo g, int ci, int co, cudaStream_t s) {
-  dim3 grid((g.m + BM - 1) / BM, 1);
-  if (co % 128 == 0) {
-    grid.y = co / 128;
-    conv_fwd<KS, 128><<<grid, THREADS, 0, s>>>(x, ab, wt, y, stats, g, ci, co);
-  } else {
-    grid.y = co / 64;
-    conv_fwd<KS, 64><<<grid, THREADS, 0, s>>>(x, ab, wt, y, stats, g, ci, co);
-  }
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// x (n,h,w,ci) bf16; ab (2,ci) f32; wt (co, ks*ks*ci) bf16 with K in
-// (ky, kx, ci) order; y (n,h,w,co) bf16 out; stats (2,co) f32, zeroed by
-// the caller. ci, co multiples of 64; ks 1 or 3. Returns the launch error.
+// x (n,h,w,ci) bf16; ab (2,ci) f32; wt (co, ks*ks*ci) bf16 with K in (ky,
+// kx, ci) order; y (n,h,w,co) bf16 and stats (2,co) f32 out, written
+// whole. A 1x1 may pass its rows as n = h = 1, w = M. The plan (ops/conv.py
+// tma_staged_fwd_plan: wb, hb, bn, resident, stages, grid, eslots); ws
+// holds grid / (co / bn) entries of (2, co). ci, co multiples of 64,
+// 16-byte aligned bases. Returns the first launch error.
 extern "C" int fused_conv_fwd(const void* x, const void* ab, const void* wt,
-                              void* y, void* stats, int n, int h, int w,
-                              int ci, int co, int ks, void* stream) {
-  if (ci % 64 || co % 64 || (ks != 1 && ks != 3)) return cudaErrorInvalidValue;
-  Geo g{n, h, w, n * h * w};
-  if (g.m == 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto xb = static_cast<const bf16*>(x);
-  auto abf = static_cast<const float*>(ab);
-  auto wb = static_cast<const bf16*>(wt);
-  auto yb = static_cast<bf16*>(y);
-  auto st = static_cast<float*>(stats);
-  return ks == 1 ? launch_fwd<1>(xb, abf, wb, yb, st, g, ci, co, s)
-                 : launch_fwd<3>(xb, abf, wb, yb, st, g, ci, co, s);
+                              void* y, void* stats, void* ws, int n, int h,
+                              int w, int ci, int co, int ks, int wb, int hb,
+                              int bn, int resident, int stages, int grid,
+                              int eslots, void* stream) {
+  if (ci % 64 || co % 64 || (ks != 1 && ks != 3) || !ab)
+    return cudaErrorInvalidValue;
+  bwd::DxArgs a{};
+  a.out = y;
+  a.out_kind = 4;
+  // tdx's columns are the conv's output channels, its K the input's
+  return bwd::run_dx(x, nullptr, wt, nullptr, a, static_cast<float*>(ws),
+                     static_cast<float*>(stats), n, h, w, co, ci, ks, 1,
+                     bwd::DxPlan{wb, hb, bn, resident, stages, grid, eslots},
+                     bwd::ActTr<true>{static_cast<const float*>(ab), ci, 0},
+                     static_cast<cudaStream_t>(stream));
 }
 
-
 namespace {
+
+using igemm::affine;
+using igemm::load8f;
+using bf16 = __nv_bfloat16;
 
 // The backward's staging transform (conv_bwd.cuh): x -> relu(x*a + b),
 // dy and y -> dy_eff = dy + ds0 + 2*y*ds1, and the epilogue's (a, b).
@@ -184,6 +101,8 @@ struct FusedTr {
   using Aux = bf16;  // y
   static constexpr int kAux = 2;
   static constexpr bool kPerCta = true;
+  static constexpr bool kBandRuns = false;
+  static constexpr bool kFwd = false;
   struct XT {
     float a[8], b[8];
   };

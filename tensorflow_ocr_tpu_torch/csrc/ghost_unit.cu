@@ -39,15 +39,29 @@
 // is dz (staged from g, z and the band tables), and every statistic is
 // summed from the accumulator in registers.
 //
-// Design. The forward convs and the seam pass: the implicit-GEMM core and
-// loaders of igemm.cuh (CTA of 8 warps, 128 x BN tiles, BK = 32,
-// mma.sync m16n8k16 bf16, f32 accumulate, the next slice's loads in
-// flight), with its banded transforms BandAct and BandDz; channel counts
-// multiples of 64. Their band sums: where a CTA's 128 rows lie in one
-// band (gh*W a multiple of 128: every band at the slice's shapes), warp
-// shuffles, a shared table and one f32 atomic per column and CTA; where
-// only a warp's rows do, one per column and warp; otherwise one per
-// element.
+// Design. The forward convs (ghost_conv_fwd): conv_bwd.cuh's tdx in its
+// forward mode with ActTr keyed by band: persistent CTAs walk 128-pixel x
+// BN tiles whose box height divides gh, so a tile lies in one band, each
+// CTA a contiguous range of them in one column; each K step's box of x (at
+// the tile shifted by the tap, by TMA) goes through relu(x*a + b) under
+// the table of the tile's band, in wgmma's register A fragment (a 3x3 in
+// halo mode: one halo box a ky rewritten in shared memory), which for a
+// 3x3's halo rows is the reading band's table, not the rows' own, and
+// zero only outside the image (no transform where tab is null: TMA's zero
+// fill is the pad). The epilogue stages y = bf16(acc) for a TMA store and
+// sums the ROUNDED y per column in registers over each run of the CTA's
+// tiles in one band, written at the run's last tile (zero entries at the
+// others); reduce_parts adds a band's entries in tile order. No atomics:
+// two launches are bit-equal (the TPU kernel sums each band in one grid
+// step, pallas_unit.py:60-64). Its tiling is ops/conv.py
+// tma_staged_fwd_plan.
+// The seam pass (ghost_seam_bwd): the implicit-GEMM core and loaders of
+// igemm.cuh (CTA of 8 warps, 128 x BN tiles, BK = 32, mma.sync m16n8k16
+// bf16, f32 accumulate, the next slice's loads in flight), with its banded
+// transform BandDz; channel counts multiples of 64. Its band sums: where
+// a CTA's 128 rows lie in one band, warp shuffles, a shared table and one
+// f32 atomic per column and CTA; where only a warp's rows do, one per
+// column and warp; otherwise one per element.
 // The conv backward (ghost_conv_bwd): two launches on conv_bwd.cuh's
 // TMA/wgmma cores with GhostTr as the staging transform (x -> relu(x*a +
 // b) under the band of the output pixel, z and g -> dz under the band of
@@ -152,47 +166,6 @@ struct BandSums {
 
 __device__ __forceinline__ void zero_red(float (*red)[128]) {
   for (int i = threadIdx.x; i < 2 * 128; i += THREADS) red[i / 128][i % 128] = 0.f;
-}
-
-// ---------------------------------------------------------------- forward
-
-template <int KS, int BN>
-__global__ void __launch_bounds__(THREADS)
-gconv_fwd(const bf16* __restrict__ x, const float* __restrict__ tab,
-          const bf16* __restrict__ wt, bf16* __restrict__ y,
-          float* __restrict__ stats, Geo g, int ci, int co, int band_px) {
-  using W = Warps<BM, BN>;
-  __shared__ __align__(16) bf16 sA[BM][LDS];
-  __shared__ __align__(16) bf16 sB[BN][LDS];
-  __shared__ float red[2][128];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  zero_red(red);
-
-  const int kdim = KS * KS * ci;
-  PixelRows<KS, BandAct, BM> la{{x, tab, ci, band_px}, g, ci, m0, true};
-  PixelRows<1, Ident, BN> lb{{wt}, Geo{1, 1, co, co}, kdim, n0, true};
-  float acc[W::MT][W::NT][4] = {};
-  mainloop<BM, BN>(la, lb, kdim / BK, sA, sB, acc);
-
-  BandSums<BN> bs(stats, co, band_px, m0, g.m);
-#pragma unroll
-  for (int i = 0; i < W::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < W::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        int r, c;
-        acc_pos<BM, BN>(i, j, e, r, c);
-        const int m = m0 + r;
-        if (m >= g.m) continue;
-        const __nv_bfloat162 yb =
-            __floats2bfloat162_rn(acc[i][j][e], acc[i][j][e + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)m * co + n0 + c) = yb;
-        const float2 f = __bfloat1622float2(yb);  // stats of the rounded y
-        bs.add(j, 0, m, n0 + c, f.x, f.x * f.x);
-        bs.add(j, 1, m, n0 + c + 1, f.y, f.y * f.y);
-      }
-  bs.flush(red, n0);
 }
 
 // out = bf16(relu(z*a + b + (sc*as + bs, or sc))); with dout: gm =
@@ -371,6 +344,8 @@ struct GhostTr {
   using Aux = G;       // g
   static constexpr int kAux = (int)sizeof(G);
   static constexpr bool kPerCta = false;
+  static constexpr bool kBandRuns = false;
+  static constexpr bool kFwd = false;
   struct XT {
     float a[8], b[8];
   };
@@ -447,31 +422,29 @@ int conv_bwd(const void* x, const float* tx, const void* g, const void* z,
 }  // namespace
 
 // x (n,h,w,ci) bf16; tab (bands,2,ci) f32 or null; wt (co, ks*ks*ci) bf16
-// with K in (ky, kx, ci) order; y (n,h,w,co) bf16 out; stats (bands,2,co)
-// f32, zeroed by the caller. ci, co multiples of 64; ks 1 or 3; h a
-// multiple of gh. Returns the launch error.
+// with K in (ky, kx, ci) order; y (n,h,w,co) bf16 and stats (bands,2,co)
+// f32 out, written whole. The plan (ops/conv.py tma_staged_fwd_plan over
+// the image geometry: wb, hb, bn, resident, stages, grid, eslots; hb
+// divides gh); ws holds one (2, co) entry a row tile. ci, co multiples of
+// 64; ks 1 or 3; h a multiple of gh. Returns the first launch error.
 extern "C" int ghost_conv_fwd(const void* x, const void* tab, const void* wt,
-                              void* y, void* stats, int n, int h, int w,
-                              int ci, int co, int ks, int gh, void* stream) {
-  if (bad_geometry(n, h, w, gh, ci, co) || (ks != 1 && ks != 3))
+                              void* y, void* stats, void* ws, int n, int h,
+                              int w, int ci, int co, int ks, int gh, int wb,
+                              int hb, int bn, int resident, int stages,
+                              int grid, int eslots, void* stream) {
+  if (bad_geometry(n, h, w, gh, ci, co) || (ks != 1 && ks != 3) ||
+      (long long)n * h * w * (ci > co ? ci : co) >= (1ll << 31))
     return cudaErrorInvalidValue;
-  Geo g{n, h, w, n * h * w};
-  auto s = static_cast<cudaStream_t>(stream);
-  dim3 grid((g.m + BM - 1) / BM, co % 128 == 0 ? co / 128 : co / 64);
-  auto xb = static_cast<const bf16*>(x);
-  auto tb = static_cast<const float*>(tab);
-  auto wb = static_cast<const bf16*>(wt);
-  auto yb = static_cast<bf16*>(y);
-  auto st = static_cast<float*>(stats);
-  const int px = gh * w;
-#define GHOST_FWD(KS_, BN_) \
-  gconv_fwd<KS_, BN_><<<grid, THREADS, 0, s>>>(xb, tb, wb, yb, st, g, ci, co, px)
-  if (ks == 1 && co % 128 == 0) GHOST_FWD(1, 128);
-  else if (ks == 1) GHOST_FWD(1, 64);
-  else if (co % 128 == 0) GHOST_FWD(3, 128);
-  else GHOST_FWD(3, 64);
-#undef GHOST_FWD
-  return cudaGetLastError();
+  bwd::DxArgs a{};
+  a.out = y;
+  a.out_kind = 4;
+  // tdx's columns are the conv's output channels, its K the input's
+  return bwd::run_dx(x, nullptr, wt, nullptr, a, static_cast<float*>(ws),
+                     static_cast<float*>(stats), n, h, w, co, ci, ks, gh,
+                     bwd::DxPlan{wb, hb, bn, resident, stages, grid, eslots},
+                     bwd::ActTr<false>{static_cast<const float*>(tab), ci,
+                                       gh * w},
+                     static_cast<cudaStream_t>(stream));
 }
 
 // x (n,h,w,ci) bf16 and tx (bands,2,ci) f32 or null: the conv's operand

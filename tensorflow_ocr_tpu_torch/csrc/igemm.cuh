@@ -1,7 +1,10 @@
-// The core shared by the implicit-GEMM conv kernels (fused_conv.cu,
-// conv.cu): the tap map of a KSxKS stride-1 SAME window over NHWC pixel
-// rows, the loaders that stage im2col operands into shared memory, and
-// the tensor-core tile loop. A CTA of 8 warps computes a BM x BN tile of
+// The core shared by the implicit-GEMM conv kernels of conv.cu (the
+// narrow forward and dW, igemm_fwd and igemm_dw) and ghost_unit.cu's seam
+// pass (gseam, with BandDz), and the vector helpers (unpack8, pack8,
+// load8f, affine) that conv_bwd.cuh's staging transforms use: the tap map
+// of a KSxKS stride-1 SAME window over NHWC pixel rows, the loaders that
+// stage im2col operands into shared memory, and the tensor-core tile
+// loop. A CTA of 8 warps computes a BM x BN tile of
 // C = A . B^T in f32 from bf16 tiles staged in shared memory, BK = 32 of
 // the K dimension at a time, with mma.sync m16n8k16.
 //
@@ -26,7 +29,7 @@
 // kBanded also gets the pixel m of the product's row (the output pixel
 // of a forward or dX product, the pixel column of a dW product):
 //   X::fetch(reg, pix, ch, c, m),
-// so that it can read a table of the band of m (ghost_unit.cu).
+// so that it can read a table of the band of m (ghost_unit.cu's BandDz).
 
 #pragma once
 
@@ -349,41 +352,6 @@ __device__ __forceinline__ void reduce_cols(float p0[][2], float p1[][2],
 // Per-band tables are float32, (bands, rows, ch) with band = pixel /
 // band_px (band_px = gh*W pixels: band j of image n is n*(H/gh) + j), so
 // a band's rows are contiguous.
-
-// relu(x*a + b) with (a, b) = rows 0, 1 of the table of the band of m,
-// the product row's pixel, not of the pixel read: a 3x3 window's halo
-// rows take the reading band's affine. tab == nullptr: x as it is.
-struct BandAct {
-  static constexpr bool kEach = false;
-  static constexpr bool kBanded = true;
-  struct Reg {
-    uint4 r;
-    const float* a;  // the band's a at channel c; b at a + ch
-    bool live;
-  };
-  const bf16* x;
-  const float* tab;
-  int ch, band_px;
-
-  __device__ __forceinline__ void fetch(Reg& v, int pix, int ch_, int c,
-                                        int m) const {
-    v.live = pix >= 0;
-    v.a = tab ? tab + (size_t)(m / band_px) * 2 * ch + c : nullptr;
-    if (v.live)
-      v.r = __ldg(reinterpret_cast<const uint4*>(x + (size_t)pix * ch_ + c));
-  }
-  __device__ __forceinline__ uint4 value(const Reg& v) const {
-    if (!v.live) return make_uint4(0, 0, 0, 0);
-    if (!v.a) return v.r;
-    float xf[8], p[8], q[8], o[8];
-    unpack8(v.r, xf);
-    load8f(v.a, p);
-    load8f(v.a + ch, q);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) o[i] = fmaxf(affine(xf[i], p[i], q[i]), 0.f);
-    return pack8(o);
-  }
-};
 
 // dz = g*a + c1 + 2*z*c2 (+ e), (a, c1, c2) = the table rows of the band
 // of the pixel read, zero where that band is not the band of m (a 3x3 dX

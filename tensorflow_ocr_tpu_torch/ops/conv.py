@@ -77,6 +77,9 @@ KP, BOX, MAX_SMEM, MAX_STAGES, MAX_CLUSTER = 64, 64 * 128, 232448, 8, 2
 # narrowest that covers Co, 128 above), the fewest A slots beside a
 # resident weight, the ring's most slots
 TM, FWD_BN, MIN_A_SLOTS, MAX_FWD_STAGES = 128, (16, 64, 128), 3, 8
+# the staged forward's ring slots kept before a second epilogue slot (per
+# tap, and in halo mode)
+FWD_KEEP, FWD_KEEP_HALO = 6, 4
 
 
 def rows(t: torch.Tensor) -> torch.Tensor:
@@ -327,10 +330,16 @@ class TmaBwdDxPlan(NamedTuple):
     halo: bool      # a 3x3 whose K steps are (ky, channel box) halo boxes
     eslots: int     # epilogue slots (input and staged output of a tile)
 
-    def tiles_of(self, cta: int) -> range:
+    def tiles_of(self, cta: int) -> list:
         """The tiles CTA ``cta`` computes, in its order: tile t is pixel
-        tile t // col_tiles, column tile t % col_tiles."""
-        return range(cta, self.row_tiles * self.col_tiles, self.grid)
+        tile t // col_tiles, column tile t % col_tiles; a CTA takes a
+        contiguous range of pixel tiles in column cta % col_tiles, each of
+        the grid / col_tiles groups of a column an equal share."""
+        col, grp = cta % self.col_tiles, cta // self.col_tiles
+        groups = self.grid // self.col_tiles
+        lo = grp * self.row_tiles // groups
+        hi = (grp + 1) * self.row_tiles // groups
+        return [r * self.col_tiles + col for r in range(lo, hi)]
 
 
 def round1k(nbytes: int) -> int:
@@ -339,8 +348,8 @@ def round1k(nbytes: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def tma_bwd_dx_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
-                    sms: int, aux: int, slot: bool,
-                    gh: int = 0) -> TmaBwdDxPlan:
+                    sms: int, aux: int, slot: bool, gh: int = 0,
+                    fwd: bool = False) -> TmaBwdDxPlan:
     """The tiling of the staged backward's dX (csrc/conv_bwd.cuh ``tdx``):
     dX (n, h, w, ci) of dY (n, h, w, co) through ks x ks taps, ci and co
     multiples of 64 (a 1x1 over M rows: n = h = 1, w = M). As
@@ -356,7 +365,10 @@ def tma_bwd_dx_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     (2 in halo mode), at least one; the shared memory also holds the 8 warps'
     column sums and the tile's mask (a, b); the grid is always a multiple
     of the column tiles (a CTA's tiles share one column, so the fused
-    epilogue sums them into one entry)."""
+    epilogue sums them into one entry). ``fwd`` (the staged forward, whose
+    epilogue slot only stages y) favours the ring: a second or third
+    epilogue slot only where the ring keeps FWD_KEEP slots (FWD_KEEP_HALO
+    in halo mode)."""
     boxes = [1 << i for i in range(TM.bit_length())
              if not gh or gh % (TM >> i) == 0]
     wb = min(boxes, key=lambda b: (
@@ -386,7 +398,8 @@ def tma_bwd_dx_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
         # halo mode, else MIN_A_SLOTS), up to 3, at least one
         eslots = 0
         if slot:
-            keep = 2 if halo else MIN_A_SLOTS
+            keep = ((FWD_KEEP_HALO if halo else FWD_KEEP) if fwd else
+                    2 if halo else MIN_A_SLOTS)
             eslots = max([1] + [e for e in (2, 3) if (room - e * sbytes)
                                 // (stage + 16) >= keep])
         stages = min(MAX_FWD_STAGES,
@@ -399,6 +412,19 @@ def tma_bwd_dx_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     grid = max(col_tiles, grid - grid % col_tiles)
     return TmaBwdDxPlan(wb, hb, bn, resident, stages, grid, row_tiles,
                         col_tiles, halo, eslots)
+
+
+def tma_staged_fwd_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
+                        sms: int, gh: int = 0) -> TmaBwdDxPlan:
+    """The tiling of the staged forward (csrc/conv_bwd.cuh ``tdx`` in its
+    forward mode: fused_conv_fwd and ghost_conv_fwd), a conv of ci -> co
+    channels through ks x ks taps over n images of h x w (a 1x1 over M
+    rows: n = h = 1, w = M): tdx's plan with the channel counts swapped
+    (its columns are the conv's co, its K steps the conv's ci), no aux
+    box, the output y staged in epilogue slots (``fwd``: the ring first);
+    gh > 0, a ghost conv: the box height divides gh, so each tile lies in
+    one band."""
+    return tma_bwd_dx_plan(n, h, w, co, ci, ks, sms, 0, True, gh, True)
 
 
 @functools.cache

@@ -152,7 +152,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the extern "C" entry points of csrc/<library>.cu: argument types
 SIGNATURES = {
     "fused_conv": {
-        "fused_conv_fwd": [_P] * 5 + [_I] * 6 + [_P],
+        "fused_conv_fwd": [_P] * 6 + [_I] * 13 + [_P],
         "fused_conv_bwd": [_P] * 11 + [_I] * 20 + [_P],
     },
     "fused_boundary": {
@@ -226,21 +226,37 @@ def conv_fwd(x: torch.Tensor, ab: torch.Tensor, w: torch.Tensor
     x (N, Ci, H, W) channels-last; ab (2, Ci) float32; w (Co, Ci, k, k)
     with k in (1, 3), in x's dtype. Returns y (N, Co, H, W) channels-last
     in x's dtype and s (2, Co) float32 taken from the float32 products.
+    One launch on csrc/conv_bwd.cuh's ``tdx`` in its forward mode (tiled
+    by ops/conv.py tma_staged_fwd_plan, x put through relu(x*a + b) on its
+    way from shared memory into the product) and one that adds the CTAs'
+    sums in order: no atomics, so two calls on the same inputs are
+    bit-equal.
     """
     if on_cpu(x, ab, w):
         return conv_fwd_reference(x, ab, w)
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+
     _check(x, x=x, ab=ab)
     n, ci, h, wd, co, k = _conv_shapes(x, ab, w)
     if w.dtype != torch.bfloat16 or w.device != x.device:
         raise TypeError(f"w: need bfloat16 on {x.device}")
     wt = w.permute(0, 2, 3, 1).reshape(co, k * k * ci).contiguous()
+    aligned16(x=x, ab=ab)
+    index = x.device.index
+    geo = (1, 1, n * h * wd) if k == 1 else (n, h, wd)  # a 1x1's rows
+    p = CV.tma_staged_fwd_plan(*geo, ci, co, k, CV._sms(index))
     y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device,
                     memory_format=_CL)
-    s = torch.zeros((2, co), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    # s and the CTAs' entries in one buffer, both written whole
+    buf = torch.empty(2 * co * (1 + p.grid // p.col_tiles),
+                      dtype=torch.float32, device=x.device)
+    s, ws = buf[:2 * co].view(2, co), buf[2 * co:]
+    with CV._on_device(index):
         err = _lib("fused_conv").fused_conv_fwd(
             x.data_ptr(), ab.data_ptr(), wt.data_ptr(), y.data_ptr(),
-            s.data_ptr(), n, h, wd, ci, co, k, cuda_stream())
+            s.data_ptr(), ws.data_ptr(), *geo, ci, co, k, p.wb, p.hb, p.bn,
+            int(p.resident), p.stages, p.grid, p.eslots,
+            torch._C._cuda_getCurrentRawStream(index))
     raise_on(err, "fused_conv_fwd")
     conv_fwd.launches += 1
     return y, s

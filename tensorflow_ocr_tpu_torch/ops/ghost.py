@@ -391,7 +391,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 # the extern "C" entry points of csrc/ghost_unit.cu: argument types
 SIGNATURES = {
-    "ghost_conv_fwd": [_P] * 5 + [_I] * 7 + [_P],
+    "ghost_conv_fwd": [_P] * 6 + [_I] * 14 + [_P],
     "ghost_conv_bwd": [_P] * 13 + [_I] * 24 + [_P],
     "ghost_boundary": [_P] * 7 + [_I] * 5 + [_P],
     "ghost_seam_bwd": [_P] * 8 + [_I] * 5 + [_P]}
@@ -461,7 +461,12 @@ def conv_fwd(x: torch.Tensor, tab: Optional[torch.Tensor], w: torch.Tensor,
     """y = conv_k(act(x), w), stride 1, SAME, with act(x) = relu(x·a + b)
     under the (a, b) of the OUTPUT pixel's band (tab (N, nb, 2, Ci); None:
     x as it is), zero outside the image; k in (1, 3). Returns y in x's
-    dtype and the per-band [Σy, Σy²] of the rounded y, (N, nb, 2, Co)."""
+    dtype and the per-band [Σy, Σy²] of the rounded y, (N, nb, 2, Co).
+    One launch on csrc/conv_bwd.cuh's ``tdx`` in its forward mode (tiled
+    by ops/conv.py tma_staged_fwd_plan, each tile in one band, x put
+    through the band's affine on its way from shared memory into the
+    product) and one that adds each band's entries in order: no atomics,
+    so two calls on the same inputs are bit-equal."""
     if on_cpu(x, tab, w):
         return conv_fwd_reference(x, tab, w, gh)
     n, ci, h, wd = x.shape
@@ -474,14 +479,23 @@ def conv_fwd(x: torch.Tensor, tab: Optional[torch.Tensor], w: torch.Tensor,
                          f"(Co, {ci}, k, k), k in (1, 3), Co a multiple of "
                          f"{KERNEL_CHANNELS}, on {x.device}")
     wt = w.permute(0, 2, 3, 1).reshape(co, k * k * ci).contiguous()
+    aligned16(x=x, tab=tab)
+    index = x.device.index
+    p = CV.tma_staged_fwd_plan(n, h, wd, ci, co, k, CV._sms(index), gh)
     y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device,
                     memory_format=_CL)
-    s = torch.zeros((n, h // gh, 2, co), dtype=torch.float32,
-                    device=x.device)
-    with torch.cuda.device(x.device):
+    # the band sums and the tiles' entries in one buffer, both written
+    # whole
+    nbs = n * (h // gh) * 2 * co
+    buf = torch.empty(nbs + p.row_tiles * 2 * co, dtype=torch.float32,
+                      device=x.device)
+    s, ws = buf[:nbs].view(n, h // gh, 2, co), buf[nbs:]
+    with CV._on_device(index):
         err = _lib().ghost_conv_fwd(
             x.data_ptr(), _ptr(tab), wt.data_ptr(), y.data_ptr(),
-            s.data_ptr(), n, h, wd, ci, co, k, gh, cuda_stream())
+            s.data_ptr(), ws.data_ptr(), n, h, wd, ci, co, k, gh, p.wb,
+            p.hb, p.bn, int(p.resident), p.stages, p.grid, p.eslots,
+            torch._C._cuda_getCurrentRawStream(index))
     raise_on(err, "ghost_conv_fwd")
     conv_fwd.launches += 1
     return y, s

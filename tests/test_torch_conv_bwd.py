@@ -23,6 +23,8 @@ transform applied to TMA's zero fill without the re-zero (relu(b) and
 ds0 at the pad taps), and a ghost halo row under its own band's affine.
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -517,7 +519,6 @@ def test_staged_dw_split_fills_the_waves():
 def c_entry_points(source):
     """{name: [ctypes type of each parameter]} of the extern "C" functions
     of csrc/<source>.cu: pointers (void*, const void*) and ints."""
-    import ctypes
     import re
     from tensorflow_ocr_tpu_torch.ops.kernels import CSRC_DIR
 
@@ -542,3 +543,21 @@ def test_ctypes_signatures_match_the_c_entry_points(source, sigs):
     """The wrappers' ctypes argument types are the C functions' own, one
     for one: a missing int would pass the stream as a 32-bit int."""
     assert c_entry_points(source) == sigs
+
+
+@pytest.mark.parametrize("source,name,sigs,geometry", [
+    ("fused_conv", "fused_conv_fwd", FU.SIGNATURES["fused_conv"], 6),
+    ("ghost_unit", "ghost_conv_fwd", G.SIGNATURES, 7)])
+def test_forward_entry_points_take_the_staged_plan(source, name, sigs,
+                                                   geometry):
+    """The staged forwards take x, the table, the weight, y, the sums and
+    the sums' scratch entries (six pointers), the geometry (n, h, w, ci,
+    co, ks, and gh for the ghost conv), the seven fields of
+    tma_staged_fwd_plan that the kernel reads (wb, hb, bn, resident,
+    stages, grid, eslots) and the stream, in the C function and in the
+    wrapper's ctypes list alike."""
+    fields = ("wb", "hb", "bn", "resident", "stages", "grid", "eslots")
+    assert set(fields) <= set(CV.TmaBwdDxPlan._fields)
+    want = [ctypes.c_void_p] * 6 + [ctypes.c_int] * (geometry + len(fields)) \
+        + [ctypes.c_void_p]
+    assert c_entry_points(source)[name] == sigs[name] == want

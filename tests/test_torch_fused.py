@@ -9,12 +9,12 @@ sums in another order (up to 9*64 products a conv output, up to ~200
 rows a statistic). A float64 gradcheck holds each autograd function to
 finite differences.
 
-The forward kernel's tiling is emulated here, in its own index
-arithmetic (128-row pixel tiles, 32-wide K slices within one tap, the
-tap-to-pixel map with its SAME pad); the backward's (csrc/conv_bwd.cuh:
-the dW split over pixel tiles and clusters, the dX tiles with their
-staged dy_eff) by tests/test_torch_conv_bwd.py. Both must equal the plain
-whole-map result.
+The kernels' tiling is emulated by tests/test_torch_fwd_staged.py (the
+forward: csrc/conv_bwd.cuh's tdx in its forward mode, x staged through
+the prologue, the sums one entry a CTA) and tests/test_torch_conv_bwd.py
+(the backward: the dW split over pixel tiles and clusters, the dX tiles
+with their staged dy_eff); here both must equal the plain whole-map
+result.
 """
 
 import jax
@@ -26,6 +26,7 @@ import torch
 from tensorflow_ocr_tpu.ops import pallas_fused as PF
 from tensorflow_ocr_tpu_torch.ops import fused as FU
 from test_torch_conv_bwd import emulate_fused_bwd
+from test_torch_fwd_staged import emulate_fused_fwd
 
 torch.set_num_threads(1)
 RTOL = 1e-4
@@ -162,49 +163,10 @@ def test_fused_boundary_gradcheck_float64():
 # CPU emulation of the kernels' split (csrc/fused_conv.cu)
 # --------------------------------------------------------------------------
 
-BM, BK = 128, 32
-
-
-def tap_pixel(m, t, n, h, w, ks):
-    """csrc/igemm.cuh tap_pixel: pixel of output row m under tap t, or
-    -1 at the SAME pad / past the last row."""
-    big = n * h * w
-    ow, oh = m % w, (m // w) % h
-    ky, kx = t // ks, t % ks
-    hh, ww = oh + ky - ks // 2, ow + kx - ks // 2
-    ok = (m < big) & (hh >= 0) & (hh < h) & (ww >= 0) & (ww < w)
-    return torch.where(ok, m + (ky - ks // 2) * w + (kx - ks // 2), -1)
-
-
-def staged(rows, pix, c0):
-    """A (len(pix), BK) operand tile: zero where pix < 0."""
-    tile = rows[pix.clamp(min=0), c0:c0 + BK]
-    return torch.where(pix[:, None] >= 0, tile, torch.zeros_like(tile))
-
-
-def emulate_conv_fwd(x, ab, w):
-    n, ci, h, wd = x.shape
-    co, ks = w.shape[0], w.shape[-1]
-    m = n * h * wd
-    xn = FU._prologue(x, ab).permute(0, 2, 3, 1).reshape(m, ci)
-    wt = w.permute(0, 2, 3, 1).reshape(co, ks * ks * ci)
-    y, s = torch.zeros(m, co), torch.zeros(2, co)
-    for m0 in range(0, m, BM):
-        rows = torch.arange(m0, m0 + BM)
-        acc = torch.zeros(BM, co)
-        for k0 in range(0, ks * ks * ci, BK):
-            tap, c0 = divmod(k0, ci)
-            a = staged(xn, tap_pixel(rows, tap, n, h, wd, ks), c0)
-            acc += a @ wt[:, k0:k0 + BK].T
-        live = rows < m
-        y[rows[live]] = acc[live]
-        s += torch.stack([acc[live].sum(0), (acc[live] ** 2).sum(0)])
-    return y, s
-
 
 @pytest.mark.parametrize("k,ci,co,nhw", [
-    (3, 64, 64, (2, 9, 11)),     # M = 198: a full tile and a ragged one
-    (3, 32, 64, (1, 12, 13)),    # K slices within one tap of 32 channels
+    (3, 64, 64, (2, 9, 11)),     # ragged tiles against H and W
+    (3, 32, 64, (1, 12, 13)),    # a channel box past Ci (TMA's zero fill)
     (1, 64, 128, (3, 5, 9)),
 ])
 def test_kernel_split_emulation_equals_whole_map(k, ci, co, nhw):
@@ -212,19 +174,19 @@ def test_kernel_split_emulation_equals_whole_map(k, ci, co, nhw):
     x, ab, wk, dy, ds = conv_case(rng, nhw[0], nhw[1], nhw[2], ci, co, k)
     args = (nchw(x), torch.from_numpy(ab), torch_weight(wk))
     y, s = FU.conv_fwd_reference(*args)
-    ey, es = emulate_conv_fwd(*args)
+    # a small SM count: several CTAs walk several tiles each
+    ey, es, _ = emulate_fused_fwd(*args, 4)
     close(ey, y.permute(0, 2, 3, 1).reshape(-1, co), "y")
     close(es, s, "s")
     if not FU.kernel_takes(ci, co, k):
-        # the backward's TMA boxes take 64-channel multiples only: the
+        # the kernels' TMA boxes take 64-channel multiples only: the
         # wrapper refuses the rest before it reaches the card
         with pytest.raises(ValueError, match="multiple of 64"):
             FU._conv_shapes(*args)
         return
     dx, dab, dw = FU.conv_bwd_reference(*args, y, nchw(dy),
                                         torch.from_numpy(ds))
-    # a small SM count: several CTAs walk several tiles each, and the dW
-    # split has several pixel ranges
+    # the dW split has several pixel ranges
     edx, edab, edw, _, _ = emulate_fused_bwd(*args, y, nchw(dy),
                                              torch.from_numpy(ds), 4)
     close(edx, dx.permute(0, 2, 3, 1).reshape(-1, ci), "dx")
