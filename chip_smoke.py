@@ -9,8 +9,11 @@ Phases, in order; any failure raises and exits non-zero:
 2. build the seven CUDA sources of csrc/ (nvcc, sm_90a), one nvcc each,
    all started together;
 3. hold the connected-components kernel against its plain PyTorch
-   version on the card: (8, 192, 320) text-like blob maps plus hand
-   cases; int32 labels must be equal; print both times;
+   version on the card: (8, 192, 320) text-like blob maps, hand cases
+   (the diagonal chains and the serpentines cross the kernel's tiles at
+   their sides and corners) and a (3, 100, 150) batch of ragged tiles;
+   int32 labels must be equal, and equal on two launches; print both
+   times and the kernel's device time (replayed from a CUDA graph);
 4. full-width pixellink_resnet50 forward, float32, TF32 off, 256x256 on
    the card against the same seeded weights on the CPU;
 5. the main path: Predictor.detect_batch at full width, bfloat16, on
@@ -63,10 +66,11 @@ Phases, in order; any failure raises and exits non-zero:
 14. hold each of the five ghost-BN kernels (csrc/ghost_unit.cu) against
    its plain version along one unit's forward and backward chain at
    each of the 4 ghost unit shapes of the 512^2 batch-32 step (each conv
-   forward and backward launched twice and held bit-equal); print kernel
-   and plain ms, the FLOPs, bytes and bound of each call, the conv
-   forward's device ms and conv-alone yardstick, the conv backward's dW
-   and dX device ms and each conv kernel's ms a train step;
+   forward and backward, the boundary's backward and the seam pass
+   launched twice and held bit-equal); print kernel and plain ms, the
+   FLOPs, bytes and bound of each call, the conv forward's device ms and
+   conv-alone yardstick, the conv backward's dW and dX and the seam's
+   device ms, and each conv kernel's and the seam's ms a train step;
 15. with --faults only: the readings of the ghost arm check (phase 16)
    in 3 sound runs and under planted faults, which set GHOST_ARM_*;
 16. the ghost arm (bottleneck_impl "ghost": 5 ghost units, the other 8
@@ -103,6 +107,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SHAPE = (8, 192, 320)          # label maps of a 1280x768 batch of 8
+RAGGED_SHAPE = (3, 100, 150)   # a batch of label maps of another size
 IMAGE_HW = (768, 1280)
 MODEL = "pixellink_resnet50"
 # phase 4: float32 on the card (TF32 off) vs the CPU differ only in the
@@ -183,6 +188,25 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Milliseconds a call of ``fn`` replayed from a CUDA graph (CUDA
+    events around ``iters`` replays): its launches' device time without
+    the wrapper's host time, and without torch.profiler, which early in
+    the process made every later profiler reading read low (PERF.md,
+    Findings)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capturing stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
+
+
 def kernel_device_ms(fn, groups, iters=5):
     """{group: device ms a call of ``fn``} from torch.profiler: the device
     entries whose kernel name contains one of the group's substrings, over
@@ -211,6 +235,8 @@ def kernel_device_ms(fn, groups, iters=5):
 BWD_PARTS = {"dW": ("tdw<", "sum_tables"), "dX": ("tdx<", "reduce_parts")}
 # the staged forward: tdx in its forward mode and reduce_parts of its sums
 FWD_PARTS = {"fwd": ("tdx<", "reduce_parts")}
+# the seam pass (csrc/ghost_unit.cu): tseam and reduce_parts of its sums
+SEAM_PARTS = {"seam": ("tseam<", "reduce_parts")}
 
 
 def conv_alone_ms(xn, w, iters):
@@ -278,11 +304,21 @@ def hand_cases(device):
     idx = torch.arange(min(h, w))
     diag[0, idx, idx] = True
     add("diagonal_chain", diag)
+    anti = torch.zeros(1, h, w, dtype=torch.bool)
+    anti[0, h - 1 - idx, idx] = True
+    add("anti_diagonal_chain", anti)  # up-right through the tiles' corners
     serp = torch.zeros(1, h, w, dtype=torch.bool)
     serp[0, 0::2, :] = True
     for y in range(1, h, 2):
         serp[0, y, w - 1 if (y // 2) % 2 == 0 else 0] = True
     add("serpentine", serp)
+    # every other column, joined at alternate ends: one path across every
+    # tile border of each row of tiles, up and down
+    cols = torch.zeros(1, h, w, dtype=torch.bool)
+    cols[0, :, 0::2] = True
+    for x in range(1, w, 2):
+        cols[0, h - 1 if (x // 2) % 2 == 0 else 0, x] = True
+    add("serpentine_columns", cols)
     return cases
 
 
@@ -292,16 +328,20 @@ def phase_cc(device, report):
 
     gen = torch.Generator().manual_seed(0)
     cases = [("blobs", *blob_maps(gen, SHAPE, device))] + hand_cases(device)
+    # a batch of another size, no multiple of the kernel's 32 x 32 tiles
+    cases.append(("ragged_blobs", *blob_maps(gen, RAGGED_SHAPE, device)))
     max_err = 0
     for name, edges, mask in cases:
         got = K.connected_components(edges, mask)
+        again = K.connected_components(edges, mask)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{name}: two launches differ")
         want = K.connected_components_reference(edges, mask)
-        if name == "serpentine":
+        if name.startswith("serpentine"):
             uncapped = K.connected_components_reference(edges, mask,
                                                         max_iters=1 << 20)
             check(torch.equal(want, uncapped),
-                  "serpentine: the plain version did not converge in its cap")
+                  f"{name}: the plain version did not converge in its cap")
         check(got.dtype == torch.int32 and got.shape == mask.shape,
               f"{name}: labels {got.dtype} {tuple(got.shape)}")
         err = int((got.long() - want.long()).abs().max())
@@ -316,9 +356,11 @@ def phase_cc(device, report):
     # int32 labels written; no tensor-core work, and no library call
     # computes connected components
     bound = add_bound(report, 0, mask.numel() * (8 + 1 + 4))
-    print(f"cc: {len(cases)} cases equal, labels (8,192,320): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-          f"(bytes)")
+    dev = graph_ms(lambda: K.connected_components(edges, mask), 50)
+    print(f"cc: {len(cases)} cases equal ({', '.join(c[0] for c in cases)})"
+          f", each launched twice and equal; labels (8,192,320): kernel "
+          f"{ms:.4f} ms (device {dev:.4f}, replayed from a CUDA graph), "
+          f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
     report.update(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                   library_ms=None)
 
@@ -1796,6 +1838,7 @@ def phase_ghost_kernels(device, reports):
         return want
 
     step = dict(ms=0.0, dW=0.0, dX=0.0, bound=0.0)
+    sstep = dict(ms=0.0, device=0.0, bound=0.0)
 
     def conv_bwd(what, x, tx, g, z, td, w, gh, edge=None, addend=None,
                  out="gm"):
@@ -1877,8 +1920,13 @@ def phase_ghost_kernels(device, reports):
 
         dout = act(n, co, h, wd, 1e-2)
         got = G.boundary_bwd(dout, z3, t3, zs, ts, gh)
+        again = G.boundary_bwd(dout, z3, t3, zs, ts, gh)
         gm3, sb = G.boundary_bwd_reference(dout, z3, t3, zs, ts, gh)
         torch.cuda.synchronize()
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              f"ghost boundary_bwd {tag}: two launches on the same inputs "
+              "differ")
+        del again
         gf = gm3.float().abs()
         scale = torch.cat([G.band_sums(gf * z3.float().abs(), gf, gh),
                            G.band_sums(gf * zs.float().abs(), gf, gh)[:, :, :1]],
@@ -1900,17 +1948,31 @@ def phase_ghost_kernels(device, reports):
         td2 = corr(sb2, s2, gb2, t2)
         gm1, sb1, _ = conv_bwd(f"conv2 {tag}", z1, t1, gm2, z2, td2, w2, gh)
         args = (gm2, z2, td2, z1, t1, w2, gh)
-        got = G.seam_bwd(*args)
+        got, again = G.seam_bwd(*args), G.seam_bwd(*args)
         edge, sh = G.seam_bwd_reference(*args)
         torch.cuda.synchronize()
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              f"ghost seam_bwd {tag}: two launches on the same inputs differ")
+        del again
+        gms, xs, _ = G.seam_terms(*args)
+        scale = torch.stack([(gms[0] * xs[0]).abs() + (gms[1] * xs[1]).abs(),
+                             gms[0].abs() + gms[1].abs()], 1).sum(3)
         rows = 2 * nbt * wd
-        timed("ghost_seam_bwd", tag, lambda: G.seam_bwd(*args),
-              lambda: G.seam_bwd_reference(*args),
-              [f32_close(f"seam edge {tag}", got[0], edge),
-               f32_close(f"seam sums {tag}", got[1], sh)],
-              2 * rows * 3 * db * db,
-              rows * db * (4 + 2 + 2 + 4) + 18 * db * db + 8 * nbt * db)
-        del got
+        ms, bound = timed(
+            "ghost_seam_bwd", tag, lambda: G.seam_bwd(*args),
+            lambda: G.seam_bwd_reference(*args),
+            [f32_close(f"seam edge {tag}", got[0], edge),
+             sum_close(f"seam sums {tag}", got[1], sh,
+                       scale.reshape(sh.shape))],
+            2 * rows * 3 * db * db,
+            rows * db * (4 + 2 + 2 + 4) + 18 * db * db + 8 * nbt * db)
+        dev = kernel_device_ms(lambda: G.seam_bwd(*args),
+                               SEAM_PARTS)["seam"]
+        for key, v in (("ms", ms), ("device", dev), ("bound", bound)):
+            sstep[key] += units * v
+        print(f"ghost_seam_bwd {tag}: device {dev:.4f} ms; {units} a step; "
+              "bit-equal twice")
+        del got, gms, xs, scale
         td1 = corr(sb1 + sh, s1, gb1, t1)
         if proj:
             tds = corr(sb[:, :, [2, 1]], ss, gbs, ts)
@@ -1930,6 +1992,10 @@ def phase_ghost_kernels(device, reports):
           f"a step, {GHOST_STEP_LAUNCHES['ghost_conv_bwd']} in all): "
           f"{step['ms']:.4f} ms by events (device: dW {step['dW']:.4f}, dX "
           f"{step['dX']:.4f}), bound {step['bound']:.4f}")
+    print(f"ghost_seam_bwd a train step (each call's ms times its units in "
+          f"a step, {GHOST_STEP_LAUNCHES['ghost_seam_bwd']} in all): "
+          f"{sstep['ms']:.4f} ms by events (device {sstep['device']:.4f}), "
+          f"bound {sstep['bound']:.4f}")
     print("ghost kernels: ms, plain_ms and bound_ms in the kernels line are "
           "sums over every call of one unit's chain at each of the "
           f"{len(GHOST_SHAPES)} unit shapes; max_abs_err over its "

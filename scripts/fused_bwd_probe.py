@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Probe of the staged conv kernels (csrc/conv_bwd.cuh, through
 fused_conv.cu's fused_conv_fwd and fused_conv_bwd and ghost_unit.cu's
-ghost_conv_fwd and ghost_conv_bwd) on one CUDA GPU.
+ghost_conv_fwd and ghost_conv_bwd) and of ghost_unit.cu's seam pass
+(tseam) on one CUDA GPU.
 
     python3 scripts/fused_bwd_probe.py
 
 1. builds fused_conv.cu and ghost_unit.cu once more with -Xptxas -v (both
    nvcc at once) and prints the registers, shared memory and spills of
-   each tdw and tdx instance: the backward's dW and dX, and the forward
-   (tdx with ActTr);
+   each tdw, tdx and tseam instance: the backward's dW and dX, the
+   forward (tdx with ActTr) and the seam pass;
 2. runs chip_smoke.py's fused and ghost kernel phases: every kernel of
    the two sources against its plain version at every shape of the 512^2
    batch-32 step, each conv forward and backward launched twice and held
-   bit-equal, with its time by CUDA events, its device time (forward;
-   the backward's dW and dX) from torch.profiler and its ms a step (each
-   shape times its launches).
+   bit-equal (the ghost boundary's backward and the seam pass too), with
+   its time by CUDA events, its device time (forward; the backward's dW
+   and dX; the seam) from torch.profiler and its ms a step (each shape
+   times its launches).
 
 Exits 2 without CUDA.
 """
@@ -29,7 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def ptxas_report():
     """fused_conv.cu and ghost_unit.cu built with -Xptxas -v: the resource
-    lines of each tdw and tdx instance, and every warning."""
+    lines of each tdw, tdx and tseam instance, and every warning."""
     from tensorflow_ocr_tpu_torch.ops import kernels as K
 
     K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -48,7 +50,8 @@ def ptxas_report():
                 if "Compiling entry function" in line:
                     name = line.split("'")[1]
                 elif "warning" in line.lower() or (
-                        name and ("tdw" in name or "tdx" in name) and (
+                        name and any(k in name for k in ("tdw", "tdx",
+                                                         "tseam")) and (
                             "registers" in line or "spill" in line)):
                     print(f"ptxas {src} {name}: "
                           f"{line.split(':', 1)[-1].strip()}")
@@ -74,7 +77,9 @@ def main() -> int:
     for name, r in (("fused_conv_fwd", fused["fused_conv_fwd"]),
                     ("fused_conv_bwd", fused["fused_conv_bwd"]),
                     ("ghost_conv_fwd", ghost["ghost_conv_fwd"]),
-                    ("ghost_conv_bwd", ghost["ghost_conv_bwd"])):
+                    ("ghost_conv_bwd", ghost["ghost_conv_bwd"]),
+                    ("ghost_boundary_bwd", ghost["ghost_boundary_bwd"]),
+                    ("ghost_seam_bwd", ghost["ghost_seam_bwd"])):
         print(f"{name}: {r['ms']:.4f} ms over its shapes (events), bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f}, max abs err {r['max_abs_err']:.3e}")

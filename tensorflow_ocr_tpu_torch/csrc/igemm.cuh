@@ -1,7 +1,7 @@
-// The core shared by the implicit-GEMM conv kernels of conv.cu (the
-// narrow forward and dW, igemm_fwd and igemm_dw) and ghost_unit.cu's seam
-// pass (gseam, with BandDz), and the vector helpers (unpack8, pack8,
-// load8f, affine) that conv_bwd.cuh's staging transforms use: the tap map
+// The core of the implicit-GEMM conv kernels of conv.cu (the narrow
+// forward and dW, igemm_fwd and igemm_dw), and the vector helpers
+// (unpack8, pack8, load8f, affine) that conv_bwd.cuh's staging transforms
+// and ghost_unit.cu use: the tap map
 // of a KSxKS stride-1 SAME window over NHWC pixel rows, the loaders that
 // stage im2col operands into shared memory, and the tensor-core tile
 // loop. A CTA of 8 warps computes a BM x BN tile of
@@ -25,17 +25,12 @@
 // consecutive K indices lie inside one tap and load as one vector.
 // Otherwise each element loads alone, predicated on the K tail and on its
 // own tap: only transforms with kEach (Ident, whose Reg is the uint4 of
-// the 8 values) take that path; the others need vec. A transform with
-// kBanded also gets the pixel m of the product's row (the output pixel
-// of a forward or dX product, the pixel column of a dW product):
-//   X::fetch(reg, pix, ch, c, m),
-// so that it can read a table of the band of m (ghost_unit.cu's BandDz).
+// the 8 values) take that path; the others need vec.
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_bf16.h>
-#include <type_traits>
 
 namespace igemm {
 
@@ -85,22 +80,6 @@ struct Ident {
   __device__ __forceinline__ uint4 value(const Reg& v) const { return v; }
 };
 
-template <class X, class = void>
-struct Banded : std::false_type {};
-template <class X>
-struct Banded<X, std::void_t<decltype(X::kBanded)>>
-    : std::integral_constant<bool, X::kBanded> {};
-
-// X::fetch, with the product row's pixel m where the transform takes it.
-template <class X>
-__device__ __forceinline__ void fetch_one(const X& x, typename X::Reg& v,
-                                          int pix, int ch, int c, int m) {
-  if constexpr (Banded<X>::value)
-    x.fetch(v, pix, ch, c, m);
-  else
-    x.fetch(v, pix, ch, c);
-}
-
 // K indices k..k+7 of im2col row m into v; zero where !in, past
 // KS*KS*ch, or at a pad tap. At KS = 1 the K index is the channel.
 template <int KS, class X>
@@ -124,7 +103,7 @@ __device__ __forceinline__ void fetch8(const X& x, typename X::Reg& v,
   }
   const int t = KS == 1 ? 0 : k / ch;
   int pix = in && k < kdim ? tap_pixel<KS>(g, m, t) : -1;
-  fetch_one(x, v, pix, ch, k - t * ch, m);
+  x.fetch(v, pix, ch, k - t * ch);
 }
 
 // Rows m0 + r of the operand, slice kt = K indices kt*BK + [0, BK). A
@@ -321,102 +300,5 @@ __device__ __forceinline__ void load8f(const float* p, float f[8]) {
 __device__ __forceinline__ float affine(float x, float a, float b) {
   return __fadd_rn(__fmul_rn(x, a), b);
 }
-
-// Add per-column partial sums p0, p1 (per (j, e&1) pair of this thread)
-// across the warp's rows, then into the CTA's shared table red[2][BN].
-template <int BM, int BN>
-__device__ __forceinline__ void reduce_cols(float p0[][2], float p1[][2],
-                                            float (*red)[128]) {
-  using W = Warps<BM, BN>;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int j = 0; j < W::NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        p0[j][e] += __shfl_xor_sync(0xffffffffu, p0[j][e], off);
-        p1[j][e] += __shfl_xor_sync(0xffffffffu, p1[j][e], off);
-      }
-      if (lane < 4) {
-        int r, c;
-        acc_pos<BM, BN>(0, j, e, r, c);
-        atomicAdd(&red[0][c], p0[j][e]);
-        atomicAdd(&red[1][c], p1[j][e]);
-      }
-    }
-}
-
-// ------------------------------------------- banded transforms (ghost BN)
-//
-// Per-band tables are float32, (bands, rows, ch) with band = pixel /
-// band_px (band_px = gh*W pixels: band j of image n is n*(H/gh) + j), so
-// a band's rows are contiguous.
-
-// dz = g*a + c1 + 2*z*c2 (+ e), (a, c1, c2) = the table rows of the band
-// of the pixel read, zero where that band is not the band of m (a 3x3 dX
-// takes only its own band's rows). e, where edge is set: the seam term
-// on a band's first and last rows, edge (bands, 2, W, ch). g is bf16
-// (G = bf16) or float32 (G = float), z bf16.
-template <class G>
-struct BandDz {
-  static constexpr bool kEach = false;
-  static constexpr bool kBanded = true;
-  static constexpr int GV = sizeof(G) * 8 / 16;  // uint4s of 8 g values
-  struct Reg {
-    uint4 g[GV], z;
-    const float* t;  // the band's a at channel c; c1, c2 at +ch, +2ch
-    const float* e;  // the seam term at channel c, or nullptr
-    bool live;
-  };
-  const G* g;
-  const bf16* z;
-  const float *tab, *edge;
-  int ch, band_px, w;
-
-  __device__ __forceinline__ void fetch(Reg& v, int pix, int ch_, int c,
-                                        int m) const {
-    const int band = pix / band_px;
-    v.live = pix >= 0 && band == m / band_px;
-    if (!v.live) return;
-    v.t = tab + (size_t)band * 3 * ch + c;
-    v.e = nullptr;
-    if (edge) {
-      const int off = pix - band * band_px, row = off / w;
-      if (row == 0 || row == band_px / w - 1)
-        v.e = edge + (((size_t)band * 2 + (row != 0)) * w + off % w) * ch + c;
-    }
-    const uint4* gp = reinterpret_cast<const uint4*>(g + (size_t)pix * ch_ + c);
-#pragma unroll
-    for (int i = 0; i < GV; ++i) v.g[i] = __ldg(gp + i);
-    v.z = __ldg(reinterpret_cast<const uint4*>(z + (size_t)pix * ch_ + c));
-  }
-  __device__ __forceinline__ uint4 value(const Reg& v) const {
-    if (!v.live) return make_uint4(0, 0, 0, 0);
-    float gf[8], zf[8], a[8], c1[8], c2[8], o[8];
-    if constexpr (GV == 1) {
-      unpack8(v.g[0], gf);
-    } else {
-      const float* f = reinterpret_cast<const float*>(v.g);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) gf[i] = f[i];
-    }
-    unpack8(v.z, zf);
-    load8f(v.t, a);
-    load8f(v.t + ch, c1);
-    load8f(v.t + 2 * ch, c2);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      o[i] = __fadd_rn(__fadd_rn(__fmul_rn(gf[i], a[i]), c1[i]),
-                       __fmul_rn(2.f * zf[i], c2[i]));
-    if (v.e) {
-      float e[8];
-      load8f(v.e, e);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) o[i] = __fadd_rn(o[i], e[i]);
-    }
-    return pack8(o);
-  }
-};
 
 }  // namespace igemm

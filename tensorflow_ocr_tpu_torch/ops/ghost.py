@@ -55,7 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -354,8 +354,10 @@ def conv_bwd_reference(x, tx, g, z, td, w, gh, edge=None, addend=None,
     return gx.to(dtype).contiguous(memory_format=_CL), None, dw
 
 
-def seam_bwd_reference(g, z, td, x, tx, w, gh):
-    """Plain version of :func:`seam_bwd`."""
+def seam_terms(g, z, td, x, tx, w, gh):
+    """The seam's gm at band j's halo row above and below it, each
+    (N·nb, C, W), the rows' x_q, and band j's a1 (N·nb, C, 1): gm is zero
+    where the halo row lies outside the image."""
     n, c, h, wd = x.shape
     nb = h // gh
     dzb = up_f32(_bands(_dz(g, z, td, gh), gh))
@@ -366,11 +368,18 @@ def seam_bwd_reference(g, z, td, x, tx, w, gh):
     t = tx.reshape(n * nb, 2, c)
     a, b = t[:, 0, :, None], t[:, 1, :, None]
     live = _edge_mask(n, nb, gh, x.device)   # (N·nb, 1, gh+2, 1)
-    gms = []
-    for row in (0, gh + 1):  # the halo row above, below the band
-        xr = xh[:, :, row]
-        gms.append(gxb[:, :, row] * (xr * a + b > 0) * live[:, :, row])
-    sums = torch.stack([gms[0] * xh[:, :, 0] + gms[1] * xh[:, :, gh + 1],
+    xs = [xh[:, :, 0], xh[:, :, gh + 1]]     # the halo row above, below
+    gms = [gxb[:, :, row] * (xr * a + b > 0) * live[:, :, row]
+           for row, xr in zip((0, gh + 1), xs)]
+    return gms, xs, a
+
+
+def seam_bwd_reference(g, z, td, x, tx, w, gh):
+    """Plain version of :func:`seam_bwd`."""
+    n, c, h, wd = x.shape
+    nb = h // gh
+    gms, xs, a = seam_terms(g, z, td, x, tx, w, gh)
+    sums = torch.stack([gms[0] * xs[0] + gms[1] * xs[1],
                         gms[0] + gms[1]], 1).sum(3)       # (N·nb, 2, C)
     # a halo row is the last row of the band above, the first of the one
     # below: its term goes there, times the reading band's a1
@@ -394,7 +403,7 @@ SIGNATURES = {
     "ghost_conv_fwd": [_P] * 6 + [_I] * 14 + [_P],
     "ghost_conv_bwd": [_P] * 13 + [_I] * 24 + [_P],
     "ghost_boundary": [_P] * 7 + [_I] * 5 + [_P],
-    "ghost_seam_bwd": [_P] * 8 + [_I] * 5 + [_P]}
+    "ghost_seam_bwd": [_P] * 9 + [_I] * 9 + [_P]}
 
 
 @functools.cache
@@ -623,6 +632,80 @@ def conv_bwd(x, tx, g, z, td, w, gh, edge=None, addend=None,
     return dx, sums, dw
 
 
+class SeamPlan(NamedTuple):
+    """The tiling of the seam pass (csrc/ghost_unit.cu tseam)."""
+    ct: int         # columns a tile: 64 (two segments a tile, one a
+                    # warpgroup) or 128 (one segment, 64 columns a
+                    # warpgroup)
+    segs: int       # 64-pixel segments of a seam row
+    count: int      # segments of one side: n * nb * segs
+    tiles: int      # tiles of one (side, column tile) group
+    groups: int     # 2 sides x c / ct column tiles
+    resident: bool  # the ky row's weight boxes loaded once a CTA
+    stages: int     # slots of the TMA ring
+    grid: int       # persistent CTAs, a multiple of groups
+    smem: int       # dynamic shared memory, bytes
+
+    @property
+    def nseg(self) -> int:
+        return 2 if self.ct == 64 else 1
+
+    def tiles_of(self, cta: int) -> Tuple[int, int, range]:
+        """(side, column tile, tiles) of CTA ``cta``: the group cta %
+        groups, a contiguous share of its tiles."""
+        gid, me = cta % self.groups, cta // self.groups
+        ctas = self.grid // self.groups
+        cols = self.groups // 2
+        return (gid // cols, gid % cols,
+                range(me * self.tiles // ctas,
+                      (me + 1) * self.tiles // ctas))
+
+
+# the seam kernel's shared memory (csrc/ghost_unit.cu namespace seam)
+SEAM_SEG = 64                     # pixels a segment
+SEAM_HBOX = 9216                  # a segment's 66-pixel bf16 halo box
+SEAM_GBOX = 66 * 256              # its f32 g box
+SEAM_OUT = SEAM_SEG * 64 * 4      # a warpgroup's f32 output (x_q in)
+SEAM_RED = 8 * 2 * 64 * 4         # the warps' column sums
+SEAM_MAX_STAGES = 4
+
+
+def seam_smem(nseg: int, ct: int, cb: int, resident: bool,
+              stages: int) -> int:
+    """Bytes of tseam's dynamic shared memory, as run_seam counts them:
+    the ring, the resident weight, one epilogue slot (x_q in, gm*a1 out),
+    the warps' sums and the barriers."""
+    stage = (CV.round1k(nseg * (SEAM_HBOX + SEAM_GBOX))
+             + (0 if resident else 3 * ct * 128))
+    return (stages * stage + resident * 3 * cb * ct * 128
+            + 2 * SEAM_OUT + SEAM_RED + 8 * (2 * stages + 3) + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def seam_plan(n: int, h: int, w: int, c: int, gh: int, sms: int) -> SeamPlan:
+    """The seam pass's tiling: two sides (the slot written: a band's first
+    or last row), each row of a side cut into 64-pixel segments, a tile one
+    or two of them by ``ct`` columns; the flipped kernel's ky row resident
+    where it fits beside a ring of 2, else streamed with each K step; as
+    many ring slots as fit (up to 4) beside the one epilogue slot; the grid the SM count rounded down to a
+    multiple of the groups (side, column tile), each CTA a contiguous
+    share of one group's tiles. c a multiple of 64."""
+    nb, cb = h // gh, c // 64
+    ct = 128 if c % 128 == 0 else 64
+    nseg = 2 if ct == 64 else 1
+    segs = -(-w // SEAM_SEG)
+    count = n * nb * segs
+    tiles = -(-count // nseg)
+    groups = 2 * (c // ct)
+    resident = seam_smem(nseg, ct, cb, True, 2) <= CV.MAX_SMEM
+    stages = max(st for st in range(2, SEAM_MAX_STAGES + 1)
+                 if seam_smem(nseg, ct, cb, resident, st) <= CV.MAX_SMEM)
+    grid = min(groups * tiles, max(sms, groups))
+    grid -= grid % groups
+    return SeamPlan(ct, segs, count, tiles, groups, resident, stages, grid,
+                    seam_smem(nseg, ct, cb, resident, stages))
+
+
 def seam_bwd(g, z, td, x, tx, w, gh):
     """The halo rows of each band's 3x3 backward (pallas_unit.py:557-598).
     g, z: gm2 and z2; td (N, nb, 3, C) [a2, c12, c22]; x: z1; tx
@@ -630,7 +713,11 @@ def seam_bwd(g, z, td, x, tx, w, gh):
     (above and below it), gm = (dz2 of band j's edge row ⋆ Wᵀ at q)·
     [x_q·a1_j + b1_j > 0]. Returns the seam terms gm·a1_j at the rows'
     own bands, (N, nb, 2, W, C) (slot 0: a band's first row, 1: its last),
-    and band j's sums (N, nb, 2, C) [Σ gm·x_q, Σ gm]."""
+    and band j's sums (N, nb, 2, C) [Σ gm·x_q, Σ gm]. One launch of
+    csrc/ghost_unit.cu's tseam (TMA, wgmma; tiled by :func:`seam_plan`,
+    every slot written, the unread ones 0) and one that adds each band's
+    entries in order: no atomics, so two calls on the same inputs are
+    bit-equal."""
     if on_cpu(g, z, td, x, tx, w):
         return seam_bwd_reference(g, z, td, x, tx, w, gh)
     n, c, h, wd = x.shape
@@ -638,18 +725,32 @@ def seam_bwd(g, z, td, x, tx, w, gh):
     _check(x, gh, g=g, z=z, x=x, td=td, tx=tx)
     _table(td, n, nb, 3, c, "td")
     _table(tx, n, nb, 2, c, "tx")
-    if tuple(w.shape) != (c, c, 3, 3) or w.dtype != torch.bfloat16:
+    if tuple(w.shape) != (c, c, 3, 3) or w.dtype != torch.bfloat16 \
+            or w.device != x.device:
         raise ValueError(f"w {tuple(w.shape)} {w.dtype}: need bfloat16 "
-                         f"({c}, {c}, 3, 3)")
-    wflip = w.flip(2, 3).permute(1, 2, 3, 0).reshape(c, 9 * c).contiguous()
-    edge = torch.zeros((n, nb, 2, wd, c), dtype=torch.float32,
-                       device=x.device)
-    sums = torch.zeros((n, nb, 2, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+                         f"({c}, {c}, 3, 3) on {x.device}")
+    if g.dtype != torch.float32:
+        raise TypeError("the seam pass takes a float32 g")
+    # the kernel as (Ci, 9·Co), K-major: the kernel reads its taps flipped
+    wt = w.permute(1, 2, 3, 0).reshape(c, 9 * c).contiguous()
+    aligned16(g=g, z=z, td=td, x=x, tx=tx)
+    index = x.device.index
+    p = seam_plan(n, h, wd, c, gh, CV._sms(index))
+    # edge, the band sums and the segments' entries in one buffer, each
+    # written whole: no memset
+    ne, ns = n * nb * 2 * wd * c, n * nb * 2 * c
+    buf = torch.empty(ne + ns + 2 * p.count * 2 * c, dtype=torch.float32,
+                      device=x.device)
+    edge = buf[:ne].view(n, nb, 2, wd, c)
+    sums = buf[ne:ne + ns].view(n, nb, 2, c)
+    base = buf.data_ptr()
+    with CV._on_device(index):
         err = _lib().ghost_seam_bwd(
             g.data_ptr(), z.data_ptr(), td.data_ptr(), x.data_ptr(),
-            tx.data_ptr(), wflip.data_ptr(), edge.data_ptr(),
-            sums.data_ptr(), n, h, wd, c, gh, cuda_stream())
+            tx.data_ptr(), wt.data_ptr(), base, base + 4 * ne,
+            base + 4 * (ne + ns), n, h, wd, c, gh,
+            p.ct, int(p.resident), p.stages, p.grid,
+            torch._C._cuda_getCurrentRawStream(index))
     raise_on(err, "ghost_seam_bwd")
     seam_bwd.launches += 1
     return edge, sums

@@ -6,7 +6,9 @@ dispatches on the tensors' device:
 
 - CPU tensors go to :func:`connected_components_reference`, the plain
   PyTorch port of ``tensorflow_ocr_tpu/ops/decode.py:103-161``;
-- CUDA tensors go to the hand-written kernel in ``csrc/cc.cu``, or raise.
+- CUDA tensors go to the hand-written kernel in ``csrc/cc.cu`` (block
+  union-find: 32 x 32 tiles in shared memory, then the links across the
+  tiles' borders in global memory, then a flatten), or raise.
 
 The kernel is compiled with ``nvcc`` on first use into
 ``tensorflow_ocr_tpu_torch/build/``, keyed by a hash of the source, the
@@ -15,6 +17,7 @@ flags and the compiler, and loaded with ``ctypes``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -142,6 +145,9 @@ def connected_components(edges: torch.Tensor, mask: torch.Tensor
                          f"{tuple(edges.shape)}, {tuple(mask.shape)}")
     if not (edges.is_contiguous() and mask.is_contiguous()):
         raise ValueError("edges and mask must be contiguous")
+    if edges.data_ptr() % 8:
+        raise ValueError("edges: the kernel loads a pixel's 8 links as one "
+                         "8-byte word and needs an 8-byte aligned base")
     b, h, w = mask.shape
     if b * h * w >= 2 ** 31:
         raise ValueError(f"{b}x{h}x{w} pixels overflow the kernel's int32 "
@@ -149,10 +155,14 @@ def connected_components(edges: torch.Tensor, mask: torch.Tensor
     labels = torch.empty((b, h, w), dtype=torch.int32, device=mask.device)
     if labels.numel() == 0:
         return labels
-    with torch.cuda.device(mask.device):
+    index = mask.device.index
+    # the device guard only where it is not the current device: the
+    # wrapper's host time exceeds the kernel's device time
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
         err = _cc_label()(edges.data_ptr(), mask.data_ptr(),
                           labels.data_ptr(), b, h, w,
-                          torch.cuda.current_stream().cuda_stream)
+                          torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"cc_label launch failed: cudaError_t {err}")
     connected_components.launches += 1
