@@ -54,9 +54,10 @@ Phases, in order; any failure raises and exits non-zero:
    state (residual BN scales tempered, see ARM_RESIDUAL_SCALE) and
    batch: loss, gradient and the worst parameter's direction within the
    stated tolerances; one freeze_bn step;
-12. with --faults only: the readings of the pallas-conv arm check
-   (phase 13) in 3 sound runs and under planted backward faults, which
-   set the CONV_ARM_* bounds;
+12. with --faults only: the readings of the fused arm check (phase 11:
+   dW, dX and the boundary's dz x 0.9 planted) and of the pallas-conv
+   arm check (phase 13) in 3 sound runs and under planted backward
+   faults, which set the ARM_* and CONV_ARM_* bounds;
 13. the PALLAS_CONVS arm ("xla" bottlenecks, the supported convs on the
    conv kernels): 3 steps through Trainer.run with the four kernels'
    launch counts at their expected values, and the dW launches of each
@@ -79,9 +80,38 @@ Phases, in order; any failure raises and exits non-zero:
    by kernel too); one step on the
    kernels against one on the plain versions from the tempered state
    (GHOST_ARM_* bounds); one freeze_bn step (no ghost kernel);
-17. train img/s for the fused, xla, freeze_bn-fused, xla pallas-conv and
+17. multi-step = eager: for the fused, ghost, xla and xla pallas-conv
+   arms, one make_multi_train_step dispatch of 4 steps (one step
+   captured into a CUDA graph after 2 warm-up steps, replayed 4 times)
+   against 4 eager train_step calls from the same state and dataset rows
+   (64 numpy scenes on the card, labels precomputed there), under
+   torch.use_deterministic_algorithms: parameters, BN buffers, Adam
+   moments, EMA, step and the last metrics bit-equal; each arm's kernels
+   launched at the capture and not at the replays (a second dispatch
+   launches none and is bit-equal again); fused arm: a checkpoint
+   restored into the captured state in place, then replayed, gives the
+   same state;
+18. resume = uninterrupted on the fused arm: 4 steps through Trainer.run
+   against 2 steps, save_checkpoint(block=False) and a fresh Trainer
+   with restore=True for 2 more (the data iterator resumed): bit-equal;
+   the checkpoint's size, and the seconds of its copy to the host, its
+   write and a restore;
+   max_checkpoints_to_keep 1 keeps one ckpt_*; a SIGTERM sent in the
+   middle of run leaves a checkpoint and stops the loop;
+19. serve from that checkpoint: Predictor(checkpoint_path=...) on 8 x
+   1280x768 uint8 images launches the CC kernel and returns the boxes of
+   a Predictor given the same EMA parameters and BN buffers; a planted
+   operating_point.json moves its thresholds;
+20. with --faults only: the readings of phases 12 and 15 again, from a
+   port checkpoint trained 50 steps (one graph dispatch) on the numpy
+   scenes in place of the tempered state;
+21. train img/s for the fused, xla, freeze_bn-fused, xla pallas-conv and
    ghost arms, each over 3 windows of at least 10 s (median and range);
-18. with --profile only: a torch.profiler trace of 3 train steps of the
+22. the same five arms through make_multi_train_step, 16 steps a
+   dispatch (the graph replayed), over 3 windows of at least 10 s; with
+   --profile also the device idle share of one dispatch of the fused and
+   ghost arms;
+23. with --profile only: a torch.profiler trace of 3 train steps of the
    fused, the xla pallas-conv and the ghost arm.
 
 The line before the last is a JSON object describing the fourteen
@@ -1008,9 +1038,9 @@ def fused_shape_counts():
 # ulp (2^-8 relative, 2^-7 at the rounding edge) plus f32 order noise,
 # bounded here by 1e-3 of the tensor's largest value
 BF16_ULP, BF16_NOISE = 2.0 ** -7, 1e-3
-# f32 sums over up to 524,288 rows (s, dab, dabs), in another order (and,
-# for s and the boundary's sums, with atomics): within 1e-4 of the sum of
-# the magnitudes
+# f32 sums over up to 524,288 rows (s, dab, dabs), in another order than
+# the plain version's: within 1e-4 of the sum of the magnitudes (each
+# kernel adds them in a fixed order, so two launches are bit-equal)
 SUM_REL = 1e-4
 
 
@@ -1200,7 +1230,14 @@ def phase_fused_kernels(device, reports):
         e = bf16_close("boundary out", out,
                        FU.boundary_fwd_reference(z, ab, zs, abs_))
         g = act(n, c, h, w, 1e-2)
+        check(torch.equal(out, FU.boundary_fwd(z, ab, zs, abs_)),
+              f"fused boundary_fwd C={c}: two launches on the same inputs "
+              "differ")
         got = FU.boundary_bwd(g, z, ab, zs, abs_)
+        again = FU.boundary_bwd(g, z, ab, zs, abs_)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"fused boundary_bwd C={c}: two launches on the same inputs "
+              "differ (dz, dab, dzs, dabs)")
         want = FU.boundary_bwd_reference(g, z, ab, zs, abs_)
         gm = (want[0].float() / ab[0][:, None, None]).abs()
         eb = max(bf16_close("boundary dz", got[0], want[0]),
@@ -1225,7 +1262,8 @@ def phase_fused_kernels(device, reports):
         print(f"fused boundary C={c} at {n}x{h}x{w}: fwd {fms[0]:.4f} ms "
               f"(plain {fms[1]:.4f}), bwd {bms[0]:.4f} ms (plain "
               f"{bms[1]:.4f}); max abs err out {e:.3e}, dz/dzs {eb:.3e}, "
-              f"f32 sums dab/dabs {es:.3e}")
+              f"f32 sums dab/dabs {es:.3e}; fwd and bwd (dab, dabs "
+              f"included) bit-equal twice")
     print(f"fused_conv_fwd a train step (each shape's ms times its "
           f"launches, {FUSED_CONV_STEP_LAUNCHES} in all): {fstep['ms']:.4f} "
           f"ms by events (device {fstep['fwd']:.4f}), bound "
@@ -1546,12 +1584,12 @@ def phase_conv_train(device, reports, snap, batch):
     torch.cuda.empty_cache()
 
 
-def phase_conv_faults(device, snap, batch):
+def phase_conv_faults(device, start, batch, where="tempered"):
     """The readings that set the CONV_ARM_* bounds: the pallas-conv arm
-    against cuDNN from the tempered state, 3 sound runs, then one run
-    under each planted backward fault of ops/conv.py's autograd: dW x 0.9,
-    dX x 0.9, and the 3x3 dX with the kernel channel-swapped but not
-    flipped."""
+    against cuDNN from the state ``start`` (the tempered one, or a trained
+    checkpoint's), 3 sound runs, then one run under each planted backward
+    fault of ops/conv.py's autograd: dW x 0.9, dX x 0.9, and the 3x3 dX
+    with the kernel channel-swapped but not flipped."""
     import torch
     from tensorflow_ocr_tpu_torch.ops import conv as CV
 
@@ -1577,9 +1615,8 @@ def phase_conv_faults(device, snap, batch):
             return CV.conv3(dy, w.transpose(0, 1).to(dy.dtype)), dw
         return c1, b3
 
-    start = tempered(snap)
     for i in range(3):
-        print_conv_arms(f"faults: sound run {i}",
+        print_conv_arms(f"faults {where}: sound run {i}",
                         conv_arm_readings(device, start, batch))
     for label, patch in (("dW x 0.9", scaled(1.0, 0.9)),
                          ("dX x 0.9", scaled(0.9, 1.0)),
@@ -1587,11 +1624,31 @@ def phase_conv_faults(device, snap, batch):
         CV._Conv1x1.backward, CV._Conv3x3.backward = map(
             staticmethod, patch())
         try:
-            print_conv_arms(f"faults: {label}",
+            print_conv_arms(f"faults {where}: {label}",
                             conv_arm_readings(device, start, batch))
         finally:
             CV._Conv1x1.backward = staticmethod(c1)
             CV._Conv3x3.backward = staticmethod(c3)
+
+
+def arm_memory_start() -> int:
+    """Free the cached blocks, reset the peak and return the bytes
+    allocated: the start of one timed arm."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def arm_memory(base: int) -> str:
+    """The peak since :func:`arm_memory_start`, and the part of it above
+    the bytes allocated then (the arm's own state, step and graph pool)."""
+    import torch
+
+    peak = torch.cuda.max_memory_allocated()
+    return (f"peak memory {peak / 2**30:.2f} GiB, "
+            f"{(peak - base) / 2**30:.2f} GiB of it the arm's own")
 
 
 def phase_train_timing(trainer, batch):
@@ -1610,6 +1667,7 @@ def phase_train_timing(trainer, batch):
             ("xla pallas-conv", "xla", False, True),
             ("ghost", "ghost", False, False)):
         cfg = train_config(impl, freeze)
+        base = arm_memory_start()
         state = T.create_train_state(cfg, batch["images"].device,
                                      weights=weights)
         loss_fn = T.make_loss_fn(cfg)
@@ -1633,11 +1691,9 @@ def phase_train_timing(trainer, batch):
         print(f"train {arm} {TRAIN_SIZE}^2 batch {TRAIN_BATCH}: "
               f"{statistics.median(rates):.2f} img/s (median of "
               f"{TRAIN_WINDOWS} windows of >= {TRAIN_WINDOW_S:g} s; windows "
-              f"{min(rates):.2f}..{max(rates):.2f}); peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+              f"{min(rates):.2f}..{max(rates):.2f}); {arm_memory(base)}")
         del state
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
 
 
 def phase_profile_train(trainer, batch):
@@ -2130,10 +2186,10 @@ def phase_ghost_train(device, reports, snap, batch):
     torch.cuda.empty_cache()
 
 
-def phase_ghost_faults(device, snap, batch):
+def phase_ghost_faults(device, start, batch, where="tempered"):
     """The readings that set the GHOST_ARM_* bounds: the ghost arm on the
-    kernels against the plain versions from the tempered state, 3 sound
-    runs, then one run under each fault planted in the kernel arm: the
+    kernels against the plain versions from the state ``start`` (the
+    tempered one, or a trained checkpoint's), 3 sound runs, then one run under each fault planted in the kernel arm: the
     seam terms dropped, the 3x3's halo rows under their own band's affine
     (one SAME conv over one act1 tensor), dW2 x 0.9."""
     import torch
@@ -2158,9 +2214,8 @@ def phase_ghost_faults(device, snap, batch):
     for fn in (no_seam, own_band_halo, dw2_scaled):
         # the wrappers count on the names they replace
         fn.launches, fn.by_kernel = 0, {}
-    start = tempered(snap)
     for i in range(3):
-        print_ghost_arms(f"ghost faults: sound run {i}",
+        print_ghost_arms(f"ghost faults {where}: sound run {i}",
                          ghost_arm_readings(device, start, batch))
     for label, attr, fn in (("seam terms dropped", "seam_bwd", no_seam),
                             ("halo rows under their own band's affine",
@@ -2174,8 +2229,563 @@ def phase_ghost_faults(device, snap, batch):
             setattr(G, attr, orig)
         with plain_ghost():
             plain = arm_grads(device, start, batch, "ghost")
-        print_ghost_arms(f"ghost faults: {label}",
+        print_ghost_arms(f"ghost faults {where}: {label}",
                          ghost_readings(kernel, plain))
+
+
+# ------------------------------------ graph dispatch, checkpoints, serving
+
+# a dataset of numpy scenes on the card, labels precomputed there
+# (trainer.device_dataset), and the rows of one multi-step dispatch
+DATASET_SCENES = 64
+MULTI_STEPS = 4
+# the arms of the graph = eager check: (label, bottleneck_impl, route)
+GRAPH_ARMS = (("fused", "fused", False), ("ghost", "ghost", False),
+              ("xla", "xla", False), ("xla pallas-conv", "xla", True))
+# the arms of the graph dispatch speed: (label, impl, freeze_bn, route)
+TIMING_ARMS = (("fused", "fused", False, False), ("xla", "xla", False, False),
+               ("freeze_bn fused", "fused", True, False),
+               ("xla pallas-conv", "xla", False, True),
+               ("ghost", "ghost", False, False))
+# the resume check's steps: run whole, or split in two at RESUME_AT
+RESUME_STEPS, RESUME_AT = 4, 2
+# the steps of the checkpoint the --faults arm readings start from
+TRAINED_STEPS = 50
+
+
+def scratch_dir(prefix: str) -> str:
+    """A fresh directory under the port's gitignored build directory, for
+    checkpoints that a phase writes and removes."""
+    import tempfile
+    from tensorflow_ocr_tpu_torch.ops.kernels import BUILD_DIR
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=BUILD_DIR)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms and cuDNN's benchmark off inside
+    the block: the library calls of the xla arms (cuDNN convs) take their
+    deterministic algorithms, so two runs of a step can be bit-equal."""
+    import torch
+
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.benchmark = bench
+
+
+def arm_counts(impl, route):
+    """{kernel: launches} of the hand-written kernels of an arm."""
+    if route:
+        return conv_counts()
+    return {"fused": fused_counts, "ghost": ghost_counts}.get(
+        impl, dict)()
+
+
+def reset_arm_counts():
+    reset_conv_counts()
+    reset_fused_counts()
+    reset_ghost_counts()
+
+
+def scene_dataset(device):
+    """DATASET_SCENES numpy scenes (train_batch's) at TRAIN_SIZE on the
+    card, with their label maps precomputed there."""
+    import numpy as np
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    batch = train_batch(np.random.RandomState(21), device, DATASET_SCENES,
+                        TRAIN_SIZE)
+    ds = T.device_dataset(batch, train_config("fused"), device)
+    check(float(ds["score"].sum()) > 0, "dataset: no text pixels")
+    return ds
+
+
+def dispatch_rows(rng, steps, device):
+    """(steps, TRAIN_BATCH) dataset rows: each run of the dataset a fresh
+    permutation, as data/device_cache.py index_batches draws them."""
+    import numpy as np
+    import torch
+
+    need = steps * TRAIN_BATCH
+    perm = np.concatenate([rng.permutation(DATASET_SCENES)
+                           for _ in range(-(-need // DATASET_SCENES))])
+    return torch.from_numpy(perm[:need].reshape(steps, TRAIN_BATCH)).to(
+        device)
+
+
+def leaves(state):
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    return T.flat_tree(T.state_tensors(state))
+
+
+def unequal(a, b):
+    """Names of the tensors of two state (or metric) mappings that are not
+    bit-equal."""
+    import torch
+
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def eager_dispatch(state, ds, idx, cfg):
+    """make_multi_train_step's steps run eagerly: the metrics of the last,
+    total_loss with the L2 value after them."""
+    from tensorflow_ocr_tpu_torch.train import optim, trainer as T
+
+    loss_fn = T.make_loss_fn(cfg)
+    keys = T.BATCH_KEYS + T.LABEL_KEYS
+    for row in idx:
+        m = T.train_step(state, {k: ds[k][row] for k in keys}, cfg, loss_fn,
+                         include_l2=False)
+    m = dict(m)
+    m["total_loss"] = m["total_loss"] + optim.l2_regularization(
+        state.model, cfg.model.weight_decay)
+    return m
+
+
+def phase_graph_step(device, snap, ds):
+    """multi-step = eager: for each of GRAPH_ARMS, one make_multi_train_step
+    dispatch of MULTI_STEPS steps (a CUDA graph replayed) against as many
+    eager train_step calls from the same state and rows, under
+    deterministic(): parameters, BN buffers, Adam moments, EMA, step and
+    the last metrics bit-equal. The arm's kernels are launched at the
+    capture (warm-up and captured step) and not at the replays: a second
+    dispatch on the same graph launches none, and equals the eager steps
+    again. Fused arm: a checkpoint saved between the two dispatches and
+    restored into the captured state in place, then the second dispatch
+    replayed once more, gives the same state."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    rng = np.random.RandomState(31)
+    cuda = device.type == "cuda"
+    for label, impl, route in GRAPH_ARMS:
+        cfg = train_config(impl)
+        with pallas_convs(route), deterministic():
+            a = T.create_train_state(cfg, device, weights=snap)
+            b = T.create_train_state(cfg, device, weights=snap)
+            multi = T.make_multi_train_step(a, cfg, T.LABEL_KEYS)
+            idx = dispatch_rows(rng, MULTI_STEPS, device)
+            reset_arm_counts()
+            t0 = time.perf_counter()
+            got = multi(a, ds, idx)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            captured = arm_counts(impl, route)
+            want = eager_dispatch(b, ds, idx, cfg)
+            diff = unequal(leaves(a), leaves(b)) + unequal(got, want)
+            print(f"graph step {label}: one dispatch of {MULTI_STEPS} steps "
+                  f"(capture with {T.WARMUP_STEPS} warm-up steps included) "
+                  f"{first_s:.3f} s; kernel launches at the capture "
+                  f"{captured}; last metrics total_loss "
+                  f"{float(got['total_loss']):.6f}; tensors not bit-equal "
+                  f"to {MULTI_STEPS} eager steps: {len(diff)} {diff[:4]}")
+            check(not diff, f"graph step {label}: the dispatch differs from "
+                  f"the eager steps at {diff[:4]}")
+            check(int(a.step) == MULTI_STEPS, f"graph step {label}: step")
+            check(np.isfinite(float(got["total_loss"])),
+                  f"graph step {label}: non-finite loss")
+            if impl != "xla" or route:
+                # the capture runs the warm-up steps and records one (a CPU
+                # rehearsal runs the dispatch's steps eagerly)
+                n = T.WARMUP_STEPS + 1 if cuda else MULTI_STEPS
+                per_step = {k: v // n for k, v in captured.items()}
+                check(all(captured.values()) and all(
+                    v == per_step[k] * n for k, v in captured.items()),
+                      f"graph step {label}: kernels at the capture")
+                if impl == "fused":
+                    check(per_step["fused_conv_bwd"]
+                          == FUSED_CONV_STEP_LAUNCHES,
+                          f"graph step {label}: fused launches a step")
+                if route:
+                    check(per_step == CONV_STEP_LAUNCHES,
+                          f"graph step {label}: conv launches a step")
+                if impl == "ghost":
+                    check(per_step == GHOST_STEP_LAUNCHES,
+                          f"graph step {label}: ghost launches a step")
+            ckpt = None
+            if impl == "fused":
+                root = scratch_dir("graph_ckpt_")
+                ckpt = T.save_checkpoint(root, a)
+            idx2 = dispatch_rows(rng, MULTI_STEPS, device)
+            reset_arm_counts()
+            got = multi(a, ds, idx2)
+            replayed = arm_counts(impl, route)
+            want = eager_dispatch(b, ds, idx2, cfg)
+            diff = unequal(leaves(a), leaves(b)) + unequal(got, want)
+            print(f"graph step {label}: a second dispatch (replays only): "
+                  f"kernel launches {replayed}; tensors not bit-equal: "
+                  f"{len(diff)} {diff[:4]}")
+            check(not (cuda and any(replayed.values())) and not diff,
+                  f"graph step {label}: the second dispatch")
+            if ckpt is not None:
+                end = {k: v.clone() for k, v in leaves(a).items()}
+                T.restore_checkpoint(ckpt, a)
+                check(int(a.step) == MULTI_STEPS, "restore: step")
+                again = multi(a, ds, idx2)
+                diff = unequal(leaves(a), end) + unequal(again, got)
+                print(f"graph step {label}: checkpoint at step "
+                      f"{MULTI_STEPS} restored into the captured state, the "
+                      f"second dispatch replayed again: tensors not "
+                      f"bit-equal {len(diff)}; captures "
+                      f"{getattr(multi.graph, 'captures', 1)}")
+                check(not diff and getattr(multi.graph, "captures", 1) == 1,
+                      "graph step: restore under the captured graph")
+                shutil.rmtree(root)
+        multi.release()
+        del a, b, multi
+        torch.cuda.empty_cache()
+
+
+class RowBatches:
+    """A data iterator over a list of batches that saves and restores its
+    position (the get_state/set_state protocol of restore_data_iter)."""
+
+    def __init__(self, batches, on_next=None):
+        self.batches, self.i, self.on_next = batches, 0, on_next
+
+    def __next__(self):
+        if self.on_next is not None:
+            self.on_next(self.i)
+        self.i += 1
+        return self.batches[self.i - 1]
+
+    def get_state(self) -> bytes:
+        return str(self.i).encode()
+
+    def set_state(self, state: bytes) -> None:
+        self.i = int(state)
+
+
+def phase_resume(device, start, ds):
+    """Resume = uninterrupted on the fused arm: RESUME_STEPS steps through
+    Trainer.run against RESUME_AT steps, save_checkpoint(block=False), a
+    fresh Trainer with restore=True and the remaining steps, under
+    deterministic(): every state tensor bit-equal; the resumed run saves
+    on the step cadence with max_checkpoints_to_keep 1, so one ckpt_*
+    remains. Then a SIGTERM sent to the process in the middle of run:
+    the loop saves a checkpoint and stops. Returns (checkpoint root, the
+    state_dict it serves: EMA parameters and BN buffers)."""
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    keys = T.BATCH_KEYS + T.LABEL_KEYS
+    rows = dispatch_rows(np.random.RandomState(41), RESUME_STEPS, device)
+    batches = [{k: ds[k][r] for k in keys} for r in rows]
+    root = scratch_dir("resume_")
+    cfg = train_config("fused")
+    cfg.train.checkpoint_path = root
+    cfg.train.save_checkpoint_steps = 0
+    with deterministic():
+        whole = T.Trainer(cfg, device)
+        whole.setup(weights=start)
+        whole.run(RowBatches(batches), RESUME_STEPS)
+        want = {k: v.clone() for k, v in leaves(whole.state).items()}
+        del whole
+        torch.cuda.empty_cache()
+
+        first = T.Trainer(cfg, device)
+        first.setup(weights=start)
+        it = RowBatches(batches)
+        first.run(it, RESUME_AT)
+        t0 = time.perf_counter()
+        ck = T.save_checkpoint(root, first.state, it, block=False,
+                               max_to_keep=1)
+        snap_s = time.perf_counter() - t0  # the copy to the host
+        T.wait_for_pending_save()
+        write_s = time.perf_counter() - t0 - snap_s
+        del first
+
+        cfg.train.restore = True
+        cfg.train.save_checkpoint_steps = 1
+        cfg.train.max_checkpoints_to_keep = 1
+        resumed = T.Trainer(cfg, device)
+        resumed.setup()
+        t0 = time.perf_counter()
+        T.restore_checkpoint(ck, resumed.state)  # again: the same state
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        mb = os.path.getsize(os.path.join(ck, T.CKPT_FILE)) / 2**20
+        print(f"checkpoint of {MODEL}: {mb:.1f} MiB; save_checkpoint("
+              f"block=False) returned after {snap_s:.3f} s (the copy to the "
+              f"host), the write took {write_s:.3f} s more; restore_checkpoint"
+              f" {restore_s:.3f} s")
+        it = RowBatches(batches)
+        resumed.run(it, RESUME_STEPS - RESUME_AT)
+        diff = unequal(want, leaves(resumed.state))
+    kept = sorted(d for d in os.listdir(root) if d.startswith("ckpt_"))
+    print(f"resume fused: {RESUME_AT} steps, save_checkpoint(block=False), a "
+          f"fresh Trainer(restore=True) from batch {RESUME_AT} (the data "
+          f"iterator's state) and {RESUME_STEPS - RESUME_AT} more steps, "
+          f"against {RESUME_STEPS} steps whole: tensors not bit-equal "
+          f"{len(diff)} of {len(want)} {diff[:4]}; checkpoints kept {kept}")
+    check(not diff, f"resume differs from the uninterrupted run at "
+          f"{diff[:4]}")
+    check(it.i == RESUME_STEPS and int(resumed.state.step) == RESUME_STEPS,
+          "resume: the data iterator or the step did not resume")
+    check(kept == [f"ckpt_{RESUME_STEPS}"], "resume: max_to_keep 1")
+    state = resumed.state
+    served = {k: v.detach().cpu().clone()
+              for k, v in state.model.state_dict().items()}
+    served.update({k: v.detach().cpu().clone() for k, v in state.ema.items()})
+    del resumed, state
+    torch.cuda.empty_cache()
+
+    # SIGTERM in the middle of run: a checkpoint, then a clean stop
+    term_root = scratch_dir("preempt_")
+    cfg = train_config("fused")
+    cfg.train.checkpoint_path = term_root
+    cfg.train.save_checkpoint_steps = 0
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        trainer = T.Trainer(cfg, device, install_signal_handler=True)
+        trainer.setup(weights=start)
+
+        def kill_at(i):
+            if i == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        trainer.run(RowBatches(batches, kill_at), RESUME_STEPS)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    step = int(trainer.state.step)
+    ck = T.latest_checkpoint(term_root)
+    print(f"SIGTERM before step 1 of {RESUME_STEPS}: stopped after {step} "
+          f"steps, checkpoint {os.path.basename(ck or 'none')}")
+    check(step == 2 and ck is not None and ck.endswith("ckpt_2"),
+          "SIGTERM: no checkpoint, or the loop did not stop")
+    shutil.rmtree(term_root)
+    del trainer
+    torch.cuda.empty_cache()
+    return root, served
+
+
+def serving_start(device, snap, images):
+    """``snap`` with the two *_logits convs scaled to unit logit spread on
+    ``images`` (random weights saturate the softmax; phase_main_path does
+    the same), so that a checkpoint trained from it decodes components."""
+    import torch
+    from tensorflow_ocr_tpu_torch.infer import Predictor
+
+    pred = Predictor(MODEL, weights=snap, device=device)
+    with torch.inference_mode():
+        out = pred.model(torch.from_numpy(images).to(device))
+    start = dict(snap)
+    for tag in ("pixel", "link"):
+        spread = float(out[f"{tag}_logits"].std())
+        for leaf in ("weight", "bias"):
+            key = f"head.{tag}_logits.{leaf}"
+            start[key] = snap[key] / spread
+    del pred
+    return start
+
+
+def phase_serve_checkpoint(device, root, served, images):
+    """Serve from the checkpoint: Predictor(checkpoint_path=root) detects on
+    8 x 1280x768 uint8 images with the CC kernel launched, and its boxes
+    equal those of a Predictor given the same EMA parameters and BN
+    buffers as a state_dict at the same thresholds; a planted
+    operating_point.json moves the thresholds."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.config import InferConfig
+    from tensorflow_ocr_tpu_torch.infer import (
+        OPERATING_POINT_FILE,
+        Predictor,
+        pixel_link_scores,
+    )
+    from tensorflow_ocr_tpu_torch.ops import kernels as K
+
+    plain = Predictor(MODEL, checkpoint_path=root, device=device)
+    check(not plain.calibrated and plain.pixel_thresh == InferConfig()
+          .pixel_conf_threshold, "serve: thresholds without an operating "
+          "point")
+    with torch.inference_mode():
+        ps, ls = pixel_link_scores(plain.model(
+            torch.from_numpy(images).to(device)))
+    op = {"pixel": float(torch.quantile(ps.float().flatten()[::7], 0.8)),
+          "link": float(torch.quantile(ls.float().flatten()[::7], 0.3))}
+    with open(os.path.join(root, OPERATING_POINT_FILE), "w") as f:
+        json.dump(op, f)
+    del plain
+    pred = Predictor(MODEL, checkpoint_path=root, device=device)
+    check(pred.calibrated and (pred.pixel_thresh, pred.link_thresh)
+          == (op["pixel"], op["link"]), "serve: the planted operating point "
+          "did not move the thresholds")
+    K.connected_components.launches = 0
+    boxes = pred.detect_batch(images)
+    torch.cuda.synchronize()
+    launches = K.connected_components.launches
+    ref = Predictor(MODEL, weights=served, device=device, infer=InferConfig(
+        pixel_conf_threshold=op["pixel"], link_conf_threshold=op["link"]))
+    want = ref.detect_batch(images)
+    n = [len(b) for b in boxes]
+    print(f"serve from {os.path.basename(root)}/ckpt_{RESUME_STEPS} (EMA): "
+          f"operating point {op}; boxes per image {n}, CC launches "
+          f"{launches}; against the state_dict Predictor: "
+          f"{[len(b) for b in want]}")
+    check(launches > 0, "serve from the checkpoint: no CC launch")
+    check(sum(n) > 0, "serve from the checkpoint: no boxes")
+    check(all(len(g) == len(w) and all(np.array_equal(x, y)
+                                       for x, y in zip(g, w))
+              for g, w in zip(boxes, want)),
+          "serve from the checkpoint: boxes differ from the state_dict's")
+    del pred, ref
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+
+
+def phase_graph_timing(snap, ds, profile_arms=False):
+    """Train img/s through make_multi_train_step at 512^2, batch 32, S =
+    scan_steps (16) steps a dispatch, for TIMING_ARMS: the first dispatch
+    (with the capture) untimed, then TRAIN_WINDOWS windows of at least
+    TRAIN_WINDOW_S of dispatches, each window ending in a sync; median and
+    range. With ``profile_arms``, the device idle share of one dispatch of
+    the fused and ghost arms under torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    device = ds["images"].device
+    rng = np.random.RandomState(51)
+    for arm, impl, freeze, route in TIMING_ARMS:
+        cfg = train_config(impl, freeze)
+        steps = cfg.train.scan_steps
+        base = arm_memory_start()
+        with pallas_convs(route):
+            state = T.create_train_state(cfg, device, weights=snap)
+            multi = T.make_multi_train_step(state, cfg, T.LABEL_KEYS)
+            idxs = [dispatch_rows(rng, steps, device) for _ in range(4)]
+            t0 = time.perf_counter()
+            multi(state, ds, idxs[0])
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            rates = []
+            for i in range(TRAIN_WINDOWS):
+                n, t0 = 0, time.perf_counter()
+                while time.perf_counter() - t0 < TRAIN_WINDOW_S:
+                    last = multi(state, ds, idxs[n % len(idxs)])
+                    n += 1
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                rates.append(n * steps * TRAIN_BATCH / dt)
+                print(f"graph train {arm} window {i}: {rates[-1]:.2f} img/s "
+                      f"({n} dispatches of {steps} steps in {dt:.3f} s)")
+            check(np.isfinite(float(last["total_loss"])),
+                  f"graph train {arm}: non-finite loss")
+            print(f"graph train {arm} {TRAIN_SIZE}^2 batch {TRAIN_BATCH}, "
+                  f"{steps} steps a dispatch: {statistics.median(rates):.2f} "
+                  f"img/s (median of {TRAIN_WINDOWS} windows of >= "
+                  f"{TRAIN_WINDOW_S:g} s; windows {min(rates):.2f}.."
+                  f"{max(rates):.2f}); first dispatch with the capture "
+                  f"{first:.3f} s; {arm_memory(base)}")
+            if profile_arms and arm in ("fused", "ghost"):
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    multi(state, ds, idxs[0])
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1000
+                busy = device_busy_ms(prof)
+                check(busy > 0, "graph profile: no device events")
+                print(f"profile graph train {arm}, one dispatch of {steps} "
+                      f"steps: wall {wall:.3f} ms, device busy {busy:.3f} "
+                      f"ms, idle share {1 - busy / wall:.3f}")
+        multi.release()
+        del state, multi
+        torch.cuda.empty_cache()
+
+
+def trained_start(device, snap, ds):
+    """The model tensors (parameters, BN buffers) of a port checkpoint
+    trained TRAINED_STEPS fused steps (one graph dispatch) on the numpy
+    scenes from ``snap``."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    cfg = train_config("fused")
+    state = T.create_train_state(cfg, device, weights=snap)
+    multi = T.make_multi_train_step(state, cfg, T.LABEL_KEYS)
+    m = multi(state, ds, dispatch_rows(np.random.RandomState(61),
+                                       TRAINED_STEPS, device))
+    root = scratch_dir("trained_")
+    ck = T.save_checkpoint(root, state)
+    print(f"trained start: {TRAINED_STEPS} fused steps from the seeded "
+          f"state, last model loss {float(m['model_loss']):.6f}; checkpoint "
+          f"{ck}")
+    multi.release()
+    del state, multi
+    torch.cuda.empty_cache()
+    start = dict(T.load_checkpoint(ck)["model"])
+    shutil.rmtree(root)
+    return start
+
+
+def phase_fused_faults(device, start, batch, label):
+    """The fused arm against the xla arm from ``start``: 3 sound runs, then
+    one run under each fault planted in the fused backward: dW x 0.9, dX
+    x 0.9, the boundary's dz x 0.9."""
+    from tensorflow_ocr_tpu_torch.ops import fused as FU
+
+    def xla():
+        return arm_grads(device, start, batch, "xla")
+
+    def readings():
+        return arm_readings(arm_grads(device, start, batch, "fused"), xla())
+
+    def show(name, r):
+        print(f"fused faults {label}: {name}: loss rel {r['rel_loss']:.3e} "
+              f"(tol {ARM_LOSS_REL:g}); grad rel err {r['grad_rel']:.4e} "
+              f"(tol {ARM_GRAD_REL:g}); worst cosine {r['worst'][1]:.6f} at "
+              f"{r['worst'][0]} (min {ARM_COS_MIN:g})")
+
+    for i in range(3):
+        show(f"sound run {i}", readings())
+    cb, bb = FU.conv_bwd, FU.boundary_bwd
+
+    def dw_scaled(*a):
+        dx, dab, dw = cb(*a)
+        return dx, dab, dw * 0.9
+
+    def dx_scaled(*a):
+        dx, dab, dw = cb(*a)
+        return dx * 0.9, dab, dw
+
+    def dz_scaled(*a):
+        dz, dab, dzs, dabs = bb(*a)
+        return dz * 0.9, dab, dzs, dabs
+
+    for name, attr, fn in (("dW x 0.9", "conv_bwd", dw_scaled),
+                           ("dX x 0.9", "conv_bwd", dx_scaled),
+                           ("boundary dz x 0.9", "boundary_bwd", dz_scaled)):
+        fn.launches, fn.by_kernel = 0, {}
+        orig = getattr(FU, attr)
+        setattr(FU, attr, fn)
+        try:
+            show(name, readings())
+        finally:
+            setattr(FU, attr, orig)
 
 
 def main() -> int:
@@ -2184,8 +2794,9 @@ def main() -> int:
                     help="also trace serve, detect and train steps with "
                     "torch.profiler")
     ap.add_argument("--faults", action="store_true",
-                    help="also read the pallas-conv and ghost arm checks "
-                    "under planted faults")
+                    help="also read the fused, pallas-conv and ghost arm "
+                    "checks under planted faults, from the tempered state "
+                    "and from a trained checkpoint")
     args = ap.parse_args()
     import torch
 
@@ -2229,13 +2840,26 @@ def main() -> int:
     phase_fused_kernels(device, fused)
     trainer, batch, snap = phase_train(device, fused)
     if args.faults:
-        phase_conv_faults(device, snap, batch)
+        phase_fused_faults(device, tempered(snap), batch, "tempered")
+        phase_conv_faults(device, tempered(snap), batch)
     phase_conv_train(device, conv, snap, batch)
     phase_ghost_kernels(device, ghost)
     if args.faults:
-        phase_ghost_faults(device, snap, batch)
+        phase_ghost_faults(device, tempered(snap), batch)
     phase_ghost_train(device, ghost, snap, batch)
+
+    ds = scene_dataset(device)
+    phase_graph_step(device, snap, ds)
+    root, served = phase_resume(device, serving_start(device, snap, images),
+                                ds)
+    phase_serve_checkpoint(device, root, served, images)
+    if args.faults:
+        trained = trained_start(device, snap, ds)
+        phase_fused_faults(device, trained, batch, "trained")
+        phase_conv_faults(device, trained, batch, "trained")
+        phase_ghost_faults(device, trained, batch, "trained")
     phase_train_timing(trainer, batch)
+    phase_graph_timing(trainer.state.model.state_dict(), ds, args.profile)
     if args.profile:
         phase_profile_train(trainer, batch)
 

@@ -1,9 +1,13 @@
 #!/usr/bin/env python
-"""Export a JAX checkpoint's inference weights for the PyTorch port.
+"""Export a JAX checkpoint's inference weights, or its whole train state,
+for the PyTorch port.
 
 Usage:
     python scripts/export_torch_weights.py --checkpoint /tmp/ckpt/ \
         --model pixellink_resnet50 --out /tmp/torch/weights.npz [--no-ema]
+    python scripts/export_torch_weights.py --checkpoint /tmp/ckpt/ \
+        --model pixellink_resnet50 --out /tmp/torch_ckpt/ --train-state \
+        [--optimizer adam|momentum] [--weight-decay 1e-5]
 
 Restores the checkpoint with the JAX package (EMA parameters and BN
 running statistics, as tensorflow_ocr_tpu/infer.py does for inference)
@@ -14,6 +18,16 @@ and writes one flat ``.npz`` keyed by ``/``-joined Flax paths
 calibrated ``operating_point.json`` in the checkpoint directory is copied
 beside the ``.npz``, where the port's Predictor looks for it. Needs JAX,
 not torch.
+
+With ``--train-state`` the whole train state is restored (parameters, BN
+statistics, the optimizer's state and the EMA: the optimizer and weight
+decay given must be the ones it was trained with, since they shape the
+optax state) and written as a port checkpoint, ``<out>/ckpt_<step>/``
+(``tensorflow_ocr_tpu_torch.models.convert.convert_train_state``), that
+the port's ``Trainer`` resumes from with ``restore=True`` and its
+``Predictor(checkpoint_path=out)`` serves; the operating point is copied
+to ``<out>``. That needs JAX and torch, so it runs where both are
+installed, not on the card.
 """
 
 from __future__ import annotations
@@ -76,16 +90,59 @@ def export(model_name: str, checkpoint: str, out: str,
     return out
 
 
+def export_train_state(model_name: str, checkpoint: str, out: str,
+                       optimizer: str = "adam",
+                       weight_decay: float = 1e-5) -> str:
+    """Write the newest checkpoint's whole train state under ``checkpoint``
+    as a port checkpoint under the root ``out``; returns its directory."""
+    import jax
+    import jax.numpy as jnp
+
+    from tensorflow_ocr_tpu.config import Config
+    from tensorflow_ocr_tpu.train import trainer as T
+    from tensorflow_ocr_tpu.train.calibrate import OPERATING_POINT_FILE
+    from tensorflow_ocr_tpu_torch.models.convert import convert_train_state
+    from tensorflow_ocr_tpu_torch.train.trainer import write_checkpoint
+
+    cfg = Config()
+    cfg.model.name = model_name
+    cfg.model.weight_decay = weight_decay
+    cfg.train.optimizer = optimizer
+    _, template, _ = T.create_train_state(
+        cfg, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3), jnp.float32))
+    ckpt = T.latest_checkpoint(checkpoint) or checkpoint
+    state = jax.device_get(T.restore_checkpoint(ckpt, template))
+    d = write_checkpoint(out, convert_train_state(state))
+    op = os.path.join(checkpoint, OPERATING_POINT_FILE)
+    if os.path.exists(op):
+        shutil.copy(op, os.path.join(out, OPERATING_POINT_FILE))
+    return d
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--checkpoint", required=True,
                     help="checkpoint root (newest ckpt_* is used) or one "
                          "ckpt_<step> directory")
     ap.add_argument("--model", default="pixellink_resnet50")
-    ap.add_argument("--out", required=True, help="path of the .npz")
+    ap.add_argument("--out", required=True,
+                    help="path of the .npz, or with --train-state the port "
+                         "checkpoint root")
     ap.add_argument("--no-ema", action="store_true",
                     help="export the raw parameters instead of the EMA")
+    ap.add_argument("--train-state", action="store_true",
+                    help="export the whole train state as a port checkpoint")
+    ap.add_argument("--optimizer", default="adam", choices=("adam",
+                                                            "momentum"),
+                    help="the optimizer the state was trained with")
+    ap.add_argument("--weight-decay", type=float, default=1e-5,
+                    help="the weight decay the state was trained with")
     args = ap.parse_args(argv)
+    if args.train_state:
+        out = export_train_state(args.model, args.checkpoint, args.out,
+                                 args.optimizer, args.weight_decay)
+        print(f"wrote {out} (model={args.model}, train state)")
+        return
     out = export(args.model, args.checkpoint, args.out,
                  use_ema=not args.no_ema)
     print(f"wrote {out} (model={args.model}, ema={not args.no_ema})")

@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Probe of the trainer's phases of chip_smoke.py alone, on one CUDA GPU.
+
+    python3 scripts/trainer_probe.py [graph] [resume] [timing] [--windows N]
+    python3 scripts/trainer_probe.py eager [--windows N] [--tree DIR]
+
+Builds the kernels, runs chip_smoke.py's phase_train (3 fused steps; the
+seeded state the other phases start from) and makes its dataset of
+numpy scenes, then the phases named (graph, resume and timing by
+default):
+
+- graph: phase_graph_step, the multi-step dispatch (a CUDA graph)
+  against eager steps, bit-equal, for the fused, ghost, xla and xla
+  pallas-conv arms;
+- resume: phase_resume and phase_serve_checkpoint (resume against an
+  uninterrupted run, SIGTERM, serving the checkpoint);
+- timing: phase_graph_timing, train img/s through the graph for the five
+  arms over N windows of at least 10 s (1 by default), with the device
+  idle share of one fused and one ghost dispatch.
+
+``eager`` runs alone: phase_train_timing, train img/s of the eager step
+(train_step a call) for the five arms over N windows, from a state
+seeded as phase_train's, on the chip_smoke.py and the package of the
+checkout DIR (this one by default). Given a ``git archive`` of another
+commit as DIR, it times that commit's eager step with the same script,
+so that two commits are compared in one call, e.g. parent, change,
+change, parent.
+
+Each phase's seconds are printed. Exits 2 without CUDA.
+"""
+
+import argparse
+import os
+import sys
+import time
+import types
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("phases", nargs="*", choices=("graph", "resume",
+                                                  "timing", "eager"))
+    ap.add_argument("--windows", type=int, default=1)
+    ap.add_argument("--tree", default=REPO,
+                    help="the checkout whose chip_smoke.py and package the "
+                         "eager phase imports")
+    args = ap.parse_args()
+    if "eager" in args.phases and args.phases != ["eager"]:
+        ap.error("eager runs alone")
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("trainer_probe: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.tree))
+    import chip_smoke as c
+
+    phases = args.phases or ["graph", "resume", "timing"]
+    t0 = time.perf_counter()
+
+    def stamp(what):
+        print(f"[{time.perf_counter() - t0:.1f} s] {what}", flush=True)
+
+    dev = torch.device("cuda", 0)
+    print(c.card_line())
+    print(f"tree: {os.path.abspath(args.tree)}")
+    c.build_all()
+    stamp("built")
+    if phases == ["eager"]:
+        from tensorflow_ocr_tpu_torch.train import trainer as T
+
+        c.TRAIN_WINDOWS = args.windows
+        state = T.create_train_state(
+            c.train_config("fused"), dev,
+            generator=torch.Generator().manual_seed(11))
+        batch = c.train_batch(np.random.RandomState(7), dev, c.TRAIN_BATCH,
+                              c.TRAIN_SIZE)
+        c.phase_train_timing(types.SimpleNamespace(state=state), batch)
+        stamp("eager timing")
+        return 0
+    fused = {name: {} for name in c.FUSED_KERNELS}
+    trainer, _, snap = c.phase_train(dev, fused)
+    ds = c.scene_dataset(dev)
+    stamp("train phase and dataset")
+    if "graph" in phases:
+        c.phase_graph_step(dev, snap, ds)
+        stamp("graph step")
+    if "resume" in phases:
+        images = c.scene_images(np.random.RandomState(0), 8)
+        root, served = c.phase_resume(dev, c.serving_start(dev, snap, images),
+                                      ds)
+        c.phase_serve_checkpoint(dev, root, served, images)
+        stamp("resume and serve")
+    if "timing" in phases:
+        c.TRAIN_WINDOWS = args.windows
+        c.phase_graph_timing(trainer.state.model.state_dict(), ds, True)
+        stamp("graph timing")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

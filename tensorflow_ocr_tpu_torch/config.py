@@ -3,20 +3,30 @@
 The fields of ``tensorflow_ocr_tpu/config.py`` that the port reads, with
 the same defaults: ``InferConfig`` for the PixelLink
 :class:`~tensorflow_ocr_tpu_torch.infer.Predictor`, and the data, model,
-loss and train sections that the train step
-(:mod:`tensorflow_ocr_tpu_torch.train.trainer`) reads. The port keeps its
+loss and train sections that the train step and the trainer loop
+(:mod:`tensorflow_ocr_tpu_torch.train.trainer`) read. The port keeps its
 own copy so that it imports nothing of the JAX package;
 ``tests/test_torch_config.py`` holds every default equal to the original.
+
+Left out until the modules that read them are ported (ROADMAP.md Queue
+1): ``calibrate_at_checkpoint`` and ``calibrate_max_images`` (the
+checkpoint-time calibration, item 5), ``use_device_cache`` (the device
+dataset and ``run_device_cached``, item 4), ``eval_every_steps`` (the
+eval hook, item 5) and ``donate_state`` (the port's steps update the
+state in place; there is nothing to donate).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Optional, Sequence
 
 
 @dataclass
 class InferConfig:
+    # checkpoint root whose newest ckpt_* a Predictor given this config
+    # and no weights serves (its checkpoint_path= argument overrides it)
+    checkpoint_path: str = "/tmp/east_icdar2015_resnet_v1_50_rbox/"
     max_side_len: int = 3000  # longest side after resize_image
     pixel_conf_threshold: float = 0.8
     link_conf_threshold: float = 0.8
@@ -75,8 +85,27 @@ class TrainConfig:
     momentum: float = 0.9
     max_steps: int = 100_000
     moving_average_decay: float = 0.997
-    seed: int = 0
+    # ckpt_<step>/ directories are written under this root
+    checkpoint_path: str = "/tmp/east_resnet_v1_50_rbox/"
+    # Trainer.setup resumes from the newest checkpoint of checkpoint_path
+    restore: bool = False
+    save_checkpoint_steps: int = 1000
+    # time cadence of the saves (0: steps only); whichever fires first
+    save_interval_secs: float = 0.0
+    # ckpt_* directories kept (0: all)
+    max_checkpoints_to_keep: int = 0
+    # image summaries every this many steps (with a summary writer)
+    save_summary_steps: int = 20
+    # a port checkpoint (root or ckpt_<step>) whose tensors of matching
+    # name and shape warm-start the model
+    pretrained_model_path: Optional[str] = None
     log_every_steps: int = 10
+    # warn (never kill) when no step completes for this many seconds; 0
+    # disables
+    stall_warn_secs: float = 300.0
+    seed: int = 0
+    # steps a make_multi_train_step dispatch runs (one graph replay each)
+    scan_steps: int = 16
 
 
 @dataclass

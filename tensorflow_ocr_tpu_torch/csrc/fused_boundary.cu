@@ -16,9 +16,13 @@
 //
 // What the design does about it: one pass each, 16-byte vectors (8
 // channels a thread) on consecutive addresses, the affine tables held in
-// registers for the whole grid-stride loop, and the four per-channel sums
-// of the backward kept in registers, reduced through shared memory and
-// added to device memory with one f32 atomicAdd per block and channel.
+// registers for the whole grid-stride loop, and the per-channel sums of
+// the backward kept in registers. Each block adds its threads' partials
+// in row-group order and writes them as one entry of a scratch buffer;
+// a second launch adds the entries in a fixed order (32 runs of
+// consecutive blocks, each in block order, then the runs in order). No
+// atomics: two launches are bit-equal (the grid depends only on m, c and
+// the SM count).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -99,22 +103,25 @@ __global__ void bnd_fwd(const bf16* __restrict__ z,
   }
 }
 
+// The backward's pass: dz, dzs, and block b's partial sums of its rows
+// written whole to part[b] (3, c): [sum gm*z, sum gm*zs, sum gm]. Thread
+// i's partials of its 8 channels go to red[8 i ..] (blockDim * 8 floats
+// of dynamic shared memory): row group r, channel ch at red[r * c + ch],
+// added for each channel in row-group order.
 __global__ void bnd_bwd(const bf16* __restrict__ g,
                         const bf16* __restrict__ z,
                         const float* __restrict__ ab,
                         const bf16* __restrict__ zs,
                         const float* __restrict__ abs,
                         bf16* __restrict__ dz, bf16* __restrict__ dzs,
-                        float* __restrict__ dab, float* __restrict__ dabs,
-                        int m, int c) {
-  extern __shared__ float red[];  // [3][c]: sum gm*z, sum gm*zs, sum gm
-  for (int i = threadIdx.x; i < 3 * c; i += blockDim.x) red[i] = 0.f;
-  __syncthreads();
+                        float* __restrict__ part, int m, int c) {
+  extern __shared__ __align__(16) float red[];
   Layout l(c);
-  if (l.rsub < l.rows) {
+  const bool on = l.rsub < l.rows;
+  float sz[8] = {}, szs[8] = {}, sg[8] = {};
+  if (on) {
     Tables t;
     t.load(ab, abs, c, l.cv * 8);
-    float sz[8] = {}, szs[8] = {}, sg[8] = {};
     for (int r = blockIdx.x * l.rows + l.rsub; r < m;
          r += gridDim.x * l.rows) {
       size_t off = (size_t)r * c + l.cv * 8;
@@ -135,21 +142,55 @@ __global__ void bnd_bwd(const bf16* __restrict__ g,
       *reinterpret_cast<uint4*>(dz + off) = pack8(oz);
       *reinterpret_cast<uint4*>(dzs + off) = pack8(os);
     }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      int ch = l.cv * 8 + i;
-      atomicAdd(&red[ch], sz[i]);
-      atomicAdd(&red[c + ch], szs[i]);
-      atomicAdd(&red[2 * c + ch], sg[i]);
-    }
   }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float* v = k == 0 ? sz : k == 1 ? szs : sg;
+    if (on) {
+      float4* p = reinterpret_cast<float4*>(&red[8 * threadIdx.x]);
+      p[0] = make_float4(v[0], v[1], v[2], v[3]);
+      p[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+    __syncthreads();
+    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
+      float s = 0.f;
+      for (int r = 0; r < l.rows; ++r) s += red[r * c + ch];
+      part[((size_t)blockIdx.x * 3 + k) * c + ch] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// dab = [sum gm*z, sum gm], dabs = [sum gm*zs, sum gm]: the blocks'
+// entries added in a fixed order. Block (32, kChunks): thread (x, y)
+// adds, in block order, channel-sum i = 32 blockIdx.x + x (k = i / c)
+// over its run y of the blocks' entries; row y = 0 then adds the runs in
+// order. The reads of one entry are coalesced along x.
+constexpr int kChunks = 32;
+
+__global__ void bnd_sum(const float* __restrict__ part,
+                        float* __restrict__ dab, float* __restrict__ dabs,
+                        int blocks, int c) {
+  __shared__ float run[kChunks][33];
+  const int i = blockIdx.x * 32 + threadIdx.x;
+  const int k = i / c, ch = i % c;
+  const int len = (blocks + kChunks - 1) / kChunks;
+  const int b0 = threadIdx.y * len, b1 = min(blocks, b0 + len);
+  float s = 0.f;
+  if (i < 3 * c)
+    for (int b = b0; b < b1; ++b) s += part[((size_t)b * 3 + k) * c + ch];
+  run[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    float s = red[2 * c + ch];
-    atomicAdd(&dab[ch], red[ch]);
-    atomicAdd(&dab[c + ch], s);
-    atomicAdd(&dabs[ch], red[c + ch]);
-    atomicAdd(&dabs[c + ch], s);
+  if (threadIdx.y != 0 || i >= 3 * c) return;
+  float t = 0.f;
+  for (int y = 0; y < kChunks; ++y) t += run[y][threadIdx.x];
+  if (k == 0) {
+    dab[ch] = t;
+  } else if (k == 1) {
+    dabs[ch] = t;
+  } else {
+    dab[c + ch] = t;
+    dabs[c + ch] = t;
   }
 }
 
@@ -185,28 +226,39 @@ extern "C" int fused_boundary_fwd(const void* z, const void* ab,
   return cudaGetLastError();
 }
 
+// The backward's block count: the entries of its scratch buffer.
+extern "C" int fused_boundary_bwd_blocks(int m, int c) {
+  if (c % 8 || c > 8192 || m == 0) return 0;
+  dim3 grid, block;
+  shape(m, c, grid, block);
+  return (int)grid.x;
+}
+
 // g, z, zs, dz, dzs (m, c) bf16; ab, abs (2, c) f32; dab, dabs (2, c)
-// f32, zeroed by the caller. Returns the launch error.
+// f32, written whole; part (blocks, 3, c) f32 scratch, blocks =
+// fused_boundary_bwd_blocks(m, c). Returns the first launch error.
 extern "C" int fused_boundary_bwd(const void* g, const void* z,
                                   const void* ab, const void* zs,
                                   const void* abs, void* dz, void* dzs,
-                                  void* dab, void* dabs, int m, int c,
-                                  void* stream) {
+                                  void* dab, void* dabs, void* part, int m,
+                                  int c, int blocks, void* stream) {
   if (c % 8 || c > 8192) return cudaErrorInvalidValue;
   if (m == 0) return 0;
   dim3 grid, block;
   shape(m, c, grid, block);
-  size_t smem = 3 * (size_t)c * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bnd_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  bnd_bwd<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  if ((int)grid.x != blocks) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  // <= 1024 threads: at most 32 KB, under the default 48 KB
+  const size_t smem = (size_t)block.x * 8 * sizeof(float);
+  bnd_bwd<<<grid, block, smem, s>>>(
       static_cast<const bf16*>(g), static_cast<const bf16*>(z),
       static_cast<const float*>(ab), static_cast<const bf16*>(zs),
       static_cast<const float*>(abs), static_cast<bf16*>(dz),
-      static_cast<bf16*>(dzs), static_cast<float*>(dab),
-      static_cast<float*>(dabs), m, c);
+      static_cast<bf16*>(dzs), static_cast<float*>(part), m, c);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bnd_sum<<<(3 * c + 31) / 32, dim3(32, kChunks), 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(dab),
+      static_cast<float*>(dabs), blocks, c);
   return cudaGetLastError();
 }

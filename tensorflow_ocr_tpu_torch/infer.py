@@ -2,10 +2,12 @@
 
 Port of the PixelLink half of ``tensorflow_ocr_tpu/infer.py``
 (``pixel_link_scores`` :41-52, ``Predictor`` :55-306). Weights come from
-a state_dict or from the flat ``.npz`` of Flax variables that
-``scripts/export_torch_weights.py`` writes; with neither, the model keeps
-its seeded init. There is no Orbax restore (it needs JAX). Only box
-scaling stays on the host.
+a state_dict, from the flat ``.npz`` of Flax variables that
+``scripts/export_torch_weights.py`` writes, or from the newest
+``ckpt_<step>`` of a port checkpoint root (the EMA or raw parameters and
+the BN running statistics, as JAX's ``infer.py:60-110`` restores them);
+with none, the model keeps its seeded init. There is no Orbax restore
+(it needs JAX). Only box scaling stays on the host.
 """
 
 from __future__ import annotations
@@ -23,6 +25,11 @@ from tensorflow_ocr_tpu_torch.config import InferConfig
 from tensorflow_ocr_tpu_torch.models import build_model
 from tensorflow_ocr_tpu_torch.models.convert import load_npz
 from tensorflow_ocr_tpu_torch.ops import decode as D
+from tensorflow_ocr_tpu_torch.train.trainer import (
+    CKPT_FILE,
+    latest_checkpoint,
+    load_inference_state,
+)
 from tensorflow_ocr_tpu_torch.utils.image import resize_image
 
 # written next to the checkpoints by tensorflow_ocr_tpu/train/calibrate.py
@@ -50,16 +57,44 @@ def load_operating_point(weights_dir: str) -> Optional[dict]:
         return None
 
 
+def checkpoint_weights(checkpoint_path: str, use_ema: bool = True
+                       ) -> dict:
+    """The state_dict to serve from a port checkpoint root (its newest
+    ``ckpt_*``) or one ``ckpt_<step>`` directory: the EMA parameters (or
+    the raw ones) and the BN running statistics; raises when there is no
+    checkpoint. The optimizer's state is never read."""
+    ck = latest_checkpoint(checkpoint_path)
+    if ck is None and os.path.exists(os.path.join(checkpoint_path,
+                                                  CKPT_FILE)):
+        ck = checkpoint_path
+    if ck is None:
+        raise FileNotFoundError(f"no port checkpoint under {checkpoint_path}")
+    saved = load_inference_state(ck)
+    weights = dict(saved["model"])
+    if use_ema:
+        weights.update(saved["ema"])
+    return weights
+
+
 class Predictor:
     """PixelLink detect on one device: batched forward + decode.
 
     ``model_name``: a name of the :func:`build_model` registry.
     ``weights``: a state_dict, or the path of a flat ``.npz`` of Flax
     variables (then an ``operating_point.json`` beside it overrides the
-    ``infer`` thresholds); with neither, the seed-0 init of
-    :func:`build_model`. ``infer``: thresholds and decode bounds
-    (defaults of :class:`InferConfig`). ``device="cuda"`` raises when no
-    GPU is present: the predictor never carries on on the CPU unasked.
+    ``infer`` thresholds). ``checkpoint_path``: in place of ``weights``, a
+    port checkpoint root (its newest ``ckpt_*``) or one ``ckpt_<step>``
+    directory; the EMA parameters (the raw ones with ``use_ema=False``)
+    and the BN running statistics are served, and an
+    ``operating_point.json`` at that path overrides the thresholds.
+    ``infer``: thresholds and decode bounds (defaults of
+    :class:`InferConfig`). When the caller passes ``infer`` and neither
+    ``weights`` nor ``checkpoint_path``, the newest ``ckpt_*`` under
+    ``infer.checkpoint_path`` is served, as JAX's ``Predictor`` does
+    (``infer.py:60-110``), or the init where it holds none. Otherwise,
+    with no weights, the seed-0 init of :func:`build_model`.
+    ``device="cuda"`` raises when no GPU is present: the predictor never
+    carries on on the CPU unasked.
     """
 
     # extract_components clamps max_pixels to h*w: any value >= the label
@@ -71,7 +106,9 @@ class Predictor:
                                 Mapping[str, torch.Tensor]] = None,
                  device: Union[str, torch.device] = "cuda",
                  dtype: torch.dtype = torch.bfloat16,
-                 infer: Optional[InferConfig] = None):
+                 infer: Optional[InferConfig] = None,
+                 checkpoint_path: Optional[str] = None,
+                 use_ema: bool = True):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Predictor(device='cuda'): torch sees no "
@@ -79,7 +116,15 @@ class Predictor:
         self.infer = icfg = infer if infer is not None else InferConfig()
         self.model = build_model(model_name, dtype=dtype)
         weights_dir = None
-        if isinstance(weights, (str, os.PathLike)):
+        if (infer is not None and weights is None and checkpoint_path is None
+                and latest_checkpoint(icfg.checkpoint_path) is not None):
+            checkpoint_path = icfg.checkpoint_path
+        if checkpoint_path is not None:
+            if weights is not None:
+                raise ValueError("pass weights or checkpoint_path, not both")
+            weights_dir = checkpoint_path
+            weights = checkpoint_weights(checkpoint_path, use_ema)
+        elif isinstance(weights, (str, os.PathLike)):
             weights_dir = os.path.dirname(os.path.abspath(weights))
             weights = load_npz(weights)
         if weights is not None:

@@ -12,7 +12,12 @@ kernels transposed from HWIO to OIHW:
     batch_stats/<m>/BatchNorm_0/var   -> <m>.bn.running_var
     params/<m>/kernel, bias           -> <m>.weight, <m>.bias
 
-Uses numpy and torch only.
+:func:`convert_train_state` turns a whole JAX ``TrainState`` (as numpy)
+into the nested mapping of a port checkpoint
+(``tensorflow_ocr_tpu_torch.train.trainer.state_tensors``): the EMA goes
+through the same map, and the optimizer's state of
+``optax.chain(add_decayed_weights, adam | sgd(momentum))`` becomes the
+per-parameter state of the port's optimizer. Uses numpy and torch only.
 """
 
 from __future__ import annotations
@@ -77,3 +82,59 @@ def load_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     used (``strict=True``)."""
     model.load_state_dict(convert_variables(variables), strict=True)
     return model
+
+
+def _field(obj, name):
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def _optax_states(tree):
+    """The optax states (named tuples) inside an ``opt_state`` tree."""
+    if hasattr(tree, "_fields"):
+        yield tree
+        for v in tree:
+            yield from _optax_states(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _optax_states(v)
+
+
+def _param_tree(tree) -> Dict[str, torch.Tensor]:
+    return convert_variables({"params": tree})
+
+
+def convert_train_state(state) -> Dict[str, object]:
+    """A JAX ``TrainState`` (a mapping or an object with its fields, leaves
+    as arrays) -> ``{step, model, optimizer, ema}`` of a port checkpoint.
+
+    ``params``, ``batch_stats`` and ``ema_params`` go through the key map;
+    Adam's ``mu``/``nu`` (``ScaleByAdamState``) become ``exp_avg``/
+    ``exp_avg_sq`` and its ``count`` each parameter's ``step``; momentum's
+    ``trace`` (``TraceState``) becomes ``momentum_buffer``. Kernels go
+    from HWIO to OIHW."""
+    model = convert_variables({"params": _field(state, "params"),
+                               "batch_stats": _field(state, "batch_stats")})
+    ema = _param_tree(_field(state, "ema_params"))
+    per_param: Dict[str, Dict[str, torch.Tensor]] = {n: {} for n in ema}
+    found = False
+    for st in _optax_states(_field(state, "opt_state")):
+        fields = st._fields
+        if "mu" in fields and "nu" in fields:
+            count = torch.tensor(float(np.asarray(st.count)),
+                                 dtype=torch.float32)
+            for key, tree in (("exp_avg", st.mu), ("exp_avg_sq", st.nu)):
+                for n, t in _param_tree(tree).items():
+                    per_param[n][key] = t
+            for n in per_param:
+                per_param[n]["step"] = count.clone()
+            found = True
+        elif "trace" in fields:
+            for n, t in _param_tree(st.trace).items():
+                per_param[n]["momentum_buffer"] = t
+            found = True
+    if not found:
+        raise ValueError("opt_state holds neither an Adam nor a momentum "
+                         "state")
+    step = torch.tensor(int(np.asarray(_field(state, "step"))),
+                        dtype=torch.int64)
+    return {"step": step, "model": model, "optimizer": per_param, "ema": ema}

@@ -56,12 +56,44 @@ def mean_image_subtraction(images: torch.Tensor,
                                     device=images.device)
 
 
+class _Unpool(torch.autograd.Function):
+    """2x bilinear upsample whose backward sums in a fixed order: the
+    forward is ``F.interpolate``'s (each output computed on its own), the
+    backward its adjoint, the gradient padded by one pixel (edge
+    replicated: the clamped neighbour) and convolved, in float32, with the
+    separable taps (1/4, 3/4, 3/4, 1/4) at stride 2 (dx[i] = g[2i-1]/4 +
+    3 g[2i]/4 + 3 g[2i+1]/4 + g[2i+2]/4 along each axis). The library's
+    bilinear backward adds with atomics, so a train step on the card would
+    not be deterministic."""
+
+    @staticmethod
+    def forward(ctx, x):
+        h, w = x.shape[-2:]
+        return F.interpolate(x, size=(2 * h, 2 * w), mode="bilinear",
+                             align_corners=False, antialias=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the taps 1 - |u|/2 at u = -1.5, -0.5, 0.5, 1.5, made on g's
+        # device (no copy from the host, so a CUDA graph can capture this)
+        t = torch.linspace(-1.5, 1.5, 4, device=g.device).abs_()
+        t = t.mul_(-0.5).add_(1.0)
+        c = g.shape[1]
+        k = torch.outer(t, t).expand(c, 1, 4, 4)
+        gp = F.pad(g.float(), (1, 1, 1, 1), mode="replicate")
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False  # float32 products
+        try:
+            return F.conv2d(gp, k, stride=2, groups=c).to(g.dtype)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+
+
 def unpool(x: torch.Tensor) -> torch.Tensor:
     """2x bilinear upsample with half-pixel centres, as jax.image.resize
-    does it (models/layers.py:157-166). NCHW."""
-    h, w = x.shape[-2:]
-    return F.interpolate(x, size=(2 * h, 2 * w), mode="bilinear",
-                         align_corners=False, antialias=False)
+    does it (models/layers.py:157-166). NCHW. Its backward sums in a
+    fixed order (:class:`_Unpool`)."""
+    return _Unpool.apply(x)
 
 
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:

@@ -157,7 +157,8 @@ SIGNATURES = {
     },
     "fused_boundary": {
         "fused_boundary_fwd": [_P] * 5 + [_I] * 2 + [_P],
-        "fused_boundary_bwd": [_P] * 9 + [_I] * 2 + [_P],
+        "fused_boundary_bwd_blocks": [_I] * 2,
+        "fused_boundary_bwd": [_P] * 10 + [_I] * 3 + [_P],
     },
 }
 
@@ -377,13 +378,18 @@ def boundary_bwd(g, z, ab, zs, abs_):
         raise ValueError(f"g {tuple(g.shape)} vs z {tuple(z.shape)}")
     dz = torch.empty_like(z, memory_format=_CL)
     dzs = torch.empty_like(zs, memory_format=_CL)
-    dab = torch.zeros((2, c), dtype=torch.float32, device=z.device)
-    dabs = torch.zeros((2, c), dtype=torch.float32, device=z.device)
+    dab = torch.empty((2, c), dtype=torch.float32, device=z.device)
+    dabs = torch.empty((2, c), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
-        err = _lib("fused_boundary").fused_boundary_bwd(
+        lib = _lib("fused_boundary")
+        # each block's partial sums, added in block order by a second pass
+        blocks = lib.fused_boundary_bwd_blocks(m, c)
+        part = torch.empty((blocks, 3, c), dtype=torch.float32,
+                           device=z.device)
+        err = lib.fused_boundary_bwd(
             g.data_ptr(), z.data_ptr(), ab.data_ptr(), zs.data_ptr(),
             abs_.data_ptr(), dz.data_ptr(), dzs.data_ptr(), dab.data_ptr(),
-            dabs.data_ptr(), m, c, cuda_stream())
+            dabs.data_ptr(), part.data_ptr(), m, c, blocks, cuda_stream())
     raise_on(err, "fused_boundary_bwd")
     boundary_bwd.launches += 1
     return dz, dab, dzs, dabs

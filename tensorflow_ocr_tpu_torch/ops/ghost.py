@@ -806,7 +806,9 @@ def _unit_backward(dout, saved, w1, gb1, w2, gb2, w3, gb3, ws, gbs, gh,
     td1, dgb1 = corr(s1 + s1_seam, b1, gb1, t1)
     dws = dgbs = None
     if proj:
-        tds, dgbs = corr(s3[:, :, [2, 1]], bs, gbs, ts)
+        # [sum gm*sc, sum gm] by slicing: a list index would copy the
+        # index to the card, a sync that a captured graph cannot hold
+        tds, dgbs = corr(s3[:, :, 1:3].flip(2), bs, gbs, ts)
         addend, _, dws = conv_bwd(o, None, gm3, zs, tds, ws, gh, out="f32")
         dws = dws.to(ws.dtype)
     else:

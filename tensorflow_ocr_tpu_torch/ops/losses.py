@@ -41,7 +41,7 @@ def _kth_smallest_threshold(scores: torch.Tensor, mask: torch.Tensor,
     """Per row of (B, N) scores: the bisection bound ``hi`` that keeps the
     k-th smallest masked score in (lo, hi] after ``iters`` halvings
     (losses.py:88-107), float32."""
-    big = torch.tensor(3.4e38, dtype=torch.float32, device=scores.device)
+    big = torch.full((), 3.4e38, dtype=torch.float32, device=scores.device)
     s = scores.float()
     lo = torch.where(mask, s, big).amin(1)
     hi = torch.where(mask, s, -big).amax(1)

@@ -1,31 +1,49 @@
-"""Train state, the train step and the trainer loop.
+"""Train state, the train step, checkpoints, the multi-step dispatch and
+the trainer loop.
 
-Port of ``tensorflow_ocr_tpu/train/trainer.py:43-79, 95-267, 674-866``
-for one device and the PixelLink OHEM recipe:
+Port of ``tensorflow_ocr_tpu/train/trainer.py`` for one device and the
+PixelLink OHEM recipe:
 
-- :class:`TrainState`: the step count, the model (parameters and BN
-  running statistics), the optimizer and the EMA of the parameters;
+- :class:`TrainState`: the step count (an int64 tensor on the device,
+  like JAX's ``jnp.int32`` step), the model (parameters and BN running
+  statistics), the optimizer and the EMA of the parameters;
 - :func:`make_loss_fn`: PixelLink labels made on the device from the
   padded polygons (or taken precomputed from ``score``/``link``/``mask``)
   and the OHEM loss;
 - :func:`train_step`: forward (batch-statistics BN, or running
   statistics with ``freeze_bn``), backward, optimizer update with the
-  learning rate of the step, EMA update; the reported ``total_loss`` adds
-  the L2 value of the parameters before the update;
-- :class:`Trainer`: ``setup`` and ``run(batches, max_steps)`` with the
-  NaN abort and the examples/s meter.
+  learning rate of the step, EMA update, all on the device; the reported
+  ``total_loss`` adds the L2 value of the parameters before the update;
+- :func:`make_multi_train_step` (:310-376): S steps a dispatch over a
+  dataset of device tensors; on the card one step is captured into a
+  CUDA graph and replayed S times, the port's form of ``lax.scan``;
+- checkpoints (:404-583): ``ckpt_<step>/state.pt`` under the checkpoint
+  root, the data iterator's state beside it, written whole or not at
+  all, async writes joined in order, pruning, strict restore, restore
+  for inference, and :func:`warm_start` (:585-606);
+- :class:`StallWatchdog` (:614-672) and :class:`Trainer` (:674-866,
+  :985-1030): ``setup`` (seeded, given weights, resumed or warm-started)
+  and ``run(batches, max_steps)`` with the NaN abort, the examples/s
+  meter, checkpoints on the step and time cadence, summaries and
+  SIGTERM preemption.
 
-Not ported yet (ROADMAP.md Queue 1): checkpoints, warm start,
-calibration, preemption, the multi-step dispatch, the device dataset,
-augmentation and data parallelism.
+Not ported yet (ROADMAP.md Queue 1): checkpoint-time calibration
+(``_maybe_calibrate``, item 5), the device dataset and
+``run_device_cached`` (item 4), augmentation (item 4), the slim ``.npz``
+backbone import (item 6) and data parallelism (item 7).
 """
 
 from __future__ import annotations
 
+import logging
 import math
+import os
+import shutil
+import tempfile
+import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,11 +59,15 @@ from tensorflow_ocr_tpu_torch.train import optim
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 OUTPUT_STRIDE = 4  # the PixelLink models of the registry
+# the keys of a batch that the multi-step dispatch gathers (trainer.py:198)
+BATCH_KEYS = ("images", "polys", "tags", "valid", "shrunk", "rects", "angles")
+# precomputed label maps (data/device_cache.py DeviceDataset.labels)
+LABEL_KEYS = ("score", "link", "mask")
 
 
 @dataclass
 class TrainState:
-    step: int
+    step: torch.Tensor  # int64, on the model's device
     model: Detector
     optimizer: torch.optim.Optimizer
     ema: Dict[str, torch.Tensor]  # parameter name -> EMA value
@@ -81,14 +103,15 @@ def create_train_state(cfg: Config, device="cuda",
     model.to(device)
     opt = optim.make_optimizer(model, cfg.train, cfg.model.weight_decay)
     ema = {n: p.detach().clone() for n, p in model.named_parameters()}
-    return TrainState(0, model, opt, ema)
+    step = torch.zeros((), dtype=torch.int64, device=device)
+    return TrainState(step, model, opt, ema)
 
 
-def make_loss_fn(cfg: Config) -> Callable:
-    """loss(outputs, batch) -> (model_loss, aux) for PixelLink + OHEM."""
-    check_loss_ported(cfg.loss.name)
+def make_labels_fn(cfg: Config) -> Callable:
+    """labels(batch) -> (score (B,h,w,1), link (B,h,w,8), mask (B,h,w,1)):
+    the precomputed maps where the batch has them, else made on the
+    device from the padded polygons."""
     out_hw = cfg.data.input_size // OUTPUT_STRIDE
-    lcfg = cfg.loss
 
     def labels(batch):
         if "score" in batch:  # precomputed label maps
@@ -97,6 +120,15 @@ def make_loss_fn(cfg: Config) -> Callable:
             batch["polys"], batch["tags"], batch["valid"], out_hw, out_hw,
             OUTPUT_STRIDE, cfg.data.min_text_size)
         return s[..., None], l, m[..., None]
+
+    return labels
+
+
+def make_loss_fn(cfg: Config) -> Callable:
+    """loss(outputs, batch) -> (model_loss, aux) for PixelLink + OHEM."""
+    check_loss_ported(cfg.loss.name)
+    labels = make_labels_fn(cfg)
+    lcfg = cfg.loss
 
     def loss_fn(outputs, batch):
         score, link, mask = labels(batch)
@@ -127,10 +159,15 @@ def loss_and_grads(model: Detector, batch: Mapping[str, torch.Tensor],
 
 
 def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
-               cfg: Config, loss_fn: Callable) -> Dict[str, torch.Tensor]:
-    """One step on the device; returns the metrics as device scalars (no
-    host sync): total_loss, model_loss and the loss's aux values."""
-    l2 = optim.l2_regularization(state.model, cfg.model.weight_decay)
+               cfg: Config, loss_fn: Callable, include_l2: bool = True
+               ) -> Dict[str, torch.Tensor]:
+    """One step on the device, the state updated in place; returns the
+    metrics as device scalars (no host sync): total_loss, model_loss and
+    the loss's aux values. The learning rate and the EMA decay are read
+    from ``state.step`` on the device. ``include_l2=False`` leaves the L2
+    value out of total_loss (the multi-step dispatch adds it once)."""
+    l2 = (optim.l2_regularization(state.model, cfg.model.weight_decay)
+          if include_l2 else None)
     model_loss, aux = loss_and_grads(state.model, batch, cfg, loss_fn)
     optim.set_learning_rate(state.optimizer,
                             optim.make_schedule(cfg.train)(state.step))
@@ -139,7 +176,8 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                      optim.ema_decay(cfg.train.moving_average_decay,
                                      state.step))
     state.step += 1
-    return {"total_loss": model_loss + l2, "model_loss": model_loss, **aux}
+    total = model_loss + l2 if include_l2 else model_loss
+    return {"total_loss": total, "model_loss": model_loss, **aux}
 
 
 def to_device(batch: Mapping[str, np.ndarray], device
@@ -148,48 +186,613 @@ def to_device(batch: Mapping[str, np.ndarray], device
             for k, v in batch.items()}
 
 
+def device_dataset(batch: Mapping[str, Any], cfg: Config, device
+                   ) -> Dict[str, torch.Tensor]:
+    """The dataset of :func:`make_multi_train_step` from a host or device
+    batch of ``images``/``polys``/``tags``/``valid``: those on ``device``,
+    the EAST keys as zeros, and the label maps precomputed on the device
+    (data/device_cache.py DeviceDataset ``_precompute``, :129-162)."""
+    out = to_device({k: batch[k] for k in ("images", "polys", "tags",
+                                           "valid")}, device)
+    polys = out["polys"]
+    out["shrunk"] = torch.zeros_like(polys)
+    out["rects"] = torch.zeros_like(polys)
+    out["angles"] = torch.zeros(polys.shape[:2], dtype=torch.float32,
+                                device=polys.device)
+    out.update(zip(LABEL_KEYS, make_labels_fn(cfg)(out)))
+    return out
+
+
+# --------------------------------------------------------------------------
+# the multi-step dispatch (trainer.py:310-376)
+# --------------------------------------------------------------------------
+
+# eager steps on a side stream before the capture: they build the kernels
+# at first use and let the libraries pick their plans; their effect on the
+# state is undone before the capture
+WARMUP_STEPS = 2
+
+
+def state_tensors(state: TrainState) -> Dict[str, Any]:
+    """The state as a nested mapping of its own tensors (no copies):
+    step, model (parameters and BN buffers), optimizer (each parameter's
+    state, by parameter name) and ema. What a checkpoint holds."""
+    opt = state.optimizer
+    return {"step": state.step,
+            "model": state.model.state_dict(),
+            "optimizer": {n: dict(opt.state[p])
+                          for n, p in state.model.named_parameters()},
+            "ema": state.ema}
+
+
+def flat_tree(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A nested mapping of tensors (e.g. :func:`state_tensors`) as one
+    mapping keyed by ``/``-joined paths."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flat_tree(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+class _GraphMulti:
+    """The card's multi-step dispatch: one train step captured into a
+    CUDA graph that gathers its batch from the dataset by a static index
+    buffer; a dispatch copies each row of ``idx`` into the buffer and
+    replays. The capture is redone when the dataset's tensors change.
+    The state's tensors are the graph's: restore a checkpoint into them in
+    place (:func:`restore_checkpoint`), never by replacing them."""
+
+    def __init__(self, state: TrainState, one: Callable, keys):
+        self.state, self.one, self.keys = state, one, keys
+        self.graph = None
+        self.key = None
+        self.idx = self.out = None
+        self.captures = 0
+
+    def release(self) -> None:
+        """Free the graph and its pool (the gradients live there)."""
+        self.graph = self.out = self.idx = None
+        self.key = None
+        for p in self.state.model.parameters():
+            p.grad = None
+
+    def _capture(self, dataset, row: torch.Tensor) -> None:
+        self.release()
+        live = list(flat_tree(state_tensors(self.state)).values())
+        saved = [t.clone() for t in live]
+        self.idx = row.to(torch.int64).clone()
+        stream = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(stream)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")  # a host sync cannot replay
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    self.one(dataset, self.idx)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        stream.wait_stream(side)
+        with torch.no_grad():
+            torch._foreach_copy_(live, saved)
+        del saved
+        for p in self.state.model.parameters():
+            p.grad = None
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.out = self.one(dataset, self.idx)
+        self.graph = graph
+        self.captures += 1
+
+    def __call__(self, dataset, idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+        device = self.state.step.device
+        idx = idx.to(device)
+        key = tuple((k, dataset[k].data_ptr(), tuple(dataset[k].shape))
+                    for k in self.keys) + (tuple(idx.shape[1:]),)
+        if self.graph is None or key != self.key:
+            self._capture(dataset, idx[0])
+            self.key = key
+        for row in idx:
+            self.idx.copy_(row)
+            self.graph.replay()
+        return self.out
+
+
+def make_multi_train_step(state: TrainState, cfg: Config,
+                          extra_keys: Sequence[str] = (),
+                          augment: bool = False) -> Callable:
+    """S train steps a dispatch over a dataset of device tensors.
+
+    Returns ``multi(state, dataset, idx)``: ``dataset`` maps JAX's keys
+    (:data:`BATCH_KEYS`, plus ``extra_keys``, e.g. the precomputed
+    ``score``/``link``/``mask`` of :func:`device_dataset`) to tensors on
+    the state's device; ``idx`` is an (S, B) int tensor of dataset rows.
+    Step s trains on ``dataset[k][idx[s]]``; the state is updated in place
+    and the metrics of the last step come back, with ``total_loss`` the
+    last step's model loss plus the L2 value of the parameters after the
+    S steps (trainer.py:328, :358-362). ``multi`` is bound to ``state``.
+
+    On the card one step is captured into a CUDA graph (after
+    ``WARMUP_STEPS`` eager steps on a side stream, whose effect on the
+    state is undone) and replayed S times; a failed capture raises, and
+    nothing carries on eagerly. On the CPU the same step runs eagerly: the
+    plain version. ``multi.release()`` frees the graph and its pool.
+    ``augment=True`` (on-device augmentation) is not ported yet.
+    """
+    if augment:
+        raise NotImplementedError(
+            "on-device augmentation is not ported yet (ROADMAP.md Queue 1 "
+            "item 4: data/device_augment)")
+    keys = BATCH_KEYS + tuple(extra_keys)
+    loss_fn = make_loss_fn(cfg)
+
+    def one(dataset, row):
+        batch = {k: dataset[k][row] for k in keys}
+        return train_step(state, batch, cfg, loss_fn, include_l2=False)
+
+    graph = _GraphMulti(state, one, keys) \
+        if state.step.device.type == "cuda" else None
+
+    def multi(st: TrainState, dataset: Mapping[str, torch.Tensor],
+              idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if st is not state:
+            raise ValueError("multi runs the state it was made for")
+        if graph is not None:
+            last = graph(dataset, idx)
+        else:
+            for row in idx:
+                last = one(dataset, row)
+        out = {k: v.clone() for k, v in last.items()}
+        out["total_loss"] = out["total_loss"] + optim.l2_regularization(
+            state.model, cfg.model.weight_decay)
+        return out
+
+    multi.graph = graph
+    multi.release = graph.release if graph is not None else (lambda: None)
+    return multi
+
+
+# --------------------------------------------------------------------------
+# checkpoints (trainer.py:404-583)
+# --------------------------------------------------------------------------
+
+CKPT_FILE = "state.pt"
+DATA_ITER_STATE_FILE = "grain_iter_state.bin"
+
+_PENDING_SAVE: Optional[threading.Thread] = None
+_PENDING_SAVE_ERROR: Optional[BaseException] = None
+
+
+def _ckpt_dir(path: str, step: int) -> str:
+    return os.path.join(os.path.abspath(path), f"ckpt_{step}")
+
+
+def _ckpt_steps(path: str):
+    if not os.path.isdir(path):
+        return []
+    steps = []
+    for name in os.listdir(path):
+        if name.startswith("ckpt_"):
+            try:
+                steps.append(int(name.split("_")[1]))
+            except ValueError:
+                continue
+    return sorted(steps)
+
+
+def wait_for_pending_save() -> None:
+    """Join the in-flight async checkpoint write, if any; re-raise what
+    the writer hit, so a failed async save cannot pass for a success."""
+    global _PENDING_SAVE, _PENDING_SAVE_ERROR
+    if _PENDING_SAVE is not None:
+        _PENDING_SAVE.join()
+        _PENDING_SAVE = None
+    if _PENDING_SAVE_ERROR is not None:
+        err, _PENDING_SAVE_ERROR = _PENDING_SAVE_ERROR, None
+        raise RuntimeError("async checkpoint write failed") from err
+
+
+def prune_checkpoints(path: str, max_to_keep: int) -> list:
+    """Delete the oldest ``ckpt_*`` dirs beyond ``max_to_keep`` (by step;
+    0 keeps all). Returns the removed directory paths."""
+    if not max_to_keep:
+        return []
+    removed = []
+    for s in _ckpt_steps(path)[:-max_to_keep]:
+        d = _ckpt_dir(path, s)
+        shutil.rmtree(d, ignore_errors=True)
+        removed.append(d)
+    return removed
+
+
+def _to_host(tree):
+    """A copy of every tensor of ``tree`` on the host (a sync)."""
+    if isinstance(tree, Mapping):
+        return {k: _to_host(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True)
+
+
+def write_checkpoint(path: str, tree: Mapping, iter_state: Optional[bytes]
+                     = None, max_to_keep: int = 0) -> str:
+    """Write a host state ``tree`` (the mapping of :func:`state_tensors`)
+    to ``<path>/ckpt_<step>/`` and prune to ``max_to_keep``: the file goes
+    into a temporary directory under ``path`` that is then renamed, so a
+    reader never sees half a checkpoint. Returns the directory."""
+    d = _ckpt_dir(path, int(tree["step"]))
+    root = os.path.abspath(path)
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=f".{os.path.basename(d)}.", dir=root)
+    try:
+        torch.save(tree, os.path.join(tmp, CKPT_FILE))
+        if iter_state is not None:
+            with open(os.path.join(tmp, DATA_ITER_STATE_FILE), "wb") as f:
+                f.write(iter_state)
+        if os.path.isdir(d):  # a checkpoint of this step is replaced
+            shutil.rmtree(d)
+        os.replace(tmp, d)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    prune_checkpoints(path, max_to_keep)
+    return d
+
+
+def save_checkpoint(path: str, state: TrainState, data_iter=None,
+                    block: bool = True, max_to_keep: int = 0) -> str:
+    """Save the state to ``<path>/ckpt_<step>/state.pt``
+    (:func:`write_checkpoint`), and the data position beside it where
+    ``data_iter`` has ``get_state()``.
+
+    The state is copied to the host before this returns (the next step
+    updates the device tensors in place). ``block=False`` writes on a
+    non-daemon thread; saves are strictly ordered (a new one joins the
+    previous first), and :func:`wait_for_pending_save` joins the last and
+    re-raises its error.
+    """
+    host = _to_host(state_tensors(state))
+    d = _ckpt_dir(path, int(host["step"]))
+    iter_state = (data_iter.get_state()
+                  if data_iter is not None and hasattr(data_iter, "get_state")
+                  else None)
+
+    def write():
+        write_checkpoint(path, host, iter_state, max_to_keep)
+
+    def write_async():
+        global _PENDING_SAVE_ERROR
+        try:
+            write()
+        except BaseException as e:  # surfaced by wait_for_pending_save()
+            logging.getLogger(__name__).exception(
+                "async checkpoint write to %s failed", d)
+            _PENDING_SAVE_ERROR = e
+
+    wait_for_pending_save()
+    if block:
+        write()
+    else:
+        global _PENDING_SAVE
+        _PENDING_SAVE = threading.Thread(
+            target=write_async, daemon=False, name="ckpt-writer")
+        _PENDING_SAVE.start()
+    return d
+
+
+def restore_data_iter(ckpt_dir: str, data_iter) -> bool:
+    """Restore a data iterator's position (its ``set_state``), if saved."""
+    p = os.path.join(ckpt_dir, DATA_ITER_STATE_FILE)
+    if data_iter is None or not hasattr(data_iter, "set_state"):
+        return False
+    if not os.path.exists(p):
+        return False
+    with open(p, "rb") as f:
+        data_iter.set_state(f.read())
+    return True
+
+
+def latest_checkpoint(path: str) -> Optional[str]:
+    steps = _ckpt_steps(path)
+    return _ckpt_dir(path, steps[-1]) if steps else None
+
+
+def load_checkpoint(ckpt_dir: str, device="cpu", mmap: bool = False) -> dict:
+    """The nested mapping :func:`save_checkpoint` wrote (tensors only:
+    ``weights_only``). ``mmap`` maps the file and reads a tensor's bytes
+    only where it is used."""
+    return torch.load(os.path.join(ckpt_dir, CKPT_FILE), map_location=device,
+                      weights_only=True, mmap=mmap)
+
+
+def _copy_into(live: Mapping, saved: Mapping, where: str = "") -> None:
+    """Copy ``saved`` into the tensors of ``live`` in place; raises on a
+    missing key, an extra key or a shape that differs."""
+    missing = sorted(set(live) - set(saved))
+    extra = sorted(set(saved) - set(live))
+    if missing or extra:
+        raise KeyError(f"checkpoint {where or 'state'}: missing {missing}, "
+                       f"unexpected {extra}")
+    for k, t in live.items():
+        name = f"{where}/{k}" if where else str(k)
+        if isinstance(t, Mapping):
+            if not isinstance(saved[k], Mapping):
+                raise KeyError(f"checkpoint {name}: not a mapping")
+            _copy_into(t, saved[k], name)
+            continue
+        s = saved[k]
+        if not isinstance(s, torch.Tensor) or s.shape != t.shape:
+            raise ValueError(f"checkpoint {name}: shape "
+                             f"{tuple(getattr(s, 'shape', ()))} where the "
+                             f"state has {tuple(t.shape)}")
+        with torch.no_grad():
+            t.copy_(s)
+
+
+def restore_checkpoint(path: str, template: TrainState) -> TrainState:
+    """Restore a checkpoint directory into ``template`` in place (so a
+    captured graph keeps its tensors) and return it. Strict: a missing
+    key, an extra key or a shape mismatch raises."""
+    saved = load_checkpoint(path, template.step.device)
+    _copy_into(state_tensors(template), saved)
+    return template
+
+
+def load_inference_state(path: str) -> dict:
+    """``{step, model, ema}`` of a checkpoint directory, on the host; the
+    optimizer's state is never read (the file is memory-mapped)."""
+    saved = load_checkpoint(path, "cpu", mmap=True)
+    return {k: saved[k] for k in ("step", "model", "ema")}
+
+
+def restore_checkpoint_for_inference(path: str, template: TrainState
+                                     ) -> TrainState:
+    """Restore only what inference needs (step, parameters, BN buffers and
+    EMA) into ``template``; the optimizer's state is left as it is and
+    never read, so a checkpoint stays loadable across optimizer changes."""
+    saved = load_inference_state(path)
+    live = state_tensors(template)
+    _copy_into({k: live[k] for k in saved}, saved)
+    return template
+
+
+def warm_start(params: Mapping[str, torch.Tensor],
+               pretrained: Mapping[str, torch.Tensor],
+               exclude_scopes: Sequence[str] = ()
+               ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Merge the pretrained tensors whose name and shape match (the
+    ``ignore_missing_vars`` semantics, multigpu_train.py:149-151);
+    ``exclude_scopes`` skips every tensor under a module of that name (a
+    component of its dotted name, e.g. the ``head``). Returns the merged
+    mapping and the count of tensors taken."""
+    out, n = {}, 0
+    for name, t in params.items():
+        pre = pretrained.get(name)
+        if (not set(name.split(".")) & set(exclude_scopes)
+                and pre is not None and pre.shape == t.shape):
+            out[name] = pre.to(dtype=t.dtype)
+            n += 1
+        else:
+            out[name] = t
+    return out, n
+
+
+# --------------------------------------------------------------------------
+# the trainer loop
+# --------------------------------------------------------------------------
+
+
+class StallWatchdog:
+    """Prints when no train step completes within ``interval_s`` seconds.
+
+    A hung launch or a dead input pipeline blocks the train loop inside a
+    sync with no Python traceback. Blocked CUDA syncs release the GIL, so
+    a daemon thread can still report. Diagnostic only: it never kills
+    anything. Repeated warnings back off linearly (1x, 2x, 3x the
+    interval)."""
+
+    def __init__(self, interval_s: float, name: str = "train"):
+        self.interval = float(interval_s or 0)
+        self.name = name
+        self._last = time.time()
+        self._last_step = -1
+        self._warned = 0
+        self._stop = threading.Event()
+        self._thread = None
+        if self.interval > 0:
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True,
+                name=f"stall-watchdog-{name}")
+            self._thread.start()
+
+    def beat(self, step: int):
+        self._last = time.time()
+        self._last_step = step
+        self._warned = 0
+
+    def _loop(self):
+        poll = min(self.interval, 30.0)
+        while not self._stop.wait(poll):
+            idle = time.time() - self._last
+            if idle > self.interval * (self._warned + 1):
+                self._warned += 1
+                if self._last_step < 0:
+                    # before the first heartbeat the likeliest causes are
+                    # the kernels' nvcc builds at first use and a CUDA
+                    # graph's warm-up and capture
+                    print(
+                        f"[watchdog:{self.name}] first step not complete "
+                        f"after {idle:.0f}s — the nvcc build of the kernels "
+                        f"at first use or the CUDA-graph capture in "
+                        f"progress, or the card is hung", flush=True)
+                else:
+                    print(
+                        f"[watchdog:{self.name}] no step completed for "
+                        f"{idle:.0f}s (last step {self._last_step}; "
+                        f"heartbeats fire every log window); a kernel or "
+                        f"the input pipeline may be hung", flush=True)
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=1.0)
+
+
 class Trainer:
     """The train loop (trainer.py:674-866) on one device (the card unless
-    the caller asks for the CPU; raises when there is no card): NaN abort
-    and an examples/s meter every ``cfg.train.log_every_steps`` steps."""
+    the caller asks for the CPU; raises when there is no card): NaN abort,
+    an examples/s meter every ``cfg.train.log_every_steps`` steps,
+    checkpoints on the step and time cadence, scalar and image summaries
+    to ``summary_writer``, the stall watchdog, and SIGTERM preemption
+    (a checkpoint, then a clean stop) once
+    :meth:`install_preemption_handler` has run."""
 
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, device="cuda", summary_writer=None,
+                 install_signal_handler: bool = False):
         self.cfg = cfg
         self.device = require_device(device, "Trainer")
         self.state: Optional[TrainState] = None
         self.loss_fn = make_loss_fn(cfg)
+        self.summary_writer = summary_writer
+        self._preempted = False
+        self._restored_from: Optional[str] = None
+        if install_signal_handler:
+            self.install_preemption_handler()
+
+    def install_preemption_handler(self):
+        import signal
+
+        def handler(signum, frame):
+            self._preempted = True
+
+        signal.signal(signal.SIGTERM, handler)
+
+    def _maybe_handle_preemption(self, data_iter=None) -> bool:
+        if self._preempted:
+            path = save_checkpoint(self.cfg.train.checkpoint_path,
+                                   self.state, data_iter)
+            print(f"preempted: checkpoint saved to {path}")
+            return True
+        return False
 
     def setup(self, weights: Optional[Mapping[str, torch.Tensor]] = None,
               generator: Optional[torch.Generator] = None) -> TrainState:
+        """The state of ``cfg``; with ``train.restore``, the newest
+        checkpoint of ``train.checkpoint_path`` restored into it; else,
+        with ``train.pretrained_model_path``, a warm start from that port
+        checkpoint (tensors of matching name and shape, the BN running
+        statistics included)."""
         self.state = create_train_state(self.cfg, self.device, generator,
                                         weights)
+        tcfg = self.cfg.train
+        if tcfg.restore:
+            wait_for_pending_save()  # this process's own last save, whole
+            ck = latest_checkpoint(tcfg.checkpoint_path)
+            if ck:
+                restore_checkpoint(ck, self.state)
+                self._restored_from = ck
+                print(f"restored from {ck} at step {int(self.state.step)}")
+        elif tcfg.pretrained_model_path:
+            path = tcfg.pretrained_model_path
+            if path.endswith(".npz"):
+                raise NotImplementedError(
+                    "the slim .npz backbone import is not ported yet "
+                    "(ROADMAP.md Queue 1 item 6)")
+            pre = load_checkpoint(latest_checkpoint(path) or path,
+                                  self.device)["model"]
+            live = self.state.model.state_dict()
+            params = dict(self.state.model.named_parameters())
+            merged, n = warm_start(params, pre)
+            # the running BN statistics come along: the freeze_bn
+            # fine-tune normalises with them
+            buffers, _ = warm_start({k: v for k, v in live.items()
+                                     if k not in params}, pre)
+            with torch.no_grad():
+                for name, t in {**merged, **buffers}.items():
+                    live[name].copy_(t)
+            print(f"warm-started {n} tensors from {path}")
         return self.state
 
     def run(self, batches, max_steps: Optional[int] = None
             ) -> Dict[str, float]:
         """Train on ``batches`` (an iterator, or a sequence indexed by
         step) for ``max_steps`` steps; returns the last logged metrics."""
-        max_steps = max_steps or self.cfg.train.max_steps
-        window = self.cfg.train.log_every_steps
+        cfg = self.cfg.train
+        max_steps = max_steps or cfg.max_steps
+        if self._restored_from is not None:
+            if restore_data_iter(self._restored_from, batches):
+                print(f"data iterator resumed from {self._restored_from}")
+            self._restored_from = None
+        window = cfg.log_every_steps
         last: Dict[str, float] = {}
         last_log_step = -1  # the first window holds a single step
+        last_save_t = time.time()
+        dog = StallWatchdog(cfg.stall_warn_secs)
         t0 = time.perf_counter()
-        for step in range(max_steps):
-            batch = (next(batches) if hasattr(batches, "__next__")
-                     else batches[step])
-            db = to_device(batch, self.device)
-            metrics = train_step(self.state, db, self.cfg, self.loss_fn)
-            if step % window:
-                continue
-            last = {k: float(v) for k, v in metrics.items()}  # syncs
-            if math.isnan(last["total_loss"]):
-                print("Loss diverged, stop training")
-                break
-            dt = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            n_steps, last_log_step = step - last_log_step, step
-            n_img = db["images"].shape[0] * n_steps
-            print(f"Step {step:06d}, model loss {last['model_loss']:.4f}, "
-                  f"total loss {last['total_loss']:.4f}, "
-                  f"{dt / n_steps:.3f} s/step, {n_img / dt:.1f} examples/s")
+        try:
+            for step in range(max_steps):
+                batch = (next(batches) if hasattr(batches, "__next__")
+                         else batches[step])
+                db = to_device(batch, self.device)
+                metrics = train_step(self.state, db, self.cfg, self.loss_fn)
+                if step % window == 0:
+                    last = {k: float(v) for k, v in metrics.items()}  # syncs
+                    dog.beat(step)
+                    if math.isnan(last["total_loss"]):
+                        print("Loss diverged, stop training")
+                        break
+                    dt = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    n_steps, last_log_step = step - last_log_step, step
+                    n_img = db["images"].shape[0] * n_steps
+                    print(f"Step {step:06d}, model loss "
+                          f"{last['model_loss']:.4f}, total loss "
+                          f"{last['total_loss']:.4f}, {dt / n_steps:.3f} "
+                          f"s/step, {n_img / dt:.1f} examples/s")
+                    if self.summary_writer is not None:
+                        for k, v in last.items():
+                            self.summary_writer.add_scalar(k, v, step)
+                if (self.summary_writer is not None
+                        and cfg.save_summary_steps
+                        and step % cfg.save_summary_steps == 0
+                        and hasattr(self.summary_writer,
+                                    "add_detection_summaries")):
+                    self._emit_image_summaries(db, step)
+                step_due = (cfg.save_checkpoint_steps and step > 0
+                            and step % cfg.save_checkpoint_steps == 0)
+                time_due = (cfg.save_interval_secs
+                            and time.time() - last_save_t
+                            >= cfg.save_interval_secs)
+                if step_due or time_due:
+                    save_checkpoint(cfg.checkpoint_path, self.state, batches,
+                                    block=False,
+                                    max_to_keep=cfg.max_checkpoints_to_keep)
+                    last_save_t = time.time()
+                if self._maybe_handle_preemption(batches):
+                    break
+        finally:
+            dog.stop()
+            wait_for_pending_save()
         return last
+
+    def _emit_image_summaries(self, batch, step: int):
+        """The reference's image panel (multigpu_train.py:50-63): input
+        frame, label score map and predicted score map of the first image.
+        Never allowed to stop training."""
+        try:
+            img = batch["images"][:1]
+            with torch.no_grad():
+                out = self.state.model(img, train=False)
+            pred = torch.softmax(out["pixel_logits"].float(), -1)[..., 1:]
+            score = make_labels_fn(self.cfg)(
+                {k: v[:1] for k, v in batch.items()})[0]
+            self.summary_writer.add_detection_summaries(
+                step, images=img.float().cpu().numpy(),
+                gt_score=score.float().cpu().numpy(),
+                pred_score=pred.cpu().numpy())
+        except Exception as e:  # observability must never stop training
+            logging.getLogger(__name__).warning(
+                "image summaries failed at step %d: %s: %s",
+                step, type(e).__name__, e)

@@ -14,7 +14,11 @@ forward: csrc/conv_bwd.cuh's tdx in its forward mode, x staged through
 the prologue, the sums one entry a CTA) and tests/test_torch_conv_bwd.py
 (the backward: the dW split over pixel tiles and clusters, the dX tiles
 with their staged dy_eff); here both must equal the plain whole-map
-result.
+result. The boundary backward's block split (csrc/fused_boundary.cu:
+each thread's rows of a grid-stride loop, a block's partials added in
+row-group order, the blocks' entries in runs of consecutive blocks) is
+emulated here
+and held against the plain sums.
 """
 
 import jax
@@ -193,6 +197,76 @@ def test_kernel_split_emulation_equals_whole_map(k, ci, co, nhw):
     close(edab, dab, "dab")
     close(edw, dw.reshape(co, ci, k, k).permute(2, 3, 1, 0).reshape(-1, co),
           "dw")
+
+
+def boundary_blocks(m, c, sms):
+    """(rows a pass of a block, blocks) of csrc/fused_boundary.cu shape()."""
+    cvecs = c // 8
+    rows = 1 if cvecs >= 256 else 256 // cvecs
+    return rows, min(-(-m // rows), 8 * sms)
+
+
+def emulate_boundary_bwd_sums(g, z, ab, zs, abs_, sms, stride_rows=True):
+    """dab, dabs of fused_boundary_bwd summed as the kernel sums them, in
+    float32: thread (block b, row group r) adds rows b*rows + r + k*stride
+    for k = 0, 1, ... (stride = blocks * rows; ``stride_rows=False``
+    plants a loop that strides by a block's rows only), the block adds
+    its row groups' partials in order, bnd_sum the blocks' in 32 runs of
+    consecutive blocks, each in block order, then the runs in order."""
+    c = z.shape[1]
+    m = z.numel() // c
+    flat = [t.permute(0, 2, 3, 1).reshape(m, c).numpy().astype(np.float32)
+            for t in (g, z, zs)]
+    gf, zf, zsf = flat
+    a, b = ab.numpy()
+    as_, bs = abs_.numpy()
+    pre = zf * a + b + zsf * as_ + bs
+    gm = np.where(pre > 0, gf, np.float32(0))
+    vals = np.stack([gm * zf, gm * zsf, gm])  # (3, m, c)
+    rows, blocks = boundary_blocks(m, c, sms)
+    stride = blocks * rows if stride_rows else rows
+    acc = np.zeros((3, blocks, rows, c), np.float32)
+    for bi in range(blocks):
+        for r in range(rows):
+            for row in range(bi * rows + r, m, stride):
+                acc[:, bi, r] += vals[:, row]
+    part = np.zeros((3, blocks, c), np.float32)
+    for r in range(rows):
+        part += acc[:, :, r]
+    run_len = -(-blocks // 32)
+    tot = np.zeros((3, c), np.float32)
+    for y in range(32):
+        run = np.zeros((3, c), np.float32)
+        for bi in range(y * run_len, min(blocks, (y + 1) * run_len)):
+            run += part[:, bi]
+        tot += run
+    return np.stack([tot[0], tot[2]]), np.stack([tot[1], tot[2]])
+
+
+# one SM: 8 blocks, fewer than the rows need, so every block's threads
+# take several passes of the grid-stride loop
+@pytest.mark.parametrize("n,h,w,c,sms", [
+    (2, 20, 20, 24, 1),    # 85 row groups a block of 255 threads
+    (1, 12, 10, 256, 1),   # 8 row groups a block of 256
+    (1, 3, 5, 4096, 1),    # one row a block of 512 threads
+])
+def test_boundary_bwd_block_split_emulation(n, h, w, c, sms):
+    rng = np.random.RandomState(c + sms)
+    z, zs, g = (nchw(rng.randn(n, h, w, c).astype(np.float32))
+                for _ in range(3))
+    ab, abs_ = (torch.from_numpy(np.stack([
+        rng.uniform(0.5, 1.5, c), rng.randn(c)]).astype(np.float32))
+        for _ in range(2))
+    _, dab, _, dabs = FU.boundary_bwd_reference(g, z, ab, zs, abs_)
+    edab, edabs = emulate_boundary_bwd_sums(g, z, ab, zs, abs_, sms)
+    close(edab, dab, "dab")
+    close(edabs, dabs, "dabs")
+    rows, blocks = boundary_blocks(n * h * w, c, sms)
+    assert blocks * rows < n * h * w  # the loop strides: a wrong stride
+    bad, _ = emulate_boundary_bwd_sums(g, z, ab, zs, abs_, sms,
+                                       stride_rows=False)
+    with pytest.raises(AssertionError):
+        close(bad, dab, "dab")
 
 
 def test_kernel_takes_the_units_of_resnet50():

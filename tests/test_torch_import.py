@@ -1,7 +1,9 @@
 """The port imports without JAX, the JAX package, cv2, triton, nvcc or a GPU.
 
-Every module, the train step's included: ``triton`` stays out of
-``sys.modules`` and no kernel is built at import time.
+Every module, the train step, the checkpoints and the multi-step dispatch
+(train/trainer.py), the summaries and the profiling helpers included:
+``triton`` stays out of ``sys.modules`` and no kernel is built at import
+time.
 
 Runs in a subprocess: tests/conftest.py imports jax into every pytest
 process, so only a fresh interpreter can show what the port pulls in.
@@ -41,5 +43,6 @@ def test_port_imports_without_jax_or_cv2():
     for mod in ("config", "infer", "models.convert", "models.detector",
                 "models.resnet", "ops.conv", "ops.decode", "ops.fused",
                 "ops.kernels", "ops.labels", "ops.losses", "ops.rasterize",
-                "train.optim", "train.trainer", "utils.image"):
+                "train.optim", "train.trainer", "utils.image",
+                "utils.profiling", "utils.summary"):
         assert f"tensorflow_ocr_tpu_torch.{mod}" in out["modules"]

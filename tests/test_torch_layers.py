@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from flax import linen as nn
 
 from tensorflow_ocr_tpu.models import layers as JL
@@ -111,6 +112,36 @@ def test_unpool_matches_jax_image_resize():
     got = _nhwc(TL.unpool(_nchw(x)))
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 16, 1, 1), (2, 2, 1, 4)])
+def test_unpool_backward_is_the_adjoint(shape, dtype):
+    """unpool's forward is F.interpolate's; its fixed-order backward (pad,
+    conv with the taps) gives F.interpolate's float32 gradient, rounded
+    once to the input's dtype (float32: within 1e-6 of the largest), and
+    the same bits on a second call; a 1-pixel axis and channels_last
+    included."""
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen).to(dtype)
+    g = torch.randn((*shape[:2], 2 * shape[2], 2 * shape[3]),
+                    generator=gen).to(dtype)
+    ref = x.float().requires_grad_()
+    y = F.interpolate(ref, size=g.shape[-2:], mode="bilinear",
+                      align_corners=False)
+    (want,) = torch.autograd.grad(y, ref, g.float())
+    for memory_format in (torch.contiguous_format, torch.channels_last):
+        xi = x.contiguous(memory_format=memory_format).requires_grad_()
+        out = TL.unpool(xi)
+        assert torch.equal(out.float(), F.interpolate(
+            x, size=g.shape[-2:], mode="bilinear",
+            align_corners=False).float())
+        (got,) = torch.autograd.grad(out, xi, g)
+        (again,) = torch.autograd.grad(TL.unpool(xi), xi, g)
+        assert got.dtype == dtype and torch.equal(got, again)
+        tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+        torch.testing.assert_close(got.float(), want, rtol=tol,
+                                   atol=tol * float(want.abs().max()))
 
 
 def test_mean_image_subtraction():
