@@ -14,14 +14,15 @@ Phases, in order; any failure raises and exits non-zero:
    their sides and corners) and a (3, 100, 150) batch of ragged tiles;
    int32 labels must be equal, and equal on two launches; print both
    times and the kernel's device time (replayed from a CUDA graph);
-4. full-width pixellink_resnet50 forward, float32, TF32 off, 256x256 on
-   the card against the same seeded weights on the CPU;
+4. full-width pixellink_resnet50 and east_resnet50 forwards, float32,
+   TF32 off, 256x256 on the card against the same seeded weights on the
+   CPU;
 5. the main path: Predictor.detect_batch at full width, bfloat16, on
    8 x 1280x768 uint8 images; the kernel's launch count must rise, and
    the boxes must equal those decoded from the same logits with the
    plain connected components;
 6. time detect (p50, batch 1, 1280x768) and detect_batches (img/s,
-   batch 8) after a warm-up, each over 3 windows of at least 10 s;
+   batch 8) after a warm-up, each over 3 windows of at least 5 s;
    print each window and the median of the three;
 7. with --profile only: a torch.profiler trace of serve and of detect,
    printing wall time, device busy time, the device's idle share and
@@ -34,7 +35,9 @@ Phases, in order; any failure raises and exits non-zero:
    bit-equal), plus the forward and dW tail shapes; then the forward y
    at every distinct shape of detect's forward (8 x 1280x768); print
    kernel, plain and library-call ms, the FLOPs, bytes and bound, and
-   each kernel's ms a train step;
+   each kernel's ms a train step; then the same at the shapes that
+   east_resnet50's route adds (its merge: 1x1s from 2560, 384 and 128
+   channels, 3x3s at 128, 64 and 32), train and detect, summed apart;
 9. detect_batch with PALLAS_CONVS on: 44 + 13 conv launches a forward,
    all on conv_fwd.cu, logits within CONV_DETECT_REL of the cuDNN
    forward's, the CC kernel still launched;
@@ -106,13 +109,41 @@ Phases, in order; any failure raises and exits non-zero:
    port checkpoint trained 50 steps (one graph dispatch) on the numpy
    scenes in place of the tempered state;
 21. train img/s for the fused, xla, freeze_bn-fused, xla pallas-conv and
-   ghost arms, each over 3 windows of at least 10 s (median and range);
+   ghost arms, each over 2 windows of at least 5 s (median and range);
 22. the same five arms through make_multi_train_step, 16 steps a
-   dispatch (the graph replayed), over 3 windows of at least 10 s; with
+   dispatch (the graph replayed), over 2 windows of at least 5 s; with
    --profile also the device idle share of one dispatch of the fused and
    ghost arms;
 23. with --profile only: a torch.profiler trace of 3 train steps of the
-   fused, the xla pallas-conv and the ghost arm.
+   fused, the xla pallas-conv and the ghost arm;
+24. pixellink_resnet50 on the fused arm with the dice, positive and
+   focal losses: one step each (finite loss and gradients, the fused
+   backward 43 a step), and with dice a 4-step graph dispatch bit-equal
+   to eager steps;
+25. the slice's main path, east_resnet50 RBOX with the EAST loss on the
+   fused arm at 512^2, batch 32, EAST labels made on the card: 2
+   warm-up steps (every fused kernel launched), eager img/s over 3
+   windows of at least 10 s on one batch, whose loss must fall from step
+   0's; on 64 scenes with the EAST maps precomputed, a 4-step graph
+   dispatch bit-equal to eager steps (and a restore under the graph),
+   graph img/s over 3 windows of 10 s, and the trained state saved;
+26. east_resnet50 with PALLAS_CONVS: one xla step and detect at 8 x
+   1280x768, each conv kernel launched as the route's convs give, the
+   outputs within EAST_DETECT_REL of cuDNN's;
+27. east_resnet50 with the focal loss and with QUAD geometry: one fused
+   step each, finite loss and gradients;
+28. EAST serving from the checkpoint of phase 25: Predictor(checkpoint_path)
+   on 8 x 1280x768 scenes (an operating point planted if few pixels pass
+   the score threshold), east_detect on the card equal to the CPU's on
+   the same maps, the boxes NMS keeps equal to the CPU decode's; detect
+   p50 and serve img/s over 3 windows of 10 s, with the host NMS ms;
+29. pixellink2s_vgg16 (OHEM, labels at stride 2): eager train img/s and
+   peak memory; detect through the CC kernel, held against its plain
+   version at the stride-2 maps (8, 384, 640); detect and serve timed;
+30. link8_resnet50: one fused dice step; detect through the link8 schema
+   and the CC kernel, boxes equal to a plain-CC decode's;
+31. one detect_batch each of east_vgg16, pixellink_vgg16 (the CC kernel)
+   and east_tiny.
 
 The line before the last is a JSON object describing the fourteen
 kernels (launches from the main path of each: detect for the CC kernel,
@@ -140,12 +171,22 @@ SHAPE = (8, 192, 320)          # label maps of a 1280x768 batch of 8
 RAGGED_SHAPE = (3, 100, 150)   # a batch of label maps of another size
 IMAGE_HW = (768, 1280)
 MODEL = "pixellink_resnet50"
+LOSS = "ohem"  # train_config's loss by default
+# the slice's main model (EAST RBOX, the east loss) and the other models
+# of the families the port added beside it
+EAST_MODEL = "east_resnet50"
+VGG_MODEL = "pixellink2s_vgg16"
+LINK8_MODEL = "link8_resnet50"
 # phase 4: float32 on the card (TF32 off) vs the CPU differ only in the
 # order of summation (and cuDNN's choice of algorithm) over ~55 convs
 FWD_REL_TOL = 1e-4
-# phase 6: each metric is read over WINDOWS windows of at least WINDOW_S
+# EAST detect and serve: each metric is read over WINDOWS windows of at
+# least WINDOW_S; the PixelLink detect and serve of phase 6 and the VGG
+# model's over windows of PIXELLINK_WINDOW_S (shortened when the EAST
+# phases came, to keep the script within half its time limit)
 WINDOW_S = 10.0
 WINDOWS = 3
+PIXELLINK_WINDOW_S = 5.0
 # the train phases: bench.py's train shape, steps of the main path, and
 # train img/s read over TRAIN_WINDOWS windows of at least TRAIN_WINDOW_S
 TRAIN_SIZE = 512
@@ -153,6 +194,11 @@ TRAIN_BATCH = 32
 TRAIN_STEPS = 3
 TRAIN_WINDOW_S = 10.0
 TRAIN_WINDOWS = 3
+# the five PixelLink arms' eager and graph img/s: ARM_WINDOWS windows of
+# at least ARM_WINDOW_S (scripts/trainer_probe.py times them longer, in
+# fresh processes)
+ARM_WINDOWS = 2
+ARM_WINDOW_S = 5.0
 # fused vs xla arm, one step each from one state and batch, in bf16. At
 # the seeded init (every BN scale 1) the bf16 step is chaotic: two runs
 # of the fused arm alone differ by a gradient relative error of ~1, as
@@ -173,6 +219,19 @@ ARM_GRAD_REL = 2.5e-2  # |g_fused - g_xla| / |g_xla|; sound <= 1.71e-2,
 #                        planted faults >= 4.43e-2
 ARM_COS_MIN = 0.98     # cosine of the two at the worst parameter; sound
 #                        >= 0.9933, faults that turn it <= 0.335
+# fused_readings over the 13 fused units' parameters, fused against xla
+# from the tempered state: the boundary's dz x 0.9 passes the two gates
+# above (1.8647e-2, cosine 0.983156). The worst relative gradient error
+# read 1.1066e-1 in each of 6 sound runs (block4_unit2.conv1's weight),
+# 1.4495e-1 under dW x 0.9, 2.9331e-1 under dX x 0.9 and 1.9226e-1
+# under dz x 0.9 (block4_unit1.conv2.bn.bias); its bound lies between the
+# sound runs and dz x 0.9. The norm ratio of the two gradients read 1 -
+# 1.1700e-2 sound and off 1 by 1.0271e-1, 2.7452e-1 and 1.1206e-1 under
+# the three faults: its bound fails all three with a 2x margin either
+# side (--faults; readings on an H100 80GB HBM3 at 700 W, PERF.md
+# Findings)
+FUSED_ARM_UNIT_REL = 0.15
+FUSED_ARM_UNIT_SCALE = 5e-2
 # the PALLAS_CONVS arm against the same arm on cuDNN, one step each from
 # the tempered state: the gradient bounds lie between the sound runs'
 # largest reading and the planted backward faults' smallest (--faults;
@@ -187,6 +246,12 @@ CONV_ARM_COS_MIN = 0.98   # sound >= 0.99618; the unflipped 3x3 dX 0.4608
 # convs rounded in another order, relative to the largest logit (sound
 # 1.128e-2 on the H100)
 CONV_DETECT_REL = 3e-2
+# the same for east_resnet50's sigmoid score and geometry (the distances
+# sigmoid x 512) from its seeded weights, relative to the largest value:
+# the seeded bf16 network saturates, and where a logit lies near 0 the
+# sigmoid passes on its reordered rounding (read 5.198e-2 and 7.357e-2 on
+# the H100; each routed conv is held to one bf16 ulp by the route phase)
+EAST_DETECT_REL = 0.15
 # the H100 SXM's dense bf16 tensor-core rate, float32 rate outside the
 # tensor cores, and HBM rate (NVIDIA's data sheet): the bounds
 PEAK_BF16, PEAK_F32, PEAK_HBM = 989e12, 67e12, 3.35e12
@@ -410,13 +475,17 @@ def perturb_bn(model, gen):
                 m.running_var.uniform_(0.8, 1.25, generator=gen)
 
 
-def phase_forward(device):
+def phase_forward(device, model_name=MODEL):
+    """``model_name``'s full-width forward, float32 with TF32 off, at
+    256x256 on the card against the same seeded weights (BN statistics
+    perturbed) on the CPU: every output within FWD_REL_TOL of the
+    largest value."""
     import torch
     from tensorflow_ocr_tpu_torch.models import build_model
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = build_model(MODEL, dtype=torch.float32,
+    model = build_model(model_name, dtype=torch.float32,
                         generator=torch.Generator().manual_seed(1))
     perturb_bn(model, torch.Generator().manual_seed(2))
     x = torch.randint(0, 256, (1, 256, 256, 3), dtype=torch.uint8,
@@ -425,14 +494,14 @@ def phase_forward(device):
         want = model(x)
         model.to(device)
         got = model(x.to(device))
-    for key in ("pixel_logits", "link_logits"):
+    for key in want:
         g, w = got[key].cpu(), want[key]
         check(g.shape == w.shape == (1, 64, 64, w.shape[-1]),
               f"{key}: shape {tuple(g.shape)}")
         check(bool(torch.isfinite(g).all()), f"{key}: non-finite")
         rel = float((g - w).abs().max() / w.abs().max())
-        print(f"forward f32 {key}: max|gpu-cpu|/max|cpu| = {rel:.3e} "
-              f"(tol {FWD_REL_TOL:g})")
+        print(f"forward f32 {model_name} {key}: max|gpu-cpu|/max|cpu| = "
+              f"{rel:.3e} (tol {FWD_REL_TOL:g})")
         check(rel <= FWD_REL_TOL, f"{key}: GPU and CPU forwards disagree")
     torch.backends.cudnn.allow_tf32 = True
 
@@ -453,44 +522,53 @@ def scene_images(rng, n):
     return images
 
 
-def phase_main_path(device, report):
+def head_logit_scale(pred, x, convs):
+    """Scale each final conv of ``convs`` (names under pred.model.head) to
+    unit logit spread on the images ``x`` (random weights saturate the
+    scores; phase_main_path does this for PixelLink)."""
+    import torch
+    import torch.nn.functional as F
+    from tensorflow_ocr_tpu_torch.models.layers import mean_image_subtraction
+
+    m = pred.model
+    with torch.inference_mode():
+        xx = mean_image_subtraction(x.float(), m.means).permute(
+            0, 3, 1, 2).to(m.dtype)
+        ep = m.backbone(xx)
+        feats = m.merge(ep) if m.merge is not None else None
+    for name in convs:
+        conv = getattr(m.head, name)
+        with torch.inference_mode():
+            if feats is None:  # the pixellink head: its logits
+                spread = float(m.head(ep)[name].std())
+            else:
+                spread = float(F.conv2d(feats, conv.weight.to(feats.dtype),
+                                        conv.bias.to(feats.dtype)).std())
+        with torch.no_grad():
+            conv.weight /= spread
+            conv.bias /= spread
+
+
+def decode_check(pred, images, label):
+    """Thresholds at quantiles of the maps (pixel 0.8, link 0.3), then
+    detect_batch: the CC kernel launched, the boxes equal to those of a
+    decode of the same maps with the plain connected components. Returns
+    the CC launches."""
     import numpy as np
     import torch
-    from tensorflow_ocr_tpu_torch.infer import Predictor, pixel_link_scores
+    from tensorflow_ocr_tpu_torch.infer import pixel_link_scores
     from tensorflow_ocr_tpu_torch.ops import decode as D
     from tensorflow_ocr_tpu_torch.ops import kernels as K
 
-    pred = Predictor(MODEL, device=device)
-    images = scene_images(np.random.RandomState(0), 8)
-    x = torch.from_numpy(images).to(device)
-    # random weights saturate the softmax: scale the logits to unit
-    # spread, then put the thresholds where components exist
-    with torch.inference_mode():
-        out = pred.model(x)
-    with torch.no_grad():
-        for tag in ("pixel", "link"):
-            conv = getattr(pred.model.head, f"{tag}_logits")
-            spread = float(out[f"{tag}_logits"].std())
-            conv.weight /= spread
-            conv.bias /= spread
+    x = torch.from_numpy(images).to(pred.device)
     with torch.inference_mode():
         ps, ls = pixel_link_scores(pred.model(x))
     pred.pixel_thresh = float(torch.quantile(ps.float().flatten()[::7], 0.8))
     pred.link_thresh = float(torch.quantile(ls.float().flatten()[::7], 0.3))
-
     K.connected_components.launches = 0
     boxes = pred.detect_batch(images)
     torch.cuda.synchronize()
     launches = K.connected_components.launches
-    check(launches > 0, "detect_batch did not launch the CC kernel")
-    n_boxes = [len(b) for b in boxes]
-    print(f"detect_batch 8x1280x768 bf16: boxes per image {n_boxes}, "
-          f"cc launches {launches}, overflow retries {pred.overflow_retries}")
-    check(len(boxes) == 8 and sum(n_boxes) > 0, "no boxes at all")
-    check(all(np.isfinite(b).all() and b.shape == (4, 2)
-              for bs in boxes for b in bs), "malformed boxes")
-
-    # the same logits decoded with the plain connected components
     mask = ps > pred.pixel_thresh
     edges = D.link_adjacency(mask, ls, pred.link_thresh)
     labels = K.connected_components_reference(edges, mask)
@@ -498,13 +576,36 @@ def phase_main_path(device, report):
     rb, _, rv = (t.cpu().numpy() for t in D.extract_components(
         labels, pred.infer.max_components, pred.min_size,
         max_pixels=max_pixels))
-    for i in range(8):
-        want = rb[i][rv[i]] * pred.stride
-        check(len(boxes[i]) == len(want), f"image {i}: {len(boxes[i])} "
-              f"boxes vs {len(want)} from the plain CC")
-        check(all(np.array_equal(g, w) for g, w in zip(boxes[i], want)),
-              f"image {i}: boxes differ from the plain CC decode")
-    report["launches"] = launches
+    n = [len(b) for b in boxes]
+    print(f"{label} detect_batch {len(images)}x1280x768 bf16: maps "
+          f"{tuple(ps.shape)}, boxes per image {n}, cc launches {launches}, "
+          f"overflow retries {pred.overflow_retries}")
+    check(launches > 0, f"{label}: detect did not launch the CC kernel")
+    check(len(boxes) == len(images) and sum(n) > 0, f"{label}: no boxes")
+    check(all(np.isfinite(b).all() and b.shape == (4, 2)
+              for bs in boxes for b in bs), f"{label}: malformed boxes")
+    for i in range(len(images)):
+        w = rb[i][rv[i]] * pred.stride
+        check(len(boxes[i]) == len(w) and all(
+            np.array_equal(g, v) for g, v in zip(boxes[i], w)),
+              f"{label} image {i}: boxes differ from the plain CC decode")
+    return launches, edges, mask
+
+
+def phase_main_path(device, report):
+    """Predictor.detect_batch at 8 x 1280x768 bf16: the final convs scaled
+    to unit logit spread (random weights saturate the softmax) and the
+    thresholds put where components exist, then decode_check (the CC
+    kernel launched, the boxes those of a plain-CC decode)."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.infer import Predictor
+
+    pred = Predictor(MODEL, device=device)
+    images = scene_images(np.random.RandomState(0), 8)
+    head_logit_scale(pred, torch.from_numpy(images).to(device),
+                     ("pixel_logits", "link_logits"))
+    report["launches"] = decode_check(pred, images, MODEL)[0]
     return pred, images
 
 
@@ -522,46 +623,65 @@ def phase_timing(pred, images):
             pred.infer.max_components), 20)
     print(f"batch 8 1280x768 stages: forward {fwd_ms:.3f} ms, decode "
           f"{dec_ms:.3f} ms (CUDA events, mean of 20)")
+    time_detect_serve(pred, images, PIXELLINK_WINDOW_S)
 
+
+def time_detect_serve(pred, images, window_s, label=""):
+    """Detect p50 at batch 1 (pred.detect on images[0]) and serve img/s
+    at batch 8 (detect_batches, depth 2), each over WINDOWS windows of at
+    least ``window_s`` after a warm-up, printed with the medians of the
+    windows. With an EAST predictor also the host NMS ms of each call
+    (pred.nms_ms) and the boxes of the last."""
     one = images[0]
     for _ in range(5):
         pred.detect(one)
-    p50s = []
+    east = pred.is_east
+    p50s, nms = [], []
     for i in range(WINDOWS):
         lat = []
         t0 = time.perf_counter()
-        while time.perf_counter() - t0 < WINDOW_S:
-            lat.append(pred.detect(one)[1])
+        while time.perf_counter() - t0 < window_s:
+            boxes, ms = pred.detect(one)
+            lat.append(ms)
+            nms.append(pred.nms_ms)
         p50s.append(statistics.median(lat))
-        print(f"detect window {i}: p50 {p50s[-1]:.3f} ms (min "
+        print(f"{label}detect window {i}: p50 {p50s[-1]:.3f} ms (min "
               f"{min(lat):.3f}, max {max(lat):.3f}, n={len(lat)})")
-    print(f"detect 1280x768 batch 1: p50 {statistics.median(p50s):.3f} ms "
-          f"(median of {WINDOWS} windows of >= {WINDOW_S:g} s; window p50s "
-          f"{min(p50s):.3f}..{max(p50s):.3f})")
+    print(f"{label}detect 1280x768 batch 1: p50 "
+          f"{statistics.median(p50s):.3f} ms "
+          f"(median of {WINDOWS} windows of >= {window_s:g} s; window p50s "
+          f"{min(p50s):.3f}..{max(p50s):.3f})"
+          + (f"; host NMS p50 {statistics.median(nms):.3f} ms of it, "
+             f"{len(boxes)} boxes" if east else ""))
 
     for _ in pred.detect_batches([images] * 3):
         pass
-    rates = []
+    rates, nms = [], []
     for i in range(WINDOWS):
         sent = 0
         t0 = time.perf_counter()
 
         def stream():
             nonlocal sent
-            while time.perf_counter() - t0 < WINDOW_S:
+            while time.perf_counter() - t0 < window_s:
                 sent += 1
                 yield images
 
-        n = sum(len(r) for r in pred.detect_batches(stream(), depth=2))
+        n = 0
+        for r in pred.detect_batches(stream(), depth=2):
+            n += len(r)
+            nms.append(pred.nms_ms)
         dt = time.perf_counter() - t0
-        check(n == 8 * sent, "detect_batches lost results")
+        check(n == len(images) * sent, "detect_batches lost results")
         rates.append(n / dt)
-        print(f"serve window {i}: {rates[-1]:.2f} img/s ({sent} batches in "
-              f"{dt:.3f} s)")
-    print(f"detect_batches 1280x768 batch 8 depth 2: "
+        print(f"{label}serve window {i}: {rates[-1]:.2f} img/s ({sent} "
+              f"batches in {dt:.3f} s)")
+    print(f"{label}detect_batches 1280x768 batch {len(images)} depth 2: "
           f"{statistics.median(rates):.2f} img/s (median of {WINDOWS} "
-          f"windows of >= {WINDOW_S:g} s; windows {min(rates):.2f}.."
-          f"{max(rates):.2f})")
+          f"windows of >= {window_s:g} s; windows {min(rates):.2f}.."
+          f"{max(rates):.2f})"
+          + (f"; host NMS p50 {statistics.median(nms):.3f} ms a batch"
+             if east else ""))
 
 
 def device_busy_ms(prof) -> float:
@@ -637,6 +757,9 @@ DW_STEP_KERNELS = {"tma_dw": 53, "narrow_dw": 4}
 FWD_STEP_KERNELS = {"tma_fwd": 110, "narrow_fwd": 4}
 # detect's forward: every routed conv contracts a multiple of 8 channels
 DETECT_FWD_KERNELS = {"tma_fwd": 57, "narrow_fwd": 0}
+# each conv kernel's launches in detect's forward (8 x 1280x768)
+DETECT_CONV_LAUNCHES = {"matmul_rows": 44, "dw_rows": 0, "conv3": 13,
+                        "dw3": 0}
 # forward shapes (N, H, W, Ci, Co, k) that the train step never reaches,
 # each held against its plain version and launched twice: a ragged 3x3
 # (W % 16, H % 8, Ci = 24), K = 8, a row wider than one pixel box, the
@@ -679,45 +802,64 @@ def conv_counts(names=CONV_KERNELS):
     return {name: getattr(CV, name).launches for name in names}
 
 
-def route_shape_counts(batch, hw):
+def route_shape_counts(batch, hw, model=MODEL):
     """{(N, H, W, Ci, Co, k, stride): convs of that shape} over every conv
-    the route takes in a forward of the model at ``batch`` images of
-    ``hw`` (recorded from a batch-1 float32 forward on the CPU; in a train
-    step each conv is also one dX and one dW product of its shape)."""
+    the route takes in a forward of ``model`` at ``batch`` images of
+    ``hw`` (recorded from a forward on the meta device, at the batch's
+    size, since the route's choice depends on it; in a train step each
+    conv is also one dX and one dW product of its shape)."""
     import torch
+    import torch.nn.functional as F
     from tensorflow_ocr_tpu_torch.models import build_model
     from tensorflow_ocr_tpu_torch.ops import conv as CV
 
     seen, orig = {}, CV.conv2d
 
     def record(x, w, stride=(1, 1)):
-        _, ci, h, wd = x.shape
-        key = (batch, h, wd, ci, w.shape[0], w.shape[-1], stride[0])
+        n, ci, h, wd = x.shape
+        key = (n, h, wd, ci, w.shape[0], w.shape[-1], stride[0])
         seen[key] = seen.get(key, 0) + 1
-        return orig(x, w, stride)
+        return F.conv2d(x, w, stride=stride, padding=w.shape[-1] // 2)
 
-    model = build_model(MODEL, dtype=torch.float32)
+    net = build_model(model, dtype=torch.bfloat16).to("meta")
     CV.conv2d = record
     try:
         with pallas_convs(True), torch.inference_mode():
-            model(torch.zeros(1, *hw, 3, dtype=torch.uint8))
+            net(torch.zeros(batch, *hw, 3, dtype=torch.uint8,
+                            device="meta"))
     finally:
         CV.conv2d = orig
     return seen
 
 
-def route_shapes(batch, hw):
+def route_shapes(batch, hw, model=MODEL):
     """The distinct shapes of route_shape_counts, in order."""
-    return tuple(route_shape_counts(batch, hw))
+    return tuple(route_shape_counts(batch, hw, model))
 
 
-def phase_conv_kernels(device, reports):
+def route_launches(batch, hw, model=MODEL, train=True):
+    """{conv kernel: launches} of ``model``'s forward at ``batch`` images
+    of ``hw`` with the route on (route_shape_counts), and with ``train``
+    of its backward too: a forward and a dX product of each routed conv
+    (matmul_rows, conv3) and a dW (dw_rows, dw3)."""
+    n = {1: 0, 3: 0}
+    for key, c in route_shape_counts(batch, hw, model).items():
+        n[key[5]] += c
+    k = 2 if train else 1
+    return {"matmul_rows": k * n[1], "dw_rows": n[1] * train,
+            "conv3": k * n[3], "dw3": n[3] * train}
+
+
+def phase_conv_kernels(device, reports, model=MODEL):
     """Each conv kernel against its plain version at every distinct shape
-    of the route in the train step (route_shapes at TRAIN_SIZE, batch
-    TRAIN_BATCH, plus one stride-2 1x1, which the route takes and
+    of the route in ``model``'s train step (route_shapes at TRAIN_SIZE,
+    batch TRAIN_BATCH, plus one stride-2 1x1, which the route takes and
     ResNet-v1-50 does not have): the forward y and dX (bf16, one ulp) and
     dW (float32 sums, SUM_REL of the sum of magnitudes); then the forward
     y at every distinct shape of detect's forward (IMAGE_HW, batch 8).
+    For another model than MODEL, only the shapes that MODEL's route does
+    not have (EAST: the merge's), with no tail shapes, and their times
+    summed apart from the kernels line's (max_abs_err covers them).
     Each call is launched twice and the two results must be bit-equal;
     the forward and dW tail shapes (FWD_TAIL_SHAPES, DW_TAIL_SHAPES) are
     held too. Prints kernel, plain and library-call ms (CUDA events; the
@@ -732,17 +874,25 @@ def phase_conv_kernels(device, reports):
 
     gen = torch.Generator().manual_seed(6)
     bf, cl = torch.bfloat16, torch.channels_last
-    for r in reports.values():
-        r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+    main = model == MODEL
+    if main:
+        for r in reports.values():
+            r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+        train_sums = reports
+    else:
+        train_sums = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+                      for n in reports}
 
     def act(n, c, h, w):
         return torch.randn(n, c, h, w, generator=gen).to(
             device=device, dtype=bf).contiguous(memory_format=cl)
 
     def run(name, what, kernel, plain, library, terms, flops, nbytes,
-            sums=reports):
+            sums=None):
         """``library``: one call, or {label: call} of which the faster
-        is the yardstick."""
+        is the yardstick. Times and bounds add to ``sums`` (the train
+        shapes' sums by default)."""
+        sums = train_sums if sums is None else sums
         calls = library if isinstance(library, dict) else {"": library}
         got, want = kernel(), plain()
         for fn in calls.values():
@@ -783,7 +933,7 @@ def phase_conv_kernels(device, reports):
             tables = CV.dw_plan(n * h * w, k * k * ci, co, sms)[3]
         return 2 * tables * table / 1e6 if tables > 1 else 0.0
 
-    def run_dw(x, dy, k, what, sums=reports):
+    def run_dw(x, dy, k, what, sums=None):
         """One dW product (dw_rows for k = 1, dw3 for k = 3) against its
         plain version and its library call; returns (ms, library ms)."""
         n, ci, h, w = x.shape
@@ -806,12 +956,16 @@ def phase_conv_kernels(device, reports):
                    CV.dw3_reference(x.abs(), dy.abs()), flops, nbytes, sums)
 
     q = TRAIN_SIZE // 4
-    counts = route_shape_counts(TRAIN_BATCH, (TRAIN_SIZE, TRAIN_SIZE))
-    shapes = tuple(counts) + ((TRAIN_BATCH, q, q, 256, 512, 1, 2),)
+    counts = route_shape_counts(TRAIN_BATCH, (TRAIN_SIZE, TRAIN_SIZE), model)
+    if main:
+        shapes = tuple(counts) + ((TRAIN_BATCH, q, q, 256, 512, 1, 2),)
+    else:
+        old = set(route_shapes(TRAIN_BATCH, (TRAIN_SIZE, TRAIN_SIZE)))
+        shapes = tuple(k for k in counts if k not in old)
     step = {n: [0.0, 0.0] for n in CONV_KERNELS}
-    print(f"conv route at {TRAIN_SIZE}^2, batch {TRAIN_BATCH}: "
-          f"{len(shapes)} distinct convs (N, H, W, Ci, Co, k, stride): "
-          f"{shapes}")
+    print(f"conv route of {model} at {TRAIN_SIZE}^2, batch {TRAIN_BATCH}: "
+          f"{len(shapes)} distinct convs (N, H, W, Ci, Co, k, stride)"
+          f"{'' if main else ' beyond ' + MODEL + chr(39) + 's'}: {shapes}")
     for n, h, w, ci, co, k, s in shapes:
         x = act(n, ci, h, w)
         xs = x[:, :, ::s, ::s].contiguous(memory_format=cl)
@@ -858,15 +1012,19 @@ def phase_conv_kernels(device, reports):
         step[name][1] += launches * lms
         del x, xs, dy
     for name, (ms, lms) in step.items():
-        r = reports[name]
-        print(f"{name} a train step (each shape's ms times its launches in "
-              f"a step, {CONV_STEP_LAUNCHES[name]} in all): kernel {ms:.4f} "
-              f"ms, library {lms:.4f}; over the distinct shapes: kernel "
-              f"{r['ms']:.4f}, library {r['library_ms']:.4f}, bound "
-              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+        r = train_sums[name]
+        if "bound_ms" not in r:
+            continue
+        print(f"{name} a train step{'' if main else ' of ' + model} (each "
+              f"shape's ms times its launches in a step"
+              f"{f', {CONV_STEP_LAUNCHES[name]} in all' if main else ''}):"
+              f" kernel {ms:.4f} ms, library {lms:.4f}; over the distinct "
+              f"shapes: kernel {r['ms']:.4f}, library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})")
 
     tail = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0) for n in reports}
-    for n, h, w, ci, co, k in FWD_TAIL_SHAPES:
+    for n, h, w, ci, co, k in FWD_TAIL_SHAPES if main else ():
         x = act(n, ci, h, w)
         wt = (torch.randn(co, ci, k, k, generator=gen)
               / (k * k * ci) ** 0.5).to(device=device, dtype=bf)
@@ -883,14 +1041,18 @@ def phase_conv_kernels(device, reports):
             run("conv3", f"fwd {tag}", lambda: CV.conv3(x, wt),
                 lambda: CV.conv3_reference(x, wt),
                 lambda: F.conv2d(x, wcl, padding=1), None, flops, io, tail)
-    for n, h, w, ci, co, k in DW_TAIL_SHAPES:
+    for n, h, w, ci, co, k in DW_TAIL_SHAPES if main else ():
         run_dw(act(n, ci, h, w), act(n, co, h, w), k,
                f"tail {k}x{k} {ci}->{co} at {n}x{h}x{w}", tail)
 
     # detect's forward (the eval fold: the same convs on w*mul)
-    detect = route_shapes(8, IMAGE_HW)
-    print(f"conv route in detect at {IMAGE_HW[1]}x{IMAGE_HW[0]}, batch 8: "
-          f"{len(detect)} distinct convs: {detect}")
+    detect = route_shapes(8, IMAGE_HW, model)
+    if not main:
+        old = set(route_shapes(8, IMAGE_HW))
+        detect = tuple(k for k in detect if k not in old)
+    print(f"conv route of {model} in detect at {IMAGE_HW[1]}x{IMAGE_HW[0]}, "
+          f"batch 8: {len(detect)} distinct convs"
+          f"{'' if main else ' beyond ' + MODEL + chr(39) + 's'}: {detect}")
     sub = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0) for n in reports}
     for n, h, w, ci, co, k, _ in detect:
         x = act(n, ci, h, w)
@@ -913,9 +1075,13 @@ def phase_conv_kernels(device, reports):
         del x
     for name in ("matmul_rows", "conv3"):
         r = sub[name]
+        if "bound_ms" not in r:
+            continue
         print(f"{name} over detect's shapes: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    if not main:
+        return
     print("conv kernels: ms, plain_ms, library_ms and bound_ms in the "
           f"kernels line are sums over the {len(shapes)} train-step shapes "
           "(forward and dX for matmul_rows and conv3); max_abs_err also "
@@ -948,8 +1114,8 @@ def phase_conv_detect(pred, images):
     print(f"detect_batch 8x1280x768 with PALLAS_CONVS: conv kernel launches "
           f"{counts} (by kernel {fwd_kernels}), cc launches {cc}, boxes per "
           f"image {[len(b) for b in boxes]}")
-    check(counts == {"matmul_rows": 44, "dw_rows": 0, "conv3": 13,
-                     "dw3": 0}, "detect with the route: conv launches")
+    check(counts == DETECT_CONV_LAUNCHES, "detect with the route: conv "
+          "launches")
     check(fwd_kernels == DETECT_FWD_KERNELS, "detect with the route: "
           "forward launches by kernel")
     check(cc > 0, "detect with the route did not launch the CC kernel")
@@ -1286,47 +1452,54 @@ def phase_fused_kernels(device, reports):
           "(library_ms stays null: no one call computes the whole function)")
 
 
-def train_config(impl: str, freeze_bn: bool = False):
-    """bench.py's train configuration: pixellink_resnet50, OHEM, 512^2,
-    bf16 activations (its batch of 32 with 16 polygon slots an image is
-    train_batch's)."""
+def train_config(impl: str, freeze_bn: bool = False, model=None,
+                 loss=None, geometry: str = "RBOX"):
+    """bench.py's train configuration: ``model`` (MODEL by default), its
+    ``loss`` (LOSS by default: OHEM), 512^2, bf16 activations (its batch
+    of 32 with 16 polygon slots an image is train_batch's)."""
     from tensorflow_ocr_tpu_torch.config import Config
 
     cfg = Config()
-    cfg.model.name = MODEL
+    cfg.model.name = model or MODEL
     cfg.model.bottleneck_impl = impl
     cfg.model.freeze_bn = freeze_bn
-    cfg.loss.name = "ohem"
+    cfg.loss.name = loss or LOSS
     cfg.data.input_size = TRAIN_SIZE
+    cfg.data.geometry = geometry
     cfg.train.log_every_steps = 1
     return cfg
 
 
-def train_batch(rng, device, n, size, max_polys=16):
-    """A device batch of numpy scenes: flat colour patches with 4-16
-    rotated text-like quads an image (about 1 in 10 tagged ignored),
-    painted on the card by the port's rasterizer."""
+def train_batch(rng, device, n, size, max_polys=16, hw=None):
+    """A device batch of numpy scenes of ``hw`` (size x size by default):
+    flat colour patches with 4-16 rotated text-like quads an image (about
+    1 in 10 tagged ignored), painted on the card by the port's
+    rasterizer; with the EAST keys (shrunk polygons, fitted rectangles,
+    angles) made on the host (trainer.east_geometry)."""
     import numpy as np
     import torch
     from tensorflow_ocr_tpu_torch.ops.rasterize import rasterize_instances
+    from tensorflow_ocr_tpu_torch.train.trainer import east_geometry
 
+    ih, iw = hw or (size, size)
     polys = np.zeros((n, max_polys, 4, 2), np.float32)
     valid = np.zeros((n, max_polys), bool)
     tags = np.zeros((n, max_polys), bool)
     for i in range(n):
         k = rng.randint(4, max_polys + 1)
         for j in range(k):
-            cx, cy = rng.uniform(0.1 * size, 0.9 * size, 2)
+            cx, cy = rng.uniform(0.1, 0.9, 2) * (iw, ih)
             w, h = rng.uniform(0.08, 0.3) * size, rng.uniform(0.03, 0.1) * size
             th = rng.uniform(-0.6, 0.6)
             c, s = np.cos(th), np.sin(th)
             rot = np.array([[c, -s], [s, c]])
             box = np.array([[-w, -h], [w, -h], [w, h], [-w, h]]) / 2
-            polys[i, j] = np.clip(box @ rot.T + (cx, cy), 0, size - 1)
+            polys[i, j] = np.clip(box @ rot.T + (cx, cy), 0,
+                                  (iw - 1, ih - 1))
         valid[i, :k] = True
         tags[i, :k] = rng.rand(k) < 0.1
-    coarse = rng.randint(0, 256, (n, size // 64 + 1, size // 64 + 1, 3))
-    images = coarse.repeat(64, 1).repeat(64, 2)[:, :size, :size]
+    coarse = rng.randint(0, 256, (n, ih // 64 + 1, iw // 64 + 1, 3))
+    images = coarse.repeat(64, 1).repeat(64, 2)[:, :ih, :iw]
     batch = {"images": torch.from_numpy(images.astype(np.uint8)).to(device),
              "polys": torch.from_numpy(polys).to(device),
              "tags": torch.from_numpy(tags).to(device),
@@ -1334,8 +1507,9 @@ def train_batch(rng, device, n, size, max_polys=16):
     ink = torch.from_numpy(rng.randint(0, 60, (n, 3)).astype(np.uint8))
     for i in range(n):
         inst = rasterize_instances(batch["polys"][i:i + 1],
-                                   batch["valid"][i:i + 1], size, size)[0]
+                                   batch["valid"][i:i + 1], ih, iw)[0]
         batch["images"][i][inst > 0] = ink[i].to(device)
+    batch.update(east_geometry(batch["polys"]))
     return batch
 
 
@@ -1411,11 +1585,55 @@ def arm_readings(fused, xla):
             "worst": (worst, leaf_cos[worst])}
 
 
+def fused_unit_names():
+    """The backbone units of MODEL that the fused arm runs as
+    FusedBottleneck (the 13 stride-1 units)."""
+    from tensorflow_ocr_tpu_torch.models import build_model
+    from tensorflow_ocr_tpu_torch.models.resnet import FusedBottleneck
+
+    model = build_model(MODEL, bottleneck_impl="fused")
+    return tuple(n for n, m in model.backbone.named_children()
+                 if isinstance(m, FusedBottleneck))
+
+
+def fused_readings(fused, xla):
+    """arm_readings of the fused arm against the xla arm, plus two
+    readings over the fused units' parameters (a fault in one unit's
+    gradients hardly moves the whole gradient: the boundary's dz x 0.9
+    read 1.8614e-2 there, inside ARM_GRAD_REL): the worst relative
+    gradient error (``unit``), and the worst departure of the ratio of
+    the two gradients' norms from 1 (``scale``: bf16 noise turns a
+    gradient's direction, a scaled backward its length)."""
+    r = arm_readings(fused, xla)
+    units = set(fused_unit_names())
+    gf, gx = fused[1], xla[1]
+    names = [n for n in gx if n.split(".")[1] in units]
+    unit = {n: float((gf[n] - gx[n]).norm() / gx[n].norm()) for n in names}
+    scale = {n: abs(1.0 - float(gf[n].norm() / gx[n].norm()))
+             for n in names}
+    worst = max(unit, key=unit.get)
+    r["unit"] = (worst, unit[worst])
+    worst = max(scale, key=scale.get)
+    r["scale"] = (worst, scale[worst])
+    return r
+
+
+def unit_text(r) -> str:
+    return (f"worst fused-unit parameter rel err {r['unit'][1]:.4e} at "
+            f"{r['unit'][0]} (tol {FUSED_ARM_UNIT_REL:g}), norm ratio off 1 "
+            f"by {r['scale'][1]:.4e} at {r['scale'][0]} (tol "
+            f"{FUSED_ARM_UNIT_SCALE:g})")
+
+
 def check_arms(r) -> None:
     check(r["rel_loss"] <= ARM_LOSS_REL, "fused and xla losses disagree")
     check(r["grad_rel"] <= ARM_GRAD_REL, "fused and xla gradients disagree")
     check(r["worst"][1] >= ARM_COS_MIN, f"the fused gradient of "
           f"{r['worst'][0]} points elsewhere than the xla one")
+    check(r["unit"][1] <= FUSED_ARM_UNIT_REL, f"the fused gradient of "
+          f"{r['unit'][0]} differs from the xla one")
+    check(r["scale"][1] <= FUSED_ARM_UNIT_SCALE, f"the fused gradient of "
+          f"{r['scale'][0]} is scaled against the xla one")
 
 
 def phase_train(device, reports):
@@ -1467,15 +1685,15 @@ def phase_train(device, reports):
 
     # one step of the fused and the xla arm from the same tempered state
     start = tempered(snap)
-    r = arm_readings(arm_grads(device, start, batch, "fused"),
-                     arm_grads(device, start, batch, "xla"))
+    r = fused_readings(arm_grads(device, start, batch, "fused"),
+                       arm_grads(device, start, batch, "xla"))
     print(f"fused vs xla, one step from one state (residual BN scales x "
           f"{ARM_RESIDUAL_SCALE:g}): loss {r['loss'][0]:.6f} / "
           f"{r['loss'][1]:.6f} (rel {r['rel_loss']:.3e}, tol "
           f"{ARM_LOSS_REL:g}); gradient norm {r['norm'][0]:.6f} / "
           f"{r['norm'][1]:.6f}, rel err {r['grad_rel']:.4e} (tol "
           f"{ARM_GRAD_REL:g}); worst parameter cosine {r['worst'][1]:.6f} "
-          f"at {r['worst'][0]} (min {ARM_COS_MIN:g})")
+          f"at {r['worst'][0]} (min {ARM_COS_MIN:g}); {unit_text(r)}")
     check_arms(r)
 
     # freeze_bn: running statistics, the fused kernels with ds = None
@@ -1652,46 +1870,27 @@ def arm_memory(base: int) -> str:
 
 
 def phase_train_timing(trainer, batch):
-    """Train img/s at 512^2, batch 32, for the fused, xla, freeze_bn-fused,
-    xla pallas-conv and ghost arms: host clock around TRAIN_WINDOWS windows of at
-    least TRAIN_WINDOW_S of train_step calls on one device-resident batch
-    (labels made on the card inside each step), each window ending in a
-    sync; reported as the median with the range."""
+    """Train img/s at 512^2, batch 32, for TIMING_ARMS (fused, xla,
+    freeze_bn-fused, xla pallas-conv, ghost): 2 warm-up steps, then
+    eager_rate over ARM_WINDOWS windows of at least ARM_WINDOW_S of
+    train_step calls on one device-resident batch (labels made on the
+    card inside each step), with each arm's peak memory."""
     import torch
     from tensorflow_ocr_tpu_torch.train import trainer as T
 
     weights = trainer.state.model.state_dict()
-    for arm, impl, freeze, route in (
-            ("fused", "fused", False, False), ("xla", "xla", False, False),
-            ("freeze_bn fused", "fused", True, False),
-            ("xla pallas-conv", "xla", False, True),
-            ("ghost", "ghost", False, False)):
+    for arm, impl, freeze, route in TIMING_ARMS:
         cfg = train_config(impl, freeze)
         base = arm_memory_start()
         state = T.create_train_state(cfg, batch["images"].device,
                                      weights=weights)
         loss_fn = T.make_loss_fn(cfg)
-        rates = []
         with pallas_convs(route):
             for _ in range(2):
                 T.train_step(state, batch, cfg, loss_fn)
             torch.cuda.synchronize()
-            for i in range(TRAIN_WINDOWS):
-                steps, t0 = 0, time.perf_counter()
-                while time.perf_counter() - t0 < TRAIN_WINDOW_S:
-                    T.train_step(state, batch, cfg, loss_fn)
-                    steps += 1
-                    if steps % 4 == 0:
-                        torch.cuda.synchronize()
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                rates.append(steps * TRAIN_BATCH / dt)
-                print(f"train {arm} window {i}: {rates[-1]:.2f} img/s "
-                      f"({steps} steps in {dt:.3f} s)")
-        print(f"train {arm} {TRAIN_SIZE}^2 batch {TRAIN_BATCH}: "
-              f"{statistics.median(rates):.2f} img/s (median of "
-              f"{TRAIN_WINDOWS} windows of >= {TRAIN_WINDOW_S:g} s; windows "
-              f"{min(rates):.2f}..{max(rates):.2f}); {arm_memory(base)}")
+            eager_rate(state, batch, cfg, arm, ARM_WINDOWS, ARM_WINDOW_S,
+                       base)
         del state
         torch.cuda.empty_cache()
 
@@ -2340,7 +2539,7 @@ def eager_dispatch(state, ds, idx, cfg):
     from tensorflow_ocr_tpu_torch.train import optim, trainer as T
 
     loss_fn = T.make_loss_fn(cfg)
-    keys = T.BATCH_KEYS + T.LABEL_KEYS
+    keys = T.BATCH_KEYS + T.label_keys(cfg)
     for row in idx:
         m = T.train_step(state, {k: ds[k][row] for k in keys}, cfg, loss_fn,
                          include_l2=False)
@@ -2351,14 +2550,27 @@ def eager_dispatch(state, ds, idx, cfg):
 
 
 def phase_graph_step(device, snap, ds):
-    """multi-step = eager: for each of GRAPH_ARMS, one make_multi_train_step
-    dispatch of MULTI_STEPS steps (a CUDA graph replayed) against as many
-    eager train_step calls from the same state and rows, under
-    deterministic(): parameters, BN buffers, Adam moments, EMA, step and
-    the last metrics bit-equal. The arm's kernels are launched at the
-    capture (warm-up and captured step) and not at the replays: a second
-    dispatch on the same graph launches none, and equals the eager steps
-    again. Fused arm: a checkpoint saved between the two dispatches and
+    """multi-step = eager (graph_equal) for each of GRAPH_ARMS, from
+    ``snap`` on the dataset ``ds``; the fused arm also restores a
+    checkpoint under the captured graph."""
+    import numpy as np
+
+    rng = np.random.RandomState(31)
+    for label, impl, route in GRAPH_ARMS:
+        graph_equal(device, snap, ds, rng, label, train_config(impl), route,
+                    restore=impl == "fused")
+
+
+def graph_equal(device, snap, ds, rng, label, cfg, route=False,
+                restore=False):
+    """One make_multi_train_step dispatch of MULTI_STEPS steps (a CUDA
+    graph replayed) against as many eager train_step calls from the state
+    ``snap`` and the same rows of ``ds``, under deterministic():
+    parameters, BN buffers, Adam moments, EMA, step and the last metrics
+    bit-equal. The arm's kernels are launched at the capture (warm-up and
+    captured step) and not at the replays: a second dispatch on the same
+    graph launches none, and equals the eager steps again. With
+    ``restore``: a checkpoint saved between the two dispatches and
     restored into the captured state in place, then the second dispatch
     replayed once more, gives the same state."""
     import shutil
@@ -2367,84 +2579,82 @@ def phase_graph_step(device, snap, ds):
     import torch
     from tensorflow_ocr_tpu_torch.train import trainer as T
 
-    rng = np.random.RandomState(31)
     cuda = device.type == "cuda"
-    for label, impl, route in GRAPH_ARMS:
-        cfg = train_config(impl)
-        with pallas_convs(route), deterministic():
-            a = T.create_train_state(cfg, device, weights=snap)
-            b = T.create_train_state(cfg, device, weights=snap)
-            multi = T.make_multi_train_step(a, cfg, T.LABEL_KEYS)
-            idx = dispatch_rows(rng, MULTI_STEPS, device)
-            reset_arm_counts()
-            t0 = time.perf_counter()
-            got = multi(a, ds, idx)
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
-            captured = arm_counts(impl, route)
-            want = eager_dispatch(b, ds, idx, cfg)
-            diff = unequal(leaves(a), leaves(b)) + unequal(got, want)
-            print(f"graph step {label}: one dispatch of {MULTI_STEPS} steps "
-                  f"(capture with {T.WARMUP_STEPS} warm-up steps included) "
-                  f"{first_s:.3f} s; kernel launches at the capture "
-                  f"{captured}; last metrics total_loss "
-                  f"{float(got['total_loss']):.6f}; tensors not bit-equal "
-                  f"to {MULTI_STEPS} eager steps: {len(diff)} {diff[:4]}")
-            check(not diff, f"graph step {label}: the dispatch differs from "
-                  f"the eager steps at {diff[:4]}")
-            check(int(a.step) == MULTI_STEPS, f"graph step {label}: step")
-            check(np.isfinite(float(got["total_loss"])),
-                  f"graph step {label}: non-finite loss")
-            if impl != "xla" or route:
-                # the capture runs the warm-up steps and records one (a CPU
-                # rehearsal runs the dispatch's steps eagerly)
-                n = T.WARMUP_STEPS + 1 if cuda else MULTI_STEPS
-                per_step = {k: v // n for k, v in captured.items()}
-                check(all(captured.values()) and all(
-                    v == per_step[k] * n for k, v in captured.items()),
-                      f"graph step {label}: kernels at the capture")
-                if impl == "fused":
-                    check(per_step["fused_conv_bwd"]
-                          == FUSED_CONV_STEP_LAUNCHES,
-                          f"graph step {label}: fused launches a step")
-                if route:
-                    check(per_step == CONV_STEP_LAUNCHES,
-                          f"graph step {label}: conv launches a step")
-                if impl == "ghost":
-                    check(per_step == GHOST_STEP_LAUNCHES,
-                          f"graph step {label}: ghost launches a step")
-            ckpt = None
+    impl = cfg.model.bottleneck_impl
+    with pallas_convs(route), deterministic():
+        a = T.create_train_state(cfg, device, weights=snap)
+        b = T.create_train_state(cfg, device, weights=snap)
+        multi = T.make_multi_train_step(a, cfg, T.label_keys(cfg))
+        idx = dispatch_rows(rng, MULTI_STEPS, device)
+        reset_arm_counts()
+        t0 = time.perf_counter()
+        got = multi(a, ds, idx)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        captured = arm_counts(impl, route)
+        want = eager_dispatch(b, ds, idx, cfg)
+        diff = unequal(leaves(a), leaves(b)) + unequal(got, want)
+        print(f"graph step {label}: one dispatch of {MULTI_STEPS} steps "
+              f"(capture with {T.WARMUP_STEPS} warm-up steps included) "
+              f"{first_s:.3f} s; kernel launches at the capture "
+              f"{captured}; last metrics total_loss "
+              f"{float(got['total_loss']):.6f}; tensors not bit-equal "
+              f"to {MULTI_STEPS} eager steps: {len(diff)} {diff[:4]}")
+        check(not diff, f"graph step {label}: the dispatch differs from "
+              f"the eager steps at {diff[:4]}")
+        check(int(a.step) == MULTI_STEPS, f"graph step {label}: step")
+        check(np.isfinite(float(got["total_loss"])),
+              f"graph step {label}: non-finite loss")
+        if impl != "xla" or route:
+            # the capture runs the warm-up steps and records one (a CPU
+            # rehearsal runs the dispatch's steps eagerly)
+            n = T.WARMUP_STEPS + 1 if cuda else MULTI_STEPS
+            per_step = {k: v // n for k, v in captured.items()}
+            check(all(captured.values()) and all(
+                v == per_step[k] * n for k, v in captured.items()),
+                  f"graph step {label}: kernels at the capture")
             if impl == "fused":
-                root = scratch_dir("graph_ckpt_")
-                ckpt = T.save_checkpoint(root, a)
-            idx2 = dispatch_rows(rng, MULTI_STEPS, device)
-            reset_arm_counts()
-            got = multi(a, ds, idx2)
-            replayed = arm_counts(impl, route)
-            want = eager_dispatch(b, ds, idx2, cfg)
-            diff = unequal(leaves(a), leaves(b)) + unequal(got, want)
-            print(f"graph step {label}: a second dispatch (replays only): "
-                  f"kernel launches {replayed}; tensors not bit-equal: "
-                  f"{len(diff)} {diff[:4]}")
-            check(not (cuda and any(replayed.values())) and not diff,
-                  f"graph step {label}: the second dispatch")
-            if ckpt is not None:
-                end = {k: v.clone() for k, v in leaves(a).items()}
-                T.restore_checkpoint(ckpt, a)
-                check(int(a.step) == MULTI_STEPS, "restore: step")
-                again = multi(a, ds, idx2)
-                diff = unequal(leaves(a), end) + unequal(again, got)
-                print(f"graph step {label}: checkpoint at step "
-                      f"{MULTI_STEPS} restored into the captured state, the "
-                      f"second dispatch replayed again: tensors not "
-                      f"bit-equal {len(diff)}; captures "
-                      f"{getattr(multi.graph, 'captures', 1)}")
-                check(not diff and getattr(multi.graph, "captures", 1) == 1,
-                      "graph step: restore under the captured graph")
-                shutil.rmtree(root)
-        multi.release()
-        del a, b, multi
-        torch.cuda.empty_cache()
+                check(per_step["fused_conv_bwd"]
+                      == FUSED_CONV_STEP_LAUNCHES,
+                      f"graph step {label}: fused launches a step")
+            if route:
+                check(per_step == CONV_STEP_LAUNCHES,
+                      f"graph step {label}: conv launches a step")
+            if impl == "ghost":
+                check(per_step == GHOST_STEP_LAUNCHES,
+                      f"graph step {label}: ghost launches a step")
+        ckpt = None
+        if restore:
+            root = scratch_dir("graph_ckpt_")
+            ckpt = T.save_checkpoint(root, a)
+        idx2 = dispatch_rows(rng, MULTI_STEPS, device)
+        reset_arm_counts()
+        got = multi(a, ds, idx2)
+        replayed = arm_counts(impl, route)
+        want = eager_dispatch(b, ds, idx2, cfg)
+        diff = unequal(leaves(a), leaves(b)) + unequal(got, want)
+        print(f"graph step {label}: a second dispatch (replays only): "
+              f"kernel launches {replayed}; tensors not bit-equal: "
+              f"{len(diff)} {diff[:4]}")
+        check(not (cuda and any(replayed.values())) and not diff,
+              f"graph step {label}: the second dispatch")
+        if ckpt is not None:
+            end = {k: v.clone() for k, v in leaves(a).items()}
+            T.restore_checkpoint(ckpt, a)
+            check(int(a.step) == MULTI_STEPS, "restore: step")
+            again = multi(a, ds, idx2)
+            diff = unequal(leaves(a), end) + unequal(again, got)
+            print(f"graph step {label}: checkpoint at step "
+                  f"{MULTI_STEPS} restored into the captured state, the "
+                  f"second dispatch replayed again: tensors not "
+                  f"bit-equal {len(diff)}; captures "
+                  f"{getattr(multi.graph, 'captures', 1)}")
+            check(not diff and getattr(multi.graph, "captures", 1) == 1,
+                  "graph step: restore under the captured graph")
+            shutil.rmtree(root)
+    multi.release()
+    del a, b, multi
+    torch.cuda.empty_cache()
 
 
 class RowBatches:
@@ -2653,64 +2863,24 @@ def phase_serve_checkpoint(device, root, served, images):
 
 def phase_graph_timing(snap, ds, profile_arms=False):
     """Train img/s through make_multi_train_step at 512^2, batch 32, S =
-    scan_steps (16) steps a dispatch, for TIMING_ARMS: the first dispatch
-    (with the capture) untimed, then TRAIN_WINDOWS windows of at least
-    TRAIN_WINDOW_S of dispatches, each window ending in a sync; median and
-    range. With ``profile_arms``, the device idle share of one dispatch of
-    the fused and ghost arms under torch.profiler."""
+    scan_steps (16) steps a dispatch, for TIMING_ARMS from ``snap``
+    (graph_rate over ARM_WINDOWS windows of at least ARM_WINDOW_S). With
+    ``profile_arms``, the device idle share of one dispatch of the fused
+    and ghost arms under torch.profiler."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from tensorflow_ocr_tpu_torch.train import trainer as T
 
-    device = ds["images"].device
     rng = np.random.RandomState(51)
     for arm, impl, freeze, route in TIMING_ARMS:
         cfg = train_config(impl, freeze)
-        steps = cfg.train.scan_steps
         base = arm_memory_start()
         with pallas_convs(route):
-            state = T.create_train_state(cfg, device, weights=snap)
-            multi = T.make_multi_train_step(state, cfg, T.LABEL_KEYS)
-            idxs = [dispatch_rows(rng, steps, device) for _ in range(4)]
-            t0 = time.perf_counter()
-            multi(state, ds, idxs[0])
-            torch.cuda.synchronize()
-            first = time.perf_counter() - t0
-            rates = []
-            for i in range(TRAIN_WINDOWS):
-                n, t0 = 0, time.perf_counter()
-                while time.perf_counter() - t0 < TRAIN_WINDOW_S:
-                    last = multi(state, ds, idxs[n % len(idxs)])
-                    n += 1
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                rates.append(n * steps * TRAIN_BATCH / dt)
-                print(f"graph train {arm} window {i}: {rates[-1]:.2f} img/s "
-                      f"({n} dispatches of {steps} steps in {dt:.3f} s)")
-            check(np.isfinite(float(last["total_loss"])),
-                  f"graph train {arm}: non-finite loss")
-            print(f"graph train {arm} {TRAIN_SIZE}^2 batch {TRAIN_BATCH}, "
-                  f"{steps} steps a dispatch: {statistics.median(rates):.2f} "
-                  f"img/s (median of {TRAIN_WINDOWS} windows of >= "
-                  f"{TRAIN_WINDOW_S:g} s; windows {min(rates):.2f}.."
-                  f"{max(rates):.2f}); first dispatch with the capture "
-                  f"{first:.3f} s; {arm_memory(base)}")
-            if profile_arms and arm in ("fused", "ghost"):
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    multi(state, ds, idxs[0])
-                    torch.cuda.synchronize()
-                    wall = (time.perf_counter() - t0) * 1000
-                busy = device_busy_ms(prof)
-                check(busy > 0, "graph profile: no device events")
-                print(f"profile graph train {arm}, one dispatch of {steps} "
-                      f"steps: wall {wall:.3f} ms, device busy {busy:.3f} "
-                      f"ms, idle share {1 - busy / wall:.3f}")
-        multi.release()
-        del state, multi
+            state = T.create_train_state(cfg, ds["images"].device,
+                                         weights=snap)
+            graph_rate(state, ds, cfg, rng, arm, ARM_WINDOWS, ARM_WINDOW_S,
+                       base, profile_arms and arm in ("fused", "ghost"))
+        del state
         torch.cuda.empty_cache()
 
 
@@ -2752,13 +2922,20 @@ def phase_fused_faults(device, start, batch, label):
         return arm_grads(device, start, batch, "xla")
 
     def readings():
-        return arm_readings(arm_grads(device, start, batch, "fused"), xla())
+        return fused_readings(arm_grads(device, start, batch, "fused"),
+                              xla())
 
     def show(name, r):
+        try:
+            check_arms(r)
+            verdict = "passes the arm check"
+        except RuntimeError as e:
+            verdict = f"fails the arm check ({e})"
         print(f"fused faults {label}: {name}: loss rel {r['rel_loss']:.3e} "
               f"(tol {ARM_LOSS_REL:g}); grad rel err {r['grad_rel']:.4e} "
               f"(tol {ARM_GRAD_REL:g}); worst cosine {r['worst'][1]:.6f} at "
-              f"{r['worst'][0]} (min {ARM_COS_MIN:g})")
+              f"{r['worst'][0]} (min {ARM_COS_MIN:g}); {unit_text(r)}: "
+              f"{verdict}")
 
     for i in range(3):
         show(f"sound run {i}", readings())
@@ -2786,6 +2963,500 @@ def phase_fused_faults(device, start, batch, label):
             show(name, readings())
         finally:
             setattr(FU, attr, orig)
+
+
+# ------------------------------------------ the other heads and families
+
+
+def east_config(impl="fused", loss="east", geometry="RBOX"):
+    """The EAST train configuration: EAST_MODEL, ``loss`` (the EAST loss
+    by default), ``geometry``, 512^2, batch TRAIN_BATCH, bf16."""
+    return train_config(impl, model=EAST_MODEL, loss=loss, geometry=geometry)
+
+
+def finite_step(state, batch, cfg, label):
+    """One train_step of ``cfg``: (model loss, fused kernel launches);
+    fails where the loss or a parameter's gradient is not finite."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    reset_fused_counts()
+    m = T.train_step(state, batch, cfg, T.make_loss_fn(cfg))
+    torch.cuda.synchronize()
+    counts = fused_counts()
+    loss = float(m["model_loss"])
+    bad = [n for n, p in state.model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    print(f"{label}: one step, model loss {loss:.6f}, metrics "
+          f"{json.dumps({k: round(float(v), 5) for k, v in m.items()})}; "
+          f"fused kernel launches {counts}; parameters without a finite "
+          f"gradient {len(bad)} {bad[:3]}")
+    check(np.isfinite(loss) and not bad, f"{label}: non-finite loss or "
+          "gradient")
+    return loss, counts
+
+
+def eager_rate(state, batch, cfg, label, windows, window_s, base=None):
+    """Eager train img/s of ``cfg``'s train_step on one device-resident
+    batch over ``windows`` windows of at least ``window_s`` (each ending in
+    a sync), printed with the median and range (and the peak memory since
+    arm_memory_start's ``base``); returns the last step's metrics."""
+    import torch
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    loss_fn = T.make_loss_fn(cfg)
+    rates = []
+    for i in range(windows):
+        steps, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < window_s:
+            last = T.train_step(state, batch, cfg, loss_fn)
+            steps += 1
+            if steps % 4 == 0:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates.append(steps * batch["images"].shape[0] / dt)
+        print(f"train {label} window {i}: {rates[-1]:.2f} img/s ({steps} "
+              f"steps in {dt:.3f} s)")
+    print(f"train {label} {TRAIN_SIZE}^2 batch {batch['images'].shape[0]}: "
+          f"{statistics.median(rates):.2f} img/s (median of {windows} "
+          f"windows of >= {window_s:g} s; windows {min(rates):.2f}.."
+          f"{max(rates):.2f})"
+          + ("" if base is None else f"; {arm_memory(base)}"))
+    return last
+
+
+def graph_rate(state, ds, cfg, rng, label, windows, window_s, base=None,
+               profile_run=False):
+    """Train img/s of ``state`` through make_multi_train_step (scan_steps
+    steps a dispatch): the first dispatch (with the capture) untimed, then
+    ``windows`` windows of at least ``window_s`` of dispatches (each ending
+    in a sync), printed with the median, range and the peak memory since
+    ``base``; with ``profile_run`` the device idle share of one more
+    dispatch under torch.profiler. The graph is released; the state,
+    trained in place, stays."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    device = ds["images"].device
+    steps = cfg.train.scan_steps
+    multi = T.make_multi_train_step(state, cfg, T.label_keys(cfg))
+    idxs = [dispatch_rows(rng, steps, device) for _ in range(4)]
+    t0 = time.perf_counter()
+    multi(state, ds, idxs[0])
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    rates = []
+    for i in range(windows):
+        n, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < window_s:
+            last = multi(state, ds, idxs[n % len(idxs)])
+            n += 1
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates.append(n * steps * TRAIN_BATCH / dt)
+        print(f"graph train {label} window {i}: {rates[-1]:.2f} img/s ({n} "
+              f"dispatches of {steps} steps in {dt:.3f} s)")
+    check(np.isfinite(float(last["total_loss"])),
+          f"graph train {label}: non-finite loss")
+    print(f"graph train {label} {TRAIN_SIZE}^2 batch {TRAIN_BATCH}, {steps} "
+          f"steps a dispatch: {statistics.median(rates):.2f} img/s (median "
+          f"of {windows} windows of >= {window_s:g} s; windows "
+          f"{min(rates):.2f}..{max(rates):.2f})"
+          f"; first dispatch with the capture {first:.3f} s; last model "
+          f"loss {float(last['model_loss']):.6f} at step {int(state.step)}"
+          + ("" if base is None else f"; {arm_memory(base)}"))
+    if profile_run:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            multi(state, ds, idxs[0])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1000
+        busy = device_busy_ms(prof)
+        check(busy > 0, "graph profile: no device events")
+        print(f"profile graph train {label}, one dispatch of {steps} steps: "
+              f"wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+              f"{1 - busy / wall:.3f}")
+    multi.release()
+    del multi
+    torch.cuda.empty_cache()
+
+
+def phase_east_train(device):
+    """The slice's main path: east_resnet50 RBOX with the EAST loss, the
+    fused arm, 512^2, batch 32, labels made on the card from the polygons
+    and their EAST geometry. 2 warm-up steps (the loss at step 0 is the
+    first's), every fused kernel launched (the backward's tdw and tdx 43 a
+    step), then TRAIN_WINDOWS windows of eager img/s on the same batch;
+    the loss after them must be finite and below step 0's. Then on a
+    dataset of DATASET_SCENES scenes with the EAST maps precomputed on the
+    card: a 4-step graph dispatch bit-equal to 4 eager steps
+    (graph_equal), and graph img/s from the seeded state over
+    TRAIN_WINDOWS windows, whose trained state is saved as a port
+    checkpoint. Returns (seeded state_dict, batch, checkpoint root)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import fused as FU
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    cfg = east_config()
+    batch = train_batch(np.random.RandomState(71), device, TRAIN_BATCH,
+                        TRAIN_SIZE)
+    base = arm_memory_start()
+    state = T.create_train_state(cfg, device,
+                                 generator=torch.Generator().manual_seed(13))
+    snap = copy.deepcopy(state.model.state_dict())
+    loss_fn = T.make_loss_fn(cfg)
+    reset_fused_counts()
+    m0 = T.train_step(state, batch, cfg, loss_fn)
+    T.train_step(state, batch, cfg, loss_fn)
+    torch.cuda.synchronize()
+    counts, by_kernel = fused_counts(), dict(FU.conv_bwd.by_kernel)
+    loss0 = float(m0["model_loss"])
+    print(f"east fused: 2 warm-up steps, step 0 metrics "
+          f"{json.dumps({k: round(float(v), 5) for k, v in m0.items()})}; "
+          f"kernel launches {counts}; fused_conv_bwd by kernel {by_kernel}")
+    check(all(counts.values()), "east train: a fused kernel was not "
+          "launched")
+    check(by_kernel == dict.fromkeys(by_kernel, 2 * FUSED_CONV_STEP_LAUNCHES),
+          "east train: backward launches by kernel")
+    last = eager_rate(state, batch, cfg, "east fused", TRAIN_WINDOWS,
+                      TRAIN_WINDOW_S, base)
+    lossn = float(last["model_loss"])
+    print(f"east fused eager: model loss {loss0:.6f} at step 0, {lossn:.6f} "
+          f"after {int(state.step)} steps on the same batch (cls "
+          f"{float(last['cls_loss']):.6f}, geo {float(last['geo_loss']):.6f})")
+    check(np.isfinite(lossn) and lossn < loss0, "east train: the loss did "
+          "not fall on a fixed batch")
+    del state
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(73)
+    ds = T.device_dataset(train_batch(np.random.RandomState(75), device,
+                                      DATASET_SCENES, TRAIN_SIZE), cfg,
+                          device)
+    check(float(ds["score"].sum()) > 0 and ds["geo"].shape[-1] == 5,
+          "east dataset: no text pixels, or not RBOX maps")
+    graph_equal(device, snap, ds, rng, "east fused", cfg, restore=True)
+    base = arm_memory_start()
+    state = T.create_train_state(cfg, device, weights=snap)
+    graph_rate(state, ds, cfg, rng, "east fused", TRAIN_WINDOWS,
+               TRAIN_WINDOW_S, base)
+    root = scratch_dir("east_")
+    ck = T.save_checkpoint(root, state)
+    print(f"east checkpoint {os.path.basename(ck)} for serving")
+    del state, ds
+    torch.cuda.empty_cache()
+    return snap, batch, root
+
+
+def phase_east_route(device, snap, batch):
+    """The PALLAS_CONVS route on east_resnet50: one xla-arm train step
+    with the route on, each conv kernel launched as often as the route's
+    convs of the step give (route_shape_counts: a forward and a dX of
+    each, a dW of each); and detect at 8 x 1280x768 with the route on,
+    every routed conv of the forward on conv_fwd.cu, the score and
+    geometry within CONV_DETECT_REL of the cuDNN forward's."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.infer import Predictor
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    want = route_launches(TRAIN_BATCH, (TRAIN_SIZE, TRAIN_SIZE), EAST_MODEL)
+    cfg = east_config("xla")
+    with pallas_convs(True):
+        state = T.create_train_state(cfg, device, weights=snap)
+        reset_conv_counts()
+        loss = float(T.train_step(state, batch, cfg,
+                                  T.make_loss_fn(cfg))["model_loss"])
+        torch.cuda.synchronize()
+        counts = conv_counts()
+        by_kernel = conv_counts((*FWD_STEP_KERNELS, *DW_STEP_KERNELS))
+    print(f"east xla step with PALLAS_CONVS: model loss {loss:.6f}; conv "
+          f"kernel launches {counts} (expected {want}; by kernel "
+          f"{by_kernel})")
+    check(np.isfinite(loss), "east route step: non-finite loss")
+    check(counts == want, "east route step: conv kernel launches")
+    del state
+    torch.cuda.empty_cache()
+
+    expected = route_launches(8, IMAGE_HW, EAST_MODEL, train=False)
+    pred = Predictor(EAST_MODEL, weights=snap, device=device)
+    images = train_batch(np.random.RandomState(77), device, 8, TRAIN_SIZE,
+                         hw=IMAGE_HW)["images"]
+    with torch.inference_mode():
+        want = pred.model(images)
+        with pallas_convs(True):
+            reset_conv_counts()
+            got = pred.model(images)
+            torch.cuda.synchronize()
+            counts = conv_counts()
+            fwd = conv_counts(FWD_STEP_KERNELS)
+    print(f"east detect forward 8x1280x768 with PALLAS_CONVS: conv kernel "
+          f"launches {counts} (by kernel {fwd}; expected {expected})")
+    # (on the CPU the wrappers take their plain versions: no tma_fwd)
+    on_card = device.type == "cuda"
+    check(counts == expected
+          and fwd["tma_fwd"] == sum(expected.values()) * on_card,
+          "east detect with the route: conv launches")
+    for key in ("score", "geometry"):
+        g, w = got[key], want[key]
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"east {key}: shape {tuple(g.shape)} or non-finite")
+        rel = float((g - w).abs().max() / w.abs().max())
+        print(f"east detect with PALLAS_CONVS {key}: max|routed-cudnn|/"
+              f"max|cudnn| = {rel:.3e} (tol {EAST_DETECT_REL:g})")
+        check(rel <= EAST_DETECT_REL, f"east {key}: routed and cuDNN "
+              "outputs disagree")
+    del pred
+    torch.cuda.empty_cache()
+
+
+def phase_east_variants(device, snap, batch):
+    """One fused-arm step each of east_resnet50 with the focal loss
+    (preset #4's) and with QUAD geometry (its own head, seeded): finite
+    loss and gradients, the fused kernels launched."""
+    import torch
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    cfg = east_config(loss="focal")
+    state = T.create_train_state(cfg, device, weights=snap)
+    _, counts = finite_step(state, batch, cfg, "east fused focal")
+    check(all(counts.values()), "east focal: a fused kernel not launched")
+    del state
+    cfg = east_config(geometry="QUAD")
+    state = T.create_train_state(cfg, device,
+                                 generator=torch.Generator().manual_seed(14))
+    _, counts = finite_step(state, batch, cfg, "east fused QUAD")
+    check(all(counts.values()), "east QUAD: a fused kernel not launched")
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_east_serve(device, root):
+    """EAST detect and serve from the checkpoint phase_east_train saved:
+    Predictor(checkpoint_path=root) (EMA parameters) on 8 x 1280x768
+    scenes. Where fewer than 64 pixels an image pass the default score
+    threshold, a planted operating_point.json sets the score threshold at
+    the maps' 0.98 quantile and the NMS IoU (both adopted). The boxes of
+    detect_batch must equal those of east_detect run on the CPU on the
+    same maps, then the same NMS; the candidates, the boxes NMS keeps and
+    its host ms are printed; then detect p50 at batch 1 and serve img/s
+    at batch 8 over WINDOWS windows of at least WINDOW_S."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.config import InferConfig
+    from tensorflow_ocr_tpu_torch.infer import OPERATING_POINT_FILE, Predictor
+    from tensorflow_ocr_tpu_torch.ops import decode as D
+    from tensorflow_ocr_tpu_torch.train.trainer import latest_checkpoint
+
+    images = train_batch(np.random.RandomState(79), device, 8, TRAIN_SIZE,
+                         hw=IMAGE_HW)["images"].cpu().numpy()
+    pred = Predictor(EAST_MODEL, checkpoint_path=root, device=device)
+    x = torch.from_numpy(images).to(device)
+    with torch.inference_mode():
+        score = pred.model(x)["score"][..., 0]
+    passing = int((score > pred.score_thresh).sum())
+    print(f"east serve: {passing} pixels of 8 images above the default "
+          f"score threshold {pred.score_thresh:g}")
+    if passing < 64 * len(images):
+        op = {"score": float(torch.quantile(score.float().flatten()[::7],
+                                            0.98)),
+              "nms": InferConfig().nms_thresh + 0.05}
+        with open(os.path.join(root, OPERATING_POINT_FILE), "w") as f:
+            json.dump(op, f)
+        del pred
+        pred = Predictor(EAST_MODEL, checkpoint_path=root, device=device)
+        check(pred.calibrated and (pred.score_thresh, pred.nms_thresh)
+              == (op["score"], op["nms"]), "east serve: the planted "
+              "operating point did not move the thresholds")
+        print(f"east serve: planted operating point {op}")
+    with torch.inference_mode():
+        out = pred.model(x)
+    got = [t.cpu() for t in D.east_detect(out["score"][..., 0],
+                                          out["geometry"],
+                                          pred.score_thresh)]
+    ref = D.east_detect(out["score"][..., 0].cpu(), out["geometry"].cpu(),
+                        pred.score_thresh)
+    check(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]),
+          "east_detect on the card: candidates or scores differ from the "
+          "CPU's")
+    qerr = float((got[0] - ref[0]).abs().max())
+    check(qerr <= 1e-2, f"east_detect on the card: quads {qerr:.3e} from "
+          "the CPU's")
+    boxes = pred.detect_batch(images)
+    nms_ms = pred.nms_ms
+    want = pred._east_boxes(*(t.numpy() for t in ref))
+    cand = [int(v.sum()) for v in got[2]]
+    n = [len(b) for b in boxes]
+    print(f"east serve from {os.path.basename(latest_checkpoint(root))}: "
+          f"candidates per image {cand} (of {got[2].shape[1]}), boxes NMS "
+          f"kept above "
+          f"box_thresh {n}, host NMS {nms_ms:.3f} ms for the batch; quads "
+          f"on the card within {qerr:.3e} of the CPU's")
+    check(sum(n) > 0, "east serve: no boxes")
+    check(all(np.isfinite(b).all() and b.shape == (4, 2)
+              for bs in boxes for b in bs), "east serve: malformed boxes")
+    check(all(len(g) == len(w) and all(np.allclose(a, b, atol=1e-2)
+                                       for a, b in zip(g, w))
+              for g, w in zip(boxes, want)),
+          "east serve: boxes differ from the CPU decode's")
+    time_detect_serve(pred, images, WINDOW_S, "east ")
+    del pred
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+
+
+def phase_vgg(device, report):
+    """pixellink2s_vgg16 (OHEM, preset #3) at 512^2, batch 32, labels on
+    the stride-2 grid (256^2): 2 steps, then eager train img/s over
+    TRAIN_WINDOWS windows of at least ARM_WINDOW_S and the step's peak
+    memory; detect on 8 x 1280x768 scenes through the CC kernel, whose
+    labels at the stride-2 maps (8, 384, 640) equal the plain version's
+    (launched twice, bit-equal); detect and serve timed over windows of
+    PIXELLINK_WINDOW_S."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.infer import Predictor
+    from tensorflow_ocr_tpu_torch.ops import kernels as K
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    cfg = train_config("xla", model=VGG_MODEL)
+    batch = train_batch(np.random.RandomState(81), device, TRAIN_BATCH,
+                        TRAIN_SIZE)
+    base = arm_memory_start()
+    state = T.create_train_state(cfg, device,
+                                 generator=torch.Generator().manual_seed(15))
+    loss0, _ = finite_step(state, batch, cfg, f"{VGG_MODEL} ohem")
+    score = T.make_labels_fn(cfg)(batch)[0]
+    check(tuple(score.shape[1:3]) == (TRAIN_SIZE // 2, TRAIN_SIZE // 2),
+          f"{VGG_MODEL}: labels not on the stride-2 grid")
+    last = eager_rate(state, batch, cfg, VGG_MODEL, TRAIN_WINDOWS,
+                      ARM_WINDOW_S, base)
+    print(f"{VGG_MODEL}: labels {tuple(score.shape)}, model loss "
+          f"{loss0:.6f} at step 0, {float(last['model_loss']):.6f} at step "
+          f"{int(state.step)}")
+    del state
+    torch.cuda.empty_cache()
+
+    images = train_batch(np.random.RandomState(83), device, 8, TRAIN_SIZE,
+                         hw=IMAGE_HW)["images"].cpu().numpy()
+    pred = Predictor(VGG_MODEL, device=device)
+    head_logit_scale(pred, torch.from_numpy(images).to(device),
+                     ("pixel_logits", "link_logits"))
+    launches, edges, mask = decode_check(pred, images, VGG_MODEL)
+    check(tuple(mask.shape) == (8, IMAGE_HW[0] // 2, IMAGE_HW[1] // 2),
+          f"{VGG_MODEL}: maps not at stride 2")
+    got = K.connected_components(edges, mask)
+    again = K.connected_components(edges, mask)
+    want = K.connected_components_reference(edges, mask)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    check(torch.equal(got, again) and torch.equal(got, want),
+          f"cc at {tuple(mask.shape)}: kernel labels differ (max abs diff "
+          f"{err})")
+    ms = cuda_ms(lambda: K.connected_components(edges, mask), 20)
+    plain_ms = cuda_ms(
+        lambda: K.connected_components_reference(edges, mask), 3)
+    bound = 1e3 * mask.numel() * (8 + 1 + 4) / PEAK_HBM
+    print(f"cc at the stride-2 maps {tuple(mask.shape)}: equal to the plain "
+          f"version, launched twice and equal; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
+    report["max_abs_err"] = max(report["max_abs_err"], err)
+    time_detect_serve(pred, images, PIXELLINK_WINDOW_S, f"{VGG_MODEL} ")
+    del pred
+    torch.cuda.empty_cache()
+
+
+def phase_link8(device, batch):
+    """link8_resnet50: one fused-arm dice step (finite loss and
+    gradients), and detect on 8 x 1280x768 scenes through pixel_link_scores'
+    link8 schema and the CC kernel (decode_check)."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.infer import Predictor
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    cfg = train_config("fused", model=LINK8_MODEL, loss="dice")
+    state = T.create_train_state(cfg, device,
+                                 generator=torch.Generator().manual_seed(16))
+    _, counts = finite_step(state, batch, cfg, f"{LINK8_MODEL} fused dice")
+    check(all(counts.values()), "link8: a fused kernel not launched")
+    del state
+    torch.cuda.empty_cache()
+    images = train_batch(np.random.RandomState(85), device, 8, TRAIN_SIZE,
+                         hw=IMAGE_HW)["images"].cpu().numpy()
+    pred = Predictor(LINK8_MODEL, device=device)
+    head_logit_scale(pred, torch.from_numpy(images).to(device),
+                     ("score", "links"))
+    decode_check(pred, images, LINK8_MODEL)
+    del pred
+    torch.cuda.empty_cache()
+
+
+def phase_pixellink_losses(device, snap, batch, ds):
+    """pixellink_resnet50 on the fused arm with the dice, positive and
+    focal losses: one step each (finite loss and gradients, the backward
+    launched FUSED_CONV_STEP_LAUNCHES times); then with dice one graph
+    dispatch bit-equal to eager steps (graph_equal)."""
+    import numpy as np
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    for loss in ("dice", "positive", "focal"):
+        cfg = train_config("fused", loss=loss)
+        state = T.create_train_state(cfg, device, weights=snap)
+        _, counts = finite_step(state, batch, cfg, f"{MODEL} fused {loss}")
+        check(all(counts.values()) and counts["fused_conv_bwd"]
+              == FUSED_CONV_STEP_LAUNCHES, f"{loss}: fused launches")
+        del state
+    graph_equal(device, snap, ds, np.random.RandomState(87), "fused dice",
+                train_config("fused", loss="dice"))
+
+
+def phase_other_forwards(device):
+    """One detect_batch each of east_vgg16, pixellink_vgg16 (through the CC
+    kernel) and east_tiny on 2 x 1280x768 scenes: outputs of the expected
+    shapes, finite."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.infer import Predictor, pixel_link_scores
+    from tensorflow_ocr_tpu_torch.ops import kernels as K
+
+    images = train_batch(np.random.RandomState(89), device, 2, TRAIN_SIZE,
+                         hw=IMAGE_HW)["images"].cpu().numpy()
+    x = torch.from_numpy(images).to(device)
+    for name in ("east_vgg16", "pixellink_vgg16", "east_tiny"):
+        pred = Predictor(name, device=device)
+        with torch.inference_mode():
+            out = pred.model(x)
+        shapes = {k: tuple(v.shape) for k, v in out.items()}
+        check(all(bool(torch.isfinite(v).all()) for v in out.values())
+              and all(s[1:3] == (IMAGE_HW[0] // 4, IMAGE_HW[1] // 4)
+                      for s in shapes.values()), f"{name}: outputs {shapes}")
+        if name == "pixellink_vgg16":
+            ps, _ = pixel_link_scores(out)
+            pred.pixel_thresh = float(torch.quantile(ps.float().flatten(),
+                                                     0.8))
+        K.connected_components.launches = 0
+        boxes = pred.detect_batch(images)
+        torch.cuda.synchronize()
+        print(f"{name} forward 2x1280x768: outputs {shapes}; boxes per image "
+              f"{[len(b) for b in boxes]}; cc launches "
+              f"{K.connected_components.launches}")
+        if name == "pixellink_vgg16":
+            check(K.connected_components.launches > 0,
+                  f"{name}: detect did not launch the CC kernel")
+        del pred
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2828,11 +3499,13 @@ def main() -> int:
              for name, (_, sites) in GHOST_KERNELS.items()}
     phase_cc(device, report)
     phase_forward(device)
+    phase_forward(device, EAST_MODEL)
     pred, images = phase_main_path(device, report)
     phase_timing(pred, images)
     if args.profile:
         phase_profile(pred, images)
     phase_conv_kernels(device, conv)
+    phase_conv_kernels(device, conv, EAST_MODEL)
     phase_conv_detect(pred, images)
     del pred
     torch.cuda.empty_cache()
@@ -2862,6 +3535,18 @@ def main() -> int:
     phase_graph_timing(trainer.state.model.state_dict(), ds, args.profile)
     if args.profile:
         phase_profile_train(trainer, batch)
+    phase_pixellink_losses(device, snap, batch, ds)
+    del trainer, ds
+    torch.cuda.empty_cache()
+
+    east_snap, east_batch, east_root = phase_east_train(device)
+    phase_east_route(device, east_snap, east_batch)
+    phase_east_variants(device, east_snap, east_batch)
+    phase_east_serve(device, east_root)
+    del east_snap, east_batch
+    phase_vgg(device, report)
+    phase_link8(device, batch)
+    phase_other_forwards(device)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

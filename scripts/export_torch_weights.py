@@ -6,6 +6,8 @@ Usage:
     python scripts/export_torch_weights.py --checkpoint /tmp/ckpt/ \
         --model pixellink_resnet50 --out /tmp/torch/weights.npz [--no-ema]
     python scripts/export_torch_weights.py --checkpoint /tmp/ckpt/ \
+        --model east_resnet50 --geometry QUAD --out /tmp/torch/weights.npz
+    python scripts/export_torch_weights.py --checkpoint /tmp/ckpt/ \
         --model pixellink_resnet50 --out /tmp/torch_ckpt/ --train-state \
         [--optimizer adam|momentum] [--weight-decay 1e-5]
 
@@ -39,6 +41,13 @@ from collections.abc import Mapping
 
 import numpy as np
 
+# the models of the port's registry (tensorflow_ocr_tpu_torch/models/
+# detector.py MODEL_REGISTRY; tests/test_torch_export.py holds the two
+# equal): the ones whose weights the port can load
+PORT_MODELS = ("pixellink_resnet50", "pixellink_vgg16", "pixellink2s_vgg16",
+               "east_resnet50", "east_vgg16", "link8_resnet50",
+               "pixellink_tiny", "east_tiny")
+
 
 def flatten(tree: Mapping, prefix: str = "") -> dict:
     """Nested variables -> {"params/a/b": np.ndarray}."""
@@ -53,7 +62,7 @@ def flatten(tree: Mapping, prefix: str = "") -> dict:
 
 
 def restore_variables(model_name: str, checkpoint: str,
-                      use_ema: bool = True) -> dict:
+                      use_ema: bool = True, geometry: str = "RBOX") -> dict:
     """{"params": ..., "batch_stats": ...} of the newest checkpoint under
     ``checkpoint`` (or of ``checkpoint`` itself, a ``ckpt_<step>`` dir)."""
     import jax
@@ -64,6 +73,7 @@ def restore_variables(model_name: str, checkpoint: str,
 
     cfg = Config()
     cfg.model.name = model_name
+    cfg.data.geometry = geometry
     _, template, _ = T.create_train_state(
         cfg, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3), jnp.float32))
     ckpt = T.latest_checkpoint(checkpoint) or checkpoint
@@ -75,11 +85,11 @@ def restore_variables(model_name: str, checkpoint: str,
 
 
 def export(model_name: str, checkpoint: str, out: str,
-           use_ema: bool = True) -> str:
+           use_ema: bool = True, geometry: str = "RBOX") -> str:
     """Write the flat ``.npz`` (and the operating point, if any)."""
     from tensorflow_ocr_tpu.train.calibrate import OPERATING_POINT_FILE
 
-    variables = restore_variables(model_name, checkpoint, use_ema)
+    variables = restore_variables(model_name, checkpoint, use_ema, geometry)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "wb") as f:
         np.savez(f, **flatten(variables))
@@ -92,7 +102,8 @@ def export(model_name: str, checkpoint: str, out: str,
 
 def export_train_state(model_name: str, checkpoint: str, out: str,
                        optimizer: str = "adam",
-                       weight_decay: float = 1e-5) -> str:
+                       weight_decay: float = 1e-5,
+                       geometry: str = "RBOX") -> str:
     """Write the newest checkpoint's whole train state under ``checkpoint``
     as a port checkpoint under the root ``out``; returns its directory."""
     import jax
@@ -108,6 +119,7 @@ def export_train_state(model_name: str, checkpoint: str, out: str,
     cfg.model.name = model_name
     cfg.model.weight_decay = weight_decay
     cfg.train.optimizer = optimizer
+    cfg.data.geometry = geometry
     _, template, _ = T.create_train_state(
         cfg, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3), jnp.float32))
     ckpt = T.latest_checkpoint(checkpoint) or checkpoint
@@ -124,7 +136,11 @@ def main(argv=None):
     ap.add_argument("--checkpoint", required=True,
                     help="checkpoint root (newest ckpt_* is used) or one "
                          "ckpt_<step> directory")
-    ap.add_argument("--model", default="pixellink_resnet50")
+    ap.add_argument("--model", default="pixellink_resnet50",
+                    choices=PORT_MODELS)
+    ap.add_argument("--geometry", default="RBOX", choices=("RBOX", "QUAD"),
+                    help="the EAST head's geometry the checkpoint was "
+                         "trained with")
     ap.add_argument("--out", required=True,
                     help="path of the .npz, or with --train-state the port "
                          "checkpoint root")
@@ -140,11 +156,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.train_state:
         out = export_train_state(args.model, args.checkpoint, args.out,
-                                 args.optimizer, args.weight_decay)
+                                 args.optimizer, args.weight_decay,
+                                 args.geometry)
         print(f"wrote {out} (model={args.model}, train state)")
         return
     out = export(args.model, args.checkpoint, args.out,
-                 use_ema=not args.no_ema)
+                 use_ema=not args.no_ema, geometry=args.geometry)
     print(f"wrote {out} (model={args.model}, ema={not args.no_ema})")
 
 

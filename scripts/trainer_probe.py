@@ -3,6 +3,7 @@
 
     python3 scripts/trainer_probe.py [graph] [resume] [timing] [--windows N]
     python3 scripts/trainer_probe.py eager [--windows N] [--tree DIR]
+        [--model east_resnet50 --loss east]
 
 Builds the kernels, runs chip_smoke.py's phase_train (3 fused steps; the
 seeded state the other phases start from) and makes its dataset of
@@ -24,7 +25,9 @@ seeded as phase_train's, on the chip_smoke.py and the package of the
 checkout DIR (this one by default). Given a ``git archive`` of another
 commit as DIR, it times that commit's eager step with the same script,
 so that two commits are compared in one call, e.g. parent, change,
-change, parent.
+change, parent. ``--model`` and ``--loss`` (eager only) time another
+model of the registry with its loss, e.g. ``east_resnet50`` with
+``east``, on the same numpy scenes (with their EAST geometry).
 
 Each phase's seconds are printed. Exits 2 without CUDA.
 """
@@ -46,9 +49,17 @@ def main() -> int:
     ap.add_argument("--tree", default=REPO,
                     help="the checkout whose chip_smoke.py and package the "
                          "eager phase imports")
+    ap.add_argument("--model", default=None,
+                    help="eager only: the model to time (chip_smoke.py's "
+                         "MODEL by default)")
+    ap.add_argument("--loss", default=None,
+                    help="eager only: its loss (chip_smoke.py's LOSS, ohem, "
+                         "by default)")
     args = ap.parse_args()
     if "eager" in args.phases and args.phases != ["eager"]:
         ap.error("eager runs alone")
+    if (args.model or args.loss) and args.phases != ["eager"]:
+        ap.error("--model and --loss go with eager")
     import numpy as np
     import torch
 
@@ -72,7 +83,10 @@ def main() -> int:
     if phases == ["eager"]:
         from tensorflow_ocr_tpu_torch.train import trainer as T
 
-        c.TRAIN_WINDOWS = args.windows
+        c.ARM_WINDOWS, c.ARM_WINDOW_S = args.windows, c.TRAIN_WINDOW_S
+        c.MODEL = args.model or c.MODEL
+        c.LOSS = args.loss or c.LOSS
+        print(f"model {c.MODEL}, loss {c.LOSS}")
         state = T.create_train_state(
             c.train_config("fused"), dev,
             generator=torch.Generator().manual_seed(11))
@@ -95,7 +109,7 @@ def main() -> int:
         c.phase_serve_checkpoint(dev, root, served, images)
         stamp("resume and serve")
     if "timing" in phases:
-        c.TRAIN_WINDOWS = args.windows
+        c.ARM_WINDOWS, c.ARM_WINDOW_S = args.windows, c.TRAIN_WINDOW_S
         c.phase_graph_timing(trainer.state.model.state_dict(), ds, True)
         stamp("graph timing")
     return 0

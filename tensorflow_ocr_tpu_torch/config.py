@@ -1,8 +1,9 @@
 """Settings of the port.
 
 The fields of ``tensorflow_ocr_tpu/config.py`` that the port reads, with
-the same defaults: ``InferConfig`` for the PixelLink
-:class:`~tensorflow_ocr_tpu_torch.infer.Predictor`, and the data, model,
+the same defaults: ``InferConfig`` for the
+:class:`~tensorflow_ocr_tpu_torch.infer.Predictor` (PixelLink, link8
+and EAST), and the data, model,
 loss and train sections that the train step and the trainer loop
 (:mod:`tensorflow_ocr_tpu_torch.train.trainer`) read. The port keeps its
 own copy so that it imports nothing of the JAX package;
@@ -34,6 +35,13 @@ class InferConfig:
     min_component_size: int = 10
     # static bound on components per image for the batched decode
     max_components: int = 128
+    # EAST decode: score map threshold of the candidates, score of a box
+    # after NMS, the NMS IoU, and the cap on NMS input after the merge
+    # (0: none)
+    score_map_thresh: float = 0.8
+    box_thresh: float = 0.1
+    nms_thresh: float = 0.2
+    nms_max_candidates: int = 1024
     # adopt operating_point.json beside the weights in place of the
     # static thresholds above
     use_calibrated_thresholds: bool = True
@@ -44,11 +52,14 @@ class DataConfig:
     input_size: int = 512
     # polys whose shorter side is below this are masked out of the loss
     min_text_size: int = 10
+    geometry: str = "RBOX"  # EAST labels and head: RBOX | QUAD
 
 
 @dataclass
 class ModelConfig:
     name: str = "pixellink_resnet50"
+    # EAST distance scale: the geometry head's sigmoid times this
+    text_scale: int = 512
     weight_decay: float = 1e-5
     # activation dtype; parameters and BN statistics stay float32
     compute_dtype: str = "bfloat16"
@@ -62,13 +73,22 @@ class ModelConfig:
 
 @dataclass
 class LossConfig:
-    name: str = "ohem"  # only OHEM is ported (ops/losses.py)
+    # pixellink head: ohem | dice | positive | focal; link8: dice (any
+    # name); EAST: focal, else the EAST loss (QUAD: its own loss)
+    name: str = "ohem"
     max_neg_pos_ratio: int = 3
     # hardest negatives selected on images with no positive pixel
     bg_neg_budget: int = 0
     pixel_loss_weight: float = 2.0
     # CE-term dtype of the OHEM loss: "float32" | "bfloat16"
     compute_dtype: str = "float32"
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    # EAST: the geometry term's weight under the focal and QUAD losses
+    # (the RBOX EAST loss adds it unweighted, as trainer.py:186-193
+    # does), and the angle term's inside the RBOX geometry
+    east_geo_weight: float = 1.0
+    east_angle_weight: float = 10.0
 
 
 @dataclass
@@ -115,3 +135,16 @@ class Config:
     loss: LossConfig = field(default_factory=LossConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     infer: InferConfig = field(default_factory=InferConfig)
+
+    def validate(self) -> "Config":
+        """Reject values that would otherwise be ignored
+        (config.py:218-235)."""
+        if self.data.geometry not in ("RBOX", "QUAD"):
+            raise ValueError(
+                f"data.geometry must be 'RBOX' or 'QUAD', got "
+                f"{self.data.geometry!r}")
+        if self.train.save_interval_secs < 0:
+            raise ValueError("train.save_interval_secs must be >= 0")
+        if self.train.max_checkpoints_to_keep < 0:
+            raise ValueError("train.max_checkpoints_to_keep must be >= 0")
+        return self

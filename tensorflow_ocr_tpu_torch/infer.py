@@ -1,7 +1,10 @@
-"""Inference: forward + on-device PixelLink decode for serving.
+"""Inference: forward + on-device decode for serving.
 
-Port of the PixelLink half of ``tensorflow_ocr_tpu/infer.py``
-(``pixel_link_scores`` :41-52, ``Predictor`` :55-306). Weights come from
+Port of ``tensorflow_ocr_tpu/infer.py`` (``pixel_link_scores`` :41-52,
+``Predictor`` :55-306): the PixelLink and link8 heads decode on the
+device (components through the CC kernel, min-area boxes); the EAST head
+takes its top candidates on the device (``east_detect``) and runs
+locality-aware NMS on the host (``utils/nms.py``). Weights come from
 a state_dict, from the flat ``.npz`` of Flax variables that
 ``scripts/export_torch_weights.py`` writes, or from the newest
 ``ckpt_<step>`` of a port checkpoint root (the EMA or raw parameters and
@@ -24,12 +27,14 @@ import torch
 from tensorflow_ocr_tpu_torch.config import InferConfig
 from tensorflow_ocr_tpu_torch.models import build_model
 from tensorflow_ocr_tpu_torch.models.convert import load_npz
+from tensorflow_ocr_tpu_torch.models.detector import model_head
 from tensorflow_ocr_tpu_torch.ops import decode as D
 from tensorflow_ocr_tpu_torch.train.trainer import (
     CKPT_FILE,
     latest_checkpoint,
     load_inference_state,
 )
+from tensorflow_ocr_tpu_torch.utils import nms as N
 from tensorflow_ocr_tpu_torch.utils.image import resize_image
 
 # written next to the checkpoints by tensorflow_ocr_tpu/train/calibrate.py
@@ -38,8 +43,12 @@ OPERATING_POINT_FILE = "operating_point.json"
 
 def pixel_link_scores(out: Mapping[str, torch.Tensor]
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B,h,w,2) pixel + (B,h,w,16) link logits -> (B,h,w) P(text) and
-    (B,h,w,8) P(link); link channels are (direction, class) pairs."""
+    """(B,h,w) P(text) and (B,h,w,8) P(link) from either output schema:
+    (B,h,w,2) pixel + (B,h,w,16) link logits, link channels in
+    (direction, class) pairs; or link8's sigmoid ``score`` (B,h,w,1) and
+    ``link_probs`` (B,h,w,8)."""
+    if "pixel_logits" not in out:
+        return out["score"][..., 0], out["link_probs"]
     pl, ll = out["pixel_logits"], out["link_logits"]
     ps = torch.softmax(pl, dim=-1)[..., 1]
     ls = torch.softmax(ll.reshape(ll.shape[:-1] + (8, 2)), dim=-1)[..., 1]
@@ -77,9 +86,13 @@ def checkpoint_weights(checkpoint_path: str, use_ema: bool = True
 
 
 class Predictor:
-    """PixelLink detect on one device: batched forward + decode.
+    """Detect on one device: batched forward + decode.
 
-    ``model_name``: a name of the :func:`build_model` registry.
+    ``model_name``: a name of the :func:`build_model` registry;
+    ``geometry`` and ``text_scale`` shape an EAST head. PixelLink and
+    link8 boxes come from the on-device decode; EAST boxes are the rows
+    that locality-aware NMS keeps of the valid ``east_detect`` candidates,
+    with a score above ``infer.box_thresh``.
     ``weights``: a state_dict, or the path of a flat ``.npz`` of Flax
     variables (then an ``operating_point.json`` beside it overrides the
     ``infer`` thresholds). ``checkpoint_path``: in place of ``weights``, a
@@ -94,7 +107,9 @@ class Predictor:
     (``infer.py:60-110``), or the init where it holds none. Otherwise,
     with no weights, the seed-0 init of :func:`build_model`.
     ``device="cuda"`` raises when no GPU is present: the predictor never
-    carries on on the CPU unasked.
+    carries on on the CPU unasked. An operating point overrides ``pixel``,
+    ``link``, ``score`` and ``nms`` (infer.py:105-110). ``nms_ms`` is the
+    host time of the last batch's NMS (EAST).
     """
 
     # extract_components clamps max_pixels to h*w: any value >= the label
@@ -108,13 +123,16 @@ class Predictor:
                  dtype: torch.dtype = torch.bfloat16,
                  infer: Optional[InferConfig] = None,
                  checkpoint_path: Optional[str] = None,
-                 use_ema: bool = True):
+                 use_ema: bool = True, geometry: str = "RBOX",
+                 text_scale: int = 512):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Predictor(device='cuda'): torch sees no "
                                "CUDA device")
         self.infer = icfg = infer if infer is not None else InferConfig()
-        self.model = build_model(model_name, dtype=dtype)
+        self.model = build_model(model_name, dtype=dtype,
+                                 text_scale=text_scale, geometry=geometry)
+        self.is_east = model_head(model_name) == "east"
         weights_dir = None
         if (infer is not None and weights is None and checkpoint_path is None
                 and latest_checkpoint(icfg.checkpoint_path) is not None):
@@ -136,20 +154,29 @@ class Predictor:
             icfg.min_component_size * (4.0 / self.stride) ** 2))
         self.pixel_thresh = icfg.pixel_conf_threshold
         self.link_thresh = icfg.link_conf_threshold
+        self.score_thresh = icfg.score_map_thresh
+        self.nms_thresh = icfg.nms_thresh
         self.calibrated = False
         if icfg.use_calibrated_thresholds and weights_dir is not None:
             op = load_operating_point(weights_dir)
             if op:
                 self.pixel_thresh = float(op.get("pixel", self.pixel_thresh))
                 self.link_thresh = float(op.get("link", self.link_thresh))
+                self.score_thresh = float(op.get("score", self.score_thresh))
+                self.nms_thresh = float(op.get("nms", self.nms_thresh))
                 self.calibrated = True
+        self.nms_ms = 0.0
         # full-budget decode re-runs (overflow_retry_needed): counted,
         # never a silent zero-box result
         self.overflow_retries = 0
 
     @torch.inference_mode()
     def _run(self, x: torch.Tensor, full_budget: bool = False):
-        ps, ls = pixel_link_scores(self.model(x))
+        out = self.model(x)
+        if self.is_east:
+            return D.east_detect(out["score"][..., 0], out["geometry"],
+                                 score_thresh=self.score_thresh)
+        ps, ls = pixel_link_scores(out)
         return D.pixellink_decode(
             ps, ls, pixel_thresh=self.pixel_thresh,
             link_thresh=self.link_thresh, min_size=self.min_size,
@@ -182,6 +209,8 @@ class Predictor:
         host, done = pending
         if done is not None:
             done.synchronize()
+        if self.is_east:
+            return self._east_boxes(*(t.cpu().numpy() for t in host))
         raw_boxes, sizes, valid = (t.cpu().numpy() for t in host)
         if D.overflow_retry_needed(sizes, valid, self.min_size):
             # a dense map blew the foreground budget: one exact re-run
@@ -190,6 +219,22 @@ class Predictor:
                 t.cpu().numpy() for t in self._run(x, full_budget=True))
         return [[b * self.stride for b in raw_boxes[i][valid[i]]]
                 for i in range(n)]
+
+    def _east_boxes(self, quads: np.ndarray, scores: np.ndarray,
+                    valid: np.ndarray) -> List[List[np.ndarray]]:
+        """Locality-aware NMS of each image's valid candidates on the host
+        (infer.py:204-218): the kept quads scored above ``box_thresh``."""
+        icfg = self.infer
+        t0 = time.perf_counter()
+        results = []
+        for q, sc, v in zip(quads, scores, valid):
+            polys = np.concatenate([q.reshape(-1, 8), sc[:, None]], 1)[v]
+            kept = N.locality_aware_nms(polys, self.nms_thresh,
+                                        icfg.nms_max_candidates)
+            results.append([k[:8].reshape(4, 2) for k in kept
+                            if k[8] > icfg.box_thresh])
+        self.nms_ms = (time.perf_counter() - t0) * 1000
+        return results
 
     def detect_batch(self, images_rgb: np.ndarray) -> List[List[np.ndarray]]:
         """Detect on (B, H, W, 3) uint8 images, H and W multiples of 32.

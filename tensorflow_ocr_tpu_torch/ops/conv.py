@@ -49,7 +49,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -695,16 +695,35 @@ class _Conv3x3(torch.autograd.Function):
 # --------------------------------------------------------------------------
 
 
-def supported(x_shape: Tuple[int, ...], kernel: Tuple[int, int],
-              stride: Tuple[int, int], dilation: Tuple[int, int],
-              co: int) -> bool:
-    """Whether :func:`conv2d` takes this conv's shape (pallas_conv.py:
-    284-301).
+def _pick_bm(m: int, c: int, co: int) -> Optional[int]:
+    """pallas_conv.py:52-60 verbatim: the TPU row block of a 1x1 conv, or
+    None where none fits its VMEM budget. The route takes the 1x1 convs
+    the JAX route takes; the Hopper kernels tile otherwise."""
+    for bm in (2048, 1024, 512, 256):
+        if m % bm:
+            continue
+        if bm * (c + co) * 4 + c * co * 2 <= (8 << 20):
+            return bm
+    return None
 
-    x_shape is JAX's (N, H, W, Ci). Taken: 1x1 convs at stride s in both
-    dims with H and W multiples of s (SAME then reads x[::s, ::s]), and
-    3x3 convs at stride 1; dilation 1; indices within int32.
-    """
+
+def _pick_th(h: int, wd: int, ci: int) -> Optional[int]:
+    """pallas_conv.py:63-68 verbatim: the TPU band height of a 3x3 conv,
+    or None; the route takes the 3x3 convs the JAX route takes."""
+    for th in (32, 16, 8):
+        if h % th == 0 and th * wd * 9 * ci * 2 <= (4 << 20):
+            return th
+    return None
+
+
+def kernels_take(x_shape: Tuple[int, ...], kernel: Tuple[int, int],
+                 stride: Tuple[int, int], dilation: Tuple[int, int],
+                 co: int) -> bool:
+    """Whether the conv kernels take this conv's shape (what
+    :func:`conv2d` accepts): 1x1 convs at stride s in both dims with H
+    and W multiples of s (SAME then reads x[::s, ::s]), and 3x3 convs at
+    stride 1; dilation 1; indices within int32. x_shape is JAX's
+    (N, H, W, Ci)."""
     if len(x_shape) != 4 or tuple(dilation) != (1, 1):
         return False
     n, h, wd, ci = x_shape
@@ -721,16 +740,34 @@ def supported(x_shape: Tuple[int, ...], kernel: Tuple[int, int],
     return False
 
 
+def supported(x_shape: Tuple[int, ...], kernel: Tuple[int, int],
+              stride: Tuple[int, int], dilation: Tuple[int, int],
+              co: int) -> bool:
+    """Whether the ``PALLAS_CONVS`` route takes this conv: exactly the
+    convs that ``pallas_conv.supported`` (pallas_conv.py:284-301) takes,
+    so that the route puts the same convs on the kernels as JAX's (a 1x1
+    whose rows ``_pick_bm`` blocks; a 3x3 with W a multiple of 8 and H
+    banded by ``_pick_th``), where :func:`kernels_take` the shape too.
+    x_shape is JAX's (N, H, W, Ci)."""
+    if not kernels_take(x_shape, kernel, stride, dilation, co):
+        return False
+    n, h, wd, ci = x_shape
+    if tuple(kernel) == (1, 1):
+        s = stride[0]
+        return _pick_bm(n * (h // s) * (wd // s), ci, co) is not None
+    return wd % 8 == 0 and _pick_th(h, wd, ci) is not None
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor,
            stride: Tuple[int, int] = (1, 1)) -> torch.Tensor:
     """The conv of x (N, Ci, H, W) with w (Co, Ci, k, k), SAME padding,
     differentiable in both (pallas_conv.py:304-321). Raises on a conv that
-    :func:`supported` refuses, and on activations off the CPU that are not
-    bfloat16 (the kernels' only type)."""
+    the kernels do not take (:func:`kernels_take`), and on activations off
+    the CPU that are not bfloat16 (the kernels' only type)."""
     k = w.shape[-1]
     n, ci, h, wd = x.shape
-    if not supported((n, h, wd, ci), tuple(w.shape[-2:]), stride, (1, 1),
-                     w.shape[0]):
+    if not kernels_take((n, h, wd, ci), tuple(w.shape[-2:]), stride,
+                        (1, 1), w.shape[0]):
         raise ValueError(f"conv2d does not take x {tuple(x.shape)} "
                          f"on {x.device}, w {tuple(w.shape)}, "
                          f"stride {tuple(stride)}")

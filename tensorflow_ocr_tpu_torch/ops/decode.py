@@ -1,12 +1,13 @@
-"""On-device PixelLink decode: threshold, link adjacency, components, boxes.
+"""On-device decode: PixelLink components and boxes, EAST candidates.
 
-Port of the PixelLink path of ``tensorflow_ocr_tpu/ops/decode.py``
-(``link_adjacency`` :56-85, ``extract_components`` :168-270,
-``overflow_retry_needed`` :273-288, ``pixellink_decode`` :308-336). The
+Port of ``tensorflow_ocr_tpu/ops/decode.py`` (``link_adjacency``
+:56-85, ``extract_components`` :168-270, ``overflow_retry_needed``
+:273-288, ``pixellink_decode`` :308-336, ``east_detect`` :339-367). The
 batch dimension is written out where JAX used ``vmap``; segment min/max
 become ``scatter_reduce`` on +/-inf buffers. The connected components go
 through ``ops/kernels.py``: the CUDA kernel for CUDA tensors, the plain
-version for CPU tensors. The EAST decode is not ported yet.
+version for CPU tensors. EAST's locality-aware NMS runs on the host
+after :func:`east_detect` (``utils/nms.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import math
 import numpy as np
 import torch
 
+from tensorflow_ocr_tpu_torch.ops.geometry import restore_rectangle_rbox_torch
 from tensorflow_ocr_tpu_torch.ops.kernels import connected_components
 from tensorflow_ocr_tpu_torch.ops.labels import LINK_OFFSETS, shift_map
 
@@ -142,3 +144,33 @@ def pixellink_decode(pixel_scores: torch.Tensor, link_scores: torch.Tensor,
     labels = connected_components(edges, mask)
     return extract_components(labels, max_components, min_size, num_angles,
                               max_pixels=max_pixels)
+
+
+def east_detect(score_map: torch.Tensor, geo_map: torch.Tensor,
+                score_thresh: float = 0.8, max_boxes: int = 2048):
+    """EAST decode on the device, batched (decode.py:339-367): the top
+    ``max_boxes`` pixels by score (ties in index order, as
+    ``jax.lax.top_k`` gives them), their origin at full resolution (the
+    pixel times 4, the reference's stride scaling), and their quads: RBOX
+    (geo (B, h, w, 5)) restored from the edge distances and angle, QUAD
+    (geo (B, h, w, 8)) the origin plus the corner offsets.
+
+    score_map (B, h, w). Returns quads (B, K, 4, 2), scores (B, K) and
+    valid (B, K) = score > ``score_thresh``; the host then applies
+    locality-aware NMS to the valid rows.
+    """
+    b, h, w = score_map.shape
+    flat = score_map.reshape(b, -1)
+    k = min(max_boxes, flat.shape[1])
+    vals, idx = torch.sort(flat, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :k], idx[:, :k]
+    valid = vals > score_thresh
+    origin = torch.stack([(idx % w).float(), (idx // w).float()], -1) * 4.0
+    c = geo_map.shape[-1]
+    geo = geo_map.reshape(b, -1, c).gather(
+        1, idx[..., None].expand(b, k, c))
+    if c == 8:  # QUAD: full-resolution offsets from the scaled pixel
+        quads = origin[:, :, None, :] + geo.reshape(b, k, 4, 2)
+    else:
+        quads = restore_rectangle_rbox_torch(origin, geo)
+    return quads, vals, valid

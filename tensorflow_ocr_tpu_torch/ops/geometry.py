@@ -1,0 +1,260 @@
+"""Polygon and rotated-box geometry for the EAST labels and decode.
+
+A copy of the numpy half of ``tensorflow_ocr_tpu/ops/geometry.py`` that
+the EAST slice needs (``polygon_area`` :28, ``shrink_poly`` :69,
+``point_dist_to_line`` :111, the line helpers, ``rectangle_from_parallelogram``
+:151, ``sort_rectangle`` :183 and ``restore_rectangle_rbox`` :209), so
+that the port imports nothing of the JAX package, and
+:func:`restore_rectangle_rbox_torch`, the batched torch form of
+``restore_rectangle_rbox_jax`` (:305) that ``ops/decode.py``
+``east_detect`` runs on the device. ``tests/test_torch_east_labels.py``
+holds the copies bit-equal to the originals.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def polygon_area(poly: np.ndarray) -> float:
+    """Signed area via the shoelace sum (reference icdar.py:69-81).
+
+    Positive => points are counter-clockwise in image coords (y down), which
+    the reference treats as "wrong direction" and reverses.
+    """
+    p = np.asarray(poly, dtype=np.float64)
+    nxt = np.roll(p, -1, axis=0)
+    edge = (nxt[:, 0] - p[:, 0]) * (nxt[:, 1] + p[:, 1])
+    return float(np.sum(edge) / 2.0)
+
+
+def shrink_poly(poly: np.ndarray, r: np.ndarray, ratio: float = 0.3) -> np.ndarray:
+    """EAST poly shrink (reference icdar.py:202-266, R=0.3).
+
+    Moves each vertex inward along its two incident edges by R*r[i], where
+    r[i] is the min adjacent edge length. Mutates a copy and returns it.
+    """
+    poly = np.asarray(poly, dtype=np.float32).copy()
+    R = ratio
+
+    def _move_pair(i, j):
+        # move p_i toward p_j and p_j toward p_i along edge direction
+        theta = np.arctan2(poly[j][1] - poly[i][1], poly[j][0] - poly[i][0])
+        poly[i][0] += R * r[i] * np.cos(theta)
+        poly[i][1] += R * r[i] * np.sin(theta)
+        poly[j][0] -= R * r[j] * np.cos(theta)
+        poly[j][1] -= R * r[j] * np.sin(theta)
+
+    def _move_pair_swapped(i, j):
+        # reference uses swapped sin/cos for the "vertical" edge pairs
+        theta = np.arctan2(poly[j][0] - poly[i][0], poly[j][1] - poly[i][1])
+        poly[i][0] += R * r[i] * np.sin(theta)
+        poly[i][1] += R * r[i] * np.cos(theta)
+        poly[j][0] -= R * r[j] * np.sin(theta)
+        poly[j][1] -= R * r[j] * np.cos(theta)
+
+    len_01_23 = np.linalg.norm(poly[0] - poly[1]) + np.linalg.norm(poly[2] - poly[3])
+    len_03_12 = np.linalg.norm(poly[0] - poly[3]) + np.linalg.norm(poly[1] - poly[2])
+    if len_01_23 > len_03_12:
+        _move_pair(0, 1)
+        _move_pair(3, 2)
+        _move_pair_swapped(0, 3)
+        _move_pair_swapped(1, 2)
+    else:
+        _move_pair_swapped(0, 3)
+        _move_pair_swapped(1, 2)
+        _move_pair(0, 1)
+        _move_pair(3, 2)
+    return poly
+
+
+def point_dist_to_line(p1, p2, p3) -> float:
+    """Distance from p3 to line p1-p2 (reference icdar.py:269-271)."""
+    p1, p2, p3 = (np.asarray(p, np.float64) for p in (p1, p2, p3))
+    a, b = p2 - p1, p1 - p3
+    cross = a[0] * b[1] - a[1] * b[0]
+    return float(abs(cross) / np.linalg.norm(a))
+
+
+def _fit_line(xs, ys):
+    # reference icdar.py:274-280 (note: its vertical check compares
+    # p1[0]==p1[1] — i.e. xs[0]==xs[1] since args are ([x1,x2],[y1,y2]))
+    if xs[0] == xs[1]:
+        return [1.0, 0.0, -xs[0]]
+    k, b = np.polyfit(xs, ys, deg=1)
+    return [k, -1.0, b]
+
+
+def _line_cross_point(line1, line2):
+    if line1[1] == 0:
+        x = -line1[2]
+        y = line2[0] * x + line2[2]
+    elif line2[1] == 0:
+        x = -line2[2]
+        y = line1[0] * x + line1[2]
+    else:
+        k1, _, b1 = line1
+        k2, _, b2 = line2
+        if k1 == k2:
+            return None
+        x = -(b1 - b2) / (k1 - k2)
+        y = k1 * x + b1
+    return np.array([x, y], dtype=np.float32)
+
+
+def _line_verticle(line, point):
+    if line[1] == 0:
+        return [0.0, -1.0, point[1]]
+    if line[0] == 0:
+        return [1.0, 0.0, -point[0]]
+    return [-1.0 / line[0], -1.0, point[1] - (-1.0 / line[0] * point[0])]
+
+
+def rectangle_from_parallelogram(poly: np.ndarray) -> np.ndarray:
+    """Fit a rectangle to a parallelogram (reference icdar.py:317-372)."""
+    p0, p1, p2, p3 = np.asarray(poly, np.float32)
+    angle_p0 = np.arccos(
+        np.dot(p1 - p0, p3 - p0)
+        / (np.linalg.norm(p0 - p1) * np.linalg.norm(p3 - p0))
+    )
+    if angle_p0 < 0.5 * np.pi:
+        if np.linalg.norm(p0 - p1) > np.linalg.norm(p0 - p3):
+            p2p3 = _fit_line([p2[0], p3[0]], [p2[1], p3[1]])
+            new_p3 = _line_cross_point(p2p3, _line_verticle(p2p3, p0))
+            p0p1 = _fit_line([p0[0], p1[0]], [p0[1], p1[1]])
+            new_p1 = _line_cross_point(p0p1, _line_verticle(p0p1, p2))
+            return np.array([p0, new_p1, p2, new_p3], dtype=np.float32)
+        p1p2 = _fit_line([p1[0], p2[0]], [p1[1], p2[1]])
+        new_p1 = _line_cross_point(p1p2, _line_verticle(p1p2, p0))
+        p0p3 = _fit_line([p0[0], p3[0]], [p0[1], p3[1]])
+        new_p3 = _line_cross_point(p0p3, _line_verticle(p0p3, p2))
+        return np.array([p0, new_p1, p2, new_p3], dtype=np.float32)
+    if np.linalg.norm(p0 - p1) > np.linalg.norm(p0 - p3):
+        p2p3 = _fit_line([p2[0], p3[0]], [p2[1], p3[1]])
+        new_p2 = _line_cross_point(p2p3, _line_verticle(p2p3, p1))
+        p0p1 = _fit_line([p0[0], p1[0]], [p0[1], p1[1]])
+        new_p0 = _line_cross_point(p0p1, _line_verticle(p0p1, p3))
+        return np.array([new_p0, p1, new_p2, p3], dtype=np.float32)
+    p0p3 = _fit_line([p0[0], p3[0]], [p0[1], p3[1]])
+    new_p0 = _line_cross_point(p0p3, _line_verticle(p0p3, p1))
+    p1p2 = _fit_line([p1[0], p2[0]], [p1[1], p2[1]])
+    new_p2 = _line_cross_point(p1p2, _line_verticle(p1p2, p3))
+    return np.array([new_p0, p1, new_p2, p3], dtype=np.float32)
+
+
+def sort_rectangle(poly: np.ndarray):
+    """Order rect points clockwise from top-left, return (poly, angle).
+
+    Reference icdar.py:375-407. Angle convention: rotation of the bottom
+    edge w.r.t. the x-axis, in [-pi/4, pi/4].
+    """
+    poly = np.asarray(poly, np.float32)
+    p_lowest = int(np.argmax(poly[:, 1]))
+    if np.count_nonzero(poly[:, 1] == poly[p_lowest, 1]) == 2:
+        p0 = int(np.argmin(np.sum(poly, axis=1)))
+        idx = [(p0 + k) % 4 for k in range(4)]
+        return poly[idx], 0.0
+    p_lowest_right = (p_lowest - 1) % 4
+    angle = np.arctan(
+        -(poly[p_lowest][1] - poly[p_lowest_right][1])
+        / (poly[p_lowest][0] - poly[p_lowest_right][0])
+    )
+    if angle / np.pi * 180 > 45:
+        p2 = p_lowest
+        idx = [(p2 - 2) % 4, (p2 - 1) % 4, p2, (p2 + 1) % 4]
+        return poly[idx], -(np.pi / 2 - angle)
+    p3 = p_lowest
+    idx = [(p3 + 1) % 4, (p3 + 2) % 4, (p3 + 3) % 4, p3]
+    return poly[idx], float(angle)
+
+
+def restore_rectangle_rbox(origin: np.ndarray, geometry: np.ndarray) -> np.ndarray:
+    """Recover quads from per-pixel RBOX (d_top,d_right,d_bottom,d_left,angle).
+
+    Vectorized equivalent of reference icdar.py:410-483 (identical math,
+    without the per-sign Python branches; validated against it in tests).
+
+    origin:   (N,2) pixel coords (x,y)
+    geometry: (N,5)
+    returns:  (N,4,2) quads, rows ordered as the reference output
+              (angle>=0 block first, then angle<0 — matching its concat).
+    """
+    origin = np.asarray(origin, np.float32)
+    geometry = np.asarray(geometry, np.float32)
+    if origin.shape[0] == 0:
+        return np.zeros((0, 4, 2), np.float32)
+    d = geometry[:, :4]
+    angle = geometry[:, 4]
+
+    def _block(origin_b, d_b, angle_b, positive):
+        n = d_b.shape[0]
+        if n == 0:
+            return np.zeros((0, 4, 2), np.float32)
+        z = np.zeros(n, np.float32)
+        if positive:
+            # 5 anchor points in canonical frame (reference :418-422)
+            p = np.stack(
+                [
+                    z, -d_b[:, 0] - d_b[:, 2],
+                    d_b[:, 1] + d_b[:, 3], -d_b[:, 0] - d_b[:, 2],
+                    d_b[:, 1] + d_b[:, 3], z,
+                    z, z,
+                    d_b[:, 3], -d_b[:, 2],
+                ],
+                axis=0,
+            ).T.reshape(-1, 5, 2)
+            rot_x = np.stack([np.cos(angle_b), np.sin(angle_b)], axis=1)
+            rot_y = np.stack([-np.sin(angle_b), np.cos(angle_b)], axis=1)
+        else:
+            p = np.stack(
+                [
+                    -d_b[:, 1] - d_b[:, 3], -d_b[:, 0] - d_b[:, 2],
+                    z, -d_b[:, 0] - d_b[:, 2],
+                    z, z,
+                    -d_b[:, 1] - d_b[:, 3], z,
+                    -d_b[:, 1], -d_b[:, 2],
+                ],
+                axis=0,
+            ).T.reshape(-1, 5, 2)
+            rot_x = np.stack([np.cos(-angle_b), -np.sin(-angle_b)], axis=1)
+            rot_y = np.stack([np.sin(-angle_b), np.cos(-angle_b)], axis=1)
+        rot_x = np.repeat(rot_x[:, None, :], 5, axis=1)
+        rot_y = np.repeat(rot_y[:, None, :], 5, axis=1)
+        p_rot = np.stack(
+            [np.sum(rot_x * p, axis=2), np.sum(rot_y * p, axis=2)], axis=2
+        )  # N,5,2
+        p3_in_origin = origin_b - p_rot[:, 4, :]
+        return p_rot[:, :4, :] + p3_in_origin[:, None, :]
+
+    pos = angle >= 0
+    out_pos = _block(origin[pos], d[pos], angle[pos], True)
+    out_neg = _block(origin[~pos], d[~pos], angle[~pos], False)
+    return np.concatenate([out_pos, out_neg], axis=0).astype(np.float32)
+
+
+def restore_rectangle_rbox_torch(origin: torch.Tensor,
+                                 geometry: torch.Tensor) -> torch.Tensor:
+    """Quads from per-pixel RBOX geometry, in the input's row order
+    (geometry.py:305-350): origin (..., N, 2) pixel (x, y); geometry
+    (..., N, 5) = (d_top, d_right, d_bottom, d_left, angle). Returns
+    (..., N, 4, 2). The anchor points of the angle >= 0 and < 0 frames
+    are both built and one is picked per row, as the JAX function does;
+    the rotation is written out (x' = c px + s py, y' = -s px + c py) in
+    float32."""
+    d = geometry[..., :4]
+    angle = geometry[..., 4]
+    z = torch.zeros_like(angle)
+    h = -d[..., 0] - d[..., 2]
+    w_pos = d[..., 1] + d[..., 3]
+    p_pos = torch.stack([z, h, w_pos, h, w_pos, z, z, z,
+                         d[..., 3], -d[..., 2]], -1)
+    p_neg = torch.stack([-w_pos, h, z, h, z, z, -w_pos, z,
+                         -d[..., 1], -d[..., 2]], -1)
+    p = torch.where((angle >= 0)[..., None], p_pos, p_neg)
+    p = p.reshape(*p.shape[:-1], 5, 2)
+    c, s = torch.cos(angle)[..., None], torch.sin(angle)[..., None]
+    px, py = p[..., 0], p[..., 1]
+    p_rot = torch.stack([c * px + s * py, -s * px + c * py], -1)
+    p3_in_origin = origin - p_rot[..., 4, :]
+    return p_rot[..., :4, :] + p3_in_origin[..., None, :]

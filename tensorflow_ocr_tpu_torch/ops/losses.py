@@ -1,14 +1,24 @@
-"""The OHEM PixelLink loss of the train step.
+"""The losses of the train step.
 
-Port of ``tensorflow_ocr_tpu/ops/losses.py:40-216``: softmax CE in closed
-form, Online Hard Negative Mining with the k-th smallest negative score
-found by a 32-step value bisection (not ``torch.topk``: every negative
-tied at the threshold is selected, as JAX selects it), and the pixel and
-8-direction link terms with their aux scalars. ``compute_dtype`` runs the
-CE terms and selection weights in bfloat16 with float32 reductions.
+Port of ``tensorflow_ocr_tpu/ops/losses.py``:
 
-The other losses of the JAX package (dice, positive, focal, EAST) are not
-ported: :func:`check_loss_ported` raises for them.
+- :func:`ohem_pixel_link_loss` (:137-216): softmax CE in closed form,
+  Online Hard Negative Mining with the k-th smallest negative score found
+  by a 32-step value bisection (not ``torch.topk``: every negative tied
+  at the threshold is selected, as JAX selects it), and the pixel and
+  8-direction link terms with their aux scalars. ``compute_dtype`` runs
+  the CE terms and selection weights in bfloat16 with float32 reductions;
+- :func:`dice_loss` (:64), :func:`dice_pixel_link_loss` (:219) and
+  :func:`positive_pixel_link_loss` (:236) of the VGG reference;
+- :func:`focal_loss` (:269) over 2-class logits and
+  :func:`focal_loss_binary` (:289) over sigmoid scores;
+- :func:`east_loss` (:333, RBOX: dice score, IoU and angle terms) and
+  :func:`east_quad_loss` (:303, QUAD: dice score and a smoothed L1 of the
+  corner offsets).
+
+Every one is capturable in a CUDA graph: no host sync and no
+data-dependent shape; the divisions by data-dependent counts stay tensor
+ops (``_safe_div``, ``clamp``).
 """
 
 from __future__ import annotations
@@ -17,13 +27,23 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-NOT_PORTED = ("dice", "positive", "focal", "east")
+EPS = 1e-5
 
 
 def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     """num / den, and 0 where den <= 0 (losses.py:40-42)."""
     return torch.where(den > 0, num / torch.clamp(den, min=1e-12),
                        torch.zeros_like(num))
+
+
+def dice_loss(y_true: torch.Tensor, y_pred: torch.Tensor,
+              training_mask: torch.Tensor) -> torch.Tensor:
+    """1 - 2 sum(t p m) / (sum(t m) + sum(p m) + eps), over the whole
+    batch (losses.py:64-70)."""
+    inter = (y_true * y_pred * training_mask).sum()
+    union = ((y_true * training_mask).sum() + (y_pred * training_mask).sum()
+             + EPS)
+    return 1.0 - 2.0 * inter / union
 
 
 def softmax_ce_with_logits(logits: torch.Tensor, labels: torch.Tensor
@@ -133,11 +153,122 @@ def ohem_pixel_link_loss(pixel_labels: torch.Tensor,
     return total, aux
 
 
-def check_loss_ported(name: str) -> None:
-    """Raise for a loss of the JAX package that the port lacks."""
-    if name == "ohem":
-        return
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"loss {name!r} is not ported yet (ROADMAP.md Queue 1: losses)")
-    raise ValueError(f"unknown loss {name!r}")
+def dice_pixel_link_loss(pixel_labels: torch.Tensor,
+                         pixel_probs: torch.Tensor,
+                         link_labels: torch.Tensor,
+                         link_probs: torch.Tensor,
+                         training_mask: torch.Tensor
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Dice on the score, twice, plus one dice per link direction
+    (losses.py:219-233). pixel_* (B,h,w,1) probabilities; link_* (B,h,w,8);
+    training_mask (B,h,w,1). Returns (total, aux)."""
+    cls = dice_loss(pixel_labels, pixel_probs, training_mask) * 2.0
+    link = torch.stack([
+        dice_loss(link_labels[..., i:i + 1], link_probs[..., i:i + 1],
+                  training_mask) for i in range(8)]).sum()
+    return link + cls, {"pixel_loss": cls, "link_loss": link}
+
+
+def positive_pixel_link_loss(pixel_labels: torch.Tensor,
+                             pixel_logits: torch.Tensor,
+                             link_labels: torch.Tensor,
+                             link_logits: torch.Tensor,
+                             pixel_loss_weight: float = 2.0
+                             ) -> Tuple[torch.Tensor,
+                                        Dict[str, torch.Tensor]]:
+    """Pixel CE on the positives only, and per-direction link CE on the
+    positive and negative links, both weighted by the pixel positives
+    (losses.py:236-266). Returns (total, aux)."""
+    labels = pixel_labels.reshape(-1).to(torch.int32)
+    w_pixel = (labels == 1).float()
+    ce = softmax_ce_with_logits(pixel_logits.reshape(-1, 2), labels)
+    pixel_loss = _safe_div((ce * w_pixel).sum(), w_pixel.sum())
+
+    link_lbl = link_labels.reshape(-1, 8).to(torch.int32)
+    link_ce = softmax_ce_with_logits(link_logits.reshape(-1, 8, 2),
+                                     link_lbl)
+    wp = w_pixel[:, None]
+    w_pos = (link_lbl == 1).float() * wp
+    w_neg = (link_lbl == 0).float() * wp
+    link_loss = (_safe_div((link_ce * w_pos).sum(0), w_pos.sum(0))
+                 + _safe_div((link_ce * w_neg).sum(0), w_neg.sum(0))).sum()
+    return pixel_loss * pixel_loss_weight + link_loss, {
+        "pixel_loss": pixel_loss, "link_loss": link_loss}
+
+
+def focal_loss(labels: torch.Tensor, logits: torch.Tensor,
+               training_mask: Optional[torch.Tensor] = None,
+               alpha: float = 0.25, gamma: float = 2.0) -> torch.Tensor:
+    """Focal loss over 2-class pixel logits, normalised by the positive
+    count (at least 1) (losses.py:269-286). labels (B,h,w,1); logits
+    (B,h,w,2)."""
+    lbl = labels.reshape(labels.shape[0], -1).to(torch.int32)
+    logpt = -softmax_ce_with_logits(logits.reshape(logits.shape[0], -1, 2),
+                                    lbl)
+    pt = torch.exp(logpt)
+    at = torch.where(lbl == 1, alpha, 1.0 - alpha)
+    fl = -at * (1.0 - pt) ** gamma * logpt
+    if training_mask is not None:
+        fl = fl * (training_mask.reshape(training_mask.shape[0], -1) > 0)
+    n_pos = torch.clamp((lbl == 1).float().sum(), min=1.0)
+    return fl.sum() / n_pos
+
+
+def focal_loss_binary(labels: torch.Tensor, probs: torch.Tensor,
+                      training_mask: Optional[torch.Tensor] = None,
+                      alpha: float = 0.25, gamma: float = 2.0
+                      ) -> torch.Tensor:
+    """Binary focal loss on sigmoid probabilities, p clipped to
+    [1e-7, 1 - 1e-7] (losses.py:289-300). labels, probs (B,h,w,1)."""
+    p = torch.clamp(probs, 1e-7, 1.0 - 1e-7)
+    pos = labels == 1
+    pt = torch.where(pos, p, 1.0 - p)
+    at = torch.where(pos, alpha, 1.0 - alpha)
+    fl = -at * (1.0 - pt) ** gamma * torch.log(pt)
+    if training_mask is not None:
+        fl = fl * (training_mask > 0)
+    n_pos = torch.clamp(pos.float().sum(), min=1.0)
+    return fl.sum() / n_pos
+
+
+def east_quad_loss(y_true_cls: torch.Tensor, y_pred_cls: torch.Tensor,
+                   y_true_geo: torch.Tensor, y_pred_geo: torch.Tensor,
+                   training_mask: torch.Tensor, cls_weight: float = 1.0
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """EAST QUAD: dice on the score plus the smoothed L1 of the 8 corner
+    offsets over 8 N_Q (the short edge, at least 1), averaged over the
+    positive pixels (losses.py:303-330). y_true_geo (B,h,w,9): offsets and
+    N_Q; y_pred_geo (B,h,w,8). Returns (total, aux)."""
+    cls_loss = dice_loss(y_true_cls, y_pred_cls, training_mask) * cls_weight
+    nq = torch.clamp(y_true_geo[..., 8:9], min=1.0)
+    ad = ((y_pred_geo - y_true_geo[..., :8]) / (8.0 * nq)).abs()
+    smooth = torch.where(ad < 1.0, 0.5 * ad * ad, ad - 0.5)
+    w = y_true_cls * training_mask
+    geo_loss = _safe_div((smooth.sum(-1, keepdim=True) * w).sum(), w.sum())
+    return geo_loss + cls_loss, {"cls_loss": cls_loss, "geo_loss": geo_loss}
+
+
+def east_loss(y_true_cls: torch.Tensor, y_pred_cls: torch.Tensor,
+              y_true_geo: torch.Tensor, y_pred_geo: torch.Tensor,
+              training_mask: torch.Tensor, angle_weight: float = 20.0,
+              cls_weight: float = 1.0
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """EAST RBOX: dice on the score, -log IoU of the edge distances
+    (top, right, bottom, left) and angle_weight (1 - cos) of the angle,
+    averaged over the positive pixels (losses.py:333-367). geo (B,h,w,5).
+    Returns (total, aux)."""
+    cls_loss = dice_loss(y_true_cls, y_pred_cls, training_mask) * cls_weight
+    d1_gt, d2_gt, d3_gt, d4_gt, theta_gt = torch.split(y_true_geo, 1, -1)
+    d1_p, d2_p, d3_p, d4_p, theta_p = torch.split(y_pred_geo, 1, -1)
+    area_gt = (d1_gt + d3_gt) * (d2_gt + d4_gt)
+    area_p = (d1_p + d3_p) * (d2_p + d4_p)
+    w_union = torch.minimum(d2_gt, d2_p) + torch.minimum(d4_gt, d4_p)
+    h_union = torch.minimum(d1_gt, d1_p) + torch.minimum(d3_gt, d3_p)
+    area_intersect = w_union * h_union
+    area_union = area_gt + area_p - area_intersect
+    aabb = -torch.log((area_intersect + 1.0) / (area_union + 1.0))
+    theta = 1.0 - torch.cos(theta_p - theta_gt)
+    geo = aabb + angle_weight * theta
+    w = y_true_cls * training_mask
+    geo_loss = _safe_div((geo * w).sum(), w.sum())
+    return geo_loss + cls_loss, {"cls_loss": cls_loss, "geo_loss": geo_loss}

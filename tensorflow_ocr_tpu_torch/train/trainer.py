@@ -1,15 +1,20 @@
 """Train state, the train step, checkpoints, the multi-step dispatch and
 the trainer loop.
 
-Port of ``tensorflow_ocr_tpu/train/trainer.py`` for one device and the
-PixelLink OHEM recipe:
+Port of ``tensorflow_ocr_tpu/train/trainer.py`` for one device and every
+head and loss of the registry's models:
 
 - :class:`TrainState`: the step count (an int64 tensor on the device,
   like JAX's ``jnp.int32`` step), the model (parameters and BN running
   statistics), the optimizer and the EMA of the parameters;
-- :func:`make_loss_fn`: PixelLink labels made on the device from the
-  padded polygons (or taken precomputed from ``score``/``link``/``mask``)
-  and the OHEM loss;
+- :func:`make_loss_fn` (:95-193): the labels made on the device from the
+  padded polygons at the model's output stride (PixelLink and link8:
+  score, links, mask; EAST: score, RBOX or QUAD geometry, mask, from the
+  shrunk polygons, fitted rectangles and angles of ``data/icdar.py``
+  ``east_poly_geometry``), or taken precomputed from the batch, and the
+  loss that JAX's dispatch picks for the head: OHEM, dice, positive or
+  focal for PixelLink, dice for link8, the EAST loss, focal or QUAD for
+  EAST;
 - :func:`train_step`: forward (batch-statistics BN, or running
   statistics with ``freeze_bn``), backward, optimizer update with the
   learning rate of the step, EMA update, all on the device; the reported
@@ -30,7 +35,8 @@ PixelLink OHEM recipe:
 Not ported yet (ROADMAP.md Queue 1): checkpoint-time calibration
 (``_maybe_calibrate``, item 5), the device dataset and
 ``run_device_cached`` (item 4), augmentation (item 4), the slim ``.npz``
-backbone import (item 6) and data parallelism (item 7).
+backbone import (item 6) and data parallelism (item 7). Every loss and
+head of the JAX package is ported (:func:`make_loss_fn`).
 """
 
 from __future__ import annotations
@@ -49,20 +55,36 @@ import numpy as np
 import torch
 
 from tensorflow_ocr_tpu_torch.config import Config
-from tensorflow_ocr_tpu_torch.models.detector import Detector, build_model
-from tensorflow_ocr_tpu_torch.ops.labels import pixellink_labels_stride
-from tensorflow_ocr_tpu_torch.ops.losses import (
-    check_loss_ported,
-    ohem_pixel_link_loss,
+from tensorflow_ocr_tpu_torch.data.icdar import east_poly_geometry
+from tensorflow_ocr_tpu_torch.models.detector import (
+    Detector,
+    build_model,
+    model_head,
+    model_output_stride,
+)
+from tensorflow_ocr_tpu_torch.ops import losses as L
+from tensorflow_ocr_tpu_torch.ops.labels import (
+    east_labels_batch,
+    pixellink_labels_stride,
 )
 from tensorflow_ocr_tpu_torch.train import optim
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-OUTPUT_STRIDE = 4  # the PixelLink models of the registry
 # the keys of a batch that the multi-step dispatch gathers (trainer.py:198)
 BATCH_KEYS = ("images", "polys", "tags", "valid", "shrunk", "rects", "angles")
-# precomputed label maps (data/device_cache.py DeviceDataset.labels)
+# precomputed label maps (data/device_cache.py DeviceDataset.labels) of
+# the PixelLink and link8 heads, and of EAST
 LABEL_KEYS = ("score", "link", "mask")
+EAST_LABEL_KEYS = ("score", "geo", "mask")
+# the losses of the pixellink head (trainer.py:127-163); link8 trains
+# dice and EAST its own loss or focal, whatever the name
+PIXELLINK_LOSSES = ("ohem", "dice", "positive", "focal")
+
+
+def label_keys(cfg: Config) -> Tuple[str, ...]:
+    """The precomputed label maps of ``cfg.model.name``'s head."""
+    return (EAST_LABEL_KEYS if model_head(cfg.model.name) == "east"
+            else LABEL_KEYS)
 
 
 @dataclass
@@ -92,12 +114,14 @@ def create_train_state(cfg: Config, device="cuda",
     ``ema = copy(params)``, on ``device`` (the card unless the caller asks
     for the CPU; raises when there is no card)."""
     device = require_device(device, "create_train_state")
-    check_loss_ported(cfg.loss.name)
+    cfg.validate()
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.train.seed)
     model = build_model(cfg.model.name, dtype=DTYPES[cfg.model.compute_dtype],
                         generator=generator,
-                        bottleneck_impl=cfg.model.bottleneck_impl)
+                        bottleneck_impl=cfg.model.bottleneck_impl,
+                        text_scale=cfg.model.text_scale,
+                        geometry=cfg.data.geometry)
     if weights is not None:
         model.load_state_dict(weights, strict=True)
     model.to(device)
@@ -108,38 +132,109 @@ def create_train_state(cfg: Config, device="cuda",
 
 
 def make_labels_fn(cfg: Config) -> Callable:
-    """labels(batch) -> (score (B,h,w,1), link (B,h,w,8), mask (B,h,w,1)):
-    the precomputed maps where the batch has them, else made on the
-    device from the padded polygons."""
-    out_hw = cfg.data.input_size // OUTPUT_STRIDE
+    """labels(batch) -> the label maps of the model's head at its output
+    stride: (score (B,h,w,1), link (B,h,w,8), mask (B,h,w,1)) for
+    PixelLink and link8, (score, geo (B,h,w,5|9), mask) for EAST. The
+    precomputed maps where the batch has them (``score``, and ``geo``
+    for EAST), else made on the device from the padded polygons (and for
+    EAST from ``shrunk``/``rects``/``angles``)."""
+    stride = model_output_stride(cfg.model.name)
+    out_hw = cfg.data.input_size // stride
+    min_ts = cfg.data.min_text_size
+
+    if model_head(cfg.model.name) == "east":
+        def labels(batch):
+            if "geo" in batch:  # precomputed label maps
+                return batch["score"], batch["geo"], batch["mask"]
+            return east_labels_batch(
+                batch["polys"], batch["shrunk"], batch["rects"],
+                batch["angles"], batch["tags"], batch["valid"], out_hw,
+                out_hw, stride, min_ts, geometry=cfg.data.geometry)
+        return labels
 
     def labels(batch):
         if "score" in batch:  # precomputed label maps
             return batch["score"], batch["link"], batch["mask"]
         s, l, m = pixellink_labels_stride(
             batch["polys"], batch["tags"], batch["valid"], out_hw, out_hw,
-            OUTPUT_STRIDE, cfg.data.min_text_size)
+            stride, min_ts)
         return s[..., None], l, m[..., None]
 
     return labels
 
 
+def _link_probs(link_logits: torch.Tensor) -> torch.Tensor:
+    """(B,h,w,16) logits in (direction, class) pairs -> (B,h,w,8) P(link)
+    (trainer.py:84-89)."""
+    pairs = link_logits.reshape(*link_logits.shape[:-1], 8, 2)
+    return torch.softmax(pairs, -1)[..., 1]
+
+
 def make_loss_fn(cfg: Config) -> Callable:
-    """loss(outputs, batch) -> (model_loss, aux) for PixelLink + OHEM."""
-    check_loss_ported(cfg.loss.name)
+    """loss(outputs, batch) -> (model_loss, aux): JAX's dispatch by head
+    and loss (trainer.py:95-193). PixelLink: ohem, dice (on the softmax
+    probabilities), positive, or focal (the pixel focal loss times
+    ``pixel_loss_weight`` plus the positive loss's link term); an other
+    name raises ValueError. link8: the dice loss. EAST: QUAD's loss
+    (classification + ``east_geo_weight`` x geometry) whatever the name;
+    RBOX: focal (binary focal classification + ``east_geo_weight`` x the
+    EAST geometry term), else the EAST loss."""
     labels = make_labels_fn(cfg)
     lcfg = cfg.loss
+    head = model_head(cfg.model.name)
+    if head == "pixellink" and lcfg.name not in PIXELLINK_LOSSES:
+        raise ValueError(f"loss {lcfg.name} unsupported for pixellink")
 
-    def loss_fn(outputs, batch):
+    def pixellink_loss(outputs, batch):
         score, link, mask = labels(batch)
-        return ohem_pixel_link_loss(
-            score, outputs["pixel_logits"], link, outputs["link_logits"],
-            mask, max_neg_pos_ratio=lcfg.max_neg_pos_ratio,
-            pixel_loss_weight=lcfg.pixel_loss_weight,
-            bg_neg_budget=lcfg.bg_neg_budget,
-            compute_dtype=lcfg.compute_dtype)
+        pl, ll = outputs["pixel_logits"], outputs["link_logits"]
+        if lcfg.name == "ohem":
+            return L.ohem_pixel_link_loss(
+                score, pl, link, ll, mask,
+                max_neg_pos_ratio=lcfg.max_neg_pos_ratio,
+                pixel_loss_weight=lcfg.pixel_loss_weight,
+                bg_neg_budget=lcfg.bg_neg_budget,
+                compute_dtype=lcfg.compute_dtype)
+        if lcfg.name == "dice":
+            return L.dice_pixel_link_loss(
+                score, torch.softmax(pl, -1)[..., 1:2], link,
+                _link_probs(ll), mask)
+        if lcfg.name == "positive":
+            return L.positive_pixel_link_loss(
+                score, pl, link, ll,
+                pixel_loss_weight=lcfg.pixel_loss_weight)
+        fl = L.focal_loss(score, pl, mask, alpha=lcfg.focal_alpha,
+                          gamma=lcfg.focal_gamma)
+        _, aux = L.positive_pixel_link_loss(score, pl, link, ll)
+        total = fl * lcfg.pixel_loss_weight + aux["link_loss"]
+        return total, {"pixel_loss": fl, "link_loss": aux["link_loss"]}
 
-    return loss_fn
+    def link8_loss(outputs, batch):
+        score, link, mask = labels(batch)
+        return L.dice_pixel_link_loss(score, outputs["score"], link,
+                                      outputs["link_probs"], mask)
+
+    def east_loss(outputs, batch):
+        score, geo, mask = labels(batch)
+        if cfg.data.geometry == "QUAD":
+            _, aux = L.east_quad_loss(score, outputs["score"], geo,
+                                      outputs["geometry"], mask)
+            return aux["cls_loss"] + aux["geo_loss"] * lcfg.east_geo_weight, \
+                aux
+        if lcfg.name == "focal":
+            cls = L.focal_loss_binary(score, outputs["score"], mask,
+                                      alpha=lcfg.focal_alpha,
+                                      gamma=lcfg.focal_gamma)
+            _, aux = L.east_loss(score, outputs["score"], geo,
+                                 outputs["geometry"], mask,
+                                 angle_weight=lcfg.east_angle_weight)
+            total = cls + aux["geo_loss"] * lcfg.east_geo_weight
+            return total, {"cls_loss": cls, "geo_loss": aux["geo_loss"]}
+        return L.east_loss(score, outputs["score"], geo, outputs["geometry"],
+                           mask, angle_weight=lcfg.east_angle_weight)
+
+    return {"pixellink": pixellink_loss, "link8": link8_loss,
+            "east": east_loss}[head]
 
 
 def loss_and_grads(model: Detector, batch: Mapping[str, torch.Tensor],
@@ -186,20 +281,38 @@ def to_device(batch: Mapping[str, np.ndarray], device
             for k, v in batch.items()}
 
 
+def east_geometry(polys) -> Dict[str, torch.Tensor]:
+    """``shrunk``, ``rects`` and ``angles`` of a batch's (B, K, 4, 2)
+    padded polygons (host or device), from ``data/icdar.py``
+    ``east_poly_geometry`` on the host, image by image; on the polygons'
+    device."""
+    host = polys.detach().cpu().numpy() if torch.is_tensor(polys) \
+        else np.asarray(polys, np.float32)
+    parts = [east_poly_geometry(p) for p in host]
+    device = polys.device if torch.is_tensor(polys) else "cpu"
+    return {k: torch.from_numpy(np.stack([p[i] for p in parts])).to(device)
+            for i, k in enumerate(("shrunk", "rects", "angles"))}
+
+
 def device_dataset(batch: Mapping[str, Any], cfg: Config, device
                    ) -> Dict[str, torch.Tensor]:
     """The dataset of :func:`make_multi_train_step` from a host or device
     batch of ``images``/``polys``/``tags``/``valid``: those on ``device``,
-    the EAST keys as zeros, and the label maps precomputed on the device
-    (data/device_cache.py DeviceDataset ``_precompute``, :129-162)."""
+    the EAST keys (:func:`east_geometry` for an EAST model, zeros
+    otherwise), and the label maps of the model's head precomputed on the
+    device (data/device_cache.py DeviceDataset ``_load``, :122-128, and
+    ``_precompute``, :129-162)."""
     out = to_device({k: batch[k] for k in ("images", "polys", "tags",
                                            "valid")}, device)
     polys = out["polys"]
-    out["shrunk"] = torch.zeros_like(polys)
-    out["rects"] = torch.zeros_like(polys)
-    out["angles"] = torch.zeros(polys.shape[:2], dtype=torch.float32,
-                                device=polys.device)
-    out.update(zip(LABEL_KEYS, make_labels_fn(cfg)(out)))
+    if model_head(cfg.model.name) == "east":
+        out.update(east_geometry(polys))
+    else:
+        out["shrunk"] = torch.zeros_like(polys)
+        out["rects"] = torch.zeros_like(polys)
+        out["angles"] = torch.zeros(polys.shape[:2], dtype=torch.float32,
+                                    device=polys.device)
+    out.update(zip(label_keys(cfg), make_labels_fn(cfg)(out)))
     return out
 
 
@@ -308,8 +421,8 @@ def make_multi_train_step(state: TrainState, cfg: Config,
     """S train steps a dispatch over a dataset of device tensors.
 
     Returns ``multi(state, dataset, idx)``: ``dataset`` maps JAX's keys
-    (:data:`BATCH_KEYS`, plus ``extra_keys``, e.g. the precomputed
-    ``score``/``link``/``mask`` of :func:`device_dataset`) to tensors on
+    (:data:`BATCH_KEYS`, plus ``extra_keys``, e.g. the precomputed label
+    maps of :func:`device_dataset`, :func:`label_keys`) to tensors on
     the state's device; ``idx`` is an (S, B) int tensor of dataset rows.
     Step s trains on ``dataset[k][idx[s]]``; the state is updated in place
     and the metrics of the last step come back, with ``total_loss`` the
@@ -785,7 +898,10 @@ class Trainer:
             img = batch["images"][:1]
             with torch.no_grad():
                 out = self.state.model(img, train=False)
-            pred = torch.softmax(out["pixel_logits"].float(), -1)[..., 1:]
+            if "pixel_logits" in out:
+                pred = torch.softmax(out["pixel_logits"].float(), -1)[..., 1:]
+            else:
+                pred = out["score"]
             score = make_labels_fn(self.cfg)(
                 {k: v[:1] for k, v in batch.items()})[0]
             self.summary_writer.add_detection_summaries(

@@ -524,28 +524,31 @@ def test_detect_forward_with_the_route_matches_jax(interpret, monkeypatch):
     with torch.inference_mode():
         tout = model(torch.from_numpy(images))
     # JAX: the 3x3s at 32x32 and 16x16 and the head's 1x1s from pool2 and
-    # pool3; the port takes every stride-1 conv (11)
-    assert calls["jax"] == 6 and calls["port"] == 11
+    # pool3; the port's route takes the same convs
+    assert calls["jax"] == 6 and calls["port"] == 6
     for key in ("pixel_logits", "link_logits"):
         np.testing.assert_allclose(tout[key].numpy(), np.asarray(jout[key]),
                                    rtol=0, atol=1e-4, err_msg=key)
 
 
 @pytest.mark.parametrize("flag,k,stride,explicit,hw,routed", [
-    (True, 1, 1, False, (6, 8), True),
-    (True, 3, 1, False, (5, 7), True),
-    (True, 1, 2, False, (6, 8), True),    # SAME reads x[::2, ::2]
-    (True, 1, 2, False, (5, 8), False),   # odd H: SAME pads
-    (True, 3, 2, True, (6, 8), False),    # slim's explicit pad, stride 2
-    (True, 7, 1, False, (6, 8), False),
-    (False, 3, 1, False, (6, 8), False),
-    (None, 3, 1, False, (6, 8), False),   # None: on for CUDA tensors only
+    (True, 1, 1, False, (8, 16), True),   # M = 256 rows: _pick_bm blocks
+    (True, 3, 1, False, (8, 16), True),   # W % 8 == 0, H banded by 8
+    (True, 1, 2, False, (16, 32), True),  # SAME reads x[::2, ::2]
+    (True, 1, 2, False, (15, 32), False),  # odd H: SAME pads
+    (True, 1, 1, False, (6, 8), False),   # M = 96: no TPU row block
+    (True, 3, 1, False, (8, 12), False),  # W % 8 != 0
+    (True, 3, 2, True, (8, 16), False),   # slim's explicit pad, stride 2
+    (True, 7, 1, False, (8, 16), False),
+    (False, 3, 1, False, (8, 16), False),
+    (None, 3, 1, False, (8, 16), False),  # None: on for CUDA tensors only
 ])
 def test_convbn_takes_the_route_under_the_jax_conditions(
         monkeypatch, flag, k, stride, explicit, hw, routed):
     """models/layers.py:131-135: the route under PALLAS_CONVS, with SAME
-    padding and a conv that ``supported`` takes; the output is the same
-    either way."""
+    padding and a conv that ``supported`` takes, which are the shapes
+    ``pallas_conv.supported`` takes; the output is the same either
+    way."""
     monkeypatch.setattr(TL, "PALLAS_CONVS", flag)
     cbn = TL.ConvBN(8, 4, k, stride, explicit_pad=explicit)
     x = torch.randn(2, 8, *hw, generator=torch.Generator().manual_seed(k))

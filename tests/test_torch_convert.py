@@ -69,6 +69,6 @@ def test_unknown_variable_is_rejected():
 
 def test_unported_model_names_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("east_resnet50")
+        build_model("east_resnet101")
     with pytest.raises(ValueError, match="unknown model"):
         build_model("no_such_model")

@@ -13,6 +13,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tensorflow_ocr_tpu.config import Config
@@ -64,3 +65,15 @@ def test_export_then_load_gives_equal_logits(tmp_path):
     for key in ("pixel_logits", "link_logits"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    rtol=0, atol=1e-4, err_msg=key)
+
+
+def test_export_model_choices_are_the_port_registry():
+    """--model takes every model the port's registry builds, and no
+    other."""
+    from tensorflow_ocr_tpu_torch.models.detector import MODEL_REGISTRY
+
+    script = _script()
+    assert set(script.PORT_MODELS) == set(MODEL_REGISTRY)
+    with pytest.raises(SystemExit):
+        script.main(["--checkpoint", "x", "--out", "y", "--model",
+                     "east_resnet101"])

@@ -40,9 +40,11 @@ def test_port_imports_without_jax_or_cv2():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
-    for mod in ("config", "infer", "models.convert", "models.detector",
-                "models.resnet", "ops.conv", "ops.decode", "ops.fused",
-                "ops.kernels", "ops.labels", "ops.losses", "ops.rasterize",
-                "train.optim", "train.trainer", "utils.image",
-                "utils.profiling", "utils.summary"):
+    for mod in ("config", "data.icdar", "infer", "models.convert",
+                "models.detector", "models.heads", "models.resnet",
+                "models.vgg", "ops.conv", "ops.decode", "ops.fused",
+                "ops.geometry", "ops.kernels", "ops.labels", "ops.losses",
+                "ops.rasterize", "train.optim", "train.trainer",
+                "utils.image", "utils.nms", "utils.profiling",
+                "utils.summary"):
         assert f"tensorflow_ocr_tpu_torch.{mod}" in out["modules"]

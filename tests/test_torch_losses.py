@@ -108,9 +108,23 @@ def test_ohem_loss_bfloat16_compute_matches_jax():
 
 
 def test_unported_losses_name_the_roadmap():
-    TLoss.check_loss_ported("ohem")
-    for name in ("dice", "focal", "positive", "east"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TLoss.check_loss_ported(name)
-    with pytest.raises(ValueError, match="unknown loss"):
-        TLoss.check_loss_ported("nope")
+    """Every loss of the JAX package is ported (tests/test_torch_losses_rest.py
+    holds them); make_loss_fn refuses a loss its head has not, as JAX's
+    dispatch does, and an unported model still names the roadmap."""
+    from tensorflow_ocr_tpu_torch.config import Config
+    from tensorflow_ocr_tpu_torch.models import build_model
+    from tensorflow_ocr_tpu_torch.train.trainer import make_loss_fn
+
+    for name in ("dice_loss", "dice_pixel_link_loss",
+                 "positive_pixel_link_loss", "focal_loss",
+                 "focal_loss_binary", "east_quad_loss", "east_loss"):
+        assert callable(getattr(TLoss, name)) and hasattr(JLoss, name)
+    cfg = Config()
+    for name in ("ohem", "dice", "positive", "focal"):
+        cfg.loss.name = name
+        make_loss_fn(cfg)
+    cfg.loss.name = "nope"
+    with pytest.raises(ValueError, match="unsupported for pixellink"):
+        make_loss_fn(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model("east_resnet101")

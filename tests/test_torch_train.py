@@ -156,7 +156,9 @@ def test_train_entry_points_default_to_the_card(entry):
 
 def test_train_state_refuses_unported_settings():
     """"ghost" builds and trains (one CPU step at 96x96, where block1's
-    units take the ghost path); an unported loss still raises."""
+    units take the ghost path); a loss the pixellink head has not raises
+    ValueError, as JAX's dispatch does, and so does a geometry other than
+    RBOX or QUAD."""
     from tensorflow_ocr_tpu_torch.models.resnet import GhostBottleneck
 
     cfg = Config()
@@ -173,9 +175,13 @@ def test_train_state_refuses_unported_settings():
     assert np.isfinite(float(m["total_loss"])) and state.step == 1
     assert not torch.equal(before, bb.block1_unit1.conv2.conv.weight)
     cfg = Config()
-    cfg.loss.name = "dice"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.loss.name = "east"
+    with pytest.raises(ValueError, match="unsupported for pixellink"):
         TT.make_loss_fn(cfg)
+    cfg = Config()
+    cfg.data.geometry = "POLY"
+    with pytest.raises(ValueError, match="RBOX"):
+        TT.create_train_state(cfg, device="cpu")
 
 
 def test_loss_fn_takes_polys_or_precomputed_labels():
