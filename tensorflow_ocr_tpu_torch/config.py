@@ -11,10 +11,11 @@ own copy so that it imports nothing of the JAX package;
 
 Left out until the modules that read them are ported (ROADMAP.md Queue
 1): ``calibrate_at_checkpoint`` and ``calibrate_max_images`` (the
-checkpoint-time calibration, item 5), ``use_device_cache`` (the device
-dataset and ``run_device_cached``, item 4), ``eval_every_steps`` (the
-eval hook, item 5) and ``donate_state`` (the port's steps update the
-state in place; there is nothing to donate).
+checkpoint-time calibration, item 5), ``eval_every_steps`` (the eval
+hook, item 5) and ``donate_state`` (the port's steps update the state in
+place; there is nothing to donate). The data fields (the ICDAR reader,
+the loaders and the augmentation of ``data/``) and ``use_device_cache``
+(``Trainer.run_device_cached``) are here.
 """
 
 from __future__ import annotations
@@ -49,10 +50,30 @@ class InferConfig:
 
 @dataclass
 class DataConfig:
-    input_size: int = 512
+    training_data_path: str = "/data/ocr/icdar2015/"
+    max_image_large_side: int = 1280
+    max_text_size: int = 800
     # polys whose shorter side is below this are masked out of the loss
     min_text_size: int = 10
+    min_crop_side_ratio: float = 0.1
     geometry: str = "RBOX"  # EAST labels and head: RBOX | QUAD
+    input_size: int = 512
+    batch_size: int = 14
+    num_workers: int = 8
+    max_queue_size: int = 24
+    # polygon slots of an image (fixed shapes for the device labels)
+    max_polys: int = 64
+    # augmentation: a scale drawn from random_scale, a random crop, a
+    # background crop with probability background_ratio (needs use_crop),
+    # a rotation within +-max_rotate_deg
+    random_scale: Sequence[float] = (0.5, 1.0, 2.0, 3.0)
+    use_random_scale: bool = False
+    use_crop: bool = False
+    background_ratio: float = 0.0
+    use_rotate: bool = False
+    max_rotate_deg: float = 10.0
+    # keep decoded frames (before augmentation) across epochs
+    cache_decoded_images: bool = True
 
 
 @dataclass
@@ -124,6 +145,9 @@ class TrainConfig:
     # disables
     stall_warn_secs: float = 300.0
     seed: int = 0
+    # train through Trainer.run_device_cached: the dataset staged on the
+    # device, scan_steps steps a dispatch
+    use_device_cache: bool = False
     # steps a make_multi_train_step dispatch runs (one graph replay each)
     scan_steps: int = 16
 

@@ -9,9 +9,18 @@ that the port imports nothing of the JAX package, and
 ``restore_rectangle_rbox_jax`` (:305) that ``ops/decode.py``
 ``east_detect`` runs on the device. ``tests/test_torch_east_labels.py``
 holds the copies bit-equal to the originals.
+
+The data tier adds ``check_and_validate_polys`` (:41), ``restore_rectangle``
+(:273), ``order_points`` (:278) and ``sort_poly`` (:290), and the torch
+forms of ``polygon_area_jax`` (:355) and ``sort_rectangle_jax`` (:402),
+which ``data/device_augment.py`` runs inside the captured train step: no
+host sync, every branch a ``torch.where``.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -27,6 +36,32 @@ def polygon_area(poly: np.ndarray) -> float:
     nxt = np.roll(p, -1, axis=0)
     edge = (nxt[:, 0] - p[:, 0]) * (nxt[:, 1] + p[:, 1])
     return float(np.sum(edge) / 2.0)
+
+
+def check_and_validate_polys(polys, tags, size):
+    """Clip to the image, drop polygons of area below 1, and reverse the
+    winding of those with a positive signed area (reference icdar.py:108-135:
+    the clip bounds w-1/h-1 and the (0, 3, 2, 1) reorder)."""
+    h, w = size
+    polys = np.asarray(polys, dtype=np.float32)
+    tags = np.asarray(tags, dtype=bool)
+    if polys.shape[0] == 0:
+        return polys.reshape(0, 4, 2), tags
+    polys = polys.copy()
+    polys[:, :, 0] = np.clip(polys[:, :, 0], 0, w - 1)
+    polys[:, :, 1] = np.clip(polys[:, :, 1], 0, h - 1)
+    out_p, out_t = [], []
+    for poly, tag in zip(polys, tags):
+        area = polygon_area(poly)
+        if abs(area) < 1:
+            continue
+        if area > 0:
+            poly = poly[(0, 3, 2, 1), :]
+        out_p.append(poly)
+        out_t.append(tag)
+    if not out_p:
+        return np.zeros((0, 4, 2), np.float32), np.zeros((0,), bool)
+    return np.array(out_p, np.float32), np.array(out_t, bool)
 
 
 def shrink_poly(poly: np.ndarray, r: np.ndarray, ratio: float = 0.3) -> np.ndarray:
@@ -231,6 +266,79 @@ def restore_rectangle_rbox(origin: np.ndarray, geometry: np.ndarray) -> np.ndarr
     out_pos = _block(origin[pos], d[pos], angle[pos], True)
     out_neg = _block(origin[~pos], d[~pos], angle[~pos], False)
     return np.concatenate([out_pos, out_neg], axis=0).astype(np.float32)
+
+
+def restore_rectangle(origin, geometry):
+    """Reference icdar.py:482-483 alias."""
+    return restore_rectangle_rbox(origin, geometry)
+
+
+def order_points(pts: np.ndarray) -> np.ndarray:
+    """Order 4 points TL, TR, BR, BL (reference test.py:24-35)."""
+    pts = np.asarray(pts, np.float64)
+    x_sorted = pts[np.argsort(pts[:, 0]), :]
+    left = x_sorted[:2][np.argsort(x_sorted[:2, 1])]
+    tl, bl = left
+    right = x_sorted[2:]
+    d = np.linalg.norm(right - tl, axis=1)
+    br, tr = right[np.argsort(d)[::-1]]
+    return np.array([tl, tr, br, bl], dtype=np.int32)
+
+
+def sort_poly(p: np.ndarray) -> np.ndarray:
+    """Start at the corner of least x + y; clockwise when the first edge is
+    the wider (reference test.py:37-43)."""
+    p = np.asarray(p)
+    min_axis = int(np.argmin(np.sum(p, axis=1)))
+    p = p[[min_axis, (min_axis + 1) % 4, (min_axis + 2) % 4, (min_axis + 3) % 4]]
+    if abs(p[0, 0] - p[1, 0]) > abs(p[0, 1] - p[1, 1]):
+        return p
+    return p[[0, 3, 2, 1]]
+
+
+def polygon_area_torch(polys: torch.Tensor) -> torch.Tensor:
+    """Batched shoelace signed area of (..., K, 2) polygons
+    (``polygon_area_jax``)."""
+    nxt = polys.roll(-1, dims=-2)
+    edge = (nxt[..., 0] - polys[..., 0]) * (nxt[..., 1] + polys[..., 1])
+    return edge.sum(-1) / 2.0
+
+
+def sort_rectangle_torch(poly: torch.Tensor, eps: float = 1e-4
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``sort_rectangle_jax`` on (..., 4, 2) float32 corners in any order:
+    (corners clockwise from the top left, angle in [-pi/4, pi/4]). The
+    reference's branches (the lowest point, two lowest points tied: axis
+    aligned, angle 0; above 45 degrees: relabelled) are selects, so it
+    runs on the device without a host sync."""
+    poly = poly.float()
+    y = poly[..., 1]
+    p_low = y.argmax(-1)
+    ymax = y.gather(-1, p_low[..., None])[..., 0]
+    tie = ((y - ymax[..., None]).abs() < eps).sum(-1) >= 2
+    p0 = poly.sum(-1).argmin(-1)
+    p_right = (p_low - 1) % 4
+
+    def take_pt(i):
+        return poly.gather(-2, i[..., None, None].expand(
+            *i.shape, 1, 2))[..., 0, :]
+
+    pl, pr = take_pt(p_low), take_pt(p_right)
+    dx = pl[..., 0] - pr[..., 0]
+    dy = pl[..., 1] - pr[..., 1]
+    safe_dx = torch.where(dx.abs() < 1e-9, torch.ones_like(dx), dx)
+    angle = torch.atan(-dy / safe_dx)
+    steep = angle > math.pi / 4
+    four = torch.arange(4, device=poly.device)
+    base = p_low[..., None] + four
+    idx = torch.where(tie[..., None], (p0[..., None] + four) % 4,
+                      torch.where(steep[..., None], (base + 2) % 4,
+                                  (base + 1) % 4))
+    sorted_poly = poly.gather(-2, idx[..., None].expand(*idx.shape, 2))
+    zero = torch.zeros_like(angle)
+    out_angle = torch.where(tie, zero, torch.where(
+        steep, -(math.pi / 2 - angle), angle))
+    return sorted_poly, out_angle
 
 
 def restore_rectangle_rbox_torch(origin: torch.Tensor,

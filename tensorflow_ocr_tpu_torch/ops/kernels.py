@@ -46,23 +46,25 @@ def _nvcc() -> str:
                        "kernels are built from csrc/ on first use")
 
 
-def build_library(name: str) -> Path:
+def build_library(name: str, link: tuple = ()) -> Path:
     """Compile ``csrc/<name>.cu`` into a shared library, once per content
     hash (of the source, the ``csrc/*.cuh`` headers it may include, the
-    flags and the compiler), and return its path. Raises if ``nvcc`` is
-    missing or fails."""
+    flags, the link flags ``link`` (e.g. ``("-lnvjpeg",)``) and the
+    compiler), and return its path. Raises if ``nvcc`` is missing or
+    fails."""
     src = CSRC_DIR / f"{name}.cu"
     nvcc = _nvcc()
     headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    flags = NVCC_FLAGS + tuple(link)
     digest = hashlib.sha256(
-        src.read_bytes() + headers + "\0".join(NVCC_FLAGS + (nvcc,)).encode()
+        src.read_bytes() + headers + "\0".join(flags + (nvcc,)).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src),
+                               *link], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent reader never sees half

@@ -27,20 +27,23 @@ head and loss of the registry's models:
   all, async writes joined in order, pruning, strict restore, restore
   for inference, and :func:`warm_start` (:585-606);
 - :class:`StallWatchdog` (:614-672) and :class:`Trainer` (:674-866,
-  :985-1030): ``setup`` (seeded, given weights, resumed or warm-started)
-  and ``run(batches, max_steps)`` with the NaN abort, the examples/s
-  meter, checkpoints on the step and time cadence, summaries and
-  SIGTERM preemption.
+  :985-1030): ``setup`` (seeded, given weights, resumed or warm-started),
+  ``run(batches, max_steps)`` with the NaN abort, the examples/s meter,
+  checkpoints on the step and time cadence (with the data iterator's
+  position), summaries and SIGTERM preemption, and
+  ``run_device_cached`` (:868-983) over ``data/device_cache.py``
+  ``DeviceDataset``, augmented on the device inside the captured step
+  when the augmentation flags are on.
 
 Not ported yet (ROADMAP.md Queue 1): checkpoint-time calibration
-(``_maybe_calibrate``, item 5), the device dataset and
-``run_device_cached`` (item 4), augmentation (item 4), the slim ``.npz``
-backbone import (item 6) and data parallelism (item 7). Every loss and
-head of the JAX package is ported (:func:`make_loss_fn`).
+(``_maybe_calibrate``, item 5), the slim ``.npz`` backbone import (item
+6) and data parallelism (item 7). Every loss and head of the JAX package
+is ported (:func:`make_loss_fn`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import os
@@ -281,6 +284,23 @@ def to_device(batch: Mapping[str, np.ndarray], device
             for k, v in batch.items()}
 
 
+def device_batch(batch: Mapping[str, Any], device, want_east: bool = False
+                 ) -> Dict[str, torch.Tensor]:
+    """A host or device batch on ``device`` (trainer.py:379-396): its
+    arrays (a tensor already there is not copied; the file names stay
+    behind), and zero ``shrunk``/``rects``/``angles`` where an EAST
+    model's batch lacks them."""
+    out = to_device({k: v for k, v in batch.items() if k != "fns"}, device)
+    if want_east:
+        b, k = out["polys"].shape[:2]
+        for key, shape in (("shrunk", (b, k, 4, 2)), ("rects", (b, k, 4, 2)),
+                           ("angles", (b, k))):
+            if key not in out:
+                out[key] = torch.zeros(shape, dtype=torch.float32,
+                                       device=device)
+    return out
+
+
 def east_geometry(polys) -> Dict[str, torch.Tensor]:
     """``shrunk``, ``rects`` and ``angles`` of a batch's (B, K, 4, 2)
     padded polygons (host or device), from ``data/icdar.py``
@@ -300,19 +320,23 @@ def device_dataset(batch: Mapping[str, Any], cfg: Config, device
     batch of ``images``/``polys``/``tags``/``valid``: those on ``device``,
     the EAST keys (:func:`east_geometry` for an EAST model, zeros
     otherwise), and the label maps of the model's head precomputed on the
-    device (data/device_cache.py DeviceDataset ``_load``, :122-128, and
-    ``_precompute``, :129-162)."""
+    device (``data/device_cache.py`` ``label_maps``, as ``DeviceDataset``
+    makes them for a directory)."""
+    from tensorflow_ocr_tpu_torch.data.device_cache import label_maps
+
     out = to_device({k: batch[k] for k in ("images", "polys", "tags",
                                            "valid")}, device)
     polys = out["polys"]
-    if model_head(cfg.model.name) == "east":
+    east = model_head(cfg.model.name) == "east"
+    if east:
         out.update(east_geometry(polys))
     else:
         out["shrunk"] = torch.zeros_like(polys)
         out["rects"] = torch.zeros_like(polys)
         out["angles"] = torch.zeros(polys.shape[:2], dtype=torch.float32,
                                     device=polys.device)
-    out.update(zip(label_keys(cfg), make_labels_fn(cfg)(out)))
+    out.update(label_maps(out, cfg.data, model_output_stride(cfg.model.name),
+                          east))
     return out
 
 
@@ -434,17 +458,33 @@ def make_multi_train_step(state: TrainState, cfg: Config,
     state is undone) and replayed S times; a failed capture raises, and
     nothing carries on eagerly. On the CPU the same step runs eagerly: the
     plain version. ``multi.release()`` frees the graph and its pool.
-    ``augment=True`` (on-device augmentation) is not ported yet.
+
+    ``augment=True`` (trainer.py:330-351): after the row gather, each step
+    augments its batch on the device (``data/device_augment.py``
+    ``augment_batch``, keyed by ``fold_in(fold_in(PRNGKey(seed ^ 0x5EED),
+    state.step), 0)`` with the step read from the device) and makes its
+    label maps from the transformed polygons; precomputed label maps
+    (``extra_keys``) are refused.
     """
-    if augment:
-        raise NotImplementedError(
-            "on-device augmentation is not ported yet (ROADMAP.md Queue 1 "
-            "item 4: data/device_augment)")
+    if augment and extra_keys:
+        raise ValueError(
+            "on-device augmentation makes the labels every step; "
+            "precomputed label maps (extra_keys) cannot be used with it")
     keys = BATCH_KEYS + tuple(extra_keys)
     loss_fn = make_loss_fn(cfg)
+    if augment:
+        from tensorflow_ocr_tpu_torch.data import device_augment as DA
+
+        want_east = model_head(cfg.model.name) == "east"
+        # made once, outside any capture: the graph folds in the step
+        base_key = DA.prng_key(cfg.train.seed ^ DA.SEED_SALT,
+                               state.step.device)
 
     def one(dataset, row):
         batch = {k: dataset[k][row] for k in keys}
+        if augment:
+            key = DA.fold_in(DA.fold_in(base_key, state.step), 0)
+            batch = DA.augment_batch(key, batch, cfg.data, want_east)
         return train_step(state, batch, cfg, loss_fn, include_l2=False)
 
     graph = _GraphMulti(state, one, keys) \
@@ -768,6 +808,7 @@ class Trainer:
         self.device = require_device(device, "Trainer")
         self.state: Optional[TrainState] = None
         self.loss_fn = make_loss_fn(cfg)
+        self.want_east = model_head(cfg.model.name) == "east"
         self.summary_writer = summary_writer
         self._preempted = False
         self._restored_from: Optional[str] = None
@@ -848,7 +889,7 @@ class Trainer:
             for step in range(max_steps):
                 batch = (next(batches) if hasattr(batches, "__next__")
                          else batches[step])
-                db = to_device(batch, self.device)
+                db = device_batch(batch, self.device, self.want_east)
                 metrics = train_step(self.state, db, self.cfg, self.loss_fn)
                 if step % window == 0:
                     last = {k: float(v) for k, v in metrics.items()}  # syncs
@@ -888,6 +929,93 @@ class Trainer:
         finally:
             dog.stop()
             wait_for_pending_save()
+        return last
+
+    def run_device_cached(self, max_steps: Optional[int] = None
+                          ) -> Dict[str, float]:
+        """Train over the dataset of ``cfg.data.training_data_path`` staged
+        on the device (``data/device_cache.py`` ``DeviceDataset``),
+        ``cfg.train.scan_steps`` steps a :func:`make_multi_train_step`
+        dispatch; the host only draws the shuffled rows
+        (``index_batches`` from ``RandomState(seed)``). With any of
+        ``use_crop``, ``use_rotate`` or ``use_random_scale`` the frames are
+        staged unaugmented and each step augments on the device and makes
+        its labels there; otherwise the labels are precomputed at staging.
+        The last metrics come back with ``images_per_sec_steady`` (the
+        median dispatch after the first, which pays the capture)."""
+        from tensorflow_ocr_tpu_torch.data.device_cache import DeviceDataset
+
+        cfg = self.cfg
+        augment = bool(cfg.data.use_crop or cfg.data.use_rotate
+                       or cfg.data.use_random_scale)
+        stage_cfg = cfg.data
+        if augment:  # the staging must not consume the augmentation flags
+            stage_cfg = dataclasses.replace(
+                cfg.data, use_crop=False, use_rotate=False,
+                use_random_scale=False)
+        ds = DeviceDataset(stage_cfg, want_east=self.want_east,
+                           precompute_labels=not augment,
+                           label_stride=model_output_stride(cfg.model.name),
+                           device=self.device)
+        if self.state is None:
+            self.setup()
+        data = ds.arrays()
+        multi = make_multi_train_step(self.state, cfg,
+                                      extra_keys=tuple(ds.labels),
+                                      augment=augment)
+        rng = np.random.RandomState(cfg.train.seed)
+        max_steps = max_steps or cfg.train.max_steps
+        dog = StallWatchdog(cfg.train.stall_warn_secs, name="scan")
+        try:
+            return self._device_cached_loop(ds, data, multi, rng, max_steps,
+                                            dog)
+        finally:
+            dog.stop()
+            multi.release()
+            wait_for_pending_save()
+
+    def _device_cached_loop(self, ds, data, multi, rng, max_steps, dog
+                            ) -> Dict[str, float]:
+        tcfg = self.cfg.train
+        s, batch = tcfg.scan_steps, self.cfg.data.batch_size
+        last: Dict[str, float] = {}
+        last_save_t = time.time()
+        step = 0
+        dispatch_dts = []  # dispatch walls after the first (the capture)
+        while step < max_steps:
+            t0 = time.perf_counter()  # index draw + dispatch + sync only
+            idx = torch.from_numpy(ds.index_batches(batch, s, rng))
+            metrics = multi(self.state, data, idx.to(self.device))
+            step += s
+            last = {k: float(v) for k, v in metrics.items()}  # syncs
+            dog.beat(step)
+            if math.isnan(last.get("total_loss", 0.0)):
+                print("Loss diverged, stop training")
+                break
+            dt = time.perf_counter() - t0
+            if step > s:
+                dispatch_dts.append(dt)
+            print(f"Step {step:06d}, model loss {last.get('model_loss', 0):.4f}"
+                  f", total loss {last.get('total_loss', 0):.4f}, "
+                  f"{dt / s:.4f} s/step, {s * batch / dt:.1f} examples/s")
+            if self.summary_writer is not None:
+                for k, v in last.items():
+                    self.summary_writer.add_scalar(k, v, step)
+            step_due = (tcfg.save_checkpoint_steps
+                        and step % max(tcfg.save_checkpoint_steps, s) == 0)
+            time_due = (tcfg.save_interval_secs
+                        and time.time() - last_save_t
+                        >= tcfg.save_interval_secs)
+            if step_due or time_due:
+                save_checkpoint(tcfg.checkpoint_path, self.state,
+                                block=False,
+                                max_to_keep=tcfg.max_checkpoints_to_keep)
+                last_save_t = time.time()
+            if self._maybe_handle_preemption():
+                break
+        if dispatch_dts:
+            last["images_per_sec_steady"] = (
+                s * batch / float(np.median(dispatch_dts)))
         return last
 
     def _emit_image_summaries(self, batch, step: int):

@@ -1,9 +1,9 @@
 """Inference-time image utilities.
 
 Port of ``tensorflow_ocr_tpu/utils/image.py`` (``resize_image`` :20-34,
-``get_test_images`` :37-45) without ``cv2``: the resize is torch's
-bilinear interpolation with half-pixel centres and no antialiasing, the
-rule ``cv2.resize(INTER_LINEAR)`` follows, rounded back to uint8.
+``get_test_images`` :37-45) without ``cv2``: the resize is
+``data/codec.py`` ``resize``, ``cv2.resize(INTER_LINEAR)`` in cv2's fixed
+point.
 """
 
 from __future__ import annotations
@@ -12,8 +12,8 @@ import os
 from typing import List, Tuple
 
 import numpy as np
-import torch
-import torch.nn.functional as F
+
+from tensorflow_ocr_tpu_torch.data import codec
 
 
 def resize_image(im: np.ndarray, max_side_len: int = 3000
@@ -33,12 +33,7 @@ def resize_image(im: np.ndarray, max_side_len: int = 3000
     resize_h = max(resize_h, 32)
     resize_w = max(resize_w, 32)
     if (resize_h, resize_w) != (h, w):
-        x = torch.from_numpy(np.ascontiguousarray(im)).permute(2, 0, 1)[None]
-        x = F.interpolate(x.float(), size=(resize_h, resize_w),
-                          mode="bilinear", align_corners=False,
-                          antialias=False)
-        im = x[0].permute(1, 2, 0).round().clamp(0, 255).to(
-            torch.uint8).numpy()
+        im = codec.resize(im, (resize_w, resize_h))
     return im, (resize_h / float(h), resize_w / float(w))
 
 

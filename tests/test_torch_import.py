@@ -1,7 +1,9 @@
 """The port imports without JAX, the JAX package, cv2, triton, nvcc or a GPU.
 
 Every module, the train step, the checkpoints and the multi-step dispatch
-(train/trainer.py), the summaries and the profiling helpers included:
+(train/trainer.py), the summaries and the profiling helpers, and the data
+tier (the codec, the readers, the loaders, the device dataset and the
+augmentation) included:
 ``triton`` stays out of ``sys.modules`` and no kernel is built at import
 time.
 
@@ -40,7 +42,9 @@ def test_port_imports_without_jax_or_cv2():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
-    for mod in ("config", "data.icdar", "infer", "models.convert",
+    for mod in ("config", "data.codec", "data.device_augment",
+                "data.device_cache", "data.icdar", "data.nvjpeg_loader",
+                "data.pipeline", "data.resumable", "infer", "models.convert",
                 "models.detector", "models.heads", "models.resnet",
                 "models.vgg", "ops.conv", "ops.decode", "ops.fused",
                 "ops.geometry", "ops.kernels", "ops.labels", "ops.losses",

@@ -138,8 +138,11 @@ def test_multi_matches_jax_make_multi_train_step(f32_batchnorm, freeze_bn):
 def test_multi_is_bound_and_refuses_augmentation():
     cfg, _ = _configs(False)
     state = TT.create_train_state(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TT.make_multi_train_step(state, cfg, augment=True)
+    # augmentation makes the labels each step: precomputed maps refused
+    # (trainer.py:333-336); the augmented dispatch itself is held against
+    # JAX's in tests/test_torch_step_augment.py
+    with pytest.raises(ValueError, match="precomputed"):
+        TT.make_multi_train_step(state, cfg, TT.LABEL_KEYS, augment=True)
     multi = TT.make_multi_train_step(state, cfg, TT.LABEL_KEYS)
     dataset = TT.device_dataset(scene_batch(np.random.RandomState(0), 2,
                                             SIZE), cfg, "cpu")
