@@ -171,7 +171,33 @@ Phases, in order; any failure raises and exits non-zero:
    with all three augmentations; Predictor(checkpoint_path=...) from the
    checkpoint of phase 10b's augmented state on 8 v2 images read by
    codec.imread: the CC kernel launched, a box on every image, the boxes
-   those of a plain-CC decode of the same maps.
+   those of a plain-CC decode of the same maps;
+33. checkpoint-time calibration on that checkpoint (768 augmented steps):
+   train/calibrate.py calibrate_and_store with phase 32's dataset as the
+   train split (8 images, the 20 pixel x link points): operating_point.json
+   with the step and grid values, the CC kernel launched by the sweep,
+   Predictor(checkpoint_path=...) calibrated, F at the pick >= F at
+   (0.8, 0.8) less 0.015 on the slice; the sweep's seconds and overflow
+   retries;
+34. calibration inside the loop: run_device_cached for 3 dispatches of
+   16 steps on phase 32's dataset with a save after each and
+   calibrate_at_checkpoint on: an operating point with the step after
+   each save; the state bit-equal to the same run with calibration off;
+35. EAST calibration: phase 25's 448-step checkpoint trained 448 more
+   graph steps on its scenes, then the 15 score x NMS points on 2 of
+   them, written as an ICDAR directory (PNG and gt_*.txt), timed; the
+   sweep's best F > 0 and the pick within 0.015 of it and of F at the
+   default thresholds (written apart: phase 28's serving keeps its
+   thresholds);
+36. the deeper backbones: east_resnet101 and pixellink_resnetv2_50
+   forwards in float32 against the CPU (phase 4's check);
+   east_resnet101 fused-arm steps at 512^2, batch 32 (fused kernels
+   launched, img/s over 3 windows of >= 3 s, peak memory); pixellink_resnet152 and
+   pixellink_resnet200 one fused and one ghost step each at batch 8
+   (the ghost units on the ghost path, peak memory);
+   pixellink_resnetv2_50 one step with PALLAS_CONVS (its ConvBNs on the
+   conv kernels); one east_resnet101 detect_batch at 8 x 1280x768 (NMS
+   input capped at 128 candidates an image), a box on every image.
 
 The line before the last is a JSON object describing the fourteen
 kernels (launches from the main path of each: detect for the CC kernel,
@@ -2499,15 +2525,18 @@ def scratch_dir(prefix: str) -> str:
 
 
 @contextlib.contextmanager
-def deterministic():
+def deterministic(warn_only=False):
     """torch.use_deterministic_algorithms and cuDNN's benchmark off inside
     the block: the library calls of the xla arms (cuDNN convs) take their
-    deterministic algorithms, so two runs of a step can be bit-equal."""
+    deterministic algorithms, so two runs of a step can be bit-equal.
+    ``warn_only``: an op with no deterministic form warns instead of
+    raising (phase 34: the calibration sweep's decode, which reads the
+    state and writes none of it)."""
     import torch
 
     bench = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True)
+    torch.use_deterministic_algorithms(True, warn_only=warn_only)
     try:
         yield
     finally:
@@ -3293,7 +3322,6 @@ def phase_east_serve(device, root):
     same maps, then the same NMS; the candidates, the boxes NMS keeps and
     its host ms are printed; then detect p50 at batch 1 and serve img/s
     at batch 8 over WINDOWS windows of at least WINDOW_S."""
-    import shutil
 
     import numpy as np
     import torch
@@ -3356,7 +3384,6 @@ def phase_east_serve(device, root):
     time_detect_serve(pred, images, WINDOW_S, "east ")
     del pred
     torch.cuda.empty_cache()
-    shutil.rmtree(root)
 
 
 def phase_vgg(device, report):
@@ -3618,6 +3645,8 @@ def phase_data_cached(device, root, augment):
     ck_root = scratch_dir("data_ckpt_")
     cfg.train.checkpoint_path = ck_root
     cfg.train.save_checkpoint_steps = 2 * DATA_SCAN
+    # the rate is the train loop's: phases 33-34 read the calibration
+    cfg.train.calibrate_at_checkpoint = False
     trainer = T.Trainer(cfg, device)
     trainer.setup(generator=torch.Generator().manual_seed(12))
     reset_fused_counts()
@@ -3760,6 +3789,8 @@ def phase_data_host(device, root, snap):
     ck_root = scratch_dir("host_ckpt_")
     cfg.train.checkpoint_path = ck_root
     cfg.train.save_checkpoint_steps = HOST_SAVE_AT
+    # the rate is the host chain's: phases 33-34 read the calibration
+    cfg.train.calibrate_at_checkpoint = False
     trainer = T.Trainer(cfg, device)
     trainer.setup(weights=snap)
     chain = host_chain(cfg, device)
@@ -3906,7 +3937,8 @@ def phase_data(device, snap, root, v2, aug_ck):
     images): the decoder checked, run_device_cached without and with
     augmentation, the augmented graph against eager steps, host ingest
     with a mid-epoch resume, detect on images the port read from the
-    augmented state's checkpoint at ``aug_ck``."""
+    augmented state's checkpoint at ``aug_ck``; then calibration on that
+    checkpoint (phase 33) and inside the loop (phase 34)."""
     import shutil
 
     from tensorflow_ocr_tpu_torch.data.icdar import get_images
@@ -3924,10 +3956,407 @@ def phase_data(device, snap, root, v2, aug_ck):
     _, ck_host = phase_data_host(device, root, snap)
     shutil.rmtree(ck_host)
     phase_data_detect(device, aug_ck, v2)
-    shutil.rmtree(aug_ck)
-    shutil.rmtree(root)
     print(f"data: the phase took {time.perf_counter() - t0:.1f} s (the "
           f"dataset written before phase 10)")
+    t0 = time.perf_counter()
+    phase_calibrate(device, root, aug_ck)
+    shutil.rmtree(aug_ck)
+    phase_calibrate_loop(device, root, snap)
+    print(f"calibrate: phases 33-34 took {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# the quality loop and the deeper backbones (phases 33-36)
+# --------------------------------------------------------------------------
+
+CALIB_IMAGES = 8          # calibrate_max_images's default
+CALIB_EPS = 0.015         # _plateau_pick's eps: the pick is within it
+LOOP_DISPATCHES = 3       # run_device_cached dispatches, a save after each
+# the EAST sweep is its host NMS, ~17-19 s an image on an H100 from the
+# 448-step state (the time phase 35 prints), so 2 images
+EAST_CALIB_IMAGES = 2
+# graph steps phase 35 trains the serving state on before it calibrates:
+# at 448 steps no box reaches IoU 0.5 on its own train scenes, at 896 F
+# reads 0.38-0.49 (scripts/east_calib_probe.py on an H100, PERF.md §6)
+EAST_CALIB_STEPS = 448
+DEEP_BATCH = 8            # ResNet-152/200 steps at 512^2
+# east_resnet101's eager img/s: DEEP_WINDOWS windows of >= DEEP_WINDOW_S
+DEEP_WINDOWS = 3
+DEEP_WINDOW_S = 3.0
+DEEP_NMS_CANDIDATES = 128  # east_resnet101 detect's cap on NMS input
+
+
+def restored_state(cfg, device, root):
+    """A train state of ``cfg`` with the newest checkpoint under ``root``
+    restored into it."""
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    state = T.create_train_state(cfg, device)
+    return T.restore_checkpoint(T.latest_checkpoint(root), state)
+
+
+def phase_calibrate(device, root, aug_ck):
+    """Checkpoint-time calibration on the augmented state's checkpoint
+    (AUG_TRAINED_STEPS steps on phase 32's dataset): calibrate_and_store
+    with that dataset as the train split (CALIB_IMAGES images, the 20
+    pixel x link points): operating_point.json written with the step and
+    grid values, the CC kernel launched by the sweep, a Predictor from the
+    checkpoint adopting it, and F at the pick >= F at (0.8, 0.8) less
+    CALIB_EPS on the slice; the sweep's seconds and overflow retries."""
+    import torch
+    from tensorflow_ocr_tpu_torch.infer import Predictor
+    from tensorflow_ocr_tpu_torch.ops import kernels as K
+    from tensorflow_ocr_tpu_torch.train import calibrate as C
+    from tensorflow_ocr_tpu_torch.train.eval_hook import EvalDuringTraining
+
+    cfg = data_config(root, augment=True)
+    state = restored_state(cfg, device, aug_ck)
+    hook = EvalDuringTraining(cfg, root, max_images=CALIB_IMAGES)
+    check(hook.images is not None and len(hook.images) == CALIB_IMAGES,
+          "calibrate: the train slice staged no images")
+    K.connected_components.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op = C.calibrate_and_store(state.model, state, cfg, root, aug_ck,
+                               hook=hook)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = K.connected_components.launches
+    stored = C.load_operating_point(aug_ck)
+    at_default = hook(state.model, state, pixel_thresh=0.8, link_thresh=0.8)
+    at_pick = hook(state.model, state, pixel_thresh=op["pixel"],
+                   link_thresh=op["link"])
+    print(f"calibrate: {AUG_TRAINED_STEPS}-step augmented checkpoint on "
+          f"{len(hook.images)} train images: operating point {stored}; "
+          f"the sweep of {len(C.PIXEL_GRID) * len(C.LINK_GRID)} points took "
+          f"{secs:.3f} s, cc launches {launches}, overflow retries "
+          f"{hook.overflow_retries}; slice F at the pick "
+          f"{at_pick['fmean']:.4f} (P {at_pick['precision']:.4f} R {at_pick['recall']:.4f}), at "
+          f"(0.8, 0.8) {at_default['fmean']:.4f} (P "
+          f"{at_default['precision']:.4f} R {at_default['recall']:.4f})")
+    check(stored is not None and stored.get("step") == AUG_TRAINED_STEPS
+          and stored["pixel"] in C.PIXEL_GRID
+          and stored["link"] in C.LINK_GRID,
+          "calibrate: operating_point.json missing, or not the step's and "
+          "the grid's")
+    check(launches > 0, "calibrate: the sweep did not launch the CC kernel")
+    check(at_pick["fmean"] >= at_default["fmean"] - CALIB_EPS,
+          "calibrate: F at the pick below F at (0.8, 0.8) less eps")
+    pred = Predictor(MODEL, checkpoint_path=aug_ck, device=device)
+    check(pred.calibrated and (pred.pixel_thresh, pred.link_thresh)
+          == (stored["pixel"], stored["link"]),
+          "calibrate: the Predictor did not adopt the operating point")
+    print(f"calibrate: Predictor(checkpoint_path=...) calibrated, "
+          f"thresholds {pred.pixel_thresh}/{pred.link_thresh}")
+    del pred, state, hook
+    torch.cuda.empty_cache()
+
+
+def phase_calibrate_loop(device, root, snap):
+    """Calibration inside the captured loop: run_device_cached for
+    LOOP_DISPATCHES dispatches of DATA_SCAN steps from ``snap`` on phase
+    32's dataset (no augmentation), a checkpoint after each dispatch and
+    calibrate_at_checkpoint on: an operating point with the saved step
+    after each save; then the same run with calibration off: every state
+    tensor bit-equal (the eval forward leaves the captured graph's tensors
+    and the running statistics alone)."""
+    import warnings
+
+    import torch
+    from tensorflow_ocr_tpu_torch.train import calibrate as C
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    steps = LOOP_DISPATCHES * DATA_SCAN
+    states, roots = {}, []
+    for on in (True, False):
+        cfg = data_config(root)
+        cfg.train.checkpoint_path = ck = scratch_dir("loop_ckpt_")
+        roots.append(ck)
+        cfg.train.save_checkpoint_steps = DATA_SCAN
+        cfg.train.calibrate_at_checkpoint = on
+        trainer = T.Trainer(cfg, device)
+        trainer.setup(weights=snap)
+        seen = []
+        calibrate = trainer._maybe_calibrate
+
+        def spy(calibrate=calibrate, trainer=trainer, seen=seen, ck=ck):
+            t0 = time.perf_counter()
+            op = calibrate()
+            seen.append((int(trainer.state.step), op,
+                         C.load_operating_point(ck),
+                         time.perf_counter() - t0))
+            return op
+
+        trainer._maybe_calibrate = spy
+        t0 = time.perf_counter()
+        with deterministic(warn_only=True), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            trainer.run_device_cached(steps)
+        wall = time.perf_counter() - t0
+        states[on] = {k: v.detach().cpu().clone()
+                      for k, v in leaves(trainer.state).items()}
+        print(f"calibrate in the loop ({'on' if on else 'off'}): {steps} "
+              f"steps in {wall:.3f} s; saves at steps "
+              f"{[s for s, _, _, _ in seen]}, operating points "
+              f"{[o for _, _, o, _ in seen]}, calibration seconds "
+              f"{[round(t, 3) for _, _, _, t in seen]}")
+        want_steps = list(range(DATA_SCAN, steps + 1, DATA_SCAN))
+        check([s for s, _, _, _ in seen] == want_steps,
+              "calibrate loop: a save per dispatch")
+        if on:
+            check(all(o is not None and stored == dict(o, step=s)
+                      for s, o, stored, _ in seen),
+                  "calibrate loop: no operating point after a save")
+        else:
+            check(all(o is None and stored is None
+                      for _, o, stored, _ in seen),
+                  "calibrate loop: an operating point with calibration off")
+        del trainer
+        torch.cuda.empty_cache()
+    bad = unequal(states[True], states[False])
+    print(f"calibrate in the loop: state with calibration on vs off: "
+          f"{len(states[True]) - len(bad)} of {len(states[True])} tensors "
+          f"bit-equal {bad[:3]}")
+    check(not bad, "calibrate loop: calibration changed the train state")
+    import shutil
+
+    for ck in roots:
+        shutil.rmtree(ck)
+
+
+class SweepScores:
+    """An eval hook that records the F of each threshold pair a sweep
+    asks it for (calibrate_thresholds returns only its pick)."""
+
+    def __init__(self, hook):
+        self.hook, self.images, self.scores = hook, hook.images, {}
+
+    def cached_forward(self):
+        return self.hook.cached_forward()
+
+    def __call__(self, model, state, use_ema=True, score_thresh=None,
+                 nms_thresh=None):
+        r = self.hook(model, state, use_ema=use_ema,
+                      score_thresh=score_thresh, nms_thresh=nms_thresh)
+        self.scores[(score_thresh, nms_thresh)] = r.get("fmean", 0.0)
+        return r
+
+
+def east_scenes(device):
+    """The DATASET_SCENES numpy scenes phase 25's EAST state trains on
+    (train_batch's, seed 75), on the card."""
+    import numpy as np
+
+    return train_batch(np.random.RandomState(75), device, DATASET_SCENES,
+                       TRAIN_SIZE)
+
+
+def east_scene_dir(batch, n):
+    """The first ``n`` scenes of ``batch`` as an ICDAR directory:
+    img_<i>.png (the pixels the eval hook reads back, BGR on disk) and
+    gt_img_<i>.txt (### for the ignored quads). Returns its path."""
+    from tensorflow_ocr_tpu_torch.data import codec
+
+    out = scratch_dir("east_scenes_")
+    for i in range(n):
+        img = batch["images"][i].cpu().numpy()
+        check(codec.imwrite(os.path.join(out, f"img_{i}.png"),
+                            img[:, :, ::-1].copy()),
+              "east calibrate: a scene was not written")
+        polys = batch["polys"][i].cpu().numpy()
+        valid = batch["valid"][i].cpu().numpy()
+        tags = batch["tags"][i].cpu().numpy()
+        with open(os.path.join(out, f"gt_img_{i}.txt"), "w") as f:
+            for quad, tag in zip(polys[valid], tags[valid]):
+                coords = ",".join(f"{v:.2f}" for v in quad.reshape(-1))
+                f.write(f"{coords},{'###' if tag else 'text'}\n")
+    return out
+
+
+def phase_east_calibrate(device, east_root):
+    """EAST calibration: the serving checkpoint (EAST_SERVE_STEPS steps)
+    trained EAST_CALIB_STEPS more graph steps on the same scenes (at 448
+    its boxes miss IoU 0.5: scripts/east_calib_probe.py), then the 15
+    score x NMS points on EAST_CALIB_IMAGES of those scenes
+    (east_scene_dir), the point written into a directory of its own (the
+    serving checkpoint keeps the thresholds its phase measured): the
+    sweep's best F above 0, the pick within CALIB_EPS of it and of F at
+    the default thresholds; the training's and the sweep's seconds."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.train import calibrate as C
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+    from tensorflow_ocr_tpu_torch.train.eval_hook import EvalDuringTraining
+
+    cfg = east_config()
+    state = restored_state(cfg, device, east_root)
+    batch = east_scenes(device)
+    scenes = east_scene_dir(batch, EAST_CALIB_IMAGES)
+    ds = T.device_dataset(batch, cfg, device)
+    del batch
+    multi = T.make_multi_train_step(state, cfg, T.label_keys(cfg))
+    rng = np.random.RandomState(77)
+    target = EAST_SERVE_STEPS + EAST_CALIB_STEPS
+    t0 = time.perf_counter()
+    while int(state.step) < target:
+        last = multi(state, ds, dispatch_rows(rng, cfg.train.scan_steps,
+                                              device))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    multi.release()
+    del multi, ds
+    torch.cuda.empty_cache()
+    check(int(state.step) == target and np.isfinite(
+        float(last["model_loss"])), "east calibrate: the extra training")
+    hook = SweepScores(EvalDuringTraining(cfg, scenes,
+                                          max_images=EAST_CALIB_IMAGES))
+    check(hook.images is not None and len(hook.images) == EAST_CALIB_IMAGES,
+          "east calibrate: the scenes staged no images")
+    out = scratch_dir("east_op_")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op = C.calibrate_and_store(state.model, state, cfg, scenes, out,
+                               hook=hook)
+    secs = time.perf_counter() - t0
+    stored = C.load_operating_point(out)
+    best = max(hook.scores, key=hook.scores.get)
+    default = (cfg.infer.score_map_thresh, cfg.infer.nms_thresh)
+    print(f"east calibrate: the {EAST_SERVE_STEPS}-step checkpoint trained "
+          f"{EAST_CALIB_STEPS} more steps in {train_s:.3f} s (model loss "
+          f"{float(last['model_loss']):.6f}), on {len(hook.images)} of its "
+          f"train scenes: operating point {stored}; best F "
+          f"{hook.scores[best]:.4f} at {best}, F at the defaults {default} "
+          f"{hook.scores.get(default, float('nan')):.4f}; the sweep of "
+          f"{len(hook.scores)} points took {secs:.3f} s "
+          f"({secs / len(hook.images):.3f} s an image)")
+    check(op is not None and stored == dict(op, step=target)
+          and op["score"] in C.SCORE_GRID and op["nms"] in C.NMS_GRID,
+          "east calibrate: no operating point, or not on the grid")
+    check(len(hook.scores) == len(C.SCORE_GRID) * len(C.NMS_GRID)
+          and default in hook.scores,
+          "east calibrate: the sweep missed a grid point")
+    check(hook.scores[best] > 0, "east calibrate: F 0 at every point on "
+          "the scenes the state was trained on")
+    check(op["fmean"] >= hook.scores[best] - CALIB_EPS
+          and op["fmean"] >= hook.scores[default] - CALIB_EPS,
+          "east calibrate: F at the pick below the best or the defaults' "
+          "less eps")
+    shutil.rmtree(out)
+    shutil.rmtree(scenes)
+    del state, hook
+    torch.cuda.empty_cache()
+
+
+def deep_step(device, model, impl, batch, label, loss="ohem", windows=0,
+              route=False):
+    """One train step of ``model`` with ``impl`` on ``batch`` from a
+    seeded state, then with ``windows`` its eager img/s over that many
+    windows of at least DEEP_WINDOW_S (eager_rate): finite losses; prints
+    the hand-written kernels' launches in the first step and the peak
+    memory. Returns (launches, peak bytes)."""
+    import math
+
+    import torch
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    base = arm_memory_start()
+    cfg = train_config(impl, model=model, loss=loss)
+    state = T.create_train_state(cfg, device,
+                                 generator=torch.Generator().manual_seed(23))
+    loss_fn = T.make_loss_fn(cfg)
+    reset_fused_counts()
+    reset_ghost_counts()
+    reset_conv_counts()
+    with pallas_convs(route):
+        m = T.train_step(state, batch, cfg, loss_fn)
+        torch.cuda.synchronize()
+        counts = {**fused_counts(), **ghost_counts(), **conv_counts()}
+        if windows:
+            m = eager_rate(state, batch, cfg, f"{label} {model} {impl}",
+                           windows, DEEP_WINDOW_S)
+    loss_v = float(m["model_loss"])
+    peak = torch.cuda.max_memory_allocated()
+    n = batch["images"].shape[0]
+    print(f"{label}: {model} {impl}{' PALLAS_CONVS' * route} {TRAIN_SIZE}^2 "
+          f"batch {n}: model loss {loss_v:.6f}; first step's launches "
+          f"{ {k: v for k, v in counts.items() if v} }; {arm_memory(base)}")
+    check(math.isfinite(loss_v), f"{label}: non-finite loss")
+    del state
+    torch.cuda.empty_cache()
+    return counts, peak
+
+
+def phase_backbones(device):
+    """The deeper backbones: east_resnet101 and pixellink_resnetv2_50
+    forwards in float32 on the card against the CPU (phase 4's check);
+    east_resnet101 on the fused arm at 512^2, batch 32: the fused kernels
+    launched, img/s over DEEP_WINDOWS windows of >= DEEP_WINDOW_S and the
+    peak memory;
+    pixellink_resnet152 and pixellink_resnet200 one fused and one ghost
+    step each at batch DEEP_BATCH (the ghost units counted by
+    ghost_boundary_fwd's launches); pixellink_resnetv2_50 one step with
+    the PALLAS_CONVS route on its ConvBNs; one detect_batch of
+    east_resnet101 at 8 x 1280x768, a box on every image (NMS's input
+    capped at DEEP_NMS_CANDIDATES: seeded weights pass ~1,200 candidates
+    an image)."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.infer import Predictor
+
+    t0 = time.perf_counter()
+    phase_forward(device, "east_resnet101")
+    phase_forward(device, "pixellink_resnetv2_50")
+    batch = train_batch(np.random.RandomState(91), device, TRAIN_BATCH,
+                        TRAIN_SIZE)
+    counts, _ = deep_step(device, "east_resnet101", "fused", batch,
+                          "deep", loss="east", windows=DEEP_WINDOWS)
+    check(all(counts[k] for k in FUSED_KERNELS),
+          "east_resnet101: a fused kernel not launched")
+    small = {k: v[:DEEP_BATCH] for k, v in batch.items()}
+    del batch
+    for depth in (152, 200):
+        name = f"pixellink_resnet{depth}"
+        counts, _ = deep_step(device, name, "fused", small, "deep")
+        check(all(counts[k] for k in FUSED_KERNELS),
+              f"{name}: a fused kernel not launched")
+        counts, _ = deep_step(device, name, "ghost", small, "deep")
+        units = counts["ghost_boundary_fwd"]
+        print(f"deep: {name} ghost units on the ghost path: {units}")
+        check(units > 0 and all(counts[k] for k in GHOST_KERNELS),
+              f"{name}: a ghost kernel not launched")
+    counts, _ = deep_step(device, "pixellink_resnetv2_50", "xla", small,
+                          "deep", route=True)
+    check(any(counts[k] for k in CONV_KERNELS),
+          "pixellink_resnetv2_50: no conv kernel on its ConvBNs")
+    del small
+    torch.cuda.empty_cache()
+    pred = Predictor("east_resnet101", device=device)
+    # seeded weights pass ~1,200 candidates an image after the merge
+    # (30 s of host NMS for the batch at the default cap of 1024)
+    pred.infer.nms_max_candidates = DEEP_NMS_CANDIDATES
+    images = scene_images(np.random.RandomState(93), 8)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the cap's warning, per image
+        boxes = pred.detect_batch(images)
+    ms = (time.perf_counter() - t1) * 1000
+    n = [len(b) for b in boxes]
+    check(len(boxes) == 8 and min(n) > 0
+          and all(np.isfinite(b).all() and b.shape == (4, 2)
+                  for bs in boxes for b in bs),
+          "east_resnet101 detect: an image without a box, or malformed "
+          "boxes")
+    print(f"deep: east_resnet101 detect_batch 8x1280x768 bf16 (seeded "
+          f"weights, NMS input capped at {DEEP_NMS_CANDIDATES}): {ms:.3f} "
+          f"ms, boxes per image {n}, host NMS {pred.nms_ms:.3f} ms")
+    del pred
+    torch.cuda.empty_cache()
+    print(f"deep: the phase took {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -3940,6 +4369,8 @@ def main() -> int:
                     "checks under planted faults, from the augmented state "
                     "and from a trained checkpoint")
     args = ap.parse_args()
+    import shutil
+
     import torch
 
     if not torch.cuda.is_available():
@@ -4016,15 +4447,19 @@ def main() -> int:
     del trainer, ds
     torch.cuda.empty_cache()
     phase_data(device, snap, data_root, v2, aug_ck)
+    shutil.rmtree(data_root)
 
     east_snap, east_batch, east_root = phase_east_train(device)
     phase_east_route(device, east_snap, east_batch)
     phase_east_variants(device, east_snap, east_batch)
     phase_east_serve(device, east_root)
+    phase_east_calibrate(device, east_root)
+    shutil.rmtree(east_root)
     del east_snap, east_batch
     phase_vgg(device, report)
     phase_link8(device, batch)
     phase_other_forwards(device)
+    phase_backbones(device)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -44,8 +44,12 @@ import numpy as np
 # the models of the port's registry (tensorflow_ocr_tpu_torch/models/
 # detector.py MODEL_REGISTRY; tests/test_torch_export.py holds the two
 # equal): the ones whose weights the port can load
-PORT_MODELS = ("pixellink_resnet50", "pixellink_vgg16", "pixellink2s_vgg16",
-               "east_resnet50", "east_vgg16", "link8_resnet50",
+PORT_MODELS = ("pixellink_resnet50", "pixellink_resnet101",
+               "pixellink_vgg16", "pixellink2s_vgg16", "east_resnet50",
+               "east_resnet101", "east_vgg16", "link8_resnet50",
+               "pixellink_resnetv2_50", "east_resnetv2_50",
+               "pixellink_resnet152", "east_resnet152",
+               "pixellink_resnet200", "east_resnet200",
                "pixellink_tiny", "east_tiny")
 
 

@@ -3,9 +3,13 @@
 The JAX package beside it is the reference; this package mirrors its
 layout so each module has a counterpart:
 
-- ``models``   — ResNet-v1 and tiny backbones, the PixelLink head, the
-                 detector registry, and the Flax-tree -> state_dict bridge
+- ``models``   — ResNet-v1, ResNet-v2, VGG-16 and tiny backbones, the
+                 PixelLink, EAST and link8 heads, the detector registry,
+                 and the Flax-tree -> state_dict bridge
                  (``models/convert.py``).
+- ``eval``     — detection matching and streaming P/R/F.
+- ``train``    — the train step, the trainer, the eval hook and
+                 checkpoint-time threshold calibration.
 - ``ops``      — PixelLink decode (link adjacency, connected components,
                  min-area boxes) and the hand-written CUDA connected-
                  components kernel with its plain PyTorch version

@@ -3,19 +3,18 @@
 The fields of ``tensorflow_ocr_tpu/config.py`` that the port reads, with
 the same defaults: ``InferConfig`` for the
 :class:`~tensorflow_ocr_tpu_torch.infer.Predictor` (PixelLink, link8
-and EAST), and the data, model,
-loss and train sections that the train step and the trainer loop
-(:mod:`tensorflow_ocr_tpu_torch.train.trainer`) read. The port keeps its
-own copy so that it imports nothing of the JAX package;
+and EAST), the data, model, loss and train sections that the train step
+and the trainer loop (:mod:`tensorflow_ocr_tpu_torch.train.trainer`)
+read, with the checkpoint-time calibration
+(``calibrate_at_checkpoint``, ``calibrate_max_images``:
+``train/calibrate.py``) and the eval hook's cadence
+(``eval_every_steps``: ``train/eval_hook.py``), and ``EvalConfig`` (the
+matching IoU and the validation directory of the eval hook). The port
+keeps its own copy so that it imports nothing of the JAX package;
 ``tests/test_torch_config.py`` holds every default equal to the original.
 
-Left out until the modules that read them are ported (ROADMAP.md Queue
-1): ``calibrate_at_checkpoint`` and ``calibrate_max_images`` (the
-checkpoint-time calibration, item 5), ``eval_every_steps`` (the eval
-hook, item 5) and ``donate_state`` (the port's steps update the state in
-place; there is nothing to donate). The data fields (the ICDAR reader,
-the loaders and the augmentation of ``data/``) and ``use_device_cache``
-(``Trainer.run_device_cached``) are here.
+Left out: ``donate_state`` (the port's steps update the state in place;
+there is nothing to donate), ``num_devices`` and ``xla_options``.
 """
 
 from __future__ import annotations
@@ -137,6 +136,12 @@ class TrainConfig:
     max_checkpoints_to_keep: int = 0
     # image summaries every this many steps (with a summary writer)
     save_summary_steps: int = 20
+    # sweep the decode thresholds on a slice of the train split after each
+    # checkpoint save and store the operating point beside the checkpoints
+    # (train/calibrate.py; the Predictor adopts it)
+    calibrate_at_checkpoint: bool = True
+    # train images of that slice (never the validation set)
+    calibrate_max_images: int = 8
     # a port checkpoint (root or ckpt_<step>) whose tensors of matching
     # name and shape warm-start the model
     pretrained_model_path: Optional[str] = None
@@ -150,6 +155,15 @@ class TrainConfig:
     use_device_cache: bool = False
     # steps a make_multi_train_step dispatch runs (one graph replay each)
     scan_steps: int = 16
+    # the eval hook every this many steps (0: off); needs eval.gt_path, a
+    # directory of images and gt_*.txt
+    eval_every_steps: int = 0
+
+
+@dataclass
+class EvalConfig:
+    matching_iou_threshold: float = 0.5  # eval/bboxes.py matching
+    gt_path: str = ""
 
 
 @dataclass
@@ -159,6 +173,7 @@ class Config:
     loss: LossConfig = field(default_factory=LossConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     infer: InferConfig = field(default_factory=InferConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
 
     def validate(self) -> "Config":
         """Reject values that would otherwise be ignored

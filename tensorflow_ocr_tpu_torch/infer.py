@@ -15,7 +15,6 @@ with none, the model keeps its seeded init. There is no Orbax restore
 
 from __future__ import annotations
 
-import json
 import os
 import time
 from collections import deque
@@ -29,6 +28,12 @@ from tensorflow_ocr_tpu_torch.models import build_model
 from tensorflow_ocr_tpu_torch.models.convert import load_npz
 from tensorflow_ocr_tpu_torch.models.detector import model_head
 from tensorflow_ocr_tpu_torch.ops import decode as D
+# the operating point that checkpoint-time calibration writes beside the
+# checkpoints (train/calibrate.py)
+from tensorflow_ocr_tpu_torch.train.calibrate import (  # noqa: F401
+    OPERATING_POINT_FILE,
+    load_operating_point,
+)
 from tensorflow_ocr_tpu_torch.train.trainer import (
     CKPT_FILE,
     latest_checkpoint,
@@ -36,9 +41,6 @@ from tensorflow_ocr_tpu_torch.train.trainer import (
 )
 from tensorflow_ocr_tpu_torch.utils import nms as N
 from tensorflow_ocr_tpu_torch.utils.image import resize_image
-
-# written next to the checkpoints by tensorflow_ocr_tpu/train/calibrate.py
-OPERATING_POINT_FILE = "operating_point.json"
 
 
 def pixel_link_scores(out: Mapping[str, torch.Tensor]
@@ -53,17 +55,6 @@ def pixel_link_scores(out: Mapping[str, torch.Tensor]
     ps = torch.softmax(pl, dim=-1)[..., 1]
     ls = torch.softmax(ll.reshape(ll.shape[:-1] + (8, 2)), dim=-1)[..., 1]
     return ps, ls
-
-
-def load_operating_point(weights_dir: str) -> Optional[dict]:
-    """The calibrated thresholds stored beside the weights, or None if
-    absent or unreadable (train/calibrate.py:118-126)."""
-    try:
-        with open(os.path.join(weights_dir, OPERATING_POINT_FILE)) as f:
-            op = json.load(f)
-        return op if isinstance(op, dict) else None
-    except (OSError, ValueError):
-        return None
 
 
 def checkpoint_weights(checkpoint_path: str, use_ema: bool = True

@@ -11,6 +11,11 @@ kernels transposed from HWIO to OIHW:
     batch_stats/<m>/BatchNorm_0/mean  -> <m>.bn.running_mean
     batch_stats/<m>/BatchNorm_0/var   -> <m>.bn.running_var
     params/<m>/kernel, bias           -> <m>.weight, <m>.bias
+    params/<m>/scale                  -> <m>.weight
+    batch_stats/<m>/mean, var         -> <m>.running_mean, running_var
+
+(the last two for a BatchNorm of its own, such as ResNet-v2's ``preact``
+and ``postnorm``; ``bias`` then maps by the rule above it.)
 
 :func:`convert_train_state` turns a whole JAX ``TrainState`` (as numpy)
 into the nested mapping of a port checkpoint
@@ -32,6 +37,10 @@ from torch import nn
 _BN_LEAVES = {("params", "scale"): "weight", ("params", "bias"): "bias",
               ("batch_stats", "mean"): "running_mean",
               ("batch_stats", "var"): "running_var"}
+# a BatchNorm module of its own (named, not a ConvBN's BatchNorm_0): its
+# bias is any module's bias
+_OWN_BN_LEAVES = {k: v for k, v in _BN_LEAVES.items()
+                  if k != ("params", "bias")}
 
 
 def flatten_variables(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -52,6 +61,8 @@ def torch_key(flax_key: str) -> Tuple[str, bool]:
     collection, *mods, leaf = flax_key.split("/")
     if mods and mods[-1] == "BatchNorm_0" and (collection, leaf) in _BN_LEAVES:
         return ".".join(mods[:-1] + ["bn", _BN_LEAVES[collection, leaf]]), False
+    if mods and (collection, leaf) in _OWN_BN_LEAVES:
+        return ".".join(mods + [_OWN_BN_LEAVES[collection, leaf]]), False
     if collection == "params" and mods and leaf in ("kernel", "bias"):
         if mods[-1] == "Conv_0":
             mods = mods[:-1] + ["conv"]

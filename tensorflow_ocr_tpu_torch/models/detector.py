@@ -1,11 +1,10 @@
 """Top-level detector and the model registry.
 
-Port of ``tensorflow_ocr_tpu/models/detector.py`` for the ResNet-v1-50,
-VGG-16 and tiny CI backbones under the PixelLink, EAST (RBOX or QUAD)
-and link8 heads: ``pixellink_resnet50``, ``pixellink_vgg16``,
-``pixellink2s_vgg16`` (the PixelLink head one level finer, on conv2_2 at
-stride 2), ``east_resnet50``, ``east_vgg16``, ``link8_resnet50``,
-``pixellink_tiny`` and ``east_tiny``. Module names follow the Flax tree
+Port of ``tensorflow_ocr_tpu/models/detector.py``: every model of its
+registry, on the ResNet-v1 (50, 101, 152, 200), ResNet-v2-50, VGG-16 and
+tiny CI backbones under the PixelLink, EAST (RBOX or QUAD) and link8
+heads (``pixellink2s_vgg16`` puts the PixelLink head one level finer, on
+conv2_2 at stride 2). Module names follow the Flax tree
 (``backbone``, ``merge``, ``head``), so ``models/convert.py`` maps the
 JAX variables onto :meth:`Detector.state_dict` by renaming leaves.
 """
@@ -30,6 +29,7 @@ from tensorflow_ocr_tpu_torch.models.layers import (
     mean_image_subtraction,
 )
 from tensorflow_ocr_tpu_torch.models.resnet import RESNET_UNITS, ResNetV1
+from tensorflow_ocr_tpu_torch.models.resnet_v2 import ResNetV2
 from tensorflow_ocr_tpu_torch.models.tiny import TinyConvNet
 from tensorflow_ocr_tpu_torch.models.vgg import VGG16
 
@@ -45,7 +45,8 @@ class Detector(nn.Module):
     (pixellink), ``score``/``geometry`` (east) or ``score``/``link_probs``
     (link8).
 
-    ``backbone_name``: resnet50 | tiny | vgg16; ``head_name``: pixellink |
+    ``backbone_name``: resnet<depth> | resnetv2_<depth> | tiny | vgg16
+    (depth 50, 101, 152 or 200); ``head_name``: pixellink |
     east | link8; ``text_scale`` and ``geometry`` (RBOX | QUAD) shape the
     EAST head; ``output_stride`` 2 fuses VGG's conv2_2 (detector.py:
     42-108). ``bottleneck_impl`` picks the ResNet's units (models/resnet.py).
@@ -67,6 +68,11 @@ class Detector(nn.Module):
             # fc7 and conv5_3 share stride 16: no upsample before the
             # first fuse (detector.py:67-69)
             upsample_first = False
+        elif backbone_name.startswith("resnetv2_"):
+            # the unit is always a PreactBottleneck (detector.py:52-58)
+            self.backbone = ResNetV2(
+                RESNET_UNITS[int(backbone_name[len("resnetv2_"):])])
+            keys, upsample_first = FEATURE_KEYS, True
         elif backbone_name.startswith("resnet"):
             self.backbone = ResNetV1(
                 RESNET_UNITS[int(backbone_name[len("resnet"):])],
@@ -103,26 +109,31 @@ class Detector(nn.Module):
         return self.head(ep, train)
 
 
+# the JAX registry (detector.py:111-127), entry for entry
 MODEL_REGISTRY = {
     "pixellink_resnet50": dict(backbone_name="resnet50",
                                head_name="pixellink"),
+    "pixellink_resnet101": dict(backbone_name="resnet101",
+                                head_name="pixellink"),
     "pixellink_vgg16": dict(backbone_name="vgg16", head_name="pixellink"),
     "pixellink2s_vgg16": dict(backbone_name="vgg16", head_name="pixellink",
                               output_stride=2),
     "east_resnet50": dict(backbone_name="resnet50", head_name="east"),
+    "east_resnet101": dict(backbone_name="resnet101", head_name="east"),
     "east_vgg16": dict(backbone_name="vgg16", head_name="east"),
     "link8_resnet50": dict(backbone_name="resnet50", head_name="link8"),
+    "pixellink_resnetv2_50": dict(backbone_name="resnetv2_50",
+                                  head_name="pixellink"),
+    "east_resnetv2_50": dict(backbone_name="resnetv2_50", head_name="east"),
+    "pixellink_resnet152": dict(backbone_name="resnet152",
+                                head_name="pixellink"),
+    "east_resnet152": dict(backbone_name="resnet152", head_name="east"),
+    "pixellink_resnet200": dict(backbone_name="resnet200",
+                                head_name="pixellink"),
+    "east_resnet200": dict(backbone_name="resnet200", head_name="east"),
     "pixellink_tiny": dict(backbone_name="tiny", head_name="pixellink"),
     "east_tiny": dict(backbone_name="tiny", head_name="east"),
 }
-
-# The JAX registry's other models (tensorflow_ocr_tpu/models/detector.py):
-# deeper ResNet-v1 and ResNet-v2 backbones (ROADMAP.md Queue 1 item 5).
-NOT_PORTED = (
-    "pixellink_resnet101", "east_resnet101", "pixellink_resnetv2_50",
-    "east_resnetv2_50", "pixellink_resnet152", "east_resnet152",
-    "pixellink_resnet200", "east_resnet200",
-)
 
 
 def model_output_stride(name: str) -> int:
@@ -144,12 +155,9 @@ def build_model(name: str, dtype: torch.dtype = torch.bfloat16,
     ``bottleneck_impl`` "fused" puts the ResNet's stride-1 units on the
     fused kernels, "ghost" on the ghost-BN units (the tiny and VGG
     backbones have no bottleneck and ignore it); the state_dict is the
-    same every way. ``text_scale`` and ``geometry`` shape the EAST head."""
+    same every way (ResNet-v2 always runs its pre-activation unit, as in
+    JAX). ``text_scale`` and ``geometry`` shape the EAST head."""
     if name not in MODEL_REGISTRY:
-        if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"model {name} is not ported yet (ROADMAP.md Queue 1: "
-                "other families)")
         raise ValueError(f"unknown model {name}; have {sorted(MODEL_REGISTRY)}")
     model = Detector(dtype=dtype, bottleneck_impl=bottleneck_impl,
                      text_scale=text_scale, geometry=geometry,

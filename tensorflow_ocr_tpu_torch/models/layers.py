@@ -138,19 +138,22 @@ class ConvBN(nn.Module):
     running-stats affine into the conv: ``w' = w·γ/√(σ²+ε)`` and
     ``shift = β − μ·γ/√(σ²+ε)`` (gradients flow through the fold, as in
     the freeze_bn step). In train mode BN uses the batch statistics with
-    Flax's conventions (:meth:`_batch_norm`). ``explicit_pad`` is slim's
+    Flax's conventions (:func:`batch_norm`). ``explicit_pad`` is slim's
     ``conv2d_same`` for stride > 1: fixed ``(k-1)//2`` before and ``k//2``
-    after. Every other conv pads TF-SAME.
+    after. Every other conv pads TF-SAME. ``dilation`` dilates the kernel
+    (the atrous 3x3 of ``output_stride``); SAME padding then counts the
+    dilated extent.
     """
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
                  stride: int = 1, relu: bool = True,
-                 explicit_pad: bool = False, eps: float = 1e-5):
+                 explicit_pad: bool = False, eps: float = 1e-5,
+                 dilation: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, features, kernel, stride,
                               bias=False)
         self.bn = BatchNorm(features)
-        self.kernel, self.stride = kernel, stride
+        self.kernel, self.stride, self.dilation = kernel, stride, dilation
         self.relu, self.explicit_pad, self.eps = relu, explicit_pad, eps
 
     def _pads(self, h: int, w: int) -> Tuple[int, int, int, int]:
@@ -158,56 +161,67 @@ class ConvBN(nn.Module):
         if self.explicit_pad and s > 1:
             (top, bottom) = (left, right) = ((k - 1) // 2, k // 2)
         else:
+            k = (k - 1) * self.dilation + 1
             top, bottom = same_pads(h, k, s)
             left, right = same_pads(w, k, s)
         return left, right, top, bottom
 
     def _routed(self, x: torch.Tensor) -> bool:
         """Whether this conv takes the ``PALLAS_CONVS`` route: SAME
-        padding (not slim's explicit pad at stride > 1), and a shape that
-        ``ops.conv.supported`` takes (models/layers.py:131-135)."""
-        k, s = self.kernel, self.stride
+        padding (not slim's explicit pad at stride > 1), no dilation, and
+        a shape that ``ops.conv.supported`` takes (models/layers.py:
+        131-135)."""
+        k, s, d = self.kernel, self.stride, self.dilation
         n, ci, h, w = x.shape
         return (_pallas_convs_enabled(x)
                 and not (self.explicit_pad and s > 1)
-                and CV.supported((n, h, w, ci), (k, k), (s, s), (1, 1),
+                and CV.supported((n, h, w, ci), (k, k), (s, s), (d, d),
                                  self.conv.out_channels))
 
     def _conv(self, x: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
         if self._routed(x):
             return CV.conv2d(x, wgt, (self.stride, self.stride))
+        s, d = self.stride, self.dilation
         left, right, top, bottom = self._pads(*x.shape[-2:])
         if left == right and top == bottom:
-            return F.conv2d(x, wgt, stride=self.stride, padding=(top, left))
+            return F.conv2d(x, wgt, stride=s, padding=(top, left),
+                            dilation=d)
         return F.conv2d(F.pad(x, (left, right, top, bottom)), wgt,
-                        stride=self.stride)
-
-    def _batch_norm(self, y: torch.Tensor) -> torch.Tensor:
-        """Flax ``nn.BatchNorm(use_running_average=False)``: statistics in
-        float32 over (N, H, W) with the fast variance max(E[y²]−E[y]², 0),
-        which is biased and also feeds the running update; the running
-        values update as ``m·old + (1−m)·new`` (m = ``BN_MOMENTUM``). ``F.batch_norm(training=True)`` would update them with
-        the unbiased variance and torch's momentum, so the buffers are
-        updated here by hand."""
-        bn, yf = self.bn, y.float()
-        mu = yf.mean((0, 2, 3))
-        var = torch.clamp((yf * yf).mean((0, 2, 3)) - mu * mu, min=0.0)
-        update_running_stats(bn, mu, var)
-        mul = torch.rsqrt(var + self.eps) * bn.weight
-        out = (yf - mu[:, None, None]) * mul[:, None, None] \
-            + bn.bias[:, None, None]
-        return out.to(y.dtype)
+                        stride=s, dilation=d)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         bn = self.bn
         if train:
-            y = self._batch_norm(self._conv(x, self.conv.weight.to(x.dtype)))
+            y = batch_norm(bn, self._conv(x, self.conv.weight.to(x.dtype)),
+                           True, self.eps)
         else:
             mul = bn.weight * torch.rsqrt(bn.running_var + self.eps)
             shift = bn.bias - bn.running_mean * mul
             wgt = (self.conv.weight * mul[:, None, None, None]).to(x.dtype)
             y = self._conv(x, wgt) + shift.to(x.dtype)[:, None, None]
         return F.relu(y) if self.relu else y
+
+
+def batch_norm(bn: BatchNorm, y: torch.Tensor, train: bool,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Flax ``nn.BatchNorm`` on NCHW ``y``, computed in float32 and
+    rounded to ``y.dtype``. ``train``: the batch statistics over (N, H, W)
+    with the fast variance max(E[y²]−E[y]², 0), which is biased and also
+    feeds the running update ``m·old + (1−m)·new`` (m = ``BN_MOMENTUM``;
+    ``F.batch_norm(training=True)`` would update with the unbiased
+    variance and torch's momentum, so the buffers are updated here by
+    hand); else the running statistics."""
+    yf = y.float()
+    if train:
+        mu = yf.mean((0, 2, 3))
+        var = torch.clamp((yf * yf).mean((0, 2, 3)) - mu * mu, min=0.0)
+        update_running_stats(bn, mu, var)
+    else:
+        mu, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + eps) * bn.weight
+    out = (yf - mu[:, None, None]) * mul[:, None, None] \
+        + bn.bias[:, None, None]
+    return out.to(y.dtype)
 
 
 def update_running_stats(bn: BatchNorm, mean: torch.Tensor,

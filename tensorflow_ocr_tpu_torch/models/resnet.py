@@ -11,9 +11,12 @@ as a :class:`GhostBottleneck` (``ops/ghost.py``), which takes the ghost
 path where ``pick_gh`` admits the shape it is called with.
 Submodule names follow the Flax tree (``conv1``, ``block1_unit1``, ...),
 so the weight bridge (``models/convert.py``) is a rename, for every
-bottleneck.
-
-Not ported: ``output_stride`` (atrous; ROADMAP.md, Queue 1).
+bottleneck. ``output_stride`` caps the subsampling as slim's
+``stack_blocks_dense`` does (resnet.py:410-453): once the cap is reached,
+the later units run at stride 1 with their 3x3 dilated by the rate
+accumulated so far; a dilated unit is a plain :class:`Bottleneck` (the
+fused and ghost units, and the ``PALLAS_CONVS`` route, take no dilated
+conv), as in JAX.
 """
 
 from __future__ import annotations
@@ -45,14 +48,14 @@ class Bottleneck(nn.Module):
     """slim resnet_v1 bottleneck (models/resnet.py:322-354)."""
 
     def __init__(self, depth_in: int, depth: int, depth_bottleneck: int,
-                 stride: int):
+                 stride: int, rate: int = 1):
         super().__init__()
         self.stride = stride
         self.shortcut = (ConvBN(depth_in, depth, 1, stride, relu=False)
                          if depth_in != depth else None)
         self.conv1 = ConvBN(depth_in, depth_bottleneck, 1)
         self.conv2 = ConvBN(depth_bottleneck, depth_bottleneck, 3, stride,
-                            explicit_pad=True)
+                            explicit_pad=True, dilation=rate)
         self.conv3 = ConvBN(depth_bottleneck, depth, 1, relu=False)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -217,30 +220,41 @@ class ResNetV1(nn.Module):
                  output_stride: int | None = None,
                  bottleneck_impl: str = "xla"):
         super().__init__()
-        if output_stride is not None:
-            raise NotImplementedError(
-                "ResNetV1 output_stride (atrous) is not ported yet "
-                "(ROADMAP.md Queue 1: other families)")
         if bottleneck_impl not in ("xla", "fused", "ghost"):
             raise ValueError(f"unknown bottleneck_impl {bottleneck_impl!r}")
+        target = None
+        if output_stride is not None:
+            if output_stride % 4 or output_stride < 4:
+                raise ValueError("output_stride must be a multiple of 4")
+            target = output_stride // 4  # the root subsamples by 4
         self.conv1 = ConvBN(3, 64, 7, 2, relu=False, explicit_pad=True)
         self.blocks = []  # unit names per block
         depth_in = 64
+        current, rate = 1, 1
         for b, (n_units, depth, depth_b) in enumerate(
                 zip(units, self.base_depths, self.bottlenecks)):
             names = []
             for u in range(n_units):
                 # stride 2 on the last unit of blocks 1-3
                 stride = 2 if (u == n_units - 1 and b < 3) else 1
+                unit_rate = 1
+                if target is not None and current == target:
+                    # atrous from here on (resnet_utils.py:183-199)
+                    unit_rate, rate = rate, rate * stride
+                    stride = 1
+                else:
+                    current *= stride
+                plain = stride != 1 or unit_rate != 1
                 names.append(f"block{b + 1}_unit{u + 1}")
-                if bottleneck_impl == "ghost" and stride == 1:
+                if bottleneck_impl == "ghost" and not plain:
                     unit = GhostBottleneck(depth_in, depth, depth_b)
-                elif (bottleneck_impl == "fused" and stride == 1
+                elif (bottleneck_impl == "fused" and not plain
                         and FusedBottleneck.supported(depth_in, depth,
                                                       depth_b)):
                     unit = FusedBottleneck(depth_in, depth, depth_b)
                 else:
-                    unit = Bottleneck(depth_in, depth, depth_b, stride)
+                    unit = Bottleneck(depth_in, depth, depth_b, stride,
+                                      unit_rate)
                 self.add_module(names[-1], unit)
                 depth_in = depth
             self.blocks.append(names)

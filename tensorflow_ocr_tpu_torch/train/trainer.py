@@ -33,12 +33,16 @@ head and loss of the registry's models:
   position), summaries and SIGTERM preemption, and
   ``run_device_cached`` (:868-983) over ``data/device_cache.py``
   ``DeviceDataset``, augmented on the device inside the captured step
-  when the augmentation flags are on.
+  when the augmentation flags are on; after each save in either loop
+  the decode thresholds are calibrated on the train split
+  (``_maybe_calibrate`` :701-739, ``train/calibrate.py``), and with
+  ``eval_every_steps`` and ``eval.gt_path`` the eval hook
+  (``train/eval_hook.py``) logs P/R/F in both loops (JAX's ``run`` has
+  no eval hook).
 
-Not ported yet (ROADMAP.md Queue 1): checkpoint-time calibration
-(``_maybe_calibrate``, item 5), the slim ``.npz`` backbone import (item
-6) and data parallelism (item 7). Every loss and head of the JAX package
-is ported (:func:`make_loss_fn`).
+Not ported yet (ROADMAP.md Queue 1): the slim ``.npz`` backbone import
+(item 6) and data parallelism (item 7). Every loss and head of the JAX
+package is ported (:func:`make_loss_fn`).
 """
 
 from __future__ import annotations
@@ -812,8 +816,68 @@ class Trainer:
         self.summary_writer = summary_writer
         self._preempted = False
         self._restored_from: Optional[str] = None
+        self.eval_hook = None
+        if cfg.train.eval_every_steps and cfg.eval.gt_path:
+            from tensorflow_ocr_tpu_torch.train.eval_hook import (
+                EvalDuringTraining,
+            )
+
+            self.eval_hook = EvalDuringTraining(cfg, cfg.eval.gt_path)
+        self._calib_hook = None  # built at the first checkpoint save
         if install_signal_handler:
             self.install_preemption_handler()
+
+    def _maybe_calibrate(self) -> Optional[Dict[str, float]]:
+        """Checkpoint-time calibration (trainer.py:701-739): sweep the
+        decode thresholds on ``calibrate_max_images`` images of the train
+        split and write ``operating_point.json`` at the checkpoint root,
+        which the Predictor adopts. Returns the operating point, or None
+        where calibration is off, finds no image, or fails: a failure is
+        logged as a warning and never stops training, as in JAX."""
+        tcfg = self.cfg.train
+        if not tcfg.calibrate_at_checkpoint:
+            return None
+        try:
+            from tensorflow_ocr_tpu_torch.train.calibrate import (
+                calibrate_and_store,
+            )
+            from tensorflow_ocr_tpu_torch.train.eval_hook import (
+                EvalDuringTraining,
+            )
+
+            path = self.cfg.data.training_data_path
+            if self._calib_hook is None:
+                self._calib_hook = EvalDuringTraining(
+                    self.cfg, path, max_images=tcfg.calibrate_max_images)
+            if self._calib_hook.images is None:
+                return None
+            op = calibrate_and_store(self.state.model, self.state, self.cfg,
+                                     path, tcfg.checkpoint_path,
+                                     hook=self._calib_hook)
+            if op:
+                print(f"calibrated decode thresholds @ step "
+                      f"{int(self.state.step)}: {op}")
+            return op
+        except Exception as e:  # calibration never stops training
+            logging.getLogger(__name__).warning(
+                "threshold calibration failed: %s: %s", type(e).__name__, e,
+                exc_info=True)
+            return None
+
+    def _maybe_eval(self, step: int, every: int) -> None:
+        """The eval hook's P/R/F at ``step``, printed and written to the
+        summary writer as ``val/precision``, ``val/recall``,
+        ``val/fmean``, where ``every`` (0: never) divides ``step``."""
+        if self.eval_hook is None or not every or step % every:
+            return
+        r = self.eval_hook(self.state.model, self.state)
+        if not r:
+            return
+        print(f"eval @ step {step}: P {r['precision']:.3f} R "
+              f"{r['recall']:.3f} F {r['fmean']:.3f}")
+        if self.summary_writer is not None:
+            for k in ("precision", "recall", "fmean"):
+                self.summary_writer.add_scalar(f"val/{k}", r[k], step)
 
     def install_preemption_handler(self):
         import signal
@@ -924,6 +988,9 @@ class Trainer:
                                     block=False,
                                     max_to_keep=cfg.max_checkpoints_to_keep)
                     last_save_t = time.time()
+                    self._maybe_calibrate()
+                if step > 0:
+                    self._maybe_eval(step, cfg.eval_every_steps)
                 if self._maybe_handle_preemption(batches):
                     break
         finally:
@@ -1011,6 +1078,9 @@ class Trainer:
                                 block=False,
                                 max_to_keep=tcfg.max_checkpoints_to_keep)
                 last_save_t = time.time()
+                self._maybe_calibrate()
+            if tcfg.eval_every_steps:  # at most once a dispatch
+                self._maybe_eval(step, max(tcfg.eval_every_steps, s))
             if self._maybe_handle_preemption():
                 break
         if dispatch_dts:

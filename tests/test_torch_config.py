@@ -3,9 +3,9 @@
 ``tensorflow_ocr_tpu_torch.config`` copies the fields of
 ``tensorflow_ocr_tpu.config`` that the Predictor (``InferConfig``) and
 the train step (``DataConfig``, ``ModelConfig``, ``LossConfig``,
-``TrainConfig``) read, so that the port imports nothing of the JAX
-package. Each copied field must exist on the JAX side with the same
-default.
+``TrainConfig``, ``EvalConfig``) read, so that the port imports nothing
+of the JAX package. Each copied field must exist on the JAX side with
+the same default.
 """
 
 import dataclasses
@@ -27,7 +27,8 @@ def test_infer_default_matches_jax(field):
     assert getattr(InferConfig(), field) == getattr(JaxInferConfig(), field)
 
 
-TRAIN_SECTIONS = ("DataConfig", "ModelConfig", "LossConfig", "TrainConfig")
+TRAIN_SECTIONS = ("DataConfig", "ModelConfig", "LossConfig", "TrainConfig",
+                  "EvalConfig")
 
 
 @pytest.mark.parametrize("section,field", [
@@ -40,6 +41,17 @@ def test_train_default_matches_jax(section, field):
 
 def test_config_tree_has_the_sections():
     cfg = T.Config()
-    for name in ("data", "model", "loss", "train", "infer"):
+    for name in ("data", "model", "loss", "train", "infer", "eval"):
         assert type(getattr(cfg, name)).__name__ == type(
             getattr(J.Config(), name)).__name__
+
+
+def test_quality_loop_defaults():
+    """Calibration at every checkpoint is on by default, as in JAX; the
+    eval hook is off."""
+    tc, jc = T.TrainConfig(), J.TrainConfig()
+    assert tc.calibrate_at_checkpoint is True
+    for name in ("calibrate_at_checkpoint", "calibrate_max_images",
+                 "eval_every_steps"):
+        assert getattr(tc, name) == getattr(jc, name), name
+    assert T.Config().eval == T.EvalConfig(0.5, "")

@@ -68,7 +68,11 @@ def test_unknown_variable_is_rejected():
 
 
 def test_unported_model_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("east_resnet101")
+    """Every name of JAX's registry is ported now: the reference's own
+    EAST model, east_resnet101 (nets/model.py:33-82), builds and loads
+    converted weights strictly; an unknown name still raises."""
+    import test_torch_families as FAM
+
+    FAM.test_full_width_trees_load_strictly("east_resnet101")
     with pytest.raises(ValueError, match="unknown model"):
         build_model("no_such_model")

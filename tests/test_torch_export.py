@@ -76,4 +76,4 @@ def test_export_model_choices_are_the_port_registry():
     assert set(script.PORT_MODELS) == set(MODEL_REGISTRY)
     with pytest.raises(SystemExit):
         script.main(["--checkpoint", "x", "--out", "y", "--model",
-                     "east_resnet101"])
+                     "no_such_model"])

@@ -102,14 +102,36 @@ def test_registry_and_output_strides():
         MODEL_REGISTRY as JREG,
         model_output_stride as jstride,
     )
-    from tensorflow_ocr_tpu_torch.models.detector import (
-        MODEL_REGISTRY,
-        NOT_PORTED,
-    )
+    from tensorflow_ocr_tpu_torch.models import detector
 
-    assert set(MODEL_REGISTRY) | set(NOT_PORTED) == set(JREG)
-    assert not set(MODEL_REGISTRY) & set(NOT_PORTED)
-    assert len(NOT_PORTED) == 8
+    MODEL_REGISTRY = detector.MODEL_REGISTRY
+    assert set(MODEL_REGISTRY) == set(JREG) and len(JREG) == 16
+    assert not hasattr(detector, "NOT_PORTED")
     for name in MODEL_REGISTRY:
         assert model_output_stride(name) == jstride(name), name
         assert {k: v for k, v in MODEL_REGISTRY[name].items()} == JREG[name]
+
+
+# the JAX registry's models that the port did not build before the deeper
+# backbones came in: each builds, on its own backbone
+FORMER_NOT_PORTED = (
+    "pixellink_resnet101", "east_resnet101", "pixellink_resnetv2_50",
+    "east_resnetv2_50", "pixellink_resnet152", "east_resnet152",
+    "pixellink_resnet200", "east_resnet200",
+)
+
+
+@pytest.mark.parametrize("name", FORMER_NOT_PORTED)
+def test_former_unported_names_build(name):
+    from tensorflow_ocr_tpu_torch.models.detector import MODEL_REGISTRY
+    from tensorflow_ocr_tpu_torch.models.resnet import RESNET_UNITS, ResNetV1
+    from tensorflow_ocr_tpu_torch.models.resnet_v2 import ResNetV2
+
+    model = build_model(name, dtype=torch.float32)
+    v2 = "v2" in name
+    depth = int(MODEL_REGISTRY[name]["backbone_name"].split("_" if v2
+                                                             else "t")[-1])
+    backbone = model.backbone
+    assert isinstance(backbone, ResNetV2 if v2 else ResNetV1)
+    assert [len(b) for b in backbone.blocks] == list(RESNET_UNITS[depth])
+    assert model.head_name == name.split("_")[0]

@@ -1,9 +1,10 @@
 """The port imports without JAX, the JAX package, cv2, triton, nvcc or a GPU.
 
 Every module, the train step, the checkpoints and the multi-step dispatch
-(train/trainer.py), the summaries and the profiling helpers, and the data
+(train/trainer.py), the summaries and the profiling helpers, the data
 tier (the codec, the readers, the loaders, the device dataset and the
-augmentation) included:
+augmentation), the quality loop (eval/, the eval hook, calibration) and
+ResNet-v2 included:
 ``triton`` stays out of ``sys.modules`` and no kernel is built at import
 time.
 
@@ -44,11 +45,13 @@ def test_port_imports_without_jax_or_cv2():
     assert out["loaded"] == []
     for mod in ("config", "data.codec", "data.device_augment",
                 "data.device_cache", "data.icdar", "data.nvjpeg_loader",
-                "data.pipeline", "data.resumable", "infer", "models.convert",
+                "data.pipeline", "data.resumable", "eval.bboxes",
+                "eval.metrics", "infer", "models.convert",
                 "models.detector", "models.heads", "models.resnet",
-                "models.vgg", "ops.conv", "ops.decode", "ops.fused",
-                "ops.geometry", "ops.kernels", "ops.labels", "ops.losses",
-                "ops.rasterize", "train.optim", "train.trainer",
+                "models.resnet_v2", "models.vgg", "ops.conv", "ops.decode",
+                "ops.fused", "ops.geometry", "ops.kernels", "ops.labels",
+                "ops.losses", "ops.rasterize", "train.calibrate",
+                "train.eval_hook", "train.optim", "train.trainer",
                 "utils.image", "utils.nms", "utils.profiling",
                 "utils.summary"):
         assert f"tensorflow_ocr_tpu_torch.{mod}" in out["modules"]

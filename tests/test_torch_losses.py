@@ -110,7 +110,8 @@ def test_ohem_loss_bfloat16_compute_matches_jax():
 def test_unported_losses_name_the_roadmap():
     """Every loss of the JAX package is ported (tests/test_torch_losses_rest.py
     holds them); make_loss_fn refuses a loss its head has not, as JAX's
-    dispatch does, and an unported model still names the roadmap."""
+    dispatch does; every model of the registry is ported, and an unknown
+    name raises."""
     from tensorflow_ocr_tpu_torch.config import Config
     from tensorflow_ocr_tpu_torch.models import build_model
     from tensorflow_ocr_tpu_torch.train.trainer import make_loss_fn
@@ -126,5 +127,5 @@ def test_unported_losses_name_the_roadmap():
     cfg.loss.name = "nope"
     with pytest.raises(ValueError, match="unsupported for pixellink"):
         make_loss_fn(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("east_resnet101")
+    with pytest.raises(ValueError, match="unknown model"):
+        build_model("east_resnet101_nope")

@@ -86,5 +86,12 @@ def test_resnet_v1_pyramid_matches_flax():
 
 
 def test_resnet_v1_output_stride_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.ResNetV1(output_stride=16)
+    """output_stride is ported (tests/test_torch_resnet_deep.py holds it
+    against JAX): at 16 block 3 keeps stride 1 and block 4 is dilated by
+    2; a cap that is not a multiple of 4 raises, as in JAX."""
+    net = TR.ResNetV1(output_stride=16)
+    assert [getattr(net, n).conv2.dilation for n in net.blocks[3]] == [
+        2, 2, 2]
+    assert getattr(net, net.blocks[2][-1]).stride == 1
+    with pytest.raises(ValueError, match="multiple of 4"):
+        TR.ResNetV1(output_stride=6)
