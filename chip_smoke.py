@@ -8,8 +8,8 @@ Phases, in order; any failure raises and exits non-zero:
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the eight CUDA sources of csrc/ (nvcc, sm_90a; nvjpeg_loader.cu
    linked with -lnvjpeg), one nvcc each, all started together;
-3. hold the connected-components kernel against its plain PyTorch
-   version on the card: (8, 192, 320) text-like blob maps, hand cases
+3. hold the connected-components kernel (launched through its
+   torch.library op) against its plain PyTorch version on the card: (8, 192, 320) text-like blob maps, hand cases
    (the diagonal chains and the serpentines cross the kernel's tiles at
    their sides and corners) and a (3, 100, 150) batch of ragged tiles;
    int32 labels must be equal, and equal on two launches; print both
@@ -156,7 +156,8 @@ Phases, in order; any failure raises and exits non-zero:
    16 default images and 16 "v2" images at 1280x720 (timed); nvJPEG's
    decode of a committed fixture against its committed cv2 decode
    (DECODE_*_LEVELS), the card's resize bit-equal to codec.resize, and
-   the decode-and-resize img/s of the 16 v2 frames;
+   an upscale of a 150x200 crop to 1280x720 (the border rows) bit-equal
+   too, and the decode-and-resize img/s of the 16 v2 frames;
    Trainer.run_device_cached for two dispatches of 16 steps without
    augmentation (nvJPEG staging, labels precomputed) and with random
    scale, crop and rotation inside the captured step (finite losses, the
@@ -197,7 +198,24 @@ Phases, in order; any failure raises and exits non-zero:
    (the ghost units on the ghost path, peak memory);
    pixellink_resnetv2_50 one step with PALLAS_CONVS (its ConvBNs on the
    conv kernels); one east_resnet101 detect_batch at 8 x 1280x768 (NMS
-   input capped at 128 candidates an image), a box on every image.
+   input capped at 128 candidates an image), a box on every image;
+37. the entry points at full width (pixellink_resnet50): 8 default-tier
+   frames at 1280x720; python -m tensorflow_ocr_tpu_torch.cli.multigpu_train
+   in a fresh process, 20 steps of 8 at 512^2 on the fused arm (finite
+   losses, every fused kernel launched, a ckpt_20 and its
+   operating_point.json); cli.test and cli.test_pixellink_fast in
+   another (a res_*.txt per frame, the CC kernel launched), cli.test's
+   files equal an in-process Predictor(checkpoint_path=...)'s; presets
+   1-4 one step each through the train entry and, from a synthetic slim
+   resnet_v1_50 .npz of every name at its real shape, Trainer.setup
+   taking SLIM_LOADED tensors equal to the file and one step through
+   --pretrained_model_path (finite losses); pixellink_resnet50 serving
+   bundles at 8 x 1280x768 (decode + baked weights, maps + external
+   weights) exported, each loaded in a fresh process: the boxes equal
+   Predictor.detect_batch's, the CC kernel launched there, the maps within
+   BUNDLE_MAPS_ATOL of the live forward; export seconds, sizes, batch ms
+   beside the Predictor's; the package photographs this machine has, and
+   4 photo:train and 4 photo2:val frames where it has them.
 
 The line before the last is a JSON object describing the fourteen
 kernels (launches from the main path of each: detect for the CC kernel,
@@ -214,7 +232,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3614,6 +3634,13 @@ def phase_data_decode(device, files):
     host = codec.resize(full[0].cpu().numpy(), (TRAIN_SIZE, TRAIN_SIZE))
     check(bool(ok[0]) and np.array_equal(small.cpu().numpy(), host),
           "decode: the card's resize differs from codec.resize")
+    # an upscale whose height grows: cv2's vertical border taps
+    src = full[0][:150, :200].contiguous()
+    big = torch.empty((720, 1280, 3), dtype=torch.uint8, device=device)
+    NJ.resize_on_card(src, big)
+    check(np.array_equal(big.cpu().numpy(),
+                         codec.resize(src.cpu().numpy(), (1280, 720))),
+          "decode: the card's upscale differs from codec.resize")
     rates = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -4359,6 +4386,414 @@ def phase_backbones(device):
     print(f"deep: the phase took {time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# 37. the entry points, the presets, the slim import, export, photo tiers
+# --------------------------------------------------------------------------
+
+ENTRY_FRAMES = 8      # default-tier frames at DATA_HW the entries read
+ENTRY_BATCH = 8
+ENTRY_STEPS = 20
+ENTRY_SIZE = 512
+# bf16 probabilities of the maps bundle against the live forward: one
+# ulp is 3.9e-3 near 1, and another process may pick other cuDNN kernels
+BUNDLE_MAPS_ATOL = 1e-2
+BOX_ATOL = 1e-3       # tests/test_torch_decode.py's corner tolerance
+SLIM_LOADED = 53 * 5  # resnet_v1_50's tensors JAX's import takes
+
+# runs each (module, argv) of sys.argv[1] as `python -m module argv`, in
+# order, in this one process, then prints the kernels' launch counts
+ENTRY_PROBE = r"""
+import json, runpy, sys
+import torch
+from tensorflow_ocr_tpu_torch.ops import fused as FU
+from tensorflow_ocr_tpu_torch.ops import kernels as K
+for module, args in json.loads(sys.argv[1]):
+    sys.argv = [module] + args
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+counts = {"connected_components": K.connected_components.launches}
+counts.update({a: getattr(FU, a).launches for a in
+               ("conv_fwd", "conv_bwd", "boundary_fwd", "boundary_bwd")})
+print("LAUNCHES " + json.dumps(counts))
+"""
+
+# loads a serving bundle in a fresh process, runs it on the saved images
+# (the weights file for the external contract), saves the outputs
+BUNDLE_PROBE = r"""
+import json, statistics, sys, time
+import numpy as np
+import torch
+from tensorflow_ocr_tpu_torch.export import load_serving_bundle
+from tensorflow_ocr_tpu_torch.ops import kernels as K
+bundle, images, weights, out = sys.argv[1:5]
+t0 = time.perf_counter()
+run, meta = load_serving_bundle(bundle)
+load_s = time.perf_counter() - t0
+dev = torch.device(meta["platforms"][0])
+sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+x = torch.from_numpy(np.load(images)).float().to(dev)
+args = ((x,) if meta["weights"] == "baked" else
+        (torch.load(weights, map_location=dev, weights_only=True), x))
+K.connected_components.launches = 0
+res = run(*args)
+sync()
+launches = K.connected_components.launches
+times = []
+for _ in range(5):
+    t0 = time.perf_counter()
+    run(*args)
+    sync()
+    times.append((time.perf_counter() - t0) * 1000)
+np.savez(out, **{k: v.cpu().numpy() for k, v in res.items()})
+print("BUNDLE " + json.dumps({"cc_launches": launches, "load_s": load_s,
+                              "batch_ms": statistics.median(times),
+                              "meta": meta}))
+"""
+
+
+def run_probe(code, args, label, timeout=600):
+    """``python -c code args`` from the checkout; its output printed and
+    returned; raises when it fails."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    dt = time.perf_counter() - t0
+    tail = "\n".join(proc.stdout.strip().splitlines()[-12:])
+    print(f"entries: {label} ({dt:.1f} s, rc {proc.returncode}):\n{tail}")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, f"entries: {label} failed")
+    return proc.stdout, dt
+
+
+def probe_line(out, tag):
+    return json.loads([ln for ln in out.splitlines()
+                       if ln.startswith(tag + " ")][-1][len(tag) + 1:])
+
+
+def run_entries(runs, label):
+    """The (module, argv) entry runs in one fresh process: (stdout, launch
+    counts, seconds)."""
+    out, dt = run_probe(ENTRY_PROBE, [json.dumps(runs)], label)
+    return out, probe_line(out, "LAUNCHES"), dt
+
+
+def step_losses(out):
+    """(model loss, total loss) of every "Step ..." line of a train run."""
+    import re
+
+    return [tuple(float(v) for v in m.groups()) for m in re.finditer(
+        r"model loss (\S+), total loss ([^,\s]+)", out)]
+
+
+def slim_resnet_v1_50_schema():
+    """Every variable of the public slim resnet_v1_50 ImageNet checkpoint
+    and its shape (tests/test_pretrained_schema.py's schema)."""
+    v = {"global_step": ()}
+
+    def add(prefix, kshape):
+        v[f"{prefix}/weights"] = kshape
+        for leaf in ("gamma", "beta", "moving_mean", "moving_variance"):
+            v[f"{prefix}/BatchNorm/{leaf}"] = (kshape[-1],)
+
+    add("resnet_v1_50/conv1", (7, 7, 3, 64))
+    block_in = 64
+    for b, (n, out, db) in enumerate(zip((3, 4, 6, 3),
+                                         (256, 512, 1024, 2048),
+                                         (64, 128, 256, 512)), 1):
+        for u in range(1, n + 1):
+            cin = block_in if u == 1 else out
+            base = f"resnet_v1_50/block{b}/unit_{u}/bottleneck_v1"
+            if u == 1:
+                add(f"{base}/shortcut", (1, 1, cin, out))
+            add(f"{base}/conv1", (1, 1, cin, db))
+            add(f"{base}/conv2", (3, 3, db, db))
+            add(f"{base}/conv3", (1, 1, db, out))
+        block_in = out
+    v["resnet_v1_50/logits/weights"] = (1, 1, 2048, 1000)
+    v["resnet_v1_50/logits/biases"] = (1000,)
+    v["resnet_v1_50/mean_rgb"] = (3,)
+    return v
+
+
+def same_boxes(got, want) -> bool:
+    """Corners within BOX_ATOL, or at a min-area angle tie the same area
+    (tests/test_torch_decode.py assert_same_boxes)."""
+    import numpy as np
+
+    def area(q):
+        x, y = q[:, 0].astype(np.float64), q[:, 1].astype(np.float64)
+        return 0.5 * abs(np.dot(x, np.roll(y, -1)) - np.dot(y, np.roll(x, -1)))
+
+    return len(got) == len(want) and all(
+        np.allclose(g, w, rtol=0, atol=BOX_ATOL)
+        or abs(area(g) - area(w)) <= BOX_ATOL for g, w in zip(got, want))
+
+
+def phase_entries_train(root, ck):
+    """(a) cli.multigpu_train on the frames, fused arm, 512^2, batch 8."""
+    out, counts, dt = run_entries([[
+        "tensorflow_ocr_tpu_torch.cli.multigpu_train",
+        [f"--training_data_path={root}", f"--input_size={ENTRY_SIZE}",
+         f"--batch_size_per_gpu={ENTRY_BATCH}", f"--max_steps={ENTRY_STEPS}",
+         f"--checkpoint_path={ck}", "--save_checkpoint_steps=0",
+         "--model.bottleneck_impl=fused", "--data.max_polys=16",
+         "--gpu_list=0"]]], "multigpu_train")
+    losses = step_losses(out)
+    print(f"entries: multigpu_train {ENTRY_STEPS} steps of {ENTRY_BATCH} "
+          f"at {ENTRY_SIZE}^2 (fused) in {dt:.1f} s of process: losses {losses}; "
+          f"launches {counts}")
+    check(len(losses) >= 1 and all(math.isfinite(v) for lv in losses
+                                   for v in lv),
+          "entries: train losses missing or not finite")
+    check(all(counts[a] > 0 for a in ("conv_fwd", "conv_bwd", "boundary_fwd",
+                                      "boundary_bwd")),
+          f"entries: the train entry launched no fused kernel: {counts}")
+    names = os.listdir(ck)
+    check(f"ckpt_{ENTRY_STEPS}" in names and "operating_point.json" in names,
+          f"entries: no checkpoint or operating point in {names}")
+
+
+def phase_entries_test(root, ck, device):
+    """(a) cli.test and cli.test_pixellink_fast on the frames; cli.test's
+    res files equal an in-process Predictor(checkpoint_path=...)'s."""
+    import numpy as np
+    from tensorflow_ocr_tpu_torch.data import codec
+    from tensorflow_ocr_tpu_torch.infer import Predictor
+    from tensorflow_ocr_tpu_torch.ops.geometry import order_points
+    from tensorflow_ocr_tpu_torch.utils.image import (get_test_images,
+                                                      write_result_txt)
+
+    res, fast, mine = (scratch_dir(p) for p in ("res_", "fast_", "mine_"))
+    common = [f"--test_data_path={root}", f"--checkpoint_path={ck}"]
+    out, counts, dt = run_entries([
+        ["tensorflow_ocr_tpu_torch.cli.test", common + [f"--output_dir={res}"]],
+        ["tensorflow_ocr_tpu_torch.cli.test_pixellink_fast",
+         common + [f"--output_dir={fast}",
+                   "--model.name=pixellink_resnet50"]]],
+        "test and test_pixellink_fast")
+    check(counts["connected_components"] > 0,
+          f"entries: the test entries launched no CC kernel: {counts}")
+    files = get_test_images(root)
+    for d in (res, fast):
+        got = sorted(n for n in os.listdir(d) if n.startswith("res_"))
+        check(len(got) == len(files), f"entries: {len(got)} res files in {d}")
+    pred = Predictor(MODEL, device=device, checkpoint_path=ck)
+    n_boxes = 0
+    for fn in files:
+        im = codec.imread(fn)
+        boxes, _ = pred.detect(im[:, :, ::-1])
+        n_boxes += len(boxes)
+        write_result_txt(mine, fn, [order_points(np.asarray(b))
+                                    for b in boxes])
+    for name in os.listdir(mine):
+        with open(os.path.join(res, name), "rb") as a, \
+                open(os.path.join(mine, name), "rb") as b:
+            check(a.read() == b.read(),
+                  f"entries: cli.test's {name} differs from the Predictor's")
+    print(f"entries: cli.test and test_pixellink_fast wrote {len(files)} "
+          f"res files each ({dt:.1f} s of process, CC launches "
+          f"{counts['connected_components']}); cli.test's equal an "
+          f"in-process Predictor(checkpoint_path=...)'s ({n_boxes} boxes, "
+          f"calibrated {pred.calibrated})")
+    for d in (res, fast, mine):
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_entries_presets_slim(root, device):
+    """(b) presets 1-4 one step each through the train entry; (c) a slim
+    resnet_v1_50 .npz of every name at its real shape: Trainer.setup takes
+    SLIM_LOADED tensors, each equal to the file, then one step through the
+    entry with --pretrained_model_path."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.config import Config
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    work = scratch_dir("presets_")
+    rng = np.random.RandomState(7)
+    arrays = {k: np.asarray(rng.randn(*s) * 0.05, np.float32)
+              for k, s in slim_resnet_v1_50_schema().items()}
+    for k in arrays:
+        if k.endswith("moving_variance"):
+            arrays[k] = np.abs(arrays[k]) + 0.5
+    npz = os.path.join(work, "resnet_v1_50.npz")
+    np.savez(npz, **arrays)
+    cfg = Config()
+    cfg.train.pretrained_model_path = npz
+    state = T.Trainer(cfg, device).setup()
+    sd = state.model.state_dict()
+    from tensorflow_ocr_tpu_torch.train.pretrained import slim_to_torch_key
+
+    equal = 0
+    for name, v in arrays.items():
+        mapped = slim_to_torch_key(name)
+        if mapped is None or mapped[0] not in sd:
+            continue
+        key, kernel = mapped
+        want = torch.from_numpy(v.transpose(3, 2, 0, 1) if kernel else v)
+        check(torch.equal(sd[key].cpu(), want),
+              f"slim: {key} differs from the .npz after setup")
+        equal += 1
+    check(equal == SLIM_LOADED, f"slim: {equal} tensors imported, JAX's "
+          f"schema count is {SLIM_LOADED}")
+    del state, sd
+    torch.cuda.empty_cache()
+    runs = [["tensorflow_ocr_tpu_torch.cli.multigpu_train",
+             [f"--preset={n}", f"--training_data_path={root}",
+              "--max_steps=1", f"--checkpoint_path={work}/p{n}",
+              "--train.calibrate_at_checkpoint=false"]] for n in (1, 2, 3, 4)]
+    runs.append(["tensorflow_ocr_tpu_torch.cli.multigpu_train",
+                 [f"--training_data_path={root}", "--max_steps=1",
+                  f"--batch_size_per_gpu={ENTRY_BATCH}",
+                  f"--pretrained_model_path={npz}",
+                  f"--checkpoint_path={work}/slim",
+                  "--train.calibrate_at_checkpoint=false"]])
+    out, _, dt = run_entries(runs, "presets 1-4 and the slim warm start")
+    losses = step_losses(out)
+    check(len(losses) == 5 and all(math.isfinite(v) for lv in losses
+                                   for v in lv),
+          f"entries: preset or slim losses {losses}")
+    check(f"warm-started {SLIM_LOADED} tensors" in out,
+          "slim: the entry did not report the schema's count")
+    print(f"entries: presets 1-4 (east_vgg16 512 b2, east_resnet50 512 "
+          f"b14, pixellink2s_vgg16 512 b14, east_resnet50 focal 768 b8 "
+          f"augmented) and the slim warm start ({SLIM_LOADED} tensors equal "
+          f"to the .npz after setup) one step each: losses {losses} "
+          f"({dt:.1f} s of process)")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_entries_export(ck, device):
+    """(d) pixellink_resnet50 bundles at 8 x 1280x768: decode + baked and
+    maps-only + external, each loaded in a fresh process; boxes equal to
+    Predictor.detect_batch's, the CC kernel launched there, the maps
+    within BUNDLE_MAPS_ATOL of the live forward."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.export import save_serving_bundle
+    from tensorflow_ocr_tpu_torch.infer import Predictor, pixel_link_scores
+
+    pred = Predictor(MODEL, device=device, checkpoint_path=ck)
+    images = scene_images(np.random.RandomState(3), 8)
+    head_logit_scale(pred, torch.from_numpy(images).to(device),
+                     ("pixel_logits", "link_logits"))
+    decode_check(pred, images, "export")
+    want = pred.detect_batch(images)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.detect_batch(images)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000)
+    x = torch.from_numpy(images).to(device)
+    with torch.inference_mode():
+        ps, ls = (t.float().cpu().numpy()
+                  for t in pixel_link_scores(pred.model(x)))
+    work = scratch_dir("bundle_")
+    img_file = os.path.join(work, "images.npy")
+    np.save(img_file, images)
+    w_file = os.path.join(work, "weights.pt")
+    torch.save(pred.model.state_dict(), w_file)
+    h, w = IMAGE_HW
+    for decode, bake in ((True, True), (False, False)):
+        kind = ("decode+baked" if decode else "maps+external")
+        path = os.path.join(work, kind)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_serving_bundle(path, pred, 8, h, w, with_decode=decode,
+                            bake_weights=bake, weights_source=w_file)
+        export_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        out_file = os.path.join(work, f"{kind}.npz")
+        out, _ = run_probe(BUNDLE_PROBE, [path, img_file, w_file, out_file],
+                           f"load the {kind} bundle")
+        r = probe_line(out, "BUNDLE")
+        got = dict(np.load(out_file))
+        check(r["meta"]["platforms"] == [pred.device.type],
+              f"export: {kind} platforms {r['meta']['platforms']}")
+        if decode:
+            check(r["cc_launches"] > 0,
+                  f"export: the {kind} bundle launched no CC kernel")
+            for i in range(len(images)):
+                b = got["boxes"][i][got["valid"][i]] * pred.stride
+                check(same_boxes(b, want[i]),
+                      f"export: {kind} boxes of image {i} differ from "
+                      f"detect_batch's ({len(b)} against {len(want[i])})")
+            err = "boxes equal"
+        else:
+            err = max(float(np.abs(got["pixel_scores"] - ps).max()),
+                      float(np.abs(got["link_scores"] - ls).max()))
+            check(err <= BUNDLE_MAPS_ATOL,
+                  f"export: {kind} maps {err} from the live forward")
+            err = f"maps max abs err {err:.4e}"
+        print(f"export: {kind} pixellink_resnet50 8x{w}x{h}: export "
+              f"{export_s:.3f} s, bundle {size / 2 ** 20:.2f} MiB, load "
+              f"{r['load_s']:.3f} s, batch {r['batch_ms']:.3f} ms (median of "
+              f"5) against Predictor.detect_batch "
+              f"{statistics.median(times):.3f} ms; CC launches "
+              f"{r['cc_launches']}; {err}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_entries_photo():
+    """(e) the package photographs this machine has, and the photo tiers'
+    frames where it has them."""
+    from tensorflow_ocr_tpu_torch.data import codec
+    from tensorflow_ocr_tpu_torch.data import icdar
+
+    found = {t: {k: len(v) for k, v in icdar._photo_sources(t).items()}
+             for t in ("photo", "photo2")}
+    print(f"photo: package photographs on this machine: {found} (17 in all "
+          f"where sklearn, matplotlib, pygame, dm_control and "
+          f"gymnasium_robotics are installed)")
+    work = scratch_dir("photo_")
+    for hard in ("photo:train", "photo2:val"):
+        tier, split = hard.split(":")
+        if not found[tier][split]:
+            print(f"photo: no {hard} sources here, so no {hard} frames: "
+                  f"missing data on this machine, not a device or kernel "
+                  f"fallback")
+            continue
+        t0 = time.perf_counter()
+        files = icdar.make_synthetic_dataset(os.path.join(work, tier), 4,
+                                             DATA_HW, seed=0, hard=hard)
+        dt = time.perf_counter() - t0
+        check(len(files) == 4 and all(
+            codec.imread(f).shape == (*DATA_HW, 3) for f in files),
+              f"photo: {hard} frames")
+        print(f"photo: 4 {hard} frames at {DATA_HW[1]}x{DATA_HW[0]} in "
+              f"{dt:.3f} s")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_entry_points(device):
+    """Phase 37: the entry points (train, test, presets, the slim warm
+    start), the serving export and the photo tiers."""
+    import torch
+    from tensorflow_ocr_tpu_torch.data.icdar import make_synthetic_dataset
+
+    t0 = time.perf_counter()
+    root = scratch_dir("entries_")
+    make_synthetic_dataset(root, ENTRY_FRAMES, DATA_HW, seed=11)
+    ck = scratch_dir("entries_ckpt_")
+    torch.cuda.empty_cache()
+    phase_entries_train(root, ck)
+    phase_entries_test(root, ck, device)
+    phase_entries_presets_slim(root, device)
+    phase_entries_export(ck, device)
+    phase_entries_photo()
+    shutil.rmtree(ck, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"entries: phase 37 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4460,6 +4895,7 @@ def main() -> int:
     phase_link8(device, batch)
     phase_other_forwards(device)
     phase_backbones(device)
+    phase_entry_points(device)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -66,8 +66,11 @@ def parse_args(argv=None):
                     help="EAST head geometry")
     ap.add_argument("--scenes", default="v1",
                     choices=["v1", "v2", "photo", "photo_mix", "photo2"],
-                    help="hard-scene tier: v1 or v2; the photo tiers are "
-                         "not ported (ROADMAP.md Queue 1)")
+                    help="hard-scene tier: v1, v2, photo (v2 instances "
+                         "over package photographs, disjoint train/val "
+                         "sets), photo_mix (train on half v2, half "
+                         "photo:train; val photo:val) or photo2 (photo "
+                         "with the texture sets added)")
     ap.add_argument("--note", default=None,
                     help="free-text annotation stored in the JSON record")
     ap.add_argument("--json", default=None, metavar="OUT",
@@ -100,10 +103,6 @@ def line(d):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.scenes.startswith("photo"):
-        raise NotImplementedError(
-            f"--scenes {args.scenes}: the photo tiers are not ported yet "
-            "(ROADMAP.md Queue 1 item 5)")
 
     from tensorflow_ocr_tpu_torch.config import Config
     from tensorflow_ocr_tpu_torch.data.icdar import make_synthetic_dataset
@@ -120,6 +119,11 @@ def main(argv=None):
 
     t_start = time.time()
     hard = "v2" if args.scenes == "v2" else True
+    hard_val = hard
+    if args.scenes.startswith("photo"):
+        # disjoint sets of package photographs for the two splits
+        tier = "photo2" if args.scenes == "photo2" else "photo"
+        hard, hard_val = f"{tier}:train", f"{tier}:val"
     suffix = "" if args.scenes == "v1" else f"_{args.scenes}"
     size = args.input_size
     if size != 512:
@@ -127,10 +131,20 @@ def main(argv=None):
     work = args.work_dir
     train_dir = os.path.join(work, f"train{suffix}")
     val_dir = os.path.join(work, f"val{suffix}")
-    make_synthetic_dataset(train_dir, args.train_images, (size, size),
-                           seed=0, hard=hard)
+    if args.scenes == "photo_mix":
+        # half v2 scenes, half photo:train: four train photographs alone
+        # are memorised (holdout_eval.py:112-123)
+        half = args.train_images // 2
+        make_synthetic_dataset(train_dir, half, (size, size), seed=0,
+                               hard="v2")
+        make_synthetic_dataset(train_dir, args.train_images - half,
+                               (size, size), seed=2, hard="photo:train",
+                               start_index=half)
+    else:
+        make_synthetic_dataset(train_dir, args.train_images, (size, size),
+                               seed=0, hard=hard)
     make_synthetic_dataset(val_dir, args.val_images, (size, size),
-                           seed=1, hard=hard)
+                           seed=1, hard=hard_val)
     is_east = model_head(args.model) == "east"
 
     def base_cfg():

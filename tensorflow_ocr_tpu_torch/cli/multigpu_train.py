@@ -1,0 +1,69 @@
+"""Training entry point: the port's ``multigpu_train.py``.
+
+    python -m tensorflow_ocr_tpu_torch.cli.multigpu_train \
+        --training_data_path=/data/ocr/icdar2015/ --input_size=512 \
+        --batch_size_per_gpu=14 --checkpoint_path=/tmp/east_resnet_v1_50_rbox/
+
+The root script's flags (``config.py`` ``FLAG_ALIASES`` and dotted paths;
+``--gpu_list`` accepted and ignored), ``--preset=N`` for a
+``configs.py`` preset (applied before the other flags), and ``--device``.
+One device: the global batch is ``batch_size_per_gpu`` x 1. With
+``--train.use_device_cache`` the data is staged on the device
+(``Trainer.run_device_cached``), else it streams from the host
+(``ResumableLoader -> PrefetchLoader -> DevicePrefetcher`` into
+``Trainer.run``). Ends with a checkpoint and its calibrated operating
+point (multigpu_train.py:20-75).
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+
+def train(cfg, device: str):
+    """Train ``cfg`` on ``device``, save the final checkpoint and
+    calibrate it; returns the Trainer."""
+    from tensorflow_ocr_tpu_torch.data.pipeline import (DevicePrefetcher,
+                                                        PrefetchLoader)
+    from tensorflow_ocr_tpu_torch.data.resumable import ResumableLoader
+    from tensorflow_ocr_tpu_torch.train.trainer import (Trainer,
+                                                        save_checkpoint)
+    from tensorflow_ocr_tpu_torch.utils.summary import SummaryWriter
+
+    os.makedirs(cfg.train.checkpoint_path, exist_ok=True)
+    writer = SummaryWriter(cfg.train.checkpoint_path)
+    trainer = Trainer(cfg, device, summary_writer=writer)
+    if cfg.train.use_device_cache:
+        trainer.run_device_cached(max_steps=cfg.train.max_steps)
+    else:
+        trainer.setup()
+        source = ResumableLoader(cfg.data, want_east=trainer.want_east,
+                                 seed=cfg.train.seed)
+        loader = DevicePrefetcher(
+            PrefetchLoader(cfg.data, want_east=trainer.want_east,
+                           source=source),
+            device, want_east=trainer.want_east)
+        try:
+            trainer.run(loader, max_steps=cfg.train.max_steps)
+        finally:
+            loader.stop()
+    save_checkpoint(cfg.train.checkpoint_path, trainer.state)
+    trainer._maybe_calibrate()  # the operating point of the final save
+    return trainer
+
+
+def main(argv):
+    from tensorflow_ocr_tpu_torch.cli import take_flag
+    from tensorflow_ocr_tpu_torch.config import Config, parse_flags
+    from tensorflow_ocr_tpu_torch.configs import baseline_config
+
+    argv = list(argv)
+    device = take_flag(argv, "device", "cuda")
+    preset = take_flag(argv, "preset")
+    cfg = baseline_config(int(preset)) if preset is not None else Config()
+    return train(parse_flags(argv, cfg), device)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

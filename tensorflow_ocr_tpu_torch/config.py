@@ -13,21 +13,32 @@ matching IoU and the validation directory of the eval hook). The port
 keeps its own copy so that it imports nothing of the JAX package;
 ``tests/test_torch_config.py`` holds every default equal to the original.
 
+The command-line surface is JAX's too: :func:`parse_flags` with the
+reference's flag names (:data:`FLAG_ALIASES`) and dotted paths, the
+same coercions and the same error on an unknown flag
+(``config.py:237-348``).
+
 Left out: ``donate_state`` (the port's steps update the state in place;
-there is nothing to donate), ``num_devices`` and ``xla_options``.
+there is nothing to donate), ``grad_reduce`` and ``xla_options``.
+``TrainConfig.num_devices`` is kept so that the reference's flags parse,
+but the port trains on one device: ``validate`` refuses any other count
+until data parallelism lands (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 
 @dataclass
 class InferConfig:
+    # the test entry points' image directory and result directory
+    test_data_path: str = "./exhibition"
     # checkpoint root whose newest ckpt_* a Predictor given this config
     # and no weights serves (its checkpoint_path= argument overrides it)
     checkpoint_path: str = "/tmp/east_icdar2015_resnet_v1_50_rbox/"
+    output_dir: str = "/tmp/res/"
     max_side_len: int = 3000  # longest side after resize_image
     pixel_conf_threshold: float = 0.8
     link_conf_threshold: float = 0.8
@@ -150,6 +161,9 @@ class TrainConfig:
     # disables
     stall_warn_secs: float = 300.0
     seed: int = 0
+    # devices of the data-parallel axis; the port trains on one (None or
+    # 1), data parallelism is ROADMAP.md Queue 1 item 7
+    num_devices: Optional[int] = None
     # train through Trainer.run_device_cached: the dataset staged on the
     # device, scan_steps steps a dispatch
     use_device_cache: bool = False
@@ -186,4 +200,116 @@ class Config:
             raise ValueError("train.save_interval_secs must be >= 0")
         if self.train.max_checkpoints_to_keep < 0:
             raise ValueError("train.max_checkpoints_to_keep must be >= 0")
+        if self.train.num_devices not in (None, 1):
+            raise NotImplementedError(
+                f"train.num_devices={self.train.num_devices}: the port "
+                "trains on one device; data parallelism is ROADMAP.md "
+                "Queue 1 item 7")
         return self
+
+
+def _set_by_path(cfg: Config, dotted: str, raw: str) -> None:
+    """Set ``cfg.section.field`` from a string, coerced to the type of the
+    field's current value (config.py:237-270)."""
+    parts = dotted.split(".")
+    obj: Any = cfg
+    for p in parts[:-1]:
+        obj = getattr(obj, p)
+    name = parts[-1]
+    current = getattr(obj, name)
+    value: Any
+    if isinstance(current, bool):
+        value = raw.lower() in ("1", "true", "yes", "y")
+    elif isinstance(current, int):
+        value = int(raw)
+    elif isinstance(current, float):
+        value = float(raw)
+    elif isinstance(current, (tuple, list)):
+        value = tuple(float(x) for x in raw.split(","))
+    elif current is None:
+        # optional fields: an int, else a float, else the string
+        if raw.lower() in ("none", "null"):
+            value = None
+        else:
+            try:
+                value = int(raw)
+            except ValueError:
+                try:
+                    value = float(raw)
+                except ValueError:
+                    value = raw
+    else:
+        value = raw
+    setattr(obj, name, value)
+
+
+# the reference's public flag names -> config paths (config.py:273-301);
+# None: accepted and ignored (the device is the port's --device)
+FLAG_ALIASES = {
+    "training_data_path": "data.training_data_path",
+    "max_image_large_side": "data.max_image_large_side",
+    "max_text_size": "data.max_text_size",
+    "min_text_size": "data.min_text_size",
+    "min_crop_side_ratio": "data.min_crop_side_ratio",
+    "geometry": "data.geometry",
+    "input_size": "data.input_size",
+    "batch_size_per_gpu": "data.batch_size",
+    "num_readers": "data.num_workers",
+    "text_scale": "model.text_scale",
+    "learning_rate": "train.learning_rate",
+    "max_steps": "train.max_steps",
+    "moving_average_decay": "train.moving_average_decay",
+    "checkpoint_path": "train.checkpoint_path",
+    "restore": "train.restore",
+    "save_checkpoint_steps": "train.save_checkpoint_steps",
+    "save_summary_steps": "train.save_summary_steps",
+    "pretrained_model_path": "train.pretrained_model_path",
+    "test_data_path": "infer.test_data_path",
+    "output_dir": "infer.output_dir",
+    "pixel_conf_threshold": "infer.pixel_conf_threshold",
+    "link_conf_threshold": "infer.link_conf_threshold",
+    "gpu_list": None,
+    "gpu_memory_fraction": None,
+    "image_width": None,
+    "image_height": None,
+}
+
+
+def parse_flags(argv: Sequence[str], cfg: Optional[Config] = None,
+                aliases: Optional[dict] = None) -> Config:
+    """``--flag=value`` / ``--flag value`` / ``--flag`` (true) arguments
+    into a validated Config (config.py:304-348): the reference's names
+    through ``aliases`` (default :data:`FLAG_ALIASES`; an entry point may
+    remap one, as the test entries map ``checkpoint_path`` to
+    ``infer.checkpoint_path``) and dotted paths
+    (``--train.learning_rate=3e-4``); any other flag raises ValueError.
+    Arguments without ``--`` are skipped."""
+    cfg = cfg or Config()
+    if aliases is None:
+        aliases = FLAG_ALIASES
+    args = list(argv)
+    i = 0
+    while i < len(args):
+        a = args[i]
+        if not a.startswith("--"):
+            i += 1
+            continue
+        body = a[2:]
+        if "=" in body:
+            key, val = body.split("=", 1)
+        else:
+            key = body
+            if i + 1 < len(args) and not args[i + 1].startswith("--"):
+                val = args[i + 1]
+                i += 1
+            else:
+                val = "true"
+        if key in aliases:
+            if aliases[key] is not None:
+                _set_by_path(cfg, aliases[key], val)
+        elif "." in key:
+            _set_by_path(cfg, key, val)
+        else:
+            raise ValueError(f"unknown flag --{key}")
+        i += 1
+    return cfg.validate()

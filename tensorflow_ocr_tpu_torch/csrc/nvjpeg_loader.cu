@@ -72,15 +72,19 @@ int nvjpeg_decode(void* p, const unsigned char* data, size_t len,
 
 }  // extern "C"
 
-__device__ __forceinline__ void taps(int d, int n_in, double scale, int* s0,
-                                     int* s1, int* w0, int* w1) {
+// clamp_w: along x cv2 clamps a position outside the image to the border
+// pixel with weights (2048, 0); along y it keeps the fraction's weights
+// and clamps only the two row indices (codec.py _linear_taps).
+__device__ __forceinline__ void taps(int d, int n_in, double scale,
+                                     bool clamp_w, int* s0, int* s1,
+                                     int* w0, int* w1) {
   float f = (float)(((double)d + 0.5) * scale - 0.5);
   int s = (int)floorf(f);
   f = f - (float)s;
-  if (s < 0) { f = 0.f; s = 0; }
-  if (s >= n_in - 1) { f = 0.f; s = n_in - 1; }
-  *s0 = s;
-  *s1 = min(s + 1, n_in - 1);
+  if (clamp_w && s < 0) { f = 0.f; s = 0; }
+  if (clamp_w && s >= n_in - 1) { f = 0.f; s = n_in - 1; }
+  *s0 = min(max(s, 0), n_in - 1);
+  *s1 = min(max(s + 1, 0), n_in - 1);
   *w0 = __float2int_rn((1.f - f) * 2048.f);
   *w1 = __float2int_rn(f * 2048.f);
 }
@@ -102,8 +106,8 @@ __global__ void resize_linear_kernel(const unsigned char* __restrict__ src,
     return;
   }
   int x0, x1, a0, a1, y0, y1, b0, b1;
-  taps(x, sw, scale_x, &x0, &x1, &a0, &a1);
-  taps(y, sh, scale_y, &y0, &y1, &b0, &b1);
+  taps(x, sw, scale_x, true, &x0, &x1, &a0, &a1);
+  taps(y, sh, scale_y, false, &y0, &y1, &b0, &b1);
   const unsigned char* r0 = src + (size_t)y0 * sw * 3;
   const unsigned char* r1 = src + (size_t)y1 * sw * 3;
   for (int c = 0; c < 3; ++c) {

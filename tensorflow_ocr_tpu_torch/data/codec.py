@@ -94,22 +94,29 @@ def _cv_round(x):
     return np.rint(x).astype(np.int64)
 
 
-def _linear_taps(n_out: int, n_in: int, scale: float):
-    """cv2's INTER_LINEAR source index and 11-bit weights along one axis
-    (resize.cpp ``resizeGeneric``: the float position, the clamp at both
-    borders, ``saturate_cast<short>(w * 2048)``)."""
+def _linear_taps(n_out: int, n_in: int, scale: float,
+                 clamp_weights: bool = True):
+    """cv2's INTER_LINEAR source indices and 11-bit weights along one
+    axis (resize.cpp ``resizeGeneric``: the float position,
+    ``saturate_cast<short>(w * 2048)``). Along x (``clamp_weights``) cv2
+    clamps a position outside the image to the border pixel with weights
+    (2048, 0); along y it keeps the unclamped fraction's weights and
+    clamps only the two row indices, so at the first and last rows both
+    taps read one row with weights that may sum to 2047, and the vector
+    path's two truncations may lose a level."""
     f = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(
         np.float32)
     s = np.floor(f).astype(np.int64)
     f = (f - s.astype(np.float32)).astype(np.float32)
-    low = s < 0
-    f[low], s[low] = 0, 0
-    high = s >= n_in - 1
-    f[high], s[high] = 0, n_in - 1
+    if clamp_weights:
+        low = s < 0
+        f[low], s[low] = 0, 0
+        high = s >= n_in - 1
+        f[high], s[high] = 0, n_in - 1
     scale_q = float(1 << RESIZE_COEF_BITS)
     w0 = _cv_round((np.float32(1) - f) * np.float32(scale_q))
     w1 = _cv_round(f * np.float32(scale_q))
-    return s, np.minimum(s + 1, n_in - 1), w0, w1
+    return np.clip(s, 0, n_in - 1), np.clip(s + 1, 0, n_in - 1), w0, w1
 
 
 def resize_plan(w: int, h: int, dsize: Optional[Tuple[int, int]] = None,
@@ -148,7 +155,7 @@ def resize(img: np.ndarray, dsize: Optional[Tuple[int, int]] = None,
              + src[1:2 * dh:2, 0:2 * dw:2] + src[1:2 * dh:2, 1:2 * dw:2])
         return ((s + 2) >> 2).astype(np.uint8)
     x0, x1, a0, a1 = _linear_taps(dw, w, sx)
-    y0, y1, b0, b1 = _linear_taps(dh, h, sy)
+    y0, y1, b0, b1 = _linear_taps(dh, h, sy, clamp_weights=False)
     t = torch.from_numpy(np.ascontiguousarray(img)).to(torch.int32)
     ea = (slice(None),) + (None,) * (img.ndim - 2)
     a0, a1 = torch.from_numpy(a0[ea]).int(), torch.from_numpy(a1[ea]).int()

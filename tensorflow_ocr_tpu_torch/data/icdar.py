@@ -12,12 +12,12 @@ are ``data/codec.py``'s):
   give the same scale, rotation and crop, because the draws are made in
   JAX's order;
 - ``_chars_along`` :293, ``_v2_instance`` :308, ``_gt_coords`` :487 and
-  ``make_synthetic_dataset`` :497 for ``hard=False``, ``True`` (v1) and
-  ``"v2"``, every draw in JAX's order, so the ``gt_img_*.txt`` files come
-  out byte-equal (``tests/test_torch_synthetic.py``).
-
-The photo tiers (:359-486) wait for ROADMAP.md Queue 1 item 5: they read
-photographs shipped inside sklearn, matplotlib and pygame.
+  ``make_synthetic_dataset`` :497 for ``hard=False``, ``True`` (v1),
+  ``"v2"`` and the photo tiers (``_photo_sources`` :359,
+  ``_photo_background`` :424, ``_render_photo_instance`` :454: the v2
+  instances over photographs shipped inside installed packages), every
+  draw in JAX's order, so the ``gt_img_*.txt`` files come out byte-equal
+  (``tests/test_torch_synthetic.py``, ``tests/test_torch_photo.py``).
 """
 
 from __future__ import annotations
@@ -363,11 +363,125 @@ def _gt_coords(quad: np.ndarray, w: int, h: int) -> str:
     return ",".join(str(v) for xy in zip(xs, ys) for v in xy)
 
 
-def _v2_scene(rng, im, h, w) -> List[str]:
-    """The v2 tier's instances drawn into ``im``: blocks of parallel lines
-    and single (straight, curved or perspective) instances at log-uniform
-    heights from 7 px to h/3, placed without overlap; returns the gt
-    lines."""
+def _render_plate_instance(rng, im, chars, rect) -> None:
+    """The v2 tier's rendering of one instance (in place): a bright plate
+    over the characters' hull, the characters in dark ink."""
+    allpts = np.concatenate(chars).astype(np.int32)
+    hull = codec.convex_hull(allpts)
+    plate = tuple(int(c) for c in rng.randint(190, 255, 3))
+    codec.fill_poly(im, [hull], plate)
+    ink = (int(plate[0] * 0.2),) * 3
+    for cb in chars:
+        codec.fill_poly(im, [cb.astype(np.int32)], ink)
+
+
+def _photo_sources(tier: str = "photo") -> dict:
+    """Photographs shipped inside installed packages, in disjoint train
+    and val sets (icdar.py:359-421): ``"photo"`` the 4 + 4 photographs of
+    sklearn, matplotlib and pygame, ``"photo2"`` those and the textures of
+    dm_control and gymnasium_robotics (near-duplicates on one side).
+    Only the files that exist are listed."""
+    import sysconfig
+
+    site = sysconfig.get_paths()["purelib"]
+    cands = {
+        "train": [
+            "sklearn/datasets/images/china.jpg",
+            "sklearn/datasets/images/flower.jpg",
+            "matplotlib/mpl-data/sample_data/grace_hopper.jpg",
+            "pygame/docs/generated/_images/intro_freedom.jpg",
+        ],
+        "val": [
+            "pygame/docs/generated/_images/intro_blade.jpg",
+            "pygame/docs/generated/_images/camera_rgb.jpg",
+            "pygame/docs/generated/_images/camera_background.jpg",
+            "pygame/examples/data/alien1.jpg",
+        ],
+    }
+    if tier == "photo2":
+        tex = "gymnasium_robotics/envs/assets/"
+        kitchen = tex + "kitchen_franka/kitchen_assets/textures/"
+        hand = tex + "adroit_hand/resources/textures/"
+        out = "dm_control/locomotion/arenas/assets/outdoor_natural/"
+        cands["train"] += [
+            kitchen + "wood1.png", kitchen + "white_marble_tile.png",
+            kitchen + "white_marble_tile2.png",
+            out + "OutdoorGrassFloorD.png",
+            "dm_control/suite/dog_assets/skin_texture.png",
+        ]
+        cands["val"] += [
+            kitchen + "tile1.png", hand + "silverRaw.png", hand + "skin.png",
+            out + "OutdoorSkybox2048.png",
+        ]
+    return {k: [os.path.join(site, p) for p in v
+                if os.path.exists(os.path.join(site, p))]
+            for k, v in cands.items()}
+
+
+def _photo_background(rng, h, w, split: str,
+                      tier: str = "photo") -> np.ndarray:
+    """A random crop of the target's aspect from one of the split's
+    photographs, resized to (h, w), randomly flipped, with a random gain
+    and bias (icdar.py:424-451); BGR uint8."""
+    paths = _photo_sources(tier)[split]
+    if not paths:
+        raise FileNotFoundError(
+            f"no package photographs of the {tier!r} tier's {split} split "
+            "(sklearn, matplotlib, pygame, dm_control, gymnasium_robotics)")
+    src = codec.imread(paths[rng.randint(len(paths))])
+    sh, sw = src.shape[:2]
+    frac = rng.uniform(0.55, 1.0)
+    ch = int(sh * frac)
+    cw = int(round(ch * w / h))
+    if cw > sw:
+        cw = sw
+        ch = int(round(cw * h / w))
+    y0 = rng.randint(0, max(sh - ch, 0) + 1)
+    x0 = rng.randint(0, max(sw - cw, 0) + 1)
+    crop = src[y0:y0 + ch, x0:x0 + cw]
+    if rng.rand() < 0.5:
+        crop = crop[:, ::-1]
+    im = codec.resize(np.ascontiguousarray(crop), (w, h))
+    gain = rng.uniform(0.75, 1.15)
+    bias = rng.uniform(-18, 18)
+    return np.clip(im.astype(np.float32) * gain + bias, 0, 255) \
+        .astype(np.uint8)
+
+
+def _render_photo_instance(rng, im, chars, rect) -> None:
+    """One instance composited onto the photograph (in place;
+    icdar.py:454-486): ink that contrasts the local mean, edges blended
+    through a blurred alpha mask, a sign plate under 30% of them."""
+    h, w = im.shape[:2]
+    hull = codec.convex_hull(np.concatenate(chars).astype(np.int32))
+    region = np.zeros((h, w), np.uint8)
+    codec.fill_poly(region, [hull], 1)
+    local_mean = float(im[region > 0].mean()) if region.any() else 127.0
+    if rng.rand() < 0.3:  # sign plate
+        plate_lum = 220 if local_mean < 140 else 40
+        plate = np.clip(plate_lum + rng.randint(-25, 26, 3), 0, 255)
+        pm = codec.gaussian_blur(region.astype(np.float32), 0.8)
+        im[:] = (im * (1 - pm[..., None])
+                 + plate[None, None, :] * pm[..., None]).astype(np.uint8)
+        local_mean = float(plate.mean())
+    ink_lum = rng.randint(170, 256) if local_mean < 128 else \
+        rng.randint(0, 86)
+    ink = np.clip(ink_lum + rng.randint(-40, 41, 3), 0, 255) \
+        .astype(np.float32)
+    mask = np.zeros((h, w), np.uint8)
+    for cb in chars:
+        codec.fill_poly(mask, [np.round(cb).astype(np.int32)], 1)
+    alpha = codec.gaussian_blur(mask.astype(np.float32), 0.9)
+    alpha *= rng.uniform(0.8, 1.0)
+    im[:] = (im * (1 - alpha[..., None])
+             + ink[None, None, :] * alpha[..., None]).astype(np.uint8)
+
+
+def _v2_scene(rng, im, h, w, render=_render_plate_instance) -> List[str]:
+    """The v2 tier's instances drawn into ``im`` by ``render``: blocks of
+    parallel lines and single (straight, curved or perspective) instances
+    at log-uniform heights from 7 px to h/3, placed without overlap;
+    returns the gt lines."""
     insts = []
     placed = []  # axis-aligned boxes of the accepted instances
 
@@ -421,13 +535,7 @@ def _v2_scene(rng, im, h, w) -> List[str]:
             break
     lines = []
     for chars, rect, bh_i in insts:
-        allpts = np.concatenate(chars).astype(np.int32)
-        hull = codec.convex_hull(allpts)
-        plate = tuple(int(c) for c in rng.randint(190, 255, 3))
-        codec.fill_poly(im, [hull], plate)
-        ink = (int(plate[0] * 0.2),) * 3
-        for cb in chars:
-            codec.fill_poly(im, [cb.astype(np.int32)], ink)
+        render(rng, im, chars, rect)
         # unreadably small instances are don't-care (ICDAR's ###)
         tag = "###" if bh_i < 8.5 or rng.rand() < 0.15 else "text"
         lines.append(f"{_gt_coords(rect, w, h)},{tag}")
@@ -469,18 +577,35 @@ def make_synthetic_dataset(path: str, num_images: int = 10,
     ``hard=False``: noise and 1-5 white rotated boxes. ``hard=True`` (v1):
     a textured background, distractors, 3-10 striped plates, ### regions.
     ``hard="v2"``: perspective, curved, crowded and extreme-scale
-    instances. The photo tiers (``"photo..."``) are not ported yet.
+    instances. ``hard="photo:train"``/``"photo:val"`` (``"photo"`` alone is
+    the train split) and ``"photo2:…"``: the v2 instances composited over
+    a split's package photographs (:func:`_photo_sources`), written at a
+    random JPEG quality from 60 to 92.
     """
-    if isinstance(hard, str) and hard.startswith("photo"):
-        raise NotImplementedError(
-            "the photo tiers are not ported yet (ROADMAP.md Queue 1 item 5)")
-    if hard not in (False, True, "v2"):
-        raise ValueError(f"hard must be False, True or 'v2', got {hard!r}")
+    photo = isinstance(hard, str) and hard.startswith("photo")
+    if photo:
+        tier, _, split = hard.partition(":")
+        split = split or "train"
+        if tier not in ("photo", "photo2") or split not in ("train", "val"):
+            raise ValueError(f"photo tier {hard!r}: photo[2][:train|val]")
+    elif hard not in (False, True, "v2"):
+        raise ValueError(f"hard must be False, True, 'v2' or a photo tier, "
+                         f"got {hard!r}")
     os.makedirs(path, exist_ok=True)
     rng = np.random.RandomState(seed)
     h, w = size
     files = []
     for i in range(start_index, start_index + num_images):
+        if photo:
+            im = _photo_background(rng, h, w, split, tier)
+            lines = _v2_scene(rng, im, h, w, _render_photo_instance)
+            fn = os.path.join(path, f"img_{i}.jpg")
+            # variable compression, like camera and web imagery
+            codec.imwrite(fn, im, quality=int(rng.randint(60, 93)))
+            with open(os.path.join(path, f"gt_img_{i}.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+            files.append(fn)
+            continue
         if hard:
             im = _v1_background(rng, h, w)
             n_inst, max_ang = rng.randint(3, 11), 60

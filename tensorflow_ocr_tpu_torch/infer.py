@@ -121,6 +121,7 @@ class Predictor:
             raise RuntimeError("Predictor(device='cuda'): torch sees no "
                                "CUDA device")
         self.infer = icfg = infer if infer is not None else InferConfig()
+        self.model_name = model_name
         self.model = build_model(model_name, dtype=dtype,
                                  text_scale=text_scale, geometry=geometry)
         self.is_east = model_head(model_name) == "east"

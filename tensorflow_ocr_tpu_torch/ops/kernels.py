@@ -10,6 +10,11 @@ dispatches on the tensors' device:
   union-find: 32 x 32 tiles in shared memory, then the links across the
   tiles' borders in global memory, then a flatten), or raise.
 
+Both go through one ``torch.library`` op,
+``tensorflow_ocr_tpu_torch::connected_components`` (a fake implementation
+gives its shape), so that ``torch.export`` can trace a decode that calls
+it; importing this module registers the op.
+
 The kernel is compiled with ``nvcc`` on first use into
 ``tensorflow_ocr_tpu_torch/build/``, keyed by a hash of the source, the
 flags and the compiler, and loaded with ``ctypes``.
@@ -127,24 +132,10 @@ def connected_components_reference(edges: torch.Tensor, mask: torch.Tensor,
     return labels
 
 
-def connected_components(edges: torch.Tensor, mask: torch.Tensor
-                         ) -> torch.Tensor:
-    """(B, h, w, 8) bool links + (B, h, w) bool mask -> (B, h, w) int32
-    component labels (contract of :func:`connected_components_reference`).
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``connected_components.launches``) or raise.
-    """
-    if edges.device.type == "cpu" and mask.device.type == "cpu":
-        return connected_components_reference(edges, mask)
-    if edges.device.type != "cuda" or edges.device != mask.device:
-        raise ValueError(f"edges on {edges.device}, mask on {mask.device}: "
-                         "need both on one CUDA device (or both on the CPU)")
-    if edges.dtype != torch.bool or mask.dtype != torch.bool:
-        raise TypeError(f"need bool tensors, got {edges.dtype}, {mask.dtype}")
-    if mask.dim() != 3 or tuple(edges.shape) != tuple(mask.shape) + (8,):
-        raise ValueError(f"need edges (B,h,w,8) and mask (B,h,w), got "
-                         f"{tuple(edges.shape)}, {tuple(mask.shape)}")
+def _launch_cc(edges: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel on (B, h, w, 8) and (B, h, w) bool tensors of one
+    card (the op's CUDA implementation), counted in
+    ``connected_components.launches``."""
     if not (edges.is_contiguous() and mask.is_contiguous()):
         raise ValueError("edges and mask must be contiguous")
     if edges.data_ptr() % 8:
@@ -169,6 +160,45 @@ def connected_components(edges: torch.Tensor, mask: torch.Tensor
         raise RuntimeError(f"cc_label launch failed: cudaError_t {err}")
     connected_components.launches += 1
     return labels
+
+
+# A torch.library op, so that torch.export traces a decode through it
+# (export.py): the CPU implementation is the plain version, the CUDA one
+# the kernel, and the fake one gives the labels' shape and type.
+@torch.library.custom_op("tensorflow_ocr_tpu_torch::connected_components",
+                         mutates_args=(), device_types="cpu")
+def connected_components_op(edges: torch.Tensor, mask: torch.Tensor
+                            ) -> torch.Tensor:
+    return connected_components_reference(edges, mask)
+
+
+connected_components_op.register_kernel("cuda")(_launch_cc)
+
+
+@connected_components_op.register_fake
+def _(edges: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return mask.new_empty(mask.shape, dtype=torch.int32)
+
+
+def connected_components(edges: torch.Tensor, mask: torch.Tensor
+                         ) -> torch.Tensor:
+    """(B, h, w, 8) bool links + (B, h, w) bool mask -> (B, h, w) int32
+    component labels (contract of :func:`connected_components_reference`),
+    through the op ``tensorflow_ocr_tpu_torch::connected_components``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in ``connected_components.launches``) or raise.
+    """
+    if not (edges.device.type == "cpu" and mask.device.type == "cpu") and (
+            edges.device.type != "cuda" or edges.device != mask.device):
+        raise ValueError(f"edges on {edges.device}, mask on {mask.device}: "
+                         "need both on one CUDA device (or both on the CPU)")
+    if edges.dtype != torch.bool or mask.dtype != torch.bool:
+        raise TypeError(f"need bool tensors, got {edges.dtype}, {mask.dtype}")
+    if mask.dim() != 3 or tuple(edges.shape) != tuple(mask.shape) + (8,):
+        raise ValueError(f"need edges (B,h,w,8) and mask (B,h,w), got "
+                         f"{tuple(edges.shape)}, {tuple(mask.shape)}")
+    return connected_components_op(edges, mask)
 
 
 connected_components.launches = 0

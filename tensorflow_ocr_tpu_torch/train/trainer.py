@@ -40,9 +40,10 @@ head and loss of the registry's models:
   (``train/eval_hook.py``) logs P/R/F in both loops (JAX's ``run`` has
   no eval hook).
 
-Not ported yet (ROADMAP.md Queue 1): the slim ``.npz`` backbone import
-(item 6) and data parallelism (item 7). Every loss and head of the JAX
-package is ported (:func:`make_loss_fn`).
+``setup`` also warm-starts from a converted slim ImageNet ``.npz``
+(``train/pretrained.py``, :770-791). Not ported yet (ROADMAP.md Queue 1):
+data parallelism (item 7). Every loss and head of the JAX package is
+ported (:func:`make_loss_fn`).
 """
 
 from __future__ import annotations
@@ -901,7 +902,8 @@ class Trainer:
         checkpoint of ``train.checkpoint_path`` restored into it; else,
         with ``train.pretrained_model_path``, a warm start from that port
         checkpoint (tensors of matching name and shape, the BN running
-        statistics included)."""
+        statistics included) or, for a path ending in ``.npz``, from a
+        converted slim ImageNet checkpoint (:meth:`_import_slim`)."""
         self.state = create_train_state(self.cfg, self.device, generator,
                                         weights)
         tcfg = self.cfg.train
@@ -915,9 +917,8 @@ class Trainer:
         elif tcfg.pretrained_model_path:
             path = tcfg.pretrained_model_path
             if path.endswith(".npz"):
-                raise NotImplementedError(
-                    "the slim .npz backbone import is not ported yet "
-                    "(ROADMAP.md Queue 1 item 6)")
+                self._import_slim(path)
+                return self.state
             pre = load_checkpoint(latest_checkpoint(path) or path,
                                   self.device)["model"]
             live = self.state.model.state_dict()
@@ -932,6 +933,24 @@ class Trainer:
                     live[name].copy_(t)
             print(f"warm-started {n} tensors from {path}")
         return self.state
+
+    def _import_slim(self, path: str) -> int:
+        """The backbone of a converted slim ImageNet ``.npz``
+        (``train/pretrained.py``) copied into the state's model, its BN
+        running statistics included, and the EMA reset to the new
+        parameters (trainer.py:770-791); returns the count taken."""
+        from tensorflow_ocr_tpu_torch.train.pretrained import import_backbone
+
+        model = self.state.model
+        merged, n = import_backbone(model, path)
+        live = model.state_dict()
+        with torch.no_grad():
+            for name, t in merged.items():
+                live[name].copy_(t)
+            for name, p in model.named_parameters():
+                self.state.ema[name].copy_(p)
+        print(f"warm-started {n} tensors from {path}")
+        return n
 
     def run(self, batches, max_steps: Optional[int] = None
             ) -> Dict[str, float]:

@@ -4,8 +4,10 @@
 seeded inputs, with the tolerance each states (read against
 opencv-python 5.0):
 
-- ``resize`` (INTER_LINEAR, uint8): at most 1 level, on at most 1% of
-  the values (cv2's vector path rounds a row's tail apart: 0.36% read);
+- ``resize`` (INTER_LINEAR, uint8): byte-equal at the shapes where the
+  height grows (cv2's vertical border taps) and where it shrinks; at most
+  1 level, on at most 1% of the values, elsewhere (cv2's vector path
+  rounds a row's tail apart: 0.34% read at fx = 0.5 on odd sides);
   the same for ``utils/image.py`` ``resize_image`` against JAX's, with
   the same size and ratios;
 - ``warp_affine`` (bilinear, border 0): at most 1 level on 0.1% of the
@@ -92,6 +94,27 @@ def test_resize_is_cv2_s(case):
     assert got.shape == want.shape and got.dtype == np.uint8
     d = _diff(got, want)
     assert d.max() <= 1 and (d > 0).mean() <= 0.01
+
+
+@pytest.mark.parametrize("src,dst", [
+    ((136, 200), (256, 256)), ((427, 640), (720, 1280)),
+    ((150, 200), (720, 1280)), ((256, 256), (512, 300)),
+    ((720, 1280), (512, 512)),
+    # the photo tiers' crops to the frame (china.jpg 427x640 and a
+    # 0.55-crop of it; a 512x512 PNG texture) and test_pixellink_fast's
+    # 1280x768 from a 720p frame and a portrait photo
+    ((235, 352), (256, 320)), ((300, 300), (720, 1280)),
+    ((512, 512), (512, 512)), ((281, 500), (720, 1280)),
+    ((720, 1280), (768, 1280)), ((640, 427), (768, 1280)),
+    ((97, 131), (1280, 96))])
+def test_resize_border_rows_are_cv2_s(src, dst):
+    """Byte-equal to cv2 where the height grows: along y cv2 keeps the
+    fraction's weights at the first and last rows and clamps only the row
+    index, which the port did not (one level off there)."""
+    img = np.random.RandomState(src[0]).randint(0, 256, (*src, 3), np.uint8)
+    want = cv2.resize(img, dst[::-1])
+    got = C.resize(img, dst[::-1])
+    assert got.shape == want.shape and np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("hw,cap", [((500, 700), 3000), ((97, 131), 3000),

@@ -5,8 +5,8 @@ and one dispatch of the augmented device-cached loop): the script runs
 end to end and appends a record with every field of
 scripts/holdout_eval.py's record (QUALITY_r05.json's ``runs``), the
 calibrated operating point on the grid, and a second run appends to the
-same file. ``--scenes photo*`` raises and names ROADMAP.md. The flags
-and their defaults are those of holdout_eval.py.
+same file. ``--scenes photo*`` writes holdout_eval.py's photo splits.
+The flags and their defaults are those of holdout_eval.py.
 """
 
 import importlib.util
@@ -69,9 +69,38 @@ def test_runs_and_appends_the_record(script, tmp_path):
         assert set(rec[key]) == {"precision", "recall", "fmean"}
 
 
-def test_photo_scenes_name_the_roadmap(script):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        script.main(["--scenes", "photo", "--device", "cpu"])
+@pytest.mark.parametrize("scenes", ["photo", "photo_mix", "photo2"])
+def test_photo_scenes_name_the_roadmap(script, tmp_path, monkeypatch, scenes):
+    """``--scenes photo*`` (ROADMAP.md Queue 1 item 5, ported) writes the
+    splits holdout_eval.py writes: the directories' suffix, the tiers of
+    each split and photo_mix's half v2, half photo:train. The data sets
+    alone: the training after them is the v2 run's above."""
+    from tensorflow_ocr_tpu_torch.data import icdar
+
+    if not all(icdar._photo_sources().values()):
+        pytest.skip("no package photographs installed")
+    calls = []
+
+    class Written(Exception):
+        pass
+
+    def fake(path, n, size, seed=0, hard=False, start_index=0):
+        calls.append((os.path.basename(path), n, seed, hard, start_index))
+        if os.path.basename(path).startswith("val"):
+            raise Written
+        return []
+
+    monkeypatch.setattr(icdar, "make_synthetic_dataset", fake)
+    with pytest.raises(Written):
+        script.main(["--scenes", scenes, "--train-images", "4",
+                     "--val-images", "2", "--device", "cpu", "--work-dir",
+                     str(tmp_path)])
+    tier = "photo2" if scenes == "photo2" else "photo"
+    train = ([(f"train_{scenes}", 2, 0, "v2", 0),
+              (f"train_{scenes}", 2, 2, "photo:train", 2)]
+             if scenes == "photo_mix" else
+             [(f"train_{scenes}", 4, 0, f"{tier}:train", 0)])
+    assert calls == train + [(f"val_{scenes}", 2, 1, f"{tier}:val", 0)]
 
 
 def test_flags_and_defaults_are_holdout_evals(script, monkeypatch):

@@ -4,7 +4,8 @@ Every module, the train step, the checkpoints and the multi-step dispatch
 (train/trainer.py), the summaries and the profiling helpers, the data
 tier (the codec, the readers, the loaders, the device dataset and the
 augmentation), the quality loop (eval/, the eval hook, calibration) and
-ResNet-v2 included:
+ResNet-v2 included, and since the entry points' slice the command-line
+entries (``cli/``), the presets, the serving export and the slim import:
 ``triton`` stays out of ``sys.modules`` and no kernel is built at import
 time.
 
@@ -43,7 +44,10 @@ def test_port_imports_without_jax_or_cv2():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
-    for mod in ("config", "data.codec", "data.device_augment",
+    for mod in ("cli", "cli.multigpu_train", "cli.test",
+                "cli.test_pixellink", "cli.test_pixellink_fast",
+                "cli.train_pixellink", "config", "configs", "export",
+                "train.pretrained", "data.codec", "data.device_augment",
                 "data.device_cache", "data.icdar", "data.nvjpeg_loader",
                 "data.pipeline", "data.resumable", "eval.bboxes",
                 "eval.metrics", "infer", "models.convert",

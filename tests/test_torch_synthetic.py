@@ -13,7 +13,8 @@ against ``tensorflow_ocr_tpu/data/icdar.py``'s for the default tier,
   polygons that cross the border, the thick distractor lines and the
   plates of straight hulls, see tests/test_torch_codec.py);
 - the default tier's JPEG files decode (cv2) to the same frames; the
-  ``hard="photo..."`` tiers raise, naming ROADMAP.md Queue 1 item 5.
+  ``hard="photo..."`` tiers write gt files equal to JAX's
+  (tests/test_torch_photo.py holds them in full).
 """
 
 import os
@@ -82,5 +83,15 @@ def test_start_index_continues_the_numbering(tmp_path):
 
 @pytest.mark.parametrize("hard", ["photo", "photo:val", "photo2:train"])
 def test_photo_tiers_wait_for_item_5(tmp_path, hard):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        T.make_synthetic_dataset(str(tmp_path), 1, (64, 64), hard=hard)
+    """The photo tiers, item 5's last part, are ported: a frame and its
+    gt file, byte-equal to JAX's (tests/test_torch_photo.py compares
+    them at larger sizes)."""
+    if not all(T._photo_sources().values()):
+        pytest.skip("no package photographs installed")
+    files = T.make_synthetic_dataset(str(tmp_path / "port"), 1, (64, 64),
+                                     hard=hard)
+    J.make_synthetic_dataset(str(tmp_path / "jax"), 1, (64, 64), hard=hard)
+    assert codec.imread(files[0]).shape == (64, 64, 3)
+    with open(tmp_path / "jax" / "gt_img_0.txt", "rb") as a, \
+            open(tmp_path / "port" / "gt_img_0.txt", "rb") as b:
+        assert a.read() == b.read()
