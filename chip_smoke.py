@@ -22,7 +22,7 @@ Phases, in order; any failure raises and exits non-zero:
    the boxes must equal those decoded from the same logits with the
    plain connected components;
 6. time detect (p50, batch 1, 1280x768) and detect_batches (img/s,
-   batch 8) after a warm-up, each over 3 windows of at least 5 s;
+   batch 8) after a warm-up, each over 2 windows of at least 5 s;
    print each window and the median of the three;
 7. with --profile only: a torch.profiler trace of serve and of detect,
    printing wall time, device busy time, the device's idle share and
@@ -115,9 +115,9 @@ Phases, in order; any failure raises and exits non-zero:
    port checkpoint trained 50 steps (one graph dispatch) on the numpy
    scenes in place of the augmented state;
 21. train img/s for the fused, xla, freeze_bn-fused, xla pallas-conv and
-   ghost arms, each over 2 windows of at least 5 s (median and range);
+   ghost arms, each over 2 windows of at least 3 s (median and range);
 22. the same five arms through make_multi_train_step, 16 steps a
-   dispatch (the graph replayed), over 2 windows of at least 5 s; with
+   dispatch (the graph replayed), over 2 windows of at least 3 s; with
    --profile also the device idle share of one dispatch of the fused and
    ghost arms;
 23. with --profile only: a torch.profiler trace of 3 train steps of the
@@ -143,7 +143,7 @@ Phases, in order; any failure raises and exits non-zero:
    on 8 x 1280x768 scenes (an operating point planted if few pixels pass
    the score threshold), east_detect on the card equal to the CPU's on
    the same maps, the boxes NMS keeps equal to the CPU decode's; detect
-   p50 and serve img/s over 3 windows of 5 s, with the host NMS ms;
+   p50 and serve img/s over 2 windows of 5 s, with the host NMS ms;
 29. pixellink2s_vgg16 (OHEM, labels at stride 2): eager train img/s and
    peak memory; detect through the CC kernel, held against its plain
    version at the stride-2 maps (8, 384, 640); detect and serve timed;
@@ -215,7 +215,23 @@ Phases, in order; any failure raises and exits non-zero:
    Predictor.detect_batch's, the CC kernel launched there, the maps within
    BUNDLE_MAPS_ATOL of the live forward; export seconds, sizes, batch ms
    beside the Predictor's; the package photographs this machine has, and
-   4 photo:train and 4 photo2:val frames where it has them.
+   4 photo:train and 4 photo2:val frames where it has them;
+38. multi-GPU (tensorflow_ocr_tpu_torch/parallel/), in processes that
+   python -m torch.distributed.run starts (the card machine has one
+   H100, so NCCL runs a world of one; within MGPU_TIME_S): (a) a world-1
+   NCCL group as torchrun sets it up: the fused arm's 4-step dispatch at
+   512^2, batch 32, its NCCL all-reduces captured in the CUDA graph,
+   bit-equal to the same dispatch with no process group under
+   deterministic algorithms, the fused kernels launched at the capture;
+   spatial_forward of the Predictor's model at 8 x 1280x768 at world 1:
+   maps and boxes equal to the Predictor's, the CC kernel launched; (b)
+   two gloo ranks on the one card (gloo chosen by name): one eager fused
+   step of the global batch of 32, 16 a rank, bit-equal on both ranks to
+   one process running the two halves in turn from the same state and
+   summing the gradients, BN buffers and metrics in rank order, halved
+   (a two-rank sum is one addition); the same emulation with rank 1's
+   gradients x 0.9 planted must differ; each rank's step ms, gradient
+   all-reduce ms and peak memory, with the card's name and power limit.
 
 The line before the last is a JSON object describing the fourteen
 kernels (launches from the main path of each: detect for the CC kernel,
@@ -258,9 +274,10 @@ FWD_REL_TOL = 1e-4
 # least WINDOW_S; the PixelLink detect and serve of phase 6 and the VGG
 # model's over windows of PIXELLINK_WINDOW_S (shortened when the EAST
 # phases came, to keep the script within half its time limit; the EAST
-# windows, 10 s before, when the data phase came)
+# windows, 10 s before, when the data phase came; 2 windows, 3 before,
+# since the multi-GPU phase 38 came)
 WINDOW_S = 5.0
-WINDOWS = 3
+WINDOWS = 2
 PIXELLINK_WINDOW_S = 5.0
 # the train phases: bench.py's train shape, steps of the main path, and
 # the EAST eager train img/s read over TRAIN_WINDOWS windows of at least
@@ -278,9 +295,9 @@ EAST_GRAPH_DISPATCHES = 9
 EAST_SERVE_STEPS = 448
 # the five PixelLink arms' eager and graph img/s: ARM_WINDOWS windows of
 # at least ARM_WINDOW_S (scripts/trainer_probe.py times them longer, in
-# fresh processes)
+# fresh processes; 5 s until the multi-GPU phase 38 came)
 ARM_WINDOWS = 2
-ARM_WINDOW_S = 5.0
+ARM_WINDOW_S = 3.0
 # fused vs xla arm, one step each from one state and batch, in bf16. At
 # the seeded init (every BN scale 1) the bf16 step is chaotic: two runs
 # of the fused arm alone differ by a gradient relative error of ~1, as
@@ -4794,6 +4811,308 @@ def phase_entry_points(device):
     print(f"entries: phase 37 took {time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# phase 38: multi-GPU (parallel/), in processes that torch.distributed.run
+# starts; the card machine has one H100, so NCCL runs a world of one and
+# gloo joins two ranks on the one card
+# --------------------------------------------------------------------------
+
+MGPU_STEPS = 4        # (a): the captured dispatch's steps
+MGPU_TIME_S = 120.0   # the phase's budget, both process groups included
+MGPU_TIMED = 3        # timed repeats of each step and all-reduce
+
+
+def mgpu_line(tag, **fields):
+    print(f"MGPU {json.dumps(dict(fields, tag=tag))}", flush=True)
+
+
+def two_halves(state, batch, cfg, loss_fn, scale1=1.0):
+    """Rank by rank in one process, what two data-parallel ranks do with
+    the two halves of ``batch`` from ``state``: each half's forward and
+    backward from the same BN buffers, the gradients summed in rank order
+    (rank 1's times ``scale1``: a planted fault) and halved, the optimizer
+    and EMA, the BN buffers and the metrics summed in rank order and
+    halved, the L2 value of the parameters before the update added."""
+    import torch
+    from tensorflow_ocr_tpu_torch.train import optim, trainer as T
+
+    model = state.model
+    l2 = optim.l2_regularization(model, cfg.model.weight_decay)
+    bufs = T.bn_buffers(model)
+    start = [b.clone() for b in bufs]
+    half = len(batch["images"]) // 2
+    grads, after, metrics = [], [], []
+    for r in range(2):
+        with torch.no_grad():
+            for b, s in zip(bufs, start):
+                b.copy_(s)
+        part = {k: v[r * half:(r + 1) * half] for k, v in batch.items()}
+        ml, aux = T.loss_and_grads(model, part, cfg, loss_fn)
+        grads.append([p.grad.clone() for p in model.parameters()
+                      if p.grad is not None])
+        after.append([b.clone() for b in bufs])
+        metrics.append({"model_loss": ml, **aux})
+    with torch.no_grad():
+        live = [p for p in model.parameters() if p.grad is not None]
+        for p, g0, g1 in zip(live, *grads):
+            p.grad = (g0 + g1 * scale1) / 2
+        T.apply_update(state, cfg)
+        for b, a0, a1 in zip(bufs, *after):
+            b.copy_((a0 + a1) / 2)
+    out = {k: ((metrics[0][k].float() + metrics[1][k].float()) / 2).to(
+        v.dtype if v.dtype.is_floating_point else torch.float32)
+        for k, v in metrics[0].items()}
+    return {"total_loss": out["model_loss"] + l2, **out}
+
+
+def max_rel(a, b) -> float:
+    """The largest |a - b| / max|b| over the tensors of two mappings."""
+    return max(float((a[k].float() - b[k].float()).abs().max()
+                     / b[k].float().abs().max().clamp_min(1e-30))
+               for k in b)
+
+
+def timed_ms(fn, n=MGPU_TIMED) -> float:
+    """Median wall ms of ``fn`` with the card synced around each call."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000)
+    return statistics.median(times)
+
+
+def allreduce_ms(group, model):
+    """The train step's gradient all-reduce alone (one flat buffer of
+    every parameter's size), timed; (ms, bytes)."""
+    import torch
+
+    grads = [torch.zeros_like(p) for p in model.parameters()]
+    ms = timed_ms(lambda: group.all_reduce_(grads))
+    return ms, 4 * sum(g.numel() for g in grads)
+
+
+def mgpu_graph_rank(device="cuda") -> int:
+    """(a) One rank of a world-1 NCCL group from torchrun's environment:
+    the fused arm's MGPU_STEPS-step dispatch with the group (its NCCL
+    all-reduces captured in the graph) against the same dispatch with no
+    group, under deterministic(): every state tensor and metric bit-equal,
+    the fused kernels launched at the capture; then spatial_forward of
+    the Predictor's model at 8 x 1280x768, maps and boxes equal to the
+    Predictor's own, the CC kernel launched."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.infer import Predictor
+    from tensorflow_ocr_tpu_torch.ops import kernels as K
+    from tensorflow_ocr_tpu_torch.parallel import make_mesh, multihost
+    from tensorflow_ocr_tpu_torch.parallel import spatial
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    check(multihost.initialize(device=device), "no torchrun environment")
+    group = make_mesh(1, device)
+    device = group.device
+    cuda = device.type == "cuda"
+    check(group.backend == ("nccl" if cuda else "gloo")
+          and group.world == 1 and group.reduces,
+          f"the world-1 group: {group}")
+    cfg = train_config("fused")
+    snap = seeded_snap(device)
+    ds = scene_dataset(device)
+    idx = dispatch_rows(np.random.RandomState(38), MGPU_STEPS, device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with deterministic():
+        a = T.create_train_state(cfg, device, weights=snap)
+        b = T.create_train_state(cfg, device, weights=snap)
+        multi_a = T.make_multi_train_step(a, cfg, T.label_keys(cfg),
+                                          group=group)
+        multi_b = T.make_multi_train_step(b, cfg, T.label_keys(cfg))
+        reset_fused_counts()
+        got = multi_a(a, ds, idx)
+        torch.cuda.synchronize()
+        captured = fused_counts()
+        want = multi_b(b, ds, idx)
+        diff = unequal(leaves(a), leaves(b)) + unequal(got, want)
+        reset_fused_counts()
+        ms_group = timed_ms(lambda: multi_a(a, ds, idx), 1) / MGPU_STEPS
+        ms_plain = timed_ms(lambda: multi_b(b, ds, idx), 1) / MGPU_STEPS
+        replayed = fused_counts()
+        diff += unequal(leaves(a), leaves(b))
+    # the capture runs the warm-up steps and records one (a CPU rehearsal
+    # runs the dispatch's steps eagerly)
+    n = T.WARMUP_STEPS + 1 if cuda else MGPU_STEPS
+    check(not diff, f"phase 38 (a): the dispatch with the NCCL group "
+          f"differs from the one without at {diff[:4]}")
+    check(all(captured.values()) and all(v % n == 0 for v in
+                                         captured.values()),
+          f"phase 38 (a): fused launches at the capture {captured}")
+    check(not (cuda and any(replayed.values())),
+          f"phase 38 (a): launches at the replays {replayed}")
+    ar_ms, ar_bytes = allreduce_ms(group, a.model)
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    multi_a.release()
+    multi_b.release()
+    del a, b, multi_a, multi_b, ds
+    torch.cuda.empty_cache()
+
+    pred = Predictor(MODEL, device=device)
+    images = scene_images(np.random.RandomState(0), 8)
+    x = torch.from_numpy(images).to(device)
+    head_logit_scale(pred, x, ("pixel_logits", "link_logits"))
+    decode_check(pred, images, "phase 38 Predictor")
+    with torch.inference_mode():
+        want_maps = pred.model(x)
+    want_boxes = pred.detect_batch(images)
+    spatial.spatial_predictor(pred, spatial.make_spatial_mesh(1, device))
+    K.connected_components.launches = 0
+    got_boxes = pred.detect_batch(images)
+    torch.cuda.synchronize()
+    cc = K.connected_components.launches
+    got_maps = pred.forward(x)
+    maps_diff = unequal(got_maps, want_maps)
+    same_boxes = all(len(g) == len(w) and all(
+        np.array_equal(u, v) for u, v in zip(g, w))
+        for g, w in zip(got_boxes, want_boxes))
+    check(not maps_diff and same_boxes and cc > 0,
+          f"phase 38 (a): spatial_forward at world 1: maps differ at "
+          f"{maps_diff}, boxes equal {same_boxes}, cc launches {cc}")
+    mgpu_line("graph", rank=0, steps=MGPU_STEPS, unequal=len(diff),
+              captured=captured, step_ms_group=ms_group,
+              step_ms_plain=ms_plain, allreduce_ms=ar_ms,
+              allreduce_bytes=ar_bytes, peak_gib=peak,
+              spatial_boxes=sum(len(g) for g in got_boxes),
+              spatial_cc_launches=cc)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def mgpu_gloo_rank(device=None) -> int:
+    """(b) One of two gloo ranks on the one card (backend chosen by
+    name): one eager fused step of the global batch of TRAIN_BATCH, half
+    a rank; rank 0 then runs two_halves from the same state and holds
+    the ranks' state and metrics against it (bit-equal: a two-rank sum
+    is one addition), and reads the same step with rank 1's gradients
+    x 0.9 planted, which must differ; then each rank times its step and
+    its gradient all-reduce."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.parallel import make_mesh, multihost
+    from tensorflow_ocr_tpu_torch.parallel.dryrun import _agree
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    device = torch.device(device or "cuda:0")
+    check(multihost.initialize(device=device, backend="gloo"),
+          "no torchrun environment")
+    group = make_mesh(2, device)
+    check(group.backend == "gloo", f"the gloo group: {group}")
+    cfg = train_config("fused")
+    loss_fn = T.make_loss_fn(cfg)
+    snap = seeded_snap(device)
+    batch = train_batch(np.random.RandomState(38), device, TRAIN_BATCH,
+                        TRAIN_SIZE)
+    local = T.device_batch(batch, device, False, group, TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    sound = planted = None
+    with deterministic():
+        state = T.create_train_state(cfg, device, weights=snap)
+        m = T.train_step(state, local, cfg, loss_fn, group=group)
+        torch.cuda.synchronize()
+        check(float(m["n_pos"]) > 0, "phase 38 (b): no text in the batch")
+        _agree(group, state, "phase 38 (b)")
+        if group.rank == 0:
+            ref = T.create_train_state(cfg, device, weights=snap)
+            want = two_halves(ref, batch, cfg, loss_fn)
+            diff = unequal(leaves(state), leaves(ref)) + unequal(m, want)
+            sound = max_rel(leaves(state), leaves(ref))
+            bad = T.create_train_state(cfg, device, weights=snap)
+            two_halves(bad, batch, cfg, loss_fn, scale1=0.9)
+            planted = max_rel(leaves(bad), leaves(state))
+            del ref, bad
+            check(not diff, f"phase 38 (b): two gloo ranks differ from "
+                  f"the two-halves emulation at {diff[:4]} (max rel "
+                  f"{sound:.3e})")
+            check(planted > 0, "phase 38 (b): the planted fault (rank 1's "
+                  "gradients x 0.9) reads as sound")
+        step_ms = timed_ms(lambda: T.train_step(state, local, cfg, loss_fn,
+                                                group=group))
+    ar_ms, ar_bytes = allreduce_ms(group, state.model)
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    mgpu_line("gloo", rank=group.rank, step_ms=step_ms, allreduce_ms=ar_ms,
+              allreduce_bytes=ar_bytes, peak_gib=peak, max_rel=sound,
+              planted_max_rel=planted,
+              total_loss=float(m["total_loss"]))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(n, mode):
+    """``python -m torch.distributed.run --standalone --nproc_per_node=n
+    chip_smoke.py --multigpu-rank mode``: its MGPU lines and seconds."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={n}", os.path.join(REPO, "chip_smoke.py"),
+         "--multigpu-rank", mode], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=300)
+    dt = time.perf_counter() - t0
+    lines = [json.loads(ln[5:]) for ln in proc.stdout.splitlines()
+             if ln.startswith("MGPU ")]
+    tail = "\n".join(ln for ln in proc.stdout.strip().splitlines()[-8:]
+                     if not ln.startswith("MGPU "))
+    print(f"phase 38 {mode}: {n} process(es), {dt:.1f} s, rc "
+          f"{proc.returncode}\n{tail}")
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:] + proc.stderr[-5000:], file=sys.stderr)
+    check(proc.returncode == 0 and len(lines) == n,
+          f"phase 38 {mode} failed")
+    return lines, dt
+
+
+def phase_multigpu():
+    """Phase 38: (a) in a world-1 NCCL group, (b) on two gloo ranks of
+    the one card (mgpu_graph_rank, mgpu_gloo_rank); prints each rank's
+    step ms, all-reduce ms and peak memory with the card's name and
+    power limit; the whole phase within MGPU_TIME_S."""
+    t0 = time.perf_counter()
+    card = card_line()
+    (a,), _ = run_ranks(1, "graph")
+    print(f"phase 38 (a) NCCL world 1 [{card}]: {a['steps']} captured "
+          f"fused steps of {TRAIN_BATCH} at {TRAIN_SIZE}^2 bit-equal to "
+          f"the steps with no group; fused launches at the capture "
+          f"{a['captured']}; graph step {a['step_ms_group']:.3f} ms with "
+          f"the all-reduces, {a['step_ms_plain']:.3f} ms without; the "
+          f"gradient all-reduce alone {a['allreduce_ms']:.3f} ms for "
+          f"{a['allreduce_bytes']} bytes; peak memory "
+          f"{a['peak_gib']:.2f} GiB; spatial_forward at world 1: "
+          f"{a['spatial_boxes']} boxes equal to the Predictor's, cc "
+          f"launches {a['spatial_cc_launches']}")
+    ranks, _ = run_ranks(2, "gloo")
+    for r in sorted(ranks, key=lambda r: r["rank"]):
+        print(f"phase 38 (b) gloo rank {r['rank']} of 2 on one card "
+              f"[{card}]: eager fused step of {TRAIN_BATCH // 2} "
+              f"{r['step_ms']:.3f} ms, gradient all-reduce "
+              f"{r['allreduce_ms']:.3f} ms for {r['allreduce_bytes']} "
+              f"bytes, peak memory {r['peak_gib']:.2f} GiB"
+              + ("" if r["max_rel"] is None else
+                 f"; against the two-halves emulation max rel "
+                 f"{r['max_rel']:.3e} (bit-equal), with rank 1's "
+                 f"gradients x 0.9 planted {r['planted_max_rel']:.3e}"))
+    dt = time.perf_counter() - t0
+    print(f"phase 38: {dt:.1f} s (budget {MGPU_TIME_S:g} s)")
+    check(dt <= MGPU_TIME_S, f"phase 38 took {dt:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4803,6 +5122,8 @@ def main() -> int:
                     help="also read the fused, pallas-conv and ghost arm "
                     "checks under planted faults, from the augmented state "
                     "and from a trained checkpoint")
+    ap.add_argument("--multigpu-rank", choices=("graph", "gloo"),
+                    help=argparse.SUPPRESS)  # phase 38's ranks
     args = ap.parse_args()
     import shutil
 
@@ -4816,6 +5137,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if args.multigpu_rank:
+        return {"graph": mgpu_graph_rank,
+                "gloo": mgpu_gloo_rank}[args.multigpu_rank]()
     device = torch.device("cuda", 0)
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -4896,6 +5220,7 @@ def main() -> int:
     phase_other_forwards(device)
     phase_backbones(device)
     phase_entry_points(device)
+    phase_multigpu()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -14,6 +14,12 @@ layout so each module has a counterpart:
                  min-area boxes) and the hand-written CUDA connected-
                  components kernel with its plain PyTorch version
                  (``ops/kernels.py``, sources in ``csrc/``).
+- ``parallel`` — multi-GPU: the data-parallel group and its collectives
+                 (``mesh.py``), process-group start-up (``multihost.py``),
+                 serving sharded on image height with halo exchange
+                 (``spatial.py``) and a multi-rank dry run
+                 (``dryrun.py``); one process a GPU over
+                 ``torch.distributed`` (NCCL on the card, gloo on the CPU).
 - ``utils``    — image resize.
 - ``infer.py`` — Predictor: forward + on-device decode for serving.
 

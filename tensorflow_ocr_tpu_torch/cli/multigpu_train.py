@@ -7,7 +7,16 @@
 The root script's flags (``config.py`` ``FLAG_ALIASES`` and dotted paths;
 ``--gpu_list`` accepted and ignored), ``--preset=N`` for a
 ``configs.py`` preset (applied before the other flags), and ``--device``.
-One device: the global batch is ``batch_size_per_gpu`` x 1. With
+The global batch is ``batch_size_per_gpu`` x the ranks, as JAX's
+``batch_size_per_gpu`` x the devices. Data parallel, one process per GPU
+(NCCL; ``--device=cpu`` runs gloo ranks on the CPU):
+
+    python -m torch.distributed.run --nproc_per_node=8 \
+        -m tensorflow_ocr_tpu_torch.cli.multigpu_train --preset=5 ...
+
+Every rank's loader draws the global batch alike and keeps its rows;
+rank 0 alone prints, writes summaries, checkpoints and the operating
+point. With
 ``--train.use_device_cache`` the data is staged on the device
 (``Trainer.run_device_cached``), else it streams from the host
 (``ResumableLoader -> PrefetchLoader -> DevicePrefetcher`` into
@@ -22,18 +31,24 @@ import sys
 
 
 def train(cfg, device: str):
-    """Train ``cfg`` on ``device``, save the final checkpoint and
-    calibrate it; returns the Trainer."""
+    """Train ``cfg`` on ``device`` (this rank's part of the process group
+    where there is one), save the final checkpoint and calibrate it;
+    returns the Trainer."""
     from tensorflow_ocr_tpu_torch.data.pipeline import (DevicePrefetcher,
                                                         PrefetchLoader)
     from tensorflow_ocr_tpu_torch.data.resumable import ResumableLoader
-    from tensorflow_ocr_tpu_torch.train.trainer import (Trainer,
-                                                        save_checkpoint)
+    from tensorflow_ocr_tpu_torch.parallel.mesh import make_mesh
+    from tensorflow_ocr_tpu_torch.train.trainer import Trainer
     from tensorflow_ocr_tpu_torch.utils.summary import SummaryWriter
 
-    os.makedirs(cfg.train.checkpoint_path, exist_ok=True)
-    writer = SummaryWriter(cfg.train.checkpoint_path)
-    trainer = Trainer(cfg, device, summary_writer=writer)
+    group = make_mesh(cfg.train.num_devices, device)
+    # reference semantics: global batch = batch_size_per_gpu * ranks
+    cfg.data.batch_size *= group.world
+    writer = None
+    if group.rank == 0:
+        os.makedirs(cfg.train.checkpoint_path, exist_ok=True)
+        writer = SummaryWriter(cfg.train.checkpoint_path)
+    trainer = Trainer(cfg, device, summary_writer=writer, group=group)
     if cfg.train.use_device_cache:
         trainer.run_device_cached(max_steps=cfg.train.max_steps)
     else:
@@ -43,12 +58,12 @@ def train(cfg, device: str):
         loader = DevicePrefetcher(
             PrefetchLoader(cfg.data, want_east=trainer.want_east,
                            source=source),
-            device, want_east=trainer.want_east)
+            trainer.device, want_east=trainer.want_east, group=group)
         try:
             trainer.run(loader, max_steps=cfg.train.max_steps)
         finally:
             loader.stop()
-    save_checkpoint(cfg.train.checkpoint_path, trainer.state)
+    trainer.save()
     trainer._maybe_calibrate()  # the operating point of the final save
     return trainer
 
@@ -58,11 +73,22 @@ def main(argv):
     from tensorflow_ocr_tpu_torch.config import Config, parse_flags
     from tensorflow_ocr_tpu_torch.configs import baseline_config
 
+    from tensorflow_ocr_tpu_torch.parallel import multihost
+
     argv = list(argv)
     device = take_flag(argv, "device", "cuda")
     preset = take_flag(argv, "preset")
-    cfg = baseline_config(int(preset)) if preset is not None else Config()
-    return train(parse_flags(argv, cfg), device)
+    # before the flags: validate reads the process group's size
+    started = multihost.initialize(device=device)
+    try:
+        cfg = baseline_config(int(preset)) if preset is not None \
+            else Config()
+        return train(parse_flags(argv, cfg), device)
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

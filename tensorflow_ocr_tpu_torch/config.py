@@ -19,10 +19,10 @@ same coercions and the same error on an unknown flag
 (``config.py:237-348``).
 
 Left out: ``donate_state`` (the port's steps update the state in place;
-there is nothing to donate), ``grad_reduce`` and ``xla_options``.
-``TrainConfig.num_devices`` is kept so that the reference's flags parse,
-but the port trains on one device: ``validate`` refuses any other count
-until data parallelism lands (ROADMAP.md Queue 1 item 7).
+there is nothing to donate) and ``xla_options``. ``TrainConfig.num_devices``
+is the data-parallel world: one process per GPU over ``torch.distributed``
+(``parallel/``); ``validate`` refuses a count other than the process
+group's size.
 """
 
 from __future__ import annotations
@@ -134,6 +134,9 @@ class TrainConfig:
     lr_decays: Sequence[float] = ()
     optimizer: str = "adam"  # adam | momentum
     momentum: float = 0.9
+    # the gradients' cross-rank reduction: "mean" (multigpu_train.py:70-85)
+    # or "sum" (train_pixellink.py sum_gradients :179-194)
+    grad_reduce: str = "mean"
     max_steps: int = 100_000
     moving_average_decay: float = 0.997
     # ckpt_<step>/ directories are written under this root
@@ -161,8 +164,8 @@ class TrainConfig:
     # disables
     stall_warn_secs: float = 300.0
     seed: int = 0
-    # devices of the data-parallel axis; the port trains on one (None or
-    # 1), data parallelism is ROADMAP.md Queue 1 item 7
+    # ranks of the data-parallel group (None: the whole world); must be
+    # the process group's size (1 with none)
     num_devices: Optional[int] = None
     # train through Trainer.run_device_cached: the dataset staged on the
     # device, scan_steps steps a dispatch
@@ -200,11 +203,18 @@ class Config:
             raise ValueError("train.save_interval_secs must be >= 0")
         if self.train.max_checkpoints_to_keep < 0:
             raise ValueError("train.max_checkpoints_to_keep must be >= 0")
-        if self.train.num_devices not in (None, 1):
-            raise NotImplementedError(
-                f"train.num_devices={self.train.num_devices}: the port "
-                "trains on one device; data parallelism is ROADMAP.md "
-                "Queue 1 item 7")
+        if self.train.grad_reduce not in ("mean", "sum"):
+            raise ValueError(f"train.grad_reduce must be 'mean' or 'sum', "
+                             f"got {self.train.grad_reduce!r}")
+        from tensorflow_ocr_tpu_torch.parallel.mesh import world_size
+
+        world = world_size()
+        if self.train.num_devices not in (None, world):
+            raise ValueError(
+                f"train.num_devices={self.train.num_devices} but the process "
+                f"group has {world} rank(s): launch {self.train.num_devices} "
+                "ranks (python -m torch.distributed.run "
+                f"--nproc_per_node={self.train.num_devices} ...)")
         return self
 
 

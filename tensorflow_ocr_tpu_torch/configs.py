@@ -10,8 +10,9 @@ take it as ``--preset=N`` (``cli/multigpu_train.py``).
 3. PixelLink VGG-16 (2s head), OHEM, link threshold 0.9;
 4. EAST ResNet-50 with the focal loss at 768, batch 8, random scale, crop
    and rotation;
-5. data-parallel EAST ResNet-50 over 16 devices: raises until data
-   parallelism lands (ROADMAP.md Queue 1 item 7).
+5. data-parallel EAST ResNet-50 RBOX at 512, a global batch of 224 over
+   16 ranks (``num_devices`` 16: its Trainer and ``Config.validate``
+   refuse a world of another size).
 """
 
 from __future__ import annotations
@@ -50,9 +51,11 @@ def baseline_config(n: int) -> Config:
         cfg.data.use_crop = True
         cfg.data.use_rotate = True
     elif n == 5:
-        raise NotImplementedError(
-            "preset 5 is data-parallel over 16 devices; the port trains on "
-            "one device until ROADMAP.md Queue 1 item 7 (multi-GPU) lands")
+        cfg.model.name = "east_resnet50"
+        cfg.loss.name = "east"
+        cfg.data.input_size = 512
+        cfg.data.batch_size = 14 * 16  # the global batch over 16 ranks
+        cfg.train.num_devices = 16
     else:
         raise ValueError(f"baseline config {n} not in 1..5")
     return cfg

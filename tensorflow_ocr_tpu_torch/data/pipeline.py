@@ -248,11 +248,14 @@ class DevicePrefetcher(_Resumable):
     records an event; ``next`` makes the current stream wait on it (and
     marks the tensors used there), so the copy overlaps the step before.
     On the CPU the arrays become tensors. File names stay on the host
-    (``fns``). Resumable where ``loader`` is."""
+    (``fns``). Resumable where ``loader`` is. With a data-parallel
+    ``group`` (``parallel/mesh.py``) of several ranks, only this rank's
+    rows of each global batch are copied (``shard_batch``)."""
 
     def __init__(self, loader, device="cuda", want_east: bool = False,
-                 depth: int = 2):
+                 depth: int = 2, group=None):
         self._source = loader
+        self.group = group if group is not None and group.world > 1 else None
         self.device = torch.device(device)
         self.want_east = want_east
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -262,6 +265,14 @@ class DevicePrefetcher(_Resumable):
         self._stream = None
 
     def _upload(self, batch):
+        if self.group is not None:
+            from tensorflow_ocr_tpu_torch.parallel.mesh import shard_batch
+
+            fns = batch.get("fns")
+            rows = self.group.rows(len(batch["images"]))
+            batch = shard_batch(self.group, batch)
+            if fns is not None:
+                batch["fns"] = list(fns)[rows]
         if self.device.type != "cuda":
             return {k: (torch.as_tensor(v) if k != "fns" else v)
                     for k, v in batch.items()}, None

@@ -140,6 +140,9 @@ class Predictor:
         if weights is not None:
             self.model.load_state_dict(weights, strict=True)
         self.model.to(self.device)
+        # what _run calls: the model, or an H-sharded forward of it
+        # (parallel/spatial.py spatial_predictor)
+        self.forward = self.model
         self.stride = float(self.model.output_stride)
         # min_component_size is given on the stride-4 grid; scale by area
         self.min_size = int(round(
@@ -164,7 +167,7 @@ class Predictor:
 
     @torch.inference_mode()
     def _run(self, x: torch.Tensor, full_budget: bool = False):
-        out = self.model(x)
+        out = self.forward(x)
         if self.is_east:
             return D.east_detect(out["score"][..., 0], out["geometry"],
                                  score_thresh=self.score_thresh)

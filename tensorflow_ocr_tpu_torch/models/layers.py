@@ -17,6 +17,11 @@ and :131-135 route them to the Pallas kernels: False (the default:
 cuDNN on the card), True, or None for on with CUDA tensors. The kernels
 take bfloat16 only, so with the route on a float32 model on the card
 raises; the JAX route takes float32 convs too.
+
+``SPATIAL`` is set only inside an H-sharded forward
+(``parallel/spatial.py``): the convs, max-pools and unpools below then
+take the pads of the whole image's height and fetch the rows outside
+their shard from the ranks that hold them.
 """
 
 from __future__ import annotations
@@ -37,6 +42,9 @@ IMAGENET_MEANS = (123.68, 116.78, 103.94)
 BN_MOMENTUM = 0.997
 # Route supported convs through ops/conv.py (see the module docstring).
 PALLAS_CONVS: Optional[bool] = False
+# The row exchange of an H-sharded forward (parallel/spatial.py
+# ``HaloRows``), or None: every other path.
+SPATIAL = None
 
 
 def _pallas_convs_enabled(x: torch.Tensor) -> bool:
@@ -93,7 +101,44 @@ def unpool(x: torch.Tensor) -> torch.Tensor:
     """2x bilinear upsample with half-pixel centres, as jax.image.resize
     does it (models/layers.py:157-166). NCHW. Its backward sums in a
     fixed order (:class:`_Unpool`)."""
+    if SPATIAL is not None:
+        return SPATIAL.unpool(x)
     return _Unpool.apply(x)
+
+
+def full_height(x: torch.Tensor) -> int:
+    """The image's height at ``x``'s level: its own, or under an
+    H-sharded forward the sum of every shard's."""
+    return SPATIAL.full(x) if SPATIAL is not None else x.shape[-2]
+
+
+def conv2d_pads(x: torch.Tensor, wgt: torch.Tensor,
+                bias: Optional[torch.Tensor], stride: int, dilation: int,
+                pads: Tuple[int, int, int, int]) -> torch.Tensor:
+    """``F.conv2d`` with zero pads (left, right, top, bottom): the conv's
+    own symmetric padding where the pads allow it, else ``F.pad`` first.
+    Under an H-sharded forward the rows come from ``SPATIAL``, and only
+    the global top and bottom pad."""
+    left, right, top, bottom = pads
+    if SPATIAL is not None:
+        k = (wgt.shape[-2] - 1) * dilation + 1
+        x, top, bottom = SPATIAL.window(x, k, stride, top, bottom)
+    if left == right and top == bottom:
+        return F.conv2d(x, wgt, bias, stride, (top, left), dilation)
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), wgt, bias, stride,
+                    dilation=dilation)
+
+
+def max_pool_pads(x: torch.Tensor, window: int, stride: int,
+                  pads: Tuple[int, int, int, int]) -> torch.Tensor:
+    """``F.max_pool2d`` after -inf pads (left, right, top, bottom); rows
+    from ``SPATIAL`` under an H-sharded forward, as :func:`conv2d_pads`."""
+    left, right, top, bottom = pads
+    if SPATIAL is not None:
+        x, top, bottom = SPATIAL.window(x, window, stride, top, bottom)
+    if top or bottom or left or right:
+        x = F.pad(x, (left, right, top, bottom), value=-math.inf)
+    return F.max_pool2d(x, window, stride)
 
 
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -113,9 +158,9 @@ def stem_max_pool(x: torch.Tensor) -> torch.Tensor:
     In eval mode it runs before the relu, so it sees negative values: pad
     with -inf by hand, then pool with no padding.
     """
-    (top, bottom), (left, right) = (same_pads(d, 3, 2) for d in x.shape[-2:])
-    x = F.pad(x, (left, right, top, bottom), value=-math.inf)
-    return F.max_pool2d(x, 3, 2)
+    (top, bottom) = same_pads(full_height(x), 3, 2)
+    (left, right) = same_pads(x.shape[-1], 3, 2)
+    return max_pool_pads(x, 3, 2, (left, right, top, bottom))
 
 
 class BatchNorm(nn.Module):
@@ -181,13 +226,8 @@ class ConvBN(nn.Module):
     def _conv(self, x: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
         if self._routed(x):
             return CV.conv2d(x, wgt, (self.stride, self.stride))
-        s, d = self.stride, self.dilation
-        left, right, top, bottom = self._pads(*x.shape[-2:])
-        if left == right and top == bottom:
-            return F.conv2d(x, wgt, stride=s, padding=(top, left),
-                            dilation=d)
-        return F.conv2d(F.pad(x, (left, right, top, bottom)), wgt,
-                        stride=s, dilation=d)
+        return conv2d_pads(x, wgt, None, self.stride, self.dilation,
+                           self._pads(full_height(x), x.shape[-1]))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         bn = self.bn

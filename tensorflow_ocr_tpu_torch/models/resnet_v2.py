@@ -24,6 +24,7 @@ from tensorflow_ocr_tpu_torch.models.layers import (
     BatchNorm,
     ConvBN,
     batch_norm,
+    conv2d_pads,
     stem_max_pool,
 )
 from tensorflow_ocr_tpu_torch.models.resnet import RESNET_UNITS
@@ -33,8 +34,8 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, stride: int = 1,
           padding: int = 0) -> torch.Tensor:
     """A biased Flax ``nn.Conv`` in the activation dtype."""
     dt = x.dtype
-    return F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), stride=stride,
-                    padding=padding)
+    return conv2d_pads(x, conv.weight.to(dt), conv.bias.to(dt), stride, 1,
+                       (padding,) * 4)
 
 
 class PreactBottleneck(nn.Module):

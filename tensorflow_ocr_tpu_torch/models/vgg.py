@@ -12,14 +12,18 @@ the convs are ``nn.Conv`` in JAX, never on the ``PALLAS_CONVS`` route.
 
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tensorflow_ocr_tpu_torch.models.layers import same_pads
+from tensorflow_ocr_tpu_torch.models.layers import (
+    conv2d_pads,
+    full_height,
+    max_pool_pads,
+    same_pads,
+)
 
 # (name, channels) of each stage's convs
 STAGES = (
@@ -35,11 +39,9 @@ def max_pool_same(x: torch.Tensor, window: int, stride: int
                   ) -> torch.Tensor:
     """Flax ``max_pool(padding="SAME")``: TF-SAME pads of -inf, then the
     pool. NCHW."""
-    (top, bottom), (left, right) = (same_pads(d, window, stride)
-                                    for d in x.shape[-2:])
-    if top or bottom or left or right:
-        x = F.pad(x, (left, right, top, bottom), value=-math.inf)
-    return F.max_pool2d(x, window, stride)
+    top, bottom = same_pads(full_height(x), window, stride)
+    left, right = same_pads(x.shape[-1], window, stride)
+    return max_pool_pads(x, window, stride, (left, right, top, bottom))
 
 
 class VGG16(nn.Module):
@@ -60,9 +62,9 @@ class VGG16(nn.Module):
 
     @staticmethod
     def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(F.conv2d(x, conv.weight.to(x.dtype),
-                               conv.bias.to(x.dtype), padding=conv.padding,
-                               dilation=conv.dilation))
+        p, d = conv.padding[0], conv.dilation[0]
+        return F.relu(conv2d_pads(x, conv.weight.to(x.dtype),
+                                  conv.bias.to(x.dtype), 1, d, (p,) * 4))
 
     def forward(self, x: torch.Tensor, train: bool = False
                 ) -> Dict[str, torch.Tensor]:

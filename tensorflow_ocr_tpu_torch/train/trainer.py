@@ -1,8 +1,9 @@
 """Train state, the train step, checkpoints, the multi-step dispatch and
 the trainer loop.
 
-Port of ``tensorflow_ocr_tpu/train/trainer.py`` for one device and every
-head and loss of the registry's models:
+Port of ``tensorflow_ocr_tpu/train/trainer.py`` for every head and loss
+of the registry's models, on one device or data-parallel over
+``torch.distributed`` (one process a GPU, ``parallel/``):
 
 - :class:`TrainState`: the step count (an int64 tensor on the device,
   like JAX's ``jnp.int32`` step), the model (parameters and BN running
@@ -41,9 +42,13 @@ head and loss of the registry's models:
   no eval hook).
 
 ``setup`` also warm-starts from a converted slim ImageNet ``.npz``
-(``train/pretrained.py``, :770-791). Not ported yet (ROADMAP.md Queue 1):
-data parallelism (item 7). Every loss and head of the JAX package is
-ported (:func:`make_loss_fn`).
+(``train/pretrained.py``, :770-791). Data parallel (JAX's ``shard_map``
+step, :201-267, :310-376): :func:`train_step` and
+:func:`make_multi_train_step` take a ``group`` (``parallel/mesh.py``
+``DataGroup``) and reduce the gradients, the BN running statistics and
+the metrics over it; :class:`Trainer` broadcasts the state from rank 0,
+trains each rank on its rows, and leaves checkpoints, summaries, the
+eval hook and calibration to rank 0.
 """
 
 from __future__ import annotations
@@ -70,10 +75,16 @@ from tensorflow_ocr_tpu_torch.models.detector import (
     model_head,
     model_output_stride,
 )
+from tensorflow_ocr_tpu_torch.models.layers import BatchNorm
 from tensorflow_ocr_tpu_torch.ops import losses as L
 from tensorflow_ocr_tpu_torch.ops.labels import (
     east_labels_batch,
     pixellink_labels_stride,
+)
+from tensorflow_ocr_tpu_torch.parallel.mesh import (
+    DataGroup,
+    make_mesh,
+    shard_batch,
 )
 from tensorflow_ocr_tpu_torch.train import optim
 
@@ -261,17 +272,20 @@ def loss_and_grads(model: Detector, batch: Mapping[str, torch.Tensor],
     return model_loss.detach(), {k: v.detach() for k, v in aux.items()}
 
 
-def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
-               cfg: Config, loss_fn: Callable, include_l2: bool = True
-               ) -> Dict[str, torch.Tensor]:
-    """One step on the device, the state updated in place; returns the
-    metrics as device scalars (no host sync): total_loss, model_loss and
-    the loss's aux values. The learning rate and the EMA decay are read
-    from ``state.step`` on the device. ``include_l2=False`` leaves the L2
-    value out of total_loss (the multi-step dispatch adds it once)."""
-    l2 = (optim.l2_regularization(state.model, cfg.model.weight_decay)
-          if include_l2 else None)
-    model_loss, aux = loss_and_grads(state.model, batch, cfg, loss_fn)
+def bn_buffers(model: torch.nn.Module) -> list:
+    """The BN running statistics of ``model`` in module order: each
+    BatchNorm's ``running_mean`` and ``running_var`` (those of ConvBN's
+    BN, of the fused and ghost units, of ResNet-v2's pre-activations)."""
+    out = []
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            out += [m.running_mean, m.running_var]
+    return out
+
+
+def apply_update(state: TrainState, cfg: Config) -> None:
+    """The optimizer step with the learning rate of ``state.step``, the
+    EMA update and the step count, from the gradients in ``.grad``."""
     optim.set_learning_rate(state.optimizer,
                             optim.make_schedule(cfg.train)(state.step))
     state.optimizer.step()
@@ -279,8 +293,43 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                      optim.ema_decay(cfg.train.moving_average_decay,
                                      state.step))
     state.step += 1
+
+
+def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
+               cfg: Config, loss_fn: Callable, include_l2: bool = True,
+               group: Optional[DataGroup] = None) -> Dict[str, torch.Tensor]:
+    """One step on the device, the state updated in place; returns the
+    metrics as device scalars (no host sync): total_loss, model_loss and
+    the loss's aux values. The learning rate and the EMA decay are read
+    from ``state.step`` on the device. ``include_l2=False`` leaves the L2
+    value out of total_loss (the multi-step dispatch adds it once).
+
+    With a ``group`` (``parallel/mesh.py``; ``batch`` is this rank's
+    shard) the step is JAX's ``shard_map`` step (trainer.py:201-267):
+    after the backward one flat all-reduce of the gradients in parameter
+    order, divided by the world size for ``grad_reduce="mean"`` (psum or
+    pmean, :236-240); the optimizer and the EMA; one flat all-reduce
+    (mean) of the BN running statistics that the forward updated from
+    this rank's batch (``pmean(new_bs)``, :247: per-rank statistics, not
+    synchronised BN; none under ``freeze_bn``); one flat all-reduce (mean)
+    of the model loss and the aux values (:241-246, :263-264), the L2
+    value added after it."""
+    l2 = (optim.l2_regularization(state.model, cfg.model.weight_decay)
+          if include_l2 else None)
+    model_loss, aux = loss_and_grads(state.model, batch, cfg, loss_fn)
+    if group is not None and group.reduces:
+        group.all_reduce_([p.grad for p in state.model.parameters()
+                           if p.grad is not None],
+                          mean=cfg.train.grad_reduce == "mean")
+    apply_update(state, cfg)
+    metrics = {"model_loss": model_loss, **aux}
+    if group is not None and group.reduces:
+        if not cfg.model.freeze_bn:
+            group.all_reduce_(bn_buffers(state.model))
+        metrics = group.mean_metrics(metrics)
+    model_loss = metrics["model_loss"]
     total = model_loss + l2 if include_l2 else model_loss
-    return {"total_loss": total, "model_loss": model_loss, **aux}
+    return {"total_loss": total, **metrics}
 
 
 def to_device(batch: Mapping[str, np.ndarray], device
@@ -289,12 +338,27 @@ def to_device(batch: Mapping[str, np.ndarray], device
             for k, v in batch.items()}
 
 
-def device_batch(batch: Mapping[str, Any], device, want_east: bool = False
+def device_batch(batch: Mapping[str, Any], device, want_east: bool = False,
+                 group: Optional[DataGroup] = None,
+                 global_batch_size: Optional[int] = None
                  ) -> Dict[str, torch.Tensor]:
     """A host or device batch on ``device`` (trainer.py:379-396): its
     arrays (a tensor already there is not copied; the file names stay
     behind), and zero ``shrunk``/``rects``/``angles`` where an EAST
-    model's batch lacks them."""
+    model's batch lacks them. With a ``group`` of several ranks, a batch
+    of ``global_batch_size`` rows is cut to this rank's
+    (``parallel/mesh.py`` ``shard_batch``, JAX's ``P("data")``), one of
+    ``global / world`` rows is taken as this rank's already, and any other
+    size is refused."""
+    if group is not None and group.world > 1:
+        b = len(batch["images"])
+        if b == global_batch_size:
+            batch = shard_batch(group, batch)
+        elif b * group.world != global_batch_size:
+            raise ValueError(
+                f"a batch of {b} rows on rank {group.rank}: neither the "
+                f"global batch {global_batch_size} nor its {group.world}-rank "
+                "shard")
     out = to_device({k: v for k, v in batch.items() if k != "fns"}, device)
     if want_east:
         b, k = out["polys"].shape[:2]
@@ -388,8 +452,10 @@ class _GraphMulti:
     The state's tensors are the graph's: restore a checkpoint into them in
     place (:func:`restore_checkpoint`), never by replacing them."""
 
-    def __init__(self, state: TrainState, one: Callable, keys):
+    def __init__(self, state: TrainState, one: Callable, keys,
+                 group: Optional[DataGroup] = None):
         self.state, self.one, self.keys = state, one, keys
+        self.group = group
         self.graph = None
         self.key = None
         self.idx = self.out = None
@@ -407,6 +473,8 @@ class _GraphMulti:
         live = list(flat_tree(state_tensors(self.state)).values())
         saved = [t.clone() for t in live]
         self.idx = row.to(torch.int64).clone()
+        if self.group is not None:
+            self.group.barrier()  # the communicator exists before capture
         stream = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(stream)
@@ -446,7 +514,8 @@ class _GraphMulti:
 
 def make_multi_train_step(state: TrainState, cfg: Config,
                           extra_keys: Sequence[str] = (),
-                          augment: bool = False) -> Callable:
+                          augment: bool = False,
+                          group: Optional[DataGroup] = None) -> Callable:
     """S train steps a dispatch over a dataset of device tensors.
 
     Returns ``multi(state, dataset, idx)``: ``dataset`` maps JAX's keys
@@ -467,16 +536,34 @@ def make_multi_train_step(state: TrainState, cfg: Config,
     ``augment=True`` (trainer.py:330-351): after the row gather, each step
     augments its batch on the device (``data/device_augment.py``
     ``augment_batch``, keyed by ``fold_in(fold_in(PRNGKey(seed ^ 0x5EED),
-    state.step), 0)`` with the step read from the device) and makes its
+    state.step), rank)`` with the step read from the device) and makes its
     label maps from the transformed polygons; precomputed label maps
     (``extra_keys``) are refused.
+
+    With a ``group`` (trainer.py:310-376's ``shard_map``) every rank holds
+    the whole dataset and the same ``idx``, trains on its columns of it
+    (``idx[:, r·B/n:(r+1)·B/n]``) and reduces as :func:`train_step` does;
+    the rank is folded into the augmentation key (JAX's ``axis_index``,
+    :346-347). On the card the NCCL all-reduces are captured inside the
+    graph (the communicator is made by a collective before the capture);
+    gloo on CUDA tensors syncs with the host, which a graph cannot
+    capture, so it is refused here rather than run eagerly.
     """
     if augment and extra_keys:
         raise ValueError(
             "on-device augmentation makes the labels every step; "
             "precomputed label maps (extra_keys) cannot be used with it")
+    cuda = state.step.device.type == "cuda"
+    reduces = group is not None and group.reduces
+    if reduces and cuda and group.backend != "nccl":
+        raise ValueError(
+            f"make_multi_train_step on CUDA tensors over the "
+            f"{group.backend} backend: its collectives sync with the "
+            "host, which a CUDA graph cannot capture, and the dispatch "
+            "never runs eagerly on the card; use NCCL")
     keys = BATCH_KEYS + tuple(extra_keys)
     loss_fn = make_loss_fn(cfg)
+    rank = group.rank if reduces else 0
     if augment:
         from tensorflow_ocr_tpu_torch.data import device_augment as DA
 
@@ -488,17 +575,20 @@ def make_multi_train_step(state: TrainState, cfg: Config,
     def one(dataset, row):
         batch = {k: dataset[k][row] for k in keys}
         if augment:
-            key = DA.fold_in(DA.fold_in(base_key, state.step), 0)
+            key = DA.fold_in(DA.fold_in(base_key, state.step), rank)
             batch = DA.augment_batch(key, batch, cfg.data, want_east)
-        return train_step(state, batch, cfg, loss_fn, include_l2=False)
+        return train_step(state, batch, cfg, loss_fn, include_l2=False,
+                          group=group)
 
-    graph = _GraphMulti(state, one, keys) \
-        if state.step.device.type == "cuda" else None
+    graph = _GraphMulti(state, one, keys, group if reduces else None) \
+        if cuda else None
 
     def multi(st: TrainState, dataset: Mapping[str, torch.Tensor],
               idx: torch.Tensor) -> Dict[str, torch.Tensor]:
         if st is not state:
             raise ValueError("multi runs the state it was made for")
+        if reduces:
+            idx = idx[:, group.rows(idx.shape[1])]
         if graph is not None:
             last = graph(dataset, idx)
         else:
@@ -805,20 +895,41 @@ class Trainer:
     checkpoints on the step and time cadence, scalar and image summaries
     to ``summary_writer``, the stall watchdog, and SIGTERM preemption
     (a checkpoint, then a clean stop) once
-    :meth:`install_preemption_handler` has run."""
+    :meth:`install_preemption_handler` has run.
+
+    Data parallel (trainer.py:680-683, :897-901): ``group``
+    (``parallel/mesh.py``; by default ``make_mesh(cfg.train.num_devices)``
+    over the process group, if any, which refuses a world of another
+    size) is this rank. The state is broadcast from rank 0 after
+    :meth:`setup` (and so after a restore); each step trains on the
+    rank's rows of the global batch that every rank's loader draws alike
+    and reduces as :func:`train_step` does; rank 0 alone writes
+    checkpoints (the others wait at a barrier), summaries, the eval hook
+    and calibration, and prints; the ranks agree on the time cadence and
+    on a preemption flag at each check, so all stop at the same step; the
+    examples/s are the whole world's (JAX :978)."""
 
     def __init__(self, cfg: Config, device="cuda", summary_writer=None,
-                 install_signal_handler: bool = False):
+                 install_signal_handler: bool = False,
+                 group: Optional[DataGroup] = None):
         self.cfg = cfg
-        self.device = require_device(device, "Trainer")
+        device = require_device(device, "Trainer")
+        if group is None:
+            group = make_mesh(cfg.train.num_devices, device)
+        elif group.device.type != device.type:
+            raise ValueError(f"Trainer(device={device}) with a group on "
+                             f"{group.device}")
+        self.group = group
+        self.device = group.device
+        self.chief = group.rank == 0
         self.state: Optional[TrainState] = None
         self.loss_fn = make_loss_fn(cfg)
         self.want_east = model_head(cfg.model.name) == "east"
-        self.summary_writer = summary_writer
+        self.summary_writer = summary_writer if self.chief else None
         self._preempted = False
         self._restored_from: Optional[str] = None
         self.eval_hook = None
-        if cfg.train.eval_every_steps and cfg.eval.gt_path:
+        if cfg.train.eval_every_steps and cfg.eval.gt_path and self.chief:
             from tensorflow_ocr_tpu_torch.train.eval_hook import (
                 EvalDuringTraining,
             )
@@ -836,7 +947,7 @@ class Trainer:
         where calibration is off, finds no image, or fails: a failure is
         logged as a warning and never stops training, as in JAX."""
         tcfg = self.cfg.train
-        if not tcfg.calibrate_at_checkpoint:
+        if not tcfg.calibrate_at_checkpoint or not self.chief:
             return None
         try:
             from tensorflow_ocr_tpu_torch.train.calibrate import (
@@ -888,11 +999,39 @@ class Trainer:
 
         signal.signal(signal.SIGTERM, handler)
 
+    def _log(self, msg: str) -> None:
+        if self.chief:
+            print(msg)
+
+    def save(self, data_iter=None, block: bool = True,
+             max_to_keep: int = 0) -> Optional[str]:
+        """:func:`save_checkpoint` of the state to
+        ``train.checkpoint_path`` by rank 0; every rank waits at a barrier
+        until it has the state on the host. Returns the directory (None on
+        the other ranks)."""
+        path = None
+        if self.chief:
+            path = save_checkpoint(self.cfg.train.checkpoint_path,
+                                   self.state, data_iter, block=block,
+                                   max_to_keep=max_to_keep)
+        self.group.barrier()
+        return path
+
+    def _agree(self, time_due: bool) -> bool:
+        """Whether the time cadence is due, alike on every rank: rank 0's
+        clock decides; and the preemption flag set on every rank where it
+        is set on any, so all stop at the same step (one all-reduce where
+        there are several ranks)."""
+        if self.group.world == 1:
+            return bool(time_due)
+        due, self._preempted = self.group.any_(time_due and self.chief,
+                                               self._preempted)
+        return due
+
     def _maybe_handle_preemption(self, data_iter=None) -> bool:
         if self._preempted:
-            path = save_checkpoint(self.cfg.train.checkpoint_path,
-                                   self.state, data_iter)
-            print(f"preempted: checkpoint saved to {path}")
+            path = self.save(data_iter)
+            self._log(f"preempted: checkpoint saved to {path}")
             return True
         return False
 
@@ -906,19 +1045,28 @@ class Trainer:
         converted slim ImageNet checkpoint (:meth:`_import_slim`)."""
         self.state = create_train_state(self.cfg, self.device, generator,
                                         weights)
+        self._setup_weights()
+        # every rank starts from rank 0's state
+        self.group.broadcast_(list(flat_tree(state_tensors(
+            self.state)).values()))
+        return self.state
+
+    def _setup_weights(self) -> None:
         tcfg = self.cfg.train
         if tcfg.restore:
             wait_for_pending_save()  # this process's own last save, whole
+            self.group.barrier()  # and rank 0's
             ck = latest_checkpoint(tcfg.checkpoint_path)
             if ck:
                 restore_checkpoint(ck, self.state)
                 self._restored_from = ck
-                print(f"restored from {ck} at step {int(self.state.step)}")
+                self._log(f"restored from {ck} at step "
+                          f"{int(self.state.step)}")
         elif tcfg.pretrained_model_path:
             path = tcfg.pretrained_model_path
             if path.endswith(".npz"):
                 self._import_slim(path)
-                return self.state
+                return
             pre = load_checkpoint(latest_checkpoint(path) or path,
                                   self.device)["model"]
             live = self.state.model.state_dict()
@@ -931,8 +1079,7 @@ class Trainer:
             with torch.no_grad():
                 for name, t in {**merged, **buffers}.items():
                     live[name].copy_(t)
-            print(f"warm-started {n} tensors from {path}")
-        return self.state
+            self._log(f"warm-started {n} tensors from {path}")
 
     def _import_slim(self, path: str) -> int:
         """The backbone of a converted slim ImageNet ``.npz``
@@ -949,18 +1096,21 @@ class Trainer:
                 live[name].copy_(t)
             for name, p in model.named_parameters():
                 self.state.ema[name].copy_(p)
-        print(f"warm-started {n} tensors from {path}")
+        self._log(f"warm-started {n} tensors from {path}")
         return n
 
     def run(self, batches, max_steps: Optional[int] = None
             ) -> Dict[str, float]:
         """Train on ``batches`` (an iterator, or a sequence indexed by
-        step) for ``max_steps`` steps; returns the last logged metrics."""
+        step) for ``max_steps`` steps; returns the last logged metrics.
+        Each batch is the global batch, or this rank's rows of it (a
+        ``DevicePrefetcher`` given the group): :func:`device_batch`."""
         cfg = self.cfg.train
         max_steps = max_steps or cfg.max_steps
         if self._restored_from is not None:
             if restore_data_iter(self._restored_from, batches):
-                print(f"data iterator resumed from {self._restored_from}")
+                self._log(f"data iterator resumed from "
+                          f"{self._restored_from}")
             self._restored_from = None
         window = cfg.log_every_steps
         last: Dict[str, float] = {}
@@ -972,22 +1122,26 @@ class Trainer:
             for step in range(max_steps):
                 batch = (next(batches) if hasattr(batches, "__next__")
                          else batches[step])
-                db = device_batch(batch, self.device, self.want_east)
-                metrics = train_step(self.state, db, self.cfg, self.loss_fn)
+                db = device_batch(batch, self.device, self.want_east,
+                                  self.group, self.cfg.data.batch_size)
+                metrics = train_step(self.state, db, self.cfg, self.loss_fn,
+                                     group=self.group)
                 if step % window == 0:
                     last = {k: float(v) for k, v in metrics.items()}  # syncs
                     dog.beat(step)
                     if math.isnan(last["total_loss"]):
-                        print("Loss diverged, stop training")
+                        self._log("Loss diverged, stop training")
                         break
                     dt = time.perf_counter() - t0
                     t0 = time.perf_counter()
                     n_steps, last_log_step = step - last_log_step, step
-                    n_img = db["images"].shape[0] * n_steps
-                    print(f"Step {step:06d}, model loss "
-                          f"{last['model_loss']:.4f}, total loss "
-                          f"{last['total_loss']:.4f}, {dt / n_steps:.3f} "
-                          f"s/step, {n_img / dt:.1f} examples/s")
+                    n_img = (db["images"].shape[0] * self.group.world
+                             * n_steps)
+                    self._log(f"Step {step:06d}, model loss "
+                              f"{last['model_loss']:.4f}, total loss "
+                              f"{last['total_loss']:.4f}, "
+                              f"{dt / n_steps:.3f} s/step, "
+                              f"{n_img / dt:.1f} examples/s")
                     if self.summary_writer is not None:
                         for k, v in last.items():
                             self.summary_writer.add_scalar(k, v, step)
@@ -999,13 +1153,12 @@ class Trainer:
                     self._emit_image_summaries(db, step)
                 step_due = (cfg.save_checkpoint_steps and step > 0
                             and step % cfg.save_checkpoint_steps == 0)
-                time_due = (cfg.save_interval_secs
-                            and time.time() - last_save_t
-                            >= cfg.save_interval_secs)
+                time_due = self._agree(
+                    cfg.save_interval_secs and time.time() - last_save_t
+                    >= cfg.save_interval_secs)
                 if step_due or time_due:
-                    save_checkpoint(cfg.checkpoint_path, self.state, batches,
-                                    block=False,
-                                    max_to_keep=cfg.max_checkpoints_to_keep)
+                    self.save(batches, block=False,
+                              max_to_keep=cfg.max_checkpoints_to_keep)
                     last_save_t = time.time()
                     self._maybe_calibrate()
                 if step > 0:
@@ -1015,6 +1168,7 @@ class Trainer:
         finally:
             dog.stop()
             wait_for_pending_save()
+        self.group.barrier()  # rank 0's checkpoints are whole on return
         return last
 
     def run_device_cached(self, max_steps: Optional[int] = None
@@ -1048,17 +1202,19 @@ class Trainer:
         data = ds.arrays()
         multi = make_multi_train_step(self.state, cfg,
                                       extra_keys=tuple(ds.labels),
-                                      augment=augment)
+                                      augment=augment, group=self.group)
         rng = np.random.RandomState(cfg.train.seed)
         max_steps = max_steps or cfg.train.max_steps
         dog = StallWatchdog(cfg.train.stall_warn_secs, name="scan")
         try:
-            return self._device_cached_loop(ds, data, multi, rng, max_steps,
-                                            dog)
+            last = self._device_cached_loop(ds, data, multi, rng,
+                                            max_steps, dog)
         finally:
             dog.stop()
             multi.release()
             wait_for_pending_save()
+        self.group.barrier()  # rank 0's checkpoints are whole on return
+        return last
 
     def _device_cached_loop(self, ds, data, multi, rng, max_steps, dog
                             ) -> Dict[str, float]:
@@ -1076,26 +1232,27 @@ class Trainer:
             last = {k: float(v) for k, v in metrics.items()}  # syncs
             dog.beat(step)
             if math.isnan(last.get("total_loss", 0.0)):
-                print("Loss diverged, stop training")
+                self._log("Loss diverged, stop training")
                 break
             dt = time.perf_counter() - t0
             if step > s:
                 dispatch_dts.append(dt)
-            print(f"Step {step:06d}, model loss {last.get('model_loss', 0):.4f}"
-                  f", total loss {last.get('total_loss', 0):.4f}, "
-                  f"{dt / s:.4f} s/step, {s * batch / dt:.1f} examples/s")
+            # batch is the global batch: the whole world's examples/s
+            self._log(f"Step {step:06d}, model loss "
+                      f"{last.get('model_loss', 0):.4f}, total loss "
+                      f"{last.get('total_loss', 0):.4f}, {dt / s:.4f} "
+                      f"s/step, {s * batch / dt:.1f} examples/s")
             if self.summary_writer is not None:
                 for k, v in last.items():
                     self.summary_writer.add_scalar(k, v, step)
             step_due = (tcfg.save_checkpoint_steps
                         and step % max(tcfg.save_checkpoint_steps, s) == 0)
-            time_due = (tcfg.save_interval_secs
-                        and time.time() - last_save_t
-                        >= tcfg.save_interval_secs)
+            time_due = self._agree(
+                tcfg.save_interval_secs and time.time() - last_save_t
+                >= tcfg.save_interval_secs)
             if step_due or time_due:
-                save_checkpoint(tcfg.checkpoint_path, self.state,
-                                block=False,
-                                max_to_keep=tcfg.max_checkpoints_to_keep)
+                self.save(block=False,
+                          max_to_keep=tcfg.max_checkpoints_to_keep)
                 last_save_t = time.time()
                 self._maybe_calibrate()
             if tcfg.eval_every_steps:  # at most once a dispatch

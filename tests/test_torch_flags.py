@@ -5,8 +5,9 @@
 ``tests/test_cli_entries.py`` and of the root shells: every field both
 configs have comes out equal; an unknown flag raises in both. The presets
 of ``tensorflow_ocr_tpu_torch/configs.py`` equal JAX's
-``baseline_config(n)`` field by field for n = 1-4; preset 5 (16 devices)
-and ``num_devices`` other than None or 1 raise, naming ROADMAP.md item 7.
+``baseline_config(n)`` field by field for n = 1-5; preset 5 (16 ranks)
+builds, and ``validate`` refuses a ``num_devices`` other than the process
+group's size (1 here, with none), naming both numbers.
 """
 
 import dataclasses
@@ -84,7 +85,7 @@ def test_unknown_flag_raises_like_jax():
             parse(["--not_a_flag=1"], cfg())
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
 def test_presets_are_jax_s(n):
     port, jax_ = baseline_config(n), jax_preset(n)
     for name, p, j in _shared_fields(port, jax_):
@@ -98,11 +99,14 @@ def test_presets_are_jax_s(n):
 
 
 def test_preset_5_and_many_devices_name_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        baseline_config(5)
+    cfg = baseline_config(5)
+    assert cfg.train.num_devices == 16 and cfg.data.batch_size == 224
+    # one process and no process group: a world of 1
+    with pytest.raises(ValueError, match="num_devices=16 .* 1 rank"):
+        cfg.validate()
     with pytest.raises(ValueError):
         baseline_config(6)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="num_devices=2 .* 1 rank"):
         T.parse_flags(["--train.num_devices=2"])
     assert T.parse_flags(["--train.num_devices=1"]).train.num_devices == 1
     assert T.Config().train.num_devices is None

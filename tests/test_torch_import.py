@@ -5,9 +5,10 @@ Every module, the train step, the checkpoints and the multi-step dispatch
 tier (the codec, the readers, the loaders, the device dataset and the
 augmentation), the quality loop (eval/, the eval hook, calibration) and
 ResNet-v2 included, and since the entry points' slice the command-line
-entries (``cli/``), the presets, the serving export and the slim import:
-``triton`` stays out of ``sys.modules`` and no kernel is built at import
-time.
+entries (``cli/``), the presets, the serving export and the slim import,
+and the multi-GPU modules (``parallel/``): ``triton`` stays out of
+``sys.modules``, no kernel is built at import time and no process group
+is started.
 
 Runs in a subprocess: tests/conftest.py imports jax into every pytest
 process, so only a fresh interpreter can show what the port pulls in.
@@ -31,9 +32,11 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                 pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+import torch.distributed as dist
 print(json.dumps({"modules": names,
                   "loaded": [m for m in ("jax", "tensorflow_ocr_tpu", "cv2",
-                                         "triton") if m in sys.modules]}))
+                                         "triton") if m in sys.modules],
+                  "process_group": dist.is_initialized()}))
 """
 
 
@@ -44,6 +47,8 @@ def test_port_imports_without_jax_or_cv2():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
+    # importing the port starts no process group
+    assert out["process_group"] is False
     for mod in ("cli", "cli.multigpu_train", "cli.test",
                 "cli.test_pixellink", "cli.test_pixellink_fast",
                 "cli.train_pixellink", "config", "configs", "export",
@@ -53,6 +58,8 @@ def test_port_imports_without_jax_or_cv2():
                 "eval.metrics", "infer", "models.convert",
                 "models.detector", "models.heads", "models.resnet",
                 "models.resnet_v2", "models.vgg", "ops.conv", "ops.decode",
+                "parallel", "parallel.dryrun", "parallel.mesh",
+                "parallel.multihost", "parallel.spatial",
                 "ops.fused", "ops.geometry", "ops.kernels", "ops.labels",
                 "ops.losses", "ops.rasterize", "train.calibrate",
                 "train.eval_hook", "train.optim", "train.trainer",
