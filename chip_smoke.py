@@ -52,6 +52,11 @@ Phases, in order; any failure raises and exits non-zero:
    checks of phases 11, 13 and 16 start from: AUG_TRAINED_STEPS fused
    steps of run_device_cached with augmentation on it, from the seeded
    state (the residual BN scales' spread printed before and after);
+10c. the bfloat16 eval forward against the float32 one (TF32 off) from
+   that state on 8 v2 frames at 512^2: per output the mean and largest
+   |bf16 - f32| over the largest logit, the mean signed error of the
+   pixel logits and the mean pixel probability, each within
+   BF16_CARD_MULTIPLE times the CPU budget of tests/test_torch_bf16.py;
 11. the train step at full width: pixellink_resnet50, bottleneck_impl
    "fused", 512x512, batch 32, bf16, labels made on the card from the
    polygons of numpy scenes; 3 steps through Trainer.run with finite
@@ -157,7 +162,12 @@ Phases, in order; any failure raises and exits non-zero:
    decode of a committed fixture against its committed cv2 decode
    (DECODE_*_LEVELS), the card's resize bit-equal to codec.resize, and
    an upscale of a 150x200 crop to 1280x720 (the border rows) bit-equal
-   too, and the decode-and-resize img/s of the 16 v2 frames;
+   too, and the decode-and-resize img/s of the 16 v2 frames; a directory
+   of the fixture and a PNG of its pixels staged by DeviceDataset: both
+   frames, the PNG by the host decode (load_batch.host_decoded up by 1)
+   and bit-equal to codec.resize of codec.imread, the JPEG by nvJPEG
+   (launches up by 1); a file with the JPEG magic that nvJPEG refuses
+   raises;
    Trainer.run_device_cached for two dispatches of 16 steps without
    augmentation (nvJPEG staging, labels precomputed) and with random
    scale, crop and rotation inside the captured step (finite losses, the
@@ -3671,6 +3681,7 @@ def phase_data_decode(device, files):
           f"{statistics.median(rates):.2f} img/s (median of 3: "
           f"{', '.join(f'{r:.2f}' for r in rates)}); the card's resize = "
           f"codec.resize on the host, bit for bit")
+    phase_data_mixed(device)
 
 
 def phase_data_cached(device, root, augment):
@@ -3973,6 +3984,115 @@ def augmented_start(device, root, snap):
     del trainer
     torch.cuda.empty_cache()
     return start, ck_root
+
+
+# The CPU budget of tests/test_torch_bf16.py (a) for pixellink_resnet50:
+# the port's bf16 eval forward within 1.5x JAX's own bf16 error against
+# the float32 truth, which reads there (over the largest logit) mean
+# |err| 1.080e-3 (pixel logits) and 1.909e-3 (link logits), the pixel
+# logits' mean signed error -9.11e-5 (budget 1.5x that + 1e-4), the mean
+# pixel probability 2.0e-4 (budget 1.5x that + 1e-4). On the card the
+# port's bf16 forward (cuDNN's bf16 kernels) against its f32 one, from
+# the augmented state, must stay within BF16_CARD_MULTIPLE times these.
+BF16_CARD_MULTIPLE = 3.0
+BF16_MEAN_REL = {"pixel_logits": 1.5 * 1.080e-3,
+                 "link_logits": 1.5 * 1.909e-3}
+BF16_SIGNED_REL = 1.5 * 9.11e-5 + 1e-4
+BF16_PROB = 1.5 * 2.0e-4 + 1e-4
+BF16_FRAMES = 8
+
+
+def phase_bf16_forward(device, start, v2):
+    """Phase 10c: the eval forward of ``start`` (the augmented state) in
+    bfloat16 against float32 (TF32 off) on BF16_FRAMES of the v2 frames
+    read by the codec at TRAIN_SIZE, per output (the held-out F gap's
+    "less confident" maps would show as a negative signed error and a
+    lower mean pixel probability)."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.data import codec
+    from tensorflow_ocr_tpu_torch.models import build_model
+    from tensorflow_ocr_tpu_torch.ops.fused import full_f32
+
+    t0 = time.perf_counter()
+    x = torch.from_numpy(np.stack([
+        codec.resize(codec.imread(f), (TRAIN_SIZE, TRAIN_SIZE))[:, :, ::-1]
+        for f in v2[:BF16_FRAMES]])).to(device)
+    outs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = build_model(MODEL, dtype=dtype).to(device).eval()
+        model.load_state_dict(start)
+        with torch.no_grad(), (full_f32() if dtype == torch.float32
+                               else contextlib.nullcontext()):
+            outs[dtype] = {k: v.float() for k, v in model(x).items()}
+        del model
+    lo, hi = outs[torch.bfloat16], outs[torch.float32]
+    m = BF16_CARD_MULTIPLE
+    for key, budget in BF16_MEAN_REL.items():
+        d = lo[key] - hi[key]
+        scale = float(hi[key].abs().max())
+        mean, top = float(d.abs().mean()) / scale, float(d.abs().max()) / scale
+        print(f"bf16: {key} against f32 over the largest logit "
+              f"{scale:.4f}: mean |d| {mean:.4e} (budget {m * budget:.4e}), "
+              f"max {top:.4e}, mean signed {float(d.mean()) / scale:.4e}")
+        check(mean <= m * budget, f"bf16: {key}'s mean error on the card")
+    d = lo["pixel_logits"] - hi["pixel_logits"]
+    signed = float(d.mean()) / float(hi["pixel_logits"].abs().max())
+    probs = [float(torch.softmax(o["pixel_logits"], -1)[..., 1].mean())
+             for o in (lo, hi)]
+    print(f"bf16: pixel logits' mean signed error {signed:.4e} of the scale "
+          f"(budget {m * BF16_SIGNED_REL:.4e}); mean pixel probability bf16 "
+          f"{probs[0]:.6f}, f32 {probs[1]:.6f} (budget "
+          f"{m * BF16_PROB:.4e}); {time.perf_counter() - t0:.1f} s")
+    check(abs(signed) <= m * BF16_SIGNED_REL,
+          "bf16: the pixel logits' signed error on the card")
+    check(abs(probs[0] - probs[1]) <= m * BF16_PROB,
+          "bf16: the mean pixel probability on the card")
+
+
+def phase_data_mixed(device):
+    """A directory of the committed fixture JPEG and a PNG of its pixels,
+    each with a gt file, staged on the card by DeviceDataset: the JPEG by
+    nvJPEG, the PNG by the host decode, bit-equal to codec.resize of
+    codec.imread; a file with the JPEG magic that nvJPEG refuses raises."""
+    import numpy as np
+    from tensorflow_ocr_tpu_torch.data import codec, icdar
+    from tensorflow_ocr_tpu_torch.data import nvjpeg_loader as NJ
+    from tensorflow_ocr_tpu_torch.data.device_cache import DeviceDataset
+
+    d = scratch_dir("mixed_")
+    jpg, png = os.path.join(d, "img_1.jpg"), os.path.join(d, "img_2.png")
+    shutil.copy(os.path.join(REPO, FIXTURE), jpg)
+    codec.imwrite(png, codec.imread(jpg))
+    for p in (jpg, png):
+        with open(icdar.gt_path_for_image(p), "w") as f:
+            f.write("20,20,100,20,100,60,20,60,text\n")
+    launches, host = NJ.load_batch.launches, NJ.load_batch.host_decoded
+    ds = DeviceDataset(data_config(d).data, device=device)
+    launches = NJ.load_batch.launches - launches
+    host = NJ.load_batch.host_decoded - host
+    check(ds.n == 2 and sorted(ds.fns) == [jpg, png],
+          f"decode: a JPEG and a PNG staged {ds.n} frames")
+    want = codec.resize(codec.imread(png), (TRAIN_SIZE, TRAIN_SIZE))
+    same = np.array_equal(ds.images[ds.fns.index(png)].cpu().numpy(),
+                          want[:, :, ::-1])
+    check(same, "decode: the staged PNG differs from the host decode")
+    check(host == 1 and launches == 1,
+          f"decode: host decodes {host}, nvJPEG launches {launches}")
+    bad = os.path.join(d, "img_3.jpg")
+    with open(bad, "wb") as f:
+        f.write(b"\xff\xd8" + b"not a jpeg" * 16)
+    try:
+        NJ.load_batch([bad], 64, 64, device)
+        refused = "no error"
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused != "no error", "decode: a JPEG nvJPEG refuses was taken")
+    shutil.rmtree(d)
+    print(f"data: a JPEG and a PNG staged by DeviceDataset on the card: "
+          f"{ds.n} frames, nvJPEG launches {launches}, host decodes {host}, "
+          f"the PNG bit-equal to codec.resize of codec.imread; a refused "
+          f"JPEG raises: {refused}")
 
 
 def phase_data(device, snap, root, v2, aug_ck):
@@ -5140,6 +5260,7 @@ def main() -> int:
     if args.multigpu_rank:
         return {"graph": mgpu_graph_rank,
                 "gloo": mgpu_gloo_rank}[args.multigpu_rank]()
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -5175,6 +5296,7 @@ def main() -> int:
     data_root, v2 = phase_data_write()
     arm_start, aug_ck = augmented_start(device, data_root,
                                         seeded_snap(device))
+    phase_bf16_forward(device, arm_start, v2)
 
     phase_fused_kernels(device, fused)
     trainer, batch, snap = phase_train(device, fused, arm_start)
@@ -5227,6 +5349,8 @@ def main() -> int:
     kernels = [{k: r[k] for k in keys}
                for r in [report, *fused.values(), *conv.values(),
                          *ghost.values()]]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, builds "
+          f"included")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,13 @@
 Builds the kernels (nvjpeg_loader.cu among them), writes phase 32's
 dataset (16 default and 16 "v2" synthetic images at 1280x720), trains
 the augmented state on it (AUG_TRAINED_STEPS steps, the residual BN
-scales' spread printed; its checkpoint serves the detect) and runs the
-data phase: nvJPEG's decode against its committed cv2 decode and its
-img/s, run_device_cached without and with augmentation, 16 augmented
-graph steps against eager ones, the draws on the card against the CPU's,
-host ingest with a mid-epoch resume, detect on the images the port read.
+scales' spread printed; its checkpoint serves the detect), reads its
+bf16 eval forward against the f32 one (phase 10c) and runs the data
+phase: nvJPEG's decode against its committed cv2 decode and its img/s,
+a JPEG and a PNG staged together, run_device_cached without and with
+augmentation, 16 augmented graph steps against eager ones, the draws on
+the card against the CPU's, host ingest with a mid-epoch resume, detect
+on the images the port read.
 
 ``--faults`` reads the fused, pallas-conv and ghost arm checks from the
 augmented state, sound and under the planted faults, in place of the
@@ -49,6 +51,7 @@ def main() -> int:
     snap = c.seeded_snap(device)
     root, v2 = c.phase_data_write()
     start, aug_ck = c.augmented_start(device, root, snap)
+    c.phase_bf16_forward(device, start, v2)
     if args.faults:
         batch = c.train_batch(np.random.RandomState(7), device,
                               c.TRAIN_BATCH, c.TRAIN_SIZE)

@@ -12,12 +12,12 @@ and link8 by ``pixellink_labels_stride``, EAST by
 
 Staging, as JAX's (:42-56, ``_stage_native`` :72-127): with the
 augmentation flags off and the dataset bound for the card, the frames are
-decoded and resized there by ``data/nvjpeg_loader.py`` (nvJPEG), and a
-file it does not decode is left out, as JAX's native stage leaves out
-what its loader flags, with a printed count (nvJPEG takes JPEGs only:
-where JAX's OpenCV loader also reads a PNG, the port leaves it out);
-otherwise every file goes through ``data/icdar.py`` ``prepare_sample``
-(the Python path) with one ``RandomState(0)``.
+decoded and resized by ``data/nvjpeg_loader.py``: the JPEGs on the card
+by nvJPEG, the other images (PNG and the rest that JAX's OpenCV loader
+reads) on the host by the codec, equal to cv2; a file it does not decode
+is left out, as JAX's native stage leaves out what its loader flags, with
+a printed count; otherwise every file goes through ``data/icdar.py``
+``prepare_sample`` (the Python path) with one ``RandomState(0)``.
 """
 
 from __future__ import annotations
@@ -153,8 +153,8 @@ class DeviceDataset:
 
     def _stage_nvjpeg(self, files: List[str], cfg: DataConfig,
                       want_east: bool) -> List[icdar.Sample]:
-        """Decode and resize the whole dataset on the card in one batch
-        call (stage_loaded)."""
+        """Decode and resize the whole dataset in one batch call, the JPEGs
+        on the card (stage_loaded)."""
         from tensorflow_ocr_tpu_torch.data.nvjpeg_loader import load_batch
 
         size = cfg.input_size

@@ -8,18 +8,22 @@ out_w, 3) uint8 RGB on the caller's device.
 
 - On the card, ``csrc/nvjpeg_loader.cu`` (built with ``nvcc -lnvjpeg`` by
   ``ops/kernels.py`` ``build_library`` into the git-ignored ``build/``,
-  bound with ctypes): nvJPEG decodes each file into a buffer on the card
+  bound with ctypes): nvJPEG decodes each JPEG into a buffer on the card
   and ``resize_linear_u8`` resizes it into its slot of the batch, in
-  ``data/codec.py`` ``resize``'s fixed point. A file that cannot be read
-  or is not a JPEG is flagged in ``ok`` (its slot left zero) and never
-  decoded another way (``data/device_cache.py`` leaves it out and says
-  so); a JPEG that nvJPEG refuses raises, so that a broken decoder on the
-  card does not pass for a dataset with fewer files.
-- On the CPU, :func:`load_batch_reference`, the plain version: PIL's
-  decode (``codec.imread``) and ``codec.resize``.
+  ``data/codec.py`` ``resize``'s fixed point. A file without the JPEG
+  magic (a PNG, a BMP: what ``cv::imread`` also reads) is decoded by
+  ``codec.imread`` and resized by ``codec.resize`` on the host, both
+  equal to cv2's, and copied into its slot. A file that cannot be read
+  or decoded is flagged in ``ok`` (its slot left zero;
+  ``data/device_cache.py`` leaves it out and says so). A JPEG that
+  nvJPEG refuses raises and never goes the host way, so that a broken
+  decoder on the card does not pass for a dataset with fewer files.
+- On the CPU, :func:`load_batch_reference`, the plain version: every file
+  by ``codec.imread`` and ``codec.resize``, a JPEG it cannot decode
+  raising as on the card.
 
 ``load_batch.launches`` counts the images decoded and resized on the
-card.
+card, ``load_batch.host_decoded`` the files it decoded on the host.
 """
 
 from __future__ import annotations
@@ -67,10 +71,19 @@ def _handle():
     return h
 
 
+def _host_frame(path: str, out_w: int, out_h: int):
+    """(the frame resized to (out_h, out_w), RGB; its source (h, w)) of a
+    file ``codec.imread`` decodes, else None."""
+    im = codec.imread(path)
+    if im is None:
+        return None
+    return codec.resize(im, (out_w, out_h))[:, :, ::-1], im.shape[:2]
+
+
 def load_batch_reference(paths: List[str], out_w: int, out_h: int
                          ) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
-    """Plain version: PIL decode and codec.resize on the host, of the
-    files nvJPEG would take (JPEGs)."""
+    """Plain version: PIL's decode and codec.resize on the host of every
+    file; a JPEG it cannot decode raises, as nvJPEG's refusal does."""
     n = len(paths)
     out = np.zeros((n, out_h, out_w, 3), np.uint8)
     ok = np.zeros(n, bool)
@@ -78,15 +91,15 @@ def load_batch_reference(paths: List[str], out_w: int, out_h: int
     for i, p in enumerate(paths):
         try:
             with open(p, "rb") as f:
-                if not f.read(2).startswith(_JPEG_MAGIC):
-                    continue
+                is_jpeg = f.read(2).startswith(_JPEG_MAGIC)
         except OSError:
             continue
-        im = codec.imread(p)
-        if im is None:
+        got = _host_frame(p, out_w, out_h)
+        if got is None:
+            if is_jpeg:
+                raise RuntimeError(f"{p}: a JPEG the decoder refuses")
             continue
-        src_hw[i] = im.shape[:2]
-        out[i] = codec.resize(im, (out_w, out_h))[:, :, ::-1]
+        out[i], src_hw[i] = got
         ok[i] = True
     return torch.from_numpy(out), ok, src_hw
 
@@ -113,7 +126,8 @@ def load_batch(paths: List[str], out_w: int, out_h: int, device="cuda"
                ) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
     """(images (N, out_h, out_w, 3) uint8 RGB on ``device``, ok (N,) bool,
     src_hw (N, 2) int32 source sizes). On the card: nvJPEG, raising on a
-    JPEG it refuses; on the CPU: the plain version."""
+    JPEG it refuses, and the host decode of the files that are not JPEGs;
+    on the CPU: the plain version."""
     device = torch.device(device)
     if device.type != "cuda":
         return load_batch_reference(paths, out_w, out_h)
@@ -130,6 +144,13 @@ def load_batch(paths: List[str], out_w: int, out_h: int, device="cuda"
         except OSError:  # flagged in ok, as a file that does not decode
             continue
         if not data.startswith(_JPEG_MAGIC):
+            got = _host_frame(p, out_w, out_h)
+            if got is None:  # flagged in ok, as cv::imread's empty Mat
+                continue
+            out[i].copy_(torch.from_numpy(np.ascontiguousarray(got[0])))
+            load_batch.host_decoded += 1
+            ok[i] = True
+            src_hw[i] = got[1]
             continue
         w, hh = ctypes.c_int(), ctypes.c_int()
         st = lib.nvjpeg_info(h, data, len(data), ctypes.byref(w),
@@ -151,3 +172,4 @@ def load_batch(paths: List[str], out_w: int, out_h: int, device="cuda"
 
 
 load_batch.launches = 0
+load_batch.host_decoded = 0
