@@ -164,8 +164,9 @@ Phases, in order; any failure raises and exits non-zero:
    an upscale of a 150x200 crop to 1280x720 (the border rows) bit-equal
    too, and the decode-and-resize img/s of the 16 v2 frames; a directory
    of the fixture and a PNG of its pixels staged by DeviceDataset: both
-   frames, the PNG by the host decode (load_batch.host_decoded up by 1)
-   and bit-equal to codec.resize of codec.imread, the JPEG by nvJPEG
+   frames, the PNG decoded on the host (load_batch.host_decoded up by 1),
+   resized on the card and bit-equal to codec.resize of codec.imread (a
+   second check of the card's resize), the JPEG by nvJPEG
    (launches up by 1); a file with the JPEG magic that nvJPEG refuses
    raises;
    Trainer.run_device_cached for two dispatches of 16 steps without
@@ -4053,8 +4054,9 @@ def phase_bf16_forward(device, start, v2):
 def phase_data_mixed(device):
     """A directory of the committed fixture JPEG and a PNG of its pixels,
     each with a gt file, staged on the card by DeviceDataset: the JPEG by
-    nvJPEG, the PNG by the host decode, bit-equal to codec.resize of
-    codec.imread; a file with the JPEG magic that nvJPEG refuses raises."""
+    nvJPEG, the PNG decoded on the host and resized on the card, bit-equal
+    to codec.resize of codec.imread; a file with the JPEG magic that
+    nvJPEG refuses raises."""
     import numpy as np
     from tensorflow_ocr_tpu_torch.data import codec, icdar
     from tensorflow_ocr_tpu_torch.data import nvjpeg_loader as NJ
@@ -4091,7 +4093,8 @@ def phase_data_mixed(device):
     shutil.rmtree(d)
     print(f"data: a JPEG and a PNG staged by DeviceDataset on the card: "
           f"{ds.n} frames, nvJPEG launches {launches}, host decodes {host}, "
-          f"the PNG bit-equal to codec.resize of codec.imread; a refused "
+          f"the PNG (resized on the card) bit-equal to codec.resize of "
+          f"codec.imread; a refused "
           f"JPEG raises: {refused}")
 
 

@@ -34,13 +34,12 @@ CKPT="${CKPT:-$WORK/ckpt/}"
 RES="${RES:-$WORK/res/}"
 SMOKE=0
 
-SIZE="${SIZE:-512}"
 if [ -z "$TRAIN_DIR" ]; then
   SMOKE=1
   # smoke defaults are small (override with SIZE/BATCH/STEPS): the point
   # is exercising the identical pipeline, not training
   STEPS="${5:-3}"
-  [ "$SIZE" = 512 ] && SIZE=128
+  SIZE="${SIZE:-128}"
   BATCH="${BATCH:-2}"
   TRAIN_DIR="$WORK/smoke/train"
   TEST_DIR="$WORK/smoke/test"
@@ -57,6 +56,8 @@ fi
 rm -rf "$CKPT" "$RES"
 
 WARM_ARGS=()
+SIZE="${SIZE:-512}"
+
 if [ -n "$PRETRAINED" ]; then
   # a converted slim .npz (REAL_DATA.md §2); expect "warm-started 265
   # tensors" at startup (0 means the wrong path or family)

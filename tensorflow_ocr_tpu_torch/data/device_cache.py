@@ -14,7 +14,8 @@ Staging, as JAX's (:42-56, ``_stage_native`` :72-127): with the
 augmentation flags off and the dataset bound for the card, the frames are
 decoded and resized by ``data/nvjpeg_loader.py``: the JPEGs on the card
 by nvJPEG, the other images (PNG and the rest that JAX's OpenCV loader
-reads) on the host by the codec, equal to cv2; a file it does not decode
+reads) on the host by the codec, equal to cv2, all resized on the card
+in cv2's fixed point; a file it does not decode
 is left out, as JAX's native stage leaves out what its loader flags, with
 a printed count; otherwise every file goes through ``data/icdar.py``
 ``prepare_sample`` (the Python path) with one ``RandomState(0)``.

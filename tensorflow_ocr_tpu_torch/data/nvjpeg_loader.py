@@ -11,9 +11,10 @@ out_w, 3) uint8 RGB on the caller's device.
   bound with ctypes): nvJPEG decodes each JPEG into a buffer on the card
   and ``resize_linear_u8`` resizes it into its slot of the batch, in
   ``data/codec.py`` ``resize``'s fixed point. A file without the JPEG
-  magic (a PNG, a BMP: what ``cv::imread`` also reads) is decoded by
-  ``codec.imread`` and resized by ``codec.resize`` on the host, both
-  equal to cv2's, and copied into its slot. A file that cannot be read
+  magic (a PNG, a BMP: what ``cv::imread`` also reads, on the host too)
+  is decoded on the host by ``codec.imread``, equal to cv2's, copied to
+  the card and resized into its slot by the same ``resize_linear_u8``.
+  A file that cannot be read
   or decoded is flagged in ``ok`` (its slot left zero;
   ``data/device_cache.py`` leaves it out and says so). A JPEG that
   nvJPEG refuses raises and never goes the host way, so that a broken
@@ -22,8 +23,9 @@ out_w, 3) uint8 RGB on the caller's device.
   by ``codec.imread`` and ``codec.resize``, a JPEG it cannot decode
   raising as on the card.
 
-``load_batch.launches`` counts the images decoded and resized on the
-card, ``load_batch.host_decoded`` the files it decoded on the host.
+``load_batch.launches`` counts the images nvJPEG decoded on the card,
+``load_batch.host_decoded`` the files decoded on the host (both resized
+on the card).
 """
 
 from __future__ import annotations
@@ -71,15 +73,6 @@ def _handle():
     return h
 
 
-def _host_frame(path: str, out_w: int, out_h: int):
-    """(the frame resized to (out_h, out_w), RGB; its source (h, w)) of a
-    file ``codec.imread`` decodes, else None."""
-    im = codec.imread(path)
-    if im is None:
-        return None
-    return codec.resize(im, (out_w, out_h))[:, :, ::-1], im.shape[:2]
-
-
 def load_batch_reference(paths: List[str], out_w: int, out_h: int
                          ) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
     """Plain version: PIL's decode and codec.resize on the host of every
@@ -94,12 +87,13 @@ def load_batch_reference(paths: List[str], out_w: int, out_h: int
                 is_jpeg = f.read(2).startswith(_JPEG_MAGIC)
         except OSError:
             continue
-        got = _host_frame(p, out_w, out_h)
-        if got is None:
+        im = codec.imread(p)
+        if im is None:
             if is_jpeg:
                 raise RuntimeError(f"{p}: a JPEG the decoder refuses")
             continue
-        out[i], src_hw[i] = got
+        out[i] = codec.resize(im, (out_w, out_h))[:, :, ::-1]
+        src_hw[i] = im.shape[:2]
         ok[i] = True
     return torch.from_numpy(out), ok, src_hw
 
@@ -126,8 +120,9 @@ def load_batch(paths: List[str], out_w: int, out_h: int, device="cuda"
                ) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
     """(images (N, out_h, out_w, 3) uint8 RGB on ``device``, ok (N,) bool,
     src_hw (N, 2) int32 source sizes). On the card: nvJPEG, raising on a
-    JPEG it refuses, and the host decode of the files that are not JPEGs;
-    on the CPU: the plain version."""
+    JPEG it refuses, and the host decode of the files that are not JPEGs,
+    every frame resized by ``resize_on_card``; on the CPU: the plain
+    version."""
     device = torch.device(device)
     if device.type != "cuda":
         return load_batch_reference(paths, out_w, out_h)
@@ -144,13 +139,14 @@ def load_batch(paths: List[str], out_w: int, out_h: int, device="cuda"
         except OSError:  # flagged in ok, as a file that does not decode
             continue
         if not data.startswith(_JPEG_MAGIC):
-            got = _host_frame(p, out_w, out_h)
-            if got is None:  # flagged in ok, as cv::imread's empty Mat
+            im = codec.imread(p)
+            if im is None:  # flagged in ok, as cv::imread's empty Mat
                 continue
-            out[i].copy_(torch.from_numpy(np.ascontiguousarray(got[0])))
+            rgb = torch.from_numpy(np.ascontiguousarray(im[:, :, ::-1]))
+            resize_on_card(rgb.to(device), out[i])
             load_batch.host_decoded += 1
             ok[i] = True
-            src_hw[i] = got[1]
+            src_hw[i] = im.shape[:2]
             continue
         w, hh = ctypes.c_int(), ctypes.c_int()
         st = lib.nvjpeg_info(h, data, len(data), ctypes.byref(w),

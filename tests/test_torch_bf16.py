@@ -30,11 +30,12 @@ truth 0.95725) and 0.93718 (0.93717, 0.93746).
 
 (b) The train-mode forward (batch statistics) and the OHEM loss of that
 forward, the same models and images: mean |bf16 - truth| per output
-within 1.5x JAX's, the max within 2x (one pixel of 65,536 decides it);
-the mean signed error of ``pixel_logits`` within 1.5x JAX's plus a
-quarter of JAX's mean |error| (at random init the batch statistics make
-the signed mean noise: JAX's own reads 5.5e-4 and 2.8e-5 of the scale
-against a mean |error| of 2.1e-2 and 1.2e-3); the loss's nine terms (the
+and the max within 1.5x JAX's, as in (a); the mean signed error of
+``pixel_logits`` within 1.5x JAX's plus 1e-4 of the scale, as in (a)
+(measured: resnet50 -8.9e-4 against JAX's -5.5e-4 of the scale, budget
+9.3e-4; tiny 1.0e-4 against -2.8e-5, budget 1.4e-4; at random init the
+batch statistics make the signed mean noise, JAX's own mean |error|
+reading 2.1e-2 and 1.2e-3 of the scale); the loss's nine terms (the
 pixel loss and the eight link directions) within 1.5x JAX's mean |error|
 plus 1e-4 of their mean size, and the model loss within the sum of JAX's
 term errors; the BN batch statistics that the forward writes into the
@@ -210,9 +211,9 @@ def test_train_forward_and_loss_round_as_jax_does(sides):
               f"{max_r:.3f}; signed port {pe.mean() / scale:.3e}, JAX "
               f"{je.mean() / scale:.3e}, JAX mean |err| "
               f"{np.abs(je).mean() / scale:.3e} of the scale {scale:.3f}")
-        assert mean_r <= RATIO and max_r <= 2.0, key
-    pe, je, _ = errors(res, "train", "pixel_logits")
-    assert abs(pe.mean()) <= RATIO * abs(je.mean()) + 0.25 * np.abs(je).mean()
+        assert mean_r <= RATIO and max_r <= RATIO, key
+    pe, je, scale = errors(res, "train", "pixel_logits")
+    assert abs(pe.mean()) <= RATIO * abs(je.mean()) + 1e-4 * scale
 
     loss = {s: res[s]["loss"] for s in res}
     perr = np.array([loss["port"][k] - loss["truth"][k] for k in LOSS_TERMS])
