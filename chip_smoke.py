@@ -22,7 +22,7 @@ Phases, in order; any failure raises and exits non-zero:
    the boxes must equal those decoded from the same logits with the
    plain connected components;
 6. time detect (p50, batch 1, 1280x768) and detect_batches (img/s,
-   batch 8) after a warm-up, each over 2 windows of at least 5 s;
+   batch 8) after a warm-up, each over 2 windows of at least 3 s;
    print each window and the median of the three;
 7. with --profile only: a torch.profiler trace of serve and of detect,
    printing wall time, device busy time, the device's idle share and
@@ -41,6 +41,16 @@ Phases, in order; any failure raises and exits non-zero:
 9. detect_batch with PALLAS_CONVS on: 44 + 13 conv launches a forward,
    all on conv_fwd.cu, logits within CONV_DETECT_REL of the cuDNN
    forward's, the CC kernel still launched;
+8b. the route's four kernels in float32 (conv_fwd.cu conv_fwd_tma_f32,
+   conv_dw.cu conv_dw_tma_f32, conv.cu's narrow float32 kernels) at the
+   shapes of phase 8 (train, tails, detect): y, dX and dW each within
+   F32_ERR_MULTIPLE times the plain float32 version's error (TF32 off)
+   against the float64 product, launched twice and bit-equal; at the
+   train shapes kernel, plain and library (float32, TF32 off) ms, FLOPs,
+   bytes and bound;
+9b. Predictor(dtype=torch.float32) detect_batch with PALLAS_CONVS on: 57
+   launches, all on the float32 kernels, the CC kernel launched, logits
+   within FWD_REL_TOL of the cuDNN float32 forward's (TF32 off on both);
 10. hold each fused kernel against its plain version at every shape the
    train step gives it (the 15 1x1 and 4 3x3 convs of the fused units,
    the boundary of each block): forward y and s, backward dx, dab and
@@ -77,6 +87,12 @@ Phases, in order; any failure raises and exits non-zero:
    of the two dW kernels; one step against the same
    arm on cuDNN from the augmented state (CONV_ARM_* bounds); one
    freeze_bn step with the route on (the BN fold path);
+13b. the same arm in float32 (model.compute_dtype "float32"): 3 steps
+   through Trainer.run, every routed product on a float32 kernel
+   (CONV_STEP_LAUNCHES a step, none on a bfloat16 one), eager img/s over
+   ARM_WINDOWS windows of ARM_WINDOW_S and the peak memory; one step
+   against the float32 cuDNN arm (TF32 off) from the augmented state
+   (F32_ARM_* bounds); with --faults (phase 12) its readings too;
 14. hold each of the five ghost-BN kernels (csrc/ghost_unit.cu) against
    its plain version along one unit's forward and backward chain at
    each of the 4 ghost unit shapes of the 512^2 batch-32 step (each conv
@@ -94,8 +110,8 @@ Phases, in order; any failure raises and exits non-zero:
    by kernel too); one step on the
    kernels against one on the plain versions from the augmented state
    (GHOST_ARM_* bounds); one freeze_bn step (no ghost kernel);
-17. multi-step = eager: for the fused, ghost, xla and xla pallas-conv
-   arms, one make_multi_train_step dispatch of 4 steps (one step
+17. multi-step = eager: for the fused, ghost, xla, xla pallas-conv and
+   float32 xla pallas-conv arms, one make_multi_train_step dispatch of 4 steps (one step
    captured into a CUDA graph after 2 warm-up steps, replayed 4 times)
    against 4 eager train_step calls from the same state and dataset rows
    (64 numpy scenes on the card, labels precomputed there), under
@@ -120,9 +136,9 @@ Phases, in order; any failure raises and exits non-zero:
    port checkpoint trained 50 steps (one graph dispatch) on the numpy
    scenes in place of the augmented state;
 21. train img/s for the fused, xla, freeze_bn-fused, xla pallas-conv and
-   ghost arms, each over 2 windows of at least 3 s (median and range);
+   ghost arms, each over 2 windows of at least 2 s (median and range);
 22. the same five arms through make_multi_train_step, 16 steps a
-   dispatch (the graph replayed), over 2 windows of at least 3 s; with
+   dispatch (the graph replayed), over 2 windows of at least 2 s; with
    --profile also the device idle share of one dispatch of the fused and
    ghost arms;
 23. with --profile only: a torch.profiler trace of 3 train steps of the
@@ -148,7 +164,7 @@ Phases, in order; any failure raises and exits non-zero:
    on 8 x 1280x768 scenes (an operating point planted if few pixels pass
    the score threshold), east_detect on the card equal to the CPU's on
    the same maps, the boxes NMS keeps equal to the CPU decode's; detect
-   p50 and serve img/s over 2 windows of 5 s, with the host NMS ms;
+   p50 and serve img/s over 2 windows of 3 s, with the host NMS ms;
 29. pixellink2s_vgg16 (OHEM, labels at stride 2): eager train img/s and
    peak memory; detect through the CC kernel, held against its plain
    version at the stride-2 maps (8, 384, 640); detect and serve timed;
@@ -204,7 +220,7 @@ Phases, in order; any failure raises and exits non-zero:
 36. the deeper backbones: east_resnet101 and pixellink_resnetv2_50
    forwards in float32 against the CPU (phase 4's check);
    east_resnet101 fused-arm steps at 512^2, batch 32 (fused kernels
-   launched, img/s over 3 windows of >= 3 s, peak memory); pixellink_resnet152 and
+   launched, img/s over 2 windows of >= 3 s, peak memory); pixellink_resnet152 and
    pixellink_resnet200 one fused and one ghost step each at batch 8
    (the ghost units on the ghost path, peak memory);
    pixellink_resnetv2_50 one step with PALLAS_CONVS (its ConvBNs on the
@@ -245,10 +261,11 @@ Phases, in order; any failure raises and exits non-zero:
    all-reduce ms and peak memory, with the card's name and power limit.
 
 The line before the last is a JSON object describing the fourteen
-kernels (launches from the main path of each: detect for the CC kernel,
-the fused steps for the fused kernels, the pallas-conv steps for the
-conv kernels, the ghost steps for the ghost kernels; times summed over
-the shapes of each kernel's check); the last
+kernels and the route's four float32 kernels (launches from the main
+path of each: detect for the CC kernel, the fused steps for the fused
+kernels, the pallas-conv steps for the conv kernels, the float32
+pallas-conv steps for their float32 rows, the ghost steps for the ghost
+kernels; times summed over the shapes of each kernel's check); the last
 line is {"ok": true, "device": {...}}. Weights are random (seeded):
 the check is that the port runs and agrees with itself and its plain
 versions, not detection quality.
@@ -286,10 +303,11 @@ FWD_REL_TOL = 1e-4
 # model's over windows of PIXELLINK_WINDOW_S (shortened when the EAST
 # phases came, to keep the script within half its time limit; the EAST
 # windows, 10 s before, when the data phase came; 2 windows, 3 before,
-# since the multi-GPU phase 38 came)
-WINDOW_S = 5.0
+# since the multi-GPU phase 38 came; 3 s, 5 before, since the float32
+# route's phases came)
+WINDOW_S = 3.0
 WINDOWS = 2
-PIXELLINK_WINDOW_S = 5.0
+PIXELLINK_WINDOW_S = 3.0
 # the train phases: bench.py's train shape, steps of the main path, and
 # the EAST eager train img/s read over TRAIN_WINDOWS windows of at least
 # TRAIN_WINDOW_S (10 s until the data phase came); the EAST graph img/s
@@ -306,9 +324,10 @@ EAST_GRAPH_DISPATCHES = 9
 EAST_SERVE_STEPS = 448
 # the five PixelLink arms' eager and graph img/s: ARM_WINDOWS windows of
 # at least ARM_WINDOW_S (scripts/trainer_probe.py times them longer, in
-# fresh processes; 5 s until the multi-GPU phase 38 came)
+# fresh processes; 5 s until the multi-GPU phase 38 came, 3 s until the
+# float32 route's phases came)
 ARM_WINDOWS = 2
-ARM_WINDOW_S = 3.0
+ARM_WINDOW_S = 2.0
 # fused vs xla arm, one step each from one state and batch, in bf16. At
 # the seeded init (every BN scale 1) the bf16 step is chaotic: two runs
 # of the fused arm alone differ by a gradient relative error of ~1, as
@@ -892,6 +911,40 @@ DW_TAIL_SHAPES = ((1, 7, 13, 24, 40, 3), (2, 5, 9, 8, 16, 1),
                   (2, 9, 130, 64, 64, 3), (2, 16, 16, 2048, 2, 1))
 
 
+# the route's float32 kernels (ops/conv.py: tma_fwd32 on conv_fwd.cu and
+# tma_dw32 on conv_dw.cu, split TF32 on the tensor cores; narrow_fwd32 and
+# narrow_dw32 on conv.cu for the narrow shapes, f32 FMAs): rows of their
+# own in the kernels line, beside the bfloat16 ones, replacing the same
+# sites (the Pallas kernels take float32 as they take bfloat16)
+CONV_F32_KERNELS = {f"{name}_f32": spec for name, spec in CONV_KERNELS.items()}
+# the float32 products of a step by kernel: the bfloat16 dispatch's
+F32_FWD_STEP_KERNELS = {"tma_fwd32": 110, "narrow_fwd32": 4}
+F32_DW_STEP_KERNELS = {"tma_dw32": 53, "narrow_dw32": 4}
+F32_DETECT_FWD_KERNELS = {"tma_fwd32": 57, "narrow_fwd32": 0}
+# a float32 kernel's largest error against the float64 product, at most
+# this many times the plain float32 version's (cuBLAS / cuDNN with TF32
+# off) against the same product: a float32 product, not a TF32 one (one
+# TF32 pass misses it by far: tests/test_torch_conv_f32.py)
+F32_ERR_MULTIPLE = 4.0
+# the split-TF32 products' least time: three TF32 passes at 495 TFLOP/s
+# (the H100 SXM's dense TF32 rate, NVIDIA's data sheet)
+PEAK_F32_SPLIT = 495e12 / 3
+# the float32 PALLAS_CONVS arm against the same arm on cuDNN in float32
+# (TF32 off), one step each from the augmented state: bounds between the
+# sound runs' largest reading and the planted backward faults' smallest
+# (--faults, scripts/conv_f32_probe.py --faults; PERF.md, Findings; H100
+# 80GB HBM3 at 700 W): gradient relative error sound 8.2263e-5 (4 runs),
+# dW x 0.9 8.9791e-2, dX x 0.9 4.6295e-1, the 3x3 dX unflipped
+# 5.1831e-1; worst cosine sound 1.000000, faults 0.922046 and 0.189591
+# (dW x 0.9 keeps the direction). From the seeded state even float32
+# reads 1.7012e-2 (the chaotic step of the bf16 note above). The loss
+# reads 0 sound and under every backward fault: it only catches coarse
+# forward faults, and phase 8b holds y to the float32 rule.
+F32_ARM_LOSS_REL = 1e-5
+F32_ARM_GRAD_REL = 2.5e-3
+F32_ARM_COS_MIN = 0.999
+
+
 @contextlib.contextmanager
 def pallas_convs(on: bool):
     """models.layers.PALLAS_CONVS set to ``on`` inside the block."""
@@ -907,7 +960,8 @@ def pallas_convs(on: bool):
 def reset_conv_counts():
     from tensorflow_ocr_tpu_torch.ops import conv as CV
 
-    for name in (*CONV_KERNELS, *DW_STEP_KERNELS, *FWD_STEP_KERNELS):
+    for name in (*CONV_KERNELS, *DW_STEP_KERNELS, *FWD_STEP_KERNELS,
+                 *F32_DW_STEP_KERNELS, *F32_FWD_STEP_KERNELS):
         getattr(CV, name).launches = 0
 
 
@@ -1205,6 +1259,192 @@ def phase_conv_kernels(device, reports, model=MODEL):
           "(cuBLAS, bf16 out) for the 1x1s, F.conv2d, the faster of "
           "torch.nn.grad.conv2d_input and F.conv2d(dy, wflip) for the dX, "
           "and conv2d_weight (cuDNN, channels-last bf16) for the 3x3s")
+
+
+def phase_conv_kernels_f32(device, reports):
+    """Each conv kernel in float32 against the float64 product at every
+    distinct shape of the route in the train step (route_shapes at
+    TRAIN_SIZE, batch TRAIN_BATCH, plus one stride-2 1x1), the forward and
+    dW tail shapes, and every distinct forward shape of detect (IMAGE_HW,
+    batch 8): y, dX and dW, each within F32_ERR_MULTIPLE times the plain
+    float32 version's error (TF32 off) against the same float64 product;
+    each call launched twice and bit-equal. Prints, at the train shapes
+    (the tail and detect shapes are checked, not timed), kernel, plain and
+    library-call ms (CUDA events; the library call in float32, TF32 off:
+    torch.matmul for the 1x1s, F.conv2d, conv2d_input and conv2d_weight
+    for the 3x3s), the FLOPs, bytes and bound (operations at
+    PEAK_F32_SPLIT on the TMA kernels, at PEAK_F32 on the narrow ones;
+    bytes at the HBM rate), and each kernel's ms a train step. The reports
+    sum the train shapes; max_abs_err covers every shape."""
+    import torch
+    import torch.nn.functional as F
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+    from tensorflow_ocr_tpu_torch.ops.fused import full_f32
+
+    gen = torch.Generator().manual_seed(17)
+    f32, f64, cl = torch.float32, torch.float64, torch.channels_last
+    for r in reports.values():
+        r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+    worst = {n: 0.0 for n in reports}
+
+    def act(n, c, h, w):
+        return torch.randn(n, c, h, w, generator=gen).to(
+            device=device, dtype=f32).contiguous(memory_format=cl)
+
+    def in_f32(fn):
+        def call():
+            with full_f32():
+                return fn()
+        return call
+
+    def run(name, what, kernel, plain, exact, library, flops, nbytes,
+            narrow, sums):
+        """``exact``: the float64 product; ``library``: one call, or
+        {label: call} of which the faster is the yardstick. ``sums`` None
+        (the tail and detect shapes): the checks alone, no timing."""
+        calls = library if isinstance(library, dict) else {"": library}
+        got, want, ref = kernel(), plain(), exact()
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+              f"{name} {what}: shape {tuple(got.shape)} or non-finite")
+        err = float((got.to(f64) - ref).abs().max())
+        perr = float((want.to(f64) - ref).abs().max())
+        del ref
+        check(err <= F32_ERR_MULTIPLE * perr, f"{name} {what}: error "
+              f"{err:.3e} against float64 beyond {F32_ERR_MULTIPLE:g} x the "
+              f"plain float32 version's {perr:.3e}")
+        check(torch.equal(got, kernel()), f"{name} {what}: two launches on "
+              "the same inputs differ")
+        key = f"{name}_f32"
+        reports[key]["max_abs_err"] = max(reports[key]["max_abs_err"], err)
+        worst[key] = max(worst[key], err / max(perr, 1e-300))
+        if sums is None:
+            print(f"{key} {what}: max abs err {err:.3e}, plain's {perr:.3e} "
+                  f"(x{err / max(perr, 1e-300):.2f}); bit-equal twice")
+            return 0.0, 0.0
+        ms, pms = cuda_ms(kernel, 10), cuda_ms(plain, 3)
+        times = {label: cuda_ms(fn, 10) for label, fn in calls.items()}
+        lms = min(times.values())
+        r = sums[key]
+        bound = add_bound(r, flops, nbytes,
+                          PEAK_F32 if narrow else PEAK_F32_SPLIT)
+        r["ms"] += ms
+        r["plain_ms"] += pms
+        r["library_ms"] += lms
+        lib = ", ".join(f"{label} {t:.4f}" for label, t in times.items()
+                        if label)
+        print(f"{key} {what}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s), plain {pms:.4f}, "
+              f"library {lms:.4f}{f' ({lib})' if lib else ''}; "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB, bound "
+              f"{bound:.4f} ms ({'f32 FMA' if narrow else 'split TF32'}); "
+              f"max abs err {err:.3e}, plain's {perr:.3e} (x{err / max(perr, 1e-300):.2f})")
+        return ms, lms
+
+    def weight(co, ci, k):
+        return (torch.randn(co, ci, k, k, generator=gen)
+                / (k * k * ci) ** 0.5).to(device=device, dtype=f32)
+
+    def fwd(x, wt, tag, sums):
+        """The forward of x with wt (matmul_rows or conv3)."""
+        n, ci, h, w = x.shape
+        co, k = wt.shape[0], wt.shape[-1]
+        m = n * h * w
+        flops, io = 2 * m * k * k * ci * co, 4 * (m * ci + k * k * ci * co
+                                                  + m * co)
+        narrow = not CV.tma_fwd_takes(ci)
+        if k == 1:
+            x2, w2 = CV.rows(x), wt[:, :, 0, 0].t()
+            return run("matmul_rows", tag, lambda: CV.matmul_rows(x2, w2),
+                       lambda: CV.matmul_rows_reference(x2, w2),
+                       lambda: x2.to(f64) @ w2.to(f64),
+                       in_f32(lambda: torch.matmul(x2, w2)), flops, io,
+                       narrow, sums)
+        wcl = wt.contiguous(memory_format=cl)
+        library = in_f32(lambda: F.conv2d(x, wcl, padding=1))
+        if tag.startswith("dx"):
+            wf = wt.flip(2, 3).transpose(0, 1).contiguous(memory_format=cl)
+            library = {"conv2d_input": in_f32(
+                lambda: torch.nn.grad.conv2d_input(
+                    (n, co, h, w), wf, x, padding=1)),
+                       "conv2d(dy, wflip)": library}
+        return run("conv3", tag, lambda: CV.conv3(x, wt),
+                   lambda: CV.conv3_reference(x, wt),
+                   lambda: F.conv2d(x.to(f64), wt.to(f64), padding=1),
+                   library, flops, io, narrow, sums)
+
+    def dw(x, dy, k, tag, sums):
+        n, ci, h, w = x.shape
+        co, m = dy.shape[1], n * h * w
+        flops = 2 * m * k * k * ci * co
+        nbytes = 4 * (m * (ci + co) + k * k * ci * co)
+        narrow = not CV.tma_takes(ci, co)
+        if k == 1:
+            x2, dy2 = CV.rows(x), CV.rows(dy)
+            return run("dw_rows", tag, lambda: CV.dw_rows(x2, dy2),
+                       lambda: CV.dw_rows_reference(x2, dy2),
+                       lambda: x2.to(f64).t() @ dy2.to(f64),
+                       in_f32(lambda: torch.matmul(x2.t(), dy2)), flops,
+                       nbytes, narrow, sums)
+        return run("dw3", tag, lambda: CV.dw3(x, dy),
+                   lambda: CV.dw3_reference(x, dy),
+                   lambda: CV.dw3_reference(x.to(f64), dy.to(f64)),
+                   in_f32(lambda: torch.nn.grad.conv2d_weight(
+                       x, (co, ci, 3, 3), dy, padding=1)),
+                   flops, nbytes, narrow, sums)
+
+    q = TRAIN_SIZE // 4
+    counts = route_shape_counts(TRAIN_BATCH, (TRAIN_SIZE, TRAIN_SIZE))
+    shapes = tuple(counts) + ((TRAIN_BATCH, q, q, 256, 512, 1, 2),)
+    step = {n: [0.0, 0.0] for n in reports}
+    print(f"float32 conv route at {TRAIN_SIZE}^2, batch {TRAIN_BATCH}: "
+          f"{len(shapes)} distinct convs (N, H, W, Ci, Co, k, stride)")
+    for n, h, w, ci, co, k, s in shapes:
+        x = act(n, ci, h, w)
+        xs = x[:, :, ::s, ::s].contiguous(memory_format=cl)
+        dy = act(n, co, xs.shape[2], xs.shape[3])
+        wt = weight(co, ci, k)
+        tag = f"{k}x{k}/{s} {ci}->{co} at {n}x{h}x{w}"
+        launches = counts.get((n, h, w, ci, co, k, s), 0)
+        name = "matmul_rows_f32" if k == 1 else "conv3_f32"
+        for got in (fwd(xs, wt, f"fwd {tag}", reports),
+                    fwd(dy, wt.flip(2, 3).transpose(0, 1).contiguous(),
+                        f"dx {tag}", reports)):
+            step[name][0] += launches * got[0]
+            step[name][1] += launches * got[1]
+        ms, lms = dw(xs, dy, k, f"dw {tag}", reports)
+        name = "dw_rows_f32" if k == 1 else "dw3_f32"
+        step[name][0] += launches * ms
+        step[name][1] += launches * lms
+        del x, xs, dy
+    for name, (ms, lms) in step.items():
+        r = reports[name]
+        print(f"{name} a train step (each shape's ms times its launches in "
+              f"a step, {CONV_STEP_LAUNCHES[name[:-4]]} in all): kernel "
+              f"{ms:.4f} ms, library {lms:.4f}; over the distinct shapes: "
+              f"kernel {r['ms']:.4f}, library {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+
+    for n, h, w, ci, co, k in FWD_TAIL_SHAPES:
+        fwd(act(n, ci, h, w), weight(co, ci, k),
+            f"tail fwd {k}x{k} {ci}->{co} at {n}x{h}x{w}", None)
+    for n, h, w, ci, co, k in DW_TAIL_SHAPES:
+        dw(act(n, ci, h, w), act(n, co, h, w), k,
+           f"tail {k}x{k} {ci}->{co} at {n}x{h}x{w}", None)
+    detect = route_shapes(8, IMAGE_HW)
+    for n, h, w, ci, co, k, _ in detect:
+        fwd(act(n, ci, h, w), weight(co, ci, k),
+            f"detect fwd {k}x{k} {ci}->{co} at {n}x{h}x{w}", None)
+    print(f"float32 conv kernels: {len(shapes)} train shapes (forward, dX, "
+          f"dW), {len(FWD_TAIL_SHAPES)} + {len(DW_TAIL_SHAPES)} tail shapes "
+          f"and {len(detect)} detect forwards, each error against float64 "
+          f"at most {F32_ERR_MULTIPLE:g} x the plain float32 version's; the "
+          f"largest ratio by kernel "
+          f"{ {n: round(v, 3) for n, v in worst.items()} }; ms, plain_ms, "
+          "library_ms and bound_ms in the kernels line are sums over the "
+          "train shapes")
 
 
 def phase_conv_detect(pred, images):
@@ -1573,14 +1813,16 @@ def phase_fused_kernels(device, reports):
 
 
 def train_config(impl: str, freeze_bn: bool = False, model=None,
-                 loss=None, geometry: str = "RBOX"):
+                 loss=None, geometry: str = "RBOX", dtype="bfloat16"):
     """bench.py's train configuration: ``model`` (MODEL by default), its
     ``loss`` (LOSS by default: OHEM), 512^2, bf16 activations (its batch
-    of 32 with 16 polygon slots an image is train_batch's)."""
+    of 32 with 16 polygon slots an image is train_batch's), or ``dtype``'s
+    (model.compute_dtype)."""
     from tensorflow_ocr_tpu_torch.config import Config
 
     cfg = Config()
     cfg.model.name = model or MODEL
+    cfg.model.compute_dtype = dtype
     cfg.model.bottleneck_impl = impl
     cfg.model.freeze_bn = freeze_bn
     cfg.loss.name = loss or LOSS
@@ -1658,14 +1900,16 @@ def grads_of(model, batch, cfg):
                          for n, p in model.named_parameters()}
 
 
-def arm_grads(device, weights, batch, impl):
-    """(loss, gradients) of one bf16 step of ``impl`` from a state_dict."""
+def arm_grads(device, weights, batch, impl, dtype="bfloat16"):
+    """(loss, gradients) of one step of ``impl`` from a state_dict, in
+    bf16 or ``dtype``."""
     import torch
     from tensorflow_ocr_tpu_torch.models import build_model
 
-    model = build_model(MODEL, dtype=torch.bfloat16, bottleneck_impl=impl)
+    model = build_model(MODEL, dtype=getattr(torch, dtype),
+                        bottleneck_impl=impl)
     model.load_state_dict(weights, strict=True)
-    out = grads_of(model.to(device), batch, train_config(impl))
+    out = grads_of(model.to(device), batch, train_config(impl, dtype=dtype))
     del model
     torch.cuda.empty_cache()
     return out
@@ -1818,21 +2062,34 @@ def phase_train(device, reports, arm_start):
     return trainer, batch, snap
 
 
-def conv_arm_readings(device, start, batch):
+def conv_arm_readings(device, start, batch, dtype="bfloat16"):
     """One xla-arm step with PALLAS_CONVS on against one with it off
-    (cuDNN), from the state ``start`` and one batch (arm_readings)."""
-    with pallas_convs(True):
-        routed = arm_grads(device, start, batch, "xla")
-    return arm_readings(routed, arm_grads(device, start, batch, "xla"))
+    (cuDNN), from the state ``start`` and one batch (arm_readings); in
+    float32 both with TF32 off (the convs off the route too)."""
+    from tensorflow_ocr_tpu_torch.ops.fused import full_f32
+
+    with (full_f32() if dtype == "float32" else contextlib.nullcontext()):
+        with pallas_convs(True):
+            routed = arm_grads(device, start, batch, "xla", dtype)
+        return arm_readings(routed,
+                            arm_grads(device, start, batch, "xla", dtype))
 
 
-def print_conv_arms(label, r):
+def conv_arm_bounds(dtype="bfloat16"):
+    """(loss, gradient, cosine) bounds of the conv arm check in ``dtype``."""
+    if dtype == "float32":
+        return F32_ARM_LOSS_REL, F32_ARM_GRAD_REL, F32_ARM_COS_MIN
+    return CONV_ARM_LOSS_REL, CONV_ARM_GRAD_REL, CONV_ARM_COS_MIN
+
+
+def print_conv_arms(label, r, dtype="bfloat16"):
+    loss_rel, grad_rel, cos_min = conv_arm_bounds(dtype)
     print(f"{label}: loss {r['loss'][0]:.6f} / {r['loss'][1]:.6f} (rel "
-          f"{r['rel_loss']:.3e}, tol {CONV_ARM_LOSS_REL:g}); gradient norm "
+          f"{r['rel_loss']:.3e}, tol {loss_rel:g}); gradient norm "
           f"{r['norm'][0]:.6f} / {r['norm'][1]:.6f}, rel err "
-          f"{r['grad_rel']:.4e} (tol {CONV_ARM_GRAD_REL:g}); worst parameter "
+          f"{r['grad_rel']:.4e} (tol {grad_rel:g}); worst parameter "
           f"cosine {r['worst'][1]:.6f} at {r['worst'][0]} (min "
-          f"{CONV_ARM_COS_MIN:g})")
+          f"{cos_min:g})")
 
 
 def phase_conv_train(device, reports, snap, batch, arm_start):
@@ -1911,12 +2168,122 @@ def phase_conv_train(device, reports, snap, batch, arm_start):
     torch.cuda.empty_cache()
 
 
-def phase_conv_faults(device, start, batch, where):
-    """The readings that set the CONV_ARM_* bounds: the pallas-conv arm
-    against cuDNN from the state ``start`` (the augmented one, or a
-    trained checkpoint's), 3 sound runs, then one run under each planted
-    backward fault of ops/conv.py's autograd: dW x 0.9, dX x 0.9, and the
-    3x3 dX with the kernel channel-swapped but not flipped."""
+def phase_conv_train_f32(device, reports, snap, batch, arm_start):
+    """The PALLAS_CONVS arm in float32 (model.compute_dtype "float32"): 3
+    xla-arm steps through Trainer.run with the route on, each conv wrapper
+    launched CONV_STEP_LAUNCHES times a step, on the float32 kernels
+    (F32_FWD_STEP_KERNELS, F32_DW_STEP_KERNELS) and none of the bfloat16
+    ones; eager img/s over ARM_WINDOWS windows of ARM_WINDOW_S and the peak
+    memory; one step against the same arm on cuDNN in float32, TF32 off,
+    from the state ``arm_start`` (F32_ARM_* bounds)."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    cfg = train_config("xla", dtype="float32")
+    want = {k: TRAIN_STEPS * v for k, v in CONV_STEP_LAUNCHES.items()}
+    base = arm_memory_start()
+    with pallas_convs(True):
+        trainer = T.Trainer(cfg, device)
+        trainer.setup(weights=snap)
+        reset_conv_counts()
+        t0 = time.perf_counter()
+        last = trainer.run([batch] * TRAIN_STEPS, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = conv_counts()
+        f32 = conv_counts((*F32_FWD_STEP_KERNELS, *F32_DW_STEP_KERNELS))
+        bf = conv_counts((*FWD_STEP_KERNELS, *DW_STEP_KERNELS))
+    print(f"train {TRAIN_STEPS} steps xla float32 with PALLAS_CONVS "
+          f"({run_s:.2f} s, first steps included): last metrics "
+          f"{json.dumps({k: round(v, 6) for k, v in last.items()})}; "
+          f"launches {counts} (expected {want}); by kernel {f32}, the "
+          f"bfloat16 kernels' {bf}; {arm_memory(base)}")
+    check(trainer.state.step == TRAIN_STEPS and last and all(
+        np.isfinite(v) for v in last.values()), "float32 pallas-conv "
+          "train: non-finite or missing metrics")
+    check(counts == want, "float32 pallas-conv train: conv launches")
+    check(f32 == {k: TRAIN_STEPS * v for k, v in {
+        **F32_FWD_STEP_KERNELS, **F32_DW_STEP_KERNELS}.items()},
+          "float32 pallas-conv train: launches by kernel")
+    check(not any(bf.values()), "float32 pallas-conv train: a bfloat16 "
+          "kernel launched")
+    for name, n in counts.items():
+        reports[f"{name}_f32"]["launches"] = n
+    with pallas_convs(True):
+        eager_rate(trainer.state, batch, cfg, "xla pallas-conv float32",
+                   ARM_WINDOWS, ARM_WINDOW_S, base)
+    del trainer
+    torch.cuda.empty_cache()
+
+    r = conv_arm_readings(device, arm_start, batch, "float32")
+    print_conv_arms("xla float32 with PALLAS_CONVS vs cuDNN float32 (TF32 "
+                    "off), one step from the augmented state", r, "float32")
+    check(r["rel_loss"] <= F32_ARM_LOSS_REL, "float32 pallas-conv and "
+          "cuDNN losses disagree")
+    check(r["grad_rel"] <= F32_ARM_GRAD_REL, "float32 pallas-conv and "
+          "cuDNN gradients disagree")
+    check(r["worst"][1] >= F32_ARM_COS_MIN, f"the float32 pallas-conv "
+          f"gradient of {r['worst'][0]} points elsewhere than cuDNN's")
+
+
+def phase_conv_detect_f32(pred, images):
+    """Predictor(dtype=torch.float32) on the weights of ``pred`` with
+    PALLAS_CONVS on: detect_batch launches the float32 kernels as the
+    route's convs give (no bfloat16 one) and the CC kernel; the logits
+    within FWD_REL_TOL of the cuDNN float32 forward's, both with TF32 off
+    (cuDNN's default TF32 in the convs off the route moves the logits by
+    5.0e-4 of the largest: PERF.md)."""
+    import torch
+    from tensorflow_ocr_tpu_torch.infer import Predictor
+    from tensorflow_ocr_tpu_torch.ops import kernels as K
+    from tensorflow_ocr_tpu_torch.ops.fused import full_f32
+
+    p32 = Predictor(MODEL, weights=pred.model.state_dict(),
+                    device=pred.device, dtype=torch.float32)
+    p32.pixel_thresh, p32.link_thresh = pred.pixel_thresh, pred.link_thresh
+    x = torch.from_numpy(images).to(pred.device)
+    with full_f32(), torch.inference_mode():
+        want = p32.model(x)
+    with pallas_convs(True):
+        reset_conv_counts()
+        K.connected_components.launches = 0
+        boxes = p32.detect_batch(images)
+        torch.cuda.synchronize()
+        counts, cc = conv_counts(), K.connected_components.launches
+        f32 = conv_counts(F32_FWD_STEP_KERNELS)
+        bf = conv_counts(FWD_STEP_KERNELS)
+        with full_f32(), torch.inference_mode():
+            got = p32.model(x)
+    print(f"detect_batch 8x1280x768 float32 with PALLAS_CONVS: conv "
+          f"launches {counts} (by kernel {f32}, bfloat16 kernels {bf}), cc "
+          f"launches {cc}, boxes per image {[len(b) for b in boxes]}")
+    check(counts == DETECT_CONV_LAUNCHES and f32 == F32_DETECT_FWD_KERNELS
+          and not any(bf.values()), "float32 detect with the route: conv "
+          "launches")
+    check(cc > 0 and len(boxes) == len(images), "float32 detect with the "
+          "route: the CC kernel or the boxes")
+    for key in ("pixel_logits", "link_logits"):
+        g, w = got[key], want[key]
+        check(g.dtype == torch.float32 and g.shape == w.shape
+              and bool(torch.isfinite(g).all()),
+              f"float32 {key}: dtype, shape or non-finite")
+        rel = float((g - w).abs().max() / w.abs().max())
+        print(f"float32 detect with PALLAS_CONVS {key}: "
+              f"max|routed-cudnn|/max|cudnn| = {rel:.3e} (tol "
+              f"{FWD_REL_TOL:g})")
+        check(rel <= FWD_REL_TOL, f"float32 {key}: routed and cuDNN logits "
+              "disagree")
+    del p32
+
+
+def phase_conv_faults(device, start, batch, where, dtype="bfloat16"):
+    """The readings that set the CONV_ARM_* bounds (F32_ARM_* in float32):
+    the pallas-conv arm against cuDNN from the state ``start`` (the
+    augmented one, or a trained checkpoint's), 3 sound runs, then one run
+    under each planted backward fault of ops/conv.py's autograd: dW x 0.9,
+    dX x 0.9, and the 3x3 dX with the kernel channel-swapped but not
+    flipped."""
     import torch
     from tensorflow_ocr_tpu_torch.ops import conv as CV
 
@@ -1942,9 +2309,10 @@ def phase_conv_faults(device, start, batch, where):
             return CV.conv3(dy, w.transpose(0, 1).to(dy.dtype)), dw
         return c1, b3
 
+    where = where if dtype == "bfloat16" else f"{where} {dtype}"
     for i in range(3):
         print_conv_arms(f"faults {where}: sound run {i}",
-                        conv_arm_readings(device, start, batch))
+                        conv_arm_readings(device, start, batch, dtype), dtype)
     for label, patch in (("dW x 0.9", scaled(1.0, 0.9)),
                          ("dX x 0.9", scaled(0.9, 1.0)),
                          ("3x3 dX kernel not flipped", unflipped)):
@@ -1952,7 +2320,8 @@ def phase_conv_faults(device, start, batch, where):
             staticmethod, patch())
         try:
             print_conv_arms(f"faults {where}: {label}",
-                            conv_arm_readings(device, start, batch))
+                            conv_arm_readings(device, start, batch, dtype),
+                            dtype)
         finally:
             CV._Conv1x1.backward = staticmethod(c1)
             CV._Conv3x3.backward = staticmethod(c3)
@@ -2672,6 +3041,8 @@ def phase_graph_step(device, snap, ds):
     for label, impl, route in GRAPH_ARMS:
         graph_equal(device, snap, ds, rng, label, train_config(impl), route,
                     restore=impl == "fused")
+    graph_equal(device, snap, ds, rng, "xla pallas-conv float32",
+                train_config("xla", dtype="float32"), True)
 
 
 def graph_equal(device, snap, ds, rng, label, cfg, route=False,
@@ -4148,7 +4519,8 @@ EAST_CALIB_IMAGES = 2
 EAST_CALIB_STEPS = 448
 DEEP_BATCH = 8            # ResNet-152/200 steps at 512^2
 # east_resnet101's eager img/s: DEEP_WINDOWS windows of >= DEEP_WINDOW_S
-DEEP_WINDOWS = 3
+# (3 windows until the float32 route's phases came)
+DEEP_WINDOWS = 2
 DEEP_WINDOW_S = 3.0
 DEEP_NMS_CANDIDATES = 128  # east_resnet101 detect's cap on NMS input
 
@@ -5279,6 +5651,9 @@ def main() -> int:
     conv = {name: {"name": name, "route": "cuda", "source": src,
                    "replaces": site}
             for name, (src, site) in CONV_KERNELS.items()}
+    conv32 = {name: {"name": name, "route": "cuda", "source": src,
+                     "replaces": site}
+              for name, (src, site) in CONV_F32_KERNELS.items()}
     ghost = {name: {"name": name, "route": "cuda", "source": GHOST_SRC,
                     "replaces": sites}
              for name, (_, sites) in GHOST_KERNELS.items()}
@@ -5292,6 +5667,8 @@ def main() -> int:
     phase_conv_kernels(device, conv)
     phase_conv_kernels(device, conv, EAST_MODEL)
     phase_conv_detect(pred, images)
+    phase_conv_kernels_f32(device, conv32)
+    phase_conv_detect_f32(pred, images)
     del pred
     torch.cuda.empty_cache()
 
@@ -5306,7 +5683,9 @@ def main() -> int:
     if args.faults:
         phase_fused_faults(device, arm_start, batch, "augmented")
         phase_conv_faults(device, arm_start, batch, "augmented")
+        phase_conv_faults(device, arm_start, batch, "augmented", "float32")
     phase_conv_train(device, conv, snap, batch, arm_start)
+    phase_conv_train_f32(device, conv32, snap, batch, arm_start)
     phase_ghost_kernels(device, ghost)
     if args.faults:
         phase_ghost_faults(device, arm_start, batch, "augmented")
@@ -5351,7 +5730,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys}
                for r in [report, *fused.values(), *conv.values(),
-                         *ghost.values()]]
+                         *conv32.values(), *ghost.values()]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, builds "
           f"included")
     print(card)

@@ -10,7 +10,8 @@ for each, all started together), disassembles each with cuobjdump -sass
 and compares them kernel by kernel. For each source it prints the
 kernels that only one side has and, for the kernels both have, their
 instruction counts and the instructions that differ (difflib over the
-instruction text, addresses stripped; the anonymous namespace's name,
+instruction text, addresses stripped and runs of blanks collapsed; the
+anonymous namespace's name,
 which nvcc derives from the file's path, is made the same on both
 sides). Without NAMEs, every csrc/*.cu of either checkout. Needs nvcc
 and cuobjdump, not a GPU.
@@ -52,7 +53,9 @@ def disassemble(nvcc: str, flags, src: Path, out: Path) -> dict:
         if head:
             body = kernels.setdefault(head.group(1), [])
         elif body is not None and ADDR.match(line):
-            body.append(ADDR.sub("", line).strip())
+            # whitespace collapsed: cuobjdump pads every line of a file to
+            # the column of its longest instruction
+            body.append(" ".join(ADDR.sub("", line).split()))
     return kernels
 
 

@@ -7,6 +7,7 @@
 //   conv_fwd, KS = 3 <- _conv3 (:148):      the 3x3 forward and its dX
 //                                           (the flipped kernel);
 //   conv_dw,  KS = 3 <- _dw3 (:190):        the 3x3 dW.
+// conv_fwd_f32 and conv_dw_f32 are the same narrow shapes in float32.
 // conv_dw here takes the dW products whose channel counts are not
 // multiples of 8 (the PixelLink head's projections to 2 channels);
 // conv_dw.cu's TMA and wgmma kernel takes the rest (ops/conv.py
@@ -173,6 +174,54 @@ int launch_dw(const bf16* x, const bf16* dy, float* part, Geo g, int ci,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- float32
+//
+// The narrow shapes in float32 (the head's projections to 2 channels: the
+// dX that contracts 2 channels, the dW into 2 columns): plain SIMT loops
+// of f32 FMAs, one output element a thread, summed in K order. The forward
+// reads 2 (18) values a pixel and writes Ci; the dW reads each pixel's x
+// once a column (from L1) and splits the pixels into chunks, each summed
+// in order into its own partial table, added by sum_splits in split order.
+
+template <int KS>
+__global__ void narrow_fwd_f32(const float* __restrict__ x,
+                               const float* __restrict__ wt,
+                               float* __restrict__ y, Geo g, int ci, int co) {
+  const long long total = (long long)g.m * co;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const int m = (int)(i / co), nn = (int)(i % co);
+    const float* wr = wt + (size_t)nn * KS * KS * ci;
+    float acc = 0.f;
+    for (int t = 0; t < KS * KS; ++t) {
+      const int pix = tap_pixel<KS>(g, m, t);
+      if (pix < 0) continue;
+      const float* xr = x + (size_t)pix * ci;
+      for (int c = 0; c < ci; ++c) acc = fmaf(xr[c], wr[t * ci + c], acc);
+    }
+    y[i] = acc;
+  }
+}
+
+template <int KS>
+__global__ void narrow_dw_f32(const float* __restrict__ x,
+                              const float* __restrict__ dy,
+                              float* __restrict__ part, Geo g, int ci, int co,
+                              int chunk) {
+  const int kdim = KS * KS * ci;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= kdim * co) return;
+  const int q = e / co, nn = e % co, t = q / ci, c = q % ci;
+  const int p0 = blockIdx.y * chunk, pend = min(g.m, p0 + chunk);
+  float acc = 0.f;
+  for (int p = p0; p < pend; ++p) {
+    const int pix = tap_pixel<KS>(g, p, t);
+    if (pix >= 0)
+      acc = fmaf(x[(size_t)pix * ci + c], dy[(size_t)p * co + nn], acc);
+  }
+  part[(size_t)blockIdx.y * kdim * co + e] = acc;
+}
+
 }  // namespace
 
 // x (n,h,w,ci) bf16; wt (co, ks*ks*ci) bf16 with K in (ky, kx, ci) order;
@@ -215,6 +264,59 @@ extern "C" int conv_dw(const void* x, const void* dy, void* dw, void* ws,
   int err = ks == 1
                 ? launch_dw<1>(xb, dyb, part, g, ci, co, bm, bn, chunk, splits, s)
                 : launch_dw<3>(xb, dyb, part, g, ci, co, bm, bn, chunk, splits, s);
+  if (err != cudaSuccess || splits == 1) return err;
+  const int blocks = std::min((size + 255) / 256, 4096);
+  sum_splits<<<blocks, 256, 0, s>>>(part, static_cast<float*>(dw), size,
+                                    splits);
+  return cudaGetLastError();
+}
+
+// The float32 forward of any channel counts: x (n,h,w,ci), wt (co,
+// ks*ks*ci), y (n,h,w,co), all f32. Returns the launch error.
+extern "C" int conv_fwd_f32(const void* x, const void* wt, void* y, int n,
+                            int h, int w, int ci, int co, int ks,
+                            void* stream) {
+  if (ci < 1 || co < 1 || (ks != 1 && ks != 3)) return cudaErrorInvalidValue;
+  Geo g{n, h, w, n * h * w};
+  if (g.m == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const long long total = (long long)g.m * co;
+  const int blocks = (int)std::min<long long>((total + 255) / 256, 65536);
+  auto xf = static_cast<const float*>(x);
+  auto wf = static_cast<const float*>(wt);
+  auto yf = static_cast<float*>(y);
+  if (ks == 1)
+    narrow_fwd_f32<1><<<blocks, 256, 0, s>>>(xf, wf, yf, g, ci, co);
+  else
+    narrow_fwd_f32<3><<<blocks, 256, 0, s>>>(xf, wf, yf, g, ci, co);
+  return cudaGetLastError();
+}
+
+// The float32 dW of any channel counts: x (n,h,w,ci), dy (n,h,w,co) f32;
+// dw (ks*ks*ci, co) f32 out. The pixels in `splits` chunks of `chunk`
+// (every chunk holds a pixel); with splits > 1, ws holds splits partial
+// tables. Returns the first launch error.
+extern "C" int conv_dw_f32(const void* x, const void* dy, void* dw, void* ws,
+                           int n, int h, int w, int ci, int co, int ks,
+                           int chunk, int splits, void* stream) {
+  if (ci < 1 || co < 1 || (ks != 1 && ks != 3) || chunk < 1 || splits < 1)
+    return cudaErrorInvalidValue;
+  Geo g{n, h, w, n * h * w};
+  const int size = ks * ks * ci * co;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (g.m == 0) return cudaMemsetAsync(dw, 0, sizeof(float) * size, s);
+  if ((long long)chunk * (splits - 1) >= g.m ||
+      (long long)chunk * splits < g.m)
+    return cudaErrorInvalidValue;
+  float* part = static_cast<float*>(splits > 1 ? ws : dw);
+  const dim3 grid((size + 255) / 256, splits);
+  auto xf = static_cast<const float*>(x);
+  auto df = static_cast<const float*>(dy);
+  if (ks == 1)
+    narrow_dw_f32<1><<<grid, 256, 0, s>>>(xf, df, part, g, ci, co, chunk);
+  else
+    narrow_dw_f32<3><<<grid, 256, 0, s>>>(xf, df, part, g, ci, co, chunk);
+  int err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const int blocks = std::min((size + 255) / 256, 4096);
   sum_splits<<<blocks, 256, 0, s>>>(part, static_cast<float*>(dw), size,

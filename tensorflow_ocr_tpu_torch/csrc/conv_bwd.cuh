@@ -420,6 +420,193 @@ __global__ void sum_tables(const float* __restrict__ part,
   }
 }
 
+// ------------------------------------------------------------ dW, f32
+//
+// tdw_f32: tdw's dW in float32 (x, dy f32; the table f32): the same
+// split of the pixel tiles, ring, parking and cluster reduction, with each
+// 64-channel chunk of X as two boxes of 32 f32 channels (128-byte rows,
+// swizzled) and dY as BN / 32 such boxes. The product contracts over
+// pixels, and the tiles are pixel-major, which TF32 wgmma does not take
+// (its operands are K-major only): each warp reads its fragments by hand
+// from the swizzled boxes (the warp's 16 channels of the chunk x 8 pixels
+// of A, 8 pixels x 8 columns of B for each n8 tile), splits them into
+// TF32 hi and lo (wgmma.cuh tf32_split) and runs mma.sync m16n8k8 three
+// times a tile pair (lo.hi', hi.lo', hi.hi'); its four warps' fragments
+// are wgmma's accumulator layout, so the parking and the reduction are
+// tdw's. Each k8 step's three products (8 pixels) go to a fresh
+// accumulator that is then added to the f32 sum: with a whole 64-pixel
+// tile's 24 products in one accumulator, the tensor cores' truncation
+// took a 91-pixel 3x3 dW to 3.99x the plain float32 version's error
+// (H100, scripts/conv_f32_probe.py). Only the identity transform so far
+// (kAux = 0): the staging rewrites of the fused and ghost backwards are
+// not written for f32 tiles.
+
+constexpr int BOX32 = KP * 128;  // dW f32: bytes of a 32-channel box
+
+__host__ __device__ constexpr int dw32_stage_bytes(int bn, bool two) {
+  return ((two ? 2 : 1) * 2 + bn / 32) * BOX32;
+}
+
+template <int BN, bool TWO, class Tr>
+__global__ void __launch_bounds__(THREADS, 1)
+tdw_f32(const __grid_constant__ CUtensorMap mx,
+        const __grid_constant__ CUtensorMap mdy, const DwArgs a,
+        const Tr tr) {
+  static_assert(Tr::kAux == 0, "tdw_f32 takes the identity transform");
+  constexpr int NB = BN / 32;                // dY boxes a stage
+  constexpr int NA = TWO ? 2 : 1;            // 64-row chunks a stage
+  constexpr int NT = BN / 8;                 // n8 tiles of a warp
+  constexpr int LDR = BN + 8;                // floats a parked row
+  constexpr int K8 = TWO ? KP / 8 : KP / 16;  // k8 steps a warpgroup
+  constexpr int STAGE = dw32_stage_bytes(BN, TWO);
+  extern __shared__ uint8_t raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + a.stages * STAGE);
+  uint64_t* empty = full + a.stages;
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128;
+  const long long t0 = (long long)blockIdx.z * a.ntiles / a.splits;
+  const int nt =
+      (int)((long long)(blockIdx.z + 1) * a.ntiles / a.splits - t0);
+  const int co0 = blockIdx.y * BN;
+  const int half = a.ks / 2;
+  auto chunk_of = [&](int j) {
+    return TWO ? min(2 * (int)blockIdx.x + j, a.rchunks - 1) : 0;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS);  // every consumer thread has read
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    regs_shrink<40>();
+    if (tid == 0) {
+      prefetch_map(&mx);
+      prefetch_map(&mdy);
+      for (int i = 0; i < nt; ++i) {
+        const int st = i % a.stages;
+        mbar_wait(&empty[st], ((i / a.stages) & 1) ^ 1);
+        uint8_t* buf = smem + st * STAGE;
+        mbar_expect_tx(&full[st], STAGE);
+        int t = (int)t0 + i;
+        const int w0 = (t % a.tiles_w) * a.wb;
+        t /= a.tiles_w;
+        const int h0 = (t % a.tiles_h) * a.hb, img = t / a.tiles_h;
+        for (int j = 0; j < NA; ++j) {
+          const int c = chunk_of(j), tap = c / a.cchunks;
+          for (int b = 0; b < 2; ++b)
+            tma_load_4d(buf + (2 * j + b) * BOX32, &mx, &full[st],
+                        (c % a.cchunks) * 64 + 32 * b, w0 + tap % a.ks - half,
+                        h0 + tap / a.ks - half, img);
+        }
+        for (int j = 0; j < NB; ++j)
+          tma_load_4d(buf + (2 * NA + j) * BOX32, &mdy, &full[st],
+                      co0 + 32 * j, w0, h0, img);
+      }
+    }
+    __syncwarp();
+    cluster_sync();  // the accumulators are parked
+    cluster_sync();  // every rank has read them
+  } else {
+    // ----------------------------------------------------------- consumers
+    regs_grow<232>();
+    float acc[4 * NT], sum[4 * NT];
+#pragma unroll
+    for (int e = 0; e < 4 * NT; ++e) sum[e] = 0.f;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    // the warp's 16 rows of its chunk (channels 16 warp .. of the chunk):
+    // X box 2 aslot + warp / 2, channels m0 + g and m0 + g + 8 of it; the
+    // pixels of each tile it takes: all, or its warpgroup's half where
+    // both own the one chunk
+    const int aslot = TWO ? wg : 0;
+    const int abox = 2 * aslot + warp / 2, m0 = 16 * (warp % 2);
+    const int p0 = TWO ? 0 : wg * (KP / 2);
+    for (int i = 0; i < nt; ++i) {
+      const int st = i % a.stages;
+      mbar_wait(&full[st], (i / a.stages) & 1);
+      const uint8_t* buf = smem + st * STAGE;
+      const uint8_t* xa = buf + abox * BOX32;
+      const uint8_t* dyb = buf + 2 * NA * BOX32;
+#pragma unroll 2
+      for (int s = 0; s < K8; ++s) {
+        const int p = p0 + 8 * s + t4;  // the pixels p and p + 4
+#pragma unroll
+        for (int e = 0; e < 4 * NT; ++e) acc[e] = 0.f;
+        uint32_t ah[4], al[4];
+        tf32_split(lds_sw32(xa, p, m0 + g), ah[0], al[0]);
+        tf32_split(lds_sw32(xa, p, m0 + g + 8), ah[1], al[1]);
+        tf32_split(lds_sw32(xa, p + 4, m0 + g), ah[2], al[2]);
+        tf32_split(lds_sw32(xa, p + 4, m0 + g + 8), ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint8_t* db = dyb + (j / 4) * BOX32;
+          const int n = 8 * (j % 4) + g;
+          uint32_t bh[2], bl[2];
+          tf32_split(lds_sw32(db, p, n), bh[0], bl[0]);
+          tf32_split(lds_sw32(db, p + 4, n), bh[1], bl[1]);
+          mma_tf32(acc + 4 * j, al, bh);
+          mma_tf32(acc + 4 * j, ah, bl);
+          mma_tf32(acc + 4 * j, ah, bh);
+        }
+#pragma unroll
+        for (int e = 0; e < 4 * NT; ++e) sum[e] += acc[e];
+      }
+      mbar_arrive(&empty[st]);
+    }
+
+    // park the sums over the ring, once both warpgroups are done reading
+    // it
+    bar_sync(1, CONSUMERS);
+    float* park = reinterpret_cast<float*>(smem) + wg * 64 * LDR;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = 16 * warp + g + 8 * e;
+        const int col = 8 * j + 2 * t4;
+        *reinterpret_cast<float2*>(park + row * LDR + col) =
+            make_float2(sum[4 * j + 2 * e], sum[4 * j + 2 * e + 1]);
+      }
+    cluster_sync();
+
+    // rank r sums and writes rows [r, r+1) * rows/cs of the tile
+    const int share = 64 * NA / a.cs;
+    const int rank = (int)cluster_rank();
+    float* out = a.out + (size_t)(blockIdx.z / a.cs) *
+                             ((size_t)a.ks * a.ks * a.ci * a.co);
+    const float* base = reinterpret_cast<const float*>(smem);
+    for (int idx = threadIdx.x; idx < share * (BN / 4); idx += CONSUMERS) {
+      const int r = rank * share + idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+      const int j = TWO ? r / 64 : 0, ii = r % 64;
+      if (TWO && 2 * (int)blockIdx.x + j >= a.rchunks) continue;
+      const int ch = chunk_of(j);
+      const int cin = (ch % a.cchunks) * 64 + ii, n = co0 + c;
+      if (cin >= a.ci || n >= a.co) continue;
+      float4 sum4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < a.cs; ++q)
+        for (int pp = TWO ? j : 0; pp <= (TWO ? j : 1); ++pp) {
+          const float4 v = ld_cluster_f4(base + (pp * 64 + ii) * LDR + c, q);
+          sum4.x += v.x;
+          sum4.y += v.y;
+          sum4.z += v.z;
+          sum4.w += v.w;
+        }
+      *reinterpret_cast<float4*>(
+          out + ((size_t)(ch / a.cchunks) * a.ci + cin) * a.co + n) = sum4;
+    }
+    cluster_sync();
+  }
+}
+
 // ------------------------------------------------------- dX, forward
 
 // The forward's transform (tdx, out_kind 4): the A operand x -> relu(x*a
@@ -1215,6 +1402,83 @@ int run_dw(const void* x, const void* dy, const void* aux, float* dw,
         return launch_dw<256, T>(mx, mdy, maux, a, tr, grid, smem, s);
     return p.bn == 128 ? launch_dw<128, T>(mx, mdy, maux, a, tr, grid, smem, s)
                        : launch_dw<64, T>(mx, mdy, maux, a, tr, grid, smem, s);
+  };
+  const int err = p.two ? go(std::true_type{}) : go(std::false_type{});
+  if (err != cudaSuccess || p.splits / p.cs == 1) return err;
+  const int blocks =
+      (int)((size + 255) / 256 < 4096 ? (size + 255) / 256 : 4096);
+  sum_tables<<<blocks, 256, 0, s>>>(ws, dw, size, p.splits / p.cs);
+  return cudaGetLastError();
+}
+
+template <int BN, bool TWO, class Tr>
+int launch_dw_f32(const CUtensorMap& mx, const CUtensorMap& mdy,
+                  const DwArgs& a, const Tr& tr, dim3 grid, int smem,
+                  cudaStream_t s) {
+  static bool set[64] = {};
+  cudaError_t e = allow_smem(tdw_f32<BN, TWO, Tr>, set, MAX_SMEM);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = a.cs;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.cs > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, tdw_f32<BN, TWO, Tr>, mx, mdy, a, tr);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// run_dw in float32 (tdw_f32): x (.., ci) and dy (.., co) f32, ci and co
+// multiples of 8, the identity transform; the plan as run_dw's with bn 64
+// or 128 (ops/conv.py tma_dw_plan with 4-byte elements).
+template <class Tr>
+int run_dw_f32(const void* x, const void* dy, float* dw, float* ws, int n,
+               int h, int w, int ci, int co, int ks, const DwPlan& p,
+               const Tr& tr, cudaStream_t s) {
+  const size_t size = (size_t)ks * ks * ci * co;
+  if (ci < 8 || co < 8 || ci % 8 || co % 8 || (ks != 1 && ks != 3) ||
+      !aligned16(x) || !aligned16(dy) || !aligned16(dw))
+    return cudaErrorInvalidValue;
+  if ((long long)n * h * w == 0)
+    return cudaMemsetAsync(dw, 0, sizeof(float) * size, s);
+  DwArgs a{};
+  a.out = p.splits / p.cs > 1 ? ws : dw;
+  a.h = h, a.w = w, a.ci = ci, a.co = co, a.ks = ks, a.wb = p.wb,
+  a.hb = p.hb;
+  a.tiles_w = (w + p.wb - 1) / p.wb;
+  a.tiles_h = (h + p.hb - 1) / p.hb;
+  const long long ntiles = (long long)n * a.tiles_w * a.tiles_h;
+  a.ntiles = (int)ntiles;
+  a.cchunks = (ci + 63) / 64;
+  a.rchunks = ks * ks * a.cchunks;
+  a.stages = p.stages, a.splits = p.splits, a.cs = p.cs;
+  const int stage = dw32_stage_bytes(p.bn, p.two);
+  const int smem = p.stages * stage + 16 * p.stages + 1024;
+  if (p.wb < 1 || p.hb < 1 || p.wb * p.hb != KP || p.wb > 256 ||
+      p.hb > 256 || (p.bn != 64 && p.bn != 128) ||
+      p.two != (a.rchunks > 1) || p.stages < 2 ||
+      (p.cs != 1 && p.cs != 2 && p.cs != 4) || p.splits < 1 ||
+      p.splits % p.cs || p.splits > ntiles || ntiles >= (1ll << 31) ||
+      smem > MAX_SMEM || 2 * 64 * (p.bn + 8) * 4 > p.stages * stage ||
+      (p.splits / p.cs > 1 && !ws))
+    return cudaErrorInvalidValue;
+  CUtensorMap mx, mdy;
+  if (!encode_act32(&mx, x, ci, w, h, n, p.wb, p.hb) ||
+      !encode_act32(&mdy, dy, co, w, h, n, p.wb, p.hb))
+    return cudaErrorInvalidValue;
+  const dim3 grid(p.two ? (a.rchunks + 1) / 2 : 1, (co + p.bn - 1) / p.bn,
+                  p.splits);
+  auto go = [&](auto two) {
+    constexpr bool T = decltype(two)::value;
+    return p.bn == 128
+               ? launch_dw_f32<128, T>(mx, mdy, a, tr, grid, smem, s)
+               : launch_dw_f32<64, T>(mx, mdy, a, tr, grid, smem, s);
   };
   const int err = p.two ? go(std::true_type{}) : go(std::false_type{});
   if (err != cudaSuccess || p.splits / p.cs == 1) return err;

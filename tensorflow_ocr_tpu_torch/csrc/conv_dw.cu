@@ -47,6 +47,8 @@
 //   launches on the same inputs are bit-equal.
 // - The nine taps of a 3x3 reload the same dY box, from L2: a warpgroup
 //   keeps one chunk's accumulators, not nine.
+// conv_dw_tma_f32 (at the end) is the float32 dW of the same two TPU
+// kernels: conv_bwd.cuh's tdw_f32, split TF32 by mma.sync.
 // The plan (box, BN, chunks a CTA, stages, splits, cluster) comes from
 // ops/conv.py tma_dw_plan. The kernel is conv_bwd.cuh's tdw, which the
 // fused and ghost backwards run with their staging transforms; here it
@@ -97,4 +99,19 @@ extern "C" int conv_dw_tma(const void* x, const void* dy, void* dw, void* ws,
                      static_cast<float*>(ws), n, h, w, ci, co, ks,
                      bwd::DwPlan{wb, hb, bn, two, stages, splits, cs},
                      IdentTr{}, static_cast<cudaStream_t>(stream));
+}
+
+// The float32 dW: x (n, h, w, ci) f32; dy (n, h, w, co) f32; dw (ks*ks*ci,
+// co) f32 out, rows in (ky, kx, ci) order; the plan as conv_dw_tma's
+// (ops/conv.py tma_dw_plan with 4-byte elements: bn 64 or 128). The
+// products are conv_bwd.cuh's tdw_f32 (split TF32 by mma.sync), the
+// reduction tdw's.
+extern "C" int conv_dw_tma_f32(const void* x, const void* dy, void* dw,
+                               void* ws, int n, int h, int w, int ci, int co,
+                               int ks, int wb, int hb, int bn, int two,
+                               int stages, int splits, int cs, void* stream) {
+  return bwd::run_dw_f32(x, dy, static_cast<float*>(dw),
+                         static_cast<float*>(ws), n, h, w, ci, co, ks,
+                         bwd::DwPlan{wb, hb, bn, two, stages, splits, cs},
+                         IdentTr{}, static_cast<cudaStream_t>(stream));
 }

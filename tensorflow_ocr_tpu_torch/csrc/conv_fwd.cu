@@ -79,6 +79,11 @@
 // ops/conv.py tma_fwd_plan. The tensor maps are encoded by wgmma.cuh's
 // host helpers, through the driver entry point that the runtime hands
 // out (no -lcuda).
+//
+// conv_fwd_tma_f32 (below) is the same in float32 for the same two TPU
+// kernels, which take float32 as they take bf16: a float32 product by
+// split TF32, bound by operations at 495 / 3 TFLOP/s (three TF32 passes)
+// and, for block1's 1x1s, by the bytes, twice bf16's.
 
 #include <cstdint>
 #include <cuda.h>
@@ -112,7 +117,8 @@ struct Tile {
   int img, x0, y0, col;
 };
 
-__device__ __forceinline__ Tile tile_of(const FwdArgs& a, int t) {
+template <class Args>  // FwdArgs, FwdArgs32
+__device__ __forceinline__ Tile tile_of(const Args& a, int t) {
   Tile r;
   r.col = t % a.col_tiles;
   t /= a.col_tiles;
@@ -309,6 +315,231 @@ bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
+// ---------------------------------------------------------------- float32
+//
+// conv_fwd_tma_f32: the same contract in float32 (x, wt and y f32), the
+// same persistent tiles, ring, plan and epilogue, and the product as split
+// TF32 on the tensor cores (wgmma.cuh): a K step is 32 channels of one tap
+// (a 128-byte f32 row); the weight comes split, hi and lo boxes from a
+// (2, co, KS*KS*ci) copy that tf32_split_rows writes before the launch;
+// each warp loads its 16 rows of the A box by ldmatrix (the TF32
+// fragment has the bf16 one's bytes) and splits them in registers; twelve
+// m64nBNk8 products a K step (4 k8 steps of lo.hi', then hi.lo', then
+// hi.hi') into a fresh accumulator, waited for and added to the tile's f32
+// sum (the tensor cores' truncation stays inside the K step). No overlap
+// of one K step's products with the next's: the other warpgroup's fill it.
+// y is stored in f32 by TMA (128-byte swizzled boxes of 32 columns, plain
+// 16-column rows at BN = 16), or from registers where co % 8 != 0.
+
+struct FwdArgs32 {
+  float* y;
+  int h, w, co, ks;
+  int wb, hb, tiles_w, tiles_h;
+  int col_tiles, tiles;  // tiles = row tiles * col_tiles
+  int cb;                // 32-channel boxes of ci
+  int ksteps;            // ks * ks * cb
+  int stages, resident;
+  int tma_store;         // co % 8 == 0: the epilogue stores by TMA
+};
+
+// Byte offset of output element (row, col) of a warpgroup's 64-row half
+// tile in its f32 staging buffer: 32-column sub-tiles of 64 rows x 128
+// bytes under the 128-byte swizzle, or, at BN = 16, plain 64-byte rows.
+template <int BN>
+__device__ __forceinline__ uint32_t staged_offset32(int row, int col) {
+  if constexpr (BN >= 32)
+    return (col / 32) * (64 * 128) + row * 128 +
+           ((((col >> 2) ^ row) & 7) << 4) + (col & 3) * 4;
+  else
+    return row * (BN * 4) + col * 4;
+}
+
+// out[0] = tf32(w), out[n..2n) = tf32(w - tf32(w)): the weight's split.
+__global__ void tf32_split_rows(const float* __restrict__ w,
+                                float* __restrict__ out, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    uint32_t hi, lo;
+    tf32_split(w[i], hi, lo);
+    out[i] = __uint_as_float(hi);
+    out[n + i] = __uint_as_float(lo);
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_fwd_tma_f32(const __grid_constant__ CUtensorMap mx,
+                 const __grid_constant__ CUtensorMap mw,
+                 const __grid_constant__ CUtensorMap my, const FwdArgs32 a) {
+  constexpr int BBOX = BN * 128;        // bytes of one weight box (hi or lo)
+  constexpr int HALF = 64 * BN * 4;     // bytes of a warpgroup's staging
+  extern __shared__ uint8_t raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  const int stage_bytes = ABOX + (a.resident ? 0 : 2 * BBOX);
+  uint8_t* wres = smem + a.stages * stage_bytes;
+  uint8_t* staging = wres + (a.resident ? a.ksteps * 2 * BBOX : 0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * HALF);
+  uint64_t* empty = full + a.stages;
+  uint64_t* wbar = empty + a.stages;
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);
+    }
+    mbar_init(wbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    regs_shrink<40>();
+    if (tid == 0) {
+      prefetch_map(&mx);
+      prefetch_map(&mw);
+      if (a.tma_store) prefetch_map(&my);
+      if (a.resident) {
+        const int n0 = (blockIdx.x % a.col_tiles) * BN;
+        mbar_expect_tx(wbar, a.ksteps * 2 * BBOX);
+        for (int k = 0; k < a.ksteps; ++k)
+          for (int part = 0; part < 2; ++part)
+            tma_load_4d(wres + (2 * k + part) * BBOX, &mw, wbar,
+                        (k % a.cb) * 32, k / a.cb, n0, part);
+      }
+      const int half = a.ks / 2;
+      int it = 0;
+      for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+        const Tile tl = tile_of(a, t);
+        for (int k = 0; k < a.ksteps; ++k, ++it) {
+          const int st = it % a.stages;
+          mbar_wait(&empty[st], ((it / a.stages) & 1) ^ 1);
+          uint8_t* buf = smem + st * stage_bytes;
+          mbar_expect_tx(&full[st], stage_bytes);
+          const int tap = k / a.cb, c0 = (k % a.cb) * 32;
+          tma_load_4d(buf, &mx, &full[st], c0, tl.x0 + tap % a.ks - half,
+                      tl.y0 + tap / a.ks - half, tl.img);
+          if (!a.resident)
+            for (int part = 0; part < 2; ++part)
+              tma_load_4d(buf + ABOX + part * BBOX, &mw, &full[st], c0, tap,
+                          tl.col * BN, part);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    regs_grow<232>();
+    float acc[BN / 2] = {}, sum[BN / 2];
+    if (a.resident) mbar_wait(wbar, 0);
+    const int warp = tid / 32, lane = tid % 32;
+    // the row of the A box this lane gives ldmatrix: rows l % 8 + 8 (l / 8
+    // % 2) of the warp's 16, 16-byte chunk 2 kk + l / 16 of the row
+    const int lr = 64 * wg + 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+    int it = 0;
+    for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+      const Tile tl = tile_of(a, t);
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) sum[e] = 0.f;
+      for (int k = 0; k < a.ksteps; ++k, ++it) {
+        const int st = it % a.stages;
+        mbar_wait(&full[st], (it / a.stages) & 1);
+        const uint8_t* buf = smem + st * stage_bytes;
+        const uint8_t* wb = a.resident ? wres + 2 * k * BBOX : buf + ABOX;
+        const uint64_t dhi = sw128_desc(wb, 16, 1024);
+        const uint64_t dlo = sw128_desc(wb + BBOX, 16, 1024);
+        const uint32_t rowaddr = smem_u32(buf) + lr * 128;
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t r[4];
+          ldsm_x4(rowaddr + ((((2 * kk + (lane >> 4)) ^ lr) & 7) << 4), r);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            tf32_split(__uint_as_float(r[i]), ah[kk][i], al[kk][i]);
+        }
+        wgmma_fence();
+        fence_operands(acc);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // 32 bytes a k8 step, >> 4
+          WgmmaTf32R<BN>::mma(acc, al[kk], dhi + 2 * kk, kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          WgmmaTf32R<BN>::mma(acc, ah[kk], dlo + 2 * kk, 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          WgmmaTf32R<BN>::mma(acc, ah[kk], dhi + 2 * kk, 1);
+        wgmma_commit();
+        fence_operands(acc);
+        wgmma_wait<0>();
+        fence_operands(acc);
+        if (tid == 0) mbar_arrive(&empty[st]);
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) sum[e] += acc[e];
+      }
+
+      if (a.tma_store) {
+        uint8_t* stg = staging + wg * HALF;
+        if (tid == 0) bulk_wait_read<0>();  // the last store has read stg
+        bar_sync(1 + wg, 128);
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int row = 16 * warp + lane / 4 + 8 * e2;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int col = 8 * j + 2 * (lane % 4);
+            *reinterpret_cast<float2*>(stg + staged_offset32<BN>(row, col)) =
+                make_float2(sum[4 * j + 2 * e2], sum[4 * j + 2 * e2 + 1]);
+          }
+        }
+        fence_async_smem();
+        bar_sync(1 + wg, 128);
+        if (tid == 0) {
+          const int sx = a.wb == TM ? tl.x0 + 64 * wg : tl.x0;
+          const int sy = a.wb == TM ? tl.y0 : tl.y0 + wg * (a.hb / 2);
+#pragma unroll
+          for (int sub = 0; sub < (BN >= 32 ? BN / 32 : 1); ++sub) {
+            const int c0 = tl.col * BN + 32 * sub;
+            if (c0 < a.co)
+              tma_store_4d(&my, stg + sub * (64 * 128), c0, sx, sy, tl.img);
+          }
+          bulk_commit();
+        }
+        continue;
+      }
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int r = wg * 64 + 16 * warp + lane / 4 + 8 * e2;
+        const int x = tl.x0 + r % a.wb, yy = tl.y0 + r / a.wb;
+        if (x >= a.w || yy >= a.h) continue;
+        float* out =
+            a.y + ((size_t)((size_t)tl.img * a.h + yy) * a.w + x) * a.co;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = tl.col * BN + 8 * j + 2 * (lane % 4);
+          if (c < a.co) out[c] = sum[4 * j + 2 * e2];
+          if (c + 1 < a.co) out[c + 1] = sum[4 * j + 2 * e2 + 1];
+        }
+      }
+    }
+    if (tid == 0 && a.tma_store) bulk_wait<0>();  // before the CTA exits
+  }
+}
+
+template <int BN>
+int launch32(const CUtensorMap& mx, const CUtensorMap& mw,
+             const CUtensorMap& my, const FwdArgs32& a, int grid, int smem,
+             cudaStream_t s) {
+  static bool set[64] = {};
+  const cudaError_t e = allow_smem(conv_fwd_tma_f32<BN>, set, MAX_SMEM);
+  if (e != cudaSuccess) return e;
+  conv_fwd_tma_f32<BN><<<grid, THREADS, smem, s>>>(mx, mw, my, a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x (n, h, w, ci) bf16; wt (co, ks*ks*ci) bf16, K in (ky, kx, ci) order;
@@ -376,5 +607,74 @@ extern "C" int conv_fwd_tma(const void* x, const void* wt, void* y, int n,
     case 128: return launch<128>(mx, mw, my, a, grid, smem, s);
     case 64: return launch<64>(mx, mw, my, a, grid, smem, s);
     default: return launch<16>(mx, mw, my, a, grid, smem, s);
+  }
+}
+
+// The float32 forward: x (n, h, w, ci) f32; wt (co, ks*ks*ci) f32, K in
+// (ky, kx, ci) order; wsplit (2, co, ks*ks*ci) f32 scratch for the
+// weight's TF32 split; y (n*h*w, co) f32 out. The plan as conv_fwd_tma's
+// (ops/conv.py tma_fwd_plan with 4-byte elements): a K step is 32
+// channels, a slot holds the A box and the weight's hi and lo boxes, a
+// resident weight both. Two launches: the split, then the product.
+// Returns the first launch error, or cudaErrorInvalidValue for a shape or
+// plan the kernel does not take.
+extern "C" int conv_fwd_tma_f32(const void* x, const void* wt, void* wsplit,
+                                void* y, int n, int h, int w, int ci, int co,
+                                int ks, int wb, int hb, int bn, int resident,
+                                int stages, int grid, void* stream) {
+  if (ci < 8 || ci % 8 || co < 1 || (ks != 1 && ks != 3) || !aligned(x, 16) ||
+      !aligned(wt, 16) || !aligned(wsplit, 16) || !aligned(y, 16))
+    return cudaErrorInvalidValue;
+  if ((long long)n * h * w == 0) return cudaSuccess;
+  FwdArgs32 a{};
+  a.y = static_cast<float*>(y);
+  a.h = h, a.w = w, a.co = co, a.ks = ks, a.wb = wb, a.hb = hb;
+  a.tiles_w = (w + wb - 1) / wb;
+  a.tiles_h = (h + hb - 1) / hb;
+  a.col_tiles = (co + bn - 1) / bn;
+  const long long tiles = (long long)n * a.tiles_w * a.tiles_h * a.col_tiles;
+  a.tiles = (int)tiles;
+  a.cb = (ci + 31) / 32;
+  a.ksteps = ks * ks * a.cb;
+  a.stages = stages, a.resident = resident;
+  a.tma_store = co % 8 == 0;
+  const int bbox = bn * 128;
+  const int smem = stages * (ABOX + (resident ? 0 : 2 * bbox)) +
+                   (resident ? a.ksteps * 2 * bbox : 0) + 2 * 64 * bn * 4 +
+                   8 * (2 * stages + 1) + 1024;
+  if (wb < 1 || hb < 1 || wb * hb != TM || wb > 256 || hb > 256 ||
+      (bn != 16 && bn != 64 && bn != 128) || stages < 2 ||
+      smem > MAX_SMEM || grid < 1 || grid > tiles || tiles >= (1ll << 31) ||
+      (resident && grid % a.col_tiles))
+    return cudaErrorInvalidValue;
+  CUtensorMap mx, mw, my;
+  // the split weight as (ci, ks*ks, co, 2): box (32, 1, bn, 1), hi at 0
+  const cuuint64_t wdims[4] = {(cuuint64_t)ci, (cuuint64_t)(ks * ks),
+                               (cuuint64_t)co, 2};
+  const cuuint32_t wbox[4] = {32, 1, (cuuint32_t)bn, 1};
+  const cuuint64_t ydims[4] = {(cuuint64_t)co, (cuuint64_t)w, (cuuint64_t)h,
+                               (cuuint64_t)n};
+  const int sw = wb < 64 ? wb : 64;
+  const cuuint32_t ybox[4] = {(cuuint32_t)(bn < 32 ? bn : 32), (cuuint32_t)sw,
+                              (cuuint32_t)(64 / sw), 1};
+  if (!encode_act32(&mx, x, ci, w, h, n, wb, hb) ||
+      !encode(&mw, wsplit, true, 4, wdims, wbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      (a.tma_store &&
+       !encode(&my, y, true, 4, ydims, ybox,
+               bn < 32 ? CU_TENSOR_MAP_SWIZZLE_NONE
+                       : CU_TENSOR_MAP_SWIZZLE_128B)))
+    return cudaErrorInvalidValue;
+  if (!a.tma_store) my = mx;  // unread
+  auto s = static_cast<cudaStream_t>(stream);
+  const long long wn = (long long)co * ks * ks * ci;
+  const long long blocks = (wn + 255) / 256 < 1024 ? (wn + 255) / 256 : 1024;
+  tf32_split_rows<<<(int)blocks, 256, 0, s>>>(static_cast<const float*>(wt),
+                                              static_cast<float*>(wsplit), wn);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  switch (bn) {
+    case 128: return launch32<128>(mx, mw, my, a, grid, smem, s);
+    case 64: return launch32<64>(mx, mw, my, a, grid, smem, s);
+    default: return launch32<16>(mx, mw, my, a, grid, smem, s);
   }
 }

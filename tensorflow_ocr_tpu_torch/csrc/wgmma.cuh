@@ -2,8 +2,9 @@
 // TMA into 128-byte-swizzled shared memory and multiply them with wgmma:
 // mbarriers, TMA tile loads, shared-memory matrix descriptors, the wgmma
 // product of two bf16 operands stored MN-major ("transposed", Wgmma<N>)
-// or K-major (WgmmaK<N>; WgmmaKR<N> with A in registers, ldsm_x4), thread
-// block clusters and their distributed
+// or K-major (WgmmaK<N>; WgmmaKR<N> with A in registers, ldsm_x4), the
+// float32 products by split TF32 (tf32_split, WgmmaTf32R<N>, mma_tf32;
+// see "float32" below), thread block clusters and their distributed
 // shared memory, and register reallocation between warpgroups.
 //
 // The operand tile these helpers assume is the one a TMA box of 64 bf16
@@ -499,6 +500,144 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
       : "memory");
 }
 
+// ------------------------------------------------------------------ float32
+//
+// The float32 products take the tensor cores in TF32 (10 mantissa bits),
+// with each f32 operand split into two TF32 values, x = hi + lo: hi =
+// tf32(x), lo = tf32(x - hi), both rounded to nearest (cvt.rna), so hi + lo
+// is x to within 2^-22 |x|. A product is then hi.hi' + hi.lo' + lo.hi' (the
+// lo.lo' term, below 2^-22 |x x'|, left out), the small terms summed first:
+// an f32 product to within ~3 * 2^-22 of |x x'|, where one TF32 pass keeps
+// ~2^-11. The tensor cores accumulate each instruction's sum with
+// truncation, so the kernels start a fresh accumulator for each short run
+// of K (a K step of the forward, a pixel tile of the dW) and add it to an
+// f32 sum in registers, rounded to nearest: the truncation's bias stays
+// within a run. A TF32 K-major tile has the bf16 one's bytes: 32 f32 of K
+// in a 128-byte swizzled row, a k8 step 32 bytes of it, so the bf16
+// K-major descriptors serve; PTX has no MN-major ("transposed") TF32
+// operands, so a product that contracts over pixels (a dW) reads its
+// fragments by hand for mma.sync instead.
+
+// The TF32 split of x: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact).
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  uint32_t h, l;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(h) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(l) : "f"(x - __uint_as_float(h)));
+  hi = h;
+  lo = l;
+}
+
+// D (64 x N, f32, registers) += A . B (D = A . B where scale_d == 0) with
+// A (64 x k8) TF32 in registers and B (N x k8) TF32 K-major in shared
+// memory. The A fragment has the bf16 one's bytes (WgmmaKR): lane l of
+// each warp holds a[0] = A(g, t), a[1] = A(g+8, t), a[2] = A(g, t+4), a[3] =
+// A(g+8, t+4) of its 16 rows, g = l/4, t = l%4, which ldsm_x4 loads from a
+// swizzled K-major f32 tile as it loads the bf16 fragment. The registers
+// are read asynchronously, until the wait that follows the commit.
+template <int N>
+struct WgmmaTf32R;
+
+template <>
+struct WgmmaTf32R<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32R<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32R<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// c (16 x 8, f32) += a (16 x k8) . b (k8 x 8), TF32, mma.sync: lane l of
+// the warp holds a[0] = A(g, t), a[1] = A(g+8, t), a[2] = A(g, t+4), a[3] =
+// A(g+8, t+4), b[0] = B(t, g), b[1] = B(t+4, g), c[0..1] = C(g, 2t..2t+1),
+// c[2..3] = C(g+8, 2t..2t+1), g = l/4, t = l%4: four warps over 64 rows
+// hold wgmma's accumulator fragment, n8 tile j in c = d[4j..4j+3].
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Element (row, ch) of a 32-channel f32 tile under the 128-byte swizzle
+// (row-major 128-byte rows, 16-byte chunks of 4 floats permuted).
+__device__ __forceinline__ float lds_sw32(const uint8_t* tile, int row,
+                                          int ch) {
+  return *reinterpret_cast<const float*>(
+      tile + row * 128 + ((((ch >> 2) ^ row) & 7) << 4) + (ch & 3) * 4);
+}
+
 
 // ---------------------------------------------------------------- clusters
 
@@ -604,6 +743,16 @@ inline bool encode_act(CUtensorMap* map, const void* p, bool f32, int c,
   const cuuint32_t box[4] = {64, (cuuint32_t)wb, (cuuint32_t)hb, 1};
   return encode(map, p, f32, 4, dims, box,
                 f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The (c, w, h, n) map of an NHWC f32 tensor in boxes of 32 channels (128
+// bytes) by wb x hb pixels, 128-byte swizzled: the f32 operand tile.
+inline bool encode_act32(CUtensorMap* map, const void* p, int c, int w,
+                         int h, int n, int wb, int hb) {
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h,
+                              (cuuint64_t)n};
+  const cuuint32_t box[4] = {32, (cuuint32_t)wb, (cuuint32_t)hb, 1};
+  return encode(map, p, true, 4, dims, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 inline bool aligned16(const void* p) {

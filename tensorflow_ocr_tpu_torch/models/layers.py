@@ -15,8 +15,9 @@ a stride that divides H and W) of :class:`ConvBN` through the
 hand-written conv kernels of ``ops/conv.py``, as models/layers.py:26-42
 and :131-135 route them to the Pallas kernels: False (the default:
 cuDNN on the card), True, or None for on with CUDA tensors. The kernels
-take bfloat16 only, so with the route on a float32 model on the card
-raises; the JAX route takes float32 convs too.
+take bfloat16 and float32, as the JAX route does: a float32 model's
+routed convs run on the float32 kernels (split TF32 on the tensor cores,
+a float32 product).
 
 ``SPATIAL`` is set only inside an H-sharded forward
 (``parallel/spatial.py``): the convs, max-pools and unpools below then

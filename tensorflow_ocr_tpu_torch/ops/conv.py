@@ -21,6 +21,17 @@ float32; y and dX are rounded once to the activation dtype, dW is
 returned in float32 and rounded to the weight's dtype by the autograd
 functions (``dw.astype(w.dtype)``, pallas_conv.py:238, 267).
 
+The kernels take bfloat16 or float32 operands, all of one type, as the
+Pallas kernels do (pallas_conv.py:308). The float32 ones are kernels of
+their own beside the bfloat16 ones, each counting its launches
+(:func:`tma_fwd32`, :func:`tma_dw32`, :func:`narrow_fwd32`,
+:func:`narrow_dw32`): the same tiles, a K step or a box holding 32 f32
+channels (128 bytes) where it holds 64 bf16, and a float32 product, not a
+TF32 one: the tensor cores take each operand split into two TF32 values
+(hi = tf32(x), lo = tf32(x - hi)) and sum hi.hi' + hi.lo' + lo.hi' in f32
+(csrc/wgmma.cuh), the forward by wgmma, the dW by mma.sync (TF32 wgmma
+takes no pixel-major operand); the narrow shapes by f32 FMAs.
+
 Tensors are NCHW in the channels-last memory format, so an (N, C, H, W)
 tensor is JAX's (N, H, W, C) array in memory and its rows are the
 kernels' (M, C) matrices. Weights are (Co, Ci, k, k) in the activation
@@ -36,12 +47,11 @@ the contracted channel count is a multiple of 8, ``csrc/conv.cu``'s
 channels) (:func:`tma_fwd`, :func:`narrow_fwd`). The dW products
 (:func:`tma_takes`): ``csrc/conv_dw.cu`` (TMA and wgmma) where Ci and Co
 are multiples of 8, ``csrc/conv.cu``'s ``igemm_dw`` for the rest (the
-head's 2 channels) (:func:`tma_dw`, :func:`narrow_dw`).
-:func:`supported` says exactly that, and replaces the TPU tile pickers
-``_pick_bm``/``_pick_th``, which encode VMEM budgets that Hopper does
-not have. The kernels take bfloat16 only: where the JAX route sends
-float32 convs to its Pallas kernels, :func:`conv2d` raises on float32
-CUDA tensors (CPU tensors of any float type take the plain versions).
+head's 2 channels) (:func:`tma_dw`, :func:`narrow_dw`); float32 takes the
+same dispatch. :func:`supported` says exactly that, and replaces the TPU
+tile pickers ``_pick_bm``/``_pick_th``, which encode VMEM budgets that
+Hopper does not have. float16 and float64 CUDA tensors raise (CPU tensors
+of any float type take the plain versions).
 """
 
 from __future__ import annotations
@@ -68,8 +78,8 @@ _CL = torch.channels_last
 # forward, the K slice, and the narrow dW split's target of CTAs an SM
 FWD_ROWS, BK, DW_WAVES = 128, 32, 4
 # csrc/conv_dw.cu: pixels a tile (the box wb x hb), bytes of one box of 64
-# bf16 channels, the shared memory a CTA may use, the ring's most slots
-# and the largest cluster (at this shared memory an H100 holds 66
+# bf16 channels (or 32 f32), the shared memory a CTA may use, the ring's
+# most slots and the largest cluster (at this shared memory an H100 holds 66
 # clusters of 2 at once, 132 CTAs, but only 30 of 4:
 # scripts/conv_dw_probe.py)
 KP, BOX, MAX_SMEM, MAX_STAGES, MAX_CLUSTER = 64, 64 * 128, 232448, 8, 2
@@ -136,7 +146,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib():
     lib = ctypes.CDLL(str(build_library("conv")))
     for fn, args in (("conv_fwd", [_P] * 3 + [_I] * 7 + [_P]),
-                     ("conv_dw", [_P] * 4 + [_I] * 10 + [_P])):
+                     ("conv_dw", [_P] * 4 + [_I] * 10 + [_P]),
+                     ("conv_fwd_f32", [_P] * 3 + [_I] * 6 + [_P]),
+                     ("conv_dw_f32", [_P] * 4 + [_I] * 8 + [_P])):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -146,15 +158,18 @@ def _lib():
 def _fwd_lib():
     lib = ctypes.CDLL(str(build_library("conv_fwd")))
     lib.conv_fwd_tma.argtypes = [_P] * 3 + [_I] * 12 + [_P]
-    lib.conv_fwd_tma.restype = ctypes.c_int
+    lib.conv_fwd_tma_f32.argtypes = [_P] * 4 + [_I] * 12 + [_P]
+    for fn in (lib.conv_fwd_tma, lib.conv_fwd_tma_f32):
+        fn.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
 def _dw_lib():
     lib = ctypes.CDLL(str(build_library("conv_dw")))
-    lib.conv_dw_tma.argtypes = [_P] * 4 + [_I] * 13 + [_P]
-    lib.conv_dw_tma.restype = ctypes.c_int
+    for fn in (lib.conv_dw_tma, lib.conv_dw_tma_f32):
+        fn.argtypes = [_P] * 4 + [_I] * 13 + [_P]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -176,6 +191,17 @@ def dw_plan(m: int, kdim: int, co: int, sms: int
     splits = max(1, -(-DW_WAVES * sms // tiles))
     chunk = -(-(-(-m // splits)) // BK) * BK
     return bm, bn, chunk, max(1, -(-m // chunk))
+
+
+def narrow_dw32_plan(m: int, kdim: int, co: int, sms: int
+                     ) -> Tuple[int, int]:
+    """(chunk, splits) of csrc/conv.cu's float32 narrow dW: one table
+    entry a thread in blocks of 256, the m pixels split into chunks so that
+    ~DW_WAVES blocks an SM run, every chunk non-empty."""
+    blocks = -(-kdim * co // 256)
+    splits = max(1, -(-DW_WAVES * sms // blocks))
+    chunk = -(-m // splits)
+    return chunk, max(1, -(-m // chunk))
 
 
 class TmaDwPlan(NamedTuple):
@@ -209,14 +235,15 @@ class TmaFwdPlan(NamedTuple):
 def tma_fwd_takes(k: int) -> bool:
     """Whether csrc/conv_fwd.cu takes a forward product that contracts k
     channels (Ci of a conv, Co of its dX): TMA reads rows of a multiple of
-    16 bytes. The rest (the dX of the PixelLink head's 2-channel
-    projections) take conv.cu's igemm_fwd."""
+    16 bytes, which 8 channels are in bfloat16 and in float32 alike. The
+    rest (the dX of the PixelLink head's 2-channel projections) take
+    conv.cu's igemm_fwd (narrow_fwd_f32 in float32)."""
     return k % 8 == 0
 
 
 @functools.lru_cache(maxsize=None)
 def tma_fwd_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
-                 sms: int) -> TmaFwdPlan:
+                 sms: int, esize: int = 2) -> TmaFwdPlan:
     """The tiling of a forward product of n images of h x w, ci channels in
     and co out, ks x ks taps (a 1x1 over M rows: n = h = 1, w = M). The
     box is wb x hb pixels, wb a power of two up to TM and hb = TM / wb,
@@ -224,18 +251,24 @@ def tma_fwd_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     widest among equals: TM x 1 for a 1x1 of M >= TM rows; 64 x 2 rather
     than 128 x 1 at detect's W = 320, where 128 x 1 covers 384); bn the
     narrowest of FWD_BN that covers Co (capped at 128). The output tile's
-    staging for the TMA store takes 128 x bn bf16. A 1x1's weight is
+    staging for the TMA store takes 128 x bn elements. A 1x1's weight is
     resident where its ceil(ci/64) boxes of bn rows fit beside
     MIN_A_SLOTS A slots. As many ring slots as fit, up to MAX_FWD_STAGES;
     one CTA an SM (a multiple of the column tiles where the weight is
-    resident), at most one a tile."""
+    resident), at most one a tile.
+
+    ``esize`` 4 plans the float32 kernel: a K step and a box are 32
+    channels (a 128-byte row), and each K step's weight comes as two boxes
+    (its TF32 hi and lo), so the weight takes twice the K steps and each
+    twice the bytes; the staging takes 128 x bn f32."""
     wb = min((1 << i for i in range(TM.bit_length())),
              key=lambda b: (-(-w // b) * b * -(-h // (TM // b)) * (TM // b),
                             -b))
     hb = TM // wb
     bn = next((b for b in FWD_BN if b >= co), FWD_BN[-1])
-    ksteps = ks * ks * -(-ci // 64)
-    abox, bbox, fixed = TM * 128, bn * 128, TM * bn * 2 + 8 + 1024
+    ksteps = ks * ks * -(-ci // (128 // esize))
+    abox, bbox = TM * 128, bn * 128 * (esize // 2)
+    fixed = TM * bn * esize + 8 + 1024
     wbytes = ksteps * bbox
     resident = (ks == 1 and
                 wbytes + MIN_A_SLOTS * (abox + 16) + fixed <= MAX_SMEM)
@@ -253,14 +286,15 @@ def tma_fwd_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
 
 def tma_takes(ci: int, co: int) -> bool:
     """Whether csrc/conv_dw.cu takes a dW of these channel counts: TMA
-    reads rows of a multiple of 16 bytes. The rest (the PixelLink head's
-    2-channel projections) take conv.cu's igemm_dw."""
+    reads rows of a multiple of 16 bytes (8 channels in either element
+    type). The rest (the PixelLink head's 2-channel projections) take
+    conv.cu's igemm_dw (narrow_dw_f32 in float32)."""
     return ci % 8 == 0 and co % 8 == 0
 
 
 @functools.lru_cache(maxsize=None)
 def tma_dw_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
-                sms: int, aux: int = 0) -> TmaDwPlan:
+                sms: int, aux: int = 0, esize: int = 2) -> TmaDwPlan:
     """The split of a (ks*ks*ci, co) dW over n images of h x w (a 1x1 dW
     over M rows: n = h = 1, w = M). The box is the narrowest power of two
     that covers a row, up to KP pixels (KP x 1 for the 1x1's rows), the
@@ -276,17 +310,25 @@ def tma_dw_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     each 64 columns of dY come with an aux box of the same pixels in
     elements of ``aux`` bytes (y or g: 2 for bf16, 4 for f32), and BN is
     128 where it divides Co, else 64 (the rewrite of the larger stage
-    keeps more slots in flight)."""
+    keeps more slots in flight).
+
+    ``esize`` 4 plans the float32 kernel (csrc/conv_bwd.cuh ``tdw_f32``):
+    each 64 channels arrive as two boxes of 32 f32, twice the bytes of a
+    stage, and BN is at most 128 (a thread keeps a tile's accumulator
+    beside the sum)."""
     wb = min(KP, 1 << max(w - 1, 0).bit_length())
     hb = KP // wb
     if aux:
         bn = 128 if co % 128 == 0 else 64
+    elif esize == 4:
+        bn = 128 if co >= 128 else 64
     else:
         bn = 256 if co >= 256 else 128 if co >= 128 else 64
     rchunks = ks * ks * -(-ci // 64)
     two = rchunks > 1
     tiles = (-(-rchunks // 2) if two else 1) * -(-co // bn)
-    stage = ((2 if two else 1) + bn // 64) * BOX + bn // 64 * KP * 64 * aux
+    stage = (esize // 2 * ((2 if two else 1) + bn // 64) * BOX
+             + bn // 64 * KP * 64 * aux)
     stages = min(MAX_STAGES, (MAX_SMEM - 1024) // (stage + 16))
     ntiles = n * -(-h // hb) * -(-w // wb)
     if aux:
@@ -432,17 +474,23 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# the element types the kernels take
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _check(ref: torch.Tensor, **tensors) -> None:
-    """Every tensor bfloat16 on ref's CUDA device. Raises otherwise."""
+    """Every tensor on ref's CUDA device, bfloat16 or float32, all of
+    ref's type. Raises otherwise."""
     if ref.device.type != "cuda":
         raise ValueError(f"tensors on {ref.device}: the kernels need a "
                          "CUDA device (or every tensor on the CPU)")
     for name, t in tensors.items():
         if t.device != ref.device:
             raise ValueError(f"{name} on {t.device}, expected {ref.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the kernels take bfloat16, got "
-                            f"{t.dtype}")
+        if t.dtype not in KERNEL_DTYPES or t.dtype != ref.dtype:
+            raise TypeError(f"{name}: the kernels take bfloat16 or float32 "
+                            f"operands of one type, got {t.dtype} beside "
+                            f"{ref.dtype}")
 
 
 def _indices_fit(m: int, c: int, k: int) -> bool:
@@ -455,7 +503,10 @@ def _fwd(x, wt, n, h, w, ci, co, k, name):
     :func:`tma_fwd_takes` picks by shape."""
     if not _indices_fit(n * h * w, max(ci, co), k):
         raise ValueError("shape overflows the kernel's int32 indices")
-    kernel = tma_fwd if tma_fwd_takes(ci) else narrow_fwd
+    if x.dtype == torch.float32:
+        kernel = tma_fwd32 if tma_fwd_takes(ci) else narrow_fwd32
+    else:
+        kernel = tma_fwd if tma_fwd_takes(ci) else narrow_fwd
     return kernel(x, wt, n, h, w, ci, co, k, name)
 
 
@@ -471,21 +522,41 @@ def tma_fwd(x, wt, n, h, w, ci, co, k, name="tma_fwd"):
     """conv_fwd_tma of csrc/conv_fwd.cu (:func:`tma_fwd_plan`'s tiling).
     Raises on a contracted channel count that is not a multiple of 8 and
     on bases that are not 16-byte aligned: TMA takes neither."""
+    return _tma_fwd(x, wt, n, h, w, ci, co, k, name, tma_fwd)
+
+
+def tma_fwd32(x, wt, n, h, w, ci, co, k, name="tma_fwd32"):
+    """conv_fwd_tma_f32 of csrc/conv_fwd.cu: the float32 forward on
+    :func:`tma_fwd_plan`'s tiling with 4-byte elements, split TF32 on the
+    tensor cores; the weight's split goes to a scratch of twice its size.
+    Raises as :func:`tma_fwd`."""
+    return _tma_fwd(x, wt, n, h, w, ci, co, k, name, tma_fwd32)
+
+
+def _tma_fwd(x, wt, n, h, w, ci, co, k, name, counter):
     if not tma_fwd_takes(ci):
         raise ValueError(f"{name}: TMA needs the contracted channel count "
                          f"to be a multiple of 8, got {ci}")
     if x.data_ptr() % 16 or wt.data_ptr() % 16:
         raise ValueError(f"{name}: TMA needs 16-byte aligned operands")
     index = x.device.index
-    p = tma_fwd_plan(n, h, w, ci, co, k, _sms(index))
+    f32 = x.dtype == torch.float32
+    p = tma_fwd_plan(n, h, w, ci, co, k, _sms(index), 4 if f32 else 2)
     y = torch.empty((n * h * w, co), dtype=x.dtype, device=x.device)
+    plan = (n, h, w, ci, co, k, p.wb, p.hb, p.bn, int(p.resident), p.stages,
+            p.grid, torch._C._cuda_getCurrentRawStream(index))
+    lib = _fwd_lib()
     with _on_device(index):
-        err = _fwd_lib().conv_fwd_tma(
-            x.data_ptr(), wt.data_ptr(), y.data_ptr(), n, h, w, ci, co, k,
-            p.wb, p.hb, p.bn, int(p.resident), p.stages, p.grid,
-            torch._C._cuda_getCurrentRawStream(index))
+        if f32:
+            wsplit = torch.empty((2, co, k * k * ci), dtype=x.dtype,
+                                 device=x.device)
+            err = lib.conv_fwd_tma_f32(x.data_ptr(), wt.data_ptr(),
+                                       wsplit.data_ptr(), y.data_ptr(), *plan)
+        else:
+            err = lib.conv_fwd_tma(x.data_ptr(), wt.data_ptr(), y.data_ptr(),
+                                   *plan)
     raise_on(err, name)
-    tma_fwd.launches += 1
+    counter.launches += 1
     return y
 
 
@@ -501,12 +572,27 @@ def narrow_fwd(x, wt, n, h, w, ci, co, k, name="narrow_fwd"):
     return y
 
 
+def narrow_fwd32(x, wt, n, h, w, ci, co, k, name="narrow_fwd32"):
+    """conv_fwd_f32 of csrc/conv.cu: the float32 forward of any channel
+    counts, one f32 FMA chain an output element."""
+    y = torch.empty((n * h * w, co), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _lib().conv_fwd_f32(x.data_ptr(), wt.data_ptr(), y.data_ptr(),
+                                  n, h, w, ci, co, k, cuda_stream())
+    raise_on(err, name)
+    narrow_fwd32.launches += 1
+    return y
+
+
 def _dw(x, dy, n, h, w, ci, co, k, name):
     """The dW of rows of x (m, ci) and dy (m, co), contiguous -> (k*k*ci,
     co) float32, on the kernel that :func:`tma_takes` picks by shape."""
     if not _indices_fit(n * h * w, max(ci, co), k):
         raise ValueError("shape overflows the kernel's int32 indices")
-    kernel = tma_dw if tma_takes(ci, co) else narrow_dw
+    if x.dtype == torch.float32:
+        kernel = tma_dw32 if tma_takes(ci, co) else narrow_dw32
+    else:
+        kernel = tma_dw if tma_takes(ci, co) else narrow_dw
     return kernel(x, dy, n, h, w, ci, co, k, name)
 
 
@@ -514,26 +600,39 @@ def tma_dw(x, dy, n, h, w, ci, co, k, name="tma_dw"):
     """conv_dw_tma of csrc/conv_dw.cu (:func:`tma_dw_plan`'s split). Raises
     on channel counts that are not multiples of 8 and on bases that are
     not 16-byte aligned: TMA takes neither."""
+    return _tma_dw(x, dy, n, h, w, ci, co, k, name, tma_dw)
+
+
+def tma_dw32(x, dy, n, h, w, ci, co, k, name="tma_dw32"):
+    """conv_dw_tma_f32 of csrc/conv_dw.cu: the float32 dW on
+    :func:`tma_dw_plan`'s split with 4-byte elements, split TF32 by
+    mma.sync. Raises as :func:`tma_dw`."""
+    return _tma_dw(x, dy, n, h, w, ci, co, k, name, tma_dw32)
+
+
+def _tma_dw(x, dy, n, h, w, ci, co, k, name, counter):
     if not tma_takes(ci, co):
         raise ValueError(f"{name}: TMA needs Ci and Co multiples of 8, got "
                          f"{ci}, {co}")
     if x.data_ptr() % 16 or dy.data_ptr() % 16:
         raise ValueError(f"{name}: TMA needs 16-byte aligned operands")
     index = x.device.index
-    p = tma_dw_plan(n, h, w, ci, co, k, _sms(index))
+    f32 = x.dtype == torch.float32
+    p = tma_dw_plan(n, h, w, ci, co, k, _sms(index), 0, 4 if f32 else 2)
     # the table and the clusters' partial tables in one allocation: the
     # wrapper's host time is of the order of a small shape's device time
     tables = p.splits // p.cluster
     buf = torch.empty((1 + tables if tables > 1 else 1, k * k * ci, co),
                       dtype=torch.float32, device=x.device)
     dw, ws = buf[0], buf[1:] if tables > 1 else buf
+    lib = _dw_lib()
     with _on_device(index):
-        err = _dw_lib().conv_dw_tma(
+        err = (lib.conv_dw_tma_f32 if f32 else lib.conv_dw_tma)(
             x.data_ptr(), dy.data_ptr(), dw.data_ptr(), ws.data_ptr(), n, h,
             w, ci, co, k, p.wb, p.hb, p.bn, int(p.two), p.stages, p.splits,
             p.cluster, torch._C._cuda_getCurrentRawStream(index))
     raise_on(err, name)
-    tma_dw.launches += 1
+    counter.launches += 1
     return dw
 
 
@@ -551,6 +650,24 @@ def narrow_dw(x, dy, n, h, w, ci, co, k, name="narrow_dw"):
                              splits, cuda_stream())
     raise_on(err, name)
     narrow_dw.launches += 1
+    return dw
+
+
+def narrow_dw32(x, dy, n, h, w, ci, co, k, name="narrow_dw32"):
+    """conv_dw_f32 of csrc/conv.cu (:func:`narrow_dw32_plan`'s split): the
+    float32 dW of any channel counts, one f32 FMA chain a table entry and
+    chunk."""
+    m, kdim = n * h * w, k * k * ci
+    chunk, splits = narrow_dw32_plan(m, kdim, co, _sms(x.device.index or 0))
+    dw = torch.empty((kdim, co), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((splits, kdim, co), dtype=torch.float32,
+                      device=x.device) if splits > 1 else dw)
+    with torch.cuda.device(x.device):
+        err = _lib().conv_dw_f32(x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+                                 ws.data_ptr(), n, h, w, ci, co, k, chunk,
+                                 splits, cuda_stream())
+    raise_on(err, name)
+    narrow_dw32.launches += 1
     return dw
 
 
@@ -622,7 +739,7 @@ def dw3(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 
 for _fn in (matmul_rows, dw_rows, conv3, dw3, tma_fwd, narrow_fwd, tma_dw,
-            narrow_dw):
+            narrow_dw, tma_fwd32, narrow_fwd32, tma_dw32, narrow_dw32):
     _fn.launches = 0
 
 
@@ -763,7 +880,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
     """The conv of x (N, Ci, H, W) with w (Co, Ci, k, k), SAME padding,
     differentiable in both (pallas_conv.py:304-321). Raises on a conv that
     the kernels do not take (:func:`kernels_take`), and on activations off
-    the CPU that are not bfloat16 (the kernels' only type)."""
+    the CPU that are neither bfloat16 nor float32 (the kernels' types)."""
     k = w.shape[-1]
     n, ci, h, wd = x.shape
     if not kernels_take((n, h, wd, ci), tuple(w.shape[-2:]), stride,
@@ -771,10 +888,10 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"conv2d does not take x {tuple(x.shape)} "
                          f"on {x.device}, w {tuple(w.shape)}, "
                          f"stride {tuple(stride)}")
-    if x.device.type != "cpu" and x.dtype != torch.bfloat16:
-        raise TypeError(f"conv2d: the conv kernels take bfloat16, got "
-                        f"{x.dtype} on {x.device}; run the model in "
-                        "bfloat16 or turn PALLAS_CONVS off")
+    if x.device.type != "cpu" and x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"conv2d: the conv kernels take bfloat16 or "
+                        f"float32, got {x.dtype} on {x.device}; run the "
+                        "model in either or turn PALLAS_CONVS off")
     if k == 1:
         return _Conv1x1.apply(x, w, stride[0])
     return _Conv3x3.apply(x, w)

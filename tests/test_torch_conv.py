@@ -481,11 +481,12 @@ def test_supported_and_conv2d_refuse_what_the_kernels_do_not_take():
     assert not CV.supported((2 ** 16, 64, 64, 8), (3, 3), (1, 1), (1, 1), 8)
     with pytest.raises(ValueError, match="does not take"):
         CV.conv2d(torch.zeros(1, 4, 6, 6), torch.zeros(4, 4, 5, 5))
-    # the card's kernels take bfloat16: float32 off the CPU raises, where
-    # the JAX route would take it
-    with pytest.raises(TypeError, match="bfloat16"):
-        CV.conv2d(torch.zeros(1, 4, 6, 6, device="meta"),
-                  torch.zeros(4, 4, 3, 3, device="meta"))
+    # the card's kernels take bfloat16 and float32, as the JAX route does:
+    # float16 and float64 off the CPU raise
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            CV.conv2d(torch.zeros(1, 4, 6, 6, device="meta", dtype=dtype),
+                      torch.zeros(4, 4, 3, 3, device="meta", dtype=dtype))
     # a tensor that is not on the CPU launches the kernel or raises: it
     # never falls back to the plain version
     meta = torch.zeros(4, 8, device="meta", dtype=torch.bfloat16)
