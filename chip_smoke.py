@@ -22,7 +22,7 @@ Phases, in order; any failure raises and exits non-zero:
    the boxes must equal those decoded from the same logits with the
    plain connected components;
 6. time detect (p50, batch 1, 1280x768) and detect_batches (img/s,
-   batch 8) after a warm-up, each over 2 windows of at least 3 s;
+   batch 8) after a warm-up, each over 2 windows of at least 2 s;
    print each window and the median of the three;
 7. with --profile only: a torch.profiler trace of serve and of detect,
    printing wall time, device busy time, the device's idle share and
@@ -51,6 +51,11 @@ Phases, in order; any failure raises and exits non-zero:
 9b. Predictor(dtype=torch.float32) detect_batch with PALLAS_CONVS on: 57
    launches, all on the float32 kernels, the CC kernel launched, logits
    within FWD_REL_TOL of the cuDNN float32 forward's (TF32 off on both);
+9c. Predictor(dtype=torch.float32, bottleneck_impl="fused") detect_batch:
+   43 fused_conv_fwd_f32 and 13 fused_boundary_fwd_f32 launches, no
+   bfloat16 fused kernel, the CC kernel launched, logits within
+   F32_FUSED_DETECT_REL of the largest logit of the float32 "xla"
+   Predictor's on the same weights (TF32 off on both);
 10. hold each fused kernel against its plain version at every shape the
    train step gives it (the 15 1x1 and 4 3x3 convs of the fused units,
    the boundary of each block): forward y and s, backward dx, dab and
@@ -76,8 +81,23 @@ Phases, in order; any failure raises and exits non-zero:
    augmented state (phase 10b) and one batch: loss, gradient, the worst
    parameter's direction and the fused units' readings within the stated
    tolerances; one freeze_bn step;
+11b. the four fused kernels in float32 (fused_conv.cu fused_conv_fwd_f32
+   and fused_conv_bwd_f32 on conv_bwd.cuh tdx_f32 and tdw_f32,
+   fused_boundary.cu's float32 entries) at the shapes of phase 10: y, s,
+   dx, dab and dw each within F32_ERR_MULTIPLE times the plain float32
+   version's error (TF32 off) against the float64 result, the boundary's
+   out, dz and dzs within F32_BOUNDARY_ULPS of the plain version's and
+   its sums to the same rule; each launched twice and bit-equal; kernel
+   and plain ms, bound and the float32 conv-alone yardsticks;
+11c. the fused arm in float32 (model.compute_dtype "float32"): 3 steps
+   through Trainer.run, FUSED_F32_STEP_LAUNCHES a step on the float32
+   kernels (tdw_f32 and tdx_f32 43 a step each) and none on a bfloat16
+   one; eager img/s and the peak memory; one step against the float32
+   "xla" arm (cuDNN, TF32 off) from the augmented state (F32_FUSED_ARM_*
+   bounds); one float32 freeze_bn step on the float32 kernels;
 12. with --faults only: the readings of the fused arm check (phase 11:
-   dW, dX and the boundary's dz x 0.9 planted) and of the pallas-conv
+   dW, dX and the boundary's dz x 0.9 planted; and in float32, phase 11c)
+   and of the pallas-conv
    arm check (phase 13) in 3 sound runs and under planted backward
    faults, which set the ARM_* and CONV_ARM_* bounds, from the augmented
    state (phase 10b);
@@ -110,8 +130,8 @@ Phases, in order; any failure raises and exits non-zero:
    by kernel too); one step on the
    kernels against one on the plain versions from the augmented state
    (GHOST_ARM_* bounds); one freeze_bn step (no ghost kernel);
-17. multi-step = eager: for the fused, ghost, xla, xla pallas-conv and
-   float32 xla pallas-conv arms, one make_multi_train_step dispatch of 4 steps (one step
+17. multi-step = eager: for the fused, ghost, xla, xla pallas-conv,
+   float32 xla pallas-conv and float32 fused arms, one make_multi_train_step dispatch of 4 steps (one step
    captured into a CUDA graph after 2 warm-up steps, replayed 4 times)
    against 4 eager train_step calls from the same state and dataset rows
    (64 numpy scenes on the card, labels precomputed there), under
@@ -136,9 +156,9 @@ Phases, in order; any failure raises and exits non-zero:
    port checkpoint trained 50 steps (one graph dispatch) on the numpy
    scenes in place of the augmented state;
 21. train img/s for the fused, xla, freeze_bn-fused, xla pallas-conv and
-   ghost arms, each over 2 windows of at least 2 s (median and range);
+   ghost arms, each over 2 windows of at least 1 s (median and range);
 22. the same five arms through make_multi_train_step, 16 steps a
-   dispatch (the graph replayed), over 2 windows of at least 2 s; with
+   dispatch (the graph replayed), over 2 windows of at least 1 s; with
    --profile also the device idle share of one dispatch of the fused and
    ghost arms;
 23. with --profile only: a torch.profiler trace of 3 train steps of the
@@ -150,7 +170,7 @@ Phases, in order; any failure raises and exits non-zero:
 25. the slice's main path, east_resnet50 RBOX with the EAST loss on the
    fused arm at 512^2, batch 32, EAST labels made on the card: 2
    warm-up steps (every fused kernel launched), eager img/s over 3
-   windows of at least 5 s on one batch, whose loss must fall from step
+   windows of at least 3 s on one batch, whose loss must fall from step
    0's; on 64 scenes with the EAST maps precomputed, a 4-step graph
    dispatch bit-equal to eager steps (and a restore under the graph),
    graph img/s over 3 windows of 9 dispatches of 16 steps, and the
@@ -164,7 +184,7 @@ Phases, in order; any failure raises and exits non-zero:
    on 8 x 1280x768 scenes (an operating point planted if few pixels pass
    the score threshold), east_detect on the card equal to the CPU's on
    the same maps, the boxes NMS keeps equal to the CPU decode's; detect
-   p50 and serve img/s over 2 windows of 3 s, with the host NMS ms;
+   p50 and serve img/s over 2 windows of 2 s, with the host NMS ms;
 29. pixellink2s_vgg16 (OHEM, labels at stride 2): eager train img/s and
    peak memory; detect through the CC kernel, held against its plain
    version at the stride-2 maps (8, 384, 640); detect and serve timed;
@@ -304,13 +324,15 @@ FWD_REL_TOL = 1e-4
 # phases came, to keep the script within half its time limit; the EAST
 # windows, 10 s before, when the data phase came; 2 windows, 3 before,
 # since the multi-GPU phase 38 came; 3 s, 5 before, since the float32
-# route's phases came)
-WINDOW_S = 3.0
+# route's phases came; 2 s, 3 before, since the float32 fused arm's
+# phases came)
+WINDOW_S = 2.0
 WINDOWS = 2
-PIXELLINK_WINDOW_S = 3.0
+PIXELLINK_WINDOW_S = 2.0
 # the train phases: bench.py's train shape, steps of the main path, and
 # the EAST eager train img/s read over TRAIN_WINDOWS windows of at least
-# TRAIN_WINDOW_S (10 s until the data phase came); the EAST graph img/s
+# TRAIN_WINDOW_S (10 s until the data phase came, 5 s until the float32
+# fused arm's phases came); the EAST graph img/s
 # over TRAIN_WINDOWS windows of EAST_GRAPH_DISPATCHES dispatches of 16
 # steps, whose state, 16 + 3 x 9 x 16 = 448 steps from the seeded one,
 # is the EAST serving checkpoint (its step count fixed, not set by the
@@ -318,16 +340,16 @@ PIXELLINK_WINDOW_S = 3.0
 TRAIN_SIZE = 512
 TRAIN_BATCH = 32
 TRAIN_STEPS = 3
-TRAIN_WINDOW_S = 5.0
+TRAIN_WINDOW_S = 3.0
 TRAIN_WINDOWS = 3
 EAST_GRAPH_DISPATCHES = 9
 EAST_SERVE_STEPS = 448
 # the five PixelLink arms' eager and graph img/s: ARM_WINDOWS windows of
 # at least ARM_WINDOW_S (scripts/trainer_probe.py times them longer, in
 # fresh processes; 5 s until the multi-GPU phase 38 came, 3 s until the
-# float32 route's phases came)
+# float32 route's phases came, 2 s until the float32 fused arm's came)
 ARM_WINDOWS = 2
-ARM_WINDOW_S = 2.0
+ARM_WINDOW_S = 1.0
 # fused vs xla arm, one step each from one state and batch, in bf16. At
 # the seeded init (every BN scale 1) the bf16 step is chaotic: two runs
 # of the fused arm alone differ by a gradient relative error of ~1, as
@@ -1530,6 +1552,35 @@ BOUNDARY_SHAPES = ((32, 128, 128, 256), (32, 64, 64, 512),
 # fused conv launches a step: 13 fused units of 3 convs, 4 with a
 # projection shortcut
 FUSED_CONV_STEP_LAUNCHES = 43
+# boundary launches a step: one a fused unit
+FUSED_BOUNDARY_STEP_LAUNCHES = 13
+# the fused arm's float32 kernels (ops/fused.py conv_fwd32, conv_bwd32,
+# boundary_fwd32, boundary_bwd32): the same sources and sites
+FUSED_F32_KERNELS = {f"{name}_f32": (f"{attr}32", src, sites)
+                     for name, (attr, src, sites) in FUSED_KERNELS.items()}
+# a float32 train step's launches of each
+FUSED_F32_STEP_LAUNCHES = {
+    "fused_conv_fwd_f32": FUSED_CONV_STEP_LAUNCHES,
+    "fused_conv_bwd_f32": FUSED_CONV_STEP_LAUNCHES,
+    "fused_boundary_fwd_f32": FUSED_BOUNDARY_STEP_LAUNCHES,
+    "fused_boundary_bwd_f32": FUSED_BOUNDARY_STEP_LAUNCHES}
+# the float32 boundary's elementwise outputs (out, dz, dzs) against the
+# plain version's: the same operations in the same order, so within this
+# many float32 ulps
+F32_BOUNDARY_ULPS = 2
+# the fused arm in float32 against the "xla" arm in float32 (cuDNN, TF32
+# off), one step each from the augmented state: fused_readings' five
+# readings, bounds between the sound runs' largest and the planted
+# backward faults' smallest (--faults, scripts/fused_f32_probe.py
+# --faults; PERF.md, Findings)
+F32_FUSED_ARM_LOSS_REL = 1e-5
+F32_FUSED_ARM_GRAD_REL = 2.5e-3
+F32_FUSED_ARM_COS_MIN = 0.999
+F32_FUSED_ARM_UNIT_REL = 1e-2
+F32_FUSED_ARM_UNIT_SCALE = 5e-3
+# float32 fused detect against the float32 "xla" Predictor's logits,
+# relative to the largest (TF32 off on both)
+F32_FUSED_DETECT_REL = 1e-5
 
 
 def fused_shape_counts():
@@ -1812,6 +1863,246 @@ def phase_fused_kernels(device, reports):
           "(library_ms stays null: no one call computes the whole function)")
 
 
+def f32_rule(name, got, want, exact):
+    """The float32 rule: ``got``'s largest error against the float64
+    ``exact`` at most F32_ERR_MULTIPLE times the plain float32 version's
+    (``want``). Returns (error, its ratio to the plain version's)."""
+    import torch
+
+    f64 = torch.float64
+    err = float((got.to(f64) - exact).abs().max())
+    perr = float((want.to(f64) - exact).abs().max())
+    check(err <= F32_ERR_MULTIPLE * perr, f"{name}: error {err:.3e} against "
+          f"float64 beyond {F32_ERR_MULTIPLE:g} x the plain float32 "
+          f"version's {perr:.3e}")
+    return err, err / max(perr, 1e-300)
+
+
+def ulps_close(name, got, want, ulps):
+    """float32 ``got`` within ``ulps`` ulps of ``want``, elementwise;
+    returns the largest absolute difference."""
+    import torch
+
+    err = (got - want).abs()
+    tol = ulps * torch.finfo(torch.float32).eps * torch.maximum(
+        got.abs(), want.abs())
+    check(bool((err <= tol).all()), f"{name}: beyond {ulps} float32 ulps of "
+          f"the plain version (max err {float(err.max()):.3e})")
+    return float(err.max())
+
+
+def bwd_alone_ms(xn, w, dye, iters):
+    """The ms of the library's two products of a conv backward alone, on
+    the pre-activated xn and dy_eff: torch.matmul over the pixel rows for a
+    1x1 (Xᵀ·dY and dY·W), conv2d_weight and conv2d_input for a 3x3. A
+    yardstick for the staged backward's products, not the same function
+    (no staging transform, no mask, no sums)."""
+    import torch
+
+    k = w.shape[-1]
+    if k == 1:
+        x2 = xn.permute(0, 2, 3, 1).reshape(-1, xn.shape[1])
+        d2 = dye.permute(0, 2, 3, 1).reshape(-1, dye.shape[1])
+        w2 = w[:, :, 0, 0]
+
+        def fn():
+            torch.matmul(x2.t(), d2)
+            torch.matmul(d2, w2)
+    else:
+        def fn():
+            torch.nn.grad.conv2d_weight(xn, w.shape, dye, padding=1)
+            torch.nn.grad.conv2d_input(xn.shape, w, dye, padding=1)
+    fn()
+    return cuda_ms(fn, iters)
+
+
+def phase_fused_kernels_f32(device, reports):
+    """Each fused kernel in float32 against its plain float32 version at
+    the shapes of phase 10 (CONV_SHAPES, BOUNDARY_SHAPES): forward y and
+    s, backward dx, dab and dw, each within F32_ERR_MULTIPLE times the
+    plain version's error (TF32 off) against the float64 result of the
+    plain versions; the boundary's out, dz and dzs within
+    F32_BOUNDARY_ULPS of the plain version's and its dab, dabs to the same
+    rule; every call launched twice and bit-equal. Prints kernel and plain
+    ms (CUDA events), the bound (split TF32 at PEAK_F32_SPLIT for the
+    convs, PEAK_F32 for the boundary, bytes at the HBM rate) and the
+    conv-alone yardsticks in float32 (TF32 off: torch.matmul / F.conv2d of
+    the forward's product, and the backward's two products), and each
+    kernel's ms a train step. max_abs_err: the convs' against float64,
+    the boundary's elementwise outputs' against the plain version."""
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import fused as FU
+    from tensorflow_ocr_tpu_torch.ops.fused import full_f32
+
+    gen = torch.Generator().manual_seed(18)
+    f32, f64, cl = torch.float32, torch.float64, torch.channels_last
+
+    def act(n, c, h, w, scale=1.0):
+        return (torch.randn(n, c, h, w, generator=gen) * scale).to(
+            device=device, dtype=f32).contiguous(memory_format=cl)
+
+    def table(c, lo, hi, shift):
+        a = torch.empty(c).uniform_(lo, hi, generator=gen)
+        b = torch.randn(c, generator=gen) * shift
+        return torch.stack([a, b]).to(device)
+
+    def up(*ts):
+        return [t.to(f64) for t in ts]
+
+    # library_ms stays null, as for the bf16 rows: no one call computes
+    # the whole function; the conv-alone yardsticks are printed
+    for r in reports.values():
+        r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None)
+    ratio = dict.fromkeys(reports, 0.0)
+    counts = fused_shape_counts()
+    step = dict(fwd=0.0, bwd=0.0, falone=0.0, balone=0.0, fbound=0.0,
+                bbound=0.0)
+    for n, h, w, ci, co, k in CONV_SHAPES:
+        m, kk = n * h * w, k * k * ci * co
+        launches = counts[(n, h, w, ci, co, k)]
+        tag = f"{k}x{k} {ci}->{co} at {n}x{h}x{w}"
+        fbound = add_bound(reports["fused_conv_fwd_f32"], 2 * m * kk,
+                           4 * m * (ci + co) + 4 * kk + 8 * (ci + co),
+                           PEAK_F32_SPLIT)
+        bbound = add_bound(reports["fused_conv_bwd_f32"], 4 * m * kk,
+                           4 * m * (2 * ci + 2 * co) + 8 * kk
+                           + 16 * (ci + co), PEAK_F32_SPLIT)
+        x = act(n, ci, h, w)
+        ab = table(ci, 0.5, 1.5, 0.5)
+        wt = (torch.randn(co, ci, k, k, generator=gen)
+              / (k * k * ci) ** 0.5).to(device=device, dtype=f32)
+        y, s = FU.conv_fwd(x, ab, wt)
+        again = FU.conv_fwd(x, ab, wt)
+        torch.cuda.synchronize()
+        check(torch.equal(y, again[0]) and torch.equal(s, again[1]),
+              f"fused conv_fwd f32 {tag}: two launches differ")
+        del again
+        py, ps = FU.conv_fwd_reference(x, ab, wt)
+        ey, es = FU.conv_fwd_reference(*up(x, ab, wt))
+        e, r = f32_rule(f"fused fwd f32 y {tag}", y, py, ey)
+        rs = max(f32_rule(f"fused fwd f32 s{i} {tag}", s[i], ps[i], es[i])[1]
+                 for i in range(2))
+        bwd = {}
+        del py, ey
+        dy = act(n, co, h, w, 1e-2)
+        ds = torch.stack([torch.randn(co, generator=gen) * 1e-3,
+                          torch.randn(co, generator=gen) * 1e-4]).to(device)
+        got = FU.conv_bwd(x, ab, wt, y, dy, ds)
+        again = FU.conv_bwd(x, ab, wt, y, dy, ds)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"fused conv_bwd f32 {tag}: two launches differ")
+        del again
+        plain = FU.conv_bwd_reference(x, ab, wt, y, dy, ds)
+        exact = FU.conv_bwd_reference(*up(x, ab, wt, y, dy, ds))
+        for name, g, p_, x_ in (("dx", got[0], plain[0], exact[0]),
+                                ("dab0", got[1][0], plain[1][0], exact[1][0]),
+                                ("dab1", got[1][1], plain[1][1], exact[1][1]),
+                                ("dw", got[2], plain[2], exact[2])):
+            bwd[name] = f32_rule(f"fused bwd f32 {name} {tag}", g, p_, x_)
+        eb = max(v[0] for v in bwd.values())
+        rb = max(v[1] for v in bwd.values())
+        del plain, exact
+        for key, err, rr in (("fused_conv_fwd_f32", e, max(r, rs)),
+                             ("fused_conv_bwd_f32", eb, rb)):
+            reports[key]["max_abs_err"] = max(reports[key]["max_abs_err"],
+                                              err)
+            ratio[key] = max(ratio[key], rr)
+        fms = cuda_ms(lambda: FU.conv_fwd(x, ab, wt), 5)
+        fpms = cuda_ms(lambda: FU.conv_fwd_reference(x, ab, wt), 2)
+        bms = cuda_ms(lambda: FU.conv_bwd(x, ab, wt, y, dy, ds), 5)
+        bpms = cuda_ms(lambda: FU.conv_bwd_reference(x, ab, wt, y, dy, ds),
+                       2)
+        xn, dye = FU._prologue(x, ab), FU._dy_eff(dy, y, ds)
+        with full_f32():
+            falone = conv_alone_ms(xn, wt, 5)
+            balone = bwd_alone_ms(xn, wt, dye, 5)
+        del xn, dye
+        for key, ms, pms in (("fused_conv_fwd_f32", fms, fpms),
+                             ("fused_conv_bwd_f32", bms, bpms)):
+            reports[key]["ms"] += ms
+            reports[key]["plain_ms"] += pms
+        for key, v in (("fwd", fms), ("bwd", bms), ("falone", falone),
+                       ("balone", balone), ("fbound", fbound),
+                       ("bbound", bbound)):
+            step[key] += launches * v
+        print(f"fused conv f32 {tag} ({launches} a step): fwd {fms:.4f} ms "
+              f"(plain {fpms:.4f}; bound {fbound:.4f}; conv alone "
+              f"{falone:.4f}), bwd {bms:.4f} ms (plain {bpms:.4f}; bound "
+              f"{bbound:.4f}; conv alone {balone:.4f}); max abs err against "
+              f"float64 y {e:.3e} (x{r:.2f} the plain's, s x{rs:.2f}), "
+              f"dx/dab/dw {eb:.3e} (" + ", ".join(
+                  f"{k_} x{v[1]:.2f}" for k_, v in bwd.items())
+              + "); fwd and bwd bit-equal twice")
+        del x, y, s, dy, got
+
+    for n, h, w, c in BOUNDARY_SHAPES:
+        mc = n * h * w * c  # ~5 float32 operations an element forward, ~10
+        add_bound(reports["fused_boundary_fwd_f32"], 5 * mc, 12 * mc + 16 * c,
+                  PEAK_F32)
+        add_bound(reports["fused_boundary_bwd_f32"], 10 * mc,
+                  20 * mc + 32 * c, PEAK_F32)
+        tag = f"C={c} at {n}x{h}x{w}"
+        z, zs = act(n, c, h, w), act(n, c, h, w)
+        ab, abs_ = table(c, 0.5, 1.5, 0.5), table(c, 0.5, 1.5, 0.5)
+        g = act(n, c, h, w, 1e-2)
+        out = FU.boundary_fwd(z, ab, zs, abs_)
+        check(torch.equal(out, FU.boundary_fwd(z, ab, zs, abs_)),
+              f"fused boundary_fwd f32 {tag}: two launches differ")
+        e = ulps_close(f"boundary f32 out {tag}", out,
+                       FU.boundary_fwd_reference(z, ab, zs, abs_),
+                       F32_BOUNDARY_ULPS)
+        got = FU.boundary_bwd(g, z, ab, zs, abs_)
+        again = FU.boundary_bwd(g, z, ab, zs, abs_)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"fused boundary_bwd f32 {tag}: two launches differ (dz, dab, "
+              "dzs, dabs)")
+        del again
+        want = FU.boundary_bwd_reference(g, z, ab, zs, abs_)
+        exact = FU.boundary_bwd_reference(*up(g, z, ab, zs, abs_))
+        eb = max(ulps_close(f"boundary f32 dz {tag}", got[0], want[0],
+                            F32_BOUNDARY_ULPS),
+                 ulps_close(f"boundary f32 dzs {tag}", got[2], want[2],
+                            F32_BOUNDARY_ULPS))
+        rs = max(f32_rule(f"boundary f32 {name}{j} {tag}", got[i][j],
+                          want[i][j], exact[i][j])[1]
+                 for name, i in (("dab", 1), ("dabs", 3)) for j in range(2))
+        del want, exact
+        for key, err in (("fused_boundary_fwd_f32", e),
+                         ("fused_boundary_bwd_f32", eb)):
+            reports[key]["max_abs_err"] = max(reports[key]["max_abs_err"],
+                                              err)
+        ratio["fused_boundary_bwd_f32"] = max(
+            ratio["fused_boundary_bwd_f32"], rs)
+        fms = cuda_ms(lambda: FU.boundary_fwd(z, ab, zs, abs_), 5)
+        fpms = cuda_ms(lambda: FU.boundary_fwd_reference(z, ab, zs, abs_), 2)
+        bms = cuda_ms(lambda: FU.boundary_bwd(g, z, ab, zs, abs_), 5)
+        bpms = cuda_ms(lambda: FU.boundary_bwd_reference(g, z, ab, zs, abs_),
+                       2)
+        for key, ms, pms in (("fused_boundary_fwd_f32", fms, fpms),
+                             ("fused_boundary_bwd_f32", bms, bpms)):
+            reports[key]["ms"] += ms
+            reports[key]["plain_ms"] += pms
+        print(f"fused boundary f32 {tag}: fwd {fms:.4f} ms (plain "
+              f"{fpms:.4f}), bwd {bms:.4f} ms (plain {bpms:.4f}); max abs "
+              f"err out {e:.3e}, dz/dzs {eb:.3e} (within "
+              f"{F32_BOUNDARY_ULPS} ulps), dab/dabs x{rs:.2f} the plain's "
+              f"error; bit-equal twice")
+        del z, zs, g, out, got
+    print(f"fused float32 kernels a train step (each shape's ms times its "
+          f"launches, {FUSED_CONV_STEP_LAUNCHES} each): fwd "
+          f"{step['fwd']:.4f} ms (bound {step['fbound']:.4f}, conv alone "
+          f"{step['falone']:.4f}), bwd {step['bwd']:.4f} ms (bound "
+          f"{step['bbound']:.4f}, conv alone {step['balone']:.4f}); over the "
+          f"{len(CONV_SHAPES)} shapes: fwd "
+          f"{reports['fused_conv_fwd_f32']['ms']:.4f}, bound "
+          f"{reports['fused_conv_fwd_f32']['bound_ms']:.4f}; bwd "
+          f"{reports['fused_conv_bwd_f32']['ms']:.4f}, bound "
+          f"{reports['fused_conv_bwd_f32']['bound_ms']:.4f}; the largest "
+          f"error ratio to the plain version's by kernel "
+          f"{ {k: round(v, 3) for k, v in ratio.items()} }")
+
+
 def train_config(impl: str, freeze_bn: bool = False, model=None,
                  loss=None, geometry: str = "RBOX", dtype="bfloat16"):
     """bench.py's train configuration: ``model`` (MODEL by default), its
@@ -1878,16 +2169,24 @@ def train_batch(rng, device, n, size, max_polys=16, hw=None):
 def reset_fused_counts():
     from tensorflow_ocr_tpu_torch.ops import fused as FU
 
-    for attr, _, _ in FUSED_KERNELS.values():
+    for attr, _, _ in (*FUSED_KERNELS.values(), *FUSED_F32_KERNELS.values()):
         getattr(FU, attr).launches = 0
     FU.conv_bwd.by_kernel = dict.fromkeys(FU.conv_bwd.by_kernel, 0)
 
 
-def fused_counts():
+def fused_counts(kernels=None):
+    """{name: launches} of the fused kernels (FUSED_KERNELS, the bfloat16
+    ones, by default; FUSED_F32_KERNELS for the float32 ones)."""
     from tensorflow_ocr_tpu_torch.ops import fused as FU
 
     return {name: getattr(FU, attr).launches
-            for name, (attr, _, _) in FUSED_KERNELS.items()}
+            for name, (attr, _, _) in (kernels or FUSED_KERNELS).items()}
+
+
+def bf16_by_kernel(n):
+    """conv_bwd.by_kernel after n bfloat16 fused backwards and no float32
+    one."""
+    return {"tdw": n, "tdx": n, "tdw_f32": 0, "tdx_f32": 0}
 
 
 def grads_of(model, batch, cfg):
@@ -2024,8 +2323,7 @@ def phase_train(device, reports, arm_start):
           f"kernel launches {counts}; fused_conv_bwd by kernel {by_kernel} "
           f"(conv_bwd.cuh tdw, tdx; expected "
           f"{FUSED_CONV_STEP_LAUNCHES} a step each)")
-    check(by_kernel == dict.fromkeys(
-        by_kernel, TRAIN_STEPS * FUSED_CONV_STEP_LAUNCHES)
+    check(by_kernel == bf16_by_kernel(TRAIN_STEPS * FUSED_CONV_STEP_LAUNCHES)
           and counts["fused_conv_bwd"] == TRAIN_STEPS
           * FUSED_CONV_STEP_LAUNCHES, "fused train: backward launches by "
           "kernel")
@@ -2060,6 +2358,174 @@ def phase_train(device, reports, arm_start):
     check(np.isfinite(loss), "freeze_bn step: non-finite loss")
     check(all(counts.values()), "freeze_bn step skipped a fused kernel")
     return trainer, batch, snap
+
+
+def fused_f32_readings(device, start, batch):
+    """fused_readings of one float32 fused-arm step against one float32
+    "xla"-arm step (cuDNN), both with TF32 off, from the state ``start``
+    and one batch."""
+    from tensorflow_ocr_tpu_torch.ops.fused import full_f32
+
+    with full_f32():
+        return fused_readings(
+            arm_grads(device, start, batch, "fused", "float32"),
+            arm_grads(device, start, batch, "xla", "float32"))
+
+
+def check_f32_fused_arm(r) -> None:
+    check(r["rel_loss"] <= F32_FUSED_ARM_LOSS_REL, "float32 fused and xla "
+          "losses disagree")
+    check(r["grad_rel"] <= F32_FUSED_ARM_GRAD_REL, "float32 fused and xla "
+          "gradients disagree")
+    check(r["worst"][1] >= F32_FUSED_ARM_COS_MIN, f"the float32 fused "
+          f"gradient of {r['worst'][0]} points elsewhere than the xla one")
+    check(r["unit"][1] <= F32_FUSED_ARM_UNIT_REL, f"the float32 fused "
+          f"gradient of {r['unit'][0]} differs from the xla one")
+    check(r["scale"][1] <= F32_FUSED_ARM_UNIT_SCALE, f"the float32 fused "
+          f"gradient of {r['scale'][0]} is scaled against the xla one")
+
+
+def f32_fused_text(r) -> str:
+    return (f"loss {r['loss'][0]:.6f} / {r['loss'][1]:.6f} (rel "
+            f"{r['rel_loss']:.3e}, tol {F32_FUSED_ARM_LOSS_REL:g}); gradient "
+            f"norm {r['norm'][0]:.6f} / {r['norm'][1]:.6f}, rel err "
+            f"{r['grad_rel']:.4e} (tol {F32_FUSED_ARM_GRAD_REL:g}); worst "
+            f"parameter cosine {r['worst'][1]:.6f} at {r['worst'][0]} (min "
+            f"{F32_FUSED_ARM_COS_MIN:g}); worst fused-unit parameter rel err "
+            f"{r['unit'][1]:.4e} at {r['unit'][0]} (tol "
+            f"{F32_FUSED_ARM_UNIT_REL:g}), norm ratio off 1 by "
+            f"{r['scale'][1]:.4e} at {r['scale'][0]} (tol "
+            f"{F32_FUSED_ARM_UNIT_SCALE:g})")
+
+
+def fused_f32_launches(label, want, counts, by_kernel, bf):
+    """Check a float32 fused run's launches: ``counts`` of the float32
+    kernels equal to ``want``, conv_bwd.by_kernel's float32 keys at the
+    backward's count and no bfloat16 fused kernel launched."""
+    n = want["fused_conv_bwd_f32"]
+    check(counts == want, f"{label}: float32 fused launches {counts}, "
+          f"expected {want}")
+    check(by_kernel == {"tdw": 0, "tdx": 0, "tdw_f32": n, "tdx_f32": n},
+          f"{label}: backward launches by kernel {by_kernel}")
+    check(not any(bf.values()), f"{label}: a bfloat16 fused kernel "
+          f"launched {bf}")
+
+
+def phase_fused_train_f32(device, reports, snap, batch, arm_start):
+    """The fused arm in float32 (model.compute_dtype "float32",
+    bottleneck_impl "fused"): 3 steps through Trainer.run, every fused
+    product on a float32 kernel (FUSED_F32_STEP_LAUNCHES a step; the
+    backward's tdw_f32 and tdx_f32 43 a step each) and none on a bfloat16
+    one; eager img/s over ARM_WINDOWS windows of ARM_WINDOW_S and the peak
+    memory; one step against the float32 "xla" arm (cuDNN, TF32 off) from
+    the state ``arm_start`` (F32_FUSED_ARM_* bounds), after one float32
+    freeze_bn step on the float32 kernels."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import fused as FU
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    cfg = train_config("fused", dtype="float32")
+    want = {k: TRAIN_STEPS * v for k, v in FUSED_F32_STEP_LAUNCHES.items()}
+    base = arm_memory_start()
+    trainer = T.Trainer(cfg, device)
+    trainer.setup(weights=snap)
+    reset_fused_counts()
+    t0 = time.perf_counter()
+    last = trainer.run([batch] * TRAIN_STEPS, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts, bf = fused_counts(FUSED_F32_KERNELS), fused_counts()
+    by_kernel = dict(FU.conv_bwd.by_kernel)
+    print(f"train {TRAIN_STEPS} steps fused float32 ({run_s:.2f} s, first "
+          f"steps included): last metrics "
+          f"{json.dumps({k: round(v, 6) for k, v in last.items()})}; "
+          f"launches {counts} (expected {want}); backward by kernel "
+          f"{by_kernel}; the bfloat16 kernels' {bf}; {arm_memory(base)}")
+    check(trainer.state.step == TRAIN_STEPS and last and all(
+        np.isfinite(v) for v in last.values()), "float32 fused train: "
+          "non-finite or missing metrics")
+    fused_f32_launches("float32 fused train", want, counts, by_kernel, bf)
+    for name, n in counts.items():
+        reports[name]["launches"] = n
+    eager_rate(trainer.state, batch, cfg, "fused float32", ARM_WINDOWS,
+               ARM_WINDOW_S, base)
+    del trainer
+    torch.cuda.empty_cache()
+
+    fcfg = train_config("fused", freeze_bn=True, dtype="float32")
+    state = T.create_train_state(fcfg, device, weights=snap)
+    reset_fused_counts()
+    loss = float(T.train_step(state, batch, fcfg,
+                              T.make_loss_fn(fcfg))["total_loss"])
+    counts, bf = fused_counts(FUSED_F32_KERNELS), fused_counts()
+    by_kernel = dict(FU.conv_bwd.by_kernel)
+    print(f"freeze_bn step fused float32: total loss {loss:.6f}, launches "
+          f"{counts}, backward by kernel {by_kernel}")
+    check(np.isfinite(loss), "float32 fused freeze_bn step: non-finite loss")
+    fused_f32_launches("float32 fused freeze_bn step",
+                       FUSED_F32_STEP_LAUNCHES, counts, by_kernel, bf)
+    del state
+    torch.cuda.empty_cache()
+
+    r = fused_f32_readings(device, arm_start, batch)
+    print(f"fused float32 vs xla float32 (TF32 off), one step from the "
+          f"augmented state: {f32_fused_text(r)}")
+    check_f32_fused_arm(r)
+
+
+def phase_fused_detect_f32(pred, images):
+    """Predictor(dtype=torch.float32, bottleneck_impl="fused") on the
+    weights of ``pred``: detect_batch launches fused_conv_fwd_f32 (43) and
+    fused_boundary_fwd_f32 (13) a forward and no bfloat16 fused kernel,
+    the CC kernel, and finds the boxes; the logits within
+    F32_FUSED_DETECT_REL of the largest logit of the float32 "xla"
+    Predictor's on the same state_dict (TF32 off on both)."""
+    import torch
+    from tensorflow_ocr_tpu_torch.infer import Predictor
+    from tensorflow_ocr_tpu_torch.ops import kernels as K
+    from tensorflow_ocr_tpu_torch.ops.fused import full_f32
+
+    weights = pred.model.state_dict()
+    xla = Predictor(MODEL, weights=weights, device=pred.device,
+                    dtype=torch.float32)
+    p32 = Predictor(MODEL, weights=weights, device=pred.device,
+                    dtype=torch.float32, bottleneck_impl="fused")
+    p32.pixel_thresh, p32.link_thresh = pred.pixel_thresh, pred.link_thresh
+    x = torch.from_numpy(images).to(pred.device)
+    with full_f32(), torch.inference_mode():
+        want = xla.model(x)
+    del xla
+    reset_fused_counts()
+    K.connected_components.launches = 0
+    boxes = p32.detect_batch(images)
+    torch.cuda.synchronize()
+    counts, bf = fused_counts(FUSED_F32_KERNELS), fused_counts()
+    cc = K.connected_components.launches
+    with full_f32(), torch.inference_mode():
+        got = p32.model(x)
+    expect = {"fused_conv_fwd_f32": FUSED_CONV_STEP_LAUNCHES,
+              "fused_conv_bwd_f32": 0,
+              "fused_boundary_fwd_f32": FUSED_BOUNDARY_STEP_LAUNCHES,
+              "fused_boundary_bwd_f32": 0}
+    print(f"detect_batch 8x1280x768 float32 fused: launches {counts} "
+          f"(expected {expect}), bfloat16 fused kernels {bf}, cc launches "
+          f"{cc}, boxes per image {[len(b) for b in boxes]}")
+    check(counts == expect and not any(bf.values()), "float32 fused "
+          "detect: launches")
+    check(cc > 0 and len(boxes) == len(images) and sum(map(len, boxes)) > 0,
+          "float32 fused detect: the CC kernel or the boxes")
+    for key in ("pixel_logits", "link_logits"):
+        g, w = got[key], want[key]
+        check(g.dtype == torch.float32 and g.shape == w.shape
+              and bool(torch.isfinite(g).all()),
+              f"float32 fused {key}: dtype, shape or non-finite")
+        rel = float((g - w).abs().max() / w.abs().max())
+        print(f"float32 fused detect {key}: max|fused-xla|/max|xla| = "
+              f"{rel:.3e} (tol {F32_FUSED_DETECT_REL:g})")
+        check(rel <= F32_FUSED_DETECT_REL, f"float32 fused {key}: fused and "
+              "xla logits disagree")
+    del p32
 
 
 def conv_arm_readings(device, start, batch, dtype="bfloat16"):
@@ -2961,10 +3427,13 @@ def deterministic(warn_only=False):
         torch.backends.cudnn.benchmark = bench
 
 
-def arm_counts(impl, route):
-    """{kernel: launches} of the hand-written kernels of an arm."""
+def arm_counts(impl, route, f32=False):
+    """{kernel: launches} of the hand-written kernels of an arm (the fused
+    arm's float32 kernels with ``f32``)."""
     if route:
         return conv_counts()
+    if impl == "fused" and f32:
+        return fused_counts(FUSED_F32_KERNELS)
     return {"fused": fused_counts, "ghost": ghost_counts}.get(
         impl, dict)()
 
@@ -3043,6 +3512,8 @@ def phase_graph_step(device, snap, ds):
                     restore=impl == "fused")
     graph_equal(device, snap, ds, rng, "xla pallas-conv float32",
                 train_config("xla", dtype="float32"), True)
+    graph_equal(device, snap, ds, rng, "fused float32",
+                train_config("fused", dtype="float32"))
 
 
 def graph_equal(device, snap, ds, rng, label, cfg, route=False,
@@ -3065,6 +3536,7 @@ def graph_equal(device, snap, ds, rng, label, cfg, route=False,
 
     cuda = device.type == "cuda"
     impl = cfg.model.bottleneck_impl
+    f32 = cfg.model.compute_dtype == "float32"
     with pallas_convs(route), deterministic():
         a = T.create_train_state(cfg, device, weights=snap)
         b = T.create_train_state(cfg, device, weights=snap)
@@ -3075,7 +3547,7 @@ def graph_equal(device, snap, ds, rng, label, cfg, route=False,
         got = multi(a, ds, idx)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        captured = arm_counts(impl, route)
+        captured = arm_counts(impl, route, f32)
         want = eager_dispatch(b, ds, idx, cfg)
         diff = unequal(leaves(a), leaves(b)) + unequal(got, want)
         print(f"graph step {label}: one dispatch of {MULTI_STEPS} steps "
@@ -3098,7 +3570,7 @@ def graph_equal(device, snap, ds, rng, label, cfg, route=False,
                 v == per_step[k] * n for k, v in captured.items()),
                   f"graph step {label}: kernels at the capture")
             if impl == "fused":
-                check(per_step["fused_conv_bwd"]
+                check(per_step["fused_conv_bwd" + "_f32" * f32]
                       == FUSED_CONV_STEP_LAUNCHES,
                       f"graph step {label}: fused launches a step")
             if route:
@@ -3114,7 +3586,7 @@ def graph_equal(device, snap, ds, rng, label, cfg, route=False,
         idx2 = dispatch_rows(rng, MULTI_STEPS, device)
         reset_arm_counts()
         got = multi(a, ds, idx2)
-        replayed = arm_counts(impl, route)
+        replayed = arm_counts(impl, route, f32)
         want = eager_dispatch(b, ds, idx2, cfg)
         diff = unequal(leaves(a), leaves(b)) + unequal(got, want)
         print(f"graph step {label}: a second dispatch (replays only): "
@@ -3396,25 +3868,31 @@ def trained_start(device, snap, ds):
     return start
 
 
-def phase_fused_faults(device, start, batch, label):
+def phase_fused_faults(device, start, batch, label, dtype="bfloat16"):
     """The fused arm against the xla arm from ``start``: 3 sound runs, then
     one run under each fault planted in the fused backward: dW x 0.9, dX
-    x 0.9, the boundary's dz x 0.9."""
+    x 0.9, the boundary's dz x 0.9. In float32 both arms in float32 (TF32
+    off), read against the F32_FUSED_ARM_* bounds."""
     from tensorflow_ocr_tpu_torch.ops import fused as FU
 
-    def xla():
-        return arm_grads(device, start, batch, "xla")
+    f32 = dtype == "float32"
 
     def readings():
+        if f32:
+            return fused_f32_readings(device, start, batch)
         return fused_readings(arm_grads(device, start, batch, "fused"),
-                              xla())
+                              arm_grads(device, start, batch, "xla"))
 
     def show(name, r):
         try:
-            check_arms(r)
+            (check_f32_fused_arm if f32 else check_arms)(r)
             verdict = "passes the arm check"
         except RuntimeError as e:
             verdict = f"fails the arm check ({e})"
+        if f32:
+            print(f"fused faults {label} float32: {name}: "
+                  f"{f32_fused_text(r)}: {verdict}")
+            return
         print(f"fused faults {label}: {name}: loss rel {r['rel_loss']:.3e} "
               f"(tol {ARM_LOSS_REL:g}); grad rel err {r['grad_rel']:.4e} "
               f"(tol {ARM_GRAD_REL:g}); worst cosine {r['worst'][1]:.6f} at "
@@ -3614,7 +4092,7 @@ def phase_east_train(device):
           f"kernel launches {counts}; fused_conv_bwd by kernel {by_kernel}")
     check(all(counts.values()), "east train: a fused kernel was not "
           "launched")
-    check(by_kernel == dict.fromkeys(by_kernel, 2 * FUSED_CONV_STEP_LAUNCHES),
+    check(by_kernel == bf16_by_kernel(2 * FUSED_CONV_STEP_LAUNCHES),
           "east train: backward launches by kernel")
     last = eager_rate(state, batch, cfg, "east fused", TRAIN_WINDOWS,
                       TRAIN_WINDOW_S, base)
@@ -5654,6 +6132,9 @@ def main() -> int:
     conv32 = {name: {"name": name, "route": "cuda", "source": src,
                      "replaces": site}
               for name, (src, site) in CONV_F32_KERNELS.items()}
+    fused32 = {name: {"name": name, "route": "cuda", "source": src,
+                      "replaces": sites}
+               for name, (_, src, sites) in FUSED_F32_KERNELS.items()}
     ghost = {name: {"name": name, "route": "cuda", "source": GHOST_SRC,
                     "replaces": sites}
              for name, (_, sites) in GHOST_KERNELS.items()}
@@ -5669,6 +6150,7 @@ def main() -> int:
     phase_conv_detect(pred, images)
     phase_conv_kernels_f32(device, conv32)
     phase_conv_detect_f32(pred, images)
+    phase_fused_detect_f32(pred, images)
     del pred
     torch.cuda.empty_cache()
 
@@ -5680,8 +6162,11 @@ def main() -> int:
 
     phase_fused_kernels(device, fused)
     trainer, batch, snap = phase_train(device, fused, arm_start)
+    phase_fused_kernels_f32(device, fused32)
+    phase_fused_train_f32(device, fused32, snap, batch, arm_start)
     if args.faults:
         phase_fused_faults(device, arm_start, batch, "augmented")
+        phase_fused_faults(device, arm_start, batch, "augmented", "float32")
         phase_conv_faults(device, arm_start, batch, "augmented")
         phase_conv_faults(device, arm_start, batch, "augmented", "float32")
     phase_conv_train(device, conv, snap, batch, arm_start)
@@ -5730,7 +6215,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: r[k] for k in keys}
                for r in [report, *fused.values(), *conv.values(),
-                         *conv32.values(), *ghost.values()]]
+                         *conv32.values(), *fused32.values(),
+                         *ghost.values()]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, builds "
           f"included")
     print(card)

@@ -77,6 +77,13 @@
 // over the run, zero entries at its other tiles) or a CTA (fused: kept in
 // registers over its tiles), and reduce_parts adds the entries in order.
 // No atomics: bit-equal twice.
+//
+// Float32 (the fused transforms so far): tdx_f32 (the forward and dX,
+// each A value put through the transform in registers and split into TF32
+// hi and lo there, wgmma.cuh WgmmaTf32R) and tdw_f32 (its f32 boxes
+// rewritten in place by a staging transform, mma.sync on hand-read
+// fragments); the operands f32, the products float32 by split TF32, the
+// tables and sums added in double (sum_tables_wide, reduce_parts_wide).
 
 #pragma once
 
@@ -420,6 +427,20 @@ __global__ void sum_tables(const float* __restrict__ part,
   }
 }
 
+// sum_tables for the float32 kernels: the same order, added in double and
+// rounded once, so that the float32 product keeps its accuracy over up to
+// 2 x 132 / 2 clusters' tables.
+__global__ void sum_tables_wide(const float* __restrict__ part,
+                                float* __restrict__ dw, size_t size,
+                                int tables) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < size;
+       i += (size_t)gridDim.x * blockDim.x) {
+    double s = 0.0;
+    for (int k = 0; k < tables; ++k) s += part[(size_t)k * size + i];
+    dw[i] = (float)s;
+  }
+}
+
 // ------------------------------------------------------------ dW, f32
 //
 // tdw_f32: tdw's dW in float32 (x, dy f32; the table f32): the same
@@ -437,28 +458,39 @@ __global__ void sum_tables(const float* __restrict__ part,
 // accumulator that is then added to the f32 sum: with a whole 64-pixel
 // tile's 24 products in one accumulator, the tensor cores' truncation
 // took a 91-pixel 3x3 dW to 3.99x the plain float32 version's error
-// (H100, scripts/conv_f32_probe.py). Only the identity transform so far
-// (kAux = 0): the staging rewrites of the fused and ghost backwards are
-// not written for f32 tiles.
+// (H100, scripts/conv_f32_probe.py). The identity transform (kAux = 0,
+// conv_dw.cu) reads the boxes as they come; a staging transform with an
+// f32 aux box (kAux = 4: the fused backward, fused_conv.cu FusedTr32)
+// rewrites each stage in place first, as tdw does: X through T_x and dY
+// with its y box (BN / 32 boxes of 32 f32 channels, swizzled as dY) to
+// dy_eff, zero where the pixel read lies outside the image; consumer
+// thread ct takes the 16-byte chunk (4 channels) ct % 8 of rows ct / 8
+// and ct / 8 + 32 of every box, then fence.proxy.async and a named
+// barrier over both warpgroups before the fragments are read. The
+// clusters' tables are added by sum_tables_wide (in double).
 
 constexpr int BOX32 = KP * 128;  // dW f32: bytes of a 32-channel box
 
-__host__ __device__ constexpr int dw32_stage_bytes(int bn, bool two) {
-  return ((two ? 2 : 1) * 2 + bn / 32) * BOX32;
+__host__ __device__ constexpr int dw32_stage_bytes(int bn, bool two,
+                                                   bool aux) {
+  return ((two ? 2 : 1) * 2 + (aux ? 2 : 1) * (bn / 32)) * BOX32;
 }
 
 template <int BN, bool TWO, class Tr>
 __global__ void __launch_bounds__(THREADS, 1)
 tdw_f32(const __grid_constant__ CUtensorMap mx,
-        const __grid_constant__ CUtensorMap mdy, const DwArgs a,
+        const __grid_constant__ CUtensorMap mdy,
+        const __grid_constant__ CUtensorMap maux, const DwArgs a,
         const Tr tr) {
-  static_assert(Tr::kAux == 0, "tdw_f32 takes the identity transform");
+  static_assert(Tr::kAux == 0 || Tr::kAux == 4,
+                "tdw_f32 takes no aux tensor or an f32 one");
+  constexpr bool STAGED = Tr::kAux > 0;
   constexpr int NB = BN / 32;                // dY boxes a stage
   constexpr int NA = TWO ? 2 : 1;            // 64-row chunks a stage
   constexpr int NT = BN / 8;                 // n8 tiles of a warp
   constexpr int LDR = BN + 8;                // floats a parked row
   constexpr int K8 = TWO ? KP / 8 : KP / 16;  // k8 steps a warpgroup
-  constexpr int STAGE = dw32_stage_bytes(BN, TWO);
+  constexpr int STAGE = dw32_stage_bytes(BN, TWO, STAGED);
   extern __shared__ uint8_t raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
@@ -491,6 +523,7 @@ tdw_f32(const __grid_constant__ CUtensorMap mx,
     if (tid == 0) {
       prefetch_map(&mx);
       prefetch_map(&mdy);
+      if (STAGED) prefetch_map(&maux);
       for (int i = 0; i < nt; ++i) {
         const int st = i % a.stages;
         mbar_wait(&empty[st], ((i / a.stages) & 1) ^ 1);
@@ -507,9 +540,13 @@ tdw_f32(const __grid_constant__ CUtensorMap mx,
                         (c % a.cchunks) * 64 + 32 * b, w0 + tap % a.ks - half,
                         h0 + tap / a.ks - half, img);
         }
-        for (int j = 0; j < NB; ++j)
+        for (int j = 0; j < NB; ++j) {
           tma_load_4d(buf + (2 * NA + j) * BOX32, &mdy, &full[st],
                       co0 + 32 * j, w0, h0, img);
+          if (STAGED)
+            tma_load_4d(buf + (2 * NA + NB + j) * BOX32, &maux, &full[st],
+                        co0 + 32 * j, w0, h0, img);
+        }
       }
     }
     __syncwarp();
@@ -533,7 +570,55 @@ tdw_f32(const __grid_constant__ CUtensorMap mx,
     for (int i = 0; i < nt; ++i) {
       const int st = i % a.stages;
       mbar_wait(&full[st], (i / a.stages) & 1);
-      const uint8_t* buf = smem + st * STAGE;
+      uint8_t* buf = smem + st * STAGE;
+      if constexpr (STAGED) {
+        int t = (int)t0 + i;
+        const int w0 = (t % a.tiles_w) * a.wb;
+        t /= a.tiles_w;
+        const int h0 = (t % a.tiles_h) * a.hb;
+        const int ct = threadIdx.x, jc = ct % 8;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int r = ct / 8 + 32 * q;
+          const int ow = w0 + r % a.wb, oh = h0 + r / a.wb;
+          const bool in = ow < a.w && oh < a.h;
+          const uint32_t off = chunk_offset(r, jc);
+#pragma unroll
+          for (int j = 0; j < NA; ++j) {
+            const int c = chunk_of(j), tap = c / a.cchunks;
+            const int sw = ow + tap % a.ks - half, sh = oh + tap / a.ks - half;
+            const bool live = in && sw >= 0 && sw < a.w && sh >= 0 && sh < a.h;
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              float4* p = reinterpret_cast<float4*>(buf + (2 * j + b) * BOX32
+                                                    + off);
+              // the pad: zero after T_x
+              float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+              if (live) {
+                v = *p;
+                tr.x4(v, (c % a.cchunks) * 64 + 32 * b + 4 * jc);
+              }
+              *p = v;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < NB; ++j) {
+            float4* p = reinterpret_cast<float4*>(buf + (2 * NA + j) * BOX32
+                                                  + off);
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (in) {
+              v = *p;
+              tr.dy4(v,
+                     *reinterpret_cast<const float4*>(
+                         buf + (2 * NA + NB + j) * BOX32 + off),
+                     co0 + 32 * j + 4 * jc);
+            }
+            *p = v;
+          }
+        }
+        fence_async_smem();
+        bar_sync(1, CONSUMERS);
+      }
       const uint8_t* xa = buf + abox * BOX32;
       const uint8_t* dyb = buf + 2 * NA * BOX32;
 #pragma unroll 2
@@ -1312,6 +1397,400 @@ __global__ void reduce_parts(const float* __restrict__ part,
   out[(size_t)blockIdx.y * cols + i] = s;
 }
 
+// reduce_parts for the float32 kernels (one group): the same order, added
+// in double and rounded once.
+__global__ void reduce_parts_wide(const float* __restrict__ part,
+                                  float* __restrict__ out, int cols,
+                                  int entries) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cols) return;
+  double s = 0.0;
+  for (int e = 0; e < entries; ++e) s += part[(size_t)e * cols + i];
+  out[i] = (float)s;
+}
+
+// ------------------------------------------------ dX and forward, f32
+//
+// tdx_f32: tdx's products in float32 for the fused transforms (one table,
+// the sums a CTA's): x, y, dy, dx and the weight f32. The same persistent
+// tiles (128 pixels x BN columns, each CTA a contiguous run of pixel tiles
+// in one column), ring, halo mode and epilogue slots, with a K step of 32
+// contracted channels (one 128-byte f32 row) and the product as split TF32
+// (wgmma.cuh), as conv_fwd.cu's conv_fwd_tma_f32: the weight comes split,
+// its hi and lo boxes from a (2, rows, K) copy that split_tf32 writes
+// before the launch (TF32 wgmma takes K-major operands only, and a split
+// needs both halves of A). Each warp loads its 16 rows of the A box by
+// ldmatrix (the TF32 fragment has the bf16 one's bytes), puts each value
+// through the transform there (Tr::k8: the forward's relu(x*a + b), the
+// backward's dy_eff with y's box loaded alike), zero where the pixel read
+// lies outside the image (TMA's zero fill would give relu(b) or ds0), and
+// splits it in registers; twelve m64nBNk8 products (4 k8 steps of lo.hi',
+// then hi.lo', then hi.hi') go to a fresh accumulator, waited for and added
+// to the tile's f32 sum. A 3x3 in halo mode loads one halo box (and its y
+// box) a ky and channel box and reads it three times, its rows shifted by
+// kx, each kx a product of its own with its own weight boxes: no rewrite
+// of the box in shared memory. BN is 64: the per-CTA column sums stay in
+// registers beside the accumulator and the sum. The epilogue as tdx's in
+// f32: the forward stores y = sum (out_kind 4) and sums [sum, sum^2]; the
+// backward reads x's f32 box from its epilogue slot (by TMA), masks, stores
+// dx = gm*a over it (out_kind 3) and sums [gm*x, gm]; the slot's 32-column
+// sub-boxes are stored by TMA from a thread of their own, and the CTA's
+// sums go to one partial entry a CTA, added in order in double by
+// reduce_parts_wide. No atomics: two launches are bit-equal.
+
+// The f32 forward's transform (tdx_f32, out_kind 4): x -> relu(x*a + b),
+// (a, b) from the (2, c) table tab; the sums those of the f32 product.
+struct ActTr32 {
+  static constexpr int kAux = 0;
+  static constexpr bool kFwd = true;
+  struct K8 {
+    float a[2], b[2];
+  };
+  const float* tab;
+  int c;
+
+  // (a, b) of channels ch and ch + 4, the two of a thread's k8 fragment
+  __device__ __forceinline__ void k8_tab(K8& t, int ch) const {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      t.a[j] = __ldg(tab + ch + 4 * j);
+      t.b[j] = __ldg(tab + c + ch + 4 * j);
+    }
+  }
+  __device__ __forceinline__ float k8(float v, float, const K8& t,
+                                      int j) const {
+    return fmaxf(affine(v, t.a[j], t.b[j]), 0.f);
+  }
+};
+
+__host__ __device__ constexpr int dx32_stage_bytes(int bn, bool halo, int wb,
+                                                   int hb, bool aux) {
+  return halo ? round1k((wb + 2) * hb * 128) * (aux ? 2 : 1) + 6 * bn * 128
+              : ABOX * (aux ? 2 : 1) + 2 * bn * 128;
+}
+
+// Byte offset of output element (row, col) of a warpgroup's 64-row half
+// tile in its f32 epilogue slot: 32-column sub-tiles of 64 rows x 128
+// bytes under the 128-byte swizzle (the TMA boxes of x and of the output).
+__device__ __forceinline__ uint32_t staged_offset32(int row, int col) {
+  return (col / 32) * (64 * 128) + row * 128 +
+         ((((col >> 2) ^ row) & 7) << 4) + (col & 3) * 4;
+}
+
+template <int BN, class Tr>
+__global__ void __launch_bounds__(THREADS, 1)
+tdx_f32(const __grid_constant__ CUtensorMap mdy,
+        const __grid_constant__ CUtensorMap maux,
+        const __grid_constant__ CUtensorMap mw,
+        const __grid_constant__ CUtensorMap me,
+        const __grid_constant__ CUtensorMap my, const DxArgs a, const Tr tr) {
+  constexpr bool FWD = Tr::kFwd;        // out_kind 4, else 3
+  constexpr bool AUX = Tr::kAux > 0;    // y beside dy (the backward)
+  constexpr int BBOX = BN * 128;        // bytes of one weight box (hi or lo)
+  constexpr int HALF = 64 * BN * 4;     // bytes of a warpgroup's half slot
+  extern __shared__ uint8_t raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  const int hrows = (a.wb + 2) * a.hb;  // rows of a halo box
+  const int abox = a.halo ? round1k(hrows * 128) : ABOX;
+  const int stage_bytes = dx32_stage_bytes(BN, a.halo, a.wb, a.hb, AUX);
+  const int w_at = abox * (AUX ? 2 : 1);  // the A box, its y box, weights
+  uint8_t* eslot = smem + a.stages * stage_bytes;
+  // the 8 warps' column sums, then the CTA's mask (a, b)
+  float* red = reinterpret_cast<float*>(eslot + a.eslots * 2 * HALF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 9 * 2 * BN);
+  uint64_t* empty = full + a.stages;
+  uint64_t* efull = empty + a.stages + 1;
+  uint64_t* edone = efull + 3;
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128;
+  const int half = a.ks / 2;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);
+    }
+    for (int i = 0; i < 3; ++i) {
+      mbar_init(&efull[i], 1);
+      mbar_init(&edone[i], 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  auto tile_of = [&](int t, int& img, int& x0, int& y0, int& col) {
+    col = t % a.col_tiles;
+    t /= a.col_tiles;
+    x0 = (t % a.tiles_w) * a.wb;
+    t /= a.tiles_w;
+    y0 = (t % a.tiles_h) * a.hb;
+    img = t / a.tiles_h;
+  };
+  const int groups = gridDim.x / a.col_tiles;
+  const int row_tiles = a.tiles / a.col_tiles;
+  const int grp = blockIdx.x / a.col_tiles;
+  const int r_lo = (int)((long long)grp * row_tiles / groups);
+  const int ntiles = (int)((long long)(grp + 1) * row_tiles / groups) - r_lo;
+  const int n0 = (int)(blockIdx.x % a.col_tiles) * BN;  // the CTA's column
+  auto tile_at = [&](int i) {
+    return (r_lo + i) * a.col_tiles + (int)blockIdx.x % a.col_tiles;
+  };
+  // the epilogue slot's TMA boxes of tile t (load or store): each
+  // warpgroup's 64 rows, 32 columns a box
+  auto slot_boxes = [&](int t, uint8_t* slot, bool load, uint64_t* bar) {
+    int img, x0, y0, col;
+    tile_of(t, img, x0, y0, col);
+    for (int g = 0; g < 2; ++g) {
+      const int sx = a.wb == TM ? x0 + 64 * g : x0;
+      const int sy = a.wb == TM ? y0 : y0 + g * (a.hb / 2);
+      for (int sub = 0; sub < BN / 32; ++sub) {
+        uint8_t* box = slot + g * HALF + sub * (64 * 128);
+        if (load)
+          tma_load_4d(box, &me, bar, col * BN + 32 * sub, sx, sy, img);
+        else
+          tma_store_4d(&my, box, col * BN + 32 * sub, sx, sy, img);
+      }
+    }
+  };
+
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    regs_shrink<40>();
+    if (tid == 0) {
+      prefetch_map(&mdy);
+      if (AUX) prefetch_map(&maux);
+      prefetch_map(&mw);
+      const int tx_bytes = a.halo ? hrows * 128 * (AUX ? 2 : 1) + 6 * BBOX
+                                  : stage_bytes;
+      // the ring slot and its phase, and the K step's channel box and tap
+      // (halo mode: ky), kept as running counters
+      int st = 0, ph = 0;
+      for (int i = 0; i < ntiles; ++i) {
+        int img, x0, y0, col;
+        tile_of(tile_at(i), img, x0, y0, col);
+        int c0 = 0, tap = 0, kx = -half, ky = -half;
+        for (int k = 0; k < a.ksteps; ++k) {
+          mbar_wait(&empty[st], ph ^ 1);
+          uint8_t* buf = smem + st * stage_bytes;
+          mbar_expect_tx(&full[st], tx_bytes);
+          const int sx = a.halo ? x0 - 1 : x0 + kx;
+          const int sy = a.halo ? y0 + tap - 1 : y0 + ky;
+          tma_load_4d(buf, &mdy, &full[st], c0, sx, sy, img);
+          if (AUX) tma_load_4d(buf + abox, &maux, &full[st], c0, sx, sy, img);
+          for (int j = 0; j < (a.halo ? 3 : 1); ++j)
+            for (int part = 0; part < 2; ++part)
+              tma_load_4d(buf + w_at + (2 * j + part) * BBOX, &mw, &full[st],
+                          c0, a.halo ? 3 * tap + j : tap, col * BN, part);
+          if ((c0 += 32) == 32 * a.cb) {
+            c0 = 0;
+            ++tap;
+            if (++kx > half) kx = -half, ++ky;
+          }
+          if (++st == a.stages) st = 0, ph ^= 1;
+        }
+      }
+    } else if (tid == 32) {
+      // the epilogue slots, on a thread of their own: a slot's last tile
+      // is done, so store it from the slot, let the store read it, then
+      // fill the slot with the next tile's input (the backward's x)
+      if (!FWD) prefetch_map(&me);
+      prefetch_map(&my);
+      int i = 0;
+      for (; i < ntiles; ++i) {
+        const int t = tile_at(i), e = i % a.eslots;
+        mbar_wait(&edone[e], ((i / a.eslots) & 1) ^ 1);
+        uint8_t* slot = eslot + e * 2 * HALF;
+        if (i >= a.eslots) {
+          slot_boxes(tile_at(i - a.eslots), slot, false, nullptr);
+          bulk_commit();
+          bulk_wait_read<0>();
+        }
+        if (!FWD) {
+          mbar_expect_tx(&efull[e], 2 * HALF);
+          slot_boxes(t, slot, true, &efull[e]);
+        } else {
+          mbar_arrive(&efull[e]);
+        }
+      }
+      // the last tiles' stores
+      for (int j = i < a.eslots ? 0 : i - a.eslots; j < i; ++j) {
+        mbar_wait(&edone[j % a.eslots], (j / a.eslots) & 1);
+        slot_boxes(tile_at(j), eslot + (j % a.eslots) * 2 * HALF, false,
+                   nullptr);
+      }
+      bulk_commit();
+      bulk_wait<0>();
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    regs_grow<232>();
+    float acc[BN / 2] = {}, sum[BN / 2];
+    // the thread's column sums over its rows of every tile, in tile order,
+    // reduced across the CTA once at its end
+    float cs0[BN / 8][2] = {}, cs1[BN / 8][2] = {};
+    const int ct = threadIdx.x;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    // the tile row this lane gives ldmatrix: rows l % 8 + 8 (l / 8 % 2) of
+    // the warp's 16, 16-byte chunk 2 kk + l / 16 of the row
+    const int lr = 64 * wg + 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+    // halo mode: its row in the halo box at kx = 0 (each warpgroup's 64
+    // output pixels lie in one image row)
+    const int hr0 = (lr >> a.lwb) * (a.wb + 2) + (lr & (a.wb - 1));
+    if constexpr (!FWD) {  // the mask's (a, b) of the CTA's columns
+      if (ct < 2 * BN)
+        red[8 * 2 * BN + ct] =
+            __ldg(tr.ab_row() + (ct / BN) * a.ci + n0 + ct % BN);
+      bar_sync(1, CONSUMERS);
+    }
+    const float* sab = red + 8 * 2 * BN;
+    int st = 0, ph = 0;
+    for (int i = 0; i < ntiles; ++i) {
+      const int t = tile_at(i);
+      int img, x0, y0, col;
+      tile_of(t, img, x0, y0, col);
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) sum[e] = 0.f;
+      // the K step's channel box and tap (halo mode: ky), running
+      int cbox = 0, tap = 0, tkx = -half, tky = -half;
+      for (int k = 0; k < a.ksteps; ++k) {
+        mbar_wait(&full[st], ph);
+        const uint8_t* buf = smem + st * stage_bytes;
+        for (int kx = 0; kx < (a.halo ? 3 : 1); ++kx) {
+          // the pixel read: the output pixel shifted by the tap
+          const int dxp = a.halo ? kx - 1 : tkx;
+          const int dyp = a.halo ? tap - 1 : tky;
+          bool live[2];
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int r = 64 * wg + 16 * warp + g + 8 * h2;
+            const int ox = x0 + (r & (a.wb - 1)), oy = y0 + (r >> a.lwb);
+            const int sx = ox + dxp, sy = oy + dyp;
+            live[h2] = ox < a.w && oy < a.h && sx >= 0 && sx < a.w &&
+                       sy >= 0 && sy < a.h;
+          }
+          const int hr = a.halo ? hr0 + kx : lr;
+          const uint32_t rowaddr = smem_u32(buf) + hr * 128;
+          uint32_t ah[4][4], al[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t off = (((2 * kk + (lane >> 4)) ^ hr) & 7) << 4;
+            uint32_t v[4], y[4] = {};
+            ldsm_x4(rowaddr + off, v);
+            if (AUX) ldsm_x4(rowaddr + abox + off, y);
+            typename Tr::K8 tb;
+            tr.k8_tab(tb, 32 * cbox + 8 * kk + t4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              // v[e]: row g + 8 (e % 2), channel t4 + 4 (e / 2) of the k8 step
+              const float f = live[e & 1]
+                                  ? tr.k8(__uint_as_float(v[e]),
+                                          __uint_as_float(y[e]), tb, e >> 1)
+                                  : 0.f;
+              tf32_split(f, ah[kk][e], al[kk][e]);
+            }
+          }
+          const uint8_t* wb = buf + w_at + 2 * kx * BBOX;
+          const uint64_t dhi = sw128_desc(wb, 16, 1024);
+          const uint64_t dlo = sw128_desc(wb + BBOX, 16, 1024);
+          wgmma_fence();
+          fence_operands(acc);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)  // 32 bytes a k8 step, >> 4
+            WgmmaTf32R<BN>::mma(acc, al[kk], dhi + 2 * kk, kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            WgmmaTf32R<BN>::mma(acc, ah[kk], dlo + 2 * kk, 1);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            WgmmaTf32R<BN>::mma(acc, ah[kk], dhi + 2 * kk, 1);
+          wgmma_commit();
+          fence_operands(acc);
+          wgmma_wait<0>();
+          fence_operands(acc);
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) sum[e] += acc[e];
+        }
+        if (tid == 0) mbar_arrive(&empty[st]);
+        if (++cbox == a.cb) {
+          cbox = 0;
+          ++tap;
+          if (++tkx > half) tkx = -half, ++tky;
+        }
+        if (++st == a.stages) st = 0, ph ^= 1;
+      }
+
+      // ---------------------------------------------------------- epilogue
+      const int e = i % a.eslots;
+      uint8_t* slot = eslot + e * 2 * HALF + wg * HALF;
+      mbar_wait(&efull[e], (i / a.eslots) & 1);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int cl = 8 * j + 2 * t4;
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int row = 16 * warp + g + 8 * e2, r = 64 * wg + row;
+          const int ox = x0 + (r & (a.wb - 1)), oy = y0 + (r >> a.lwb);
+          const bool in = ox < a.w && oy < a.h;
+          float2* sp = reinterpret_cast<float2*>(slot + staged_offset32(row, cl));
+          float u = sum[4 * j + 2 * e2], v = sum[4 * j + 2 * e2 + 1];
+          if constexpr (FWD) {
+            // y; the sums of the pixels in the image
+            *sp = make_float2(u, v);
+            u = in ? u : 0.f;
+            v = in ? v : 0.f;
+            cs0[j][0] += u;
+            cs0[j][1] += v;
+            cs1[j][0] += u * u;
+            cs1[j][1] += v * v;
+          } else {
+            // gm = g*[x*a + b > 0], dx = gm*a over x; sums [gm*x, gm]
+            const float2 xv = *sp;
+            const float ta0 = sab[cl], ta1 = sab[cl + 1];
+            u = in && affine(xv.x, ta0, sab[BN + cl]) > 0.f ? u : 0.f;
+            v = in && affine(xv.y, ta1, sab[BN + cl + 1]) > 0.f ? v : 0.f;
+            cs0[j][0] += u * xv.x;
+            cs0[j][1] += v * xv.y;
+            cs1[j][0] += u;
+            cs1[j][1] += v;
+            *sp = make_float2(u * ta0, v * ta1);
+          }
+        }
+      }
+      // the slot is done (its output staged): the producer stores it
+      fence_async_smem();
+      bar_sync(2 + wg, 128);
+      if (tid == 0) mbar_arrive(&edone[e]);
+    }
+    // the CTA's column sums into its entry, in a fixed order: the warp's
+    // 16 row slots by shuffles, then the 8 warps
+    float* wred = red + (wg * 4 + warp) * 2 * BN;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e3 = 0; e3 < 2; ++e3) {
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          cs0[j][e3] += __shfl_xor_sync(0xffffffffu, cs0[j][e3], o);
+          cs1[j][e3] += __shfl_xor_sync(0xffffffffu, cs1[j][e3], o);
+        }
+        if (lane < 4) {
+          wred[8 * j + 2 * lane + e3] = cs0[j][e3];
+          wred[BN + 8 * j + 2 * lane + e3] = cs1[j][e3];
+        }
+      }
+    bar_sync(1, CONSUMERS);
+    if (ct < 2 * BN) {
+      float s = 0.f;
+#pragma unroll
+      for (int w8 = 0; w8 < 8; ++w8) s += red[w8 * 2 * BN + ct];
+      a.part[((size_t)grp * 2 + ct / BN) * a.ci + n0 + ct % BN] = s;
+    }
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 template <int BN, bool TWO, class Tr>
@@ -1413,8 +1892,8 @@ int run_dw(const void* x, const void* dy, const void* aux, float* dw,
 
 template <int BN, bool TWO, class Tr>
 int launch_dw_f32(const CUtensorMap& mx, const CUtensorMap& mdy,
-                  const DwArgs& a, const Tr& tr, dim3 grid, int smem,
-                  cudaStream_t s) {
+                  const CUtensorMap& maux, const DwArgs& a, const Tr& tr,
+                  dim3 grid, int smem, cudaStream_t s) {
   static bool set[64] = {};
   cudaError_t e = allow_smem(tdw_f32<BN, TWO, Tr>, set, MAX_SMEM);
   if (e != cudaSuccess) return e;
@@ -1430,20 +1909,24 @@ int launch_dw_f32(const CUtensorMap& mx, const CUtensorMap& mdy,
   attr[0].val.clusterDim.z = a.cs;
   cfg.attrs = attr;
   cfg.numAttrs = a.cs > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, tdw_f32<BN, TWO, Tr>, mx, mdy, a, tr);
+  e = cudaLaunchKernelEx(&cfg, tdw_f32<BN, TWO, Tr>, mx, mdy, maux, a, tr);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// run_dw in float32 (tdw_f32): x (.., ci) and dy (.., co) f32, ci and co
-// multiples of 8, the identity transform; the plan as run_dw's with bn 64
-// or 128 (ops/conv.py tma_dw_plan with 4-byte elements).
+// run_dw in float32 (tdw_f32): x (.., ci), dy (.., co) and aux (.., co)
+// f32; with the identity transform (no aux) ci and co multiples of 8, with
+// a staging one (Tr::kAux 4) multiples of 64; the plan as run_dw's with bn
+// 64 or 128 (ops/conv.py tma_dw_plan with 4-byte elements, and aux 4).
 template <class Tr>
-int run_dw_f32(const void* x, const void* dy, float* dw, float* ws, int n,
-               int h, int w, int ci, int co, int ks, const DwPlan& p,
-               const Tr& tr, cudaStream_t s) {
+int run_dw_f32(const void* x, const void* dy, const void* aux, float* dw,
+               float* ws, int n, int h, int w, int ci, int co, int ks,
+               const DwPlan& p, const Tr& tr, cudaStream_t s) {
+  constexpr bool STAGED = Tr::kAux > 0;
+  const int q = STAGED ? 64 : 8;  // the channel multiple taken
   const size_t size = (size_t)ks * ks * ci * co;
-  if (ci < 8 || co < 8 || ci % 8 || co % 8 || (ks != 1 && ks != 3) ||
-      !aligned16(x) || !aligned16(dy) || !aligned16(dw))
+  if (ci < q || co < q || ci % q || co % q || (ks != 1 && ks != 3) ||
+      !aligned16(x) || !aligned16(dy) || (STAGED && !aligned16(aux)) ||
+      !aligned16(dw))
     return cudaErrorInvalidValue;
   if ((long long)n * h * w == 0)
     return cudaMemsetAsync(dw, 0, sizeof(float) * size, s);
@@ -1458,33 +1941,35 @@ int run_dw_f32(const void* x, const void* dy, float* dw, float* ws, int n,
   a.cchunks = (ci + 63) / 64;
   a.rchunks = ks * ks * a.cchunks;
   a.stages = p.stages, a.splits = p.splits, a.cs = p.cs;
-  const int stage = dw32_stage_bytes(p.bn, p.two);
+  const int stage = dw32_stage_bytes(p.bn, p.two, STAGED);
   const int smem = p.stages * stage + 16 * p.stages + 1024;
   if (p.wb < 1 || p.hb < 1 || p.wb * p.hb != KP || p.wb > 256 ||
-      p.hb > 256 || (p.bn != 64 && p.bn != 128) ||
+      p.hb > 256 || (p.bn != 64 && p.bn != 128) || (STAGED && co % p.bn) ||
       p.two != (a.rchunks > 1) || p.stages < 2 ||
       (p.cs != 1 && p.cs != 2 && p.cs != 4) || p.splits < 1 ||
       p.splits % p.cs || p.splits > ntiles || ntiles >= (1ll << 31) ||
       smem > MAX_SMEM || 2 * 64 * (p.bn + 8) * 4 > p.stages * stage ||
       (p.splits / p.cs > 1 && !ws))
     return cudaErrorInvalidValue;
-  CUtensorMap mx, mdy;
+  CUtensorMap mx, mdy, maux;
   if (!encode_act32(&mx, x, ci, w, h, n, p.wb, p.hb) ||
-      !encode_act32(&mdy, dy, co, w, h, n, p.wb, p.hb))
+      !encode_act32(&mdy, dy, co, w, h, n, p.wb, p.hb) ||
+      (STAGED && !encode_act32(&maux, aux, co, w, h, n, p.wb, p.hb)))
     return cudaErrorInvalidValue;
+  if (!STAGED) maux = mdy;  // unread
   const dim3 grid(p.two ? (a.rchunks + 1) / 2 : 1, (co + p.bn - 1) / p.bn,
                   p.splits);
   auto go = [&](auto two) {
     constexpr bool T = decltype(two)::value;
     return p.bn == 128
-               ? launch_dw_f32<128, T>(mx, mdy, a, tr, grid, smem, s)
-               : launch_dw_f32<64, T>(mx, mdy, a, tr, grid, smem, s);
+               ? launch_dw_f32<128, T>(mx, mdy, maux, a, tr, grid, smem, s)
+               : launch_dw_f32<64, T>(mx, mdy, maux, a, tr, grid, smem, s);
   };
   const int err = p.two ? go(std::true_type{}) : go(std::false_type{});
   if (err != cudaSuccess || p.splits / p.cs == 1) return err;
   const int blocks =
       (int)((size + 255) / 256 < 4096 ? (size + 255) / 256 : 4096);
-  sum_tables<<<blocks, 256, 0, s>>>(ws, dw, size, p.splits / p.cs);
+  sum_tables_wide<<<blocks, 256, 0, s>>>(ws, dw, size, p.splits / p.cs);
   return cudaGetLastError();
 }
 
@@ -1602,6 +2087,98 @@ int run_dx(const void* dy, const void* aux, const void* wflip,
       Tr::kPerCta ? p.grid / a.col_tiles : gh / p.hb * a.tiles_w;
   reduce_parts<<<dim3((2 * ci + 127) / 128, (unsigned)groups), 128, 0, s>>>(
       part, sums, 2 * ci, entries);
+  return cudaGetLastError();
+}
+
+template <int BN, class Tr>
+int launch_dx_f32(const CUtensorMap& mdy, const CUtensorMap& maux,
+                  const CUtensorMap& mw, const CUtensorMap& me,
+                  const CUtensorMap& my, const DxArgs& a, const Tr& tr,
+                  int grid, int smem, cudaStream_t s) {
+  static bool set[64] = {};
+  const cudaError_t e = allow_smem(tdx_f32<BN, Tr>, set, MAX_SMEM);
+  if (e != cudaSuccess) return e;
+  tdx_f32<BN, Tr><<<grid, THREADS, smem, s>>>(mdy, maux, mw, me, my, a, tr);
+  return cudaGetLastError();
+}
+
+// run_dx in float32 (tdx_f32) for the fused transforms: dX (n, h, w, ci)
+// of T_dy(dy, aux) (n, h, w, co) * wflip (ci, ks*ks*co), all f32, finished
+// as out_kind 3 (Tr::kFwd false: ein = x, a.out = dx) or, with Tr::kFwd,
+// the forward (out_kind 4: dy = x, no aux, wflip = W, a.out = y); wsplit
+// (2, ci, ks*ks*co) f32 scratch for the weight's TF32 split; part holds
+// grid / (ci / 64) entries and sums (2, ci) receives their sums, written
+// whole. The plan (ops/conv.py tma_bwd_dx_plan / tma_staged_fwd_plan with
+// 4-byte elements): bn 64, the weight streamed, 1 to 3 epilogue slots of
+// TM x 64 f32. Three launches: the split, the product, the sums
+// (reduce_parts_wide).
+template <class Tr>
+int run_dx_f32(const void* dy, const void* aux, const void* wflip,
+               float* wsplit, const void* ein, DxArgs a, float* part,
+               float* sums, int n, int h, int w, int ci, int co, int ks,
+               const DxPlan& p, const Tr& tr, cudaStream_t s) {
+  constexpr bool AUX = Tr::kAux > 0;
+  if (ci % 64 || co % 64 || (ks != 1 && ks != 3) || !aligned16(dy) ||
+      (AUX && !aligned16(aux)) || !aligned16(wflip) || !aligned16(wsplit) ||
+      !aligned16(a.out) || (!Tr::kFwd && !aligned16(ein)) || !part ||
+      !sums || a.out_kind != (Tr::kFwd ? 4 : 3))
+    return cudaErrorInvalidValue;
+  if ((long long)n * h * w == 0)
+    return cudaMemsetAsync(sums, 0, sizeof(float) * 2 * ci, s);
+  a.part = part;
+  a.h = h, a.w = w, a.ci = ci, a.co = co, a.ks = ks, a.wb = p.wb, a.hb = p.hb;
+  while (a.lwb < 8 && (1 << a.lwb) < p.wb) ++a.lwb;
+  a.tiles_w = (w + p.wb - 1) / p.wb;
+  a.tiles_h = (h + p.hb - 1) / p.hb;
+  a.col_tiles = ci / p.bn;
+  const long long tiles = (long long)n * a.tiles_w * a.tiles_h * a.col_tiles;
+  a.tiles = (int)tiles;
+  a.cb = co / 32;
+  a.halo = dx_halo(ks, p.wb);
+  a.ksteps = (a.halo ? 3 : ks * ks) * a.cb;
+  a.stages = p.stages, a.resident = 0, a.eslots = p.eslots;
+  const int smem =
+      p.stages * dx32_stage_bytes(p.bn, a.halo, p.wb, p.hb, AUX) +
+      p.eslots * TM * p.bn * 4 + 9 * 2 * p.bn * 4 + 8 * (2 * p.stages + 7) +
+      1024;
+  if (p.wb < 1 || p.hb < 1 || p.wb * p.hb != TM || p.wb != 1 << a.lwb ||
+      p.hb > 256 || p.bn != 64 || p.resident || p.stages < 2 ||
+      smem > MAX_SMEM || p.grid < 1 || p.grid > tiles ||
+      tiles >= (1ll << 31) || p.grid % a.col_tiles || p.eslots < 1 ||
+      p.eslots > 3)
+    return cudaErrorInvalidValue;
+  CUtensorMap mdy, maux, mw, me, my;
+  // the split weight as (co, ks*ks, ci, 2): box (32, 1, bn, 1), hi at 0
+  const cuuint64_t wdims[4] = {(cuuint64_t)co, (cuuint64_t)(ks * ks),
+                               (cuuint64_t)ci, 2};
+  const cuuint32_t wbox[4] = {32, 1, (cuuint32_t)p.bn, 1};
+  // the epilogue slot's boxes: a warpgroup's 64 rows of the tile, 32
+  // columns a box
+  const cuuint64_t ydims[4] = {(cuuint64_t)ci, (cuuint64_t)w, (cuuint64_t)h,
+                               (cuuint64_t)n};
+  const int sw = p.wb < 64 ? p.wb : 64;
+  const cuuint32_t ybox[4] = {32, (cuuint32_t)sw, (cuuint32_t)(64 / sw), 1};
+  // the A box: the tile's box, or in halo mode its rows widened by the
+  // pixel on either side
+  const int awb = a.halo ? p.wb + 2 : p.wb;
+  if (!encode_act32(&mdy, dy, co, w, h, n, awb, p.hb) ||
+      (AUX && !encode_act32(&maux, aux, co, w, h, n, awb, p.hb)) ||
+      !encode(&mw, wsplit, true, 4, wdims, wbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode(&my, a.out, true, 4, ydims, ybox, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  me = mdy;  // unread in the forward
+  if (!AUX) maux = mdy;
+  if (!Tr::kFwd && !encode(&me, ein, true, 4, ydims, ybox,
+                           CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  cudaError_t err = split_tf32(static_cast<const float*>(wflip), wsplit,
+                               (long long)ci * ks * ks * co, s);
+  if (err != cudaSuccess) return err;
+  err = (cudaError_t)launch_dx_f32<64>(mdy, maux, mw, me, my, a, tr, p.grid,
+                                       smem, s);
+  if (err != cudaSuccess) return err;
+  reduce_parts_wide<<<(2 * ci + 127) / 128, 128, 0, s>>>(
+      part, sums, 2 * ci, p.grid / a.col_tiles);
   return cudaGetLastError();
 }
 

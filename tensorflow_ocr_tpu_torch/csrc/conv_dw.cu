@@ -110,7 +110,7 @@ extern "C" int conv_dw_tma_f32(const void* x, const void* dy, void* dw,
                                void* ws, int n, int h, int w, int ci, int co,
                                int ks, int wb, int hb, int bn, int two,
                                int stages, int splits, int cs, void* stream) {
-  return bwd::run_dw_f32(x, dy, static_cast<float*>(dw),
+  return bwd::run_dw_f32(x, dy, nullptr, static_cast<float*>(dw),
                          static_cast<float*>(ws), n, h, w, ci, co, ks,
                          bwd::DwPlan{wb, hb, bn, two, stages, splits, cs},
                          IdentTr{}, static_cast<cudaStream_t>(stream));

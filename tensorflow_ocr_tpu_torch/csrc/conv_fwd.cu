@@ -321,8 +321,8 @@ bool aligned(const void* p, uintptr_t bytes) {
 // same persistent tiles, ring, plan and epilogue, and the product as split
 // TF32 on the tensor cores (wgmma.cuh): a K step is 32 channels of one tap
 // (a 128-byte f32 row); the weight comes split, hi and lo boxes from a
-// (2, co, KS*KS*ci) copy that tf32_split_rows writes before the launch;
-// each warp loads its 16 rows of the A box by ldmatrix (the TF32
+// (2, co, KS*KS*ci) copy that split_tf32 (wgmma.cuh) writes before the
+// launch; each warp loads its 16 rows of the A box by ldmatrix (the TF32
 // fragment has the bf16 one's bytes) and splits them in registers; twelve
 // m64nBNk8 products a K step (4 k8 steps of lo.hi', then hi.lo', then
 // hi.hi') into a fresh accumulator, waited for and added to the tile's f32
@@ -352,18 +352,6 @@ __device__ __forceinline__ uint32_t staged_offset32(int row, int col) {
            ((((col >> 2) ^ row) & 7) << 4) + (col & 3) * 4;
   else
     return row * (BN * 4) + col * 4;
-}
-
-// out[0] = tf32(w), out[n..2n) = tf32(w - tf32(w)): the weight's split.
-__global__ void tf32_split_rows(const float* __restrict__ w,
-                                float* __restrict__ out, long long n) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    uint32_t hi, lo;
-    tf32_split(w[i], hi, lo);
-    out[i] = __uint_as_float(hi);
-    out[n + i] = __uint_as_float(lo);
-  }
 }
 
 template <int BN>
@@ -666,11 +654,9 @@ extern "C" int conv_fwd_tma_f32(const void* x, const void* wt, void* wsplit,
     return cudaErrorInvalidValue;
   if (!a.tma_store) my = mx;  // unread
   auto s = static_cast<cudaStream_t>(stream);
-  const long long wn = (long long)co * ks * ks * ci;
-  const long long blocks = (wn + 255) / 256 < 1024 ? (wn + 255) / 256 : 1024;
-  tf32_split_rows<<<(int)blocks, 256, 0, s>>>(static_cast<const float*>(wt),
-                                              static_cast<float*>(wsplit), wn);
-  const cudaError_t e = cudaGetLastError();
+  const cudaError_t e =
+      split_tf32(static_cast<const float*>(wt), static_cast<float*>(wsplit),
+                 (long long)co * ks * ks * ci, s);
   if (e != cudaSuccess) return e;
   switch (bn) {
     case 128: return launch32<128>(mx, mw, my, a, grid, smem, s);

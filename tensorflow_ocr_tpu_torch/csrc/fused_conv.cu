@@ -58,6 +58,18 @@
 // The one-pass form of the TPU kernel (dW, dX and dab in one sweep) would
 // need the whole dW table on chip; two products keep every shape of the
 // step on one design (PERF.md).
+//
+// Float32 (fused_conv_fwd_f32, fused_conv_bwd_f32): the TPU kernels take
+// x.dtype, so a float32 model runs them in float32 (pallas_fused.py:77-83,
+// 100-110). The same contract with f32 activations, weights and outputs
+// (no rounding but the f32 product's), on conv_bwd.cuh's float32 kernels:
+// the forward and dX are tdx_f32 (a K step of 32 channels, each value put
+// through the transform in registers before its TF32 split, hi.lo' +
+// lo.hi' + hi.hi' on the tensor cores into a fresh accumulator a K step),
+// the dW tdw_f32 with FusedTr32 rewriting its boxes of 32 f32 channels in
+// place (16-byte chunks of 4 channels). What bounds them: a float32
+// product by split TF32 does three TF32 passes (495 / 3 TFLOP/s on the
+// H100) on twice bf16's bytes; block1's 1x1s stay bound by the bytes.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -136,6 +148,56 @@ struct FusedTr {
   __device__ __forceinline__ const float* ab_row(int) const { return abt; }
 };
 
+// FusedTr in float32: tdw_f32's in-place rewrite of 16-byte chunks (4
+// channels c .. c+3: x -> relu(x*a + b), dy and y -> dy_eff) and
+// tdx_f32's register transform of a thread's k8 fragment (channels ch and
+// ch + 4 of dy and y -> dy_eff), in the plain version's order of
+// rounding.
+struct FusedTr32 {
+  static constexpr int kAux = 4;  // y, f32
+  static constexpr bool kFwd = false;
+  struct K8 {
+    float p[2], q[2];
+  };
+  const float* abt;  // (2, ci)
+  const float* ds;   // (2, co)
+  int ci, co;
+
+  __device__ __forceinline__ void x4(float4& v, int c) const {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(abt + c));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(abt + ci + c));
+    v.x = fmaxf(affine(v.x, a.x, b.x), 0.f);
+    v.y = fmaxf(affine(v.y, a.y, b.y), 0.f);
+    v.z = fmaxf(affine(v.z, a.z, b.z), 0.f);
+    v.w = fmaxf(affine(v.w, a.w, b.w), 0.f);
+  }
+  __device__ __forceinline__ static float eff(float d, float y, float p,
+                                              float q) {
+    return __fadd_rn(__fadd_rn(d, p), __fmul_rn(2.f * y, q));
+  }
+  __device__ __forceinline__ void dy4(float4& d, const float4& y,
+                                      int c) const {
+    const float4 p = __ldg(reinterpret_cast<const float4*>(ds + c));
+    const float4 q = __ldg(reinterpret_cast<const float4*>(ds + co + c));
+    d.x = eff(d.x, y.x, p.x, q.x);
+    d.y = eff(d.y, y.y, p.y, q.y);
+    d.z = eff(d.z, y.z, p.z, q.z);
+    d.w = eff(d.w, y.w, p.w, q.w);
+  }
+  __device__ __forceinline__ void k8_tab(K8& t, int ch) const {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      t.p[j] = __ldg(ds + ch + 4 * j);
+      t.q[j] = __ldg(ds + co + ch + 4 * j);
+    }
+  }
+  __device__ __forceinline__ float k8(float d, float y, const K8& t,
+                                      int j) const {
+    return eff(d, y, t.p[j], t.q[j]);
+  }
+  __device__ __forceinline__ const float* ab_row() const { return abt; }
+};
+
 }  // namespace
 
 // x (n,h,w,ci) bf16 and ab (2,ci) f32: the conv's input before its
@@ -175,4 +237,65 @@ extern "C" int fused_conv_bwd(const void* x, const void* ab,
                      bwd::DxPlan{xwb, xhb, xbn, resident, xstages, grid,
                                  eslots},
                      tr, s);
+}
+
+// fused_conv_fwd in float32: x (n,h,w,ci), wt (co, ks*ks*ci), y (n,h,w,co)
+// f32; wsplit (2, co, ks*ks*ci) f32 scratch for the weight's TF32 split;
+// ab, stats and ws as fused_conv_fwd's. The plan (ops/conv.py
+// tma_staged_fwd_plan with 4-byte elements: wb, hb, bn = 64, stages,
+// grid, eslots). Returns the first launch error.
+extern "C" int fused_conv_fwd_f32(const void* x, const void* ab,
+                                  const void* wt, void* wsplit, void* y,
+                                  void* stats, void* ws, int n, int h, int w,
+                                  int ci, int co, int ks, int wb, int hb,
+                                  int bn, int stages, int grid, int eslots,
+                                  void* stream) {
+  if (ci % 64 || co % 64 || (ks != 1 && ks != 3) || !ab)
+    return cudaErrorInvalidValue;
+  bwd::DxArgs a{};
+  a.out = y;
+  a.out_kind = 4;
+  // tdx's columns are the conv's output channels, its K the input's
+  return bwd::run_dx_f32(x, nullptr, wt, static_cast<float*>(wsplit),
+                         nullptr, a, static_cast<float*>(ws),
+                         static_cast<float*>(stats), n, h, w, co, ci, ks,
+                         bwd::DxPlan{wb, hb, bn, 0, stages, grid, eslots},
+                         bwd::ActTr32{static_cast<const float*>(ab), ci},
+                         static_cast<cudaStream_t>(stream));
+}
+
+// fused_conv_bwd in float32: x, y, dy, dx and wflip f32 (shapes as
+// fused_conv_bwd's); wsplit (2, ci, ks*ks*co) f32 scratch for wflip's
+// TF32 split. The plans (ops/conv.py): dW tma_dw_plan with y's f32 aux
+// boxes and 4-byte elements (wb, hb, bn, two, stages, splits, cs), dX
+// tma_bwd_dx_plan with 4-byte elements (xwb, xhb, xbn = 64, xstages,
+// grid, eslots). Returns the first launch error.
+extern "C" int fused_conv_bwd_f32(const void* x, const void* ab,
+                                  const void* wflip, void* wsplit,
+                                  const void* y, const void* dy,
+                                  const void* ds, void* dx, void* dab,
+                                  void* dw, void* ws_dw, void* ws_dab, int n,
+                                  int h, int w, int ci, int co, int ks,
+                                  int wb, int hb, int bn, int two, int stages,
+                                  int splits, int cs, int xwb, int xhb,
+                                  int xbn, int xstages, int grid, int eslots,
+                                  void* stream) {
+  if (ci % 64 || co % 64 || (ks != 1 && ks != 3) || !ab || !ds)
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const FusedTr32 tr{static_cast<const float*>(ab),
+                     static_cast<const float*>(ds), ci, co};
+  int err = bwd::run_dw_f32(x, dy, y, static_cast<float*>(dw),
+                            static_cast<float*>(ws_dw), n, h, w, ci, co, ks,
+                            bwd::DwPlan{wb, hb, bn, two, stages, splits, cs},
+                            tr, s);
+  if (err != cudaSuccess) return err;
+  bwd::DxArgs a{};
+  a.out = dx;
+  a.out_kind = 3;
+  return bwd::run_dx_f32(dy, y, wflip, static_cast<float*>(wsplit), x, a,
+                         static_cast<float*>(ws_dab),
+                         static_cast<float*>(dab), n, h, w, ci, co, ks,
+                         bwd::DxPlan{xwb, xhb, xbn, 0, xstages, grid, eslots},
+                         tr, s);
 }

@@ -528,6 +528,28 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
   lo = l;
 }
 
+// out[0, n) = tf32(w), out[n, 2n) = tf32(w - tf32(w)): a weight's split,
+// its hi and lo halves, written before the products that read them.
+__global__ void tf32_split_rows(const float* __restrict__ w,
+                                float* __restrict__ out, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    uint32_t hi, lo;
+    tf32_split(w[i], hi, lo);
+    out[i] = __uint_as_float(hi);
+    out[n + i] = __uint_as_float(lo);
+  }
+}
+
+// tf32_split_rows of the n floats at w into out (2n floats) on stream s;
+// returns the launch error.
+inline cudaError_t split_tf32(const float* w, float* out, long long n,
+                              cudaStream_t s) {
+  const long long blocks = (n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024;
+  tf32_split_rows<<<(int)blocks, 256, 0, s>>>(w, out, n);
+  return cudaGetLastError();
+}
+
 // D (64 x N, f32, registers) += A . B (D = A . B where scale_d == 0) with
 // A (64 x k8) TF32 in registers and B (N x k8) TF32 K-major in shared
 // memory. The A fragment has the bf16 one's bytes (WgmmaKR): lane l of

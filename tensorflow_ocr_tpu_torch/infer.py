@@ -80,7 +80,10 @@ class Predictor:
     """Detect on one device: batched forward + decode.
 
     ``model_name``: a name of the :func:`build_model` registry;
-    ``geometry`` and ``text_scale`` shape an EAST head. PixelLink and
+    ``geometry`` and ``text_scale`` shape an EAST head;
+    ``bottleneck_impl`` picks the ResNet's units as
+    ``ModelConfig.bottleneck_impl`` does ("fused": the stride-1 units on
+    the fused kernels, in ``dtype``). PixelLink and
     link8 boxes come from the on-device decode; EAST boxes are the rows
     that locality-aware NMS keeps of the valid ``east_detect`` candidates,
     with a score above ``infer.box_thresh``.
@@ -115,7 +118,7 @@ class Predictor:
                  infer: Optional[InferConfig] = None,
                  checkpoint_path: Optional[str] = None,
                  use_ema: bool = True, geometry: str = "RBOX",
-                 text_scale: int = 512):
+                 text_scale: int = 512, bottleneck_impl: str = "xla"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Predictor(device='cuda'): torch sees no "
@@ -123,7 +126,8 @@ class Predictor:
         self.infer = icfg = infer if infer is not None else InferConfig()
         self.model_name = model_name
         self.model = build_model(model_name, dtype=dtype,
-                                 text_scale=text_scale, geometry=geometry)
+                                 text_scale=text_scale, geometry=geometry,
+                                 bottleneck_impl=bottleneck_impl)
         self.is_east = model_head(model_name) == "east"
         weights_dir = None
         if (infer is not None and weights is None and checkpoint_path is None

@@ -315,7 +315,8 @@ def tma_dw_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     ``esize`` 4 plans the float32 kernel (csrc/conv_bwd.cuh ``tdw_f32``):
     each 64 channels arrive as two boxes of 32 f32, twice the bytes of a
     stage, and BN is at most 128 (a thread keeps a tile's accumulator
-    beside the sum)."""
+    beside the sum); with ``aux`` 4 (the fused backward in float32) each
+    64 columns of dY come with two f32 boxes of y, the same bytes."""
     wb = min(KP, 1 << max(w - 1, 0).bit_length())
     hb = KP // wb
     if aux:
@@ -391,7 +392,7 @@ def round1k(nbytes: int) -> int:
 @functools.lru_cache(maxsize=None)
 def tma_bwd_dx_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
                     sms: int, aux: int, slot: bool, gh: int = 0,
-                    fwd: bool = False) -> TmaBwdDxPlan:
+                    fwd: bool = False, esize: int = 2) -> TmaBwdDxPlan:
     """The tiling of the staged backward's dX (csrc/conv_bwd.cuh ``tdx``):
     dX (n, h, w, ci) of dY (n, h, w, co) through ks x ks taps, ci and co
     multiples of 64 (a 1x1 over M rows: n = h = 1, w = M). As
@@ -410,29 +411,38 @@ def tma_bwd_dx_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     epilogue sums them into one entry). ``fwd`` (the staged forward, whose
     epilogue slot only stages y) favours the ring: a second or third
     epilogue slot only where the ring keeps FWD_KEEP slots (FWD_KEEP_HALO
-    in halo mode)."""
+    in halo mode).
+
+    ``esize`` 4 plans the float32 kernel (csrc/conv_bwd.cuh ``tdx_f32``):
+    a K step is 32 channels (a 128-byte row of the A box and of its aux
+    box, ``aux`` 4), each weight box comes twice (its TF32 hi and lo: six
+    a halo slot), bn is 64 (the CTA's column sums stay in registers beside
+    the accumulator and the sum), the weight is never resident, and an
+    epilogue slot holds TM x bn f32."""
     boxes = [1 << i for i in range(TM.bit_length())
              if not gh or gh % (TM >> i) == 0]
     wb = min(boxes, key=lambda b: (
         -(-w // b) * b * -(-h // (TM // b)) * (TM // b), -b))
     hb = TM // wb
     halo = ks == 3 and wb >= 64
-    ksteps = (3 if halo else ks * ks) * (co // 64)
+    # channels a K step, and weight boxes a tap (the f32 hi and lo)
+    kc, parts = 128 // esize, esize // 2
+    ksteps = (3 if halo else ks * ks) * (co // kc)
     fixed = 8 * 7 + 1024
-    for bn in (128, 64) if ci % 128 == 0 else (64,):
+    for bn in (128, 64) if ci % 128 == 0 and esize == 2 else (64,):
         # a halo slot with three 128-row weight boxes beside an f32 aux
         # box leaves the ring one slot: then two column tiles of 64
-        bbox, sbytes = bn * 128, TM * bn * 2
+        bbox, sbytes = parts * bn * 128, TM * bn * esize
         room = MAX_SMEM - fixed - 9 * 2 * bn * 4
         if halo:
             rows = (wb + 2) * hb
-            stage = (round1k(rows * 128) + round1k(rows * 64 * aux)
+            stage = (round1k(rows * 128) + round1k(rows * kc * aux)
                      + 3 * bbox)
         else:
-            stage = TM * 128 + TM * 64 * aux
+            stage = TM * 128 + TM * kc * aux
         wbytes = ksteps * bbox
-        resident = (ks == 1 and wbytes + MIN_A_SLOTS * (stage + 16)
-                    + slot * sbytes <= room)
+        resident = (ks == 1 and esize == 2 and wbytes + MIN_A_SLOTS
+                    * (stage + 16) + slot * sbytes <= room)
         if not halo and not resident:
             stage += bbox
         room -= resident * wbytes
@@ -457,7 +467,8 @@ def tma_bwd_dx_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
 
 
 def tma_staged_fwd_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
-                        sms: int, gh: int = 0) -> TmaBwdDxPlan:
+                        sms: int, gh: int = 0, esize: int = 2
+                        ) -> TmaBwdDxPlan:
     """The tiling of the staged forward (csrc/conv_bwd.cuh ``tdx`` in its
     forward mode: fused_conv_fwd and ghost_conv_fwd), a conv of ci -> co
     channels through ks x ks taps over n images of h x w (a 1x1 over M
@@ -465,8 +476,9 @@ def tma_staged_fwd_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     (its columns are the conv's co, its K steps the conv's ci), no aux
     box, the output y staged in epilogue slots (``fwd``: the ring first);
     gh > 0, a ghost conv: the box height divides gh, so each tile lies in
-    one band."""
-    return tma_bwd_dx_plan(n, h, w, co, ci, ks, sms, 0, True, gh, True)
+    one band; ``esize`` 4, the float32 kernel (``tdx_f32``)."""
+    return tma_bwd_dx_plan(n, h, w, co, ci, ks, sms, 0, True, gh, True,
+                           esize)
 
 
 @functools.cache

@@ -21,9 +21,15 @@ plain PyTorch version beside it:
 
 CPU tensors take the plain version; CUDA tensors launch the kernel
 (``csrc/fused_conv.cu``, ``csrc/fused_boundary.cu``; counted in each
-wrapper's ``launches``) or raise. The plain versions round where the
-kernels round: the prologue and ``dy_eff`` in the activation dtype, the
-products in float32 (TF32 off), the statistics from the float32 result.
+wrapper's ``launches``) or raise. The kernels take bfloat16 or float32
+activations, all of one type, as the Pallas kernels take ``x.dtype``;
+float32 ones go to kernels of their own, each counting its launches
+(:func:`conv_fwd32`, :func:`conv_bwd32`, :func:`boundary_fwd32`,
+:func:`boundary_bwd32`), whose conv products are float32 products by
+split TF32 (csrc/wgmma.cuh), not TF32 ones. The plain versions round
+where the kernels round: the prologue and ``dy_eff`` in the activation
+dtype, the products in float32 (TF32 off), the statistics from the
+float32 result.
 
 Tensors are NCHW in the channels-last memory format, so a (N, C, H, W)
 tensor is JAX's (N, H, W, C) array in memory and its rows are the
@@ -154,13 +160,20 @@ SIGNATURES = {
     "fused_conv": {
         "fused_conv_fwd": [_P] * 6 + [_I] * 13 + [_P],
         "fused_conv_bwd": [_P] * 11 + [_I] * 20 + [_P],
+        "fused_conv_fwd_f32": [_P] * 7 + [_I] * 12 + [_P],
+        "fused_conv_bwd_f32": [_P] * 12 + [_I] * 19 + [_P],
     },
     "fused_boundary": {
         "fused_boundary_fwd": [_P] * 5 + [_I] * 2 + [_P],
         "fused_boundary_bwd_blocks": [_I] * 2,
         "fused_boundary_bwd": [_P] * 10 + [_I] * 3 + [_P],
+        "fused_boundary_fwd_f32": [_P] * 5 + [_I] * 2 + [_P],
+        "fused_boundary_bwd_blocks_f32": [_I] * 2,
+        "fused_boundary_bwd_f32": [_P] * 10 + [_I] * 3 + [_P],
     },
 }
+# the activation dtypes the kernels take, each on kernels of its own
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 @functools.cache
@@ -177,8 +190,9 @@ def on_cpu(*ts) -> bool:
 
 
 def _check(ref: torch.Tensor, **tensors) -> None:
-    """All activations bf16, channels-last, on ref's CUDA device; all
-    tables float32 and contiguous there. Raises on anything else."""
+    """All activations of ref's dtype, bfloat16 or float32, channels-last,
+    on ref's CUDA device; all tables float32 and contiguous there. Raises
+    on anything else."""
     if ref.device.type != "cuda":
         raise ValueError(f"tensors on {ref.device}: the kernels need a "
                          "CUDA device (or every tensor on the CPU)")
@@ -186,14 +200,27 @@ def _check(ref: torch.Tensor, **tensors) -> None:
         if t.device != ref.device:
             raise ValueError(f"{name} on {t.device}, expected {ref.device}")
         if t.dim() == 4:
-            if t.dtype != torch.bfloat16:
-                raise TypeError(f"{name}: the kernels take bfloat16, got "
-                                f"{t.dtype}")
+            if t.dtype not in KERNEL_DTYPES or t.dtype != ref.dtype:
+                raise TypeError(f"{name}: the kernels take bfloat16 or "
+                                f"float32 activations of one type, got "
+                                f"{t.dtype} beside {ref.dtype}")
             if not t.is_contiguous(memory_format=_CL):
                 raise ValueError(f"{name} must be channels-last contiguous")
         elif t.dtype != torch.float32 or not t.is_contiguous():
             raise TypeError(f"{name}: need a contiguous float32 table, got "
                             f"{t.dtype}")
+
+
+def _check_weight(x: torch.Tensor, w: torch.Tensor) -> None:
+    """The weight in the activations' dtype, on their device."""
+    if w.dtype != x.dtype or w.device != x.device:
+        raise TypeError(f"w: need {x.dtype} on {x.device}, got {w.dtype} "
+                        f"on {w.device}")
+
+
+def _need_f32(name: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 activations, got {t.dtype}")
 
 
 def cuda_stream() -> int:
@@ -231,35 +258,66 @@ def conv_fwd(x: torch.Tensor, ab: torch.Tensor, w: torch.Tensor
     by ops/conv.py tma_staged_fwd_plan, x put through relu(x*a + b) on its
     way from shared memory into the product) and one that adds the CTAs'
     sums in order: no atomics, so two calls on the same inputs are
-    bit-equal.
+    bit-equal. Float32 tensors go to :func:`conv_fwd32`.
     """
     if on_cpu(x, ab, w):
         return conv_fwd_reference(x, ab, w)
+    if x.dtype == torch.float32:
+        return conv_fwd32(x, ab, w)
+    out = _launch_fwd(x, ab, w)
+    conv_fwd.launches += 1
+    return out
+
+
+def conv_fwd32(x: torch.Tensor, ab: torch.Tensor, w: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`conv_fwd` in float32 on CUDA tensors (x and w float32):
+    ``fused_conv_fwd_f32``, csrc/conv_bwd.cuh's ``tdx_f32`` in its forward
+    mode (tma_staged_fwd_plan with 4-byte elements), a float32 product by
+    split TF32; the weight's split goes to a scratch of twice its size."""
+    _need_f32("conv_fwd32", x)
+    out = _launch_fwd(x, ab, w)
+    conv_fwd32.launches += 1
+    return out
+
+
+def _launch_fwd(x, ab, w):
+    """The forward's launch on the kernel of x's dtype (CUDA tensors)."""
     from tensorflow_ocr_tpu_torch.ops import conv as CV
 
     _check(x, x=x, ab=ab)
     n, ci, h, wd, co, k = _conv_shapes(x, ab, w)
-    if w.dtype != torch.bfloat16 or w.device != x.device:
-        raise TypeError(f"w: need bfloat16 on {x.device}")
+    _check_weight(x, w)
     wt = w.permute(0, 2, 3, 1).reshape(co, k * k * ci).contiguous()
     aligned16(x=x, ab=ab)
     index = x.device.index
+    f32 = x.dtype == torch.float32
     geo = (1, 1, n * h * wd) if k == 1 else (n, h, wd)  # a 1x1's rows
-    p = CV.tma_staged_fwd_plan(*geo, ci, co, k, CV._sms(index))
+    p = CV.tma_staged_fwd_plan(*geo, ci, co, k, CV._sms(index),
+                               esize=4 if f32 else 2)
     y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device,
                     memory_format=_CL)
-    # s and the CTAs' entries in one buffer, both written whole
-    buf = torch.empty(2 * co * (1 + p.grid // p.col_tiles),
-                      dtype=torch.float32, device=x.device)
-    s, ws = buf[:2 * co].view(2, co), buf[2 * co:]
+    # s, the CTAs' entries and (float32) the weight's split in one buffer,
+    # each written whole
+    entries = 2 * co * (1 + p.grid // p.col_tiles)
+    buf = torch.empty(entries + 2 * wt.numel() * f32, dtype=torch.float32,
+                      device=x.device)
+    s, ws = buf[:2 * co].view(2, co), buf[2 * co:entries]
+    stream = torch._C._cuda_getCurrentRawStream(index)
     with CV._on_device(index):
-        err = _lib("fused_conv").fused_conv_fwd(
-            x.data_ptr(), ab.data_ptr(), wt.data_ptr(), y.data_ptr(),
-            s.data_ptr(), ws.data_ptr(), *geo, ci, co, k, p.wb, p.hb, p.bn,
-            int(p.resident), p.stages, p.grid, p.eslots,
-            torch._C._cuda_getCurrentRawStream(index))
-    raise_on(err, "fused_conv_fwd")
-    conv_fwd.launches += 1
+        lib = _lib("fused_conv")
+        if f32:
+            err = lib.fused_conv_fwd_f32(
+                x.data_ptr(), ab.data_ptr(), wt.data_ptr(),
+                buf[entries:].data_ptr(), y.data_ptr(), s.data_ptr(),
+                ws.data_ptr(), *geo, ci, co, k, p.wb, p.hb, p.bn, p.stages,
+                p.grid, p.eslots, stream)
+        else:
+            err = lib.fused_conv_fwd(
+                x.data_ptr(), ab.data_ptr(), wt.data_ptr(), y.data_ptr(),
+                s.data_ptr(), ws.data_ptr(), *geo, ci, co, k, p.wb, p.hb,
+                p.bn, int(p.resident), p.stages, p.grid, p.eslots, stream)
+    raise_on(err, "fused_conv_fwd_f32" if f32 else "fused_conv_fwd")
     return y, s
 
 
@@ -273,10 +331,31 @@ def conv_bwd(x, ab, w, y, dy, ds):
     in a fixed order), then dx and dab (``tdx``, tiled by
     tma_bwd_dx_plan); no atomics, so two calls on the same inputs are
     bit-equal. Each kernel's launches are counted in
-    ``conv_bwd.by_kernel``.
+    ``conv_bwd.by_kernel`` (``tdw_f32`` and ``tdx_f32`` in float32).
+    Float32 tensors go to :func:`conv_bwd32`.
     """
     if on_cpu(x, ab, w, y, dy, ds):
         return conv_bwd_reference(x, ab, w, y, dy, ds)
+    if x.dtype == torch.float32:
+        return conv_bwd32(x, ab, w, y, dy, ds)
+    out = _launch_bwd(x, ab, w, y, dy, ds)
+    conv_bwd.launches += 1
+    return out
+
+
+def conv_bwd32(x, ab, w, y, dy, ds):
+    """:func:`conv_bwd` in float32 on CUDA tensors: ``fused_conv_bwd_f32``,
+    csrc/conv_bwd.cuh's ``tdw_f32`` (its boxes rewritten in place through
+    relu(x*a + b) and dy_eff) and ``tdx_f32`` (dy_eff formed in registers
+    before the split), both float32 products by split TF32."""
+    _need_f32("conv_bwd32", x)
+    out = _launch_bwd(x, ab, w, y, dy, ds)
+    conv_bwd32.launches += 1
+    return out
+
+
+def _launch_bwd(x, ab, w, y, dy, ds):
+    """The backward's launches on the kernels of x's dtype (CUDA tensors)."""
     from tensorflow_ocr_tpu_torch.ops import conv as CV
 
     dy = dy.contiguous(memory_format=_CL)
@@ -284,8 +363,7 @@ def conv_bwd(x, ab, w, y, dy, ds):
     if ds is None:
         ds = torch.zeros((2, co), dtype=torch.float32, device=x.device)
     _check(x, x=x, ab=ab, y=y, dy=dy, ds=ds)
-    if w.dtype != torch.bfloat16 or w.device != x.device:
-        raise TypeError(f"w: need bfloat16 on {x.device}")
+    _check_weight(x, w)
     if tuple(y.shape) != (n, co, h, wd) or dy.shape != y.shape \
             or tuple(ds.shape) != (2, co):
         raise ValueError(f"y {tuple(y.shape)}, dy {tuple(dy.shape)}, ds "
@@ -295,30 +373,46 @@ def conv_bwd(x, ab, w, y, dy, ds):
     aligned16(x=x, ab=ab, y=y, dy=dy, ds=ds)
     index = x.device.index
     sms = CV._sms(index)
+    f32 = x.dtype == torch.float32
+    esize = 4 if f32 else 2
     geo = (1, 1, n * h * wd) if k == 1 else (n, h, wd)  # a 1x1's rows
-    pw = CV.tma_dw_plan(*geo, ci, co, k, sms, aux=2)
-    px = CV.tma_bwd_dx_plan(*geo, ci, co, k, sms, 2, True)
-    # dW, the clusters' tables, dab and its partial entries in one buffer:
-    # the wrapper's host time is of the order of a small shape's device time
+    pw = CV.tma_dw_plan(*geo, ci, co, k, sms, aux=esize, esize=esize)
+    px = CV.tma_bwd_dx_plan(*geo, ci, co, k, sms, esize, True, esize=esize)
+    # dW, the clusters' tables, dab, its partial entries and (float32)
+    # wflip's split in one buffer: the wrapper's host time is of the order
+    # of a small shape's device time
     kdim, tables = k * k * ci * co, pw.splits // pw.cluster
     parts = px.grid // px.col_tiles * 2 * ci
+    split = 2 * kdim * f32
     buf = torch.empty(kdim * (1 + (tables if tables > 1 else 0)) + 2 * ci
-                      + parts, dtype=torch.float32, device=x.device)
+                      + parts + split, dtype=torch.float32, device=x.device)
     dw, dab = buf[:kdim], buf[kdim:kdim + 2 * ci].view(2, ci)
-    ws_dw, ws_dab = buf[kdim + 2 * ci:-parts], buf[-parts:]
+    end = buf.numel() - split
+    ws_dw, ws_dab = buf[kdim + 2 * ci:end - parts], buf[end - parts:end]
     dx = torch.empty_like(x, memory_format=_CL)
+    stream = torch._C._cuda_getCurrentRawStream(index)
     with torch.cuda.device(x.device):
-        err = _lib("fused_conv").fused_conv_bwd(
-            x.data_ptr(), ab.data_ptr(), wflip.data_ptr(), y.data_ptr(),
-            dy.data_ptr(), ds.data_ptr(), dx.data_ptr(), dab.data_ptr(),
-            dw.data_ptr(), ws_dw.data_ptr(), ws_dab.data_ptr(), *geo, ci,
-            co, k, pw.wb, pw.hb, pw.bn, int(pw.two), pw.stages, pw.splits,
-            pw.cluster, px.wb, px.hb, px.bn, int(px.resident), px.stages,
-            px.grid, px.eslots, torch._C._cuda_getCurrentRawStream(index))
-    raise_on(err, "fused_conv_bwd")
-    conv_bwd.launches += 1
+        lib = _lib("fused_conv")
+        if f32:
+            err = lib.fused_conv_bwd_f32(
+                x.data_ptr(), ab.data_ptr(), wflip.data_ptr(),
+                buf[end:].data_ptr(), y.data_ptr(), dy.data_ptr(),
+                ds.data_ptr(), dx.data_ptr(), dab.data_ptr(), dw.data_ptr(),
+                ws_dw.data_ptr(), ws_dab.data_ptr(), *geo, ci, co, k, pw.wb,
+                pw.hb, pw.bn, int(pw.two), pw.stages, pw.splits, pw.cluster,
+                px.wb, px.hb, px.bn, px.stages, px.grid, px.eslots, stream)
+        else:
+            err = lib.fused_conv_bwd(
+                x.data_ptr(), ab.data_ptr(), wflip.data_ptr(), y.data_ptr(),
+                dy.data_ptr(), ds.data_ptr(), dx.data_ptr(), dab.data_ptr(),
+                dw.data_ptr(), ws_dw.data_ptr(), ws_dab.data_ptr(), *geo, ci,
+                co, k, pw.wb, pw.hb, pw.bn, int(pw.two), pw.stages,
+                pw.splits, pw.cluster, px.wb, px.hb, px.bn,
+                int(px.resident), px.stages, px.grid, px.eslots, stream)
+    raise_on(err, "fused_conv_bwd_f32" if f32 else "fused_conv_bwd")
     for kernel in conv_bwd.by_kernel:
-        conv_bwd.by_kernel[kernel] += 1
+        if kernel.endswith("_f32") == f32:
+            conv_bwd.by_kernel[kernel] += 1
     dw = dw.view(k, k, ci, co).permute(3, 2, 0, 1).to(w.dtype)
     return dx, dab, dw.contiguous()
 
@@ -338,9 +432,11 @@ def _boundary_shapes(z, ab, zs, abs_):
             or tuple(abs_.shape) != (2, c):
         raise ValueError(f"z {tuple(z.shape)}, zs {tuple(zs.shape)}, ab "
                          f"{tuple(ab.shape)}, abs {tuple(abs_.shape)}")
-    if c % 8 or c > 8192:
-        raise ValueError(f"the boundary kernel takes C % 8 == 0, C <= 8192; "
-                         f"got {c}")
+    # a row's 16-byte vectors, one a thread, at most 1024
+    cmax = 4096 if z.dtype == torch.float32 else 8192
+    if c % 8 or c > cmax:
+        raise ValueError(f"the boundary kernel takes C % 8 == 0, C <= "
+                         f"{cmax} in {z.dtype}; got {c}")
     m = z.numel() // c
     if z.numel() >= 2 ** 31:
         raise ValueError("shape overflows the kernel's int32 indices")
@@ -350,32 +446,72 @@ def _boundary_shapes(z, ab, zs, abs_):
 def boundary_fwd(z, ab, zs, abs_):
     """relu(z*a + b + zs*as + bs): BN3's affine, the shortcut's affine,
     the residual add and the relu in one pass. z, zs (N, C, H, W)
-    channels-last; ab, abs_ (2, C) float32."""
+    channels-last; ab, abs_ (2, C) float32. Float32 tensors go to
+    :func:`boundary_fwd32`."""
     if on_cpu(z, ab, zs, abs_):
         return boundary_fwd_reference(z, ab, zs, abs_)
+    if z.dtype == torch.float32:
+        return boundary_fwd32(z, ab, zs, abs_)
+    out = _launch_boundary_fwd(z, ab, zs, abs_)
+    boundary_fwd.launches += 1
+    return out
+
+
+def boundary_fwd32(z, ab, zs, abs_):
+    """:func:`boundary_fwd` in float32 on CUDA tensors
+    (``fused_boundary_fwd_f32``: 16-byte vectors of 4 channels)."""
+    _need_f32("boundary_fwd32", z)
+    out = _launch_boundary_fwd(z, ab, zs, abs_)
+    boundary_fwd32.launches += 1
+    return out
+
+
+def _launch_boundary_fwd(z, ab, zs, abs_):
     _check(z, z=z, ab=ab, zs=zs, abs_=abs_)
     m, c = _boundary_shapes(z, ab, zs, abs_)
     out = torch.empty_like(z, memory_format=_CL)
+    entry = ("fused_boundary_fwd_f32" if z.dtype == torch.float32
+             else "fused_boundary_fwd")
     with torch.cuda.device(z.device):
-        err = _lib("fused_boundary").fused_boundary_fwd(
+        err = getattr(_lib("fused_boundary"), entry)(
             z.data_ptr(), ab.data_ptr(), zs.data_ptr(), abs_.data_ptr(),
             out.data_ptr(), m, c, cuda_stream())
-    raise_on(err, "fused_boundary_fwd")
-    boundary_fwd.launches += 1
+    raise_on(err, entry)
     return out
 
 
 def boundary_bwd(g, z, ab, zs, abs_):
     """Backward of :func:`boundary_fwd`: dz, dab, dzs, dabs with
     gm = g·[pre > 0]: dz = gm*a, dzs = gm*as, dab = [Σ gm*z, Σ gm],
-    dabs = [Σ gm*zs, Σ gm]."""
+    dabs = [Σ gm*zs, Σ gm]. Float32 tensors go to
+    :func:`boundary_bwd32`."""
     if on_cpu(g, z, ab, zs, abs_):
         return boundary_bwd_reference(g, z, ab, zs, abs_)
+    if z.dtype == torch.float32:
+        return boundary_bwd32(g, z, ab, zs, abs_)
+    out = _launch_boundary_bwd(g, z, ab, zs, abs_)
+    boundary_bwd.launches += 1
+    return out
+
+
+def boundary_bwd32(g, z, ab, zs, abs_):
+    """:func:`boundary_bwd` in float32 on CUDA tensors
+    (``fused_boundary_bwd_f32``: the same per-block partials and the same
+    fixed-order second pass)."""
+    _need_f32("boundary_bwd32", z)
+    out = _launch_boundary_bwd(g, z, ab, zs, abs_)
+    boundary_bwd32.launches += 1
+    return out
+
+
+def _launch_boundary_bwd(g, z, ab, zs, abs_):
     g = g.contiguous(memory_format=_CL)
     _check(z, g=g, z=z, ab=ab, zs=zs, abs_=abs_)
     m, c = _boundary_shapes(z, ab, zs, abs_)
     if g.shape != z.shape:
         raise ValueError(f"g {tuple(g.shape)} vs z {tuple(z.shape)}")
+    f32 = z.dtype == torch.float32
+    sfx = "_f32" if f32 else ""
     dz = torch.empty_like(z, memory_format=_CL)
     dzs = torch.empty_like(zs, memory_format=_CL)
     dab = torch.empty((2, c), dtype=torch.float32, device=z.device)
@@ -383,22 +519,23 @@ def boundary_bwd(g, z, ab, zs, abs_):
     with torch.cuda.device(z.device):
         lib = _lib("fused_boundary")
         # each block's partial sums, added in block order by a second pass
-        blocks = lib.fused_boundary_bwd_blocks(m, c)
+        blocks = getattr(lib, f"fused_boundary_bwd_blocks{sfx}")(m, c)
         part = torch.empty((blocks, 3, c), dtype=torch.float32,
                            device=z.device)
-        err = lib.fused_boundary_bwd(
+        err = getattr(lib, f"fused_boundary_bwd{sfx}")(
             g.data_ptr(), z.data_ptr(), ab.data_ptr(), zs.data_ptr(),
             abs_.data_ptr(), dz.data_ptr(), dzs.data_ptr(), dab.data_ptr(),
             dabs.data_ptr(), part.data_ptr(), m, c, blocks, cuda_stream())
-    raise_on(err, "fused_boundary_bwd")
-    boundary_bwd.launches += 1
+    raise_on(err, f"fused_boundary_bwd{sfx}")
     return dz, dab, dzs, dabs
 
 
-for _fn in (conv_fwd, conv_bwd, boundary_fwd, boundary_bwd):
+for _fn in (conv_fwd, conv_bwd, boundary_fwd, boundary_bwd, conv_fwd32,
+            conv_bwd32, boundary_fwd32, boundary_bwd32):
     _fn.launches = 0
-# the backward's two kernels (csrc/conv_bwd.cuh): dW and dX
-conv_bwd.by_kernel = {"tdw": 0, "tdx": 0}
+# the backward's two kernels (csrc/conv_bwd.cuh): dW and dX, in bfloat16
+# and in float32
+conv_bwd.by_kernel = {"tdw": 0, "tdx": 0, "tdw_f32": 0, "tdx_f32": 0}
 
 
 # --------------------------------------------------------------------------
