@@ -121,17 +121,36 @@ Phases, in order; any failure raises and exits non-zero:
    FLOPs, bytes and bound of each call, the conv forward's device ms and
    conv-alone yardstick, the conv backward's dW and dX and the seam's
    device ms, and each conv kernel's and the seam's ms a train step;
+14b. the five ghost kernels in float32 (ghost_unit.cu's float32 entries:
+   conv_bwd.cuh tdx_f32 with BandActTr32 and GhostTr32, tdw_f32 with
+   GhostTr32, gboundary32, tseam32) along one unit's chain at the 4 ghost
+   unit shapes: y, the band sums, dw, gm, its sums, dx, the seam's terms
+   and sums each within F32_ERR_MULTIPLE times the plain float32
+   version's error (TF32 off) against the float64 result, the boundary's
+   out within F32_BOUNDARY_ULPS of the plain version's, its gm equal and
+   its sums to the same rule; each launched twice and bit-equal; kernel
+   and plain ms, bound and the float32 conv-alone yardsticks, each
+   kernel's ms a train step;
 15. with --faults only: the readings of the ghost arm check (phase 16)
    in 3 sound runs and under planted faults, which set GHOST_ARM_*, from
-   the augmented state;
+   the augmented state; and in float32 (phase 16b's), which set
+   F32_GHOST_ARM_*;
 16. the ghost arm (bottleneck_impl "ghost": 5 ghost units, the other 8
    stride-1 units plain): 3 steps through Trainer.run with the five
    kernels' launch counts at their expected values (the conv backward's
    by kernel too); one step on the
    kernels against one on the plain versions from the augmented state
    (GHOST_ARM_* bounds); one freeze_bn step (no ghost kernel);
+16b. the ghost arm in float32 (model.compute_dtype "float32"): 3 steps
+   through Trainer.run, GHOST_F32_STEP_LAUNCHES a step on the float32
+   kernels (tdw_f32 and tdx_f32 17 a step each) and none on a bfloat16
+   one; eager img/s and the peak memory; one step on the kernels against
+   one on the plain float32 versions (TF32 off) from the augmented state
+   (F32_GHOST_ARM_* bounds); one float32 freeze_bn step (no ghost
+   kernel);
 17. multi-step = eager: for the fused, ghost, xla, xla pallas-conv,
-   float32 xla pallas-conv and float32 fused arms, one make_multi_train_step dispatch of 4 steps (one step
+   float32 xla pallas-conv, float32 fused and float32 ghost arms, one
+   make_multi_train_step dispatch of 4 steps (one step
    captured into a CUDA graph after 2 warm-up steps, replayed 4 times)
    against 4 eager train_step calls from the same state and dataset rows
    (64 numpy scenes on the card, labels precomputed there), under
@@ -158,7 +177,7 @@ Phases, in order; any failure raises and exits non-zero:
 21. train img/s for the fused, xla, freeze_bn-fused, xla pallas-conv and
    ghost arms, each over 2 windows of at least 1 s (median and range);
 22. the same five arms through make_multi_train_step, 16 steps a
-   dispatch (the graph replayed), over 2 windows of at least 1 s; with
+   dispatch (the graph replayed), over 1 window of at least 1 s; with
    --profile also the device idle share of one dispatch of the fused and
    ghost arms;
 23. with --profile only: a torch.profiler trace of 3 train steps of the
@@ -184,7 +203,7 @@ Phases, in order; any failure raises and exits non-zero:
    on 8 x 1280x768 scenes (an operating point planted if few pixels pass
    the score threshold), east_detect on the card equal to the CPU's on
    the same maps, the boxes NMS keeps equal to the CPU decode's; detect
-   p50 and serve img/s over 2 windows of 2 s, with the host NMS ms;
+   p50 and serve img/s over 1 window of 2 s, with the host NMS ms;
 29. pixellink2s_vgg16 (OHEM, labels at stride 2): eager train img/s and
    peak memory; detect through the CC kernel, held against its plain
    version at the stride-2 maps (8, 384, 640); detect and serve timed;
@@ -318,8 +337,8 @@ LINK8_MODEL = "link8_resnet50"
 # phase 4: float32 on the card (TF32 off) vs the CPU differ only in the
 # order of summation (and cuDNN's choice of algorithm) over ~55 convs
 FWD_REL_TOL = 1e-4
-# EAST detect and serve: each metric is read over WINDOWS windows of at
-# least WINDOW_S; the PixelLink detect and serve of phase 6 and the VGG
+# EAST detect and serve: each metric is read over EAST_WINDOWS windows of
+# at least WINDOW_S; the PixelLink detect and serve of phase 6 and the VGG
 # model's over windows of PIXELLINK_WINDOW_S (shortened when the EAST
 # phases came, to keep the script within half its time limit; the EAST
 # windows, 10 s before, when the data phase came; 2 windows, 3 before,
@@ -329,6 +348,10 @@ FWD_REL_TOL = 1e-4
 WINDOW_S = 2.0
 WINDOWS = 2
 PIXELLINK_WINDOW_S = 2.0
+# EAST detect and serve: one window each (each serve window holds 3
+# batches of ~4 s of host NMS; 2 windows until the float32 ghost arm's
+# phases came)
+EAST_WINDOWS = 1
 # the train phases: bench.py's train shape, steps of the main path, and
 # the EAST eager train img/s read over TRAIN_WINDOWS windows of at least
 # TRAIN_WINDOW_S (10 s until the data phase came, 5 s until the float32
@@ -350,6 +373,10 @@ EAST_SERVE_STEPS = 448
 # float32 route's phases came, 2 s until the float32 fused arm's came)
 ARM_WINDOWS = 2
 ARM_WINDOW_S = 1.0
+# the graph dispatch's img/s (phase 22): one window an arm (a dispatch
+# of 16 steps takes 2-3 s; 2 windows until the float32 ghost arm's
+# phases came)
+GRAPH_WINDOWS = 1
 # fused vs xla arm, one step each from one state and batch, in bf16. At
 # the seeded init (every BN scale 1) the bf16 step is chaotic: two runs
 # of the fused arm alone differ by a gradient relative error of ~1, as
@@ -783,10 +810,10 @@ def phase_timing(pred, images):
     time_detect_serve(pred, images, PIXELLINK_WINDOW_S)
 
 
-def time_detect_serve(pred, images, window_s, label=""):
+def time_detect_serve(pred, images, window_s, label="", windows=WINDOWS):
     """Detect p50 at batch 1 (pred.detect on images[0]) and serve img/s
-    at batch 8 (detect_batches, depth 2), each over WINDOWS windows of at
-    least ``window_s`` after a warm-up, printed with the medians of the
+    at batch 8 (detect_batches, depth 2), each over ``windows`` windows of
+    at least ``window_s`` after a warm-up, printed with the medians of the
     windows. With an EAST predictor also the host NMS ms of each call
     (pred.nms_ms) and the boxes of the last."""
     one = images[0]
@@ -794,7 +821,7 @@ def time_detect_serve(pred, images, window_s, label=""):
         pred.detect(one)
     east = pred.is_east
     p50s, nms = [], []
-    for i in range(WINDOWS):
+    for i in range(windows):
         lat = []
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < window_s:
@@ -806,7 +833,7 @@ def time_detect_serve(pred, images, window_s, label=""):
               f"{min(lat):.3f}, max {max(lat):.3f}, n={len(lat)})")
     print(f"{label}detect 1280x768 batch 1: p50 "
           f"{statistics.median(p50s):.3f} ms "
-          f"(median of {WINDOWS} windows of >= {window_s:g} s; window p50s "
+          f"(median of {windows} windows of >= {window_s:g} s; window p50s "
           f"{min(p50s):.3f}..{max(p50s):.3f})"
           + (f"; host NMS p50 {statistics.median(nms):.3f} ms of it, "
              f"{len(boxes)} boxes" if east else ""))
@@ -814,7 +841,7 @@ def time_detect_serve(pred, images, window_s, label=""):
     for _ in pred.detect_batches([images] * 3):
         pass
     rates, nms = [], []
-    for i in range(WINDOWS):
+    for i in range(windows):
         sent = 0
         t0 = time.perf_counter()
 
@@ -834,7 +861,7 @@ def time_detect_serve(pred, images, window_s, label=""):
         print(f"{label}serve window {i}: {rates[-1]:.2f} img/s ({sent} "
               f"batches in {dt:.3f} s)")
     print(f"{label}detect_batches 1280x768 batch {len(images)} depth 2: "
-          f"{statistics.median(rates):.2f} img/s (median of {WINDOWS} "
+          f"{statistics.median(rates):.2f} img/s (median of {windows} "
           f"windows of >= {window_s:g} s; windows {min(rates):.2f}.."
           f"{max(rates):.2f})"
           + (f"; host NMS p50 {statistics.median(nms):.3f} ms a batch"
@@ -2929,6 +2956,20 @@ GHOST_ARM_LOSS_REL = 5e-4
 GHOST_ARM_GRAD_REL = 2.5e-2
 GHOST_ARM_COS_MIN = 0.98
 GHOST_ARM_UNIT_REL = 7.5e-2
+# the float32 ghost arm on its kernels against the same arm on the plain
+# float32 versions (TF32 off in both), one step each from the augmented
+# state: bounds between the sound runs' largest reading and the planted
+# faults' smallest (--faults, scripts/ghost_f32_probe.py --faults; PERF.md,
+# Findings; H100 80GB HBM3 at 700 W): sound loss 0, gradient 1.2483e-4,
+# cosine 0.999999, unit 2.6350e-4 (4 runs); the dropped seam terms
+# gradient 1.1618e-1, cosine 0.972100, unit 2.5222e-1; the halo rows under
+# their own band's affine loss 2.055e-3, gradient 6.6969e-2, cosine
+# 0.980702, unit 1.0917e-1; dW2 x 0.9 gradient 5.4650e-2, unit 9.9999e-2
+# (cosine 0.999999): every fault fails the gradient and unit bounds
+F32_GHOST_ARM_LOSS_REL = 1e-5
+F32_GHOST_ARM_GRAD_REL = 2.5e-3
+F32_GHOST_ARM_COS_MIN = 0.999
+F32_GHOST_ARM_UNIT_REL = 1e-2
 # the ghost units of the step (the worst-parameter reading above)
 GHOST_UNIT_NAMES = ("block1_unit1", "block1_unit2", "block2_unit1",
                     "block2_unit2", "block2_unit3")
@@ -2937,16 +2978,18 @@ GHOST_UNIT_NAMES = ("block1_unit1", "block1_unit2", "block2_unit1",
 def reset_ghost_counts():
     from tensorflow_ocr_tpu_torch.ops import ghost as G
 
-    for attr, _ in GHOST_KERNELS.values():
+    for attr, _ in (*GHOST_KERNELS.values(), *GHOST_F32_KERNELS.values()):
         getattr(G, attr).launches = 0
     G.conv_bwd.by_kernel = dict.fromkeys(G.conv_bwd.by_kernel, 0)
 
 
-def ghost_counts():
+def ghost_counts(kernels=None):
+    """{name: launches} of the ghost kernels (GHOST_KERNELS, the bfloat16
+    ones, by default; GHOST_F32_KERNELS for the float32 ones)."""
     from tensorflow_ocr_tpu_torch.ops import ghost as G
 
     return {name: getattr(G, attr).launches
-            for name, (attr, _) in GHOST_KERNELS.items()}
+            for name, (attr, _) in (kernels or GHOST_KERNELS).items()}
 
 
 def f32_close(name, got, want):
@@ -3204,6 +3247,267 @@ def phase_ghost_kernels(device, reports):
           "the forward's product, not the same function")
 
 
+# the ghost unit's float32 kernels (ops/ghost.py conv_fwd32,
+# boundary_fwd32, boundary_bwd32, conv_bwd32, seam_bwd32): the same source
+# and sites, the same launches a step as the bfloat16 ones
+GHOST_F32_KERNELS = {f"{name}_f32": (f"{attr}32", sites)
+                     for name, (attr, sites) in GHOST_KERNELS.items()}
+GHOST_F32_STEP_LAUNCHES = {f"{name}_f32": n
+                           for name, n in GHOST_STEP_LAUNCHES.items()}
+
+
+def phase_ghost_kernels_f32(device, reports):
+    """Each ghost kernel in float32 against its plain float32 version at
+    each unit shape of the step (GHOST_SHAPES), along one unit's chain as
+    phase 14 (each kernel fed the plain version's outputs of the stage
+    before): the conv forwards' y and band sums, the conv backwards' dw,
+    gm, its sums and dx, the seam's terms and sums, each within
+    F32_ERR_MULTIPLE times the plain version's error (TF32 off) against
+    the float64 result of the plain versions; the boundary's out within
+    F32_BOUNDARY_ULPS of the plain version's, its gm equal to it (dout or
+    0) and its sums to the 4x rule; every kernel launched twice and
+    bit-equal. Prints kernel and plain ms (CUDA events), the bound (split
+    TF32 at PEAK_F32_SPLIT for the convs and the seam, PEAK_F32 for the
+    boundary, bytes at the HBM rate) and the conv-alone yardsticks in
+    float32 (TF32 off: torch.matmul / F.conv2d of the forward's product
+    on the input activated under its own band, and the backward's two
+    products on it and dz), and each kernel's ms a train step.
+    max_abs_err: against float64, the boundary's out against the plain
+    version."""
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import ghost as G
+    from tensorflow_ocr_tpu_torch.ops.fused import full_f32
+
+    gen = torch.Generator().manual_seed(19)
+    f32, f64, cl = torch.float32, torch.float64, torch.channels_last
+    eps = 1e-5
+    # no one PyTorch call computes a ghost-BN unit or a part of it; the
+    # conv-alone yardsticks are printed
+    for r in reports.values():
+        r.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None)
+    ratio = dict.fromkeys(reports, 0.0)
+
+    def act(n, c, h, w, scale=1.0, relu=False):
+        t = torch.randn(n, c, h, w, generator=gen) * scale
+        t = torch.relu(t) if relu else t
+        return t.to(device=device, dtype=f32).contiguous(memory_format=cl)
+
+    def weight(co, ci, k):
+        return (torch.randn(co, ci, k, k, generator=gen)
+                / (k * k * ci) ** 0.5).to(device=device, dtype=f32)
+
+    def gbt(c):
+        return torch.stack([torch.empty(c).uniform_(0.5, 1.5, generator=gen),
+                            torch.randn(c, generator=gen) * 0.1]).to(device)
+
+    def up(*ts):
+        return [None if t is None else t.to(f64).contiguous(memory_format=cl)
+                if t.dim() == 4 else t.to(f64) for t in ts]
+
+    def twice(name, fn):
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        check(all((a is None and b is None) or torch.equal(a, b)
+                  for a, b in zip(got, again)),
+              f"{name}: two launches on the same inputs differ")
+        return got
+
+    def note(name, errs):
+        r = reports[name]
+        r["max_abs_err"] = max(r["max_abs_err"], *(e for e, _ in errs))
+        ratio[name] = max(ratio[name], *(q for _, q in errs))
+        return max(e for e, _ in errs), max(q for _, q in errs)
+
+    step = {k: 0.0 for k in ("fwd", "fbound", "falone", "bwd", "bbound",
+                             "balone", "seam", "sbound", "bnd", "bndb")}
+
+    def timed(name, kernel, plain, flops, nbytes, peak):
+        ms, pms = cuda_ms(kernel, 5), cuda_ms(plain, 2)
+        bound = add_bound(reports[name], flops, nbytes, peak)
+        reports[name]["ms"] += ms
+        reports[name]["plain_ms"] += pms
+        return ms, pms, bound
+
+    def conv_fwd(what, x, tab, w, gh):
+        got = twice(f"ghost conv_fwd f32 {what}",
+                    lambda: G.conv_fwd(x, tab, w, gh))
+        want = G.conv_fwd_reference(x, tab, w, gh)
+        exact = G.conv_fwd_reference(*up(x, tab, w), gh)
+        e, q = note("ghost_conv_fwd_f32", [
+            f32_rule(f"ghost fwd f32 y {what}", got[0], want[0], exact[0]),
+            f32_rule(f"ghost fwd f32 s {what}", got[1], want[1], exact[1])])
+        del exact
+        n, ci, h, wd = x.shape
+        co, k = w.shape[0], w.shape[-1]
+        m, nbt = n * h * wd, n * (h // gh)
+        ms, pms, bound = timed(
+            "ghost_conv_fwd_f32", lambda: G.conv_fwd(x, tab, w, gh),
+            lambda: G.conv_fwd_reference(x, tab, w, gh),
+            2 * m * k * k * ci * co,
+            4 * m * (ci + co) + 4 * k * k * ci * co + 8 * nbt * (ci + co),
+            PEAK_F32_SPLIT)
+        with full_f32():
+            alone = conv_alone_ms(G._act(x, tab, gh), w, 5)
+        for key, v in (("fwd", ms), ("fbound", bound), ("falone", alone)):
+            step[key] += units * v
+        print(f"ghost_conv_fwd_f32 {what}: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f}, bound {bound:.4f}, conv alone (f32, TF32 off) "
+              f"{alone:.4f}; max abs err against float64 {e:.3e} (x{q:.2f} "
+              f"the plain's); {units} a step; bit-equal twice")
+        return want
+
+    def conv_bwd(what, x, tx, g, z, td, w, gh, edge=None, addend=None,
+                 out="gm"):
+        args = (x, tx, g, z, td, w, gh, edge, addend, out)
+        got = twice(f"ghost conv_bwd f32 {what}", lambda: G.conv_bwd(*args))
+        want = G.conv_bwd_reference(*args)
+        exact = G.conv_bwd_reference(*up(x, tx, g, z, td, w), gh,
+                                     *up(edge, addend), out)
+        rules = [f32_rule(f"ghost bwd f32 dw {what}", got[2], want[2],
+                          exact[2]),
+                 f32_rule(f"ghost bwd f32 dx {what}", got[0], want[0],
+                          exact[0])]
+        if out == "gm":
+            rules += [f32_rule(f"ghost bwd f32 sums {what}", got[1],
+                               want[1], exact[1])]
+        e, q = note("ghost_conv_bwd_f32", rules)
+        del exact
+        n, ci, h, wd = x.shape
+        co, k = w.shape[0], w.shape[-1]
+        m, nbt = n * h * wd, n * (h // gh)
+        nbytes = (8 * m * (ci + co) + 8 * k * k * ci * co
+                  + (0 if addend is None else 4 * m * ci)
+                  + (0 if edge is None else edge.numel() * 4)
+                  + 4 * nbt * (5 * co + 4 * ci))
+        ms, pms, bound = timed("ghost_conv_bwd_f32",
+                               lambda: G.conv_bwd(*args),
+                               lambda: G.conv_bwd_reference(*args),
+                               4 * m * k * k * ci * co, nbytes,
+                               PEAK_F32_SPLIT)
+        dz = G._dz(g, z, td, gh, edge).contiguous(memory_format=cl)
+        with full_f32():
+            alone = bwd_alone_ms(G._act(x, tx, gh), w, dz, 5)
+        del dz
+        for key, v in (("bwd", ms), ("bbound", bound), ("balone", alone)):
+            step[key] += units * v
+        print(f"ghost_conv_bwd_f32 {what}: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f}, bound {bound:.4f}, conv alone (f32, TF32 off) "
+              f"{alone:.4f}; max abs err against float64 {e:.3e} (x{q:.2f} "
+              f"the plain's); {units} a step; bit-equal twice")
+        return want
+
+    for (n, h, wd, ci, db, co, gh), units in zip(GHOST_SHAPES,
+                                                 GHOST_SHAPE_UNITS):
+        proj, cnt = ci != co, float(gh * wd)
+        tag = (f"{'proj' if proj else 'identity'} {ci}/{db}/{co} at "
+               f"{n}x{h}x{wd} gh {gh}")
+        m, nbt = n * h * wd, n * (h // gh)
+        o = act(n, ci, h, wd, relu=True)
+        w1, w2, w3 = weight(db, ci, 1), weight(db, db, 3), weight(co, db, 1)
+        gb1, gb2, gb3 = gbt(db), gbt(db), gbt(co)
+        z1, s1 = conv_fwd(f"z1 {tag}", o, None, w1, gh)
+        t1 = G.affine_of(s1, gb1, cnt, eps)
+        z2, s2 = conv_fwd(f"z2 {tag}", z1, t1, w2, gh)
+        t2 = G.affine_of(s2, gb2, cnt, eps)
+        z3, s3 = conv_fwd(f"z3 {tag}", z2, t2, w3, gh)
+        t3 = G.affine_of(s3, gb3, cnt, eps)
+        if proj:
+            ws, gbs = weight(co, ci, 1), gbt(co)
+            zs, ss = conv_fwd(f"zs {tag}", o, None, ws, gh)
+            ts = G.affine_of(ss, gbs, cnt, eps)
+        else:
+            zs, ts = o, None
+        out = twice(f"ghost boundary_fwd f32 {tag}",
+                    lambda: (G.boundary_fwd(z3, t3, zs, ts, gh),))[0]
+        e = ulps_close(f"ghost boundary f32 out {tag}", out,
+                       G.boundary_fwd_reference(z3, t3, zs, ts, gh),
+                       F32_BOUNDARY_ULPS)
+        note("ghost_boundary_fwd_f32", [(e, 0.0)])
+        fms, fpms, fb = timed(
+            "ghost_boundary_fwd_f32",
+            lambda: G.boundary_fwd(z3, t3, zs, ts, gh),
+            lambda: G.boundary_fwd_reference(z3, t3, zs, ts, gh),
+            5 * m * co, 12 * m * co + 16 * nbt * co, PEAK_F32)
+        del out
+
+        dout = act(n, co, h, wd, 1e-2)
+        got = twice(f"ghost boundary_bwd f32 {tag}",
+                    lambda: G.boundary_bwd(dout, z3, t3, zs, ts, gh))
+        gm3, sb = G.boundary_bwd_reference(dout, z3, t3, zs, ts, gh)
+        exact = G.boundary_bwd_reference(*up(dout, z3, t3, zs, ts), gh)
+        check(torch.equal(got[0], gm3), f"ghost boundary_bwd f32 {tag}: gm "
+              "differs from the plain version's (dout or 0)")
+        eb, qb = note("ghost_boundary_bwd_f32", [
+            f32_rule(f"ghost boundary f32 sums {tag}", got[1], sb,
+                     exact[1])])
+        del got, exact
+        bms, bpms, bb = timed(
+            "ghost_boundary_bwd_f32",
+            lambda: G.boundary_bwd(dout, z3, t3, zs, ts, gh),
+            lambda: G.boundary_bwd_reference(dout, z3, t3, zs, ts, gh),
+            8 * m * co, 16 * m * co + 28 * nbt * co, PEAK_F32)
+        for key, v in (("bnd", fms + bms), ("bndb", fb + bb)):
+            step[key] += units * v
+        print(f"ghost boundary f32 {tag}: fwd {fms:.4f} ms (plain "
+              f"{fpms:.4f}, bound {fb:.4f}), bwd {bms:.4f} ms (plain "
+              f"{bpms:.4f}, bound {bb:.4f}); out within {e:.3e} of the "
+              f"plain's ({F32_BOUNDARY_ULPS} ulps), gm equal, sums "
+              f"x{qb:.2f} the plain's error; bit-equal twice")
+
+        def corr(dab, stats, gb, t):
+            c, _ = G.stat_corr(dab, stats, gb, cnt, eps)
+            return torch.cat([t[:, :, :1], c], 2).contiguous()
+
+        td3 = corr(sb[:, :, :2], s3, gb3, t3)
+        gm2, sb2, _ = conv_bwd(f"conv3 {tag}", z2, t2, gm3, z3, td3, w3, gh)
+        td2 = corr(sb2, s2, gb2, t2)
+        gm1, sb1, _ = conv_bwd(f"conv2 {tag}", z1, t1, gm2, z2, td2, w2, gh)
+        args = (gm2, z2, td2, z1, t1, w2, gh)
+        got = twice(f"ghost seam_bwd f32 {tag}", lambda: G.seam_bwd(*args))
+        edge, sh = G.seam_bwd_reference(*args)
+        exact = G.seam_bwd_reference(*up(gm2, z2, td2, z1, t1, w2), gh)
+        e, q = note("ghost_seam_bwd_f32", [
+            f32_rule(f"ghost seam f32 edge {tag}", got[0], edge, exact[0]),
+            f32_rule(f"ghost seam f32 sums {tag}", got[1], sh, exact[1])])
+        del got, exact
+        rows = 2 * nbt * wd
+        ms, pms, bound = timed(
+            "ghost_seam_bwd_f32", lambda: G.seam_bwd(*args),
+            lambda: G.seam_bwd_reference(*args), 2 * rows * 3 * db * db,
+            rows * db * 16 + 72 * db * db + 8 * nbt * db, PEAK_F32_SPLIT)
+        for key, v in (("seam", ms), ("sbound", bound)):
+            step[key] += units * v
+        print(f"ghost_seam_bwd_f32 {tag}: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f}, bound {bound:.4f}; max abs err against float64 "
+              f"{e:.3e} (x{q:.2f} the plain's); {units} a step; bit-equal "
+              "twice")
+        td1 = corr(sb1 + sh, s1, gb1, t1)
+        if proj:
+            tds = corr(sb[:, :, [2, 1]], ss, gbs, ts)
+            addend = conv_bwd(f"shortcut {tag}", o, None, gm3, zs, tds, ws,
+                              gh, out="f32")[0]
+        else:
+            addend = gm3
+        conv_bwd(f"conv1 {tag}", o, None, gm1, z1, td1, w1, gh, edge=edge,
+                 addend=addend, out="act")
+        del o, z1, z2, z3, zs, dout, gm3, gm2, gm1, edge, addend
+        torch.cuda.empty_cache()
+    print(f"ghost float32 kernels a train step (each call's ms times its "
+          f"units in a step): conv_fwd {step['fwd']:.4f} ms (bound "
+          f"{step['fbound']:.4f}, conv alone {step['falone']:.4f}), conv_bwd "
+          f"{step['bwd']:.4f} ms (bound {step['bbound']:.4f}, conv alone "
+          f"{step['balone']:.4f}), seam {step['seam']:.4f} ms (bound "
+          f"{step['sbound']:.4f}), boundary fwd + bwd {step['bnd']:.4f} ms "
+          f"(bound {step['bndb']:.4f}); the largest error ratio to the "
+          f"plain version's by kernel "
+          f"{ {k: round(v, 3) for k, v in ratio.items()} }")
+    print("ghost float32 kernels: ms, plain_ms and bound_ms in the kernels "
+          "line are sums over every call of one unit's chain at each of the "
+          f"{len(GHOST_SHAPES)} unit shapes; max_abs_err against float64 "
+          "(the boundary's out against the plain version); library_ms null: "
+          "no one call computes the function")
+
+
 @contextlib.contextmanager
 def plain_ghost():
     """The ghost unit's wrappers replaced by their plain versions inside
@@ -3234,24 +3538,65 @@ def ghost_readings(kernel, plain):
     return r
 
 
-def ghost_arm_readings(device, start, batch):
+def ghost_arm_readings(device, start, batch, dtype="bfloat16"):
     """One ghost-arm step on the kernels against one on the plain
-    versions, from the state ``start`` and one batch (ghost_readings)."""
-    kernel = arm_grads(device, start, batch, "ghost")
-    with plain_ghost():
-        plain = arm_grads(device, start, batch, "ghost")
+    versions, from the state ``start`` and one batch (ghost_readings), in
+    bf16 or ``dtype`` (float32: TF32 off in both)."""
+    with tf32_off(dtype):
+        kernel = arm_grads(device, start, batch, "ghost", dtype)
+        with plain_ghost():
+            plain = arm_grads(device, start, batch, "ghost", dtype)
     return ghost_readings(kernel, plain)
 
 
-def print_ghost_arms(label, r):
+def tf32_off(dtype):
+    """full_f32() for a float32 arm (its plain products in float32, TF32
+    off), nothing for a bfloat16 one."""
+    from tensorflow_ocr_tpu_torch.ops.fused import full_f32
+
+    return full_f32() if dtype == "float32" else contextlib.nullcontext()
+
+
+def ghost_arm_bounds(dtype="bfloat16"):
+    """(loss rel, gradient rel, cosine min, unit rel) of the ghost arm
+    check in ``dtype``."""
+    if dtype == "float32":
+        return (F32_GHOST_ARM_LOSS_REL, F32_GHOST_ARM_GRAD_REL,
+                F32_GHOST_ARM_COS_MIN, F32_GHOST_ARM_UNIT_REL)
+    return (GHOST_ARM_LOSS_REL, GHOST_ARM_GRAD_REL, GHOST_ARM_COS_MIN,
+            GHOST_ARM_UNIT_REL)
+
+
+def ghost_arm_passes(r, dtype="bfloat16") -> bool:
+    loss, grad, cos, unit = ghost_arm_bounds(dtype)
+    return (r["rel_loss"] <= loss and r["grad_rel"] <= grad
+            and r["worst"][1] >= cos and r["unit"][1] <= unit)
+
+
+def print_ghost_arms(label, r, dtype="bfloat16"):
+    loss, grad, cos, unit = ghost_arm_bounds(dtype)
     print(f"{label}: loss {r['loss'][0]:.6f} / {r['loss'][1]:.6f} (rel "
-          f"{r['rel_loss']:.3e}, tol {GHOST_ARM_LOSS_REL:g}); gradient norm "
+          f"{r['rel_loss']:.3e}, tol {loss:g}); gradient norm "
           f"{r['norm'][0]:.6f} / {r['norm'][1]:.6f}, rel err "
-          f"{r['grad_rel']:.4e} (tol {GHOST_ARM_GRAD_REL:g}); worst "
+          f"{r['grad_rel']:.4e} (tol {grad:g}); worst "
           f"parameter cosine {r['worst'][1]:.6f} at {r['worst'][0]} (min "
-          f"{GHOST_ARM_COS_MIN:g}); worst ghost-unit parameter rel err "
-          f"{r['unit'][1]:.4e} at {r['unit'][0]} (tol "
-          f"{GHOST_ARM_UNIT_REL:g})")
+          f"{cos:g}); worst ghost-unit parameter rel err "
+          f"{r['unit'][1]:.4e} at {r['unit'][0]} (tol {unit:g})")
+
+
+def ghost_units_of(state):
+    """Forward pre-hooks that record the names of the backbone's
+    GhostBottlenecks that take the ghost path (pick_gh admits their
+    input), and the list they append to."""
+    from tensorflow_ocr_tpu_torch.models.resnet import GhostBottleneck
+
+    ghost = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a, name=name: ghost.append(name)
+        if m.band_height(a[0].shape) else None)
+        for name, m in state.model.backbone.named_children()
+        if isinstance(m, GhostBottleneck)]
+    return hooks, ghost
 
 
 def phase_ghost_train(device, reports, snap, batch, arm_start):
@@ -3262,19 +3607,13 @@ def phase_ghost_train(device, reports, snap, batch, arm_start):
     ghost units: no kernel)."""
     import numpy as np
     import torch
-    from tensorflow_ocr_tpu_torch.models.resnet import GhostBottleneck
     from tensorflow_ocr_tpu_torch.ops import ghost as G
     from tensorflow_ocr_tpu_torch.train import trainer as T
 
     want = {k: TRAIN_STEPS * v for k, v in GHOST_STEP_LAUNCHES.items()}
     trainer = T.Trainer(train_config("ghost"), device)
     state = trainer.setup(weights=snap)
-    ghost = []
-    hooks = [m.register_forward_pre_hook(
-        lambda m, a, name=name: ghost.append(name)
-        if m.band_height(a[0].shape) else None)
-        for name, m in state.model.backbone.named_children()
-        if isinstance(m, GhostBottleneck)]
+    hooks, ghost = ghost_units_of(state)
     reset_ghost_counts()
     last = trainer.run([batch] * TRAIN_STEPS, TRAIN_STEPS)
     torch.cuda.synchronize()
@@ -3293,9 +3632,9 @@ def phase_ghost_train(device, reports, snap, batch, arm_start):
         np.isfinite(v) for v in last.values()), "ghost train: non-finite "
           "or missing metrics")
     print(f"ghost_conv_bwd by kernel: {by_kernel} (conv_bwd.cuh tdw, tdx; "
-          f"expected {want['ghost_conv_bwd']} each)")
+          f"expected {want['ghost_conv_bwd']} each, no float32 one)")
     check(counts == want, "ghost train: ghost kernel launches")
-    check(by_kernel == dict.fromkeys(by_kernel, want["ghost_conv_bwd"]),
+    check(by_kernel == bf16_by_kernel(want["ghost_conv_bwd"]),
           "ghost train: conv backward launches by kernel")
     for name, n in counts.items():
         reports[name]["launches"] = n
@@ -3329,13 +3668,96 @@ def phase_ghost_train(device, reports, snap, batch, arm_start):
     torch.cuda.empty_cache()
 
 
-def phase_ghost_faults(device, start, batch, where):
-    """The readings that set the GHOST_ARM_* bounds: the ghost arm on the
-    kernels against the plain versions from the state ``start`` (the
-    augmented one, or a trained checkpoint's), 3 sound runs, then one run
-    under each fault planted in the kernel arm: the seam terms dropped,
-    the 3x3's halo rows under their own band's affine (one SAME conv over
-    one act1 tensor), dW2 x 0.9."""
+def phase_ghost_train_f32(device, reports, snap, batch, arm_start):
+    """The ghost arm in float32 (model.compute_dtype "float32",
+    bottleneck_impl "ghost"): 3 steps through Trainer.run, every ghost
+    kernel launched on its float32 kernel (GHOST_F32_STEP_LAUNCHES a step;
+    the backward's tdw_f32 and tdx_f32 17 a step each) and none on a
+    bfloat16 one, the ghost units GHOST_UNIT_NAMES; eager img/s over
+    ARM_WINDOWS windows of ARM_WINDOW_S and the peak memory; one step on
+    the kernels against one on the plain float32 versions (TF32 off) from
+    the state ``arm_start`` (F32_GHOST_ARM_* bounds); one float32 freeze_bn
+    step (eval-mode ghost units: no kernel)."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import ghost as G
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    cfg = train_config("ghost", dtype="float32")
+    want = {k: TRAIN_STEPS * v for k, v in GHOST_F32_STEP_LAUNCHES.items()}
+    base = arm_memory_start()
+    trainer = T.Trainer(cfg, device)
+    state = trainer.setup(weights=snap)
+    hooks, ghost = ghost_units_of(state)
+    reset_ghost_counts()
+    t0 = time.perf_counter()
+    last = trainer.run([batch] * TRAIN_STEPS, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts, bf = ghost_counts(GHOST_F32_KERNELS), ghost_counts()
+    by_kernel = dict(G.conv_bwd.by_kernel)
+    for h in hooks:
+        h.remove()
+    units = sorted(set(ghost))
+    n = want["ghost_conv_bwd_f32"]
+    print(f"train {TRAIN_STEPS} steps ghost float32 ({run_s:.2f} s, first "
+          f"steps included): last metrics "
+          f"{json.dumps({k: round(v, 6) for k, v in last.items()})}; "
+          f"launches {counts} (expected {want}); backward by kernel "
+          f"{by_kernel}; the bfloat16 kernels' {bf}; ghost units "
+          f"{', '.join(units)}; {arm_memory(base)}")
+    check(units == sorted(GHOST_UNIT_NAMES), "float32 ghost train: the "
+          f"ghost units are not {GHOST_UNIT_NAMES}")
+    check(state.step == TRAIN_STEPS and last and all(
+        np.isfinite(v) for v in last.values()), "float32 ghost train: "
+          "non-finite or missing metrics")
+    check(counts == want, f"float32 ghost train: launches {counts}")
+    check(by_kernel == {"tdw": 0, "tdx": 0, "tdw_f32": n, "tdx_f32": n},
+          f"float32 ghost train: backward launches by kernel {by_kernel}")
+    check(not any(bf.values()), f"float32 ghost train: a bfloat16 ghost "
+          f"kernel launched {bf}")
+    for name, k in counts.items():
+        reports[name]["launches"] = k
+    eager_rate(state, batch, cfg, "ghost float32", ARM_WINDOWS,
+               ARM_WINDOW_S, base)
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    r = ghost_arm_readings(device, arm_start, batch, "float32")
+    print_ghost_arms("ghost float32 kernels vs plain float32 versions (TF32 "
+                     "off), one step from the augmented state", r, "float32")
+    check(r["rel_loss"] <= F32_GHOST_ARM_LOSS_REL, "float32 ghost kernel "
+          "and plain losses disagree")
+    check(r["grad_rel"] <= F32_GHOST_ARM_GRAD_REL, "float32 ghost kernel "
+          "and plain gradients disagree")
+    check(r["worst"][1] >= F32_GHOST_ARM_COS_MIN, f"the float32 ghost "
+          f"kernels' gradient of {r['worst'][0]} points elsewhere than the "
+          "plain one")
+    check(r["unit"][1] <= F32_GHOST_ARM_UNIT_REL, f"the float32 ghost "
+          f"kernels' gradient of {r['unit'][0]} differs from the plain one")
+
+    fcfg = train_config("ghost", freeze_bn=True, dtype="float32")
+    state = T.create_train_state(fcfg, device, weights=snap)
+    reset_ghost_counts()
+    loss = float(T.train_step(state, batch, fcfg,
+                              T.make_loss_fn(fcfg))["total_loss"])
+    counts = {**ghost_counts(), **ghost_counts(GHOST_F32_KERNELS)}
+    print(f"freeze_bn step ghost float32: total loss {loss:.6f}, ghost "
+          f"kernel launches {counts}")
+    check(np.isfinite(loss), "float32 ghost freeze_bn step: non-finite loss")
+    check(not any(counts.values()), "float32 ghost freeze_bn step launched "
+          "a ghost kernel (eval-mode units have none)")
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_ghost_faults(device, start, batch, where, dtype="bfloat16"):
+    """The readings that set the GHOST_ARM_* bounds (F32_GHOST_ARM_* with
+    ``dtype`` "float32"): the ghost arm on the kernels against the plain
+    versions from the state ``start`` (the augmented one, or a trained
+    checkpoint's), 3 sound runs, then one run under each fault planted in
+    the kernel arm: the seam terms dropped, the 3x3's halo rows under their
+    own band's affine (one SAME conv over one act1 tensor), dW2 x 0.9."""
     import torch
     from tensorflow_ocr_tpu_torch.ops import ghost as G
 
@@ -3358,9 +3780,11 @@ def phase_ghost_faults(device, start, batch, where):
     for fn in (no_seam, own_band_halo, dw2_scaled):
         # the wrappers count on the names they replace
         fn.launches, fn.by_kernel = 0, {}
+    where = f"{where}{' float32' * (dtype == 'float32')}"
     for i in range(3):
         print_ghost_arms(f"ghost faults {where}: sound run {i}",
-                         ghost_arm_readings(device, start, batch))
+                         ghost_arm_readings(device, start, batch, dtype),
+                         dtype)
     for label, attr, fn in (("seam terms dropped", "seam_bwd", no_seam),
                             ("halo rows under their own band's affine",
                              "conv_fwd", own_band_halo),
@@ -3368,13 +3792,16 @@ def phase_ghost_faults(device, start, batch, where):
         orig = getattr(G, attr)
         setattr(G, attr, fn)
         try:
-            kernel = arm_grads(device, start, batch, "ghost")
+            with tf32_off(dtype):
+                kernel = arm_grads(device, start, batch, "ghost", dtype)
         finally:
             setattr(G, attr, orig)
-        with plain_ghost():
-            plain = arm_grads(device, start, batch, "ghost")
-        print_ghost_arms(f"ghost faults {where}: {label}",
-                         ghost_readings(kernel, plain))
+        with plain_ghost(), tf32_off(dtype):
+            plain = arm_grads(device, start, batch, "ghost", dtype)
+        r = ghost_readings(kernel, plain)
+        print_ghost_arms(f"ghost faults {where}: {label}", r, dtype)
+        print(f"ghost faults {where}: {label}: passes the arm check "
+              f"{ghost_arm_passes(r, dtype)}")
 
 
 # ------------------------------------ graph dispatch, checkpoints, serving
@@ -3434,6 +3861,8 @@ def arm_counts(impl, route, f32=False):
         return conv_counts()
     if impl == "fused" and f32:
         return fused_counts(FUSED_F32_KERNELS)
+    if impl == "ghost" and f32:
+        return ghost_counts(GHOST_F32_KERNELS)
     return {"fused": fused_counts, "ghost": ghost_counts}.get(
         impl, dict)()
 
@@ -3514,6 +3943,8 @@ def phase_graph_step(device, snap, ds):
                 train_config("xla", dtype="float32"), True)
     graph_equal(device, snap, ds, rng, "fused float32",
                 train_config("fused", dtype="float32"))
+    graph_equal(device, snap, ds, rng, "ghost float32",
+                train_config("ghost", dtype="float32"))
 
 
 def graph_equal(device, snap, ds, rng, label, cfg, route=False,
@@ -3577,7 +4008,8 @@ def graph_equal(device, snap, ds, rng, label, cfg, route=False,
                 check(per_step == CONV_STEP_LAUNCHES,
                       f"graph step {label}: conv launches a step")
             if impl == "ghost":
-                check(per_step == GHOST_STEP_LAUNCHES,
+                check(per_step == (GHOST_F32_STEP_LAUNCHES if f32
+                                   else GHOST_STEP_LAUNCHES),
                       f"graph step {label}: ghost launches a step")
         ckpt = None
         if restore:
@@ -3820,7 +4252,7 @@ def phase_serve_checkpoint(device, root, served, images):
 def phase_graph_timing(snap, ds, profile_arms=False):
     """Train img/s through make_multi_train_step at 512^2, batch 32, S =
     scan_steps (16) steps a dispatch, for TIMING_ARMS from ``snap``
-    (graph_rate over ARM_WINDOWS windows of at least ARM_WINDOW_S). With
+    (graph_rate over GRAPH_WINDOWS windows of at least ARM_WINDOW_S). With
     ``profile_arms``, the device idle share of one dispatch of the fused
     and ghost arms under torch.profiler."""
     import numpy as np
@@ -3834,8 +4266,9 @@ def phase_graph_timing(snap, ds, profile_arms=False):
         with pallas_convs(route):
             state = T.create_train_state(cfg, ds["images"].device,
                                          weights=snap)
-            graph_rate(state, ds, cfg, rng, arm, ARM_WINDOWS, ARM_WINDOW_S,
-                       base, profile_arms and arm in ("fused", "ghost"))
+            graph_rate(state, ds, cfg, rng, arm, GRAPH_WINDOWS,
+                       ARM_WINDOW_S, base,
+                       profile_arms and arm in ("fused", "ghost"))
         del state
         torch.cuda.empty_cache()
 
@@ -4218,7 +4651,7 @@ def phase_east_serve(device, root):
     detect_batch must equal those of east_detect run on the CPU on the
     same maps, then the same NMS; the candidates, the boxes NMS keeps and
     its host ms are printed; then detect p50 at batch 1 and serve img/s
-    at batch 8 over WINDOWS windows of at least WINDOW_S."""
+    at batch 8 over EAST_WINDOWS windows of at least WINDOW_S."""
 
     import numpy as np
     import torch
@@ -4278,7 +4711,7 @@ def phase_east_serve(device, root):
                                        for a, b in zip(g, w))
               for g, w in zip(boxes, want)),
           "east serve: boxes differ from the CPU decode's")
-    time_detect_serve(pred, images, WINDOW_S, "east ")
+    time_detect_serve(pred, images, WINDOW_S, "east ", EAST_WINDOWS)
     del pred
     torch.cuda.empty_cache()
 
@@ -6138,6 +6571,9 @@ def main() -> int:
     ghost = {name: {"name": name, "route": "cuda", "source": GHOST_SRC,
                     "replaces": sites}
              for name, (_, sites) in GHOST_KERNELS.items()}
+    ghost32 = {name: {"name": name, "route": "cuda", "source": GHOST_SRC,
+                      "replaces": sites}
+               for name, (_, sites) in GHOST_F32_KERNELS.items()}
     phase_cc(device, report)
     phase_forward(device)
     phase_forward(device, EAST_MODEL)
@@ -6172,9 +6608,12 @@ def main() -> int:
     phase_conv_train(device, conv, snap, batch, arm_start)
     phase_conv_train_f32(device, conv32, snap, batch, arm_start)
     phase_ghost_kernels(device, ghost)
+    phase_ghost_kernels_f32(device, ghost32)
     if args.faults:
         phase_ghost_faults(device, arm_start, batch, "augmented")
+        phase_ghost_faults(device, arm_start, batch, "augmented", "float32")
     phase_ghost_train(device, ghost, snap, batch, arm_start)
+    phase_ghost_train_f32(device, ghost32, snap, batch, arm_start)
     del arm_start
 
     ds = scene_dataset(device)
@@ -6216,7 +6655,7 @@ def main() -> int:
     kernels = [{k: r[k] for k in keys}
                for r in [report, *fused.values(), *conv.values(),
                          *conv32.values(), *fused32.values(),
-                         *ghost.values()]]
+                         *ghost.values(), *ghost32.values()]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, builds "
           f"included")
     print(card)

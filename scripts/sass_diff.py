@@ -2,7 +2,7 @@
 """Compare the machine code (SASS) of the port's CUDA sources in two
 checkouts.
 
-    python3 scripts/sass_diff.py OTHER [NAME ...]
+    python3 scripts/sass_diff.py OTHER [NAME ...] [--show N]
 
 Builds csrc/<NAME>.cu of this checkout and of the checkout at OTHER into
 cubins with the flags of ops/kernels.py build_library (sm_90a; one nvcc
@@ -13,8 +13,9 @@ instruction counts and the instructions that differ (difflib over the
 instruction text, addresses stripped and runs of blanks collapsed; the
 anonymous namespace's name,
 which nvcc derives from the file's path, is made the same on both
-sides). Without NAMEs, every csrc/*.cu of either checkout. Needs nvcc
-and cuobjdump, not a GPU.
+sides). Without NAMEs, every csrc/*.cu of either checkout. --show N
+prints the first N lines of a unified diff of each kernel that differs.
+Needs nvcc and cuobjdump, not a GPU.
 
 Exits 2 without nvcc, 1 if a build fails.
 """
@@ -70,6 +71,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("names", nargs="*", help="sources (csrc/<name>.cu)")
+    ap.add_argument("--show", type=int, default=0,
+                    help="lines of each differing kernel's diff to print")
     args = ap.parse_args()
     sys.path.insert(0, str(REPO))
     from tensorflow_ocr_tpu_torch.ops import kernels as K
@@ -123,6 +126,10 @@ def main() -> int:
             if diffs[k]:
                 print(f"  differs: {k}: this {len(mine[k])}, other "
                       f"{len(theirs[k])} instructions, {diffs[k]} differ")
+                lines = difflib.unified_diff(theirs[k], mine[k], "other",
+                                             "this", n=1, lineterm="")
+                for line in list(lines)[:args.show]:
+                    print(f"    {line}")
     return 0
 
 

@@ -78,12 +78,16 @@
 // registers over its tiles), and reduce_parts adds the entries in order.
 // No atomics: bit-equal twice.
 //
-// Float32 (the fused transforms so far): tdx_f32 (the forward and dX,
-// each A value put through the transform in registers and split into TF32
-// hi and lo there, wgmma.cuh WgmmaTf32R) and tdw_f32 (its f32 boxes
-// rewritten in place by a staging transform, mma.sync on hand-read
-// fragments); the operands f32, the products float32 by split TF32, the
-// tables and sums added in double (sum_tables_wide, reduce_parts_wide).
+// Float32 (the fused transforms, and the ghost unit's banded ones):
+// tdx_f32 (the forward and dX, each A value put through the transform in
+// registers and split into TF32 hi and lo there, wgmma.cuh WgmmaTf32R) and
+// tdw_f32 (its f32 boxes rewritten in place by a staging transform,
+// mma.sync on hand-read fragments); the operands f32, the products float32
+// by split TF32, the tables and sums added in double (sum_tables_wide,
+// reduce_parts_wide; reduce_groups_wide by band). A banded transform
+// (Tr::kBanded: ghost_unit.cu GhostTr32, BandActTr32 below) takes its
+// tables by band and its sums per band, through `if constexpr` branches
+// that leave the fused instantiations' machine code as it was.
 
 #pragma once
 
@@ -476,6 +480,18 @@ __host__ __device__ constexpr int dw32_stage_bytes(int bn, bool two,
   return ((two ? 2 : 1) * 2 + (aux ? 2 : 1) * (bn / 32)) * BOX32;
 }
 
+// Whether a float32 transform is keyed by band (Tr::kBanded: the ghost
+// unit's, ghost_unit.cu GhostTr32 and BandActTr32 below): its tables are
+// those of a pixel's band (tdw_f32: x4 of the output pixel's, dy4 of the
+// pixel read, with the seam term on a band's edge rows; tdx_f32: the
+// tile's, a tile lying in one band), its sums a band's. The fused
+// transforms have no kBanded and compile as they were.
+template <class Tr, class = void>
+struct banded : std::false_type {};
+template <class Tr>
+struct banded<Tr, std::void_t<decltype(Tr::kBanded)>>
+    : std::bool_constant<Tr::kBanded> {};
+
 template <int BN, bool TWO, class Tr>
 __global__ void __launch_bounds__(THREADS, 1)
 tdw_f32(const __grid_constant__ CUtensorMap mx,
@@ -485,6 +501,7 @@ tdw_f32(const __grid_constant__ CUtensorMap mx,
   static_assert(Tr::kAux == 0 || Tr::kAux == 4,
                 "tdw_f32 takes no aux tensor or an f32 one");
   constexpr bool STAGED = Tr::kAux > 0;
+  constexpr bool BANDED = banded<Tr>::value;
   constexpr int NB = BN / 32;                // dY boxes a stage
   constexpr int NA = TWO ? 2 : 1;            // 64-row chunks a stage
   constexpr int NT = BN / 8;                 // n8 tiles of a warp
@@ -583,6 +600,13 @@ tdw_f32(const __grid_constant__ CUtensorMap mx,
           const int ow = w0 + r % a.wb, oh = h0 + r / a.wb;
           const bool in = ow < a.w && oh < a.h;
           const uint32_t off = chunk_offset(r, jc);
+          // banded: the output pixel and its band (T_x's tables; T_dy's,
+          // the pixel read being the output pixel)
+          [[maybe_unused]] int pix = 0, key = 0;
+          if constexpr (BANDED) {
+            pix = ((t / a.tiles_h) * a.h + oh) * a.w + ow;
+            key = tr.key(pix);
+          }
 #pragma unroll
           for (int j = 0; j < NA; ++j) {
             const int c = chunk_of(j), tap = c / a.cchunks;
@@ -596,7 +620,10 @@ tdw_f32(const __grid_constant__ CUtensorMap mx,
               float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
               if (live) {
                 v = *p;
-                tr.x4(v, (c % a.cchunks) * 64 + 32 * b + 4 * jc);
+                if constexpr (BANDED)
+                  tr.x4(v, key, (c % a.cchunks) * 64 + 32 * b + 4 * jc);
+                else
+                  tr.x4(v, (c % a.cchunks) * 64 + 32 * b + 4 * jc);
               }
               *p = v;
             }
@@ -608,10 +635,16 @@ tdw_f32(const __grid_constant__ CUtensorMap mx,
             float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
             if (in) {
               v = *p;
-              tr.dy4(v,
-                     *reinterpret_cast<const float4*>(
-                         buf + (2 * NA + NB + j) * BOX32 + off),
-                     co0 + 32 * j + 4 * jc);
+              if constexpr (BANDED)
+                tr.dy4(v,
+                       *reinterpret_cast<const float4*>(
+                           buf + (2 * NA + NB + j) * BOX32 + off),
+                       pix, co0 + 32 * j + 4 * jc);
+              else
+                tr.dy4(v,
+                       *reinterpret_cast<const float4*>(
+                           buf + (2 * NA + NB + j) * BOX32 + off),
+                       co0 + 32 * j + 4 * jc);
             }
             *p = v;
           }
@@ -1409,10 +1442,23 @@ __global__ void reduce_parts_wide(const float* __restrict__ part,
   out[i] = (float)s;
 }
 
+// reduce_parts_wide over groups (the banded float32 kernels' band sums):
+// out[g][i] = the sum of part[g * entries + e][i] over e in order, added in
+// double and rounded once.
+__global__ void reduce_groups_wide(const float* __restrict__ part,
+                                   float* __restrict__ out, int cols,
+                                   int entries) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cols) return;
+  const float* p = part + (size_t)blockIdx.y * entries * cols + i;
+  double s = 0.0;
+  for (int e = 0; e < entries; ++e) s += p[(size_t)e * cols];
+  out[(size_t)blockIdx.y * cols + i] = (float)s;
+}
+
 // ------------------------------------------------ dX and forward, f32
 //
-// tdx_f32: tdx's products in float32 for the fused transforms (one table,
-// the sums a CTA's): x, y, dy, dx and the weight f32. The same persistent
+// tdx_f32: tdx's products in float32: x, y, dy, dx and the weight f32. The same persistent
 // tiles (128 pixels x BN columns, each CTA a contiguous run of pixel tiles
 // in one column), ring, halo mode and epilogue slots, with a K step of 32
 // contracted channels (one 128-byte f32 row) and the product as split TF32
@@ -1437,6 +1483,16 @@ __global__ void reduce_parts_wide(const float* __restrict__ part,
 // sub-boxes are stored by TMA from a thread of their own, and the CTA's
 // sums go to one partial entry a CTA, added in order in double by
 // reduce_parts_wide. No atomics: two launches are bit-equal.
+// A banded transform (the ghost unit's) keys the tables by the tile's band
+// (a tile lies in one band: the box height divides gh) and sums per band:
+// the forward's over each run of the CTA's tiles in one band (in registers,
+// written at the run's last tile, zero entries at the others), the dX's gm
+// one entry a tile; reduce_groups_wide adds a band's entries in order in
+// double. Its dX ends as gm (masked under the tile's band's (a, b), stored
+// by TMA over x's f32 box), or as dX + the f32 addend (loaded by TMA into
+// the epilogue slot) or dX alone; a 3x3 dX reads only its output row's
+// band (a.band_px), and the seam term (Tr::edge_row) is added to dz on a
+// band's first and last rows before the split.
 
 // The f32 forward's transform (tdx_f32, out_kind 4): x -> relu(x*a + b),
 // (a, b) from the (2, c) table tab; the sums those of the f32 product.
@@ -1463,6 +1519,40 @@ struct ActTr32 {
   }
 };
 
+// The ghost forward's transform in float32 (tdx_f32, out_kind 4, banded):
+// x -> relu(x*a + b) under the table (keys, 2, c) of the tile's band (a
+// 3x3's halo rows take it too), x as it is where tab is null; the sums a
+// band's, of the f32 y, over each run of a CTA's tiles in one band.
+struct BandActTr32 {
+  static constexpr int kAux = 0;
+  static constexpr bool kFwd = true;
+  static constexpr bool kBanded = true;
+  struct K8 {
+    float a[2], b[2];
+  };
+  const float* tab;
+  int c, band_px;
+
+  __device__ __forceinline__ int key(int pix) const { return pix / band_px; }
+  __device__ __forceinline__ void k8_tab(K8& t, int key, int ch) const {
+    if (!tab) return;
+    const float* p = tab + (size_t)key * 2 * c + ch;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      t.a[j] = __ldg(p + 4 * j);
+      t.b[j] = __ldg(p + c + 4 * j);
+    }
+  }
+  __device__ __forceinline__ float k8(float v, float, const K8& t,
+                                      int j) const {
+    return tab ? fmaxf(affine(v, t.a[j], t.b[j]), 0.f) : v;
+  }
+  // no seam term in the forward
+  __device__ __forceinline__ const float* edge_row(int) const {
+    return nullptr;
+  }
+};
+
 __host__ __device__ constexpr int dx32_stage_bytes(int bn, bool halo, int wb,
                                                    int hb, bool aux) {
   return halo ? round1k((wb + 2) * hb * 128) * (aux ? 2 : 1) + 6 * bn * 128
@@ -1477,6 +1567,41 @@ __device__ __forceinline__ uint32_t staged_offset32(int row, int col) {
          ((((col >> 2) ^ row) & 7) << 4) + (col & 3) * 4;
 }
 
+// A banded tdx_f32's column sums of one run of tiles (the forward's band
+// run, or gm's tile) into entry `entry` of part, in a fixed order: the
+// warp's 16 row slots by shuffles, then the 8 warps; the thread's sums
+// zeroed for the next run. Every consumer thread calls it.
+template <int BN>
+__device__ __forceinline__ void flush_band_sums(
+    float (&cs0)[BN / 8][2], float (&cs1)[BN / 8][2], float* red,
+    float* part, size_t entry, int ci, int n0, int wg, int warp, int lane,
+    int ct) {
+  float* wred = red + (wg * 4 + warp) * 2 * BN;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e3 = 0; e3 < 2; ++e3) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        cs0[j][e3] += __shfl_xor_sync(0xffffffffu, cs0[j][e3], o);
+        cs1[j][e3] += __shfl_xor_sync(0xffffffffu, cs1[j][e3], o);
+      }
+      if (lane < 4) {
+        wred[8 * j + 2 * lane + e3] = cs0[j][e3];
+        wred[BN + 8 * j + 2 * lane + e3] = cs1[j][e3];
+      }
+      cs0[j][e3] = cs1[j][e3] = 0.f;
+    }
+  bar_sync(1, CONSUMERS);
+  if (ct < 2 * BN) {
+    float s = 0.f;
+#pragma unroll
+    for (int w8 = 0; w8 < 8; ++w8) s += red[w8 * 2 * BN + ct];
+    part[(entry * 2 + ct / BN) * ci + n0 + ct % BN] = s;
+  }
+  bar_sync(1, CONSUMERS);  // red is read before it is written again
+}
+
 template <int BN, class Tr>
 __global__ void __launch_bounds__(THREADS, 1)
 tdx_f32(const __grid_constant__ CUtensorMap mdy,
@@ -1484,8 +1609,9 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
         const __grid_constant__ CUtensorMap mw,
         const __grid_constant__ CUtensorMap me,
         const __grid_constant__ CUtensorMap my, const DxArgs a, const Tr tr) {
-  constexpr bool FWD = Tr::kFwd;        // out_kind 4, else 3
+  constexpr bool FWD = Tr::kFwd;        // out_kind 4, else 3 (banded: 0-2)
   constexpr bool AUX = Tr::kAux > 0;    // y beside dy (the backward)
+  constexpr bool BANDED = banded<Tr>::value;
   constexpr int BBOX = BN * 128;        // bytes of one weight box (hi or lo)
   constexpr int HALF = 64 * BN * 4;     // bytes of a warpgroup's half slot
   extern __shared__ uint8_t raw[];
@@ -1594,8 +1720,14 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
     } else if (tid == 32) {
       // the epilogue slots, on a thread of their own: a slot's last tile
       // is done, so store it from the slot, let the store read it, then
-      // fill the slot with the next tile's input (the backward's x)
-      if (!FWD) prefetch_map(&me);
+      // fill the slot with the next tile's input (the backward's x; banded:
+      // x for gm, the addend where there is one)
+      bool ein;
+      if constexpr (BANDED)
+        ein = !FWD && (a.out_kind == 0 || a.add_kind != 0);
+      else
+        ein = !FWD;
+      if (ein) prefetch_map(&me);
       prefetch_map(&my);
       int i = 0;
       for (; i < ntiles; ++i) {
@@ -1607,7 +1739,7 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
           bulk_commit();
           bulk_wait_read<0>();
         }
-        if (!FWD) {
+        if (ein) {
           mbar_expect_tx(&efull[e], 2 * HALF);
           slot_boxes(t, slot, true, &efull[e]);
         } else {
@@ -1639,7 +1771,7 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
     // halo mode: its row in the halo box at kx = 0 (each warpgroup's 64
     // output pixels lie in one image row)
     const int hr0 = (lr >> a.lwb) * (a.wb + 2) + (lr & (a.wb - 1));
-    if constexpr (!FWD) {  // the mask's (a, b) of the CTA's columns
+    if constexpr (!FWD && !BANDED) {  // the mask's (a, b) of the CTA's columns
       if (ct < 2 * BN)
         red[8 * 2 * BN + ct] =
             __ldg(tr.ab_row() + (ct / BN) * a.ci + n0 + ct % BN);
@@ -1653,6 +1785,19 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
       tile_of(t, img, x0, y0, col);
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) sum[e] = 0.f;
+      // banded: the tile's band (a tile lies in one: the box height
+      // divides gh), its first row where a 3x3 dX's reads stay in it, and
+      // the mask's (a, b) of value ct (gm), loaded before the products
+      [[maybe_unused]] int key = 0, gh = 1, band_y0 = 0;
+      [[maybe_unused]] float abv = 0.f;
+      if constexpr (BANDED) {
+        key = tr.key((img * a.h + y0) * a.w + x0);
+        gh = tr.band_px / a.w;
+        band_y0 = y0 - y0 % gh;
+        if constexpr (!FWD)
+          if (a.out_kind == 0 && ct < 2 * BN)
+            abv = __ldg(tr.ab_row(key) + (ct / BN) * a.ci + n0 + ct % BN);
+      }
       // the K step's channel box and tap (halo mode: ky), running
       int cbox = 0, tap = 0, tkx = -half, tky = -half;
       for (int k = 0; k < a.ksteps; ++k) {
@@ -1663,6 +1808,9 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
           const int dxp = a.halo ? kx - 1 : tkx;
           const int dyp = a.halo ? tap - 1 : tky;
           bool live[2];
+          // banded: the seam term's row at the pixel read (its band's first
+          // or last row), else null
+          [[maybe_unused]] const float* ep[2] = {nullptr, nullptr};
 #pragma unroll
           for (int h2 = 0; h2 < 2; ++h2) {
             const int r = 64 * wg + 16 * warp + g + 8 * h2;
@@ -1670,6 +1818,11 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
             const int sx = ox + dxp, sy = oy + dyp;
             live[h2] = ox < a.w && oy < a.h && sx >= 0 && sx < a.w &&
                        sy >= 0 && sy < a.h;
+            if constexpr (BANDED) {
+              if (a.band_px > 0)
+                live[h2] = live[h2] && sy >= band_y0 && sy < band_y0 + gh;
+              if (live[h2]) ep[h2] = tr.edge_row((img * a.h + sy) * a.w + sx);
+            }
           }
           const int hr = a.halo ? hr0 + kx : lr;
           const uint32_t rowaddr = smem_u32(buf) + hr * 128;
@@ -1681,14 +1834,21 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
             ldsm_x4(rowaddr + off, v);
             if (AUX) ldsm_x4(rowaddr + abox + off, y);
             typename Tr::K8 tb;
-            tr.k8_tab(tb, 32 * cbox + 8 * kk + t4);
+            if constexpr (BANDED)
+              tr.k8_tab(tb, key, 32 * cbox + 8 * kk + t4);
+            else
+              tr.k8_tab(tb, 32 * cbox + 8 * kk + t4);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               // v[e]: row g + 8 (e % 2), channel t4 + 4 (e / 2) of the k8 step
-              const float f = live[e & 1]
-                                  ? tr.k8(__uint_as_float(v[e]),
-                                          __uint_as_float(y[e]), tb, e >> 1)
-                                  : 0.f;
+              float f = live[e & 1]
+                            ? tr.k8(__uint_as_float(v[e]),
+                                    __uint_as_float(y[e]), tb, e >> 1)
+                            : 0.f;
+              if constexpr (BANDED)
+                if (ep[e & 1])
+                  f = __fadd_rn(f, __ldg(ep[e & 1] + 32 * cbox + 8 * kk + t4 +
+                                         4 * (e >> 1)));
               tf32_split(f, ah[kk][e], al[kk][e]);
             }
           }
@@ -1725,6 +1885,14 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
       // ---------------------------------------------------------- epilogue
       const int e = i % a.eslots;
       uint8_t* slot = eslot + e * 2 * HALF + wg * HALF;
+      if constexpr (BANDED && !FWD) {
+        // the mask's (a, b) of the tile's band; the last tile's readers
+        // are past the barrier that ends its sums
+        if (a.out_kind == 0) {
+          if (ct < 2 * BN) red[8 * 2 * BN + ct] = abv;
+          bar_sync(1, CONSUMERS);
+        }
+      }
       mbar_wait(&efull[e], (i / a.eslots) & 1);
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
@@ -1745,6 +1913,24 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
             cs0[j][1] += v;
             cs1[j][0] += u * u;
             cs1[j][1] += v * v;
+          } else if constexpr (BANDED) {
+            if (a.out_kind == 0) {
+              // gm = g*[x*a + b > 0] stored over x; sums [gm*x, gm]
+              const float2 xv = *sp;
+              u = in && affine(xv.x, sab[cl], sab[BN + cl]) > 0.f ? u : 0.f;
+              v = in && affine(xv.y, sab[cl + 1], sab[BN + cl + 1]) > 0.f
+                      ? v : 0.f;
+              cs0[j][0] += u * xv.x;
+              cs0[j][1] += v * xv.y;
+              cs1[j][0] += u;
+              cs1[j][1] += v;
+            } else if (a.add_kind != 0) {
+              // dX + the f32 addend, loaded over the slot
+              const float2 ad = *sp;
+              u += ad.x;
+              v += ad.y;
+            }
+            *sp = make_float2(u, v);
           } else {
             // gm = g*[x*a + b > 0], dx = gm*a over x; sums [gm*x, gm]
             const float2 xv = *sp;
@@ -1763,30 +1949,48 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
       fence_async_smem();
       bar_sync(2 + wg, 128);
       if (tid == 0) mbar_arrive(&edone[e]);
-    }
-    // the CTA's column sums into its entry, in a fixed order: the warp's
-    // 16 row slots by shuffles, then the 8 warps
-    float* wred = red + (wg * 4 + warp) * 2 * BN;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e3 = 0; e3 < 2; ++e3) {
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-          cs0[j][e3] += __shfl_xor_sync(0xffffffffu, cs0[j][e3], o);
-          cs1[j][e3] += __shfl_xor_sync(0xffffffffu, cs1[j][e3], o);
+      if constexpr (BANDED) {
+        // the forward: a run's sums at its last tile, zero entries at the
+        // others; gm: the tile's sums, one entry a tile (its row tile)
+        const size_t rt = t / a.col_tiles;
+        bool last = true;
+        if (FWD && i + 1 < ntiles) {
+          int img1, x1, y1, col1;
+          tile_of(tile_at(i + 1), img1, x1, y1, col1);
+          last = tr.key((img1 * a.h + y1) * a.w + x1) != key;
         }
-        if (lane < 4) {
-          wred[8 * j + 2 * lane + e3] = cs0[j][e3];
-          wred[BN + 8 * j + 2 * lane + e3] = cs1[j][e3];
-        }
+        if (FWD ? last : a.out_kind == 0)
+          flush_band_sums<BN>(cs0, cs1, red, a.part, rt, a.ci, n0, wg, warp,
+                              lane, ct);
+        else if (FWD && ct < 2 * BN)
+          a.part[(rt * 2 + ct / BN) * a.ci + n0 + ct % BN] = 0.f;
       }
-    bar_sync(1, CONSUMERS);
-    if (ct < 2 * BN) {
-      float s = 0.f;
+    }
+    // the fused transforms: the CTA's column sums into its entry, in a
+    // fixed order: the warp's 16 row slots by shuffles, then the 8 warps
+    if constexpr (!BANDED) {
+      float* wred = red + (wg * 4 + warp) * 2 * BN;
 #pragma unroll
-      for (int w8 = 0; w8 < 8; ++w8) s += red[w8 * 2 * BN + ct];
-      a.part[((size_t)grp * 2 + ct / BN) * a.ci + n0 + ct % BN] = s;
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e3 = 0; e3 < 2; ++e3) {
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) {
+            cs0[j][e3] += __shfl_xor_sync(0xffffffffu, cs0[j][e3], o);
+            cs1[j][e3] += __shfl_xor_sync(0xffffffffu, cs1[j][e3], o);
+          }
+          if (lane < 4) {
+            wred[8 * j + 2 * lane + e3] = cs0[j][e3];
+            wred[BN + 8 * j + 2 * lane + e3] = cs1[j][e3];
+          }
+        }
+      bar_sync(1, CONSUMERS);
+      if (ct < 2 * BN) {
+        float s = 0.f;
+#pragma unroll
+        for (int w8 = 0; w8 < 8; ++w8) s += red[w8 * 2 * BN + ct];
+        a.part[((size_t)grp * 2 + ct / BN) * a.ci + n0 + ct % BN] = s;
+      }
     }
   }
 }
@@ -2102,29 +2306,53 @@ int launch_dx_f32(const CUtensorMap& mdy, const CUtensorMap& maux,
   return cudaGetLastError();
 }
 
-// run_dx in float32 (tdx_f32) for the fused transforms: dX (n, h, w, ci)
-// of T_dy(dy, aux) (n, h, w, co) * wflip (ci, ks*ks*co), all f32, finished
-// as out_kind 3 (Tr::kFwd false: ein = x, a.out = dx) or, with Tr::kFwd,
-// the forward (out_kind 4: dy = x, no aux, wflip = W, a.out = y); wsplit
-// (2, ci, ks*ks*co) f32 scratch for the weight's TF32 split; part holds
-// grid / (ci / 64) entries and sums (2, ci) receives their sums, written
+// run_dx in float32 (tdx_f32): dX (n, h, w, ci) of T_dy(dy, aux) (n, h,
+// w, co) * wflip (ci, ks*ks*co), all f32, finished as out_kind 3 (the
+// fused transforms: Tr::kFwd false, ein = x, a.out = dx) or, with
+// Tr::kFwd, the forward (out_kind 4: dy = x, no aux, wflip = W, a.out =
+// y); wsplit (2, ci, ks*ks*co) f32 scratch for the weight's TF32 split.
+// The fused transforms' sums: part holds grid / (ci / 64) entries and sums
+// (2, ci) receives their sums. A banded transform (Tr::kBanded, the ghost
+// unit's: a.band_px, a.add_kind and a.addend set by the caller) takes the
+// forward or out_kind 0 (gm, ein = x), 1 or 2 (dX + the f32 addend where
+// add_kind is 2, ein = the addend); with sums (out_kind 4 and 0) part
+// holds one entry a row tile and sums (n * h / gh, 2, ci) a band's, gh
+// rows of the image a band, the box height a divisor of gh. Sums written
 // whole. The plan (ops/conv.py tma_bwd_dx_plan / tma_staged_fwd_plan with
 // 4-byte elements): bn 64, the weight streamed, 1 to 3 epilogue slots of
 // TM x 64 f32. Three launches: the split, the product, the sums
-// (reduce_parts_wide).
+// (reduce_parts_wide, reduce_groups_wide by band).
 template <class Tr>
 int run_dx_f32(const void* dy, const void* aux, const void* wflip,
                float* wsplit, const void* ein, DxArgs a, float* part,
                float* sums, int n, int h, int w, int ci, int co, int ks,
-               const DxPlan& p, const Tr& tr, cudaStream_t s) {
+               const DxPlan& p, const Tr& tr, cudaStream_t s, int gh = 0) {
   constexpr bool AUX = Tr::kAux > 0;
+  constexpr bool BANDED = banded<Tr>::value;
+  bool with_sums = true, in_slot = !Tr::kFwd;
+  if constexpr (BANDED) {
+    with_sums = a.out_kind == 4 || a.out_kind == 0;
+    in_slot = a.out_kind == 0 || (a.out_kind != 4 && a.add_kind == 2);
+    if ((Tr::kFwd ? a.out_kind != 4 : a.out_kind < 0 || a.out_kind > 2) ||
+        (a.add_kind != 0 && (a.add_kind != 2 || a.out_kind == 0)) ||
+        (Tr::kFwd && a.band_px) || (a.band_px && a.band_px != gh * w) ||
+        gh < 1 || h % gh || (long long)gh * w != tr.band_px)
+      return cudaErrorInvalidValue;
+  } else if (a.out_kind != (Tr::kFwd ? 4 : 3)) {
+    return cudaErrorInvalidValue;
+  }
+  // the sums' groups: everything, or (banded) each band of gh rows
+  const long long groups = BANDED ? n * (long long)(h / (gh > 0 ? gh : 1))
+                                  : 1;
   if (ci % 64 || co % 64 || (ks != 1 && ks != 3) || !aligned16(dy) ||
       (AUX && !aligned16(aux)) || !aligned16(wflip) || !aligned16(wsplit) ||
-      !aligned16(a.out) || (!Tr::kFwd && !aligned16(ein)) || !part ||
-      !sums || a.out_kind != (Tr::kFwd ? 4 : 3))
+      !aligned16(a.out) || (in_slot && !aligned16(ein)) ||
+      (with_sums && (!part || !sums)))
     return cudaErrorInvalidValue;
   if ((long long)n * h * w == 0)
-    return cudaMemsetAsync(sums, 0, sizeof(float) * 2 * ci, s);
+    return with_sums ? cudaMemsetAsync(sums, 0,
+                                       sizeof(float) * groups * 2 * ci, s)
+                     : cudaSuccess;
   a.part = part;
   a.h = h, a.w = w, a.ci = ci, a.co = co, a.ks = ks, a.wb = p.wb, a.hb = p.hb;
   while (a.lwb < 8 && (1 << a.lwb) < p.wb) ++a.lwb;
@@ -2145,7 +2373,7 @@ int run_dx_f32(const void* dy, const void* aux, const void* wflip,
       p.hb > 256 || p.bn != 64 || p.resident || p.stages < 2 ||
       smem > MAX_SMEM || p.grid < 1 || p.grid > tiles ||
       tiles >= (1ll << 31) || p.grid % a.col_tiles || p.eslots < 1 ||
-      p.eslots > 3)
+      p.eslots > 3 || (BANDED && gh % p.hb))
     return cudaErrorInvalidValue;
   CUtensorMap mdy, maux, mw, me, my;
   // the split weight as (co, ks*ks, ci, 2): box (32, 1, bn, 1), hi at 0
@@ -2166,19 +2394,25 @@ int run_dx_f32(const void* dy, const void* aux, const void* wflip,
       !encode(&mw, wsplit, true, 4, wdims, wbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode(&my, a.out, true, 4, ydims, ybox, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
-  me = mdy;  // unread in the forward
+  me = mdy;  // unread where the epilogue takes no input
   if (!AUX) maux = mdy;
-  if (!Tr::kFwd && !encode(&me, ein, true, 4, ydims, ybox,
-                           CU_TENSOR_MAP_SWIZZLE_128B))
+  if (in_slot && !encode(&me, ein, true, 4, ydims, ybox,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   cudaError_t err = split_tf32(static_cast<const float*>(wflip), wsplit,
                                (long long)ci * ks * ks * co, s);
   if (err != cudaSuccess) return err;
   err = (cudaError_t)launch_dx_f32<64>(mdy, maux, mw, me, my, a, tr, p.grid,
                                        smem, s);
-  if (err != cudaSuccess) return err;
-  reduce_parts_wide<<<(2 * ci + 127) / 128, 128, 0, s>>>(
-      part, sums, 2 * ci, p.grid / a.col_tiles);
+  if (err != cudaSuccess || !with_sums) return err;
+  if constexpr (BANDED) {
+    // a band's row tiles are consecutive: gh / hb rows of tiles_w tiles
+    reduce_groups_wide<<<dim3((2 * ci + 127) / 128, (unsigned)groups), 128,
+                         0, s>>>(part, sums, 2 * ci, gh / p.hb * a.tiles_w);
+  } else {
+    reduce_parts_wide<<<(2 * ci + 127) / 128, 128, 0, s>>>(
+        part, sums, 2 * ci, p.grid / a.col_tiles);
+  }
   return cudaGetLastError();
 }
 

@@ -82,6 +82,25 @@
 // divides gh) added in tile order by reduce_parts. No atomics: two
 // launches are bit-equal. One pass per band (a cluster with distributed
 // shared memory) is later work.
+//
+// Float32 (ghost_conv_fwd_f32, ghost_conv_bwd_f32, ghost_boundary_f32,
+// ghost_seam_bwd_f32): the TPU kernels work in o.dtype, so a float32 model
+// runs them in float32 (pallas_unit.py:117-121, 289, 383-384). The same
+// contract with f32 activations, weights and outputs (no rounding but the
+// f32 products'), each product float32 by split TF32 (hi.lo' + lo.hi' +
+// hi.hi' on the tensor cores, the weight split by split_tf32):
+//   the convs on conv_bwd.cuh's tdx_f32 (the forward with BandActTr32: the
+//   table of the tile's band on each value of x; the dX with GhostTr32: dz
+//   and the seam term formed from z's and g's f32 boxes in registers) and
+//   tdw_f32 with GhostTr32 (its 32-channel boxes rewritten in place: x
+//   under the output pixel's band, z and g to dz under the pixel read's),
+//   the band sums added in double;
+//   gboundary32, gboundary at 4 channels a 16-byte vector;
+//   tseam32, tseam with dz formed in registers from the z and g halo boxes
+//   (loaded by ldmatrix, split there: no rewrite in shared memory), a K
+//   step of 32 channels, 64-column tiles at every c.
+// What bounds them: three TF32 passes (495 / 3 TFLOP/s) on twice bf16's
+// bytes; block1's 1x1s stay bound by the bytes.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -252,6 +271,158 @@ int conv_bwd(const void* x, const float* tx, const void* g, const void* z,
                      sums, n, h, w, ci, co, ks, gh, px, tr, s);
 }
 
+
+// gboundary in float32: 4 channels a 16-byte vector, a block 16 of them
+// (64 channels) by 16 row groups; grid (bands, c / 64). The same sums, each
+// thread's rows added in order and the block's row groups' partials in
+// row-group order (no atomics: two launches are bit-equal).
+__global__ void __launch_bounds__(256)
+gboundary32(const float* __restrict__ dout, const float* __restrict__ z,
+            const float* __restrict__ t, const float* __restrict__ sc,
+            const float* __restrict__ ts, float* __restrict__ out,
+            float* __restrict__ sums, int band_px, int c) {
+  constexpr int CV = 16;  // 4-channel vectors a block row
+  __shared__ __align__(16) float red[3][256 * 4];
+  const int band = blockIdx.x, rows = blockDim.x / CV;
+  const int rsub = threadIdx.x / CV;
+  const int cb = blockIdx.y * CV * 4, ch0 = cb + (threadIdx.x % CV) * 4;
+  auto ld4 = [](const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  };
+  const float* tb = t + (size_t)band * 2 * c;
+  const float4 a4 = ld4(tb + ch0), b4 = ld4(tb + c + ch0);
+  const float a[4] = {a4.x, a4.y, a4.z, a4.w}, b[4] = {b4.x, b4.y, b4.z, b4.w};
+  float as[4] = {}, bs[4] = {};
+  if (ts) {
+    const float* q = ts + (size_t)band * 2 * c;
+    const float4 u = ld4(q + ch0), v = ld4(q + c + ch0);
+    as[0] = u.x; as[1] = u.y; as[2] = u.z; as[3] = u.w;
+    bs[0] = v.x; bs[1] = v.y; bs[2] = v.z; bs[3] = v.w;
+  }
+  float sz[4] = {}, sg[4] = {}, ss[4] = {};
+  for (int r = rsub; r < band_px; r += rows) {
+    const size_t off = ((size_t)band * band_px + r) * c + ch0;
+    const float4 z4 = ld4(z + off), s4 = ld4(sc + off);
+    const float zf[4] = {z4.x, z4.y, z4.z, z4.w};
+    const float sf[4] = {s4.x, s4.y, s4.z, s4.w};
+    float o[4], d[4] = {};
+    if (dout) {
+      const float4 d4 = ld4(dout + off);
+      d[0] = d4.x; d[1] = d4.y; d[2] = d4.z; d[3] = d4.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float pre = __fadd_rn(affine(zf[i], a[i], b[i]),
+                                  ts ? affine(sf[i], as[i], bs[i]) : sf[i]);
+      if (!dout) {
+        o[i] = fmaxf(pre, 0.f);
+      } else {
+        o[i] = pre > 0.f ? d[i] : 0.f;
+        sz[i] += o[i] * zf[i];
+        sg[i] += o[i];
+        ss[i] += o[i] * sf[i];
+      }
+    }
+    *reinterpret_cast<float4*>(out + off) = make_float4(o[0], o[1], o[2], o[3]);
+  }
+  if (!dout) return;
+  // thread i's partials of its 4 channels at [k][4 i .. 4 i + 3]: row group
+  // r, channel cc of the block at [k][r * 4 CV + cc]
+  *reinterpret_cast<float4*>(&red[0][4 * threadIdx.x]) =
+      make_float4(sz[0], sz[1], sz[2], sz[3]);
+  *reinterpret_cast<float4*>(&red[1][4 * threadIdx.x]) =
+      make_float4(sg[0], sg[1], sg[2], sg[3]);
+  *reinterpret_cast<float4*>(&red[2][4 * threadIdx.x]) =
+      make_float4(ss[0], ss[1], ss[2], ss[3]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 3 * CV * 4; i += blockDim.x) {
+    const int k = i / (CV * 4), cc = i % (CV * 4);
+    float s = 0.f;
+    for (int r = 0; r < rows; ++r) s += red[k][r * CV * 4 + cc];
+    sums[((size_t)band * 3 + k) * c + cb + cc] = s;
+  }
+}
+
+// GhostTr in float32 (conv_bwd.cuh's banded float32 transform): tdw_f32's
+// in-place rewrite of 16-byte chunks of 4 channels c .. c+3 and tdx_f32's
+// register transform of a thread's k8 fragment (channels ch and ch + 4):
+// x -> relu(x*a + b) under the table of the band of the output pixel (x as
+// it is where tx is null), z and g -> dz = g*a + c1 + 2z*c2 under the table
+// of the band of the pixel read, plus the seam term on the band's first and
+// last rows (edge_row), in the plain version's order of rounding.
+struct GhostTr32 {
+  static constexpr int kAux = 4;  // g, f32
+  static constexpr bool kFwd = false;
+  static constexpr bool kBanded = true;
+  struct K8 {
+    float a[2], c1[2], c2[2];
+  };
+  const float* tx;    // (bands, 2, ci) or null
+  const float* td;    // (bands, 3, co)
+  const float* edge;  // (bands, 2, w, co) or null
+  int ci, co, band_px, w;
+
+  __device__ __forceinline__ int key(int pix) const { return pix / band_px; }
+  __device__ __forceinline__ void x4(float4& v, int key, int c) const {
+    if (!tx) return;
+    const float* p = tx + (size_t)key * 2 * ci + c;
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p + ci));
+    v.x = fmaxf(affine(v.x, a.x, b.x), 0.f);
+    v.y = fmaxf(affine(v.y, a.y, b.y), 0.f);
+    v.z = fmaxf(affine(v.z, a.z, b.z), 0.f);
+    v.w = fmaxf(affine(v.w, a.w, b.w), 0.f);
+  }
+  __device__ __forceinline__ static float dz(float z, float g, float a,
+                                             float c1, float c2) {
+    return __fadd_rn(__fadd_rn(__fmul_rn(g, a), c1), __fmul_rn(2.f * z, c2));
+  }
+  // the row of the seam term at pixel pix (its band's first row: slot 0,
+  // last: slot 1), or null
+  __device__ __forceinline__ const float* edge_row(int pix) const {
+    if (!edge) return nullptr;
+    const int band = pix / band_px, off = pix - band * band_px;
+    const int row = off / w;
+    if (row != 0 && row != band_px / w - 1) return nullptr;
+    return edge + (((size_t)band * 2 + (row != 0)) * w + off % w) * co;
+  }
+  // d: z in, dz out
+  __device__ __forceinline__ void dy4(float4& d, const float4& g, int pix,
+                                      int c) const {
+    const float* p = td + (size_t)key(pix) * 3 * co + c;
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 c1 = __ldg(reinterpret_cast<const float4*>(p + co));
+    const float4 c2 = __ldg(reinterpret_cast<const float4*>(p + 2 * co));
+    d.x = dz(d.x, g.x, a.x, c1.x, c2.x);
+    d.y = dz(d.y, g.y, a.y, c1.y, c2.y);
+    d.z = dz(d.z, g.z, a.z, c1.z, c2.z);
+    d.w = dz(d.w, g.w, a.w, c1.w, c2.w);
+    if (const float* e = edge_row(pix)) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(e + c));
+      d.x = __fadd_rn(d.x, v.x);
+      d.y = __fadd_rn(d.y, v.y);
+      d.z = __fadd_rn(d.z, v.z);
+      d.w = __fadd_rn(d.w, v.w);
+    }
+  }
+  __device__ __forceinline__ void k8_tab(K8& t, int key, int ch) const {
+    const float* p = td + (size_t)key * 3 * co + ch;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      t.a[j] = __ldg(p + 4 * j);
+      t.c1[j] = __ldg(p + co + 4 * j);
+      t.c2[j] = __ldg(p + 2 * co + 4 * j);
+    }
+  }
+  // z and g of one fragment value -> dz (the seam term added by the caller)
+  __device__ __forceinline__ float k8(float z, float g, const K8& t,
+                                      int j) const {
+    return dz(z, g, t.a[j], t.c1[j], t.c2[j]);
+  }
+  __device__ __forceinline__ const float* ab_row(int key) const {
+    return tx + (size_t)key * 2 * ci;
+  }
+};
 
 // ------------------------------------------------------------------ seam
 //
@@ -625,6 +796,325 @@ tseam(const __grid_constant__ CUtensorMap mz,
   }
 }
 
+
+// ------------------------------------------------------------ seam, f32
+//
+// tseam in float32 (tseam32): the same sides, segments, tiles, slots and
+// entries, with a K step of 32 channels and the 1x3 product by split TF32.
+// A tile is two segments, one a warpgroup, by 64 columns at every c (a
+// 128-column tile's hi and lo weight boxes, streamed, would leave no room
+// for two ring slots). Each warpgroup loads its 16 rows a warp of its
+// segment's z and g halo boxes (f32, 128-byte swizzled) by ldmatrix, forms
+// dz under the reading band's table in registers (GhostTr32::k8; zero at
+// the w pad and where the reading band lies outside the image) and splits
+// it into TF32 hi and lo there: no rewrite of the boxes in shared memory
+// and no barrier a K step. Each kx tap reads the boxes kx rows in, and
+// its twelve m64n64k8 products (lo.hi', hi.lo', hi.hi' over 4 k8 steps)
+// against that tap's hi and lo weight boxes (the weight split by
+// split_tf32, resident where it fits beside two ring slots) go to a fresh
+// accumulator that is added to the f32 sum. The epilogue as tseam's with
+// x_q f32, two 32-column boxes a warpgroup; the band sums added in order
+// in double (reduce_groups_wide).
+constexpr int HBOX32 = 9216;  // a segment's 66-pixel box of 32 f32
+                              // channels (8,448 bytes), 1024-aligned
+
+__host__ __device__ constexpr int stage_bytes32(int ct, bool resident) {
+  return 4 * HBOX32 + (resident ? 0 : 6 * ct * 128);  // 2 x (z, g)
+}
+__host__ __device__ constexpr int smem_bytes32(int ct, int cb, bool resident,
+                                               int stages) {
+  return stages * stage_bytes32(ct, resident) +
+         (resident ? 6 * cb * ct * 128 : 0) + 2 * OUT + RED +
+         8 * (2 * stages + 3) + 1024;
+}
+
+__global__ void __launch_bounds__(bwd::THREADS, 1)
+tseam32(const __grid_constant__ CUtensorMap mz,
+        const __grid_constant__ CUtensorMap mg,
+        const __grid_constant__ CUtensorMap mw,
+        const __grid_constant__ CUtensorMap mx,
+        const __grid_constant__ CUtensorMap me, const Args a,
+        const GhostTr32 tr) {
+  extern __shared__ uint8_t raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  const int sb = stage_bytes32(a.ct, a.resident);
+  const int w_at = 4 * HBOX32;   // the streamed weight boxes
+  const int wbox = a.ct * 128;   // one weight box (hi or lo): ct rows of 32
+  uint8_t* wres = smem + a.stages * sb;
+  uint8_t* eslot = wres + (a.resident ? 6 * a.cb * wbox : 0);
+  float* red = reinterpret_cast<float*>(eslot + 2 * OUT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + RED / 4);
+  uint64_t* empty = full + a.stages;
+  uint64_t* wbar = empty + a.stages;
+  uint64_t* efull = wbar + 1;
+  uint64_t* edone = efull + 1;
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128;
+  const int groups = 2 * a.col_tiles;
+  const int gid = (int)blockIdx.x % groups;
+  const int side = gid / a.col_tiles, col = gid % a.col_tiles;
+  const int ctas = (int)gridDim.x / groups, me_i = (int)blockIdx.x / groups;
+  const int t_lo = (int)((long long)me_i * a.tiles / ctas);
+  const int ntiles = (int)((long long)(me_i + 1) * a.tiles / ctas) - t_lo;
+  // the kernel's row read: 0 for slot 1 (the flipped kernel's row 2), 2
+  // for slot 0
+  const int kyw = side ? 0 : 2;
+  // warpgroup g's segment of tile t; both warpgroups' columns
+  auto seg_at = [&](int t, int g) { return seg_of(a, side, 2 * t + g); };
+  const int cc0 = col * a.ct;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);
+    }
+    mbar_init(wbar, 1);
+    mbar_init(efull, 1);
+    mbar_init(edone, 2);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    regs_shrink<40>();
+    if (tid == 0) {
+      prefetch_map(&mz);
+      prefetch_map(&mg);
+      prefetch_map(&mw);
+      if (a.resident) {
+        // this CTA's side and column: the row's 3 x cb x (hi, lo) boxes
+        mbar_expect_tx(wbar, 6 * a.cb * wbox);
+        for (int kw = 0; kw < 3; ++kw)
+          for (int k = 0; k < a.cb; ++k)
+            for (int part = 0; part < 2; ++part)
+              tma_load_4d(wres + ((kw * a.cb + k) * 2 + part) * wbox, &mw,
+                          wbar, 32 * k, 3 * kyw + kw, cc0, part);
+      }
+      const int bytes = 4 * HROWS * 128 + (a.resident ? 0 : 6 * wbox);
+      int st = 0, ph = 0;
+      for (int i = 0; i < ntiles; ++i) {
+        for (int k = 0; k < a.cb; ++k) {
+          mbar_wait(&empty[st], ph ^ 1);
+          uint8_t* buf = smem + st * sb;
+          mbar_expect_tx(&full[st], bytes);
+          for (int j = 0; j < 2; ++j) {
+            const Seg g = seg_at(t_lo + i, j);
+            tma_load_4d(buf + j * HBOX32, &mz, &full[st], 32 * k, g.x0 - 1,
+                        g.qa, g.img);
+            tma_load_4d(buf + (2 + j) * HBOX32, &mg, &full[st], 32 * k,
+                        g.x0 - 1, g.qa, g.img);
+          }
+          if (!a.resident)
+            for (int kw = 0; kw < 3; ++kw)
+              for (int part = 0; part < 2; ++part)
+                tma_load_4d(buf + w_at + (kw * 2 + part) * wbox, &mw,
+                            &full[st], 32 * k, 3 * kyw + kw, cc0, part);
+          if (++st == a.stages) st = 0, ph ^= 1;
+        }
+      }
+    } else if (tid == 32) {
+      // the epilogue slot: store the last tile's gm*a1, let the store read
+      // it, then fill the slot with the next tile's x_q
+      prefetch_map(&mx);
+      prefetch_map(&me);
+      auto store = [&](int t) {
+        for (int g = 0; g < 2; ++g) {
+          const Seg s = seg_at(t, g);
+          for (int hb = 0; hb < 2; ++hb)
+            tma_store_4d(&me, eslot + g * OUT + hb * SEG * 128,
+                         cc0 + 32 * hb, s.x0, 2 * s.b + side, s.img);
+        }
+      };
+      for (int i = 0; i < ntiles; ++i) {
+        mbar_wait(edone, (i & 1) ^ 1);
+        if (i > 0) {
+          store(t_lo + i - 1);
+          bulk_commit();
+          bulk_wait_read<0>();
+        }
+        mbar_expect_tx(efull, 2 * OUT);
+        for (int g = 0; g < 2; ++g) {
+          const Seg s = seg_at(t_lo + i, g);
+          for (int hb = 0; hb < 2; ++hb)
+            tma_load_4d(eslot + g * OUT + hb * SEG * 128, &mx, efull,
+                        cc0 + 32 * hb, s.x0, s.q, s.img);
+        }
+      }
+      if (ntiles > 0) {
+        mbar_wait(edone, (ntiles - 1) & 1);
+        store(t_lo + ntiles - 1);
+      }
+      bulk_commit();
+      bulk_wait<0>();
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    regs_grow<232>();
+    float acc[32] = {}, sum[32];
+    if (a.resident) mbar_wait(wbar, 0);
+    const int warp = tid / 32, lane = tid % 32;
+    const int g8 = lane / 4, t4 = lane % 4;
+    // the box row this lane gives ldmatrix at kx = 0: rows l % 8 + 8 (l /
+    // 8 % 2) of the warp's 16, 16-byte chunk 2 kk + l / 16 of the row
+    const int lr = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+    int st = 0, ph = 0;
+    for (int i = 0; i < ntiles; ++i) {
+      // this warpgroup's segment, read from its neighbouring band
+      const Seg g = seg_at(t_lo + i, wg);
+      const bool on = reads(a, g);
+      const int key = g.img * a.nb + g.rb;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sum[e] = 0.f;
+      for (int k = 0; k < a.cb; ++k) {
+        mbar_wait(&full[st], ph);
+        const uint8_t* buf = smem + st * sb;
+        const uint32_t zrow = smem_u32(buf + wg * HBOX32);
+        const uint32_t grow = smem_u32(buf + (2 + wg) * HBOX32);
+        for (int kx = 0; kx < 3; ++kx) {
+          // the fragment's rows g8 and g8 + 8: pixel x0 - 1 + row + kx of
+          // the row q' (zero at the w pad; the whole box where rb lies
+          // outside the image)
+          bool live[2];
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int sx = g.x0 - 1 + 16 * warp + g8 + 8 * h2 + kx;
+            live[h2] = on && sx >= 0 && sx < a.w;
+          }
+          const int hr = lr + kx;
+          uint32_t ah[4][4], al[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t off =
+                hr * 128 + ((((2 * kk + (lane >> 4)) ^ hr) & 7) << 4);
+            uint32_t zv[4], gv[4];
+            ldsm_x4(zrow + off, zv);
+            ldsm_x4(grow + off, gv);
+            typename GhostTr32::K8 tb;
+            if (on) tr.k8_tab(tb, key, 32 * k + 8 * kk + t4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float f = live[e & 1]
+                                  ? tr.k8(__uint_as_float(zv[e]),
+                                          __uint_as_float(gv[e]), tb, e >> 1)
+                                  : 0.f;
+              tf32_split(f, ah[kk][e], al[kk][e]);
+            }
+          }
+          // the flipped kernel's ky row at column 2 - kx: its hi and lo
+          // boxes of this K step
+          const uint8_t* wb =
+              a.resident ? wres + ((2 - kx) * a.cb + k) * 2 * wbox
+                         : buf + w_at + (2 - kx) * 2 * wbox;
+          const uint64_t dhi = sw128_desc(wb, 16, 1024);
+          const uint64_t dlo = sw128_desc(wb + wbox, 16, 1024);
+          wgmma_fence();
+          fence_operands(acc);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)  // 32 bytes a k8 step, >> 4
+            WgmmaTf32R<64>::mma(acc, al[kk], dhi + 2 * kk, kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            WgmmaTf32R<64>::mma(acc, ah[kk], dlo + 2 * kk, 1);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            WgmmaTf32R<64>::mma(acc, ah[kk], dhi + 2 * kk, 1);
+          wgmma_commit();
+          fence_operands(acc);
+          wgmma_wait<0>();
+          fence_operands(acc);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) sum[e] += acc[e];
+        }
+        if (tid == 0) mbar_arrive(&empty[st]);
+        if (++st == a.stages) st = 0, ph ^= 1;
+      }
+
+      // ---------------------------------------------------------- epilogue
+      // the mask's (a1, b1) of the fragment's columns, the reading band's
+      float2 ta[8], tb2[8];
+      if (on) {
+        const float* tab = a.tx + (size_t)key * 2 * a.c + cc0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int cl = 8 * j + 2 * t4;
+          ta[j] = __ldg(reinterpret_cast<const float2*>(tab + cl));
+          tb2[j] = __ldg(reinterpret_cast<const float2*>(tab + a.c + cl));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ta[j] = tb2[j] = make_float2(0.f, 0.f);
+      }
+      uint8_t* slot = eslot + wg * OUT;
+      mbar_wait(efull, i & 1);
+      // x_q of the fragment's pixels, read before gm*a1 overwrites the slot
+      float2 xr[8][2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2)
+          xr[j][e2] = *reinterpret_cast<const float2*>(
+              slot + out_offset(16 * warp + g8 + 8 * e2, 8 * j + 2 * t4));
+      bar_sync(2 + wg, 128);
+      float* wred = red + (wg * 4 + warp) * 128;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cl = 8 * j + 2 * t4;
+        float s0[2] = {0.f, 0.f}, s1[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int row = 16 * warp + g8 + 8 * e2;
+          const bool in = on && g.x0 + row < a.w;
+          const float2 xv = xr[j][e2];
+          const float u = in && affine(xv.x, ta[j].x, tb2[j].x) > 0.f
+                              ? sum[4 * j + 2 * e2] : 0.f;
+          const float v = in && affine(xv.y, ta[j].y, tb2[j].y) > 0.f
+                              ? sum[4 * j + 2 * e2 + 1] : 0.f;
+          s0[0] += u * xv.x;
+          s0[1] += v * xv.y;
+          s1[0] += u;
+          s1[1] += v;
+          *reinterpret_cast<float2*>(slot + out_offset(row, cl)) =
+              make_float2(u * ta[j].x, v * ta[j].y);
+        }
+        // the warp's 16 rows, in a fixed order
+#pragma unroll
+        for (int e3 = 0; e3 < 2; ++e3)
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) {
+            s0[e3] += __shfl_xor_sync(0xffffffffu, s0[e3], o);
+            s1[e3] += __shfl_xor_sync(0xffffffffu, s1[e3], o);
+          }
+        if (lane < 4) {
+          *reinterpret_cast<float2*>(wred + cl) = make_float2(s0[0], s0[1]);
+          *reinterpret_cast<float2*>(wred + 64 + cl) =
+              make_float2(s1[0], s1[1]);
+        }
+      }
+      // the slot is done (gm*a1 staged): the producer stores it
+      fence_async_smem();
+      bar_sync(2 + wg, 128);
+      if (tid == 0) mbar_arrive(edone);
+      if (g.live) {
+        // the segment's entry of the reading band (rb modulo nb: an
+        // out-of-image rb writes the zero entry that no segment reads
+        // into), its 4 warps in order
+        const int k2 = tid / 64, cl = tid % 64;
+        float s = 0.f;
+#pragma unroll
+        for (int w4 = 0; w4 < 4; ++w4)
+          s += red[(wg * 4 + w4) * 128 + k2 * 64 + cl];
+        const int grp = g.img * a.nb + (g.rb + a.nb) % a.nb;
+        const int entry = grp * 2 * a.segs + (side ? 0 : a.segs) + g.x0 / SEG;
+        a.part[((size_t)entry * 2 + k2) * a.c + cc0 + cl] = s;
+      }
+      bar_sync(2 + wg, 128);  // red is read before the next tile writes it
+    }
+  }
+}
+
 }  // namespace seam
 
 // The seam plan (ops/ghost.py seam_plan): ct columns a tile (64: two
@@ -691,6 +1181,70 @@ int run_seam(const void* g, const void* z, const float* td, const void* x,
   // each band's entries, side 0's segments before side 1's, in order
   bwd::reduce_parts<<<dim3((2 * c + 127) / 128, (unsigned)(n * a.nb)), 128,
                       0, s>>>(part, sums, 2 * c, 2 * a.segs);
+  return cudaGetLastError();
+}
+
+// The float32 seam plan (ops/ghost.py seam_plan with 4-byte elements): ct
+// 64, the weight resident or streamed, `stages` ring slots, `grid`
+// persistent CTAs (a multiple of 2 * c / 64); wsplit (2, c, 9c) f32
+// scratch for the weight's TF32 split.
+int run_seam32(const float* g, const float* z, const float* td,
+               const float* x, const float* tx, const float* wt,
+               float* wsplit, float* edge, float* sums, float* part, int n,
+               int h, int w, int c, int gh, int resident, int stages,
+               int grid, cudaStream_t s) {
+  constexpr int ct = 64;
+  seam::Args a{};
+  a.part = part;
+  a.td = td;
+  a.tx = tx;
+  a.n = n, a.h = h, a.w = w, a.c = c, a.gh = gh, a.nb = h / gh;
+  a.ct = ct, a.cb = c / 32, a.col_tiles = c / ct;
+  a.segs = (w + seam::SEG - 1) / seam::SEG;
+  const long long count = (long long)n * a.nb * a.segs;
+  a.count = (int)count;
+  a.tiles = (int)((count + 1) / 2);
+  a.stages = stages, a.resident = resident;
+  const int groups = 2 * a.col_tiles;
+  const int smem = seam::smem_bytes32(ct, a.cb, resident, stages);
+  bool aligned = true;
+  for (const void* p : {(const void*)g, (const void*)z, (const void*)td,
+                        (const void*)x, (const void*)tx, (const void*)wt,
+                        (const void*)wsplit, (const void*)edge,
+                        (const void*)part})
+    aligned = aligned && hop::aligned16(p);
+  if (c % ct || stages < 2 || smem > bwd::MAX_SMEM || grid < groups ||
+      grid % groups || grid / groups > a.tiles || !aligned ||
+      (long long)n * h * w * c >= (1ll << 31))
+    return cudaErrorInvalidValue;
+  CUtensorMap mz, mg, mw, mx, me;
+  // the split weight as (c, 9, c, 2): box (32, 1, ct, 1), hi at 0
+  const cuuint64_t wdims[4] = {(cuuint64_t)c, 9, (cuuint64_t)c, 2};
+  const cuuint32_t wb[4] = {32, 1, (cuuint32_t)ct, 1};
+  // edge (n, nb, 2, w, c) as (c, w, 2 nb, n): seam row 2 b + slot
+  const cuuint64_t edims[4] = {(cuuint64_t)c, (cuuint64_t)w,
+                               (cuuint64_t)(2 * a.nb), (cuuint64_t)n};
+  const cuuint32_t eb[4] = {32, (cuuint32_t)seam::SEG, 1, 1};
+  if (!hop::encode_act32(&mz, z, c, w, h, n, seam::HROWS, 1) ||
+      !hop::encode_act32(&mg, g, c, w, h, n, seam::HROWS, 1) ||
+      !hop::encode(&mw, wsplit, true, 4, wdims, wb,
+                   CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hop::encode_act32(&mx, x, c, w, h, n, seam::SEG, 1) ||
+      !hop::encode(&me, edge, true, 4, edims, eb, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  const GhostTr32 tr{tx, td, nullptr, c, c, gh * w, w};
+  cudaError_t err = hop::split_tf32(wt, wsplit, 9ll * c * c, s);
+  if (err != cudaSuccess) return err;
+  static bool set[64] = {};
+  err = hop::allow_smem(seam::tseam32, set, bwd::MAX_SMEM);
+  if (err != cudaSuccess) return err;
+  seam::tseam32<<<grid, bwd::THREADS, smem, s>>>(mz, mg, mw, mx, me, a, tr);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // each band's entries, side 0's segments before side 1's, in order, in
+  // double
+  bwd::reduce_groups_wide<<<dim3((2 * c + 127) / 128,
+                                 (unsigned)(n * a.nb)), 128, 0, s>>>(
+      part, sums, 2 * c, 2 * a.segs);
   return cudaGetLastError();
 }
 
@@ -811,4 +1365,126 @@ extern "C" int ghost_seam_bwd(const void* g, const void* z, const void* td,
                   static_cast<float*>(edge), static_cast<float*>(sums),
                   static_cast<float*>(part), n, h, w, c, gh, ct, resident,
                   stages, grid, static_cast<cudaStream_t>(stream));
+}
+
+// ghost_conv_fwd in float32: x (n,h,w,ci), wt (co, ks*ks*ci), y (n,h,w,co)
+// f32; wsplit (2, co, ks*ks*ci) f32 scratch for the weight's TF32 split;
+// tab, stats and ws as ghost_conv_fwd's. The plan (ops/conv.py
+// tma_staged_fwd_plan with gh and 4-byte elements: wb, hb, bn = 64,
+// stages, grid, eslots; hb divides gh). Returns the first launch error.
+extern "C" int ghost_conv_fwd_f32(const void* x, const void* tab,
+                                  const void* wt, void* wsplit, void* y,
+                                  void* stats, void* ws, int n, int h, int w,
+                                  int ci, int co, int ks, int gh, int wb,
+                                  int hb, int bn, int stages, int grid,
+                                  int eslots, void* stream) {
+  if (bad_geometry(n, h, w, gh, ci, co) || (ks != 1 && ks != 3) ||
+      (long long)n * h * w * (ci > co ? ci : co) >= (1ll << 31))
+    return cudaErrorInvalidValue;
+  bwd::DxArgs a{};
+  a.out = y;
+  a.out_kind = 4;
+  // tdx_f32's columns are the conv's output channels, its K the input's
+  return bwd::run_dx_f32(x, nullptr, wt, static_cast<float*>(wsplit),
+                         nullptr, a, static_cast<float*>(ws),
+                         static_cast<float*>(stats), n, h, w, co, ci, ks,
+                         bwd::DxPlan{wb, hb, bn, 0, stages, grid, eslots},
+                         bwd::BandActTr32{static_cast<const float*>(tab), ci,
+                                          gh * w},
+                         static_cast<cudaStream_t>(stream), gh);
+}
+
+// ghost_conv_bwd in float32: x, g, z, wflip, addend and dx f32 (shapes as
+// ghost_conv_bwd's; dx f32 for every out_kind, the addend f32 (add_kind 2)
+// or none (0)); wsplit (2, ci, ks*ks*co) f32 scratch for wflip's TF32
+// split. The plans (ops/conv.py): dW tma_dw_plan with g's f32 aux boxes
+// and 4-byte elements (wb, hb, bn, two, stages, splits, cs), dX
+// tma_bwd_dx_plan with gh and 4-byte elements (xwb, xhb, xbn = 64,
+// xstages, grid, eslots; ws_sums one (2, ci) entry a row tile with
+// out_kind 0). Returns the first launch error.
+extern "C" int ghost_conv_bwd_f32(const void* x, const void* tx,
+                                  const void* g, const void* z,
+                                  const void* td, const void* edge,
+                                  const void* wflip, void* wsplit, void* dx,
+                                  void* sums, void* dw, const void* addend,
+                                  void* ws_dw, void* ws_sums, int add_kind,
+                                  int out_kind, int n, int h, int w, int ci,
+                                  int co, int ks, int gh, int wb, int hb,
+                                  int bn, int two, int stages, int splits,
+                                  int cs, int xwb, int xhb, int xbn,
+                                  int xstages, int grid, int eslots,
+                                  void* stream) {
+  if (bad_geometry(n, h, w, gh, ci, co) || (ks != 1 && ks != 3) ||
+      out_kind < 0 || out_kind > 2 ||
+      (out_kind == 0 && (!tx || !sums || !ws_sums)) ||
+      (add_kind != 0 && add_kind != 2) || (add_kind != 0 && !addend) ||
+      !td || (long long)n * h * w * (ci > co ? ci : co) >= (1ll << 31))
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const GhostTr32 tr{static_cast<const float*>(tx),
+                     static_cast<const float*>(td),
+                     static_cast<const float*>(edge), ci, co, gh * w, w};
+  int err = bwd::run_dw_f32(x, z, g, static_cast<float*>(dw),
+                            static_cast<float*>(ws_dw), n, h, w, ci, co, ks,
+                            bwd::DwPlan{wb, hb, bn, two, stages, splits, cs},
+                            tr, s);
+  if (err != cudaSuccess) return err;
+  bwd::DxArgs a{};
+  a.out = dx;
+  a.addend = addend;
+  a.add_kind = add_kind;
+  a.out_kind = out_kind;
+  a.band_px = ks == 3 ? gh * w : 0;
+  // the epilogue's input: x for gm, the addend for dX + addend
+  return bwd::run_dx_f32(z, g, wflip, static_cast<float*>(wsplit),
+                         out_kind == 0 ? x : addend, a,
+                         static_cast<float*>(ws_sums),
+                         static_cast<float*>(sums), n, h, w, ci, co, ks,
+                         bwd::DxPlan{xwb, xhb, xbn, 0, xstages, grid, eslots},
+                         tr, s, gh);
+}
+
+// ghost_boundary in float32: dout, z, sc and out (n,h,w,c) f32 (4 channels
+// a 16-byte vector, c a multiple of 64), the rest as ghost_boundary's.
+// Returns the launch error.
+extern "C" int ghost_boundary_f32(const void* dout, const void* z,
+                                  const void* t, const void* sc,
+                                  const void* ts, void* out, void* sums,
+                                  int n, int h, int w, int c, int gh,
+                                  void* stream) {
+  if (bad_geometry(n, h, w, gh, c, c) || (dout && !sums))
+    return cudaErrorInvalidValue;
+  dim3 grid(n * (h / gh), c / 64);
+  gboundary32<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dout), static_cast<const float*>(z),
+      static_cast<const float*>(t), static_cast<const float*>(sc),
+      static_cast<const float*>(ts), static_cast<float*>(out),
+      static_cast<float*>(sums), gh * w, c);
+  return cudaGetLastError();
+}
+
+// ghost_seam_bwd in float32: g, z, x (n,h,w,c) and wt (c, 9c) f32 (wt as
+// ghost_seam_bwd's), wsplit (2, c, 9c) f32 scratch for its TF32 split; td,
+// tx, edge, sums and part as ghost_seam_bwd's. The plan (ops/ghost.py
+// seam_plan with 4-byte elements): resident, stages, grid (64-column
+// tiles). c a multiple of 64. Returns the first launch error.
+extern "C" int ghost_seam_bwd_f32(const void* g, const void* z,
+                                  const void* td, const void* x,
+                                  const void* tx, const void* wt,
+                                  void* wsplit, void* edge, void* sums,
+                                  void* part, int n, int h, int w, int c,
+                                  int gh, int resident, int stages, int grid,
+                                  void* stream) {
+  if (bad_geometry(n, h, w, gh, c, c) || !td || !tx)
+    return cudaErrorInvalidValue;
+  return run_seam32(static_cast<const float*>(g),
+                    static_cast<const float*>(z),
+                    static_cast<const float*>(td),
+                    static_cast<const float*>(x),
+                    static_cast<const float*>(tx),
+                    static_cast<const float*>(wt),
+                    static_cast<float*>(wsplit), static_cast<float*>(edge),
+                    static_cast<float*>(sums), static_cast<float*>(part), n,
+                    h, w, c, gh, resident, stages, grid,
+                    static_cast<cudaStream_t>(stream));
 }

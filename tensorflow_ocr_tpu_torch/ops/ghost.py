@@ -42,7 +42,14 @@ per-(image, band) tables, in ``csrc/ghost_unit.cu``:
 
 CPU tensors take each wrapper's plain version (the ``*_reference``
 functions, which emulate the kernels' split and rounding); CUDA tensors
-launch the kernel (counted in each wrapper's ``launches``) or raise.
+launch the kernel (counted in each wrapper's ``launches``) or raise. The
+kernels take bfloat16 or float32 activations, all of one type (g and the
+addend float32 beside bfloat16 ones), with the weights in that type, as
+the Pallas kernels work in ``o.dtype``; float32 ones go to kernels of
+their own, each counting its launches (:func:`conv_fwd32`,
+:func:`boundary_fwd32`, :func:`boundary_bwd32`, :func:`conv_bwd32`,
+:func:`seam_bwd32`), whose conv products are float32 products by split
+TF32 (csrc/wgmma.cuh), not TF32 ones.
 :func:`reference_ghost_unit` is the band-local unit written directly,
 differentiable by autograd: its gradient is the exact ghost gradient.
 
@@ -403,7 +410,11 @@ SIGNATURES = {
     "ghost_conv_fwd": [_P] * 6 + [_I] * 14 + [_P],
     "ghost_conv_bwd": [_P] * 13 + [_I] * 24 + [_P],
     "ghost_boundary": [_P] * 7 + [_I] * 5 + [_P],
-    "ghost_seam_bwd": [_P] * 9 + [_I] * 9 + [_P]}
+    "ghost_seam_bwd": [_P] * 9 + [_I] * 9 + [_P],
+    "ghost_conv_fwd_f32": [_P] * 7 + [_I] * 13 + [_P],
+    "ghost_conv_bwd_f32": [_P] * 14 + [_I] * 22 + [_P],
+    "ghost_boundary_f32": [_P] * 7 + [_I] * 5 + [_P],
+    "ghost_seam_bwd_f32": [_P] * 10 + [_I] * 8 + [_P]}
 
 
 @functools.cache
@@ -420,19 +431,25 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 # tensors that are float32 tables (per band, or the seam terms), and the
-# activations that may be float32 as well as bfloat16
+# activations that may be float32 beside bfloat16 ones
 _TABLES = ("tab", "tabs", "tx", "td", "edge")
 _F32_OK = ("g", "addend")
+# the activation dtypes the kernels take, each on kernels of its own
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _check(ref: torch.Tensor, gh: int, **tensors) -> None:
-    """Activations channels-last bfloat16 (g and addend also float32)
-    with channels a multiple of KERNEL_CHANNELS at ref's N, H, W; tables
-    contiguous float32; all on ref's CUDA device; H a multiple of gh.
-    Raises on anything else."""
+    """Activations channels-last of ref's dtype, bfloat16 or float32 (g
+    and addend also float32 beside bfloat16 ones), with channels a
+    multiple of KERNEL_CHANNELS at ref's N, H, W; tables contiguous
+    float32; all on ref's CUDA device; H a multiple of gh. Raises
+    (TypeError on a dtype) on anything else."""
     if ref.device.type != "cuda":
         raise ValueError(f"tensors on {ref.device}: the kernels need a "
                          "CUDA device (or every tensor on the CPU)")
+    if ref.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the kernels take bfloat16 or float32 activations, "
+                        f"got {ref.dtype}")
     n, c, h, w = ref.shape
     if gh < 2 or h % gh:
         raise ValueError(f"H={h} is not a multiple of the band height {gh}")
@@ -442,10 +459,11 @@ def _check(ref: torch.Tensor, gh: int, **tensors) -> None:
         if t.device != ref.device:
             raise ValueError(f"{name} on {t.device}, expected {ref.device}")
         ok = ((torch.float32,) if name in _TABLES else
-              (torch.bfloat16, torch.float32) if name in _F32_OK else
-              (torch.bfloat16,))
+              (ref.dtype, torch.float32) if name in _F32_OK else
+              (ref.dtype,))
         if t.dtype not in ok:
-            raise TypeError(f"{name}: the kernels take {ok}, got {t.dtype}")
+            raise TypeError(f"{name}: the kernels take {ok} beside "
+                            f"{ref.dtype} activations, got {t.dtype}")
         if name not in _TABLES:
             if not t.is_contiguous(memory_format=_CL):
                 raise ValueError(f"{name} must be channels-last contiguous")
@@ -465,6 +483,18 @@ def _table(t, n, nb, rows, c, name):
         raise ValueError(f"{name} {tuple(t.shape)}, need {(n, nb, rows, c)}")
 
 
+def _check_weight(x: torch.Tensor, w: torch.Tensor) -> None:
+    """The weight in the activations' dtype, on their device."""
+    if w.dtype != x.dtype or w.device != x.device:
+        raise TypeError(f"w: need {x.dtype} on {x.device}, got {w.dtype} "
+                        f"on {w.device}")
+
+
+def _need_f32(name: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 activations, got {t.dtype}")
+
+
 def conv_fwd(x: torch.Tensor, tab: Optional[torch.Tensor], w: torch.Tensor,
              gh: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """y = conv_k(act(x), w), stride 1, SAME, with act(x) = relu(x·a + b)
@@ -475,60 +505,121 @@ def conv_fwd(x: torch.Tensor, tab: Optional[torch.Tensor], w: torch.Tensor,
     by ops/conv.py tma_staged_fwd_plan, each tile in one band, x put
     through the band's affine on its way from shared memory into the
     product) and one that adds each band's entries in order: no atomics,
-    so two calls on the same inputs are bit-equal."""
+    so two calls on the same inputs are bit-equal. Float32 tensors go to
+    :func:`conv_fwd32`."""
     if on_cpu(x, tab, w):
         return conv_fwd_reference(x, tab, w, gh)
+    if x.dtype == torch.float32:
+        return conv_fwd32(x, tab, w, gh)
+    out = _launch_conv_fwd(x, tab, w, gh)
+    conv_fwd.launches += 1
+    return out
+
+
+def conv_fwd32(x: torch.Tensor, tab: Optional[torch.Tensor],
+               w: torch.Tensor, gh: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`conv_fwd` in float32 on CUDA tensors (x and w float32):
+    ``ghost_conv_fwd_f32``, csrc/conv_bwd.cuh's ``tdx_f32`` in its forward
+    mode with the band's table (tma_staged_fwd_plan with gh and 4-byte
+    elements), a float32 product by split TF32, each band's sums of the
+    float32 y added in double; the weight's split goes to a scratch of
+    twice its size."""
+    _need_f32("conv_fwd32", x)
+    out = _launch_conv_fwd(x, tab, w, gh)
+    conv_fwd32.launches += 1
+    return out
+
+
+def _launch_conv_fwd(x, tab, w, gh):
+    """The forward's launch on the kernel of x's dtype (CUDA tensors)."""
     n, ci, h, wd = x.shape
     co, k = w.shape[0], w.shape[-1]
     _check(x, gh, x=x, tab=tab)
     _table(tab, n, h // gh, 2, ci, "tab")
-    if w.dtype != torch.bfloat16 or w.device != x.device or k not in (1, 3) \
-            or co % KERNEL_CHANNELS or w.shape[1] != ci:
-        raise ValueError(f"w {tuple(w.shape)} {w.dtype}: need bfloat16 "
-                         f"(Co, {ci}, k, k), k in (1, 3), Co a multiple of "
-                         f"{KERNEL_CHANNELS}, on {x.device}")
+    _check_weight(x, w)
+    if k not in (1, 3) or co % KERNEL_CHANNELS or w.shape[1] != ci:
+        raise ValueError(f"w {tuple(w.shape)}: need (Co, {ci}, k, k), k in "
+                         f"(1, 3), Co a multiple of {KERNEL_CHANNELS}")
     wt = w.permute(0, 2, 3, 1).reshape(co, k * k * ci).contiguous()
     aligned16(x=x, tab=tab)
     index = x.device.index
-    p = CV.tma_staged_fwd_plan(n, h, wd, ci, co, k, CV._sms(index), gh)
+    f32 = x.dtype == torch.float32
+    p = CV.tma_staged_fwd_plan(n, h, wd, ci, co, k, CV._sms(index), gh,
+                               esize=4 if f32 else 2)
     y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device,
                     memory_format=_CL)
-    # the band sums and the tiles' entries in one buffer, both written
-    # whole
+    # the band sums, the tiles' entries and (float32) the weight's split in
+    # one buffer, each written whole
     nbs = n * (h // gh) * 2 * co
-    buf = torch.empty(nbs + p.row_tiles * 2 * co, dtype=torch.float32,
+    entries = nbs + p.row_tiles * 2 * co
+    buf = torch.empty(entries + 2 * wt.numel() * f32, dtype=torch.float32,
                       device=x.device)
-    s, ws = buf[:nbs].view(n, h // gh, 2, co), buf[nbs:]
+    s, ws = buf[:nbs].view(n, h // gh, 2, co), buf[nbs:entries]
+    stream = torch._C._cuda_getCurrentRawStream(index)
     with CV._on_device(index):
-        err = _lib().ghost_conv_fwd(
-            x.data_ptr(), _ptr(tab), wt.data_ptr(), y.data_ptr(),
-            s.data_ptr(), ws.data_ptr(), n, h, wd, ci, co, k, gh, p.wb,
-            p.hb, p.bn, int(p.resident), p.stages, p.grid, p.eslots,
-            torch._C._cuda_getCurrentRawStream(index))
-    raise_on(err, "ghost_conv_fwd")
-    conv_fwd.launches += 1
+        if f32:
+            err = _lib().ghost_conv_fwd_f32(
+                x.data_ptr(), _ptr(tab), wt.data_ptr(),
+                buf[entries:].data_ptr(), y.data_ptr(), s.data_ptr(),
+                ws.data_ptr(), n, h, wd, ci, co, k, gh, p.wb, p.hb, p.bn,
+                p.stages, p.grid, p.eslots, stream)
+        else:
+            err = _lib().ghost_conv_fwd(
+                x.data_ptr(), _ptr(tab), wt.data_ptr(), y.data_ptr(),
+                s.data_ptr(), ws.data_ptr(), n, h, wd, ci, co, k, gh, p.wb,
+                p.hb, p.bn, int(p.resident), p.stages, p.grid, p.eslots,
+                stream)
+    raise_on(err, "ghost_conv_fwd_f32" if f32 else "ghost_conv_fwd")
     return y, s
 
 
 def boundary_fwd(z, tab, sc, tabs, gh):
     """relu(z·a3 + b3 + (sc·as + bs, or sc where tabs is None)) with each
-    pixel's band's tables (N, nb, 2, C); out in z's dtype."""
+    pixel's band's tables (N, nb, 2, C); out in z's dtype. Float32 tensors
+    go to :func:`boundary_fwd32`."""
     if on_cpu(z, tab, sc, tabs):
         return boundary_fwd_reference(z, tab, sc, tabs, gh)
-    return _boundary(None, z, tab, sc, tabs, gh)
+    if z.dtype == torch.float32:
+        return boundary_fwd32(z, tab, sc, tabs, gh)
+    out = _boundary(None, z, tab, sc, tabs, gh)
+    boundary_fwd.launches += 1
+    return out
+
+
+def boundary_fwd32(z, tab, sc, tabs, gh):
+    """:func:`boundary_fwd` in float32 on CUDA tensors
+    (``ghost_boundary_f32``: 16-byte vectors of 4 channels)."""
+    _need_f32("boundary_fwd32", z)
+    out = _boundary(None, z, tab, sc, tabs, gh)
+    boundary_fwd32.launches += 1
+    return out
 
 
 def boundary_bwd(dout, z, tab, sc, tabs, gh):
     """gm = dout·[pre > 0] in z's dtype (exact: dout or 0) and its band
     sums (N, nb, 3, C) [Σ gm·z, Σ gm, Σ gm·sc] (the last one used by the
-    projection shortcut only)."""
+    projection shortcut only). Float32 tensors go to
+    :func:`boundary_bwd32`."""
     if on_cpu(dout, z, tab, sc, tabs):
         return boundary_bwd_reference(dout, z, tab, sc, tabs, gh)
-    dout = dout.contiguous(memory_format=_CL)
-    return _boundary(dout, z, tab, sc, tabs, gh)
+    if z.dtype == torch.float32:
+        return boundary_bwd32(dout, z, tab, sc, tabs, gh)
+    out = _boundary(dout.contiguous(memory_format=_CL), z, tab, sc, tabs, gh)
+    boundary_bwd.launches += 1
+    return out
+
+
+def boundary_bwd32(dout, z, tab, sc, tabs, gh):
+    """:func:`boundary_bwd` in float32 on CUDA tensors
+    (``ghost_boundary_f32``: the same row-group order of the band sums)."""
+    _need_f32("boundary_bwd32", z)
+    out = _boundary(dout.contiguous(memory_format=_CL), z, tab, sc, tabs, gh)
+    boundary_bwd32.launches += 1
+    return out
 
 
 def _boundary(dout, z, tab, sc, tabs, gh):
+    """The boundary's launch on the kernel of z's dtype (CUDA tensors)."""
     n, c, h, wd = z.shape
     nb = h // gh
     _check(z, gh, dout=dout, z=z, sc=sc, tab=tab, tabs=tabs)
@@ -539,17 +630,15 @@ def _boundary(dout, z, tab, sc, tabs, gh):
     out = torch.empty_like(z, memory_format=_CL)
     sums = (None if dout is None else
             torch.zeros((n, nb, 3, c), dtype=torch.float32, device=z.device))
+    entry = ("ghost_boundary_f32" if z.dtype == torch.float32
+             else "ghost_boundary")
     with torch.cuda.device(z.device):
-        err = _lib().ghost_boundary(
+        err = getattr(_lib(), entry)(
             _ptr(dout), z.data_ptr(), tab.data_ptr(), sc.data_ptr(),
             _ptr(tabs), out.data_ptr(), _ptr(sums), n, h, wd, c, gh,
             cuda_stream())
-    raise_on(err, "ghost_boundary")
-    if dout is None:
-        boundary_fwd.launches += 1
-        return out
-    boundary_bwd.launches += 1
-    return out, sums
+    raise_on(err, entry)
+    return out if dout is None else (out, sums)
 
 
 _OUT = {"gm": 0, "act": 1, "f32": 2}
@@ -571,10 +660,36 @@ def conv_bwd(x, tx, g, z, td, w, gh, edge=None, addend=None,
     in a fixed order), then dX (``tdx``, tiled by tma_bwd_dx_plan, its band
     sums one entry a tile, added in tile order); no atomics, so two calls
     on the same inputs are bit-equal. Each kernel's launches are counted
-    in ``conv_bwd.by_kernel``.
+    in ``conv_bwd.by_kernel`` (``tdw_f32`` and ``tdx_f32`` in float32).
+    Float32 tensors go to :func:`conv_bwd32`.
     """
     if on_cpu(x, tx, g, z, td, w, edge, addend):
         return conv_bwd_reference(x, tx, g, z, td, w, gh, edge, addend, out)
+    if x.dtype == torch.float32:
+        return conv_bwd32(x, tx, g, z, td, w, gh, edge, addend, out)
+    res = _launch_conv_bwd(x, tx, g, z, td, w, gh, edge, addend, out)
+    conv_bwd.launches += 1
+    return res
+
+
+def conv_bwd32(x, tx, g, z, td, w, gh, edge=None, addend=None,
+               out: str = "gm"):
+    """:func:`conv_bwd` in float32 on CUDA tensors (every activation and
+    w float32; dx float32 for every ``out``): ``ghost_conv_bwd_f32``,
+    csrc/conv_bwd.cuh's ``tdw_f32`` (its boxes rewritten in place through
+    relu(x·a + b) and dz under each pixel's band) and ``tdx_f32`` (dz and
+    the seam term formed in registers before the split; the 3x3's reads
+    kept in the output row's band), both float32 products by split TF32,
+    the band sums added in double."""
+    _need_f32("conv_bwd32", x)
+    res = _launch_conv_bwd(x, tx, g, z, td, w, gh, edge, addend, out)
+    conv_bwd32.launches += 1
+    return res
+
+
+def _launch_conv_bwd(x, tx, g, z, td, w, gh, edge, addend, out):
+    """The backward's launches on the kernels of x's dtype (CUDA
+    tensors)."""
     n, ci, h, wd = x.shape
     nb = h // gh
     co, k = w.shape[0], w.shape[-1]
@@ -585,25 +700,30 @@ def conv_bwd(x, tx, g, z, td, w, gh, edge=None, addend=None,
         raise ValueError(f"edge {tuple(edge.shape)}")
     if out == "gm" and tx is None:
         raise ValueError("out='gm' needs the (a, b) table tx")
-    if w.dtype != torch.bfloat16 or w.device != x.device or k not in (1, 3) \
-            or w.shape[1] != ci or g.shape[1] != co or z.shape[1] != co:
-        raise ValueError(f"w {tuple(w.shape)} {w.dtype} does not fit x, g, z")
+    _check_weight(x, w)
+    if k not in (1, 3) or w.shape[1] != ci or g.shape[1] != co \
+            or z.shape[1] != co:
+        raise ValueError(f"w {tuple(w.shape)} does not fit x, g, z")
     if k == 3 and g.dtype != torch.float32:
         raise TypeError("the 3x3's backward takes a float32 g")
     wflip = w.flip(2, 3).permute(1, 2, 3, 0).reshape(ci, k * k * co)
     wflip = wflip.contiguous()
     aligned16(x=x, tx=tx, g=g, z=z, td=td, edge=edge, addend=addend)
     index = x.device.index
+    f32 = x.dtype == torch.float32
+    esize = 4 if f32 else 2
     sms, aux = CV._sms(index), g.element_size()
-    pw = CV.tma_dw_plan(n, h, wd, ci, co, k, sms, aux=aux)
-    px = CV.tma_bwd_dx_plan(n, h, wd, ci, co, k, sms, aux, out != "f32", gh)
-    # dW, the clusters' tables and the band sums' entries (one a row tile)
-    # in one buffer: the wrapper's host time is of the order of a small
-    # shape's device time
+    pw = CV.tma_dw_plan(n, h, wd, ci, co, k, sms, aux=aux, esize=esize)
+    px = CV.tma_bwd_dx_plan(n, h, wd, ci, co, k, sms, aux,
+                            f32 or out != "f32", gh, esize=esize)
+    # dW, the clusters' tables, the band sums' entries (one a row tile)
+    # and (float32) wflip's split in one buffer: the wrapper's host time is
+    # of the order of a small shape's device time
     kdim, tables = k * k * ci * co, pw.splits // pw.cluster
     parts = px.row_tiles * 2 * ci if out == "gm" else 0
     ws_dw = kdim * tables if tables > 1 else 0
-    buf = torch.empty(kdim + ws_dw + parts, dtype=torch.float32,
+    split = 2 * kdim * f32
+    buf = torch.empty(kdim + ws_dw + parts + split, dtype=torch.float32,
                       device=x.device)
     dw = buf[:kdim]
     dx = torch.empty((n, ci, h, wd), device=x.device, memory_format=_CL,
@@ -612,22 +732,32 @@ def conv_bwd(x, tx, g, z, td, w, gh, edge=None, addend=None,
             if out == "gm" else None)
     add_kind = 0 if addend is None else (
         2 if addend.dtype == torch.float32 else 1)
+    ws_ptr = buf[kdim:].data_ptr() if ws_dw else None
+    parts_ptr = buf[kdim + ws_dw:].data_ptr() if parts else None
+    stream = torch._C._cuda_getCurrentRawStream(index)
     with torch.cuda.device(x.device):
-        err = _lib().ghost_conv_bwd(
-            x.data_ptr(), _ptr(tx), g.data_ptr(), z.data_ptr(),
-            td.data_ptr(), _ptr(edge), wflip.data_ptr(), dx.data_ptr(),
-            _ptr(sums), dw.data_ptr(), _ptr(addend),
-            buf[kdim:].data_ptr() if ws_dw else None,
-            buf[kdim + ws_dw:].data_ptr() if parts else None,
-            int(g.dtype == torch.float32), add_kind, _OUT[out], n, h, wd,
-            ci, co, k, gh, pw.wb, pw.hb, pw.bn, int(pw.two), pw.stages,
-            pw.splits, pw.cluster, px.wb, px.hb, px.bn, int(px.resident),
-            px.stages, px.grid, px.eslots,
-            torch._C._cuda_getCurrentRawStream(index))
-    raise_on(err, "ghost_conv_bwd")
-    conv_bwd.launches += 1
+        if f32:
+            err = _lib().ghost_conv_bwd_f32(
+                x.data_ptr(), _ptr(tx), g.data_ptr(), z.data_ptr(),
+                td.data_ptr(), _ptr(edge), wflip.data_ptr(),
+                buf[kdim + ws_dw + parts:].data_ptr(), dx.data_ptr(),
+                _ptr(sums), dw.data_ptr(), _ptr(addend), ws_ptr, parts_ptr,
+                add_kind, _OUT[out], n, h, wd, ci, co, k, gh, pw.wb, pw.hb,
+                pw.bn, int(pw.two), pw.stages, pw.splits, pw.cluster, px.wb,
+                px.hb, px.bn, px.stages, px.grid, px.eslots, stream)
+        else:
+            err = _lib().ghost_conv_bwd(
+                x.data_ptr(), _ptr(tx), g.data_ptr(), z.data_ptr(),
+                td.data_ptr(), _ptr(edge), wflip.data_ptr(), dx.data_ptr(),
+                _ptr(sums), dw.data_ptr(), _ptr(addend), ws_ptr, parts_ptr,
+                int(g.dtype == torch.float32), add_kind, _OUT[out], n, h, wd,
+                ci, co, k, gh, pw.wb, pw.hb, pw.bn, int(pw.two), pw.stages,
+                pw.splits, pw.cluster, px.wb, px.hb, px.bn,
+                int(px.resident), px.stages, px.grid, px.eslots, stream)
+    raise_on(err, "ghost_conv_bwd_f32" if f32 else "ghost_conv_bwd")
     for kernel in conv_bwd.by_kernel:
-        conv_bwd.by_kernel[kernel] += 1
+        if kernel.endswith("_f32") == f32:
+            conv_bwd.by_kernel[kernel] += 1
     dw = dw.view(k, k, ci, co).permute(3, 2, 0, 1).contiguous()
     return dx, sums, dw
 
@@ -663,47 +793,60 @@ class SeamPlan(NamedTuple):
 
 # the seam kernel's shared memory (csrc/ghost_unit.cu namespace seam)
 SEAM_SEG = 64                     # pixels a segment
-SEAM_HBOX = 9216                  # a segment's 66-pixel bf16 halo box
-SEAM_GBOX = 66 * 256              # its f32 g box
+SEAM_HBOX = 9216                  # a segment's 66-pixel bf16 halo box; in
+                                  # float32 its z and g boxes of 32 channels
+SEAM_GBOX = 66 * 256              # its f32 g box (bf16: 64 channels)
 SEAM_OUT = SEAM_SEG * 64 * 4      # a warpgroup's f32 output (x_q in)
 SEAM_RED = 8 * 2 * 64 * 4         # the warps' column sums
 SEAM_MAX_STAGES = 4
 
 
 def seam_smem(nseg: int, ct: int, cb: int, resident: bool,
-              stages: int) -> int:
+              stages: int, esize: int = 2) -> int:
     """Bytes of tseam's dynamic shared memory, as run_seam counts them:
     the ring, the resident weight, one epilogue slot (x_q in, gm*a1 out),
-    the warps' sums and the barriers."""
-    stage = (CV.round1k(nseg * (SEAM_HBOX + SEAM_GBOX))
-             + (0 if resident else 3 * ct * 128))
-    return (stages * stage + resident * 3 * cb * ct * 128
+    the warps' sums and the barriers. ``esize`` 4: tseam32's (run_seam32),
+    cb boxes of 32 channels, each slot two segments' z and g boxes and each
+    weight box twice (its TF32 hi and lo)."""
+    if esize == 4:
+        stage, wbytes = 4 * SEAM_HBOX + (0 if resident else 6 * ct * 128), 6
+    else:
+        stage = (CV.round1k(nseg * (SEAM_HBOX + SEAM_GBOX))
+                 + (0 if resident else 3 * ct * 128))
+        wbytes = 3
+    return (stages * stage + resident * wbytes * cb * ct * 128
             + 2 * SEAM_OUT + SEAM_RED + 8 * (2 * stages + 3) + 1024)
 
 
 @functools.lru_cache(maxsize=None)
-def seam_plan(n: int, h: int, w: int, c: int, gh: int, sms: int) -> SeamPlan:
+def seam_plan(n: int, h: int, w: int, c: int, gh: int, sms: int,
+              esize: int = 2) -> SeamPlan:
     """The seam pass's tiling: two sides (the slot written: a band's first
     or last row), each row of a side cut into 64-pixel segments, a tile one
     or two of them by ``ct`` columns; the flipped kernel's ky row resident
     where it fits beside a ring of 2, else streamed with each K step; as
     many ring slots as fit (up to 4) beside the one epilogue slot; the grid the SM count rounded down to a
     multiple of the groups (side, column tile), each CTA a contiguous
-    share of one group's tiles. c a multiple of 64."""
-    nb, cb = h // gh, c // 64
-    ct = 128 if c % 128 == 0 else 64
+    share of one group's tiles. c a multiple of 64. ``esize`` 4 plans
+    tseam32: ct 64 at every c (two segments a tile), a K step 32 channels,
+    each weight box as TF32 hi and lo (at c = 128 the resident row, 6 x 4
+    boxes of 8 KB, does not fit beside two slots: streamed)."""
+    nb = h // gh
+    ct = 128 if c % 128 == 0 and esize == 2 else 64
+    cb = c // (128 // esize)
     nseg = 2 if ct == 64 else 1
     segs = -(-w // SEAM_SEG)
     count = n * nb * segs
     tiles = -(-count // nseg)
     groups = 2 * (c // ct)
-    resident = seam_smem(nseg, ct, cb, True, 2) <= CV.MAX_SMEM
+    resident = seam_smem(nseg, ct, cb, True, 2, esize) <= CV.MAX_SMEM
     stages = max(st for st in range(2, SEAM_MAX_STAGES + 1)
-                 if seam_smem(nseg, ct, cb, resident, st) <= CV.MAX_SMEM)
+                 if seam_smem(nseg, ct, cb, resident, st, esize)
+                 <= CV.MAX_SMEM)
     grid = min(groups * tiles, max(sms, groups))
     grid -= grid % groups
     return SeamPlan(ct, segs, count, tiles, groups, resident, stages, grid,
-                    seam_smem(nseg, ct, cb, resident, stages))
+                    seam_smem(nseg, ct, cb, resident, stages, esize))
 
 
 def seam_bwd(g, z, td, x, tx, w, gh):
@@ -717,49 +860,79 @@ def seam_bwd(g, z, td, x, tx, w, gh):
     csrc/ghost_unit.cu's tseam (TMA, wgmma; tiled by :func:`seam_plan`,
     every slot written, the unread ones 0) and one that adds each band's
     entries in order: no atomics, so two calls on the same inputs are
-    bit-equal."""
+    bit-equal. Float32 tensors go to :func:`seam_bwd32`."""
     if on_cpu(g, z, td, x, tx, w):
         return seam_bwd_reference(g, z, td, x, tx, w, gh)
+    if x.dtype == torch.float32:
+        return seam_bwd32(g, z, td, x, tx, w, gh)
+    out = _launch_seam(g, z, td, x, tx, w, gh)
+    seam_bwd.launches += 1
+    return out
+
+
+def seam_bwd32(g, z, td, x, tx, w, gh):
+    """:func:`seam_bwd` in float32 on CUDA tensors (g, z, x and w float32):
+    ``ghost_seam_bwd_f32``, csrc/ghost_unit.cu's ``tseam32`` (seam_plan
+    with 4-byte elements), the 1x3 products by split TF32 with dz formed
+    in registers, the band sums added in double; the weight's split goes to
+    a scratch of twice its size."""
+    _need_f32("seam_bwd32", x)
+    out = _launch_seam(g, z, td, x, tx, w, gh)
+    seam_bwd32.launches += 1
+    return out
+
+
+def _launch_seam(g, z, td, x, tx, w, gh):
+    """The seam pass's launch on the kernel of x's dtype (CUDA tensors)."""
     n, c, h, wd = x.shape
     nb = h // gh
     _check(x, gh, g=g, z=z, x=x, td=td, tx=tx)
     _table(td, n, nb, 3, c, "td")
     _table(tx, n, nb, 2, c, "tx")
-    if tuple(w.shape) != (c, c, 3, 3) or w.dtype != torch.bfloat16 \
-            or w.device != x.device:
-        raise ValueError(f"w {tuple(w.shape)} {w.dtype}: need bfloat16 "
-                         f"({c}, {c}, 3, 3) on {x.device}")
+    _check_weight(x, w)
+    if tuple(w.shape) != (c, c, 3, 3):
+        raise ValueError(f"w {tuple(w.shape)}: need ({c}, {c}, 3, 3)")
     if g.dtype != torch.float32:
         raise TypeError("the seam pass takes a float32 g")
     # the kernel as (Ci, 9·Co), K-major: the kernel reads its taps flipped
     wt = w.permute(1, 2, 3, 0).reshape(c, 9 * c).contiguous()
     aligned16(g=g, z=z, td=td, x=x, tx=tx)
     index = x.device.index
-    p = seam_plan(n, h, wd, c, gh, CV._sms(index))
-    # edge, the band sums and the segments' entries in one buffer, each
-    # written whole: no memset
-    ne, ns = n * nb * 2 * wd * c, n * nb * 2 * c
-    buf = torch.empty(ne + ns + 2 * p.count * 2 * c, dtype=torch.float32,
-                      device=x.device)
+    f32 = x.dtype == torch.float32
+    p = seam_plan(n, h, wd, c, gh, CV._sms(index), 4 if f32 else 2)
+    # edge, the band sums, the segments' entries and (float32) the weight's
+    # split in one buffer, each written whole: no memset
+    ne, ns, npart = n * nb * 2 * wd * c, n * nb * 2 * c, 2 * p.count * 2 * c
+    buf = torch.empty(ne + ns + npart + 2 * wt.numel() * f32,
+                      dtype=torch.float32, device=x.device)
     edge = buf[:ne].view(n, nb, 2, wd, c)
     sums = buf[ne:ne + ns].view(n, nb, 2, c)
     base = buf.data_ptr()
+    stream = torch._C._cuda_getCurrentRawStream(index)
     with CV._on_device(index):
-        err = _lib().ghost_seam_bwd(
-            g.data_ptr(), z.data_ptr(), td.data_ptr(), x.data_ptr(),
-            tx.data_ptr(), wt.data_ptr(), base, base + 4 * ne,
-            base + 4 * (ne + ns), n, h, wd, c, gh,
-            p.ct, int(p.resident), p.stages, p.grid,
-            torch._C._cuda_getCurrentRawStream(index))
-    raise_on(err, "ghost_seam_bwd")
-    seam_bwd.launches += 1
+        if f32:
+            err = _lib().ghost_seam_bwd_f32(
+                g.data_ptr(), z.data_ptr(), td.data_ptr(), x.data_ptr(),
+                tx.data_ptr(), wt.data_ptr(), base + 4 * (ne + ns + npart),
+                base, base + 4 * ne, base + 4 * (ne + ns), n, h, wd, c, gh,
+                int(p.resident), p.stages, p.grid, stream)
+        else:
+            err = _lib().ghost_seam_bwd(
+                g.data_ptr(), z.data_ptr(), td.data_ptr(), x.data_ptr(),
+                tx.data_ptr(), wt.data_ptr(), base, base + 4 * ne,
+                base + 4 * (ne + ns), n, h, wd, c, gh,
+                p.ct, int(p.resident), p.stages, p.grid, stream)
+    raise_on(err, "ghost_seam_bwd_f32" if f32 else "ghost_seam_bwd")
     return edge, sums
 
 
-for _fn in (conv_fwd, conv_bwd, boundary_fwd, boundary_bwd, seam_bwd):
+for _fn in (conv_fwd, conv_bwd, boundary_fwd, boundary_bwd, seam_bwd,
+            conv_fwd32, conv_bwd32, boundary_fwd32, boundary_bwd32,
+            seam_bwd32):
     _fn.launches = 0
-# the conv backward's two kernels (csrc/conv_bwd.cuh): dW and dX
-conv_bwd.by_kernel = {"tdw": 0, "tdx": 0}
+# the conv backward's two kernels (csrc/conv_bwd.cuh): dW and dX, in
+# bfloat16 and in float32
+conv_bwd.by_kernel = {"tdw": 0, "tdx": 0, "tdw_f32": 0, "tdx_f32": 0}
 
 
 # --------------------------------------------------------------------------

@@ -156,16 +156,27 @@ def emulate_dw(xa, dye, k, one_pass=False):
     co = dye.shape[-1]
     geo = geo_of(n, h, w, k)
     p = CV.tma_dw_plan(*geo, ci, co, k, SMS, 4, 4)
-    cols = im2col(xa, k).reshape(*geo, k * k * ci)
-    dys = dye.reshape(*geo, co)
-    tw, th = -(-geo[2] // p.wb), -(-geo[1] // p.hb)
-    ntiles = geo[0] * th * tw
+    return dw_table(im2col(xa, k).reshape(*geo, k * k * ci),
+                    dye.reshape(*geo, co), p, one_pass)
+
+
+def dw_table(cols, dys, p, one_pass=False):
+    """tdw_f32's table from the staged operands cols (N, H, W, K) and dys
+    (N, H, W, Co) of the plan p: the pixel tiles (wb x hb boxes, zero past
+    the image) split over CTAs, a fresh accumulator each k8 step of 8
+    pixels added to the CTA's sum, the CTAs of a cluster in rank order
+    (then a rank's halves), the clusters' tables in order in double
+    (sum_tables_wide)."""
+    n, h, w, kdim = cols.shape
+    co = dys.shape[-1]
+    tw, th = -(-w // p.wb), -(-h // p.hb)
+    ntiles = n * th * tw
 
     def tile(t):
         """The tile's pixels (box rows in order), zero past the image."""
         img, t = divmod(t, th * tw)
         y0, x0 = (t // tw) * p.hb, (t % tw) * p.wb
-        a = np.zeros((p.hb, p.wb, k * k * ci), f32)
+        a = np.zeros((p.hb, p.wb, kdim), f32)
         d = np.zeros((p.hb, p.wb, co), f32)
         ca = cols[img, y0:y0 + p.hb, x0:x0 + p.wb]
         a[:ca.shape[0], :ca.shape[1]] = ca
@@ -176,12 +187,12 @@ def emulate_dw(xa, dye, k, one_pass=False):
     sums = []
     for z in range(p.splits):
         lo, hi = z * ntiles // p.splits, (z + 1) * ntiles // p.splits
-        part = [np.zeros((k * k * ci, co), f32) for _ in halves]
+        part = [np.zeros((kdim, co), f32) for _ in halves]
         for t in range(lo, hi):
             a, d = tile(t)
             for i, px in enumerate(halves):
                 for k8 in range(px.start, px.stop, 8):
-                    acc = np.zeros((k * k * ci, co), f32)
+                    acc = np.zeros((kdim, co), f32)
                     for pa, pb in passes(a[k8:k8 + 8], d[k8:k8 + 8],
                                          one_pass):
                         acc = (acc.astype(f64) + pa.T.astype(f64)
@@ -189,9 +200,9 @@ def emulate_dw(xa, dye, k, one_pass=False):
                     part[i] = part[i] + acc
         sums.append(part)
     # the clusters' tables added in order in double (sum_tables_wide)
-    out = np.zeros((k * k * ci, co), f64)
+    out = np.zeros((kdim, co), f64)
     for c0 in range(0, p.splits, p.cluster):
-        s = np.zeros((k * k * ci, co), f32)
+        s = np.zeros((kdim, co), f32)
         for q in range(c0, c0 + p.cluster):  # ranks in order, then halves
             for half in sums[q]:
                 s = s + half
