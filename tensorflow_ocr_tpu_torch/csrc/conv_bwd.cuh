@@ -87,7 +87,9 @@
 // reduce_parts_wide; reduce_groups_wide by band). A banded transform
 // (Tr::kBanded: ghost_unit.cu GhostTr32, BandActTr32 below) takes its
 // tables by band and its sums per band, through `if constexpr` branches
-// that leave the fused instantiations' machine code as it was.
+// that leave the fused instantiations' machine code as it was. The
+// float32 dW without a transform (conv_dw.cu, the PALLAS_CONVS route) is
+// tdw_f32_wg: TF32 wgmma, dY transposed once a stage into K-major tiles.
 
 #pragma once
 
@@ -462,8 +464,9 @@ __global__ void sum_tables_wide(const float* __restrict__ part,
 // accumulator that is then added to the f32 sum: with a whole 64-pixel
 // tile's 24 products in one accumulator, the tensor cores' truncation
 // took a 91-pixel 3x3 dW to 3.99x the plain float32 version's error
-// (H100, scripts/conv_f32_probe.py). The identity transform (kAux = 0,
-// conv_dw.cu) reads the boxes as they come; a staging transform with an
+// (H100, scripts/conv_f32_probe.py). The identity transform (kAux = 0)
+// reads the boxes as they come (conv_dw.cu, the route's float32 dW, takes
+// tdw_f32_wg below instead); a staging transform with an
 // f32 aux box (kAux = 4: the fused backward, fused_conv.cu FusedTr32)
 // rewrites each stage in place first, as tdw does: X through T_x and dY
 // with its y box (BN / 32 boxes of 32 f32 channels, swizzled as dY) to
@@ -687,6 +690,337 @@ tdw_f32(const __grid_constant__ CUtensorMap mx,
     float* park = reinterpret_cast<float*>(smem) + wg * 64 * LDR;
 #pragma unroll
     for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = 16 * warp + g + 8 * e;
+        const int col = 8 * j + 2 * t4;
+        *reinterpret_cast<float2*>(park + row * LDR + col) =
+            make_float2(sum[4 * j + 2 * e], sum[4 * j + 2 * e + 1]);
+      }
+    cluster_sync();
+
+    // rank r sums and writes rows [r, r+1) * rows/cs of the tile
+    const int share = 64 * NA / a.cs;
+    const int rank = (int)cluster_rank();
+    float* out = a.out + (size_t)(blockIdx.z / a.cs) *
+                             ((size_t)a.ks * a.ks * a.ci * a.co);
+    const float* base = reinterpret_cast<const float*>(smem);
+    for (int idx = threadIdx.x; idx < share * (BN / 4); idx += CONSUMERS) {
+      const int r = rank * share + idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+      const int j = TWO ? r / 64 : 0, ii = r % 64;
+      if (TWO && 2 * (int)blockIdx.x + j >= a.rchunks) continue;
+      const int ch = chunk_of(j);
+      const int cin = (ch % a.cchunks) * 64 + ii, n = co0 + c;
+      if (cin >= a.ci || n >= a.co) continue;
+      float4 sum4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < a.cs; ++q)
+        for (int pp = TWO ? j : 0; pp <= (TWO ? j : 1); ++pp) {
+          const float4 v = ld_cluster_f4(base + (pp * 64 + ii) * LDR + c, q);
+          sum4.x += v.x;
+          sum4.y += v.y;
+          sum4.z += v.z;
+          sum4.w += v.w;
+        }
+      *reinterpret_cast<float4*>(
+          out + ((size_t)(ch / a.cchunks) * a.ci + cin) * a.co + n) = sum4;
+    }
+    cluster_sync();
+  }
+}
+
+// ----------------------------------------------- dW, f32, on TF32 wgmma
+//
+// tdw_f32_wg: the float32 dW without a staging transform (conv_dw.cu
+// conv_dw_tma_f32, the PALLAS_CONVS route's dw_rows and dw3) on TF32
+// wgmma, in place of tdw_f32's hand-read mma.sync fragments. TF32 wgmma
+// takes K-major operands only, and the boxes are pixel-major:
+// - A is X^T, the warpgroup's 64 channels by a k8 step's 8 pixels, from
+//   registers (WgmmaTf32R): WgmmaTf32R's A fragment has mma_tf32's lanes,
+//   so each warp reads its 16 rows from the swizzled X boxes and splits
+//   them as tdw_f32 does (its loads ordered so that no two lanes share a
+//   bank);
+// - B is dY, BN columns by the k8 step's 8 pixels, K-major in shared
+//   memory: once a stage the 256 consumer threads transpose the BN / 32
+//   dY boxes into a TF32 hi and a lo tile (split_offset: two blocks of
+//   32 pixels, BN rows of 128 bytes under the 128-byte swizzle, which the
+//   bf16 K-major descriptors read), hi over the raw boxes once every
+//   thread holds its raw values (a named barrier), lo into a slot of its
+//   own; a thread takes 4 channels x 4 pixels at a time, four 16-byte
+//   loads and eight 16-byte stores, the 8 threads of a phase on 8
+//   distinct chunks on either side (no bank conflicts). Both warpgroups
+//   read the one copy.
+// Three m64nBNk8 products a k8 step (lo.hi', hi.lo', hi.hi'); a run of R
+// k8 steps goes to a fresh accumulator pass by pass (the small passes
+// first, as conv_fwd_tma_f32's K step) and is then added to the f32 sum:
+// the tensor cores truncate as they accumulate, so runs stay short (R:
+// ops/conv.py DW32_RUN). One accumulator, waited for after each run, as
+// in conv_fwd_tma_f32 (the other warpgroup's products fill the wait; the
+// next run's A fragments load under this one): with two alternating
+// under wgmma.wait_group 1, ptxas serialised every wgmma (C7514: it took
+// the add of the retired accumulator for a read of one in flight). The
+// previous tile's last run stays in flight over the next tile's
+// transpose. The split of the pixel tiles, the ring, the parking and the
+// rank-order cluster reduction are tdw_f32's: no atomics, two launches
+// are bit-equal.
+
+// Byte offset of (output channel n, pixel p) in a split dY tile (hi or
+// lo) of bn channels by KP pixels: block p / 32 of bn rows of 128 bytes,
+// the 16-byte chunk (p % 32) / 4 of row n permuted by n % 8. The B
+// operand of the k8 step at pixel q starts split_offset(bn, 0, q) in.
+__host__ __device__ constexpr uint32_t split_offset(int bn, int n, int p) {
+  return (p / 32) * bn * 128 + n * 128 +
+         (((((p % 32) >> 2) ^ n) & 7) << 4) + (p % 4) * 4;
+}
+
+// A stage of tdw_f32_wg: two X boxes of 32 f32 channels a 64-row chunk,
+// bn / 32 dY boxes (then the hi tile) and the lo tile.
+__host__ __device__ constexpr int dw32wg_stage_bytes(int bn, bool two) {
+  return ((two ? 2 : 1) * 2 + 2 * (bn / 32)) * BOX32;
+}
+
+// The 4x4 block blk of the split's transpose: channels 4 cq.. and pixels
+// 4 pq.. of the tile, the 8 threads of a phase (blk % 8 their lane's) on
+// pq % 8 = blk % 8 and cq % 8 = blk % 8 ^ (blk / 8 % 8): 8 distinct
+// 16-byte chunks of a 128-byte row where they read the dY box and where
+// they write the tile.
+__device__ __forceinline__ void xpose_block(int blk, int& cq, int& pq) {
+  const int t = blk & 7;
+  cq = 8 * (blk >> 7) + (t ^ ((blk >> 3) & 7));
+  pq = 8 * ((blk >> 6) & 1) + t;
+}
+
+// v[pixel][channel] of block blk from the raw dY boxes at raw.
+__device__ __forceinline__ void xpose_read(const uint8_t* raw, int blk,
+                                           float (&v)[4][4]) {
+  int cq, pq;
+  xpose_block(blk, cq, pq);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int p = 4 * pq + r;
+    const float4 f = *reinterpret_cast<const float4*>(
+        raw + (cq / 8) * BOX32 + chunk_offset(p, cq % 8));
+    v[r][0] = f.x;
+    v[r][1] = f.y;
+    v[r][2] = f.z;
+    v[r][3] = f.w;
+  }
+}
+
+// Block blk split into the hi and lo tiles: a 16-byte chunk (4 pixels)
+// of each channel's row in each.
+template <int BN>
+__device__ __forceinline__ void xpose_write(uint8_t* hi, uint8_t* lo,
+                                            int blk,
+                                            const float (&v)[4][4]) {
+  int cq, pq;
+  xpose_block(blk, cq, pq);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) tf32_split(v[r][j], h[r], l[r]);
+    const uint32_t off = split_offset(BN, 4 * cq + j, 4 * pq);
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// Keeps a run's A fragments in their registers up to this point: the
+// registers a wgmma reads asynchronously must not be reused before the
+// wait that retires it, and the compiler sees them dead once the product
+// is issued.
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(f[i][j])::"memory");
+}
+
+template <int BN, bool TWO, int R>
+__global__ void __launch_bounds__(THREADS, 1)
+tdw_f32_wg(const __grid_constant__ CUtensorMap mx,
+           const __grid_constant__ CUtensorMap mdy, const DwArgs a) {
+  constexpr int NB = BN / 32;                 // dY boxes a stage
+  constexpr int NA = TWO ? 2 : 1;             // 64-row chunks a stage
+  constexpr int LDR = BN + 8;                 // floats a parked row
+  constexpr int K8 = TWO ? KP / 8 : KP / 16;  // k8 steps a warpgroup
+  constexpr int NR = K8 / R;                  // runs a tile
+  constexpr int XB = BN / 64;                 // 4x4 blocks a thread
+  constexpr int LOAD = (2 * NA + NB) * BOX32;  // TMA bytes a stage
+  constexpr int STAGE = dw32wg_stage_bytes(BN, TWO);
+  static_assert(K8 % R == 0, "a run divides the tile's k8 steps");
+  extern __shared__ uint8_t raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + a.stages * STAGE);
+  uint64_t* empty = full + a.stages;
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128;
+  const long long t0 = (long long)blockIdx.z * a.ntiles / a.splits;
+  const int nt =
+      (int)((long long)(blockIdx.z + 1) * a.ntiles / a.splits - t0);
+  const int co0 = blockIdx.y * BN;
+  const int half = a.ks / 2;
+  auto chunk_of = [&](int j) {
+    return TWO ? min(2 * (int)blockIdx.x + j, a.rchunks - 1) : 0;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS);  // every consumer thread is done
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    regs_shrink<40>();
+    if (tid == 0) {
+      prefetch_map(&mx);
+      prefetch_map(&mdy);
+      for (int i = 0; i < nt; ++i) {
+        const int st = i % a.stages;
+        mbar_wait(&empty[st], ((i / a.stages) & 1) ^ 1);
+        uint8_t* buf = smem + st * STAGE;
+        mbar_expect_tx(&full[st], LOAD);
+        int t = (int)t0 + i;
+        const int w0 = (t % a.tiles_w) * a.wb;
+        t /= a.tiles_w;
+        const int h0 = (t % a.tiles_h) * a.hb, img = t / a.tiles_h;
+        for (int j = 0; j < NA; ++j) {
+          const int c = chunk_of(j), tap = c / a.cchunks;
+          for (int b = 0; b < 2; ++b)
+            tma_load_4d(buf + (2 * j + b) * BOX32, &mx, &full[st],
+                        (c % a.cchunks) * 64 + 32 * b, w0 + tap % a.ks - half,
+                        h0 + tap / a.ks - half, img);
+        }
+        for (int j = 0; j < NB; ++j)
+          tma_load_4d(buf + (2 * NA + j) * BOX32, &mdy, &full[st],
+                      co0 + 32 * j, w0, h0, img);
+      }
+    }
+    __syncwarp();
+    cluster_sync();  // the sums are parked
+    cluster_sync();  // every rank has read them
+  } else {
+    // ----------------------------------------------------------- consumers
+    regs_grow<232>();
+    float acc[BN / 2], sum[BN / 2];
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) sum[e] = 0.f;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    // the warp's 16 rows of its chunk, as tdw_f32's; the pixels of each
+    // tile it takes: all, or its warpgroup's half where both own the one
+    // chunk
+    const int aslot = TWO ? wg : 0;
+    const int abox = 2 * aslot + warp / 2, m0 = 16 * (warp % 2);
+    const int p0 = TWO ? 0 : wg * (KP / 2);
+    // The A fragment of the k8 step at pixel q: X at pixels q + t4 and q +
+    // t4 + 4 of channels m0 + g and m0 + g + 8; lanes g < 4 load the first
+    // pixel first and lanes g >= 4 the second, so that each load's 32
+    // lanes fall on 32 banks (one pixel's rows alone would take 16), then
+    // each lane puts the two in their places.
+    const bool low = g < 4;
+    auto a_frag = [&](const uint8_t* xa, int q, uint32_t (&ah)[4],
+                      uint32_t (&al)[4]) {
+      const int pa = q + t4 + (low ? 0 : 4), pb = q + t4 + (low ? 4 : 0);
+      const float u0 = lds_sw32(xa, pa, m0 + g);
+      const float u1 = lds_sw32(xa, pb, m0 + g);
+      const float u2 = lds_sw32(xa, pa, m0 + g + 8);
+      const float u3 = lds_sw32(xa, pb, m0 + g + 8);
+      tf32_split(low ? u0 : u1, ah[0], al[0]);
+      tf32_split(low ? u2 : u3, ah[1], al[1]);
+      tf32_split(low ? u1 : u0, ah[2], al[2]);
+      tf32_split(low ? u3 : u2, ah[3], al[3]);
+    };
+    const int ct = threadIdx.x;  // the transpose's blocks ct + 256 x
+    // each run's A fragments; the last run's stay over the next tile's
+    // transpose, in flight
+    uint32_t ah[NR][R][4] = {}, al[NR][R][4] = {};
+    int prev = -1;  // the slot of the previous tile, its last run in flight
+    for (int i = 0; i < nt; ++i) {
+      const int st = i % a.stages;
+      mbar_wait(&full[st], (i / a.stages) & 1);
+      uint8_t* buf = smem + st * STAGE;
+      uint8_t* hi = buf + 2 * NA * BOX32;  // the raw dY boxes, then hi
+      uint8_t* lo = hi + NB * BOX32;
+      const uint8_t* xa = buf + abox * BOX32;
+      float v[XB][4][4];
+#pragma unroll
+      for (int x = 0; x < XB; ++x) xpose_read(hi, ct + CONSUMERS * x, v[x]);
+      bar_sync(1, CONSUMERS);  // every raw value is read: hi goes over them
+#pragma unroll
+      for (int x = 0; x < XB; ++x)
+        xpose_write<BN>(hi, lo, ct + CONSUMERS * x, v[x]);
+      fence_async_smem();
+      bar_sync(1, CONSUMERS);
+      if (prev >= 0) {  // the previous tile's last run
+        wgmma_wait<0>();
+        fence_operands(acc);
+        fence_frags(ah[NR - 1]);
+        fence_frags(al[NR - 1]);
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) sum[e] += acc[e];
+        mbar_arrive(&empty[prev]);
+      }
+#pragma unroll
+      for (int s = 0; s < R; ++s) a_frag(xa, p0 + 8 * s, ah[0][s], al[0][s]);
+      const uint64_t dhi = sw128_desc(hi, 16, 1024);
+      const uint64_t dlo = sw128_desc(lo, 16, 1024);
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        wgmma_fence();
+        fence_operands(acc);
+#pragma unroll
+        for (int s = 0; s < R; ++s)  // the k8 step's start, >> 4
+          WgmmaTf32R<BN>::mma(acc, al[r][s],
+                              dhi + (split_offset(BN, 0, p0 + 8 * (r * R + s))
+                                     >> 4), s > 0);
+#pragma unroll
+        for (int s = 0; s < R; ++s)
+          WgmmaTf32R<BN>::mma(acc, ah[r][s],
+                              dlo + (split_offset(BN, 0, p0 + 8 * (r * R + s))
+                                     >> 4), 1);
+#pragma unroll
+        for (int s = 0; s < R; ++s)
+          WgmmaTf32R<BN>::mma(acc, ah[r][s],
+                              dhi + (split_offset(BN, 0, p0 + 8 * (r * R + s))
+                                     >> 4), 1);
+        wgmma_commit();
+        fence_operands(acc);
+        if (r + 1 < NR) {  // the next run's fragments under this one
+#pragma unroll
+          for (int s = 0; s < R; ++s)
+            a_frag(xa, p0 + 8 * ((r + 1) * R + s), ah[r + 1][s],
+                   al[r + 1][s]);
+          wgmma_wait<0>();
+          fence_operands(acc);
+          fence_frags(ah[r]);
+          fence_frags(al[r]);
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) sum[e] += acc[e];
+        }
+      }
+      prev = st;
+    }
+    wgmma_wait<0>();  // the last tile's last run
+    fence_operands(acc);
+    fence_frags(ah[NR - 1]);
+    fence_frags(al[NR - 1]);
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) sum[e] += acc[e];
+
+    // park the sums over the ring, once both warpgroups are done reading
+    // it
+    bar_sync(1, CONSUMERS);
+    float* park = reinterpret_cast<float*>(smem) + wg * 64 * LDR;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = 16 * warp + g + 8 * e;

@@ -510,13 +510,16 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
 // an f32 product to within ~3 * 2^-22 of |x x'|, where one TF32 pass keeps
 // ~2^-11. The tensor cores accumulate each instruction's sum with
 // truncation, so the kernels start a fresh accumulator for each short run
-// of K (a K step of the forward, a pixel tile of the dW) and add it to an
-// f32 sum in registers, rounded to nearest: the truncation's bias stays
-// within a run. A TF32 K-major tile has the bf16 one's bytes: 32 f32 of K
-// in a 128-byte swizzled row, a k8 step 32 bytes of it, so the bf16
-// K-major descriptors serve; PTX has no MN-major ("transposed") TF32
-// operands, so a product that contracts over pixels (a dW) reads its
-// fragments by hand for mma.sync instead.
+// of K (a K step of the forward, a k8 step or a run of them in the dW) and
+// add it to an f32 sum in registers, rounded to nearest: the truncation's
+// bias stays within a run. A TF32 K-major tile has the bf16 one's bytes:
+// 32 f32 of K in a 128-byte swizzled row, a k8 step 32 bytes of it, so the
+// bf16 K-major descriptors serve. PTX has no MN-major ("transposed") TF32
+// operands, and a product that contracts over pixels (a dW) has
+// pixel-major tiles: the route's (conv_bwd.cuh tdw_f32_wg) transposes dY
+// once a stage into K-major hi and lo tiles for WgmmaTf32R, with X^T as
+// the register A fragment; the staged ones (tdw_f32, the fused and ghost
+// backwards) read their fragments by hand for mma.sync (mma_tf32).
 
 // The TF32 split of x: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact).
 __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,

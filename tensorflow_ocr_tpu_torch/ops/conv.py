@@ -29,8 +29,9 @@ their own beside the bfloat16 ones, each counting its launches
 channels (128 bytes) where it holds 64 bf16, and a float32 product, not a
 TF32 one: the tensor cores take each operand split into two TF32 values
 (hi = tf32(x), lo = tf32(x - hi)) and sum hi.hi' + hi.lo' + lo.hi' in f32
-(csrc/wgmma.cuh), the forward by wgmma, the dW by mma.sync (TF32 wgmma
-takes no pixel-major operand); the narrow shapes by f32 FMAs.
+(csrc/wgmma.cuh), both on TF32 wgmma (the dW transposes dY once a stage
+into K-major tiles: TF32 wgmma takes no pixel-major operand); the narrow
+shapes by f32 FMAs.
 
 Tensors are NCHW in the channels-last memory format, so an (N, C, H, W)
 tensor is JAX's (N, H, W, C) array in memory and its rows are the
@@ -90,6 +91,11 @@ TM, FWD_BN, MIN_A_SLOTS, MAX_FWD_STAGES = 128, (16, 64, 128), 3, 8
 # the staged forward's ring slots kept before a second epilogue slot (per
 # tap, and in halo mode)
 FWD_KEEP, FWD_KEEP_HALO = 6, 4
+# csrc/conv_bwd.cuh tdw_f32_wg, the route's float32 dW: k8 steps a run in
+# one accumulator (1, 2 or 4; the tensor cores truncate as they
+# accumulate, so the largest whose error stays within 3x the plain float32
+# version's, PERF.md), and its widest column tile (64 or 128)
+DW32_RUN, DW32_BN = 4, 128
 
 
 def rows(t: torch.Tensor) -> torch.Tensor:
@@ -167,8 +173,9 @@ def _fwd_lib():
 @functools.cache
 def _dw_lib():
     lib = ctypes.CDLL(str(build_library("conv_dw")))
+    lib.conv_dw_tma.argtypes = [_P] * 4 + [_I] * 13 + [_P]
+    lib.conv_dw_tma_f32.argtypes = [_P] * 4 + [_I] * 14 + [_P]
     for fn in (lib.conv_dw_tma, lib.conv_dw_tma_f32):
-        fn.argtypes = [_P] * 4 + [_I] * 13 + [_P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -312,17 +319,21 @@ def tma_dw_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     128 where it divides Co, else 64 (the rewrite of the larger stage
     keeps more slots in flight).
 
-    ``esize`` 4 plans the float32 kernel (csrc/conv_bwd.cuh ``tdw_f32``):
-    each 64 channels arrive as two boxes of 32 f32, twice the bytes of a
-    stage, and BN is at most 128 (a thread keeps a tile's accumulator
-    beside the sum); with ``aux`` 4 (the fused backward in float32) each
-    64 columns of dY come with two f32 boxes of y, the same bytes."""
+    ``esize`` 4 plans the float32 kernels: each 64 channels arrive as two
+    boxes of 32 f32, twice the bytes of a stage. Without ``aux`` (the
+    route's dW, csrc/conv_bwd.cuh ``tdw_f32_wg``) a stage also holds the
+    lo tile of the split dY, as many bytes as its boxes (the hi tile goes
+    over them), and BN is DW32_BN where Co reaches it, else 64; with
+    ``aux`` 4 (the fused and ghost backwards in float32, ``tdw_f32``) each
+    64 columns of dY come with two f32 boxes of y, the same bytes, and BN
+    is at most 128 (a thread keeps a tile's accumulator beside the
+    sum)."""
     wb = min(KP, 1 << max(w - 1, 0).bit_length())
     hb = KP // wb
     if aux:
         bn = 128 if co % 128 == 0 else 64
     elif esize == 4:
-        bn = 128 if co >= 128 else 64
+        bn = DW32_BN if co >= DW32_BN else 64
     else:
         bn = 256 if co >= 256 else 128 if co >= 128 else 64
     rchunks = ks * ks * -(-ci // 64)
@@ -330,6 +341,8 @@ def tma_dw_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     tiles = (-(-rchunks // 2) if two else 1) * -(-co // bn)
     stage = (esize // 2 * ((2 if two else 1) + bn // 64) * BOX
              + bn // 64 * KP * 64 * aux)
+    if esize == 4 and not aux:
+        stage += bn * KP * 4  # the split dY's lo tile
     stages = min(MAX_STAGES, (MAX_SMEM - 1024) // (stage + 16))
     ntiles = n * -(-h // hb) * -(-w // wb)
     if aux:
@@ -341,6 +354,16 @@ def tma_dw_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     cluster = next(c for c in (8, 4, 2, 1)
                    if c <= MAX_CLUSTER and splits % c == 0)
     return TmaDwPlan(wb, hb, bn, two, stages, splits, cluster)
+
+
+def split_offset(bn: int, n: int, p: int) -> int:
+    """Byte offset of (output channel n, pixel p) in a split dY tile (hi
+    or lo) of the route's float32 dW (csrc/conv_bwd.cuh ``split_offset``):
+    two blocks of 32 pixels (p // 32), each bn rows of 128 bytes, row n's
+    16-byte chunk (p % 32) // 4 permuted by n % 8 (the 128-byte swizzle of
+    a K-major TF32 operand)."""
+    return ((p // 32) * bn * 128 + n * 128
+            + ((((p % 32) >> 2) ^ n) & 7) * 16 + (p % 4) * 4)
 
 
 # the staged dW's fixed cost of a CTA (the ring's fill, the parking and
@@ -617,8 +640,9 @@ def tma_dw(x, dy, n, h, w, ci, co, k, name="tma_dw"):
 
 def tma_dw32(x, dy, n, h, w, ci, co, k, name="tma_dw32"):
     """conv_dw_tma_f32 of csrc/conv_dw.cu: the float32 dW on
-    :func:`tma_dw_plan`'s split with 4-byte elements, split TF32 by
-    mma.sync. Raises as :func:`tma_dw`."""
+    :func:`tma_dw_plan`'s split with 4-byte elements, split TF32 on TF32
+    wgmma, runs of DW32_RUN k8 steps a fresh accumulator. Raises as
+    :func:`tma_dw`."""
     return _tma_dw(x, dy, n, h, w, ci, co, k, name, tma_dw32)
 
 
@@ -638,11 +662,15 @@ def _tma_dw(x, dy, n, h, w, ci, co, k, name, counter):
                       dtype=torch.float32, device=x.device)
     dw, ws = buf[0], buf[1:] if tables > 1 else buf
     lib = _dw_lib()
-    with _on_device(index):
-        err = (lib.conv_dw_tma_f32 if f32 else lib.conv_dw_tma)(
-            x.data_ptr(), dy.data_ptr(), dw.data_ptr(), ws.data_ptr(), n, h,
+    args = (x.data_ptr(), dy.data_ptr(), dw.data_ptr(), ws.data_ptr(), n, h,
             w, ci, co, k, p.wb, p.hb, p.bn, int(p.two), p.stages, p.splits,
-            p.cluster, torch._C._cuda_getCurrentRawStream(index))
+            p.cluster)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    with _on_device(index):
+        if f32:
+            err = lib.conv_dw_tma_f32(*args, DW32_RUN, stream)
+        else:
+            err = lib.conv_dw_tma(*args, stream)
     raise_on(err, name)
     counter.launches += 1
     return dw

@@ -11,13 +11,14 @@ the kernels' order of summation:
   their dX): a K step is 32 channels of one tap; its twelve k8
   instructions (4 of lo.hi', 4 of hi.lo', 4 of hi.hi') go to a fresh
   accumulator, which is then added to the f32 sum;
-- the dW (csrc/conv_bwd.cuh tdw_f32: dw_rows, dw3): the pixel tiles of
-  ops/conv.py tma_dw_plan (4-byte elements) split over CTAs; in each
-  64-pixel tile (a warpgroup's half of it where both take one chunk) each
-  k8 step of 8 pixels adds lo.hi', hi.lo', hi.hi' to a fresh accumulator,
-  then added to the CTA's sum; the CTAs of a cluster summed in rank order
-  (the two warpgroups' halves within a rank), the clusters' tables in
-  order.
+- the dW (csrc/conv_bwd.cuh tdw_f32_wg: dw_rows, dw3): the pixel tiles
+  of ops/conv.py tma_dw_plan (4-byte elements) split over CTAs; in each
+  64-pixel tile (a warpgroup's half of it where both take one chunk) a run
+  of R k8 steps of 8 pixels (R = ops/conv.py DW32_RUN) goes to a fresh
+  accumulator pass by pass (the run's lo.hi' products, then its hi.lo',
+  then its hi.hi'), which is then added to the CTA's sum; the CTAs of a
+  cluster summed in rank order (the two warpgroups' halves within a rank),
+  the clusters' tables in order.
 
 Each tensor-core instruction is emulated as its exact sum of products
 added to the accumulator and rounded to nearest (the hardware truncates;
@@ -101,9 +102,10 @@ def emulate_fwd(a, wt, taps, ci, one_pass=False):
     return out
 
 
-def emulate_dw(x, dy, k, one_pass=False):
-    """tdw_f32 on x (N, H, W, Ci), dy (N, H, W, Co): the (k*k*Ci, Co) table
-    in the kernel's order of summation (module docstring)."""
+def emulate_dw(x, dy, k, one_pass=False, run=CV.DW32_RUN):
+    """tdw_f32_wg on x (N, H, W, Ci), dy (N, H, W, Co) with runs of `run`
+    k8 steps: the (k*k*Ci, Co) table in the kernel's order of summation
+    (module docstring)."""
     n, h, w, ci = x.shape
     co = dy.shape[-1]
     p = CV.tma_dw_plan(*((1, 1, n * h * w) if k == 1 else (n, h, w)),
@@ -133,13 +135,15 @@ def emulate_dw(x, dy, k, one_pass=False):
         for t in range(lo, hi):
             a, d = tile(t)
             for i, px in enumerate(halves):
-                for k8 in range(px.start, px.stop, 8):
+                for r0 in range(px.start, px.stop, 8 * run):
                     acc = np.zeros((k * k * ci, co), np.float32)
-                    for pa, pb in passes(a[k8:k8 + 8], d[k8:k8 + 8],
-                                         one_pass):
-                        acc = (acc.astype(np.float64) + pa.T.astype(
-                            np.float64) @ pb.astype(np.float64)
-                               ).astype(np.float32)
+                    rs = slice(r0, r0 + 8 * run)
+                    for pa, pb in passes(a[rs], d[rs], one_pass):
+                        for k8 in range(0, 8 * run, 8):
+                            acc = (acc.astype(np.float64) + pa[k8:k8 + 8].T
+                                   .astype(np.float64)
+                                   @ pb[k8:k8 + 8].astype(np.float64)
+                                   ).astype(np.float32)
                     part[i] = part[i] + acc
         sums.append(part)
     tables = []
@@ -249,6 +253,42 @@ def test_conv3_and_dw3(interpret, ci, co, hw):
          im2col(x, 3).T.astype(np.float64) @ dy.reshape(-1, co).astype(
              np.float64))
 
+
+
+@pytest.mark.parametrize("run", [1, 2, 4])
+@pytest.mark.parametrize("ci,co,k,hw", [(64, 256, 1, (64, 64)),
+                                        (256, 64, 1, (64, 64)),
+                                        (32, 32, 3, (64, 64))])
+def test_dw_runs(interpret, run, ci, co, k, hw):
+    """The dW emulated with each run length the kernel takes (1, 2 or 4 k8
+    steps a fresh accumulator; DW32_RUN picks one) against JAX's
+    interpreted _dw_rows / _dw3: one chunk (both warpgroups on halves of a
+    tile, a run of 4 a whole half) and two chunks of a 1x1, and a 3x3."""
+    h, w = hw
+    x, dy = inputs(ci + co + k + run, (2, h, w, ci), (2, h, w, co))
+    x2, dy2 = x.reshape(-1, ci), dy.reshape(-1, co)
+    t = torch.from_numpy
+    if k == 1:
+        bm = PCV._pick_bm(x2.shape[0], max(ci, co), co)
+        jdw = np.asarray(PCV._dw_rows(jnp.asarray(x2), jnp.asarray(dy2), bm))
+        geo = (1, 1, x2.shape[0])
+        plain = CV.dw_rows_reference(t(x2), t(dy2)).numpy()
+    else:
+        pad = ((0, 0), (1, 1), (0, 0), (0, 0))
+        th = PCV._pick_th(h, w, max(ci, co))
+        jdw = np.asarray(PCV._dw3(jnp.pad(jnp.asarray(x), pad),
+                                  jnp.asarray(dy), th)).reshape(9 * ci, co)
+        geo = (2, h, w)
+
+        def nchw(a):
+            return t(a).permute(0, 3, 1, 2).contiguous(memory_format=CL)
+
+        plain = CV.dw3_reference(nchw(x), nchw(dy)).numpy()
+    xs, dys = x.reshape(*geo, ci), dy.reshape(*geo, co)
+    hold(f"dw run {run}", emulate_dw(xs, dys, k, run=run),
+         emulate_dw(xs, dys, k, True, run=run), plain, jdw,
+         im2col(x, k).T.astype(np.float64)
+         @ dy2.astype(np.float64))
 
 def test_tf32_split_is_the_rna_rounding():
     """hi keeps 10 mantissa bits, rounded to nearest with ties away from
