@@ -82,7 +82,7 @@ Phases, in order; any failure raises and exits non-zero:
    parameter's direction and the fused units' readings within the stated
    tolerances; one freeze_bn step;
 11b. the four fused kernels in float32 (fused_conv.cu fused_conv_fwd_f32
-   and fused_conv_bwd_f32 on conv_bwd.cuh tdx_f32 and tdw_f32,
+   and fused_conv_bwd_f32 on conv_bwd.cuh tdx_f32 and tdw_f32_tr,
    fused_boundary.cu's float32 entries) at the shapes of phase 10: y, s,
    dx, dab and dw each within F32_ERR_MULTIPLE times the plain float32
    version's error (TF32 off) against the float64 result, the boundary's
@@ -91,7 +91,8 @@ Phases, in order; any failure raises and exits non-zero:
    and plain ms, bound and the float32 conv-alone yardsticks;
 11c. the fused arm in float32 (model.compute_dtype "float32"): 3 steps
    through Trainer.run, FUSED_F32_STEP_LAUNCHES a step on the float32
-   kernels (tdw_f32 and tdx_f32 43 a step each) and none on a bfloat16
+   kernels (the dW tdw_f32_tr, counted as tdw_f32, and tdx_f32 43 a step
+   each) and none on a bfloat16
    one; eager img/s and the peak memory; one step against the float32
    "xla" arm (cuDNN, TF32 off) from the augmented state (F32_FUSED_ARM_*
    bounds); one float32 freeze_bn step on the float32 kernels;
@@ -122,7 +123,7 @@ Phases, in order; any failure raises and exits non-zero:
    conv-alone yardstick, the conv backward's dW and dX and the seam's
    device ms, and each conv kernel's and the seam's ms a train step;
 14b. the five ghost kernels in float32 (ghost_unit.cu's float32 entries:
-   conv_bwd.cuh tdx_f32 with BandActTr32 and GhostTr32, tdw_f32 with
+   conv_bwd.cuh tdx_f32 with BandActTr32 and GhostTr32, tdw_f32_tr with
    GhostTr32, gboundary32, tseam32) along one unit's chain at the 4 ghost
    unit shapes: y, the band sums, dw, gm, its sums, dx, the seam's terms
    and sums each within F32_ERR_MULTIPLE times the plain float32
@@ -143,7 +144,8 @@ Phases, in order; any failure raises and exits non-zero:
    (GHOST_ARM_* bounds); one freeze_bn step (no ghost kernel);
 16b. the ghost arm in float32 (model.compute_dtype "float32"): 3 steps
    through Trainer.run, GHOST_F32_STEP_LAUNCHES a step on the float32
-   kernels (tdw_f32 and tdx_f32 17 a step each) and none on a bfloat16
+   kernels (the dW tdw_f32_tr, counted as tdw_f32, and tdx_f32 17 a step
+   each) and none on a bfloat16
    one; eager img/s and the peak memory; one step on the kernels against
    one on the plain float32 versions (TF32 off) from the augmented state
    (F32_GHOST_ARM_* bounds); one float32 freeze_bn step (no ghost
@@ -1986,9 +1988,11 @@ def phase_fused_kernels_f32(device, reports):
     convs, PEAK_F32 for the boundary, bytes at the HBM rate) and the
     conv-alone yardsticks in float32 (TF32 off: torch.matmul / F.conv2d of
     the forward's product, and the backward's two products), and each
-    kernel's ms a train step. max_abs_err: the convs' against float64,
-    the boundary's elementwise outputs' against the plain version."""
+    kernel's ms a train step, and each shape's dW plan (R, BN, stages,
+    splits, cluster). max_abs_err: the convs' against float64, the
+    boundary's elementwise outputs' against the plain version."""
     import torch
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
     from tensorflow_ocr_tpu_torch.ops import fused as FU
     from tensorflow_ocr_tpu_torch.ops.fused import full_f32
 
@@ -2084,7 +2088,11 @@ def phase_fused_kernels_f32(device, reports):
                        ("balone", balone), ("fbound", fbound),
                        ("bbound", bbound)):
             step[key] += launches * v
-        print(f"fused conv f32 {tag} ({launches} a step): fwd {fms:.4f} ms "
+        pw = CV.tma_dw_plan(*((1, 1, m) if k == 1 else (n, h, w)), ci, co,
+                            k, CV._sms(device.index or 0), aux=4, esize=4)
+        print(f"fused conv f32 {tag} ({launches} a step; dW [R "
+              f"{CV.DW32_RUN}, BN {pw.bn}, {pw.stages} stages, {pw.splits} "
+              f"splits, cluster {pw.cluster}]): fwd {fms:.4f} ms "
               f"(plain {fpms:.4f}; bound {fbound:.4f}; conv alone "
               f"{falone:.4f}), bwd {bms:.4f} ms (plain {bpms:.4f}; bound "
               f"{bbound:.4f}; conv alone {balone:.4f}); max abs err against "
@@ -3303,9 +3311,11 @@ def phase_ghost_kernels_f32(device, reports):
     float32 (TF32 off: torch.matmul / F.conv2d of the forward's product
     on the input activated under its own band, and the backward's two
     products on it and dz), and each kernel's ms a train step.
-    max_abs_err: against float64, the boundary's out against the plain
-    version."""
+    Each conv backward's dW plan is printed (R, BN, stages, splits,
+    cluster). max_abs_err: against float64, the boundary's out against
+    the plain version."""
     import torch
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
     from tensorflow_ocr_tpu_torch.ops import ghost as G
     from tensorflow_ocr_tpu_torch.ops.fused import full_f32
 
@@ -3421,7 +3431,11 @@ def phase_ghost_kernels_f32(device, reports):
         del dz
         for key, v in (("bwd", ms), ("bbound", bound), ("balone", alone)):
             step[key] += units * v
-        print(f"ghost_conv_bwd_f32 {what}: kernel {ms:.4f} ms, plain "
+        pw = CV.tma_dw_plan(n, h, wd, ci, co, k, CV._sms(device.index or 0),
+                            aux=4, esize=4, gh=gh)
+        print(f"ghost_conv_bwd_f32 {what} (dW [R {CV.DW32_RUN}, BN "
+              f"{pw.bn}, {pw.stages} stages, {pw.splits} splits, cluster "
+              f"{pw.cluster}]): kernel {ms:.4f} ms, plain "
               f"{pms:.4f}, bound {bound:.4f}, conv alone (f32, TF32 off) "
               f"{alone:.4f}; max abs err against float64 {e:.3e} (x{q:.2f} "
               f"the plain's); {units} a step; bit-equal twice")

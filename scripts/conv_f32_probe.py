@@ -79,11 +79,12 @@ def ptxas_report():
                             "registers" in line or "spill" in line)):
                     print(f"ptxas {src}.cu {name}: {line.strip()}")
             if src == "conv_dw":
-                sass_counts(K, K.BUILD_DIR / f"{src}_ptxas.so")
+                sass_counts(K, K.BUILD_DIR / f"{src}_ptxas.so", src)
 
 
-def sass_counts(K, lib):
-    """HGMMA and HMMA instructions of each float32 kernel in lib."""
+def sass_counts(K, lib, src):
+    """HGMMA and HMMA instructions of each float32 dW kernel (tdw_f32_wg,
+    tdw_f32_tr) in lib, built from csrc/<src>.cu."""
     sass = subprocess.run(
         [os.path.join(os.path.dirname(K._nvcc()), "cuobjdump"), "-sass",
          str(lib)], capture_output=True, text=True, check=True).stdout
@@ -97,7 +98,7 @@ def sass_counts(K, lib):
             counts[name][1] += " HMMA." in line
     for name, (hg, hm) in counts.items():
         if "tdw_f32" in name:
-            print(f"sass conv_dw.cu {name}: {hg} HGMMA, {hm} HMMA")
+            print(f"sass {src}.cu {name}: {hg} HGMMA, {hm} HMMA")
 
 
 def sweep(device):

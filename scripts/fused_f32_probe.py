@@ -2,11 +2,14 @@
 """Probe of the fused arm's float32 kernels on one CUDA GPU.
 
     python3 scripts/fused_f32_probe.py [--arm] [--graph] [--faults]
+                                       [--split] [--sweep] [--rate]
                                        [--tree DIR]
 
 1. builds fused_conv.cu, fused_boundary.cu and conv_dw.cu with -Xptxas
    -v, all at once, and prints the registers, shared memory and spills of
-   each float32 kernel (tdx_f32, tdw_f32, bnd_fwd_f32, bnd_bwd_f32);
+   each float32 kernel (tdx_f32, the dW tdw_f32_tr, bnd_fwd_f32,
+   bnd_bwd_f32) and each float32 dW kernel's tensor-core instructions in
+   its machine code (cuobjdump -sass: HGMMA, wgmma; HMMA, mma.sync);
 2. chip_smoke.py's phase 11b: every fused conv and boundary shape of the
    512^2 batch-32 step in float32, each output's error against the
    float64 result beside the plain float32 version's, two launches
@@ -20,10 +23,25 @@
 5. with --faults: the readings that set chip_smoke.py's F32_FUSED_ARM_*
    bounds, 3 sound runs and the planted backward faults (dW, dX and the
    boundary's dz x 0.9), from the augmented state (chip_smoke.py's phase
-   10b: the synthetic tiers written and 768 augmented steps).
+   10b: the synthetic tiers written and 768 augmented steps);
+6. with --split: the float32 backward at each conv shape of phase 11b,
+   its dW and its dX kernels' device ms apart (torch.profiler: the dW
+   kernel, tdw_f32_tr or an older checkout's tdw_f32, and sum_tables_wide;
+   tdx_f32, reduce_parts_wide and the weight's tf32_split_rows), summed
+   over the shapes and over a train step (each shape's launches);
+7. with --sweep (this checkout's kernels only): phase 11b at each run
+   length the dW takes (ops/conv.py DW32_RUN 1, 2, 4), its checks
+   recorded rather than raised: the worst dW error ratio to the plain
+   version's and the backward's ms over the shapes at each.
 
---tree DIR runs the kernels of another checkout (e.g. a `git archive` of
-the parent under the gitignored _smoke_checkout/). Exits 2 without CUDA.
+8. with --rate: the float32 fused arm's eager train img/s alone (3
+   steps through Trainer.run from the seeded state, then chip_smoke.py's
+   eager_rate over 3 windows of at least 5 s): run in fresh processes on
+   two checkouts (--tree), it compares their steps.
+
+--tree DIR runs the kernels and phases of another checkout (e.g. a `git
+archive` of the parent under the gitignored _smoke_checkout/), and skips
+step 1 (the resource report is this checkout's). Exits 2 without CUDA.
 """
 
 import argparse
@@ -35,6 +53,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("tdx_f32", "tdw_f32", "bnd_fwd_f32", "bnd_bwd_f32")
+# the float32 conv backward's kernels by name, this checkout's and an
+# older one's: its dW and its dX
+F32_BWD_PARTS = {"dW": ("tdw_f32", "sum_tables_wide"),
+                 "dX": ("tdx_f32", "reduce_parts_wide", "tf32_split_rows")}
 
 
 def ptxas_report():
@@ -65,6 +87,91 @@ def ptxas_report():
                         name and any(k in name for k in KERNELS) and (
                             "registers" in line or "spill" in line)):
                     print(f"ptxas {src}.cu {name}: {line.strip()}")
+            if src == "fused_conv":
+                from conv_f32_probe import sass_counts
+
+                sass_counts(K, K.BUILD_DIR / f"{src}_ptxas.so", src)
+
+
+def split(c, device):
+    """Step 6 of the module docstring."""
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import fused as FU
+
+    gen = torch.Generator().manual_seed(21)
+    counts = c.fused_shape_counts()
+    tot = {part: [0.0, 0.0] for part in F32_BWD_PARTS}
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen).mul_(scale).to(device)
+
+    for n, h, w, ci, co, k in c.CONV_SHAPES:
+        launches = counts[(n, h, w, ci, co, k)]
+        cl = torch.channels_last
+        x = rand(n, ci, h, w).contiguous(memory_format=cl)
+        y = rand(n, co, h, w).contiguous(memory_format=cl)
+        dy = rand(n, co, h, w, scale=1e-2).contiguous(memory_format=cl)
+        ab = torch.stack([rand(ci).abs_().add_(0.5), rand(ci, scale=0.5)])
+        ds = torch.stack([rand(co, scale=1e-3), rand(co, scale=1e-4)])
+        wt = rand(co, ci, k, k, scale=(k * k * ci) ** -0.5)
+        ms = c.kernel_device_ms(lambda: FU.conv_bwd(x, ab, wt, y, dy, ds),
+                                F32_BWD_PARTS)
+        for part, v in ms.items():
+            tot[part][0] += v
+            tot[part][1] += launches * v
+        print(f"split fused bwd f32 {k}x{k} {ci}->{co} at {n}x{h}x{w} "
+              f"({launches} a step): device dW {ms['dW']:.4f} ms, dX "
+              f"{ms['dX']:.4f} ms")
+        del x, y, dy
+    print(f"split fused bwd f32 over the {len(c.CONV_SHAPES)} shapes: dW "
+          f"{tot['dW'][0]:.4f} ms, dX {tot['dX'][0]:.4f} ms; a train step: "
+          f"dW {tot['dW'][1]:.4f} ms, dX {tot['dX'][1]:.4f} ms; "
+          f"{c.card_line()}")
+
+
+def sweep(c, device, phase, kernels, bwd):
+    """Step 7 of the module docstring (and of ghost_f32_probe.py's): the
+    phase at each run length, chip_smoke's check and f32_rule wrapped so
+    that a failed check is recorded and the dW's worst ratio kept."""
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+
+    saved = CV.DW32_RUN, c.check, c.f32_rule
+    rule = c.f32_rule
+    for run in (1, 2, 4):
+        CV.DW32_RUN, failed, worst = run, [], [0.0]
+
+        def f32_rule(name, got, want, exact):
+            err, ratio = rule(name, got, want, exact)
+            if " dw " in name:
+                worst[0] = max(worst[0], ratio)
+            return err, ratio
+
+        c.check = lambda cond, msg: cond or failed.append(msg)
+        c.f32_rule = f32_rule
+        reports = {name: {} for name in kernels}
+        print(f"sweep R {run}:")
+        phase(device, reports)
+        print(f"sweep R {run}: worst dW error ratio {worst[0]:.3f}; {bwd} "
+              f"{reports[bwd]['ms']:.4f} ms over the shapes; "
+              f"{len(failed)} checks failed"
+              + "".join(f"\n  {m}" for m in failed))
+    CV.DW32_RUN, c.check, c.f32_rule = saved
+
+
+def rate(c, device, impl="fused"):
+    """Step 8 of the module docstring (and of ghost_f32_probe.py's, with
+    impl "ghost")."""
+    import numpy as np
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    batch = c.train_batch(np.random.RandomState(7), device, c.TRAIN_BATCH,
+                          c.TRAIN_SIZE)
+    cfg = c.train_config(impl, dtype="float32")
+    base = c.arm_memory_start()
+    trainer = T.Trainer(cfg, device)
+    trainer.setup(weights=c.seeded_snap(device))
+    trainer.run([batch] * c.TRAIN_STEPS, c.TRAIN_STEPS)
+    c.eager_rate(trainer.state, batch, cfg, f"{impl} float32", 3, 5.0, base)
 
 
 def main() -> int:
@@ -72,23 +179,35 @@ def main() -> int:
     ap.add_argument("--arm", action="store_true")
     ap.add_argument("--graph", action="store_true")
     ap.add_argument("--faults", action="store_true")
-    ap.add_argument("--tree", default=REPO)
+    ap.add_argument("--split", action="store_true")
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--rate", action="store_true")
+    ap.add_argument("--tree", default=None)
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("fused_f32_probe: torch sees no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.abspath(args.tree))
+    sys.path.insert(0, os.path.abspath(args.tree or REPO))
     import chip_smoke as c
 
     t0 = time.perf_counter()
     device = torch.device("cuda", 0)
-    print(f"card: {c.card_line()}; torch {torch.__version__}")
-    ptxas_report()
+    print(f"card: {c.card_line()}; torch {torch.__version__}; tree "
+          f"{args.tree or REPO}")
+    if args.tree is None:
+        ptxas_report()
     c.build_all()
+    if args.sweep:
+        sweep(c, device, c.phase_fused_kernels_f32, c.FUSED_F32_KERNELS,
+              "fused_conv_bwd_f32")
     reports = {n: {} for n in c.FUSED_F32_KERNELS}
     c.phase_fused_kernels_f32(device, reports)
+    if args.split:
+        split(c, device)
+    if args.rate:
+        rate(c, device)
     if not (args.arm or args.graph or args.faults):
         return 0
     import numpy as np

@@ -2,11 +2,14 @@
 """Probe of the ghost unit's float32 kernels on one CUDA GPU.
 
     python3 scripts/ghost_f32_probe.py [--arm] [--graph] [--faults]
+                                       [--split] [--sweep] [--rate]
                                        [--tree DIR]
 
 1. builds ghost_unit.cu with -Xptxas -v and prints the registers, shared
-   memory and spills of each float32 kernel (tdx_f32, tdw_f32,
-   gboundary32, tseam32);
+   memory and spills of each float32 kernel (tdx_f32, the dW tdw_f32_tr,
+   gboundary32, tseam32) and each float32 dW kernel's tensor-core
+   instructions in its machine code (cuobjdump -sass: HGMMA, wgmma;
+   HMMA, mma.sync);
 2. chip_smoke.py's phase 14b: each ghost kernel in float32 along one
    unit's chain at the 4 ghost unit shapes of the 512^2 batch-32 step,
    each output's error against the float64 result beside the plain
@@ -21,10 +24,27 @@
    bounds, 3 sound runs and phase 15's planted faults (the seam terms
    dropped, the halo rows under their own band's affine, dW2 x 0.9), from
    the augmented state (chip_smoke.py's phase 10b: the synthetic tiers
-   written and 768 augmented steps).
+   written and 768 augmented steps);
+6. with --split: the float32 conv backward of each unit's convs at the
+   4 unit shapes (conv3 and the 3x3 to gm, conv1 with the seam term and
+   an addend, the projecting shortcut to f32), its dW and its dX kernels'
+   device ms apart (torch.profiler: the dW kernel, tdw_f32_tr or an older
+   checkout's tdw_f32, and sum_tables_wide; tdx_f32, its sums' reductions
+   and the weight's tf32_split_rows), summed over the calls and over a
+   train step (each shape's units);
+7. with --sweep (this checkout's kernels only): phase 14b at each run
+   length the dW takes (ops/conv.py DW32_RUN 1, 2, 4), its checks
+   recorded rather than raised: the worst dW error ratio to the plain
+   version's and the conv backward's ms at each.
 
---tree DIR runs the kernels of another checkout (e.g. a `git archive` of
-the parent under the gitignored _smoke_checkout/). Exits 2 without CUDA.
+8. with --rate: the float32 ghost arm's eager train img/s alone (3
+   steps through Trainer.run from the seeded state, then chip_smoke.py's
+   eager_rate over 3 windows of at least 5 s): run in fresh processes on
+   two checkouts (--tree), it compares their steps.
+
+--tree DIR runs the kernels and phases of another checkout (e.g. a `git
+archive` of the parent under the gitignored _smoke_checkout/), and skips
+step 1 (the resource report is this checkout's). Exits 2 without CUDA.
 """
 
 import argparse
@@ -35,6 +55,11 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("tdx_f32", "tdw_f32", "gboundary32", "tseam32")
+# the float32 conv backward's kernels by name, this checkout's and an
+# older one's: its dW and its dX
+F32_BWD_PARTS = {"dW": ("tdw_f32", "sum_tables_wide"),
+                 "dX": ("tdx_f32", "reduce_parts_wide", "reduce_groups_wide",
+                        "tf32_split_rows")}
 
 
 def ptxas_report():
@@ -58,6 +83,70 @@ def ptxas_report():
                 name and any(k in name for k in KERNELS) and (
                     "registers" in line or "spill" in line)):
             print(f"ptxas ghost_unit.cu {name}: {line.strip()}")
+    from conv_f32_probe import sass_counts
+
+    sass_counts(K, out, "ghost_unit")
+
+
+def split(c, device):
+    """Step 6 of the module docstring."""
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import ghost as G
+
+    gen = torch.Generator().manual_seed(22)
+    tot = {part: [0.0, 0.0] for part in F32_BWD_PARTS}
+    cl = torch.channels_last
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen).mul_(scale).to(device)
+
+    for (n, h, wd, ci, db, co, gh), units in zip(c.GHOST_SHAPES,
+                                                 c.GHOST_SHAPE_UNITS):
+        nb = h // gh
+
+        def act(ch, scale=1.0):
+            return rand(n, ch, h, wd, scale=scale).contiguous(
+                memory_format=cl)
+
+        def tx(ch):
+            return torch.stack([rand(n, nb, ch).abs_().add_(0.5),
+                                rand(n, nb, ch, scale=0.1)], 2)
+
+        def td(ch):
+            return torch.stack([rand(n, nb, ch).abs_().add_(0.5),
+                                rand(n, nb, ch, scale=1e-2),
+                                rand(n, nb, ch, scale=1e-3)], 2)
+
+        def wt(cout, cin, k):
+            return rand(cout, cin, k, k, scale=(k * k * cin) ** -0.5)
+
+        calls = [("conv3", (act(db), tx(db), act(co, 1e-2), act(co), td(co),
+                            wt(co, db, 1), gh)),
+                 ("conv2", (act(db), tx(db), act(db, 1e-2), act(db),
+                            td(db), wt(db, db, 3), gh)),
+                 ("conv1", (act(ci), None, act(db, 1e-2), act(db), td(db),
+                            wt(db, ci, 1), gh,
+                            rand(n, nb, 2, wd, db, scale=1e-2),
+                            act(ci), "act"))]
+        if ci != co:
+            calls.append(("shortcut", (act(ci), None, act(co, 1e-2),
+                                       act(co), td(co), wt(co, ci, 1), gh,
+                                       None, None, "f32")))
+        for what, args in calls:
+            ms = c.kernel_device_ms(lambda: G.conv_bwd(*args),
+                                    F32_BWD_PARTS)
+            for part, v in ms.items():
+                tot[part][0] += v
+                tot[part][1] += units * v
+            print(f"split ghost bwd f32 {what} {ci}/{db}/{co} at "
+                  f"{n}x{h}x{wd} gh {gh} ({units} a step): device dW "
+                  f"{ms['dW']:.4f} ms, dX {ms['dX']:.4f} ms")
+        del calls
+        torch.cuda.empty_cache()
+    print(f"split ghost bwd f32 over the calls: dW {tot['dW'][0]:.4f} ms, "
+          f"dX {tot['dX'][0]:.4f} ms; a train step: dW "
+          f"{tot['dW'][1]:.4f} ms, dX {tot['dX'][1]:.4f} ms; "
+          f"{c.card_line()}")
 
 
 def main() -> int:
@@ -65,23 +154,39 @@ def main() -> int:
     ap.add_argument("--arm", action="store_true")
     ap.add_argument("--graph", action="store_true")
     ap.add_argument("--faults", action="store_true")
-    ap.add_argument("--tree", default=REPO)
+    ap.add_argument("--split", action="store_true")
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--rate", action="store_true")
+    ap.add_argument("--tree", default=None)
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("ghost_f32_probe: torch sees no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.abspath(args.tree))
+    sys.path.insert(0, os.path.abspath(args.tree or REPO))
     import chip_smoke as c
 
     t0 = time.perf_counter()
     device = torch.device("cuda", 0)
-    print(f"card: {c.card_line()}; torch {torch.__version__}")
-    ptxas_report()
+    print(f"card: {c.card_line()}; torch {torch.__version__}; tree "
+          f"{args.tree or REPO}")
+    if args.tree is None:
+        ptxas_report()
     c.build_all()
+    if args.sweep:
+        from fused_f32_probe import sweep
+
+        sweep(c, device, c.phase_ghost_kernels_f32, c.GHOST_F32_KERNELS,
+              "ghost_conv_bwd_f32")
     reports = {n: {} for n in c.GHOST_F32_KERNELS}
     c.phase_ghost_kernels_f32(device, reports)
+    if args.split:
+        split(c, device)
+    if args.rate:
+        from fused_f32_probe import rate
+
+        rate(c, device, "ghost")
     if not (args.arm or args.graph or args.faults):
         return 0
     import numpy as np

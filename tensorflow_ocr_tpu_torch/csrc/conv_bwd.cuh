@@ -81,15 +81,18 @@
 // Float32 (the fused transforms, and the ghost unit's banded ones):
 // tdx_f32 (the forward and dX, each A value put through the transform in
 // registers and split into TF32 hi and lo there, wgmma.cuh WgmmaTf32R) and
-// tdw_f32 (its f32 boxes rewritten in place by a staging transform,
-// mma.sync on hand-read fragments); the operands f32, the products float32
+// the dW tdw_f32_tr (TF32 wgmma: T_x(X)^T as the register A fragment, each
+// value through T_x before its split; T_dy formed as the consumers
+// transpose dY and its aux box once a stage into K-major hi and lo tiles;
+// no rewrite of a stage in place); the operands f32, the products float32
 // by split TF32, the tables and sums added in double (sum_tables_wide,
 // reduce_parts_wide; reduce_groups_wide by band). A banded transform
 // (Tr::kBanded: ghost_unit.cu GhostTr32, BandActTr32 below) takes its
 // tables by band and its sums per band, through `if constexpr` branches
 // that leave the fused instantiations' machine code as it was. The
 // float32 dW without a transform (conv_dw.cu, the PALLAS_CONVS route) is
-// tdw_f32_wg: TF32 wgmma, dY transposed once a stage into K-major tiles.
+// tdw_f32_wg, the same body with every step of the transform compiled
+// out.
 
 #pragma once
 
@@ -449,304 +452,28 @@ __global__ void sum_tables_wide(const float* __restrict__ part,
 
 // ------------------------------------------------------------ dW, f32
 //
-// tdw_f32: tdw's dW in float32 (x, dy f32; the table f32): the same
-// split of the pixel tiles, ring, parking and cluster reduction, with each
-// 64-channel chunk of X as two boxes of 32 f32 channels (128-byte rows,
-// swizzled) and dY as BN / 32 such boxes. The product contracts over
-// pixels, and the tiles are pixel-major, which TF32 wgmma does not take
-// (its operands are K-major only): each warp reads its fragments by hand
-// from the swizzled boxes (the warp's 16 channels of the chunk x 8 pixels
-// of A, 8 pixels x 8 columns of B for each n8 tile), splits them into
-// TF32 hi and lo (wgmma.cuh tf32_split) and runs mma.sync m16n8k8 three
-// times a tile pair (lo.hi', hi.lo', hi.hi'); its four warps' fragments
-// are wgmma's accumulator layout, so the parking and the reduction are
-// tdw's. Each k8 step's three products (8 pixels) go to a fresh
-// accumulator that is then added to the f32 sum: with a whole 64-pixel
-// tile's 24 products in one accumulator, the tensor cores' truncation
-// took a 91-pixel 3x3 dW to 3.99x the plain float32 version's error
-// (H100, scripts/conv_f32_probe.py). The identity transform (kAux = 0)
-// reads the boxes as they come (conv_dw.cu, the route's float32 dW, takes
-// tdw_f32_wg below instead); a staging transform with an
-// f32 aux box (kAux = 4: the fused backward, fused_conv.cu FusedTr32)
-// rewrites each stage in place first, as tdw does: X through T_x and dY
-// with its y box (BN / 32 boxes of 32 f32 channels, swizzled as dY) to
-// dy_eff, zero where the pixel read lies outside the image; consumer
-// thread ct takes the 16-byte chunk (4 channels) ct % 8 of rows ct / 8
-// and ct / 8 + 32 of every box, then fence.proxy.async and a named
-// barrier over both warpgroups before the fragments are read. The
-// clusters' tables are added by sum_tables_wide (in double).
-
-constexpr int BOX32 = KP * 128;  // dW f32: bytes of a 32-channel box
-
-__host__ __device__ constexpr int dw32_stage_bytes(int bn, bool two,
-                                                   bool aux) {
-  return ((two ? 2 : 1) * 2 + (aux ? 2 : 1) * (bn / 32)) * BOX32;
-}
-
-// Whether a float32 transform is keyed by band (Tr::kBanded: the ghost
-// unit's, ghost_unit.cu GhostTr32 and BandActTr32 below): its tables are
-// those of a pixel's band (tdw_f32: x4 of the output pixel's, dy4 of the
-// pixel read, with the seam term on a band's edge rows; tdx_f32: the
-// tile's, a tile lying in one band), its sums a band's. The fused
-// transforms have no kBanded and compile as they were.
-template <class Tr, class = void>
-struct banded : std::false_type {};
-template <class Tr>
-struct banded<Tr, std::void_t<decltype(Tr::kBanded)>>
-    : std::bool_constant<Tr::kBanded> {};
-
-template <int BN, bool TWO, class Tr>
-__global__ void __launch_bounds__(THREADS, 1)
-tdw_f32(const __grid_constant__ CUtensorMap mx,
-        const __grid_constant__ CUtensorMap mdy,
-        const __grid_constant__ CUtensorMap maux, const DwArgs a,
-        const Tr tr) {
-  static_assert(Tr::kAux == 0 || Tr::kAux == 4,
-                "tdw_f32 takes no aux tensor or an f32 one");
-  constexpr bool STAGED = Tr::kAux > 0;
-  constexpr bool BANDED = banded<Tr>::value;
-  constexpr int NB = BN / 32;                // dY boxes a stage
-  constexpr int NA = TWO ? 2 : 1;            // 64-row chunks a stage
-  constexpr int NT = BN / 8;                 // n8 tiles of a warp
-  constexpr int LDR = BN + 8;                // floats a parked row
-  constexpr int K8 = TWO ? KP / 8 : KP / 16;  // k8 steps a warpgroup
-  constexpr int STAGE = dw32_stage_bytes(BN, TWO, STAGED);
-  extern __shared__ uint8_t raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + a.stages * STAGE);
-  uint64_t* empty = full + a.stages;
-
-  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
-  const int tid = threadIdx.x % 128;
-  const long long t0 = (long long)blockIdx.z * a.ntiles / a.splits;
-  const int nt =
-      (int)((long long)(blockIdx.z + 1) * a.ntiles / a.splits - t0);
-  const int co0 = blockIdx.y * BN;
-  const int half = a.ks / 2;
-  auto chunk_of = [&](int j) {
-    return TWO ? min(2 * (int)blockIdx.x + j, a.rchunks - 1) : 0;
-  };
-
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < a.stages; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], CONSUMERS);  // every consumer thread has read
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (wg == 2) {
-    // ------------------------------------------------------------ producer
-    regs_shrink<40>();
-    if (tid == 0) {
-      prefetch_map(&mx);
-      prefetch_map(&mdy);
-      if (STAGED) prefetch_map(&maux);
-      for (int i = 0; i < nt; ++i) {
-        const int st = i % a.stages;
-        mbar_wait(&empty[st], ((i / a.stages) & 1) ^ 1);
-        uint8_t* buf = smem + st * STAGE;
-        mbar_expect_tx(&full[st], STAGE);
-        int t = (int)t0 + i;
-        const int w0 = (t % a.tiles_w) * a.wb;
-        t /= a.tiles_w;
-        const int h0 = (t % a.tiles_h) * a.hb, img = t / a.tiles_h;
-        for (int j = 0; j < NA; ++j) {
-          const int c = chunk_of(j), tap = c / a.cchunks;
-          for (int b = 0; b < 2; ++b)
-            tma_load_4d(buf + (2 * j + b) * BOX32, &mx, &full[st],
-                        (c % a.cchunks) * 64 + 32 * b, w0 + tap % a.ks - half,
-                        h0 + tap / a.ks - half, img);
-        }
-        for (int j = 0; j < NB; ++j) {
-          tma_load_4d(buf + (2 * NA + j) * BOX32, &mdy, &full[st],
-                      co0 + 32 * j, w0, h0, img);
-          if (STAGED)
-            tma_load_4d(buf + (2 * NA + NB + j) * BOX32, &maux, &full[st],
-                        co0 + 32 * j, w0, h0, img);
-        }
-      }
-    }
-    __syncwarp();
-    cluster_sync();  // the accumulators are parked
-    cluster_sync();  // every rank has read them
-  } else {
-    // ----------------------------------------------------------- consumers
-    regs_grow<232>();
-    float acc[4 * NT], sum[4 * NT];
-#pragma unroll
-    for (int e = 0; e < 4 * NT; ++e) sum[e] = 0.f;
-    const int warp = tid / 32, lane = tid % 32;
-    const int g = lane / 4, t4 = lane % 4;
-    // the warp's 16 rows of its chunk (channels 16 warp .. of the chunk):
-    // X box 2 aslot + warp / 2, channels m0 + g and m0 + g + 8 of it; the
-    // pixels of each tile it takes: all, or its warpgroup's half where
-    // both own the one chunk
-    const int aslot = TWO ? wg : 0;
-    const int abox = 2 * aslot + warp / 2, m0 = 16 * (warp % 2);
-    const int p0 = TWO ? 0 : wg * (KP / 2);
-    for (int i = 0; i < nt; ++i) {
-      const int st = i % a.stages;
-      mbar_wait(&full[st], (i / a.stages) & 1);
-      uint8_t* buf = smem + st * STAGE;
-      if constexpr (STAGED) {
-        int t = (int)t0 + i;
-        const int w0 = (t % a.tiles_w) * a.wb;
-        t /= a.tiles_w;
-        const int h0 = (t % a.tiles_h) * a.hb;
-        const int ct = threadIdx.x, jc = ct % 8;
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int r = ct / 8 + 32 * q;
-          const int ow = w0 + r % a.wb, oh = h0 + r / a.wb;
-          const bool in = ow < a.w && oh < a.h;
-          const uint32_t off = chunk_offset(r, jc);
-          // banded: the output pixel and its band (T_x's tables; T_dy's,
-          // the pixel read being the output pixel)
-          [[maybe_unused]] int pix = 0, key = 0;
-          if constexpr (BANDED) {
-            pix = ((t / a.tiles_h) * a.h + oh) * a.w + ow;
-            key = tr.key(pix);
-          }
-#pragma unroll
-          for (int j = 0; j < NA; ++j) {
-            const int c = chunk_of(j), tap = c / a.cchunks;
-            const int sw = ow + tap % a.ks - half, sh = oh + tap / a.ks - half;
-            const bool live = in && sw >= 0 && sw < a.w && sh >= 0 && sh < a.h;
-#pragma unroll
-            for (int b = 0; b < 2; ++b) {
-              float4* p = reinterpret_cast<float4*>(buf + (2 * j + b) * BOX32
-                                                    + off);
-              // the pad: zero after T_x
-              float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-              if (live) {
-                v = *p;
-                if constexpr (BANDED)
-                  tr.x4(v, key, (c % a.cchunks) * 64 + 32 * b + 4 * jc);
-                else
-                  tr.x4(v, (c % a.cchunks) * 64 + 32 * b + 4 * jc);
-              }
-              *p = v;
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < NB; ++j) {
-            float4* p = reinterpret_cast<float4*>(buf + (2 * NA + j) * BOX32
-                                                  + off);
-            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (in) {
-              v = *p;
-              if constexpr (BANDED)
-                tr.dy4(v,
-                       *reinterpret_cast<const float4*>(
-                           buf + (2 * NA + NB + j) * BOX32 + off),
-                       pix, co0 + 32 * j + 4 * jc);
-              else
-                tr.dy4(v,
-                       *reinterpret_cast<const float4*>(
-                           buf + (2 * NA + NB + j) * BOX32 + off),
-                       co0 + 32 * j + 4 * jc);
-            }
-            *p = v;
-          }
-        }
-        fence_async_smem();
-        bar_sync(1, CONSUMERS);
-      }
-      const uint8_t* xa = buf + abox * BOX32;
-      const uint8_t* dyb = buf + 2 * NA * BOX32;
-#pragma unroll 2
-      for (int s = 0; s < K8; ++s) {
-        const int p = p0 + 8 * s + t4;  // the pixels p and p + 4
-#pragma unroll
-        for (int e = 0; e < 4 * NT; ++e) acc[e] = 0.f;
-        uint32_t ah[4], al[4];
-        tf32_split(lds_sw32(xa, p, m0 + g), ah[0], al[0]);
-        tf32_split(lds_sw32(xa, p, m0 + g + 8), ah[1], al[1]);
-        tf32_split(lds_sw32(xa, p + 4, m0 + g), ah[2], al[2]);
-        tf32_split(lds_sw32(xa, p + 4, m0 + g + 8), ah[3], al[3]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const uint8_t* db = dyb + (j / 4) * BOX32;
-          const int n = 8 * (j % 4) + g;
-          uint32_t bh[2], bl[2];
-          tf32_split(lds_sw32(db, p, n), bh[0], bl[0]);
-          tf32_split(lds_sw32(db, p + 4, n), bh[1], bl[1]);
-          mma_tf32(acc + 4 * j, al, bh);
-          mma_tf32(acc + 4 * j, ah, bl);
-          mma_tf32(acc + 4 * j, ah, bh);
-        }
-#pragma unroll
-        for (int e = 0; e < 4 * NT; ++e) sum[e] += acc[e];
-      }
-      mbar_arrive(&empty[st]);
-    }
-
-    // park the sums over the ring, once both warpgroups are done reading
-    // it
-    bar_sync(1, CONSUMERS);
-    float* park = reinterpret_cast<float*>(smem) + wg * 64 * LDR;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int row = 16 * warp + g + 8 * e;
-        const int col = 8 * j + 2 * t4;
-        *reinterpret_cast<float2*>(park + row * LDR + col) =
-            make_float2(sum[4 * j + 2 * e], sum[4 * j + 2 * e + 1]);
-      }
-    cluster_sync();
-
-    // rank r sums and writes rows [r, r+1) * rows/cs of the tile
-    const int share = 64 * NA / a.cs;
-    const int rank = (int)cluster_rank();
-    float* out = a.out + (size_t)(blockIdx.z / a.cs) *
-                             ((size_t)a.ks * a.ks * a.ci * a.co);
-    const float* base = reinterpret_cast<const float*>(smem);
-    for (int idx = threadIdx.x; idx < share * (BN / 4); idx += CONSUMERS) {
-      const int r = rank * share + idx / (BN / 4), c = (idx % (BN / 4)) * 4;
-      const int j = TWO ? r / 64 : 0, ii = r % 64;
-      if (TWO && 2 * (int)blockIdx.x + j >= a.rchunks) continue;
-      const int ch = chunk_of(j);
-      const int cin = (ch % a.cchunks) * 64 + ii, n = co0 + c;
-      if (cin >= a.ci || n >= a.co) continue;
-      float4 sum4 = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int q = 0; q < a.cs; ++q)
-        for (int pp = TWO ? j : 0; pp <= (TWO ? j : 1); ++pp) {
-          const float4 v = ld_cluster_f4(base + (pp * 64 + ii) * LDR + c, q);
-          sum4.x += v.x;
-          sum4.y += v.y;
-          sum4.z += v.z;
-          sum4.w += v.w;
-        }
-      *reinterpret_cast<float4*>(
-          out + ((size_t)(ch / a.cchunks) * a.ci + cin) * a.co + n) = sum4;
-    }
-    cluster_sync();
-  }
-}
-
-// ----------------------------------------------- dW, f32, on TF32 wgmma
-//
-// tdw_f32_wg: the float32 dW without a staging transform (conv_dw.cu
-// conv_dw_tma_f32, the PALLAS_CONVS route's dw_rows and dw3) on TF32
-// wgmma, in place of tdw_f32's hand-read mma.sync fragments. TF32 wgmma
-// takes K-major operands only, and the boxes are pixel-major:
-// - A is X^T, the warpgroup's 64 channels by a k8 step's 8 pixels, from
-//   registers (WgmmaTf32R): WgmmaTf32R's A fragment has mma_tf32's lanes,
-//   so each warp reads its 16 rows from the swizzled X boxes and splits
-//   them as tdw_f32 does (its loads ordered so that no two lanes share a
-//   bank);
-// - B is dY, BN columns by the k8 step's 8 pixels, K-major in shared
+// The float32 dW (x, dy f32; the table f32) on TF32 wgmma: tdw's split of
+// the pixel tiles, ring, parking and rank-order cluster reduction, with
+// each 64-channel chunk of X as two boxes of 32 f32 channels (128-byte
+// rows, swizzled) and dY as BN / 32 such boxes. TF32 wgmma takes K-major
+// operands only, and the boxes are pixel-major (the product contracts over
+// pixels):
+// - A is T_x(X)^T, the warpgroup's 64 channels by a k8 step's 8 pixels,
+//   from registers (WgmmaTf32R): its A fragment has mma.sync's lanes, so
+//   each warp reads its 16 rows (channels 16 warp + g and 16 warp + g + 8
+//   of the chunk) from the swizzled X boxes, its loads ordered so that no
+//   two lanes share a bank, puts each value through T_x and only then
+//   splits it;
+// - B is T_dy, BN columns by the k8 step's 8 pixels, K-major in shared
 //   memory: once a stage the 256 consumer threads transpose the BN / 32
-//   dY boxes into a TF32 hi and a lo tile (split_offset: two blocks of
-//   32 pixels, BN rows of 128 bytes under the 128-byte swizzle, which the
-//   bf16 K-major descriptors read), hi over the raw boxes once every
-//   thread holds its raw values (a named barrier), lo into a slot of its
-//   own; a thread takes 4 channels x 4 pixels at a time, four 16-byte
-//   loads and eight 16-byte stores, the 8 threads of a phase on 8
+//   dY boxes into a TF32 hi and a lo tile (split_offset: two blocks of 32
+//   pixels, BN rows of 128 bytes under the 128-byte swizzle, which the
+//   bf16 K-major descriptors read), each value put through T_dy with its
+//   aux value before the split; hi over the raw dY boxes and lo over the
+//   aux boxes (or into a slot of its own, which no box fills, without a
+//   transform) once every thread holds its raw values (a named barrier);
+//   a thread takes 4 channels x 4 pixels at a time, four 16-byte loads of
+//   each box and eight 16-byte stores, the 8 threads of a phase on 8
 //   distinct chunks on either side (no bank conflicts). Both warpgroups
 //   read the one copy.
 // Three m64nBNk8 products a k8 step (lo.hi', hi.lo', hi.hi'); a run of R
@@ -757,11 +484,51 @@ tdw_f32(const __grid_constant__ CUtensorMap mx,
 // in conv_fwd_tma_f32 (the other warpgroup's products fill the wait; the
 // next run's A fragments load under this one): with two alternating
 // under wgmma.wait_group 1, ptxas serialised every wgmma (C7514: it took
-// the add of the retired accumulator for a read of one in flight). The
-// previous tile's last run stays in flight over the next tile's
-// transpose. The split of the pixel tiles, the ring, the parking and the
-// rank-order cluster reduction are tdw_f32's: no atomics, two launches
-// are bit-equal.
+// the add of the retired accumulator for a read of one in flight).
+// Without a transform the previous tile's last run stays in flight over
+// the next tile's transpose; with one it is retired before it: in flight,
+// its accumulator and fragments beside the transform's values pushed the
+// BN 128 kernels past the 232 registers a consumer has (spills of 16-268
+// bytes), and retired first the fused dW ran 7% faster and the ghost one
+// as fast (H100, scripts/fused_f32_probe.py --split). No atomics, two
+// launches are bit-equal; the clusters' tables are added by
+// sum_tables_wide (in double).
+//
+// Two kernels share the body (dw32_body, which takes DwArgs by value: by
+// reference it reordered 3 instructions of the route's one-chunk
+// kernels): tdw_f32_wg without a transform (IdentTr32: conv_dw.cu
+// conv_dw_tma_f32, the PALLAS_CONVS route's dw_rows and dw3) and
+// tdw_f32_tr with a staging transform Tr and its f32 aux box (y or g:
+// fused_conv.cu FusedTr32, ghost_unit.cu GhostTr32).
+// Every step of the transform is an `if constexpr` branch, so tdw_f32_wg
+// compiles as it did alone. T_x and T_dy run in float32 in the plain
+// versions' order of rounding, and zero every value whose pixel lies
+// outside the image: TMA's zero fill gives x = dy = aux = 0 there, but
+// relu(0*a + b) and dy_eff = ds0 are not zero. T_x zeroes by a mask of
+// the lane's pixels, set each tile from bounds on the tile's columns and
+// rows under the warpgroup's tap (the pad taps, the ragged edge), T_dy on
+// the ragged edge. T_x's (a, b) of the lane's two channels stay in
+// registers, loaded where their key changes: the fused ones once, a
+// banded transform's at each tile of another band; T_dy's of the
+// thread's 4 BN / 64 columns ((ds0, ds1), or (a, c1, c2)) are read from
+// L1 at each tile's transpose. A tile lies in one band (ghost_conv_bwd_f32
+// takes boxes whose height divides the band's: ops/conv.py tma_dw_plan's
+// gh), whose table T_x takes for the output pixel and T_dy for the pixel
+// read (the same pixel: dY is not shifted); a banded T_dy adds the seam
+// term on the band's first and last rows.
+
+constexpr int BOX32 = KP * 128;  // dW f32: bytes of a 32-channel box
+
+// Whether a float32 transform is keyed by band (Tr::kBanded: the ghost
+// unit's, ghost_unit.cu GhostTr32 and BandActTr32 below): its tables are
+// those of a pixel's band (tdw_f32_tr: the tile's; tdx_f32: the tile's, a
+// tile lying in one band), its sums a band's. The fused transforms have
+// no kBanded and compile as they were.
+template <class Tr, class = void>
+struct banded : std::false_type {};
+template <class Tr>
+struct banded<Tr, std::void_t<decltype(Tr::kBanded)>>
+    : std::bool_constant<Tr::kBanded> {};
 
 // Byte offset of (output channel n, pixel p) in a split dY tile (hi or
 // lo) of bn channels by KP pixels: block p / 32 of bn rows of 128 bytes,
@@ -772,9 +539,10 @@ __host__ __device__ constexpr uint32_t split_offset(int bn, int n, int p) {
          (((((p % 32) >> 2) ^ n) & 7) << 4) + (p % 4) * 4;
 }
 
-// A stage of tdw_f32_wg: two X boxes of 32 f32 channels a 64-row chunk,
-// bn / 32 dY boxes (then the hi tile) and the lo tile.
-__host__ __device__ constexpr int dw32wg_stage_bytes(int bn, bool two) {
+// A stage of the float32 dW: two X boxes of 32 f32 channels a 64-row
+// chunk, bn / 32 dY boxes (then the hi tile) and as many aux boxes (then
+// the lo tile).
+__host__ __device__ constexpr int dw32_stage_bytes(int bn, bool two) {
   return ((two ? 2 : 1) * 2 + 2 * (bn / 32)) * BOX32;
 }
 
@@ -789,7 +557,7 @@ __device__ __forceinline__ void xpose_block(int blk, int& cq, int& pq) {
   pq = 8 * ((blk >> 6) & 1) + t;
 }
 
-// v[pixel][channel] of block blk from the raw dY boxes at raw.
+// v[pixel][channel] of block blk from the raw dY (or aux) boxes at raw.
 __device__ __forceinline__ void xpose_read(const uint8_t* raw, int blk,
                                            float (&v)[4][4]) {
   int cq, pq;
@@ -837,18 +605,50 @@ __device__ __forceinline__ void fence_frags(uint32_t (&f)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(f[i][j])::"memory");
 }
 
-template <int BN, bool TWO, int R>
-__global__ void __launch_bounds__(THREADS, 1)
-tdw_f32_wg(const __grid_constant__ CUtensorMap mx,
-           const __grid_constant__ CUtensorMap mdy, const DwArgs a) {
+// The float32 dW's identity transform (tdw_f32_wg): no aux box, nothing
+// staged.
+struct IdentTr32 {
+  static constexpr int kAux = 0;
+};
+
+// A staging transform Tr of tdw_f32_tr (FusedTr32, GhostTr32) gives:
+//   X2, x2_tab(X2&, key, c)  T_x's tables of channels c and c + 8 under
+//                            key (the band, or 0), x1(v, X2, j) applies
+//                            those of channel j (j = 0, 1) to v;
+//   D4, d4_tab(D4&, key, c)  T_dy's tables of columns c .. c + 3,
+//                            d1(d, aux, D4, j) applies those of column
+//                            c + j to the raw d and its aux value;
+//   band_px, edge_at         (banded) the band's pixels, and the seam
+//                            term's row at a band's first and last rows.
+// A consumer thread's state of it: T_x's tables of the lane's channels and
+// their key; none for the identity. (T_dy's are read from L1 at each
+// tile's transpose rather than kept: a BN 128 consumer's registers are
+// the scarce resource.)
+template <class Tr, bool = (Tr::kAux > 0)>
+struct DwState {};
+template <class Tr>
+struct DwState<Tr, true> {
+  typename Tr::X2 xt;
+  int key = -1;
+};
+
+template <int BN, bool TWO, int R, class Tr>
+__device__ __forceinline__ void dw32_body(const CUtensorMap& mx,
+                                          const CUtensorMap& mdy,
+                                          const CUtensorMap& maux,
+                                          const DwArgs a, const Tr& tr) {
+  static_assert(Tr::kAux == 0 || Tr::kAux == 4,
+                "the float32 dW takes no aux box or an f32 one");
+  constexpr bool STAGED = Tr::kAux > 0;
+  constexpr bool BANDED = banded<Tr>::value;
   constexpr int NB = BN / 32;                 // dY boxes a stage
   constexpr int NA = TWO ? 2 : 1;             // 64-row chunks a stage
   constexpr int LDR = BN + 8;                 // floats a parked row
   constexpr int K8 = TWO ? KP / 8 : KP / 16;  // k8 steps a warpgroup
   constexpr int NR = K8 / R;                  // runs a tile
   constexpr int XB = BN / 64;                 // 4x4 blocks a thread
-  constexpr int LOAD = (2 * NA + NB) * BOX32;  // TMA bytes a stage
-  constexpr int STAGE = dw32wg_stage_bytes(BN, TWO);
+  constexpr int LOAD = (2 * NA + (STAGED ? 2 : 1) * NB) * BOX32;  // TMA's
+  constexpr int STAGE = dw32_stage_bytes(BN, TWO);
   static_assert(K8 % R == 0, "a run divides the tile's k8 steps");
   extern __shared__ uint8_t raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -882,6 +682,7 @@ tdw_f32_wg(const __grid_constant__ CUtensorMap mx,
     if (tid == 0) {
       prefetch_map(&mx);
       prefetch_map(&mdy);
+      if constexpr (STAGED) prefetch_map(&maux);
       for (int i = 0; i < nt; ++i) {
         const int st = i % a.stages;
         mbar_wait(&empty[st], ((i / a.stages) & 1) ^ 1);
@@ -898,9 +699,13 @@ tdw_f32_wg(const __grid_constant__ CUtensorMap mx,
                         (c % a.cchunks) * 64 + 32 * b, w0 + tap % a.ks - half,
                         h0 + tap / a.ks - half, img);
         }
-        for (int j = 0; j < NB; ++j)
+        for (int j = 0; j < NB; ++j) {
           tma_load_4d(buf + (2 * NA + j) * BOX32, &mdy, &full[st],
                       co0 + 32 * j, w0, h0, img);
+          if constexpr (STAGED)  // into the lo tile's slot
+            tma_load_4d(buf + (2 * NA + NB + j) * BOX32, &maux, &full[st],
+                        co0 + 32 * j, w0, h0, img);
+        }
       }
     }
     __syncwarp();
@@ -914,17 +719,21 @@ tdw_f32_wg(const __grid_constant__ CUtensorMap mx,
     for (int e = 0; e < BN / 2; ++e) sum[e] = 0.f;
     const int warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t4 = lane % 4;
-    // the warp's 16 rows of its chunk, as tdw_f32's; the pixels of each
-    // tile it takes: all, or its warpgroup's half where both own the one
-    // chunk
+    // the warp's 16 rows of its chunk (box 2 aslot + warp / 2, channels
+    // m0 + g and m0 + g + 8 of it); the pixels of each tile it takes: all,
+    // or its warpgroup's half where both own the one chunk
     const int aslot = TWO ? wg : 0;
     const int abox = 2 * aslot + warp / 2, m0 = 16 * (warp % 2);
     const int p0 = TWO ? 0 : wg * (KP / 2);
+    // a staging transform's tables, and which of the lane's pixels of the
+    // tile T_x takes (bit k: pixel p0 + t4 + 4 k)
+    [[maybe_unused]] DwState<Tr> ts;
+    [[maybe_unused]] uint32_t live = 0;
     // The A fragment of the k8 step at pixel q: X at pixels q + t4 and q +
     // t4 + 4 of channels m0 + g and m0 + g + 8; lanes g < 4 load the first
     // pixel first and lanes g >= 4 the second, so that each load's 32
     // lanes fall on 32 banks (one pixel's rows alone would take 16), then
-    // each lane puts the two in their places.
+    // each lane puts the two in their places, through T_x, and splits them.
     const bool low = g < 4;
     auto a_frag = [&](const uint8_t* xa, int q, uint32_t (&ah)[4],
                       uint32_t (&al)[4]) {
@@ -933,26 +742,121 @@ tdw_f32_wg(const __grid_constant__ CUtensorMap mx,
       const float u1 = lds_sw32(xa, pb, m0 + g);
       const float u2 = lds_sw32(xa, pa, m0 + g + 8);
       const float u3 = lds_sw32(xa, pb, m0 + g + 8);
-      tf32_split(low ? u0 : u1, ah[0], al[0]);
-      tf32_split(low ? u2 : u3, ah[1], al[1]);
-      tf32_split(low ? u1 : u0, ah[2], al[2]);
-      tf32_split(low ? u3 : u2, ah[3], al[3]);
+      if constexpr (STAGED) {
+        float f[4] = {low ? u0 : u1, low ? u2 : u3, low ? u1 : u0,
+                      low ? u3 : u2};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // pixels q + t4 and q + t4 + 4
+          const bool on = (live >> ((q - p0) / 4 + e)) & 1;
+          f[2 * e] = on ? tr.x1(f[2 * e], ts.xt, 0) : 0.f;
+          f[2 * e + 1] = on ? tr.x1(f[2 * e + 1], ts.xt, 1) : 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) tf32_split(f[j], ah[j], al[j]);
+      } else {
+        tf32_split(low ? u0 : u1, ah[0], al[0]);
+        tf32_split(low ? u2 : u3, ah[1], al[1]);
+        tf32_split(low ? u1 : u0, ah[2], al[2]);
+        tf32_split(low ? u3 : u2, ah[3], al[3]);
+      }
     };
     const int ct = threadIdx.x;  // the transpose's blocks ct + 256 x
-    // each run's A fragments; the last run's stay over the next tile's
-    // transpose, in flight
+    // each run's A fragments; without a transform the last run's stay
+    // over the next tile's transpose, in flight
     uint32_t ah[NR][R][4] = {}, al[NR][R][4] = {};
     int prev = -1;  // the slot of the previous tile, its last run in flight
     for (int i = 0; i < nt; ++i) {
       const int st = i % a.stages;
       mbar_wait(&full[st], (i / a.stages) & 1);
       uint8_t* buf = smem + st * STAGE;
+      if constexpr (STAGED) {
+        if (prev >= 0) {  // the previous tile's last run, retired first
+          wgmma_wait<0>();
+          fence_operands(acc);
+          fence_frags(ah[NR - 1]);
+          fence_frags(al[NR - 1]);
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) sum[e] += acc[e];
+          mbar_arrive(&empty[prev]);
+          prev = -1;
+        }
+      }
       uint8_t* hi = buf + 2 * NA * BOX32;  // the raw dY boxes, then hi
-      uint8_t* lo = hi + NB * BOX32;
+      uint8_t* lo = hi + NB * BOX32;       // the aux boxes, then lo
       const uint8_t* xa = buf + abox * BOX32;
       float v[XB][4][4];
 #pragma unroll
       for (int x = 0; x < XB; ++x) xpose_read(hi, ct + CONSUMERS * x, v[x]);
+      if constexpr (STAGED) {
+        int t = (int)t0 + i;
+        const int w0 = (t % a.tiles_w) * a.wb;
+        t /= a.tiles_w;
+        const int h0 = (t % a.tiles_h) * a.hb, img = t / a.tiles_h;
+        // the tables' key: the tile's band, or 0
+        int key = 0;
+        if constexpr (BANDED) key = ((img * a.h + h0) * a.w + w0) / tr.band_px;
+        if (key != ts.key) {
+          ts.key = key;
+          tr.x2_tab(ts.xt, key,
+                    (chunk_of(aslot) % a.cchunks) * 64 + 16 * warp + g);
+        }
+        // T_x's pixels: in the image, and so is the pixel the tap reads
+        // (box columns [clo, clo + cspan), rows [rlo, rlo + rspan))
+        const int wm = a.wb - 1, lwb = __ffs(a.wb) - 1;
+        const int tap = chunk_of(aslot) / a.cchunks;
+        const int dx = tap % a.ks - half, dy = tap / a.ks - half;
+        const int clo = max(0, -w0 - dx);
+        const int cspan = max(0, min(a.w - w0, a.w - w0 - dx) - clo);
+        const int rlo = max(0, -h0 - dy);
+        const int rspan = max(0, min(a.h - h0, a.h - h0 - dy) - rlo);
+        live = 0;
+#pragma unroll
+        for (int k = 0; k < 2 * K8; ++k) {
+          const int p = p0 + t4 + 4 * k;
+          live |= (uint32_t)((unsigned)((p & wm) - clo) < (unsigned)cspan &&
+                             (unsigned)((p >> lwb) - rlo) < (unsigned)rspan)
+                  << k;
+        }
+        // T_dy: the raw value and its aux value (a row of the block's at a
+        // time), zero outside the image
+        [[maybe_unused]] int gh = 0, brow0 = 0;  // the band's rows
+        if constexpr (BANDED) {
+          gh = tr.band_px / a.w;
+          brow0 = img * a.h + h0 - key * gh;
+        }
+#pragma unroll
+        for (int x = 0; x < XB; ++x) {
+          int cq, pq;
+          xpose_block(ct + CONSUMERS * x, cq, pq);
+          typename Tr::D4 dt;
+          tr.d4_tab(dt, key, co0 + 4 * cq);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int p = 4 * pq + r;
+            const bool in = (p & wm) < a.w - w0 && (p >> lwb) < a.h - h0;
+            const float4 y4 = *reinterpret_cast<const float4*>(
+                lo + (cq / 8) * BOX32 + chunk_offset(p, cq % 8));
+            const float u[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              v[x][r][j] = tr.d1(v[x][r][j], u[j], dt, j);
+            if constexpr (BANDED) {
+              if (const float* e = in ? tr.edge_at(key, brow0 + (p >> lwb),
+                                                   gh, w0 + (p & wm))
+                                      : nullptr) {
+                const float4 s = __ldg(
+                    reinterpret_cast<const float4*>(e + co0 + 4 * cq));
+                v[x][r][0] = __fadd_rn(v[x][r][0], s.x);
+                v[x][r][1] = __fadd_rn(v[x][r][1], s.y);
+                v[x][r][2] = __fadd_rn(v[x][r][2], s.z);
+                v[x][r][3] = __fadd_rn(v[x][r][3], s.w);
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) v[x][r][j] = in ? v[x][r][j] : 0.f;
+          }
+        }
+      }
       bar_sync(1, CONSUMERS);  // every raw value is read: hi goes over them
 #pragma unroll
       for (int x = 0; x < XB; ++x)
@@ -1057,6 +961,22 @@ tdw_f32_wg(const __grid_constant__ CUtensorMap mx,
     }
     cluster_sync();
   }
+}
+
+template <int BN, bool TWO, int R>
+__global__ void __launch_bounds__(THREADS, 1)
+tdw_f32_wg(const __grid_constant__ CUtensorMap mx,
+           const __grid_constant__ CUtensorMap mdy, const DwArgs a) {
+  dw32_body<BN, TWO, R>(mx, mdy, mdy, a, IdentTr32{});
+}
+
+template <int BN, bool TWO, int R, class Tr>
+__global__ void __launch_bounds__(THREADS, 1)
+tdw_f32_tr(const __grid_constant__ CUtensorMap mx,
+           const __grid_constant__ CUtensorMap mdy,
+           const __grid_constant__ CUtensorMap maux, const DwArgs a,
+           const Tr tr) {
+  dw32_body<BN, TWO, R>(mx, mdy, maux, a, tr);
 }
 
 // ------------------------------------------------------- dX, forward
@@ -2428,13 +2348,13 @@ int run_dw(const void* x, const void* dy, const void* aux, float* dw,
   return cudaGetLastError();
 }
 
-template <int BN, bool TWO, class Tr>
-int launch_dw_f32(const CUtensorMap& mx, const CUtensorMap& mdy,
-                  const CUtensorMap& maux, const DwArgs& a, const Tr& tr,
-                  dim3 grid, int smem, cudaStream_t s) {
+// Launches the float32 dW of tile (BN, TWO) with runs of R k8 steps:
+// tdw_f32_wg without a transform, tdw_f32_tr with one.
+template <int BN, bool TWO, int R, class Tr>
+int launch_dw32(const CUtensorMap& mx, const CUtensorMap& mdy,
+                const CUtensorMap& maux, const DwArgs& a, const Tr& tr,
+                dim3 grid, int smem, cudaStream_t s) {
   static bool set[64] = {};
-  cudaError_t e = allow_smem(tdw_f32<BN, TWO, Tr>, set, MAX_SMEM);
-  if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(THREADS);
@@ -2447,24 +2367,37 @@ int launch_dw_f32(const CUtensorMap& mx, const CUtensorMap& mdy,
   attr[0].val.clusterDim.z = a.cs;
   cfg.attrs = attr;
   cfg.numAttrs = a.cs > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, tdw_f32<BN, TWO, Tr>, mx, mdy, maux, a, tr);
+  cudaError_t e;
+  if constexpr (Tr::kAux == 0) {
+    e = allow_smem(tdw_f32_wg<BN, TWO, R>, set, MAX_SMEM);
+    if (e != cudaSuccess) return e;
+    e = cudaLaunchKernelEx(&cfg, tdw_f32_wg<BN, TWO, R>, mx, mdy, a);
+  } else {
+    e = allow_smem(tdw_f32_tr<BN, TWO, R, Tr>, set, MAX_SMEM);
+    if (e != cudaSuccess) return e;
+    e = cudaLaunchKernelEx(&cfg, tdw_f32_tr<BN, TWO, R, Tr>, mx, mdy, maux,
+                           a, tr);
+  }
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// run_dw in float32 (tdw_f32): x (.., ci), dy (.., co) and aux (.., co)
-// f32; with the identity transform (no aux) ci and co multiples of 8, with
-// a staging one (Tr::kAux 4) multiples of 64; the plan as run_dw's with bn
-// 64 or 128 (ops/conv.py tma_dw_plan with 4-byte elements, and aux 4).
+// run_dw in float32 (tdw_f32_wg, or tdw_f32_tr with a staging transform):
+// x (.., ci), dy (.., co) and aux (.., co) f32; without a transform (no
+// aux) ci and co multiples of 8, with one (Tr::kAux 4) multiples of 64;
+// the plan as run_dw's with bn 64 or 128 (ops/conv.py tma_dw_plan with
+// 4-byte elements, and aux 4 with a transform); `run` (1, 2 or 4;
+// ops/conv.py DW32_RUN) k8 steps a fresh accumulator. The clusters'
+// tables are added in double by sum_tables_wide.
 template <class Tr>
 int run_dw_f32(const void* x, const void* dy, const void* aux, float* dw,
                float* ws, int n, int h, int w, int ci, int co, int ks,
-               const DwPlan& p, const Tr& tr, cudaStream_t s) {
+               const DwPlan& p, const Tr& tr, int run, cudaStream_t s) {
   constexpr bool STAGED = Tr::kAux > 0;
   const int q = STAGED ? 64 : 8;  // the channel multiple taken
   const size_t size = (size_t)ks * ks * ci * co;
   if (ci < q || co < q || ci % q || co % q || (ks != 1 && ks != 3) ||
-      !aligned16(x) || !aligned16(dy) || (STAGED && !aligned16(aux)) ||
-      !aligned16(dw))
+      (run != 1 && run != 2 && run != 4) || !aligned16(x) ||
+      !aligned16(dy) || (STAGED && !aligned16(aux)) || !aligned16(dw))
     return cudaErrorInvalidValue;
   if ((long long)n * h * w == 0)
     return cudaMemsetAsync(dw, 0, sizeof(float) * size, s);
@@ -2479,7 +2412,7 @@ int run_dw_f32(const void* x, const void* dy, const void* aux, float* dw,
   a.cchunks = (ci + 63) / 64;
   a.rchunks = ks * ks * a.cchunks;
   a.stages = p.stages, a.splits = p.splits, a.cs = p.cs;
-  const int stage = dw32_stage_bytes(p.bn, p.two, STAGED);
+  const int stage = dw32_stage_bytes(p.bn, p.two);
   const int smem = p.stages * stage + 16 * p.stages + 1024;
   if (p.wb < 1 || p.hb < 1 || p.wb * p.hb != KP || p.wb > 256 ||
       p.hb > 256 || (p.bn != 64 && p.bn != 128) || (STAGED && co % p.bn) ||
@@ -2497,13 +2430,19 @@ int run_dw_f32(const void* x, const void* dy, const void* aux, float* dw,
   if (!STAGED) maux = mdy;  // unread
   const dim3 grid(p.two ? (a.rchunks + 1) / 2 : 1, (co + p.bn - 1) / p.bn,
                   p.splits);
-  auto go = [&](auto two) {
+  auto go = [&](auto two, auto rn) {
     constexpr bool T = decltype(two)::value;
+    constexpr int R = decltype(rn)::value;
     return p.bn == 128
-               ? launch_dw_f32<128, T>(mx, mdy, maux, a, tr, grid, smem, s)
-               : launch_dw_f32<64, T>(mx, mdy, maux, a, tr, grid, smem, s);
+               ? launch_dw32<128, T, R>(mx, mdy, maux, a, tr, grid, smem, s)
+               : launch_dw32<64, T, R>(mx, mdy, maux, a, tr, grid, smem, s);
   };
-  const int err = p.two ? go(std::true_type{}) : go(std::false_type{});
+  auto by_run = [&](auto two) {
+    return run == 4   ? go(two, std::integral_constant<int, 4>{})
+           : run == 2 ? go(two, std::integral_constant<int, 2>{})
+                      : go(two, std::integral_constant<int, 1>{});
+  };
+  const int err = p.two ? by_run(std::true_type{}) : by_run(std::false_type{});
   if (err != cudaSuccess || p.splits / p.cs == 1) return err;
   const int blocks =
       (int)((size + 255) / 256 < 4096 ? (size + 255) / 256 : 4096);

@@ -52,8 +52,9 @@
 // operations bound it at 495/3 TFLOP/s, every shape of the route but
 // block1's 1x1s, whose bytes bound them at 3.35 TB/s): A = X^T from
 // registers, dY transposed once a stage into K-major hi and lo tiles that
-// both warpgroups read, runs of R k8 steps in a fresh accumulator.
-// The plan (box, BN, chunks a CTA, stages, splits, cluster) comes from
+// both warpgroups read, runs of R k8 steps in a fresh accumulator
+// (run_dw_f32; the fused and ghost backwards' tdw_f32_tr is the same body
+// with their staging transforms, compiled out here). The plan (box, BN, chunks a CTA, stages, splits, cluster) comes from
 // ops/conv.py tma_dw_plan. The kernel is conv_bwd.cuh's tdw, which the
 // fused and ghost backwards run with their staging transforms; here it
 // takes IdentTr, which has no aux tensor, so the rewrite of each slot is
@@ -105,39 +106,11 @@ extern "C" int conv_dw_tma(const void* x, const void* dy, void* dw, void* ws,
                      IdentTr{}, static_cast<cudaStream_t>(stream));
 }
 
-namespace {
-
-template <int BN, bool TWO, int R>
-int launch_dw_f32_wg(const CUtensorMap& mx, const CUtensorMap& mdy,
-                     const bwd::DwArgs& a, dim3 grid, int smem,
-                     cudaStream_t s) {
-  static bool set[64] = {};
-  cudaError_t e =
-      hop::allow_smem(bwd::tdw_f32_wg<BN, TWO, R>, set, bwd::MAX_SMEM);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(bwd::THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = a.cs;
-  cfg.attrs = attr;
-  cfg.numAttrs = a.cs > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, bwd::tdw_f32_wg<BN, TWO, R>, mx, mdy, a);
-  return e != cudaSuccess ? e : cudaGetLastError();
-}
-
-}  // namespace
-
 // The float32 dW: x (n, h, w, ci) f32; dy (n, h, w, co) f32; dw (ks*ks*ci,
 // co) f32 out, rows in (ky, kx, ci) order; ci and co multiples of 8. The
 // plan as conv_dw_tma's with bn 64 or 128 (ops/conv.py tma_dw_plan with
 // 4-byte elements: a stage also holds the split dY's lo tile, stages
-// counted by conv_bwd.cuh dw32wg_stage_bytes); `run` (1, 2 or 4; ops/conv.py
+// counted by conv_bwd.cuh dw32_stage_bytes); `run` (1, 2 or 4; ops/conv.py
 // DW32_RUN) k8 steps a fresh accumulator. The products are conv_bwd.cuh's
 // tdw_f32_wg (split TF32 on TF32 wgmma), the clusters' tables added in
 // double by sum_tables_wide.
@@ -146,55 +119,9 @@ extern "C" int conv_dw_tma_f32(const void* x, const void* dy, void* dw,
                                int ks, int wb, int hb, int bn, int two,
                                int stages, int splits, int cs, int run,
                                void* stream) {
-  using namespace bwd;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(dw);
-  const size_t size = (size_t)ks * ks * ci * co;
-  if (ci < 8 || co < 8 || ci % 8 || co % 8 || (ks != 1 && ks != 3) ||
-      (run != 1 && run != 2 && run != 4) || !aligned16(x) || !aligned16(dy) ||
-      !aligned16(dw))
-    return cudaErrorInvalidValue;
-  if ((long long)n * h * w == 0)
-    return cudaMemsetAsync(dw, 0, sizeof(float) * size, s);
-  DwArgs a{};
-  a.out = splits / cs > 1 ? static_cast<float*>(ws) : out;
-  a.h = h, a.w = w, a.ci = ci, a.co = co, a.ks = ks, a.wb = wb, a.hb = hb;
-  a.tiles_w = (w + wb - 1) / wb;
-  a.tiles_h = (h + hb - 1) / hb;
-  const long long ntiles = (long long)n * a.tiles_w * a.tiles_h;
-  a.ntiles = (int)ntiles;
-  a.cchunks = (ci + 63) / 64;
-  a.rchunks = ks * ks * a.cchunks;
-  a.stages = stages, a.splits = splits, a.cs = cs;
-  const int stage = dw32wg_stage_bytes(bn, two);
-  const int smem = stages * stage + 16 * stages + 1024;
-  if (wb < 1 || hb < 1 || wb * hb != KP || wb > 256 || hb > 256 ||
-      (bn != 64 && bn != 128) || two != (a.rchunks > 1) || stages < 2 ||
-      (cs != 1 && cs != 2 && cs != 4) || splits < 1 || splits % cs ||
-      splits > ntiles || ntiles >= (1ll << 31) || smem > MAX_SMEM ||
-      2 * 64 * (bn + 8) * 4 > stages * stage || (splits / cs > 1 && !ws))
-    return cudaErrorInvalidValue;
-  CUtensorMap mx, mdy;
-  if (!encode_act32(&mx, x, ci, w, h, n, wb, hb) ||
-      !encode_act32(&mdy, dy, co, w, h, n, wb, hb))
-    return cudaErrorInvalidValue;
-  const dim3 grid(two ? (a.rchunks + 1) / 2 : 1, (co + bn - 1) / bn, splits);
-  auto go = [&](auto tw, auto rn) {
-    constexpr bool T = decltype(tw)::value;
-    constexpr int R = decltype(rn)::value;
-    return bn == 128 ? launch_dw_f32_wg<128, T, R>(mx, mdy, a, grid, smem, s)
-                     : launch_dw_f32_wg<64, T, R>(mx, mdy, a, grid, smem, s);
-  };
-  auto by_run = [&](auto tw) {
-    return run == 4   ? go(tw, std::integral_constant<int, 4>{})
-           : run == 2 ? go(tw, std::integral_constant<int, 2>{})
-                      : go(tw, std::integral_constant<int, 1>{});
-  };
-  const int err = two ? by_run(std::true_type{}) : by_run(std::false_type{});
-  if (err != cudaSuccess || splits / cs == 1) return err;
-  const int blocks =
-      (int)((size + 255) / 256 < 4096 ? (size + 255) / 256 : 4096);
-  sum_tables_wide<<<blocks, 256, 0, s>>>(static_cast<float*>(ws), out, size,
-                                         splits / cs);
-  return cudaGetLastError();
+  return bwd::run_dw_f32(x, dy, nullptr, static_cast<float*>(dw),
+                         static_cast<float*>(ws), n, h, w, ci, co, ks,
+                         bwd::DwPlan{wb, hb, bn, two, stages, splits, cs},
+                         bwd::IdentTr32{}, run,
+                         static_cast<cudaStream_t>(stream));
 }

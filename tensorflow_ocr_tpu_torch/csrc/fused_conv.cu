@@ -66,8 +66,11 @@
 // the forward and dX are tdx_f32 (a K step of 32 channels, each value put
 // through the transform in registers before its TF32 split, hi.lo' +
 // lo.hi' + hi.hi' on the tensor cores into a fresh accumulator a K step),
-// the dW tdw_f32 with FusedTr32 rewriting its boxes of 32 f32 channels in
-// place (16-byte chunks of 4 channels). What bounds them: a float32
+// the dW tdw_f32_tr with FusedTr32 (TF32 wgmma: relu(x*a + b) on each
+// value of the register A fragment, zero where the pixel read lies outside
+// the image; dy_eff from dy's and y's boxes as the consumers transpose
+// them into K-major hi and lo tiles; runs of R k8 steps a fresh
+// accumulator). What bounds them: a float32
 // product by split TF32 does three TF32 passes (495 / 3 TFLOP/s on the
 // H100) on twice bf16's bytes; block1's 1x1s stay bound by the bytes.
 
@@ -148,10 +151,11 @@ struct FusedTr {
   __device__ __forceinline__ const float* ab_row(int) const { return abt; }
 };
 
-// FusedTr in float32: tdw_f32's in-place rewrite of 16-byte chunks (4
-// channels c .. c+3: x -> relu(x*a + b), dy and y -> dy_eff) and
-// tdx_f32's register transform of a thread's k8 fragment (channels ch and
-// ch + 4 of dy and y -> dy_eff), in the plain version's order of
+// FusedTr in float32: tdw_f32_tr's transform (T_x: x -> relu(x*a + b) on
+// a lane's A fragment, channels c and c + 8; T_dy: dy and y -> dy_eff as
+// the dY tile is transposed, columns c .. c+3; one set of tables, key 0)
+// and tdx_f32's register transform of a thread's k8 fragment (channels ch
+// and ch + 4 of dy and y -> dy_eff), in the plain version's order of
 // rounding.
 struct FusedTr32 {
   static constexpr int kAux = 4;  // y, f32
@@ -159,30 +163,39 @@ struct FusedTr32 {
   struct K8 {
     float p[2], q[2];
   };
+  struct X2 {
+    float a[2], b[2];
+  };
+  struct D4 {
+    float p[4], q[4];
+  };
   const float* abt;  // (2, ci)
   const float* ds;   // (2, co)
   int ci, co;
 
-  __device__ __forceinline__ void x4(float4& v, int c) const {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(abt + c));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(abt + ci + c));
-    v.x = fmaxf(affine(v.x, a.x, b.x), 0.f);
-    v.y = fmaxf(affine(v.y, a.y, b.y), 0.f);
-    v.z = fmaxf(affine(v.z, a.z, b.z), 0.f);
-    v.w = fmaxf(affine(v.w, a.w, b.w), 0.f);
+  __device__ __forceinline__ void x2_tab(X2& t, int, int c) const {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      t.a[j] = __ldg(abt + c + 8 * j);
+      t.b[j] = __ldg(abt + ci + c + 8 * j);
+    }
+  }
+  __device__ __forceinline__ float x1(float v, const X2& t, int j) const {
+    return fmaxf(affine(v, t.a[j], t.b[j]), 0.f);
   }
   __device__ __forceinline__ static float eff(float d, float y, float p,
                                               float q) {
     return __fadd_rn(__fadd_rn(d, p), __fmul_rn(2.f * y, q));
   }
-  __device__ __forceinline__ void dy4(float4& d, const float4& y,
-                                      int c) const {
+  __device__ __forceinline__ void d4_tab(D4& t, int, int c) const {
     const float4 p = __ldg(reinterpret_cast<const float4*>(ds + c));
     const float4 q = __ldg(reinterpret_cast<const float4*>(ds + co + c));
-    d.x = eff(d.x, y.x, p.x, q.x);
-    d.y = eff(d.y, y.y, p.y, q.y);
-    d.z = eff(d.z, y.z, p.z, q.z);
-    d.w = eff(d.w, y.w, p.w, q.w);
+    t.p[0] = p.x; t.p[1] = p.y; t.p[2] = p.z; t.p[3] = p.w;
+    t.q[0] = q.x; t.q[1] = q.y; t.q[2] = q.z; t.q[3] = q.w;
+  }
+  __device__ __forceinline__ float d1(float d, float y, const D4& t,
+                                      int j) const {
+    return eff(d, y, t.p[j], t.q[j]);
   }
   __device__ __forceinline__ void k8_tab(K8& t, int ch) const {
 #pragma unroll
@@ -269,7 +282,8 @@ extern "C" int fused_conv_fwd_f32(const void* x, const void* ab,
 // TF32 split. The plans (ops/conv.py): dW tma_dw_plan with y's f32 aux
 // boxes and 4-byte elements (wb, hb, bn, two, stages, splits, cs), dX
 // tma_bwd_dx_plan with 4-byte elements (xwb, xhb, xbn = 64, xstages,
-// grid, eslots). Returns the first launch error.
+// grid, eslots); `run` (1, 2 or 4; ops/conv.py DW32_RUN) k8 steps a fresh
+// accumulator in the dW. Returns the first launch error.
 extern "C" int fused_conv_bwd_f32(const void* x, const void* ab,
                                   const void* wflip, void* wsplit,
                                   const void* y, const void* dy,
@@ -279,7 +293,7 @@ extern "C" int fused_conv_bwd_f32(const void* x, const void* ab,
                                   int wb, int hb, int bn, int two, int stages,
                                   int splits, int cs, int xwb, int xhb,
                                   int xbn, int xstages, int grid, int eslots,
-                                  void* stream) {
+                                  int run, void* stream) {
   if (ci % 64 || co % 64 || (ks != 1 && ks != 3) || !ab || !ds)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
@@ -288,7 +302,7 @@ extern "C" int fused_conv_bwd_f32(const void* x, const void* ab,
   int err = bwd::run_dw_f32(x, dy, y, static_cast<float*>(dw),
                             static_cast<float*>(ws_dw), n, h, w, ci, co, ks,
                             bwd::DwPlan{wb, hb, bn, two, stages, splits, cs},
-                            tr, s);
+                            tr, run, s);
   if (err != cudaSuccess) return err;
   bwd::DxArgs a{};
   a.out = dx;

@@ -92,9 +92,11 @@
 //   the convs on conv_bwd.cuh's tdx_f32 (the forward with BandActTr32: the
 //   table of the tile's band on each value of x; the dX with GhostTr32: dz
 //   and the seam term formed from z's and g's f32 boxes in registers) and
-//   tdw_f32 with GhostTr32 (its 32-channel boxes rewritten in place: x
-//   under the output pixel's band, z and g to dz under the pixel read's),
-//   the band sums added in double;
+//   tdw_f32_tr with GhostTr32 (TF32 wgmma: x under the tile's band, which
+//   is the output pixel's, on each value of the register A fragment; z and
+//   g to dz under the same band (the pixel read), with the seam term, as
+//   the consumers transpose them into K-major hi and lo tiles), the band
+//   sums added in double;
 //   gboundary32, gboundary at 4 channels a 16-byte vector;
 //   tseam32, tseam with dz formed in registers from the z and g halo boxes
 //   (loaded by ldmatrix, split there: no rewrite in shared memory), a K
@@ -343,13 +345,15 @@ gboundary32(const float* __restrict__ dout, const float* __restrict__ z,
   }
 }
 
-// GhostTr in float32 (conv_bwd.cuh's banded float32 transform): tdw_f32's
-// in-place rewrite of 16-byte chunks of 4 channels c .. c+3 and tdx_f32's
-// register transform of a thread's k8 fragment (channels ch and ch + 4):
-// x -> relu(x*a + b) under the table of the band of the output pixel (x as
-// it is where tx is null), z and g -> dz = g*a + c1 + 2z*c2 under the table
-// of the band of the pixel read, plus the seam term on the band's first and
-// last rows (edge_row), in the plain version's order of rounding.
+// GhostTr in float32 (conv_bwd.cuh's banded float32 transform):
+// tdw_f32_tr's transform (T_x: x -> relu(x*a + b) under the table of the
+// tile's band, the output pixel's, on a lane's A fragment, channels c and
+// c + 8, x as it is where tx is null; T_dy: z and g -> dz = g*a + c1 +
+// 2z*c2 under the same band's table, the pixel read's, as the dY tile is
+// transposed, columns c .. c+3, plus the seam term on the band's first and
+// last rows, edge_at) and tdx_f32's register transform of a thread's k8
+// fragment (channels ch and ch + 4; its seam term by edge_row), in the
+// plain version's order of rounding.
 struct GhostTr32 {
   static constexpr int kAux = 4;  // g, f32
   static constexpr bool kFwd = false;
@@ -357,21 +361,29 @@ struct GhostTr32 {
   struct K8 {
     float a[2], c1[2], c2[2];
   };
+  struct X2 {
+    float a[2], b[2];
+  };
+  struct D4 {
+    float a[4], c1[4], c2[4];
+  };
   const float* tx;    // (bands, 2, ci) or null
   const float* td;    // (bands, 3, co)
   const float* edge;  // (bands, 2, w, co) or null
   int ci, co, band_px, w;
 
   __device__ __forceinline__ int key(int pix) const { return pix / band_px; }
-  __device__ __forceinline__ void x4(float4& v, int key, int c) const {
+  __device__ __forceinline__ void x2_tab(X2& t, int key, int c) const {
     if (!tx) return;
     const float* p = tx + (size_t)key * 2 * ci + c;
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(p + ci));
-    v.x = fmaxf(affine(v.x, a.x, b.x), 0.f);
-    v.y = fmaxf(affine(v.y, a.y, b.y), 0.f);
-    v.z = fmaxf(affine(v.z, a.z, b.z), 0.f);
-    v.w = fmaxf(affine(v.w, a.w, b.w), 0.f);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      t.a[j] = __ldg(p + 8 * j);
+      t.b[j] = __ldg(p + ci + 8 * j);
+    }
+  }
+  __device__ __forceinline__ float x1(float v, const X2& t, int j) const {
+    return tx ? fmaxf(affine(v, t.a[j], t.b[j]), 0.f) : v;
   }
   __device__ __forceinline__ static float dz(float z, float g, float a,
                                              float c1, float c2) {
@@ -386,24 +398,26 @@ struct GhostTr32 {
     if (row != 0 && row != band_px / w - 1) return nullptr;
     return edge + (((size_t)band * 2 + (row != 0)) * w + off % w) * co;
   }
-  // d: z in, dz out
-  __device__ __forceinline__ void dy4(float4& d, const float4& g, int pix,
-                                      int c) const {
-    const float* p = td + (size_t)key(pix) * 3 * co + c;
+  // edge_row of row brow (0 .. gh - 1) of band key at column ow
+  __device__ __forceinline__ const float* edge_at(int key, int brow, int gh,
+                                                  int ow) const {
+    if (!edge || (brow != 0 && brow != gh - 1)) return nullptr;
+    return edge + (((size_t)key * 2 + (brow != 0)) * w + ow) * co;
+  }
+  __device__ __forceinline__ void d4_tab(D4& t, int key, int c) const {
+    const float* p = td + (size_t)key * 3 * co + c;
     const float4 a = __ldg(reinterpret_cast<const float4*>(p));
     const float4 c1 = __ldg(reinterpret_cast<const float4*>(p + co));
     const float4 c2 = __ldg(reinterpret_cast<const float4*>(p + 2 * co));
-    d.x = dz(d.x, g.x, a.x, c1.x, c2.x);
-    d.y = dz(d.y, g.y, a.y, c1.y, c2.y);
-    d.z = dz(d.z, g.z, a.z, c1.z, c2.z);
-    d.w = dz(d.w, g.w, a.w, c1.w, c2.w);
-    if (const float* e = edge_row(pix)) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(e + c));
-      d.x = __fadd_rn(d.x, v.x);
-      d.y = __fadd_rn(d.y, v.y);
-      d.z = __fadd_rn(d.z, v.z);
-      d.w = __fadd_rn(d.w, v.w);
-    }
+    t.a[0] = a.x; t.a[1] = a.y; t.a[2] = a.z; t.a[3] = a.w;
+    t.c1[0] = c1.x; t.c1[1] = c1.y; t.c1[2] = c1.z; t.c1[3] = c1.w;
+    t.c2[0] = c2.x; t.c2[1] = c2.y; t.c2[2] = c2.z; t.c2[3] = c2.w;
+  }
+  // z and g of one value of column c + j -> dz (the seam term added by the
+  // caller)
+  __device__ __forceinline__ float d1(float z, float g, const D4& t,
+                                      int j) const {
+    return dz(z, g, t.a[j], t.c1[j], t.c2[j]);
   }
   __device__ __forceinline__ void k8_tab(K8& t, int key, int ch) const {
     const float* p = td + (size_t)key * 3 * co + ch;
@@ -1401,7 +1415,10 @@ extern "C" int ghost_conv_fwd_f32(const void* x, const void* tab,
 // and 4-byte elements (wb, hb, bn, two, stages, splits, cs), dX
 // tma_bwd_dx_plan with gh and 4-byte elements (xwb, xhb, xbn = 64,
 // xstages, grid, eslots; ws_sums one (2, ci) entry a row tile with
-// out_kind 0). Returns the first launch error.
+// out_kind 0); the dW's box height hb divides gh (its tiles are keyed by
+// one band each: ops/conv.py tma_dw_plan's gh), `run` (1, 2 or 4;
+// ops/conv.py DW32_RUN) k8 steps a fresh accumulator. Returns the first
+// launch error.
 extern "C" int ghost_conv_bwd_f32(const void* x, const void* tx,
                                   const void* g, const void* z,
                                   const void* td, const void* edge,
@@ -1413,9 +1430,9 @@ extern "C" int ghost_conv_bwd_f32(const void* x, const void* tx,
                                   int bn, int two, int stages, int splits,
                                   int cs, int xwb, int xhb, int xbn,
                                   int xstages, int grid, int eslots,
-                                  void* stream) {
+                                  int run, void* stream) {
   if (bad_geometry(n, h, w, gh, ci, co) || (ks != 1 && ks != 3) ||
-      out_kind < 0 || out_kind > 2 ||
+      hb < 1 || gh % hb || out_kind < 0 || out_kind > 2 ||
       (out_kind == 0 && (!tx || !sums || !ws_sums)) ||
       (add_kind != 0 && add_kind != 2) || (add_kind != 0 && !addend) ||
       !td || (long long)n * h * w * (ci > co ? ci : co) >= (1ll << 31))
@@ -1427,7 +1444,7 @@ extern "C" int ghost_conv_bwd_f32(const void* x, const void* tx,
   int err = bwd::run_dw_f32(x, z, g, static_cast<float*>(dw),
                             static_cast<float*>(ws_dw), n, h, w, ci, co, ks,
                             bwd::DwPlan{wb, hb, bn, two, stages, splits, cs},
-                            tr, s);
+                            tr, run, s);
   if (err != cudaSuccess) return err;
   bwd::DxArgs a{};
   a.out = dx;

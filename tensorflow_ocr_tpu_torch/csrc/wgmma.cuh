@@ -3,8 +3,8 @@
 // mbarriers, TMA tile loads, shared-memory matrix descriptors, the wgmma
 // product of two bf16 operands stored MN-major ("transposed", Wgmma<N>)
 // or K-major (WgmmaK<N>; WgmmaKR<N> with A in registers, ldsm_x4), the
-// float32 products by split TF32 (tf32_split, WgmmaTf32R<N>, mma_tf32;
-// see "float32" below), thread block clusters and their distributed
+// float32 products by split TF32 (tf32_split, WgmmaTf32R<N>; see
+// "float32" below), thread block clusters and their distributed
 // shared memory, and register reallocation between warpgroups.
 //
 // The operand tile these helpers assume is the one a TMA box of 64 bf16
@@ -516,10 +516,9 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
 // 32 f32 of K in a 128-byte swizzled row, a k8 step 32 bytes of it, so the
 // bf16 K-major descriptors serve. PTX has no MN-major ("transposed") TF32
 // operands, and a product that contracts over pixels (a dW) has
-// pixel-major tiles: the route's (conv_bwd.cuh tdw_f32_wg) transposes dY
-// once a stage into K-major hi and lo tiles for WgmmaTf32R, with X^T as
-// the register A fragment; the staged ones (tdw_f32, the fused and ghost
-// backwards) read their fragments by hand for mma.sync (mma_tf32).
+// pixel-major tiles: conv_bwd.cuh's float32 dW (tdw_f32_wg, tdw_f32_tr)
+// transposes dY once a stage into K-major hi and lo tiles for WgmmaTf32R,
+// with X^T as the register A fragment.
 
 // The TF32 split of x: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact).
 __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
@@ -640,20 +639,6 @@ struct WgmmaTf32R<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
-
-// c (16 x 8, f32) += a (16 x k8) . b (k8 x 8), TF32, mma.sync: lane l of
-// the warp holds a[0] = A(g, t), a[1] = A(g+8, t), a[2] = A(g, t+4), a[3] =
-// A(g+8, t+4), b[0] = B(t, g), b[1] = B(t+4, g), c[0..1] = C(g, 2t..2t+1),
-// c[2..3] = C(g+8, 2t..2t+1), g = l/4, t = l%4: four warps over 64 rows
-// hold wgmma's accumulator fragment, n8 tile j in c = d[4j..4j+3].
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Element (row, ch) of a 32-channel f32 tile under the 128-byte swizzle
 // (row-major 128-byte rows, 16-byte chunks of 4 floats permuted).

@@ -91,10 +91,11 @@ TM, FWD_BN, MIN_A_SLOTS, MAX_FWD_STAGES = 128, (16, 64, 128), 3, 8
 # the staged forward's ring slots kept before a second epilogue slot (per
 # tap, and in halo mode)
 FWD_KEEP, FWD_KEEP_HALO = 6, 4
-# csrc/conv_bwd.cuh tdw_f32_wg, the route's float32 dW: k8 steps a run in
-# one accumulator (1, 2 or 4; the tensor cores truncate as they
-# accumulate, so the largest whose error stays within 3x the plain float32
-# version's, PERF.md), and its widest column tile (64 or 128)
+# csrc/conv_bwd.cuh's float32 dW (tdw_f32_wg, the route's, and tdw_f32_tr,
+# the fused and ghost backwards'): k8 steps a run in one accumulator (1, 2
+# or 4; the tensor cores truncate as they accumulate, so the largest whose
+# error stays within 3x the plain float32 version's on the route and 4x in
+# the backwards, PERF.md), and the route's widest column tile (64 or 128)
 DW32_RUN, DW32_BN = 4, 128
 
 
@@ -301,7 +302,8 @@ def tma_takes(ci: int, co: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def tma_dw_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
-                sms: int, aux: int = 0, esize: int = 2) -> TmaDwPlan:
+                sms: int, aux: int = 0, esize: int = 2,
+                gh: int = 0) -> TmaDwPlan:
     """The split of a (ks*ks*ci, co) dW over n images of h x w (a 1x1 dW
     over M rows: n = h = 1, w = M). The box is the narrowest power of two
     that covers a row, up to KP pixels (KP x 1 for the 1x1's rows), the
@@ -324,11 +326,17 @@ def tma_dw_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     route's dW, csrc/conv_bwd.cuh ``tdw_f32_wg``) a stage also holds the
     lo tile of the split dY, as many bytes as its boxes (the hi tile goes
     over them), and BN is DW32_BN where Co reaches it, else 64; with
-    ``aux`` 4 (the fused and ghost backwards in float32, ``tdw_f32``) each
-    64 columns of dY come with two f32 boxes of y, the same bytes, and BN
-    is at most 128 (a thread keeps a tile's accumulator beside the
-    sum)."""
+    ``aux`` 4 (the fused and ghost backwards in float32, ``tdw_f32_tr``)
+    each 64 columns of dY come with two f32 boxes of y or g, the same
+    bytes (the lo tile goes over them), and BN is 128 where it divides Co
+    (a thread keeps a run's accumulator beside the sum).
+
+    ``gh`` > 0 (the ghost backward in float32, whose dW keys each pixel
+    tile by one band of gh rows) widens the box until its height divides
+    gh: only images at most 4 pixels wide have a taller one."""
     wb = min(KP, 1 << max(w - 1, 0).bit_length())
+    while gh and gh % (KP // wb):
+        wb *= 2
     hb = KP // wb
     if aux:
         bn = 128 if co % 128 == 0 else 64

@@ -161,7 +161,7 @@ SIGNATURES = {
         "fused_conv_fwd": [_P] * 6 + [_I] * 13 + [_P],
         "fused_conv_bwd": [_P] * 11 + [_I] * 20 + [_P],
         "fused_conv_fwd_f32": [_P] * 7 + [_I] * 12 + [_P],
-        "fused_conv_bwd_f32": [_P] * 12 + [_I] * 19 + [_P],
+        "fused_conv_bwd_f32": [_P] * 12 + [_I] * 20 + [_P],
     },
     "fused_boundary": {
         "fused_boundary_fwd": [_P] * 5 + [_I] * 2 + [_P],
@@ -331,7 +331,8 @@ def conv_bwd(x, ab, w, y, dy, ds):
     in a fixed order), then dx and dab (``tdx``, tiled by
     tma_bwd_dx_plan); no atomics, so two calls on the same inputs are
     bit-equal. Each kernel's launches are counted in
-    ``conv_bwd.by_kernel`` (``tdw_f32`` and ``tdx_f32`` in float32).
+    ``conv_bwd.by_kernel`` (in float32 ``tdw_f32``, the kernel
+    ``tdw_f32_tr``, and ``tdx_f32``).
     Float32 tensors go to :func:`conv_bwd32`.
     """
     if on_cpu(x, ab, w, y, dy, ds):
@@ -345,9 +346,11 @@ def conv_bwd(x, ab, w, y, dy, ds):
 
 def conv_bwd32(x, ab, w, y, dy, ds):
     """:func:`conv_bwd` in float32 on CUDA tensors: ``fused_conv_bwd_f32``,
-    csrc/conv_bwd.cuh's ``tdw_f32`` (its boxes rewritten in place through
-    relu(x*a + b) and dy_eff) and ``tdx_f32`` (dy_eff formed in registers
-    before the split), both float32 products by split TF32."""
+    csrc/conv_bwd.cuh's ``tdw_f32_tr`` (TF32 wgmma: relu(x*a + b) on its
+    register A fragment, dy_eff formed as dY is transposed into its K-major
+    tiles, runs of ops/conv.py DW32_RUN k8 steps a fresh accumulator) and
+    ``tdx_f32`` (dy_eff formed in registers before the split), both
+    float32 products by split TF32."""
     _need_f32("conv_bwd32", x)
     out = _launch_bwd(x, ab, w, y, dy, ds)
     conv_bwd32.launches += 1
@@ -400,7 +403,8 @@ def _launch_bwd(x, ab, w, y, dy, ds):
                 ds.data_ptr(), dx.data_ptr(), dab.data_ptr(), dw.data_ptr(),
                 ws_dw.data_ptr(), ws_dab.data_ptr(), *geo, ci, co, k, pw.wb,
                 pw.hb, pw.bn, int(pw.two), pw.stages, pw.splits, pw.cluster,
-                px.wb, px.hb, px.bn, px.stages, px.grid, px.eslots, stream)
+                px.wb, px.hb, px.bn, px.stages, px.grid, px.eslots,
+                CV.DW32_RUN, stream)
         else:
             err = lib.fused_conv_bwd(
                 x.data_ptr(), ab.data_ptr(), wflip.data_ptr(), y.data_ptr(),
@@ -534,7 +538,7 @@ for _fn in (conv_fwd, conv_bwd, boundary_fwd, boundary_bwd, conv_fwd32,
             conv_bwd32, boundary_fwd32, boundary_bwd32):
     _fn.launches = 0
 # the backward's two kernels (csrc/conv_bwd.cuh): dW and dX, in bfloat16
-# and in float32
+# and in float32 (tdw_f32 counts tdw_f32_tr)
 conv_bwd.by_kernel = {"tdw": 0, "tdx": 0, "tdw_f32": 0, "tdx_f32": 0}
 
 

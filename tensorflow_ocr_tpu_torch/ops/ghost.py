@@ -412,7 +412,7 @@ SIGNATURES = {
     "ghost_boundary": [_P] * 7 + [_I] * 5 + [_P],
     "ghost_seam_bwd": [_P] * 9 + [_I] * 9 + [_P],
     "ghost_conv_fwd_f32": [_P] * 7 + [_I] * 13 + [_P],
-    "ghost_conv_bwd_f32": [_P] * 14 + [_I] * 22 + [_P],
+    "ghost_conv_bwd_f32": [_P] * 14 + [_I] * 23 + [_P],
     "ghost_boundary_f32": [_P] * 7 + [_I] * 5 + [_P],
     "ghost_seam_bwd_f32": [_P] * 10 + [_I] * 8 + [_P]}
 
@@ -660,7 +660,8 @@ def conv_bwd(x, tx, g, z, td, w, gh, edge=None, addend=None,
     in a fixed order), then dX (``tdx``, tiled by tma_bwd_dx_plan, its band
     sums one entry a tile, added in tile order); no atomics, so two calls
     on the same inputs are bit-equal. Each kernel's launches are counted
-    in ``conv_bwd.by_kernel`` (``tdw_f32`` and ``tdx_f32`` in float32).
+    in ``conv_bwd.by_kernel`` (in float32 ``tdw_f32``, the kernel
+    ``tdw_f32_tr``, and ``tdx_f32``).
     Float32 tensors go to :func:`conv_bwd32`.
     """
     if on_cpu(x, tx, g, z, td, w, edge, addend):
@@ -676,8 +677,10 @@ def conv_bwd32(x, tx, g, z, td, w, gh, edge=None, addend=None,
                out: str = "gm"):
     """:func:`conv_bwd` in float32 on CUDA tensors (every activation and
     w float32; dx float32 for every ``out``): ``ghost_conv_bwd_f32``,
-    csrc/conv_bwd.cuh's ``tdw_f32`` (its boxes rewritten in place through
-    relu(x·a + b) and dz under each pixel's band) and ``tdx_f32`` (dz and
+    csrc/conv_bwd.cuh's ``tdw_f32_tr`` (TF32 wgmma: relu(x·a + b) under
+    the tile's band on its register A fragment, dz and the seam term formed
+    as dY is transposed into its K-major tiles; the tile's box height
+    divides gh, tma_dw_plan's ``gh``) and ``tdx_f32`` (dz and
     the seam term formed in registers before the split; the 3x3's reads
     kept in the output row's band), both float32 products by split TF32,
     the band sums added in double."""
@@ -713,7 +716,9 @@ def _launch_conv_bwd(x, tx, g, z, td, w, gh, edge, addend, out):
     f32 = x.dtype == torch.float32
     esize = 4 if f32 else 2
     sms, aux = CV._sms(index), g.element_size()
-    pw = CV.tma_dw_plan(n, h, wd, ci, co, k, sms, aux=aux, esize=esize)
+    # the float32 dW keys each pixel tile by one band
+    pw = CV.tma_dw_plan(n, h, wd, ci, co, k, sms, aux=aux, esize=esize,
+                        gh=gh if f32 else 0)
     px = CV.tma_bwd_dx_plan(n, h, wd, ci, co, k, sms, aux,
                             f32 or out != "f32", gh, esize=esize)
     # dW, the clusters' tables, the band sums' entries (one a row tile)
@@ -744,7 +749,8 @@ def _launch_conv_bwd(x, tx, g, z, td, w, gh, edge, addend, out):
                 _ptr(sums), dw.data_ptr(), _ptr(addend), ws_ptr, parts_ptr,
                 add_kind, _OUT[out], n, h, wd, ci, co, k, gh, pw.wb, pw.hb,
                 pw.bn, int(pw.two), pw.stages, pw.splits, pw.cluster, px.wb,
-                px.hb, px.bn, px.stages, px.grid, px.eslots, stream)
+                px.hb, px.bn, px.stages, px.grid, px.eslots, CV.DW32_RUN,
+                stream)
         else:
             err = _lib().ghost_conv_bwd(
                 x.data_ptr(), _ptr(tx), g.data_ptr(), z.data_ptr(),
@@ -931,7 +937,7 @@ for _fn in (conv_fwd, conv_bwd, boundary_fwd, boundary_bwd, seam_bwd,
             seam_bwd32):
     _fn.launches = 0
 # the conv backward's two kernels (csrc/conv_bwd.cuh): dW and dX, in
-# bfloat16 and in float32
+# bfloat16 and in float32 (tdw_f32 counts tdw_f32_tr)
 conv_bwd.by_kernel = {"tdw": 0, "tdx": 0, "tdw_f32": 0, "tdx_f32": 0}
 
 

@@ -18,7 +18,8 @@ the kernels' order of summation:
   accumulator pass by pass (the run's lo.hi' products, then its hi.lo',
   then its hi.hi'), which is then added to the CTA's sum; the CTAs of a
   cluster summed in rank order (the two warpgroups' halves within a rank),
-  the clusters' tables in order.
+  the clusters' tables in order in double (sum_tables_wide; dw_table,
+  which the fused and ghost backwards' emulations share).
 
 Each tensor-core instruction is emulated as its exact sum of products
 added to the accumulator and rounded to nearest (the hardware truncates;
@@ -108,19 +109,32 @@ def emulate_dw(x, dy, k, one_pass=False, run=CV.DW32_RUN):
     (module docstring)."""
     n, h, w, ci = x.shape
     co = dy.shape[-1]
-    p = CV.tma_dw_plan(*((1, 1, n * h * w) if k == 1 else (n, h, w)),
-                       ci, co, k, SMS, 0, 4)
     geo = (1, 1, n * h * w) if k == 1 else (n, h, w)
-    cols = im2col(x, k).reshape(*geo, k * k * ci)
-    dys = dy.reshape(*geo, co)
-    tw, th = -(-geo[2] // p.wb), -(-geo[1] // p.hb)
-    ntiles = geo[0] * th * tw
+    p = CV.tma_dw_plan(*geo, ci, co, k, SMS, 0, 4)
+    return dw_table(im2col(x, k).reshape(*geo, k * k * ci),
+                    dy.reshape(*geo, co), p, one_pass, run)
+
+
+def dw_table(cols, dys, p, one_pass=False, run=CV.DW32_RUN):
+    """The float32 dW's table (csrc/conv_bwd.cuh tdw_f32_wg, and
+    tdw_f32_tr on its staged operands) from cols (N, H, W, K) and dys (N,
+    H, W, Co) of the plan p: the pixel tiles (wb x hb boxes, zero past the
+    image) split over CTAs; in each tile (a warpgroup's half of it where
+    both take one chunk) a run of `run` k8 steps of 8 pixels goes to a
+    fresh accumulator pass by pass (the run's lo.hi' products, then its
+    hi.lo', then its hi.hi'), then added to the CTA's sum; the CTAs of a
+    cluster in rank order (then a rank's halves), the clusters' tables in
+    order in double (sum_tables_wide)."""
+    n, h, w, kdim = cols.shape
+    co = dys.shape[-1]
+    tw, th = -(-w // p.wb), -(-h // p.hb)
+    ntiles = n * th * tw
 
     def tile(t):
         """The tile's pixels (box rows in order), zero past the image."""
         img, t = divmod(t, th * tw)
         y0, x0 = (t // tw) * p.hb, (t % tw) * p.wb
-        a = np.zeros((p.hb, p.wb, k * k * ci), np.float32)
+        a = np.zeros((p.hb, p.wb, kdim), np.float32)
         d = np.zeros((p.hb, p.wb, co), np.float32)
         ca = cols[img, y0:y0 + p.hb, x0:x0 + p.wb]
         a[:ca.shape[0], :ca.shape[1]] = ca
@@ -131,12 +145,12 @@ def emulate_dw(x, dy, k, one_pass=False, run=CV.DW32_RUN):
     sums = []  # per split: per warpgroup half, the CTA's sum
     for z in range(p.splits):
         lo, hi = z * ntiles // p.splits, (z + 1) * ntiles // p.splits
-        part = [np.zeros((k * k * ci, co), np.float32) for _ in halves]
+        part = [np.zeros((kdim, co), np.float32) for _ in halves]
         for t in range(lo, hi):
             a, d = tile(t)
             for i, px in enumerate(halves):
                 for r0 in range(px.start, px.stop, 8 * run):
-                    acc = np.zeros((k * k * ci, co), np.float32)
+                    acc = np.zeros((kdim, co), np.float32)
                     rs = slice(r0, r0 + 8 * run)
                     for pa, pb in passes(a[rs], d[rs], one_pass):
                         for k8 in range(0, 8 * run, 8):
@@ -146,19 +160,14 @@ def emulate_dw(x, dy, k, one_pass=False, run=CV.DW32_RUN):
                                    ).astype(np.float32)
                     part[i] = part[i] + acc
         sums.append(part)
-    tables = []
+    out = np.zeros((kdim, co), np.float64)
     for c0 in range(0, p.splits, p.cluster):
-        s = np.zeros((k * k * ci, co), np.float32)
+        s = np.zeros((kdim, co), np.float32)
         for q in range(c0, c0 + p.cluster):  # ranks in order, then halves
             for half in sums[q]:
                 s = s + half
-        tables.append(s)
-    out = tables[0]
-    if len(tables) > 1:  # sum_tables: the clusters' tables in order
-        out = np.zeros_like(out)
-        for t in tables:
-            out = out + t
-    return out
+        out = out + s
+    return out.astype(np.float32)
 
 
 def max_err(got, want):

@@ -16,10 +16,13 @@ hi)) and the tensor cores sum lo.hi' + hi.lo' + hi.hi'
   to a fresh accumulator, then added to the f32 sum; the statistics and
   dab are summed per CTA over its tiles (the plan's tiles_of) and the
   CTAs' entries added in order;
-- the dW (tdw_f32 with FusedTr32): X through relu(x*a + b) and dY to
-  dy_eff in float32 in the staged boxes, then the pixel tiles of
-  ops/conv.py tma_dw_plan (aux and element size 4) split over CTAs, a
-  fresh accumulator each k8 step of 8 pixels added to the CTA's sum, the
+- the dW (tdw_f32_tr with FusedTr32): X through relu(x*a + b) in the
+  register A fragment and dY to dy_eff as it is transposed, in float32
+  before the split, zero where the pixel read lies outside the image;
+  then the route's dW order (test_torch_conv_f32.py dw_table) on
+  ops/conv.py tma_dw_plan (aux and element size 4): the pixel tiles split
+  over CTAs, runs of R k8 steps of 8 pixels (R = ops/conv.py DW32_RUN)
+  each in a fresh accumulator pass by pass, added to the CTA's sum, the
   CTAs of a cluster in rank order, the clusters' tables in order in
   double (sum_tables_wide), as the CTAs' entries of the sums
   (reduce_parts_wide).
@@ -54,7 +57,8 @@ from tensorflow_ocr_tpu_torch.models.convert import (
 from tensorflow_ocr_tpu_torch.ops import conv as CV
 from tensorflow_ocr_tpu_torch.ops import fused as FU
 from test_torch_bottleneck import close, f32_batchnorm  # noqa: F401
-from test_torch_conv_f32 import MULTIPLE, SMS, hold, im2col, max_err, passes
+from test_torch_conv_f32 import (MULTIPLE, SMS, dw_table, hold, im2col,
+                                 max_err, passes)
 from test_torch_resnet import perturb_bn
 
 torch.set_num_threads(1)
@@ -148,66 +152,17 @@ def emulate_tdx(a, wt, k, halo, one_pass=False):
     return out
 
 
-def emulate_dw(xa, dye, k, one_pass=False):
-    """tdw_f32 with FusedTr32 on the staged xa (N, H, W, Ci) and dye (N,
-    H, W, Co): the (k*k*Ci, Co) table in the kernel's order of summation
-    (module docstring), on tma_dw_plan(..., aux=4, esize=4)."""
+def emulate_dw(xa, dye, k, one_pass=False, run=CV.DW32_RUN):
+    """tdw_f32_tr with FusedTr32 on the transformed xa (N, H, W, Ci) and
+    dye (N, H, W, Co), runs of `run` k8 steps: the (k*k*Ci, Co) table in
+    the kernel's order of summation (module docstring), on
+    tma_dw_plan(..., aux=4, esize=4)."""
     n, h, w, ci = xa.shape
     co = dye.shape[-1]
     geo = geo_of(n, h, w, k)
     p = CV.tma_dw_plan(*geo, ci, co, k, SMS, 4, 4)
     return dw_table(im2col(xa, k).reshape(*geo, k * k * ci),
-                    dye.reshape(*geo, co), p, one_pass)
-
-
-def dw_table(cols, dys, p, one_pass=False):
-    """tdw_f32's table from the staged operands cols (N, H, W, K) and dys
-    (N, H, W, Co) of the plan p: the pixel tiles (wb x hb boxes, zero past
-    the image) split over CTAs, a fresh accumulator each k8 step of 8
-    pixels added to the CTA's sum, the CTAs of a cluster in rank order
-    (then a rank's halves), the clusters' tables in order in double
-    (sum_tables_wide)."""
-    n, h, w, kdim = cols.shape
-    co = dys.shape[-1]
-    tw, th = -(-w // p.wb), -(-h // p.hb)
-    ntiles = n * th * tw
-
-    def tile(t):
-        """The tile's pixels (box rows in order), zero past the image."""
-        img, t = divmod(t, th * tw)
-        y0, x0 = (t // tw) * p.hb, (t % tw) * p.wb
-        a = np.zeros((p.hb, p.wb, kdim), f32)
-        d = np.zeros((p.hb, p.wb, co), f32)
-        ca = cols[img, y0:y0 + p.hb, x0:x0 + p.wb]
-        a[:ca.shape[0], :ca.shape[1]] = ca
-        d[:ca.shape[0], :ca.shape[1]] = dys[img, y0:y0 + p.hb, x0:x0 + p.wb]
-        return a.reshape(64, -1), d.reshape(64, co)
-
-    halves = (slice(0, 64),) if p.two else (slice(0, 32), slice(32, 64))
-    sums = []
-    for z in range(p.splits):
-        lo, hi = z * ntiles // p.splits, (z + 1) * ntiles // p.splits
-        part = [np.zeros((kdim, co), f32) for _ in halves]
-        for t in range(lo, hi):
-            a, d = tile(t)
-            for i, px in enumerate(halves):
-                for k8 in range(px.start, px.stop, 8):
-                    acc = np.zeros((kdim, co), f32)
-                    for pa, pb in passes(a[k8:k8 + 8], d[k8:k8 + 8],
-                                         one_pass):
-                        acc = (acc.astype(f64) + pa.T.astype(f64)
-                               @ pb.astype(f64)).astype(f32)
-                    part[i] = part[i] + acc
-        sums.append(part)
-    # the clusters' tables added in order in double (sum_tables_wide)
-    out = np.zeros((kdim, co), f64)
-    for c0 in range(0, p.splits, p.cluster):
-        s = np.zeros((kdim, co), f32)
-        for q in range(c0, c0 + p.cluster):  # ranks in order, then halves
-            for half in sums[q]:
-                s = s + half
-        out = out + s
-    return out.astype(f32)
+                    dye.reshape(*geo, co), p, one_pass, run)
 
 
 def wflip_rows(wk):
@@ -320,6 +275,34 @@ def test_fused_f32_kernels_emulated_against_jax(interpret, n, h, w, ci, co,
     pdw = pdw.permute(2, 3, 1, 0).reshape(k * k * ci, co).numpy()
     hold("dw", emulate_dw(xa, dye, k), emulate_dw(xa, dye, k, True), pdw,
          jdw, im2col(xa, k).astype(f64).T @ dye.reshape(m, co).astype(f64))
+
+
+@pytest.mark.parametrize("run", [1, 2, 4])
+@pytest.mark.parametrize("n,h,w,ci,co,k", [
+    (2, 16, 16, 64, 128, 1),    # one chunk: each warpgroup half a tile
+    (1, 16, 32, 128, 64, 1),    # two chunks: a warpgroup each, whole tiles
+    (1, 16, 20, 64, 64, 3),     # a 3x3: the pad taps, a ragged edge
+])
+def test_dw_runs(interpret, run, n, h, w, ci, co, k):
+    """The fused backward's dW emulated with each run length the kernel
+    takes (1, 2 or 4 k8 steps a fresh accumulator; DW32_RUN picks one)
+    against JAX's interpreted _fused_conv1x1_bwd / _fused_conv3x3_bwd and
+    the plain float32 version, under the float32 rule (a one-pass TF32
+    emulation failing it)."""
+    x, ab, wk, dy, ds = fused_case(ci + co + w + run, n, h, w, ci, co, k)
+    tw = torch.from_numpy(np.ascontiguousarray(wk.transpose(3, 2, 0, 1)))
+    targs = (nchw(x), torch.from_numpy(ab), tw)
+    py, _ = FU.conv_fwd_reference(*targs)
+    y = nhwc(py)
+    _, _, pdw = FU.conv_bwd_reference(*targs, py, nchw(dy),
+                                      torch.from_numpy(ds))
+    jdw = jax_fused(x, ab, wk, dy, ds, y)[4]
+    xa, dye = prologue(x, ab), dy_eff(dy, y, ds)
+    pdw = pdw.permute(2, 3, 1, 0).reshape(k * k * ci, co).numpy()
+    hold(f"dw run {run}", emulate_dw(xa, dye, k, run=run),
+         emulate_dw(xa, dye, k, True, run), pdw, jdw,
+         im2col(xa, k).astype(f64).T
+         @ dye.reshape(n * h * w, co).astype(f64))
 
 
 def boundary_blocks32(m, c, sms):

@@ -40,10 +40,11 @@ def dx32_smem(p, aux):
 
 
 def dw32_smem(p):
-    """run_dw_f32's with the staging transform: the ring (two X boxes of 32
-    f32 channels a 64-row chunk, bn / 32 dY boxes and as many y boxes), its
-    barriers, the alignment; and the parked accumulators, which overlay the
-    ring."""
+    """run_dw_f32's with the staging transform (tdw_f32_tr): the ring (two
+    X boxes of 32 f32 channels a 64-row chunk, bn / 32 dY boxes, which the
+    split's hi tile then overlays, and as many y or g boxes, which its lo
+    tile overlays), its barriers, the alignment; and the parked sums,
+    which overlay the ring."""
     stage = ((2 if p.two else 1) * 2 + 2 * (p.bn // 32)) * 64 * 128
     return p.stages * stage + 16 * p.stages + 1024, p.stages * stage
 
@@ -104,6 +105,28 @@ def test_float32_fused_plans_double_what_a_stage_holds():
     assert d16.bn == d32.bn == 64
     stage16 = ((2 if d16.two else 1) + 1) * 64 * 128 + 64 * 64 * 2
     assert dw32_smem(d32)[1] // d32.stages == 2 * stage16
+
+
+def test_float32_staged_dw_stage_is_the_routes():
+    """tdw_f32_tr's stage (the X boxes, the dY boxes then hi, the aux boxes
+    then lo) has the bytes of the route's tdw_f32_wg stage (whose lo tile
+    no box fills) at the same bn and chunks: the plan keeps its BN 128
+    where it divides Co and its stages, 96 KiB and 2 stages at BN 128 with
+    two chunks, a fresh run's accumulator and the sums in registers."""
+    from test_torch_conv_f32_plans import dw_smem
+
+    p = CV.tma_dw_plan(32, 64, 64, 128, 128, 3, SMS, aux=4, esize=4)
+    assert p.bn == 128 and p.two and p.stages == 2
+    assert dw32_smem(p)[1] == 2 * 96 * 1024 and dw32_smem(p)[0] <= \
+        CV.MAX_SMEM
+    r = CV.tma_dw_plan(32, 64, 64, 128, 128, 3, SMS, 0, 4)
+    assert (r.bn, r.two, r.stages) == (p.bn, p.two, p.stages)
+    assert dw_smem(r) == dw32_smem(p)
+    # a Co that 128 does not divide takes BN 64, a single chunk both
+    # warpgroups' halves of a tile
+    q = CV.tma_dw_plan(1, 1, 524288, 64, 192, 1, SMS, aux=4, esize=4)
+    assert q.bn == 64 and not q.two and q.stages >= 2
+    assert dw32_smem(q)[0] <= CV.MAX_SMEM
 
 
 class Fake:

@@ -19,10 +19,15 @@ The emulations below follow the kernels' order:
 - dz = g*a + c1 + 2z*c2 under the table of the band of the pixel read,
   plus the seam term on a band's first and last rows (GhostTr32), in
   float32 in the plain version's order of rounding;
-- the dW (tdw_f32 with GhostTr32): the staged x under the output pixel's
-  band and dz, the pixel tiles of ops/conv.py tma_dw_plan (aux and element
-  size 4) split over CTAs, a fresh accumulator each k8 step of 8 pixels,
-  the CTAs of a cluster in rank order, the clusters' tables in double;
+- the dW (tdw_f32_tr with GhostTr32): x under the output pixel's band in
+  the register A fragment and dz as dY is transposed, the route's dW
+  order (test_torch_conv_f32.py dw_table) on ops/conv.py tma_dw_plan (aux
+  and element size 4, the box height a divisor of gh: a tile lies in one
+  band): runs of R k8 steps each in a fresh accumulator pass by pass, the
+  CTAs of a cluster in rank order, the clusters' tables in double; the
+  kernel's index map (which thread stages which pixel and channel, the
+  pad taps, the ragged edge, the tile's band, the seam rows) emulated
+  thread by thread against the tensors it stages;
 - the dX (tdx_f32 with GhostTr32): dz formed in registers, the 3x3's reads
   kept in the output row's band, the flipped kernel; gm's band sums one
   entry a tile, added in order in double;
@@ -63,8 +68,9 @@ import torch
 from tensorflow_ocr_tpu.ops import pallas_unit as PU
 from tensorflow_ocr_tpu_torch.ops import conv as CV
 from tensorflow_ocr_tpu_torch.ops import ghost as G
-from test_torch_conv_f32 import MULTIPLE, SMS, max_err, passes
-from test_torch_fused_f32 import dw_table, tile_rows, wflip_rows
+from test_torch_conv_f32 import (MULTIPLE, SMS, dw_table, im2col, max_err,
+                                 passes)
+from test_torch_fused_f32 import dy_eff, tile_rows, wflip_rows
 
 torch.set_num_threads(1)
 f32, f64 = np.float32, np.float64
@@ -231,14 +237,16 @@ def emu_fwd(x, tab, wk, gh, one_pass=False, own_band=False):
     return y.reshape(n, h, w, co), s
 
 
-def emu_dw(cols, dz, geo, ci, k, one_pass=False):
-    """tdw_f32 with GhostTr32 on the staged cols (M, k*k*Ci) and dz (M,
-    Co): the (k*k*Ci, Co) table in the kernel's order of summation, on
-    tma_dw_plan(..., aux=4, esize=4) over the image geometry."""
+def emu_dw(cols, dz, geo, ci, k, one_pass=False, run=CV.DW32_RUN, gh=GH):
+    """tdw_f32_tr with GhostTr32 on the transformed cols (M, k*k*Ci) and
+    dz (M, Co), runs of `run` k8 steps: the (k*k*Ci, Co) table in the
+    kernel's order of summation, on tma_dw_plan(..., aux=4, esize=4, gh)
+    over the image geometry."""
     co = dz.shape[-1]
-    p = CV.tma_dw_plan(*geo, ci, co, k, SMS, 4, 4)
+    p = CV.tma_dw_plan(*geo, ci, co, k, SMS, 4, 4, gh)
+    assert gh % p.hb == 0
     return dw_table(cols.reshape(*geo, -1), dz.reshape(*geo, co), p,
-                    one_pass)
+                    one_pass, run)
 
 
 def emu_bwd(x, tx, g, z, td, wk, gh, edge=None, addend=None, out="gm",
@@ -249,7 +257,7 @@ def emu_bwd(x, tx, g, z, td, wk, gh, edge=None, addend=None, out="gm",
     k, co = wk.shape[0], wk.shape[-1]
     dz = dz_of(g, z, td, gh, edge)
     dw = emu_dw(act_cols(x, tx, gh, k), dz.reshape(-1, co), (n, h, w), ci,
-                k, one_pass)
+                k, one_pass, gh=gh)
     px = CV.tma_bwd_dx_plan(n, h, w, ci, co, k, SMS, 4, True, gh, esize=4)
     gx = product(dz_cols(dz, gh, k, in_band), wflip_rows(wk),
                  steps(k, co, px.halo), one_pass)
@@ -404,13 +412,10 @@ def test_forward_band_tables_and_halo_rows(k):
         assert ratio(bad, py, ey) > 10 * MULTIPLE
 
 
-@pytest.mark.parametrize("k,out", [(1, "act"), (1, "gm"), (3, "gm")])
-def test_backward_dz_edge_term_and_in_band_dx(k, out):
-    """The conv backward: dz staged with the seam term on the bands' edge
-    rows (conv1's "act", with its addend) or without (gm), the 3x3's dX
-    kept in its output row's band; dx, gm's band sums and dW within 4x the
-    plain version's error of float64; one TF32 pass beyond; the seam term
-    dropped, or the 3x3 dX read across bands, beyond."""
+def bwd_case(k, out):
+    """A conv backward's inputs (x, tx, g, z, td, wk, edge, addend) and its
+    plain float32 and float64 results: "act" (conv1) with the seam term
+    and an addend and no tx, "gm" without."""
     rng, x, tab, wk = rng_case(11 + k, 64, 64, k)
     co = wk.shape[-1]
     g = (rng.randn(N, H, W, co) * 0.1).astype(f32)
@@ -432,12 +437,24 @@ def test_backward_dz_edge_term_and_in_band_dx(k, out):
     plain = G.conv_bwd_reference(*targs)
     exact = G.conv_bwd_reference(*[t.double() if isinstance(t, torch.Tensor)
                                    else t for t in targs])
+    return (x, txn, g, z, td, wk, edge, addend), plain, exact
 
-    def table(dw):
-        return dw.permute(2, 3, 1, 0).reshape(-1, co).numpy()
 
+def dw_rows_of(dw):
+    """(Co, Ci, k, k) -> the (k*k*Ci, Co) table."""
+    return dw.permute(2, 3, 1, 0).reshape(-1, dw.shape[0]).numpy()
+
+
+@pytest.mark.parametrize("k,out", [(1, "act"), (1, "gm"), (3, "gm")])
+def test_backward_dz_edge_term_and_in_band_dx(k, out):
+    """The conv backward: dz staged with the seam term on the bands' edge
+    rows (conv1's "act", with its addend) or without (gm), the 3x3's dX
+    kept in its output row's band; dx, gm's band sums and dW within 4x the
+    plain version's error of float64; one TF32 pass beyond; the seam term
+    dropped, or the 3x3 dX read across bands, beyond."""
+    (x, txn, g, z, td, wk, edge, addend), plain, exact = bwd_case(k, out)
     want = [(act(plain[0]), act(exact[0])),
-            (table(plain[2]), table(exact[2]))]
+            (dw_rows_of(plain[2]), dw_rows_of(exact[2]))]
     if out == "gm":
         want.append((plain[1].numpy(), exact[1].numpy()))
     got = emu_bwd(x, txn, g, z, td, wk, GH, edge, addend, out)
@@ -453,6 +470,250 @@ def test_backward_dz_edge_term_and_in_band_dx(k, out):
     if k == 3:
         bad = emu_bwd(x, txn, g, z, td, wk, GH, out=out, in_band=False)
         assert ratio(bad[0], *want[0]) > 10 * MULTIPLE
+
+
+@pytest.mark.parametrize("run", [1, 2, 4])
+@pytest.mark.parametrize("k,out", [(1, "act"), (3, "gm")])
+def test_dw_runs(run, k, out):
+    """The ghost backward's dW emulated with each run length the kernel
+    takes (1, 2 or 4 k8 steps a fresh accumulator; DW32_RUN picks one): x
+    under its band (or as it is) and dz with the seam term (conv1's "act")
+    or without, within 4x the plain version's error of float64; one TF32
+    pass beyond."""
+    (x, txn, g, z, td, wk, edge, _), plain, exact = bwd_case(k, out)
+    ci, co = wk.shape[2], wk.shape[3]
+    cols = act_cols(x, txn, GH, k)
+    dz = dz_of(g, z, td, GH, edge).reshape(-1, co)
+    want = (dw_rows_of(plain[2]), dw_rows_of(exact[2]))
+    assert ratio(emu_dw(cols, dz, (N, H, W), ci, k, run=run),
+                 *want) <= MULTIPLE
+    assert ratio(emu_dw(cols, dz, (N, H, W), ci, k, True, run),
+                 *want) > 10 * MULTIPLE
+
+
+# --------------------------------------------------------------------------
+# the staged dW's index map (csrc/conv_bwd.cuh dw32_body), thread by thread
+# --------------------------------------------------------------------------
+
+
+def xpose_block(blk):
+    """conv_bwd.cuh xpose_block: the transpose's 4x4 block blk -> (cq, pq),
+    channels 4 cq.. and pixels 4 pq.. of the tile."""
+    t = blk & 7
+    return 8 * (blk >> 7) + (t ^ ((blk >> 3) & 7)), 8 * ((blk >> 6) & 1) + t
+
+
+class FusedStage:
+    """fused_conv.cu FusedTr32's x1 and d1 (one key), in float32."""
+    banded = False
+
+    def __init__(self, ab, ds):
+        self.ab, self.ds = ab, ds
+
+    def x1(self, v, key, c):
+        return np.maximum((v * self.ab[0][c]).astype(f32) + self.ab[1][c],
+                          0).astype(f32)
+
+    def d1(self, d, y, key, c):
+        return ((d + self.ds[0][c]).astype(f32)
+                + ((2 * y).astype(f32) * self.ds[1][c]).astype(f32)
+                ).astype(f32)
+
+
+class GhostStage:
+    """ghost_unit.cu GhostTr32's x1, d1 and edge_at, in float32; key the
+    global band (image, band) of the tile."""
+    banded = True
+
+    def __init__(self, tab, td, edge, gh, w):
+        self.tab = None if tab is None else tab.reshape(-1, 2, tab.shape[-1])
+        self.td = td.reshape(-1, 3, td.shape[-1])
+        self.edge = None if edge is None else edge.reshape(
+            -1, 2, w, edge.shape[-1])
+        self.gh, self.band_px = gh, gh * w
+
+    def x1(self, v, key, c):
+        if self.tab is None:
+            return v
+        return np.maximum((v * self.tab[key, 0, c]).astype(f32)
+                          + self.tab[key, 1, c], 0).astype(f32)
+
+    def d1(self, z, g, key, c):
+        t = self.td[key]
+        return (((g * t[0, c]).astype(f32) + t[1, c]).astype(f32)
+                + ((2 * z).astype(f32) * t[2, c]).astype(f32)).astype(f32)
+
+    def edge_at(self, key, brow, ow, c):
+        """The seam term at row brow of band key (0 off its edge rows)."""
+        if self.edge is None:
+            return np.zeros(np.shape(c), f32)
+        first, last = brow == 0, brow == self.gh - 1
+        e = self.edge[key, np.where(last, 1, 0), ow, c]
+        return np.where(first | last, e, 0).astype(f32)
+
+
+def staged_tiles(tr, p, geo, k, x, dy, aux):
+    """Every tile's operands as dw32_body stages them, by its threads'
+    index map: {(tile, chunk): A (64 channels, 64 pixels)} of T_x(X) (the
+    lanes' fragments of each k8 step), {(tile, co0): B (64 pixels, bn)} of
+    T_dy (the transpose's 4x4 blocks). Each element is asserted written
+    once. x, dy, aux NHWC of the geometry; a box reads 0 outside the image
+    (TMA's zero fill)."""
+    n, h, w = geo
+    ci, co = x.shape[-1], dy.shape[-1]
+    wm, lwb = p.wb - 1, p.wb.bit_length() - 1
+    tw, th = -(-w // p.wb), -(-h // p.hb)
+    cchunks = ci // 64
+    rchunks = k * k * cchunks
+    half = k // 2
+    pad = 2  # wide enough for a tap's shift past the ragged edge
+
+    def padded(t):
+        return np.pad(t, ((0, 0), (pad, pad + p.hb), (pad, pad + p.wb),
+                          (0, 0)))
+
+    xp, dyp, auxp = padded(x), padded(dy), padded(aux)
+    a_tiles, b_tiles = {}, {}
+    for t in range(n * th * tw):
+        w0, tt = (t % tw) * p.wb, t // tw
+        h0, img = (tt % th) * p.hb, tt // th
+        key = ((img * h + h0) * w + w0) // tr.band_px if tr.banded else 0
+        # B: thread ct's blocks ct + 256 xb, 4 pixels x 4 columns each
+        ct, xb = np.meshgrid(np.arange(256), np.arange(p.bn // 64),
+                             indexing="ij")
+        cq, pq = xpose_block(ct + 256 * xb)
+        px = (4 * pq)[..., None, None] + np.arange(4)[:, None]
+        col = (4 * cq)[..., None, None] + np.arange(4)
+        px, col = np.broadcast_arrays(px, col)
+        c, rr = px & wm, px >> lwb
+        inn = (c < w - w0) & (rr < h - h0)
+        for co0 in range(0, co, p.bn):
+            at = (img, h0 + rr + pad, w0 + c + pad, co0 + col)
+            v = tr.d1(dyp[at], auxp[at], key, co0 + col)
+            if tr.banded:
+                brow = img * h + h0 + rr - key * tr.gh
+                v = np.where(inn, (v + tr.edge_at(
+                    key, brow, np.minimum(w0 + c, w - 1), co0 + col)
+                    ).astype(f32), v)
+            b = np.full((64, p.bn), np.nan, f32)
+            seen = np.zeros((64, p.bn), int)
+            np.add.at(seen, (px, col), 1)
+            assert (seen == 1).all()
+            b[px, col] = np.where(inn, v, 0)
+            b_tiles[t, co0] = b
+        # A: warpgroup wg's lanes (warp, g, t4), k8 steps s, pixels q + t4
+        # (+ 4), channels 16 warp + g (+ 8) of the warpgroup's chunk
+        for bx in range(-(-rchunks // 2) if p.two else 1):
+            for wg in range(2):
+                aslot = wg if p.two else 0
+                if p.two and 2 * bx + aslot >= rchunks:
+                    continue  # an odd last chunk's duplicate: not stored
+                chunk = 2 * bx + aslot if p.two else 0
+                tap = chunk // cchunks
+                dx, dyt = tap % k - half, tap // k - half
+                clo = max(0, -w0 - dx)
+                cspan = max(0, min(w - w0, w - w0 - dx) - clo)
+                rlo = max(0, -h0 - dyt)
+                rspan = max(0, min(h - h0, h - h0 - dyt) - rlo)
+                p0, k8 = (0, 8) if p.two else (32 * wg, 4)
+                # the lane's liveness mask: bit k for pixel p0 + t4 + 4 k
+                t4_, k_ = np.meshgrid(np.arange(4), np.arange(2 * k8),
+                                      indexing="ij")
+                pk = p0 + t4_ + 4 * k_
+                bits = (((pk & wm) - clo >= 0) & ((pk & wm) - clo < cspan)
+                        & ((pk >> lwb) - rlo >= 0)
+                        & ((pk >> lwb) - rlo < rspan))
+                warp, g, t4, s, e, j = np.meshgrid(
+                    np.arange(4), np.arange(8), np.arange(4), np.arange(k8),
+                    np.arange(2), np.arange(2), indexing="ij")
+                q = p0 + 8 * s + t4 + 4 * e  # the fragment's pixel
+                ch = 16 * warp + g + 8 * j
+                cg = (chunk % cchunks) * 64 + ch
+                c, rr = q & wm, q >> lwb
+                live = bits[t4, 2 * s + e]
+                raw = xp[img, h0 + rr + dyt + pad, w0 + c + dx + pad, cg]
+                a = a_tiles.setdefault((t, chunk), np.full((64, 64), np.nan,
+                                                           f32))
+                assert np.isnan(a[ch, q]).all()
+                a[ch, q] = np.where(live, tr.x1(raw, key, cg), 0)
+    return a_tiles, b_tiles
+
+
+def reference_tiles(p, geo, k, ci, cols, dys):
+    """The same tiles cut from the tensors the plain versions stage: cols
+    (N, H, W, k*k*Ci) im2col of T_x(x) (zero at the pad taps) and dys (N,
+    H, W, Co) T_dy; zero past the image."""
+    n, h, w = geo
+    tw, th = -(-w // p.wb), -(-h // p.hb)
+    a_tiles, b_tiles = {}, {}
+    for t in range(n * th * tw):
+        w0, tt = (t % tw) * p.wb, t // tw
+        h0, img = (tt % th) * p.hb, tt // th
+        ca = np.zeros((p.hb, p.wb, cols.shape[-1]), f32)
+        cd = np.zeros((p.hb, p.wb, dys.shape[-1]), f32)
+        part = cols[img, h0:h0 + p.hb, w0:w0 + p.wb]
+        ca[:part.shape[0], :part.shape[1]] = part
+        cd[:part.shape[0], :part.shape[1]] = dys[img, h0:h0 + p.hb,
+                                                 w0:w0 + p.wb]
+        ca, cd = ca.reshape(64, -1), cd.reshape(64, -1)
+        for chunk in range(k * k * ci // 64):
+            a_tiles[t, chunk] = ca[:, 64 * chunk:64 * chunk + 64].T
+        for co0 in range(0, cd.shape[1], p.bn):
+            b_tiles[t, co0] = cd[:, co0:co0 + p.bn]
+    return a_tiles, b_tiles
+
+
+@pytest.mark.parametrize("kind,geo,ci,co,k", [
+    ("fused", (1, 1, 200), 128, 64, 1),   # rows: two chunks, a ragged tile
+    ("fused", (2, 9, 20), 64, 128, 3),    # pad taps, ragged rows and columns
+    ("ghost", (2, 16, 20), 64, 128, 3),   # bands of 8 rows, the seam rows
+    ("ghost", (1, 16, 4), 64, 64, 1),     # 4 wide: the box widened to 8
+    ("ghost", (2, 16, 20), 64, 64, 1),    # x as it is (no tx), the seam
+])
+def test_staged_dw_index_map(kind, geo, ci, co, k):
+    """dw32_body's staging, thread by thread (each lane's A fragment
+    values, each thread's transpose blocks), with each transform: every
+    element of each tile's A (T_x(X)^T of each chunk) and B (T_dy) staged
+    once and equal to the plain versions' staged tensors cut into the
+    plan's tiles: zero at the pad taps and past the ragged edge, x under
+    the tile's band (the output pixel's), dz under the band of the pixel
+    read, the seam term on the bands' first and last rows."""
+    rng = np.random.RandomState(ci + co + k)
+    n, h, w = geo
+    x = rng.randn(n, h, w, ci).astype(f32)
+    dy = rng.randn(n, h, w, co).astype(f32)
+    aux = rng.randn(n, h, w, co).astype(f32)
+    gh = GH if kind == "ghost" else 0
+    p = CV.tma_dw_plan(*geo, ci, co, k, SMS, 4, 4, gh)
+    if kind == "fused":
+        ab = np.stack([rng.uniform(0.5, 1.5, ci),
+                       rng.randn(ci) * 0.5 + 0.3]).astype(f32)
+        ds = np.stack([rng.randn(co) * 0.3, rng.randn(co) * 0.1]).astype(f32)
+        tr = FusedStage(ab, ds)
+        cols = im2col(np.maximum((x * ab[0]).astype(f32) + ab[1], 0)
+                      .astype(f32), k)
+        dys = dy_eff(dy, aux, ds)
+    else:
+        assert gh % p.hb == 0 and (w > 4 or p.wb == 8)
+        nb = h // gh
+        tab = None if k == 1 else np.stack(
+            [rng.uniform(0.5, 1.5, (n, nb, ci)),
+             rng.randn(n, nb, ci) * 0.5 + 0.3], 2).astype(f32)
+        td = np.stack([rng.uniform(0.5, 1.5, (n, nb, co)),
+                       rng.randn(n, nb, co) * 1e-2,
+                       rng.randn(n, nb, co) * 1e-3], 2).astype(f32)
+        edge = (rng.randn(n, nb, 2, w, co) * 0.1).astype(f32)
+        tr = GhostStage(tab, td, edge, gh, w)
+        cols = act_cols(x, tab, gh, k)
+        dys = dz_of(aux, dy, td, gh, edge)
+    got = staged_tiles(tr, p, geo, k, x, dy, aux)
+    want = reference_tiles(p, geo, k, ci,
+                           cols.reshape(n, h, w, -1), dys.reshape(n, h, w,
+                                                                  co))
+    for g_, w_ in zip(got, want):
+        assert g_.keys() == w_.keys()
+        for key in w_:
+            np.testing.assert_array_equal(g_[key], w_[key], err_msg=key)
 
 
 def test_seam_product():

@@ -41,7 +41,9 @@ def test_float32_ghost_plans_fit_shared_memory(shape):
     """The forward, dX and dW plans of each of the unit's convs in
     float32: within 232,448 bytes as the kernels count them, 2 or more ring
     stages, bn 64, the weight streamed, an epilogue slot, the box height a
-    divisor of gh (a tile lies in one band), the 3x3 in halo mode."""
+    divisor of gh (a tile lies in one band), the 3x3 in halo mode; the dW
+    plan with gh is the one without (gh widens no box at these widths),
+    its box height a divisor of gh too."""
     n, h, w, ci, db, co, gh = shape
     for a, b, k in unit_convs(ci, db, co):
         fwd = CV.tma_staged_fwd_plan(n, h, w, a, b, k, SMS, gh, esize=4)
@@ -53,12 +55,27 @@ def test_float32_ghost_plans_fit_shared_memory(shape):
             assert p.bn == 64 and not p.resident and p.eslots >= 1
             assert gh % p.hb == 0 and p.halo == (k == 3)
             assert p.grid % p.col_tiles == 0
-        dw = CV.tma_dw_plan(n, h, w, a, b, k, SMS, aux=4, esize=4)
+        dw = CV.tma_dw_plan(n, h, w, a, b, k, SMS, aux=4, esize=4, gh=gh)
+        assert dw == CV.tma_dw_plan(n, h, w, a, b, k, SMS, aux=4, esize=4)
         smem, ring = dw32_smem(dw)
         assert dw.stages >= 2 and smem <= CV.MAX_SMEM, (a, b, k, dw)
+        assert gh % dw.hb == 0  # tdw_f32_tr keys a tile by one band
         # the parked accumulators overlay the ring
         assert 2 * 64 * (dw.bn + 8) * 4 <= ring
         assert b % dw.bn == 0 and dw.splits % dw.cluster == 0
+
+
+@pytest.mark.parametrize("w,gh,wb", [(4, 8, 8), (2, 8, 8), (1, 16, 4),
+                                     (4, 2, 32), (5, 8, 8), (64, 8, 64)])
+def test_float32_ghost_dw_box_divides_the_band(w, gh, wb):
+    """tma_dw_plan's gh: the box is widened until its height divides the
+    band's (ghost_conv_bwd_f32 refuses another), which only images at most
+    4 pixels wide need; the rest of the plan is the one without gh."""
+    p = CV.tma_dw_plan(2, 16, w, 64, 64, 3, SMS, aux=4, esize=4, gh=gh)
+    q = CV.tma_dw_plan(2, 16, w, 64, 64, 3, SMS, aux=4, esize=4)
+    assert p.wb == wb and p.wb * p.hb == CV.KP and gh % p.hb == 0
+    assert (p.bn, p.two, p.stages) == (q.bn, q.two, q.stages)
+    assert (p.wb == q.wb) == (w > 4 or gh % q.hb == 0)
 
 
 def seam32_smem(p, c):
@@ -105,14 +122,15 @@ def test_the_float32_entry_points_take_their_plans():
     """The float32 entries' ctypes argument types are the C functions'
     own: ghost_conv_fwd_f32 seven pointers (x, tab, wt, the split, y,
     stats, the entries), 13 ints (geometry, gh, the plan less residency);
-    ghost_conv_bwd_f32 14 pointers and 22 ints; ghost_boundary_f32 as the
+    ghost_conv_bwd_f32 14 pointers and 23 ints (the dW's run last);
+    ghost_boundary_f32 as the
     bf16 one; ghost_seam_bwd_f32 ten pointers (the split beside the nine)
     and 8 ints (no column tile: 64 at every c)."""
     import ctypes
     entries = c_entry_points("ghost_unit")
     p, i = ctypes.c_void_p, ctypes.c_int
     want = {"ghost_conv_fwd_f32": [p] * 7 + [i] * 13 + [p],
-            "ghost_conv_bwd_f32": [p] * 14 + [i] * 22 + [p],
+            "ghost_conv_bwd_f32": [p] * 14 + [i] * 23 + [p],
             "ghost_boundary_f32": [p] * 7 + [i] * 5 + [p],
             "ghost_seam_bwd_f32": [p] * 10 + [i] * 8 + [p]}
     for name, sig in want.items():
