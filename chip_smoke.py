@@ -88,7 +88,11 @@ Phases, in order; any failure raises and exits non-zero:
    version's error (TF32 off) against the float64 result, the boundary's
    out, dz and dzs within F32_BOUNDARY_ULPS of the plain version's and
    its sums to the same rule; each launched twice and bit-equal; kernel
-   and plain ms, bound and the float32 conv-alone yardsticks;
+   and plain ms, bound and the float32 conv-alone yardsticks; each
+   shape's tdx_f32 plans (bn, resident, stages, eslots, overlap) with
+   their instantiations' registers and spilled bytes; each tdx_f32
+   instantiation (DX32_INSTANCES: BN 64 and 128, overlap off and on) at
+   one 1x1 shape against the plain version;
 11c. the fused arm in float32 (model.compute_dtype "float32"): 3 steps
    through Trainer.run, FUSED_F32_STEP_LAUNCHES a step on the float32
    kernels (the dW tdw_f32_tr, counted as tdw_f32, and tdx_f32 43 a step
@@ -131,7 +135,8 @@ Phases, in order; any failure raises and exits non-zero:
    out within F32_BOUNDARY_ULPS of the plain version's, its gm equal and
    its sums to the same rule; each launched twice and bit-equal; kernel
    and plain ms, bound and the float32 conv-alone yardsticks, each
-   kernel's ms a train step;
+   kernel's ms a train step; the tdx_f32 plans and instantiations as
+   phase 11b's (conv3's forward and backward at one unit shape);
 15. with --faults only: the readings of the ghost arm check (phase 16)
    in 3 sound runs and under planted faults, which set GHOST_ARM_*, from
    the augmented state; and in float32 (phase 16b's), which set
@@ -1938,6 +1943,44 @@ def f32_rule(name, got, want, exact):
     return err, err / max(perr, 1e-300)
 
 
+# tdx_f32's instantiations, each as (ops/conv.py DX32_BN, DX32_OVERLAP):
+# BN 64 and 128, each product's fragment prepared after or under the
+# previous product's wgmmas
+DX32_INSTANCES = (((64,), False), ((64,), True), ((128, 64), False),
+                  ((128, 64), True))
+
+
+@contextlib.contextmanager
+def dx32_choice(bns, overlap):
+    """ops/conv.py's tdx_f32 plans under DX32_BN = bns and DX32_OVERLAP =
+    overlap inside the block."""
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+
+    saved = CV.DX32_BN, CV.DX32_OVERLAP
+    CV.DX32_BN, CV.DX32_OVERLAP = bns, overlap
+    CV.tma_bwd_dx_plan.cache_clear()
+    try:
+        yield
+    finally:
+        CV.DX32_BN, CV.DX32_OVERLAP = saved
+        CV.tma_bwd_dx_plan.cache_clear()
+
+
+def dx32_plan(attrs, fwd, p):
+    """A tdx_f32 plan (bn, resident, stages, eslots, overlap) and its
+    instantiation's registers and spilled bytes, read by ``attrs`` (the
+    library's fused_tdx32_attrs or ghost_tdx32_attrs: the forward's
+    instantiation where fwd, else the dX's)."""
+    import ctypes
+
+    out = (ctypes.c_int * 2)()
+    err = attrs(int(fwd), p.bn, int(p.overlap), ctypes.addressof(out))
+    check(err == 0, f"tdx_f32 attributes: CUDA error {err}")
+    return (f"[bn {p.bn}, resident {int(p.resident)}, {p.stages} stages, "
+            f"{p.eslots} eslots, overlap {int(p.overlap)}; {out[0]} "
+            f"registers, {out[1]} bytes spilled]")
+
+
 def ulps_close(name, got, want, ulps):
     """float32 ``got`` within ``ulps`` ulps of ``want``, elementwise;
     returns the largest absolute difference."""
@@ -1989,7 +2032,9 @@ def phase_fused_kernels_f32(device, reports):
     conv-alone yardsticks in float32 (TF32 off: torch.matmul / F.conv2d of
     the forward's product, and the backward's two products), and each
     kernel's ms a train step, and each shape's dW plan (R, BN, stages,
-    splits, cluster). max_abs_err: the convs' against float64, the
+    splits, cluster) and tdx_f32 plans (dx32_plan); then each tdx_f32
+    instantiation (DX32_INSTANCES) at one shape to the same rule, twice
+    and bit-equal. max_abs_err: the convs' against float64, the
     boundary's elementwise outputs' against the plain version."""
     import torch
     from tensorflow_ocr_tpu_torch.ops import conv as CV
@@ -2019,6 +2064,7 @@ def phase_fused_kernels_f32(device, reports):
     counts = fused_shape_counts()
     step = dict(fwd=0.0, bwd=0.0, falone=0.0, balone=0.0, fbound=0.0,
                 bbound=0.0)
+    attrs = FU._lib("fused_conv").fused_tdx32_attrs
     for n, h, w, ci, co, k in CONV_SHAPES:
         m, kk = n * h * w, k * k * ci * co
         launches = counts[(n, h, w, ci, co, k)]
@@ -2088,9 +2134,14 @@ def phase_fused_kernels_f32(device, reports):
                        ("balone", balone), ("fbound", fbound),
                        ("bbound", bbound)):
             step[key] += launches * v
-        pw = CV.tma_dw_plan(*((1, 1, m) if k == 1 else (n, h, w)), ci, co,
-                            k, CV._sms(device.index or 0), aux=4, esize=4)
-        print(f"fused conv f32 {tag} ({launches} a step; dW [R "
+        geo = (1, 1, m) if k == 1 else (n, h, w)
+        sms = CV._sms(device.index or 0)
+        pw = CV.tma_dw_plan(*geo, ci, co, k, sms, aux=4, esize=4)
+        pf = CV.tma_staged_fwd_plan(*geo, ci, co, k, sms, esize=4)
+        px = CV.tma_bwd_dx_plan(*geo, ci, co, k, sms, 4, True, esize=4)
+        print(f"fused conv f32 {tag} ({launches} a step; fwd "
+              f"{dx32_plan(attrs, True, pf)}, dX {dx32_plan(attrs, False, px)}"
+              f"; dW [R "
               f"{CV.DW32_RUN}, BN {pw.bn}, {pw.stages} stages, {pw.splits} "
               f"splits, cluster {pw.cluster}]): fwd {fms:.4f} ms "
               f"(plain {fpms:.4f}; bound {fbound:.4f}; conv alone "
@@ -2155,6 +2206,56 @@ def phase_fused_kernels_f32(device, reports):
               f"{F32_BOUNDARY_ULPS} ulps), dab/dabs x{rs:.2f} the plain's "
               f"error; bit-equal twice")
         del z, zs, g, out, got
+
+    # each tdx_f32 instantiation (DX32_INSTANCES) at the first 1x1 shape
+    # where the forward and the dX both take BN 128, against the plain
+    # version, launched twice and bit-equal
+    for n, h, w, ci, co, k in [sh for sh in CONV_SHAPES if sh[5] == 1
+                               and sh[3] % 128 == 0 and sh[4] % 128 == 0][:1]:
+        tag = f"{k}x{k} {ci}->{co} at {n}x{h}x{w}"
+        geo, sms = (1, 1, n * h * w), CV._sms(device.index or 0)
+        x, ab = act(n, ci, h, w), table(ci, 0.5, 1.5, 0.5)
+        wt = (torch.randn(co, ci, k, k, generator=gen)
+              / (k * k * ci) ** 0.5).to(device=device, dtype=f32)
+        y, ps = FU.conv_fwd_reference(x, ab, wt)
+        ey, es = FU.conv_fwd_reference(*up(x, ab, wt))
+        dy = act(n, co, h, w, 1e-2)
+        ds = torch.stack([torch.randn(co, generator=gen) * 1e-3,
+                          torch.randn(co, generator=gen) * 1e-4]).to(device)
+        plain = FU.conv_bwd_reference(x, ab, wt, y, dy, ds)
+        exact = FU.conv_bwd_reference(*up(x, ab, wt, y, dy, ds))
+        for bns, ovl in DX32_INSTANCES:
+            with dx32_choice(bns, ovl):
+                pf = CV.tma_staged_fwd_plan(*geo, ci, co, k, sms, esize=4)
+                px = CV.tma_bwd_dx_plan(*geo, ci, co, k, sms, 4, True,
+                                        esize=4)
+                what = f"tdx_f32 BN {pf.bn} overlap {int(ovl)} {tag}"
+                got = FU.conv_fwd(x, ab, wt)
+                again = FU.conv_fwd(x, ab, wt)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"fused fwd f32 {what}: two launches differ")
+                rf = max(f32_rule(f"fused fwd f32 y {what}", got[0], y,
+                                  ey)[1],
+                         *(f32_rule(f"fused fwd f32 s{i} {what}", got[1][i],
+                                    ps[i], es[i])[1] for i in range(2)))
+                got = FU.conv_bwd(x, ab, wt, y, dy, ds)
+                again = FU.conv_bwd(x, ab, wt, y, dy, ds)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"fused bwd f32 {what}: two launches differ")
+                rb = max(f32_rule(f"fused bwd f32 {nm} {what}", g_, p_,
+                                  x_)[1]
+                         for nm, g_, p_, x_ in (
+                             ("dx", got[0], plain[0], exact[0]),
+                             ("dab0", got[1][0], plain[1][0], exact[1][0]),
+                             ("dab1", got[1][1], plain[1][1], exact[1][1])))
+                del got, again
+                print(f"fused {what}: fwd {dx32_plan(attrs, True, pf)} y/s "
+                      f"x{rf:.2f} the plain's error, dX "
+                      f"{dx32_plan(attrs, False, px)} dx/dab x{rb:.2f}; "
+                      "bit-equal twice")
+        del x, y, dy, plain, exact
     print(f"fused float32 kernels a train step (each shape's ms times its "
           f"launches, {FUSED_CONV_STEP_LAUNCHES} each): fwd "
           f"{step['fwd']:.4f} ms (bound {step['fbound']:.4f}, conv alone "
@@ -3312,8 +3413,10 @@ def phase_ghost_kernels_f32(device, reports):
     on the input activated under its own band, and the backward's two
     products on it and dz), and each kernel's ms a train step.
     Each conv backward's dW plan is printed (R, BN, stages, splits,
-    cluster). max_abs_err: against float64, the boundary's out against
-    the plain version."""
+    cluster), and each conv's tdx_f32 plan (dx32_plan); then each tdx_f32
+    instantiation (DX32_INSTANCES) in conv3's forward and backward at one
+    unit shape, to the same rule, twice and bit-equal. max_abs_err:
+    against float64, the boundary's out against the plain version."""
     import torch
     from tensorflow_ocr_tpu_torch.ops import conv as CV
     from tensorflow_ocr_tpu_torch.ops import ghost as G
@@ -3361,6 +3464,8 @@ def phase_ghost_kernels_f32(device, reports):
 
     step = {k: 0.0 for k in ("fwd", "fbound", "falone", "bwd", "bbound",
                              "balone", "seam", "sbound", "bnd", "bndb")}
+    attrs = G._lib().ghost_tdx32_attrs
+    sms = CV._sms(device.index or 0)
 
     def timed(name, kernel, plain, flops, nbytes, peak):
         ms, pms = cuda_ms(kernel, 5), cuda_ms(plain, 2)
@@ -3391,7 +3496,9 @@ def phase_ghost_kernels_f32(device, reports):
             alone = conv_alone_ms(G._act(x, tab, gh), w, 5)
         for key, v in (("fwd", ms), ("fbound", bound), ("falone", alone)):
             step[key] += units * v
-        print(f"ghost_conv_fwd_f32 {what}: kernel {ms:.4f} ms, plain "
+        pf = CV.tma_staged_fwd_plan(n, h, wd, ci, co, k, sms, gh, esize=4)
+        print(f"ghost_conv_fwd_f32 {what} ({dx32_plan(attrs, True, pf)}): "
+              f"kernel {ms:.4f} ms, plain "
               f"{pms:.4f}, bound {bound:.4f}, conv alone (f32, TF32 off) "
               f"{alone:.4f}; max abs err against float64 {e:.3e} (x{q:.2f} "
               f"the plain's); {units} a step; bit-equal twice")
@@ -3431,9 +3538,11 @@ def phase_ghost_kernels_f32(device, reports):
         del dz
         for key, v in (("bwd", ms), ("bbound", bound), ("balone", alone)):
             step[key] += units * v
-        pw = CV.tma_dw_plan(n, h, wd, ci, co, k, CV._sms(device.index or 0),
-                            aux=4, esize=4, gh=gh)
-        print(f"ghost_conv_bwd_f32 {what} (dW [R {CV.DW32_RUN}, BN "
+        pw = CV.tma_dw_plan(n, h, wd, ci, co, k, sms, aux=4, esize=4, gh=gh)
+        px = CV.tma_bwd_dx_plan(n, h, wd, ci, co, k, sms, 4, True, gh,
+                                esize=4)
+        print(f"ghost_conv_bwd_f32 {what} (dX {dx32_plan(attrs, False, px)}"
+              f"; dW [R {CV.DW32_RUN}, BN "
               f"{pw.bn}, {pw.stages} stages, {pw.splits} splits, cluster "
               f"{pw.cluster}]): kernel {ms:.4f} ms, plain "
               f"{pms:.4f}, bound {bound:.4f}, conv alone (f32, TF32 off) "
@@ -3536,6 +3645,56 @@ def phase_ghost_kernels_f32(device, reports):
         conv_bwd(f"conv1 {tag}", o, None, gm1, z1, td1, w1, gh, edge=edge,
                  addend=addend, out="act")
         del o, z1, z2, z3, zs, dout, gm3, gm2, gm1, edge, addend
+        torch.cuda.empty_cache()
+
+    # each tdx_f32 instantiation (DX32_INSTANCES) in conv3's forward and
+    # backward (to gm) at the first unit shape whose db and co 128 divides,
+    # against the plain version, launched twice and bit-equal
+    for n, h, wd, ci, db, co, gh in [sh for sh in GHOST_SHAPES
+                                     if sh[4] % 128 == 0
+                                     and sh[5] % 128 == 0][:1]:
+        tag = f"conv3 {db}->{co} at {n}x{h}x{wd} gh {gh}"
+        nb = h // gh
+        x, w3 = act(n, db, h, wd), weight(co, db, 1)
+        tx = torch.stack([torch.empty(n, nb, db).uniform_(0.5, 1.5,
+                                                          generator=gen),
+                          torch.randn(n, nb, db, generator=gen) * 0.1],
+                         2).to(device)
+        g, z = act(n, co, h, wd, 1e-2), act(n, co, h, wd)
+        td = torch.stack([torch.empty(n, nb, co).uniform_(0.5, 1.5,
+                                                          generator=gen),
+                          torch.randn(n, nb, co, generator=gen) * 1e-2,
+                          torch.randn(n, nb, co, generator=gen) * 1e-3],
+                         2).to(device)
+        fwant = G.conv_fwd_reference(x, tx, w3, gh)
+        fexact = G.conv_fwd_reference(*up(x, tx, w3), gh)
+        args = (x, tx, g, z, td, w3, gh, None, None, "gm")
+        bwant = G.conv_bwd_reference(*args)
+        bexact = G.conv_bwd_reference(*up(x, tx, g, z, td, w3), gh, None,
+                                      None, "gm")
+        for bns, ovl in DX32_INSTANCES:
+            with dx32_choice(bns, ovl):
+                pf = CV.tma_staged_fwd_plan(n, h, wd, db, co, 1, sms, gh,
+                                            esize=4)
+                px = CV.tma_bwd_dx_plan(n, h, wd, db, co, 1, sms, 4, True,
+                                        gh, esize=4)
+                what = f"tdx_f32 BN {pf.bn} overlap {int(ovl)} {tag}"
+                got = twice(f"ghost fwd f32 {what}",
+                            lambda: G.conv_fwd(x, tx, w3, gh))
+                rf = max(f32_rule(f"ghost fwd f32 {nm} {what}", got[i],
+                                  fwant[i], fexact[i])[1]
+                         for i, nm in enumerate(("y", "s")))
+                got = twice(f"ghost bwd f32 {what}",
+                            lambda: G.conv_bwd(*args))
+                rb = max(f32_rule(f"ghost bwd f32 {nm} {what}", got[i],
+                                  bwant[i], bexact[i])[1]
+                         for i, nm in ((0, "gm"), (1, "sums")))
+                del got
+                print(f"ghost {what}: fwd {dx32_plan(attrs, True, pf)} y/s "
+                      f"x{rf:.2f} the plain's error, dX "
+                      f"{dx32_plan(attrs, False, px)} gm/sums x{rb:.2f}; "
+                      "bit-equal twice")
+        del x, g, z, fwant, fexact, bwant, bexact
         torch.cuda.empty_cache()
     print(f"ghost float32 kernels a train step (each call's ms times its "
           f"units in a step): conv_fwd {step['fwd']:.4f} ms (bound "
@@ -6075,7 +6234,9 @@ def phase_entries_presets_slim(root, device):
     """(b) presets 1-4 one step each through the train entry; (c) a slim
     resnet_v1_50 .npz of every name at its real shape: Trainer.setup takes
     SLIM_LOADED tensors, each equal to the file, then one step through the
-    entry with --pretrained_model_path."""
+    entry with --pretrained_model_path. The checks in this process run
+    here; returns a function that runs the entries' process and checks
+    it (phase 37 runs that beside the test and export entries)."""
     import numpy as np
     import torch
     from tensorflow_ocr_tpu_torch.config import Config
@@ -6120,19 +6281,22 @@ def phase_entries_presets_slim(root, device):
                   f"--pretrained_model_path={npz}",
                   f"--checkpoint_path={work}/slim",
                   "--train.calibrate_at_checkpoint=false"]])
-    out, _, dt = run_entries(runs, "presets 1-4 and the slim warm start")
-    losses = step_losses(out)
-    check(len(losses) == 5 and all(math.isfinite(v) for lv in losses
-                                   for v in lv),
-          f"entries: preset or slim losses {losses}")
-    check(f"warm-started {SLIM_LOADED} tensors" in out,
-          "slim: the entry did not report the schema's count")
-    print(f"entries: presets 1-4 (east_vgg16 512 b2, east_resnet50 512 "
-          f"b14, pixellink2s_vgg16 512 b14, east_resnet50 focal 768 b8 "
-          f"augmented) and the slim warm start ({SLIM_LOADED} tensors equal "
-          f"to the .npz after setup) one step each: losses {losses} "
-          f"({dt:.1f} s of process)")
-    shutil.rmtree(work, ignore_errors=True)
+    def run():
+        out, _, dt = run_entries(runs, "presets 1-4 and the slim warm start")
+        losses = step_losses(out)
+        check(len(losses) == 5 and all(math.isfinite(v) for lv in losses
+                                       for v in lv),
+              f"entries: preset or slim losses {losses}")
+        check(f"warm-started {SLIM_LOADED} tensors" in out,
+              "slim: the entry did not report the schema's count")
+        print(f"entries: presets 1-4 (east_vgg16 512 b2, east_resnet50 512 "
+              f"b14, pixellink2s_vgg16 512 b14, east_resnet50 focal 768 b8 "
+              f"augmented) and the slim warm start ({SLIM_LOADED} tensors "
+              f"equal to the .npz after setup) one step each: losses "
+              f"{losses} ({dt:.1f} s of process)")
+        shutil.rmtree(work, ignore_errors=True)
+
+    return run
 
 
 def phase_entries_export(ck, device):
@@ -6242,7 +6406,11 @@ def phase_entries_photo():
 
 def phase_entry_points(device):
     """Phase 37: the entry points (train, test, presets, the slim warm
-    start), the serving export and the photo tiers."""
+    start), the serving export and the photo tiers; the presets' process
+    beside the test and export ones, so the export's times read beside
+    it."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
     from tensorflow_ocr_tpu_torch.data.icdar import make_synthetic_dataset
 
@@ -6252,9 +6420,14 @@ def phase_entry_points(device):
     ck = scratch_dir("entries_ckpt_")
     torch.cuda.empty_cache()
     phase_entries_train(root, ck)
-    phase_entries_test(root, ck, device)
-    phase_entries_presets_slim(root, device)
-    phase_entries_export(ck, device)
+    # the presets' process runs beside the test and export entries (each
+    # process mostly host-bound): its checks are raised when it is joined
+    presets = phase_entries_presets_slim(root, device)
+    with ThreadPoolExecutor(1) as pool:
+        running = pool.submit(presets)
+        phase_entries_test(root, ck, device)
+        phase_entries_export(ck, device)
+        running.result()
     phase_entries_photo()
     shutil.rmtree(ck, ignore_errors=True)
     shutil.rmtree(root, ignore_errors=True)

@@ -2,8 +2,8 @@
 """Probe of the fused arm's float32 kernels on one CUDA GPU.
 
     python3 scripts/fused_f32_probe.py [--arm] [--graph] [--faults]
-                                       [--split] [--sweep] [--rate]
-                                       [--tree DIR]
+                                       [--split] [--sweep] [--sweep-dw]
+                                       [--rate] [--tree DIR]
 
 1. builds fused_conv.cu, fused_boundary.cu and conv_dw.cu with -Xptxas
    -v, all at once, and prints the registers, shared memory and spills of
@@ -28,11 +28,17 @@
    its dW and its dX kernels' device ms apart (torch.profiler: the dW
    kernel, tdw_f32_tr or an older checkout's tdw_f32, and sum_tables_wide;
    tdx_f32, reduce_parts_wide and the weight's tf32_split_rows), summed
-   over the shapes and over a train step (each shape's launches);
-7. with --sweep (this checkout's kernels only): phase 11b at each run
-   length the dW takes (ops/conv.py DW32_RUN 1, 2, 4), its checks
-   recorded rather than raised: the worst dW error ratio to the plain
-   version's and the backward's ms over the shapes at each.
+   over the shapes and over a train step (each shape's launches), beside
+   the dX's own bound (fused_dx_bounds);
+7. with --sweep (this checkout's kernels only): the float32 forward and
+   dX kernel (tdx_f32, with its sums' reduction and the weight's split)
+   at every conv shape of phase 11b under each of tdx_f32's choices
+   (ops/conv.py DX32_BN (64,) or (128, 64), DX32_OVERLAP, DX32_RESIDENT):
+   device ms by torch.profiler, a line a shape, and each choice's sum
+   over the shapes and over a train step; with --sweep-dw, phase 11b at
+   each run length the dW takes (ops/conv.py DW32_RUN 1, 2, 4), its
+   checks recorded rather than raised: the worst dW error ratio to the
+   plain version's and the backward's ms over the shapes at each.
 
 8. with --rate: the float32 fused arm's eager train img/s alone (3
    steps through Trainer.run from the seeded state, then chip_smoke.py's
@@ -93,6 +99,29 @@ def ptxas_report():
                 sass_counts(K, K.BUILD_DIR / f"{src}_ptxas.so", src)
 
 
+def dx_bound(c, m, ci, co, k, nbytes):
+    """The float32 dX's least time on the card (ms): its operations (2 m
+    k^2 ci co, split TF32) over chip_smoke's PEAK_F32_SPLIT or ``nbytes``
+    over PEAK_HBM, the larger."""
+    return 1e3 * max(2 * m * k * k * ci * co / c.PEAK_F32_SPLIT,
+                     nbytes / c.PEAK_HBM)
+
+
+def fused_dx_bounds(c):
+    """The fused float32 dX's bound over phase 11b's shapes and over a
+    train step (each shape's launches): it reads dy, y and x once and
+    writes dx (f32), reads the weight, ds and the table, writes dab."""
+    counts = c.fused_shape_counts()
+    over = step = 0.0
+    for n, h, w, ci, co, k in c.CONV_SHAPES:
+        m = n * h * w
+        b = dx_bound(c, m, ci, co, k, 4 * m * (2 * co + 2 * ci)
+                     + 4 * k * k * ci * co + 8 * (ci + co) + 8 * ci)
+        over += b
+        step += counts[(n, h, w, ci, co, k)] * b
+    return over, step
+
+
 def split(c, device):
     """Step 6 of the module docstring."""
     import torch
@@ -123,16 +152,89 @@ def split(c, device):
               f"({launches} a step): device dW {ms['dW']:.4f} ms, dX "
               f"{ms['dX']:.4f} ms")
         del x, y, dy
+    bover, bstep = fused_dx_bounds(c)
     print(f"split fused bwd f32 over the {len(c.CONV_SHAPES)} shapes: dW "
-          f"{tot['dW'][0]:.4f} ms, dX {tot['dX'][0]:.4f} ms; a train step: "
-          f"dW {tot['dW'][1]:.4f} ms, dX {tot['dX'][1]:.4f} ms; "
-          f"{c.card_line()}")
+          f"{tot['dW'][0]:.4f} ms, dX {tot['dX'][0]:.4f} ms (bound "
+          f"{bover:.4f}); a train step: dW {tot['dW'][1]:.4f} ms, dX "
+          f"{tot['dX'][1]:.4f} ms (bound {bstep:.4f}); {c.card_line()}")
+
+
+# tdx_f32 and the launches around it: its sums' reductions and the
+# weight's split
+DX32_PARTS = {"tdx": ("tdx_f32", "reduce_parts_wide", "reduce_groups_wide",
+                      "tf32_split_rows")}
+# tdx_f32's choices the sweep times: (ops/conv.py DX32_BN, DX32_OVERLAP,
+# DX32_RESIDENT)
+DX32_CHOICES = [(bn, ovl, res) for bn in ((64,), (128, 64))
+                for ovl in (False, True) for res in (False, True)]
+
+
+def dx_sweep(c, calls):
+    """Step 7 of the module docstring (and of ghost_f32_probe.py's): calls
+    are (label, launches a step, fn) with fn one call of a float32 forward
+    or backward; tdx_f32's device ms in each under each choice, a line a
+    call, then each choice's sums."""
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+
+    saved = CV.DX32_BN, CV.DX32_OVERLAP, CV.DX32_RESIDENT
+    tot = {ch: [0.0, 0.0] for ch in DX32_CHOICES}
+    try:
+        for label, launches, fn in calls:
+            row = []
+            for ch in DX32_CHOICES:
+                CV.DX32_BN, CV.DX32_OVERLAP, CV.DX32_RESIDENT = ch
+                CV.tma_bwd_dx_plan.cache_clear()
+                ms = c.kernel_device_ms(fn, DX32_PARTS)["tdx"]
+                tot[ch][0] += ms
+                tot[ch][1] += launches * ms
+                row.append(f"{ms:.4f}")
+            print(f"sweep tdx_f32 {label} ({launches} a step): "
+                  + " ".join(row))
+    finally:
+        CV.DX32_BN, CV.DX32_OVERLAP, CV.DX32_RESIDENT = saved
+        CV.tma_bwd_dx_plan.cache_clear()
+    print("sweep tdx_f32 columns: " + " ".join(
+        f"bn{ch[0][0]}/ovl{int(ch[1])}/res{int(ch[2])}"
+        for ch in DX32_CHOICES))
+    for ch, (over, step) in tot.items():
+        print(f"sweep tdx_f32 BN {ch[0]} overlap {ch[1]} resident {ch[2]}: "
+              f"{over:.4f} ms over the calls, {step:.4f} ms a train step; "
+              f"{c.card_line()}")
+
+
+def fused_calls(c, device):
+    """(label, launches a step, fn) of the float32 fused forward and
+    backward at every conv shape of phase 11b (random inputs made on the
+    card from a seed)."""
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import fused as FU
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    counts = c.fused_shape_counts()
+    cl = torch.channels_last
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device).mul_(scale)
+
+    for n, h, w, ci, co, k in c.CONV_SHAPES:
+        launches = counts[(n, h, w, ci, co, k)]
+        x = rand(n, ci, h, w).contiguous(memory_format=cl)
+        y = rand(n, co, h, w).contiguous(memory_format=cl)
+        dy = rand(n, co, h, w, scale=1e-2).contiguous(memory_format=cl)
+        ab = torch.stack([rand(ci).abs_().add_(0.5), rand(ci, scale=0.5)])
+        ds = torch.stack([rand(co, scale=1e-3), rand(co, scale=1e-4)])
+        wt = rand(co, ci, k, k, scale=(k * k * ci) ** -0.5)
+        what = f"{k}x{k} {ci}->{co} at {n}x{h}x{w}"
+        yield (f"fused fwd {what}", launches,
+               lambda: FU.conv_fwd(x, ab, wt))
+        yield (f"fused dX {what}", launches,
+               lambda: FU.conv_bwd(x, ab, wt, y, dy, ds))
 
 
 def sweep(c, device, phase, kernels, bwd):
-    """Step 7 of the module docstring (and of ghost_f32_probe.py's): the
-    phase at each run length, chip_smoke's check and f32_rule wrapped so
-    that a failed check is recorded and the dW's worst ratio kept."""
+    """--sweep-dw (and ghost_f32_probe.py's): the phase at each run
+    length, chip_smoke's check and f32_rule wrapped so that a failed check
+    is recorded and the dW's worst ratio kept."""
     from tensorflow_ocr_tpu_torch.ops import conv as CV
 
     saved = CV.DW32_RUN, c.check, c.f32_rule
@@ -181,6 +283,7 @@ def main() -> int:
     ap.add_argument("--faults", action="store_true")
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--sweep-dw", action="store_true")
     ap.add_argument("--rate", action="store_true")
     ap.add_argument("--tree", default=None)
     args = ap.parse_args()
@@ -199,9 +302,11 @@ def main() -> int:
     if args.tree is None:
         ptxas_report()
     c.build_all()
-    if args.sweep:
+    if args.sweep_dw:
         sweep(c, device, c.phase_fused_kernels_f32, c.FUSED_F32_KERNELS,
               "fused_conv_bwd_f32")
+    if args.sweep:
+        dx_sweep(c, fused_calls(c, device))
     reports = {n: {} for n in c.FUSED_F32_KERNELS}
     c.phase_fused_kernels_f32(device, reports)
     if args.split:

@@ -2,8 +2,8 @@
 """Probe of the ghost unit's float32 kernels on one CUDA GPU.
 
     python3 scripts/ghost_f32_probe.py [--arm] [--graph] [--faults]
-                                       [--split] [--sweep] [--rate]
-                                       [--tree DIR]
+                                       [--split] [--sweep] [--sweep-dw]
+                                       [--rate] [--tree DIR]
 
 1. builds ghost_unit.cu with -Xptxas -v and prints the registers, shared
    memory and spills of each float32 kernel (tdx_f32, the dW tdw_f32_tr,
@@ -31,11 +31,15 @@
    device ms apart (torch.profiler: the dW kernel, tdw_f32_tr or an older
    checkout's tdw_f32, and sum_tables_wide; tdx_f32, its sums' reductions
    and the weight's tf32_split_rows), summed over the calls and over a
-   train step (each shape's units);
-7. with --sweep (this checkout's kernels only): phase 14b at each run
-   length the dW takes (ops/conv.py DW32_RUN 1, 2, 4), its checks
-   recorded rather than raised: the worst dW error ratio to the plain
-   version's and the conv backward's ms at each.
+   train step (each shape's units), and the dX's own bound
+   (ghost_dx_bound);
+7. with --sweep (this checkout's kernels only): tdx_f32 in each float32
+   conv forward and backward of step 6's calls (and each unit's forwards)
+   under each of tdx_f32's choices, as fused_f32_probe.py's --sweep; with
+   --sweep-dw, phase 14b at each run length the dW takes (ops/conv.py
+   DW32_RUN 1, 2, 4), its checks recorded rather than raised: the worst
+   dW error ratio to the plain version's and the conv backward's ms at
+   each.
 
 8. with --rate: the float32 ghost arm's eager train img/s alone (3
    steps through Trainer.run from the seeded state, then chip_smoke.py's
@@ -48,6 +52,7 @@ step 1 (the resource report is this checkout's). Exits 2 without CUDA.
 """
 
 import argparse
+import functools
 import os
 import subprocess
 import sys
@@ -88,17 +93,18 @@ def ptxas_report():
     sass_counts(K, out, "ghost_unit")
 
 
-def split(c, device):
-    """Step 6 of the module docstring."""
+def unit_calls(c, device, gen):
+    """(label, units a step, "fwd" or "bwd", the arguments) of each
+    float32 conv forward of a unit (G.conv_fwd: z1, the 3x3's z2, z3 and a
+    projecting shortcut's) and each conv backward of step 6 (G.conv_bwd)
+    at the 4 unit shapes, the inputs made from gen on its device."""
     import torch
-    from tensorflow_ocr_tpu_torch.ops import ghost as G
 
-    gen = torch.Generator().manual_seed(22)
-    tot = {part: [0.0, 0.0] for part in F32_BWD_PARTS}
     cl = torch.channels_last
 
     def rand(*shape, scale=1.0):
-        return torch.randn(*shape, generator=gen).mul_(scale).to(device)
+        return torch.randn(*shape, generator=gen, device=gen.device).mul_(
+            scale).to(device)
 
     for (n, h, wd, ci, db, co, gh), units in zip(c.GHOST_SHAPES,
                                                  c.GHOST_SHAPE_UNITS):
@@ -120,6 +126,11 @@ def split(c, device):
         def wt(cout, cin, k):
             return rand(cout, cin, k, k, scale=(k * k * cin) ** -0.5)
 
+        what = f"{ci}/{db}/{co} at {n}x{h}x{wd} gh {gh}"
+        for name, cin, cout, k in (("z1", ci, db, 1), ("z2", db, db, 3),
+                                   ("z3", db, co, 1)):
+            yield (f"fwd {name} {what}", units, "fwd",
+                   (act(cin), tx(cin), wt(cout, cin, k), gh))
         calls = [("conv3", (act(db), tx(db), act(co, 1e-2), act(co), td(co),
                             wt(co, db, 1), gh)),
                  ("conv2", (act(db), tx(db), act(db, 1e-2), act(db),
@@ -132,17 +143,56 @@ def split(c, device):
             calls.append(("shortcut", (act(ci), None, act(co, 1e-2),
                                        act(co), td(co), wt(co, ci, 1), gh,
                                        None, None, "f32")))
-        for what, args in calls:
-            ms = c.kernel_device_ms(lambda: G.conv_bwd(*args),
-                                    F32_BWD_PARTS)
-            for part, v in ms.items():
-                tot[part][0] += v
-                tot[part][1] += units * v
-            print(f"split ghost bwd f32 {what} {ci}/{db}/{co} at "
-                  f"{n}x{h}x{wd} gh {gh} ({units} a step): device dW "
-                  f"{ms['dW']:.4f} ms, dX {ms['dX']:.4f} ms")
+        if ci != co:
+            yield (f"fwd shortcut {what}", units, "fwd",
+                   (act(ci), None, wt(co, ci, 1), gh))
+        for name, args in calls:
+            yield f"bwd {name} {what}", units, "bwd", args
         del calls
         torch.cuda.empty_cache()
+
+
+def ghost_dx_bound(c, args):
+    """A float32 ghost conv backward's dX bound (fused_f32_probe.py
+    dx_bound) from G.conv_bwd's arguments: it reads z and g (f32), x for
+    gm or the addend, the seam rows, the weight and the band tables once,
+    and writes dx (f32) and gm's band sums."""
+    from fused_f32_probe import dx_bound
+
+    x, tx, g, z, td, w, gh, edge, addend, out = (
+        *args, *(None, None, "gm")[len(args) - 7:])
+    n, ci, h, wd = x.shape
+    co, k = w.shape[0], w.shape[-1]
+    m, nbt = n * h * wd, n * (h // gh)
+    nbytes = (8 * m * co + 4 * m * ci * (1 + (out == "gm")
+                                        + (addend is not None))
+              + 4 * k * k * ci * co + (0 if edge is None else 4 * edge.numel())
+              + 4 * nbt * (3 * co + (4 * ci if out == "gm" else 0)))
+    return dx_bound(c, m, ci, co, k, nbytes)
+
+
+def split(c, device):
+    """Step 6 of the module docstring."""
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import ghost as G
+
+    tot = {part: [0.0, 0.0] for part in F32_BWD_PARTS}
+    bound = [0.0, 0.0]
+    for what, units, kind, args in unit_calls(
+            c, device, torch.Generator().manual_seed(22)):
+        if kind != "bwd":
+            continue
+        ms = c.kernel_device_ms(lambda: G.conv_bwd(*args), F32_BWD_PARTS)
+        for part, v in ms.items():
+            tot[part][0] += v
+            tot[part][1] += units * v
+        b = ghost_dx_bound(c, args)
+        bound[0] += b
+        bound[1] += units * b
+        print(f"split ghost {what} f32 ({units} a step): device dW "
+              f"{ms['dW']:.4f} ms, dX {ms['dX']:.4f} ms")
+    print(f"split ghost bwd f32 dX bound: {bound[0]:.4f} ms over the "
+          f"calls, {bound[1]:.4f} a train step")
     print(f"split ghost bwd f32 over the calls: dW {tot['dW'][0]:.4f} ms, "
           f"dX {tot['dX'][0]:.4f} ms; a train step: dW "
           f"{tot['dW'][1]:.4f} ms, dX {tot['dX'][1]:.4f} ms; "
@@ -156,6 +206,7 @@ def main() -> int:
     ap.add_argument("--faults", action="store_true")
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--sweep-dw", action="store_true")
     ap.add_argument("--rate", action="store_true")
     ap.add_argument("--tree", default=None)
     args = ap.parse_args()
@@ -174,11 +225,21 @@ def main() -> int:
     if args.tree is None:
         ptxas_report()
     c.build_all()
-    if args.sweep:
+    if args.sweep_dw:
         from fused_f32_probe import sweep
 
         sweep(c, device, c.phase_ghost_kernels_f32, c.GHOST_F32_KERNELS,
               "ghost_conv_bwd_f32")
+    if args.sweep:
+        from fused_f32_probe import dx_sweep
+        from tensorflow_ocr_tpu_torch.ops import ghost as G
+
+        gen = torch.Generator(device=device).manual_seed(24)
+        dx_sweep(c, ((what, units,
+                      functools.partial(G.conv_fwd if kind == "fwd"
+                                        else G.conv_bwd, *args))
+                     for what, units, kind, args in unit_calls(c, device,
+                                                               gen)))
     reports = {n: {} for n in c.GHOST_F32_KERNELS}
     c.phase_ghost_kernels_f32(device, reports)
     if args.split:

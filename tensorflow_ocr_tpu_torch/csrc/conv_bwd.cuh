@@ -80,7 +80,10 @@
 //
 // Float32 (the fused transforms, and the ghost unit's banded ones):
 // tdx_f32 (the forward and dX, each A value put through the transform in
-// registers and split into TF32 hi and lo there, wgmma.cuh WgmmaTf32R) and
+// registers and split into TF32 hi and lo there, wgmma.cuh WgmmaTf32R; each
+// product's fragment prepared while the previous product's wgmmas run, BN
+// 128 where the columns allow, a 1x1's weight resident where it fits; the
+// column sums reduced a tile at a time) and
 // the dW tdw_f32_tr (TF32 wgmma: T_x(X)^T as the register A fragment, each
 // value through T_x before its split; T_dy formed as the consumers
 // transpose dY and its aux box once a stage into K-major hi and lo tiles;
@@ -1712,41 +1715,55 @@ __global__ void reduce_groups_wide(const float* __restrict__ part,
 
 // ------------------------------------------------ dX and forward, f32
 //
-// tdx_f32: tdx's products in float32: x, y, dy, dx and the weight f32. The same persistent
-// tiles (128 pixels x BN columns, each CTA a contiguous run of pixel tiles
-// in one column), ring, halo mode and epilogue slots, with a K step of 32
-// contracted channels (one 128-byte f32 row) and the product as split TF32
-// (wgmma.cuh), as conv_fwd.cu's conv_fwd_tma_f32: the weight comes split,
-// its hi and lo boxes from a (2, rows, K) copy that split_tf32 writes
-// before the launch (TF32 wgmma takes K-major operands only, and a split
-// needs both halves of A). Each warp loads its 16 rows of the A box by
-// ldmatrix (the TF32 fragment has the bf16 one's bytes), puts each value
-// through the transform there (Tr::k8: the forward's relu(x*a + b), the
-// backward's dy_eff with y's box loaded alike), zero where the pixel read
-// lies outside the image (TMA's zero fill would give relu(b) or ds0), and
-// splits it in registers; twelve m64nBNk8 products (4 k8 steps of lo.hi',
-// then hi.lo', then hi.hi') go to a fresh accumulator, waited for and added
-// to the tile's f32 sum. A 3x3 in halo mode loads one halo box (and its y
-// box) a ky and channel box and reads it three times, its rows shifted by
-// kx, each kx a product of its own with its own weight boxes: no rewrite
-// of the box in shared memory. BN is 64: the per-CTA column sums stay in
-// registers beside the accumulator and the sum. The epilogue as tdx's in
-// f32: the forward stores y = sum (out_kind 4) and sums [sum, sum^2]; the
-// backward reads x's f32 box from its epilogue slot (by TMA), masks, stores
-// dx = gm*a over it (out_kind 3) and sums [gm*x, gm]; the slot's 32-column
-// sub-boxes are stored by TMA from a thread of their own, and the CTA's
-// sums go to one partial entry a CTA, added in order in double by
-// reduce_parts_wide. No atomics: two launches are bit-equal.
+// tdx_f32: tdx's products in float32: x, y, dy, dx and the weight f32. The
+// same persistent tiles (128 pixels x BN columns, BN 64 or 128, each CTA a
+// contiguous run of pixel tiles in one column), ring, halo mode and
+// epilogue slots, with a K step of 32 contracted channels (one 128-byte f32
+// row) and the product as split TF32 (wgmma.cuh), as conv_fwd.cu's
+// conv_fwd_tma_f32: the weight comes split, its hi and lo boxes from a (2,
+// rows, K) copy that split_tf32 writes before the launch (TF32 wgmma takes
+// K-major operands only, and a split needs both halves of A); a 1x1's
+// weight, hi and lo, stays resident in shared memory where it fits beside
+// the ring (the plan's `resident`), else each slot carries its boxes.
+//
+// A product is one K step (in halo mode one kx of it: the slot's halo box
+// read three times, its rows shifted by kx, each kx with its own weight
+// boxes). Its A operand is prepared in registers: each warp loads its 16
+// rows of the A box by ldmatrix (the TF32 fragment has the bf16 one's
+// bytes), puts each value through the transform there (Tr::k8: the
+// forward's relu(x*a + b), the backward's dy_eff with y's box loaded
+// alike), zero where the pixel read lies outside the image (TMA's zero fill
+// would give relu(b) or ds0), and splits it into TF32 hi and lo (Frag32).
+// Twelve m64nBNk8 products (4 k8 steps of lo.hi', then hi.lo', then hi.hi')
+// go to a fresh accumulator, which is waited for and added to the tile's
+// f32 sum. With OVL (the plan's `overlap`) each consumer warpgroup keeps
+// two fragment sets: it starts product p from one and, while those
+// products run, prepares product p + 1 (the next tile's first, at a tile's
+// end) into the other; then it waits, folds the accumulator into the sum
+// and releases the slot that p was the last product of. Without OVL the
+// preparation follows the wait. A tile has an even number of products (the
+// contracted channels are a multiple of 64), so the sets alternate in a
+// fixed pattern and every index into them is known to the compiler.
+//
+// The epilogue as tdx's in f32: the forward stores y = sum (out_kind 4) and
+// sums [sum, sum^2]; the fused backward reads x's f32 box from its epilogue
+// slot (by TMA), masks, stores dx = gm*a over it (out_kind 3) and sums
+// [gm*x, gm]; the slot's 32-column sub-boxes are stored by TMA from a
+// thread of their own. Every tile's column sums are reduced in a fixed
+// order (tile_sums: each thread its two rows, the warp's 8 row slots,
+// then the 8 warps in order): a banded transform's go to one entry a tile
+// (its row tile) of part, added a band's in order in double by
+// reduce_groups_wide; the fused transforms' are added in double in shared
+// memory over the CTA's tiles in order, then go to one entry a CTA, added
+// in order in double by reduce_parts_wide. No atomics: two launches are
+// bit-equal.
 // A banded transform (the ghost unit's) keys the tables by the tile's band
-// (a tile lies in one band: the box height divides gh) and sums per band:
-// the forward's over each run of the CTA's tiles in one band (in registers,
-// written at the run's last tile, zero entries at the others), the dX's gm
-// one entry a tile; reduce_groups_wide adds a band's entries in order in
-// double. Its dX ends as gm (masked under the tile's band's (a, b), stored
-// by TMA over x's f32 box), or as dX + the f32 addend (loaded by TMA into
-// the epilogue slot) or dX alone; a 3x3 dX reads only its output row's
-// band (a.band_px), and the seam term (Tr::edge_row) is added to dz on a
-// band's first and last rows before the split.
+// (a tile lies in one band: the box height divides gh) and sums per band.
+// Its dX ends as gm (masked under the tile's band's (a, b), stored by TMA
+// over x's f32 box), or as dX + the f32 addend (loaded by TMA into the
+// epilogue slot) or dX alone; a 3x3 dX reads only its output row's band
+// (a.band_px), and the seam term (Tr::edge_row) is added to dz on a band's
+// first and last rows before the split.
 
 // The f32 forward's transform (tdx_f32, out_kind 4): x -> relu(x*a + b),
 // (a, b) from the (2, c) table tab; the sums those of the f32 product.
@@ -1776,7 +1793,7 @@ struct ActTr32 {
 // The ghost forward's transform in float32 (tdx_f32, out_kind 4, banded):
 // x -> relu(x*a + b) under the table (keys, 2, c) of the tile's band (a
 // 3x3's halo rows take it too), x as it is where tab is null; the sums a
-// band's, of the f32 y, over each run of a CTA's tiles in one band.
+// band's, of the f32 y, one entry a tile.
 struct BandActTr32 {
   static constexpr int kAux = 0;
   static constexpr bool kFwd = true;
@@ -1807,10 +1824,14 @@ struct BandActTr32 {
   }
 };
 
+// Bytes of a tdx_f32 ring slot: the A box (halo mode: the (wb + 2) x hb
+// halo box), its aux box, and the weight's hi and lo boxes of each kx
+// unless the weight is resident.
 __host__ __device__ constexpr int dx32_stage_bytes(int bn, bool halo, int wb,
-                                                   int hb, bool aux) {
+                                                   int hb, bool aux,
+                                                   bool resident) {
   return halo ? round1k((wb + 2) * hb * 128) * (aux ? 2 : 1) + 6 * bn * 128
-              : ABOX * (aux ? 2 : 1) + 2 * bn * 128;
+              : ABOX * (aux ? 2 : 1) + (resident ? 0 : 2 * bn * 128);
 }
 
 // Byte offset of output element (row, col) of a warpgroup's 64-row half
@@ -1821,42 +1842,83 @@ __device__ __forceinline__ uint32_t staged_offset32(int row, int col) {
          ((((col >> 2) ^ row) & 7) << 4) + (col & 3) * 4;
 }
 
-// A banded tdx_f32's column sums of one run of tiles (the forward's band
-// run, or gm's tile) into entry `entry` of part, in a fixed order: the
-// warp's 16 row slots by shuffles, then the 8 warps; the thread's sums
-// zeroed for the next run. Every consumer thread calls it.
+// tdx_f32's column sums of one tile in a fixed order: each thread's two
+// rows (cs0, cs1), the warp's 8 row slots (the lanes of one t4), then the
+// 8 warps in order. The 8 lanes add by a butterfly that keeps half of a
+// lane's values at each of its three levels (lanes xor 4, 8, 16): each
+// level adds the pairs that xor shuffles of every value would add, so the
+// bits are those of the shuffle tree, with a quarter of its shuffles.
+// Returns value ct's sum (ct < 2 BN: [sum cs0, sum cs1] of column ct % BN;
+// 0 elsewhere). Every consumer thread calls it.
 template <int BN>
-__device__ __forceinline__ void flush_band_sums(
-    float (&cs0)[BN / 8][2], float (&cs1)[BN / 8][2], float* red,
-    float* part, size_t entry, int ci, int n0, int wg, int warp, int lane,
-    int ct) {
-  float* wred = red + (wg * 4 + warp) * 2 * BN;
+__device__ __forceinline__ float tile_sums(float (&cs0)[BN / 8][2],
+                                           float (&cs1)[BN / 8][2],
+                                           float* red, int wg, int warp,
+                                           int lane, int ct) {
+  constexpr int V = BN / 2;  // a thread's values: cs0, then cs1
+  float v[V];
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
     for (int e3 = 0; e3 < 2; ++e3) {
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        cs0[j][e3] += __shfl_xor_sync(0xffffffffu, cs0[j][e3], o);
-        cs1[j][e3] += __shfl_xor_sync(0xffffffffu, cs1[j][e3], o);
-      }
-      if (lane < 4) {
-        wred[8 * j + 2 * lane + e3] = cs0[j][e3];
-        wred[BN + 8 * j + 2 * lane + e3] = cs1[j][e3];
-      }
-      cs0[j][e3] = cs1[j][e3] = 0.f;
+      v[2 * j + e3] = cs0[j][e3];
+      v[V / 2 + 2 * j + e3] = cs1[j][e3];
     }
+  const int g = lane >> 2;
+  // level 1 (g ^ 1): the lane keeps the half of bit 0 of g
+  const bool b0 = g & 1, b1 = g & 2, b2 = g & 4;
+  float w1[V / 2], w2[V / 4], w3[V / 8];
+#pragma unroll
+  for (int i = 0; i < V / 2; ++i)
+    w1[i] = (b0 ? v[i + V / 2] : v[i]) +
+            __shfl_xor_sync(0xffffffffu, b0 ? v[i] : v[i + V / 2], 4);
+#pragma unroll
+  for (int i = 0; i < V / 4; ++i)
+    w2[i] = (b1 ? w1[i + V / 4] : w1[i]) +
+            __shfl_xor_sync(0xffffffffu, b1 ? w1[i] : w1[i + V / 4], 8);
+#pragma unroll
+  for (int i = 0; i < V / 8; ++i)
+    w3[i] = (b2 ? w2[i + V / 8] : w2[i]) +
+            __shfl_xor_sync(0xffffffffu, b2 ? w2[i] : w2[i + V / 8], 16);
+  // the lane's values: flat indices i + (bits of g) * V / 8 of v
+  float* wred = red + (wg * 4 + warp) * 2 * BN;
+  const int f0 = (b0 ? V / 2 : 0) + (b1 ? V / 4 : 0) + (b2 ? V / 8 : 0);
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < V / 8; ++i) {
+    const int f = f0 + i, r = f % (V / 2);
+    wred[(f / (V / 2)) * BN + 8 * (r / 2) + t2 + (r & 1)] = w3[i];
+  }
   bar_sync(1, CONSUMERS);
+  float s = 0.f;
   if (ct < 2 * BN) {
-    float s = 0.f;
 #pragma unroll
     for (int w8 = 0; w8 < 8; ++w8) s += red[w8 * 2 * BN + ct];
-    part[(entry * 2 + ct / BN) * ci + n0 + ct % BN] = s;
   }
   bar_sync(1, CONSUMERS);  // red is read before it is written again
+  return s;
 }
 
-template <int BN, class Tr>
+// A consumer warpgroup's A operand of one tdx_f32 product, prepared in
+// registers: the TF32 hi and lo fragments of its four k8 steps, the low
+// word of the descriptor of its weight's hi box (the lo box follows it;
+// the high word is every box's), and the ring slot that the product's
+// retirement releases (-1: a later product of the slot reads it).
+struct Frag32 {
+  uint32_t ah[4][4], al[4][4];
+  uint32_t dhi;
+  int rel;
+};
+
+// The next product a tdx_f32 consumer prepares: the CTA's i-th tile, its
+// pixel box (and band), its K step k (channel box, tap; halo mode: ky),
+// its kx in halo mode, and its ring slot and phase.
+struct Pos32 {
+  int i, k, kx, st, ph, cbox, tap;
+  int img, x0, y0, key, band_y0;
+};
+
+template <int BN, bool OVL, class Tr>
 __global__ void __launch_bounds__(THREADS, 1)
 tdx_f32(const __grid_constant__ CUtensorMap mdy,
         const __grid_constant__ CUtensorMap maux,
@@ -1873,14 +1935,21 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
   const int hrows = (a.wb + 2) * a.hb;  // rows of a halo box
   const int abox = a.halo ? round1k(hrows * 128) : ABOX;
-  const int stage_bytes = dx32_stage_bytes(BN, a.halo, a.wb, a.hb, AUX);
+  const int stage_bytes =
+      dx32_stage_bytes(BN, a.halo, a.wb, a.hb, AUX, a.resident);
   const int w_at = abox * (AUX ? 2 : 1);  // the A box, its y box, weights
-  uint8_t* eslot = smem + a.stages * stage_bytes;
-  // the 8 warps' column sums, then the CTA's mask (a, b)
+  // the ring, the resident weight (K step k's hi and lo boxes at 2k, 2k +
+  // 1), the epilogue slots
+  uint8_t* wres = smem + a.stages * stage_bytes;
+  uint8_t* eslot = wres + (a.resident ? a.ksteps * 2 * BBOX : 0);
+  // the 8 warps' column sums, then the CTA's mask (a, b), then the fused
+  // transforms' running sums of the CTA's tiles
   float* red = reinterpret_cast<float*>(eslot + a.eslots * 2 * HALF);
-  uint64_t* full = reinterpret_cast<uint64_t*>(red + 9 * 2 * BN);
+  double* run = reinterpret_cast<double*>(red + 9 * 2 * BN);
+  uint64_t* full = reinterpret_cast<uint64_t*>(run + 2 * BN);
   uint64_t* empty = full + a.stages;
-  uint64_t* efull = empty + a.stages + 1;
+  uint64_t* wbar = empty + a.stages;
+  uint64_t* efull = wbar + 1;
   uint64_t* edone = efull + 3;
 
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
@@ -1892,6 +1961,7 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
       mbar_init(&full[i], 1);
       mbar_init(&empty[i], 2);
     }
+    mbar_init(wbar, 1);
     for (int i = 0; i < 3; ++i) {
       mbar_init(&efull[i], 1);
       mbar_init(&edone[i], 2);
@@ -1942,6 +2012,15 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
       prefetch_map(&mdy);
       if (AUX) prefetch_map(&maux);
       prefetch_map(&mw);
+      if (a.resident) {
+        // the grid is a multiple of the column tiles: every tile of this
+        // CTA has the column of its first
+        mbar_expect_tx(wbar, a.ksteps * 2 * BBOX);
+        for (int k = 0; k < a.ksteps; ++k)
+          for (int part = 0; part < 2; ++part)
+            tma_load_4d(wres + (2 * k + part) * BBOX, &mw, wbar,
+                        (k % a.cb) * 32, k / a.cb, n0, part);
+      }
       const int tx_bytes = a.halo ? hrows * 128 * (AUX ? 2 : 1) + 6 * BBOX
                                   : stage_bytes;
       // the ring slot and its phase, and the K step's channel box and tap
@@ -1959,10 +2038,12 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
           const int sy = a.halo ? y0 + tap - 1 : y0 + ky;
           tma_load_4d(buf, &mdy, &full[st], c0, sx, sy, img);
           if (AUX) tma_load_4d(buf + abox, &maux, &full[st], c0, sx, sy, img);
-          for (int j = 0; j < (a.halo ? 3 : 1); ++j)
-            for (int part = 0; part < 2; ++part)
-              tma_load_4d(buf + w_at + (2 * j + part) * BBOX, &mw, &full[st],
-                          c0, a.halo ? 3 * tap + j : tap, col * BN, part);
+          if (!a.resident)
+            for (int j = 0; j < (a.halo ? 3 : 1); ++j)
+              for (int part = 0; part < 2; ++part)
+                tma_load_4d(buf + w_at + (2 * j + part) * BBOX, &mw,
+                            &full[st], c0, a.halo ? 3 * tap + j : tap,
+                            col * BN, part);
           if ((c0 += 32) == 32 * a.cb) {
             c0 = 0;
             ++tap;
@@ -2012,10 +2093,7 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
   } else {
     // ----------------------------------------------------------- consumers
     regs_grow<232>();
-    float acc[BN / 2] = {}, sum[BN / 2];
-    // the thread's column sums over its rows of every tile, in tile order,
-    // reduced across the CTA once at its end
-    float cs0[BN / 8][2] = {}, cs1[BN / 8][2] = {};
+    float acc[BN / 2], sum[BN / 2];
     const int ct = threadIdx.x;
     const int warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t4 = lane % 4;
@@ -2025,6 +2103,10 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
     // halo mode: its row in the halo box at kx = 0 (each warpgroup's 64
     // output pixels lie in one image row)
     const int hr0 = (lr >> a.lwb) * (a.wb + 2) + (lr & (a.wb - 1));
+    const int nkx = a.halo ? 3 : 1;  // products a slot
+    // banded: the rows of a band
+    [[maybe_unused]] int gh = 1;
+    if constexpr (BANDED) gh = tr.band_px / a.w;
     if constexpr (!FWD && !BANDED) {  // the mask's (a, b) of the CTA's columns
       if (ct < 2 * BN)
         red[8 * 2 * BN + ct] =
@@ -2032,108 +2114,155 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
       bar_sync(1, CONSUMERS);
     }
     const float* sab = red + 8 * 2 * BN;
-    int st = 0, ph = 0;
+    if (!BANDED && ct < 2 * BN) run[ct] = 0.0;  // thread ct's alone
+    if (a.resident) mbar_wait(wbar, 0);
+
+    // the next product to prepare (its ring slot and phase run on from
+    // tile to tile)
+    Pos32 c{};
+    // c at the first product of the CTA's i-th tile
+    auto enter = [&](int i) {
+      c.i = i;
+      c.k = c.kx = c.cbox = c.tap = 0;
+      if (i >= ntiles) return;
+      int col;
+      tile_of(tile_at(i), c.img, c.x0, c.y0, col);
+      if constexpr (BANDED) {
+        c.key = tr.key((c.img * a.h + c.y0) * a.w + c.x0);
+        c.band_y0 = c.y0 - c.y0 % gh;
+      }
+    };
+    // the product at c into f, then c to the next one
+    auto prep = [&](Frag32& f) {
+      if (c.kx == 0) mbar_wait(&full[c.st], c.ph);
+      const uint8_t* buf = smem + c.st * stage_bytes;
+      // the pixel read: the output pixel shifted by the tap (halo mode:
+      // ky and kx)
+      const int ty = a.ks == 3 ? c.tap / 3 : 0;
+      const int dxp = a.halo ? c.kx - 1 : c.tap - 3 * ty - half;
+      const int dyp = a.halo ? c.tap - 1 : ty - half;
+      bool live[2];
+      // banded: the seam term's row at the pixel read (its band's first or
+      // last row), else null
+      [[maybe_unused]] const float* ep[2] = {nullptr, nullptr};
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int r = 64 * wg + 16 * warp + g + 8 * h2;
+        const int ox = c.x0 + (r & (a.wb - 1)), oy = c.y0 + (r >> a.lwb);
+        const int sx = ox + dxp, sy = oy + dyp;
+        live[h2] = ox < a.w && oy < a.h && sx >= 0 && sx < a.w && sy >= 0 &&
+                   sy < a.h;
+        if constexpr (BANDED) {
+          if (a.band_px > 0)
+            live[h2] = live[h2] && sy >= c.band_y0 && sy < c.band_y0 + gh;
+          if (live[h2]) ep[h2] = tr.edge_row((c.img * a.h + sy) * a.w + sx);
+        }
+      }
+      const int hr = a.halo ? hr0 + c.kx : lr;
+      const uint32_t rowaddr = smem_u32(buf) + hr * 128;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t off = (((2 * kk + (lane >> 4)) ^ hr) & 7) << 4;
+        uint32_t v[4], y[4] = {};
+        ldsm_x4(rowaddr + off, v);
+        if (AUX) ldsm_x4(rowaddr + abox + off, y);
+        typename Tr::K8 tb;
+        if constexpr (BANDED)
+          tr.k8_tab(tb, c.key, 32 * c.cbox + 8 * kk + t4);
+        else
+          tr.k8_tab(tb, 32 * c.cbox + 8 * kk + t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // v[e]: row g + 8 (e % 2), channel t4 + 4 (e / 2) of the k8 step
+          float fv = live[e & 1] ? tr.k8(__uint_as_float(v[e]),
+                                         __uint_as_float(y[e]), tb, e >> 1)
+                                 : 0.f;
+          if constexpr (BANDED)
+            if (ep[e & 1])
+              fv = __fadd_rn(fv, __ldg(ep[e & 1] + 32 * c.cbox + 8 * kk + t4 +
+                                       4 * (e >> 1)));
+          tf32_split(fv, f.ah[kk][e], f.al[kk][e]);
+        }
+      }
+      f.dhi = (uint32_t)sw128_desc(a.resident ? wres + c.k * 2 * BBOX
+                                              : buf + w_at + 2 * c.kx * BBOX,
+                                   16, 1024);
+      f.rel = c.kx == nkx - 1 ? c.st : -1;
+      if (++c.kx == nkx) {
+        c.kx = 0;
+        if (++c.st == a.stages) c.st = 0, c.ph ^= 1;
+        if (++c.cbox == a.cb) c.cbox = 0, ++c.tap;
+        if (++c.k == a.ksteps) enter(c.i + 1);
+      }
+    };
+    // the descriptors' high word (sw128_desc's: sbo 1024, the swizzle)
+    const uint64_t desc_hi = sw128_desc(smem, 16, 1024) & ~0xFFFFFFFFull;
+    // f's twelve products into the fresh accumulator, committed
+    auto start = [&](Frag32& f) {
+      const uint64_t dhi = desc_hi | f.dhi, dlo = dhi + (BBOX >> 4);
+      // the first k8 step writes acc without reading it: acc's registers
+      // hold nothing from the last retire to here
+      wgmma_fence();
+      WgmmaTf32R<BN>::mma0(acc, f.al[0], dhi);
+#pragma unroll
+      for (int kk = 1; kk < 4; ++kk)  // 32 bytes a k8 step, >> 4
+        WgmmaTf32R<BN>::mma(acc, f.al[kk], dhi + 2 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaTf32R<BN>::mma(acc, f.ah[kk], dlo + 2 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaTf32R<BN>::mma(acc, f.ah[kk], dhi + 2 * kk, 1);
+      wgmma_commit();
+      fence_operands(acc);
+    };
+    // f's products waited for (its registers kept to here), added to the
+    // sum, and its slot released where f was the slot's last product
+    auto retire = [&](Frag32& f) {
+      wgmma_wait<0>();
+      fence_operands(acc);
+      fence_frags(f.ah);
+      fence_frags(f.al);
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) sum[e] += acc[e];
+      if (f.rel >= 0 && tid == 0) mbar_arrive(&empty[f.rel]);
+    };
+    // product f, and the next one prepared into `next` (where `more`):
+    // under f's products with OVL, after them without
+    auto step = [&](Frag32& f, Frag32& next, bool more) {
+      start(f);
+      if constexpr (OVL) {
+        if (more) prep(next);
+        retire(f);
+      } else {
+        retire(f);
+        if (more) prep(next);
+      }
+    };
+
+    // two fragment sets with OVL, one without
+    Frag32 f0, f1;
+    Frag32& fb = OVL ? f1 : f0;
+    enter(0);
+    if (ntiles > 0) prep(f0);
+    // a tile's products: even, since co / 32 is
+    const int nprod = a.ksteps * nkx;
     for (int i = 0; i < ntiles; ++i) {
       const int t = tile_at(i);
       int img, x0, y0, col;
       tile_of(t, img, x0, y0, col);
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) sum[e] = 0.f;
-      // banded: the tile's band (a tile lies in one: the box height
-      // divides gh), its first row where a 3x3 dX's reads stay in it, and
-      // the mask's (a, b) of value ct (gm), loaded before the products
-      [[maybe_unused]] int key = 0, gh = 1, band_y0 = 0;
+      // banded gm: the mask's (a, b) of value ct under the tile's band,
+      // loaded before the products
       [[maybe_unused]] float abv = 0.f;
-      if constexpr (BANDED) {
-        key = tr.key((img * a.h + y0) * a.w + x0);
-        gh = tr.band_px / a.w;
-        band_y0 = y0 - y0 % gh;
-        if constexpr (!FWD)
-          if (a.out_kind == 0 && ct < 2 * BN)
-            abv = __ldg(tr.ab_row(key) + (ct / BN) * a.ci + n0 + ct % BN);
-      }
-      // the K step's channel box and tap (halo mode: ky), running
-      int cbox = 0, tap = 0, tkx = -half, tky = -half;
-      for (int k = 0; k < a.ksteps; ++k) {
-        mbar_wait(&full[st], ph);
-        const uint8_t* buf = smem + st * stage_bytes;
-        for (int kx = 0; kx < (a.halo ? 3 : 1); ++kx) {
-          // the pixel read: the output pixel shifted by the tap
-          const int dxp = a.halo ? kx - 1 : tkx;
-          const int dyp = a.halo ? tap - 1 : tky;
-          bool live[2];
-          // banded: the seam term's row at the pixel read (its band's first
-          // or last row), else null
-          [[maybe_unused]] const float* ep[2] = {nullptr, nullptr};
-#pragma unroll
-          for (int h2 = 0; h2 < 2; ++h2) {
-            const int r = 64 * wg + 16 * warp + g + 8 * h2;
-            const int ox = x0 + (r & (a.wb - 1)), oy = y0 + (r >> a.lwb);
-            const int sx = ox + dxp, sy = oy + dyp;
-            live[h2] = ox < a.w && oy < a.h && sx >= 0 && sx < a.w &&
-                       sy >= 0 && sy < a.h;
-            if constexpr (BANDED) {
-              if (a.band_px > 0)
-                live[h2] = live[h2] && sy >= band_y0 && sy < band_y0 + gh;
-              if (live[h2]) ep[h2] = tr.edge_row((img * a.h + sy) * a.w + sx);
-            }
-          }
-          const int hr = a.halo ? hr0 + kx : lr;
-          const uint32_t rowaddr = smem_u32(buf) + hr * 128;
-          uint32_t ah[4][4], al[4][4];
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const uint32_t off = (((2 * kk + (lane >> 4)) ^ hr) & 7) << 4;
-            uint32_t v[4], y[4] = {};
-            ldsm_x4(rowaddr + off, v);
-            if (AUX) ldsm_x4(rowaddr + abox + off, y);
-            typename Tr::K8 tb;
-            if constexpr (BANDED)
-              tr.k8_tab(tb, key, 32 * cbox + 8 * kk + t4);
-            else
-              tr.k8_tab(tb, 32 * cbox + 8 * kk + t4);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              // v[e]: row g + 8 (e % 2), channel t4 + 4 (e / 2) of the k8 step
-              float f = live[e & 1]
-                            ? tr.k8(__uint_as_float(v[e]),
-                                    __uint_as_float(y[e]), tb, e >> 1)
-                            : 0.f;
-              if constexpr (BANDED)
-                if (ep[e & 1])
-                  f = __fadd_rn(f, __ldg(ep[e & 1] + 32 * cbox + 8 * kk + t4 +
-                                         4 * (e >> 1)));
-              tf32_split(f, ah[kk][e], al[kk][e]);
-            }
-          }
-          const uint8_t* wb = buf + w_at + 2 * kx * BBOX;
-          const uint64_t dhi = sw128_desc(wb, 16, 1024);
-          const uint64_t dlo = sw128_desc(wb + BBOX, 16, 1024);
-          wgmma_fence();
-          fence_operands(acc);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)  // 32 bytes a k8 step, >> 4
-            WgmmaTf32R<BN>::mma(acc, al[kk], dhi + 2 * kk, kk > 0);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            WgmmaTf32R<BN>::mma(acc, ah[kk], dlo + 2 * kk, 1);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            WgmmaTf32R<BN>::mma(acc, ah[kk], dhi + 2 * kk, 1);
-          wgmma_commit();
-          fence_operands(acc);
-          wgmma_wait<0>();
-          fence_operands(acc);
-#pragma unroll
-          for (int e = 0; e < BN / 2; ++e) sum[e] += acc[e];
-        }
-        if (tid == 0) mbar_arrive(&empty[st]);
-        if (++cbox == a.cb) {
-          cbox = 0;
-          ++tap;
-          if (++tkx > half) tkx = -half, ++tky;
-        }
-        if (++st == a.stages) st = 0, ph ^= 1;
+      if constexpr (BANDED && !FWD)
+        if (a.out_kind == 0 && ct < 2 * BN)
+          abv = __ldg(tr.ab_row(tr.key((img * a.h + y0) * a.w + x0)) +
+                      (ct / BN) * a.ci + n0 + ct % BN);
+      for (int q = 0; q < nprod; q += 2) {
+        step(f0, fb, true);
+        step(fb, f0, q + 2 < nprod || i + 1 < ntiles);
       }
 
       // ---------------------------------------------------------- epilogue
@@ -2148,6 +2277,8 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
         }
       }
       mbar_wait(&efull[e], (i / a.eslots) & 1);
+      // the thread's column sums over its two rows of the tile
+      float cs0[BN / 8][2] = {}, cs1[BN / 8][2] = {};
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int cl = 8 * j + 2 * t4;
@@ -2203,49 +2334,26 @@ tdx_f32(const __grid_constant__ CUtensorMap mdy,
       fence_async_smem();
       bar_sync(2 + wg, 128);
       if (tid == 0) mbar_arrive(&edone[e]);
-      if constexpr (BANDED) {
-        // the forward: a run's sums at its last tile, zero entries at the
-        // others; gm: the tile's sums, one entry a tile (its row tile)
-        const size_t rt = t / a.col_tiles;
-        bool last = true;
-        if (FWD && i + 1 < ntiles) {
-          int img1, x1, y1, col1;
-          tile_of(tile_at(i + 1), img1, x1, y1, col1);
-          last = tr.key((img1 * a.h + y1) * a.w + x1) != key;
+      // the tile's sums: banded (the forward's, gm's), into the tile's
+      // entry (its row tile); fused, added in double to the CTA's
+      bool with_sums = true;
+      if constexpr (BANDED && !FWD) with_sums = a.out_kind == 0;
+      if (with_sums) {
+        const float s = tile_sums<BN>(cs0, cs1, red, wg, warp, lane, ct);
+        if (ct < 2 * BN) {
+          if constexpr (BANDED)
+            a.part[((size_t)(t / a.col_tiles) * 2 + ct / BN) * a.ci + n0 +
+                   ct % BN] = s;
+          else
+            run[ct] += s;
         }
-        if (FWD ? last : a.out_kind == 0)
-          flush_band_sums<BN>(cs0, cs1, red, a.part, rt, a.ci, n0, wg, warp,
-                              lane, ct);
-        else if (FWD && ct < 2 * BN)
-          a.part[(rt * 2 + ct / BN) * a.ci + n0 + ct % BN] = 0.f;
       }
     }
-    // the fused transforms: the CTA's column sums into its entry, in a
-    // fixed order: the warp's 16 row slots by shuffles, then the 8 warps
-    if constexpr (!BANDED) {
-      float* wred = red + (wg * 4 + warp) * 2 * BN;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e3 = 0; e3 < 2; ++e3) {
-#pragma unroll
-          for (int o = 4; o < 32; o <<= 1) {
-            cs0[j][e3] += __shfl_xor_sync(0xffffffffu, cs0[j][e3], o);
-            cs1[j][e3] += __shfl_xor_sync(0xffffffffu, cs1[j][e3], o);
-          }
-          if (lane < 4) {
-            wred[8 * j + 2 * lane + e3] = cs0[j][e3];
-            wred[BN + 8 * j + 2 * lane + e3] = cs1[j][e3];
-          }
-        }
-      bar_sync(1, CONSUMERS);
-      if (ct < 2 * BN) {
-        float s = 0.f;
-#pragma unroll
-        for (int w8 = 0; w8 < 8; ++w8) s += red[w8 * 2 * BN + ct];
-        a.part[((size_t)grp * 2 + ct / BN) * a.ci + n0 + ct % BN] = s;
-      }
-    }
+    // the fused transforms: the CTA's sums into its entry
+    if constexpr (!BANDED)
+      if (ct < 2 * BN)
+        a.part[((size_t)grp * 2 + ct / BN) * a.ci + n0 + ct % BN] =
+            (float)run[ct];
   }
 }
 
@@ -2470,6 +2578,7 @@ int launch_dx(const CUtensorMap& mdy, const CUtensorMap& maux,
 // (a multiple of the column tiles), `eslots` epilogue slots (0 to 3).
 struct DxPlan {
   int wb, hb, bn, resident, stages, grid, eslots;
+  int overlap = 0;  // tdx_f32 only: its OVL
 };
 
 // dX (n, h, w, ci) of T_dy(dy, aux) (n, h, w, co) * wflip (ci, ks*ks*co),
@@ -2567,16 +2676,50 @@ int run_dx(const void* dy, const void* aux, const void* wflip,
   return cudaGetLastError();
 }
 
-template <int BN, class Tr>
+template <int BN, bool OVL, class Tr>
 int launch_dx_f32(const CUtensorMap& mdy, const CUtensorMap& maux,
                   const CUtensorMap& mw, const CUtensorMap& me,
                   const CUtensorMap& my, const DxArgs& a, const Tr& tr,
                   int grid, int smem, cudaStream_t s) {
   static bool set[64] = {};
-  const cudaError_t e = allow_smem(tdx_f32<BN, Tr>, set, MAX_SMEM);
+  const cudaError_t e = allow_smem(tdx_f32<BN, OVL, Tr>, set, MAX_SMEM);
   if (e != cudaSuccess) return e;
-  tdx_f32<BN, Tr><<<grid, THREADS, smem, s>>>(mdy, maux, mw, me, my, a, tr);
+  tdx_f32<BN, OVL, Tr><<<grid, THREADS, smem, s>>>(mdy, maux, mw, me, my, a,
+                                                   tr);
   return cudaGetLastError();
+}
+
+// tdx_f32<128, true, Tr> where Tr is a forward's transform. A dX's ring
+// at BN 128 (the A box, its aux box and the weight's hi and lo boxes: 64
+// KiB a slot, beside a 64 KiB epilogue slot) keeps two slots, where a
+// product prepared under its predecessor would hold both, so no plan asks
+// for that instantiation and none is built.
+template <class Tr>
+const void* dx32_fwd_only() {
+  if constexpr (Tr::kAux > 0)
+    return nullptr;
+  else
+    return reinterpret_cast<const void*>(&tdx_f32<128, true, Tr>);
+}
+
+// tdx_f32<bn, overlap, Tr>'s registers a thread (its launch count; the
+// consumers take 232 by setmaxnreg) and local bytes (spills) into out[0],
+// out[1]. Returns the query's error.
+template <class Tr>
+int dx32_attrs(int bn, int overlap, int* out) {
+  const void* fn;
+  if (bn == 128 && Tr::kAux > 0 && overlap) return cudaErrorInvalidValue;
+  if (bn == 128)
+    fn = overlap ? dx32_fwd_only<Tr>()
+                 : reinterpret_cast<const void*>(&tdx_f32<128, false, Tr>);
+  else
+    fn = overlap ? reinterpret_cast<const void*>(&tdx_f32<64, true, Tr>)
+                 : reinterpret_cast<const void*>(&tdx_f32<64, false, Tr>);
+  cudaFuncAttributes f{};
+  const cudaError_t e = cudaFuncGetAttributes(&f, fn);
+  out[0] = f.numRegs;
+  out[1] = (int)f.localSizeBytes;
+  return e;
 }
 
 // run_dx in float32 (tdx_f32): dX (n, h, w, ci) of T_dy(dy, aux) (n, h,
@@ -2584,17 +2727,18 @@ int launch_dx_f32(const CUtensorMap& mdy, const CUtensorMap& maux,
 // fused transforms: Tr::kFwd false, ein = x, a.out = dx) or, with
 // Tr::kFwd, the forward (out_kind 4: dy = x, no aux, wflip = W, a.out =
 // y); wsplit (2, ci, ks*ks*co) f32 scratch for the weight's TF32 split.
-// The fused transforms' sums: part holds grid / (ci / 64) entries and sums
-// (2, ci) receives their sums. A banded transform (Tr::kBanded, the ghost
+// The fused transforms' sums: part holds grid / (ci / bn) entries (a
+// CTA's) and sums (2, ci) receives their sums. A banded transform (Tr::kBanded, the ghost
 // unit's: a.band_px, a.add_kind and a.addend set by the caller) takes the
 // forward or out_kind 0 (gm, ein = x), 1 or 2 (dX + the f32 addend where
 // add_kind is 2, ein = the addend); with sums (out_kind 4 and 0) part
 // holds one entry a row tile and sums (n * h / gh, 2, ci) a band's, gh
 // rows of the image a band, the box height a divisor of gh. Sums written
 // whole. The plan (ops/conv.py tma_bwd_dx_plan / tma_staged_fwd_plan with
-// 4-byte elements): bn 64, the weight streamed, 1 to 3 epilogue slots of
-// TM x 64 f32. Three launches: the split, the product, the sums
-// (reduce_parts_wide, reduce_groups_wide by band).
+// 4-byte elements): bn 64 or 128, a 1x1's weight resident or streamed, 1
+// to 3 epilogue slots of TM x bn f32, `overlap` (tdx_f32's OVL). Three
+// launches: the split, the product, the sums (reduce_parts_wide,
+// reduce_groups_wide by band).
 template <class Tr>
 int run_dx_f32(const void* dy, const void* aux, const void* wflip,
                float* wsplit, const void* ein, DxArgs a, float* part,
@@ -2637,13 +2781,15 @@ int run_dx_f32(const void* dy, const void* aux, const void* wflip,
   a.cb = co / 32;
   a.halo = dx_halo(ks, p.wb);
   a.ksteps = (a.halo ? 3 : ks * ks) * a.cb;
-  a.stages = p.stages, a.resident = 0, a.eslots = p.eslots;
+  a.stages = p.stages, a.resident = p.resident, a.eslots = p.eslots;
   const int smem =
-      p.stages * dx32_stage_bytes(p.bn, a.halo, p.wb, p.hb, AUX) +
-      p.eslots * TM * p.bn * 4 + 9 * 2 * p.bn * 4 + 8 * (2 * p.stages + 7) +
-      1024;
+      p.stages * dx32_stage_bytes(p.bn, a.halo, p.wb, p.hb, AUX,
+                                  p.resident) +
+      p.resident * a.ksteps * 2 * p.bn * 128 + p.eslots * TM * p.bn * 4 +
+      9 * 2 * p.bn * 4 + 2 * p.bn * 8 + 8 * (2 * p.stages + 7) + 1024;
   if (p.wb < 1 || p.hb < 1 || p.wb * p.hb != TM || p.wb != 1 << a.lwb ||
-      p.hb > 256 || p.bn != 64 || p.resident || p.stages < 2 ||
+      p.hb > 256 || (p.bn != 64 && p.bn != 128) || ci % p.bn ||
+      (p.resident && (ks != 1 || p.resident != 1)) || p.stages < 2 ||
       smem > MAX_SMEM || p.grid < 1 || p.grid > tiles ||
       tiles >= (1ll << 31) || p.grid % a.col_tiles || p.eslots < 1 ||
       p.eslots > 3 || (BANDED && gh % p.hb))
@@ -2675,8 +2821,23 @@ int run_dx_f32(const void* dy, const void* aux, const void* wflip,
   cudaError_t err = split_tf32(static_cast<const float*>(wflip), wsplit,
                                (long long)ci * ks * ks * co, s);
   if (err != cudaSuccess) return err;
-  err = (cudaError_t)launch_dx_f32<64>(mdy, maux, mw, me, my, a, tr, p.grid,
-                                       smem, s);
+  if (p.bn == 128 && p.overlap) {
+    // a forward's only (dx32_fwd_only)
+    if constexpr (AUX)
+      return cudaErrorInvalidValue;
+    else
+      err = (cudaError_t)launch_dx_f32<128, true>(mdy, maux, mw, me, my, a,
+                                                  tr, p.grid, smem, s);
+  } else if (p.bn == 128)
+    err = (cudaError_t)launch_dx_f32<128, false>(mdy, maux, mw, me, my, a,
+                                                 tr, p.grid, smem, s);
+  else
+    err = (cudaError_t)(p.overlap ? launch_dx_f32<64, true>(
+                                        mdy, maux, mw, me, my, a, tr, p.grid,
+                                        smem, s)
+                                  : launch_dx_f32<64, false>(
+                                        mdy, maux, mw, me, my, a, tr, p.grid,
+                                        smem, s));
   if (err != cudaSuccess || !with_sums) return err;
   if constexpr (BANDED) {
     // a band's row tiles are consecutive: gh / hb rows of tiles_w tiles

@@ -254,15 +254,16 @@ extern "C" int fused_conv_bwd(const void* x, const void* ab,
 
 // fused_conv_fwd in float32: x (n,h,w,ci), wt (co, ks*ks*ci), y (n,h,w,co)
 // f32; wsplit (2, co, ks*ks*ci) f32 scratch for the weight's TF32 split;
-// ab, stats and ws as fused_conv_fwd's. The plan (ops/conv.py
-// tma_staged_fwd_plan with 4-byte elements: wb, hb, bn = 64, stages,
-// grid, eslots). Returns the first launch error.
+// ab and stats as fused_conv_fwd's, ws one (2, co) entry a row tile. The
+// plan (ops/conv.py tma_staged_fwd_plan with 4-byte elements: wb, hb, bn,
+// resident, stages, grid, eslots, overlap). Returns the first launch
+// error.
 extern "C" int fused_conv_fwd_f32(const void* x, const void* ab,
                                   const void* wt, void* wsplit, void* y,
                                   void* stats, void* ws, int n, int h, int w,
                                   int ci, int co, int ks, int wb, int hb,
-                                  int bn, int stages, int grid, int eslots,
-                                  void* stream) {
+                                  int bn, int resident, int stages, int grid,
+                                  int eslots, int overlap, void* stream) {
   if (ci % 64 || co % 64 || (ks != 1 && ks != 3) || !ab)
     return cudaErrorInvalidValue;
   bwd::DxArgs a{};
@@ -272,18 +273,20 @@ extern "C" int fused_conv_fwd_f32(const void* x, const void* ab,
   return bwd::run_dx_f32(x, nullptr, wt, static_cast<float*>(wsplit),
                          nullptr, a, static_cast<float*>(ws),
                          static_cast<float*>(stats), n, h, w, co, ci, ks,
-                         bwd::DxPlan{wb, hb, bn, 0, stages, grid, eslots},
+                         bwd::DxPlan{wb, hb, bn, resident, stages, grid,
+                                     eslots, overlap},
                          bwd::ActTr32{static_cast<const float*>(ab), ci},
                          static_cast<cudaStream_t>(stream));
 }
 
 // fused_conv_bwd in float32: x, y, dy, dx and wflip f32 (shapes as
 // fused_conv_bwd's); wsplit (2, ci, ks*ks*co) f32 scratch for wflip's
-// TF32 split. The plans (ops/conv.py): dW tma_dw_plan with y's f32 aux
-// boxes and 4-byte elements (wb, hb, bn, two, stages, splits, cs), dX
-// tma_bwd_dx_plan with 4-byte elements (xwb, xhb, xbn = 64, xstages,
-// grid, eslots); `run` (1, 2 or 4; ops/conv.py DW32_RUN) k8 steps a fresh
-// accumulator in the dW. Returns the first launch error.
+// TF32 split; ws_dab one (2, ci) entry a row tile. The plans (ops/conv.py):
+// dW tma_dw_plan with y's f32 aux boxes and 4-byte elements (wb, hb, bn,
+// two, stages, splits, cs), dX tma_bwd_dx_plan with 4-byte elements (xwb,
+// xhb, xbn, resident, xstages, grid, eslots, overlap); `run` (1, 2 or 4;
+// ops/conv.py DW32_RUN) k8 steps a fresh accumulator in the dW. Returns
+// the first launch error.
 extern "C" int fused_conv_bwd_f32(const void* x, const void* ab,
                                   const void* wflip, void* wsplit,
                                   const void* y, const void* dy,
@@ -292,8 +295,9 @@ extern "C" int fused_conv_bwd_f32(const void* x, const void* ab,
                                   int h, int w, int ci, int co, int ks,
                                   int wb, int hb, int bn, int two, int stages,
                                   int splits, int cs, int xwb, int xhb,
-                                  int xbn, int xstages, int grid, int eslots,
-                                  int run, void* stream) {
+                                  int xbn, int resident, int xstages,
+                                  int grid, int eslots, int overlap, int run,
+                                  void* stream) {
   if (ci % 64 || co % 64 || (ks != 1 && ks != 3) || !ab || !ds)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
@@ -310,6 +314,17 @@ extern "C" int fused_conv_bwd_f32(const void* x, const void* ab,
   return bwd::run_dx_f32(dy, y, wflip, static_cast<float*>(wsplit), x, a,
                          static_cast<float*>(ws_dab),
                          static_cast<float*>(dab), n, h, w, ci, co, ks,
-                         bwd::DxPlan{xwb, xhb, xbn, 0, xstages, grid, eslots},
+                         bwd::DxPlan{xwb, xhb, xbn, resident, xstages, grid,
+                                     eslots, overlap},
                          tr, s);
+}
+
+// tdx_f32's registers a thread and local (spill) bytes into the two ints
+// at out: the forward's instantiation (ActTr32) where fwd, else the dX's
+// (FusedTr32), at bn (64 or 128) and overlap (0 or 1). Returns the
+// query's error.
+extern "C" int fused_tdx32_attrs(int fwd, int bn, int overlap, void* out) {
+  int* o = static_cast<int*>(out);
+  return fwd ? bwd::dx32_attrs<bwd::ActTr32>(bn, overlap, o)
+             : bwd::dx32_attrs<FusedTr32>(bn, overlap, o);
 }

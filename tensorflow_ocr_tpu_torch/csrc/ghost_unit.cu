@@ -1384,14 +1384,16 @@ extern "C" int ghost_seam_bwd(const void* g, const void* z, const void* td,
 // ghost_conv_fwd in float32: x (n,h,w,ci), wt (co, ks*ks*ci), y (n,h,w,co)
 // f32; wsplit (2, co, ks*ks*ci) f32 scratch for the weight's TF32 split;
 // tab, stats and ws as ghost_conv_fwd's. The plan (ops/conv.py
-// tma_staged_fwd_plan with gh and 4-byte elements: wb, hb, bn = 64,
-// stages, grid, eslots; hb divides gh). Returns the first launch error.
+// tma_staged_fwd_plan with gh and 4-byte elements: wb, hb, bn, resident,
+// stages, grid, eslots, overlap; hb divides gh). Returns the first launch
+// error.
 extern "C" int ghost_conv_fwd_f32(const void* x, const void* tab,
                                   const void* wt, void* wsplit, void* y,
                                   void* stats, void* ws, int n, int h, int w,
                                   int ci, int co, int ks, int gh, int wb,
-                                  int hb, int bn, int stages, int grid,
-                                  int eslots, void* stream) {
+                                  int hb, int bn, int resident, int stages,
+                                  int grid, int eslots, int overlap,
+                                  void* stream) {
   if (bad_geometry(n, h, w, gh, ci, co) || (ks != 1 && ks != 3) ||
       (long long)n * h * w * (ci > co ? ci : co) >= (1ll << 31))
     return cudaErrorInvalidValue;
@@ -1402,7 +1404,8 @@ extern "C" int ghost_conv_fwd_f32(const void* x, const void* tab,
   return bwd::run_dx_f32(x, nullptr, wt, static_cast<float*>(wsplit),
                          nullptr, a, static_cast<float*>(ws),
                          static_cast<float*>(stats), n, h, w, co, ci, ks,
-                         bwd::DxPlan{wb, hb, bn, 0, stages, grid, eslots},
+                         bwd::DxPlan{wb, hb, bn, resident, stages, grid,
+                                     eslots, overlap},
                          bwd::BandActTr32{static_cast<const float*>(tab), ci,
                                           gh * w},
                          static_cast<cudaStream_t>(stream), gh);
@@ -1413,9 +1416,9 @@ extern "C" int ghost_conv_fwd_f32(const void* x, const void* tab,
 // or none (0)); wsplit (2, ci, ks*ks*co) f32 scratch for wflip's TF32
 // split. The plans (ops/conv.py): dW tma_dw_plan with g's f32 aux boxes
 // and 4-byte elements (wb, hb, bn, two, stages, splits, cs), dX
-// tma_bwd_dx_plan with gh and 4-byte elements (xwb, xhb, xbn = 64,
-// xstages, grid, eslots; ws_sums one (2, ci) entry a row tile with
-// out_kind 0); the dW's box height hb divides gh (its tiles are keyed by
+// tma_bwd_dx_plan with gh and 4-byte elements (xwb, xhb, xbn, resident,
+// xstages, grid, eslots, overlap; ws_sums one (2, ci) entry a row tile
+// with out_kind 0); the dW's box height hb divides gh (its tiles are keyed by
 // one band each: ops/conv.py tma_dw_plan's gh), `run` (1, 2 or 4;
 // ops/conv.py DW32_RUN) k8 steps a fresh accumulator. Returns the first
 // launch error.
@@ -1429,8 +1432,9 @@ extern "C" int ghost_conv_bwd_f32(const void* x, const void* tx,
                                   int co, int ks, int gh, int wb, int hb,
                                   int bn, int two, int stages, int splits,
                                   int cs, int xwb, int xhb, int xbn,
-                                  int xstages, int grid, int eslots,
-                                  int run, void* stream) {
+                                  int resident, int xstages, int grid,
+                                  int eslots, int overlap, int run,
+                                  void* stream) {
   if (bad_geometry(n, h, w, gh, ci, co) || (ks != 1 && ks != 3) ||
       hb < 1 || gh % hb || out_kind < 0 || out_kind > 2 ||
       (out_kind == 0 && (!tx || !sums || !ws_sums)) ||
@@ -1457,7 +1461,8 @@ extern "C" int ghost_conv_bwd_f32(const void* x, const void* tx,
                          out_kind == 0 ? x : addend, a,
                          static_cast<float*>(ws_sums),
                          static_cast<float*>(sums), n, h, w, ci, co, ks,
-                         bwd::DxPlan{xwb, xhb, xbn, 0, xstages, grid, eslots},
+                         bwd::DxPlan{xwb, xhb, xbn, resident, xstages, grid,
+                                     eslots, overlap},
                          tr, s, gh);
 }
 
@@ -1504,4 +1509,14 @@ extern "C" int ghost_seam_bwd_f32(const void* g, const void* z,
                     static_cast<float*>(sums), static_cast<float*>(part), n,
                     h, w, c, gh, resident, stages, grid,
                     static_cast<cudaStream_t>(stream));
+}
+
+// tdx_f32's registers a thread and local (spill) bytes into the two ints
+// at out: the forward's instantiation (BandActTr32) where fwd, else the
+// dX's (GhostTr32), at bn (64 or 128) and overlap (0 or 1). Returns the
+// query's error.
+extern "C" int ghost_tdx32_attrs(int fwd, int bn, int overlap, void* out) {
+  int* o = static_cast<int*>(out);
+  return fwd ? bwd::dx32_attrs<bwd::BandActTr32>(bn, overlap, o)
+             : bwd::dx32_attrs<GhostTr32>(bn, overlap, o);
 }

@@ -97,6 +97,12 @@ FWD_KEEP, FWD_KEEP_HALO = 6, 4
 # error stays within 3x the plain float32 version's on the route and 4x in
 # the backwards, PERF.md), and the route's widest column tile (64 or 128)
 DW32_RUN, DW32_BN = 4, 128
+# csrc/conv_bwd.cuh's float32 forward and dX (tdx_f32): the column tiles
+# its plan tries in order (each where it divides the columns and the ring
+# keeps two slots), whether a 1x1's weight may stay resident, and whether
+# each product's A fragment is prepared under the previous product's
+# wgmmas (OVL); scripts/fused_f32_probe.py --sweep times the choices
+DX32_BN, DX32_RESIDENT, DX32_OVERLAP = (128, 64), True, True
 
 
 def rows(t: torch.Tensor) -> torch.Tensor:
@@ -403,6 +409,8 @@ class TmaBwdDxPlan(NamedTuple):
     col_tiles: int  # Ci / bn
     halo: bool      # a 3x3 whose K steps are (ky, channel box) halo boxes
     eslots: int     # epilogue slots (input and staged output of a tile)
+    overlap: bool = False  # tdx_f32: each fragment prepared under the
+    #                        previous product's wgmmas
 
     def tiles_of(self, cta: int) -> list:
         """The tiles CTA ``cta`` computes, in its order: tile t is pixel
@@ -447,11 +455,22 @@ def tma_bwd_dx_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     ``esize`` 4 plans the float32 kernel (csrc/conv_bwd.cuh ``tdx_f32``):
     a K step is 32 channels (a 128-byte row of the A box and of its aux
     box, ``aux`` 4), each weight box comes twice (its TF32 hi and lo: six
-    a halo slot), bn is 64 (the CTA's column sums stay in registers beside
-    the accumulator and the sum), the weight is never resident, and an
-    epilogue slot holds TM x bn f32."""
+    a halo slot, so a halo slot at bn 128 is too large for two, and a
+    3x3 whose columns take bn 128 takes a box of at most 32 pixels a row,
+    outside halo mode), bn the first of DX32_BN that divides ci and keeps
+    the ring two slots, a 1x1's
+    weight (hi and lo) resident where it fits beside MIN_A_SLOTS slots
+    and DX32_RESIDENT allows, an epilogue slot holds TM x bn f32, the
+    shared memory also holds the CTA's running sums in double, and
+    ``overlap`` (each product's fragment prepared under the previous
+    product's wgmmas, which keeps two slots held) is DX32_OVERLAP where
+    the ring keeps three slots or a halo slot feeds three products."""
     boxes = [1 << i for i in range(TM.bit_length())
              if not gh or gh % (TM >> i) == 0]
+    if esize == 4 and ks == 3 and 128 in DX32_BN and ci % 128 == 0:
+        # a float32 halo slot at BN 128 (six 16 KiB weight boxes) does not
+        # fit twice: a box of at most 32 pixels a row keeps BN 128
+        boxes = [b for b in boxes if b < 64] or boxes
     wb = min(boxes, key=lambda b: (
         -(-w // b) * b * -(-h // (TM // b)) * (TM // b), -b))
     hb = TM // wb
@@ -460,11 +479,17 @@ def tma_bwd_dx_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     kc, parts = 128 // esize, esize // 2
     ksteps = (3 if halo else ks * ks) * (co // kc)
     fixed = 8 * 7 + 1024
-    for bn in (128, 64) if ci % 128 == 0 and esize == 2 else (64,):
+    if esize == 2:
+        bns = (128, 64) if ci % 128 == 0 else (64,)
+    else:
+        bns = tuple(b for b in DX32_BN if ci % b == 0) or (64,)
+    for bn in bns:
         # a halo slot with three 128-row weight boxes beside an f32 aux
         # box leaves the ring one slot: then two column tiles of 64
         bbox, sbytes = parts * bn * 128, TM * bn * esize
-        room = MAX_SMEM - fixed - 9 * 2 * bn * 4
+        # the 8 warps' sums and the mask; in float32 the CTA's running sums
+        # in double too
+        room = MAX_SMEM - fixed - 9 * 2 * bn * 4 - (esize == 4) * 16 * bn
         if halo:
             rows = (wb + 2) * hb
             stage = (round1k(rows * 128) + round1k(rows * kc * aux)
@@ -472,7 +497,8 @@ def tma_bwd_dx_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
         else:
             stage = TM * 128 + TM * kc * aux
         wbytes = ksteps * bbox
-        resident = (ks == 1 and esize == 2 and wbytes + MIN_A_SLOTS
+        resident = (ks == 1 and (esize == 2 or DX32_RESIDENT)
+                    and wbytes + MIN_A_SLOTS
                     * (stage + 16) + slot * sbytes <= room)
         if not halo and not resident:
             stage += bbox
@@ -493,8 +519,11 @@ def tma_bwd_dx_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,
     col_tiles = ci // bn
     grid = min(row_tiles * col_tiles, sms)
     grid = max(col_tiles, grid - grid % col_tiles)
+    # a product prepared under its predecessor holds two slots, so only
+    # where the ring keeps three, or a halo slot feeds three products
+    overlap = esize == 4 and DX32_OVERLAP and (halo or stages >= 3)
     return TmaBwdDxPlan(wb, hb, bn, resident, stages, grid, row_tiles,
-                        col_tiles, halo, eslots)
+                        col_tiles, halo, eslots, overlap)
 
 
 def tma_staged_fwd_plan(n: int, h: int, w: int, ci: int, co: int, ks: int,

@@ -160,8 +160,9 @@ SIGNATURES = {
     "fused_conv": {
         "fused_conv_fwd": [_P] * 6 + [_I] * 13 + [_P],
         "fused_conv_bwd": [_P] * 11 + [_I] * 20 + [_P],
-        "fused_conv_fwd_f32": [_P] * 7 + [_I] * 12 + [_P],
-        "fused_conv_bwd_f32": [_P] * 12 + [_I] * 20 + [_P],
+        "fused_conv_fwd_f32": [_P] * 7 + [_I] * 14 + [_P],
+        "fused_conv_bwd_f32": [_P] * 12 + [_I] * 22 + [_P],
+        "fused_tdx32_attrs": [_I] * 3 + [_P],
     },
     "fused_boundary": {
         "fused_boundary_fwd": [_P] * 5 + [_I] * 2 + [_P],
@@ -297,9 +298,9 @@ def _launch_fwd(x, ab, w):
                                esize=4 if f32 else 2)
     y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device,
                     memory_format=_CL)
-    # s, the CTAs' entries and (float32) the weight's split in one buffer,
-    # each written whole
-    entries = 2 * co * (1 + p.grid // p.col_tiles)
+    # s, the entries of the sums (a CTA's; float32: a row tile's) and
+    # (float32) the weight's split in one buffer, each written whole
+    entries = 2 * co * (1 + (p.row_tiles if f32 else p.grid // p.col_tiles))
     buf = torch.empty(entries + 2 * wt.numel() * f32, dtype=torch.float32,
                       device=x.device)
     s, ws = buf[:2 * co].view(2, co), buf[2 * co:entries]
@@ -310,8 +311,9 @@ def _launch_fwd(x, ab, w):
             err = lib.fused_conv_fwd_f32(
                 x.data_ptr(), ab.data_ptr(), wt.data_ptr(),
                 buf[entries:].data_ptr(), y.data_ptr(), s.data_ptr(),
-                ws.data_ptr(), *geo, ci, co, k, p.wb, p.hb, p.bn, p.stages,
-                p.grid, p.eslots, stream)
+                ws.data_ptr(), *geo, ci, co, k, p.wb, p.hb, p.bn,
+                int(p.resident), p.stages, p.grid, p.eslots, int(p.overlap),
+                stream)
         else:
             err = lib.fused_conv_fwd(
                 x.data_ptr(), ab.data_ptr(), wt.data_ptr(), y.data_ptr(),
@@ -385,7 +387,7 @@ def _launch_bwd(x, ab, w, y, dy, ds):
     # wflip's split in one buffer: the wrapper's host time is of the order
     # of a small shape's device time
     kdim, tables = k * k * ci * co, pw.splits // pw.cluster
-    parts = px.grid // px.col_tiles * 2 * ci
+    parts = (px.row_tiles if f32 else px.grid // px.col_tiles) * 2 * ci
     split = 2 * kdim * f32
     buf = torch.empty(kdim * (1 + (tables if tables > 1 else 0)) + 2 * ci
                       + parts + split, dtype=torch.float32, device=x.device)
@@ -403,8 +405,8 @@ def _launch_bwd(x, ab, w, y, dy, ds):
                 ds.data_ptr(), dx.data_ptr(), dab.data_ptr(), dw.data_ptr(),
                 ws_dw.data_ptr(), ws_dab.data_ptr(), *geo, ci, co, k, pw.wb,
                 pw.hb, pw.bn, int(pw.two), pw.stages, pw.splits, pw.cluster,
-                px.wb, px.hb, px.bn, px.stages, px.grid, px.eslots,
-                CV.DW32_RUN, stream)
+                px.wb, px.hb, px.bn, int(px.resident), px.stages, px.grid,
+                px.eslots, int(px.overlap), CV.DW32_RUN, stream)
         else:
             err = lib.fused_conv_bwd(
                 x.data_ptr(), ab.data_ptr(), wflip.data_ptr(), y.data_ptr(),

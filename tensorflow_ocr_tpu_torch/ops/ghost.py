@@ -411,10 +411,11 @@ SIGNATURES = {
     "ghost_conv_bwd": [_P] * 13 + [_I] * 24 + [_P],
     "ghost_boundary": [_P] * 7 + [_I] * 5 + [_P],
     "ghost_seam_bwd": [_P] * 9 + [_I] * 9 + [_P],
-    "ghost_conv_fwd_f32": [_P] * 7 + [_I] * 13 + [_P],
-    "ghost_conv_bwd_f32": [_P] * 14 + [_I] * 23 + [_P],
+    "ghost_conv_fwd_f32": [_P] * 7 + [_I] * 15 + [_P],
+    "ghost_conv_bwd_f32": [_P] * 14 + [_I] * 25 + [_P],
     "ghost_boundary_f32": [_P] * 7 + [_I] * 5 + [_P],
-    "ghost_seam_bwd_f32": [_P] * 10 + [_I] * 8 + [_P]}
+    "ghost_seam_bwd_f32": [_P] * 10 + [_I] * 8 + [_P],
+    "ghost_tdx32_attrs": [_I] * 3 + [_P]}
 
 
 @functools.cache
@@ -562,7 +563,8 @@ def _launch_conv_fwd(x, tab, w, gh):
                 x.data_ptr(), _ptr(tab), wt.data_ptr(),
                 buf[entries:].data_ptr(), y.data_ptr(), s.data_ptr(),
                 ws.data_ptr(), n, h, wd, ci, co, k, gh, p.wb, p.hb, p.bn,
-                p.stages, p.grid, p.eslots, stream)
+                int(p.resident), p.stages, p.grid, p.eslots, int(p.overlap),
+                stream)
         else:
             err = _lib().ghost_conv_fwd(
                 x.data_ptr(), _ptr(tab), wt.data_ptr(), y.data_ptr(),
@@ -749,8 +751,8 @@ def _launch_conv_bwd(x, tx, g, z, td, w, gh, edge, addend, out):
                 _ptr(sums), dw.data_ptr(), _ptr(addend), ws_ptr, parts_ptr,
                 add_kind, _OUT[out], n, h, wd, ci, co, k, gh, pw.wb, pw.hb,
                 pw.bn, int(pw.two), pw.stages, pw.splits, pw.cluster, px.wb,
-                px.hb, px.bn, px.stages, px.grid, px.eslots, CV.DW32_RUN,
-                stream)
+                px.hb, px.bn, int(px.resident), px.stages, px.grid,
+                px.eslots, int(px.overlap), CV.DW32_RUN, stream)
         else:
             err = _lib().ghost_conv_bwd(
                 x.data_ptr(), _ptr(tx), g.data_ptr(), z.data_ptr(),

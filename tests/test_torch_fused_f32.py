@@ -13,9 +13,13 @@ hi)) and the tensor cores sum lo.hi' + hi.lo' + hi.hi'
   image, then split; a K step is 32 channels of one tap (in halo mode,
   ops/conv.py's plan with wb >= 64: the taps of one ky, kx innermost) and
   its twelve k8 instructions (4 of lo.hi', 4 of hi.lo', 4 of hi.hi') go
-  to a fresh accumulator, then added to the f32 sum; the statistics and
-  dab are summed per CTA over its tiles (the plan's tiles_of) and the
-  CTAs' entries added in order;
+  to a fresh accumulator, then added to the f32 sum (at BN 64 or 128, the
+  weight resident or streamed, each product's fragment prepared under the
+  previous one's or after it: none of which changes a product); the
+  statistics and dab are summed a tile at a time (each thread its two
+  rows, the warp's 8 row slots by the xor shuffles' tree, the 8 warps in
+  order), a CTA's tiles (the plan's tiles_of) in order in double, and the
+  CTAs' entries in order in double;
 - the dW (tdw_f32_tr with FusedTr32): X through relu(x*a + b) in the
   register A fragment and dY to dy_eff as it is transposed, in float32
   before the split, zero where the pixel read lies outside the image;
@@ -59,6 +63,7 @@ from tensorflow_ocr_tpu_torch.ops import fused as FU
 from test_torch_bottleneck import close, f32_batchnorm  # noqa: F401
 from test_torch_conv_f32 import (MULTIPLE, SMS, dw_table, hold, im2col,
                                  max_err, passes)
+from test_torch_fused_f32_plans import check_dx32
 from test_torch_resnet import perturb_bn
 
 torch.set_num_threads(1)
@@ -97,33 +102,73 @@ def geo_of(n, h, w, k):
     return (1, 1, n * h * w) if k == 1 else (n, h, w)
 
 
-def tile_rows(p, geo, t):
-    """Flat pixel indices of the in-image pixels of tdx tile t (plan p),
-    in its rows' order."""
+def tile_pixels(p, geo, t):
+    """The 128 rows of tdx tile t (plan p) in order: row i is pixel (x0 +
+    i % wb, y0 + i // wb) of its box, as a flat pixel index, -1 outside
+    the image."""
     n, h, w = geo
     r = t // p.col_tiles
     tw, th = -(-w // p.wb), -(-h // p.hb)
     img, r = divmod(r, tw * th)
     y0, x0 = (r // tw) * p.hb, (r % tw) * p.wb
-    return [(img * h + y) * w + x for y in range(y0, min(y0 + p.hb, h))
-            for x in range(x0, min(x0 + p.wb, w))]
+    return [(img * h + y0 + i // p.wb) * w + x0 + i % p.wb
+            if x0 + i % p.wb < w and y0 + i // p.wb < h else -1
+            for i in range(p.wb * p.hb)]
 
 
-def cta_sums(p, geo, vals):
-    """Column sums of vals (M, C) as tdx_f32 adds them: each CTA's in
-    float32 over its tiles' rows in order (its column), the CTAs' entries
-    of a column in order in double (reduce_parts_wide), rounded once."""
-    bn = p.bn
-    out = np.zeros(vals.shape[1], f32)
+def fold(u, w, warps):
+    """Column sums of u (or of u*w, fused multiply-adds) over a run of
+    row blocks (T, 16 * warps, C), as the kernels add them in float32: each
+    thread (warp, g) its rows g and g + 8 of the warp's 16, block by block;
+    the warp's 8 threads by xor shuffles (4, 8, 16 lanes); then the warps
+    in order."""
+    t, _, c = u.shape
+    us = u.reshape(t, warps, 2, 8, c).astype(f64)
+    ws = None if w is None else w.reshape(t, warps, 2, 8, c).astype(f64)
+    acc = np.zeros((warps, 8, c), f32)
+    for i in range(t):
+        for e2 in range(2):
+            term = us[i, :, e2] if ws is None else us[i, :, e2] * ws[i, :, e2]
+            acc = (acc + term).astype(f32)
+    g = np.arange(8)
+    for bit in (1, 2, 4):
+        acc = (acc + acc[:, g ^ bit]).astype(f32)
+    out = np.zeros(c, f32)
+    for wi in range(warps):
+        out = (out + acc[wi, 0]).astype(f32)
+    return out
+
+
+def tile_entries(p, geo, u, w=None):
+    """tdx_f32's column sums of u (M, C) (or of u*w): one entry a row tile
+    (row_tiles, C), each the fold of the tile's 128 rows (zero outside the
+    image) over its 8 warps."""
+    pad = np.zeros((1, u.shape[1]), f32)
+    up = np.concatenate([u, pad])  # row -1: outside the image
+    wp = None if w is None else np.concatenate([w, pad])
+    entries = np.zeros((p.row_tiles, u.shape[1]), f32)
+    for r in range(p.row_tiles):
+        idx = np.array(tile_pixels(p, geo, r * p.col_tiles))
+        entries[r] = fold(up[idx][None], None if w is None else wp[idx][None],
+                          8)
+    return entries
+
+
+def cta_sums(p, geo, u, w=None):
+    """Column sums of u (M, C) (or u*w) as the fused tdx_f32 adds them:
+    each tile's fold (tile_entries), a CTA's tiles (the plan's tiles_of)
+    added in order in double and rounded once into its entry, a column's
+    entries added in order in double (reduce_parts_wide), rounded once."""
+    entries = tile_entries(p, geo, u, w)
+    out = np.zeros(u.shape[1], f32)
     for col in range(p.col_tiles):
-        cols = slice(col * bn, (col + 1) * bn)
-        tot = np.zeros(bn, f64)
+        cols = slice(col * p.bn, (col + 1) * p.bn)
+        tot = np.zeros(p.bn, f64)
         for cta in range(col, p.grid, p.col_tiles):
-            part = np.zeros(bn, f32)
+            run = np.zeros(p.bn, f64)
             for t in p.tiles_of(cta):
-                for row in tile_rows(p, geo, t):
-                    part = part + vals[row, cols]
-            tot = tot + part
+                run = run + entries[t // p.col_tiles, cols]
+            tot = tot + run.astype(f32)
         out[cols] = tot
     return out
 
@@ -218,10 +263,16 @@ def jax_fused(x, ab, wk, dy, ds, y):
 
 
 @pytest.mark.parametrize("n,h,w,ci,co,k", [
-    (2, 16, 16, 64, 128, 1),    # 1x1 over 512 rows: 4 tiles of 128
+    # 1x1 over 512 rows: 4 tiles of 128; the forward at BN 128, both
+    # weights resident
+    (2, 16, 16, 64, 128, 1),
+    # the forward's weight resident at BN 64, the dX at BN 128 streamed
     (1, 16, 32, 128, 64, 1),
     (1, 16, 20, 64, 64, 3),     # 32 x 4 boxes: a ragged edge, the pad taps
     (1, 8, 120, 64, 64, 3),     # halo mode: 128-pixel rows, ragged at 120
+    (1, 8, 32, 128, 128, 3),    # a 3x3 at BN 128: 32 x 4 boxes
+    # 64-pixel rows at 128 columns: 32 x 4 boxes at BN 128, not halo mode
+    (1, 8, 64, 128, 128, 3),
 ])
 def test_fused_f32_kernels_emulated_against_jax(interpret, n, h, w, ci, co,
                                                 k):
@@ -238,20 +289,22 @@ def test_fused_f32_kernels_emulated_against_jax(interpret, n, h, w, ci, co,
 
     # the forward: tdx_f32 on relu(x*a + b), the kernel's plan
     pf = CV.tma_staged_fwd_plan(*geo, ci, co, k, SMS, esize=4)
-    assert pf.bn == 64 and pf.halo == (k == 3 and w >= 64)
+    check_dx32(pf, 0, k * k * ci, co, k)
+    assert pf.halo == (k == 3 and w >= 64 and co % 128 != 0)
     xa = prologue(x, ab)
     wt = np.ascontiguousarray(wk.reshape(k * k * ci, co).T)
     ey = emulate_tdx(xa, wt, k, pf.halo)
     exact_y = im2col(xa, k).astype(f64) @ wk.reshape(-1, co).astype(f64)
     hold("y", ey, emulate_tdx(xa, wt, k, pf.halo, one_pass=True),
          py.permute(0, 2, 3, 1).reshape(m, co).numpy(), jy, exact_y)
-    es = np.stack([cta_sums(pf, geo, ey), cta_sums(pf, geo, ey * ey)])
+    es = np.stack([cta_sums(pf, geo, ey), cta_sums(pf, geo, ey, ey)])
     hold_sums("s", es, ps.numpy(), js,
               np.stack([exact_y.sum(0), (exact_y ** 2).sum(0)]))
 
     # dX: tdx_f32 on dy_eff with the flipped kernel, masked in the
     # epilogue; dab per CTA
     px = CV.tma_bwd_dx_plan(*geo, ci, co, k, SMS, 4, True, esize=4)
+    check_dx32(px, 4, k * k * co, ci, k)
     dye = dy_eff(dy, y, ds)
     wf = wflip_rows(wk)
     live = ((x * ab[0]).astype(f32) + ab[1] > 0).reshape(m, ci)
@@ -266,7 +319,7 @@ def test_fused_f32_kernels_emulated_against_jax(interpret, n, h, w, ci, co,
     hold("dx", edx, finish(emulate_tdx(dye, wf, k, px.halo, True))[1],
          pdx.permute(0, 2, 3, 1).reshape(m, ci).numpy(), jdx,
          finish(exact_g)[1])
-    edab = np.stack([cta_sums(px, geo, gm * x2), cta_sums(px, geo, gm)])
+    edab = np.stack([cta_sums(px, geo, gm, x2), cta_sums(px, geo, gm)])
     xgm = finish(exact_g)[0]
     hold_sums("dab", edab, pdab.numpy(), jdab,
               np.stack([(xgm * x2).sum(0), xgm.sum(0)]))

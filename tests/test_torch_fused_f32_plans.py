@@ -25,18 +25,38 @@ def round1k(nbytes):
     return -(-nbytes // 1024) * 1024
 
 
-def dx32_smem(p, aux):
+def dx32_smem(p, aux, kdim):
     """run_dx_f32's dynamic shared memory: the ring (the A box and, with
     aux, y's box of 32 f32 channels, beside the weight's hi and lo boxes:
-    three of each in halo mode), the epilogue slots of TM x bn f32, the 8
-    warps' sums and the mask, the barriers, the alignment."""
+    three of each in halo mode, none where the weight is resident), the
+    resident weight (the hi and lo boxes of each of the kdim / 32 K steps;
+    kdim the contracted channels times the taps), the epilogue slots of TM
+    x bn f32, the 8 warps' sums and the mask, the CTA's running sums in
+    double, the barriers, the alignment."""
     if p.halo:
         stage = round1k((p.wb + 2) * p.hb * 128) * (2 if aux else 1) \
             + 6 * p.bn * 128
     else:
-        stage = ABOX * (2 if aux else 1) + 2 * p.bn * 128
-    return (p.stages * stage + p.eslots * TM * p.bn * 4 + 9 * 2 * p.bn * 4
+        stage = ABOX * (2 if aux else 1) + (0 if p.resident
+                                            else 2 * p.bn * 128)
+    return (p.stages * stage + p.resident * kdim // 32 * 2 * p.bn * 128
+            + p.eslots * TM * p.bn * 4 + 9 * 2 * p.bn * 4 + 2 * p.bn * 8
             + 8 * (2 * p.stages + 7) + 1024)
+
+
+def check_dx32(p, aux, kdim, cols, k):
+    """A float32 forward or dX plan: it fits, 2 or more ring stages, BN 128
+    where it divides the columns outside halo mode (a halo slot at BN 128,
+    six 16 KiB weight boxes beside the halo box, is too large for two), a
+    resident weight only in a 1x1, 1 to 3 epilogue slots, the products
+    overlapped where the ring keeps three slots or in halo mode (a product
+    prepared under its predecessor holds two slots), the grid a multiple
+    of the column tiles."""
+    assert p.stages >= 2 and dx32_smem(p, aux, kdim) <= CV.MAX_SMEM, p
+    assert p.bn == (128 if cols % 128 == 0 and not p.halo else 64), p
+    assert k == 1 or not p.resident
+    assert 1 <= p.eslots <= 3 and p.overlap == (p.halo or p.stages >= 3)
+    assert p.col_tiles == cols // p.bn and p.grid % p.col_tiles == 0
 
 
 def dw32_smem(p):
@@ -73,16 +93,14 @@ def test_float32_fused_plans_fit_shared_memory(nhw, train):
         assert FU.kernel_takes(ci, co, k)
         geo = (1, 1, n * h * w) if k == 1 else (n, h, w)
         plans = [(CV.tma_staged_fwd_plan(*geo, ci, co, k, SMS, esize=4), 0,
-                  co)]
+                  co, k * k * ci)]
         if train:
             plans.append((CV.tma_bwd_dx_plan(*geo, ci, co, k, SMS, 4, True,
-                                             esize=4), 4, ci))
-        for p, aux, cols in plans:
-            assert p.stages >= 2 and dx32_smem(p, aux) <= CV.MAX_SMEM, (
-                n, h, w, ci, co, k, p)
-            assert p.bn == 64 and not p.resident and 1 <= p.eslots <= 3
-            assert p.col_tiles == cols // 64 and p.grid % p.col_tiles == 0
+                                             esize=4), 4, ci, k * k * co))
+        for p, aux, cols, kdim in plans:
+            check_dx32(p, aux, kdim, cols, k)
             assert p.grid <= SMS and p.halo == (k == 3 and p.wb >= 64)
+            assert not p.halo or cols % 128
         if train:
             p = CV.tma_dw_plan(*geo, ci, co, k, SMS, aux=4, esize=4)
             smem, ring = dw32_smem(p)
@@ -105,6 +123,56 @@ def test_float32_fused_plans_double_what_a_stage_holds():
     assert d16.bn == d32.bn == 64
     stage16 = ((2 if d16.two else 1) + 1) * 64 * 128 + 64 * 64 * 2
     assert dw32_smem(d32)[1] // d32.stages == 2 * stage16
+
+
+@pytest.mark.parametrize("geo,ci,co,k,fwd,bn,resident,stages", [
+    # block1's 1x1s over 32 x 128^2 rows: the weight resident where it
+    # fits beside three A slots and an epilogue slot
+    ((1, 1, 524288), 64, 64, 1, True, 64, True, 7),
+    ((1, 1, 524288), 64, 256, 1, True, 128, True, 5),
+    ((1, 1, 524288), 256, 64, 1, True, 64, True, 3),
+    ((1, 1, 524288), 64, 64, 1, False, 64, True, 3),
+    # dX 256 -> 64: 64 KiB of weight, three 32 KiB slots and a 64 KiB
+    # epilogue slot exceed the card: streamed, two slots
+    ((1, 1, 524288), 256, 64, 1, False, 128, False, 2),
+    ((1, 1, 524288), 64, 256, 1, False, 64, False, 3),
+    # a 3x3 at 64 columns: halo mode over 128-pixel rows at BN 64; at
+    # 128 columns a box of 32 pixels a row keeps BN 128 (a halo slot at
+    # BN 128 does not fit twice)
+    ((32, 128, 128), 64, 64, 3, True, 64, False, 2),
+    ((32, 64, 64), 128, 128, 3, True, 128, False, 3),
+    ((32, 64, 64), 128, 128, 3, False, 128, False, 2),
+    ((8, 96, 160), 128, 128, 3, True, 128, False, 3),
+    ((8, 96, 160), 128, 128, 3, False, 128, False, 2),
+])
+def test_float32_dx_plan_choices(geo, ci, co, k, fwd, bn, resident, stages):
+    """The float32 plan's choices at the step's shapes: BN, the resident
+    weight and the ring."""
+    if fwd:
+        p = CV.tma_staged_fwd_plan(*geo, ci, co, k, SMS, esize=4)
+        check_dx32(p, 0, k * k * ci, co, k)
+    else:
+        p = CV.tma_bwd_dx_plan(*geo, ci, co, k, SMS, 4, True, esize=4)
+        check_dx32(p, 4, k * k * co, ci, k)
+    assert (p.bn, p.resident, p.stages) == (bn, resident, stages)
+
+
+def test_float32_dx_plan_knobs(monkeypatch):
+    """DX32_BN, DX32_RESIDENT and DX32_OVERLAP steer the float32 plan
+    (the probes' sweep) and leave the bfloat16 one as it is."""
+    geo = (1, 1, 524288)
+    bf = CV.tma_staged_fwd_plan(*geo, 64, 256, 1, SMS)
+    monkeypatch.setattr(CV, "DX32_BN", (64,))
+    monkeypatch.setattr(CV, "DX32_RESIDENT", False)
+    monkeypatch.setattr(CV, "DX32_OVERLAP", False)
+    CV.tma_bwd_dx_plan.cache_clear()
+    try:
+        p = CV.tma_staged_fwd_plan(*geo, 64, 256, 1, SMS, esize=4)
+        assert (p.bn, p.resident, p.overlap) == (64, False, False)
+        assert CV.tma_staged_fwd_plan(*geo, 64, 256, 1, SMS) == bf
+        assert not bf.overlap
+    finally:
+        CV.tma_bwd_dx_plan.cache_clear()
 
 
 def test_float32_staged_dw_stage_is_the_routes():

@@ -14,8 +14,8 @@ The emulations below follow the kernels' order:
   only outside the image, then split; a K step is 32 channels of one tap
   (halo mode: the taps of one ky, kx innermost), its twelve k8
   instructions in a fresh accumulator added to the f32 sum; each band's
-  [Σy, Σy²] summed over each run of a CTA's tiles in that band (the plan's
-  tiles_of), the runs' entries added in order in double;
+  [Σy, Σy²] summed one entry a tile (a tile lies in one band), a band's
+  entries added in order in double;
 - dz = g*a + c1 + 2z*c2 under the table of the band of the pixel read,
   plus the seam term on a band's first and last rows (GhostTr32), in
   float32 in the plain version's order of rounding;
@@ -70,7 +70,9 @@ from tensorflow_ocr_tpu_torch.ops import conv as CV
 from tensorflow_ocr_tpu_torch.ops import ghost as G
 from test_torch_conv_f32 import (MULTIPLE, SMS, dw_table, im2col, max_err,
                                  passes)
-from test_torch_fused_f32 import dy_eff, tile_rows, wflip_rows
+from test_torch_fused_f32 import (dy_eff, fold, tile_entries,
+                                  wflip_rows)
+from test_torch_fused_f32_plans import check_dx32
 
 torch.set_num_threads(1)
 f32, f64 = np.float32, np.float64
@@ -169,55 +171,12 @@ def dz_cols(dz, gh, k, in_band=True):
     return np.concatenate(cols, -1).reshape(n * h * w, -1).astype(f32)
 
 
-def fold(u, w, warps):
-    """Column sums of u (or of u*w, fused multiply-adds) over a run of
-    row blocks (T, 16 * warps, C), as the kernels add them in float32: each
-    thread (warp, g) its rows g and g + 8 of the warp's 16, block by block;
-    the warp's 8 threads by xor shuffles (4, 8, 16 lanes); then the warps
-    in order."""
-    t, _, c = u.shape
-    us = u.reshape(t, warps, 2, 8, c).astype(f64)
-    ws = None if w is None else w.reshape(t, warps, 2, 8, c).astype(f64)
-    acc = np.zeros((warps, 8, c), f32)
-    for i in range(t):
-        for e2 in range(2):
-            term = us[i, :, e2] if ws is None else us[i, :, e2] * ws[i, :, e2]
-            acc = (acc + term).astype(f32)
-    g = np.arange(8)
-    for bit in (1, 2, 4):
-        acc = (acc + acc[:, g ^ bit]).astype(f32)
-    out = np.zeros(c, f32)
-    for wi in range(warps):
-        out = (out + acc[wi, 0]).astype(f32)
-    return out
-
-
-def band_entries(p, geo, u, w, gh, runs):
+def band_entries(p, geo, u, w, gh):
     """Each band's column sums (N, nb, C) of u (M, C) (or u*w) as the
-    kernels add them: fold over a run of a CTA's tiles in one band (runs:
-    the forward's band runs; else a tile), one entry a run at its last row
-    tile (zero at the others), a band's entries in order in double."""
+    kernels add them: one entry a tile (test_torch_fused_f32.py
+    tile_entries), a band's entries in order in double."""
     n, h, wd = geo
-    entries = np.zeros((p.row_tiles, u.shape[1]), f32)
-    for cta in range(p.grid):
-        col = cta % p.col_tiles
-        cols = slice(col * p.bn, (col + 1) * p.bn)
-        tiles = p.tiles_of(cta)
-        run = []
-        for i, t in enumerate(tiles):
-            rows = tile_rows(p, geo, t)
-            assert len(rows) == 128  # full tiles: the emulation's rows
-            run.append(rows)
-            band = rows[0] // (gh * wd)
-            last = (not runs or i + 1 == len(tiles)
-                    or tile_rows(p, geo, tiles[i + 1])[0] // (gh * wd)
-                    != band)
-            if last:
-                idx = np.array(run)
-                entries[t // p.col_tiles, cols] = fold(
-                    u[idx][:, :, cols], None if w is None else
-                    w[idx][:, :, cols], 8)
-                run = []
+    entries = tile_entries(p, geo, u, w)
     per = gh // p.hb * -(-wd // p.wb)  # a band's row tiles, consecutive
     return entries.reshape(n, h // gh, per, -1).astype(f64).sum(2).astype(f32)
 
@@ -228,12 +187,14 @@ def emu_fwd(x, tab, wk, gh, one_pass=False, own_band=False):
     n, h, w, ci = x.shape
     k, co = wk.shape[0], wk.shape[-1]
     p = CV.tma_staged_fwd_plan(n, h, w, ci, co, k, SMS, gh, esize=4)
-    assert p.bn == 64 and p.halo == (k == 3 and w >= 64) and gh % p.hb == 0
+    check_dx32(p, 0, k * k * ci, co, k)
+    assert p.halo == (k == 3 and w >= 64 and co % 128 != 0)
+    assert gh % p.hb == 0
     y = product(act_cols(x, tab, gh, k, own_band),
                 np.ascontiguousarray(wk.reshape(-1, co).T),
                 steps(k, ci, p.halo), one_pass)
-    s = np.stack([band_entries(p, (n, h, w), y, None, gh, True),
-                  band_entries(p, (n, h, w), y, y, gh, True)], 2)
+    s = np.stack([band_entries(p, (n, h, w), y, None, gh),
+                  band_entries(p, (n, h, w), y, y, gh)], 2)
     return y.reshape(n, h, w, co), s
 
 
@@ -259,6 +220,7 @@ def emu_bwd(x, tx, g, z, td, wk, gh, edge=None, addend=None, out="gm",
     dw = emu_dw(act_cols(x, tx, gh, k), dz.reshape(-1, co), (n, h, w), ci,
                 k, one_pass, gh=gh)
     px = CV.tma_bwd_dx_plan(n, h, w, ci, co, k, SMS, 4, True, gh, esize=4)
+    check_dx32(px, 4, k * k * co, ci, k)
     gx = product(dz_cols(dz, gh, k, in_band), wflip_rows(wk),
                  steps(k, co, px.halo), one_pass)
     if out != "gm":
@@ -270,8 +232,8 @@ def emu_bwd(x, tx, g, z, td, wk, gh, edge=None, addend=None, out="gm",
     live = ((x * a).astype(f32) + b > 0).reshape(-1, ci)
     gm = np.where(live, gx, 0).astype(f32)
     x2 = x.reshape(-1, ci)
-    sums = np.stack([band_entries(px, (n, h, w), gm, x2, gh, False),
-                     band_entries(px, (n, h, w), gm, None, gh, False)], 2)
+    sums = np.stack([band_entries(px, (n, h, w), gm, x2, gh),
+                     band_entries(px, (n, h, w), gm, None, gh)], 2)
     return gm.reshape(n, h, w, ci), sums, dw
 
 
@@ -390,13 +352,18 @@ def ratio(got, plain, exact):
     return max_err(got, exact) / max_err(plain, exact)
 
 
-@pytest.mark.parametrize("k", [1, 3])
-def test_forward_band_tables_and_halo_rows(k):
+@pytest.mark.parametrize("k,ci,co", [
+    (1, 64, 64), (3, 64, 64),
+    (1, 64, 128),   # BN 128, the weight resident
+    (1, 256, 128),  # BN 128, the weight streamed
+    (3, 128, 128),  # 32 x 4 boxes at BN 128, the halo rows as taps
+])
+def test_forward_band_tables_and_halo_rows(k, ci, co):
     """The forward under each band's table (the 3x3's halo rows under the
     reading band's): y and its band sums within 4x the plain version's
     error of float64; one TF32 pass far beyond; the 3x3's halo rows under
     their own band's table beyond."""
-    _, x, tab, wk = rng_case(3 + k, 64, 64, k)
+    _, x, tab, wk = rng_case(3 + k + (ci + co - 128), ci, co, k)
     tx, tt = nchw(x), torch.from_numpy(tab)
     tw = torch.from_numpy(wk).permute(3, 2, 0, 1).contiguous()
     py, ps = G.conv_fwd_reference(tx, tt, tw, GH)
@@ -412,11 +379,11 @@ def test_forward_band_tables_and_halo_rows(k):
         assert ratio(bad, py, ey) > 10 * MULTIPLE
 
 
-def bwd_case(k, out):
+def bwd_case(k, out, ci=64, co=64):
     """A conv backward's inputs (x, tx, g, z, td, wk, edge, addend) and its
     plain float32 and float64 results: "act" (conv1) with the seam term
     and an addend and no tx, "gm" without."""
-    rng, x, tab, wk = rng_case(11 + k, 64, 64, k)
+    rng, x, tab, wk = rng_case(11 + k + (ci + co - 128), ci, co, k)
     co = wk.shape[-1]
     g = (rng.randn(N, H, W, co) * 0.1).astype(f32)
     z = rng.randn(N, H, W, co).astype(f32)
@@ -427,7 +394,7 @@ def bwd_case(k, out):
     edge = addend = None
     if out == "act":
         edge = (rng.randn(N, nb, 2, W, co) * 0.1).astype(f32)
-        addend = rng.randn(N, H, W, 64).astype(f32)
+        addend = rng.randn(N, H, W, ci).astype(f32)
     txn = None if out == "act" else tab
     targs = [nchw(x), None if txn is None else torch.from_numpy(txn),
              nchw(g), nchw(z), torch.from_numpy(td),
@@ -445,14 +412,21 @@ def dw_rows_of(dw):
     return dw.permute(2, 3, 1, 0).reshape(-1, dw.shape[0]).numpy()
 
 
-@pytest.mark.parametrize("k,out", [(1, "act"), (1, "gm"), (3, "gm")])
-def test_backward_dz_edge_term_and_in_band_dx(k, out):
+@pytest.mark.parametrize("k,out,ci,co", [
+    (1, "act", 64, 64), (1, "gm", 64, 64), (3, "gm", 64, 64),
+    (1, "act", 128, 64),  # BN 128, the weight streamed
+    (1, "gm", 128, 128),  # BN 128
+    (1, "gm", 64, 128),   # BN 64, the weight resident
+    (3, "gm", 128, 128),  # 32 x 4 boxes at BN 128, reads in the band
+])
+def test_backward_dz_edge_term_and_in_band_dx(k, out, ci, co):
     """The conv backward: dz staged with the seam term on the bands' edge
     rows (conv1's "act", with its addend) or without (gm), the 3x3's dX
     kept in its output row's band; dx, gm's band sums and dW within 4x the
     plain version's error of float64; one TF32 pass beyond; the seam term
     dropped, or the 3x3 dX read across bands, beyond."""
-    (x, txn, g, z, td, wk, edge, addend), plain, exact = bwd_case(k, out)
+    (x, txn, g, z, td, wk, edge, addend), plain, exact = bwd_case(k, out,
+                                                                  ci, co)
     want = [(act(plain[0]), act(exact[0])),
             (dw_rows_of(plain[2]), dw_rows_of(exact[2]))]
     if out == "gm":

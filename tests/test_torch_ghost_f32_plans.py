@@ -18,7 +18,7 @@ import torch
 from tensorflow_ocr_tpu_torch.ops import conv as CV
 from tensorflow_ocr_tpu_torch.ops import ghost as G
 from test_torch_conv_bwd import c_entry_points
-from test_torch_fused_f32_plans import Fake, dw32_smem, dx32_smem
+from test_torch_fused_f32_plans import Fake, check_dx32, dw32_smem
 
 SMS = 132
 # (N, H, W, Ci, db, Co, gh) of the ghost units of the 512^2 batch-32 step
@@ -40,8 +40,10 @@ def unit_convs(ci, db, co):
 def test_float32_ghost_plans_fit_shared_memory(shape):
     """The forward, dX and dW plans of each of the unit's convs in
     float32: within 232,448 bytes as the kernels count them, 2 or more ring
-    stages, bn 64, the weight streamed, an epilogue slot, the box height a
-    divisor of gh (a tile lies in one band), the 3x3 in halo mode; the dW
+    stages, bn 128 where it divides the columns outside halo mode, a
+    resident weight only in a 1x1, an epilogue slot, the box height a
+    divisor of gh (a tile lies in one band), the 3x3 in halo mode at 64
+    columns and outside it at 128 (a 32-pixel box, BN 128); the dW
     plan with gh is the one without (gh widens no box at these widths),
     its box height a divisor of gh too."""
     n, h, w, ci, db, co, gh = shape
@@ -49,12 +51,10 @@ def test_float32_ghost_plans_fit_shared_memory(shape):
         fwd = CV.tma_staged_fwd_plan(n, h, w, a, b, k, SMS, gh, esize=4)
         dx = CV.tma_bwd_dx_plan(n, h, w, a, b, k, SMS, 4, True, gh,
                                 esize=4)
-        for p, aux in ((fwd, 0), (dx, 4)):
-            assert p.stages >= 2 and dx32_smem(p, aux) <= CV.MAX_SMEM, (
-                a, b, k, p)
-            assert p.bn == 64 and not p.resident and p.eslots >= 1
-            assert gh % p.hb == 0 and p.halo == (k == 3)
-            assert p.grid % p.col_tiles == 0
+        for p, aux, cols, kdim in ((fwd, 0, b, k * k * a),
+                                   (dx, 4, a, k * k * b)):
+            check_dx32(p, aux, kdim, cols, k)
+            assert gh % p.hb == 0 and p.halo == (k == 3 and cols % 128 != 0)
         dw = CV.tma_dw_plan(n, h, w, a, b, k, SMS, aux=4, esize=4, gh=gh)
         assert dw == CV.tma_dw_plan(n, h, w, a, b, k, SMS, aux=4, esize=4)
         smem, ring = dw32_smem(dw)
@@ -121,16 +121,17 @@ def test_float32_seam_plan_fits_the_card(n, h, w, c, gh):
 def test_the_float32_entry_points_take_their_plans():
     """The float32 entries' ctypes argument types are the C functions'
     own: ghost_conv_fwd_f32 seven pointers (x, tab, wt, the split, y,
-    stats, the entries), 13 ints (geometry, gh, the plan less residency);
-    ghost_conv_bwd_f32 14 pointers and 23 ints (the dW's run last);
+    stats, the entries), 15 ints (geometry, gh, the plan with residency
+    and overlap); ghost_conv_bwd_f32 14 pointers and 25 ints (the dX's
+    residency and overlap among them, the dW's run last);
     ghost_boundary_f32 as the
     bf16 one; ghost_seam_bwd_f32 ten pointers (the split beside the nine)
     and 8 ints (no column tile: 64 at every c)."""
     import ctypes
     entries = c_entry_points("ghost_unit")
     p, i = ctypes.c_void_p, ctypes.c_int
-    want = {"ghost_conv_fwd_f32": [p] * 7 + [i] * 13 + [p],
-            "ghost_conv_bwd_f32": [p] * 14 + [i] * 23 + [p],
+    want = {"ghost_conv_fwd_f32": [p] * 7 + [i] * 15 + [p],
+            "ghost_conv_bwd_f32": [p] * 14 + [i] * 25 + [p],
             "ghost_boundary_f32": [p] * 7 + [i] * 5 + [p],
             "ghost_seam_bwd_f32": [p] * 10 + [i] * 8 + [p]}
     for name, sig in want.items():
