@@ -3631,10 +3631,12 @@ def phase_ghost_kernels_f32(device, reports):
             rows * db * 16 + 72 * db * db + 8 * nbt * db, PEAK_F32_SPLIT)
         for key, v in (("seam", ms), ("sbound", bound)):
             step[key] += units * v
-        print(f"ghost_seam_bwd_f32 {tag}: kernel {ms:.4f} ms, plain "
-              f"{pms:.4f}, bound {bound:.4f}; max abs err against float64 "
-              f"{e:.3e} (x{q:.2f} the plain's); {units} a step; bit-equal "
-              "twice")
+        sp = G.seam_plan(n, h, wd, db, gh, sms, 4)
+        print(f"ghost_seam_bwd_f32 {tag} (resident {int(sp.resident)}, "
+              f"{sp.stages} slots): "
+              f"kernel {ms:.4f} ms, plain {pms:.4f}, bound {bound:.4f}; max "
+              f"abs err against float64 {e:.3e} (x{q:.2f} the plain's); "
+              f"{units} a step; bit-equal twice")
         td1 = corr(sb1 + sh, s1, gb1, t1)
         if proj:
             tds = corr(sb[:, :, [2, 1]], ss, gbs, ts)

@@ -3,7 +3,7 @@
 
     python3 scripts/ghost_f32_probe.py [--arm] [--graph] [--faults]
                                        [--split] [--sweep] [--sweep-dw]
-                                       [--rate] [--tree DIR]
+                                       [--rate] [--seam] [--tree DIR]
 
 1. builds ghost_unit.cu with -Xptxas -v and prints the registers, shared
    memory and spills of each float32 kernel (tdx_f32, the dW tdw_f32_tr,
@@ -46,6 +46,18 @@
    eager_rate over 3 windows of at least 5 s): run in fresh processes on
    two checkouts (--tree), it compares their steps.
 
+9. with --seam (steps 1 and 9 alone: no phase 14b): the float32 seam
+   call (ops/ghost.py seam_bwd on float32 tensors) at the 4 unit shapes,
+   held against its plain version (f32_rule) and bit-equal twice; the
+   device ms of each of its launches by kernel name (torch.profiler:
+   tseam32, the weight's layout and split, the band sums' reduction and
+   any other kernel of the call, such as an older tree's permute copy),
+   the call's device ms by CUDA-graph replay, the wrapper's host ms a call
+   and phase 14b's reading (CUDA events over 5 calls), each summed over the shapes and over a train step (each
+   shape's units); then --windows windows of at least --window-s seconds
+   of CUDA events over runs of 20 calls at each shape in turn. tseam32's
+   registers and spills are step 1's.
+
 --tree DIR runs the kernels and phases of another checkout (e.g. a `git
 archive` of the parent under the gitignored _smoke_checkout/), and skips
 step 1 (the resource report is this checkout's). Exits 2 without CUDA.
@@ -59,12 +71,18 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("tdx_f32", "tdw_f32", "gboundary32", "tseam32")
+KERNELS = ("tdx_f32", "tdw_f32", "gboundary32", "tseam32", "seam_wsplit32")
 # the float32 conv backward's kernels by name, this checkout's and an
 # older one's: its dW and its dX
 F32_BWD_PARTS = {"dW": ("tdw_f32", "sum_tables_wide"),
                  "dX": ("tdx_f32", "reduce_parts_wide", "reduce_groups_wide",
                         "tf32_split_rows")}
+# the float32 seam call's launches by kernel name, this checkout's and an
+# older one's (the weight's permute copy, an elementwise kernel, is any
+# other device kernel of the call)
+SEAM32_LAUNCHES = (("tseam32", ("tseam32",)),
+                   ("weight split", ("seam_wsplit32", "tf32_split_rows")),
+                   ("band sums", ("reduce_groups_wide",)))
 
 
 def ptxas_report():
@@ -199,6 +217,133 @@ def split(c, device):
           f"{c.card_line()}")
 
 
+def seam_inputs(shape, device, gen):
+    """The float32 seam call's arguments (G.seam_bwd) of one unit shape
+    (n, h, w, ci, db, co, gh): gm2, z2, the 3x3's dz table, z1, its
+    (a1, b1) table and the 3x3 weight, at db channels."""
+    import torch
+
+    n, h, wd, _, c, _, gh = shape
+    nb = h // gh
+
+    def rand(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen) * scale).to(device)
+
+    def act(scale=1.0):
+        return rand(n, c, h, wd, scale=scale).contiguous(
+            memory_format=torch.channels_last)
+
+    td = torch.stack([rand(n, nb, c).abs_().add_(0.5),
+                      rand(n, nb, c, scale=1e-2),
+                      rand(n, nb, c, scale=1e-3)], 2)
+    tx = torch.stack([rand(n, nb, c).abs_().add_(0.5),
+                      rand(n, nb, c, scale=0.1)], 2)
+    return (act(1e-2), act(), td, act(), tx,
+            rand(c, c, 3, 3, scale=(9 * c) ** -0.5), gh)
+
+
+def launch_ms(fn, iters=20):
+    """{kernel name: device ms a call of fn} from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def by_launch(names):
+    """launch_ms's kernels grouped as SEAM32_LAUNCHES, the rest "other"."""
+    out = {label: 0.0 for label, _ in SEAM32_LAUNCHES}
+    out["other"] = 0.0
+    for key, ms in names.items():
+        label = next((lb for lb, keys in SEAM32_LAUNCHES
+                      if any(k in key for k in keys)), "other")
+        out[label] += ms
+    return out
+
+
+def host_ms(fn, iters=20):
+    """Host ms a call of fn: the host clock around calls that enqueue
+    without waiting, after a synchronise."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * t / iters
+
+
+def seam(c, device, windows, window_s):
+    """Step 9 of the module docstring."""
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import ghost as G
+
+    gen = torch.Generator().manual_seed(23)
+    f64 = torch.float64
+    calls = []
+    for shape, units in zip(c.GHOST_SHAPES, c.GHOST_SHAPE_UNITS):
+        args = seam_inputs(shape, device, gen)
+        n, h, wd, ci, db, co, gh = shape
+        label = f"{ci}/{db}/{co} at {n}x{h}x{wd} gh {gh}"
+        got, again = G.seam_bwd(*args), G.seam_bwd(*args)
+        torch.cuda.synchronize()
+        c.check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"seam f32 {label}: two launches differ")
+        want = G.seam_bwd_reference(*args)
+        exact = G.seam_bwd_reference(*[t.to(f64) if torch.is_tensor(t)
+                                        else t for t in args])
+        errs = [c.f32_rule(f"seam f32 {nm} {label}", got[i], want[i],
+                           exact[i]) for i, nm in enumerate(("edge", "sums"))]
+        del want, exact
+        print(f"seam f32 {label}: error against float64 x"
+              f"{max(q for _, q in errs):.2f} the plain version's; "
+              f"bit-equal twice; {units} a step")
+        calls.append((label, units, args, got))
+    step = {}
+    over = {}
+    for label, units, args, _ in calls:
+        fn = lambda args=args: G.seam_bwd(*args)  # noqa: E731
+        names = launch_ms(fn)
+        parts = by_launch(names)
+        parts["device"] = sum(names.values())
+        parts["graph"] = c.graph_ms(fn, 20)
+        parts["host"] = host_ms(fn)
+        parts["events 5"] = c.cuda_ms(fn, 5)
+        for k, v in parts.items():
+            over[k] = over.get(k, 0.0) + v
+            step[k] = step.get(k, 0.0) + units * v
+        print(f"seam f32 {label}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in parts.items()) + " ms; kernels "
+            + "; ".join(f"{k[:60]} {v:.4f}" for k, v in names.items()))
+    for what, d in (("over the shapes", over), ("a train step", step)):
+        print(f"seam f32 {what}: " + ", ".join(f"{k} {v:.4f}"
+                                               for k, v in d.items())
+              + f" ms; {c.card_line()}")
+    for wi in range(windows):
+        tot, cnt = [0.0] * len(calls), [0] * len(calls)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < window_s:
+            for i, (_, _, args, _) in enumerate(calls):
+                tot[i] += c.cuda_ms(lambda args=args: G.seam_bwd(*args), 20)
+                cnt[i] += 1
+        ms = [t / k for t, k in zip(tot, cnt)]
+        print(f"seam f32 window {wi} ({time.perf_counter() - t0:.1f} s, "
+              f"{cnt[0]} runs of 20 calls a shape): "
+              + ", ".join(f"{m:.4f}" for m in ms)
+              + f" ms; over the shapes {sum(ms):.4f}, a train step "
+              f"{sum(u * m for (_, u, _, _), m in zip(calls, ms)):.4f}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arm", action="store_true")
@@ -208,6 +353,9 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--sweep-dw", action="store_true")
     ap.add_argument("--rate", action="store_true")
+    ap.add_argument("--seam", action="store_true")
+    ap.add_argument("--windows", type=int, default=3)
+    ap.add_argument("--window-s", type=float, default=5.0)
     ap.add_argument("--tree", default=None)
     args = ap.parse_args()
     import torch
@@ -225,6 +373,11 @@ def main() -> int:
     if args.tree is None:
         ptxas_report()
     c.build_all()
+    if args.seam:
+        seam(c, device, args.windows, args.window_s)
+        print(f"ghost_f32_probe: {time.perf_counter() - t0:.1f} s; "
+              f"{c.card_line()}")
+        return 0
     if args.sweep_dw:
         from fused_f32_probe import sweep
 

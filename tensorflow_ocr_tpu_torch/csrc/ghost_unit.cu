@@ -98,11 +98,12 @@
 //   the consumers transpose them into K-major hi and lo tiles), the band
 //   sums added in double;
 //   gboundary32, gboundary at 4 channels a 16-byte vector;
-//   tseam32, tseam with dz formed in registers from the z and g halo boxes
-//   (loaded by ldmatrix, split there: no rewrite in shared memory), a K
-//   step of 32 channels, 64-column tiles at every c.
+//   tseam32, tseam with a K step of 32 channels: dz formed once a K step
+//   (the z and g halo boxes rewritten into its TF32 hi and lo in place),
+//   the three taps' products back to back, x_q and gm*a1 through
+//   registers, 64-column tiles (below, "seam, f32").
 // What bounds them: three TF32 passes (495 / 3 TFLOP/s) on twice bf16's
-// bytes; block1's 1x1s stay bound by the bytes.
+// bytes; block1's 1x1s and the seam stay bound by the bytes.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -813,56 +814,152 @@ tseam(const __grid_constant__ CUtensorMap mz,
 
 // ------------------------------------------------------------ seam, f32
 //
-// tseam in float32 (tseam32): the same sides, segments, tiles, slots and
-// entries, with a K step of 32 channels and the 1x3 product by split TF32.
-// A tile is two segments, one a warpgroup, by 64 columns at every c (a
-// 128-column tile's hi and lo weight boxes, streamed, would leave no room
-// for two ring slots). Each warpgroup loads its 16 rows a warp of its
-// segment's z and g halo boxes (f32, 128-byte swizzled) by ldmatrix, forms
-// dz under the reading band's table in registers (GhostTr32::k8; zero at
-// the w pad and where the reading band lies outside the image) and splits
-// it into TF32 hi and lo there: no rewrite of the boxes in shared memory
-// and no barrier a K step. Each kx tap reads the boxes kx rows in, and
-// its twelve m64n64k8 products (lo.hi', hi.lo', hi.hi' over 4 k8 steps)
-// against that tap's hi and lo weight boxes (the weight split by
-// split_tf32, resident where it fits beside two ring slots) go to a fresh
-// accumulator that is added to the f32 sum. The epilogue as tseam's with
-// x_q f32, two 32-column boxes a warpgroup; the band sums added in order
-// in double (reduce_groups_wide).
+// tseam in float32 (tseam32): the same sides, segments, slots and entries,
+// a K step of 32 channels and the 1x3 product by split TF32. A tile is
+// two segments, one a warpgroup, by 64 columns at every c. What held the
+// first float32 design (dz formed in registers once a tap, each tap's
+// twelve products waited for alone, one epilogue slot whose x_q load
+// waited behind the last store: 0.4132 ms a step on the H100 against a
+// bound of 0.1419) is answered so:
+// - dz once a K step: each consumer warpgroup turns its segment's z and g
+//   halo boxes (66 rows of 32 f32, 128-byte swizzled) into dz's TF32 hi
+//   and lo in place, hi over z and lo over g, each thread the 16-byte
+//   chunks it reads (one 4-channel column of the box; the band's table
+//   loaded a K step ahead), zero at the w pad and over the whole box
+//   where the reading band lies outside the image; then fence_async_smem
+//   and the warpgroup's named barrier, and each tap reads A through
+//   descriptors of the boxes shifted by kx rows, as the bf16 tseam's.
+// - the three taps back to back: each into its own fresh accumulator, the
+//   K step's 36 wgmmas under one commit and one wait, then the three
+//   accumulators added to the f32 sum in the order kx 0, 1, 2 (the K step,
+//   then kx: the first design's order of summation). The next K step's
+//   boxes rewritten under these products (three ring slots at c = 64)
+//   measured no faster, and were taken out.
+// - no epilogue slot: each thread loads its fragment's x_q (f32, 32 bytes
+//   a row a quad of lanes: whole sectors) into registers before the
+//   tile's first products and stores gm*a1 from registers into the
+//   edge's row (masked at the ragged w), so the next tile's x_q loads
+//   while this one's result is stored; the reading band's (a1, b1) come
+//   into shared memory by cp.async with the first products. A slot, or
+//   two, would leave the ring two slots at c = 64. The column sums by the
+//   butterfly of conv_bwd.cuh's tile_sums (seam_sums).
+// - the weight (Co, Ci, 3, 3) is laid out and split in one launch
+//   (seam_wsplit32), resident where it fits beside the ring (c = 64),
+//   else streamed with each K step.
+// On the H100 (PERF.md, Findings) what bounds it is the ring: the z and g
+// loads alone (no products, no epilogue) take 0.43 of the kernel's time
+// at 128^2, at 2.1 TB/s, and shared memory, which three slots and the
+// resident weight fill, keeps the loads, the rewrite and the products
+// (both operands read from shared memory at 64 columns) from overlapping
+// further. Tried and measured slower or no faster: dz by ldmatrix into
+// the taps' register fragments (1.3-1.9x), 32-column tiles (the boxes read
+// twice or four times), a ring a warpgroup with their products in turns,
+// the rows prefetched into L2 ahead.
+// The band sums: one entry a segment, its 4 warps in order, added in
+// order in double (reduce_groups_wide). No atomics: two launches are
+// bit-equal, and both plans' output is the same.
 constexpr int HBOX32 = 9216;  // a segment's 66-pixel box of 32 f32
                               // channels (8,448 bytes), 1024-aligned
+constexpr int RED32 = RED + 2 * 2 * 64 * 4;  // the warps' column sums and
+                                             // each warpgroup's (a1, b1)
+constexpr int N32 = 64;                      // columns a tile
+constexpr int WBOX32 = N32 * 128;            // a weight box (hi or lo)
 
-__host__ __device__ constexpr int stage_bytes32(int ct, bool resident) {
-  return 4 * HBOX32 + (resident ? 0 : 6 * ct * 128);  // 2 x (z, g)
+struct Args32 : Args {
+  const float* x;  // z1 (n, h, w, c): x_q
+  float* edge;     // (n, nb, 2, w, c)
+};
+
+// A ring slot: both segments' z and g boxes, and the streamed weight's
+// boxes of the three taps.
+__host__ __device__ constexpr int stage_bytes32(bool resident) {
+  return 4 * HBOX32 + (resident ? 0 : 6 * WBOX32);
 }
-__host__ __device__ constexpr int smem_bytes32(int ct, int cb, bool resident,
+__host__ __device__ constexpr int smem_bytes32(int cb, bool resident,
                                                int stages) {
-  return stages * stage_bytes32(ct, resident) +
-         (resident ? 6 * cb * ct * 128 : 0) + 2 * OUT + RED +
-         8 * (2 * stages + 3) + 1024;
+  return stages * stage_bytes32(resident) +
+         (resident ? 6 * cb * WBOX32 : 0) + RED32 + 8 * (2 * stages + 1) +
+         1024;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// A consumer warpgroup's column sums of its segment in a fixed order (the
+// first float32 design's): each thread's two rows (cs0, cs1: [sum gm*x_q,
+// sum gm] of its columns), the warp's 8 row slots (lanes xor 4, 8, 16) by
+// the butterfly of conv_bwd.cuh's tile_sums (each level adds the pairs the
+// xor shuffles of every value would add, with a quarter of the shuffles),
+// then the warpgroup's 4 warps in order. Returns value tid's sum (tid <
+// 128: [sum cs0, sum cs1] of column tid % 64). Every thread of the
+// warpgroup calls it; red is read before it returns.
+__device__ __forceinline__ float seam_sums(float (&cs0)[N32 / 8][2],
+                                           float (&cs1)[N32 / 8][2],
+                                           float* red, int wg, int warp,
+                                           int lane, int tid) {
+  constexpr int V = N32 / 2;  // a thread's values: cs0, then cs1
+  float v[V];
+#pragma unroll
+  for (int j = 0; j < N32 / 8; ++j)
+#pragma unroll
+    for (int e3 = 0; e3 < 2; ++e3) {
+      v[2 * j + e3] = cs0[j][e3];
+      v[V / 2 + 2 * j + e3] = cs1[j][e3];
+    }
+  const int g = lane >> 2;
+  const bool b0 = g & 1, b1 = g & 2, b2 = g & 4;
+  float w1[V / 2], w2[V / 4], w3[V / 8];
+#pragma unroll
+  for (int i = 0; i < V / 2; ++i)
+    w1[i] = (b0 ? v[i + V / 2] : v[i]) +
+            __shfl_xor_sync(0xffffffffu, b0 ? v[i] : v[i + V / 2], 4);
+#pragma unroll
+  for (int i = 0; i < V / 4; ++i)
+    w2[i] = (b1 ? w1[i + V / 4] : w1[i]) +
+            __shfl_xor_sync(0xffffffffu, b1 ? w1[i] : w1[i + V / 4], 8);
+#pragma unroll
+  for (int i = 0; i < V / 8; ++i)
+    w3[i] = (b2 ? w2[i + V / 8] : w2[i]) +
+            __shfl_xor_sync(0xffffffffu, b2 ? w2[i] : w2[i + V / 8], 16);
+  // the lane's values: flat indices f0 + i of v
+  float* wred = red + (wg * 4 + warp) * 2 * N32;
+  const int f0 = (b0 ? V / 2 : 0) + (b1 ? V / 4 : 0) + (b2 ? V / 8 : 0);
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < V / 8; ++i) {
+    const int f = f0 + i, r = f % (V / 2);
+    wred[(f / (V / 2)) * N32 + 8 * (r / 2) + t2 + (r & 1)] = w3[i];
+  }
+  bar_sync(2 + wg, 128);
+  float s = 0.f;
+#pragma unroll
+  for (int w4 = 0; w4 < 4; ++w4) s += red[(wg * 4 + w4) * 2 * N32 + tid];
+  return s;
 }
 
 __global__ void __launch_bounds__(bwd::THREADS, 1)
 tseam32(const __grid_constant__ CUtensorMap mz,
         const __grid_constant__ CUtensorMap mg,
-        const __grid_constant__ CUtensorMap mw,
-        const __grid_constant__ CUtensorMap mx,
-        const __grid_constant__ CUtensorMap me, const Args a,
+        const __grid_constant__ CUtensorMap mw, const Args32 a,
         const GhostTr32 tr) {
+  constexpr int NA = N32 / 2;  // accumulator registers a tap
   extern __shared__ uint8_t raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
-  const int sb = stage_bytes32(a.ct, a.resident);
-  const int w_at = 4 * HBOX32;   // the streamed weight boxes
-  const int wbox = a.ct * 128;   // one weight box (hi or lo): ct rows of 32
+  const int sb = stage_bytes32(a.resident);
+  const int w_at = 4 * HBOX32;  // the streamed weight boxes
   uint8_t* wres = smem + a.stages * sb;
-  uint8_t* eslot = wres + (a.resident ? 6 * a.cb * wbox : 0);
-  float* red = reinterpret_cast<float*>(eslot + 2 * OUT);
-  uint64_t* full = reinterpret_cast<uint64_t*>(red + RED / 4);
+  float* red = reinterpret_cast<float*>(wres +
+                                        (a.resident ? 6 * a.cb * WBOX32 : 0));
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + RED32 / 4);
   uint64_t* empty = full + a.stages;
   uint64_t* wbar = empty + a.stages;
-  uint64_t* efull = wbar + 1;
-  uint64_t* edone = efull + 1;
 
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   const int tid = threadIdx.x % 128;
@@ -875,9 +972,9 @@ tseam32(const __grid_constant__ CUtensorMap mz,
   // the kernel's row read: 0 for slot 1 (the flipped kernel's row 2), 2
   // for slot 0
   const int kyw = side ? 0 : 2;
-  // warpgroup g's segment of tile t; both warpgroups' columns
+  // warpgroup g's segment of tile t
   auto seg_at = [&](int t, int g) { return seg_of(a, side, 2 * t + g); };
-  const int cc0 = col * a.ct;
+  const int cc0 = col * N32;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < a.stages; ++i) {
@@ -885,8 +982,6 @@ tseam32(const __grid_constant__ CUtensorMap mz,
       mbar_init(&empty[i], 2);
     }
     mbar_init(wbar, 1);
-    mbar_init(efull, 1);
-    mbar_init(edone, 2);
     fence_barrier_init();
   }
   __syncthreads();
@@ -900,14 +995,14 @@ tseam32(const __grid_constant__ CUtensorMap mz,
       prefetch_map(&mw);
       if (a.resident) {
         // this CTA's side and column: the row's 3 x cb x (hi, lo) boxes
-        mbar_expect_tx(wbar, 6 * a.cb * wbox);
+        mbar_expect_tx(wbar, 6 * a.cb * WBOX32);
         for (int kw = 0; kw < 3; ++kw)
           for (int k = 0; k < a.cb; ++k)
             for (int part = 0; part < 2; ++part)
-              tma_load_4d(wres + ((kw * a.cb + k) * 2 + part) * wbox, &mw,
+              tma_load_4d(wres + ((kw * a.cb + k) * 2 + part) * WBOX32, &mw,
                           wbar, 32 * k, 3 * kyw + kw, cc0, part);
       }
-      const int bytes = 4 * HROWS * 128 + (a.resident ? 0 : 6 * wbox);
+      const int bytes = 4 * HROWS * 128 + (a.resident ? 0 : 6 * WBOX32);
       int st = 0, ph = 0;
       for (int i = 0; i < ntiles; ++i) {
         for (int k = 0; k < a.cb; ++k) {
@@ -924,208 +1019,246 @@ tseam32(const __grid_constant__ CUtensorMap mz,
           if (!a.resident)
             for (int kw = 0; kw < 3; ++kw)
               for (int part = 0; part < 2; ++part)
-                tma_load_4d(buf + w_at + (kw * 2 + part) * wbox, &mw,
+                tma_load_4d(buf + w_at + (kw * 2 + part) * WBOX32, &mw,
                             &full[st], 32 * k, 3 * kyw + kw, cc0, part);
           if (++st == a.stages) st = 0, ph ^= 1;
         }
       }
-    } else if (tid == 32) {
-      // the epilogue slot: store the last tile's gm*a1, let the store read
-      // it, then fill the slot with the next tile's x_q
-      prefetch_map(&mx);
-      prefetch_map(&me);
-      auto store = [&](int t) {
-        for (int g = 0; g < 2; ++g) {
-          const Seg s = seg_at(t, g);
-          for (int hb = 0; hb < 2; ++hb)
-            tma_store_4d(&me, eslot + g * OUT + hb * SEG * 128,
-                         cc0 + 32 * hb, s.x0, 2 * s.b + side, s.img);
-        }
-      };
-      for (int i = 0; i < ntiles; ++i) {
-        mbar_wait(edone, (i & 1) ^ 1);
-        if (i > 0) {
-          store(t_lo + i - 1);
-          bulk_commit();
-          bulk_wait_read<0>();
-        }
-        mbar_expect_tx(efull, 2 * OUT);
-        for (int g = 0; g < 2; ++g) {
-          const Seg s = seg_at(t_lo + i, g);
-          for (int hb = 0; hb < 2; ++hb)
-            tma_load_4d(eslot + g * OUT + hb * SEG * 128, &mx, efull,
-                        cc0 + 32 * hb, s.x0, s.q, s.img);
-        }
-      }
-      if (ntiles > 0) {
-        mbar_wait(edone, (ntiles - 1) & 1);
-        store(t_lo + ntiles - 1);
-      }
-      bulk_commit();
-      bulk_wait<0>();
     }
-  } else {
-    // ----------------------------------------------------------- consumers
-    regs_grow<232>();
-    float acc[32] = {}, sum[32];
-    if (a.resident) mbar_wait(wbar, 0);
-    const int warp = tid / 32, lane = tid % 32;
-    const int g8 = lane / 4, t4 = lane % 4;
-    // the box row this lane gives ldmatrix at kx = 0: rows l % 8 + 8 (l /
-    // 8 % 2) of the warp's 16, 16-byte chunk 2 kk + l / 16 of the row
-    const int lr = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
-    int st = 0, ph = 0;
-    for (int i = 0; i < ntiles; ++i) {
-      // this warpgroup's segment, read from its neighbouring band
-      const Seg g = seg_at(t_lo + i, wg);
-      const bool on = reads(a, g);
-      const int key = g.img * a.nb + g.rb;
-#pragma unroll
-      for (int e = 0; e < 32; ++e) sum[e] = 0.f;
-      for (int k = 0; k < a.cb; ++k) {
-        mbar_wait(&full[st], ph);
-        const uint8_t* buf = smem + st * sb;
-        const uint32_t zrow = smem_u32(buf + wg * HBOX32);
-        const uint32_t grow = smem_u32(buf + (2 + wg) * HBOX32);
-        for (int kx = 0; kx < 3; ++kx) {
-          // the fragment's rows g8 and g8 + 8: pixel x0 - 1 + row + kx of
-          // the row q' (zero at the w pad; the whole box where rb lies
-          // outside the image)
-          bool live[2];
-#pragma unroll
-          for (int h2 = 0; h2 < 2; ++h2) {
-            const int sx = g.x0 - 1 + 16 * warp + g8 + 8 * h2 + kx;
-            live[h2] = on && sx >= 0 && sx < a.w;
-          }
-          const int hr = lr + kx;
-          uint32_t ah[4][4], al[4][4];
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const uint32_t off =
-                hr * 128 + ((((2 * kk + (lane >> 4)) ^ hr) & 7) << 4);
-            uint32_t zv[4], gv[4];
-            ldsm_x4(zrow + off, zv);
-            ldsm_x4(grow + off, gv);
-            typename GhostTr32::K8 tb;
-            if (on) tr.k8_tab(tb, key, 32 * k + 8 * kk + t4);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float f = live[e & 1]
-                                  ? tr.k8(__uint_as_float(zv[e]),
-                                          __uint_as_float(gv[e]), tb, e >> 1)
-                                  : 0.f;
-              tf32_split(f, ah[kk][e], al[kk][e]);
-            }
-          }
-          // the flipped kernel's ky row at column 2 - kx: its hi and lo
-          // boxes of this K step
-          const uint8_t* wb =
-              a.resident ? wres + ((2 - kx) * a.cb + k) * 2 * wbox
-                         : buf + w_at + (2 - kx) * 2 * wbox;
-          const uint64_t dhi = sw128_desc(wb, 16, 1024);
-          const uint64_t dlo = sw128_desc(wb + wbox, 16, 1024);
-          wgmma_fence();
-          fence_operands(acc);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)  // 32 bytes a k8 step, >> 4
-            WgmmaTf32R<64>::mma(acc, al[kk], dhi + 2 * kk, kk > 0);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            WgmmaTf32R<64>::mma(acc, ah[kk], dlo + 2 * kk, 1);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            WgmmaTf32R<64>::mma(acc, ah[kk], dhi + 2 * kk, 1);
-          wgmma_commit();
-          fence_operands(acc);
-          wgmma_wait<0>();
-          fence_operands(acc);
-#pragma unroll
-          for (int e = 0; e < 32; ++e) sum[e] += acc[e];
-        }
-        if (tid == 0) mbar_arrive(&empty[st]);
-        if (++st == a.stages) st = 0, ph ^= 1;
-      }
+    return;
+  }
 
-      // ---------------------------------------------------------- epilogue
-      // the mask's (a1, b1) of the fragment's columns, the reading band's
-      float2 ta[8], tb2[8];
-      if (on) {
-        const float* tab = a.tx + (size_t)key * 2 * a.c + cc0;
+  // ------------------------------------------------------------- consumers
+  regs_grow<232>();
+  float acc[3][NA] = {}, sum[NA];
+  if (a.resident) mbar_wait(wbar, 0);
+  const int warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  // this warpgroup's (a1, b1) of the tile's columns, by cp.async
+  float* tab = red + RED / 4 + wg * 2 * N32;
+  const int nsteps = ntiles * a.cb;
+  // step s's z box of this warpgroup's segment (its g box 2 boxes on)
+  auto zbox_of = [&](int s) {
+    return smem + (s % a.stages) * sb + wg * HBOX32;
+  };
+  // the flipped kernel's ky row at column 2 - kx, this K step's hi box
+  auto wbox_at = [&](int k, int st, int kx) {
+    return a.resident ? wres + ((2 - kx) * a.cb + k) * 2 * WBOX32
+                      : smem + st * sb + w_at + (2 - kx) * 2 * WBOX32;
+  };
+
+  // the band's table of the chunk a thread rewrites (channels 32 k + 4 jc
+  // .. + 3 of step s's band), loaded one K step ahead
+  const int jc = tid % 8;
+  GhostTr32::D4 tn;
+  auto load_tab = [&](int s) {
+    const int i = s / a.cb;
+    const Seg g = seg_at(t_lo + i, wg);
+    if (reads(a, g))
+      tr.d4_tab(tn, g.img * a.nb + g.rb, 32 * (s - i * a.cb) + 4 * jc);
+  };
+  // step s's boxes (tile s / cb, K step s % cb) rewritten into dz's hi and
+  // lo, seen by the warpgroup's async proxy; step s + 1's table loaded
+  auto rewrite = [&](int s) {
+    const int i = s / a.cb;
+    const Seg g = seg_at(t_lo + i, wg);
+    const bool on = reads(a, g);
+    mbar_wait(&full[s % a.stages], (s / a.stages) & 1);
+    uint8_t* zb = zbox_of(s);
+    uint8_t* gb = zb + 2 * HBOX32;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int cl = 8 * j + 2 * t4;
-          ta[j] = __ldg(reinterpret_cast<const float2*>(tab + cl));
-          tb2[j] = __ldg(reinterpret_cast<const float2*>(tab + a.c + cl));
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) ta[j] = tb2[j] = make_float2(0.f, 0.f);
+    for (int q = 0; q < (HROWS * 8 + 127) / 128; ++q) {
+      // row hr: pixel x0 - 1 + hr of the row q' (zero at the w pad; the
+      // whole box where rb lies outside the image)
+      const int hr = tid / 8 + 16 * q;
+      if (hr >= HROWS) break;
+      const int sx = g.x0 - 1 + hr;
+      const uint32_t off = bwd::chunk_offset(hr, jc);
+      uint4 hi = make_uint4(0, 0, 0, 0), lo = hi;
+      if (on && sx >= 0 && sx < a.w) {
+        const float4 z4 = *reinterpret_cast<const float4*>(zb + off);
+        const float4 g4 = *reinterpret_cast<const float4*>(gb + off);
+        tf32_split(tr.d1(z4.x, g4.x, tn, 0), hi.x, lo.x);
+        tf32_split(tr.d1(z4.y, g4.y, tn, 1), hi.y, lo.y);
+        tf32_split(tr.d1(z4.z, g4.z, tn, 2), hi.z, lo.z);
+        tf32_split(tr.d1(z4.w, g4.w, tn, 3), hi.w, lo.w);
       }
-      uint8_t* slot = eslot + wg * OUT;
-      mbar_wait(efull, i & 1);
-      // x_q of the fragment's pixels, read before gm*a1 overwrites the slot
-      float2 xr[8][2];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2)
-          xr[j][e2] = *reinterpret_cast<const float2*>(
-              slot + out_offset(16 * warp + g8 + 8 * e2, 8 * j + 2 * t4));
-      bar_sync(2 + wg, 128);
-      float* wred = red + (wg * 4 + warp) * 128;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int cl = 8 * j + 2 * t4;
-        float s0[2] = {0.f, 0.f}, s1[2] = {0.f, 0.f};
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const int row = 16 * warp + g8 + 8 * e2;
-          const bool in = on && g.x0 + row < a.w;
-          const float2 xv = xr[j][e2];
-          const float u = in && affine(xv.x, ta[j].x, tb2[j].x) > 0.f
-                              ? sum[4 * j + 2 * e2] : 0.f;
-          const float v = in && affine(xv.y, ta[j].y, tb2[j].y) > 0.f
-                              ? sum[4 * j + 2 * e2 + 1] : 0.f;
-          s0[0] += u * xv.x;
-          s0[1] += v * xv.y;
-          s1[0] += u;
-          s1[1] += v;
-          *reinterpret_cast<float2*>(slot + out_offset(row, cl)) =
-              make_float2(u * ta[j].x, v * ta[j].y);
-        }
-        // the warp's 16 rows, in a fixed order
-#pragma unroll
-        for (int e3 = 0; e3 < 2; ++e3)
-#pragma unroll
-          for (int o = 4; o < 32; o <<= 1) {
-            s0[e3] += __shfl_xor_sync(0xffffffffu, s0[e3], o);
-            s1[e3] += __shfl_xor_sync(0xffffffffu, s1[e3], o);
-          }
-        if (lane < 4) {
-          *reinterpret_cast<float2*>(wred + cl) = make_float2(s0[0], s0[1]);
-          *reinterpret_cast<float2*>(wred + 64 + cl) =
-              make_float2(s1[0], s1[1]);
-        }
-      }
-      // the slot is done (gm*a1 staged): the producer stores it
-      fence_async_smem();
-      bar_sync(2 + wg, 128);
-      if (tid == 0) mbar_arrive(edone);
-      if (g.live) {
-        // the segment's entry of the reading band (rb modulo nb: an
-        // out-of-image rb writes the zero entry that no segment reads
-        // into), its 4 warps in order
-        const int k2 = tid / 64, cl = tid % 64;
-        float s = 0.f;
-#pragma unroll
-        for (int w4 = 0; w4 < 4; ++w4)
-          s += red[(wg * 4 + w4) * 128 + k2 * 64 + cl];
-        const int grp = g.img * a.nb + (g.rb + a.nb) % a.nb;
-        const int entry = grp * 2 * a.segs + (side ? 0 : a.segs) + g.x0 / SEG;
-        a.part[((size_t)entry * 2 + k2) * a.c + cc0 + cl] = s;
-      }
-      bar_sync(2 + wg, 128);  // red is read before the next tile writes it
+      *reinterpret_cast<uint4*>(zb + off) = hi;
+      *reinterpret_cast<uint4*>(gb + off) = lo;
     }
+    if (s + 1 < nsteps) load_tab(s + 1);
+    fence_async_smem();
+    bar_sync(2 + wg, 128);
+  };
+
+  // step s's 36 products, the three taps back to back, each into its own
+  // fresh accumulator, under one commit
+  auto issue = [&](int s) {
+    const int k = s % a.cb, st = s % a.stages;
+    const uint8_t* zb = zbox_of(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      const uint8_t* wb = wbox_at(k, st, kx);
+      const uint64_t bhi = sw128_desc(wb, 16, 1024);
+      const uint64_t blo = sw128_desc(wb + WBOX32, 16, 1024);
+      // the boxes kx rows in: hi over z, lo over g
+      const uint64_t ahi = sw128_desc(zb + kx * 128, 16, 1024);
+      const uint64_t alo = sw128_desc(zb + 2 * HBOX32 + kx * 128, 16, 1024);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // 32 bytes a k8 step, >> 4
+        WgmmaTf32<N32>::mma(acc[kx], alo + 2 * kk, bhi + 2 * kk, kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaTf32<N32>::mma(acc[kx], ahi + 2 * kk, blo + 2 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaTf32<N32>::mma(acc[kx], ahi + 2 * kk, bhi + 2 * kk, 1);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) fence_operands(acc[kx]);
+  };
+
+  // step s's products waited for, added to the sum kx 0, 1, 2, its slot
+  // released
+  auto retire = [&](int s) {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) fence_operands(acc[kx]);
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+      for (int e = 0; e < NA; ++e) sum[e] += acc[kx][e];
+    if (tid == 0) mbar_arrive(&empty[s % a.stages]);
+  };
+
+  // x_q of the fragment's pixels, loaded at the tile's first products
+  float2 xq[N32 / 8][2];
+  // tile i's inputs of the epilogue: x_q into registers, (a1, b1) of the
+  // reading band by cp.async
+  auto prefetch = [&](int i) {
+    const Seg g = seg_at(t_lo + i, wg);
+    const bool on = reads(a, g);
+    const float* xrow =
+        a.x + (((size_t)g.img * a.h + g.q) * a.w + g.x0) * a.c + cc0 + 2 * t4;
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int row = 16 * warp + g8 + 8 * e2;
+      const bool in = on && g.x0 + row < a.w;
+#pragma unroll
+      for (int j = 0; j < N32 / 8; ++j)
+        xq[j][e2] = in ? __ldg(reinterpret_cast<const float2*>(
+                             xrow + (size_t)row * a.c + 8 * j))
+                       : make_float2(0.f, 0.f);
+    }
+    if (on && tid < N32 / 2) {
+      // 16 16-byte chunks of a1, then of b1
+      const int part = tid / (N32 / 4), ch = 4 * (tid % (N32 / 4));
+      cp_async16(tab + part * N32 + ch,
+                 a.tx + ((size_t)(g.img * a.nb + g.rb) * 2 + part) * a.c +
+                     cc0 + ch);
+    }
+  };
+
+  // tile i's epilogue: gm = sum masked under the reading band's (a1, b1)
+  // at x_q, gm*a1 stored into the slot of the row's own band, the
+  // segment's [sum gm*x_q, sum gm] one entry of the reading band
+  auto epilogue = [&](int i) {
+    const Seg g = seg_at(t_lo + i, wg);
+    const bool on = reads(a, g);
+    cp_async_wait_all();
+    bar_sync(2 + wg, 128);
+    float* erow = a.edge +
+                  ((((size_t)g.img * a.nb + g.b) * 2 + side) * a.w + g.x0) *
+                      a.c + cc0 + 2 * t4;
+    float cs0[N32 / 8][2], cs1[N32 / 8][2];
+#pragma unroll
+    for (int j = 0; j < N32 / 8; ++j) {
+      const int cl = 8 * j + 2 * t4;
+      float2 ta = make_float2(0.f, 0.f), tb = ta;
+      if (on) {
+        ta = *reinterpret_cast<const float2*>(tab + cl);
+        tb = *reinterpret_cast<const float2*>(tab + N32 + cl);
+      }
+      cs0[j][0] = cs0[j][1] = cs1[j][0] = cs1[j][1] = 0.f;
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int row = 16 * warp + g8 + 8 * e2;
+        const bool in = on && g.x0 + row < a.w;
+        const float2 xv = xq[j][e2];
+        const float u = in && affine(xv.x, ta.x, tb.x) > 0.f
+                            ? sum[4 * j + 2 * e2] : 0.f;
+        const float v = in && affine(xv.y, ta.y, tb.y) > 0.f
+                            ? sum[4 * j + 2 * e2 + 1] : 0.f;
+        cs0[j][0] += u * xv.x;
+        cs0[j][1] += v * xv.y;
+        cs1[j][0] += u;
+        cs1[j][1] += v;
+        if (g.live && g.x0 + row < a.w)
+          *reinterpret_cast<float2*>(erow + (size_t)row * a.c + 8 * j) =
+              make_float2(u * ta.x, v * ta.y);
+      }
+    }
+    const float s = seam_sums(cs0, cs1, red, wg, warp, lane, tid);
+    if (g.live) {
+      // the segment's entry of the reading band (rb modulo nb: an
+      // out-of-image rb writes the zero entry that no segment reads into)
+      const int grp = g.img * a.nb + (g.rb + a.nb) % a.nb;
+      const int entry = grp * 2 * a.segs + (side ? 0 : a.segs) + g.x0 / SEG;
+      a.part[((size_t)entry * 2 + tid / N32) * a.c + cc0 + tid % N32] = s;
+    }
+    // the sums and the table read before the next tile writes them
+    bar_sync(2 + wg, 128);
+  };
+
+  if (nsteps > 0) load_tab(0);
+  for (int s = 0; s < nsteps; ++s) {
+    const int i = s / a.cb, k = s - i * a.cb;
+    if (k == 0) {
+#pragma unroll
+      for (int e = 0; e < NA; ++e) sum[e] = 0.f;
+      prefetch(i);
+    }
+    rewrite(s);
+    issue(s);
+    retire(s);
+    if (k == a.cb - 1) epilogue(i);
+  }
+}
+
+// The seam's weight (Co, Ci, 3, 3) f32 as its TF32 split in the layout
+// tseam32's map mw reads, (2, Ci, 9, Co): out[p][ci][tap][co] is hi (p 0)
+// or lo (p 1) of w[co][ci][tap], in one launch. A block transposes a 32 x
+// 8 (co, ci) tile of all 9 taps through shared memory, each of its 256
+// threads 9 values, its loads all in flight: w read and out written in
+// runs of 288 and 128 bytes. Grid (c / 32, c / 8).
+__global__ void __launch_bounds__(256)
+seam_wsplit32(const float* __restrict__ w, float* __restrict__ out, int c) {
+  __shared__ float t[32][8 * 9 + 1];
+  const int co0 = blockIdx.x * 32, ci0 = blockIdx.y * 8;
+  float v[9];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    // r: co - co0; e: (ci - ci0) * 9 + tap
+    const int i = threadIdx.x + 256 * j, r = i / 72, e = i - r * 72;
+    v[j] = __ldg(w + ((size_t)(co0 + r) * c + ci0) * 9 + e);
+  }
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    const int i = threadIdx.x + 256 * j, r = i / 72;
+    t[r][i - r * 72] = v[j];
+  }
+  __syncthreads();
+  const size_t n = 9ull * c * c;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    const int i = threadIdx.x + 256 * j, e = i / 32, r = i % 32;
+    uint32_t hi, lo;
+    tf32_split(t[r][e], hi, lo);
+    const size_t o = ((size_t)(ci0 + e / 9) * 9 + e % 9) * c + co0 + r;
+    out[o] = __uint_as_float(hi);
+    out[n + o] = __uint_as_float(lo);
   }
 }
 
@@ -1198,61 +1331,58 @@ int run_seam(const void* g, const void* z, const float* td, const void* x,
   return cudaGetLastError();
 }
 
-// The float32 seam plan (ops/ghost.py seam_plan with 4-byte elements): ct
-// 64, the weight resident or streamed, `stages` ring slots, `grid`
-// persistent CTAs (a multiple of 2 * c / 64); wsplit (2, c, 9c) f32
-// scratch for the weight's TF32 split.
+// The float32 seam plan (ops/ghost.py seam_plan with 4-byte elements):
+// 64-column tiles of two segments, the weight resident or streamed,
+// `stages` ring slots, `grid` persistent CTAs (a multiple of 2 * c / 64);
+// wsplit (2, c, 9c) f32 scratch for the weight's layout and TF32 split.
 int run_seam32(const float* g, const float* z, const float* td,
                const float* x, const float* tx, const float* wt,
                float* wsplit, float* edge, float* sums, float* part, int n,
                int h, int w, int c, int gh, int resident, int stages,
                int grid, cudaStream_t s) {
-  constexpr int ct = 64;
-  seam::Args a{};
+  seam::Args32 a{};
   a.part = part;
   a.td = td;
   a.tx = tx;
+  a.x = x;
+  a.edge = edge;
   a.n = n, a.h = h, a.w = w, a.c = c, a.gh = gh, a.nb = h / gh;
-  a.ct = ct, a.cb = c / 32, a.col_tiles = c / ct;
+  a.ct = seam::N32, a.cb = c / 32, a.col_tiles = c / seam::N32;
   a.segs = (w + seam::SEG - 1) / seam::SEG;
   const long long count = (long long)n * a.nb * a.segs;
   a.count = (int)count;
   a.tiles = (int)((count + 1) / 2);
   a.stages = stages, a.resident = resident;
   const int groups = 2 * a.col_tiles;
-  const int smem = seam::smem_bytes32(ct, a.cb, resident, stages);
+  const int smem = seam::smem_bytes32(a.cb, resident, stages);
   bool aligned = true;
   for (const void* p : {(const void*)g, (const void*)z, (const void*)td,
                         (const void*)x, (const void*)tx, (const void*)wt,
                         (const void*)wsplit, (const void*)edge,
                         (const void*)part})
     aligned = aligned && hop::aligned16(p);
-  if (c % ct || stages < 2 || smem > bwd::MAX_SMEM || grid < groups ||
+  if (c % 64 || stages < 2 || smem > bwd::MAX_SMEM || grid < groups ||
       grid % groups || grid / groups > a.tiles || !aligned ||
       (long long)n * h * w * c >= (1ll << 31))
     return cudaErrorInvalidValue;
-  CUtensorMap mz, mg, mw, mx, me;
-  // the split weight as (c, 9, c, 2): box (32, 1, ct, 1), hi at 0
+  CUtensorMap mz, mg, mw;
+  // the split weight as (c, 9, c, 2): box (32, 1, 64, 1), hi at 0
   const cuuint64_t wdims[4] = {(cuuint64_t)c, 9, (cuuint64_t)c, 2};
-  const cuuint32_t wb[4] = {32, 1, (cuuint32_t)ct, 1};
-  // edge (n, nb, 2, w, c) as (c, w, 2 nb, n): seam row 2 b + slot
-  const cuuint64_t edims[4] = {(cuuint64_t)c, (cuuint64_t)w,
-                               (cuuint64_t)(2 * a.nb), (cuuint64_t)n};
-  const cuuint32_t eb[4] = {32, (cuuint32_t)seam::SEG, 1, 1};
+  const cuuint32_t wb[4] = {32, 1, (cuuint32_t)seam::N32, 1};
   if (!hop::encode_act32(&mz, z, c, w, h, n, seam::HROWS, 1) ||
       !hop::encode_act32(&mg, g, c, w, h, n, seam::HROWS, 1) ||
       !hop::encode(&mw, wsplit, true, 4, wdims, wb,
-                   CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !hop::encode_act32(&mx, x, c, w, h, n, seam::SEG, 1) ||
-      !hop::encode(&me, edge, true, 4, edims, eb, CU_TENSOR_MAP_SWIZZLE_128B))
+                   CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   const GhostTr32 tr{tx, td, nullptr, c, c, gh * w, w};
-  cudaError_t err = hop::split_tf32(wt, wsplit, 9ll * c * c, s);
+  seam::seam_wsplit32<<<dim3(c / 32, c / 8), 256, 0, s>>>(wt, wsplit, c);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   static bool set[64] = {};
-  err = hop::allow_smem(seam::tseam32, set, bwd::MAX_SMEM);
-  if (err != cudaSuccess) return err;
-  seam::tseam32<<<grid, bwd::THREADS, smem, s>>>(mz, mg, mw, mx, me, a, tr);
+  if ((err = hop::allow_smem(seam::tseam32, set, bwd::MAX_SMEM)) !=
+      cudaSuccess)
+    return err;
+  seam::tseam32<<<grid, bwd::THREADS, smem, s>>>(mz, mg, mw, a, tr);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // each band's entries, side 0's segments before side 1's, in order, in
   // double
@@ -1485,29 +1615,30 @@ extern "C" int ghost_boundary_f32(const void* dout, const void* z,
   return cudaGetLastError();
 }
 
-// ghost_seam_bwd in float32: g, z, x (n,h,w,c) and wt (c, 9c) f32 (wt as
-// ghost_seam_bwd's), wsplit (2, c, 9c) f32 scratch for its TF32 split; td,
-// tx, edge, sums and part as ghost_seam_bwd's. The plan (ops/ghost.py
-// seam_plan with 4-byte elements): resident, stages, grid (64-column
-// tiles). c a multiple of 64. Returns the first launch error.
+// ghost_seam_bwd in float32: g, z, x (n,h,w,c) and w (c, c, 3, 3) f32 (the
+// 3x3 weight as PyTorch holds it), wsplit (2, c, 9c) f32 scratch for its
+// layout and TF32 split; td, tx, edge, sums and part as ghost_seam_bwd's.
+// The plan (ops/ghost.py seam_plan with 4-byte elements): resident,
+// stages, grid (64-column tiles). c a multiple of 64. Returns the first
+// launch error.
 extern "C" int ghost_seam_bwd_f32(const void* g, const void* z,
                                   const void* td, const void* x,
-                                  const void* tx, const void* wt,
+                                  const void* tx, const void* w,
                                   void* wsplit, void* edge, void* sums,
-                                  void* part, int n, int h, int w, int c,
-                                  int gh, int resident, int stages, int grid,
-                                  void* stream) {
-  if (bad_geometry(n, h, w, gh, c, c) || !td || !tx)
+                                  void* part, int n, int h, int wd, int c,
+                                  int gh, int resident, int stages,
+                                  int grid, void* stream) {
+  if (bad_geometry(n, h, wd, gh, c, c) || !td || !tx)
     return cudaErrorInvalidValue;
   return run_seam32(static_cast<const float*>(g),
                     static_cast<const float*>(z),
                     static_cast<const float*>(td),
                     static_cast<const float*>(x),
                     static_cast<const float*>(tx),
-                    static_cast<const float*>(wt),
+                    static_cast<const float*>(w),
                     static_cast<float*>(wsplit), static_cast<float*>(edge),
                     static_cast<float*>(sums), static_cast<float*>(part), n,
-                    h, w, c, gh, resident, stages, grid,
+                    h, wd, c, gh, resident, stages, grid,
                     static_cast<cudaStream_t>(stream));
 }
 

@@ -3,9 +3,10 @@
 // mbarriers, TMA tile loads, shared-memory matrix descriptors, the wgmma
 // product of two bf16 operands stored MN-major ("transposed", Wgmma<N>)
 // or K-major (WgmmaK<N>; WgmmaKR<N> with A in registers, ldsm_x4), the
-// float32 products by split TF32 (tf32_split, WgmmaTf32R<N>; see
-// "float32" below), thread block clusters and their distributed
-// shared memory, and register reallocation between warpgroups.
+// float32 products by split TF32 (tf32_split, WgmmaTf32R<N> and
+// WgmmaTf32<N>; see "float32" below), thread block clusters and their
+// distributed shared memory, and register reallocation between
+// warpgroups.
 //
 // The operand tile these helpers assume is the one a TMA box of 64 bf16
 // channels (128 bytes, the inner box dimension) by Kp pixels lands as
@@ -699,6 +700,38 @@ struct WgmmaTf32R<128> {
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// D (64 x N, f32, registers) += A . B (D = A . B where scale_d == 0) with
+// A (64 x k8) and B (N x k8) TF32, both K-major in shared memory under the
+// 128-byte swizzle (descriptors as WgmmaK's: a k8 step is 32 bytes of the
+// 128-byte row). TF32 takes no transposed operand, so PTX has no trans-a
+// and trans-b immediates here.
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 

@@ -771,10 +771,10 @@ def _launch_conv_bwd(x, tx, g, z, td, w, gh, edge, addend, out):
 
 
 class SeamPlan(NamedTuple):
-    """The tiling of the seam pass (csrc/ghost_unit.cu tseam)."""
+    """The tiling of the seam pass (csrc/ghost_unit.cu tseam, tseam32)."""
     ct: int         # columns a tile: 64 (two segments a tile, one a
                     # warpgroup) or 128 (one segment, 64 columns a
-                    # warpgroup)
+                    # warpgroup); float32: 64
     segs: int       # 64-pixel segments of a seam row
     count: int      # segments of one side: n * nb * segs
     tiles: int      # tiles of one (side, column tile) group
@@ -806,6 +806,8 @@ SEAM_HBOX = 9216                  # a segment's 66-pixel bf16 halo box; in
 SEAM_GBOX = 66 * 256              # its f32 g box (bf16: 64 channels)
 SEAM_OUT = SEAM_SEG * 64 * 4      # a warpgroup's f32 output (x_q in)
 SEAM_RED = 8 * 2 * 64 * 4         # the warps' column sums
+SEAM_RED32 = SEAM_RED + 2 * 2 * 64 * 4  # float32: and each warpgroup's
+                                        # (a1, b1) of the tile's columns
 SEAM_MAX_STAGES = 4
 
 
@@ -814,15 +816,17 @@ def seam_smem(nseg: int, ct: int, cb: int, resident: bool,
     """Bytes of tseam's dynamic shared memory, as run_seam counts them:
     the ring, the resident weight, one epilogue slot (x_q in, gm*a1 out),
     the warps' sums and the barriers. ``esize`` 4: tseam32's (run_seam32),
-    cb boxes of 32 channels, each slot two segments' z and g boxes and each
-    weight box twice (its TF32 hi and lo)."""
+    cb boxes of 32 channels, each slot two segments' z and g boxes and
+    each weight box twice (its TF32 hi and lo), no epilogue slot (x_q and
+    gm*a1 go through registers), the warps' sums and the tables of the
+    mask, the full and empty barriers and the weight's."""
     if esize == 4:
-        stage, wbytes = 4 * SEAM_HBOX + (0 if resident else 6 * ct * 128), 6
-    else:
-        stage = (CV.round1k(nseg * (SEAM_HBOX + SEAM_GBOX))
-                 + (0 if resident else 3 * ct * 128))
-        wbytes = 3
-    return (stages * stage + resident * wbytes * cb * ct * 128
+        stage = 4 * SEAM_HBOX + (0 if resident else 6 * ct * 128)
+        return (stages * stage + resident * 6 * cb * ct * 128 + SEAM_RED32
+                + 8 * (2 * stages + 1) + 1024)
+    stage = (CV.round1k(nseg * (SEAM_HBOX + SEAM_GBOX))
+             + (0 if resident else 3 * ct * 128))
+    return (stages * stage + resident * 3 * cb * ct * 128
             + 2 * SEAM_OUT + SEAM_RED + 8 * (2 * stages + 3) + 1024)
 
 
@@ -836,9 +840,10 @@ def seam_plan(n: int, h: int, w: int, c: int, gh: int, sms: int,
     many ring slots as fit (up to 4) beside the one epilogue slot; the grid the SM count rounded down to a
     multiple of the groups (side, column tile), each CTA a contiguous
     share of one group's tiles. c a multiple of 64. ``esize`` 4 plans
-    tseam32: ct 64 at every c (two segments a tile), a K step 32 channels,
-    each weight box as TF32 hi and lo (at c = 128 the resident row, 6 x 4
-    boxes of 8 KB, does not fit beside two slots: streamed)."""
+    tseam32 by the same rule: a K step 32 channels, each weight box as
+    TF32 hi and lo, two segments a tile by 64 columns, no epilogue slot
+    (at c = 64 the weight resident beside three slots; from c = 128, where
+    a row of 6 x c / 32 boxes of 8 KB does not fit, streamed on two)."""
     nb = h // gh
     ct = 128 if c % 128 == 0 and esize == 2 else 64
     cb = c // (128 // esize)
@@ -880,10 +885,11 @@ def seam_bwd(g, z, td, x, tx, w, gh):
 
 def seam_bwd32(g, z, td, x, tx, w, gh):
     """:func:`seam_bwd` in float32 on CUDA tensors (g, z, x and w float32):
-    ``ghost_seam_bwd_f32``, csrc/ghost_unit.cu's ``tseam32`` (seam_plan
-    with 4-byte elements), the 1x3 products by split TF32 with dz formed
-    in registers, the band sums added in double; the weight's split goes to
-    a scratch of twice its size."""
+    ``ghost_seam_bwd_f32``, csrc/ghost_unit.cu's ``seam_wsplit32`` (the
+    weight laid out and split into TF32 hi and lo in one launch, into a
+    scratch of twice its size) and ``tseam32`` (seam_plan with 4-byte
+    elements: dz rewritten once a K step, the three taps' products back
+    to back), the band sums added in double."""
     _need_f32("seam_bwd32", x)
     out = _launch_seam(g, z, td, x, tx, w, gh)
     seam_bwd32.launches += 1
@@ -902,11 +908,13 @@ def _launch_seam(g, z, td, x, tx, w, gh):
         raise ValueError(f"w {tuple(w.shape)}: need ({c}, {c}, 3, 3)")
     if g.dtype != torch.float32:
         raise TypeError("the seam pass takes a float32 g")
-    # the kernel as (Ci, 9·Co), K-major: the kernel reads its taps flipped
-    wt = w.permute(1, 2, 3, 0).reshape(c, 9 * c).contiguous()
-    aligned16(g=g, z=z, td=td, x=x, tx=tx)
-    index = x.device.index
     f32 = x.dtype == torch.float32
+    # bf16: the kernel as (Ci, 9·Co), K-major (the kernel reads its taps
+    # flipped); float32: w as it is, laid out by the kernel's split
+    wt = (w.contiguous() if f32 else
+          w.permute(1, 2, 3, 0).reshape(c, 9 * c).contiguous())
+    aligned16(g=g, z=z, td=td, x=x, tx=tx, w=wt)
+    index = x.device.index
     p = seam_plan(n, h, wd, c, gh, CV._sms(index), 4 if f32 else 2)
     # edge, the band sums, the segments' entries and (float32) the weight's
     # split in one buffer, each written whole: no memset

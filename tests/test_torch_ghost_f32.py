@@ -69,7 +69,7 @@ from tensorflow_ocr_tpu.ops import pallas_unit as PU
 from tensorflow_ocr_tpu_torch.ops import conv as CV
 from tensorflow_ocr_tpu_torch.ops import ghost as G
 from test_torch_conv_f32 import (MULTIPLE, SMS, dw_table, im2col, max_err,
-                                 passes)
+                                 passes, split)
 from test_torch_fused_f32 import (dy_eff, fold, tile_entries,
                                   wflip_rows)
 from test_torch_fused_f32_plans import check_dx32
@@ -244,7 +244,7 @@ def emu_seam(g, z, td, x, tx, wk, gh, one_pass=False):
     dz = dz_of(g, z, td, gh)
     wf = wflip_rows(wk)                          # (C, 9C), K (ky, kx, co)
     p = G.seam_plan(n, h, w, c, gh, SMS, 4)
-    assert p.ct == 64 and p.nseg == 2
+    assert p.nseg == 2  # every plan's output is the same
     edge = np.zeros((n, nb, 2, w, c), f32)
     entries = np.zeros((n, nb, 2 * p.segs, 2, c), f32)
     stp = [slice(kx * c + c0, kx * c + c0 + 32) for c0 in range(0, c, 32)
@@ -265,6 +265,9 @@ def emu_seam(g, z, td, x, tx, wk, gh, one_pass=False):
                 xq = x[img, q]
                 gm = np.where((xq * a1).astype(f32) + b1 > 0, gm, 0)
                 edge[img, b, side] = (gm * a1).astype(f32)
+                # a ragged segment's rows past w add zeros
+                pad = ((0, 64 * p.segs - w), (0, 0))
+                gm, xq = np.pad(gm, pad), np.pad(xq, pad)
                 for s in range(p.segs):
                     seg = slice(64 * s, 64 * (s + 1))
                     e = (0 if side else p.segs) + s
@@ -690,17 +693,26 @@ def test_staged_dw_index_map(kind, geo, ci, co, k):
             np.testing.assert_array_equal(g_[key], w_[key], err_msg=key)
 
 
-def test_seam_product():
+@pytest.mark.parametrize("seed,c,w", [
+    (21, 64, W),    # two K steps, the weight resident at 64 columns
+    (185, 64, 100),  # a ragged row: its second segment 36 pixels wide
+    (213, 128, W),   # four K steps, the weight streamed
+])
+def test_seam_product(seed, c, w):
     """The seam's 1x3 product of each band's halo rows: the seam terms and
     the band sums within 4x the plain version's error of float64; one TF32
     pass beyond."""
-    rng, x, tab, wk = rng_case(21, 64, 64, 3)
-    g = (rng.randn(N, H, W, 64) * 0.1).astype(f32)
-    z = rng.randn(N, H, W, 64).astype(f32)
+    rng = np.random.RandomState(seed)
     nb = H // GH
-    td = np.stack([rng.uniform(0.5, 1.5, (N, nb, 64)),
-                   rng.randn(N, nb, 64) * 1e-2,
-                   rng.randn(N, nb, 64) * 1e-3], 2).astype(f32)
+    x = rng.randn(N, H, w, c).astype(f32)
+    tab = np.stack([rng.uniform(0.5, 1.5, (N, nb, c)),
+                    rng.randn(N, nb, c) * 0.5 + 0.3], 2).astype(f32)
+    wk = (rng.randn(3, 3, c, c) / np.sqrt(9 * c)).astype(f32)
+    g = (rng.randn(N, H, w, c) * 0.1).astype(f32)
+    z = rng.randn(N, H, w, c).astype(f32)
+    td = np.stack([rng.uniform(0.5, 1.5, (N, nb, c)),
+                   rng.randn(N, nb, c) * 1e-2,
+                   rng.randn(N, nb, c) * 1e-3], 2).astype(f32)
     targs = [nchw(g), nchw(z), torch.from_numpy(td), nchw(x),
              torch.from_numpy(tab),
              torch.from_numpy(wk).permute(3, 2, 0, 1).contiguous(), GH]
@@ -712,6 +724,40 @@ def test_seam_product():
     assert ratio(sums, ps.numpy(), es.numpy()) <= MULTIPLE
     one, _ = emu_seam(g, z, td, x, tab, wk, GH, one_pass=True)
     assert ratio(one, pe.numpy(), ee.numpy()) > 10 * MULTIPLE
+
+
+def emu_wsplit32(w):
+    """csrc/ghost_unit.cu seam_wsplit32, thread by thread: w (Co, Ci, 3, 3)
+    through each block's shared tile t[co - co0][(ci - ci0) * 9 + tap] (32
+    x 8 of (co, ci), thread x's values x + 256 j) into (2, Ci, 9, Co), hi
+    then lo."""
+    c = w.shape[0]
+    flat = w.reshape(-1)
+    out = np.full(2 * 9 * c * c, np.nan, f32)
+    i = (np.arange(256)[:, None] + 256 * np.arange(9)).ravel()
+    r, e = np.divmod(i, 72)                    # the read loop
+    e2, r2 = np.divmod(i, 32)                  # the write loop
+    for co0 in range(0, c, 32):
+        for ci0 in range(0, c, 8):
+            t = np.full((32, 73), np.nan, f32)
+            t[r, e] = flat[((co0 + r) * c + ci0) * 9 + e]
+            hi, lo = split(t[r2, e2])
+            o = ((ci0 + e2 // 9) * 9 + e2 % 9) * c + co0 + r2
+            out[o], out[9 * c * c + o] = hi, lo
+    return out.reshape(2, c, 9, c)
+
+
+@pytest.mark.parametrize("c", [64, 128])
+def test_seam_weight_split_layout(c):
+    """seam_wsplit32's index map writes every element once: the flipped
+    taps' layout the bf16 seam's permute gave, (Ci, 9, Co), split into
+    TF32 hi and lo."""
+    w = np.random.RandomState(c).randn(c, c, 3, 3).astype(f32)
+    got = emu_wsplit32(w)
+    want = np.ascontiguousarray(w.transpose(1, 2, 3, 0)).reshape(c, 9, c)
+    hi, lo = split(want)
+    np.testing.assert_array_equal(got[0], hi)
+    np.testing.assert_array_equal(got[1], lo)
 
 
 # --------------------------------------------------------------------------

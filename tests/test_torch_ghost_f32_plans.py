@@ -8,8 +8,8 @@ aux boxes; ops/ghost.py seam_plan with 4-byte elements) must fit the
 themselves count (csrc/conv_bwd.cuh run_dx_f32 and run_dw_f32,
 csrc/ghost_unit.cu run_seam32), with at least 2 ring stages and each
 tile's box height a divisor of the band height, at every conv of the 4
-ghost unit shapes of the 512^2 batch-32 step (forward, dX and dW) and the
-seam at c = 64 and 128.
+ghost unit shapes of the 512^2 batch-32 step (forward, dX and dW), and
+the seam at the 4 unit shapes and smaller ones (c = 64, 128 and 192).
 """
 
 import pytest
@@ -82,28 +82,35 @@ def seam32_smem(p, c):
     """run_seam32's dynamic shared memory: the ring (two segments' z and g
     boxes of 32 f32 channels, 9,216 bytes each, and the streamed weight's
     hi and lo boxes of the three taps), the resident weight (3 taps x c /
-    32 boxes x hi, lo), the epilogue slot of two warpgroups' 64 x 64 f32,
-    the warps' sums, the barriers, the alignment."""
+    32 boxes x hi, lo), the warps' sums and the two warpgroups' (a1, b1)
+    of 64 columns, the full and empty barriers and the weight's, the
+    alignment; no epilogue slot."""
     wbox = p.ct * 128
     stage = 4 * 9216 + (0 if p.resident else 6 * wbox)
     return (p.stages * stage + p.resident * 6 * (c // 32) * wbox
-            + 2 * 64 * 64 * 4 + 8 * 2 * 64 * 4 + 8 * (2 * p.stages + 3)
+            + 8 * 2 * 64 * 4 + 2 * 2 * 64 * 4 + 8 * (2 * p.stages + 1)
             + 1024)
 
 
-@pytest.mark.parametrize("n,h,w,c,gh", [(32, 128, 128, 64, 8),
-                                        (32, 64, 64, 128, 8),
-                                        (2, 24, 100, 192, 8)])
+# the seams of the 4 unit shapes (N, H, W, db, gh) and the tests' small ones
+SEAM32_SHAPES = tuple(sorted({(n, h, w, db, gh)
+                              for n, h, w, _, db, _, gh in GHOST_SHAPES})) + (
+    (2, 24, 100, 192, 8), (2, 24, 64, 64, 8), (2, 24, 100, 64, 8),
+    (2, 24, 64, 128, 8))
+
+
+@pytest.mark.parametrize("n,h,w,c,gh", SEAM32_SHAPES)
 def test_float32_seam_plan_fits_the_card(n, h, w, c, gh):
     """The float32 seam plan: 64-column tiles of two segments at every c,
-    within 232,448 bytes as run_seam32 counts them, 2 or more ring slots;
-    the weight resident at c = 64 and streamed from c = 128 (its resident
-    row, 6 x c / 32 boxes of 8 KB, does not fit beside two slots); every
-    segment of each (side, column tile) group in exactly one tile."""
+    within 232,448 bytes as run_seam32 counts them, as many ring slots as
+    fit: at c = 64 the weight resident beside three, from c = 128 (where
+    its resident row, 6 x c / 32 boxes of 8 KB, does not fit beside two)
+    streamed on two; every segment of each (side, column tile) group in
+    exactly one tile."""
     p = G.seam_plan(n, h, w, c, gh, SMS, 4)
     assert p.ct == 64 and p.nseg == 2 and p.groups == 2 * (c // 64)
-    assert p.smem == seam32_smem(p, c) <= CV.MAX_SMEM and p.stages >= 2
-    assert p.resident == (c == 64)
+    assert p.smem == seam32_smem(p, c) <= CV.MAX_SMEM
+    assert p.resident == (c == 64) and p.stages == (3 if c == 64 else 2)
     assert p.grid % p.groups == 0 and p.groups <= p.grid <= SMS
     seen = {}
     for cta in range(p.grid):
