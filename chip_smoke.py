@@ -22,8 +22,8 @@ Phases, in order; any failure raises and exits non-zero:
    the boxes must equal those decoded from the same logits with the
    plain connected components;
 6. time detect (p50, batch 1, 1280x768) and detect_batches (img/s,
-   batch 8) after a warm-up, each over 2 windows of at least 2 s;
-   print each window and the median of the three;
+   batch 8) after a warm-up, each over 2 windows of at least 1 s;
+   print each window and their median;
 7. with --profile only: a torch.profiler trace of serve and of detect,
    printing wall time, device busy time, the device's idle share and
    the largest device entries;
@@ -196,7 +196,7 @@ Phases, in order; any failure raises and exits non-zero:
 25. the slice's main path, east_resnet50 RBOX with the EAST loss on the
    fused arm at 512^2, batch 32, EAST labels made on the card: 2
    warm-up steps (every fused kernel launched), eager img/s over 3
-   windows of at least 3 s on one batch, whose loss must fall from step
+   windows of at least 2 s on one batch, whose loss must fall from step
    0's; on 64 scenes with the EAST maps precomputed, a 4-step graph
    dispatch bit-equal to eager steps (and a restore under the graph),
    graph img/s over 3 windows of 9 dispatches of 16 steps, and the
@@ -266,8 +266,9 @@ Phases, in order; any failure raises and exits non-zero:
 36. the deeper backbones: east_resnet101 and pixellink_resnetv2_50
    forwards in float32 against the CPU (phase 4's check);
    east_resnet101 fused-arm steps at 512^2, batch 32 (fused kernels
-   launched, img/s over 2 windows of >= 3 s, peak memory); pixellink_resnet152 and
-   pixellink_resnet200 one fused and one ghost step each at batch 8
+   launched, img/s over 1 window of >= 3 s, peak memory);
+   pixellink_resnet152 and pixellink_resnet200 one fused and one ghost
+   step each at batch 8
    (the ghost units on the ghost path, peak memory);
    pixellink_resnetv2_50 one step with PALLAS_CONVS (its ConvBNs on the
    conv kernels); one east_resnet101 detect_batch at 8 x 1280x768 (NMS
@@ -297,14 +298,33 @@ Phases, in order; any failure raises and exits non-zero:
    bit-equal to the same dispatch with no process group under
    deterministic algorithms, the fused kernels launched at the capture;
    spatial_forward of the Predictor's model at 8 x 1280x768 at world 1:
-   maps and boxes equal to the Predictor's, the CC kernel launched; (b)
+   maps and boxes equal to the Predictor's, the CC kernel launched, and
+   of a fused-arm Predictor on the same weights, equal to its own, its
+   fused kernels launched; (b)
    two gloo ranks on the one card (gloo chosen by name): one eager fused
    step of the global batch of 32, 16 a rank, bit-equal on both ranks to
    one process running the two halves in turn from the same state and
    summing the gradients, BN buffers and metrics in rank order, halved
    (a two-rank sum is one addition); the same emulation with rank 1's
    gradients x 0.9 planted must differ; each rank's step ms, gradient
-   all-reduce ms and peak memory, with the card's name and power limit.
+   all-reduce ms and peak memory, with the card's name and power limit;
+39. the kernel arms served sharded on H (parallel/spatial.py), each
+   shard emulated on the one card: a one-shard forward of the whole
+   images (equal to the plain one) records each row read, then each shard
+   runs under a SPATIAL that slices its reads from the records;
+   pixellink_resnet50 at 2 x 1280x768 over 2 and 4 shards in five arms
+   (fused bf16 and float32, the PALLAS_CONVS route bf16 and float32, and
+   the ghost eval bf16 at 2 x 512^2: at 1280x768 pick_gh admits no ghost
+   unit): the stacked shard maps within 1e-5 (float32) or
+   1e-2 (bf16) of the whole forward's largest value, and in float32 the
+   boxes the CC kernel decodes from them equal; fused_conv_fwd(_f32) and
+   fused_boundary_fwd(_f32), or conv_fwd_tma(_f32), launched on every
+   shard at the extended heights printed (the 3x3s on the shard's rows
+   and one halo row each side), each held against its plain version at
+   every shape the shards give it; the ghost eval on every shard in the
+   units the whole image takes; a zero-halo planted fault beyond the
+   bound; one shard's device ms and peak memory beside the whole
+   forward's, with the card's name and power limit.
 
 The line before the last is a JSON object describing the fourteen
 kernels and the route's four float32 kernels (launches from the main
@@ -351,10 +371,11 @@ FWD_REL_TOL = 1e-4
 # windows, 10 s before, when the data phase came; 2 windows, 3 before,
 # since the multi-GPU phase 38 came; 3 s, 5 before, since the float32
 # route's phases came; 2 s, 3 before, since the float32 fused arm's
-# phases came)
+# phases came; the PixelLink and VGG windows 1 s, 2 before, since the
+# sharded kernel arms' phase 39 came)
 WINDOW_S = 2.0
 WINDOWS = 2
-PIXELLINK_WINDOW_S = 2.0
+PIXELLINK_WINDOW_S = 1.0
 # EAST detect and serve: one window each (each serve window holds 3
 # batches of ~4 s of host NMS; 2 windows until the float32 ghost arm's
 # phases came)
@@ -362,7 +383,7 @@ EAST_WINDOWS = 1
 # the train phases: bench.py's train shape, steps of the main path, and
 # the EAST eager train img/s read over TRAIN_WINDOWS windows of at least
 # TRAIN_WINDOW_S (10 s until the data phase came, 5 s until the float32
-# fused arm's phases came); the EAST graph img/s
+# fused arm's phases came, 3 s until phase 39 came); the EAST graph img/s
 # over TRAIN_WINDOWS windows of EAST_GRAPH_DISPATCHES dispatches of 16
 # steps, whose state, 16 + 3 x 9 x 16 = 448 steps from the seeded one,
 # is the EAST serving checkpoint (its step count fixed, not set by the
@@ -370,7 +391,7 @@ EAST_WINDOWS = 1
 TRAIN_SIZE = 512
 TRAIN_BATCH = 32
 TRAIN_STEPS = 3
-TRAIN_WINDOW_S = 3.0
+TRAIN_WINDOW_S = 2.0
 TRAIN_WINDOWS = 3
 EAST_GRAPH_DISPATCHES = 9
 EAST_SERVE_STEPS = 448
@@ -695,12 +716,13 @@ def phase_forward(device, model_name=MODEL):
     torch.backends.cudnn.allow_tf32 = True
 
 
-def scene_images(rng, n):
-    """uint8 (n, H, W, 3) scenes: flat colour patches crossed by dark
-    text-like bars, so that even random weights give coherent maps."""
+def scene_images(rng, n, hw=None):
+    """uint8 (n, H, W, 3) scenes of ``hw`` (H, W; IMAGE_HW by default):
+    flat colour patches crossed by dark text-like bars, so that even
+    random weights give coherent maps."""
     import numpy as np
 
-    h, w = IMAGE_HW
+    h, w = hw or IMAGE_HW
     coarse = rng.randint(0, 256, (n, h // 64 + 1, w // 64 + 1, 3))
     images = coarse.repeat(64, 1).repeat(64, 2)[:, :h, :w].astype(np.uint8)
     for img in images:
@@ -5636,8 +5658,8 @@ EAST_CALIB_IMAGES = 2
 EAST_CALIB_STEPS = 448
 DEEP_BATCH = 8            # ResNet-152/200 steps at 512^2
 # east_resnet101's eager img/s: DEEP_WINDOWS windows of >= DEEP_WINDOW_S
-# (3 windows until the float32 route's phases came)
-DEEP_WINDOWS = 2
+# (3 windows until the float32 route's phases came, 2 until phase 39)
+DEEP_WINDOWS = 1
 DEEP_WINDOW_S = 3.0
 DEEP_NMS_CANDIDATES = 128  # east_resnet101 detect's cap on NMS input
 
@@ -6529,7 +6551,8 @@ def mgpu_graph_rank(device="cuda") -> int:
     group, under deterministic(): every state tensor and metric bit-equal,
     the fused kernels launched at the capture; then spatial_forward of
     the Predictor's model at 8 x 1280x768, maps and boxes equal to the
-    Predictor's own, the CC kernel launched."""
+    Predictor's own, the CC kernel launched; the same through a fused-arm
+    Predictor on the same weights, its fused kernels launched."""
     import numpy as np
     import torch
     from tensorflow_ocr_tpu_torch.infer import Predictor
@@ -6605,12 +6628,36 @@ def mgpu_graph_rank(device="cuda") -> int:
     check(not maps_diff and same_boxes and cc > 0,
           f"phase 38 (a): spatial_forward at world 1: maps differ at "
           f"{maps_diff}, boxes equal {same_boxes}, cc launches {cc}")
+    # the fused arm on the same weights, served through the same path
+    fused = Predictor(MODEL, weights=pred.model.state_dict(), device=device,
+                      bottleneck_impl="fused")
+    fused.pixel_thresh, fused.link_thresh = pred.pixel_thresh, pred.link_thresh
+    with torch.inference_mode():
+        want_maps = fused.model(x)
+    want_boxes = fused.detect_batch(images)
+    spatial.spatial_predictor(fused, spatial.make_spatial_mesh(1, device))
+    reset_fused_counts()
+    got_fused = fused.detect_batch(images)
+    torch.cuda.synchronize()
+    launches = fused_counts()
+    maps_diff = unequal(fused.forward(x), want_maps)
+    same_fused = all(len(g) == len(w) and all(
+        np.array_equal(u, v) for u, v in zip(g, w))
+        for g, w in zip(got_fused, want_boxes))
+    check(not maps_diff and same_fused
+          and launches["fused_conv_fwd"] == FUSED_CONV_STEP_LAUNCHES
+          and launches["fused_boundary_fwd"] == FUSED_BOUNDARY_STEP_LAUNCHES,
+          f"phase 38 (a): the fused arm through spatial_forward at world 1:"
+          f" maps differ at {maps_diff}, boxes equal {same_fused}, fused "
+          f"launches {launches}")
     mgpu_line("graph", rank=0, steps=MGPU_STEPS, unequal=len(diff),
               captured=captured, step_ms_group=ms_group,
               step_ms_plain=ms_plain, allreduce_ms=ar_ms,
               allreduce_bytes=ar_bytes, peak_gib=peak,
               spatial_boxes=sum(len(g) for g in got_boxes),
-              spatial_cc_launches=cc)
+              spatial_cc_launches=cc,
+              spatial_fused_boxes=sum(len(g) for g in got_fused),
+              spatial_fused_launches=launches)
     import torch.distributed as dist
 
     dist.destroy_process_group()
@@ -6722,7 +6769,9 @@ def phase_multigpu():
           f"{a['allreduce_bytes']} bytes; peak memory "
           f"{a['peak_gib']:.2f} GiB; spatial_forward at world 1: "
           f"{a['spatial_boxes']} boxes equal to the Predictor's, cc "
-          f"launches {a['spatial_cc_launches']}")
+          f"launches {a['spatial_cc_launches']}; the fused arm's "
+          f"{a['spatial_fused_boxes']} boxes and maps equal to its "
+          f"Predictor's, launches {a['spatial_fused_launches']}")
     ranks, _ = run_ranks(2, "gloo")
     for r in sorted(ranks, key=lambda r: r["rank"]):
         print(f"phase 38 (b) gloo rank {r['rank']} of 2 on one card "
@@ -6737,6 +6786,359 @@ def phase_multigpu():
     dt = time.perf_counter() - t0
     print(f"phase 38: {dt:.1f} s (budget {MGPU_TIME_S:g} s)")
     check(dt <= MGPU_TIME_S, f"phase 38 took {dt:.1f} s")
+
+
+# ----------------------------------- H-sharded serving of the kernel arms
+
+SPATIAL_IMAGES = 2
+SPATIAL_SHARDS = (2, 4)
+# (label, bottleneck_impl, PALLAS_CONVS, float32, image (H, W), None for
+# IMAGE_HW); at 1280x768 pick_gh admits no unit (its TPU VMEM arithmetic:
+# block1's 320-pixel rows), so the ghost arm there would be the xla
+# model: it runs at 512^2, where block1 and block2 take the ghost eval
+# (5 units)
+SPATIAL_ARMS = (("fused", "fused", False, False, None),
+                ("fused f32", "fused", False, True, None),
+                ("route", "xla", True, False, None),
+                ("route f32", "xla", True, True, None),
+                ("ghost", "ghost", False, False, (512, 512)))
+# the stacked shards' maps against the whole image's, over the largest
+# value: float32 runs the same kernels on the same rows (a shard's cuDNN
+# convs, TF32 off, may take another algorithm than the whole image's);
+# bfloat16 rounds once more or less where they do
+SPATIAL_REL = {False: 1e-2, True: 1e-5}
+SPATIAL_PROFILED = 10  # calls a forward's device time is read over
+
+
+def spatial_kernels(impl, route, f32):
+    """{name: wrapper} of the kernels an arm's sharded forward must launch
+    on every shard (none for the ghost eval: plain ops, as in JAX)."""
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+    from tensorflow_ocr_tpu_torch.ops import fused as FU
+
+    sfx = "_f32" if f32 else ""
+    if impl == "fused":
+        return {f"fused_conv_fwd{sfx}": FU.conv_fwd32 if f32 else FU.conv_fwd,
+                f"fused_boundary_fwd{sfx}": (FU.boundary_fwd32 if f32
+                                             else FU.boundary_fwd)}
+    if route:
+        return {f"conv_fwd_tma{sfx}": CV.tma_fwd32 if f32 else CV.tma_fwd}
+    return {}
+
+
+@contextlib.contextmanager
+def spatial_kernel_checks(done, launched):
+    """Inside the block each launch of the fused forward, the fused
+    boundary and the route's forward products (ops/fused.py _launch_fwd,
+    _launch_boundary_fwd, ops/conv.py _fwd) is listed in ``launched`` as
+    (kernel, k, rows: a 3x3's height, a 1x1's pixel rows) and, at a shape
+    not yet in ``done``, held against its plain version on the same
+    inputs: bfloat16 outputs within one ulp (bf16_close), float32 by the
+    float32 rule against the float64 result (f32_rule; the boundary within
+    F32_BOUNDARY_ULPS of its plain version), the fused sums by sum_close.
+    The plain versions launch no kernel."""
+    import torch
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+    from tensorflow_ocr_tpu_torch.ops import fused as FU
+
+    fwd, bnd, cfwd = FU._launch_fwd, FU._launch_boundary_fwd, CV._fwd
+    f64 = torch.float64
+
+    def new(key):
+        fresh = key not in done
+        done.add(key)
+        return fresh
+
+    def fused_fwd(x, ab, w):
+        y, s = fwd(x, ab, w)
+        f32, k = x.dtype == torch.float32, w.shape[-1]
+        name = "fused_conv_fwd" + "_f32" * f32
+        launched.append((name, k, x.shape[2] if k == 3 else x[:, 0].numel()))
+        if new((name, tuple(x.shape), tuple(w.shape))):
+            label = f"sharded {name} {tuple(x.shape)} {k}x{k}"
+            py, ps = FU.conv_fwd_reference(x, ab, w)
+            if f32:
+                exact = FU.conv_fwd_reference(x.to(f64), ab.to(f64),
+                                              w.to(f64))[0]
+                f32_rule(label, y, py, exact)
+            else:
+                bf16_close(label, y, py)
+            sum_close(f"{label} s0", s[0], ps[0],
+                      py.float().abs().sum((0, 2, 3)))
+            sum_close(f"{label} s1", s[1], ps[1], ps[1])
+        return y, s
+
+    def boundary_fwd(z, ab, zs, abs_):
+        out = bnd(z, ab, zs, abs_)
+        name = "fused_boundary_fwd" + "_f32" * (z.dtype == torch.float32)
+        launched.append((name, 1, z[:, 0].numel()))
+        if new((name, tuple(z.shape))):
+            want = FU.boundary_fwd_reference(z, ab, zs, abs_)
+            label = f"sharded {name} {tuple(z.shape)}"
+            if z.dtype == torch.float32:
+                ulps_close(label, out, want, F32_BOUNDARY_ULPS)
+            else:
+                bf16_close(label, out, want)
+        return out
+
+    def route_fwd(x, wt, n, h, w, ci, co, k, name):
+        y = cfwd(x, wt, n, h, w, ci, co, k, name)
+        f32 = x.dtype == torch.float32
+        kernel = "conv_fwd_tma" + "_f32" * f32
+        launched.append((kernel, k, h if k == 3 else n * h * w))
+        if new((kernel, n, h, w, ci, co, k)):
+            label = f"sharded {kernel} ({n}, {h}, {w}, {ci}) -> {co} {k}x{k}"
+
+            def plain(xx, ww):
+                if k == 1:
+                    return CV.matmul_rows_reference(xx, ww.t())
+                w4 = ww.reshape(co, 3, 3, ci).permute(0, 3, 1, 2)
+                return CV.rows(CV.conv3_reference(CV.unrows(xx, n, h, w),
+                                                  w4))
+
+            py = plain(x, wt)
+            if f32:
+                f32_rule(label, y, py, plain(x.to(f64), wt.to(f64)))
+            else:
+                bf16_close(label, y, py)
+        return y
+
+    FU._launch_fwd, FU._launch_boundary_fwd = fused_fwd, boundary_fwd
+    CV._fwd = route_fwd
+    try:
+        yield
+    finally:
+        FU._launch_fwd, FU._launch_boundary_fwd, CV._fwd = fwd, bnd, cfwd
+
+
+def spatial_reads(seen, index, size, mode="sound"):
+    """``models/layers.py`` SPATIAL for shard ``index`` of ``size`` on one
+    card. ``mode`` "record" (one shard): each read of the whole images'
+    forward appends its tensor to ``seen``; "sound": each read comes from
+    that read's whole tensor in ``seen``, in order; "zero_halo", the
+    planted fault: as "sound", with the rows of the other shards zeros."""
+    from tensorflow_ocr_tpu_torch.parallel import spatial
+
+    class Reads(spatial.HaloRows):
+        def __init__(self):
+            super().__init__(index, size)
+            self.reads = iter(seen)
+
+        def _exchange(self, x, need, lo, hi):
+            if mode == "record":
+                seen.append(x)
+                return x[:, :, lo:hi]
+            rows = next(self.reads)[:, :, lo:hi]
+            if mode == "zero_halo":
+                h = x.shape[2]
+                a = max(self.index * h - lo, 0)
+                b = max((self.index + 1) * h - lo, 0)
+                rows = rows.clone()
+                rows[:, :, :a] = 0
+                rows[:, :, b:] = 0
+            return rows
+
+    return Reads()
+
+
+@contextlib.contextmanager
+def spatial_as(rows):
+    """models.layers.SPATIAL set to ``rows`` inside the block."""
+    from tensorflow_ocr_tpu_torch.models import layers as TL
+
+    old, TL.SPATIAL = TL.SPATIAL, rows
+    try:
+        yield
+    finally:
+        TL.SPATIAL = old
+
+
+def forward_cost(fn):
+    """A forward's device busy ms by torch.profiler and its ms by CUDA
+    events, each a call over SPATIAL_PROFILED calls, and the peak bytes
+    one call allocates above what was allocated before it; after a
+    warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = cuda_ms(fn, SPATIAL_PROFILED)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SPATIAL_PROFILED):
+            fn()
+        torch.cuda.synchronize()
+    return device_busy_ms(prof) / SPATIAL_PROFILED, ms, peak
+
+
+def phase_spatial_arms(device):
+    """Phase 39: the kernel arms served sharded on H, each shard emulated
+    on the one card (tests/test_torch_halo.py's pattern): a one-shard
+    forward of the whole images records each row read (and must equal the
+    plain forward), then each shard runs under a SPATIAL that slices its
+    reads from those records. pixellink_resnet50 at full width,
+    SPATIAL_IMAGES images (1280x768; the ghost arm 512^2), seeded weights
+    (logits at unit spread), 2 and 4 shards, the five SPATIAL_ARMS
+    (spatial_arm)."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.infer import Predictor
+    from tensorflow_ocr_tpu_torch.models import resnet as TR
+
+    t0 = time.perf_counter()
+    card = card_line()
+    images = {hw: scene_images(np.random.RandomState(39), SPATIAL_IMAGES,
+                               hw)
+              for hw in {None} | {a[-1] for a in SPATIAL_ARMS}}
+    base = Predictor(MODEL, device=device)
+    head_logit_scale(base, torch.from_numpy(images[None]).to(device),
+                     ("pixel_logits", "link_logits"))
+    weights = base.model.state_dict()
+    del base
+    ghost_eval = TR.GhostBottleneck._eval
+    evals = []
+
+    def counted_eval(self, o):
+        evals.append(o.shape[2])
+        return ghost_eval(self, o)
+
+    TR.GhostBottleneck._eval = counted_eval
+    try:
+        for *arm, hw in SPATIAL_ARMS:
+            spatial_arm(device, card, weights, images[hw], evals, *arm)
+            torch.cuda.empty_cache()
+    finally:
+        TR.GhostBottleneck._eval = ghost_eval
+    print(f"phase 39: {time.perf_counter() - t0:.1f} s")
+
+
+def spatial_arm(device, card, weights, images, evals, label, impl, route,
+                f32):
+    """One arm of phase 39: the stacked shard maps within SPATIAL_REL of
+    the whole forward's largest value; in float32 the boxes the CC kernel
+    decodes from them equal to the whole forward's; the arm's kernels
+    launched on every shard, at the extended heights printed, each held
+    against its plain version at every shape the shards give it
+    (spatial_kernel_checks); the ghost eval (``evals``: the units a
+    forward ran it in) on every shard in the units the whole image takes;
+    the zero-halo planted fault beyond the bound; one shard's device ms
+    and peak memory beside the whole forward's, with the card's name and
+    power limit. Each shard launches each kernel as often as the whole
+    forward does: the route and the ghost band decide on the whole
+    image's shape."""
+    import numpy as np
+    import torch
+    from tensorflow_ocr_tpu_torch.infer import Predictor, pixel_link_scores
+    from tensorflow_ocr_tpu_torch.ops import kernels as K
+    from tensorflow_ocr_tpu_torch.ops.fused import full_f32
+
+    dt = torch.float32 if f32 else torch.bfloat16
+    p = Predictor(MODEL, weights=weights, device=device, dtype=dt,
+                  bottleneck_impl=impl)
+    kernels = spatial_kernels(impl, route, f32)
+    bound = SPATIAL_REL[f32]
+    x = torch.from_numpy(images).to(device)
+    hs = images.shape[1]
+    done, launched, seen = set(), [], []
+
+    def shard_forward(n, q, mode="sound"):
+        with spatial_as(spatial_reads(seen, q, n, mode)):
+            return p.model(x[:, q * hs // n:(q + 1) * hs // n])
+
+    def shards(n, mode="sound", checked=False):
+        """The maps of the n shards stacked, and each shard's (launches,
+        3x3 heights, ghost eval units)."""
+        outs, per = [], []
+        for q in range(n):
+            for w in kernels.values():
+                w.launches = 0
+            launched.clear()
+            evals.clear()
+            with (spatial_kernel_checks(done, launched) if checked
+                  else contextlib.nullcontext()):
+                outs.append(shard_forward(n, q, mode))
+            torch.cuda.synchronize()
+            per.append(({k: w.launches for k, w in kernels.items()},
+                        sorted({h for _, k, h in launched if k == 3},
+                               reverse=True), len(evals)))
+        return {k: torch.cat([o[k] for o in outs], 1) for k in outs[0]}, per
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(pallas_convs(route))
+        stack.enter_context(torch.inference_mode())
+        if f32:
+            stack.enter_context(full_f32())
+        evals.clear()
+        for w in kernels.values():
+            w.launches = 0
+        whole = p.model(x)
+        whole_units = len(evals)
+        whole_counts = {k: w.launches for k, w in kernels.items()}
+        recorded = shard_forward(1, 0, "record")
+        check(not unequal(recorded, whole), f"phase 39 {label}: the "
+              "one-shard forward differs from the plain one")
+
+        def rel(maps):
+            return max(float((maps[k].float() - v.float()).abs().max()
+                             / v.float().abs().max())
+                       for k, v in whole.items())
+
+        ps, ls = pixel_link_scores(whole)
+        p.pixel_thresh = float(torch.quantile(ps.float().flatten()[::7],
+                                              0.8))
+        p.link_thresh = float(torch.quantile(ls.float().flatten()[::7], 0.3))
+        K.connected_components.launches = 0
+        want_boxes = p.detect_batch(images)
+        torch.cuda.synchronize()
+        check(K.connected_components.launches > 0 and sum(map(
+            len, want_boxes)) > 0, f"phase 39 {label}: no CC launch or no "
+            "box")
+        check((whole_units > 0) == (impl == "ghost"),
+              f"phase 39 {label}: {whole_units} ghost eval units")
+        w_cost = forward_cost(lambda: p.model(x))
+        for n in SPATIAL_SHARDS:
+            stacked, per = shards(n, checked=True)
+            err = rel(stacked)
+            p.forward = lambda _, m=stacked: m
+            got_boxes = p.detect_batch(images)
+            p.forward = p.model
+            same = all(len(g) == len(w) and all(
+                np.array_equal(u, v) for u, v in zip(g, w))
+                for g, w in zip(got_boxes, want_boxes))
+            planted = rel(shards(n, "zero_halo")[0])
+            s_cost = forward_cost(lambda: shard_forward(n, 1))
+            for i, (counts, heights, units) in enumerate(per):
+                print(f"phase 39 {label} {n} shards, shard {i}: launches "
+                      f"{counts}, 3x3 kernel rows {heights}, ghost eval "
+                      f"units {units} (whole image: {whole_counts}, "
+                      f"{whole_units})")
+            print(f"phase 39 {label} {n} shards [{card}]: maps "
+                  f"max|stacked-whole|/max|whole| {err:.3e} (bound "
+                  f"{bound:g}), zero-halo fault {planted:.3e}; boxes "
+                  f"{[len(b) for b in got_boxes]} "
+                  f"{'equal' if same else 'not equal'} to the whole "
+                  f"forward's {[len(b) for b in want_boxes]}; shard 1 of "
+                  f"{n}: device {s_cost[0]:.3f} ms, events "
+                  f"{s_cost[1]:.3f} ms, peak {s_cost[2] / 2**20:.1f} MiB; "
+                  f"whole: device {w_cost[0]:.3f} ms, events "
+                  f"{w_cost[1]:.3f} ms, peak {w_cost[2] / 2**20:.1f} MiB")
+            check(err <= bound, f"phase 39 {label} {n} shards: the stacked "
+                  f"maps differ by {err:.3e}")
+            check(planted > bound, f"phase 39 {label} {n} shards: the "
+                  "zero-halo fault reads as sound")
+            check(same or not f32, f"phase 39 {label} {n} shards: the "
+                  "boxes differ from the whole forward's")
+            check(all(all(c.values()) and c == whole_counts
+                      and u == whole_units for c, _, u in per),
+                  f"phase 39 {label} {n} shards: a shard did not launch "
+                  "the whole image's kernels or run its ghost units")
+    print(f"phase 39 {label}: {len(done)} kernel shapes held against their "
+          "plain versions")
 
 
 def main() -> int:
@@ -6869,6 +7271,7 @@ def main() -> int:
     phase_backbones(device)
     phase_entry_points(device)
     phase_multigpu()
+    phase_spatial_arms(device)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

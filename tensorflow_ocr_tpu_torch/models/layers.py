@@ -22,7 +22,9 @@ a float32 product).
 ``SPATIAL`` is set only inside an H-sharded forward
 (``parallel/spatial.py``): the convs, max-pools and unpools below then
 take the pads of the whole image's height and fetch the rows outside
-their shard from the ranks that hold them.
+their shard from the ranks that hold them; a kernel that pads a 3x3
+itself runs on the shard's rows and their halo (:func:`kernel_rows`);
+the route decides on the whole image's shape.
 """
 
 from __future__ import annotations
@@ -111,6 +113,29 @@ def full_height(x: torch.Tensor) -> int:
     """The image's height at ``x``'s level: its own, or under an
     H-sharded forward the sum of every shard's."""
     return SPATIAL.full(x) if SPATIAL is not None else x.shape[-2]
+
+
+def full_batch(x: torch.Tensor) -> int:
+    """The batch ``x`` is part of: its own, or under an H-sharded forward
+    on a (data, space) grid the sum over the data axis."""
+    return SPATIAL.batch(x) if SPATIAL is not None else x.shape[0]
+
+
+def kernel_rows(x: torch.Tensor, kernel: int, op):
+    """``op(x)`` for a stride-1 SAME window of ``kernel`` rows that ``op``
+    pads itself (a conv kernel). Under an H-sharded forward ``op`` runs on
+    the shard's rows extended by their halo (``HaloRows.halo``) and its
+    output, or the first item of the tuple it returns, is cropped to the
+    shard's rows, channels-last; the tuple's other items are the extended
+    rows' (the fused kernels' sums, which eval does not read)."""
+    if SPATIAL is None:
+        return op(x)
+    xe, off = SPATIAL.halo(x, kernel)
+    out = op(xe)
+    y = out[0] if isinstance(out, tuple) else out
+    y = y[:, :, off:off + x.shape[-2]].contiguous(
+        memory_format=torch.channels_last)
+    return (y, *out[1:]) if isinstance(out, tuple) else y
 
 
 def conv2d_pads(x: torch.Tensor, wgt: torch.Tensor,
@@ -216,16 +241,20 @@ class ConvBN(nn.Module):
         """Whether this conv takes the ``PALLAS_CONVS`` route: SAME
         padding (not slim's explicit pad at stride > 1), no dilation, and
         a shape that ``ops.conv.supported`` takes (models/layers.py:
-        131-135)."""
+        131-135), the whole image's under an H-sharded forward (JAX
+        decides on the global shape)."""
         k, s, d = self.kernel, self.stride, self.dilation
-        n, ci, h, w = x.shape
+        ci, w = x.shape[1], x.shape[3]
         return (_pallas_convs_enabled(x)
                 and not (self.explicit_pad and s > 1)
-                and CV.supported((n, h, w, ci), (k, k), (s, s), (d, d),
+                and CV.supported((full_batch(x), full_height(x), w, ci),
+                                 (k, k), (s, s), (d, d),
                                  self.conv.out_channels))
 
     def _conv(self, x: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
         if self._routed(x):
+            if self.kernel == 3:  # SAME inside the kernel
+                return kernel_rows(x, 3, lambda t: CV.conv2d(t, wgt))
             return CV.conv2d(x, wgt, (self.stride, self.stride))
         return conv2d_pads(x, wgt, None, self.stride, self.dilation,
                            self._pads(full_height(x), x.shape[-1]))

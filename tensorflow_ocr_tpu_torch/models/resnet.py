@@ -29,6 +29,9 @@ from torch import nn
 
 from tensorflow_ocr_tpu_torch.models.layers import (
     ConvBN,
+    conv2d_pads,
+    full_height,
+    kernel_rows,
     stem_max_pool,
     update_running_stats,
 )
@@ -116,7 +119,9 @@ class FusedBottleneck(Bottleneck):
 
         z1, s1 = FU.fused_conv1x1(o, ident(cin), self.conv1.conv.weight.to(dt))
         ab1 = self._affine(self.conv1, s1, count, train)
-        z2, s2 = FU.fused_conv3x3(z1, ab1, self.conv2.conv.weight.to(dt))
+        w2 = self.conv2.conv.weight.to(dt)
+        # under an H-sharded forward (eval) on the shard's rows and halo
+        z2, s2 = kernel_rows(z1, 3, lambda t: FU.fused_conv3x3(t, ab1, w2))
         ab2 = self._affine(self.conv2, s2, count, train)
         z3, s3 = FU.fused_conv1x1(z2, ab2, self.conv3.conv.weight.to(dt))
         ab3 = self._affine(self.conv3, s3, count, train)
@@ -156,7 +161,10 @@ class GhostBottleneck(Bottleneck):
                           proj=self.shortcut is not None)
 
     def forward(self, o: torch.Tensor, train: bool = False) -> torch.Tensor:
-        gh = self.band_height(o.shape)
+        # at the whole image's height under an H-sharded forward, as JAX
+        # picks the unit from the global shape
+        n, c, _, w = o.shape
+        gh = self.band_height((n, c, full_height(o), w))
         if gh is None:
             return super().forward(o, train)
         dt = o.dtype
@@ -195,8 +203,11 @@ class GhostBottleneck(Bottleneck):
             return torch.relu(z.float() * a + b).to(dt)
 
         def conv(x, cbn):
-            k = cbn.kernel
-            return F.conv2d(x, cbn.conv.weight.to(dt), padding=k // 2)
+            w = cbn.conv.weight.to(dt)
+            if cbn.kernel == 1:
+                return F.conv2d(x, w)
+            # SAME (JAX's conv3x3); the halo rows under an H-sharded forward
+            return conv2d_pads(x, w, None, 1, 1, (1, 1, 1, 1))
 
         act2 = bn_relu(conv(bn_relu(conv(o, self.conv1), self.conv1),
                             self.conv2), self.conv2)

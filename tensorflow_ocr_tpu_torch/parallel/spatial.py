@@ -4,9 +4,9 @@ Port of ``tensorflow_ocr_tpu/parallel/spatial.py:20-92``. JAX splits the
 image's H axis over a ``space`` mesh axis (and the batch over ``data``
 in the 2-D layout) and lets GSPMD insert the halo exchanges of every
 conv and pool. The port runs one process per GPU: each rank holds its
-rows of the image, the eval model (BN folded, cuDNN convs) runs on them,
-and every op that reads across a shard's edge fetches those rows from
-the ranks that own them (NCCL ``batch_isend_irecv`` on the card, gloo
+rows of the image, the eval model (BN folded) runs on them, and every
+op that reads across a shard's edge fetches those rows from the ranks
+that own them (NCCL ``batch_isend_irecv`` on the card, gloo
 send/recv on the CPU). The output maps are then all-gathered, so every
 rank holds them whole (JAX replicates its outputs, spatial.py:63-64),
 and a :class:`~tensorflow_ocr_tpu_torch.infer.Predictor` decodes them
@@ -15,19 +15,33 @@ with the CC kernel as it decodes its own (:func:`spatial_predictor`).
 The ops that read across rows (``models/layers.py``): ConvBN (the
 slim ``conv2d_same`` 7x7/2 and 3x3/2 of the ResNet included), the stem
 max-pool, the bilinear unpool, VGG's max-pools and convs (``fc6``'s 3x3
-at dilation 6), ResNet-v2's convs, and through ConvBN the EAST merge's
-3x3s. Each derives its halo from the output rows its shard owns: rows
-``[o0·s - top, (o1-1)·s - top + k)`` of the input for outputs
-``[o0, o1)`` of a k-row window at stride s with the whole image's pads
-(top, bottom); zero, -inf or edge rows fill only past the image's top
-and bottom. A halo may span several ranks (``fc6`` at stride 16 of a
-128-row image over 4 ranks: 2 rows a shard, 6 needed each side).
+at dilation 6), ResNet-v2's convs, the ghost unit's eval 3x3, and
+through ConvBN the EAST merge's 3x3s. Each derives its halo from the
+output rows its shard owns: rows ``[o0·s - top, (o1-1)·s - top + k)``
+of the input for outputs ``[o0, o1)`` of a k-row window at stride s
+with the whole image's pads (top, bottom); zero, -inf or edge rows fill
+only past the image's top and bottom. A halo may span several ranks
+(``fc6`` at stride 16 of a 128-row image over 4 ranks: 2 rows a shard,
+6 needed each side).
 
 The image's height must be a multiple of 32·space (spatial.py:77, :89),
-so every level up to stride 32 splits evenly. The fused and ghost
-bottlenecks and the ``PALLAS_CONVS`` route tile H inside their kernels:
-a model that would run them is refused, where JAX's GSPMD replicates a
-``pallas_call`` (ROADMAP.md Queue 3).
+so every level up to stride 32 splits evenly. The kernel arms serve
+sharded too (``bottleneck_impl`` "fused" and "ghost", the
+``PALLAS_CONVS`` route, bfloat16 and float32), with every kernel run on
+its shard's rows: JAX's GSPMD gathers a ``pallas_call``'s operands and
+runs it whole, the port computes the same function without a gather.
+Row-local kernels (1x1 convs, the fused boundary) take the shard as it
+is. A kernel that pads a stride-1 3x3 itself (the fused 3x3, the
+route's 3x3) takes the shard's rows extended by one halo row each side
+(:meth:`HaloRows.halo`) and its output is cropped to the shard's rows:
+the halo rows are real rows, so the fused prologue relu(x·a + b) sees
+them as on the whole image, and the kernel's own zero fill lands only
+past the image or on rows the crop drops. Decisions JAX takes from the
+global shape (the route's ``supported``, the ghost unit's band) are
+taken from the whole image's (``models/layers.py`` ``full_height``,
+``full_batch``), so every shard runs the convs and units the whole
+image runs. Serving only: a train step sharded on H is not in the JAX
+package either.
 """
 
 from __future__ import annotations
@@ -130,16 +144,21 @@ def unpool_rows(rows: int, index: int) -> Tuple[int, int]:
 
 class HaloRows:
     """``models/layers.py`` ``SPATIAL`` for one rank of an H-sharded
-    forward: shard ``index`` of ``size``, every shard the same height.
-    :meth:`rows` gathers global rows from their owners
-    (:meth:`_exchange`)."""
+    forward: shard ``index`` of ``size``, every shard the same height,
+    the batch split ``data`` ways beside it. :meth:`rows` gathers global
+    rows from their owners (:meth:`_exchange`)."""
 
-    def __init__(self, index: int, size: int, ranks=(), group=None):
+    def __init__(self, index: int, size: int, ranks=(), group=None,
+                 data: int = 1):
         self.index, self.size = index, size
         self.ranks, self.group = tuple(ranks), group
+        self.data = data
 
     def full(self, x: torch.Tensor) -> int:
         return x.shape[-2] * self.size
+
+    def batch(self, x: torch.Tensor) -> int:
+        return x.shape[0] * self.data
 
     def rows(self, x: torch.Tensor, need: Callable[[int], Tuple[int, int]]
              ) -> Tuple[torch.Tensor, int, int]:
@@ -194,6 +213,19 @@ class HaloRows:
         return self.rows(x, lambda q: window_rows(
             height, self.size, q, kernel, stride, top, bottom))
 
+    def halo(self, x: torch.Tensor, kernel: int
+             ) -> Tuple[torch.Tensor, int]:
+        """The rows a stride-1 SAME window of ``kernel`` rows reads for
+        this shard's outputs where the op pads itself (a conv kernel):
+        the shard's rows extended by ``kernel // 2`` halo rows each side,
+        not past the image's top and bottom, channels-last contiguous, and
+        the offset of the shard's first row in them. The op runs on the
+        extended rows, its own padding and all; rows ``[offset, offset +
+        h)`` of its output are the shard's."""
+        p = kernel // 2
+        xe, above, _ = self.window(x, kernel, 1, p, p)
+        return xe.contiguous(memory_format=torch.channels_last), p - above
+
     def unpool(self, x: torch.Tensor) -> torch.Tensor:
         """The 2x bilinear unpool of this shard's rows, bit for bit the
         rows of the whole image's: one neighbour row each side, and at
@@ -208,30 +240,6 @@ class HaloRows:
         return y[:, :, start:start + 2 * h]
 
 
-def refuse_kernel_arms(model: torch.nn.Module, device) -> None:
-    """Raise where the model would run a kernel that tiles H itself: the
-    fused or ghost bottlenecks, or the ``PALLAS_CONVS`` route."""
-    from tensorflow_ocr_tpu_torch.models.resnet import (
-        FusedBottleneck,
-        GhostBottleneck,
-    )
-
-    for m in model.modules():
-        for cls, arm in ((FusedBottleneck, "fused"), (GhostBottleneck,
-                                                      "ghost")):
-            if isinstance(m, cls):
-                raise NotImplementedError(
-                    f"spatial sharding of bottleneck_impl={arm!r}: its "
-                    "kernels tile H inside themselves; serve the 'xla' "
-                    "model (the same state_dict)")
-    on = layers.PALLAS_CONVS
-    if on or (on is None and torch.device(device).type == "cuda"):
-        raise NotImplementedError(
-            "spatial sharding of the PALLAS_CONVS route: its conv kernels "
-            "tile H inside themselves; set models.layers.PALLAS_CONVS = "
-            "False")
-
-
 def _all_gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     if group is None or n == 1:
         return t
@@ -243,9 +251,8 @@ def _all_gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
 
 def _sharded_forward(model: torch.nn.Module, mesh: SpatialMesh
                      ) -> Callable[[Any], Dict[str, torch.Tensor]]:
-    refuse_kernel_arms(model, mesh.device)
     rows = HaloRows(mesh.space_index, mesh.space, mesh.space_ranks,
-                    mesh.space_group)
+                    mesh.space_group, mesh.data)
 
     @torch.inference_mode()
     def run(images) -> Dict[str, torch.Tensor]:

@@ -8,9 +8,9 @@ device of ``make_mesh(4)``), drops the file names and refuses a batch
 that does not split. ``make_mesh`` refuses a ``num_devices`` other than
 the world's size. ``make_multi_train_step`` refuses gloo on CUDA tensors
 (a CUDA graph cannot capture a host sync; it never runs eagerly on the
-card). The H-sharded forward refuses the fused and ghost arms and the
-``PALLAS_CONVS`` route, whose kernels tile H, and an image height that
-is not a multiple of 32 x space.
+card). The H-sharded forward refuses an image height that is not a
+multiple of 32 x space (its kernel arms are served:
+tests/test_torch_spatial_fused.py, _ghost.py, _route.py).
 """
 
 import types
@@ -22,7 +22,7 @@ import torch
 from tensorflow_ocr_tpu.parallel import make_mesh as jax_make_mesh
 from tensorflow_ocr_tpu.parallel import shard_batch as jax_shard_batch
 from tensorflow_ocr_tpu_torch.config import Config
-from tensorflow_ocr_tpu_torch.models import build_model, layers
+from tensorflow_ocr_tpu_torch.models import build_model
 from tensorflow_ocr_tpu_torch.parallel import (DataGroup, make_mesh,
                                                shard_batch, spatial)
 from tensorflow_ocr_tpu_torch.parallel.mesh import backend_for
@@ -72,17 +72,9 @@ def test_multi_step_refuses_gloo_on_cuda_tensors():
         TT.make_multi_train_step(cuda_state, Config(), group=gloo)
 
 
-def test_spatial_refuses_the_kernel_arms(monkeypatch):
+def test_spatial_refuses_a_height_off_32_x_space():
     mesh = spatial.make_spatial_mesh(1, "cpu")
-    for impl in ("fused", "ghost"):
-        model = build_model("pixellink_resnet50", bottleneck_impl=impl)
-        with pytest.raises(NotImplementedError, match=impl):
-            spatial.spatial_forward(model, mesh)
     model = build_model("pixellink_tiny", dtype=torch.float32)
-    monkeypatch.setattr(layers, "PALLAS_CONVS", True)
-    with pytest.raises(NotImplementedError, match="PALLAS_CONVS"):
-        spatial.spatial_forward(model, mesh)
-    monkeypatch.setattr(layers, "PALLAS_CONVS", False)
     run = spatial.spatial_forward(model, mesh)
     with pytest.raises(ValueError, match="multiple of 32"):
         run(np.zeros((1, 48, 32, 3), np.float32))

@@ -10,11 +10,13 @@ its inputs from that directory (``spec.json``, ``weights.pt`` and the
     python tests/test_torch_rank_worker.py <task> <rank> <world> <dir>
 
 Tasks: ``step`` (one train step), ``multi`` (one multi-step dispatch),
-``spatial`` (the H-sharded or (data, space) forward), ``trainer``
+``spatial`` (the H-sharded or (data, space) forward of the spec's
+arm: ``bottleneck_impl`` and ``pallas_convs``), ``trainer``
 (Trainer.run from the host loader: resume bit-equal to an uninterrupted
 run; a preemption flag on one rank; the world-size checks).
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -112,19 +114,67 @@ def task_multi(group, workdir, spec):
     return {"state": TT.state_tensors(state), "metrics": m}
 
 
-def task_spatial(group, workdir, spec):
+@contextlib.contextmanager
+def arm_calls():
+    """Counts what a forward runs of the kernel arms, inside the block:
+    ``route`` the (k, input height) of each ``ops/conv.py`` conv2d call
+    (the PALLAS_CONVS route), ``fused3x3`` the input height of each fused
+    3x3, ``ghost_eval`` the GhostBottleneck units on the ghost eval."""
+    from tensorflow_ocr_tpu_torch.models import resnet
+    from tensorflow_ocr_tpu_torch.ops import conv as CV
+    from tensorflow_ocr_tpu_torch.ops import fused as FU
+
+    calls = {"route": [], "fused3x3": [], "ghost_eval": 0}
+    conv2d, fused3, ghost_eval = (CV.conv2d, FU.fused_conv3x3,
+                                  resnet.GhostBottleneck._eval)
+
+    def route(x, w, *a):
+        calls["route"].append((w.shape[-1], x.shape[2]))
+        return conv2d(x, w, *a)
+
+    def fused3x3(x, ab, w):
+        calls["fused3x3"].append(x.shape[2])
+        return fused3(x, ab, w)
+
+    def counted_eval(self, o):
+        calls["ghost_eval"] += 1
+        return ghost_eval(self, o)
+
+    CV.conv2d, FU.fused_conv3x3 = route, fused3x3
+    resnet.GhostBottleneck._eval = counted_eval
+    try:
+        yield calls
+    finally:
+        CV.conv2d, FU.fused_conv3x3 = conv2d, fused3
+        resnet.GhostBottleneck._eval = ghost_eval
+
+
+def arm_model(spec, weights):
+    """The float32 model of ``spec`` (its ``bottleneck_impl``) with
+    ``weights``."""
     from tensorflow_ocr_tpu_torch.models import build_model
+
+    model = build_model(spec["model"], dtype=torch.float32,
+                        bottleneck_impl=spec.get("bottleneck_impl", "xla"))
+    model.load_state_dict(weights)
+    return model
+
+
+def task_spatial(group, workdir, spec):
+    from tensorflow_ocr_tpu_torch.models import layers
     from tensorflow_ocr_tpu_torch.parallel import spatial
 
-    model = build_model(spec["model"], dtype=torch.float32)
-    model.load_state_dict(torch.load(os.path.join(workdir, "weights.pt")))
+    layers.PALLAS_CONVS = spec.get("pallas_convs", False)
+    model = arm_model(spec, torch.load(os.path.join(workdir, "weights.pt")))
     mesh = (spatial.make_spatial_mesh(group.world, "cpu")
             if spec["data_axis"] == 1 else
             spatial.make_hybrid_mesh(spec["data_axis"],
                                      group.world // spec["data_axis"], "cpu"))
     run = (spatial.spatial_forward if mesh.data == 1
            else spatial.hybrid_forward)(model, mesh)
-    return {"maps": run(_npz(workdir, "images")["images"])}
+    with arm_calls() as calls:
+        maps = run(_npz(workdir, "images")["images"])
+    return {"maps": maps, "calls": calls}
 
 
 def _trainer_cfg(workdir, tag, **train):
