@@ -308,6 +308,15 @@ Phases, in order; any failure raises and exits non-zero:
    (a two-rank sum is one addition); the same emulation with rank 1's
    gradients x 0.9 planted must differ; each rank's step ms, gradient
    all-reduce ms and peak memory, with the card's name and power limit;
+   then per-rank shard reading of 8 synthetic 1280x720 frames (global
+   batch 8, 512^2, crop and rotation on the host): each rank's
+   ResumableLoader(group) batches bit-equal to its rows of a world-1
+   loader's, file names too, prepare_sample run 4 times a batch against
+   8, the state bytes equal on both ranks and to world-1's, batch 1
+   resumed from rank 0's state bit-equal; one eager fused step from
+   DevicePrefetcher(group) over the per-rank chain bit-equal to the step
+   on the whole reader's rows and across ranks, the fused kernels
+   launched; each rank's host seconds a batch, per-rank and whole;
 39. the kernel arms served sharded on H (parallel/spatial.py), each
    shard emulated on the one card: a one-shard forward of the whole
    images (equal to the plain one) records each row read, then each shard
@@ -6468,6 +6477,9 @@ def phase_entry_points(device):
 MGPU_STEPS = 4        # (a): the captured dispatch's steps
 MGPU_TIME_S = 120.0   # the phase's budget, both process groups included
 MGPU_TIMED = 3        # timed repeats of each step and all-reduce
+MGPU_FRAMES = 8       # (b): 1280x720 synthetic frames the readers read
+MGPU_READ_BATCH = 8   # (b): the readers' global batch, 4 a rank
+MGPU_READ_TIMED = 2   # (b): batches each reader is timed over
 
 
 def mgpu_line(tag, **fields):
@@ -6664,14 +6676,15 @@ def mgpu_graph_rank(device="cuda") -> int:
     return 0
 
 
-def mgpu_gloo_rank(device=None) -> int:
+def mgpu_gloo_rank(frames, device=None) -> int:
     """(b) One of two gloo ranks on the one card (backend chosen by
     name): one eager fused step of the global batch of TRAIN_BATCH, half
     a rank; rank 0 then runs two_halves from the same state and holds
     the ranks' state and metrics against it (bit-equal: a two-rank sum
     is one addition), and reads the same step with rank 1's gradients
     x 0.9 planted, which must differ; then each rank times its step and
-    its gradient all-reduce."""
+    its gradient all-reduce; then per-rank shard reading of the frames
+    at ``frames`` (mgpu_reader)."""
     import numpy as np
     import torch
     from tensorflow_ocr_tpu_torch.parallel import make_mesh, multihost
@@ -6715,19 +6728,140 @@ def mgpu_gloo_rank(device=None) -> int:
                                                 group=group))
     ar_ms, ar_bytes = allreduce_ms(group, state.model)
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    del state
+    reader = mgpu_reader(group, device, frames, snap)
     mgpu_line("gloo", rank=group.rank, step_ms=step_ms, allreduce_ms=ar_ms,
               allreduce_bytes=ar_bytes, peak_gib=peak, max_rel=sound,
               planted_max_rel=planted,
-              total_loss=float(m["total_loss"]))
+              total_loss=float(m["total_loss"]), **reader)
     import torch.distributed as dist
 
     dist.destroy_process_group()
     return 0
 
 
-def run_ranks(n, mode):
+def mgpu_reader(group, device, frames, snap):
+    """(b) Per-rank shard reading on one gloo rank: ResumableLoader given
+    the group (global batch MGPU_READ_BATCH of the frames at ``frames``,
+    512^2, the host's crop and rotation on) against a world-1 loader on
+    the same frames: its batches 0 .. MGPU_READ_TIMED bit-equal to the
+    rank's rows of the world-1 batches, file names too; prepare_sample
+    run B/2 times a batch against B; the state bytes equal on both ranks
+    and to world-1's, and a fresh per-rank loader given rank 0's state
+    after batch 0 replaying batch 1; one eager fused step from
+    DevicePrefetcher(group) over the per-rank chain, bit-equal to the
+    step on the rows the group cuts from the world-1 batch 0 and on both
+    ranks, the fused kernels launched. The host seconds of a batch,
+    per-rank and whole, timed over batches 1 .. MGPU_READ_TIMED (the
+    frames decoded and cached by then: a warm read). Returns the fields
+    of the rank's MGPU line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tensorflow_ocr_tpu_torch.data import icdar
+    from tensorflow_ocr_tpu_torch.data.pipeline import (DevicePrefetcher,
+                                                        PrefetchLoader)
+    from tensorflow_ocr_tpu_torch.data.resumable import ResumableLoader
+    from tensorflow_ocr_tpu_torch.parallel.dryrun import _agree
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    cfg = data_config(frames)
+    cfg.data.batch_size = big = MGPU_READ_BATCH
+    cfg.data.use_crop = cfg.data.use_rotate = True
+    rows, seed = group.rows(big), 38
+    calls = []
+    prepare = icdar.prepare_sample
+
+    def counted(*a, **k):
+        calls.append(a[0])
+        return prepare(*a, **k)
+
+    def read(it):
+        group.barrier()  # both ranks read alike at once
+        n, t0 = len(calls), time.perf_counter()
+        batch = next(it)
+        return batch, len(calls) - n, time.perf_counter() - t0
+
+    def same_rows(got, whole):
+        return got["fns"] == whole["fns"][rows] and all(
+            np.array_equal(got[k], whole[k][rows])
+            for k in whole if k != "fns")
+
+    icdar.prepare_sample = counted
+    try:
+        whole = ResumableLoader(cfg.data, seed=seed)
+        mine = ResumableLoader(cfg.data, seed=seed, group=group)
+        # batch 0: the whole reader decodes every frame (an epoch is one
+        # batch), so the timed batches after it read the cache alike
+        reads = [(read(whole), read(mine))]
+        state = mine.get_state()
+        for _ in range(MGPU_READ_TIMED):
+            reads.append((read(whole), read(mine)))
+        whole.stop()
+        mine.stop()
+        states = [None] * group.world
+        dist.all_gather_object(states, state, group=group.group)
+        fresh = ResumableLoader(cfg.data, seed=seed, group=group)
+        fresh.set_state(states[0])  # rank 0's
+        again = next(fresh)
+        fresh.stop()
+    finally:
+        icdar.prepare_sample = prepare
+    rows_equal = all(same_rows(m[0], w[0]) for w, m in reads)
+    counts = sorted({(m[1], w[1]) for w, m in reads})
+    check(rows_equal, f"phase 38 (b) reader: rank {group.rank}'s batches "
+          f"differ from its rows of the world-1 batches")
+    check(counts == [(big // group.world, big)],
+          f"phase 38 (b) reader: prepare_sample calls (per rank, whole) a "
+          f"batch {counts}")
+    check(len(set(states)) == 1 and states[0] == whole.state_at(1),
+          f"phase 38 (b) reader: the state bytes differ across the ranks "
+          f"or from world-1's: {states}")
+    check(same_rows(again, reads[1][0][0]),
+          "phase 38 (b) reader: batch 1 resumed from rank 0's state differs")
+
+    loss_fn = T.make_loss_fn(cfg)
+    chain = DevicePrefetcher(
+        PrefetchLoader(cfg.data, source=ResumableLoader(
+            cfg.data, seed=seed, group=group)), device, group=group)
+    with deterministic():
+        try:
+            batch = next(chain)
+        finally:
+            chain.stop()
+        check(len(batch["images"]) == big // group.world,
+              f"phase 38 (b) reader: the prefetcher gave "
+              f"{len(batch['images'])} rows")
+        a = T.create_train_state(cfg, device, weights=snap)
+        reset_fused_counts()
+        ma = T.train_step(a, T.device_batch(batch, device, False, group, big),
+                          cfg, loss_fn, group=group)
+        torch.cuda.synchronize()
+        launched = fused_counts()
+        b = T.create_train_state(cfg, device, weights=snap)
+        mb = T.train_step(b, T.device_batch(reads[0][0][0], device, False,
+                                            group, big),
+                          cfg, loss_fn, group=group)
+        diff = unequal(leaves(a), leaves(b)) + unequal(ma, mb)
+        _agree(group, a, "phase 38 (b) reader step")
+    check(not diff, f"phase 38 (b) reader: the step from the per-rank "
+          f"reader differs from the step on the whole reader's rows at "
+          f"{diff[:4]}")
+    check(all(launched.values()), f"phase 38 (b) reader: fused launches "
+          f"{launched}")
+    check(float(ma["n_pos"]) > 0, "phase 38 (b) reader: no text")
+    del a, b
+    torch.cuda.empty_cache()
+    return {"read_s_rank": [m[2] for _, m in reads[1:]],
+            "read_s_whole": [w[2] for w, _ in reads[1:]],
+            "read_calls": counts[0], "read_launches": launched,
+            "read_loss": float(ma["total_loss"])}
+
+
+def run_ranks(n, mode, frames=None):
     """``python -m torch.distributed.run --standalone --nproc_per_node=n
-    chip_smoke.py --multigpu-rank mode``: its MGPU lines and seconds."""
+    chip_smoke.py --multigpu-rank mode [--multigpu-frames frames]``: its
+    MGPU lines and seconds."""
     env = dict(os.environ, PYTHONPATH=REPO)
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
               "MASTER_PORT"):
@@ -6736,7 +6870,9 @@ def run_ranks(n, mode):
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          f"--nproc_per_node={n}", os.path.join(REPO, "chip_smoke.py"),
-         "--multigpu-rank", mode], cwd=REPO, env=env, capture_output=True,
+         "--multigpu-rank", mode]
+        + (["--multigpu-frames", frames] if frames else []),
+        cwd=REPO, env=env, capture_output=True,
         text=True, timeout=300)
     dt = time.perf_counter() - t0
     lines = [json.loads(ln[5:]) for ln in proc.stdout.splitlines()
@@ -6772,7 +6908,14 @@ def phase_multigpu():
           f"launches {a['spatial_cc_launches']}; the fused arm's "
           f"{a['spatial_fused_boxes']} boxes and maps equal to its "
           f"Predictor's, launches {a['spatial_fused_launches']}")
-    ranks, _ = run_ranks(2, "gloo")
+    from tensorflow_ocr_tpu_torch.data.icdar import make_synthetic_dataset
+
+    frames = scratch_dir("mgpu_frames_")
+    make_synthetic_dataset(frames, MGPU_FRAMES, DATA_HW, seed=38)
+    try:
+        ranks, _ = run_ranks(2, "gloo", frames)
+    finally:
+        shutil.rmtree(frames, ignore_errors=True)
     for r in sorted(ranks, key=lambda r: r["rank"]):
         print(f"phase 38 (b) gloo rank {r['rank']} of 2 on one card "
               f"[{card}]: eager fused step of {TRAIN_BATCH // 2} "
@@ -6783,6 +6926,22 @@ def phase_multigpu():
                  f"; against the two-halves emulation max rel "
                  f"{r['max_rel']:.3e} (bit-equal), with rank 1's "
                  f"gradients x 0.9 planted {r['planted_max_rel']:.3e}"))
+        per, whole = r["read_calls"]
+        print(f"phase 38 (b) gloo rank {r['rank']} per-rank reader "
+              f"[{card}]: {MGPU_READ_TIMED + 1} global batches of "
+              f"{MGPU_READ_BATCH} from {MGPU_FRAMES} {DATA_HW[1]}x"
+              f"{DATA_HW[0]} frames at {TRAIN_SIZE}^2 (crop and rotate "
+              f"on the host), rows and file names bit-equal to the "
+              f"world-1 loader's, prepare_sample {per} a batch against "
+              f"{whole}; state bytes equal on both ranks and world-1's, "
+              f"batch 1 resumed from rank 0's state bit-equal; one eager "
+              f"fused step from DevicePrefetcher(group) bit-equal to the "
+              f"whole reader's rows and across ranks, total loss "
+              f"{r['read_loss']:.6f}, fused launches {r['read_launches']}; "
+              f"host s a batch (warm) per-rank "
+              f"{', '.join(f'{t:.4f}' for t in r['read_s_rank'])}, whole "
+              f"{', '.join(f'{t:.4f}' for t in r['read_s_whole'])}; "
+              f"ratio {sum(r['read_s_rank']) / sum(r['read_s_whole']):.3f}")
     dt = time.perf_counter() - t0
     print(f"phase 38: {dt:.1f} s (budget {MGPU_TIME_S:g} s)")
     check(dt <= MGPU_TIME_S, f"phase 38 took {dt:.1f} s")
@@ -7152,6 +7311,7 @@ def main() -> int:
                     "and from a trained checkpoint")
     ap.add_argument("--multigpu-rank", choices=("graph", "gloo"),
                     help=argparse.SUPPRESS)  # phase 38's ranks
+    ap.add_argument("--multigpu-frames", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import shutil
 
@@ -7165,9 +7325,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    if args.multigpu_rank:
-        return {"graph": mgpu_graph_rank,
-                "gloo": mgpu_gloo_rank}[args.multigpu_rank]()
+    if args.multigpu_rank == "graph":
+        return mgpu_graph_rank()
+    if args.multigpu_rank == "gloo":
+        return mgpu_gloo_rank(args.multigpu_frames)
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()

@@ -14,9 +14,10 @@ The global batch is ``batch_size_per_gpu`` x the ranks, as JAX's
     python -m torch.distributed.run --nproc_per_node=8 \
         -m tensorflow_ocr_tpu_torch.cli.multigpu_train --preset=5 ...
 
-Every rank's loader draws the global batch alike and keeps its rows;
-rank 0 alone prints, writes summaries, checkpoints and the operating
-point. With
+Each rank's loader prepares only its rows of each global batch
+(``ResumableLoader(group=...)``), and the loader state in rank 0's
+checkpoint resumes every rank; rank 0 alone prints, writes summaries,
+checkpoints and the operating point. With
 ``--train.use_device_cache`` the data is staged on the device
 (``Trainer.run_device_cached``), else it streams from the host
 (``ResumableLoader -> PrefetchLoader -> DevicePrefetcher`` into
@@ -54,7 +55,7 @@ def train(cfg, device: str):
     else:
         trainer.setup()
         source = ResumableLoader(cfg.data, want_east=trainer.want_east,
-                                 seed=cfg.train.seed)
+                                 seed=cfg.train.seed, group=group)
         loader = DevicePrefetcher(
             PrefetchLoader(cfg.data, want_east=trainer.want_east,
                            source=source),

@@ -13,7 +13,9 @@ Port of ``tensorflow_ocr_tpu/data/pipeline.py``:
   pinned host memory and on to the card on a side stream
   (``non_blocking``), and records an event that the consumer's stream
   waits on; in place of ``device_put`` on a mesh. On the CPU it hands the
-  batches over as tensors;
+  batches over as tensors. With a data-parallel group it copies this
+  rank's rows: it cuts a global batch, and passes a per-rank reader's
+  batch as it is;
 - :func:`get_batch` :194.
 
 A resumable loader's position (``get_state``/``set_state``) is the next
@@ -249,13 +251,19 @@ class DevicePrefetcher(_Resumable):
     marks the tensors used there), so the copy overlaps the step before.
     On the CPU the arrays become tensors. File names stay on the host
     (``fns``). Resumable where ``loader`` is. With a data-parallel
-    ``group`` (``parallel/mesh.py``) of several ranks, only this rank's
-    rows of each global batch are copied (``shard_batch``)."""
+    ``group`` (``parallel/mesh.py``) of several ranks, a batch of the
+    loader's ``cfg.batch_size`` rows (the global batch) is cut to this
+    rank's rows before the copy, a batch of ``batch_size / world`` rows
+    (a per-rank reader's, ``data/resumable.py`` given the group) is
+    copied as it is, and any other size raises (``rank_rows``): no batch
+    is cut twice."""
 
     def __init__(self, loader, device="cuda", want_east: bool = False,
                  depth: int = 2, group=None):
         self._source = loader
         self.group = group if group is not None and group.world > 1 else None
+        self.batch_size = (loader.cfg.batch_size if self.group is not None
+                           else None)
         self.device = torch.device(device)
         self.want_east = want_east
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -266,13 +274,9 @@ class DevicePrefetcher(_Resumable):
 
     def _upload(self, batch):
         if self.group is not None:
-            from tensorflow_ocr_tpu_torch.parallel.mesh import shard_batch
+            from tensorflow_ocr_tpu_torch.parallel.mesh import rank_rows
 
-            fns = batch.get("fns")
-            rows = self.group.rows(len(batch["images"]))
-            batch = shard_batch(self.group, batch)
-            if fns is not None:
-                batch["fns"] = list(fns)[rows]
+            batch = rank_rows(self.group, batch, self.batch_size)
         if self.device.type != "cuda":
             return {k: (torch.as_tensor(v) if k != "fns" else v)
                     for k, v in batch.items()}, None

@@ -19,7 +19,24 @@ contract:
   the sequence (``train/trainer.py`` ``save_checkpoint(data_iter=...)``
   and ``restore_data_iter``);
 - ``num_workers`` threads prepare a batch's samples, in order: the
-  batches do not depend on the worker count.
+  batches do not depend on the worker count;
+- given a data-parallel ``group`` (``parallel/mesh.py`` ``DataGroup``) of
+  n ranks, rank r prepares only its rows of each global batch of
+  ``cfg.batch_size`` = B: the samples of global index
+  ``[p·B + r·B/n, p·B + (r+1)·B/n)`` for batch p, each with the seeds it
+  has in the whole stream. So its batch p is bit-equal to
+  ``shard_batch(group, ·)`` of a world-1 loader's batch p; the length,
+  the position and the state bytes are the global batch's and name no
+  rank, so rank 0's checkpoint resumes every rank. This is not grain's
+  ``ShardByJaxProcess`` (``grain_pipeline.py:118-124``), which gives each
+  process a fixed 1/n of the records: here a shard is rows of one global
+  stream, so the samples the model sees do not depend on n and there is
+  one loader state.
+
+The device-staged path (``train/trainer.py`` ``run_device_cached``) does
+not read through this loader: every rank stages the whole dataset, as
+JAX replicates it (``tensorflow_ocr_tpu/train/trainer.py:893-894``), and
+takes its rows of each step's index batch.
 
 It does not reproduce grain's own order (its index sampler's shuffle and
 its per-record seeds): the sequence is this module's, deterministic in
@@ -47,11 +64,17 @@ def _seed(*words: int) -> int:
 class ResumableLoader:
     """Iterator of collated batch dicts (``images``, ``polys``, ``tags``,
     ``valid``, the EAST keys with ``want_east``, and ``fns``) with an
-    exact resume position. ``stop()`` ends its worker threads."""
+    exact resume position; with a ``group``, of this rank's rows of each
+    global batch. ``stop()`` ends its worker threads."""
 
     def __init__(self, cfg: DataConfig, want_east: bool = False,
-                 seed: int = 0, num_epochs: Optional[int] = None):
+                 seed: int = 0, num_epochs: Optional[int] = None,
+                 group=None):
         self.cfg = cfg
+        # the rows of a global batch this rank prepares (all without a
+        # group); refuses a batch that the ranks do not divide
+        self.rows = (group.rows(cfg.batch_size) if group is not None
+                     else slice(0, cfg.batch_size))
         self.want_east = want_east
         self.seed = int(seed)
         self.num_epochs = num_epochs
@@ -90,7 +113,8 @@ class ResumableLoader:
         return s
 
     def __len__(self) -> int:
-        """Batches in the stream (``num_epochs`` set), else raises."""
+        """Global batches in the stream (``num_epochs`` set), else
+        raises."""
         if self.num_epochs is None:
             raise TypeError("an endless loader has no length")
         return self.num_epochs * len(self.files) // self.cfg.batch_size
@@ -99,11 +123,11 @@ class ResumableLoader:
         return self
 
     def __next__(self) -> Dict[str, np.ndarray]:
-        b = self.cfg.batch_size
         if self.num_epochs is not None and self.position >= len(self):
             raise StopIteration
-        start = self.position * b
-        samples = list(self._pool.map(self._sample, range(start, start + b)))
+        start = self.position * self.cfg.batch_size
+        samples = list(self._pool.map(self._sample, range(
+            start + self.rows.start, start + self.rows.stop)))
         self.position += 1
         return self.batcher.collate(samples)
 

@@ -1,6 +1,7 @@
 """Inference: forward + on-device decode for serving.
 
-Port of ``tensorflow_ocr_tpu/infer.py`` (``pixel_link_scores`` :41-52,
+Port of ``tensorflow_ocr_tpu/infer.py`` (``pixel_scores_from_logits``
+:30, ``link_scores_from_logits`` :35, ``pixel_link_scores`` :41-52,
 ``Predictor`` :55-306): the PixelLink and link8 heads decode on the
 device (components through the CC kernel, min-area boxes); the EAST head
 takes its top candidates on the device (``east_detect``) and runs
@@ -43,18 +44,27 @@ from tensorflow_ocr_tpu_torch.utils import nms as N
 from tensorflow_ocr_tpu_torch.utils.image import resize_image
 
 
+def pixel_scores_from_logits(pixel_logits: torch.Tensor) -> torch.Tensor:
+    """(..., 2) pixel logits -> (...) P(text) (infer.py:30-32)."""
+    return torch.softmax(pixel_logits, dim=-1)[..., 1]
+
+
+def link_scores_from_logits(link_logits: torch.Tensor) -> torch.Tensor:
+    """(..., 16) link logits, channels in (direction, class) pairs ->
+    (..., 8) P(link) (infer.py:35-38)."""
+    pairs = link_logits.reshape(link_logits.shape[:-1] + (8, 2))
+    return torch.softmax(pairs, dim=-1)[..., 1]
+
+
 def pixel_link_scores(out: Mapping[str, torch.Tensor]
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B,h,w) P(text) and (B,h,w,8) P(link) from either output schema:
-    (B,h,w,2) pixel + (B,h,w,16) link logits, link channels in
-    (direction, class) pairs; or link8's sigmoid ``score`` (B,h,w,1) and
-    ``link_probs`` (B,h,w,8)."""
+    (B,h,w,2) pixel + (B,h,w,16) link logits; or link8's sigmoid
+    ``score`` (B,h,w,1) and ``link_probs`` (B,h,w,8)."""
     if "pixel_logits" not in out:
         return out["score"][..., 0], out["link_probs"]
-    pl, ll = out["pixel_logits"], out["link_logits"]
-    ps = torch.softmax(pl, dim=-1)[..., 1]
-    ls = torch.softmax(ll.reshape(ll.shape[:-1] + (8, 2)), dim=-1)[..., 1]
-    return ps, ls
+    return (pixel_scores_from_logits(out["pixel_logits"]),
+            link_scores_from_logits(out["link_logits"]))
 
 
 def checkpoint_weights(checkpoint_path: str, use_ema: bool = True

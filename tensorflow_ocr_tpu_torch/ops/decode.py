@@ -1,8 +1,9 @@
 """On-device decode: PixelLink components and boxes, EAST candidates.
 
-Port of ``tensorflow_ocr_tpu/ops/decode.py`` (``link_adjacency``
-:56-85, ``extract_components`` :168-270, ``overflow_retry_needed``
-:273-288, ``pixellink_decode`` :308-336, ``east_detect`` :339-367). The
+Port of ``tensorflow_ocr_tpu/ops/decode.py`` (``pixel_link_mask``
+:36-53, ``link_adjacency`` :56-85, ``extract_components`` :168-270,
+``overflow_retry_needed`` :273-288, ``pixellink_decode`` :308-336,
+``east_detect`` :339-367). The
 batch dimension is written out where JAX used ``vmap``; segment min/max
 become ``scatter_reduce`` on +/-inf buffers. The connected components go
 through ``ops/kernels.py``: the CUDA kernel for CUDA tensors, the plain
@@ -20,6 +21,20 @@ import torch
 from tensorflow_ocr_tpu_torch.ops.geometry import restore_rectangle_rbox_torch
 from tensorflow_ocr_tpu_torch.ops.kernels import connected_components
 from tensorflow_ocr_tpu_torch.ops.labels import LINK_OFFSETS, shift_map
+
+
+def pixel_link_mask(pixel_scores: torch.Tensor, link_scores: torch.Tensor,
+                    pixel_thresh: float = 0.8, link_thresh: float = 0.8,
+                    compat_reference_bugs: bool = False) -> torch.Tensor:
+    """Positive-pixel mask after the link-consistency filter
+    (decode.py:36-53): score > ``pixel_thresh`` and every direction's link
+    probability >= ``link_thresh``. pixel_scores (..., h, w), link_scores
+    (..., h, w, 8). ``compat_reference_bugs`` keeps the reference's net
+    effect (its test.py:72 applies no link filter): the score test alone."""
+    mask = pixel_scores > pixel_thresh
+    if compat_reference_bugs:
+        return mask
+    return mask & (link_scores >= link_thresh).all(-1)
 
 
 def link_adjacency(pixel_mask: torch.Tensor, link_scores: torch.Tensor,

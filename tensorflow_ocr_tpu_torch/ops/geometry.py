@@ -14,7 +14,8 @@ The data tier adds ``check_and_validate_polys`` (:41), ``restore_rectangle``
 (:273), ``order_points`` (:278) and ``sort_poly`` (:290), and the torch
 forms of ``polygon_area_jax`` (:355) and ``sort_rectangle_jax`` (:402),
 which ``data/device_augment.py`` runs inside the captured train step: no
-host sync, every branch a ``torch.where``.
+host sync, every branch a ``torch.where``; and the torch form of
+``min_area_rect_angles`` (:362), the angle sweep of one point set.
 """
 
 from __future__ import annotations
@@ -302,6 +303,31 @@ def polygon_area_torch(polys: torch.Tensor) -> torch.Tensor:
     nxt = polys.roll(-1, dims=-2)
     edge = (nxt[..., 0] - polys[..., 0]) * (nxt[..., 1] + polys[..., 1])
     return edge.sum(-1) / 2.0
+
+
+def min_area_rect_angles(points: torch.Tensor, mask: torch.Tensor,
+                         num_angles: int = 90) -> torch.Tensor:
+    """The least-area box of the masked points over ``num_angles``
+    rotations in [0, pi/2) (``min_area_rect_angles`` :362-400, in place
+    of cv2.minAreaRect). points (P, 2) float32 (x, y), mask (P,) bool.
+    Returns (4, 2) corners, clockwise from an unordered start."""
+    thetas = torch.arange(num_angles, dtype=torch.float32,
+                          device=points.device) * (math.pi / 2 / num_angles)
+    c, s = torch.cos(thetas), torch.sin(thetas)
+    x, y = points[:, 0:1], points[:, 1:2]
+    proj_u = x * c + y * s                                   # (P, A)
+    proj_v = -x * s + y * c
+    m = mask[:, None]
+    u_min = torch.where(m, proj_u, 1e9).amin(0)
+    u_max = torch.where(m, proj_u, -1e9).amax(0)
+    v_min = torch.where(m, proj_v, 1e9).amin(0)
+    v_max = torch.where(m, proj_v, -1e9).amax(0)
+    k = ((u_max - u_min) * (v_max - v_min)).argmin()
+    u0, du = u_min[k], u_max[k] - u_min[k]
+    v0, dv = v_min[k], v_max[k] - v_min[k]
+    us = torch.stack([u0, u0 + du, u0 + du, u0])
+    vs = torch.stack([v0, v0, v0 + dv, v0 + dv])
+    return torch.stack([us * c[k] - vs * s[k], us * s[k] + vs * c[k]], 1)
 
 
 def sort_rectangle_torch(poly: torch.Tensor, eps: float = 1e-4

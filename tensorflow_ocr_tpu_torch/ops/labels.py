@@ -1,12 +1,14 @@
 """PixelLink link order and the training labels of every head.
 
-Port of ``tensorflow_ocr_tpu/ops/labels.py:35-89, 147-350``: the link
-channel order shared by the decode and the CC kernel, the shift that
-reads each pixel's neighbour in a link direction, the on-device PixelLink
-label maps (score, 8-direction links, training mask) rasterized straight
-onto the output grid, and the EAST maps (:func:`east_labels_batch`:
-score from the shrunk polygons, RBOX or QUAD geometry of the instance
-that wins each pixel, the training mask from the full polygons).
+Port of ``tensorflow_ocr_tpu/ops/labels.py``: the link channel order
+shared by the decode and the CC kernel, the shift that reads each
+pixel's neighbour in a link direction, the on-device PixelLink label
+maps (score, 8-direction links, training mask) rasterized straight onto
+the output grid (the train step's) or at full resolution and
+subsampled (:func:`pixellink_labels_batch`), and the EAST maps
+(:func:`east_labels_batch`: score from the shrunk polygons, RBOX or
+QUAD geometry of the instance that wins each pixel, the training mask
+from the full polygons).
 Batched over images; the scores and masks bit-exact against the JAX
 functions, the geometry within float32 rounding.
 """
@@ -65,6 +67,47 @@ def link_map_from_instances(inst: torch.Tensor) -> torch.Tensor:
 def _side(p: torch.Tensor, i: int, j: int) -> torch.Tensor:
     d = p[..., i, :] - p[..., j, :]
     return torch.sqrt((d * d).sum(-1))
+
+
+def pixellink_labels(polys: torch.Tensor, ignored: torch.Tensor,
+                     valid: torch.Tensor, height: int, width: int,
+                     min_text_size: int = 10
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-resolution labels (labels.py:93-133), batched.
+
+    polys (B, K, 4, 2) float32 in pixels; ignored, valid (B, K) bool.
+    Returns score (B, height, width) (the union raster, ignored polygons
+    included), link (B, height, width, 8) and the training mask
+    (B, height, width), float32, as :func:`pixellink_labels_stride`
+    at stride 1.
+    """
+    return pixellink_labels_stride(polys, ignored, valid, height, width,
+                                   stride=1, min_text_size=min_text_size)
+
+
+def subsample_maps(score: torch.Tensor, link: torch.Tensor,
+                   mask: torch.Tensor, stride: int = 4
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every ``stride``-th row and column of (B, H, W) score and mask
+    and (B, H, W, 8) link maps (labels.py:135-142, the reference's
+    ``[::4, ::4]``)."""
+    return (score[:, ::stride, ::stride], link[:, ::stride, ::stride],
+            mask[:, ::stride, ::stride])
+
+
+def pixellink_labels_batch(polys: torch.Tensor, ignored: torch.Tensor,
+                           valid: torch.Tensor, height: int, width: int,
+                           min_text_size: int = 10, stride: int = 4
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Labels rasterized at full resolution, then subsampled
+    (labels.py:185-206): score (B, h, w, 1), link (B, h, w, 8) and mask
+    (B, h, w, 1), h = ceil(height / stride)."""
+    score, link, mask = pixellink_labels(polys, ignored, valid, height,
+                                         width, min_text_size)
+    if stride > 1:
+        score, link, mask = subsample_maps(score, link, mask, stride)
+    return score[..., None], link, mask[..., None]
 
 
 def pixellink_labels_stride(polys: torch.Tensor, ignored: torch.Tensor,

@@ -1,6 +1,6 @@
 """Polygon rasterization on the device.
 
-Port of ``tensorflow_ocr_tpu/ops/rasterize.py:20-64``: an even-odd
+Port of ``tensorflow_ocr_tpu/ops/rasterize.py``: an even-odd
 (crossing-number) test of every pixel centre against every polygon,
 batched over images. Where polygons overlap, the higher index wins
 (cv2.fillPoly's overwrite order), because the instance id is the max.
@@ -46,3 +46,10 @@ def rasterize_instances(polys: torch.Tensor, valid: torch.Tensor,
     ids = torch.arange(1, polys.shape[1] + 1, dtype=torch.int32, device=dev)
     inst = torch.where(inside, ids, torch.zeros_like(ids)).amax(-1)
     return inst.reshape(-1, height, width)
+
+
+def rasterize_mask(polys: torch.Tensor, valid: torch.Tensor, height: int,
+                   width: int) -> torch.Tensor:
+    """(B, height, width) bool union raster of the valid polygons
+    (rasterize.py:67-71, ``cv2.fillPoly(..., 1)``)."""
+    return rasterize_instances(polys, valid, height, width) > 0

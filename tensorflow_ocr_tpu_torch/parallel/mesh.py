@@ -13,6 +13,8 @@ group:
   1, no collective runs, every single-device path unchanged);
 - :func:`shard_batch` keeps this rank's rows of a global batch, JAX's
   ``P("data")`` split (the same global batch reaches the same shard);
+  :func:`rank_rows` cuts a global batch so and passes a batch that a
+  per-rank reader already cut;
 - the collectives the train step runs (:meth:`DataGroup.all_reduce_`),
   the state broadcast from rank 0 (:meth:`DataGroup.broadcast_`), the
   barrier around a checkpoint written by rank 0 and the agreed stop
@@ -214,6 +216,29 @@ def shard_batch(group: DataGroup, batch: Dict[str, Any]) -> Dict[str, Any]:
         if isinstance(v, (np.ndarray, torch.Tensor)):
             out[k] = v[group.rows(v.shape[0])]
     return out
+
+
+def rank_rows(group: Optional[DataGroup], batch: Dict[str, Any],
+              global_batch_size: Optional[int]) -> Dict[str, Any]:
+    """This rank's rows of ``batch``, cut at most once: a batch of
+    ``global_batch_size`` rows is cut (:func:`shard_batch`, the file names
+    too), one of ``global / world`` rows is this rank's already (a
+    per-rank reader's, ``data/resumable.py``) and goes through as it is,
+    any other size is refused. Without a group of several ranks the
+    batch is returned as it is."""
+    if group is None or group.world == 1:
+        return batch
+    b = len(batch["images"])
+    if b == global_batch_size:
+        out = shard_batch(group, batch)
+        if batch.get("fns") is not None:
+            out["fns"] = list(batch["fns"])[group.rows(b)]
+        return out
+    if b * group.world != global_batch_size:
+        raise ValueError(
+            f"a batch of {b} rows on rank {group.rank}: neither the global "
+            f"batch {global_batch_size} nor its {group.world}-rank shard")
+    return batch
 
 
 def world_size() -> int:

@@ -84,7 +84,7 @@ from tensorflow_ocr_tpu_torch.ops.labels import (
 from tensorflow_ocr_tpu_torch.parallel.mesh import (
     DataGroup,
     make_mesh,
-    shard_batch,
+    rank_rows,
 )
 from tensorflow_ocr_tpu_torch.train import optim
 
@@ -347,18 +347,10 @@ def device_batch(batch: Mapping[str, Any], device, want_east: bool = False,
     behind), and zero ``shrunk``/``rects``/``angles`` where an EAST
     model's batch lacks them. With a ``group`` of several ranks, a batch
     of ``global_batch_size`` rows is cut to this rank's
-    (``parallel/mesh.py`` ``shard_batch``, JAX's ``P("data")``), one of
+    (``parallel/mesh.py`` ``rank_rows``, JAX's ``P("data")``), one of
     ``global / world`` rows is taken as this rank's already, and any other
     size is refused."""
-    if group is not None and group.world > 1:
-        b = len(batch["images"])
-        if b == global_batch_size:
-            batch = shard_batch(group, batch)
-        elif b * group.world != global_batch_size:
-            raise ValueError(
-                f"a batch of {b} rows on rank {group.rank}: neither the "
-                f"global batch {global_batch_size} nor its {group.world}-rank "
-                "shard")
+    batch = rank_rows(group, batch, global_batch_size)
     out = to_device({k: v for k, v in batch.items() if k != "fns"}, device)
     if want_east:
         b, k = out["polys"].shape[:2]

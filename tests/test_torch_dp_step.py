@@ -9,7 +9,10 @@ statistics (mean), one of the metrics (mean). JAX runs its ``shard_map``
 step (``make_train_step``) on ``make_mesh(n)`` over conftest's CPU
 devices, from the same converted init and the same global batch:
 pixellink_tiny at 64x64, float32 (the ``f32_batchnorm`` fixture), 2
-images a rank, on 2 and 4 ranks.
+images a rank, on 2 and 4 ranks. And on 2 ranks that each read only
+their rows of the global batch (``data/resumable.py`` ``ResumableLoader``
+given the group): JAX steps on the first global batch of a world-1
+loader, which the two ranks' batches, stacked, must equal.
 
 Compared (:func:`check_against_jax`, tests/test_torch_step_east.py's
 tolerances): the metrics rtol 1e-4 (OHEM's per-direction link terms
@@ -30,10 +33,14 @@ from tensorflow_ocr_tpu.models import build_model as build_jax_model
 from tensorflow_ocr_tpu.parallel.mesh import make_mesh
 from tensorflow_ocr_tpu.train import optim as JOptim
 from tensorflow_ocr_tpu.train import trainer as JT
+from tensorflow_ocr_tpu_torch.config import Config
+from tensorflow_ocr_tpu_torch.data import icdar
+from tensorflow_ocr_tpu_torch.data.resumable import ResumableLoader
 from tensorflow_ocr_tpu_torch.models.convert import (
     convert_train_state,
     convert_variables,
 )
+from tensorflow_ocr_tpu_torch.parallel.mesh import DataGroup
 from tensorflow_ocr_tpu_torch.train import trainer as TT
 from test_torch_bottleneck import f32_batchnorm  # noqa: F401
 from test_torch_rank_worker import run_ranks, write_inputs
@@ -69,6 +76,8 @@ def jax_config(spec):
     jcfg.data.input_size = spec.get("size", SIZE)
     jcfg.train.grad_reduce = spec.get("grad_reduce", "mean")
     jcfg.train.donate_state = False
+    for k, v in spec.get("data", {}).items():  # as the ranks' _config
+        setattr(jcfg.data, k, v)
     return jcfg
 
 
@@ -149,4 +158,33 @@ def test_dp_step_matches_jax_shard_map(tmp_path, f32_batchnorm, world,
     outs = dp_step_matches_jax(tmp_path, {
         "model": "pixellink_tiny", "grad_reduce": grad_reduce}, world,
         batch, seed=world)
+    assert float(outs[0]["metrics"]["n_pos"]) > 0
+
+
+def test_dp_step_from_per_rank_readers_matches_jax(tmp_path, f32_batchnorm):
+    icdar.make_synthetic_dataset(str(tmp_path / "scenes"), 8, (96, 128),
+                                 seed=5, hard="v2")
+    data = {"training_data_path": str(tmp_path / "scenes"), "batch_size": 4,
+            "max_polys": 16, "min_text_size": 4, "num_workers": 1}
+    cfg = Config().data
+    cfg.input_size = SIZE
+    for k, v in data.items():
+        setattr(cfg, k, v)
+    whole = ResumableLoader(cfg, seed=9)
+    want = next(whole)
+    whole.stop()
+    parts = []
+    for r in range(2):
+        it = ResumableLoader(cfg, seed=9, group=DataGroup(r, 2,
+                                                         torch.device("cpu")))
+        parts.append(next(it))
+        it.stop()
+    assert parts[0]["fns"] + parts[1]["fns"] == want["fns"]
+    batch = {k: np.concatenate([p[k] for p in parts])
+             for k in ("images", "polys", "tags", "valid")}
+    for k, v in batch.items():
+        assert np.array_equal(v, want[k]), k
+    outs = dp_step_matches_jax(tmp_path, {
+        "model": "pixellink_tiny", "data": data, "reader": 9}, 2, batch,
+        seed=12)
     assert float(outs[0]["metrics"]["n_pos"]) > 0

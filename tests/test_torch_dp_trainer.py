@@ -11,6 +11,10 @@ ICDAR directory. Checked in the ranks (``tests/test_torch_rank_worker.py``
   then a fresh Trainer with ``restore=True`` and a fresh loader resumed
   from the checkpoint for 1 step: every state tensor bit-equal to 4
   uninterrupted steps, on both ranks, and the ranks equal;
+- the same with per-rank readers (``ResumableLoader(group=...)``: each
+  rank prepares only its 2 rows of each global batch): 4 steps bit-equal
+  to the whole reader's 4, and 3 steps, a save, and 1 step resumed from
+  rank 0's checkpoint bit-equal to them too;
 - a preemption flag raised on rank 1 alone stops both ranks after the
   same step, with one checkpoint of that step;
 - ``num_devices`` 4 (Trainer and ``Config.validate``) and preset 5 (16)
@@ -39,6 +43,10 @@ def test_trainer_on_two_ranks(tmp_path):
     for r, out in enumerate(outs):
         assert out["saved"] == ["ckpt_3"], r
         assert out["unequal"] == [], (r, out["unequal"][:4])
+        assert out["rows_unequal"] == [], (r, out["rows_unequal"][:4])
+        assert out["rows_saved"] == ["ckpt_3"], r
+        assert out["rows_resumed_unequal"] == [], (
+            r, out["rows_resumed_unequal"][:4])
         assert int(out["state"]["step"]) == 4
         # flag seen at step 2's check: both ranks stop after 3 steps
         assert out["preempt_step"] == 3, r

@@ -9,11 +9,13 @@ its inputs from that directory (``spec.json``, ``weights.pt`` and the
 
     python tests/test_torch_rank_worker.py <task> <rank> <world> <dir>
 
-Tasks: ``step`` (one train step), ``multi`` (one multi-step dispatch),
+Tasks: ``step`` (one train step, from a batch the test wrote or from
+the rank's own loader), ``multi`` (one multi-step dispatch),
 ``spatial`` (the H-sharded or (data, space) forward of the spec's
 arm: ``bottleneck_impl`` and ``pallas_convs``), ``trainer``
 (Trainer.run from the host loader: resume bit-equal to an uninterrupted
-run; a preemption flag on one rank; the world-size checks).
+run, with the whole global batch read on each rank and with per-rank
+readers; a preemption flag on one rank; the world-size checks).
 """
 
 import contextlib
@@ -89,13 +91,26 @@ def _npz(workdir, name):
 
 
 def task_step(group, workdir, spec):
+    """One train step on this rank's rows of ``batch.npz``, or with
+    ``reader`` (a loader seed) on the rows this rank's ``ResumableLoader``
+    prepares of its first global batch (``spec["data"]``'s directory and
+    batch size)."""
     from tensorflow_ocr_tpu_torch.parallel.mesh import shard_batch
     from tensorflow_ocr_tpu_torch.train import trainer as TT
 
     cfg = _config(spec)
     state = TT.create_train_state(cfg, "cpu", weights=torch.load(
         os.path.join(workdir, "weights.pt")))
-    batch = TT.to_device(shard_batch(group, _npz(workdir, "batch")), "cpu")
+    if "reader" in spec:
+        from tensorflow_ocr_tpu_torch.data.resumable import ResumableLoader
+
+        it = ResumableLoader(cfg.data, seed=spec["reader"], group=group)
+        batch = TT.device_batch(next(it), "cpu", group=group,
+                                global_batch_size=cfg.data.batch_size)
+        it.stop()
+    else:
+        batch = TT.to_device(shard_batch(group, _npz(workdir, "batch")),
+                             "cpu")
     m = TT.train_step(state, batch, cfg, TT.make_loss_fn(cfg), group=group)
     return {"state": TT.state_tensors(state), "metrics": m}
 
@@ -195,9 +210,11 @@ def _trainer_cfg(workdir, tag, **train):
     return cfg
 
 
-def _host_run(group, cfg, steps):
+def _host_run(group, cfg, steps, per_rank=False):
     """Trainer.run over ResumableLoader -> PrefetchLoader ->
-    DevicePrefetcher(group) for ``steps`` steps; returns the trainer."""
+    DevicePrefetcher(group) for ``steps`` steps; returns the trainer. The
+    loader reads the whole global batch, or with ``per_rank`` only this
+    rank's rows of it."""
     from tensorflow_ocr_tpu_torch.data.pipeline import (DevicePrefetcher,
                                                         PrefetchLoader)
     from tensorflow_ocr_tpu_torch.data.resumable import ResumableLoader
@@ -205,7 +222,8 @@ def _host_run(group, cfg, steps):
 
     trainer = TT.Trainer(cfg, "cpu", group=group)
     trainer.setup()
-    source = ResumableLoader(cfg.data, seed=cfg.train.seed)
+    source = ResumableLoader(cfg.data, seed=cfg.train.seed,
+                             group=group if per_rank else None)
     loader = DevicePrefetcher(PrefetchLoader(cfg.data, source=source),
                               "cpu", group=group)
     try:
@@ -232,6 +250,21 @@ def task_trainer(group, workdir, spec):
     b = TT.flat_tree(TT.state_tensors(resumed.state))
     out["unequal"] = [k for k in a if not torch.equal(a[k], b[k])]
     out["state"] = {k: v.clone() for k, v in a.items()}
+
+    # per-rank readers: the whole reader's run, and its resume from rank
+    # 0's checkpoint, bit for bit
+    rows = TT.flat_tree(TT.state_tensors(_host_run(
+        group, _trainer_cfg(workdir, "rows"), 4, per_rank=True).state))
+    out["rows_unequal"] = [k for k in a if not torch.equal(a[k], rows[k])]
+    first = _host_run(group, _trainer_cfg(workdir, "rows_split",
+                                          save_checkpoint_steps=2), 3,
+                      per_rank=True)
+    out["rows_saved"] = sorted(os.listdir(first.cfg.train.checkpoint_path))
+    resumed = _host_run(group, _trainer_cfg(workdir, "rows_split",
+                                            restore=True), 1, per_rank=True)
+    b = TT.flat_tree(TT.state_tensors(resumed.state))
+    out["rows_resumed_unequal"] = [k for k in a
+                                   if not torch.equal(a[k], b[k])]
 
     # a preemption flag on rank 1 alone, raised before step 2's check
     cfg = _trainer_cfg(workdir, "preempt")
