@@ -80,7 +80,15 @@ Phases, in order; any failure raises and exits non-zero:
    each of the fused and the "xla" arm (plain Bottleneck, cuDNN convs) from the
    augmented state (phase 10b) and one batch: loss, gradient, the worst
    parameter's direction and the fused units' readings within the stated
-   tolerances; one freeze_bn step;
+   tolerances; one freeze_bn step; then bench.py's fine-tune recipe
+   (freeze_bn, the OHEM loss in bfloat16) from the augmented state under
+   torch.use_deterministic_algorithms: one frozen fused step with the
+   bfloat16 loss beside one with the float32 loss (every fused kernel
+   launched, the loss within LOSS_BF16_REL of the float32 one, the
+   gradient's cosine at least LOSS_BF16_COS_MIN), and the loss dtype
+   resolved through OCR_LOSS_BF16 (1 over a float32 config, 0 over a
+   bfloat16 one): parameters, BN buffers, Adam moments, EMA and metrics
+   bit-equal to the config's step of the same dtype;
 11b. the four fused kernels in float32 (fused_conv.cu fused_conv_fwd_f32
    and fused_conv_bwd_f32 on conv_bwd.cuh tdx_f32 and tdw_f32_tr,
    fused_boundary.cu's float32 entries) at the shapes of phase 10: y, s,
@@ -156,7 +164,9 @@ Phases, in order; any failure raises and exits non-zero:
    (F32_GHOST_ARM_* bounds); one float32 freeze_bn step (no ghost
    kernel);
 17. multi-step = eager: for the fused, ghost, xla, xla pallas-conv,
-   float32 xla pallas-conv, float32 fused and float32 ghost arms, one
+   float32 xla pallas-conv, float32 fused and float32 ghost arms, and
+   bench.py's frozen arms with the bfloat16 OHEM loss (freeze_bn on the
+   xla and on the fused arm), one
    make_multi_train_step dispatch of 4 steps (one step
    captured into a CUDA graph after 2 warm-up steps, replayed 4 times)
    against 4 eager train_step calls from the same state and dataset rows
@@ -2302,11 +2312,13 @@ def phase_fused_kernels_f32(device, reports):
 
 
 def train_config(impl: str, freeze_bn: bool = False, model=None,
-                 loss=None, geometry: str = "RBOX", dtype="bfloat16"):
+                 loss=None, geometry: str = "RBOX", dtype="bfloat16",
+                 loss_dtype="float32"):
     """bench.py's train configuration: ``model`` (MODEL by default), its
     ``loss`` (LOSS by default: OHEM), 512^2, bf16 activations (its batch
     of 32 with 16 polygon slots an image is train_batch's), or ``dtype``'s
-    (model.compute_dtype)."""
+    (model.compute_dtype); the OHEM loss's ``loss_dtype``
+    (loss.compute_dtype: bench.py's frozen arm takes "bfloat16")."""
     from tensorflow_ocr_tpu_torch.config import Config
 
     cfg = Config()
@@ -2315,6 +2327,7 @@ def train_config(impl: str, freeze_bn: bool = False, model=None,
     cfg.model.bottleneck_impl = impl
     cfg.model.freeze_bn = freeze_bn
     cfg.loss.name = loss or LOSS
+    cfg.loss.compute_dtype = loss_dtype
     cfg.data.input_size = TRAIN_SIZE
     cfg.data.geometry = geometry
     cfg.train.log_every_steps = 1
@@ -2491,7 +2504,8 @@ def phase_train(device, reports, arm_start):
     """The train step at full width: 3 fused steps through Trainer.run,
     each of the four fused kernels launched; one step each of the fused
     and the xla arm from the state ``arm_start`` (augmented_start) and one
-    batch, compared (check_arms); one freeze_bn step."""
+    batch, compared (check_arms); one freeze_bn step; bench.py's frozen
+    recipe with the bfloat16 loss (phase_frozen_bf16_loss)."""
     import copy
 
     import numpy as np
@@ -2555,7 +2569,110 @@ def phase_train(device, reports, arm_start):
           f"{counts}")
     check(np.isfinite(loss), "freeze_bn step: non-finite loss")
     check(all(counts.values()), "freeze_bn step skipped a fused kernel")
+    phase_frozen_bf16_loss(device, arm_start, batch)
     return trainer, batch, snap
+
+
+# bench.py's fine-tune recipe: freeze_bn with the OHEM loss in bfloat16.
+# The loss against the float32 loss's: JAX's bound for the lever
+# (tests/test_losses.py:127-143); read 8.434e-3 from the augmented state
+# on the H100 (the bfloat16 CE of confident pixels rounds low; 8.9e-6 from
+# the seeded state). The cosine of the two steps' gradients (all
+# parameters, float64): read 0.999980 there (rel err 7.12e-3), so the
+# floor leaves 25 times that reading's 1 - cosine
+LOSS_BF16_REL = 2e-2
+LOSS_BF16_COS_MIN = 0.9995
+
+
+@contextlib.contextmanager
+def loss_bf16_env(value):
+    """OCR_LOSS_BF16 set to ``value`` inside the block (unset for None),
+    restored after it."""
+    old = os.environ.pop("OCR_LOSS_BF16", None)
+    if value is not None:
+        os.environ["OCR_LOSS_BF16"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("OCR_LOSS_BF16", None)
+        if old is not None:
+            os.environ["OCR_LOSS_BF16"] = old
+
+
+def frozen_step(device, weights, batch, cfg, env):
+    """One train_step of ``cfg`` from the model tensors ``weights``, its
+    loss made (make_loss_fn, which reads OCR_LOSS_BF16) with the variable
+    at ``env``: (the state's tensors, the metrics, the flat float32
+    gradient, the fused kernels' launches)."""
+    import torch
+    from tensorflow_ocr_tpu_torch.train import trainer as T
+
+    state = T.create_train_state(cfg, device, weights=weights)
+    reset_fused_counts()
+    with loss_bf16_env(env):
+        m = T.train_step(state, batch, cfg, T.make_loss_fn(cfg))
+    torch.cuda.synchronize()
+    counts = fused_counts()
+    grad = torch.cat([p.grad.float().flatten()
+                      for p in state.model.parameters()])
+    out = ({k: v.clone() for k, v in leaves(state).items()}, dict(m), grad,
+           counts)
+    del state
+    return out
+
+
+def phase_frozen_bf16_loss(device, start, batch):
+    """bench.py's frozen arm on the fused kernels, eagerly, from the model
+    tensors ``start`` (the augmented state: a fine-tune starts from a
+    trained model) and ``batch``, under deterministic(): one step with the
+    bfloat16 OHEM loss against one with the float32 loss (each fused
+    kernel launched; loss within LOSS_BF16_REL, gradient cosine at least
+    LOSS_BF16_COS_MIN), then the dtype resolved through OCR_LOSS_BF16:
+    "1" over the float32 config equals the bfloat16 config's step, "0"
+    over the bfloat16 config the float32 one's, bit for bit."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    f32 = train_config("fused", freeze_bn=True)
+    bf16 = train_config("fused", freeze_bn=True, loss_dtype="bfloat16")
+    with deterministic():
+        ref = frozen_step(device, start, batch, f32, None)
+        got = frozen_step(device, start, batch, bf16, None)
+        env1 = frozen_step(device, start, batch, f32, "1")
+        env0 = frozen_step(device, start, batch, bf16, "0")
+    loss, want = float(got[1]["total_loss"]), float(ref[1]["total_loss"])
+    rel = abs(loss - want) / abs(want)
+    cos = cosine(got[2], ref[2])
+    rel_grad = float((got[2] - ref[2]).norm() / ref[2].norm())
+    diff1 = unequal(env1[0], got[0]) + unequal(env1[1], got[1])
+    diff0 = unequal(env0[0], ref[0]) + unequal(env0[1], ref[1])
+    print(f"freeze_bn fused, OHEM loss in bfloat16 against float32 from the "
+          f"augmented state: total loss {loss:.6f} / {want:.6f} (rel "
+          f"{rel:.3e}, tol {LOSS_BF16_REL:g}); n_pos "
+          f"{float(got[1]['n_pos']):.0f} / {float(ref[1]['n_pos']):.0f}; "
+          f"pixel loss {float(got[1]['pixel_loss']):.6f} / "
+          f"{float(ref[1]['pixel_loss']):.6f}; gradient cosine {cos:.6f} "
+          f"(min {LOSS_BF16_COS_MIN:g}), rel err {rel_grad:.4e}; kernel "
+          f"launches {got[3]}")
+    print(f"freeze_bn fused, OCR_LOSS_BF16=1 over the float32 config: "
+          f"tensors not bit-equal to the bfloat16 config's step "
+          f"{len(diff1)} {diff1[:4]}; OCR_LOSS_BF16=0 over the bfloat16 "
+          f"config: not bit-equal to the float32 config's {len(diff0)} "
+          f"{diff0[:4]}; {time.perf_counter() - t0:.1f} s")
+    check(all(got[3].values()) and all(env1[3].values()),
+          "bf16-loss freeze_bn step skipped a fused kernel")
+    check(np.isfinite(loss), "bf16-loss freeze_bn step: non-finite loss")
+    check(rel <= LOSS_BF16_REL, "bf16-loss freeze_bn step: loss off the "
+          "float32 loss's")
+    check(cos >= LOSS_BF16_COS_MIN, "bf16-loss freeze_bn step: gradient "
+          "off the float32 loss's")
+    check(unequal(got[0], ref[0]), "bf16-loss freeze_bn step: equal to the "
+          "float32 loss's step (the loss dtype did nothing)")
+    check(not diff1, "OCR_LOSS_BF16=1 differs from compute_dtype bfloat16")
+    check(not diff0, "OCR_LOSS_BF16=0 differs from compute_dtype float32")
+    del ref, got, env1, env0
+    torch.cuda.empty_cache()
 
 
 def fused_f32_readings(device, start, batch):
@@ -4050,6 +4167,9 @@ MULTI_STEPS = 4
 # the arms of the graph = eager check: (label, bottleneck_impl, route)
 GRAPH_ARMS = (("fused", "fused", False), ("ghost", "ghost", False),
               ("xla", "xla", False), ("xla pallas-conv", "xla", True))
+# the bottlenecks of bench.py's frozen arm checked (and timed by
+# scripts/trainer_probe.py --loss-dtype): its own ("xla") and the fused
+FROZEN_IMPLS = ("xla", "fused")
 # the arms of the graph dispatch speed: (label, impl, freeze_bn, route)
 TIMING_ARMS = (("fused", "fused", False, False), ("xla", "xla", False, False),
                ("freeze_bn fused", "fused", True, False),
@@ -4167,9 +4287,10 @@ def eager_dispatch(state, ds, idx, cfg):
 
 
 def phase_graph_step(device, snap, ds):
-    """multi-step = eager (graph_equal) for each of GRAPH_ARMS, from
-    ``snap`` on the dataset ``ds``; the fused arm also restores a
-    checkpoint under the captured graph."""
+    """multi-step = eager (graph_equal) for each of GRAPH_ARMS, the
+    float32 arms and bench.py's frozen arms with the bfloat16 OHEM loss
+    (FROZEN_IMPLS), from ``snap`` on the dataset ``ds``; the fused arm
+    also restores a checkpoint under the captured graph."""
     import numpy as np
 
     rng = np.random.RandomState(31)
@@ -4182,6 +4303,14 @@ def phase_graph_step(device, snap, ds):
                 train_config("fused", dtype="float32"))
     graph_equal(device, snap, ds, rng, "ghost float32",
                 train_config("ghost", dtype="float32"))
+    # bench.py's frozen arm (value_freeze_bn_finetune) as it is, xla, and
+    # on the fused kernels with ds = None
+    t0 = time.perf_counter()
+    for impl in FROZEN_IMPLS:
+        graph_equal(device, snap, ds, rng, f"freeze_bn {impl} bf16-loss",
+                    train_config(impl, True, loss_dtype="bfloat16"))
+    print(f"graph step, bench.py's frozen arms: "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def graph_equal(device, snap, ds, rng, label, cfg, route=False,
@@ -4486,10 +4615,12 @@ def phase_serve_checkpoint(device, root, served, images):
     shutil.rmtree(root)
 
 
-def phase_graph_timing(snap, ds, profile_arms=False):
+def phase_graph_timing(snap, ds, profile_arms=False, arms=TIMING_ARMS,
+                       loss_dtype="float32"):
     """Train img/s through make_multi_train_step at 512^2, batch 32, S =
-    scan_steps (16) steps a dispatch, for TIMING_ARMS from ``snap``
-    (graph_rate over GRAPH_WINDOWS windows of at least ARM_WINDOW_S). With
+    scan_steps (16) steps a dispatch, for ``arms`` (TIMING_ARMS) from
+    ``snap`` with the OHEM loss in ``loss_dtype`` (graph_rate over
+    GRAPH_WINDOWS windows of at least ARM_WINDOW_S). With
     ``profile_arms``, the device idle share of one dispatch of the fused
     and ghost arms under torch.profiler."""
     import numpy as np
@@ -4497,8 +4628,8 @@ def phase_graph_timing(snap, ds, profile_arms=False):
     from tensorflow_ocr_tpu_torch.train import trainer as T
 
     rng = np.random.RandomState(51)
-    for arm, impl, freeze, route in TIMING_ARMS:
-        cfg = train_config(impl, freeze)
+    for arm, impl, freeze, route in arms:
+        cfg = train_config(impl, freeze, loss_dtype=loss_dtype)
         base = arm_memory_start()
         with pallas_convs(route):
             state = T.create_train_state(cfg, ds["images"].device,

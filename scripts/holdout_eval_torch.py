@@ -107,6 +107,8 @@ def main(argv=None):
     from tensorflow_ocr_tpu_torch.config import Config
     from tensorflow_ocr_tpu_torch.data.icdar import make_synthetic_dataset
     from tensorflow_ocr_tpu_torch.models.detector import model_head
+    from tensorflow_ocr_tpu_torch.ops.losses import (
+        effective_loss_compute_dtype)
     from tensorflow_ocr_tpu_torch.train import trainer as T
     from tensorflow_ocr_tpu_torch.train.calibrate import (
         LINK_GRID,
@@ -273,7 +275,9 @@ def main(argv=None):
             "batch": args.batch,
             "lr": args.lr,
             "loss": cfg.loss.name,
-            "loss_compute_dtype": cfg.loss.compute_dtype,
+            # the dtype the loss ran in: the config's, or OCR_LOSS_BF16's
+            "loss_compute_dtype": effective_loss_compute_dtype(
+                cfg.loss.compute_dtype, cfg.loss.name),
             "input_size": size,
             "recipe": {
                 "pretrain_steps": args.pretrain_steps,

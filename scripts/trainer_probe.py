@@ -2,13 +2,13 @@
 """Probe of the trainer's phases of chip_smoke.py alone, on one CUDA GPU.
 
     python3 scripts/trainer_probe.py [graph] [resume] [timing] [--windows N]
+        [--loss-dtype float32|bfloat16]
     python3 scripts/trainer_probe.py eager [--windows N] [--tree DIR]
         [--model east_resnet50 --loss east]
 
-Builds the kernels, runs chip_smoke.py's phase_train (3 fused steps; the
-seeded state the other phases start from) and makes its dataset of
-numpy scenes, then the phases named (graph, resume and timing by
-default):
+Builds the kernels, makes the seeded state phase_train starts from
+(chip_smoke.py's seeded_snap) and its dataset of numpy scenes, then runs
+the phases named (graph, resume and timing by default):
 
 - graph: phase_graph_step, the multi-step dispatch (a CUDA graph)
   against eager steps, bit-equal, for the fused, ghost, xla and xla
@@ -18,6 +18,13 @@ default):
 - timing: phase_graph_timing, train img/s through the graph for the five
   arms over N windows of at least 10 s (1 by default), with the device
   idle share of one fused and one ghost dispatch.
+
+``--loss-dtype`` narrows graph and timing to bench.py's frozen arm
+(freeze_bn, its value_freeze_bn_finetune) on the xla and the fused
+bottlenecks, with the OHEM loss's compute_dtype set to it (bench.py's
+recipe takes bfloat16), e.g. to time both dtypes in fresh processes:
+``for d in float32 bfloat16 bfloat16 float32; do python3
+scripts/trainer_probe.py timing --loss-dtype $d; done``.
 
 ``eager`` runs alone: phase_train_timing, train img/s of the eager step
 (train_step a call) for the five arms over N windows, from a state
@@ -46,6 +53,9 @@ def main() -> int:
     ap.add_argument("phases", nargs="*", choices=("graph", "resume",
                                                   "timing", "eager"))
     ap.add_argument("--windows", type=int, default=1)
+    ap.add_argument("--loss-dtype", choices=("float32", "bfloat16"),
+                    help="graph and timing: the frozen arms only, with the "
+                         "OHEM loss in this dtype")
     ap.add_argument("--tree", default=REPO,
                     help="the checkout whose chip_smoke.py and package the "
                          "eager phase imports")
@@ -60,6 +70,8 @@ def main() -> int:
         ap.error("eager runs alone")
     if (args.model or args.loss) and args.phases != ["eager"]:
         ap.error("--model and --loss go with eager")
+    if args.loss_dtype and "eager" in args.phases:
+        ap.error("--loss-dtype goes with graph and timing")
     import numpy as np
     import torch
 
@@ -95,12 +107,19 @@ def main() -> int:
         c.phase_train_timing(types.SimpleNamespace(state=state), batch)
         stamp("eager timing")
         return 0
-    fused = {name: {} for name in c.FUSED_KERNELS}
-    trainer, _, snap = c.phase_train(dev, fused)
+    snap = c.seeded_snap(dev)
     ds = c.scene_dataset(dev)
-    stamp("train phase and dataset")
+    stamp("seeded state and dataset")
+    frozen = [(f"freeze_bn {impl} {args.loss_dtype}-loss", impl, True, False)
+              for impl in c.FROZEN_IMPLS]
     if "graph" in phases:
-        c.phase_graph_step(dev, snap, ds)
+        if args.loss_dtype:
+            rng = np.random.RandomState(31)
+            for label, impl, _, _ in frozen:
+                c.graph_equal(dev, snap, ds, rng, label, c.train_config(
+                    impl, True, loss_dtype=args.loss_dtype))
+        else:
+            c.phase_graph_step(dev, snap, ds)
         stamp("graph step")
     if "resume" in phases:
         images = c.scene_images(np.random.RandomState(0), 8)
@@ -109,8 +128,13 @@ def main() -> int:
         c.phase_serve_checkpoint(dev, root, served, images)
         stamp("resume and serve")
     if "timing" in phases:
-        c.ARM_WINDOWS, c.ARM_WINDOW_S = args.windows, c.TRAIN_WINDOW_S
-        c.phase_graph_timing(trainer.state.model.state_dict(), ds, True)
+        c.GRAPH_WINDOWS = args.windows
+        c.ARM_WINDOW_S = 10
+        if args.loss_dtype:
+            c.phase_graph_timing(snap, ds, arms=frozen,
+                                 loss_dtype=args.loss_dtype)
+        else:
+            c.phase_graph_timing(snap, ds, True)
         stamp("graph timing")
     return 0
 

@@ -18,8 +18,15 @@ reference's flag names (:data:`FLAG_ALIASES`) and dotted paths, the
 same coercions and the same error on an unknown flag
 (``config.py:237-348``).
 
-Left out: ``donate_state`` (the port's steps update the state in place;
-there is nothing to donate) and ``xla_options``. ``TrainConfig.num_devices``
+Every dotted path JAX's ``parse_flags`` takes parses here too
+(``tests/test_torch_surface.py``). Five of JAX's fields have no field
+here: their paths stand in :data:`IGNORED_PATHS`, accepted and ignored
+as ``--gpu_list`` is. They are ``model.bn_momentum`` and
+``model.bn_epsilon`` (JAX reads neither; the models take the same values
+as their own, ``models/layers.py`` ``BN_MOMENTUM``),
+``infer.compat_reference_bugs`` (JAX reads it nowhere), and
+``train.donate_state`` and ``train.xla_options`` (XLA's buffer donation
+and compiler options). ``TrainConfig.num_devices``
 is the data-parallel world: one process per GPU over ``torch.distributed``
 (``parallel/``); ``validate`` refuses a count other than the process
 group's size.
@@ -27,6 +34,7 @@ group's size.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
@@ -111,7 +119,9 @@ class LossConfig:
     # hardest negatives selected on images with no positive pixel
     bg_neg_budget: int = 0
     pixel_loss_weight: float = 2.0
-    # CE-term dtype of the OHEM loss: "float32" | "bfloat16"
+    # CE-term dtype of the OHEM loss: "float32" | "bfloat16"; the
+    # OCR_LOSS_BF16 environment variable overrides it when the step's
+    # loss is made (ops/losses.py effective_loss_compute_dtype)
     compute_dtype: str = "float32"
     focal_alpha: float = 0.25
     focal_gamma: float = 2.0
@@ -191,6 +201,10 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     infer: InferConfig = field(default_factory=InferConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+
+    def replace(self, **kw: Any) -> "Config":
+        """A copy with the sections in ``kw`` replaced (config.py:215)."""
+        return dataclasses.replace(self, **kw)
 
     def validate(self) -> "Config":
         """Reject values that would otherwise be ignored
@@ -284,6 +298,12 @@ FLAG_ALIASES = {
     "image_height": None,
 }
 
+# dotted paths of JAX's Config fields that nothing reads in the port:
+# accepted and ignored (module docstring)
+IGNORED_PATHS = frozenset({
+    "model.bn_momentum", "model.bn_epsilon", "train.donate_state",
+    "train.xla_options", "infer.compat_reference_bugs"})
+
 
 def parse_flags(argv: Sequence[str], cfg: Optional[Config] = None,
                 aliases: Optional[dict] = None) -> Config:
@@ -292,7 +312,8 @@ def parse_flags(argv: Sequence[str], cfg: Optional[Config] = None,
     through ``aliases`` (default :data:`FLAG_ALIASES`; an entry point may
     remap one, as the test entries map ``checkpoint_path`` to
     ``infer.checkpoint_path``) and dotted paths
-    (``--train.learning_rate=3e-4``); any other flag raises ValueError.
+    (``--train.learning_rate=3e-4``; :data:`IGNORED_PATHS` ignored); any
+    other flag raises ValueError.
     Arguments without ``--`` are skipped."""
     cfg = cfg or Config()
     if aliases is None:
@@ -317,6 +338,8 @@ def parse_flags(argv: Sequence[str], cfg: Optional[Config] = None,
         if key in aliases:
             if aliases[key] is not None:
                 _set_by_path(cfg, aliases[key], val)
+        elif key in IGNORED_PATHS:
+            pass
         elif "." in key:
             _set_by_path(cfg, key, val)
         else:

@@ -8,6 +8,9 @@ Port of ``tensorflow_ocr_tpu/ops/losses.py``:
   at the threshold is selected, as JAX selects it), and the pixel and
   8-direction link terms with their aux scalars. ``compute_dtype`` runs
   the CE terms and selection weights in bfloat16 with float32 reductions;
+  :func:`effective_loss_compute_dtype` (:45-60) resolves the config's
+  value with the ``OCR_LOSS_BF16`` environment variable, once, where the
+  train step's loss is made (``train/trainer.py`` ``make_loss_fn``);
 - :func:`dice_loss` (:64), :func:`dice_pixel_link_loss` (:219) and
   :func:`positive_pixel_link_loss` (:236) of the VGG reference;
 - :func:`focal_loss` (:269) over 2-class logits and
@@ -23,11 +26,46 @@ ops (``_safe_div``, ``clamp``).
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
 
 EPS = 1e-5
+
+
+def _argument_dtype(compute_dtype) -> str:
+    """"bfloat16" where ``compute_dtype`` names bfloat16 (``"bfloat16"`` or
+    ``torch.bfloat16``), else "float32" (``None`` and every other dtype);
+    TypeError on a name that is no dtype, as ``jnp.dtype`` raises."""
+    if compute_dtype is None:
+        return "float32"
+    named = compute_dtype
+    if isinstance(compute_dtype, str):
+        named = getattr(torch, compute_dtype, None)
+    if not isinstance(named, torch.dtype):
+        raise TypeError(f"not a dtype: {compute_dtype!r}")
+    return "bfloat16" if named == torch.bfloat16 else "float32"
+
+
+def effective_loss_compute_dtype(compute_dtype=None, loss_name: str = "ohem"
+                                 ) -> str:
+    """The CE-term dtype the OHEM loss computes in, "bfloat16" or
+    "float32" (losses.py:45-60): float32 for every loss but ``"ohem"``;
+    with ``OCR_LOSS_BF16`` set, bfloat16 for "1", "true" or "on" and
+    float32 for any other value; unset, what ``compute_dtype`` names
+    (:func:`_argument_dtype`).
+
+    ``make_loss_fn`` calls it once and hands the result to
+    :func:`ohem_pixel_link_loss`, which reads no environment: the eager
+    and the captured steps of one loss function compute in one dtype, as
+    JAX's jitted step keeps the dtype it was traced with."""
+    if loss_name != "ohem":
+        return "float32"
+    env = os.environ.get("OCR_LOSS_BF16")
+    if env is not None:
+        return "bfloat16" if env in ("1", "true", "on") else "float32"
+    return _argument_dtype(compute_dtype)
 
 
 def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -101,7 +139,7 @@ def ohem_pixel_link_loss(pixel_labels: torch.Tensor,
                          pixel_loss_weight: float = 2.0,
                          apply_training_mask: bool = True,
                          bg_neg_budget: int = 0,
-                         compute_dtype: str = "float32"
+                         compute_dtype=None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """OHEM pixel + link loss (losses.py:137-216). Returns (total, aux).
 
@@ -109,9 +147,14 @@ def ohem_pixel_link_loss(pixel_labels: torch.Tensor,
     (B,h,w,8); link_logits (B,h,w,16) in (direction, class) pairs;
     training_mask (B,h,w[,1]). aux: pixel_loss, link_loss, n_pos and
     link_loss/dir0..7.
+
+    The CE terms and the selection weights compute in bfloat16 where
+    ``compute_dtype`` names it, else in float32 (the default); the OHNM
+    bisection and every final reduction in float32. The caller resolves
+    ``OCR_LOSS_BF16`` (:func:`effective_loss_compute_dtype`, which JAX
+    calls here at :158).
     """
-    cdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[
-        compute_dtype]
+    cdt = getattr(torch, _argument_dtype(compute_dtype))
     b = pixel_logits.shape[0]
     labels = pixel_labels.reshape(b, -1).to(torch.int32)
     logits = pixel_logits.reshape(b, -1, 2).to(cdt)

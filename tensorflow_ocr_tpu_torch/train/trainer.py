@@ -203,6 +203,9 @@ def make_loss_fn(cfg: Config) -> Callable:
     head = model_head(cfg.model.name)
     if head == "pixellink" and lcfg.name not in PIXELLINK_LOSSES:
         raise ValueError(f"loss {lcfg.name} unsupported for pixellink")
+    # the OHEM loss's dtype, OCR_LOSS_BF16 read here and only here
+    ohem_dtype = L.effective_loss_compute_dtype(lcfg.compute_dtype,
+                                                lcfg.name)
 
     def pixellink_loss(outputs, batch):
         score, link, mask = labels(batch)
@@ -213,7 +216,7 @@ def make_loss_fn(cfg: Config) -> Callable:
                 max_neg_pos_ratio=lcfg.max_neg_pos_ratio,
                 pixel_loss_weight=lcfg.pixel_loss_weight,
                 bg_neg_budget=lcfg.bg_neg_budget,
-                compute_dtype=lcfg.compute_dtype)
+                compute_dtype=ohem_dtype)
         if lcfg.name == "dice":
             return L.dice_pixel_link_loss(
                 score, torch.softmax(pl, -1)[..., 1:2], link,

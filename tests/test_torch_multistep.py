@@ -53,15 +53,17 @@ torch.set_num_threads(1)
 SIZE, S, LR, N = 64, 3, 1e-4, 6
 
 
-def _configs(freeze_bn):
+def _configs(freeze_bn, loss_dtype="float32"):
     cfg = Config()
     cfg.model.name = "pixellink_tiny"
     cfg.model.compute_dtype = "float32"
     cfg.model.freeze_bn = freeze_bn
+    cfg.loss.compute_dtype = loss_dtype
     cfg.data.input_size = SIZE
     jcfg = JConfig()
     jcfg.model.name = "pixellink_tiny"
     jcfg.model.freeze_bn = freeze_bn
+    jcfg.loss.compute_dtype = loss_dtype
     jcfg.data.input_size = SIZE
     jcfg.train.donate_state = False
     return cfg, jcfg
@@ -69,8 +71,15 @@ def _configs(freeze_bn):
 
 @pytest.mark.parametrize("freeze_bn", [False, True])
 def test_multi_matches_jax_make_multi_train_step(f32_batchnorm, freeze_bn):
+    multi_parity(freeze_bn)
+
+
+def multi_parity(freeze_bn, loss_dtype="float32"):
+    """One S-step dispatch of each package from one converted init, both
+    with the OHEM loss's ``compute_dtype`` ``loss_dtype``, held within the
+    tolerances above."""
     rng = np.random.RandomState(10 + freeze_bn)
-    cfg, jcfg = _configs(freeze_bn)
+    cfg, jcfg = _configs(freeze_bn, loss_dtype)
     dataset = TT.device_dataset(scene_batch(rng, N, SIZE), cfg, "cpu")
     assert float(dataset["score"].sum()) > 0
     idx = np.stack([rng.permutation(N)[:2] for _ in range(S)])

@@ -75,10 +75,12 @@ def numpy_init(model, size, rng):
 
 
 def run_parity(freeze_bn: bool, steps: int = STEPS, impl: str = "fused",
-               size: int = SIZE, later_rtol: float = 1e-2):
+               size: int = SIZE, later_rtol: float = 1e-2,
+               loss_dtype: str = "float32"):
     """``steps`` steps of JAX's make_train_step against the port's
     train_step with ``bottleneck_impl=impl``, from one converted init, at
-    ``size``x``size``; the losses of steps after the first within
+    ``size``x``size``, both with the OHEM loss's ``compute_dtype``
+    ``loss_dtype``; the losses of steps after the first within
     ``later_rtol``."""
     rng = np.random.RandomState(int(freeze_bn))
     batch = scene_batch(rng, 2, size)
@@ -86,6 +88,7 @@ def run_parity(freeze_bn: bool, steps: int = STEPS, impl: str = "fused",
     jcfg = JConfig()
     jcfg.data.input_size = size
     jcfg.model.freeze_bn = freeze_bn
+    jcfg.loss.compute_dtype = loss_dtype
     jcfg.train.donate_state = False
     jmodel = build_jax_model("pixellink_resnet50", dtype=jnp.float32)
     variables = numpy_init(jmodel, size, rng)
@@ -106,6 +109,7 @@ def run_parity(freeze_bn: bool, steps: int = STEPS, impl: str = "fused",
     cfg.model.compute_dtype = "float32"
     cfg.model.bottleneck_impl = impl
     cfg.model.freeze_bn = freeze_bn
+    cfg.loss.compute_dtype = loss_dtype
     state = TT.create_train_state(cfg, device="cpu",
                                   weights=convert_variables(variables))
     loss_fn = TT.make_loss_fn(cfg)
